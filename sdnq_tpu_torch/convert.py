@@ -1,0 +1,65 @@
+"""Carry weights into the port from numpy.
+
+``params_from_numpy`` turns a nested dict/list of numpy arrays (for example
+the JAX package's params after ``np.asarray``) into the port's params;
+``qtensor_from_numpy`` builds a QTensor from the arrays and metadata fields
+of a JAX ``QTensor``, so both packages can run on the same quantized bytes.
+bfloat16 and float8 arrays (numpy extension dtypes) keep their bits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .kernels.dispatch import resolve_device
+from .tensor import QTensor, QuantMeta
+
+__all__ = ["params_from_numpy", "qtensor_from_numpy", "tensor_from_numpy"]
+
+# numpy extension dtypes by name -> (same-width integer view, torch dtype)
+_BIT_VIEWS = {
+    "bfloat16": (np.int16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    view = _BIT_VIEWS.get(a.dtype.name)
+    if view is not None:
+        t = torch.from_numpy(np.ascontiguousarray(a).view(view[0]))
+        return t.view(view[1]).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def params_from_numpy(tree, device=None):
+    """Nested dict / list / tuple of numpy arrays -> the same structure of
+    tensors on ``device`` (the card by default)."""
+    device = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
+        if x is None or isinstance(x, (int, float, str, bool)):
+            return x
+        return tensor_from_numpy(x, device)
+
+    return conv(tree)
+
+
+def qtensor_from_numpy(fields: dict, meta: dict, device=None) -> QTensor:
+    """``fields``: qdata, scale and optionally zero_point, svd_up, svd_down
+    as numpy arrays (or None); ``meta``: the QuantMeta fields by name."""
+    device = resolve_device(device)
+    kw = {k: v for k, v in meta.items()
+          if k in QuantMeta.__dataclass_fields__}
+    for k in ("original_shape", "quantized_shape"):
+        kw[k] = tuple(int(d) for d in kw[k])
+    arrays = {k: (None if fields.get(k) is None
+                  else tensor_from_numpy(fields[k], device))
+              for k in ("qdata", "scale", "zero_point", "svd_up", "svd_down")}
+    return QTensor(meta=QuantMeta(**kw), **arrays)

@@ -1,0 +1,119 @@
+// Shared device helpers for the port's Hopper kernels (sm_90a).
+//
+// Type codes passed from the Python wrappers: 0 = float32, 1 = bfloat16,
+// 2 = float16 (activations and outputs); 0 = int8, 1 = bfloat16,
+// 2 = float8 e4m3 (GEMM operands).  Every C entry point returns cudaGetLastError() after its
+// launch so a refused launch is reported at the call.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sdnq {
+
+enum { F32 = 0, BF16 = 1, F16 = 2 };
+
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f32<__half>(__half v) { return __half2float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; when !valid nothing is read and the
+// destination is zero-filled (src-size 0).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// D += A(16x32 s8, row) * B(32x8 s8, col), int32 accumulate.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// D += A(16x32 e4m3, row) * B(32x8 e4m3, col), fp32 accumulate (sm_89+).
+__device__ __forceinline__ void mma_e4m3(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// D += A(16x16 bf16, row) * B(16x8 bf16, col), fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two 8x8 b16 matrices, transposed on load: the B fragment of m16n8k16
+// from a row-major [k][n] tile in shared memory.
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned& r0, unsigned& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+struct MaxOp {
+  __device__ __forceinline__ float operator()(float a, float b) const { return fmaxf(a, b); }
+};
+struct MinOp {
+  __device__ __forceinline__ float operator()(float a, float b) const { return fminf(a, b); }
+};
+struct SumOp {
+  __device__ __forceinline__ int operator()(int a, int b) const { return a + b; }
+};
+
+// Reduction over a block of exactly NT threads (a multiple of 32, <= 1024);
+// every thread gets the result.  `scratch` holds 32 values.
+template <int NT, typename T, typename Op>
+__device__ __forceinline__ T block_reduce(T v, Op op, T identity, T* scratch) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  if (l == 0) scratch[w] = v;
+  __syncthreads();
+  v = (l < NT / 32) ? scratch[l] : identity;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();  // scratch may be reused by the caller's next reduce
+  return v;
+}
+
+}  // namespace sdnq

@@ -1,0 +1,38 @@
+"""Hand-written Hopper kernels with their plain PyTorch versions.
+
+Wrappers launch the CUDA kernel on CUDA tensors and run the plain version
+on CPU tensors; each counts its launches in ``<wrapper>.launches``.
+"""
+
+from .attention import flash_attention, quantized_attention
+from .dequant_mm import dequant_gemv, dequant_matmul
+# (the function ``scaled_mm`` stays in its module, so that
+# ``kernels.scaled_mm`` names the module)
+from .scaled_mm import (
+    bf16_scaled_mm, quantize_rows, scaled_gemm, scaled_mm_fused_act,
+)
+
+# the launch-counted kernel wrappers of this package
+KERNELS = {
+    "quantize_rows": quantize_rows,
+    "scaled_gemm": scaled_gemm,
+    "dequant_gemv": dequant_gemv,
+    "flash_attention": flash_attention,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+__all__ = [
+    "KERNELS", "reset_launch_counts", "launch_counts", "quantize_rows",
+    "scaled_gemm", "scaled_mm_fused_act", "bf16_scaled_mm",
+    "dequant_gemv", "dequant_matmul", "flash_attention",
+    "quantized_attention",
+]

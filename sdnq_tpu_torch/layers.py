@@ -1,0 +1,156 @@
+"""Quantized linear forward.
+
+``qlinear`` dispatches on the QTensor's metadata, as the JAX package's
+``layers.qlinear`` does:
+
+* quantized matmul (``meta.use_quantized_matmul`` and at least 32 rows):
+  per-row activation quantization and the scaled GEMM
+  (``kernels.scaled_mm.scaled_mm_fused_act``) for symmetric int8 and
+  asymmetric uint8 weights (the uint8 zero-point algebra as two rank-1
+  epilogue terms), fp8 and the 16-bit family;
+* weight-only (fewer rows, or no quantized matmul): the row-epilogue
+  product of ``kernels.dequant_mm``.
+
+A Hadamard-rotated weight rotates the input instead, and SVD factors add
+``(x @ downᵀ) @ upᵀ`` after the kernel, both in plain torch.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .envconfig import env_int
+from .formats import torch_dtype
+from .kernels.dequant_mm import dequant_matmul
+from .kernels.scaled_mm import bf16_scaled_mm, scaled_mm_fused_act
+from .quant.core import quantize_fp_mm, quantize_int_mm, quantize_uint_mm
+from .quant.hadamard import rotate_hadamard
+from .tensor import QTensor, dequantize
+
+__all__ = ["qlinear"]
+
+
+def _min_matmul_rows() -> int:
+    return env_int("SDNQ_TPU_MIN_MATMUL_ROWS", 32)
+
+
+def _weight_as_int8(qt: QTensor):
+    """Rowwise int8/uint8 codes -> (w_i8, w_scale (O, 1), w_zp or None).
+    uint8 codes become int8 by xor 128, with the shift absorbed in zp."""
+    q = qt.qdata
+    if q.dim() > 2:
+        q = q.reshape(q.shape[0], -1)
+    scale = qt.scale.reshape(qt.scale.shape[0], -1)
+    zp = (qt.zero_point.reshape(scale.shape)
+          if qt.zero_point is not None else None)
+    if q.dtype == torch.uint8:
+        w_i8 = (q ^ 128).view(torch.int8)
+        zp = (torch.zeros_like(scale) if zp is None else zp) + scale * 128.0
+        return w_i8, scale, zp
+    return q, scale, zp
+
+
+def _requantize_rowwise(qt: QTensor):
+    """Grouped storage -> rowwise matmul operands, dequantized without the
+    SVD correction and without undoing the Hadamard rotation."""
+    wd = dequantize(qt, dtype=torch.float32, with_svd=False,
+                    with_hadamard=False)
+    if wd.dim() > 2:
+        wd = wd.reshape(wd.shape[0], -1)
+    mfmt = qt.meta.matmul_format
+    if mfmt.is_integer:
+        if mfmt.is_unsigned:
+            return quantize_uint_mm(wd, -1)
+        w_q, s = quantize_int_mm(wd, -1)
+        return w_q, s, None
+    if mfmt.num_bits == 8:
+        w_q, s = quantize_fp_mm(wd, -1, fmt=mfmt)
+        return w_q, s, None
+    s = torch.clamp_min(wd.abs().amax(-1, keepdim=True), 2.0 ** -126)
+    return (wd / s).to(torch.bfloat16), s, None
+
+
+def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype):
+    meta = qt.meta
+    mfmt = meta.matmul_format
+    if meta.use_hadamard:
+        x2d = rotate_hadamard(x2d, meta.hadamard_group_size)
+    u = v = None
+    if qt.svd_up is not None:
+        u = x2d.float() @ qt.svd_down.float().T
+        v = qt.svd_up.float().T
+    if meta.re_quantize_for_matmul:
+        w_q, w_scale, w_zp = _requantize_rowwise(qt)
+    elif mfmt.is_integer:
+        w_q, w_scale, w_zp = _weight_as_int8(qt)
+    else:
+        w_q = qt.qdata
+        if w_q.dim() > 2:
+            w_q = w_q.reshape(w_q.shape[0], -1)
+        w_scale = qt.scale.reshape(qt.scale.shape[0], -1)
+        w_zp = None
+
+    if mfmt.is_integer:
+        if w_zp is not None or mfmt.is_unsigned:
+            # y += [rowsum(x_q)*x_s] ⊗ w_zp
+            #      + x_zp ⊗ [colsum(w_q)*w_s + K*w_zp]
+            kdim = x2d.shape[-1]
+            wz = (torch.zeros((1, w_q.shape[0]), dtype=torch.float32,
+                              device=w_q.device)
+                  if w_zp is None else w_zp.reshape(1, -1))
+            w_colsum = w_q.to(torch.int32).sum(-1)[None, :].float()
+            return scaled_mm_fused_act(
+                x2d, w_q, w_scale, bias, x_fmt="uint8", out_dtype=out_dtype,
+                lowrank_u=u, lowrank_v=v, v_zp0=wz,
+                v_zp1=w_colsum * w_scale.reshape(1, -1) + float(kdim) * wz)
+        return scaled_mm_fused_act(x2d, w_q, w_scale, bias, x_fmt="int8",
+                                   out_dtype=out_dtype, lowrank_u=u,
+                                   lowrank_v=v)
+    if mfmt.num_bits == 8:
+        return scaled_mm_fused_act(
+            x2d, w_q.to(torch.float8_e4m3fn), w_scale, bias,
+            x_fmt=mfmt.name, out_dtype=out_dtype, lowrank_u=u, lowrank_v=v)
+    return bf16_scaled_mm(x2d, w_q, None, w_scale, bias, out_dtype=out_dtype,
+                          lowrank_u=u, lowrank_v=v)
+
+
+def _weight_only_linear_2d(x2d, qt: QTensor, bias, out_dtype):
+    """Row-epilogue weight-only product; with Hadamard the input is
+    rotated, x @ W_fullᵀ == (x·(I⊗H)) @ W_storedᵀ."""
+    meta = qt.meta
+    if meta.use_hadamard:
+        x2d = rotate_hadamard(x2d, meta.hadamard_group_size)
+    scale = qt.scale.reshape(qt.scale.shape[0], -1)
+    zp = (qt.zero_point.reshape(scale.shape)
+          if qt.zero_point is not None else None)
+    qd = qt.qdata
+    if qd.dim() > 2:
+        qd = qd.reshape(qd.shape[0], -1)
+    g_eff = x2d.shape[-1] // scale.shape[-1]
+    out = dequant_matmul(x2d, qd, scale, zp, bias, meta.format, g_eff,
+                         out_dtype=out_dtype)
+    if qt.svd_up is not None:
+        corr = (x2d.float() @ qt.svd_down.float().T) @ qt.svd_up.float().T
+        out = (out.float() + corr).to(out_dtype)
+    return out
+
+
+def qlinear(x: torch.Tensor, w, bias: torch.Tensor | None = None,
+            out_dtype=None) -> torch.Tensor:
+    """y = x @ w.T + bias with w a QTensor or a plain weight tensor."""
+    if not isinstance(w, QTensor):
+        out_dtype = out_dtype or x.dtype
+        out = F.linear(x, w.to(x.dtype)).float()
+        if bias is not None:
+            out = out + bias.float()
+        return out.to(out_dtype)
+    meta = w.meta
+    out_dtype = out_dtype or torch_dtype(meta.dequant_dtype)
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, x.shape[-1])
+    if meta.use_quantized_matmul and x2d.shape[0] >= _min_matmul_rows():
+        out = _quantized_matmul_2d(x2d, w, bias, out_dtype)
+    else:
+        out = _weight_only_linear_2d(x2d, w, bias, out_dtype)
+    return out.reshape(*lead, meta.original_shape[0])

@@ -1,0 +1,107 @@
+"""Shared building blocks for the models: norms in fp32, embeddings, rope,
+attention and activations, over tensors in the JAX package's layouts
+((B, H, N, D) attention, (O, C) linear weights)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.attention import quantized_attention
+
+Params = dict
+
+__all__ = ["linear_init", "layer_norm", "rms_norm", "timestep_embedding",
+           "rope", "apply_rope", "attention", "split_heads", "gelu", "silu"]
+
+
+def linear_init(in_dim: int, out_dim: int, *, generator: torch.Generator,
+                device, dtype=torch.float32, bias: bool = True) -> Params:
+    """Normal(0, 1/in_dim) weight and zero bias, drawn on ``device``."""
+    w = torch.randn((out_dim, in_dim), generator=generator, device=device,
+                    dtype=dtype)
+    p = {"weight": w.mul_(1.0 / math.sqrt(in_dim))}
+    if bias:
+        p["bias"] = torch.zeros((out_dim,), device=device, dtype=dtype)
+    return p
+
+
+def layer_norm(x, weight=None, bias=None, eps=1e-6):
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def rms_norm(x, weight=None, eps=1e-6):
+    xf = x.float()
+    out = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    if weight is not None:
+        out = out * weight.float()
+    return out.to(x.dtype)
+
+
+def timestep_embedding(t, dim: int, max_period: float = 10000.0):
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def rope(pos, dim: int, theta: float = 10000.0):
+    """Rotary table: pos (..., n) -> (..., n, dim/2, 2, 2)."""
+    scale = torch.arange(0, dim, 2, dtype=torch.float32,
+                         device=pos.device) / dim
+    omega = 1.0 / (theta ** scale)
+    out = pos.float()[..., None] * omega
+    cos, sin = torch.cos(out), torch.sin(out)
+    return torch.stack([torch.stack([cos, -sin], -1),
+                        torch.stack([sin, cos], -1)], -2)
+
+
+def apply_rope(x, freqs):
+    """x (B, H, N, D); freqs (B or 1, 1, N, D/2, 2, 2)."""
+    x2 = x.float().reshape(*x.shape[:-1], -1, 2)
+    rotated = torch.stack(
+        [freqs[..., 0, 0] * x2[..., 0] + freqs[..., 0, 1] * x2[..., 1],
+         freqs[..., 1, 0] * x2[..., 0] + freqs[..., 1, 1] * x2[..., 1]],
+        dim=-1)
+    return rotated.reshape(x.shape).to(x.dtype)
+
+
+def attention(q, k, v, attn_config: dict | None = None):
+    """q/k/v (B, H, N, D) -> (B, N, H*D); ``attn_config`` selects the
+    attention mode (default ``"auto"``)."""
+    cfg = attn_config or {}
+    out = quantized_attention(
+        q, k, v,
+        matmul_dtype=cfg.get("matmul_dtype", "auto"),
+        pv_matmul_dtype=cfg.get("pv_matmul_dtype"),
+        smooth_k=cfg.get("smooth_k", False),
+        use_hadamard=cfg.get("use_hadamard", False),
+        is_causal=cfg.get("is_causal", False),
+        out_dtype=q.dtype if q.dtype != torch.int8 else torch.bfloat16)
+    b, h, n, d = out.shape
+    return out.transpose(1, 2).reshape(b, n, h * d)
+
+
+def split_heads(x, heads: int):
+    b, n, hd = x.shape
+    return x.reshape(b, n, heads, hd // heads).transpose(1, 2)
+
+
+def gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def silu(x):
+    return F.silu(x)

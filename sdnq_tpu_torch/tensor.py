@@ -1,0 +1,220 @@
+"""QTensor: a quantized parameter as a plain dataclass of tensors.
+
+The same fields and metadata as the JAX package's ``QTensor``: codes in the
+layer's natural orientation (linear (O, C)), scales and zero points
+broadcast-ready against the grouped view in ``meta.quantized_shape``,
+optional SVD factors.  Blocks of a model stay lists, so there is no stacked
+layer view.  Packed (non-native width) formats are a later slice.
+
+fp16 weights under a quantized matmul are stored as bf16, as in the JAX
+package: the 16-bit GEMM flavour multiplies bf16, so storing what it
+multiplies avoids a cast per call and keeps the bytes of both packages
+equal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .formats import Format, get_format, default_matmul_format, torch_dtype
+from .quant.core import quantize_weight
+from .quant.hadamard import apply_hadamard, rotate_hadamard
+
+__all__ = ["QuantMeta", "QTensor", "quantize_tensor", "dequantize",
+           "auto_group_size", "negotiate_group_count"]
+
+LINEAR, CONV, CONV_TRANSPOSE, EMBEDDING = (
+    "linear", "conv", "conv_transpose", "embedding")
+
+
+def _packed_error(fmt_name: str):
+    return NotImplementedError(
+        f"{fmt_name}: packed formats arrive with the packing codecs, a "
+        "later slice of the port (ROADMAP queue A item 2)")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantMeta:
+    """Static metadata for one quantized parameter."""
+
+    fmt: str
+    matmul_fmt: str
+    layer_kind: str
+    original_shape: tuple[int, ...]
+    quantized_shape: tuple[int, ...]
+    group_axis: int
+    group_size: int               # -1 = channel-wise (no sub-groups)
+    use_hadamard: bool
+    hadamard_group_size: int
+    svd_rank: int                 # 0 = no SVD correction
+    use_quantized_matmul: bool
+    re_quantize_for_matmul: bool  # storage cannot feed the matmul directly
+    dequant_dtype: str = "bfloat16"
+    pack_layout: str = "bitplane"
+
+    @property
+    def format(self) -> Format:
+        return get_format(self.fmt)
+
+    @property
+    def matmul_format(self) -> Format:
+        return get_format(self.matmul_fmt)
+
+    @property
+    def is_packed(self) -> bool:
+        return self.format.is_packed
+
+
+@dataclasses.dataclass
+class QTensor:
+    qdata: torch.Tensor
+    scale: torch.Tensor
+    zero_point: torch.Tensor | None
+    svd_up: torch.Tensor | None
+    svd_down: torch.Tensor | None
+    meta: QuantMeta
+
+    def dequantize(self, dtype=None, *, with_svd: bool = True,
+                   with_hadamard: bool = True) -> torch.Tensor:
+        return dequantize(self, dtype=dtype, with_svd=with_svd,
+                          with_hadamard=with_hadamard)
+
+
+def auto_group_size(fmt: Format, layer_kind: str, has_svd: bool,
+                    use_quantized_matmul: bool,
+                    re_quantize_for_matmul: bool) -> int:
+    if (use_quantized_matmul and not re_quantize_for_matmul
+            and fmt.num_bits >= 6):
+        return -1
+    if layer_kind == LINEAR:
+        return 2 ** ((3 if has_svd else 2) + fmt.num_bits)
+    return 2 ** ((2 if has_svd else 1) + fmt.num_bits)
+
+
+def negotiate_group_count(channel: int, group_size: int) -> tuple[int, int]:
+    """Largest divisor-friendly (group_size, num_groups) <= requested."""
+    if group_size >= channel:
+        return channel, 1
+    num = channel // group_size
+    while num * group_size != channel:
+        num -= 1
+        if num <= 1:
+            return channel, 1
+        group_size = channel // num
+    return group_size, num
+
+
+def _grouped_view(w: torch.Tensor, layer_kind: str, group_size: int):
+    """Reshape ``w`` so the reduction runs over a trailing group axis;
+    returns (grouped, group_axis, reduction_dims, g, num_groups)."""
+    if layer_kind == CONV and w.dim() > 2:
+        o, c = w.shape[:2]
+        g, num = (negotiate_group_count(c, group_size) if group_size > 0
+                  else (c, 1))
+        if num > 1:
+            grouped = w.reshape(o, num, g, *w.shape[2:])
+            return grouped, 2, (2,) + tuple(range(3, grouped.dim())), g, num
+        return w, 1, (1,) + tuple(range(2, w.dim())), g, 1
+    if layer_kind == CONV_TRANSPOSE and w.dim() > 2:
+        c, o = w.shape[:2]
+        g, num = (negotiate_group_count(c, group_size) if group_size > 0
+                  else (c, 1))
+        if num > 1:
+            grouped = w.reshape(num, g, o, *w.shape[2:])
+            return grouped, 1, (1,) + tuple(range(3, grouped.dim())), g, num
+        return w, 0, (0,) + tuple(range(2, w.dim())), g, 1
+    c = w.shape[-1]
+    g, num = (negotiate_group_count(c, group_size) if group_size > 0
+              else (c, 1))
+    if num > 1:
+        grouped = w.reshape(*w.shape[:-1], num, g)
+        return grouped, grouped.dim() - 1, (grouped.dim() - 1,), g, num
+    return w, w.dim() - 1, (w.dim() - 1,), g, 1
+
+
+def quantize_tensor(w: torch.Tensor, fmt: str | Format = "int8",
+                    layer_kind: str = LINEAR, *,
+                    matmul_fmt: str | None = None, group_size: int = 0,
+                    hadamard_group_size: int = 256, svd_rank: int = 32,
+                    svd_steps: int = 8, use_svd: bool = False,
+                    use_hadamard: bool = False,
+                    use_quantized_matmul: bool = False,
+                    use_stochastic_rounding: bool = False,
+                    dequant_dtype: str = "bfloat16",
+                    generator: torch.Generator | None = None) -> QTensor:
+    """Quantize a weight into a QTensor on the weight's device."""
+    fmt = get_format(fmt) if isinstance(fmt, str) else fmt
+    if fmt.is_packed:
+        raise _packed_error(fmt.name)
+    if use_svd:
+        raise NotImplementedError(
+            "SVDQuant weight factorisation is a later slice of the port "
+            "(ROADMAP queue A item 3; QTensors carrying SVD factors are "
+            "accepted by qlinear)")
+    del svd_steps
+    mfmt = get_format(matmul_fmt or default_matmul_format(fmt.name))
+    original_shape = tuple(w.shape)
+    w = w.float()
+
+    re_quantize = bool(
+        fmt.num_bits > mfmt.num_bits
+        or fmt.is_integer != mfmt.is_integer
+        or (fmt.is_unsigned and not mfmt.is_integer))
+    if layer_kind == CONV_TRANSPOSE:
+        use_quantized_matmul = False
+    if use_hadamard:
+        is_conv = layer_kind == CONV and w.dim() > 2
+        w, use_hadamard, hadamard_group_size = apply_hadamard(
+            w, hadamard_group_size, is_conv=is_conv)
+    if group_size == 0:
+        group_size = auto_group_size(fmt, layer_kind, False,
+                                     use_quantized_matmul, re_quantize)
+    grouped, group_axis, red_dims, g, num = _grouped_view(
+        w, layer_kind, group_size)
+    re_quantize = re_quantize or num > 1
+    q, scale, zero_point = quantize_weight(
+        grouped, fmt, dims=red_dims,
+        generator=generator if use_stochastic_rounding else None)
+    quantized_shape = tuple(q.shape)
+    if fmt.name == "float16" and use_quantized_matmul and not re_quantize:
+        q = q.to(torch.bfloat16)
+    meta = QuantMeta(
+        fmt=fmt.name, matmul_fmt=mfmt.name, layer_kind=layer_kind,
+        original_shape=original_shape, quantized_shape=quantized_shape,
+        group_axis=group_axis, group_size=g if num > 1 else -1,
+        use_hadamard=bool(use_hadamard),
+        hadamard_group_size=hadamard_group_size, svd_rank=0,
+        use_quantized_matmul=bool(use_quantized_matmul),
+        re_quantize_for_matmul=bool(re_quantize),
+        dequant_dtype=dequant_dtype, pack_layout="bitplane")
+    return QTensor(qdata=q, scale=scale.float(),
+                   zero_point=None if zero_point is None
+                   else zero_point.float(),
+                   svd_up=None, svd_down=None, meta=meta)
+
+
+def dequantize(qt: QTensor, dtype=None, *, with_svd: bool = True,
+               with_hadamard: bool = True) -> torch.Tensor:
+    meta = qt.meta
+    if meta.is_packed:
+        raise _packed_error(meta.fmt)
+    if dtype is None:
+        dtype = torch_dtype(meta.dequant_dtype)
+    w = qt.qdata.to(qt.scale.dtype) * qt.scale
+    if qt.zero_point is not None:
+        w = w + qt.zero_point
+    w = w.reshape(meta.original_shape)
+    if with_svd and qt.svd_up is not None:
+        corr = (qt.svd_up.float() @ qt.svd_down.float()).reshape(
+            meta.original_shape)
+        w = w + corr.to(w.dtype)
+    if with_hadamard and meta.use_hadamard:
+        if meta.layer_kind == CONV and w.dim() > 2:
+            shape = w.shape
+            w = rotate_hadamard(w.reshape(shape[0], -1),
+                                meta.hadamard_group_size).reshape(shape)
+        else:
+            w = rotate_hadamard(w, meta.hadamard_group_size)
+    return w.to(dtype)

@@ -1,0 +1,193 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``; each test skips without a GPU (the kernels have no CPU
+mode).  Run on a machine with an H100 and nvcc:
+``python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q``.
+
+Tolerances: the int8 GEMM and the row quantization are bit-exact (integer
+sums, the same rounded fp32 epilogue); bf16 and fp32-sum kernels differ
+from their plain versions in summation order (GEMV, bf16 GEMM: rtol 1e-4
+of the sum of |terms|) and, for attention, in where P is rounded to bf16
+against a running instead of the final row max (2^-6 of the largest
+output, two bf16 ulps of it)."""
+
+import pytest
+import torch
+
+from sdnq_tpu_torch.kernels import attention as ka
+from sdnq_tpu_torch.kernels import dequant_mm as kd
+from sdnq_tpu_torch.kernels import scaled_mm as ks
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+@pytest.mark.parametrize("m,k", [(1, 64), (37, 200), (300, 3072)])
+@pytest.mark.parametrize("x_fmt", ["int8", "uint8", "float8_e4m3fn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rows(dev, m, k, x_fmt, dtype):
+    x = torch.randn(m, k, device=dev, generator=_gen(0)).to(dtype)
+    got = ks.quantize_rows(x, x_fmt, k_pad=24)
+    want = ks.quantize_rows_plain(x, x_fmt, k_pad=24)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:  # bytes equal (fp8 codes compared as bytes)
+            assert torch.equal(a.view(torch.uint8) if a.element_size() == 1
+                               else a,
+                               b.view(torch.uint8) if b.element_size() == 1
+                               else b)
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 8, 64), (130, 200, 200),
+                                   (257, 129, 1088)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_scaled_gemm_int8_exact(dev, m, n, k, out_dtype):
+    g = _gen(1)
+    a = torch.randint(-128, 128, (m, k), device=dev, generator=g,
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (n, k), device=dev, generator=g,
+                      dtype=torch.int8)
+    xs = torch.rand(m, 1, device=dev, generator=g) * 0.02
+    ws = torch.rand(n, device=dev, generator=g) * 0.02
+    bias = torch.randn(n, device=dev, generator=g)
+    rs, zp = torch.randn(m, device=dev, generator=g), torch.randn(
+        m, device=dev, generator=g)
+    vz0, vz1 = torch.randn(n, device=dev, generator=g), torch.randn(
+        n, device=dev, generator=g)
+    for extra in ({}, dict(rs=rs, zp=zp, vz0=vz0, vz1=vz1)):
+        got = ks.scaled_gemm(a, b, out_dtype, xs, ws, bias, **extra)
+        want = ks.scaled_gemm_plain(a, b, out_dtype, xs, ws, bias, **extra)
+        assert torch.equal(got, want)
+
+
+def test_scaled_gemm_fp8(dev):
+    """e4m3 products are exact in fp32; only the summation order differs."""
+    g = _gen(8)
+    a = torch.randn(150, 200, device=dev, generator=g).to(torch.float8_e4m3fn)
+    b = torch.randn(72, 200, device=dev, generator=g).to(torch.float8_e4m3fn)
+    xs = torch.rand(150, 1, device=dev, generator=g)
+    got = ks.scaled_gemm(a, b, torch.float32, xs)
+    want = ks.scaled_gemm_plain(a, b, torch.float32, xs)
+    bound = 1e-5 * (a.float().abs() @ b.float().abs().T) * xs
+    assert ((got - want).abs() <= bound + 1e-6).all()
+
+
+def test_scaled_gemm_bf16(dev):
+    g = _gen(2)
+    a = torch.randn(200, 96, device=dev, generator=g).bfloat16()
+    b = torch.randn(136, 96, device=dev, generator=g).bfloat16()
+    got = ks.scaled_gemm(a, b, torch.float32)
+    want = ks.scaled_gemm_plain(a, b, torch.float32)
+    bound = 1e-4 * (a.float().abs() @ b.float().abs().T)
+    assert ((got - want).abs() <= bound + 1e-6).all()
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 17, 32])
+@pytest.mark.parametrize("unsigned", [False, True])
+def test_dequant_gemv(dev, m, unsigned):
+    g = _gen(3)
+    k, o = 776, 1000
+    x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+    lo, hi, dt = (0, 256, torch.uint8) if unsigned else (-128, 128,
+                                                         torch.int8)
+    w = torch.randint(lo, hi, (o, k), device=dev, generator=g, dtype=dt)
+    s = torch.rand(o, device=dev, generator=g) * 0.01
+    z = torch.randn(o, device=dev, generator=g) if unsigned else None
+    bias = torch.randn(o, device=dev, generator=g)
+    got = kd.dequant_gemv(x, w, s, z, bias, torch.float32)
+    want = kd.dequant_gemv_plain(x, w, s, z, bias, torch.float32)
+    bound = 1e-4 * ((x.float().abs() @ w.float().abs().T) * s
+                    + (x.float().abs().sum(-1, keepdim=True)
+                       * (z.abs() if z is not None else 0)))
+    assert ((got - want).abs() <= bound + 1e-5).all()
+
+
+@pytest.mark.parametrize("x_fmt", ["int8", "uint8", "float8_e4m3fn"])
+def test_fused_act_wrapper_matches_cpu(dev, x_fmt):
+    """B1 as the layers call it (K 272 is padded on the card only): the
+    card's result equals the plain composition on the CPU."""
+    g = _gen(5)
+    m, k, o = 70, 272, 96
+    x = torch.randn(m, k, device=dev, generator=g)
+    w = torch.randint(-128, 128, (o, k), device=dev, generator=g,
+                      dtype=torch.int8)
+    if x_fmt == "float8_e4m3fn":
+        w = (w.float() / 8).to(torch.float8_e4m3fn)
+    ws = torch.rand(o, 1, device=dev, generator=g) * 0.01
+    bias = torch.randn(o, device=dev, generator=g)
+    kw = {}
+    if x_fmt == "uint8":
+        kw = dict(v_zp0=torch.randn(1, o, device=dev, generator=g) * 0.1,
+                  v_zp1=torch.randn(1, o, device=dev, generator=g))
+    got = ks.scaled_mm_fused_act(x, w, ws, bias, x_fmt=x_fmt,
+                                 out_dtype=torch.float32, **kw)
+    want = ks.scaled_mm_fused_act(
+        x.cpu(), w.cpu(), ws.cpu(), bias.cpu(), x_fmt=x_fmt,
+        out_dtype=torch.float32, **{a: b.cpu() for a, b in kw.items()})
+    # integer sums are exact; fp8 sums differ in order (fp32)
+    tol = 1e-5 if x_fmt == "float8_e4m3fn" else 1e-6
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("rows", [5, 40])
+def test_qlinear_on_card_matches_cpu(dev, rows):
+    """Both qlinear routes on the card (B2 below 32 rows, B1 above) against
+    the same QTensor on the CPU, bf16 output: one bf16 ulp."""
+    import sdnq_tpu_torch as T
+    g = _gen(6)
+    w = torch.randn(192, 256, device=dev, generator=g)
+    x = torch.randn(rows, 256, device=dev, generator=g)
+    b = torch.randn(192, device=dev, generator=g)
+    qt = T.quantize_tensor(w, "int8", use_quantized_matmul=True)
+    got = T.qlinear(x, qt, b).float().cpu()
+    qt_cpu = T.QTensor(qdata=qt.qdata.cpu(), scale=qt.scale.cpu(),
+                       zero_point=None, svd_up=None, svd_down=None,
+                       meta=qt.meta)
+    want = T.qlinear(x.cpu(), qt_cpu, b.cpu()).float()
+    assert ((got - want).abs() <= want.abs() * 2 ** -7 + 1e-3).all()
+
+
+def test_dequant_matmul_many_rows(dev):
+    """Rowwise weight-only above 32 rows has no kernel yet: on the card it
+    raises instead of running a stand-in."""
+    from sdnq_tpu_torch.formats import get_format
+    g = _gen(7)
+    x = torch.randn(48, 320, device=dev, generator=g).bfloat16()
+    w = torch.randint(0, 256, (136, 320), device=dev, generator=g,
+                      dtype=torch.uint8)
+    s = torch.rand(136, 1, device=dev, generator=g) * 0.01
+    z = torch.randn(136, 1, device=dev, generator=g)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        kd.dequant_matmul(x, w, s, z, None, get_format("uint8"), -1,
+                          out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n,kn", [(77, 77), (128, 300), (300, 64)])
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_attention(dev, d, n, kn, quant):
+    g = _gen(4)
+    q = torch.randn(3, n, d, device=dev, generator=g)
+    k = torch.randn(3, kn, d, device=dev, generator=g)
+    v = torch.randn(3, kn, d, device=dev, generator=g).bfloat16()
+    if quant:
+        from sdnq_tpu_torch.quant.core import quantize_int_mm
+        qq, qs = quantize_int_mm(q)
+        kq, kss = quantize_int_mm(k)
+        args = (qq, kq, v, qs[..., 0] * d ** -0.5 * ka.LOG2E, kss[..., 0])
+    else:
+        args = ((q * d ** -0.5 * ka.LOG2E).bfloat16(), k.bfloat16(), v)
+    got = ka.flash_attention(*args, out_dtype=torch.float32)
+    want = ka.flash_attention_plain(*args, out_dtype=torch.float32)
+    assert (got - want).abs().max() <= 2 ** -6 * want.abs().max()
