@@ -11,30 +11,41 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               (one process per source, all at once) into the package's
               ignored _build/ directory.
 3. kernels  - calls each kernel's wrapper at the shapes of the FLUX.1-dev
-              main path, holds it against its plain PyTorch version on the
+              paths, holds it against its plain PyTorch version on the
               same inputs, times kernel, plain version and a one-call
               PyTorch yardstick with CUDA events, and computes the bound
               (bytes over 3.35 TB/s or operations over the H100's peak for
               their type, the larger).  Prints one {"kernels": [...]} line
-              for the kernels of the main path.
-4. main     - FLUX.1-dev at full width and depth (19 double + 38 single
+              for the kernels of the paths.
+4. int8     - FLUX.1-dev at full width and depth (19 double + 38 single
               blocks) with random int8 weights from a seeded generator:
               2 requests of 4 flow-matching Euler steps at 1024x1024 (4096
               image tokens), 512 text tokens, guidance 3.5.  Launch counts
               are zeroed just before and read just after; every kernel of
               the path must have launched.
-5. slice    - the same weights cut to 1 double + 2 single blocks, one
-              forward at 1024x1024 with 512 text tokens through the
-              kernels against the all-plain path, both on the card (the
-              check swaps each wrapper for its plain version for the
-              reference run and verifies no kernel launched in it).
-6. profile  - one Euler step of the full model traced with
-              torch.profiler: device time by kernel group, idle share.
+4b. uint4   - the same model quantized to uint4 + SVD rank 32 (the
+              published 4-bit recipe) on the weight-only route: 2 requests
+              x 4 steps; B5, B6 and attention must launch.
+4c. uint4 q - the same stored tensors on the quantized-matmul route
+              (``use_quantized_matmul`` set on each QTensor's meta): 1
+              request x 2 steps; B7, B6 and the requantize fallback (B1 +
+              B4, for the 96- and 120-group layers) must launch.
+5. slice    - each model cut to 1 double + 2 single blocks, one forward at
+              1024x1024 with 512 text tokens through the kernels against
+              the all-plain path, both on the card (the check swaps each
+              wrapper for its plain version for the reference run and
+              verifies no kernel launched in it): int8, uint4 weight-only
+              and uint4 quantized matmul, each with its own limit.
+6. profile  - one Euler step of the full int8 model and one of the uint4
+              weight-only model traced with torch.profiler: device time by
+              kernel group, idle share.
 7. faults   - broken copies of the kernel sources (FAULTS: a skipped KV
               tile, a missing rescale, a dropped K stage, a short warp
-              reduction, round-half-away), built with the real ones; phases
-              3 and 5 rerun with each in turn.  Phase 3 must fail for the
-              broken kernel; phase 5's reading is printed beside its limit.
+              reduction, round-half-away, the other nibble decoded, a
+              neighbouring group's scale, the other field's bits kept),
+              built with the real ones; phases 3 and 5 rerun with each in
+              turn.  Phase 3 must fail for the broken kernel; phase 5's
+              reading is printed beside its limit.
 
 The last line is {"ok": true, "device": {...}}.  Numbers are this card's,
 at the power limit printed beside them.
@@ -104,6 +115,7 @@ def kernel_phase(torch, dev, timed: bool = True):
     from sdnq_tpu_torch.kernels import attention as ka
     from sdnq_tpu_torch.kernels import dequant_mm as kd
     from sdnq_tpu_torch.kernels import scaled_mm as ks
+    from sdnq_tpu_torch.packing import pack_codes_halfsplit
     from sdnq_tpu_torch.quant.core import quantize_int_mm
 
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -113,7 +125,7 @@ def kernel_phase(torch, dev, timed: bool = True):
         return time_ms(fn, reps=reps) if timed else None
 
     def record(name, route, source, replaces, err, tol, ms, plain_ms,
-               bnd, library_ms, shape, on_path=True):
+               bnd, library_ms, shape, on_path=True, path="int8"):
         check(err <= tol,
               f"{name} {shape}: max_abs_err {err:.3e} <= {tol:.3e}")
         rows.append(dict(name=name, route=route, source=source,
@@ -121,7 +133,7 @@ def kernel_phase(torch, dev, timed: bool = True):
                          tolerance=tol, ms=ms, plain_ms=plain_ms,
                          bound_ms=bnd[0], bound_by=bnd[1],
                          library_ms=library_ms, shape=shape,
-                         on_main_path=on_path))
+                         on_main_path=on_path, path=path))
 
     m = 4608
     # B1, quantize half: fp32 rows into qkv / linear1 / fc1 (K 3072) and
@@ -294,6 +306,88 @@ def kernel_phase(torch, dev, timed: bool = True):
                     0.75 * flops, "bf16"), t(sdpa),
            f"BH{bh} N{n} D{d} int8-QK", on_path=False)
     del q, kk, v, qb, kb, qq, kq
+
+    # B5 / B6 / B7 on uint4 half-split codes, group 128 (the uint4 + SVD
+    # recipe), with a zero point about 8 steps below the codes.  The plain
+    # versions round only the inputs and the output, as the kernels do:
+    # B7 sums exact integers and folds in the same fp32 order (bit-equal
+    # expected), B5 and B6 sum fp32 in another order.  The limit is one
+    # bf16 ulp of the largest output (2^-7 of it) for all three.
+    def ulp_tol(want):
+        return float(want.float().abs().max()) * 2 ** -7
+
+    def uint4_weight(n, k, gsize=128):
+        codes = torch.randint(0, 16, (n, k), device=dev, generator=g,
+                              dtype=torch.int32)
+        scale = torch.rand(n, k // gsize, device=dev, generator=g) * 2e-3 \
+            + 1e-3
+        zpc = -8 * scale * (1 + 0.1 * torch.randn(
+            n, k // gsize, device=dev, generator=g))
+        w_deq = (codes.float().reshape(n, k // gsize, gsize) * scale[..., None]
+                 + zpc[..., None]).reshape(n, k).bfloat16()
+        return pack_codes_halfsplit(codes, 4), scale, zpc, w_deq
+
+    def halfsplit_bytes(n, k, gsize=128):
+        return n * k // 2 + 2 * n * (k // gsize) * 4 + n * 4
+
+    for m, k, n in ((4608, 3072, 21504), (4608, 15360, 3072),
+                    (512, 3072, 9216)):
+        packed, scale, zpc, w_deq = uint4_weight(n, k)
+        x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+        bias = torch.randn(n, device=dev, generator=g)
+        args = (x, packed, scale, zpc, bias, 4, torch.bfloat16)
+        got = kd.groupdot_mm(*args)
+        want = kd.groupdot_mm_plain(*args)
+        record("groupdot_mm", "cuda", "sdnq_tpu_torch/csrc/groupdot_mm.cu",
+               "sdnq_tpu/kernels/dequant_mm.py:355",
+               float((got.float() - want.float()).abs().max()),
+               ulp_tol(want), t(lambda: kd.groupdot_mm(*args)),
+               t(lambda: kd.groupdot_mm_plain(*args), reps=3),
+               bound_ms(m * k * 2 + halfsplit_bytes(n, k) + m * n * 2,
+                        2 * m * n * k, "bf16"),
+               t(lambda: F.linear(x, w_deq, bias.bfloat16())),
+               f"M{m} K{k} N{n} uint4 g128", path="uint4_wo")
+        del packed, w_deq, x
+
+    for k, n in ((3072, 18432), (256, 3072)):
+        packed, scale, zpc, w_deq = uint4_weight(n, k)
+        x = torch.randn(1, k, device=dev, generator=g)
+        bias = torch.randn(n, device=dev, generator=g)
+        args = (x, packed, scale, zpc, bias, 4, torch.bfloat16)
+        got = kd.blockdiag_mm(*args)
+        want = kd.blockdiag_mm_plain(*args)
+        xb = x.bfloat16()
+        record("blockdiag_mm", "cuda", "sdnq_tpu_torch/csrc/blockdiag_mm.cu",
+               "sdnq_tpu/kernels/dequant_mm.py:593",
+               float((got.float() - want.float()).abs().max()),
+               ulp_tol(want), t(lambda: kd.blockdiag_mm(*args), reps=20),
+               t(lambda: kd.blockdiag_mm_plain(*args), reps=5),
+               bound_ms(halfsplit_bytes(n, k) + k * 4 + n * 2, 2 * n * k,
+                        "fp32"),
+               t(lambda: F.linear(xb, w_deq, bias.bfloat16()), reps=20),
+               f"M1 K{k} N{n} uint4 g128", path="uint4_wo")
+        del packed, w_deq
+
+    for m, k, n in ((4608, 3072, 21504), (4096, 3072, 9216)):
+        packed, scale, zpc, w_deq = uint4_weight(n, k)
+        xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                           dtype=torch.int8)
+        xs = torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3
+        bias = torch.randn(n, device=dev, generator=g)
+        args = (xq, xs, packed, scale, zpc, bias, 4, torch.bfloat16)
+        got = kd.groupdot_i8_mm(*args)
+        want = kd.groupdot_i8_mm_plain(*args)
+        xb = (xq.float() * xs).bfloat16()
+        record("groupdot_i8_mm", "cuda", "sdnq_tpu_torch/csrc/groupdot_mm.cu",
+               "sdnq_tpu/kernels/dequant_mm.py:741",
+               float((got.float() - want.float()).abs().max()),
+               ulp_tol(want), t(lambda: kd.groupdot_i8_mm(*args)),
+               t(lambda: kd.groupdot_i8_mm_plain(*args), reps=3),
+               bound_ms(m * k + halfsplit_bytes(n, k) + m * 4 + m * n * 2,
+                        2 * m * n * k, "int8"),
+               t(lambda: F.linear(xb, w_deq, bias.bfloat16())),
+               f"M{m} K{k} N{n} uint4 g128", path="uint4_qmm")
+        del packed, w_deq, xq, xb
     torch.cuda.empty_cache()
     return rows
 
@@ -302,29 +396,43 @@ def kernel_phase(torch, dev, timed: bool = True):
 # phases 4 and 5
 # ---------------------------------------------------------------------------
 
-def main_path(torch, dev, rows):
-    from sdnq_tpu_torch import QuantConfig, quantize_model
-    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+def build_model(torch, dev, qconfig, label):
+    """FLUX.1-dev at full width and depth, bf16 weights from a seeded
+    generator on the card, quantized layer by layer with ``qconfig``; the
+    bf16 model is freed afterwards."""
+    from sdnq_tpu_torch import quantize_model
     from sdnq_tpu_torch.models import FLUX_DEV_CONFIG
     from sdnq_tpu_torch.models.dit import init_dit
-    from sdnq_tpu_torch.pipeline import flux_denoise
 
-    cfg = FLUX_DEV_CONFIG
     t0 = time.perf_counter()
-    params = init_dit(cfg, device=dev, dtype=torch.bfloat16,
+    params = init_dit(FLUX_DEV_CONFIG, device=dev, dtype=torch.bfloat16,
                       generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     qparams, _ = quantize_model(
-        params, QuantConfig(weights_dtype="int8", use_quantized_matmul=True),
-        arch="FluxTransformer2DModel", device=dev)
+        params, qconfig, arch="FluxTransformer2DModel", device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"main: FLUX.1-dev int8 weights ready in "
-        f"{time.perf_counter() - t0:.1f} s, "
+    log(f"{label}: FLUX.1-dev weights built in {t1 - t0:.1f} s, quantized "
+        f"in {time.perf_counter() - t1:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return qparams
 
+
+def denoise_path(torch, dev, qparams, label, requests, steps, required):
+    """``flux_denoise`` at 1024x1024, 512 text tokens, guidance 3.5:
+    ``requests`` requests of ``steps`` steps with the launch counts zeroed
+    just before and read just after; every kernel in ``required`` must
+    have launched.  Returns the counts."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models import FLUX_DEV_CONFIG
+    from sdnq_tpu_torch.pipeline import flux_denoise
+
+    cfg = FLUX_DEV_CONFIG
     g = torch.Generator(device=dev).manual_seed(7)
-    txt_len, steps, requests, side = 512, 4, 2, 1024
+    txt_len, side = 512, 1024
     txt = torch.randn(1, txt_len, cfg.txt_dim, device=dev, generator=g)
     pooled = torch.randn(1, cfg.vec_dim, device=dev, generator=g)
     torch.cuda.synchronize()
@@ -343,26 +451,46 @@ def main_path(torch, dev, rows):
     counts = launch_counts()
     n_img = (side // 16) ** 2
     forwards = requests * steps
-    log(f"main: {requests} requests x {steps} steps, {n_img} image + "
+    log(f"{label}: {requests} requests x {steps} steps, {n_img} image + "
         f"{txt_len} text tokens, depth {cfg.depth_double}+{cfg.depth_single}")
     for r, t in enumerate(times):
-        log(f"main: request {r}: {t:.3f} s, {t / steps * 1e3:.1f} ms/step, "
+        log(f"{label}: request {r}: {t:.3f} s, {t / steps * 1e3:.1f} ms/step, "
             f"{n_img * steps / t:.0f} image tokens/s")
-    log(f"main: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-        "GiB")
-    log("main: launches " + json.dumps(counts) + " per forward "
+    log(f"{label}: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{label}: launches " + json.dumps(counts) + " per forward "
         + json.dumps({k: v / forwards for k, v in counts.items()}))
-    for name in ("quantize_rows", "scaled_gemm", "dequant_gemv",
-                 "flash_attention"):
-        check(counts[name] > 0, f"main path launched {name}")
-    for row in rows:
-        row["launches"] = counts[row["name"]] if row["on_main_path"] else 0
+    for name in required:
+        check(counts[name] > 0, f"{label} path launched {name}")
     for lat in outs:
         check(tuple(lat.shape) == (1, n_img, cfg.in_channels)
               and bool(torch.isfinite(lat).all()),
-              f"main output {tuple(lat.shape)} finite")
-    check(not torch.equal(outs[0], outs[1]), "requests differ by their noise")
-    return qparams
+              f"{label} output {tuple(lat.shape)} finite")
+    if requests > 1:
+        check(not torch.equal(outs[0], outs[1]),
+              f"{label}: requests differ by their noise")
+    return counts
+
+
+def with_quantized_matmul(qparams):
+    """The same stored tensors with ``meta.use_quantized_matmul`` set where
+    the quantizer's policy allows it: quantize_tensor stores identical
+    tensors under both settings (tests/test_torch_formats_quant.py)."""
+    import dataclasses
+    from sdnq_tpu_torch import QTensor
+    from sdnq_tpu_torch.policy import quantized_matmul_allowed
+
+    def conv(x):
+        if isinstance(x, QTensor):
+            use = quantized_matmul_allowed(True, *x.meta.original_shape[:2])
+            return dataclasses.replace(x, meta=dataclasses.replace(
+                x.meta, use_quantized_matmul=use))
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [conv(v) for v in x]
+        return x
+    return conv(qparams)
 
 
 @contextlib.contextmanager
@@ -378,6 +506,9 @@ def plain_versions():
     swaps = [(ks, "quantize_rows", ks.quantize_rows_plain),
              (ks, "scaled_gemm", ks.scaled_gemm_plain),
              (kd, "dequant_gemv", kd.dequant_gemv_plain),
+             (kd, "groupdot_mm", kd.groupdot_mm_plain),
+             (kd, "blockdiag_mm", kd.blockdiag_mm_plain),
+             (kd, "groupdot_i8_mm", kd.groupdot_i8_mm_plain),
              (ka, "flash_attention", ka.flash_attention_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
@@ -413,38 +544,49 @@ def forward(params, cfg, inp, dev):
                        freqs=inp["freqs"], device=dev)
 
 
-# The sound kernels read about 1e-2 in the slice check on the H100 (9.0e-3,
-# 1.03e-2): bf16 rounding differences flip int8 activation codes, and the
-# flips compound over the blocks.  The limit sits at twice that.
-SLICE_TOL = 2e-2
+# Limits of the slice check, each about twice its sound reading on the
+# H100.  int8: 9.0e-3 and 1.03e-2; bf16 rounding differences flip int8
+# activation codes, and the flips compound over the blocks.  uint4
+# weight-only: 2.9e-3, bf16 rounding alone (no activation codes).  uint4
+# with the quantized matmul: 1.08e-2, int8 activation codes again.
+SLICE_TOL = {"int8": 2e-2, "uint4_wo": 6e-3, "uint4_qmm": 2.2e-2}
 
 
-def slice_phase(torch, dev, qparams) -> float:
-    """Kernel path against the all-plain path, both on the card; returns
-    the largest error over the largest output."""
+def cut(qparams):
+    """1 double + 2 single blocks of a model, and the matching config."""
     import dataclasses
-    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
     from sdnq_tpu_torch.models import FLUX_DEV_CONFIG
+    cfg = dataclasses.replace(FLUX_DEV_CONFIG, depth_double=1,
+                              depth_single=2)
+    return dict(qparams,
+                transformer_blocks=qparams["transformer_blocks"][:1],
+                single_transformer_blocks=qparams[
+                    "single_transformer_blocks"][:2]), cfg
 
-    cfg = dataclasses.replace(FLUX_DEV_CONFIG, depth_double=1, depth_single=2)
-    cut = dict(qparams, transformer_blocks=qparams["transformer_blocks"][:1],
-               single_transformer_blocks=qparams[
-                   "single_transformer_blocks"][:2])
+
+def slice_phase(torch, dev, sliced, label) -> float:
+    """Kernel path against the all-plain path, both on the card, on a model
+    cut by ``cut``; returns the largest error over the largest output."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    params, cfg = sliced
     inp = dit_inputs(torch, dev, cfg)
-    out = forward(cut, cfg, inp, dev).float()
+    out = forward(params, cfg, inp, dev).float()
     reset_launch_counts()
     with plain_versions():
-        ref = forward(cut, cfg, inp, dev).float()
+        ref = forward(params, cfg, inp, dev).float()
     launched = launch_counts()
     check(not any(launched.values()),
-          "slice: the plain path launched no kernel " + json.dumps(launched))
+          f"slice {label}: the plain path launched no kernel "
+          + json.dumps(launched))
     rel = float((out - ref).abs().max() / ref.abs().max())
-    log("slice: 1 double + 2 single blocks at full width, "
+    tol = SLICE_TOL[label]
+    log(f"slice {label}: 1 double + 2 single blocks at full width, "
         f"{inp['img'].shape[1]} image + {inp['txt'].shape[1]} text tokens, "
         "kernels against plain versions")
-    check(rel <= SLICE_TOL and bool(torch.isfinite(out).all()),
-          f"slice: kernel path vs plain path rel err {rel:.3e} <= "
-          f"{SLICE_TOL:.1e}")
+    check(rel <= tol and bool(torch.isfinite(out).all()),
+          f"slice {label}: kernel path vs plain path rel err {rel:.3e} <= "
+          f"{tol:.1e}")
     return rel
 
 
@@ -457,14 +599,17 @@ _GROUPS = (
     ("B4 scaled_gemm (B1 GEMM half)", ("scaled_mm_kernel",)),
     ("B2 dequant_gemv", ("dequant_gemv_kernel",)),
     ("B3 flash_attention", ("flash_attn_kernel",)),
-    ("cuBLAS (unquantized linears)", ("gemm", "gemv", "cutlass", "xmma",
-                                      "nvjet")),
+    ("B5 groupdot_mm", ("groupdot_mm_kernel<0",)),
+    ("B6 blockdiag_mm", ("blockdiag_mm_kernel",)),
+    ("B7 groupdot_i8_mm", ("groupdot_mm_kernel<1",)),
+    ("cuBLAS (unquantized linears, SVD factors)", (
+        "gemm", "gemv", "cutlass", "xmma", "nvjet")),
     ("torch elementwise / reductions", ("elementwise", "reduce", "cat",
                                         "Copy", "copy", "index")),
 )
 
 
-def profile_phase(torch, dev, qparams):
+def profile_phase(torch, dev, qparams, label):
     """Trace one Euler step of the full model with torch.profiler after
     three untraced ones; print the step's host-clock time, device busy time
     (kernel times summed on the one stream), the idle share and device time
@@ -508,10 +653,10 @@ def profile_phase(torch, dev, qparams):
         torch.cuda.synchronize()
         untraced.append((time.perf_counter() - t1) * 1e3)
     if not kernels:  # a measurement, not a check: say so and go on
-        log("profile: the profiler recorded no device kernels; device "
-            "time not measured")
+        log(f"profile {label}: the profiler recorded no device kernels; "
+            "device time not measured")
         return
-    log("profile: " + json.dumps({
+    log(f"profile {label}: " + json.dumps({
         "traced_step_ms": wall_ms, "untraced_step_ms": sorted(untraced),
         "device_busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / wall_ms,
@@ -527,20 +672,31 @@ def profile_phase(torch, dev, qparams):
 # phase 7: planted bugs that the checks of phases 3 and 5 must see
 # ---------------------------------------------------------------------------
 
-# (tag, source, kernel, [(text, broken text)]): each a bug a kernel could
-# ship with.  The broken sources are built beside the real ones, swapped in
-# one at a time, and phases 3 and 5 rerun against them.
+# (tag, source, kernel, slice, [(text, broken text)]): each a bug a kernel
+# could ship with, and the slice check that runs it.  The broken sources
+# are built beside the real ones, swapped in one at a time, and phases 3
+# and 5 rerun against them.
 FAULTS = (
-    ("attn_skips_first_kv_tile", "flash_attn", "flash_attention",
+    ("attn_skips_first_kv_tile", "flash_attn", "flash_attention", "int8",
      [("int kv0 = 0; kv0 < KN", "int kv0 = BKV; kv0 < KN")]),
     ("attn_no_running_max_rescale_of_o", "flash_attn", "flash_attention",
-     [("*= al0;", "*= 1.f;"), ("*= al1;", "*= 1.f;")]),
-    ("gemm_drops_last_k_stage", "scaled_mm", "scaled_gemm",
+     "int8", [("*= al0;", "*= 1.f;"), ("*= al1;", "*= 1.f;")]),
+    ("gemm_drops_last_k_stage", "scaled_mm", "scaled_gemm", "int8",
      [("const int nk = Kb / BKB;", "const int nk = Kb / BKB - 1;")]),
-    ("gemv_reduce_one_shuffle_short", "dequant_gemv", "dequant_gemv",
+    ("gemv_reduce_one_shuffle_short", "dequant_gemv", "dequant_gemv", "int8",
      [("off > 0; off >>= 1", "off > 1; off >>= 1")]),
-    ("quantize_rounds_half_away", "quantize_rows", "quantize_rows",
+    ("quantize_rounds_half_away", "quantize_rows", "quantize_rows", "int8",
      [("rintf(__fdiv_rn(v, scale))", "roundf(__fdiv_rn(v, scale))")]),
+    ("groupdot_decodes_the_other_nibble", "groupdot_mm", "groupdot_mm",
+     "uint4_wo", [("bfr[ni][0] = dec_bf16x2<BITS>(w0, sh);",
+                   "bfr[ni][0] = dec_bf16x2<BITS>(w0, sh ^ 4);")]),
+    ("blockdiag_scale_of_the_previous_group", "blockdiag_mm", "blockdiag_mm",
+     "uint4_wo", [("const float sc = scale[(size_t)o * G + gi];",
+                   "const float sc = scale[(size_t)o * G + (gi + G - 1) % G];"
+                   )]),
+    ("groupdot_i8_keeps_the_other_field_bits", "groupdot_mm",
+     "groupdot_i8_mm", "uint4_qmm",
+     [("return (v >> sh) & MASK4;", "return (v >> sh) & 0xffffffffu;")]),
 )
 
 
@@ -550,7 +706,7 @@ def start_fault_builds():
     from sdnq_tpu_torch.kernels import _build
     csrc = ROOT / "sdnq_tpu_torch" / "csrc"
     procs = {}
-    for tag, src, _, edits in FAULTS:
+    for tag, src, _, _, edits in FAULTS:
         d = _build.build_dir() / "faults" / tag
         d.mkdir(parents=True, exist_ok=True)
         text = (csrc / f"{src}.cu").read_text()
@@ -586,29 +742,29 @@ def library_swapped(name, lib_path):
         use(real)
 
 
-def fault_phase(torch, dev, qparams, procs):
+def fault_phase(torch, dev, slices, procs):
     """Rerun phases 3 (untimed) and 5 with each planted fault in place.
-    Phase 3 must fail for the broken kernel; phase 5's reading is reported
-    beside its limit."""
+    Phase 3 must fail for the broken kernel; phase 5's reading (on the
+    slice whose path runs the kernel) is reported beside its limit."""
     for tag, (proc, _) in procs.items():
         if proc.wait() != 0:
             check(False, f"fault {tag}: broken source built")
     if FAILURES:
         return
     results = []
-    for tag, src, kernel, _ in FAULTS:
+    for tag, src, kernel, label, _ in FAULTS:
         sound = list(FAILURES)
         with library_swapped(src, procs[tag][1]):
             rows = kernel_phase(torch, dev, timed=False)
-            rel = slice_phase(torch, dev, qparams)
+            rel = slice_phase(torch, dev, slices[label], label)
         FAILURES[:] = sound  # the checks were meant to fail here
         caught = [r for r in rows if r["max_abs_err"] > r["tolerance"]]
         results.append(dict(
             fault=tag, kernel=kernel,
             phase3_failed=[f"{r['name']} {r['shape']}: {r['max_abs_err']:.3e}"
                            f" > {r['tolerance']:.3e}" for r in caught],
-            slice_rel_err=rel, slice_tol=SLICE_TOL,
-            slice_caught=rel > SLICE_TOL))
+            slice=label, slice_rel_err=rel, slice_tol=SLICE_TOL[label],
+            slice_caught=rel > SLICE_TOL[label]))
         check(any(r["name"] == kernel for r in caught),
               f"fault {tag}: phase 3 fails {kernel}")
     log("faults: " + json.dumps(results))
@@ -638,6 +794,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
+    from sdnq_tpu_torch import QuantConfig
     from sdnq_tpu_torch.kernels import _build
     t0 = time.perf_counter()
     fault_procs = start_fault_builds()
@@ -646,10 +803,46 @@ def main() -> int:
         log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
             + json.dumps({k: round(v, 1) for k, v in secs.items()}))
         rows = kernel_phase(torch, dev)
-        qparams = main_path(torch, dev, rows)
-        slice_phase(torch, dev, qparams)
-        profile_phase(torch, dev, qparams)
-        fault_phase(torch, dev, qparams, fault_procs)
+
+        counts, slices = {}, {}
+        qparams = build_model(
+            torch, dev,
+            QuantConfig(weights_dtype="int8", use_quantized_matmul=True),
+            "int8")
+        counts["int8"] = denoise_path(
+            torch, dev, qparams, "int8", 2, 4,
+            ("quantize_rows", "scaled_gemm", "dequant_gemv",
+             "flash_attention"))
+        slices["int8"] = cut(qparams)
+        slice_phase(torch, dev, slices["int8"], "int8")
+        profile_phase(torch, dev, qparams, "int8")
+        del qparams
+        torch.cuda.empty_cache()
+
+        qparams = build_model(
+            torch, dev,
+            QuantConfig(weights_dtype="uint4", use_svd=True, svd_rank=32),
+            "uint4_wo")
+        counts["uint4_wo"] = denoise_path(
+            torch, dev, qparams, "uint4_wo", 2, 4,
+            ("groupdot_mm", "blockdiag_mm", "flash_attention"))
+        qmm = with_quantized_matmul(qparams)
+        counts["uint4_qmm"] = denoise_path(
+            torch, dev, qmm, "uint4_qmm", 1, 2,
+            ("groupdot_i8_mm", "blockdiag_mm", "quantize_rows",
+             "scaled_gemm", "flash_attention"))
+        slices["uint4_wo"] = cut(qparams)
+        slices["uint4_qmm"] = cut(qmm)
+        slice_phase(torch, dev, slices["uint4_wo"], "uint4_wo")
+        slice_phase(torch, dev, slices["uint4_qmm"], "uint4_qmm")
+        profile_phase(torch, dev, qparams, "uint4_wo")
+        del qparams, qmm
+        torch.cuda.empty_cache()
+
+        for row in rows:
+            row["launches"] = (counts[row["path"]][row["name"]]
+                               if row["on_main_path"] else 0)
+        fault_phase(torch, dev, slices, fault_procs)
     finally:  # no compiler outlives the script
         for proc, _ in fault_procs.values():
             if proc.poll() is None:

@@ -11,7 +11,7 @@ finite (``fn``) signed and unsigned (``fnu``) microfloats from 1 to 16 bits.
 
 ``storage_dtype`` names the dtype of unpacked codes; ``torch_storage`` maps
 it to a torch dtype.  Packed formats (non-native widths) keep their codes in
-bit-plane uint8 carriers, which this package does not implement yet.
+uint8 carriers laid out by ``packing`` (bit-plane or half-split).
 """
 
 from __future__ import annotations

@@ -5,7 +5,10 @@ on CPU tensors; each counts its launches in ``<wrapper>.launches``.
 """
 
 from .attention import flash_attention, quantized_attention
-from .dequant_mm import dequant_gemv, dequant_matmul
+from .dequant_mm import (
+    blockdiag_mm, dequant_gemv, dequant_matmul, groupdot_i8_mm, groupdot_mm,
+    packed_int8_matmul,
+)
 # (the function ``scaled_mm`` stays in its module, so that
 # ``kernels.scaled_mm`` names the module)
 from .scaled_mm import (
@@ -18,6 +21,9 @@ KERNELS = {
     "scaled_gemm": scaled_gemm,
     "dequant_gemv": dequant_gemv,
     "flash_attention": flash_attention,
+    "groupdot_mm": groupdot_mm,
+    "blockdiag_mm": blockdiag_mm,
+    "groupdot_i8_mm": groupdot_i8_mm,
 }
 
 
@@ -34,5 +40,6 @@ __all__ = [
     "KERNELS", "reset_launch_counts", "launch_counts", "quantize_rows",
     "scaled_gemm", "scaled_mm_fused_act", "bf16_scaled_mm",
     "dequant_gemv", "dequant_matmul", "flash_attention",
-    "quantized_attention",
+    "quantized_attention", "groupdot_mm", "blockdiag_mm", "groupdot_i8_mm",
+    "packed_int8_matmul",
 ]

@@ -23,7 +23,8 @@ __all__ = ["SOURCES", "build", "library", "build_dir", "command"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _HEADERS = ("common.cuh",)
-SOURCES = ("quantize_rows", "scaled_mm", "dequant_gemv", "flash_attn")
+SOURCES = ("quantize_rows", "scaled_mm", "dequant_gemv", "flash_attn",
+           "groupdot_mm", "blockdiag_mm")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

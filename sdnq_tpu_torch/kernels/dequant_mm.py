@@ -1,20 +1,38 @@
-"""Weight-only quantized matmul: float activations × int8/uint8 codes.
+"""Weight-only and packed-weight quantized matmuls.
 
-Kernel ``dequant_gemv`` (B2, ``csrc/dequant_gemv.cu``) beside its plain
-version and a launch counter.  It replaces ``sdnq_tpu/kernels/dequant_mm.py``
-``_dequant_mm_kernel`` in its unpacked rowwise ``row_epi`` mode: rowwise
-scales commute with the K sum, so
+Kernels, each beside its plain PyTorch version and a launch counter:
 
-    y = (x @ codesᵀ) * scale[o] + rowsum(x) * zp[o] + bias[o]
+* ``dequant_gemv`` — B2, ``csrc/dequant_gemv.cu``.  Replaces
+  ``sdnq_tpu/kernels/dequant_mm.py`` ``_dequant_mm_kernel`` in its unpacked
+  rowwise ``row_epi`` mode: rowwise scales commute with the K sum, so
 
-and the codes enter the dot as plain integers.  The layers under the
-32-row cut-off take this route (at batch 1 the FLUX modulation linears and
-the time / vector / guidance MLPs).  At M <= 32 it is a GEMV bound by the
-bytes of the weight: each warp streams one weight row with 8-byte loads
-and keeps every row's partial sum in registers.
+      y = (x @ codesᵀ) * scale[o] + rowsum(x) * zp[o] + bias[o]
 
-More than 32 rows, grouped scales and packed codes are later slices: on
-the card they raise, on the CPU they run the plain version.
+  and the codes enter the dot as plain integers.  At M <= 32 it is a GEMV
+  bound by the bytes of the weight.
+* ``groupdot_mm`` — B5, ``csrc/groupdot_mm.cu``.  Replaces
+  ``_groupdot_kernel``: weight-only GEMM on half-split packed integer codes.
+* ``blockdiag_mm`` — B6, ``csrc/blockdiag_mm.cu``.  Replaces
+  ``_blockdiag_kernel``: the same function for a few rows, as a GEMV.
+* ``groupdot_i8_mm`` — B7, ``csrc/groupdot_mm.cu``.  Replaces
+  ``_groupdot_i8_kernel``: per-row int8 activations times the raw codes.
+
+B5, B6 and B7 use the group-dot algebra on half-split codes (``packing``):
+the raw codes c (0 .. 2^bits - 1) enter the dot exactly, each group's
+partial dot is weighted by its scale, and the zero point together with the
+offset-binary minimum of signed formats (``zpc = zp + code_min * scale``)
+enters as a rank-G term on the per-row group sums of x:
+
+    y[m, o] = sum_g scale[o, g] * (x_g[m] . c_g[o]) + xsum[m, g] * zpc[o, g]
+              (+ bias[o])
+
+B7 multiplies the whole by the row scale of x before the bias.  Nothing is
+rounded below fp32 besides the inputs, so the plain versions need no
+rounding points of their own.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs the plain version.  ``dequant_matmul`` and
+``packed_int8_matmul`` route to them.
 """
 
 from __future__ import annotations
@@ -25,12 +43,34 @@ import torch.nn.functional as F
 from . import _build
 from ._build import P, I
 from .dispatch import is_cuda
+from ..packing import halfsplit_planes, unpack, unpack_codes_halfsplit
 
-__all__ = ["dequant_gemv", "dequant_gemv_plain", "dequant_matmul"]
+__all__ = ["dequant_gemv", "dequant_gemv_plain", "groupdot_mm",
+           "groupdot_mm_plain", "blockdiag_mm", "blockdiag_mm_plain",
+           "groupdot_i8_mm", "groupdot_i8_mm_plain", "dequant_matmul",
+           "packed_int8_matmul"]
 
 # The GEMV kernel keeps every row's partial sum in registers.
 GEMV_MAX_ROWS = 32
 
+# Half-split weight-only products on at most this many rows take the B6
+# GEMV (bound by the weight's bytes, x staged in shared memory as fp32);
+# more rows take the B5 tensor-core GEMM, whose 128-row tiles would be
+# mostly empty below it.
+BLOCKDIAG_MAX_ROWS = 8
+
+# code widths whose half-split layout is one field plane (the kernels' case)
+_KERNEL_BITS = (1, 2, 4)
+
+# From this many rows the quantized matmul on packed codes requantizes the
+# weight rowwise instead of calling packed_int8_matmul (the JAX package's
+# default SDNQ_TPU_PACKED_MM_MAX_ROWS, kept for the same route).
+PACKED_MM_MAX_ROWS = 8192
+
+
+# ---------------------------------------------------------------------------
+# B2: rowwise weight-only GEMV
+# ---------------------------------------------------------------------------
 
 def dequant_gemv_plain(x, codes, scale, zp, bias, out_dtype):
     """Plain version of ``dequant_gemv``, in fp32: ``(x @ codesᵀ) * scale
@@ -82,18 +122,259 @@ def dequant_gemv(x, codes, scale, zp=None, bias=None,
 dequant_gemv.launches = 0
 
 
-def dequant_matmul(x, wq, scale, zero_point, bias, fmt, group_size: int,
-                   out_dtype=torch.bfloat16):
-    """y = x @ dequant(wq).T + bias for unpacked codes.
+# ---------------------------------------------------------------------------
+# B5 / B6 / B7: group-dot products on half-split codes
+# ---------------------------------------------------------------------------
 
-    x (M, K) float; wq (O, K) int8/uint8; scale / zero_point (O, G)
-    groupwise along K; ``group_size`` the K span of one group."""
-    if fmt.is_packed:
+def _group_operands(scale, zero_point, fmt):
+    """(O, G) fp32 scale and zpc = zero point + code_min * scale."""
+    scale = scale.reshape(scale.shape[0], -1).float().contiguous()
+    zpc = float(fmt.min) * scale
+    if zero_point is not None:
+        zpc = zpc + zero_point.reshape(scale.shape).float()
+    return scale, zpc.contiguous()
+
+
+def _groupdot_plain(xf, cf, scale, zpc, xsum_of):
+    """sum_g (x_g @ c_gᵀ) * scale[:, g] + xsum_g * zpc[:, g], group by
+    group in fp32, in the kernels' order of operations."""
+    m, k = xf.shape
+    groups = scale.shape[1]
+    g = k // groups
+    acc = torch.zeros((m, cf.shape[0]), dtype=torch.float32,
+                      device=xf.device)
+    for gi in range(groups):
+        sl = slice(gi * g, (gi + 1) * g)
+        part = (xf[:, sl] @ cf[:, sl].T).float()
+        acc = acc + part * scale[:, gi]
+        acc = acc + xsum_of(sl) * zpc[:, gi]
+    return acc
+
+
+def groupdot_mm_plain(x, codes, scale, zpc, bias=None, bits: int = 4,
+                      out_dtype=torch.bfloat16):
+    """Plain version of ``groupdot_mm`` (and ``blockdiag_mm``): the
+    group-dot product in fp32."""
+    xf = x.float()
+    cf = unpack_codes_halfsplit(codes, bits, x.shape[1]).float()
+    acc = _groupdot_plain(xf, cf, scale.float(), zpc.float(),
+                          lambda sl: xf[:, sl].sum(-1, keepdim=True))
+    if bias is not None:
+        acc = acc + bias.reshape(1, -1).float()
+    return acc.to(out_dtype)
+
+
+# B6 computes the same function as B5 (its kernel sums in another order).
+blockdiag_mm_plain = groupdot_mm_plain
+
+
+def groupdot_i8_mm_plain(xq, xs, codes, scale, zpc, bias=None, bits: int = 4,
+                         out_dtype=torch.bfloat16):
+    """Plain version of ``groupdot_i8_mm``.  Each group's int32 partial is
+    summed in float64, exact for any group size (in fp32 it would stay
+    exact only up to g of about 8800: 127 * 15 * g < 2^24), so the plain
+    version equals the kernel's integer sums and fp32 epilogue bit for
+    bit."""
+    xd = xq.double()
+    cd = unpack_codes_halfsplit(codes, bits, xq.shape[1]).double()
+    acc = _groupdot_plain(
+        xd, cd, scale.float(), zpc.float(),
+        lambda sl: xq[:, sl].to(torch.int32).sum(-1, keepdim=True).float())
+    acc = acc * xs.reshape(-1, 1).float()
+    if bias is not None:
+        acc = acc + bias.reshape(1, -1).float()
+    return acc.to(out_dtype)
+
+
+def _check_halfsplit(name, x, codes, scale, zpc, bits, g_align):
+    """Shapes, types and group geometry the half-split kernels take."""
+    if bits not in _KERNEL_BITS:
         raise NotImplementedError(
-            f"{fmt.name}: packed weight-only matmul (the B2 packed mode and "
-            "B5-B8) is a later slice of the port (ROADMAP queue A item 9)")
+            f"{name}: {bits}-bit codes (multi-plane half-split) are a later "
+            "slice of the port; the kernels take 1, 2 and 4 bits")
+    if x.dim() != 2 or codes.dim() != 2 or codes.dtype != torch.uint8:
+        raise ValueError(f"{name}: x (M, K) and uint8 codes (O, K*bits/8), "
+                         f"got {tuple(x.shape)} and {codes.dtype} "
+                         f"{tuple(codes.shape)}")
+    m, k = x.shape
+    o = codes.shape[0]
+    seg = k * bits // 8   # bytes per row = K / (codes per byte)
+    groups = scale.shape[-1]
+    if codes.shape[1] != seg or tuple(scale.shape) != (o, groups) \
+            or tuple(zpc.shape) != (o, groups) or k % groups:
+        raise ValueError(f"{name}: codes {tuple(codes.shape)}, scale "
+                         f"{tuple(scale.shape)}, zpc {tuple(zpc.shape)} do "
+                         f"not fit x {tuple(x.shape)}")
+    g = k // groups
+    # A group must lie inside one field segment of the half-split row
+    # (byte b carries k = b + t*seg), and a kernel step must not straddle
+    # two groups.
+    if seg % g or g % g_align:
+        raise ValueError(f"{name}: group {g} must divide the field segment "
+                         f"{seg} and be a multiple of {g_align}")
+    return m, k, o, g
+
+
+def _contiguous(*ts):
+    return tuple(t.contiguous() for t in ts)
+
+
+def _groupdot_fn():
+    """``sdnq_groupdot_mm`` of csrc/groupdot_mm.cu: B5 (kind 0) and B7
+    (kind 1)."""
+    return _build.function("groupdot_mm", "sdnq_groupdot_mm",
+                           [P] * 8 + [I] * 7 + [P])
+
+
+def groupdot_mm(x, codes, scale, zpc, bias=None, bits: int = 4,
+                out_dtype=torch.bfloat16):
+    """Weight-only group-dot GEMM: x (M, K) bf16 on the card; codes (O,
+    K*bits/8) half-split uint8; scale, zpc (O, G) fp32; bias (O,) or
+    None."""
+    if not is_cuda(x):
+        return groupdot_mm_plain(x, codes, scale, zpc, bias, bits, out_dtype)
+    m, k, o, g = _check_halfsplit("groupdot_mm", x, codes, scale, zpc, bits,
+                                  32)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"groupdot_mm takes bf16 x, not {x.dtype}")
+    x, codes, scale, zpc = _contiguous(x, codes, scale, zpc)
+    xsum = x.float().reshape(m, k // g, g).sum(-1).contiguous()
+    bias = None if bias is None else bias.reshape(-1).float().contiguous()
+    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
+    if m and o:
+        _build.check(_groupdot_fn()(
+            *(_build.ptr(t) for t in (x, codes, scale, zpc, xsum, None, bias,
+                                      out)),
+            m, k, o, g, bits, 0, _build.act_kind(out_dtype),
+            _build.stream(x)), "groupdot_mm")
+        groupdot_mm.launches += 1
+    return out
+
+
+groupdot_mm.launches = 0
+
+
+def blockdiag_mm(x, codes, scale, zpc, bias=None, bits: int = 4,
+                 out_dtype=torch.bfloat16):
+    """Weight-only group-dot GEMV for x (M, K), M <= BLOCKDIAG_MAX_ROWS on
+    the card, fp32 / bf16 / fp16; the other operands as ``groupdot_mm``."""
+    if not is_cuda(x):
+        return blockdiag_mm_plain(x, codes, scale, zpc, bias, bits,
+                                  out_dtype)
+    m, k, o, g = _check_halfsplit("blockdiag_mm", x, codes, scale, zpc, bits,
+                                  8)
+    if not 1 <= m <= BLOCKDIAG_MAX_ROWS:
+        raise ValueError(f"blockdiag_mm takes 1..{BLOCKDIAG_MAX_ROWS} rows, "
+                         f"got {m}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.float()   # the kernel reads fp32 or bf16 rows
+    x, codes, scale, zpc = _contiguous(x, codes, scale, zpc)
+    bias = None if bias is None else bias.reshape(-1).float().contiguous()
+    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
+    fn = _build.function("blockdiag_mm", "sdnq_blockdiag_mm",
+                         [P, P, P, P, P, P, I, I, I, I, I, I, I, P])
+    _build.check(fn(*(_build.ptr(t) for t in (x, codes, scale, zpc, bias,
+                                              out)),
+                    m, k, o, g, bits, _build.act_kind(x.dtype),
+                    _build.act_kind(out_dtype), _build.stream(x)),
+                 "blockdiag_mm")
+    blockdiag_mm.launches += 1
+    return out
+
+
+blockdiag_mm.launches = 0
+
+
+def groupdot_i8_mm(xq, xs, codes, scale, zpc, bias=None, bits: int = 4,
+                   out_dtype=torch.bfloat16):
+    """int8 rows times raw half-split codes: xq (M, K) int8 with row scales
+    xs (M, 1); codes, scale, zpc and bias as ``groupdot_mm``."""
+    if not is_cuda(xq):
+        return groupdot_i8_mm_plain(xq, xs, codes, scale, zpc, bias, bits,
+                                    out_dtype)
+    m, k, o, g = _check_halfsplit("groupdot_i8_mm", xq, codes, scale, zpc,
+                                  bits, 64)
+    if xq.dtype != torch.int8:
+        raise ValueError(f"groupdot_i8_mm takes int8 x codes, not "
+                         f"{xq.dtype}")
+    xq, codes, scale, zpc = _contiguous(xq, codes, scale, zpc)
+    # per-row group sums of the codes: integers, exact in fp32
+    xsum = xq.reshape(m, k // g, g).to(torch.int32).sum(-1).float()
+    xs = xs.reshape(-1).float().contiguous()
+    bias = None if bias is None else bias.reshape(-1).float().contiguous()
+    out = torch.empty((m, o), dtype=out_dtype, device=xq.device)
+    if m and o:
+        _build.check(_groupdot_fn()(
+            *(_build.ptr(t) for t in (xq, codes, scale, zpc, xsum, xs, bias,
+                                      out)),
+            m, k, o, g, bits, 1, _build.act_kind(out_dtype),
+            _build.stream(xq)), "groupdot_i8_mm")
+        groupdot_i8_mm.launches += 1
+    return out
+
+
+groupdot_i8_mm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Routing (the JAX package's entry points)
+# ---------------------------------------------------------------------------
+
+def _halfsplit_kernel_fmt(fmt, pack_layout: str) -> bool:
+    return (fmt.is_packed and fmt.is_integer and pack_layout == "halfsplit"
+            and fmt.code_bits in _KERNEL_BITS)
+
+
+def _packed_dequant_matmul(x, wq, scale, zero_point, bias, fmt, g,
+                           out_dtype, pack_layout):
     m, kdim = x.shape
-    o = wq.shape[0]
+    if _halfsplit_kernel_fmt(fmt, pack_layout):
+        s, zpc = _group_operands(scale, zero_point, fmt)
+        if m <= BLOCKDIAG_MAX_ROWS:
+            return blockdiag_mm(x, wq, s, zpc, bias, fmt.code_bits,
+                                out_dtype)
+        if is_cuda(x) and x.dtype != torch.bfloat16:
+            x = x.to(torch.bfloat16)   # the tensor cores multiply bf16
+        return groupdot_mm(x, wq, s, zpc, bias, fmt.code_bits, out_dtype)
+    if is_cuda(x):
+        what = ("bit-plane codes (the packed mode of B2)"
+                if pack_layout != "halfsplit" else
+                f"half-split {fmt.name} codes")
+        raise NotImplementedError(
+            f"weight-only matmul on {what} is a later slice of the port "
+            "(ROADMAP queue B)")
+    vals = unpack(wq, fmt, kdim, dtype=torch.float32, layout=pack_layout)
+    return _dequantized_dot(x, vals, scale, zero_point, bias, g, out_dtype)
+
+
+def _dequantized_dot(x, vals, scale, zero_point, bias, g, out_dtype):
+    """CPU only: scale the (O, K) values groupwise, round the weight to x's
+    dtype, one product (the JAX package's XLA route)."""
+    o, kdim = vals.shape
+    vals = vals.reshape(o, kdim // g, g) * scale.reshape(o, -1, 1).float()
+    if zero_point is not None:
+        vals = vals + zero_point.reshape(o, -1, 1).float()
+    w = vals.reshape(o, kdim).to(x.dtype)
+    out = x.float() @ w.float().T
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(out_dtype)
+
+
+def dequant_matmul(x, wq, scale, zero_point, bias, fmt, group_size: int,
+                   out_dtype=torch.bfloat16, pack_layout: str = "bitplane"):
+    """y = x @ dequant(wq).T + bias, weight-only.
+
+    x (M, K) float; wq (O, K) int8/uint8 codes, or packed uint8 in
+    ``pack_layout``; scale / zero_point (O, G) groupwise along K;
+    ``group_size`` the K span of one group.  Half-split 1/2/4-bit integer
+    codes take B6 on up to BLOCKDIAG_MAX_ROWS rows and B5 above; rowwise
+    unpacked codes take B2."""
+    m, kdim = x.shape
+    g = group_size if group_size > 0 else kdim
+    if fmt.is_packed:
+        return _packed_dequant_matmul(x, wq, scale, zero_point, bias, fmt,
+                                      g, out_dtype, pack_layout)
     groups = scale.shape[-1]
     if groups == 1:
         if is_cuda(x) and m > GEMV_MAX_ROWS:
@@ -106,12 +387,37 @@ def dequant_matmul(x, wq, scale, zero_point, bias, fmt, group_size: int,
         raise NotImplementedError(
             "grouped-scale weight-only matmul (B2 grouped mode) is a later "
             "slice of the port (ROADMAP queue B, B2)")
+    return _dequantized_dot(x, wq.float(), scale, zero_point, bias, g,
+                            out_dtype)
+
+
+def packed_int8_matmul(x, wq, scale, zero_point, bias, fmt, group_size: int,
+                       out_dtype=torch.bfloat16,
+                       pack_layout: str = "bitplane"):
+    """Quantized matmul on packed integer codes: x quantizes per row to
+    int8 (B1's ``quantize_rows``), the raw codes enter an int8 product and
+    the group scales weight each group's partial (B7).
+
+    Returns None where the JAX package's ``packed_int8_matmul`` returns
+    None on its group-dot route — not half-split, not a packed integer
+    format, K not a multiple of the group, a field segment not a multiple
+    of 128, K > 32768, or a group that is not a multiple of 128, is wider
+    than a segment or makes more than 64 groups — and the caller then
+    requantizes the weight rowwise.  These bounds follow the TPU's 128
+    lanes; the two routes give different numbers, so they are kept as the
+    JAX package has them."""
+    from .scaled_mm import quantize_rows
+    m, kdim = x.shape
     g = group_size if group_size > 0 else kdim
-    vals = wq.float().reshape(o, kdim // g, g) * scale[..., None]
-    if zero_point is not None:
-        vals = vals + zero_point[..., None]
-    w = vals.reshape(o, kdim).to(x.dtype)
-    out = x.float() @ w.float().T
-    if bias is not None:
-        out = out + bias.float()
-    return out.to(out_dtype)
+    if not (pack_layout == "halfsplit" and fmt.is_integer and fmt.is_packed
+            and kdim % g == 0):
+        return None
+    pmax = max(8 // w for w, _ in halfsplit_planes(fmt.code_bits))
+    seg = kdim // pmax
+    if not (seg % 128 == 0 and kdim <= 32768):
+        return None
+    if not (g % 128 == 0 and g <= seg and kdim // g <= 64):
+        return None
+    xq, xs = quantize_rows(x.float())[:2]
+    s, zpc = _group_operands(scale, zero_point, fmt)
+    return groupdot_i8_mm(xq, xs, wq, s, zpc, bias, fmt.code_bits, out_dtype)

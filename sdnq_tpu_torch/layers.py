@@ -7,12 +7,19 @@
   per-row activation quantization and the scaled GEMM
   (``kernels.scaled_mm.scaled_mm_fused_act``) for symmetric int8 and
   asymmetric uint8 weights (the uint8 zero-point algebra as two rank-1
-  epilogue terms), fp8 and the 16-bit family;
-* weight-only (fewer rows, or no quantized matmul): the row-epilogue
-  product of ``kernels.dequant_mm``.
+  epilogue terms), fp8 and the 16-bit family.
+  Packed integer codes in the half-split layout take the group-dot int8
+  product (``kernels.dequant_mm.packed_int8_matmul``) where the JAX
+  package's route does, else the weight is requantized rowwise first;
+* weight-only (fewer rows, or no quantized matmul): ``kernels.dequant_mm.
+  dequant_matmul`` (the row-epilogue GEMV for rowwise codes, the group-dot
+  kernels for half-split codes).
 
-A Hadamard-rotated weight rotates the input instead, and SVD factors add
-``(x @ downᵀ) @ upᵀ`` after the kernel, both in plain torch.
+A Hadamard-rotated weight rotates the input instead.  SVD factors add
+``(x @ downᵀ) @ upᵀ`` in plain torch: after the kernel in fp32 on the
+quantized-matmul route; on the weight-only route in the factors' dtype,
+with the bias folded in and the sum added to the kernel's rounded output,
+at the JAX package's rounding points.
 """
 
 from __future__ import annotations
@@ -22,7 +29,9 @@ import torch.nn.functional as F
 
 from .envconfig import env_int
 from .formats import torch_dtype
-from .kernels.dequant_mm import dequant_matmul
+from .kernels.dequant_mm import (
+    PACKED_MM_MAX_ROWS, dequant_matmul, packed_int8_matmul,
+)
 from .kernels.scaled_mm import bf16_scaled_mm, scaled_mm_fused_act
 from .quant.core import quantize_fp_mm, quantize_int_mm, quantize_uint_mm
 from .quant.hadamard import rotate_hadamard
@@ -81,6 +90,19 @@ def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype):
         u = x2d.float() @ qt.svd_down.float().T
         v = qt.svd_up.float().T
     if meta.re_quantize_for_matmul:
+        if (meta.is_packed and mfmt.is_integer
+                and x2d.shape[0] < PACKED_MM_MAX_ROWS):
+            scale = qt.scale.reshape(qt.scale.shape[0], -1)
+            zp = (qt.zero_point.reshape(scale.shape)
+                  if qt.zero_point is not None else None)
+            out = packed_int8_matmul(
+                x2d, qt.qdata, scale, zp, bias, meta.format,
+                x2d.shape[-1] // scale.shape[-1], out_dtype=out_dtype,
+                pack_layout=meta.pack_layout)
+            if out is not None:
+                if u is not None:
+                    out = (out.float() + u @ v).to(out_dtype)
+                return out
         w_q, w_scale, w_zp = _requantize_rowwise(qt)
     elif mfmt.is_integer:
         w_q, w_scale, w_zp = _weight_as_int8(qt)
@@ -115,24 +137,38 @@ def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype):
                           lowrank_u=u, lowrank_v=v)
 
 
+def _svd_bias(x2d, qt: QTensor, bias):
+    """(x @ downᵀ) @ upᵀ + bias, computed in the factors' dtype (the bias
+    rounded to it too)."""
+    dt = qt.svd_down.dtype
+    corr = (x2d.to(dt) @ qt.svd_down.T) @ qt.svd_up.T
+    if bias is not None:
+        corr = corr + bias.to(dt)
+    return corr
+
+
 def _weight_only_linear_2d(x2d, qt: QTensor, bias, out_dtype):
-    """Row-epilogue weight-only product; with Hadamard the input is
-    rotated, x @ W_fullᵀ == (x·(I⊗H)) @ W_storedᵀ."""
+    """Weight-only product; with Hadamard the input is rotated,
+    x @ W_fullᵀ == (x·(I⊗H)) @ W_storedᵀ.  With SVD factors the kernel
+    runs without the bias, and the (M, O) correction, bias folded in, is
+    added to its output."""
     meta = qt.meta
     if meta.use_hadamard:
         x2d = rotate_hadamard(x2d, meta.hadamard_group_size)
+    extra = _svd_bias(x2d, qt, bias) if qt.svd_up is not None else None
     scale = qt.scale.reshape(qt.scale.shape[0], -1)
     zp = (qt.zero_point.reshape(scale.shape)
           if qt.zero_point is not None else None)
     qd = qt.qdata
-    if qd.dim() > 2:
+    if not meta.is_packed and qd.dim() > 2:
         qd = qd.reshape(qd.shape[0], -1)
     g_eff = x2d.shape[-1] // scale.shape[-1]
-    out = dequant_matmul(x2d, qd, scale, zp, bias, meta.format, g_eff,
-                         out_dtype=out_dtype)
-    if qt.svd_up is not None:
-        corr = (x2d.float() @ qt.svd_down.float().T) @ qt.svd_up.float().T
-        out = (out.float() + corr).to(out_dtype)
+    out = dequant_matmul(x2d, qd, scale, zp,
+                         None if extra is not None else bias, meta.format,
+                         g_eff, out_dtype=out_dtype,
+                         pack_layout=meta.pack_layout)
+    if extra is not None:
+        out = (out.float() + extra.float()).to(out_dtype)
     return out
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..formats import Format, get_format
+from ..packing import decode_float, encode_float
 
 __all__ = [
     "get_scale_symmetric",
@@ -70,14 +71,12 @@ def quantize_weight(w: torch.Tensor, fmt: Format | str, dims=-1, *,
 
     Returns ``(q, scale, zero_point)``: integer codes in the format's
     storage dtype (int32 for packed integer widths), fp8 values for the
-    native fp8 formats; ``zero_point`` is None for signed formats.  Packed
-    minifloats need the minifloat codec, which this package has not yet.
+    native fp8 formats, fp32 values on the format's grid for packed
+    minifloats; ``zero_point`` is None for signed formats.  With a
+    generator, integer codes round stochastically and packed minifloats
+    take uniform 32-bit rounding bits from it.
     """
     fmt = _fmt(fmt)
-    if not fmt.is_integer and fmt.is_packed:
-        raise NotImplementedError(
-            f"{fmt.name}: packed minifloat formats arrive with the packing "
-            "codec, a later slice of the port (ROADMAP queue A item 2)")
     w = w.float()
     if fmt.is_unsigned:
         scale, zero_point = get_scale_asymmetric(w, dims, fmt)
@@ -89,13 +88,25 @@ def quantize_weight(w: torch.Tensor, fmt: Format | str, dims=-1, *,
     if fmt.is_integer:
         q = torch.clamp(_round(q, generator), fmt.min, fmt.max)
         q = q.to(torch.int32 if fmt.is_packed else fmt.torch_storage)
+    elif fmt.is_packed:
+        q = torch.nan_to_num(torch.clamp(q, fmt.min, fmt.max))
+        sr_bits = None if generator is None else random_bits(q.shape,
+                                                             generator)
+        q = decode_float(encode_float(q, fmt, sr_bits=sr_bits), fmt)
     else:
         if generator is not None:
             raise NotImplementedError(
-                "stochastic rounding of float formats is not ported yet")
+                "stochastic rounding of native fp8 weights is not ported "
+                "yet")
         q = torch.nan_to_num(torch.clamp(q, fmt.min, fmt.max))
         q = q.to(fmt.torch_storage)
     return q, scale, zero_point
+
+
+def random_bits(shape, generator: torch.Generator) -> torch.Tensor:
+    """Uniform 32-bit values (as int64) for stochastic float rounding."""
+    return torch.randint(0, 1 << 32, tuple(shape), generator=generator,
+                         device=generator.device, dtype=torch.int64)
 
 
 def quantize_int_mm(x: torch.Tensor, dims=-1, fmt: Format | str = "int8",

@@ -4,7 +4,10 @@ The same fields and metadata as the JAX package's ``QTensor``: codes in the
 layer's natural orientation (linear (O, C)), scales and zero points
 broadcast-ready against the grouped view in ``meta.quantized_shape``,
 optional SVD factors.  Blocks of a model stay lists, so there is no stacked
-layer view.  Packed (non-native width) formats are a later slice.
+layer view.  Packed (non-native width) formats keep their codes flattened to
+(lead, -1) and packed by ``packing.pack`` in the layout the JAX package
+chooses: half-split for code widths below 8 whose row length divides, else
+bit-plane.
 
 fp16 weights under a quantized matmul are stored as bf16, as in the JAX
 package: the 16-bit GEMM flavour multiplies bf16, so storing what it
@@ -19,20 +22,16 @@ import dataclasses
 import torch
 
 from .formats import Format, get_format, default_matmul_format, torch_dtype
-from .quant.core import quantize_weight
+from .packing import halfsplit_planes, pack, unpack
+from .quant.core import quantize_weight, random_bits
 from .quant.hadamard import apply_hadamard, rotate_hadamard
+from .quant.svd import apply_svdquant
 
 __all__ = ["QuantMeta", "QTensor", "quantize_tensor", "dequantize",
            "auto_group_size", "negotiate_group_count"]
 
 LINEAR, CONV, CONV_TRANSPOSE, EMBEDDING = (
     "linear", "conv", "conv_transpose", "embedding")
-
-
-def _packed_error(fmt_name: str):
-    return NotImplementedError(
-        f"{fmt_name}: packed formats arrive with the packing codecs, a "
-        "later slice of the port (ROADMAP queue A item 2)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +51,7 @@ class QuantMeta:
     use_quantized_matmul: bool
     re_quantize_for_matmul: bool  # storage cannot feed the matmul directly
     dequant_dtype: str = "bfloat16"
-    pack_layout: str = "bitplane"
+    pack_layout: str = "bitplane"  # packed formats: "bitplane"/"halfsplit"
 
     @property
     def format(self) -> Format:
@@ -144,65 +143,93 @@ def quantize_tensor(w: torch.Tensor, fmt: str | Format = "int8",
                     use_stochastic_rounding: bool = False,
                     dequant_dtype: str = "bfloat16",
                     generator: torch.Generator | None = None) -> QTensor:
-    """Quantize a weight into a QTensor on the weight's device."""
+    """Quantize a weight into a QTensor on the weight's device.
+
+    ``generator`` draws the SVD sketch (a generator seeded 0 when omitted)
+    and, with ``use_stochastic_rounding``, the rounding noise."""
     fmt = get_format(fmt) if isinstance(fmt, str) else fmt
-    if fmt.is_packed:
-        raise _packed_error(fmt.name)
-    if use_svd:
-        raise NotImplementedError(
-            "SVDQuant weight factorisation is a later slice of the port "
-            "(ROADMAP queue A item 3; QTensors carrying SVD factors are "
-            "accepted by qlinear)")
-    del svd_steps
     mfmt = get_format(matmul_fmt or default_matmul_format(fmt.name))
     original_shape = tuple(w.shape)
     w = w.float()
 
+    # can the stored representation feed the matmul directly?
     re_quantize = bool(
         fmt.num_bits > mfmt.num_bits
         or fmt.is_integer != mfmt.is_integer
-        or (fmt.is_unsigned and not mfmt.is_integer))
+        or (fmt.is_unsigned and not mfmt.is_integer)
+        or (fmt.is_packed and not fmt.is_integer and not mfmt.is_integer
+            and (fmt.num_bits >= mfmt.num_bits or fmt.max > mfmt.max)))
     if layer_kind == CONV_TRANSPOSE:
         use_quantized_matmul = False
     if use_hadamard:
         is_conv = layer_kind == CONV and w.dim() > 2
         w, use_hadamard, hadamard_group_size = apply_hadamard(
             w, hadamard_group_size, is_conv=is_conv)
+    svd_up = svd_down = None
+    if use_svd and w.dim() >= 2 and layer_kind != CONV_TRANSPOSE:
+        w, svd_up, svd_down = apply_svdquant(
+            w, rank=svd_rank, niter=svd_steps, generator=generator)
+        svd_up = svd_up.to(torch_dtype(dequant_dtype))
+        svd_down = svd_down.to(torch_dtype(dequant_dtype))
     if group_size == 0:
-        group_size = auto_group_size(fmt, layer_kind, False,
+        group_size = auto_group_size(fmt, layer_kind, svd_up is not None,
                                      use_quantized_matmul, re_quantize)
     grouped, group_axis, red_dims, g, num = _grouped_view(
         w, layer_kind, group_size)
     re_quantize = re_quantize or num > 1
-    q, scale, zero_point = quantize_weight(
-        grouped, fmt, dims=red_dims,
-        generator=generator if use_stochastic_rounding else None)
+    sr_gen = generator if use_stochastic_rounding else None
+    q, scale, zero_point = quantize_weight(grouped, fmt, dims=red_dims,
+                                           generator=sr_gen)
     quantized_shape = tuple(q.shape)
-    if fmt.name == "float16" and use_quantized_matmul and not re_quantize:
+    if (fmt.name == "float16" and use_quantized_matmul and not re_quantize
+            and not fmt.is_packed):
         q = q.to(torch.bfloat16)
+    pack_layout = "bitplane"
+    if fmt.is_packed:
+        flat = q.reshape(q.shape[0], -1)
+        sr_bits = None
+        if sr_gen is not None and not fmt.is_integer:
+            sr_bits = random_bits(flat.shape, sr_gen)
+        if fmt.code_bits < 8:
+            pmax = max(8 // wd for wd, _ in halfsplit_planes(fmt.code_bits))
+            if flat.shape[1] % pmax == 0:
+                pack_layout = "halfsplit"
+        q = pack(flat, fmt, sr_bits=sr_bits, layout=pack_layout)
     meta = QuantMeta(
         fmt=fmt.name, matmul_fmt=mfmt.name, layer_kind=layer_kind,
         original_shape=original_shape, quantized_shape=quantized_shape,
         group_axis=group_axis, group_size=g if num > 1 else -1,
         use_hadamard=bool(use_hadamard),
-        hadamard_group_size=hadamard_group_size, svd_rank=0,
+        hadamard_group_size=hadamard_group_size,
+        svd_rank=svd_rank if svd_up is not None else 0,
         use_quantized_matmul=bool(use_quantized_matmul),
         re_quantize_for_matmul=bool(re_quantize),
-        dequant_dtype=dequant_dtype, pack_layout="bitplane")
+        dequant_dtype=dequant_dtype, pack_layout=pack_layout)
     return QTensor(qdata=q, scale=scale.float(),
                    zero_point=None if zero_point is None
                    else zero_point.float(),
-                   svd_up=None, svd_down=None, meta=meta)
+                   svd_up=svd_up, svd_down=svd_down, meta=meta)
+
+
+def _unpacked_values(qt: QTensor) -> torch.Tensor:
+    """Codes (or minifloat values) in the grouped shape, unpacked."""
+    meta = qt.meta
+    if not meta.is_packed:
+        return qt.qdata
+    flat_c = 1
+    for d in meta.quantized_shape[1:]:
+        flat_c *= d
+    vals = unpack(qt.qdata, meta.format, flat_c, dtype=torch.float32,
+                  layout=meta.pack_layout)
+    return vals.reshape(meta.quantized_shape)
 
 
 def dequantize(qt: QTensor, dtype=None, *, with_svd: bool = True,
                with_hadamard: bool = True) -> torch.Tensor:
     meta = qt.meta
-    if meta.is_packed:
-        raise _packed_error(meta.fmt)
     if dtype is None:
         dtype = torch_dtype(meta.dequant_dtype)
-    w = qt.qdata.to(qt.scale.dtype) * qt.scale
+    w = _unpacked_values(qt).to(qt.scale.dtype) * qt.scale
     if qt.zero_point is not None:
         w = w + qt.zero_point
     w = w.reshape(meta.original_shape)

@@ -191,3 +191,118 @@ def test_flash_attention(dev, d, n, kn, quant):
     got = ka.flash_attention(*args, out_dtype=torch.float32)
     want = ka.flash_attention_plain(*args, out_dtype=torch.float32)
     assert (got - want).abs().max() <= 2 ** -6 * want.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# B5 / B6 / B7: group-dot kernels on half-split codes
+# ---------------------------------------------------------------------------
+
+def _halfsplit(o, k, bits, g, dev, gen, signed=False):
+    """Random half-split codes with scale and zpc (O, K/g), as
+    ``dequant_mm._group_operands`` builds them."""
+    from sdnq_tpu_torch.packing import pack_codes_halfsplit
+    codes = torch.randint(0, 2 ** bits, (o, k), device=dev, generator=gen,
+                          dtype=torch.int32)
+    scale = torch.rand(o, k // g, device=dev, generator=gen) * 0.01 + 1e-3
+    if signed:
+        zpc = -float(2 ** (bits - 1)) * scale
+    else:
+        zpc = torch.randn(o, k // g, device=dev, generator=gen) * 0.05
+    return pack_codes_halfsplit(codes, bits), scale, zpc
+
+
+def _magnitude(x, packed, scale, zpc, bits):
+    """The group-dot sum of absolute terms: the scale of fp32 rounding."""
+    return kd.groupdot_mm_plain(x.float().abs(), packed, scale.abs(),
+                                zpc.abs(), None, bits, torch.float32)
+
+
+@pytest.mark.parametrize("bits,m,k,o,g", [
+    (4, 33, 256, 200, 128), (4, 300, 1024, 136, 64), (2, 130, 1024, 384, 128),
+    (1, 64, 2048, 128, 256), (4, 17, 15360, 96, 128)])
+@pytest.mark.parametrize("signed", [False, True])
+def test_groupdot_mm(dev, bits, m, k, o, g, signed):
+    """B5: bf16 products are exact in fp32, only the summation order
+    differs from the plain version: 1e-5 of the sum of |terms|."""
+    gen = _gen(10)
+    packed, scale, zpc = _halfsplit(o, k, bits, g, dev, gen, signed)
+    x = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+    bias = torch.randn(o, device=dev, generator=gen)
+    got = kd.groupdot_mm(x, packed, scale, zpc, bias, bits, torch.float32)
+    want = kd.groupdot_mm_plain(x, packed, scale, zpc, bias, bits,
+                                torch.float32)
+    bound = 1e-5 * _magnitude(x, packed, scale, zpc, bits) + 1e-6
+    assert ((got - want).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("bits,m,k,o,g", [
+    (4, 1, 3072, 1000, 128), (4, 8, 256, 300, 128), (2, 3, 256, 300, 64),
+    (1, 5, 1024, 200, 128), (4, 2, 15360, 64, 128)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_blockdiag_mm(dev, bits, m, k, o, g, x_dtype):
+    """B6: fp32 sums in another order (and with FMA): 1e-5 of the sum of
+    |terms|."""
+    gen = _gen(11)
+    packed, scale, zpc = _halfsplit(o, k, bits, g, dev, gen, m % 2 == 0)
+    x = torch.randn(m, k, device=dev, generator=gen).to(x_dtype)
+    bias = torch.randn(o, device=dev, generator=gen)
+    got = kd.blockdiag_mm(x, packed, scale, zpc, bias, bits, torch.float32)
+    want = kd.blockdiag_mm_plain(x, packed, scale, zpc, bias, bits,
+                                 torch.float32)
+    bound = 1e-5 * _magnitude(x, packed, scale, zpc, bits) + 1e-6
+    assert ((got - want).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("bits,m,k,o,g", [
+    (4, 33, 256, 200, 128), (4, 300, 3072, 136, 128), (2, 130, 1024, 384, 128),
+    (1, 64, 2048, 128, 256), (4, 40, 1024, 64, 64)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_groupdot_i8_mm_exact(dev, bits, m, k, o, g, out_dtype):
+    """B7: integer partials and the same rounded fp32 folds, so the kernel
+    equals its plain version bit for bit."""
+    gen = _gen(12)
+    packed, scale, zpc = _halfsplit(o, k, bits, g, dev, gen, bits == 2)
+    xq = torch.randint(-127, 128, (m, k), device=dev, generator=gen,
+                       dtype=torch.int8)
+    xs = torch.rand(m, 1, device=dev, generator=gen) * 0.02 + 1e-3
+    bias = torch.randn(o, device=dev, generator=gen)
+    got = kd.groupdot_i8_mm(xq, xs, packed, scale, zpc, bias, bits, out_dtype)
+    want = kd.groupdot_i8_mm_plain(xq, xs, packed, scale, zpc, bias, bits,
+                                   out_dtype)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows,qmm", [(5, False), (40, False), (40, True)])
+@pytest.mark.parametrize("fmt", ["uint4", "int4"])
+def test_packed_qlinear_on_card_matches_cpu(dev, rows, qmm, fmt):
+    """uint4 / int4 + SVD through qlinear on the card (B6 at 5 rows, B5 at
+    40 weight-only rows, B7 with the quantized matmul) against the same
+    QTensor on the CPU, bf16 output.  The CPU multiplies fp32 x where the
+    card's B5 takes bf16, so the limit is 2^-6 of the largest output (two
+    bf16 ulps of it)."""
+    import dataclasses
+    import sdnq_tpu_torch as T
+    gen = _gen(13)
+    w = torch.randn(192, 512, device=dev, generator=gen)
+    x = torch.randn(rows, 512, device=dev, generator=gen)
+    b = torch.randn(192, device=dev, generator=gen)
+    qt = T.quantize_tensor(w, fmt, use_quantized_matmul=qmm, use_svd=True,
+                           svd_rank=16)
+    assert qt.meta.pack_layout == "halfsplit"
+    got = T.qlinear(x, qt, b).float().cpu()
+    qt_cpu = dataclasses.replace(qt, **{
+        f: (None if getattr(qt, f) is None else getattr(qt, f).cpu())
+        for f in ("qdata", "scale", "zero_point", "svd_up", "svd_down")})
+    want = T.qlinear(x.cpu(), qt_cpu, b.cpu()).float()
+    assert (got - want).abs().max() <= 2 ** -6 * want.abs().max()
+
+
+def test_packed_bitplane_raises_on_card(dev):
+    """Bit-plane codes (B2's packed mode) have no kernel yet: on the card
+    the weight-only matmul raises instead of running a stand-in."""
+    import sdnq_tpu_torch as T
+    w = torch.randn(64, 72, device=dev, generator=_gen(14))
+    qt = T.quantize_tensor(w, "int12", group_size=24)
+    assert qt.meta.pack_layout == "bitplane"
+    with pytest.raises(NotImplementedError, match="later slice"):
+        T.qlinear(torch.randn(3, 72, device=dev), qt)

@@ -84,3 +84,224 @@ def test_dequant_gemv_plain_row_epilogue():
     ref = x.astype(np.float64) @ (w * s[:, None].astype(np.float64)
                                   + z[:, None]).T + b
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# B5 / B6 / B7 on half-split codes: the port's plain versions (through its
+# routing entry points) against the JAX Pallas bodies in interpret mode.
+# fp32 unless stated: the same exact products summed in another order, so
+# rtol 1e-5 plus 1e-5 of the largest output.
+# ---------------------------------------------------------------------------
+
+J = importlib.import_module("sdnq_tpu")
+T = importlib.import_module("sdnq_tpu_torch")
+J_LAYERS = importlib.import_module("sdnq_tpu.layers")
+
+
+# the JAX package's jitted kernel wrappers; they read the backend and the
+# mode switches while tracing, so their caches are cleared around each test
+J_KERNEL_FNS = [getattr(jdq, n) for n in (
+    "_dequant_mm_pallas", "_groupdot_mm_pallas", "_blockdiag_mm_pallas",
+    "_groupdot_i8_mm_pallas", "_blockdiag_i8_mm_pallas")]
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """JAX's Pallas bodies through the interpreter."""
+    monkeypatch.setenv("SDNQ_TPU_KERNEL_BACKEND", "interpret")
+    for fn in J_KERNEL_FNS:
+        fn.clear_cache()
+    yield monkeypatch
+    for fn in J_KERNEL_FNS:
+        fn.clear_cache()
+
+
+def _packed(fmt, m, k, g, seed, o=160, x_dtype=np.float32):
+    """Seeded x, bias and a JAX-quantized half-split weight, as numpy."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(o, k)).astype(np.float32)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    b = rng.normal(size=(o,)).astype(np.float32)
+    jq = J.quantize_tensor(jnp.asarray(w), fmt, group_size=g)
+    assert jq.meta.pack_layout == "halfsplit"
+    scale = np.asarray(jq.scale).reshape(o, -1)
+    zp = (None if jq.zero_point is None
+          else np.asarray(jq.zero_point).reshape(o, -1))
+    return x, np.array(jq.qdata), scale, zp, b
+
+
+def _j(a, dtype=None):
+    if a is None:
+        return None
+    a = jnp.asarray(a)
+    return a if dtype is None else a.astype(dtype)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _close(out, ref):
+    ref = np.asarray(ref, dtype=np.float32)
+    np.testing.assert_allclose(np.asarray(out, dtype=np.float32), ref,
+                               rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+def _bf16_ulps(out, ref, n):
+    """|out - ref| within n bf16 ulps of the largest output."""
+    ref = np.asarray(ref.astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    assert np.abs(out.float().numpy() - ref).max() <= n * ulp
+
+
+@pytest.mark.parametrize("fmt,m,k,g,with_bias,mode", [
+    ("uint4", 33, 256, 128, True, "groupdot"),
+    ("uint4", 33, 256, 128, True, "expanded"),
+    ("int4", 300, 1024, 128, False, "groupdot"),
+    ("int4", 300, 1024, 128, False, "expanded"),
+    ("int2", 33, 1024, 128, True, "groupdot"),
+    ("int2", 300, 1024, 64, False, "expanded"),
+    ("uint4", 300, 1024, 64, True, "expanded"),
+    ("int4", 33, 256, 64, False, "expanded")])
+def test_groupdot_b5_vs_pallas(interpret, fmt, m, k, g, with_bias, mode):
+    """B5: ``dequant_matmul`` above BLOCKDIAG_MAX_ROWS rows against
+    ``_groupdot_mm_pallas``, each of its modes forced (the expanded mode
+    scales every value before one dot; equal in fp32)."""
+    interpret.setenv("SDNQ_TPU_GROUPDOT_MAX_MG",
+                     "1000000000" if mode == "groupdot" else "0")
+    x, wq, scale, zp, b = _packed(fmt, m, k, g, m + k + g)
+    b = b if with_bias else None
+    f = jfmt(fmt)
+    ref = jdq._groupdot_mm_pallas(
+        _j(x), _j(wq), _j(scale), _j(zp), _j(b), fmt_name=fmt,
+        code_bits=f.code_bits, code_min=int(f.min), is_float=False,
+        group_size=g, out_dtype=jnp.dtype(jnp.float32))
+    assert m > tdq.BLOCKDIAG_MAX_ROWS
+    out = tdq.dequant_matmul(_t(x), _t(wq), _t(scale), _t(zp), _t(b),
+                             tfmt(fmt), g, out_dtype=torch.float32,
+                             pack_layout="halfsplit")
+    _close(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("fmt,m,k,g,with_bias", [
+    ("uint4", 1, 256, 128, True), ("int4", 7, 1024, 64, False),
+    ("int2", 1, 1024, 128, True), ("uint4", 7, 1024, 128, False)])
+def test_blockdiag_b6_vs_pallas(interpret, fmt, m, k, g, with_bias):
+    """B6: ``dequant_matmul`` on up to BLOCKDIAG_MAX_ROWS rows against
+    ``_blockdiag_mm_pallas``."""
+    x, wq, scale, zp, b = _packed(fmt, m, k, g, m + k + g)
+    b = b if with_bias else None
+    f = jfmt(fmt)
+    ref = jdq._blockdiag_mm_pallas(
+        _j(x), _j(wq), _j(scale), _j(zp), _j(b), fmt_name=fmt,
+        code_bits=f.code_bits, code_min=int(f.min), is_float=False,
+        group_size=g, out_dtype=jnp.dtype(jnp.float32))
+    out = tdq.dequant_matmul(_t(x), _t(wq), _t(scale), _t(zp), _t(b),
+                             tfmt(fmt), g, out_dtype=torch.float32,
+                             pack_layout="halfsplit")
+    _close(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("fmt,m,k,with_bias", [
+    ("uint4", 33, 256, True), ("int4", 300, 1024, False),
+    ("int2", 33, 1024, True), ("uint4", 300, 1024, True)])
+def test_groupdot_i8_b7_vs_pallas(interpret, fmt, m, k, with_bias):
+    """B7: ``packed_int8_matmul`` against the JAX package's, which runs
+    ``_groupdot_i8_mm_pallas`` at these shapes (g = 128, more than 32
+    rows).  Both divide for the x codes, which are bit-equal, so only the
+    order of the fp32 epilogue differs."""
+    x, wq, scale, zp, b = _packed(fmt, m, k, 128, m + k)
+    b = b if with_bias else None
+    ref = jdq.packed_int8_matmul(_j(x), _j(wq), _j(scale), _j(zp), _j(b),
+                                 jfmt(fmt), 128, out_dtype=jnp.float32,
+                                 pack_layout="halfsplit")
+    out = tdq.packed_int8_matmul(_t(x), _t(wq), _t(scale), _t(zp), _t(b),
+                                 tfmt(fmt), 128, out_dtype=torch.float32,
+                                 pack_layout="halfsplit")
+    assert ref is not None and out is not None
+    _close(out.numpy(), ref)
+
+
+def test_halfsplit_kernels_bf16(interpret):
+    """One bf16 case per kernel (bf16 x for B5 and B6, bf16 output for all
+    three): within two bf16 ulps of the largest output."""
+    interpret.setenv("SDNQ_TPU_GROUPDOT_MAX_MG", "1000000000")
+    f = jfmt("uint4")
+    for m, kernel in ((40, "B5"), (3, "B6"), (40, "B7")):
+        x, wq, scale, zp, b = _packed("uint4", m, 512, 128, m)
+        xb = jnp.asarray(x).astype(jnp.bfloat16)
+        xt = _t(x).bfloat16()
+        args = (_j(wq), _j(scale), _j(zp), _j(b))
+        targs = (_t(wq), _t(scale), _t(zp), _t(b))
+        kw = dict(fmt_name="uint4", code_bits=4, code_min=0, is_float=False,
+                  group_size=128, out_dtype=jnp.dtype(jnp.bfloat16))
+        if kernel == "B5":
+            ref = jdq._groupdot_mm_pallas(xb, *args, **kw)
+        elif kernel == "B6":
+            ref = jdq._blockdiag_mm_pallas(xb, *args, **kw)
+        else:
+            ref = jdq.packed_int8_matmul(_j(x), *args, f, 128,
+                                         out_dtype=jnp.bfloat16,
+                                         pack_layout="halfsplit")
+        if kernel == "B7":
+            out = tdq.packed_int8_matmul(_t(x), *targs, tfmt("uint4"), 128,
+                                         out_dtype=torch.bfloat16,
+                                         pack_layout="halfsplit")
+        else:
+            out = tdq.dequant_matmul(xt, *targs, tfmt("uint4"), 128,
+                                     out_dtype=torch.bfloat16,
+                                     pack_layout="halfsplit")
+        _bf16_ulps(out, ref, 2)
+
+
+# (fmt, rows, K, group): packed_int8_matmul returns None on both sides
+NONE_CASES = [
+    ("uint4", 80, 1024, 64),     # group not a multiple of 128 (80·8 > 1024)
+    ("int4", 40, 128, 64),       # field segment 64, not a multiple of 128
+    ("int4", 40, 16640, 128),    # 130 groups > 64
+    ("int12", 40, 256, 128),     # bit-plane layout
+]
+
+
+@pytest.mark.parametrize("fmt,m,k,g", NONE_CASES)
+def test_packed_int8_route_none_cases(interpret, fmt, m, k, g):
+    rng = np.random.default_rng(k)
+    w = rng.normal(size=(96, k)).astype(np.float32)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    jq = J.quantize_tensor(jnp.asarray(w), fmt, group_size=g,
+                           use_quantized_matmul=True)
+    scale = np.asarray(jq.scale).reshape(96, -1)
+    zp = (None if jq.zero_point is None
+          else np.asarray(jq.zero_point).reshape(96, -1))
+    assert jdq.packed_int8_matmul(
+        _j(x), jq.qdata, _j(scale), _j(zp), None, jfmt(fmt), g,
+        pack_layout=jq.meta.pack_layout) is None
+    assert tdq.packed_int8_matmul(
+        _t(x), _t(np.array(jq.qdata)), _t(scale), _t(zp), None, tfmt(fmt),
+        g, pack_layout=jq.meta.pack_layout) is None
+
+
+@pytest.mark.parametrize("fmt,m,k,g", NONE_CASES)
+def test_packed_requantize_route(fmt, m, k, g):
+    """After a None the quantized matmul requantizes the packed weight
+    rowwise (B1 + B4) on both sides; the JAX package on its XLA route,
+    where the row scales divide exactly as the port's do.  The same fp32
+    operations: rtol 1e-5."""
+    rng = np.random.default_rng(k + 1)
+    w = rng.normal(size=(96, k)).astype(np.float32)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    b = rng.normal(size=(96,)).astype(np.float32)
+    jq = J.quantize_tensor(jnp.asarray(w), fmt, group_size=g,
+                           use_quantized_matmul=True,
+                           dequant_dtype="float32")
+    fields = {a: (None if getattr(jq, a) is None
+                  else np.array(getattr(jq, a)))
+              for a in ("qdata", "scale", "zero_point", "svd_up",
+                        "svd_down")}
+    import dataclasses
+    from sdnq_tpu_torch.convert import qtensor_from_numpy
+    tq = qtensor_from_numpy(fields, dataclasses.asdict(jq.meta), "cpu")
+    ref = np.asarray(J_LAYERS.qlinear(_j(x), jq, _j(b)))
+    out = T.qlinear(_t(x), tq, _t(b)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5,
+                               atol=2e-5 * np.abs(ref).max())

@@ -98,7 +98,12 @@ def test_activation_quantizers_bit_equal(kind):
     ("int8", True, 0, False), ("uint8", True, 0, False),
     ("float8_e4m3fn", True, 0, False), ("int8", False, 0, False),
     ("int8", False, 32, False), ("int8", True, 0, True),
-    ("float16", True, 0, False)])
+    ("float16", True, 0, False),
+    # packed: half-split codes (bytes, scale, zp, meta and pack_layout)
+    ("uint4", False, 0, False), ("int4", True, 0, False),
+    ("int2", False, 16, False), ("uint4", True, 32, True),
+    ("int3", False, 0, False), ("float4_e2m1fn", False, 0, False),
+    ("float6_e3m2fn", True, 0, False), ("int12", False, 0, False)])
 def test_quantize_tensor_equal(fmt, qmm, gs, had):
     w = _x((48, 128), seed=3)
     jt = J.quantize_tensor(jnp.asarray(w), fmt, use_quantized_matmul=qmm,
@@ -126,8 +131,38 @@ def test_quantize_tensor_equal(fmt, qmm, gs, had):
 
 
 def test_packed_formats_raise():
+    """Packed formats quantize now that the codecs are ported; packing a
+    native format still raises, as does stochastic rounding of native fp8
+    weights."""
+    qt = T.quantize_tensor(torch.zeros(32, 64), "int4")
+    assert qt.meta.pack_layout == "halfsplit"
+    assert qt.qdata.dtype == torch.uint8 and qt.qdata.shape == (32, 32)
+    from sdnq_tpu_torch.packing import pack
+    with pytest.raises(ValueError, match="not a packed format"):
+        pack(torch.zeros(2, 8, dtype=torch.int32), T.get_format("int8"))
     with pytest.raises(NotImplementedError):
-        T.quantize_tensor(torch.zeros(32, 64), "int4")
+        tcore.quantize_weight(torch.ones(4, 8), "float8_e4m3fn",
+                              generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("fmt", ["uint4", "int4", "int2"])
+def test_packed_storage_same_under_quantized_matmul(fmt):
+    """The stored tensors (codes, scales, zero points, SVD factors) do not
+    depend on use_quantized_matmul; only that meta field differs.  So one
+    quantized model serves both routes."""
+    w = torch.from_numpy(_x((96, 256), seed=4))
+    a, b = (T.quantize_tensor(w, fmt, use_svd=True, svd_rank=8,
+                              use_quantized_matmul=qmm,
+                              generator=torch.Generator().manual_seed(1))
+            for qmm in (False, True))
+    for f in ("qdata", "scale", "zero_point", "svd_up", "svd_down"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x is None) == (y is None)
+        assert x is None or torch.equal(x, y), f
+    assert dataclasses.replace(a.meta, use_quantized_matmul=True) == b.meta
+    # SVD layers group 2^(3 + bits) values (128 for 4-bit)
+    assert a.meta.group_size == 2 ** (3 + T.get_format(fmt).num_bits)
+    assert a.meta.pack_layout == "halfsplit"
 
 
 def test_quantconfig_json_round_trip():
@@ -140,3 +175,27 @@ def test_quantconfig_json_round_trip():
     assert json.loads(tc.to_json()) == json.loads(jc.to_json())
     assert J.QuantConfig.from_json(tc.to_json()).to_dict() == d
     assert T.QuantConfig().to_dict() == J.QuantConfig().to_dict()
+
+
+def test_convert_uint4_svd_qtensor():
+    """A JAX uint4 + SVD QTensor (half-split packed codes, bf16 factors)
+    carried into the port keeps every byte and its meta, and dequantizes to
+    the same weight (fp32 products of the factors in another order)."""
+    from sdnq_tpu_torch.convert import qtensor_from_numpy
+    w = _x((96, 256), seed=5)
+    jt = J.quantize_tensor(jnp.asarray(w), "uint4", use_svd=True, svd_rank=8)
+    fields = {f: (None if getattr(jt, f) is None else np.asarray(
+        getattr(jt, f))) for f in ("qdata", "scale", "zero_point", "svd_up",
+                                   "svd_down")}
+    tt = qtensor_from_numpy(fields, dataclasses.asdict(jt.meta), "cpu")
+    assert tt.meta == T.QuantMeta(**dataclasses.asdict(jt.meta))
+    assert tt.meta.pack_layout == "halfsplit" and tt.meta.svd_rank == 8
+    assert tt.svd_up.dtype == tt.svd_down.dtype == torch.bfloat16
+    for f, a in fields.items():
+        b = getattr(tt, f)
+        if a.dtype.name == "bfloat16":
+            a, b = a.view(np.int16), b.view(torch.int16)
+        np.testing.assert_array_equal(b.numpy(), a)
+    np.testing.assert_allclose(tt.dequantize(torch.float32).numpy(),
+                               np.asarray(jt.dequantize(jnp.float32)),
+                               rtol=1e-6, atol=1e-6)

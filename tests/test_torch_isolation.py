@@ -22,7 +22,8 @@ PKG = ROOT / "sdnq_tpu_torch"
 def test_fresh_import_leaves_jax_out():
     code = ("import sys, sdnq_tpu_torch, sdnq_tpu_torch.kernels, "
             "sdnq_tpu_torch.models, sdnq_tpu_torch.pipeline, "
-            "sdnq_tpu_torch.convert\n"
+            "sdnq_tpu_torch.convert, sdnq_tpu_torch.packing, "
+            "sdnq_tpu_torch.quant.svd\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'sdnq_tpu.')) "
             "or m == 'sdnq_tpu']\n"
@@ -47,6 +48,7 @@ def _imported_roots(path: Path):
 def test_no_source_imports_jax():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    assert {PKG / "packing.py", PKG / "quant" / "svd.py"} <= set(files)
     for f in files:
         for mod in _imported_roots(f):
             root = mod.split(".")[0]
