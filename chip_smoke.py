@@ -11,7 +11,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               (one process per source, all at once) into the package's
               ignored _build/ directory.
 3. kernels  - calls each kernel's wrapper at the shapes of the FLUX.1-dev
-              paths, holds it against its plain PyTorch version on the
+              and Llama-3-8B paths (and B8 at the decode shapes of its
+              domain), holds it against its plain PyTorch version on the
               same inputs, times kernel, plain version and a one-call
               PyTorch yardstick with CUDA events, and computes the bound
               (bytes over 3.35 TB/s or operations over the H100's peak for
@@ -30,22 +31,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               (``use_quantized_matmul`` set on each QTensor's meta): 1
               request x 2 steps; B7, B6 and the requantize fallback (B1 +
               B4, for the 96- and 120-group layers) must launch.
-5. slice    - each model cut to 1 double + 2 single blocks, one forward at
-              1024x1024 with 512 text tokens through the kernels against
-              the all-plain path, both on the card (the check swaps each
+4d. llm     - meta-llama/Meta-Llama-3-8B at full width and depth with
+              random int8 weights (quantized matmul), quantized layer by
+              layer: ``generate`` with the int8 KV cache (2 requests) and
+              the bf16 KV cache (1 request), each 4 prompts of 896 tokens
+              and 128 new tokens (a 1024-slot cache, so prefill takes B3),
+              and one cache-free causal ``llm_forward`` of 2 x 1024 tokens.
+              Prefill and decode times, tokens/s, peak memory and launches
+              per prefill and per decode step; B1, B2, B4 and the new B3
+              modes (masked, GQA, int8 P.V, causal) must launch.  Then one
+              uint4 g64 layer through ``qlinear`` at 32 rows: B8 launches.
+5. slice    - each FLUX model cut to 1 double + 2 single blocks, one
+              forward at 1024x1024 with 512 text tokens, and Llama-3-8B cut
+              to 2 layers (prefill + 4 decode steps with either cache, and
+              the causal forward), through the kernels against the
+              all-plain path, both on the card (the check swaps each
               wrapper for its plain version for the reference run and
-              verifies no kernel launched in it): int8, uint4 weight-only
-              and uint4 quantized matmul, each with its own limit.
-6. profile  - one Euler step of the full int8 model and one of the uint4
-              weight-only model traced with torch.profiler: device time by
+              verifies no kernel launched in it), each with its own limit.
+6. profile  - one Euler step of the full int8 and uint4 weight-only FLUX
+              models, and one prefill and one decode step of the int8-KV
+              Llama-3-8B, traced with torch.profiler: device time by
               kernel group, idle share.
 7. faults   - broken copies of the kernel sources (FAULTS: a skipped KV
               tile, a missing rescale, a dropped K stage, a short warp
               reduction, round-half-away, the other nibble decoded, a
-              neighbouring group's scale, the other field's bits kept),
-              built with the real ones; phases 3 and 5 rerun with each in
-              turn.  Phase 3 must fail for the broken kernel; phase 5's
-              reading is printed beside its limit.
+              neighbouring group's scale (B6 and B8), the other field's
+              bits kept, a mask ignored on one tile, the P scale taken per
+              64-key tile, the causal skip a tile early, the GQA map
+              h % KH, a middle KV tile skipped under a mask and under
+              causal), built with the real ones; phases 3 and 5 rerun with
+              each in turn.  Phase 3 must fail for the broken kernel; phase
+              5's readings are printed beside their limits.
 
 The last line is {"ok": true, "device": {...}}.  Numbers are this card's,
 at the power limit printed beside them.
@@ -55,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -104,6 +121,32 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+# name of each wrapper's CUDA kernel, as the profiler reports it
+KERNEL_SYMBOLS = {
+    "quantize_rows": "quantize_rows_kernel", "scaled_gemm": "scaled_mm_kernel",
+    "dequant_gemv": "dequant_gemv_kernel", "flash_attention": "flash_attn",
+    "groupdot_mm": "groupdot_mm_kernel", "blockdiag_mm": "blockdiag_mm_kernel",
+    "groupdot_i8_mm": "groupdot_mm_kernel",
+    "blockdiag_i8_mm": "blockdiag_i8_mm_kernel"}
+
+
+def device_ms(torch, fn, symbol, reps: int = 5):
+    """Mean device time per call of the kernels named ``symbol`` that
+    ``fn`` launches, from torch.profiler (host work not included); None
+    when the profiler records no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and symbol in e.name]
+    return sum(us) / 1e3 / reps if us else None
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -124,16 +167,33 @@ def kernel_phase(torch, dev, timed: bool = True):
     def t(fn, reps: int = 10):
         return time_ms(fn, reps=reps) if timed else None
 
-    def record(name, route, source, replaces, err, tol, ms, plain_ms,
-               bnd, library_ms, shape, on_path=True, path="int8"):
-        check(err <= tol,
-              f"{name} {shape}: max_abs_err {err:.3e} <= {tol:.3e}")
+    def record(name, route, source, replaces, err, tol, kernel, plain_ms,
+               bnd, library_ms, shape, on_path=True, path="int8",
+               count=None, reading=None):
+        """``kernel`` calls the kernel's wrapper: timed with CUDA events
+        around the call (``ms``, the wrapper's host work included) and by
+        the profiler's kernel durations (``device_ms``).  ``reading`` is
+        the number held against ``tol`` where it is not ``err`` (the
+        largest error of a row over that row's largest output)."""
+        if reading is None:
+            check(err <= tol,
+                  f"{name} {shape}: max_abs_err {err:.3e} <= {tol:.3e}")
+        else:
+            check(reading <= tol,
+                  f"{name} {shape}: max_abs_err {err:.3e}; worst row's "
+                  f"error over its largest output {reading:.3e} <= {tol:.3e}")
+        ms = t(kernel)
+        dev_ms = device_ms(torch, kernel, KERNEL_SYMBOLS[name]) if timed \
+            else None
         rows.append(dict(name=name, route=route, source=source,
                          replaces=replaces, launches=0, max_abs_err=err,
-                         tolerance=tol, ms=ms, plain_ms=plain_ms,
+                         reading=err if reading is None else reading,
+                         tolerance=tol, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms,
                          bound_ms=bnd[0], bound_by=bnd[1],
                          library_ms=library_ms, shape=shape,
-                         on_main_path=on_path, path=path))
+                         on_main_path=on_path, path=path,
+                         count=count or name))
 
     m = 4608
     # B1, quantize half: fp32 rows into qkv / linear1 / fc1 (K 3072) and
@@ -146,7 +206,7 @@ def kernel_phase(torch, dev, timed: bool = True):
                   for a, b in zip(got[:2], want[:2]))
         record("quantize_rows", "cuda", "sdnq_tpu_torch/csrc/quantize_rows.cu",
                "sdnq_tpu/kernels/scaled_mm.py:230", err, 0.0,
-               t(lambda: ks.quantize_rows(x)),
+               lambda: ks.quantize_rows(x),
                t(lambda: ks.quantize_rows_plain(x), reps=3),
                bound_ms(m * k * (x.element_size() + 1) + m * 4,
                         3 * m * k, "fp32"),
@@ -173,8 +233,8 @@ def kernel_phase(torch, dev, timed: bool = True):
                # bit-exact expected; one bf16 ulp (at most 2^-7 relative)
                # of the largest output
                float(want.float().abs().max()) * 2 ** -7,
-               t(lambda: ks.scaled_gemm(a, b, torch.bfloat16, xs, ws,
-                                        bias)),
+               lambda: ks.scaled_gemm(a, b, torch.bfloat16, xs, ws,
+                                        bias),
                t(lambda: ks.scaled_gemm_plain(a, b, torch.bfloat16, xs,
                                               ws, bias), reps=3),
                bound_ms(m * k + n * k + m * n * 2 + (m + 2 * n) * 4,
@@ -191,7 +251,7 @@ def kernel_phase(torch, dev, timed: bool = True):
     record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
            "sdnq_tpu/kernels/scaled_mm.py:57",
            float((got - want).abs().max()), tol,
-           t(lambda: ks.scaled_gemm(a, b, torch.float32)),
+           lambda: ks.scaled_gemm(a, b, torch.float32),
            t(lambda: ks.scaled_gemm_plain(a, b, torch.float32), reps=3),
            bound_ms(2 * (m * 3072 + 3072 * 3072) + m * 3072 * 4,
                     2 * m * 3072 * 3072, "bf16"),
@@ -208,7 +268,7 @@ def kernel_phase(torch, dev, timed: bool = True):
               for a, b in zip(got[:2], want[:2]))
     record("quantize_rows", "cuda", "sdnq_tpu_torch/csrc/quantize_rows.cu",
            "sdnq_tpu/kernels/scaled_mm.py:230", err, 0.0,
-           t(lambda: ks.quantize_rows(x, "float8_e4m3fn")),
+           lambda: ks.quantize_rows(x, "float8_e4m3fn"),
            t(lambda: ks.quantize_rows_plain(x, "float8_e4m3fn"), reps=3),
            bound_ms(m * k * 3 + m * 4, 3 * m * k, "fp32"), None,
            f"M{m} K{k} bfloat16 fp8", on_path=False)
@@ -223,7 +283,7 @@ def kernel_phase(torch, dev, timed: bool = True):
     record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
            "sdnq_tpu/kernels/scaled_mm.py:57",
            float((got.float() - want.float()).abs().max()), tol,
-           t(lambda: ks.scaled_gemm(a, b, torch.bfloat16, xs, ws)),
+           lambda: ks.scaled_gemm(a, b, torch.bfloat16, xs, ws),
            t(lambda: ks.scaled_gemm_plain(a, b, torch.bfloat16, xs, ws),
              reps=3),
            bound_ms(m * k + n * k + m * n * 2 + (m + n) * 4, 2 * m * n * k,
@@ -250,8 +310,8 @@ def kernel_phase(torch, dev, timed: bool = True):
     record("dequant_gemv", "cuda", "sdnq_tpu_torch/csrc/dequant_gemv.cu",
            "sdnq_tpu/kernels/dequant_mm.py:60",
            float((got.float() - want.float()).abs().max()), tol,
-           t(lambda: kd.dequant_gemv(x, w, s, None, bias,
-                                    torch.bfloat16), reps=20),
+           lambda: kd.dequant_gemv(x, w, s, None, bias,
+                                    torch.bfloat16),
            t(lambda: kd.dequant_gemv_plain(x, w, s, None, bias,
                                           torch.bfloat16), reps=5),
            bound_ms(o * k + k * 4 + o * 2 + 2 * o * 4, 2 * o * k, "fp32"),
@@ -283,7 +343,7 @@ def kernel_phase(torch, dev, timed: bool = True):
     record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
            "sdnq_tpu/kernels/attention.py:67",
            float((got.float() - want.float()).abs().max()), attn_tol(want),
-           t(lambda: ka.flash_attention(qb, kb, v)),
+           lambda: ka.flash_attention(qb, kb, v),
            t(lambda: ka.flash_attention_plain(qb, kb, v), reps=3),
            bound_ms(4 * bh * n * d * 2, flops, "bf16"), t(sdpa),
            f"BH{bh} N{n} D{d} bf16")
@@ -297,7 +357,7 @@ def kernel_phase(torch, dev, timed: bool = True):
     record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
            "sdnq_tpu/kernels/attention.py:67",
            float((got.float() - want.float()).abs().max()), attn_tol(want),
-           t(lambda: ka.flash_attention(qq, kq, v, qs, kss)),
+           lambda: ka.flash_attention(qq, kq, v, qs, kss),
            t(lambda: ka.flash_attention_plain(qq, kq, v, qs, kss),
              reps=3),
            # Q.K^T at the int8 rate, P.V at the bf16 rate: in bf16 terms
@@ -306,6 +366,21 @@ def kernel_phase(torch, dev, timed: bool = True):
                     0.75 * flops, "bf16"), t(sdpa),
            f"BH{bh} N{n} D{d} int8-QK", on_path=False)
     del q, kk, v, qb, kb, qq, kq
+
+    # B3 serving modes at Llama-3-8B's shapes: 4 requests x 32 heads over 8
+    # KV heads (GQA), head dim 128.  Prefill: 896 prompt tokens into a
+    # 1024-slot cache under the model's mask key_pos <= q_pos; the cache-
+    # free forward: causal over 2 x 1024 tokens.  Checked in fp32, each
+    # row against its own largest output: under these masks query 0 attends
+    # key 0 alone and its output (about max |v|) is some 40 times that of a
+    # row over a thousand keys, so a limit on the largest output overall
+    # would pass a kernel that misweighted the later rows.  Token-mode P·V
+    # quantizes P at the same points in the kernel and the plain version (a
+    # P block of 512 keys, two per row), so they agree to fp32 rounding:
+    # 2^-10 of the row's largest output; the bf16 modes round P to bf16
+    # against other maxima: 2^-6 of it.
+    llm_attention_rows(torch, dev, g, t, record)
+
 
     # B5 / B6 / B7 on uint4 half-split codes, group 128 (the uint4 + SVD
     # recipe), with a zero point about 8 steps below the codes.  The plain
@@ -316,23 +391,24 @@ def kernel_phase(torch, dev, timed: bool = True):
     def ulp_tol(want):
         return float(want.float().abs().max()) * 2 ** -7
 
-    def uint4_weight(n, k, gsize=128):
-        codes = torch.randint(0, 16, (n, k), device=dev, generator=g,
+    def packed_weight(n, k, bits=4, gsize=128):
+        top = 2 ** bits
+        codes = torch.randint(0, top, (n, k), device=dev, generator=g,
                               dtype=torch.int32)
         scale = torch.rand(n, k // gsize, device=dev, generator=g) * 2e-3 \
             + 1e-3
-        zpc = -8 * scale * (1 + 0.1 * torch.randn(
+        zpc = -(top // 2) * scale * (1 + 0.1 * torch.randn(
             n, k // gsize, device=dev, generator=g))
         w_deq = (codes.float().reshape(n, k // gsize, gsize) * scale[..., None]
                  + zpc[..., None]).reshape(n, k).bfloat16()
-        return pack_codes_halfsplit(codes, 4), scale, zpc, w_deq
+        return pack_codes_halfsplit(codes, bits), scale, zpc, w_deq
 
-    def halfsplit_bytes(n, k, gsize=128):
-        return n * k // 2 + 2 * n * (k // gsize) * 4 + n * 4
+    def halfsplit_bytes(n, k, gsize=128, bits=4):
+        return n * k * bits // 8 + 2 * n * (k // gsize) * 4 + n * 4
 
     for m, k, n in ((4608, 3072, 21504), (4608, 15360, 3072),
                     (512, 3072, 9216)):
-        packed, scale, zpc, w_deq = uint4_weight(n, k)
+        packed, scale, zpc, w_deq = packed_weight(n, k)
         x = torch.randn(m, k, device=dev, generator=g).bfloat16()
         bias = torch.randn(n, device=dev, generator=g)
         args = (x, packed, scale, zpc, bias, 4, torch.bfloat16)
@@ -341,7 +417,7 @@ def kernel_phase(torch, dev, timed: bool = True):
         record("groupdot_mm", "cuda", "sdnq_tpu_torch/csrc/groupdot_mm.cu",
                "sdnq_tpu/kernels/dequant_mm.py:355",
                float((got.float() - want.float()).abs().max()),
-               ulp_tol(want), t(lambda: kd.groupdot_mm(*args)),
+               ulp_tol(want), lambda: kd.groupdot_mm(*args),
                t(lambda: kd.groupdot_mm_plain(*args), reps=3),
                bound_ms(m * k * 2 + halfsplit_bytes(n, k) + m * n * 2,
                         2 * m * n * k, "bf16"),
@@ -350,7 +426,7 @@ def kernel_phase(torch, dev, timed: bool = True):
         del packed, w_deq, x
 
     for k, n in ((3072, 18432), (256, 3072)):
-        packed, scale, zpc, w_deq = uint4_weight(n, k)
+        packed, scale, zpc, w_deq = packed_weight(n, k)
         x = torch.randn(1, k, device=dev, generator=g)
         bias = torch.randn(n, device=dev, generator=g)
         args = (x, packed, scale, zpc, bias, 4, torch.bfloat16)
@@ -360,7 +436,7 @@ def kernel_phase(torch, dev, timed: bool = True):
         record("blockdiag_mm", "cuda", "sdnq_tpu_torch/csrc/blockdiag_mm.cu",
                "sdnq_tpu/kernels/dequant_mm.py:593",
                float((got.float() - want.float()).abs().max()),
-               ulp_tol(want), t(lambda: kd.blockdiag_mm(*args), reps=20),
+               ulp_tol(want), lambda: kd.blockdiag_mm(*args),
                t(lambda: kd.blockdiag_mm_plain(*args), reps=5),
                bound_ms(halfsplit_bytes(n, k) + k * 4 + n * 2, 2 * n * k,
                         "fp32"),
@@ -369,7 +445,7 @@ def kernel_phase(torch, dev, timed: bool = True):
         del packed, w_deq
 
     for m, k, n in ((4608, 3072, 21504), (4096, 3072, 9216)):
-        packed, scale, zpc, w_deq = uint4_weight(n, k)
+        packed, scale, zpc, w_deq = packed_weight(n, k)
         xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
                            dtype=torch.int8)
         xs = torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3
@@ -381,15 +457,167 @@ def kernel_phase(torch, dev, timed: bool = True):
         record("groupdot_i8_mm", "cuda", "sdnq_tpu_torch/csrc/groupdot_mm.cu",
                "sdnq_tpu/kernels/dequant_mm.py:741",
                float((got.float() - want.float()).abs().max()),
-               ulp_tol(want), t(lambda: kd.groupdot_i8_mm(*args)),
+               ulp_tol(want), lambda: kd.groupdot_i8_mm(*args),
                t(lambda: kd.groupdot_i8_mm_plain(*args), reps=3),
                bound_ms(m * k + halfsplit_bytes(n, k) + m * 4 + m * n * 2,
                         2 * m * n * k, "int8"),
                t(lambda: F.linear(xb, w_deq, bias.bfloat16())),
                f"M{m} K{k} N{n} uint4 g128", path="uint4_qmm")
         del packed, w_deq, xq, xb
+
+    # B8 at the decode shapes of its domain: meta-llama/Llama-3.2-1B's q and
+    # gate projections (hidden 2048, intermediate 8192) at a decode batch of
+    # 32 rows, uint4 at its auto group of 64 (the JAX route takes B8 there:
+    # 32 x 32 groups <= 1024, g not a multiple of 128), and int2 at g 16.
+    # Bit-equal expected (exact integer partials, the same fp32 folds):
+    # limit one bf16 ulp of the largest output.
+    for bits, gsize, k, n in ((4, 64, 2048, 8192), (4, 64, 2048, 2048),
+                              (2, 16, 512, 4096)):
+        packed, scale, zpc, w_deq = packed_weight(n, k, bits, gsize)
+        xq = torch.randint(-127, 128, (32, k), device=dev, generator=g,
+                           dtype=torch.int8)
+        xs = torch.rand(32, 1, device=dev, generator=g) * 0.02 + 1e-3
+        args = (xq, xs, packed, scale, zpc, None, bits, torch.bfloat16)
+        got = kd.blockdiag_i8_mm(*args)
+        want = kd.blockdiag_i8_mm_plain(*args)
+        xb = (xq.float() * xs).bfloat16()
+        record("blockdiag_i8_mm", "cuda",
+               "sdnq_tpu_torch/csrc/blockdiag_i8_mm.cu",
+               "sdnq_tpu/kernels/dequant_mm.py:890",
+               float((got.float() - want.float()).abs().max()),
+               ulp_tol(want), lambda: kd.blockdiag_i8_mm(*args),
+               t(lambda: kd.blockdiag_i8_mm_plain(*args), reps=3),
+               bound_ms(32 * k + halfsplit_bytes(n, k, gsize, bits) + 32 * 4
+                        + 32 * n * 2, 2 * 32 * n * k, "int8"),
+               t(lambda: F.linear(xb, w_deq), reps=20),
+               f"M32 K{k} N{n} {'uint4' if bits == 4 else 'uint2'} g{gsize}",
+               path="qlinear_b8")
+        del packed, w_deq
     torch.cuda.empty_cache()
     return rows
+
+
+def b7_b8_crossover(torch, dev):
+    """Device time of B8 and B7 on the same uint4 g 64 weights, at shapes
+    where both kernels take the groups and the JAX route has a result at 32
+    rows (K 2048 -> 8192, 2048 and 512: Llama-3.2-1B's q / gate, o and kv
+    projections; K 1024 -> 4096), at 32 and 64 rows: the measurement behind
+    ``dequant_mm.I8_BLOCKDIAG_MAX_ROWS``."""
+    from sdnq_tpu_torch.kernels import dequant_mm as kd
+    from sdnq_tpu_torch.packing import pack_codes_halfsplit
+    g = torch.Generator(device=dev).manual_seed(90)
+    res = {}
+    for k, n in ((2048, 8192), (2048, 2048), (2048, 512), (1024, 4096)):
+        codes = torch.randint(0, 16, (n, k), device=dev, generator=g,
+                              dtype=torch.int32)
+        packed = pack_codes_halfsplit(codes, 4)
+        scale = torch.rand(n, k // 64, device=dev, generator=g) * 1e-3
+        zpc = -8 * scale
+        for m in (32, 64):
+            xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                               dtype=torch.int8)
+            xs = torch.rand(m, 1, device=dev, generator=g)
+            args = (xq, xs, packed, scale, zpc, None, 4)
+            res[f"M{m} K{k} N{n}"] = {
+                "B8_device_ms": device_ms(torch, lambda: kd.blockdiag_i8_mm(
+                    *args), KERNEL_SYMBOLS["blockdiag_i8_mm"]),
+                "B7_device_ms": device_ms(torch, lambda: kd.groupdot_i8_mm(
+                    *args), KERNEL_SYMBOLS["groupdot_i8_mm"])}
+    log("B7 / B8 crossover, uint4 g64 (I8_BLOCKDIAG_MAX_ROWS = "
+        f"{kd.I8_BLOCKDIAG_MAX_ROWS}): " + json.dumps(res))
+
+
+def llm_attention_rows(torch, dev, g, t, record):
+    """Phase 3 rows of the B3 serving modes (see ``kernel_phase``)."""
+    import torch.nn.functional as F
+    from sdnq_tpu_torch.kernels import attention as ka
+    from sdnq_tpu_torch.quant.core import quantize_int_mm
+
+    src, rep = ("sdnq_tpu_torch/csrc/flash_attn.cu",
+                "sdnq_tpu/kernels/attention.py:67")
+    b, h, kh, d, n, kn = 4, 32, 8, 128, 896, 1024
+    sm = d ** -0.5
+    q = torch.randn(b * h, n, d, device=dev, generator=g)
+    k = torch.randn(b * kh, kn, d, device=dev, generator=g)
+    v = torch.randn(b * kh, kn, d, device=dev, generator=g)
+    pos = torch.arange(n, device=dev)
+    mask = (torch.arange(kn, device=dev)[None, :] <= pos[:, None])[
+        None, None].expand(b, 1, n, kn)
+    # the function needs Q.K^T and P.V only where the mask keeps a key (its
+    # kernel walks every tile, as the JAX kernel does): 4 D operations per
+    # kept (query, key) pair of each head
+    flops = 4 * d * h * int(mask.sum())
+
+    def errors(fn, args, kw):
+        """(max |err|, worst row's max |err| over its max |want|, want)"""
+        got = fn(*args, out_dtype=torch.float32, **kw)
+        want = ka.flash_attention_plain(*args, out_dtype=torch.float32,
+                                        **kw)
+        err = (got - want).abs()
+        row = float((err.amax(-1) / want.abs().amax(-1)).max())
+        return float(err.max()), row, want
+
+    # int8 KV cache: pre-quantized K and V, token-mode int8 P·V
+    qq, qs = quantize_int_mm(q)
+    qs = (qs[..., 0] * sm) * ka.LOG2E
+    kq, ks, vq, vs = ka.quantize_kv(k, v)
+    args = (qq, kq, vq, qs, ks)
+    kw = dict(heads=h, mask=mask, v_scale=vs, p_block=ka.attn_p_block(kn))
+    err, row, _ = errors(ka.flash_attention, args, kw)
+    record("flash_attention", "cuda", src, rep, err, 2 ** -10,
+           lambda: ka.flash_attention(*args, **kw),
+           t(lambda: ka.flash_attention_plain(*args, **kw), reps=3),
+           bound_ms(b * h * n * d + 2 * b * kh * kn * d
+                    + (b * h * n + 2 * b * kh * kn) * 4 + b * n * kn
+                    + b * h * n * d * 2, flops, "int8"),
+           None, f"BH{b * h} KH{b * kh} N{n} KN{kn} D{d} mask int8-QK "
+           "token-P.V", path="llm_int8kv", count="flash_attention:int8_pv",
+           reading=row)
+    del qq, kq, vq
+
+    # bf16 KV cache: bf16 Q.K^T and P.V under the same mask
+    qb, kb, vb = (q * (sm * ka.LOG2E)).bfloat16(), k.bfloat16(), v.bfloat16()
+    args = (qb, kb, vb)
+    kw = dict(heads=h, mask=mask)
+    err, row, _ = errors(ka.flash_attention, args, kw)
+    q4 = q.bfloat16().reshape(b, h, n, d)
+    k4, v4 = (x.reshape(b, kh, kn, d).repeat_interleave(h // kh, 1)
+              for x in (kb, vb))
+    record("flash_attention", "cuda", src, rep, err, 2 ** -6,
+           lambda: ka.flash_attention(*args, **kw),
+           t(lambda: ka.flash_attention_plain(*args, **kw), reps=3),
+           bound_ms(2 * (b * h * n * d + 2 * b * kh * kn * d)
+                    + b * n * kn + b * h * n * d * 2, flops, "bf16"),
+           t(lambda: F.scaled_dot_product_attention(
+               q4, k4, v4, attn_mask=mask, scale=sm)),
+           f"BH{b * h} KH{b * kh} N{n} KN{kn} D{d} mask bf16",
+           path="llm_bf16kv", count="flash_attention:masked", reading=row)
+    del q, k, v, qb, kb, vb, q4, k4, v4
+
+    # the cache-free forward: causal over 2 x 1024 tokens, 32 over 8 heads;
+    # the kernel skips the tiles right of the diagonal, so the work this
+    # input needs is the lower triangle
+    b, n = 2, 1024
+    qb = (torch.randn(b * h, n, d, device=dev, generator=g)
+          * (sm * ka.LOG2E)).bfloat16()
+    kb, vb = (torch.randn(b * kh, n, d, device=dev, generator=g).bfloat16()
+              for _ in range(2))
+    args = (qb, kb, vb)
+    kw = dict(heads=h, causal=True)
+    err, row, _ = errors(ka.flash_attention, args, kw)
+    q4 = (qb.float() / (sm * ka.LOG2E)).bfloat16().reshape(b, h, n, d)
+    k4, v4 = (x.reshape(b, kh, n, d).repeat_interleave(h // kh, 1)
+              for x in (kb, vb))
+    record("flash_attention", "cuda", src, rep, err, 2 ** -6,
+           lambda: ka.flash_attention(*args, **kw),
+           t(lambda: ka.flash_attention_plain(*args, **kw), reps=3),
+           bound_ms(2 * (b * h * n * d + 2 * b * kh * n * d)
+                    + b * h * n * d * 2,
+                    4 * d * b * h * n * (n + 1) // 2, "bf16"),
+           t(lambda: F.scaled_dot_product_attention(
+               q4, k4, v4, is_causal=True, scale=sm)),
+           f"BH{b * h} KH{b * kh} N{n} KN{n} D{d} causal bf16",
+           path="llm_causal", count="flash_attention:causal", reading=row)
 
 
 # ---------------------------------------------------------------------------
@@ -509,6 +737,7 @@ def plain_versions():
              (kd, "groupdot_mm", kd.groupdot_mm_plain),
              (kd, "blockdiag_mm", kd.blockdiag_mm_plain),
              (kd, "groupdot_i8_mm", kd.groupdot_i8_mm_plain),
+             (kd, "blockdiag_i8_mm", kd.blockdiag_i8_mm_plain),
              (ka, "flash_attention", ka.flash_attention_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
@@ -564,9 +793,10 @@ def cut(qparams):
                     "single_transformer_blocks"][:2]), cfg
 
 
-def slice_phase(torch, dev, sliced, label) -> float:
+def slice_phase(torch, dev, sliced, label) -> dict:
     """Kernel path against the all-plain path, both on the card, on a model
-    cut by ``cut``; returns the largest error over the largest output."""
+    cut by ``cut``; returns {"max": the largest error over the largest
+    output}."""
     from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     params, cfg = sliced
@@ -587,7 +817,288 @@ def slice_phase(torch, dev, sliced, label) -> float:
     check(rel <= tol and bool(torch.isfinite(out).all()),
           f"slice {label}: kernel path vs plain path rel err {rel:.3e} <= "
           f"{tol:.1e}")
-    return rel
+    return {"max": rel}
+
+
+# Limits of the LLM slice checks (2 of the 32 layers, kernels against plain
+# versions on the card), each about twice its sound reading on the H100.
+# Three readings, each over max |logit| of its step: "max", the largest
+# error over the prefill logits (the first and the last 64 positions) and 4
+# decode steps, or over the causal forward's logits; "decode_max", the same
+# over the decode steps alone; "mean", the largest mean error of a step.
+# The int8-KV attention kernel and its plain version agree to fp32 rounding
+# (phase 3), so their bf16 outputs differ by one ulp at a few elements;
+# where that ulp is a row's largest |x|, the next linear's per-row int8
+# scale moves and with it every code of the row, so a few tokens' logits
+# move by quantization steps: that sets "max", at prefill.  The mean error
+# sees a fault that moves many tokens a little, the decode readings one that
+# moves the cache.  The bf16 modes also round P against other maxima.
+# Sound readings (max, decode_max, mean): int8 KV 2.34e-2, 6.8e-3, 1.36e-3;
+# bf16 KV 5.00e-2, 9.6e-3, 3.8e-3; causal 4.93e-2 and mean 5.6e-3.
+LLM_SLICE_TOL = {
+    "llm_int8kv": {"max": 5e-2, "decode_max": 1.4e-2, "mean": 2.7e-3},
+    "llm_bf16kv": {"max": 1e-1, "decode_max": 2e-2, "mean": 7.5e-3},
+    "llm_causal": {"max": 1e-1, "mean": 1.12e-2}}
+# every slice check's limits; "qlinear_b8" is the B8 qlinear check's
+ALL_SLICE_TOL = {**{k: {"max": v} for k, v in SLICE_TOL.items()},
+                 **LLM_SLICE_TOL, "qlinear_b8": {"max": 2 ** -7}}
+
+
+def cut_llm(params, cfg):
+    """The first 2 layers of the model, and the matching config."""
+    import dataclasses
+    return (dict(params, layers=params["layers"][:2]),
+            dataclasses.replace(cfg, num_layers=2))
+
+
+def llm_slice_phase(torch, dev, sliced, label) -> dict:
+    """Kernel path against the all-plain path on the 2-layer model: prefill
+    of 4 x 896 tokens into a 1024-slot cache and 4 decode steps on fixed
+    tokens (int8 or bf16 cache), or the causal forward of 2 x 1024 tokens;
+    returns the readings named in LLM_SLICE_TOL."""
+    import dataclasses
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models import init_cache, llm_forward
+
+    params, cfg = sliced
+    g = torch.Generator(device=dev).manual_seed(80)
+
+    @torch.no_grad()
+    def run():
+        if label == "llm_causal":
+            ids = llm_prompts(torch, dev, cfg, 81, batch=2,
+                              n=LLM_PROMPT + LLM_NEW)
+            return [llm_forward(params, ids, cfg, device=dev)[0]]
+        c = dataclasses.replace(cfg, kv_cache_dtype="int8"
+                                if label == "llm_int8kv" else "bfloat16")
+        caches = init_cache(c, LLM_BATCH, LLM_PROMPT + LLM_NEW, device=dev)
+        logits, caches = llm_forward(params, llm_prompts(torch, dev, c, 82),
+                                     c, caches=caches, device=dev)
+        outs = [torch.cat((logits[:, :64], logits[:, -64:]), 1).float()]
+        for s in range(4):
+            tok = torch.randint(0, c.vocab_size, (LLM_BATCH, 1), device=dev,
+                                generator=g.manual_seed(90 + s))
+            logits, caches = llm_forward(
+                params, tok, c, caches=caches, device=dev,
+                positions=torch.full((LLM_BATCH, 1), LLM_PROMPT + s,
+                                     device=dev))
+            outs.append(logits.float())
+        return outs
+
+    out = run()
+    reset_launch_counts()
+    with plain_versions():
+        ref = run()
+    launched = launch_counts()
+    check(not any(launched.values()),
+          f"slice {label}: the plain path launched no kernel "
+          + json.dumps(launched))
+    errs = [(o.float() - r.float()).abs() / r.float().abs().max()
+            for o, r in zip(out, ref)]
+    readings = {"max": max(float(e.max()) for e in errs),
+                "mean": max(float(e.mean()) for e in errs)}
+    if len(errs) > 1:
+        readings["decode_max"] = max(float(e.max()) for e in errs[1:])
+    agree = min(float((o.argmax(-1) == r.argmax(-1)).float().mean())
+                for o, r in zip(out, ref))
+    log(f"slice {label}: 2 of 32 layers at full width, kernels against "
+        f"plain versions; greedy tokens agree {agree:.3f} (worst step)")
+    check(all(bool(torch.isfinite(o).all()) for o in out),
+          f"slice {label}: logits finite")
+    for key, tol in LLM_SLICE_TOL[label].items():
+        check(readings[key] <= tol,
+              f"slice {label}: kernel path vs plain path {key} err "
+              f"{readings[key]:.3e} of max |logit| <= {tol:.2e}")
+    return readings
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: LLM serving, Llama-3-8B with int8 weights
+# ---------------------------------------------------------------------------
+
+LLM_BATCH, LLM_PROMPT, LLM_NEW = 4, 896, 128   # cache 1024: prefill on B3
+
+
+def build_llm(torch, dev):
+    """meta-llama/Meta-Llama-3-8B at full width and depth, bf16 weights
+    from a seeded generator, each layer quantized to int8 (quantized
+    matmul) as soon as it is drawn, so the 16 GB of bf16 never sit whole
+    beside the int8 copy; embed_tokens and lm_head stay bf16 under the
+    policy (quant_embedding off; lm_head a common skip key)."""
+    import dataclasses
+    from sdnq_tpu_torch import QuantConfig, quantize_model
+    from sdnq_tpu_torch.models import LLAMA3_8B_CONFIG, init_llm
+    from sdnq_tpu_torch.models.llm import init_llm_layer
+
+    cfg = LLAMA3_8B_CONFIG
+    qc = QuantConfig(weights_dtype="int8", use_quantized_matmul=True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t0 = time.perf_counter()
+    params = init_llm(dataclasses.replace(cfg, num_layers=0), generator=gen,
+                      device=dev, dtype=torch.bfloat16)
+    for _ in range(cfg.num_layers):
+        layer = init_llm_layer(cfg, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+        q, _ = quantize_model({"layers": [layer]}, qc,
+                              arch="LlamaForCausalLM", device=dev)
+        params["layers"].append(q["layers"][0])
+        del layer, q
+    params, _ = quantize_model(params, qc, arch="LlamaForCausalLM",
+                               device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"llm: Llama-3-8B built and quantized layer by layer in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return params, cfg
+
+
+def llm_prompts(torch, dev, cfg, seed, batch=None, n=None):
+    """Random token ids (LLM_BATCH, LLM_PROMPT by default) from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size,
+                         (batch or LLM_BATCH, n or LLM_PROMPT), device=dev,
+                         generator=g)
+
+
+def llm_path(torch, dev, params, cfg, label, kv, requests, required):
+    """``generate`` for ``requests`` requests of LLM_BATCH prompts of
+    LLM_PROMPT tokens and LLM_NEW new tokens, with the launch counts zeroed
+    just before and read just after; then one prefill alone, timed and
+    counted, for the prefill / decode split.  Returns the path's counts."""
+    import dataclasses
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models import generate, init_cache, llm_forward
+
+    cfg = dataclasses.replace(cfg, kv_cache_dtype=kv)
+    prompts = [llm_prompts(torch, dev, cfg, 40 + r) for r in range(requests)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    outs, times = [], []
+    for ids in prompts:
+        t1 = time.perf_counter()
+        outs.append(generate(params, ids, cfg, max_new_tokens=LLM_NEW,
+                             device=dev))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reset_launch_counts()
+    with torch.no_grad():
+        caches = init_cache(cfg, LLM_BATCH, LLM_PROMPT + LLM_NEW, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        llm_forward(params, prompts[-1], cfg, caches=caches, device=dev)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+    per_prefill = launch_counts()
+    decode_s = (times[-1] - prefill_s) / (LLM_NEW - 1)
+    per_step = {k: (counts[k] / requests - per_prefill[k]) / (LLM_NEW - 1)
+                for k in counts}
+    log(f"{label}: {requests} requests of {LLM_BATCH} x {LLM_PROMPT} prompt "
+        f"tokens + {LLM_NEW} new, KV cache {kv}, Llama-3-8B "
+        f"({cfg.num_layers} layers)")
+    for r, tr in enumerate(times):
+        log(f"{label}: request {r}: {tr:.3f} s, "
+            f"{LLM_BATCH * LLM_NEW / tr:.1f} output tokens/s end to end")
+    log(f"{label}: " + json.dumps({
+        "prefill_ms": prefill_s * 1e3,
+        "prefill_tokens_per_s": LLM_BATCH * LLM_PROMPT / prefill_s,
+        "decode_ms_per_step": decode_s * 1e3,
+        "output_tokens_per_s": LLM_BATCH / decode_s,
+        "peak_gib": peak,
+        "launches_per_prefill": {k: v for k, v in per_prefill.items() if v},
+        "launches_per_decode_step": {k: v for k, v in per_step.items()
+                                     if v}}))
+    for name in required:
+        check(counts[name] > 0, f"{label} path launched {name}")
+    for toks in outs:
+        check(tuple(toks.shape) == (LLM_BATCH, LLM_NEW)
+              and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+              f"{label} tokens {tuple(toks.shape)} in the vocabulary")
+    if requests > 1:
+        check(not torch.equal(outs[0], outs[1]),
+              f"{label}: requests differ by their prompts")
+    return counts
+
+
+def llm_causal_path(torch, dev, params, cfg, label, required):
+    """The cache-free causal forward (scoring) of 2 x 1024 tokens."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models import llm_forward
+
+    ids = llm_prompts(torch, dev, cfg, 50, batch=2, n=LLM_PROMPT + LLM_NEW)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = llm_forward(params, ids, cfg, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    counts = launch_counts()
+    n = LLM_PROMPT + LLM_NEW
+    log(f"{label}: 2 x {n} tokens scored in {dt * 1e3:.1f} ms, "
+        f"{2 * n / dt:.0f} tokens/s; launches "
+        + json.dumps({k: v for k, v in counts.items() if v}))
+    for name in required:
+        check(counts[name] > 0, f"{label} path launched {name}")
+    check(tuple(logits.shape) == (2, LLM_PROMPT + LLM_NEW, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{label} logits {tuple(logits.shape)} finite")
+    return counts
+
+
+def decode_attention_ms(torch, dev):
+    """The decode step's attention (``attention_xla``, plain torch, the JAX
+    package's XLA route at N = 1) at Llama-3-8B's shape, int8 cache of
+    1024 slots, per layer: CUDA-event time, printed (not a kernel)."""
+    from sdnq_tpu_torch.kernels import attention as ka
+    g = torch.Generator(device=dev).manual_seed(60)
+    q = torch.randn(LLM_BATCH, 32, 1, 128, device=dev, generator=g)
+    kq, ks, vq, vs = ka.quantize_kv(
+        *(torch.randn(LLM_BATCH, 8, 1024, 128, device=dev, generator=g)
+          for _ in range(2)))
+    mask = (torch.arange(1024, device=dev) <= 900)[None, None, None]
+    ms = time_ms(lambda: ka.quantized_attention(
+        q, kq, vq, attn_mask=mask, kv_scales=(ks, vs),
+        out_dtype=torch.bfloat16), reps=20)
+    log(f"decode attention_xla (4 x 32 heads over 8, 1 x 1024, int8 cache):"
+        f" {ms:.4f} ms per layer, {32 * ms:.2f} ms per step of 32 layers")
+
+
+def b8_qlinear_check(torch, dev):
+    """One uint4 layer at its auto group of 64 (2048 -> 8192) with the
+    quantized matmul on 32 rows through ``qlinear``: the JAX route's B8
+    domain.  Counts zeroed just before, read just after; B8 must launch and
+    agree with ``blockdiag_i8_mm_plain`` on the same int8 rows (bit-equal
+    expected: limit one bf16 ulp).  Returns (counts, rel err)."""
+    import sdnq_tpu_torch as T
+    from sdnq_tpu_torch.kernels import dequant_mm as kd
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.kernels.scaled_mm import quantize_rows_plain
+
+    g = torch.Generator(device=dev).manual_seed(70)
+    w = torch.randn(8192, 2048, device=dev, generator=g).bfloat16()
+    x = torch.randn(32, 2048, device=dev, generator=g).bfloat16()
+    qt = T.quantize_tensor(w, "uint4", use_quantized_matmul=True)
+    reset_launch_counts()
+    out = T.qlinear(x, qt)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    xq, xs = quantize_rows_plain(x.float())[:2]
+    s, zpc = kd._group_operands(qt.scale.reshape(8192, -1), qt.zero_point,
+                                qt.meta.format)
+    ref = kd.blockdiag_i8_mm_plain(xq, xs, qt.qdata, s, zpc, None, 4,
+                                   out.dtype)
+    err = float((out.float() - ref.float()).abs().max())
+    rel = err / float(ref.float().abs().max())
+    check(qt.meta.group_size == 64 and counts["blockdiag_i8_mm"] == 1,
+          f"qlinear uint4 g{qt.meta.group_size} 32 x 2048 -> 8192 launched "
+          f"B8 {counts['blockdiag_i8_mm']} time(s)")
+    check(rel <= 2 ** -7, f"qlinear B8 vs blockdiag_i8_mm_plain rel err "
+          f"{rel:.3e} <= {2 ** -7:.1e}")
+    return counts, rel
 
 
 # ---------------------------------------------------------------------------
@@ -602,7 +1113,11 @@ _GROUPS = (
     ("B5 groupdot_mm", ("groupdot_mm_kernel<0",)),
     ("B6 blockdiag_mm", ("blockdiag_mm_kernel",)),
     ("B7 groupdot_i8_mm", ("groupdot_mm_kernel<1",)),
-    ("cuBLAS (unquantized linears, SVD factors)", (
+    ("B3 flash_attention, token-mode int8 P.V", ("flash_attn_tok_kernel",)),
+    ("B8 blockdiag_i8_mm", ("blockdiag_i8_mm_kernel",)),
+    ("fp64 products (decode attention_xla)", ("f64", "dgemm", "Dgemm")),
+    ("softmax (decode attention_xla)", ("softmax",)),
+    ("cuBLAS (unquantized linears, SVD factors, lm_head)", (
         "gemm", "gemv", "cutlass", "xmma", "nvjet")),
     ("torch elementwise / reductions", ("elementwise", "reduce", "cat",
                                         "Copy", "copy", "index")),
@@ -610,20 +1125,50 @@ _GROUPS = (
 
 
 def profile_phase(torch, dev, qparams, label):
-    """Trace one Euler step of the full model with torch.profiler after
-    three untraced ones; print the step's host-clock time, device busy time
-    (kernel times summed on the one stream), the idle share and device time
-    by kernel group."""
-    from collections import defaultdict
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One Euler step of the full FLUX.1-dev model, traced."""
     from sdnq_tpu_torch.models import FLUX_DEV_CONFIG
 
     cfg = FLUX_DEV_CONFIG
     inp = dit_inputs(torch, dev, cfg)
+    profile_step(torch, label, lambda: inp["img"] + (-0.25) * forward(
+        qparams, cfg, inp, dev).float())
 
-    def step():
-        return inp["img"] + (-0.25) * forward(qparams, cfg, inp, dev).float()
+
+def llm_profile_phase(torch, dev, params, cfg):
+    """One prefill (4 x 896 tokens into a fresh int8 cache of 1024) and one
+    decode step (4 x 1 token at position 896) of Llama-3-8B, traced."""
+    import dataclasses
+    from sdnq_tpu_torch.models import init_cache, llm_forward
+
+    cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    ids = llm_prompts(torch, dev, cfg, 100)
+    state = {}
+
+    @torch.no_grad()
+    def prefill():
+        state["caches"] = init_cache(cfg, LLM_BATCH, LLM_PROMPT + LLM_NEW,
+                                     device=dev)
+        _, state["caches"] = llm_forward(params, ids, cfg,
+                                         caches=state["caches"], device=dev)
+
+    @torch.no_grad()
+    def decode():
+        caches = [c[:-1] + (LLM_PROMPT,) for c in state["caches"]]
+        llm_forward(params, ids[:, :1], cfg, caches=caches, device=dev,
+                    positions=torch.full((LLM_BATCH, 1), LLM_PROMPT,
+                                         device=dev))
+
+    profile_step(torch, "llm_int8kv prefill", prefill)
+    profile_step(torch, "llm_int8kv decode", decode)
+
+
+def profile_step(torch, label, step):
+    """Trace one ``step`` with torch.profiler after three untraced ones;
+    print the step's host-clock time, device busy time (kernel times summed
+    on the one stream), the idle share and device time by kernel group."""
+    from collections import defaultdict
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         step()
@@ -673,12 +1218,13 @@ def profile_phase(torch, dev, qparams, label):
 # ---------------------------------------------------------------------------
 
 # (tag, source, kernel, slice, [(text, broken text)]): each a bug a kernel
-# could ship with, and the slice check that runs it.  The broken sources
+# could ship with, the phase 3 count key of the rows it must fail, and the
+# slice check that runs it.  The broken sources
 # are built beside the real ones, swapped in one at a time, and phases 3
 # and 5 rerun against them.
 FAULTS = (
     ("attn_skips_first_kv_tile", "flash_attn", "flash_attention", "int8",
-     [("int kv0 = 0; kv0 < KN", "int kv0 = BKV; kv0 < KN")]),
+     [("int kv0 = 0; kv0 < kv_end", "int kv0 = BKV; kv0 < kv_end")]),
     ("attn_no_running_max_rescale_of_o", "flash_attn", "flash_attention",
      "int8", [("*= al0;", "*= 1.f;"), ("*= al1;", "*= 1.f;")]),
     ("gemm_drops_last_k_stage", "scaled_mm", "scaled_gemm", "int8",
@@ -697,6 +1243,33 @@ FAULTS = (
     ("groupdot_i8_keeps_the_other_field_bits", "groupdot_mm",
      "groupdot_i8_mm", "uint4_qmm",
      [("return (v >> sh) & MASK4;", "return (v >> sh) & 0xffffffffu;")]),
+    ("attn_mask_ignored_on_first_tile", "flash_attn",
+     "flash_attention:masked", "llm_bf16kv",
+     [("const bool use_mask = masked && mr0 != nullptr;",
+       "const bool use_mask = masked && mr0 != nullptr && kv0 != 0;")]),
+    ("attn_masked_skips_a_middle_kv_tile", "flash_attn",
+     "flash_attention:masked", "llm_bf16kv",
+     [("bool keep = col < a.KN && !(causal && row < col);",
+       "bool keep = col < a.KN && !(causal && row < col) && "
+       "!(masked && kv0 == 448);")]),
+    ("attn_causal_skips_a_middle_kv_tile", "flash_attn",
+     "flash_attention:causal", "llm_causal",
+     [("bool keep = col < a.KN && !(causal && row < col);",
+       "bool keep = col < a.KN && !(causal && row < col) && "
+       "!(causal && kv0 == 448);")]),
+    ("attn_p_scale_per_64_key_tile", "flash_attn", "flash_attention:int8_pv",
+     "llm_int8kv", [("const int PB = a.pblock;", "const int PB = BKV;")]),
+    ("attn_causal_skip_one_tile_early", "flash_attn",
+     "flash_attention:causal", "llm_causal",
+     [("return a.causal ? min(a.KN, q0 + bq) : a.KN;",
+       "return a.causal ? min(a.KN, q0 + bq - BKV) : a.KN;")]),
+    ("attn_gqa_head_modulo", "flash_attn", "flash_attention:masked",
+     "llm_int8kv", [("return (bh / a.H) * KH + hh / a.qpk;",
+                     "return (bh / a.H) * KH + hh % KH;")]),
+    ("blockdiag_i8_scale_of_the_previous_group", "blockdiag_i8_mm",
+     "blockdiag_i8_mm", "qlinear_b8",
+     [("sc[j] = scale[(size_t)(col < N ? col : 0) * G + gi];",
+       "sc[j] = scale[(size_t)(col < N ? col : 0) * G + (gi + G - 1) % G];")]),
 )
 
 
@@ -705,22 +1278,28 @@ def start_fault_builds():
     nvcc; returns {tag: (process, library path)}."""
     from sdnq_tpu_torch.kernels import _build
     csrc = ROOT / "sdnq_tpu_torch" / "csrc"
-    procs = {}
-    for tag, src, _, _, edits in FAULTS:
-        d = _build.build_dir() / "faults" / tag
-        d.mkdir(parents=True, exist_ok=True)
+    texts = {}
+    for tag, src, _, _, edits in FAULTS:  # every edit applies, or none builds
         text = (csrc / f"{src}.cu").read_text()
         for old, new in edits:
             if old not in text:
                 raise RuntimeError(f"fault {tag}: {old!r} not in {src}.cu")
             text = text.replace(old, new)
-        (d / f"{src}.cu").write_text(text)
+        texts[tag] = text
+    procs = {}
+    for tag, src, _, _, _ in FAULTS:
+        d = _build.build_dir() / "faults" / tag
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"{src}.cu").write_text(texts[tag])
         (d / "common.cuh").write_text((csrc / "common.cuh").read_text())
         lib = d / f"lib{src}.so"
         with open(d / "build.log", "w") as out:
+            # at the lowest CPU priority: they build while the timed phases
+            # run, and must not take the host from them
             procs[tag] = (subprocess.Popen(
                 _build.command(d / f"{src}.cu", lib), stdout=out,
-                stderr=subprocess.STDOUT), lib)
+                stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19)),
+                lib)
     return procs
 
 
@@ -745,7 +1324,8 @@ def library_swapped(name, lib_path):
 def fault_phase(torch, dev, slices, procs):
     """Rerun phases 3 (untimed) and 5 with each planted fault in place.
     Phase 3 must fail for the broken kernel; phase 5's reading (on the
-    slice whose path runs the kernel) is reported beside its limit."""
+    slice whose path runs the kernel; ``slices`` maps a label to a
+    function returning its readings) are reported beside their limits."""
     for tag, (proc, _) in procs.items():
         if proc.wait() != 0:
             check(False, f"fault {tag}: broken source built")
@@ -756,16 +1336,18 @@ def fault_phase(torch, dev, slices, procs):
         sound = list(FAILURES)
         with library_swapped(src, procs[tag][1]):
             rows = kernel_phase(torch, dev, timed=False)
-            rel = slice_phase(torch, dev, slices[label], label)
+            readings = slices[label]()
         FAILURES[:] = sound  # the checks were meant to fail here
-        caught = [r for r in rows if r["max_abs_err"] > r["tolerance"]]
+        caught = [r for r in rows if r["reading"] > r["tolerance"]]
+        tol = ALL_SLICE_TOL[label]
         results.append(dict(
             fault=tag, kernel=kernel,
-            phase3_failed=[f"{r['name']} {r['shape']}: {r['max_abs_err']:.3e}"
-                           f" > {r['tolerance']:.3e}" for r in caught],
-            slice=label, slice_rel_err=rel, slice_tol=SLICE_TOL[label],
-            slice_caught=rel > SLICE_TOL[label]))
-        check(any(r["name"] == kernel for r in caught),
+            phase3_failed=[f"{r['count']} {r['shape']}: {r['reading']:.3e}"
+                           f" > {r['tolerance']:.3e} (max_abs_err "
+                           f"{r['max_abs_err']:.3e})" for r in caught],
+            slice=label, slice_readings=readings, slice_tol=tol,
+            slice_failed=sorted(k for k in tol if readings[k] > tol[k])))
+        check(any(r["count"] == kernel for r in caught),
               f"fault {tag}: phase 3 fails {kernel}")
     log("faults: " + json.dumps(results))
 
@@ -803,6 +1385,7 @@ def main() -> int:
         log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
             + json.dumps({k: round(v, 1) for k, v in secs.items()}))
         rows = kernel_phase(torch, dev)
+        b7_b8_crossover(torch, dev)
 
         counts, slices = {}, {}
         qparams = build_model(
@@ -839,10 +1422,40 @@ def main() -> int:
         del qparams, qmm
         torch.cuda.empty_cache()
 
+        params, lcfg = build_llm(torch, dev)
+        counts["llm_int8kv"] = llm_path(
+            torch, dev, params, lcfg, "llm_int8kv", "int8", 2,
+            ("quantize_rows", "scaled_gemm", "dequant_gemv",
+             "flash_attention:masked", "flash_attention:gqa",
+             "flash_attention:int8_pv"))
+        counts["llm_bf16kv"] = llm_path(
+            torch, dev, params, lcfg, "llm_bf16kv", "bfloat16", 1,
+            ("quantize_rows", "scaled_gemm", "dequant_gemv",
+             "flash_attention:masked", "flash_attention:gqa"))
+        counts["llm_causal"] = llm_causal_path(
+            torch, dev, params, lcfg, "llm_causal",
+            ("quantize_rows", "scaled_gemm", "flash_attention:causal",
+             "flash_attention:gqa"))
+        decode_attention_ms(torch, dev)
+        llm_cut = cut_llm(params, lcfg)
+        for label in LLM_SLICE_TOL:
+            llm_slice_phase(torch, dev, llm_cut, label)
+        llm_profile_phase(torch, dev, params, lcfg)
+        del params
+        torch.cuda.empty_cache()
+        counts["qlinear_b8"] = b8_qlinear_check(torch, dev)[0]
+
         for row in rows:
-            row["launches"] = (counts[row["path"]][row["name"]]
+            row["launches"] = (counts[row["path"]][row["count"]]
                                if row["on_main_path"] else 0)
-        fault_phase(torch, dev, slices, fault_procs)
+        checks = {label: (lambda lb=label: slice_phase(torch, dev,
+                                                       slices[lb], lb))
+                  for label in slices}
+        checks.update({label: (lambda lb=label: llm_slice_phase(
+            torch, dev, llm_cut, lb)) for label in LLM_SLICE_TOL})
+        checks["qlinear_b8"] = lambda: {"max": b8_qlinear_check(torch,
+                                                                dev)[1]}
+        fault_phase(torch, dev, checks, fault_procs)
     finally:  # no compiler outlives the script
         for proc, _ in fault_procs.values():
             if proc.poll() is None:

@@ -1,38 +1,182 @@
 // B3: flash attention, online softmax in base 2.
 //
-//   out[b, i] = sum_j p_ij v[b, j] / sum_j p_ij,  p_ij = exp2(s_ij - max_j s_ij)
-//   bf16 mode:  s = q . k  with q already scaled by sm_scale * log2(e)
-//   int8 mode:  s = (q_q . k_q) * qs[i] * ks[j], qs carrying sm_scale * log2(e)
+//   out[b, i] = sum_j p_ij v[kvb, j] / sum_j p_ij,  p_ij = exp2(s_ij - max_j s_ij)
+//   bf16 QK:  s = q . k  with q already scaled by sm_scale * log2(e)
+//   int8 QK:  s = (q_q . k_q) * qs[i] * ks[j], qs carrying sm_scale * log2(e)
+//   s_ij = -1e30 where key j is masked: past KN, right of the diagonal
+//   (causal, i < j) or where the bool mask is 0.
 //
 // Replaces sdnq_tpu/kernels/attention.py `_attn_kernel` (:67, wrapper
-// `_attn_pallas` :192) in its unquantized (bf16 QK) and int8-QK modes, with
-// bf16 P.V, no mask, not causal, one KV head per query head.  The KV tail
-// past KN is masked with -1e30 as the JAX kernel masks KV padding.
+// `_attn_pallas` :192) in these modes: bf16 or int8 Q.K^T; bool masks read
+// through their strides (a head-broadcast mask is never materialised);
+// causal, with the KV tiles wholly right of a block's last row skipped;
+// grouped KV heads (query head h of batch b reads KV head b * KH + h /
+// (H / KH), the JAX index map `b // q_per_kv`); P.V in bf16, or in int8
+// ("token" mode, :148-157) on per-token-quantized V.
 //
-// At FLUX's shape (24 heads, N = 4608, D = 128) attention is bound by
-// tensor-core operations (4*N^2*D per head).  One block of 8 warps takes
-// 128 query rows of one (batch*head); each warp keeps its 16 rows of Q as
-// mma A fragments in registers and walks the KV sequence in 64-key tiles
-// staged in padded shared memory by cp.async (K and V in two copy groups,
-// so V lands while Q.K^T runs).  S = Q.K^T comes from mma.sync (bf16 m16n8k16
-// or s8 m16n8k32), the running max / sum use exp2f, P is rounded to bf16 in
-// registers and reused directly as the A fragment of P.V, whose B fragment
-// is read with ldmatrix.trans.  The (N, KN) score matrix never reaches
-// device memory.  Pipelined TMA/wgmma versions are later work.
+// bf16 P.V (`flash_attn_kernel`).  At FLUX's shape (24 heads, N = 4608, D =
+// 128) attention is bound by tensor-core operations (4*N^2*D per head).  One
+// block of 8 warps takes 128 query rows of one (batch*head); each warp keeps
+// its 16 rows of Q as mma A fragments in registers and walks the KV sequence
+// in 64-key tiles staged in padded shared memory by cp.async (K and V in two
+// copy groups, so V lands while Q.K^T runs).  S = Q.K^T comes from mma.sync
+// (bf16 m16n8k16 or s8 m16n8k32), the running max / sum use exp2f, P is
+// rounded to bf16 in registers and reused directly as the A fragment of P.V,
+// whose B fragment is read with ldmatrix.trans.
+//
+// int8 P.V (`flash_attn_tok_kernel`).  The JAX kernel quantises P once per
+// P block of `bk` keys (bk = min(512, KN), halved until it divides KN):
+// p = exp2(s - m_new) with m_new the running max after the whole block,
+// p_eff = p * vs, p_scale = max(rowmax(p_eff), 1e-20) / 127, p_q =
+// rint(p_eff / p_scale), acc = acc * alpha + (p_q . v_q)_int32 * p_scale,
+// while l sums the unquantised p.  The P block is part of the function, so
+// the wrapper passes it, and a 64-key tile cannot quantise P on its own
+// tile's max.  This design stages each warp's S rows of one P block in
+// shared memory (16 rows x bk fp32, 32 KB per warp at bk = 512) rather than
+// recomputing Q.K^T in three sweeps: one sweep of Q.K^T tiles writes S and
+// the row max, one pass over the staged rows turns S into p_eff (each
+// thread owns the two rows it holds fragments of, so the row reductions stay
+// inside a quad), and one sweep of V tiles quantises p_eff into s8 A
+// fragments for m16n8k32 against V staged transposed (keys contiguous per
+// head-dim column), into an int32 accumulator per P block.  So that a
+// block's staging fits Hopper's 227 KB, it has 4 warps and 64 query rows.
+// The (N, KN) score matrix never reaches device memory.
 #include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int WARPS = 8, NT = WARPS * 32, BQ = WARPS * 16, BKV = 64;
+constexpr int BKV = 64;
 constexpr float NEG = -1e30f;
 
-template <int D, bool QUANT, typename OutT>
-__global__ void __launch_bounds__(NT)
-    flash_attn_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ qs,
-                      const float* __restrict__ ks, OutT* __restrict__ out, int N, int KN) {
+struct Args {
+  const uint8_t* q;      // (BH, N, D) bf16 or int8
+  const uint8_t* k;      // (BKH, KN, D) bf16 or int8
+  const uint8_t* v;      // (BKH, KN, D) bf16, or int8 in token mode
+  const float* qs;       // (BH, N) int8 QK, else null
+  const float* ks;       // (BKH, KN) int8 QK, else null
+  const float* vs;       // (BKH, KN) token mode, else null
+  const uint8_t* mask;   // bool, element strides msb / msh / msn / msk, or null
+  long long msb, msh, msn, msk;
+  void* out;             // (BH, N, D)
+  int N, KN, H, qpk, causal, pblock;
+};
+
+// the last KV position (exclusive) a block of query rows q0 .. q0+bq-1 reads
+__device__ __forceinline__ int kv_stop(const Args& a, int q0, int bq) {
+  return a.causal ? min(a.KN, q0 + bq) : a.KN;
+}
+
+// KV head of query head bh = b * H + h: b * KH + h / (H / KH)
+__device__ __forceinline__ size_t kv_head(const Args& a, size_t bh) {
+  const int hh = static_cast<int>(bh % a.H), KH = a.H / a.qpk;
+  return (bh / a.H) * KH + hh / a.qpk;
+}
+
+// the mask row of query row r (clamped into range) of head bh, or null
+__device__ __forceinline__ const uint8_t* mask_row(const Args& a, size_t bh, int r) {
+  if (!a.mask) return nullptr;
+  const long long b = static_cast<long long>(bh / a.H), h = static_cast<long long>(bh % a.H);
+  return a.mask + b * a.msb + h * a.msh + static_cast<long long>(min(r, a.N - 1)) * a.msn;
+}
+
+// Q rows r0 and r1 = r0 + 8 as mma A fragments (zeros past N)
+template <int QB, int KSTEPS>
+__device__ __forceinline__ void load_q(unsigned (&qf)[KSTEPS][4], const Args& a, size_t bh, int r0,
+                                       int r1, int t4) {
+  const uint8_t* q0 = a.q + (bh * a.N + r0) * (size_t)QB;
+  const uint8_t* q1 = a.q + (bh * a.N + r1) * (size_t)QB;
+#pragma unroll
+  for (int s = 0; s < KSTEPS; ++s) {
+    const int c = s * 32 + t4 * 4;
+    qf[s][0] = r0 < a.N ? *reinterpret_cast<const unsigned*>(q0 + c) : 0u;
+    qf[s][1] = r1 < a.N ? *reinterpret_cast<const unsigned*>(q1 + c) : 0u;
+    qf[s][2] = r0 < a.N ? *reinterpret_cast<const unsigned*>(q0 + c + 16) : 0u;
+    qf[s][3] = r1 < a.N ? *reinterpret_cast<const unsigned*>(q1 + c + 16) : 0u;
+  }
+}
+
+// s = Q . K^T for one warp's 16 rows x the 64 keys of the tile at kv0 in
+// sK (row stride LDK bytes), scaled in int8 mode and masked: s[nt][0..1]
+// belong to row r0, s[nt][2..3] to r1, key kv0 + nt*8 + t4*2 + (i & 1).
+// `masked` / `causal` are compile-time constants where the caller knows
+// them, so the unmasked kernel carries none of the masking code.
+template <bool QUANT, int KSTEPS, int LDK>
+__device__ __forceinline__ void score_tile(float (&s)[BKV / 8][4], const unsigned (&qf)[KSTEPS][4],
+                                           const uint8_t* sK, const float* sKs, float qs0,
+                                           float qs1, const Args& a, int kv0, int r0, int r1,
+                                           bool masked, bool causal, const uint8_t* mr0,
+                                           const uint8_t* mr1, int g, int t4) {
+  using AccT = typename std::conditional<QUANT, int, float>::type;
+  AccT sacc[BKV / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < BKV / 8; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0;
+#pragma unroll
+  for (int st = 0; st < KSTEPS; ++st)
+#pragma unroll
+    for (int nt = 0; nt < BKV / 8; ++nt) {
+      const uint8_t* p = sK + (nt * 8 + g) * LDK + st * 32 + t4 * 4;
+      const unsigned b[2] = {*reinterpret_cast<const unsigned*>(p),
+                             *reinterpret_cast<const unsigned*>(p + 16)};
+      if constexpr (QUANT)
+        sdnq::mma_s8(sacc[nt], qf[st], b);
+      else
+        sdnq::mma_bf16(sacc[nt], qf[st], b);
+    }
+  const bool use_mask = masked && mr0 != nullptr;
+#pragma unroll
+  for (int nt = 0; nt < BKV / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = kv0 + nt * 8 + t4 * 2 + (i & 1), row = i < 2 ? r0 : r1;
+      float x = static_cast<float>(sacc[nt][i]);
+      if (QUANT) x = (x * (i < 2 ? qs0 : qs1)) * sKs[col - kv0];
+      bool keep = col < a.KN && !(causal && row < col);
+      if (use_mask && keep) keep = (i < 2 ? mr0 : mr1)[col * a.msk] != 0;
+      s[nt][i] = keep ? x : NEG;
+    }
+}
+
+template <typename OutT, int NDT>
+__device__ __forceinline__ void store_rows(const Args& a, size_t bh, int r0, int r1, int t4,
+                                           const float (&o_acc)[NDT][4], float l0, float l1) {
+  constexpr int D = NDT * 8;
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  OutT* o0 = static_cast<OutT*>(a.out) + (bh * a.N + r0) * (size_t)D;
+  OutT* o1 = static_cast<OutT*>(a.out) + (bh * a.N + r1) * (size_t)D;
+#pragma unroll
+  for (int dt = 0; dt < NDT; ++dt) {
+    const int c = dt * 8 + t4 * 2;
+    if (r0 < a.N) {
+      o0[c] = sdnq::from_f32<OutT>(__fdiv_rn(o_acc[dt][0], d0));
+      o0[c + 1] = sdnq::from_f32<OutT>(__fdiv_rn(o_acc[dt][1], d0));
+    }
+    if (r1 < a.N) {
+      o1[c] = sdnq::from_f32<OutT>(__fdiv_rn(o_acc[dt][2], d1));
+      o1[c + 1] = sdnq::from_f32<OutT>(__fdiv_rn(o_acc[dt][3], d1));
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 P.V
+// ---------------------------------------------------------------------------
+
+constexpr int WARPS = 8, NT = WARPS * 32, BQ = WARPS * 16;
+
+// MODE bit 0: bool mask; bit 1: causal
+template <int D, bool QUANT, int MODE, typename OutT>
+__global__ void __launch_bounds__(NT) flash_attn_kernel(const Args a) {
   constexpr int QB = QUANT ? D : 2 * D;  // bytes per Q / K row
   constexpr int LDK = QB + 16;           // padded K row in shared memory
   constexpr int LDV = 2 * D + 16;        // padded V row in shared memory
@@ -44,39 +188,32 @@ __global__ void __launch_bounds__(NT)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const size_t bh = blockIdx.y;
+  const size_t bh = blockIdx.y, kvbh = kv_head(a, bh);
   const int r0 = blockIdx.x * BQ + warp * 16 + g;  // this thread's rows r0, r0 + 8
   const int r1 = r0 + 8;
+  const int KN = a.KN;
 
-  // Q fragments straight from global memory (read once per block).
   unsigned qf[KSTEPS][4];
-  {
-    const uint8_t* q0 = q + (bh * N + r0) * (size_t)QB;
-    const uint8_t* q1 = q + (bh * N + r1) * (size_t)QB;
-#pragma unroll
-    for (int s = 0; s < KSTEPS; ++s) {
-      const int c = s * 32 + t4 * 4;
-      qf[s][0] = r0 < N ? *reinterpret_cast<const unsigned*>(q0 + c) : 0u;
-      qf[s][1] = r1 < N ? *reinterpret_cast<const unsigned*>(q1 + c) : 0u;
-      qf[s][2] = r0 < N ? *reinterpret_cast<const unsigned*>(q0 + c + 16) : 0u;
-      qf[s][3] = r1 < N ? *reinterpret_cast<const unsigned*>(q1 + c + 16) : 0u;
-    }
-  }
+  load_q<QB, KSTEPS>(qf, a, bh, r0, r1, t4);
   float qs0 = 0.f, qs1 = 0.f;
   if (QUANT) {
-    qs0 = r0 < N ? qs[bh * N + r0] : 0.f;
-    qs1 = r1 < N ? qs[bh * N + r1] : 0.f;
+    qs0 = r0 < a.N ? a.qs[bh * a.N + r0] : 0.f;
+    qs1 = r1 < a.N ? a.qs[bh * a.N + r1] : 0.f;
   }
+  constexpr bool MASKED = MODE & 1, CAUSAL = MODE & 2;
+  const uint8_t* mr0 = MASKED ? mask_row(a, bh, r0) : nullptr;
+  const uint8_t* mr1 = MASKED ? mask_row(a, bh, r1) : nullptr;
 
   float o_acc[NDT][4];
 #pragma unroll
   for (int i = 0; i < NDT; ++i) o_acc[i][0] = o_acc[i][1] = o_acc[i][2] = o_acc[i][3] = 0.f;
   float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
 
-  const uint8_t* kbase = k + bh * (size_t)KN * QB;
-  const uint8_t* vbase = reinterpret_cast<const uint8_t*>(v) + bh * (size_t)KN * (2 * D);
+  const uint8_t* kbase = a.k + kvbh * (size_t)KN * QB;
+  const uint8_t* vbase = a.v + kvbh * (size_t)KN * (2 * D);
+  const int kv_end = kv_stop(a, blockIdx.x * BQ, BQ);
 
-  for (int kv0 = 0; kv0 < KN; kv0 += BKV) {
+  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
     // stage K and V tiles (two cp.async groups); rows past KN are zeros
     for (int c = tid; c < BKV * QB / 16; c += NT) {
       const int r = c / (QB / 16), cb = (c % (QB / 16)) * 16;
@@ -90,39 +227,13 @@ __global__ void __launch_bounds__(NT)
       sdnq::cp_async16(sV + r * LDV + cb, vbase + (size_t)(ok ? kv0 + r : 0) * (2 * D) + cb, ok);
     }
     sdnq::cp_async_commit();
-    if (QUANT && tid < BKV) sKs[tid] = kv0 + tid < KN ? ks[bh * KN + kv0 + tid] : 0.f;
+    if (QUANT && tid < BKV) sKs[tid] = kv0 + tid < KN ? a.ks[kvbh * KN + kv0 + tid] : 0.f;
     sdnq::cp_async_wait<1>();
     __syncthreads();
 
-    // S = Q . K^T for this warp's 16 rows x 64 keys
     float s[BKV / 8][4];
-    {
-      using AccT = typename std::conditional<QUANT, int, float>::type;
-      AccT sacc[BKV / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < BKV / 8; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0;
-#pragma unroll
-      for (int st = 0; st < KSTEPS; ++st)
-#pragma unroll
-        for (int nt = 0; nt < BKV / 8; ++nt) {
-          const uint8_t* p = sK + (nt * 8 + g) * LDK + st * 32 + t4 * 4;
-          const unsigned b[2] = {*reinterpret_cast<const unsigned*>(p),
-                                 *reinterpret_cast<const unsigned*>(p + 16)};
-          if constexpr (QUANT)
-            sdnq::mma_s8(sacc[nt], qf[st], b);
-          else
-            sdnq::mma_bf16(sacc[nt], qf[st], b);
-        }
-#pragma unroll
-      for (int nt = 0; nt < BKV / 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = nt * 8 + t4 * 2 + (i & 1);
-          float x = static_cast<float>(sacc[nt][i]);
-          if (QUANT) x = (x * (i < 2 ? qs0 : qs1)) * sKs[col];
-          s[nt][i] = kv0 + col < KN ? x : NEG;
-        }
-    }
+    score_tile<QUANT, KSTEPS, LDK>(s, qf, sK, sKs, qs0, qs1, a, kv0, r0, r1, MASKED, CAUSAL, mr0,
+                                   mr1, g, t4);
 
     // online softmax (rows r0: entries 0,1; r1: entries 2,3)
     float mx0 = NEG, mx1 = NEG;
@@ -131,11 +242,8 @@ __global__ void __launch_bounds__(NT)
       mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
       mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
     }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
     const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
     m0 = mn0;
@@ -150,11 +258,8 @@ __global__ void __launch_bounds__(NT)
       ps0 += s[nt][0] + s[nt][1];
       ps1 += s[nt][2] + s[nt][3];
     }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      ps0 += __shfl_xor_sync(0xffffffffu, ps0, off);
-      ps1 += __shfl_xor_sync(0xffffffffu, ps1, off);
-    }
+    ps0 = quad_sum(ps0);
+    ps1 = quad_sum(ps1);
     l0 = l0 * al0 + ps0;
     l1 = l1 * al1 + ps1;
 #pragma unroll
@@ -171,78 +276,262 @@ __global__ void __launch_bounds__(NT)
     // O += P . V ; the S accumulator layout is the A fragment layout of P
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
-      const unsigned a[4] = {sdnq::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                             sdnq::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                             sdnq::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             sdnq::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const unsigned pa[4] = {sdnq::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+                              sdnq::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                              sdnq::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              sdnq::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
       const uint8_t* vrow = sV + (kk * 16 + (lane & 15)) * LDV;
 #pragma unroll
       for (int dt = 0; dt < NDT; ++dt) {
         unsigned b[2];
         sdnq::ldmatrix_x2_trans(b[0], b[1], vrow + dt * 16);
-        sdnq::mma_bf16(o_acc[dt], a, b);
+        sdnq::mma_bf16(o_acc[dt], pa, b);
       }
     }
     __syncthreads();
   }
+  store_rows<OutT, NDT>(a, bh, r0, r1, t4, o_acc, l0, l1);
+}
 
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  OutT* o0 = out + (bh * N + r0) * (size_t)D;
-  OutT* o1 = out + (bh * N + r1) * (size_t)D;
+// ---------------------------------------------------------------------------
+// int8 P.V, token mode
+// ---------------------------------------------------------------------------
+
+constexpr int TWARPS = 4, TNT = TWARPS * 32, TBQ = TWARPS * 16;
+constexpr int LDVT = BKV + 16;  // padded key row of the transposed V tile (bytes)
+
+template <int D, bool QUANT>
+constexpr int tok_fixed_smem() {
+  return BKV * ((QUANT ? D : 2 * D) + 16) + D * LDVT + BKV * 4;
+}
+
+// dynamic shared memory of the token-mode kernel for a P block of pb keys
+template <int D, bool QUANT>
+int tok_smem_bytes(int pb) {
+  return tok_fixed_smem<D, QUANT>() + pb * 4 + TWARPS * 16 * (pb + 8) * 4;
+}
+
+// four p_eff values -> rint(p_eff / p_scale) as four s8 lanes
+__device__ __forceinline__ unsigned quant4(const float* p, float sc) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  const int q0 = __float2int_rn(__fdiv_rn(v.x, sc)), q1 = __float2int_rn(__fdiv_rn(v.y, sc));
+  const int q2 = __float2int_rn(__fdiv_rn(v.z, sc)), q3 = __float2int_rn(__fdiv_rn(v.w, sc));
+  return (q0 & 0xff) | ((q1 & 0xff) << 8) | ((q2 & 0xff) << 16) | ((unsigned)(q3 & 0xff) << 24);
+}
+
+template <int D, bool QUANT, typename OutT>
+__global__ void __launch_bounds__(TNT) flash_attn_tok_kernel(const Args a) {
+  constexpr int QB = QUANT ? D : 2 * D;
+  constexpr int LDK = QB + 16;
+  constexpr int KSTEPS = QB / 32;
+  constexpr int NDT = D / 8;
+  const int PB = a.pblock;      // keys per P block: P is quantised once per block
+  const int LDS = PB + 8;       // padded S row (floats)
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* sK = smem;                                         // BKV x LDK
+  uint8_t* sVt = sK + BKV * LDK;                              // D x LDVT, keys contiguous
+  float* sKs = reinterpret_cast<float*>(sVt + D * LDVT);      // BKV
+  float* sVs = sKs + BKV;                                     // PB
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  float* sS = sVs + PB + warp * 16 * LDS;  // this warp's 16 rows of the P block
+  const size_t bh = blockIdx.y, kvbh = kv_head(a, bh);
+  const int r0 = blockIdx.x * TBQ + warp * 16 + g;
+  const int r1 = r0 + 8;
+  const int KN = a.KN;
+
+  unsigned qf[KSTEPS][4];
+  load_q<QB, KSTEPS>(qf, a, bh, r0, r1, t4);
+  float qs0 = 0.f, qs1 = 0.f;
+  if (QUANT) {
+    qs0 = r0 < a.N ? a.qs[bh * a.N + r0] : 0.f;
+    qs1 = r1 < a.N ? a.qs[bh * a.N + r1] : 0.f;
+  }
+  const uint8_t* mr0 = mask_row(a, bh, r0);
+  const uint8_t* mr1 = mask_row(a, bh, r1);
+
+  float o_acc[NDT][4];
 #pragma unroll
-  for (int dt = 0; dt < NDT; ++dt) {
-    const int c = dt * 8 + t4 * 2;
-    if (r0 < N) {
-      o0[c] = sdnq::from_f32<OutT>(__fdiv_rn(o_acc[dt][0], d0));
-      o0[c + 1] = sdnq::from_f32<OutT>(__fdiv_rn(o_acc[dt][1], d0));
+  for (int i = 0; i < NDT; ++i) o_acc[i][0] = o_acc[i][1] = o_acc[i][2] = o_acc[i][3] = 0.f;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+
+  const uint8_t* kbase = a.k + kvbh * (size_t)KN * QB;
+  const uint8_t* vbase = a.v + kvbh * (size_t)KN * D;
+  const float* vsb = a.vs + kvbh * (size_t)KN;
+  const int kv_end = kv_stop(a, blockIdx.x * TBQ, TBQ);
+
+  for (int pb0 = 0; pb0 < kv_end; pb0 += PB) {
+    const int pend = min(pb0 + PB, kv_end);
+    // sweep 1: S tiles of the P block into shared memory, and the row max
+    float mx0 = NEG, mx1 = NEG;
+    for (int kv0 = pb0; kv0 < pend; kv0 += BKV) {
+      for (int c = tid; c < BKV * QB / 16; c += TNT) {
+        const int r = c / (QB / 16), cb = (c % (QB / 16)) * 16;
+        const bool ok = kv0 + r < KN;
+        sdnq::cp_async16(sK + r * LDK + cb, kbase + (size_t)(ok ? kv0 + r : 0) * QB + cb, ok);
+      }
+      sdnq::cp_async_commit();
+      if (tid < BKV) {
+        const bool ok = kv0 + tid < KN;
+        if (QUANT) sKs[tid] = ok ? a.ks[kvbh * KN + kv0 + tid] : 0.f;
+        sVs[kv0 - pb0 + tid] = ok ? vsb[kv0 + tid] : 0.f;
+      }
+      sdnq::cp_async_wait<0>();
+      __syncthreads();
+      float s[BKV / 8][4];
+      score_tile<QUANT, KSTEPS, LDK>(s, qf, sK, sKs, qs0, qs1, a, kv0, r0, r1, mr0 != nullptr,
+                                     a.causal != 0, mr0, mr1, g, t4);
+#pragma unroll
+      for (int nt = 0; nt < BKV / 8; ++nt) {
+        const int c = kv0 - pb0 + nt * 8 + t4 * 2;
+        *reinterpret_cast<float2*>(sS + g * LDS + c) = make_float2(s[nt][0], s[nt][1]);
+        *reinterpret_cast<float2*>(sS + (g + 8) * LDS + c) = make_float2(s[nt][2], s[nt][3]);
+        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+      }
+      __syncthreads();
     }
-    if (r1 < N) {
-      o1[c] = sdnq::from_f32<OutT>(__fdiv_rn(o_acc[dt][2], d1));
-      o1[c + 1] = sdnq::from_f32<OutT>(__fdiv_rn(o_acc[dt][3], d1));
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // pass 2: S -> p_eff = exp2(s - m_new) * vs in place; l and the P scale
+    float ps0 = 0.f, ps1 = 0.f, pm0 = 0.f, pm1 = 0.f;
+    for (int c = t4; c < pend - pb0; c += 4) {
+      const float p0 = exp2f(sS[g * LDS + c] - mn0);
+      const float p1 = exp2f(sS[(g + 8) * LDS + c] - mn1);
+      const float e0 = p0 * sVs[c], e1 = p1 * sVs[c];
+      sS[g * LDS + c] = e0;
+      sS[(g + 8) * LDS + c] = e1;
+      ps0 += p0;
+      ps1 += p1;
+      pm0 = fmaxf(pm0, e0);
+      pm1 = fmaxf(pm1, e1);
+    }
+    ps0 = quad_sum(ps0);
+    ps1 = quad_sum(ps1);
+    pm0 = quad_max(pm0);
+    pm1 = quad_max(pm1);
+    l0 = __fadd_rn(__fmul_rn(l0, al0), ps0);
+    l1 = __fadd_rn(__fmul_rn(l1, al1), ps1);
+    const float sc0 = __fdiv_rn(fmaxf(pm0, 1e-20f), 127.f);
+    const float sc1 = __fdiv_rn(fmaxf(pm1, 1e-20f), 127.f);
+    __syncwarp();
+
+    // sweep 3: P_q . V_q over the block's V tiles, int32
+    int pv[NDT][4];
+#pragma unroll
+    for (int i = 0; i < NDT; ++i) pv[i][0] = pv[i][1] = pv[i][2] = pv[i][3] = 0;
+    for (int kv0 = pb0; kv0 < pend; kv0 += BKV) {
+      // V tile transposed into sVt[d][key], 4 x 4 bytes at a time
+      for (int c = tid; c < (BKV / 4) * (D / 4); c += TNT) {
+        const int kq = c / (D / 4), dq = c % (D / 4);
+        unsigned w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = kv0 + kq * 4 + i;
+          w[i] = key < KN ? *reinterpret_cast<const unsigned*>(vbase + (size_t)key * D + dq * 4)
+                          : 0u;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<unsigned*>(sVt + (dq * 4 + j) * LDVT + kq * 4) =
+              ((w[0] >> (8 * j)) & 0xffu) | (((w[1] >> (8 * j)) & 0xffu) << 8) |
+              (((w[2] >> (8 * j)) & 0xffu) << 16) | (((w[3] >> (8 * j)) & 0xffu) << 24);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 32; ++kk) {
+        const int cb = kv0 - pb0 + kk * 32 + t4 * 4;
+        const unsigned pa[4] = {quant4(sS + g * LDS + cb, sc0), quant4(sS + (g + 8) * LDS + cb, sc1),
+                                quant4(sS + g * LDS + cb + 16, sc0),
+                                quant4(sS + (g + 8) * LDS + cb + 16, sc1)};
+#pragma unroll
+        for (int dt = 0; dt < NDT; ++dt) {
+          const uint8_t* p = sVt + (dt * 8 + g) * LDVT + kk * 32 + t4 * 4;
+          const unsigned b[2] = {*reinterpret_cast<const unsigned*>(p),
+                                 *reinterpret_cast<const unsigned*>(p + 16)};
+          sdnq::mma_s8(pv[dt], pa, b);
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int dt = 0; dt < NDT; ++dt) {
+      o_acc[dt][0] = __fadd_rn(__fmul_rn(o_acc[dt][0], al0), __fmul_rn((float)pv[dt][0], sc0));
+      o_acc[dt][1] = __fadd_rn(__fmul_rn(o_acc[dt][1], al0), __fmul_rn((float)pv[dt][1], sc0));
+      o_acc[dt][2] = __fadd_rn(__fmul_rn(o_acc[dt][2], al1), __fmul_rn((float)pv[dt][2], sc1));
+      o_acc[dt][3] = __fadd_rn(__fmul_rn(o_acc[dt][3], al1), __fmul_rn((float)pv[dt][3], sc1));
     }
   }
+  store_rows<OutT, NDT>(a, bh, r0, r1, t4, o_acc, l0, l1);
+}
+
+template <int D, bool QUANT, typename OutT>
+int launch_t(const Args& a, int BH, cudaStream_t st) {
+  if (!a.vs) {
+    const dim3 grid((a.N + BQ - 1) / BQ, BH);
+    const int mode = (a.mask ? 1 : 0) | (a.causal ? 2 : 0);
+    if (mode == 0)
+      flash_attn_kernel<D, QUANT, 0, OutT><<<grid, NT, 0, st>>>(a);
+    else if (mode == 1)
+      flash_attn_kernel<D, QUANT, 1, OutT><<<grid, NT, 0, st>>>(a);
+    else if (mode == 2)
+      flash_attn_kernel<D, QUANT, 2, OutT><<<grid, NT, 0, st>>>(a);
+    else
+      flash_attn_kernel<D, QUANT, 3, OutT><<<grid, NT, 0, st>>>(a);
+    return 0;
+  }
+  const int bytes = tok_smem_bytes<D, QUANT>(a.pblock);
+  cudaError_t rc = cudaFuncSetAttribute(flash_attn_tok_kernel<D, QUANT, OutT>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((a.N + TBQ - 1) / TBQ, BH);
+  flash_attn_tok_kernel<D, QUANT, OutT><<<grid, TNT, bytes, st>>>(a);
+  return 0;
 }
 
 template <int D, bool QUANT>
-int launch(const void* q, const void* k, const void* v, const float* qs, const float* ks,
-           void* out, int BH, int N, int KN, int out_kind, cudaStream_t st) {
-  const dim3 grid((N + BQ - 1) / BQ, BH);
-  const uint8_t* qp = static_cast<const uint8_t*>(q);
-  const uint8_t* kp = static_cast<const uint8_t*>(k);
-  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(v);
-  if (out_kind == sdnq::F32)
-    flash_attn_kernel<D, QUANT, float>
-        <<<grid, NT, 0, st>>>(qp, kp, vp, qs, ks, static_cast<float*>(out), N, KN);
-  else if (out_kind == sdnq::BF16)
-    flash_attn_kernel<D, QUANT, __nv_bfloat16>
-        <<<grid, NT, 0, st>>>(qp, kp, vp, qs, ks, static_cast<__nv_bfloat16*>(out), N, KN);
-  else if (out_kind == sdnq::F16)
-    flash_attn_kernel<D, QUANT, __half>
-        <<<grid, NT, 0, st>>>(qp, kp, vp, qs, ks, static_cast<__half*>(out), N, KN);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
+int launch(const Args& a, int BH, int out_kind, cudaStream_t st) {
+  if (out_kind == sdnq::F32) return launch_t<D, QUANT, float>(a, BH, st);
+  if (out_kind == sdnq::BF16) return launch_t<D, QUANT, __nv_bfloat16>(a, BH, st);
+  if (out_kind == sdnq::F16) return launch_t<D, QUANT, __half>(a, BH, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q (BH, N, D), k (BH, KN, D): bf16 (quant = 0) or int8 (quant = 1);
-// v (BH, KN, D) bf16; qs (BH, N), ks (BH, KN) f32 in int8 mode, else null;
-// out (BH, N, D) of out_kind.  D is 64 or 128; KN >= 1.
+// q (BH, N, D), k (BH / qpk, KN, D): bf16 (quant = 0) or int8 (quant = 1);
+// v (BH / qpk, KN, D) bf16, or int8 with vs (BH / qpk, KN) f32 (token mode,
+// P quantised per block of pblock keys: a multiple of 64 that divides KN, at
+// most 512); qs (BH, N), ks (BH / qpk, KN) f32 in int8 mode, else null;
+// mask a bool tensor read at b*msb + h*msh + row*msn + key*msk (elements)
+// for head bh = b*H + h, or null; causal 0/1; out (BH, N, D) of out_kind.
+// D is 64 or 128; KN >= 1; qpk divides H and H divides BH.
 extern "C" int sdnq_flash_attn(const void* q, const void* k, const void* v, const void* qs,
-                               const void* ks, void* out, int BH, int N, int KN, int D,
+                               const void* ks, const void* vs, const void* mask, long long msb,
+                               long long msh, long long msn, long long msk, void* out, int BH,
+                               int N, int KN, int D, int H, int qpk, int causal, int pblock,
                                int quant, int out_kind, void* stream) {
-  if (KN < 1 || (D != 64 && D != 128)) return static_cast<int>(cudaErrorInvalidValue);
-  const float* qsp = static_cast<const float*>(qs);
-  const float* ksp = static_cast<const float*>(ks);
+  if (KN < 1 || (D != 64 && D != 128) || H < 1 || qpk < 1 || H % qpk || BH % H)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vs && (pblock < BKV || pblock > 512 || pblock % BKV || KN % pblock))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(k),
+         static_cast<const uint8_t*>(v), static_cast<const float*>(qs),
+         static_cast<const float*>(ks), static_cast<const float*>(vs),
+         static_cast<const uint8_t*>(mask), msb, msh, msn, msk, out, N, KN, H, qpk, causal,
+         pblock};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;
   if (D == 64)
-    rc = quant ? launch<64, true>(q, k, v, qsp, ksp, out, BH, N, KN, out_kind, st)
-               : launch<64, false>(q, k, v, qsp, ksp, out, BH, N, KN, out_kind, st);
+    rc = quant ? launch<64, true>(a, BH, out_kind, st) : launch<64, false>(a, BH, out_kind, st);
   else
-    rc = quant ? launch<128, true>(q, k, v, qsp, ksp, out, BH, N, KN, out_kind, st)
-               : launch<128, false>(q, k, v, qsp, ksp, out, BH, N, KN, out_kind, st);
+    rc = quant ? launch<128, true>(a, BH, out_kind, st) : launch<128, false>(a, BH, out_kind, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,13 +1,15 @@
 """Hand-written Hopper kernels with their plain PyTorch versions.
 
 Wrappers launch the CUDA kernel on CUDA tensors and run the plain version
-on CPU tensors; each counts its launches in ``<wrapper>.launches``.
+on CPU tensors; each counts its launches in ``<wrapper>.launches``, and
+``flash_attention`` also counts its launches per mode in
+``flash_attention.mode_launches``.
 """
 
 from .attention import flash_attention, quantized_attention
 from .dequant_mm import (
-    blockdiag_mm, dequant_gemv, dequant_matmul, groupdot_i8_mm, groupdot_mm,
-    packed_int8_matmul,
+    blockdiag_i8_mm, blockdiag_mm, dequant_gemv, dequant_matmul,
+    groupdot_i8_mm, groupdot_mm, packed_int8_matmul,
 )
 # (the function ``scaled_mm`` stays in its module, so that
 # ``kernels.scaled_mm`` names the module)
@@ -24,16 +26,23 @@ KERNELS = {
     "groupdot_mm": groupdot_mm,
     "blockdiag_mm": blockdiag_mm,
     "groupdot_i8_mm": groupdot_i8_mm,
+    "blockdiag_i8_mm": blockdiag_i8_mm,
 }
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for mode in flash_attention.mode_launches:
+        flash_attention.mode_launches[mode] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Launches by wrapper, and ``flash_attention:<mode>`` by B3 mode."""
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts.update({f"flash_attention:{mode}": n
+                   for mode, n in flash_attention.mode_launches.items()})
+    return counts
 
 
 __all__ = [
@@ -41,5 +50,5 @@ __all__ = [
     "scaled_gemm", "scaled_mm_fused_act", "bf16_scaled_mm",
     "dequant_gemv", "dequant_matmul", "flash_attention",
     "quantized_attention", "groupdot_mm", "blockdiag_mm", "groupdot_i8_mm",
-    "packed_int8_matmul",
+    "blockdiag_i8_mm", "packed_int8_matmul",
 ]

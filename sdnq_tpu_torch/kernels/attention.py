@@ -1,27 +1,35 @@
 """Quantized scaled-dot-product attention.
 
 Kernel ``flash_attention`` (B3, ``csrc/flash_attn.cu``) beside its plain
-version and a launch counter.  It replaces ``sdnq_tpu/kernels/attention.py``
-``_attn_kernel`` in two modes: bf16 Q·Kᵀ with sm_scale·log2(e) folded into
-q, and int8 Q·Kᵀ with per-token scales (qs carrying sm_scale·log2(e)); P·V
-in bf16 in both, softmax in base 2.  At FLUX's shape (24 heads, 4608
-tokens, head dim 128) it is bound by tensor-core operations; the kernel
-keeps the score matrix on chip (online softmax over 64-key tiles).
+version and launch counters.  It replaces ``sdnq_tpu/kernels/attention.py``
+``_attn_kernel`` in these modes: bf16 Q·Kᵀ with sm_scale·log2(e) folded
+into q, or int8 Q·Kᵀ with per-token scales (qs carrying sm_scale·log2(e)); bool
+masks; causal attention with its block skip; grouped KV heads; P·V in bf16,
+or in int8 on per-token-quantized V ("token" mode, P quantized once per
+block of ``p_block`` keys).  Softmax in base 2.  At FLUX's shape (24 heads,
+4608 tokens, head dim 128) and at Llama prefill it is bound by tensor-core
+operations; the kernel keeps the score matrix on chip.
 
 The plain version mirrors the JAX package's KERNEL path (attention.py
-:597-631: pre-folded scale, exp2, P rounded to V's dtype before P·V), with
-one full softmax instead of the online one.  It does not mirror the JAX XLA
-fallback (fp32 q/k with ``exp``), which agrees with it to fp32 rounding
-when the operands are fp32.
+:597-631: pre-folded scale, exp2, P rounded to V's dtype before a bf16 P·V,
+P quantized per P block in token mode), with one full softmax instead of
+the online one in the bf16 mode.
 
-Operand dtype: the kernel takes bf16 (and int8 Q/K), as the JAX kernel
-path casts to bf16; on the CPU fp32 inputs stay fp32.  Masks, causal
-attention, grouped KV heads, int8 P·V and fp8 Q·K are later slices: they
-raise here on both devices.
+``quantized_attention`` keeps the JAX route: where the JAX wrapper runs its
+kernel (N % 8 == 0, KN % 128 == 0, D <= 256) the port runs B3; elsewhere,
+which is every decode step at N = 1, it runs ``attention_xla``, a torch
+port of the JAX package's XLA function ``_attn_xla`` (``exp``, an fp32
+softmax, P quantized over the whole row), in plain torch on both devices:
+the JAX package computes that step outside any Pallas kernel.
+
+Still raising on both devices (later slices, ROADMAP queue B, B3): float
+additive masks, int8 P·V with one V scale per head (``pv_scale_mode=
+"head"``), fp8 Q·K; on the card, head dims other than 64 and 128.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -34,12 +42,14 @@ from ..quant.hadamard import (
     get_hadamard_group_size, next_power_of_2, rotate_hadamard,
 )
 
-__all__ = ["flash_attention", "flash_attention_plain", "quantized_attention",
-           "quantize_kv", "attn_auto_matmul_dtype"]
+__all__ = ["flash_attention", "flash_attention_plain", "attention_xla",
+           "quantized_attention", "quantize_kv", "attn_auto_matmul_dtype",
+           "attn_kernel_route", "attn_p_block"]
 
 LOG2E = math.log2(math.e)
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
+_L = ctypes.c_longlong
 
 
 def quantize_kv(k, v=None):
@@ -62,59 +72,197 @@ def attn_auto_matmul_dtype(n: int, kn: int, d: int) -> str | None:
     return None
 
 
+def attn_kernel_route(n: int, kn: int, d: int) -> bool:
+    """Whether the JAX wrapper runs its Pallas kernel at this shape (its
+    TPU rule: 8-row sublanes, 128-key lanes, head dim <= 256), kept for
+    parity: elsewhere both packages take the XLA function."""
+    return n % 8 == 0 and kn % 128 == 0 and d <= 256
+
+
+def attn_p_block(kn: int) -> int:
+    """Keys per P block in token mode: the JAX wrapper's KV block, min(512,
+    KN) halved until it divides KN (its TPU block rule, kept for parity:
+    the block is where P is requantized, so it is part of the function)."""
+    bk = min(512, kn)
+    while kn % bk:
+        bk //= 2
+    return bk
+
+
+def _expand_kv(t, q_per_kv):
+    """(B·KH, ...) -> (B·H, ...): each KV head repeated for its group."""
+    return t if q_per_kv == 1 else t.repeat_interleave(q_per_kv, dim=0)
+
+
+def _mask_scores(s, b, h, mask, causal):
+    """s (B·H, N, KN) with -1e30 where the bool mask (broadcast to (B, H,
+    N, KN)) is False or, causal, right of the diagonal."""
+    n, kn = s.shape[-2:]
+    if causal:
+        keep = (torch.arange(n, device=s.device)[:, None]
+                >= torch.arange(kn, device=s.device)[None, :])
+        s = torch.where(keep, s, _NEG_INF)
+    if mask is not None:
+        s = torch.where(mask.expand(b, h, n, kn).reshape(b * h, n, kn), s,
+                        _NEG_INF)
+    return s
+
+
+def _div(x, c: float):
+    """x / c as a true division also on the card (a torch division by a
+    Python scalar runs there as a multiply by the reciprocal)."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
 def flash_attention_plain(q, k, v, q_scale=None, k_scale=None,
-                          out_dtype=torch.bfloat16):
-    """Plain version of ``flash_attention``: q, k (BH, N|KN, D) float
-    (pre-scaled q) or int8 with q_scale (BH, N) / k_scale (BH, KN); v (BH,
-    KN, D).  Base-2 softmax; P is rounded to v's dtype before P·V."""
+                          out_dtype=torch.bfloat16, *, heads=None, mask=None,
+                          causal=False, v_scale=None, p_block=None):
+    """Plain version of ``flash_attention``: q (B·H, N, D) float (pre-scaled
+    q) or int8 with q_scale (B·H, N); k, v (B·KH, KN, D) with k_scale (B·KH,
+    KN); ``heads`` H (B·H when None); ``mask`` bool, broadcastable to (B,
+    H, N, KN); ``causal`` masks key j > query i.  Base-2 softmax.  With
+    ``v_scale`` (B·KH, KN), v holds int8 codes and P·V runs in token mode,
+    P quantized per block of ``p_block`` keys; else P is rounded to v's
+    dtype before P·V."""
+    bh, n, _ = q.shape
+    h = bh if heads is None else heads
+    qpk = bh // k.shape[0]
+    k, v = _expand_kv(k, qpk), _expand_kv(v, qpk)
     if q_scale is not None:
+        k_scale = _expand_kv(k_scale, qpk)
         s = (q.double() @ k.double().transpose(1, 2)).float()  # exact int
-        s = s * q_scale[..., None] * k_scale[:, None, :]
+        s = s * q_scale.reshape(bh, n)[..., None] * k_scale[:, None, :]
     else:
         s = q.float() @ k.float().transpose(1, 2)
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp2(s - m)
-    l = p.sum(-1, keepdim=True)
-    acc = p.to(v.dtype).float() @ v.float()
+    s = _mask_scores(s, bh // h, h, mask, causal)
+    if v_scale is None:
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp2(s - m)
+        l = p.sum(-1, keepdim=True)
+        acc = p.to(v.dtype).float() @ v.float()
+        return (acc / l.clamp_min(1e-30)).to(out_dtype)
+    vs = _expand_kv(v_scale.float(), qpk)
+    kn = s.shape[-1]
+    m = torch.full((bh, n, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((bh, n, 1), device=q.device)
+    acc = torch.zeros((bh, n, v.shape[-1]), device=q.device)
+    for k0 in range(0, kn, p_block):
+        sb = s[..., k0:k0 + p_block]
+        m_new = torch.maximum(m, sb.amax(-1, keepdim=True))
+        p = torch.exp2(sb - m_new)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p_eff = p * vs[:, None, k0:k0 + p_block]
+        p_scale = _div(p_eff.amax(-1, keepdim=True).clamp_min(1e-20), 127.0)
+        p_q = torch.round(p_eff / p_scale)
+        pv = (p_q.double() @ v[:, k0:k0 + p_block].double()).float()
+        acc = acc * alpha + pv * p_scale
+        m = m_new
     return (acc / l.clamp_min(1e-30)).to(out_dtype)
 
 
+def _mode_counts(**on):
+    for mode, flag in on.items():
+        if flag:
+            flash_attention.mode_launches[mode] += 1
+
+
 def flash_attention(q, k, v, q_scale=None, k_scale=None,
-                    out_dtype=torch.bfloat16):
-    """Flash attention over (BH, N, D) operands; see ``flash_attention_plain``
-    for the function.  On the card: q, k bf16 (or int8 with scales), v
-    bf16, D in {64, 128}."""
+                    out_dtype=torch.bfloat16, *, heads=None, mask=None,
+                    causal=False, v_scale=None, p_block=None):
+    """Flash attention; see ``flash_attention_plain`` for the function.  On
+    the card: q, k bf16 (or int8 with scales), v bf16 (or int8 with
+    ``v_scale``), D in {64, 128}; a token-mode ``p_block`` is a multiple
+    of 64 up to 512 that divides KN."""
+    kw = dict(heads=heads, mask=mask, causal=causal, v_scale=v_scale,
+              p_block=p_block)
     if not is_cuda(q):
-        return flash_attention_plain(q, k, v, q_scale, k_scale, out_dtype)
+        return flash_attention_plain(q, k, v, q_scale, k_scale, out_dtype,
+                                     **kw)
     bh, n, d = q.shape
-    kn = k.shape[1]
+    bkh, kn = k.shape[:2]
+    h = bh if heads is None else heads
     quant = q_scale is not None
     want = torch.int8 if quant else torch.bfloat16
-    if q.dtype != want or k.dtype != want or v.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention takes {want} q/k and bf16 v, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    v_want = torch.int8 if v_scale is not None else torch.bfloat16
+    if q.dtype != want or k.dtype != want or v.dtype != v_want:
+        raise ValueError(f"flash_attention takes {want} q/k and {v_want} v, "
+                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
     if d not in _HEAD_DIMS or v.shape[-1] != d:
         raise NotImplementedError(
             f"head dim {d}: the kernel takes {_HEAD_DIMS} (others are a "
-            "later slice of the port)")
-    if k.shape[0] != bh or v.shape[:2] != k.shape[:2] or kn < 1:
+            "later slice of the port, ROADMAP queue B, B3)")
+    qpk = bh // bkh if bkh and bh % bkh == 0 else 0
+    if (kn < 1 or v.shape[:2] != k.shape[:2] or bh % h or not qpk
+            or h % qpk):
         raise ValueError(f"shapes {tuple(q.shape)} {tuple(k.shape)} "
-                         f"{tuple(v.shape)}")
+                         f"{tuple(v.shape)} with {h} heads")
+    if v_scale is not None and not (
+            p_block and p_block % 64 == 0 and p_block <= 512
+            and kn % p_block == 0):
+        raise ValueError(f"token-mode P block {p_block} for KN {kn}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     qs = q_scale.reshape(bh, n).float().contiguous() if quant else None
-    ks = k_scale.reshape(bh, kn).float().contiguous() if quant else None
+    ks = k_scale.reshape(bkh, kn).float().contiguous() if quant else None
+    vs = (v_scale.reshape(bkh, kn).float().contiguous()
+          if v_scale is not None else None)
+    strides = (0, 0, 0, 0)
+    if mask is not None:
+        if mask.dtype != torch.bool:
+            raise ValueError(f"the kernel takes bool masks, not {mask.dtype}")
+        mask = mask.expand(bh // h, h, n, kn)
+        strides = tuple(mask.stride())
     out = torch.empty((bh, n, d), dtype=out_dtype, device=q.device)
     if n:
         fn = _build.function("flash_attn", "sdnq_flash_attn",
-                             [P, P, P, P, P, P, I, I, I, I, I, I, P])
-        _build.check(fn(*(_build.ptr(t) for t in (q, k, v, qs, ks, out)),
-                        bh, n, kn, d, int(quant), _build.act_kind(out_dtype),
-                        _build.stream(q)), "flash_attention")
+                             [P] * 7 + [_L] * 4 + [P] + [I] * 10 + [P])
+        _build.check(fn(*(_build.ptr(t) for t in (q, k, v, qs, ks, vs, mask)),
+                        *strides, _build.ptr(out), bh, n, kn, d, h, qpk,
+                        int(causal), int(p_block or 0), int(quant),
+                        _build.act_kind(out_dtype), _build.stream(q)),
+                     "flash_attention")
         flash_attention.launches += 1
+        _mode_counts(masked=mask is not None, causal=causal, gqa=qpk > 1,
+                     int8_pv=v_scale is not None)
     return out
 
 
 flash_attention.launches = 0
+# launches of the kernel in each mode (a launch may count in several)
+flash_attention.mode_launches = dict(masked=0, causal=0, gqa=0, int8_pv=0)
+
+
+def attention_xla(q, k, v, q_scale=None, k_scale=None, v_scale=None,
+                  mask=None, *, heads, causal=False, sm_scale=1.0,
+                  out_dtype=torch.bfloat16):
+    """The JAX package's ``_attn_xla`` in torch, with grouped KV heads read
+    in place (not repeated): q (B·H, N, D) float or int8 with q_scale (B·H,
+    N) carrying sm_scale; k, v (B·KH, KN, D), int8 k with k_scale; int8 v
+    with v_scale runs P·V quantized over the whole row.  Natural-base
+    softmax in fp32.  The products run in float64, exact for the int8
+    codes whatever the card's TF32 setting, and are rounded to fp32."""
+    bh, n, d = q.shape
+    bkh, kn = k.shape[:2]
+    qpk, b = bh // bkh, bh // heads
+    qg = q.reshape(bkh, qpk * n, d)          # a KV head's query heads, rows
+    s = (qg.double() @ k.double().transpose(1, 2)).float()
+    s = s.reshape(bh, n, kn)
+    if q_scale is not None:
+        s = s * q_scale.reshape(bh, n)[..., None] \
+            * _expand_kv(k_scale.reshape(bkh, kn), qpk)[:, None, :]
+    else:
+        s = s * sm_scale
+    s = _mask_scores(s, b, heads, mask, causal)
+    p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p_eff = p * _expand_kv(v_scale.reshape(bkh, kn).float(), qpk)[:, None]
+        p_scale = _div(p_eff.amax(-1, keepdim=True).clamp_min(1e-20), 127.0)
+        p = torch.round(p_eff / p_scale)
+    pg = p.reshape(bkh, qpk * n, kn)
+    out = (pg.double() @ v.double()).float().reshape(bh, n, -1)
+    if v_scale is not None:
+        out = out * p_scale
+    return out.to(out_dtype)
 
 
 def quantized_attention(query, key, value, attn_mask=None,
@@ -122,12 +270,17 @@ def quantized_attention(query, key, value, attn_mask=None,
                         *, smooth_k: bool = False, use_hadamard: bool = False,
                         hadamard_group_size: int = 256,
                         matmul_dtype: str | None = "default",
-                        pv_matmul_dtype: str | None = None, out_dtype=None,
+                        pv_matmul_dtype: str | None = None,
+                        pv_scale_mode: str = "head", out_dtype=None,
                         kv_scales: tuple | None = None):
-    """Scaled-dot-product attention over (B, H, N, D) with optional int8
-    Q·Kᵀ.  ``matmul_dtype`` in {"int8", "auto", None}; "default" reads
-    SDNQ_TPU_ATTN_MATMUL_DTYPE (int8 when unset), as the JAX package does.
-    ``kv_scales=(k_scale, None)`` marks key as pre-quantized int8."""
+    """Scaled-dot-product attention over query (B, H, N, D) and key / value
+    (B, KH, KN, D), H a multiple of KH.  ``matmul_dtype`` in {"int8",
+    "auto", None}; "default" reads SDNQ_TPU_ATTN_MATMUL_DTYPE (int8 when
+    unset), as the JAX package does.  ``attn_mask`` bool, broadcastable to
+    (B, H, N, KN).  ``kv_scales=(k_scale, v_scale)`` marks key (and value,
+    unless v_scale is None) as pre-quantized int8 with per-token scales
+    (B, KH, KN); int8 value runs P·V in token mode, as does
+    ``pv_matmul_dtype="int8"`` with ``pv_scale_mode="token"``."""
     b, h, n, d = query.shape
     _, kh, kn, _ = key.shape
     if out_dtype is None:
@@ -148,18 +301,23 @@ def quantized_attention(query, key, value, attn_mask=None,
     do_quant = matmul_dtype not in (None, "none", "no", "disabled")
     do_quant_pv = (kv_prequant and kv_scales[1] is not None) or \
         pv_matmul_dtype not in (None, "auto", "none", "no", "disabled")
+    if h % kh:
+        raise ValueError(f"{h} query heads do not group over {kh} KV heads")
     missing = [what for what, on in (
-        ("attention masks", attn_mask is not None), ("causal", is_causal),
-        ("grouped KV heads", kh != h), ("int8 P·V", do_quant_pv),
+        ("float attention masks",
+         attn_mask is not None and attn_mask.dtype != torch.bool),
+        ("int8 P·V with one V scale per head (pv_scale_mode='head')",
+         do_quant_pv and not kv_prequant and pv_scale_mode == "head"),
         (f"{matmul_dtype} Q·K", do_quant and matmul_dtype != "int8"))
         if on]
     if missing:
         raise NotImplementedError(
             ", ".join(missing)
-            + ": later slices of the port (ROADMAP queue A item 7)")
+            + ": later slices of the port (ROADMAP queue B, B3)")
 
     qf = query.float()
     kf = key if kv_prequant else key.float()
+    vf = value
     if smooth_k:
         kf = kf - kf.mean(dim=2, keepdim=True)
     if use_hadamard and do_quant:
@@ -171,20 +329,49 @@ def quantized_attention(query, key, value, attn_mask=None,
 
     qf = qf.reshape(b * h, n, d)
     kf = kf.reshape(b * kh, kn, d)
-    # the kernel's operand type; fp32 stays fp32 on the CPU
-    kdt = (torch.float32 if query.dtype == torch.float32 and not is_cuda(query)
-           else torch.bfloat16)
-    v_in = value.reshape(b * kh, kn, -1).to(kdt)
+    vf = vf.reshape(b * kh, kn, -1)
+    mask = attn_mask
+    if mask is not None:
+        while mask.dim() < 4:
+            mask = mask[None]
+
+    q_scale = k_scale = v_scale = None
     if do_quant:
-        q_q, q_s = quantize_int_mm(qf, -1)
-        q_scale = (q_s.reshape(b * h, n) * scale) * LOG2E
+        q_in, q_s = quantize_int_mm(qf, -1)
+        q_scale = q_s.reshape(b * h, n) * scale
         if kv_prequant:
-            k_q, k_scale = kf, kv_scales[0].reshape(b * kh, kn).float()
+            k_in, k_scale = kf, kv_scales[0].reshape(b * kh, kn).float()
         else:
-            k_q, k_s = quantize_int_mm(kf, -1)
+            k_in, k_s = quantize_int_mm(kf, -1)
             k_scale = k_s.reshape(b * kh, kn)
-        out = flash_attention(q_q, k_q, v_in, q_scale, k_scale, out_dtype)
     else:
-        q_in = (qf * (scale * LOG2E)).to(kdt)
-        out = flash_attention(q_in, kf.to(kdt), v_in, out_dtype=out_dtype)
+        q_in, k_in = qf, kf
+    if do_quant_pv:
+        if kv_prequant:
+            v_in, v_scale = vf, kv_scales[1].reshape(b * kh, kn).float()
+        else:
+            v_in, v_s = quantize_int_mm(vf, -1)
+            v_scale = v_s.reshape(b * kh, kn)
+    else:
+        v_in = vf
+
+    if not attn_kernel_route(n, kn, d):
+        out = attention_xla(q_in, k_in, v_in, q_scale, k_scale, v_scale,
+                            mask, heads=h, causal=is_causal, sm_scale=scale,
+                            out_dtype=out_dtype)
+        return out.reshape(b, h, n, -1)
+
+    # bf16 operands on both devices, as the JAX kernel path casts them
+    if v_scale is None:
+        v_in = v_in.to(torch.bfloat16)
+    kw = dict(heads=h, mask=mask, causal=is_causal, v_scale=v_scale,
+              p_block=attn_p_block(kn) if v_scale is not None else None)
+    if do_quant:
+        out = flash_attention(q_in, k_in, v_in, q_scale * LOG2E, k_scale,
+                              out_dtype, **kw)
+    else:
+        q_in = (qf * (scale * LOG2E)).to(torch.bfloat16)
+        out = flash_attention(q_in, kf.to(torch.bfloat16), v_in,
+                              out_dtype=out_dtype,
+                              **kw)
     return out.reshape(b, h, n, -1)

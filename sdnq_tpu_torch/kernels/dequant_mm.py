@@ -16,6 +16,10 @@ Kernels, each beside its plain PyTorch version and a launch counter:
   ``_blockdiag_kernel``: the same function for a few rows, as a GEMV.
 * ``groupdot_i8_mm`` — B7, ``csrc/groupdot_mm.cu``.  Replaces
   ``_groupdot_i8_kernel``: per-row int8 activations times the raw codes.
+* ``blockdiag_i8_mm`` — B8, ``csrc/blockdiag_i8_mm.cu``.  Replaces
+  ``_blockdiag_i8_kernel``: B7's function at any group size (down to the
+  8- and 16-code groups of 1- and 2-bit formats, groups that straddle the
+  half-split field boundary included) and at few rows.
 
 B5, B6 and B7 use the group-dot algebra on half-split codes (``packing``):
 the raw codes c (0 .. 2^bits - 1) enter the dot exactly, each group's
@@ -26,9 +30,9 @@ enters as a rank-G term on the per-row group sums of x:
     y[m, o] = sum_g scale[o, g] * (x_g[m] . c_g[o]) + xsum[m, g] * zpc[o, g]
               (+ bias[o])
 
-B7 multiplies the whole by the row scale of x before the bias.  Nothing is
-rounded below fp32 besides the inputs, so the plain versions need no
-rounding points of their own.
+B7 and B8 multiply the whole by the row scale of x before the bias.
+Nothing is rounded below fp32 besides the inputs, so the plain versions
+need no rounding points of their own.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version.  ``dequant_matmul`` and
@@ -47,7 +51,8 @@ from ..packing import halfsplit_planes, unpack, unpack_codes_halfsplit
 
 __all__ = ["dequant_gemv", "dequant_gemv_plain", "groupdot_mm",
            "groupdot_mm_plain", "blockdiag_mm", "blockdiag_mm_plain",
-           "groupdot_i8_mm", "groupdot_i8_mm_plain", "dequant_matmul",
+           "groupdot_i8_mm", "groupdot_i8_mm_plain", "blockdiag_i8_mm",
+           "blockdiag_i8_mm_plain", "packed_int8_route_ok", "dequant_matmul",
            "packed_int8_matmul"]
 
 # The GEMV kernel keeps every row's partial sum in registers.
@@ -66,6 +71,25 @@ _KERNEL_BITS = (1, 2, 4)
 # weight rowwise instead of calling packed_int8_matmul (the JAX package's
 # default SDNQ_TPU_PACKED_MM_MAX_ROWS, kept for the same route).
 PACKED_MM_MAX_ROWS = 8192
+
+# Where packed_int8_matmul has a result, at most this many rows take B8 (a
+# CUDA-core dp4a kernel whose tiles are 32 rows) even where B7 (128-row
+# tensor-core tiles) could take the groups; more rows take B7.  On an H100
+# at uint4 g 64, B8 is the faster at 32 rows on each of four shapes (K 2048
+# -> 8192, 2048, 512; K 1024 -> 4096) and B7 at 64 rows on the widest
+# (device times printed by chip_smoke.py, ``b7_b8_crossover``).  qlinear
+# calls packed_int8_matmul from 32 rows, so B8 takes its 32-row decode
+# batches.
+I8_BLOCKDIAG_MAX_ROWS = 32
+
+# The JAX package's TPU route rule of packed_int8_matmul, kept for parity
+# (the int8 route and the rowwise-requantize route give different numbers;
+# these numbers follow the TPU, not Hopper): its K cap, the 1024 cap on
+# rows x groups of its block-diagonal kernel, and that kernel's resident
+# VMEM budget (0.9 of the default 100 MiB limit, 512-column weight blocks).
+_MAX_K = 32768
+_BLOCKDIAG_MAX_MG = 1024
+_BLOCKDIAG_VMEM_BYTES = int(100 * 1024 * 1024 * 0.9)
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +210,10 @@ def groupdot_i8_mm_plain(xq, xs, codes, scale, zpc, bias=None, bits: int = 4,
     return acc.to(out_dtype)
 
 
+# B8 computes B7's function (its kernel takes any group size).
+blockdiag_i8_mm_plain = groupdot_i8_mm_plain
+
+
 def _check_halfsplit(name, x, codes, scale, zpc, bits, g_align):
     """Shapes, types and group geometry the half-split kernels take."""
     if bits not in _KERNEL_BITS:
@@ -208,8 +236,8 @@ def _check_halfsplit(name, x, codes, scale, zpc, bits, g_align):
     g = k // groups
     # A group must lie inside one field segment of the half-split row
     # (byte b carries k = b + t*seg), and a kernel step must not straddle
-    # two groups.
-    if seg % g or g % g_align:
+    # two groups.  (g_align None: any group, B8.)
+    if g_align is not None and (seg % g or g % g_align):
         raise ValueError(f"{name}: group {g} must divide the field segment "
                          f"{seg} and be a multiple of {g_align}")
     return m, k, o, g
@@ -316,6 +344,39 @@ def groupdot_i8_mm(xq, xs, codes, scale, zpc, bias=None, bits: int = 4,
 groupdot_i8_mm.launches = 0
 
 
+def blockdiag_i8_mm(xq, xs, codes, scale, zpc, bias=None, bits: int = 4,
+                    out_dtype=torch.bfloat16):
+    """B7's function at any group size g dividing K: xq (M, K) int8 with
+    row scales xs (M, 1); codes (O, K*bits/8) half-split uint8 whose field
+    segment K*bits/8 is a multiple of 64; scale, zpc (O, K/g) fp32."""
+    if not is_cuda(xq):
+        return blockdiag_i8_mm_plain(xq, xs, codes, scale, zpc, bias, bits,
+                                     out_dtype)
+    m, k, o, g = _check_halfsplit("blockdiag_i8_mm", xq, codes, scale, zpc,
+                                  bits, None)
+    if xq.dtype != torch.int8 or (k * bits // 8) % 64:
+        raise ValueError(f"blockdiag_i8_mm takes int8 x codes and a field "
+                         f"segment that is a multiple of 64, got {xq.dtype}, "
+                         f"K {k}")
+    xq, codes, scale, zpc = _contiguous(xq, codes, scale, zpc)
+    xsum = xq.reshape(m, k // g, g).to(torch.int32).sum(-1).float()
+    xs = xs.reshape(-1).float().contiguous()
+    bias = None if bias is None else bias.reshape(-1).float().contiguous()
+    out = torch.empty((m, o), dtype=out_dtype, device=xq.device)
+    if m and o:
+        fn = _build.function("blockdiag_i8_mm", "sdnq_blockdiag_i8_mm",
+                             [P] * 8 + [I] * 6 + [P])
+        _build.check(fn(*(_build.ptr(t) for t in (xq, codes, scale, zpc,
+                                                  xsum, xs, bias, out)),
+                        m, k, o, g, bits, _build.act_kind(out_dtype),
+                        _build.stream(xq)), "blockdiag_i8_mm")
+        blockdiag_i8_mm.launches += 1
+    return out
+
+
+blockdiag_i8_mm.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Routing (the JAX package's entry points)
 # ---------------------------------------------------------------------------
@@ -391,33 +452,61 @@ def dequant_matmul(x, wq, scale, zero_point, bias, fmt, group_size: int,
                             out_dtype)
 
 
+def _blockdiag_resident_ok(mg: int, kdim: int, bits: int,
+                           bn: int = 512) -> bool:
+    """The JAX block-diagonal kernel's resident bytes (its expanded x, a
+    decode scratch and a weight block, an R matrix and slack) within
+    _BLOCKDIAG_VMEM_BYTES: a TPU rule, kept for parity."""
+    resident = (mg * kdim + bn * kdim + bn * kdim * bits // 8
+                + mg * mg * 4 + 2 * mg * kdim)
+    return resident <= _BLOCKDIAG_VMEM_BYTES
+
+
+def packed_int8_route_ok(m: int, kdim: int, g: int, fmt,
+                         pack_layout: str) -> bool:
+    """True exactly where the JAX package's ``packed_int8_matmul`` has a
+    result (its group-dot or its block-diagonal kernel) and False where it
+    returns None: not half-split, not a packed integer format or K not a
+    multiple of g; a field segment not a multiple of 128 (the TPU's lanes)
+    or K > 32768; or groups that its group-dot kernel cannot tile (g a
+    multiple of 128 that fits a segment, at most 64 groups) while rows x
+    groups exceed 1024 or its block-diagonal kernel's VMEM budget."""
+    if not (pack_layout == "halfsplit" and fmt.is_integer and fmt.is_packed
+            and g > 0 and kdim % g == 0):
+        return False
+    pmax = max(8 // w for w, _ in halfsplit_planes(fmt.code_bits))
+    seg = kdim // pmax
+    if not (seg % 128 == 0 and kdim <= _MAX_K):
+        return False
+    groups = kdim // g
+    if g % 128 == 0 and g <= seg and groups <= 64:
+        return True
+    return (m * groups <= _BLOCKDIAG_MAX_MG
+            and _blockdiag_resident_ok(m * groups, kdim, fmt.code_bits))
+
+
 def packed_int8_matmul(x, wq, scale, zero_point, bias, fmt, group_size: int,
                        out_dtype=torch.bfloat16,
                        pack_layout: str = "bitplane"):
     """Quantized matmul on packed integer codes: x quantizes per row to
     int8 (B1's ``quantize_rows``), the raw codes enter an int8 product and
-    the group scales weight each group's partial (B7).
+    the group scales weight each group's partial.
 
-    Returns None where the JAX package's ``packed_int8_matmul`` returns
-    None on its group-dot route — not half-split, not a packed integer
-    format, K not a multiple of the group, a field segment not a multiple
-    of 128, K > 32768, or a group that is not a multiple of 128, is wider
-    than a segment or makes more than 64 groups — and the caller then
-    requantizes the weight rowwise.  These bounds follow the TPU's 128
-    lanes; the two routes give different numbers, so they are kept as the
-    JAX package has them."""
+    Returns None exactly where the JAX package's does
+    (``packed_int8_route_ok``), and the caller then requantizes the weight
+    rowwise.  Elsewhere B7 and B8 compute the same function; B8 takes up
+    to I8_BLOCKDIAG_MAX_ROWS rows and every group B7 cannot (B7 needs a
+    multiple of 64 that divides the field segment)."""
     from .scaled_mm import quantize_rows
     m, kdim = x.shape
     g = group_size if group_size > 0 else kdim
-    if not (pack_layout == "halfsplit" and fmt.is_integer and fmt.is_packed
-            and kdim % g == 0):
-        return None
-    pmax = max(8 // w for w, _ in halfsplit_planes(fmt.code_bits))
-    seg = kdim // pmax
-    if not (seg % 128 == 0 and kdim <= 32768):
-        return None
-    if not (g % 128 == 0 and g <= seg and kdim // g <= 64):
+    if not packed_int8_route_ok(m, kdim, g, fmt, pack_layout):
         return None
     xq, xs = quantize_rows(x.float())[:2]
     s, zpc = _group_operands(scale, zero_point, fmt)
-    return groupdot_i8_mm(xq, xs, wq, s, zpc, bias, fmt.code_bits, out_dtype)
+    seg = kdim * fmt.code_bits // 8
+    if m > I8_BLOCKDIAG_MAX_ROWS and g % 64 == 0 and seg % g == 0:
+        return groupdot_i8_mm(xq, xs, wq, s, zpc, bias, fmt.code_bits,
+                              out_dtype)
+    return blockdiag_i8_mm(xq, xs, wq, s, zpc, bias, fmt.code_bits,
+                           out_dtype)

@@ -15,6 +15,9 @@
   dequant_matmul`` (the row-epilogue GEMV for rowwise codes, the group-dot
   kernels for half-split codes).
 
+``qembedding`` gathers rows of an embedding table and, for a quantized
+table, dequantizes only the gathered rows (no kernel in either package).
+
 A Hadamard-rotated weight rotates the input instead.  SVD factors add
 ``(x @ downᵀ) @ upᵀ`` in plain torch: after the kernel in fp32 on the
 quantized-matmul route; on the weight-only route in the factors' dtype,
@@ -23,6 +26,8 @@ at the JAX package's rounding points.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -37,7 +42,7 @@ from .quant.core import quantize_fp_mm, quantize_int_mm, quantize_uint_mm
 from .quant.hadamard import rotate_hadamard
 from .tensor import QTensor, dequantize
 
-__all__ = ["qlinear"]
+__all__ = ["qlinear", "qembedding"]
 
 
 def _min_matmul_rows() -> int:
@@ -190,3 +195,34 @@ def qlinear(x: torch.Tensor, w, bias: torch.Tensor | None = None,
     else:
         out = _weight_only_linear_2d(x2d, w, bias, out_dtype)
     return out.reshape(*lead, meta.original_shape[0])
+
+
+def qembedding(ids: torch.Tensor, w, scale_multiplier: float | None = None,
+               out_dtype=None) -> torch.Tensor:
+    """Rows ``w[ids]`` of a plain or quantized (V, C) table; a QTensor's
+    gathered codes, scales, zero points and SVD rows are dequantized alone,
+    not the whole table."""
+    if not isinstance(w, QTensor):
+        out = w[ids]
+        if scale_multiplier is not None:
+            out = out * scale_multiplier
+        return out
+    meta = w.meta
+    out_dtype = out_dtype or torch_dtype(meta.dequant_dtype)
+    flat = ids.reshape(-1)
+    sub = QTensor(
+        qdata=w.qdata[flat], scale=w.scale[flat],
+        zero_point=None if w.zero_point is None else w.zero_point[flat],
+        svd_up=None if w.svd_up is None else w.svd_up[flat],
+        svd_down=w.svd_down, meta=_row_meta(meta, flat.shape[0]))
+    out = dequantize(sub, dtype=out_dtype)
+    if scale_multiplier is not None:
+        out = out * scale_multiplier
+    return out.reshape(*ids.shape, out.shape[-1])
+
+
+def _row_meta(meta, rows: int):
+    """``meta`` for ``rows`` gathered rows of the table."""
+    return dataclasses.replace(
+        meta, original_shape=(rows,) + tuple(meta.original_shape[1:]),
+        quantized_shape=(rows,) + tuple(meta.quantized_shape[1:]))

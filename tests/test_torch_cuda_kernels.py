@@ -306,3 +306,130 @@ def test_packed_bitplane_raises_on_card(dev):
     assert qt.meta.pack_layout == "bitplane"
     with pytest.raises(NotImplementedError, match="later slice"):
         T.qlinear(torch.randn(3, 72, device=dev), qt)
+
+
+# ---------------------------------------------------------------------------
+# B3 serving modes and B8
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(dev, g, bh, bkh, n, kn, d, quant, token):
+    from sdnq_tpu_torch.quant.core import quantize_int_mm
+    q = torch.randn(bh, n, d, device=dev, generator=g)
+    k = torch.randn(bkh, kn, d, device=dev, generator=g)
+    v = torch.randn(bkh, kn, d, device=dev, generator=g)
+    if quant:
+        qq, qs = quantize_int_mm(q)
+        kq, ks = quantize_int_mm(k)
+        args = [qq, kq, None, qs[..., 0] * d ** -0.5 * ka.LOG2E, ks[..., 0]]
+    else:
+        args = [(q * d ** -0.5 * ka.LOG2E).bfloat16(), k.bfloat16(), None,
+                None, None]
+    vs = None
+    if token:
+        vq, vs = quantize_int_mm(v)
+        args[2], vs = vq, vs[..., 0]
+    else:
+        args[2] = v.bfloat16()
+    return args, vs
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n,kn,heads,kv_heads", [
+    (72, 256, 4, 2), (200, 512, 8, 1), (64, 1024, 4, 4)])
+@pytest.mark.parametrize("mode", ["mask", "causal", "mask_token",
+                                  "causal_token", "gqa_bf16_token"])
+def test_flash_attention_serving_modes(dev, d, n, kn, heads, kv_heads, mode):
+    """Bool masks read through their strides (a (B, 1, N, KN) mask with
+    random holes, key 0 always kept), causal with the tile skip, grouped KV
+    heads, token-mode int8 P·V with 1-4 P blocks.  Against the plain
+    version in fp32, each row against its own largest output (under causal
+    the first rows attend a few keys and dwarf the rest): 2^-6 of it where
+    P is rounded to bf16 (running against final max); token mode quantizes
+    P at the same points as the plain version: 1e-4 of it."""
+    g = _gen(20)
+    b = 2
+    token = "token" in mode
+    quant = token and "bf16" not in mode
+    args, vs = _attn_inputs(dev, g, b * heads, b * kv_heads,
+                            n, kn if "causal" not in mode else n, d, quant,
+                            token)
+    kw = dict(heads=heads, v_scale=vs,
+              p_block=ka.attn_p_block(args[1].shape[1]) if token else None)
+    if "causal" in mode:
+        kw["causal"] = True
+        if token and n % 64:
+            pytest.skip("token mode needs KN a multiple of 64")
+    else:
+        mask = torch.rand(b, 1, n, kn, device=dev, generator=g) < 0.6
+        mask[..., 0] = True
+        kw["mask"] = mask
+    got = ka.flash_attention(*args, out_dtype=torch.float32, **kw)
+    want = ka.flash_attention_plain(*args, out_dtype=torch.float32, **kw)
+    limit = 1e-4 if token and quant else 2 ** -6
+    row_err = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    assert row_err.max() <= limit
+    assert ka.flash_attention.mode_launches["int8_pv"] >= int(token)
+
+
+def test_quantized_attention_decode_on_card(dev):
+    """N = 1 takes attention_xla on the card too (no kernel launch): the
+    same float64 products as on the CPU, so the two agree to fp32 softmax
+    rounding."""
+    g = _gen(21)
+    q = torch.randn(4, 32, 1, 128, device=dev, generator=g)
+    k = torch.randn(4, 8, 1024, 128, device=dev, generator=g)
+    v = torch.randn(4, 8, 1024, 128, device=dev, generator=g)
+    mask = (torch.arange(1024, device=dev) <= 900)[None, None, None]
+    kq, ks, vq, vs = ka.quantize_kv(k, v)
+    before = ka.flash_attention.launches
+    got = ka.quantized_attention(q, kq, vq, attn_mask=mask, kv_scales=(ks, vs))
+    assert ka.flash_attention.launches == before
+    want = ka.quantized_attention(q.cpu(), kq.cpu(), vq.cpu(),
+                                  attn_mask=mask.cpu(),
+                                  kv_scales=(ks.cpu(), vs.cpu()))
+    assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("bits,m,k,o,g", [
+    (4, 32, 2048, 200, 64), (4, 1, 1024, 130, 64), (2, 32, 512, 96, 16),
+    (1, 7, 1024, 64, 8), (4, 8, 16640, 72, 256), (4, 70, 768, 65, 12),
+    (4, 300, 768, 128, 256)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_blockdiag_i8_mm_exact(dev, bits, m, k, o, g, out_dtype):
+    """B8: groups of 8 and 16 codes, 65 groups with one straddling the field
+    boundary, a group of 12 (the byte-at-a-time loop), straddling groups at
+    300 rows; exact integer partials and the plain version's fp32 folds, so
+    bit-equal."""
+    gen = _gen(22)
+    packed, scale, zpc = _halfsplit(o, k, bits, g, dev, gen, bits == 2)
+    xq = torch.randint(-127, 128, (m, k), device=dev, generator=gen,
+                       dtype=torch.int8)
+    xs = torch.rand(m, 1, device=dev, generator=gen) * 0.02 + 1e-3
+    bias = torch.randn(o, device=dev, generator=gen)
+    got = kd.blockdiag_i8_mm(xq, xs, packed, scale, zpc, bias, bits,
+                             out_dtype)
+    want = kd.blockdiag_i8_mm_plain(xq, xs, packed, scale, zpc, bias, bits,
+                                    out_dtype)
+    assert torch.equal(got, want)
+
+
+def test_packed_qlinear_takes_b8_on_card(dev):
+    """uint4 at its auto group of 64 (K 2048 -> 512) on 32 rows with the
+    quantized matmul: the JAX route's B8 domain; B8 launches and agrees
+    with the same QTensor on the CPU (x quantized alike, exact partials:
+    one bf16 ulp of the largest output)."""
+    import sdnq_tpu_torch as T
+    gen = _gen(23)
+    w = torch.randn(512, 2048, device=dev, generator=gen)
+    x = torch.randn(32, 2048, device=dev, generator=gen)
+    qt = T.quantize_tensor(w, "uint4", use_quantized_matmul=True)
+    assert qt.meta.group_size == 64 and qt.meta.pack_layout == "halfsplit"
+    before = kd.blockdiag_i8_mm.launches
+    got = T.qlinear(x, qt).float().cpu()
+    assert kd.blockdiag_i8_mm.launches == before + 1
+    import dataclasses
+    qt_cpu = dataclasses.replace(qt, **{
+        f: (None if getattr(qt, f) is None else getattr(qt, f).cpu())
+        for f in ("qdata", "scale", "zero_point", "svd_up", "svd_down")})
+    want = T.qlinear(x.cpu(), qt_cpu).float()
+    assert (got - want).abs().max() <= 2 ** -7 * want.abs().max()

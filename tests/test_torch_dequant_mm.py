@@ -260,6 +260,8 @@ NONE_CASES = [
     ("int4", 40, 128, 64),       # field segment 64, not a multiple of 128
     ("int4", 40, 16640, 128),    # 130 groups > 64
     ("int12", 40, 256, 128),     # bit-plane layout
+    ("uint4", 40, 33280, 512),   # K > 32768
+    ("uint2", 512, 32768, 16384),  # 512 rows x 2 groups: over the VMEM rule
 ]
 
 
@@ -305,3 +307,89 @@ def test_packed_requantize_route(fmt, m, k, g):
     out = T.qlinear(_t(x), tq, _t(b)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5,
                                atol=2e-5 * np.abs(ref).max())
+
+
+# (fmt, rows, K, group): the JAX package serves these through B8 (groups its
+# group-dot kernel cannot tile, rows x groups <= 1024); the port returned
+# None at them before it had B8.  The last has 65 groups, and group 32
+# straddles the half-split field boundary (codes 8192..8447, segment 8320).
+B8_CASES = [
+    ("uint4", 32, 1024, 64),
+    ("int4", 32, 2048, 64),
+    ("uint2", 32, 512, 16),
+    ("uint4", 8, 16640, 256),
+    # the JAX package takes its group-dot kernel here (3 groups of 256, 40
+    # rows), and group 1 straddles the 384-code segment; the port's B7
+    # cannot split a group across the fields (on the card the route raised
+    # there before B8), B8 can
+    ("uint4", 40, 768, 256),
+]
+
+
+@pytest.mark.parametrize("fmt,m,k,g", B8_CASES)
+def test_packed_int8_fine_groups_vs_jax(interpret, fmt, m, k, g):
+    """``packed_int8_matmul`` has a result where the JAX package's has one,
+    and the two agree (JAX's B8 body in interpret mode; the same exact
+    integer partials, fp32 folds in another order): rtol 1e-5 plus 1e-5
+    of the largest output."""
+    x, wq, scale, zp, b = _packed(fmt, m, k, g, m + k + g, o=96)
+    assert tdq.packed_int8_route_ok(m, k, g, tfmt(fmt), "halfsplit")
+    ref = jdq.packed_int8_matmul(_j(x), _j(wq), _j(scale), _j(zp), _j(b),
+                                 jfmt(fmt), g, out_dtype=jnp.float32,
+                                 pack_layout="halfsplit")
+    out = tdq.packed_int8_matmul(_t(x), _t(wq), _t(scale), _t(zp), _t(b),
+                                 tfmt(fmt), g, out_dtype=torch.float32,
+                                 pack_layout="halfsplit")
+    assert ref is not None and out is not None
+    _close(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("fmt,m,k,g", [
+    ("uint4", 5, 1024, 64), ("int2", 3, 512, 16), ("uint1", 4, 1024, 8),
+    ("uint4", 8, 16640, 256)])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_blockdiag_i8_b8_vs_pallas(interpret, fmt, m, k, g, with_bias):
+    """B8's plain version (``blockdiag_i8_mm`` on CPU tensors) against
+    ``_blockdiag_i8_mm_pallas`` on the same int8 rows: g 64, g 16 and g 8
+    (the auto groups of 4-, 2- and 1-bit codes) and 65 groups with one
+    straddling the field boundary.  Exact integer partials; the JAX body
+    reduces the groups with an fp32 dot: rtol 1e-5 plus 1e-5 of the
+    largest output."""
+    x, wq, scale, zp, b = _packed(fmt, m, k, g, 7 * m + g, o=80)
+    b = b if with_bias else None
+    f = jfmt(fmt)
+    from sdnq_tpu.quant.core import quantize_int_mm as jq_rows
+    xq, xs = jq_rows(jnp.asarray(x), axis=-1)
+    ref = jdq._blockdiag_i8_mm_pallas(
+        xq, xs.reshape(-1, 1), _j(wq), _j(scale), _j(zp), _j(b),
+        code_bits=f.code_bits, code_min=int(f.min), group_size=g,
+        out_dtype=jnp.dtype(jnp.float32))
+    s, zpc = tdq._group_operands(_t(scale), _t(zp), tfmt(fmt))
+    out = tdq.blockdiag_i8_mm(_t(np.asarray(xq)), _t(np.asarray(xs)),
+                              _t(wq), s, zpc, _t(b), f.code_bits,
+                              torch.float32)
+    _close(out.numpy(), ref)
+
+
+def test_packed_int8_route_picks_b7_or_b8():
+    """Where the route has a result the port takes B8 up to
+    I8_BLOCKDIAG_MAX_ROWS rows and for every group B7 cannot tile, else
+    B7: the wrappers' launch counters on the CPU stay 0 (plain versions),
+    so the choice is read from which wrapper the route calls."""
+    calls = []
+    real = (tdq.groupdot_i8_mm, tdq.blockdiag_i8_mm)
+    try:
+        tdq.groupdot_i8_mm = lambda *a, **k: calls.append("B7")
+        tdq.blockdiag_i8_mm = lambda *a, **k: calls.append("B8")
+        f = tfmt("uint4")
+        for m, k, g in ((32, 1024, 64), (33, 1024, 128), (300, 768, 256),
+                        (15, 2048, 64), (100, 1024, 256), (65, 512, 16)):
+            wq = torch.zeros(16, k // 2, dtype=torch.uint8)
+            s = torch.ones(16, k // g)
+            tdq.packed_int8_matmul(torch.randn(m, k), wq, s, None, None, f,
+                                   g, pack_layout="halfsplit")
+    finally:
+        tdq.groupdot_i8_mm, tdq.blockdiag_i8_mm = real
+    # 300 x 768 / 256: group 1 straddles the 384-code segment -> B8;
+    # 65 x 512 / 16: 2080 rows x groups -> None (no product)
+    assert calls == ["B8", "B7", "B8", "B8", "B7"]

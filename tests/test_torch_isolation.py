@@ -115,3 +115,22 @@ def _tensors(tree):
     else:
         yield tree
 
+
+
+def test_llm_entry_points_need_a_device(no_cuda):
+    from sdnq_tpu_torch.models import (
+        LLM_TINY_CONFIG, generate, init_cache, init_llm, llm_forward,
+    )
+    cfg = LLM_TINY_CONFIG
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_llm(cfg)
+    params = init_llm(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    ids = torch.zeros(1, 8, dtype=torch.long)
+    for call in (lambda: llm_forward(params, ids, cfg),
+                 lambda: generate(params, ids, cfg, max_new_tokens=2),
+                 lambda: init_cache(cfg, 1, 16)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    toks = generate(params, ids, cfg, max_new_tokens=2, device="cpu")
+    assert toks.shape == (1, 2)
