@@ -41,10 +41,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               per prefill and per decode step; B1, B2, B4 and the new B3
               modes (masked, GQA, int8 P.V, causal) must launch.  Then one
               uint4 g64 layer through ``qlinear`` at 32 rows: B8 launches.
+4e. train   - FLUX.1-dev training at full width, depth cut to 10 double +
+              20 single blocks (memory: about 9 bytes a quantized weight),
+              random bf16 weights quantized to int8 (quantized matmul) under
+              the Flux skip keys, ``convert_model_to_training``, AdamW with
+              8-bit moments, stochastic rounding and Kahan; batch 1 at
+              512x512 (1024 image tokens), 512 text tokens, guidance 3.5,
+              loss mean((out - target)^2).  One warm-up and three timed
+              steps: forward / backward / optimizer ms (CUDA events), image
+              tokens/s, peak GiB, launches, loss (finite) and the share of
+              weight codes the update moved (above 0) per step; B10, B1's
+              nn and colscale modes, B1, B4, B2 and B3 must launch in each;
+              then one step traced.
 5. slice    - each FLUX model cut to 1 double + 2 single blocks, one
               forward at 1024x1024 with 512 text tokens, and Llama-3-8B cut
               to 2 layers (prefill + 4 decode steps with either cache, and
-              the causal forward), through the kernels against the
+              the causal forward), and the training model cut to 2 double
+              + 2 single blocks (loss and every weight gradient of one
+              step), through the kernels against the
               all-plain path, both on the card (the check swaps each
               wrapper for its plain version for the reference run and
               verifies no kernel launched in it), each with its own limit.
@@ -59,7 +73,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               bits kept, a mask ignored on one tile, the P scale taken per
               64-key tile, the causal skip a tile early, the GQA map
               h % KH, a middle KV tile skipped under a mask and under
-              causal), built with the real ones; phases 3 and 5 rerun with
+              causal, B10 dropping the M tail, B10 with a_s and b_s
+              swapped, B1's prologue ignoring the column scale), built with
+              the real ones; phases 3 and 5 rerun with
               each in turn.  Phase 3 must fail for the broken kernel; phase
               5's readings are printed beside their limits.
 
@@ -71,6 +87,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -127,7 +144,8 @@ KERNEL_SYMBOLS = {
     "dequant_gemv": "dequant_gemv_kernel", "flash_attention": "flash_attn",
     "groupdot_mm": "groupdot_mm_kernel", "blockdiag_mm": "blockdiag_mm_kernel",
     "groupdot_i8_mm": "groupdot_mm_kernel",
-    "blockdiag_i8_mm": "blockdiag_i8_mm_kernel"}
+    "blockdiag_i8_mm": "blockdiag_i8_mm_kernel",
+    "scaled_mm_tn": "scaled_mm_tn_kernel"}
 
 
 def device_ms(torch, fn, symbol, reps: int = 5):
@@ -380,6 +398,8 @@ def kernel_phase(torch, dev, timed: bool = True):
     # 2^-10 of the row's largest output; the bf16 modes round P to bf16
     # against other maxima: 2^-6 of it.
     llm_attention_rows(torch, dev, g, t, record)
+    # B10 and B1's nn / colscale modes at the training step's shapes
+    train_kernel_rows(torch, dev, g, t, record)
 
 
     # B5 / B6 / B7 on uint4 half-split codes, group 128 (the uint4 + SVD
@@ -620,6 +640,137 @@ def llm_attention_rows(torch, dev, g, t, record):
            path="llm_causal", count="flash_attention:causal", reading=row)
 
 
+def train_kernel_rows(torch, dev, g, t, record):
+    """Phase 3 rows of B10 (the grad-weight GEMM) and of B1's nn and
+    colscale modes (the grad-input GEMM) at the shapes of the FLUX.1-dev
+    training step: 1536 tokens (1024 image + 512 text), batch 1."""
+    from sdnq_tpu_torch.kernels import scaled_mm as ks
+
+    def library_or_none(fn, what):
+        """Time a PyTorch yardstick the port never calls; where this
+        PyTorch build refuses the call, say so and record null."""
+        try:
+            fn()
+        except (RuntimeError, ValueError) as e:
+            log(f"library yardstick for {what} not timed: {e}"[:300])
+            return None
+        return t(fn)
+
+    src_tn = "sdnq_tpu_torch/csrc/scaled_mm_tn.cu"
+    rep_tn = "sdnq_tpu/kernels/scaled_mm.py:534"
+    # B10 int8: gw = g^T x with both quantized columnwise.  Bit-equal to
+    # the plain version (exact integer sums, the same fp32 epilogue): limit
+    # 0.  Shapes: single-block linear1 (1536 x 21504 by 1536 x 3072),
+    # double-block img fc1 (1024 x 12288 by 1024 x 3072), and a modulation
+    # linear at batch 1 (M = 1: 1 x 18432 by 1 x 3072).
+    for m, n, k, what in ((1536, 21504, 3072, "linear1"),
+                          (1024, 12288, 3072, "img fc1"),
+                          (1, 18432, 3072, "img_mod")):
+        a = torch.randint(-128, 128, (m, n), device=dev, generator=g,
+                          dtype=torch.int8)
+        b = torch.randint(-128, 128, (m, k), device=dev, generator=g,
+                          dtype=torch.int8)
+        a_s = torch.rand(n, device=dev, generator=g) * 1e-3 + 1e-5
+        b_s = torch.rand(k, device=dev, generator=g) * 1e-2 + 1e-4
+        got = ks.scaled_mm_tn(a, b, a_s, b_s)
+        want = ks.scaled_mm_tn_plain(a, b, a_s, b_s)
+        err = float((got - want).abs().max())
+        del got, want
+
+        def library():
+            if m == 1:  # _int_mm takes no K of 1; one int8 product is
+                # exact in fp32, so the outer product is the same function
+                acc = torch.outer(a[0].float(), b[0].float())
+            else:
+                acc = torch._int_mm(a.t().contiguous(), b).float()
+            return acc * a_s[:, None] * b_s[None, :]
+        record("scaled_mm_tn", "cuda", src_tn, rep_tn, err, 0.0,
+               lambda: ks.scaled_mm_tn(a, b, a_s, b_s),
+               t(lambda: ks.scaled_mm_tn_plain(a, b, a_s, b_s), reps=3),
+               bound_ms(m * n + m * k + 4 * n * k + 4 * (n + k),
+                        2 * m * n * k, "int8"),
+               library_or_none(library, f"scaled_mm_tn {what}"),
+               f"M{m} N{n} K{k} int8 ({what} grad-weight)", path="train")
+        del a, b
+
+    # B10 e4m3 (fp8 weights train their grad-weight in fp8): products exact
+    # in fp32, fp32 sums in another order.  Read as the worst error over
+    # the sum of |terms| of its element; limit 1e-5.
+    m, n, k = 1536, 21504, 3072
+    a = (torch.randn(m, n, device=dev, generator=g) * 30).to(
+        torch.float8_e4m3fn)
+    b = (torch.randn(m, k, device=dev, generator=g) * 30).to(
+        torch.float8_e4m3fn)
+    a_s = torch.rand(n, device=dev, generator=g) * 1e-3 + 1e-5
+    b_s = torch.rand(k, device=dev, generator=g) * 1e-2 + 1e-4
+    got = ks.scaled_mm_tn(a, b, a_s, b_s)
+    want = ks.scaled_mm_tn_plain(a, b, a_s, b_s)
+    terms = (a.float().abs().T @ b.float().abs()) * a_s[:, None] \
+        * b_s[None, :]
+    diff = (got - want).abs()
+    reading = float((diff / (terms + 1e-30)).max())
+    err = float(diff.max())
+    del got, want, terms, diff
+    one = torch.ones((), device=dev)
+
+    def library():
+        out = torch._scaled_mm(a.t().contiguous(), b.t().contiguous().t(),
+                               scale_a=one, scale_b=one,
+                               out_dtype=torch.float32)
+        return out * a_s[:, None] * b_s[None, :]
+    record("scaled_mm_tn", "cuda", src_tn, rep_tn, err, 1e-5,
+           lambda: ks.scaled_mm_tn(a, b, a_s, b_s),
+           t(lambda: ks.scaled_mm_tn_plain(a, b, a_s, b_s), reps=3),
+           bound_ms(m * n + m * k + 4 * n * k + 4 * (n + k), 2 * m * n * k,
+                    "fp8"),
+           library_or_none(library, "scaled_mm_tn fp8"),
+           f"M{m} N{n} K{k} e4m3 (linear1 grad-weight)", on_path=False,
+           reading=reading)
+    del a, b
+
+    # B1 in the grad-input route at single-block linear1: the bf16
+    # cotangent g (1536, 21504) times the weight's row scales (colscale),
+    # quantized per row, then g_q (1536, 21504) . W (21504, 3072) reading
+    # the stored (O, K) weight as it lies (nn).  Both bit-equal to their
+    # plain versions (limit 0): the codes, and the bf16 output, which both
+    # sides round once from the same exact integer sum and fp32 epilogue.
+    o, kk = 21504, 3072
+    x = torch.randn(m, o, device=dev, generator=g).bfloat16()
+    cs = torch.rand(o, device=dev, generator=g) * 2e-3 + 1e-5
+    got = ks.quantize_rows(x, colscale=cs)
+    want = ks.quantize_rows_plain(x, colscale=cs)
+    err = max(float((u.float() - v.float()).abs().max())
+              for u, v in zip(got[:2], want[:2]))
+    record("quantize_rows", "cuda", "sdnq_tpu_torch/csrc/quantize_rows.cu",
+           "sdnq_tpu/kernels/scaled_mm.py:230", err, 0.0,
+           lambda: ks.quantize_rows(x, colscale=cs),
+           t(lambda: ks.quantize_rows_plain(x, colscale=cs), reps=3),
+           bound_ms(m * o * 3 + o * 4 + m * 4, 4 * m * o, "fp32"), None,
+           f"M{m} K{o} bfloat16 colscale (linear1 grad-input)",
+           path="train", count="quantize_rows:colscale")
+    xq, xs = got[:2]
+    w = torch.randint(-127, 128, (o, kk), device=dev, generator=g,
+                      dtype=torch.int8)
+    got = ks.scaled_gemm(xq, w, torch.bfloat16, xs, b_layout="nn")
+    want = ks.scaled_gemm_plain(xq, w, torch.bfloat16, xs, b_layout="nn")
+
+    def library():
+        return (torch._int_mm(xq, w).float() * xs).to(torch.bfloat16)
+    record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
+           "sdnq_tpu/kernels/scaled_mm.py:230",
+           float((got.float() - want.float()).abs().max()), 0.0,
+           lambda: ks.scaled_gemm(xq, w, torch.bfloat16, xs, b_layout="nn"),
+           t(lambda: ks.scaled_gemm_plain(xq, w, torch.bfloat16, xs,
+                                          b_layout="nn"), reps=3),
+           bound_ms(m * o + o * kk + m * kk * 2 + m * 4, 2 * m * o * kk,
+                    "int8"),
+           library_or_none(library, "scaled_gemm nn"),
+           f"M{m} K{o} N{kk} int8 nn (linear1 grad-input)", path="train",
+           count="scaled_gemm:nn")
+    del x, xq, w, got, want
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5
 # ---------------------------------------------------------------------------
@@ -738,7 +889,8 @@ def plain_versions():
              (kd, "blockdiag_mm", kd.blockdiag_mm_plain),
              (kd, "groupdot_i8_mm", kd.groupdot_i8_mm_plain),
              (kd, "blockdiag_i8_mm", kd.blockdiag_i8_mm_plain),
-             (ka, "flash_attention", ka.flash_attention_plain)]
+             (ka, "flash_attention", ka.flash_attention_plain),
+             (ks, "scaled_mm_tn", ks.scaled_mm_tn_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -839,9 +991,21 @@ LLM_SLICE_TOL = {
     "llm_int8kv": {"max": 5e-2, "decode_max": 1.4e-2, "mean": 2.7e-3},
     "llm_bf16kv": {"max": 1e-1, "decode_max": 2e-2, "mean": 7.5e-3},
     "llm_causal": {"max": 1e-1, "mean": 1.12e-2}}
+# Limits of the training slice check (loss and every weight gradient of
+# one step on 2 double + 2 single blocks, kernels against plain versions on
+# the card), about twice the sound readings on the H100: "loss", the
+# relative loss difference (1.65e-4); "grad_max", the largest over the
+# parameters of a gradient's largest error over its largest entry
+# (2.37e-2); "grad_mean", the largest mean error over mean |entry|
+# (2.45e-2).  bf16 roundings that differ by an ulp flip int8 activation
+# codes forward, and cotangent codes backward.
+TRAIN_SLICE_TOL = {"loss": 3.5e-4, "grad_max": 5e-2, "grad_mean": 5e-2}
+
+
 # every slice check's limits; "qlinear_b8" is the B8 qlinear check's
 ALL_SLICE_TOL = {**{k: {"max": v} for k, v in SLICE_TOL.items()},
-                 **LLM_SLICE_TOL, "qlinear_b8": {"max": 2 ** -7}}
+                 **LLM_SLICE_TOL, "qlinear_b8": {"max": 2 ** -7},
+                 "train": TRAIN_SLICE_TOL}
 
 
 def cut_llm(params, cfg):
@@ -1102,6 +1266,233 @@ def b8_qlinear_check(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: quantized training of FLUX.1-dev
+# ---------------------------------------------------------------------------
+
+# Depth of the training model: AdamW training holds about 9 bytes per
+# quantized weight (int8 code 1, fp32 gradient 4, two 8-bit moments with
+# their group scales about 2.03, bf16 Kahan buffer 2), so the full 11.8 B
+# quantized weights (19 + 38 blocks, about 106 GB) do not fit the card's
+# 80 GB; 10 + 20 blocks hold 6.23 B (about 56 GB).
+TRAIN_DEPTH = (10, 20)
+TRAIN_SIDE, TRAIN_TXT = 512, 512          # 1024 image tokens, 512 text
+TRAIN_STEPS = 3                           # timed, after one warm-up step
+TRAIN_REQUIRED = ("scaled_mm_tn", "scaled_gemm:nn", "quantize_rows:colscale",
+                  "quantize_rows", "scaled_gemm", "dequant_gemv",
+                  "flash_attention")
+
+
+def train_config(depth=TRAIN_DEPTH):
+    import dataclasses
+    from sdnq_tpu_torch.models import FLUX_DEV_CONFIG
+    return dataclasses.replace(FLUX_DEV_CONFIG, depth_double=depth[0],
+                               depth_single=depth[1])
+
+
+def build_train_model(torch, dev):
+    """FLUX.1-dev at full width, TRAIN_DEPTH blocks, bf16 weights from a
+    seeded generator, quantized to int8 with the quantized matmul under the
+    Flux skip keys, then ``convert_model_to_training``."""
+    from sdnq_tpu_torch import QuantConfig, quantize_model
+    from sdnq_tpu_torch.models.dit import init_dit
+    from sdnq_tpu_torch.train import TrainQTensor, convert_model_to_training
+    from sdnq_tpu_torch.tree import tree_leaves
+
+    cfg = train_config()
+    t0 = time.perf_counter()
+    params = init_dit(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(20))
+    qparams, _ = quantize_model(
+        params, QuantConfig(weights_dtype="int8", use_quantized_matmul=True),
+        arch="FluxTransformer2DModel", device=dev)
+    del params
+    tparams = convert_model_to_training(qparams)
+    del qparams
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    leaves = tree_leaves(tparams, is_leaf=lambda x: isinstance(
+        x, TrainQTensor))
+    n_q = sum(p.qt.qdata.numel() for p in leaves
+              if isinstance(p, TrainQTensor))
+    n_f = sum(p.numel() for p in leaves if isinstance(p, torch.Tensor))
+    log(f"train: FLUX.1-dev {cfg.depth_double}+{cfg.depth_single} blocks "
+        f"built, quantized and converted in {time.perf_counter() - t0:.1f} "
+        f"s: {n_q / 1e9:.3f} B int8 weights, {n_f / 1e6:.1f} M bf16 "
+        f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return tparams, cfg
+
+
+def train_inputs(torch, dev, cfg, seed: int = 21):
+    """Batch 1 at 512x512 (1024 image tokens), 512 text tokens, guidance
+    3.5, t and a target drawn from a seeded generator."""
+    from sdnq_tpu_torch.models.dit import make_rope_freqs
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hw = (TRAIN_SIDE // 16, TRAIN_SIDE // 16)
+    n = hw[0] * hw[1]
+    return dict(
+        img=torch.randn(1, n, cfg.in_channels, device=dev, generator=g),
+        txt=torch.randn(1, TRAIN_TXT, cfg.txt_dim, device=dev, generator=g),
+        pooled=torch.randn(1, cfg.vec_dim, device=dev, generator=g),
+        t=torch.rand(1, device=dev, generator=g),
+        guidance=torch.full((1,), 3.5, device=dev),
+        target=torch.randn(1, n, cfg.in_channels, device=dev, generator=g),
+        freqs=make_rope_freqs(cfg, TRAIN_TXT, hw, device=dev))
+
+
+def train_loss(params, cfg, inp, dev):
+    """mean((dit_forward(...) - target)^2), the JAX package's training
+    loss."""
+    out = forward(params, cfg, inp, dev)
+    return ((out.float() - inp["target"]) ** 2).mean()
+
+
+def train_path(torch, dev, tparams, cfg):
+    """One warm-up and TRAIN_STEPS timed AdamW steps (8-bit moments,
+    stochastic rounding, Kahan), the counts zeroed just before the first
+    and read after each; then one step traced.  Returns the counts over
+    the steps and the optimizer state."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.optim import adamw
+    from sdnq_tpu_torch.train import TrainQTensor
+    from sdnq_tpu_torch.tree import tree_leaves
+
+    inp = train_inputs(torch, dev, cfg)
+    n_img = inp["img"].shape[1]
+    opt = adamw(lr=1e-5, quantize_state=True, stochastic_rounding=True)
+    t0 = time.perf_counter()
+    state = opt.init(tparams)
+    torch.cuda.synchronize()
+    log(f"train: AdamW state built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    qleaves = [p for p in tree_leaves(tparams, is_leaf=lambda x: isinstance(
+        x, TrainQTensor)) if isinstance(p, TrainQTensor)]
+    n_codes = sum(p.qt.qdata.numel() for p in qleaves)
+
+    def step():
+        loss = train_loss(tparams, cfg, inp, dev)
+        loss.backward()
+        opt.update(None, state, tparams, generator=gen)
+        return loss
+
+    reset_launch_counts()
+    records = []
+    for i in range(1 + TRAIN_STEPS):
+        old = [p.qt.qdata.cpu() for p in qleaves]  # outside the timing
+        before = launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t1 = time.perf_counter()
+        ev[0].record()
+        loss = train_loss(tparams, cfg, inp, dev)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.update(None, state, tparams, generator=gen)
+        ev[3].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        after = launch_counts()
+        launches = {k: after[k] - before[k] for k in after}
+        moved = sum(int((p.qt.qdata != o.to(dev)).sum())
+                    for p, o in zip(qleaves, old))
+        del old
+        fwd, bwd, upd = (ev[j].elapsed_time(ev[j + 1]) for j in range(3))
+        rec = dict(step=i, warm_up=i == 0, loss=float(loss),
+                   forward_ms=fwd, backward_ms=bwd, optimizer_ms=upd,
+                   step_ms=fwd + bwd + upd, host_clock_ms=wall * 1e3,
+                   image_tokens_per_s=n_img / (wall or 1e-9),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   codes_moved_share=moved / n_codes,
+                   launches={k: v for k, v in launches.items() if v})
+        log("train: " + json.dumps(rec))
+        records.append(rec)
+        del loss
+        check(math.isfinite(rec["loss"]), f"train step {i}: loss "
+              f"{rec['loss']:.6f} finite")
+        check(rec["codes_moved_share"] > 0, f"train step {i}: the update "
+              f"moved {rec['codes_moved_share']:.3e} of the weight codes")
+        for name in TRAIN_REQUIRED:
+            check(launches[name] > 0, f"train step {i} launched {name}")
+        check(launches["scaled_gemm"] > launches["scaled_gemm:nn"],
+              f"train step {i} launched B4 in its nt layout (the forward)")
+    counts = launch_counts()
+    timed = records[1:]
+    log("train: " + json.dumps({
+        "depth": list(TRAIN_DEPTH), "image_tokens": n_img,
+        "text_tokens": TRAIN_TXT, "timed_steps": len(timed),
+        "mean_step_ms": statistics.mean(r["step_ms"] for r in timed),
+        "mean_forward_ms": statistics.mean(r["forward_ms"] for r in timed),
+        "mean_backward_ms": statistics.mean(r["backward_ms"] for r in timed),
+        "mean_optimizer_ms": statistics.mean(r["optimizer_ms"]
+                                             for r in timed),
+        "image_tokens_per_s": statistics.mean(r["image_tokens_per_s"]
+                                              for r in timed),
+        "peak_gib": max(r["peak_gib"] for r in records)}))
+    profile_step(torch, "train", step, warm=0, after=0)
+    return counts, state
+
+
+def cut_train(tparams):
+    """The first 2 double + 2 single blocks of the training model, and the
+    matching config."""
+    return (dict(tparams,
+                 transformer_blocks=tparams["transformer_blocks"][:2],
+                 single_transformer_blocks=tparams[
+                     "single_transformer_blocks"][:2]),
+            train_config((2, 2)))
+
+
+def train_slice_phase(torch, dev, sliced) -> dict:
+    """One training step's loss and weight gradients through the kernels
+    against the all-plain path, both on the card."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.train import extract_weight_grads
+    from sdnq_tpu_torch.tree import tree_leaves
+
+    params, cfg = sliced
+    inp = train_inputs(torch, dev, cfg, seed=23)
+
+    def run():
+        loss = train_loss(params, cfg, inp, dev)
+        loss.backward()
+        grads = [g for g in tree_leaves(extract_weight_grads(params))
+                 if g is not None]
+        for leaf in tree_leaves(params, is_leaf=lambda x: hasattr(x, "qt")):
+            holder = leaf.delta if hasattr(leaf, "qt") else leaf
+            if isinstance(holder, torch.Tensor):
+                holder.grad = None
+        return float(loss), grads
+
+    loss, grads = run()
+    reset_launch_counts()
+    with plain_versions():
+        ref_loss, ref_grads = run()
+    launched = launch_counts()
+    check(not any(launched.values()),
+          "slice train: the plain path launched no kernel "
+          + json.dumps(launched))
+    readings = {
+        "loss": abs(loss - ref_loss) / abs(ref_loss),
+        "grad_max": max(float((g.float() - r.float()).abs().max()
+                              / r.float().abs().max().clamp_min(1e-30))
+                        for g, r in zip(grads, ref_grads)),
+        "grad_mean": max(float((g.float() - r.float()).abs().mean()
+                               / r.float().abs().mean().clamp_min(1e-30))
+                         for g, r in zip(grads, ref_grads))}
+    del grads, ref_grads
+    log(f"slice train: 2 double + 2 single blocks at full width, one step's "
+        f"loss ({loss:.6f} / {ref_loss:.6f}) and weight gradients, kernels "
+        "against plain versions: " + json.dumps(readings))
+    check(math.isfinite(loss), "slice train: loss finite")
+    for key, tol in TRAIN_SLICE_TOL.items():
+        check(readings[key] <= tol, f"slice train: kernel path vs plain "
+              f"path {key} {readings[key]:.3e} <= {tol:.1e}")
+    return readings
+
+
+# ---------------------------------------------------------------------------
 # phase 6: where one denoise step spends its device time
 # ---------------------------------------------------------------------------
 
@@ -1115,8 +1506,10 @@ _GROUPS = (
     ("B7 groupdot_i8_mm", ("groupdot_mm_kernel<1",)),
     ("B3 flash_attention, token-mode int8 P.V", ("flash_attn_tok_kernel",)),
     ("B8 blockdiag_i8_mm", ("blockdiag_i8_mm_kernel",)),
-    ("fp64 products (decode attention_xla)", ("f64", "dgemm", "Dgemm")),
-    ("softmax (decode attention_xla)", ("softmax",)),
+    ("B10 scaled_mm_tn", ("scaled_mm_tn_kernel",)),
+    ("fp64 products (attention_xla: decode, training backward)",
+     ("f64", "dgemm", "Dgemm")),
+    ("softmax (attention_xla)", ("softmax",)),
     ("cuBLAS (unquantized linears, SVD factors, lm_head)", (
         "gemm", "gemv", "cutlass", "xmma", "nvjet")),
     ("torch elementwise / reductions", ("elementwise", "reduce", "cat",
@@ -1162,15 +1555,16 @@ def llm_profile_phase(torch, dev, params, cfg):
     profile_step(torch, "llm_int8kv decode", decode)
 
 
-def profile_step(torch, label, step):
-    """Trace one ``step`` with torch.profiler after three untraced ones;
+def profile_step(torch, label, step, warm: int = 3, after: int = 3):
+    """Trace one ``step`` with torch.profiler after ``warm`` untraced ones;
     print the step's host-clock time, device busy time (kernel times summed
-    on the one stream), the idle share and device time by kernel group."""
+    on the one stream), the idle share, device time by kernel group, and
+    the host-clock times of ``after`` untraced steps."""
     from collections import defaultdict
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warm):
         step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1191,7 +1585,7 @@ def profile_step(torch, label, step):
         by_name[e.name[:90]] += ms
     busy_ms = sum(by_group.values())
     untraced = []
-    for _ in range(3):
+    for _ in range(after):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         step()
@@ -1270,6 +1664,16 @@ FAULTS = (
      "blockdiag_i8_mm", "qlinear_b8",
      [("sc[j] = scale[(size_t)(col < N ? col : 0) * G + gi];",
        "sc[j] = scale[(size_t)(col < N ? col : 0) * G + (gi + G - 1) % G];")]),
+    ("tn_drops_the_m_tail", "scaled_mm_tn", "scaled_mm_tn", "train",
+     [("const int nm = (M + BM - 1) / BM;", "const int nm = M / BM;")]),
+    ("tn_swaps_a_and_b_scales", "scaled_mm_tn", "scaled_mm_tn", "train",
+     [("const float sa = as ? as[row] : 1.f;",
+       "const float sa = bs ? bs[row % K] : 1.f;"),
+      ("const float sb = bs ? bs[col] : 1.f;",
+       "const float sb = as ? as[col % N] : 1.f;")]),
+    ("colscale_ignored", "quantize_rows", "quantize_rows:colscale", "train",
+     [("if (cs) v = __fmul_rn(v, cs[k]);",
+       "if (false) v = __fmul_rn(v, cs[k]);")]),
 )
 
 
@@ -1445,6 +1849,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         counts["qlinear_b8"] = b8_qlinear_check(torch, dev)[0]
 
+        tparams, tcfg = build_train_model(torch, dev)
+        counts["train"], state = train_path(torch, dev, tparams, tcfg)
+        train_cut = cut_train(tparams)
+        del tparams, state
+        torch.cuda.empty_cache()
+        train_slice_phase(torch, dev, train_cut)
+
         for row in rows:
             row["launches"] = (counts[row["path"]][row["count"]]
                                if row["on_main_path"] else 0)
@@ -1455,6 +1866,7 @@ def main() -> int:
             torch, dev, llm_cut, lb)) for label in LLM_SLICE_TOL})
         checks["qlinear_b8"] = lambda: {"max": b8_qlinear_check(torch,
                                                                 dev)[1]}
+        checks["train"] = lambda: train_slice_phase(torch, dev, train_cut)
         fault_phase(torch, dev, checks, fault_procs)
     finally:  # no compiler outlives the script
         for proc, _ in fault_procs.values():

@@ -4,10 +4,19 @@
 the JAX package's params after ``np.asarray``) into the port's params;
 ``qtensor_from_numpy`` builds a QTensor from the arrays and metadata fields
 of a JAX ``QTensor``, so both packages can run on the same quantized bytes.
+``train_params_from_numpy`` and ``opt_state_from_numpy`` carry a JAX
+training state across (TrainQTensors, optimizer moments, Kahan buffers,
+the step), so both packages can start a training step from the same state.
 bfloat16 and float8 arrays (numpy extension dtypes) keep their bits.
+
+The JAX objects are read by their fields alone (``qt`` and ``delta``;
+``qdata``, ``scale``, ... and ``meta``; ``qdata``, ``scale``, ``shape`` and
+``unsigned``), so this module needs nothing of the JAX package.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -15,7 +24,8 @@ import torch
 from .kernels.dispatch import resolve_device
 from .tensor import QTensor, QuantMeta
 
-__all__ = ["params_from_numpy", "qtensor_from_numpy", "tensor_from_numpy"]
+__all__ = ["params_from_numpy", "qtensor_from_numpy", "tensor_from_numpy",
+           "train_params_from_numpy", "opt_state_from_numpy"]
 
 # numpy extension dtypes by name -> (same-width integer view, torch dtype)
 _BIT_VIEWS = {
@@ -63,3 +73,59 @@ def qtensor_from_numpy(fields: dict, meta: dict, device=None) -> QTensor:
                   else tensor_from_numpy(fields[k], device))
               for k in ("qdata", "scale", "zero_point", "svd_up", "svd_down")}
     return QTensor(meta=QuantMeta(**kw), **arrays)
+
+
+def _qtensor_like(obj, device) -> QTensor:
+    fields = {k: (None if getattr(obj, k, None) is None
+                  else np.asarray(getattr(obj, k)))
+              for k in ("qdata", "scale", "zero_point", "svd_up", "svd_down")}
+    meta = {f.name: getattr(obj.meta, f.name)
+            for f in dataclasses.fields(obj.meta)}
+    return qtensor_from_numpy(fields, meta, device)
+
+
+def train_params_from_numpy(tree, device=None):
+    """A JAX training parameter tree (dicts / lists of TrainQTensors,
+    QTensors and arrays) -> the port's: TrainQTensors with a fresh gradient
+    carrier (the JAX ``delta`` is always zeros), QTensors, and tensors, the
+    floating ones leaves that require grad."""
+    from .train.matmul import TrainQTensor, grad_carrier
+    device = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
+        if x is None:
+            return None
+        if hasattr(x, "qt") and hasattr(x, "delta"):
+            qt = _qtensor_like(x.qt, device)
+            return TrainQTensor(qt=qt, delta=grad_carrier(
+                qt.meta.original_shape, device))
+        if hasattr(x, "qdata") and hasattr(x, "meta"):
+            return _qtensor_like(x, device)
+        t = tensor_from_numpy(x, device)
+        return t.requires_grad_() if t.is_floating_point() else t
+
+    return conv(tree)
+
+
+def opt_state_from_numpy(state, device=None) -> dict:
+    """A JAX optimizer state ``{"step", "per_param": [None | {name: BufferQ
+    | array}]}`` -> the port's, with BufferQs, tensors and an int step."""
+    from .optim.base import BufferQ
+    device = resolve_device(device)
+
+    def buf(x):
+        if hasattr(x, "qdata") and hasattr(x, "unsigned"):
+            return BufferQ(qdata=tensor_from_numpy(x.qdata, device),
+                           scale=tensor_from_numpy(x.scale, device),
+                           shape=tuple(int(d) for d in x.shape),
+                           unsigned=bool(x.unsigned))
+        return tensor_from_numpy(x, device)
+
+    return {"step": int(np.asarray(state["step"])),
+            "per_param": [None if st is None
+                          else {k: buf(v) for k, v in st.items()}
+                          for st in state["per_param"]]}

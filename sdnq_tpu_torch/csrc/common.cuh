@@ -85,6 +85,60 @@ __device__ __forceinline__ void ldmatrix_x2_trans(unsigned& r0, unsigned& r1, co
                : "r"(smem_addr(p)));
 }
 
+// An 8-bit tile of R contraction rows x 128 columns, from a matrix stored
+// (rows, cols) with cols contiguous, into shared memory as [col][row]: the
+// K-major layout that the 8-bit operands of mma.sync need.  ldmatrix.trans
+// moves 16-bit elements only, so the transpose goes through registers: each
+// thread loads four 32-bit words of four consecutive rows (4 x 4 bytes) and
+// transposes them with __byte_perm into four words, one per column, each
+// stored with one 32-bit store.  Lanes take 4 row groups x 8 column groups,
+// so one load instruction of a warp reads whole 32-byte sectors.  Rows >=
+// `rows` and columns >= `cols` read as zero; `cols` and `ld` are multiples
+// of 4 bytes.  Each of the NT threads holds R * 8 / NT blocks of four words:
+// load() the next stage's tile while the current one is in use, store() it
+// after.
+template <int NT, int R>
+struct TransTile8 {
+  static constexpr int PER = R * 8 / NT;  // 4x4 blocks per thread
+  static_assert(PER >= 1 && R * 8 % NT == 0, "tile does not divide over the threads");
+  unsigned w[PER][4];
+
+  __device__ __forceinline__ void load(const uint8_t* __restrict__ src, size_t ld, int row0, int rows,
+                                       int col0, int cols, int tid) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = tid + i * NT;
+      const int rq = (idx & 3) + 4 * (idx >> 7), cq = (idx >> 2) & 31;
+      const int col = col0 + 4 * cq;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = row0 + 4 * rq + j;
+        w[i][j] = (row < rows && col < cols)
+                      ? *reinterpret_cast<const unsigned*>(src + (size_t)row * ld + col)
+                      : 0u;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(uint8_t* smem, int lds, int tid) const {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = tid + i * NT;
+      const int rq = (idx & 3) + 4 * (idx >> 7), cq = (idx >> 2) & 31;
+      // bytes r.b<c> of rows r0..r3 -> word c = [r0.b<c>, r1.b<c>, r2.b<c>, r3.b<c>]
+      const unsigned t0 = __byte_perm(w[i][0], w[i][1], 0x5140);
+      const unsigned t1 = __byte_perm(w[i][0], w[i][1], 0x7362);
+      const unsigned t2 = __byte_perm(w[i][2], w[i][3], 0x5140);
+      const unsigned t3 = __byte_perm(w[i][2], w[i][3], 0x7362);
+      uint8_t* p = smem + (4 * cq) * lds + 4 * rq;
+      *reinterpret_cast<unsigned*>(p) = __byte_perm(t0, t2, 0x5410);
+      *reinterpret_cast<unsigned*>(p + lds) = __byte_perm(t0, t2, 0x7632);
+      *reinterpret_cast<unsigned*>(p + 2 * lds) = __byte_perm(t1, t3, 0x5410);
+      *reinterpret_cast<unsigned*>(p + 3 * lds) = __byte_perm(t1, t3, 0x7632);
+    }
+  }
+};
+
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);

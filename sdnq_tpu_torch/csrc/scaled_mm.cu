@@ -2,7 +2,8 @@
 //
 //   out[m, n] = acc[m, n] * xs[m] * ws[n] + bias[n]
 //               (+ rs[m] * vz0[n] + zp[m] * vz1[n])        (each term optional)
-//   acc = A (M, K) . B (N, K)^T, both K-contiguous;
+//   acc = A (M, K) . B (N, K)^T, both K-contiguous ("nt"), or, for the
+//   8-bit kinds, acc = A (M, K) . B (K, N) with B N-contiguous ("nn");
 //   int8 x int8 -> int32 (mma.sync m16n8k32 s8), fp8 e4m3 x e4m3 -> fp32
 //   (m16n8k32 e4m3), or bf16 x bf16 -> fp32 (m16n8k16 bf16) for the
 //   16-bit family.
@@ -22,6 +23,14 @@
 // the int8 result is bit-equal to the plain version.  K must be a multiple
 // of 64 bytes (the wrapper zero-pads); rows beyond M or N are zero-filled
 // and never stored.  wgmma/TMA pipelines are later work.
+//
+// The "nn" mode is B1's grad-input orientation (`_fused_act_mm_kernel` with
+// b_dim0, scaled_mm.py:283): the stored (O, K) weight is B with the
+// contraction O as its slow axis.  The 8-bit fragments need B K-major, so
+// each 64-row stage of B is read through registers and transposed in
+// shared memory (sdnq::TransTile8, shared with scaled_mm_tn.cu), its loads
+// issued before the current stage's products; no transposed weight is
+// written to device memory.  N must be a multiple of 4.
 #include <type_traits>
 
 #include "common.cuh"
@@ -44,7 +53,7 @@ struct Epilogue {
 
 enum { S8 = 0, BF16 = 1, E4M3 = 2 };  // operand kinds
 
-template <int KIND, typename OutT>
+template <int KIND, bool NN, typename OutT>
 __global__ void __launch_bounds__(NT)
     scaled_mm_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict__ B,
                      OutT* __restrict__ C, int M, int N, int Kb, Epilogue ep) {
@@ -65,11 +74,13 @@ __global__ void __launch_bounds__(NT)
       const int ga = m0 + r, gb = n0 + r;
       sdnq::cp_async16(&sA[stage][r * LDS + cb], A + (size_t)(ga < M ? ga : 0) * Kb + kb0 + cb,
                  ga < M);
-      sdnq::cp_async16(&sB[stage][r * LDS + cb], B + (size_t)(gb < N ? gb : 0) * Kb + kb0 + cb,
-                 gb < N);
+      if constexpr (!NN)
+        sdnq::cp_async16(&sB[stage][r * LDS + cb], B + (size_t)(gb < N ? gb : 0) * Kb + kb0 + cb,
+                         gb < N);
     }
     sdnq::cp_async_commit();
   };
+  sdnq::TransTile8<NT, BKB> tb;  // "nn": B's stages through registers
 
   AccT acc[4][4][4];
 #pragma unroll
@@ -81,10 +92,15 @@ __global__ void __launch_bounds__(NT)
 
   const int nk = Kb / BKB;
   load_stage(0, 0);
+  if constexpr (NN) {
+    tb.load(B, N, 0, Kb, n0, N, tid);
+    tb.store(sB[0], LDS, tid);
+  }
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
     if (kt + 1 < nk) {
       load_stage(cur ^ 1, (kt + 1) * BKB);
+      if constexpr (NN) tb.load(B, N, (kt + 1) * BKB, Kb, n0, N, tid);
       sdnq::cp_async_wait<1>();
     } else {
       sdnq::cp_async_wait<0>();
@@ -121,6 +137,9 @@ __global__ void __launch_bounds__(NT)
             sdnq::mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
         }
     }
+    // sB[cur ^ 1] was last read before the previous barrier
+    if constexpr (NN)
+      if (kt + 1 < nk) tb.store(sB[cur ^ 1], LDS, tid);
     __syncthreads();
   }
 
@@ -150,19 +169,19 @@ __global__ void __launch_bounds__(NT)
     }
 }
 
-template <int KIND>
+template <int KIND, bool NN>
 int launch(const void* a, const void* b, void* out, int M, int N, int Kb, int out_kind,
            const Epilogue& ep, cudaStream_t s) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const uint8_t* A = static_cast<const uint8_t*>(a);
   const uint8_t* B = static_cast<const uint8_t*>(b);
   if (out_kind == sdnq::F32)
-    scaled_mm_kernel<KIND, float><<<grid, NT, 0, s>>>(A, B, static_cast<float*>(out), M, N, Kb, ep);
+    scaled_mm_kernel<KIND, NN, float><<<grid, NT, 0, s>>>(A, B, static_cast<float*>(out), M, N, Kb, ep);
   else if (out_kind == sdnq::BF16)
-    scaled_mm_kernel<KIND, __nv_bfloat16>
+    scaled_mm_kernel<KIND, NN, __nv_bfloat16>
         <<<grid, NT, 0, s>>>(A, B, static_cast<__nv_bfloat16*>(out), M, N, Kb, ep);
   else if (out_kind == sdnq::F16)
-    scaled_mm_kernel<KIND, __half><<<grid, NT, 0, s>>>(A, B, static_cast<__half*>(out), M, N, Kb, ep);
+    scaled_mm_kernel<KIND, NN, __half><<<grid, NT, 0, s>>>(A, B, static_cast<__half*>(out), M, N, Kb, ep);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -170,22 +189,29 @@ int launch(const void* a, const void* b, void* out, int M, int N, int Kb, int ou
 
 }  // namespace
 
-// a (M, K), b (N, K) contiguous, in_kind 0 int8 / 1 bf16 / 2 fp8 e4m3,
+// a (M, K) contiguous; b (N, K) contiguous, or with b_nn (K, N) contiguous
+// (8-bit kinds, N a multiple of 4); in_kind 0 int8 / 1 bf16 / 2 fp8 e4m3,
 // K * elem bytes a multiple of 64; out (M, N) of out_kind.  Epilogue
 // pointers may be null (rs needs vz0, zp needs vz1).
 extern "C" int sdnq_scaled_mm(const void* a, const void* b, void* out, const void* xs,
                               const void* ws, const void* bias, const void* rs, const void* zp,
                               const void* vz0, const void* vz1, int M, int N, int K, int in_kind,
-                              int out_kind, void* stream) {
+                              int out_kind, int b_nn, void* stream) {
   const int Kb = K * (in_kind == BF16 ? 2 : 1);
   if (Kb % BKB != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (b_nn && (in_kind == BF16 || N % 4 != 0)) return static_cast<int>(cudaErrorInvalidValue);
   Epilogue ep{static_cast<const float*>(xs),  static_cast<const float*>(ws),
               static_cast<const float*>(bias), static_cast<const float*>(rs),
               static_cast<const float*>(zp),  static_cast<const float*>(vz0),
               static_cast<const float*>(vz1)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_kind == S8) return launch<S8>(a, b, out, M, N, Kb, out_kind, ep, s);
-  if (in_kind == BF16) return launch<BF16>(a, b, out, M, N, Kb, out_kind, ep, s);
-  if (in_kind == E4M3) return launch<E4M3>(a, b, out, M, N, Kb, out_kind, ep, s);
+  if (b_nn) {
+    if (in_kind == S8) return launch<S8, true>(a, b, out, M, N, Kb, out_kind, ep, s);
+    if (in_kind == E4M3) return launch<E4M3, true>(a, b, out, M, N, Kb, out_kind, ep, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (in_kind == S8) return launch<S8, false>(a, b, out, M, N, Kb, out_kind, ep, s);
+  if (in_kind == BF16) return launch<BF16, false>(a, b, out, M, N, Kb, out_kind, ep, s);
+  if (in_kind == E4M3) return launch<E4M3, false>(a, b, out, M, N, Kb, out_kind, ep, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,8 +2,8 @@
 
 Wrappers launch the CUDA kernel on CUDA tensors and run the plain version
 on CPU tensors; each counts its launches in ``<wrapper>.launches``, and
-``flash_attention`` also counts its launches per mode in
-``flash_attention.mode_launches``.
+``flash_attention``, ``quantize_rows`` and ``scaled_gemm`` also count their
+launches per mode in ``<wrapper>.mode_launches``.
 """
 
 from .attention import flash_attention, quantized_attention
@@ -14,7 +14,8 @@ from .dequant_mm import (
 # (the function ``scaled_mm`` stays in its module, so that
 # ``kernels.scaled_mm`` names the module)
 from .scaled_mm import (
-    bf16_scaled_mm, quantize_rows, scaled_gemm, scaled_mm_fused_act,
+    bf16_scaled_mm, dynamic_mm_tn, quantize_rows, scaled_gemm,
+    scaled_mm_fused_act, scaled_mm_tn,
 )
 
 # the launch-counted kernel wrappers of this package
@@ -27,21 +28,28 @@ KERNELS = {
     "blockdiag_mm": blockdiag_mm,
     "groupdot_i8_mm": groupdot_i8_mm,
     "blockdiag_i8_mm": blockdiag_i8_mm,
+    "scaled_mm_tn": scaled_mm_tn,
 }
+# the wrappers that also count their launches by mode
+_MODED = ("flash_attention", "quantize_rows", "scaled_gemm")
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    for mode in flash_attention.mode_launches:
-        flash_attention.mode_launches[mode] = 0
+    for name in _MODED:
+        modes = KERNELS[name].mode_launches
+        for mode in modes:
+            modes[mode] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches by wrapper, and ``flash_attention:<mode>`` by B3 mode."""
+    """Launches by wrapper, and ``<wrapper>:<mode>`` by mode (B3's masked,
+    causal, gqa and int8_pv; B1's colscale; B4's nn)."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
-    counts.update({f"flash_attention:{mode}": n
-                   for mode, n in flash_attention.mode_launches.items()})
+    for name in _MODED:
+        counts.update({f"{name}:{mode}": n
+                       for mode, n in KERNELS[name].mode_launches.items()})
     return counts
 
 
@@ -50,5 +58,6 @@ __all__ = [
     "scaled_gemm", "scaled_mm_fused_act", "bf16_scaled_mm",
     "dequant_gemv", "dequant_matmul", "flash_attention",
     "quantized_attention", "groupdot_mm", "blockdiag_mm", "groupdot_i8_mm",
-    "blockdiag_i8_mm", "packed_int8_matmul",
+    "blockdiag_i8_mm", "packed_int8_matmul", "scaled_mm_tn",
+    "dynamic_mm_tn",
 ]

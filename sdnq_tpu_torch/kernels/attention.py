@@ -25,6 +25,15 @@ the JAX package computes that step outside any Pallas kernel.
 Still raising on both devices (later slices, ROADMAP queue B, B3): float
 additive masks, int8 P·V with one V scale per head (``pv_scale_mode=
 "head"``), fp8 Q·K; on the card, head dims other than 64 and 128.
+
+``trainable_attention`` is ``quantized_attention`` with a gradient.  The
+JAX package cannot differentiate its attention kernel (``pallas_call`` has
+no reverse-mode rule and ``_attn_kernel`` no custom_vjp); it trains through
+``_attn_xla``, where the kernel's route predicate fails.  So the gradient
+here is that of the XLA route: the forward runs ``quantized_attention`` as
+it is (B3 on the card), saving q, k and v, and the backward recomputes the
+XLA route (``attention_xla``) under autograd and returns its gradients, at
+the memory of one layer's scores.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ from ..quant.hadamard import (
 
 __all__ = ["flash_attention", "flash_attention_plain", "attention_xla",
            "quantized_attention", "quantize_kv", "attn_auto_matmul_dtype",
-           "attn_kernel_route", "attn_p_block"]
+           "attn_kernel_route", "attn_p_block", "trainable_attention"]
 
 LOG2E = math.log2(math.e)
 _NEG_INF = -1e30
@@ -272,7 +281,8 @@ def quantized_attention(query, key, value, attn_mask=None,
                         matmul_dtype: str | None = "default",
                         pv_matmul_dtype: str | None = None,
                         pv_scale_mode: str = "head", out_dtype=None,
-                        kv_scales: tuple | None = None):
+                        kv_scales: tuple | None = None,
+                        force_xla: bool = False):
     """Scaled-dot-product attention over query (B, H, N, D) and key / value
     (B, KH, KN, D), H a multiple of KH.  ``matmul_dtype`` in {"int8",
     "auto", None}; "default" reads SDNQ_TPU_ATTN_MATMUL_DTYPE (int8 when
@@ -280,7 +290,9 @@ def quantized_attention(query, key, value, attn_mask=None,
     (B, H, N, KN).  ``kv_scales=(k_scale, v_scale)`` marks key (and value,
     unless v_scale is None) as pre-quantized int8 with per-token scales
     (B, KH, KN); int8 value runs P·V in token mode, as does
-    ``pv_matmul_dtype="int8"`` with ``pv_scale_mode="token"``."""
+    ``pv_matmul_dtype="int8"`` with ``pv_scale_mode="token"``.
+    ``force_xla`` takes the XLA route whatever the shape (the JAX
+    package's ``SDNQ_TPU_ATTN_FORCE_XLA``)."""
     b, h, n, d = query.shape
     _, kh, kn, _ = key.shape
     if out_dtype is None:
@@ -355,7 +367,7 @@ def quantized_attention(query, key, value, attn_mask=None,
     else:
         v_in = vf
 
-    if not attn_kernel_route(n, kn, d):
+    if force_xla or not attn_kernel_route(n, kn, d):
         out = attention_xla(q_in, k_in, v_in, q_scale, k_scale, v_scale,
                             mask, heads=h, causal=is_causal, sm_scale=scale,
                             out_dtype=out_dtype)
@@ -375,3 +387,29 @@ def quantized_attention(query, key, value, attn_mask=None,
                               out_dtype=out_dtype,
                               **kw)
     return out.reshape(b, h, n, -1)
+
+
+class _TrainableAttention(torch.autograd.Function):
+    """Forward: ``quantized_attention``; backward: the gradient of its XLA
+    route, recomputed from the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, query, key, value, kw):
+        ctx.save_for_backward(query, key, value)
+        ctx.kw = kw
+        return quantized_attention(query, key, value, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = quantized_attention(*saved, force_xla=True, **ctx.kw)
+            grads = torch.autograd.grad(out, saved, g)
+        return (*grads, None)
+
+
+def trainable_attention(query, key, value, **kw):
+    """``quantized_attention(query, key, value, **kw)`` (no mask, no
+    pre-quantized KV) whose gradient is that of the JAX package's XLA
+    route."""
+    return _TrainableAttention.apply(query, key, value, kw)

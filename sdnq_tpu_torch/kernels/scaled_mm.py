@@ -1,7 +1,11 @@
-"""Scaled matmuls: B1 (activation-quantizing GEMM) and B4 (scaled GEMM).
+"""Scaled matmuls: B1 (activation-quantizing GEMM), B4 (scaled GEMM) and
+B10 (the grad-weight GEMM).
 
 ``out = (x_q · w_qᵀ) * x_scale * w_scale + bias [+ rank-1 zero-point terms]
-[+ u @ v]`` with x_q (M, K) and w_q (O, K) both K-contiguous.
+[+ u @ v]`` with x_q (M, K) and w_q (O, K) both K-contiguous ("nt"), or
+w_q (K, O) contracting its leading axis ("nn", the grad-input
+orientation); and ``aᵀ·b * a_s * b_s`` contracting the leading (token) axis
+of a (M, N) and b (M, K) for the grad-weight.
 
 Kernels, each beside its plain PyTorch version and a launch counter:
 
@@ -11,15 +15,27 @@ Kernels, each beside its plain PyTorch version and a launch counter:
   inside the GEMM because the full-K block fits VMEM; on Hopper it cannot
   (227 KB of shared memory against 1.9 MB for 64 bf16 rows at K = 15360), so
   the quantize is a separate memory-bound pass: read x once, write int8
-  (or e4m3) codes and one scale per row.
+  (or e4m3) codes and one scale per row.  Its ``colscale`` mode multiplies
+  each column by an fp32 scale first (the prologue's ``x_colscale``).
 * ``scaled_gemm`` — B4, and B1's GEMM half, ``csrc/scaled_mm.cu``.  Replaces
   ``_mm_kernel`` and the GEMM of ``_fused_act_mm_kernel``: mma.sync int8
   (int32 accumulate), fp8 e4m3 or bf16 (fp32 accumulate), bound by tensor-core
   operations at the FLUX shapes, with the scale/bias/zero-point epilogue
-  fused so the accumulator never reaches device memory.
+  fused so the accumulator never reaches device memory.  Its "nn" mode
+  reads B (K, N) N-contiguous and transposes each 8-bit stage in shared
+  memory.
+* ``scaled_mm_tn`` — B10, ``csrc/scaled_mm_tn.cu``.  Replaces
+  ``_tn_mm_kernel``: int8 (int32 accumulate) or e4m3 (fp32 accumulate),
+  both operands read in their natural layout and transposed stage by stage
+  in shared memory, the columnwise scales in the epilogue, fp32 out.  The
+  JAX package sends the grad-weight GEMM to its kernel only under
+  ``SDNQ_TPU_TN_MM_BLOCKS`` (a v5e speed choice); its XLA route computes
+  the same int32 sum with the same epilogue order, so the port sends every
+  grad-weight GEMM on the card to B10 and no number changes.
 
 ``scaled_mm_fused_act`` = ``quantize_rows`` then ``scaled_gemm``: two
-launches per linear.  On a CUDA tensor the wrappers launch their kernel or
+launches per linear.  With ``emit_quantized`` it also returns the row
+codes and scales that ``quantize_rows`` wrote (the training residual).  On a CUDA tensor the wrappers launch their kernel or
 raise; on a CPU tensor they run the plain version.  The plain int8 GEMM
 accumulates in float64, which is exact for |acc| < 2^53 (int8 products over
 K = 15360 stay below 2^28), so it equals the kernel's int32 sum; its fp32
@@ -35,11 +51,13 @@ import torch.nn.functional as F
 from . import _build
 from ._build import P, I
 from .dispatch import is_cuda
+from ..formats import get_format
 from ..quant.core import quantize_fp_mm, quantize_int_mm, quantize_uint_mm
 
 __all__ = ["quantize_rows", "quantize_rows_plain", "scaled_gemm",
            "scaled_gemm_plain", "scaled_mm", "scaled_mm_fused_act",
-           "bf16_scaled_mm"]
+           "bf16_scaled_mm", "scaled_mm_tn", "scaled_mm_tn_plain",
+           "dynamic_mm_tn"]
 
 # The GEMM kernel walks K in 64-byte stages.
 _K_BYTES = 64
@@ -50,12 +68,14 @@ def _k_pad(k: int, itemsize: int) -> int:
     return (-k) % mult
 
 
-def _pad_k(t: torch.Tensor, pad: int) -> torch.Tensor:
-    """``pad`` zero columns; for one-byte codes (int8, e4m3) through a
-    uint8 view, since zero bytes are zero values in both."""
+def _pad_k(t: torch.Tensor, pad: int, rows: bool = False) -> torch.Tensor:
+    """``pad`` zero columns (zero rows with ``rows``); for one-byte codes
+    (int8, e4m3) through a uint8 view, since zero bytes are zero values in
+    both."""
+    widths = (0, 0, 0, pad) if rows else (0, pad)
     if t.element_size() == 1:
-        return F.pad(t.view(torch.uint8), (0, pad)).view(t.dtype)
-    return F.pad(t, (0, pad))
+        return F.pad(t.view(torch.uint8), widths).view(t.dtype)
+    return F.pad(t, widths)
 
 
 # ---------------------------------------------------------------------------
@@ -68,11 +88,14 @@ _ROW_FORMATS = {"int8": (torch.int8, 0), "uint8": (torch.int8, 1),
 
 
 def quantize_rows_plain(x: torch.Tensor, x_fmt: str = "int8",
-                        k_pad: int = 0):
-    """Plain version of ``quantize_rows``: ``quant.core.quantize_int_mm`` /
+                        k_pad: int = 0, colscale=None):
+    """Plain version of ``quantize_rows``: x times ``colscale`` (K,) in
+    fp32 where given, then ``quant.core.quantize_int_mm`` /
     ``quantize_uint_mm`` / ``quantize_fp_mm`` per row, then ``k_pad`` zero
     columns."""
     zp = rs = None
+    if colscale is not None:
+        x = x.float() * colscale.reshape(1, -1).float()
     if x_fmt == "uint8":
         q, s, zp = quantize_uint_mm(x, -1)
         rs = q.to(torch.int32).sum(-1, keepdim=True).float() * s
@@ -85,9 +108,10 @@ def quantize_rows_plain(x: torch.Tensor, x_fmt: str = "int8",
     return q, s, zp, rs
 
 
-def quantize_rows(x: torch.Tensor, x_fmt: str = "int8", k_pad: int = 0):
-    """Per-row quantization of x (M, K) float to ``x_fmt`` ("int8",
-    "uint8" or "float8_e4m3fn").
+def quantize_rows(x: torch.Tensor, x_fmt: str = "int8", k_pad: int = 0,
+                  colscale=None):
+    """Per-row quantization of x (M, K) float, times ``colscale`` (K,) per
+    column where given, to ``x_fmt`` ("int8", "uint8" or "float8_e4m3fn").
 
     Returns ``(x_q (M, K + k_pad), x_scale (M, 1), x_zp, x_rowsum)``; the
     last two are (M, 1) for "uint8" (signed codes with x = x_q*scale + zp,
@@ -96,11 +120,12 @@ def quantize_rows(x: torch.Tensor, x_fmt: str = "int8", k_pad: int = 0):
     if x_fmt not in _ROW_FORMATS:
         raise ValueError(f"no row quantize to {x_fmt!r}")
     if not is_cuda(x):
-        return quantize_rows_plain(x, x_fmt, k_pad)
+        return quantize_rows_plain(x, x_fmt, k_pad, colscale)
     if x.dim() != 2:
         raise ValueError(f"quantize_rows takes (M, K), got {tuple(x.shape)}")
     x = x.contiguous()
     m, k = x.shape
+    cs = _vec(colscale, k, "colscale")
     dtype, mode = _ROW_FORMATS[x_fmt]
     asym = x_fmt == "uint8"
     xq = torch.empty((m, k + k_pad), dtype=dtype, device=x.device)
@@ -109,16 +134,19 @@ def quantize_rows(x: torch.Tensor, x_fmt: str = "int8", k_pad: int = 0):
     rs = torch.empty_like(xs) if asym else None
     if m:
         fn = _build.function("quantize_rows", "sdnq_quantize_rows",
-                             [P, P, P, P, P, I, I, I, I, I, P])
+                             [P, P, P, P, P, P, I, I, I, I, I, P])
         _build.check(fn(_build.ptr(x), _build.ptr(xq), _build.ptr(xs),
-                        _build.ptr(zp), _build.ptr(rs), m, k, k + k_pad,
-                        _build.act_kind(x.dtype), mode,
+                        _build.ptr(zp), _build.ptr(rs), _build.ptr(cs), m, k,
+                        k + k_pad, _build.act_kind(x.dtype), mode,
                         _build.stream(x)), "quantize_rows")
         quantize_rows.launches += 1
+        if cs is not None:
+            quantize_rows.mode_launches["colscale"] += 1
     return xq, xs, zp, rs
 
 
 quantize_rows.launches = 0
+quantize_rows.mode_launches = dict(colscale=0)
 
 
 # ---------------------------------------------------------------------------
@@ -135,13 +163,15 @@ def _vec(t, n, name):
 
 
 def scaled_gemm_plain(a, b, out_dtype, xs=None, ws=None, bias=None, rs=None,
-                      zp=None, vz0=None, vz1=None):
+                      zp=None, vz0=None, vz1=None, b_layout="nt"):
     """Plain version of ``scaled_gemm``, in the kernel's order of
     operations: ((((acc*xs)*ws)+bias)+rs*vz0)+zp*vz1 in fp32."""
+    nt = b_layout == "nt"
     if a.dtype == torch.int8:
-        acc = (a.double() @ b.double().T).float()  # exact int32 sum
+        bd = b.double()
+        acc = (a.double() @ (bd.T if nt else bd)).float()  # exact int32 sum
     else:
-        acc = a.float() @ b.float().T
+        acc = a.float() @ (b.float().T if nt else b.float())
     out = acc
     if xs is not None:
         out = out * xs.reshape(-1, 1).float()
@@ -157,47 +187,132 @@ def scaled_gemm_plain(a, b, out_dtype, xs=None, ws=None, bias=None, rs=None,
 
 
 def scaled_gemm(a, b, out_dtype=torch.bfloat16, xs=None, ws=None, bias=None,
-                rs=None, zp=None, vz0=None, vz1=None):
+                rs=None, zp=None, vz0=None, vz1=None, b_layout="nt"):
     """``(a · bᵀ) * xs[m] * ws[n] + bias[n] + rs[m]*vz0[n] + zp[m]*vz1[n]``.
 
     a (M, K), b (N, K): both int8 (int32 accumulate), both fp8 e4m3 or both
-    bf16 (fp32 accumulate).  Every epilogue operand is optional; ``rs``
+    bf16 (fp32 accumulate).  ``b_layout="nn"``: b is (K, N) and the product
+    is ``a · b`` (8-bit kinds).  Every epilogue operand is optional; ``rs``
     goes with ``vz0`` and ``zp`` with ``vz1``."""
+    if b_layout not in ("nt", "nn"):
+        raise ValueError(f"b_layout {b_layout!r}")
     if not is_cuda(a):
         return scaled_gemm_plain(a, b, out_dtype, xs, ws, bias, rs, zp,
-                                 vz0, vz1)
+                                 vz0, vz1, b_layout)
+    nn = b_layout == "nn"
     if a.dtype != b.dtype or a.dtype not in _GEMM_KINDS:
         raise ValueError(f"scaled_gemm takes int8, float8_e4m3fn or bf16 "
                          f"operands, got {a.dtype} x {b.dtype}")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
-        raise ValueError(f"shapes {tuple(a.shape)} x {tuple(b.shape)}")
+    if nn and a.dtype == torch.bfloat16:
+        raise ValueError("the nn layout takes 8-bit operands")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0 if nn else 1]:
+        raise ValueError(f"shapes {tuple(a.shape)} x {tuple(b.shape)} "
+                         f"({b_layout})")
     if (rs is None) != (vz0 is None) or (zp is None) != (vz1 is None):
         raise ValueError("rs needs vz0 and zp needs vz1")
     m, k = a.shape
-    n = b.shape[0]
+    n = b.shape[1 if nn else 0]
     pad = _k_pad(k, a.element_size())
     if pad:  # zeros add nothing to the sums
-        a, b = _pad_k(a, pad), _pad_k(b, pad)
+        a, b = _pad_k(a, pad), _pad_k(b, pad, rows=nn)
+    # the nn loader reads B in 4-byte words along N
+    n_pad = (-n) % 4 if nn else 0
+    if n_pad:
+        b = _pad_k(b, n_pad)
     a, b = a.contiguous(), b.contiguous()
     xs, rs, zp = (_vec(t, m, nm) for t, nm in ((xs, "xs"), (rs, "rs"),
                                                 (zp, "zp")))
     ws, bias, vz0, vz1 = (_vec(t, n, nm) for t, nm in (
         (ws, "ws"), (bias, "bias"), (vz0, "vz0"), (vz1, "vz1")))
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if n_pad:
+        ws, bias, vz0, vz1 = (None if t is None else F.pad(t, (0, n_pad))
+                              for t in (ws, bias, vz0, vz1))
+    out = torch.empty((m, n + n_pad), dtype=out_dtype, device=a.device)
     if m and n:
         fn = _build.function("scaled_mm", "sdnq_scaled_mm",
-                             [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P])
+                             [P] * 10 + [I] * 6 + [P])
         _build.check(fn(*(_build.ptr(t) for t in (a, b, out, xs, ws, bias,
                                                   rs, zp, vz0, vz1)),
-                        m, n, k + pad, _GEMM_KINDS[a.dtype],
-                        _build.act_kind(out_dtype), _build.stream(a)),
-                     "scaled_gemm")
+                        m, n + n_pad, k + pad, _GEMM_KINDS[a.dtype],
+                        _build.act_kind(out_dtype), int(nn),
+                        _build.stream(a)), "scaled_gemm")
         scaled_gemm.launches += 1
-    return out
+        if nn:
+            scaled_gemm.mode_launches["nn"] += 1
+    return out[:, :n] if n_pad else out
 
 
 scaled_gemm.launches = 0
+scaled_gemm.mode_launches = dict(nn=0)
 _GEMM_KINDS = {torch.int8: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+
+
+# ---------------------------------------------------------------------------
+# B10: the grad-weight GEMM
+# ---------------------------------------------------------------------------
+
+def scaled_mm_tn_plain(a_q, b_q, a_scale=None, b_scale=None,
+                       out_dtype=torch.float32, lowrank_u=None,
+                       lowrank_v=None):
+    """Plain version of ``scaled_mm_tn``: ((aᵀ·b) * a_s[n]) * b_s[k] in
+    fp32 (the int8 sum exact in float64), then ``+ u @ v``."""
+    if a_q.dtype == torch.int8:
+        acc = (a_q.double().T @ b_q.double()).float()  # exact int32 sum
+    else:
+        acc = a_q.float().T @ b_q.float()
+    out = acc
+    if a_scale is not None:
+        out = out * a_scale.reshape(-1, 1).float()
+    if b_scale is not None:
+        out = out * b_scale.reshape(1, -1).float()
+    return _add_lowrank(out, lowrank_u, lowrank_v, out_dtype).to(out_dtype)
+
+
+def scaled_mm_tn(a_q, b_q, a_scale=None, b_scale=None,
+                 out_dtype=torch.float32, lowrank_u=None, lowrank_v=None):
+    """``out (N, K) = (a_qᵀ @ b_q) * a_scale[:, None] * b_scale[None, :]
+    [+ u @ v]``, contracting the leading (M) axis of a_q (M, N) and b_q
+    (M, K), both int8 or both fp8 e4m3, any M (M = 1 included); the
+    columnwise scales (N,) / (K,) are optional; the rank-R u (N, R) @ v
+    (R, K) term is added after the kernel in fp32."""
+    if not is_cuda(a_q):
+        return scaled_mm_tn_plain(a_q, b_q, a_scale, b_scale, out_dtype,
+                                  lowrank_u, lowrank_v)
+    if a_q.dtype != b_q.dtype or a_q.dtype not in _TN_KINDS:
+        raise ValueError(f"scaled_mm_tn takes int8 or float8_e4m3fn "
+                         f"operands, got {a_q.dtype} x {b_q.dtype}")
+    if a_q.dim() != 2 or b_q.dim() != 2 or a_q.shape[0] != b_q.shape[0]:
+        raise ValueError(f"shapes {tuple(a_q.shape)} x {tuple(b_q.shape)}")
+    m, n = a_q.shape
+    k = b_q.shape[1]
+    a_s, b_s = _vec(a_scale, n, "a_scale"), _vec(b_scale, k, "b_scale")
+    # the kernel reads rows in 4-byte words: zero columns where needed
+    n_pad, k_pad = (-n) % 4, (-k) % 4
+    if n_pad:
+        a_q = _pad_k(a_q, n_pad)
+        a_s = None if a_s is None else F.pad(a_s, (0, n_pad))
+    if k_pad:
+        b_q = _pad_k(b_q, k_pad)
+        b_s = None if b_s is None else F.pad(b_s, (0, k_pad))
+    a_q, b_q = a_q.contiguous(), b_q.contiguous()
+    out = torch.empty((n + n_pad, k + k_pad), dtype=torch.float32,
+                      device=a_q.device)
+    if m and n and k:
+        fn = _build.function("scaled_mm_tn", "sdnq_scaled_mm_tn",
+                             [P] * 5 + [I] * 4 + [P])
+        _build.check(fn(*(_build.ptr(t) for t in (a_q, b_q, out, a_s, b_s)),
+                        m, n + n_pad, k + k_pad, _TN_KINDS[a_q.dtype],
+                        _build.stream(a_q)), "scaled_mm_tn")
+        scaled_mm_tn.launches += 1
+    else:
+        out.zero_()
+    if n_pad or k_pad:
+        out = out[:n, :k]
+    return _add_lowrank(out, lowrank_u, lowrank_v, out_dtype).to(out_dtype)
+
+
+scaled_mm_tn.launches = 0
+_TN_KINDS = {torch.int8: 0, torch.float8_e4m3fn: 2}
 
 
 def _add_lowrank(out, u, v, out_dtype):
@@ -222,26 +337,86 @@ def scaled_mm(x_q, w_q, x_scale=None, w_scale=None, bias=None,
 def scaled_mm_fused_act(x, w_q, w_scale=None, bias=None, *,
                         x_fmt: str = "int8", out_dtype=torch.bfloat16,
                         lowrank_u=None, lowrank_v=None, v_zp0=None,
-                        v_zp1=None):
+                        v_zp1=None, b_layout: str = "nt",
+                        emit_quantized: bool = False, x_colscale=None):
     """``scaled_mm`` with per-row activation quantization of x (M, K) float:
     ``quantize_rows`` then ``scaled_gemm`` (two launches).
 
     x_fmt "int8" (symmetric), "uint8" (asymmetric; needs v_zp0 / v_zp1,
     the weight-side zero-point rows, which enter the epilogue as the rank-1
     terms rowsum(x_q)*x_scale ⊗ v_zp0 + x_zp ⊗ v_zp1) or "float8_e4m3fn"
-    (with e4m3 weights)."""
+    (with e4m3 weights).  ``b_layout`` "nt": w_q (O, K), out = x @ w_qᵀ;
+    "nn": w_q (K, O), out = x @ w_q, the stored (O, K) weight read as it
+    lies when the cotangent plays x (the grad-input).  ``x_colscale`` (K,)
+    multiplies x's columns before the row statistics.  ``emit_quantized``
+    ("nt" only) also returns the row codes and scales, unpadded, as the
+    JAX package orders them: ``(y, x_q (M, K), x_scale (M, 1))``, and for
+    "uint8" (signed codes with x = x_q*scale + zp) ``(y, x_q, x_scale,
+    x_zp (M, 1))``."""
     asym = x_fmt == "uint8"
     if asym and (v_zp0 is None or v_zp1 is None):
         raise ValueError("x_fmt='uint8' needs v_zp0 and v_zp1")
+    if emit_quantized and b_layout != "nt":
+        raise ValueError("emit_quantized takes the nt layout")
+    kdim = x.shape[-1]
     # K is padded after the row statistics, so zeros never skew min/max
-    pad = _k_pad(x.shape[-1], 1) if is_cuda(x) else 0
-    x_q, x_scale, x_zp, x_rs = quantize_rows(x, x_fmt, k_pad=pad)
+    pad = _k_pad(kdim, 1) if is_cuda(x) else 0
+    x_q, x_scale, x_zp, x_rs = quantize_rows(x, x_fmt, k_pad=pad,
+                                             colscale=x_colscale)
     if pad:
-        w_q = _pad_k(w_q, pad)
+        w_q = _pad_k(w_q, pad, rows=b_layout == "nn")
     out = scaled_gemm(x_q, w_q, out_dtype, x_scale, w_scale, bias,
                       rs=x_rs, zp=x_zp, vz0=v_zp0 if asym else None,
-                      vz1=v_zp1 if asym else None)
-    return _add_lowrank(out, lowrank_u, lowrank_v, out_dtype)
+                      vz1=v_zp1 if asym else None, b_layout=b_layout)
+    out = _add_lowrank(out, lowrank_u, lowrank_v, out_dtype)
+    if not emit_quantized:
+        return out
+    x_q = x_q[:, :kdim] if pad else x_q
+    return (out, x_q, x_scale, x_zp) if asym else (out, x_q, x_scale)
+
+
+def dynamic_mm_tn(a, b, mm_fmt: str = "int8", out_dtype=torch.float32,
+                  saved_b: tuple | None = None):
+    """aᵀ @ b with both operands quantized **columnwise** in the ``mm_fmt``
+    family (per out-row n over M for a, per out-col k over M for b, plain
+    torch as in the JAX package) and multiplied by B10: the grad-weight
+    GEMM with no transposed copy.  ``saved_b`` replaces the b-side quantize
+    with a pre-quantized (q, scale[, zp]) tuple.  The uint8 family's three
+    rank-1 cross terms go after the kernel as a rank-2 u @ v in fp32; the
+    16-bit family is one bf16-valued product accumulated in fp32 (no
+    kernel, as in the JAX package)."""
+    f = get_format(mm_fmt)
+    mdim = a.shape[0]
+    a = a.float()
+    if f.is_integer and not f.is_unsigned:
+        a_q, a_s = quantize_int_mm(a, 0)
+        b_q, b_s = (quantize_int_mm(b.float(), 0) if saved_b is None
+                    else saved_b)
+        return scaled_mm_tn(a_q, b_q, a_s.reshape(-1), b_s.reshape(-1),
+                            out_dtype=out_dtype)
+    if f.is_integer:
+        a_q, a_s, a_zp = quantize_uint_mm(a, 0)
+        b_q, b_s, b_zp = (quantize_uint_mm(b.float(), 0) if saved_b is None
+                          else saved_b)
+        # aᵀb = (a_q s_a + z_a)ᵀ(b_q s_b + z_b): colsum(a_q)·s_a ⊗ z_b,
+        # z_a ⊗ colsum(b_q)·s_b and M·z_a ⊗ z_b, as one rank-2 term
+        a_s1, a_zp1 = a_s.reshape(-1), a_zp.reshape(-1)
+        b_s1, b_zp1 = b_s.reshape(-1), b_zp.reshape(-1)
+        csa = a_q.to(torch.int32).sum(0).float()
+        csb = b_q.to(torch.int32).sum(0).float()
+        u = torch.stack([csa * a_s1, a_zp1], dim=-1)
+        v = torch.stack([b_zp1, csb * b_s1 + float(mdim) * b_zp1], dim=0)
+        return scaled_mm_tn(a_q, b_q, a_s1, b_s1, out_dtype=out_dtype,
+                            lowrank_u=u, lowrank_v=v)
+    if f.num_bits == 8:
+        a_q, a_s = quantize_fp_mm(a, 0, fmt=f)
+        b_q, b_s = (quantize_fp_mm(b.float(), 0, fmt=f) if saved_b is None
+                    else saved_b)
+        return scaled_mm_tn(a_q, b_q, a_s.reshape(-1), b_s.reshape(-1),
+                            out_dtype=out_dtype)
+    # 16-bit family: bf16 values, products exact in fp32, fp32 sums
+    acc = a.to(torch.bfloat16).float().T @ b.to(torch.bfloat16).float()
+    return acc.to(out_dtype)
 
 
 def bf16_scaled_mm(x, w, x_scale=None, w_scale=None, bias=None,

@@ -13,7 +13,9 @@
   package's route does, else the weight is requantized rowwise first;
 * weight-only (fewer rows, or no quantized matmul): ``kernels.dequant_mm.
   dequant_matmul`` (the row-epilogue GEMV for rowwise codes, the group-dot
-  kernels for half-split codes).
+  kernels for half-split codes);
+* a trainable weight (``train.TrainQTensor``, ``train.DynamicTensor``)
+  goes to ``train.train_qlinear`` / ``train.dynamic_qlinear``.
 
 ``qembedding`` gathers rows of an embedding table and, for a quantized
 table, dequantizes only the gathered rows (no kernel in either package).
@@ -85,7 +87,12 @@ def _requantize_rowwise(qt: QTensor):
     return (wd / s).to(torch.bfloat16), s, None
 
 
-def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype):
+def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype,
+                         emit_quantized: bool = False):
+    """The quantized GEMM with its folds.  ``emit_quantized`` also returns
+    the row-quantized (post-Hadamard) input as the training residual:
+    ``(y, x_q, x_scale)``, or ``(y, x_q, x_scale, x_zp)`` for the
+    asymmetric uint8 family (see ``scaled_mm_fused_act``)."""
     meta = qt.meta
     mfmt = meta.matmul_format
     if meta.use_hadamard:
@@ -95,7 +102,7 @@ def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype):
         u = x2d.float() @ qt.svd_down.float().T
         v = qt.svd_up.float().T
     if meta.re_quantize_for_matmul:
-        if (meta.is_packed and mfmt.is_integer
+        if (meta.is_packed and mfmt.is_integer and not emit_quantized
                 and x2d.shape[0] < PACKED_MM_MAX_ROWS):
             scale = qt.scale.reshape(qt.scale.shape[0], -1)
             zp = (qt.zero_point.reshape(scale.shape)
@@ -130,14 +137,18 @@ def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype):
             return scaled_mm_fused_act(
                 x2d, w_q, w_scale, bias, x_fmt="uint8", out_dtype=out_dtype,
                 lowrank_u=u, lowrank_v=v, v_zp0=wz,
-                v_zp1=w_colsum * w_scale.reshape(1, -1) + float(kdim) * wz)
+                v_zp1=w_colsum * w_scale.reshape(1, -1) + float(kdim) * wz,
+                emit_quantized=emit_quantized)
         return scaled_mm_fused_act(x2d, w_q, w_scale, bias, x_fmt="int8",
                                    out_dtype=out_dtype, lowrank_u=u,
-                                   lowrank_v=v)
+                                   lowrank_v=v, emit_quantized=emit_quantized)
     if mfmt.num_bits == 8:
         return scaled_mm_fused_act(
             x2d, w_q.to(torch.float8_e4m3fn), w_scale, bias,
-            x_fmt=mfmt.name, out_dtype=out_dtype, lowrank_u=u, lowrank_v=v)
+            x_fmt=mfmt.name, out_dtype=out_dtype, lowrank_u=u, lowrank_v=v,
+            emit_quantized=emit_quantized)
+    if emit_quantized:
+        raise ValueError("the 16-bit family has no quantized input to emit")
     return bf16_scaled_mm(x2d, w_q, None, w_scale, bias, out_dtype=out_dtype,
                           lowrank_u=u, lowrank_v=v)
 
@@ -179,7 +190,16 @@ def _weight_only_linear_2d(x2d, qt: QTensor, bias, out_dtype):
 
 def qlinear(x: torch.Tensor, w, bias: torch.Tensor | None = None,
             out_dtype=None) -> torch.Tensor:
-    """y = x @ w.T + bias with w a QTensor or a plain weight tensor."""
+    """y = x @ w.T + bias with w a QTensor, a trainable weight
+    (``TrainQTensor``: bf16 out whatever ``out_dtype``, as in the JAX
+    package; ``DynamicTensor``) or a plain weight tensor."""
+    kind = type(w).__name__
+    if kind == "TrainQTensor":  # (a local import: train imports layers)
+        from .train.matmul import train_qlinear
+        return train_qlinear(x, w, bias)
+    if kind == "DynamicTensor":
+        from .train.matmul import dynamic_qlinear
+        return dynamic_qlinear(x, w, bias)
     if not isinstance(w, QTensor):
         out_dtype = out_dtype or x.dtype
         out = F.linear(x, w.to(x.dtype)).float()

@@ -9,7 +9,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..kernels.attention import quantized_attention
+from ..kernels.attention import quantized_attention, trainable_attention
 
 Params = dict
 
@@ -80,9 +80,13 @@ def apply_rope(x, freqs):
 
 def attention(q, k, v, attn_config: dict | None = None):
     """q/k/v (B, H, N, D) -> (B, N, H*D); ``attn_config`` selects the
-    attention mode (default ``"auto"``)."""
+    attention mode (default ``"auto"``).  Where autograd records (a
+    training step), the attention is ``trainable_attention``."""
     cfg = attn_config or {}
-    out = quantized_attention(
+    grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    fn = trainable_attention if grad else quantized_attention
+    out = fn(
         q, k, v,
         matmul_dtype=cfg.get("matmul_dtype", "auto"),
         pv_matmul_dtype=cfg.get("pv_matmul_dtype"),

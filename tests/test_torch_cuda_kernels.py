@@ -433,3 +433,146 @@ def test_packed_qlinear_takes_b8_on_card(dev):
         for f in ("qdata", "scale", "zero_point", "svd_up", "svd_down")})
     want = T.qlinear(x.cpu(), qt_cpu).float()
     assert (got - want).abs().max() <= 2 ** -7 * want.abs().max()
+
+
+# B1's training modes and B10.  The int8 GEMMs and the row quantize are
+# bit-exact here too (integer sums; the same rounded fp32 epilogue; the
+# column scale a single fp32 multiply on both sides); e4m3 products are
+# exact in fp32 and only the summation order differs (rtol 1e-5 of the sum
+# of |terms|).
+
+@pytest.mark.parametrize("m,k", [(1, 64), (37, 200), (300, 3072)])
+@pytest.mark.parametrize("x_fmt", ["int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rows_colscale(dev, m, k, x_fmt, dtype):
+    g = _gen(20)
+    x = torch.randn(m, k, device=dev, generator=g).to(dtype)
+    cs = torch.rand(k, device=dev, generator=g) * 3e-3 + 1e-4
+    got = ks.quantize_rows(x, x_fmt, k_pad=24, colscale=cs)
+    want = ks.quantize_rows_plain(x, x_fmt, k_pad=24, colscale=cs)
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a.view(torch.uint8) if a.element_size() == 1
+                           else a,
+                           b.view(torch.uint8) if b.element_size() == 1
+                           else b)
+    assert ks.quantize_rows.mode_launches["colscale"] > 0
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 8, 64), (130, 200, 192),
+                                   (257, 130, 1088), (64, 3072, 256)])
+def test_scaled_gemm_nn_int8_exact(dev, m, n, k):
+    g = _gen(21)
+    a = torch.randint(-128, 128, (m, k), device=dev, generator=g,
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (k, n), device=dev, generator=g,
+                      dtype=torch.int8)
+    xs = torch.rand(m, 1, device=dev, generator=g) * 0.02
+    ws = torch.rand(n, device=dev, generator=g) * 0.02
+    got = ks.scaled_gemm(a, b, torch.float32, xs, ws, b_layout="nn")
+    want = ks.scaled_gemm_plain(a, b, torch.float32, xs, ws, b_layout="nn")
+    assert torch.equal(got, want)
+    # against the nt kernel on the transposed copy
+    nt = ks.scaled_gemm(a, b.T.contiguous(), torch.float32, xs, ws)
+    assert torch.equal(got, nt)
+
+
+def test_scaled_gemm_nn_fp8(dev):
+    g = _gen(22)
+    a = torch.randn(150, 192, device=dev, generator=g).to(torch.float8_e4m3fn)
+    b = torch.randn(192, 72, device=dev, generator=g).to(torch.float8_e4m3fn)
+    xs = torch.rand(150, 1, device=dev, generator=g)
+    got = ks.scaled_gemm(a, b, torch.float32, xs, b_layout="nn")
+    want = ks.scaled_gemm_plain(a, b, torch.float32, xs, b_layout="nn")
+    bound = 1e-5 * (a.float().abs() @ b.float().abs()) * xs
+    assert ((got - want).abs() <= bound + 1e-6).all()
+
+
+@pytest.mark.parametrize("m", [1, 37, 64, 200])
+def test_fused_act_nn_colscale_emit(dev, m):
+    """The grad-input route (nn + colscale) and the forward's emitted
+    residual, bit-equal to the plain composition."""
+    g = _gen(23)
+    o, k = 384, 256
+    x = torch.randn(m, o, device=dev, generator=g).bfloat16()
+    w = torch.randint(-127, 128, (o, k), device=dev, generator=g,
+                      dtype=torch.int8)
+    cs = torch.rand(o, device=dev, generator=g) * 1e-2
+    got = ks.scaled_mm_fused_act(x, w, None, None, b_layout="nn",
+                                 x_colscale=cs, out_dtype=torch.float32)
+    xq, xs = ks.quantize_rows_plain(x, "int8", colscale=cs)[:2]
+    want = ks.scaled_gemm_plain(xq, w, torch.float32, xs, b_layout="nn")
+    assert torch.equal(got, want)
+    xk = torch.randn(m, k, device=dev, generator=g).bfloat16()
+    y, eq, es = ks.scaled_mm_fused_act(xk, w, None, None, emit_quantized=True)
+    pq, ps = ks.quantize_rows_plain(xk, "int8")[:2]
+    assert torch.equal(eq, pq) and torch.equal(es, ps)
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 8, 64), (1, 18432, 3072),
+                                   (37, 200, 132), (100, 258, 126),
+                                   (1536, 384, 640)])
+def test_scaled_mm_tn_int8_exact(dev, m, n, k):
+    g = _gen(24)
+    a = torch.randint(-128, 128, (m, n), device=dev, generator=g,
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (m, k), device=dev, generator=g,
+                      dtype=torch.int8)
+    a_s = torch.rand(n, device=dev, generator=g) * 0.02
+    b_s = torch.rand(k, device=dev, generator=g) * 0.02
+    for sc in ((a_s, b_s), (None, b_s), (None, None)):
+        got = ks.scaled_mm_tn(a, b, *sc)
+        want = ks.scaled_mm_tn_plain(a, b, *sc)
+        assert torch.equal(got, want)
+    u = torch.randn(n, 2, device=dev, generator=g)
+    v = torch.randn(2, k, device=dev, generator=g)
+    got = ks.scaled_mm_tn(a, b, a_s, b_s, lowrank_u=u, lowrank_v=v)
+    assert torch.equal(got, ks.scaled_mm_tn_plain(a, b, a_s, b_s,
+                                                  lowrank_u=u, lowrank_v=v))
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 64, 64), (70, 200, 136),
+                                   (1024, 512, 256)])
+def test_scaled_mm_tn_fp8(dev, m, n, k):
+    g = _gen(25)
+    a = torch.randn(m, n, device=dev, generator=g).to(torch.float8_e4m3fn)
+    b = torch.randn(m, k, device=dev, generator=g).to(torch.float8_e4m3fn)
+    a_s = torch.rand(n, device=dev, generator=g)
+    b_s = torch.rand(k, device=dev, generator=g)
+    got = ks.scaled_mm_tn(a, b, a_s, b_s)
+    want = ks.scaled_mm_tn_plain(a, b, a_s, b_s)
+    bound = 1e-5 * (a.float().abs().T @ b.float().abs()) * a_s[:, None] \
+        * b_s[None, :]
+    assert ((got - want).abs() <= bound + 1e-6).all()
+
+
+def test_fit_adamw_sr_on_card(dev):
+    """``fit``'s default generator lies on the card, so AdamW's stochastic
+    rounding draws its bits beside the card's parameters."""
+    import sdnq_tpu_torch as T
+    from sdnq_tpu_torch.optim import adamw
+    from sdnq_tpu_torch.train import fit, make_train_params, train_qlinear
+    g = _gen(26)
+    w = torch.randn(256, 512, device=dev, generator=g)
+    tp = make_train_params({"w": T.quantize_tensor(
+        w, "int8", use_quantized_matmul=True)})
+    x = torch.randn(64, 512, device=dev, generator=g).bfloat16()
+    opt = adamw(lr=1e-2, quantize_state=True, stochastic_rounding=True)
+    q0 = tp["w"].qt.qdata.clone()
+
+    def step(state, gen):
+        loss = train_qlinear(x, tp["w"]).float().square().mean()
+        loss.backward()
+        return loss, lambda: opt.update(None, state, tp, gen)[1]
+
+    state = fit(step, opt.init(tp), 2, params=tp)
+    assert state["step"] == 2
+    assert tp["w"].qt.qdata.is_cuda
+    assert (tp["w"].qt.qdata != q0).any()
+
+
+def test_scaled_mm_tn_rejects(dev):
+    a = torch.zeros(4, 8, device=dev).bfloat16()
+    with pytest.raises(ValueError):
+        ks.scaled_mm_tn(a, a)
+    z = torch.zeros(0, 8, device=dev, dtype=torch.int8)
+    assert torch.equal(ks.scaled_mm_tn(z, z), torch.zeros(8, 8, device=dev))

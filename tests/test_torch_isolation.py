@@ -23,7 +23,8 @@ def test_fresh_import_leaves_jax_out():
     code = ("import sys, sdnq_tpu_torch, sdnq_tpu_torch.kernels, "
             "sdnq_tpu_torch.models, sdnq_tpu_torch.pipeline, "
             "sdnq_tpu_torch.convert, sdnq_tpu_torch.packing, "
-            "sdnq_tpu_torch.quant.svd\n"
+            "sdnq_tpu_torch.quant.svd, sdnq_tpu_torch.train, "
+            "sdnq_tpu_torch.optim\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'sdnq_tpu.')) "
             "or m == 'sdnq_tpu']\n"
@@ -48,7 +49,8 @@ def _imported_roots(path: Path):
 def test_no_source_imports_jax():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
-    assert {PKG / "packing.py", PKG / "quant" / "svd.py"} <= set(files)
+    assert {PKG / "packing.py", PKG / "quant" / "svd.py",
+            PKG / "train" / "matmul.py", PKG / "optim" / "base.py"} <= set(files)
     for f in files:
         for mod in _imported_roots(f):
             root = mod.split(".")[0]

@@ -217,3 +217,176 @@ def test_fp8_fused_act_plain():
                                   out_dtype=torch.float32)
     # fp8 products are exact in fp32; summation order differs
     _close(out.numpy(), ref)
+
+
+# ---------------------------------------------------------------------------
+# B1's training modes (nn layout, x_colscale, emit_quantized) and B10
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,o", [(64, 256, 128), (40, 384, 256)])
+def test_fused_act_nn_colscale(backend, m, k, o):
+    """The grad-input route: x (M, K) times a column scale, quantized per
+    row, against w (K, O) contracting its leading axis.  Under the
+    interpret backend this is ``_fused_act_mm_pallas(b_dim0=True)``."""
+    x, _, _, _ = _case(m, k, o, seed=11)
+    rng = np.random.default_rng(12)
+    w = rng.integers(-127, 128, (k, o)).astype(np.int8)
+    cs = rng.uniform(0.001, 0.02, (k,)).astype(np.float32)
+    ref = jmm.scaled_mm_fused_act(
+        jnp.asarray(x), jnp.asarray(w), None, None, x_fmt="int8",
+        out_dtype=jnp.float32, b_layout="nn", x_colscale=jnp.asarray(cs))
+    out = tmm.scaled_mm_fused_act(
+        torch.from_numpy(x), torch.from_numpy(w), None, None, x_fmt="int8",
+        out_dtype=torch.float32, b_layout="nn",
+        x_colscale=torch.from_numpy(cs))
+    _close(out.numpy(), ref, _flip_bound(x * cs, w.T, np.ones(o, np.float32))
+           if backend == "interpret" else None)
+    # the same function as the plain composition, and as the nt layout on
+    # the transposed weight
+    xq, xs = tmm.quantize_rows_plain(torch.from_numpy(x) *
+                                     torch.from_numpy(cs))[:2]
+    plain = tmm.scaled_gemm_plain(xq, torch.from_numpy(w), torch.float32, xs,
+                                  b_layout="nn")
+    np.testing.assert_array_equal(out.numpy(), plain.numpy())
+    nt = tmm.scaled_gemm_plain(xq, torch.from_numpy(w.T.copy()),
+                               torch.float32, xs)
+    np.testing.assert_array_equal(out.numpy(), nt.numpy())
+
+
+@pytest.mark.parametrize("x_fmt", ["int8", "uint8", "float8_e4m3fn"])
+def test_fused_act_emit_quantized(backend, x_fmt):
+    """``emit_quantized``: the returned codes and scales against the JAX
+    kernel's emitted ones (codes within one step and scales within one ulp
+    under interpret, the reciprocal quirk; equal on the XLA route), in the
+    JAX tuple order, unpadded."""
+    asym = x_fmt == "uint8"
+    x, w, ws, b = _case(48, 320, 128, seed=13)
+    kw_j, kw_t = {}, {}
+    if asym:
+        z = np.zeros((1, 128), np.float32)
+        kw_j = dict(v_zp0=jnp.asarray(z), v_zp1=jnp.asarray(z))
+        kw_t = dict(v_zp0=torch.from_numpy(z), v_zp1=torch.from_numpy(z))
+    wj, wt = jnp.asarray(w), torch.from_numpy(w)
+    if x_fmt == "float8_e4m3fn":
+        wj, wt = wj.astype(jnp.float8_e4m3fn), wt.to(torch.float8_e4m3fn)
+    res = jmm.scaled_mm_fused_act(jnp.asarray(x), wj, jnp.asarray(ws),
+                                  jnp.asarray(b), x_fmt=x_fmt,
+                                  out_dtype=jnp.float32, emit_quantized=True,
+                                  **kw_j)
+    out = tmm.scaled_mm_fused_act(torch.from_numpy(x), wt,
+                                  torch.from_numpy(ws), torch.from_numpy(b),
+                                  x_fmt=x_fmt, out_dtype=torch.float32,
+                                  emit_quantized=True, **kw_t)
+    assert len(out) == len(res) == (4 if asym else 3)
+    assert tuple(out[1].shape) == (48, 320) and tuple(out[2].shape) == (48, 1)
+    jq = np.asarray(res[1])
+    jq = jq.view(np.uint8) if x_fmt == "float8_e4m3fn" else jq
+    np.testing.assert_allclose(out[2].numpy(), np.asarray(res[2]),
+                               rtol=2 ** -23)
+    if x_fmt != "float8_e4m3fn":
+        assert np.abs(_codes(out[1]).astype(int) - jq.astype(int)).max() <= 1
+    same = (out[2].numpy() == np.asarray(res[2]))[:, 0]
+    np.testing.assert_array_equal(_codes(out[1])[same], jq[same])
+    if backend == "xla":
+        assert same.all()
+    if asym:
+        np.testing.assert_allclose(out[3].numpy(), np.asarray(res[3]),
+                                   rtol=2 ** -22)
+
+
+def _tn_case(m, n, k, seed, fp8=False):
+    rng = np.random.default_rng(seed)
+    if fp8:
+        a = rng.normal(size=(m, n)).astype(np.float32) * 4
+        b = rng.normal(size=(m, k)).astype(np.float32) * 4
+    else:
+        a = rng.integers(-128, 128, (m, n)).astype(np.int8)
+        b = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    a_s = rng.uniform(0.001, 0.02, (n,)).astype(np.float32)
+    b_s = rng.uniform(0.001, 0.02, (k,)).astype(np.float32)
+    u = rng.normal(size=(n, 2)).astype(np.float32)
+    v = rng.normal(size=(2, k)).astype(np.float32)
+    return a, b, a_s, b_s, u, v
+
+
+@pytest.fixture
+def tn_kernel(monkeypatch):
+    """The JAX package's TN Pallas kernel, in interpret mode."""
+    monkeypatch.setenv("SDNQ_TPU_KERNEL_BACKEND", "interpret")
+    monkeypatch.setenv("SDNQ_TPU_TN_MM_BLOCKS", "128,128,64")
+
+
+@pytest.mark.parametrize("m", [1, 70, 256])
+@pytest.mark.parametrize("lowrank", [False, True])
+def test_scaled_mm_tn_int8_vs_pallas(tn_kernel, m, lowrank):
+    """B10's plain version against ``_tn_mm_kernel``: int8 bit-equal (exact
+    integer sums, the same fp32 epilogue order: acc*a_s, then *b_s; the
+    rank-2 u@v term in fp32 after it, one rounding of order apart), ragged
+    M (70: the kernel zero-pads to 96) and M = 1 included."""
+    n, k = 256, 384
+    a, b, a_s, b_s, u, v = _tn_case(m, n, k, seed=14)
+    uv_j = (jnp.asarray(u), jnp.asarray(v)) if lowrank else (None, None)
+    uv_t = (torch.from_numpy(u), torch.from_numpy(v)) if lowrank \
+        else (None, None)
+    ref = np.asarray(jmm.scaled_mm_tn(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(a_s), jnp.asarray(b_s),
+        out_dtype=jnp.float32, lowrank_u=uv_j[0], lowrank_v=uv_j[1]))
+    out = tmm.scaled_mm_tn(torch.from_numpy(a), torch.from_numpy(b),
+                           torch.from_numpy(a_s), torch.from_numpy(b_s),
+                           torch.float32, *uv_t).numpy()
+    if lowrank:
+        np.testing.assert_allclose(out, ref, rtol=1e-6,
+                                   atol=1e-6 * np.abs(ref).max())
+    else:
+        np.testing.assert_array_equal(out, ref)
+    acc = (a.astype(np.int64).T @ b.astype(np.int64)).astype(np.float32)
+    plain = acc * a_s[:, None] * b_s[None, :]
+    if not lowrank:
+        np.testing.assert_array_equal(out, plain)
+
+
+@pytest.mark.parametrize("m", [1, 70])
+def test_scaled_mm_tn_fp8_vs_pallas(tn_kernel, m):
+    """e4m3: products exact in fp32, sums in another order than the TPU
+    kernel's: rtol 1e-5 of the sum of |terms| (scaled)."""
+    n, k = 128, 256
+    a, b, a_s, b_s, _, _ = _tn_case(m, n, k, seed=15, fp8=True)
+    aj = jnp.asarray(a).astype(jnp.float8_e4m3fn)
+    bj = jnp.asarray(b).astype(jnp.float8_e4m3fn)
+    ref = np.asarray(jmm.scaled_mm_tn(aj, bj, jnp.asarray(a_s),
+                                      jnp.asarray(b_s),
+                                      out_dtype=jnp.float32))
+    at = torch.from_numpy(a).to(torch.float8_e4m3fn)
+    bt = torch.from_numpy(b).to(torch.float8_e4m3fn)
+    out = tmm.scaled_mm_tn(at, bt, torch.from_numpy(a_s),
+                           torch.from_numpy(b_s)).numpy()
+    terms = (np.abs(at.float().numpy()).T @ np.abs(bt.float().numpy())) \
+        * a_s[:, None] * b_s[None, :]
+    assert (np.abs(out - ref) <= 1e-5 * terms + 1e-7).all()
+
+
+@pytest.mark.parametrize("fmt", ["int8", "uint8", "float8_e4m3fn",
+                                 "bfloat16"])
+@pytest.mark.parametrize("m", [1, 48])
+def test_dynamic_mm_tn_and_nn(fmt, m):
+    """The grad-weight (``dynamic_mm_tn``) and grad-input
+    (``train.matmul._dynamic_mm_nn``) GEMMs of each family against the JAX
+    package's, on its XLA route: the same columnwise / rowwise quantize and
+    exact integer sums, so rtol 1e-5 (fp8 and the 16-bit family: fp32
+    summation order; uint8: the rank-2 cross terms)."""
+    from sdnq_tpu.train import matmul as jtm
+    from sdnq_tpu_torch.train import matmul as ttm
+    rng = np.random.default_rng(16)
+    n, k = 96, 160
+    a = rng.normal(size=(m, n)).astype(np.float32)
+    b = rng.normal(size=(m, k)).astype(np.float32)
+    a[:, :4] += 1.5
+    ref = np.asarray(jmm.dynamic_mm_tn(jnp.asarray(a), jnp.asarray(b), fmt))
+    out = tmm.dynamic_mm_tn(torch.from_numpy(a), torch.from_numpy(b),
+                            fmt).numpy()
+    _close(out, ref)
+    w = rng.normal(size=(n, k)).astype(np.float32)
+    ref = np.asarray(jtm._dynamic_mm_nn(jnp.asarray(a), jnp.asarray(w), fmt))
+    out = ttm._dynamic_mm_nn(torch.from_numpy(a), torch.from_numpy(w),
+                             fmt).numpy()
+    _close(out, ref)
