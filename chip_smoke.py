@@ -10,9 +10,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. build    - compiles every kernel under sdnq_tpu_torch/csrc with nvcc
               (one process per source, all at once) into the package's
               ignored _build/ directory.
-3. kernels  - calls each kernel's wrapper at the shapes of the FLUX.1-dev
-              and Llama-3-8B paths (and B8 at the decode shapes of its
-              domain), holds it against its plain PyTorch version on the
+3. kernels  - calls each kernel's wrapper at the shapes of the FLUX.1-dev,
+              Llama-3-8B, training and text-to-image paths (and B8 at the
+              decode shapes of its domain), holds it against its plain
+              PyTorch version on the
               same inputs, times kernel, plain version and a one-call
               PyTorch yardstick with CUDA events, and computes the bound
               (bytes over 3.35 TB/s or operations over the H100's peak for
@@ -53,19 +54,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               weight codes the update moved (above 0) per step; B10, B1's
               nn and colscale modes, B1, B4, B2 and B3 must launch in each;
               then one step traced.
+4f. t2i     - FLUX text to image under SDNQ's default recipe
+              (QuantConfig(weights_dtype="int8"): weight-only, groups of
+              1024): T5-XXL (24 layers) and CLIP-L (12) quantized, the
+              FLUX.1-dev DiT (19 + 38 blocks) quantized under the Flux skip
+              keys, the FLUX VAE in bf16, random weights from seeded
+              generators; 2 requests of 512 T5 and 77 CLIP token ids,
+              ``t5_encode``, ``clip_encode``, ``flux_generate`` at
+              1024x1024 with 4 Euler steps and guidance 3.5.  T5, CLIP,
+              per-step and VAE times, seconds per image, image tokens/s,
+              peak memory and launches per stage; B2's tile kernel
+              (grouped and row modes), its grouped GEMV, B3 with the
+              additive mask and B3 bf16 must launch; the images finite,
+              (1, 1024, 1024, 3).
 5. slice    - each FLUX model cut to 1 double + 2 single blocks, one
               forward at 1024x1024 with 512 text tokens, and Llama-3-8B cut
               to 2 layers (prefill + 4 decode steps with either cache, and
               the causal forward), and the training model cut to 2 double
               + 2 single blocks (loss and every weight gradient of one
-              step), through the kernels against the
+              step), and the text-to-image pipeline cut to 2 T5 and 2 CLIP
+              layers and 1 + 2 DiT blocks with the whole VAE (2 steps at
+              512x512), through the kernels against the
               all-plain path, both on the card (the check swaps each
               wrapper for its plain version for the reference run and
               verifies no kernel launched in it), each with its own limit.
 6. profile  - one Euler step of the full int8 and uint4 weight-only FLUX
-              models, and one prefill and one decode step of the int8-KV
-              Llama-3-8B, traced with torch.profiler: device time by
-              kernel group, idle share.
+              models, one prefill and one decode step of the int8-KV
+              Llama-3-8B, and one text-to-image request, traced with
+              torch.profiler: device time by kernel group, idle share.
 7. faults   - broken copies of the kernel sources (FAULTS: a skipped KV
               tile, a missing rescale, a dropped K stage, a short warp
               reduction, round-half-away, the other nibble decoded, a
@@ -74,7 +90,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               64-key tile, the causal skip a tile early, the GQA map
               h % KH, a middle KV tile skipped under a mask and under
               causal, B10 dropping the M tail, B10 with a_s and b_s
-              swapped, B1's prologue ignoring the column scale), built with
+              swapped, B1's prologue ignoring the column scale, B2 taking
+              the next group's scale, B2 dropping the zero point, B3
+              ignoring the additive mask on one KV tile, B3 adding it
+              without log2(e)), built with
               the real ones; phases 3 and 5 rerun with
               each in turn.  Phase 3 must fail for the broken kernel; phase
               5's readings are printed beside their limits.
@@ -141,7 +160,8 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 # name of each wrapper's CUDA kernel, as the profiler reports it
 KERNEL_SYMBOLS = {
     "quantize_rows": "quantize_rows_kernel", "scaled_gemm": "scaled_mm_kernel",
-    "dequant_gemv": "dequant_gemv_kernel", "flash_attention": "flash_attn",
+    "dequant_gemv": "dequant_gemv_kernel", "dequant_mm": "dequant_mm_kernel",
+    "flash_attention": "flash_attn",
     "groupdot_mm": "groupdot_mm_kernel", "blockdiag_mm": "blockdiag_mm_kernel",
     "groupdot_i8_mm": "groupdot_mm_kernel",
     "blockdiag_i8_mm": "blockdiag_i8_mm_kernel",
@@ -400,6 +420,9 @@ def kernel_phase(torch, dev, timed: bool = True):
     llm_attention_rows(torch, dev, g, t, record)
     # B10 and B1's nn / colscale modes at the training step's shapes
     train_kernel_rows(torch, dev, g, t, record)
+    # B2's grouped and row modes and B3's additive mask at the shapes of
+    # the text-to-image pipeline
+    pipeline_kernel_rows(torch, dev, g, t, record)
 
 
     # B5 / B6 / B7 on uint4 half-split codes, group 128 (the uint4 + SVD
@@ -771,6 +794,146 @@ def train_kernel_rows(torch, dev, g, t, record):
     torch.cuda.empty_cache()
 
 
+def pipeline_kernel_rows(torch, dev, g, t, record):
+    """Phase 3 rows of B2's grouped and row modes and of B3's additive
+    mask, at the shapes of the FLUX text-to-image pipeline under SDNQ's
+    default int8 recipe (weight-only, groups of 1024 along K)."""
+    import torch.nn.functional as F
+    from sdnq_tpu_torch.kernels import attention as ka
+    from sdnq_tpu_torch.kernels import dequant_mm as kd
+
+    src, rep = ("sdnq_tpu_torch/csrc/dequant_mm.cu",
+                "sdnq_tpu/kernels/dequant_mm.py:60")
+
+    def weight(n, k, groups, unsigned=False):
+        if unsigned:
+            codes = torch.randint(0, 256, (n, k), device=dev, generator=g,
+                                  dtype=torch.uint8)
+        else:
+            codes = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                                  dtype=torch.int8)
+        scale = torch.rand(n, groups, device=dev, generator=g) * 2e-4 + 1e-4
+        zp = (-128 * scale * (1 + 0.1 * torch.randn(
+            n, groups, device=dev, generator=g)) if unsigned else None)
+        return codes, scale, zp
+
+    def w_bf16(codes, scale, zp):
+        """The dequantized bf16 weight of the library yardstick."""
+        n, k = codes.shape
+        w = codes.float().reshape(n, scale.shape[1], -1) * scale[..., None]
+        if zp is not None:
+            w = w + zp[..., None]
+        return w.reshape(n, k).bfloat16()
+
+    # grouped, tiles: the DiT's single-block linear1 (4608 tokens) and
+    # T5's wi_0 (512 tokens); one uint8 layer with a zero point (off the
+    # path: the recipe is symmetric).  The kernel and the plain version
+    # multiply the same bf16 weights and sum in fp32 in another order: the
+    # bf16 outputs agree to one bf16 ulp of the largest (2^-7 of it).
+    for m, k, n, what, unsigned in (
+            (4608, 3072, 21504, "DiT linear1", False),
+            (512, 4096, 10240, "T5 wi_0", False),
+            (512, 4096, 4096, "uint8 + zp", True)):
+        codes, scale, zp = weight(n, k, k // 1024, unsigned)
+        x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+        bias = torch.randn(n, device=dev, generator=g)
+        args = (x, codes, scale, zp, bias, torch.bfloat16)
+        got = kd.dequant_mm(*args)
+        want = kd.dequant_mm_plain(*args)
+        wb = w_bf16(codes, scale, zp)
+        record("dequant_mm", "cuda", src, rep,
+               float((got.float() - want.float()).abs().max()),
+               float(want.float().abs().max()) * 2 ** -7,
+               lambda: kd.dequant_mm(*args),
+               t(lambda: kd.dequant_mm_plain(*args), reps=3),
+               bound_ms(m * k * 2 + n * k + 2 * n * (k // 1024) * 4
+                        + n * 4 + m * n * 2, 2 * m * n * k, "bf16"),
+               t(lambda: F.linear(x, wb, bias.bfloat16())),
+               f"M{m} K{k} N{n} {'uint8+zp' if unsigned else 'int8'} g1024 "
+               f"({what})", on_path=not unsigned, path="pipeline",
+               count="dequant_mm:grouped")
+        del codes, x, wb, got, want
+
+    # grouped, GEMV: a modulation linear at batch 1 (3072 -> 18432, 3
+    # groups), fp32 rows as the DiT's vec; fp32 sums in another order
+    k, n = 3072, 18432
+    codes, scale, _ = weight(n, k, 3)
+    x = torch.randn(1, k, device=dev, generator=g)
+    bias = torch.randn(n, device=dev, generator=g)
+    args = (x, codes, scale, None, bias, torch.bfloat16)
+    got = kd.dequant_gemv(*args)
+    want = kd.dequant_gemv_plain(*args)
+    wb = w_bf16(codes, scale, None)
+    record("dequant_gemv", "cuda", "sdnq_tpu_torch/csrc/dequant_gemv.cu", rep,
+           float((got.float() - want.float()).abs().max()),
+           float(want.float().abs().max()) * 2 ** -7,
+           lambda: kd.dequant_gemv(*args),
+           t(lambda: kd.dequant_gemv_plain(*args), reps=5),
+           bound_ms(n * k + k * 4 + 2 * n * 3 * 4 + n * 4 + n * 2,
+                    2 * n * k, "fp32"),
+           t(lambda: F.linear(x.bfloat16(), wb, bias.bfloat16()), reps=20),
+           f"M1 K{k} N{n} int8 g1024 (modulation)", path="pipeline",
+           count="dequant_gemv:grouped")
+    del codes, wb
+
+    # row mode, tiles: CLIP's fc1 (77 tokens, 768 -> 3072, one group)
+    m, k, n = 77, 768, 3072
+    codes, scale, _ = weight(n, k, 1)
+    x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+    bias = torch.randn(n, device=dev, generator=g)
+    args = (x, codes, scale, None, bias, torch.bfloat16)
+    got = kd.dequant_mm(*args)
+    want = kd.dequant_mm_plain(*args)
+    wb = (codes.float() * scale).bfloat16()
+    record("dequant_mm", "cuda", src, rep,
+           float((got.float() - want.float()).abs().max()),
+           float(want.float().abs().max()) * 2 ** -7,
+           lambda: kd.dequant_mm(*args),
+           t(lambda: kd.dequant_mm_plain(*args), reps=5),
+           bound_ms(m * k * 2 + n * k + 2 * n * 4 + m * n * 2,
+                    2 * m * n * k, "bf16"),
+           t(lambda: F.linear(x, wb, bias.bfloat16()), reps=20),
+           f"M{m} K{k} N{n} int8 rowwise (CLIP fc1)", path="pipeline",
+           count="dequant_mm:row")
+    del codes, wb
+
+    # B3's additive mask at T5-XXL's shape: 64 heads, 512 tokens, head dim
+    # 64, scale 1, a relative position bias (1, 64, 512, 512) in fp32 from a
+    # (32, 64) table gathered by the bucket table (its values about 2, so a
+    # fault in the mask moves the softmax).  Held per row against the row's
+    # largest output: 2^-6 (P rounded to bf16 against a running max).
+    from sdnq_tpu_torch.models.text_encoder import _rel_bucket
+    h, n, d = 64, 512, 64
+    pos = torch.arange(n, device=dev)
+    table = torch.randn(32, h, device=dev, generator=g) * 2
+    bias = table[_rel_bucket(pos[None, :] - pos[:, None], 32, 128)].permute(
+        2, 0, 1)[None].contiguous()
+    q, kk, v = (torch.randn(h, n, d, device=dev, generator=g) * 0.4
+                for _ in range(3))
+    qb = (q * ka.LOG2E).bfloat16()
+    kb, vb = kk.bfloat16(), v.bfloat16()
+    kw = dict(heads=h, mask=bias)
+    got = ka.flash_attention(qb, kb, vb, out_dtype=torch.float32, **kw)
+    want = ka.flash_attention_plain(qb, kb, vb, out_dtype=torch.float32,
+                                    **kw)
+    err = (got - want).abs()
+    row = float((err.amax(-1) / want.abs().amax(-1)).max())
+    q4, k4, v4 = (a.bfloat16()[None] for a in (q, kk, v))
+    record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
+           "sdnq_tpu/kernels/attention.py:67", float(err.max()), 2 ** -6,
+           lambda: ka.flash_attention(qb, kb, vb, **kw),
+           t(lambda: ka.flash_attention_plain(qb, kb, vb, **kw), reps=3),
+           bound_ms(3 * h * n * d * 2 + h * n * n * 4 + h * n * d * 2,
+                    4 * h * n * n * d, "bf16"),
+           t(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                    attn_mask=bias,
+                                                    scale=1.0)),
+           f"BH{h} N{n} KN{n} D{d} fp32 additive mask bf16 (T5)",
+           path="pipeline", count="flash_attention:float_mask", reading=row)
+    del q, kk, v, qb, kb, vb, q4, k4, v4, bias
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5
 # ---------------------------------------------------------------------------
@@ -885,6 +1048,7 @@ def plain_versions():
     swaps = [(ks, "quantize_rows", ks.quantize_rows_plain),
              (ks, "scaled_gemm", ks.scaled_gemm_plain),
              (kd, "dequant_gemv", kd.dequant_gemv_plain),
+             (kd, "dequant_mm", kd.dequant_mm_plain),
              (kd, "groupdot_mm", kd.groupdot_mm_plain),
              (kd, "blockdiag_mm", kd.blockdiag_mm_plain),
              (kd, "groupdot_i8_mm", kd.groupdot_i8_mm_plain),
@@ -1000,12 +1164,6 @@ LLM_SLICE_TOL = {
 # (2.45e-2).  bf16 roundings that differ by an ulp flip int8 activation
 # codes forward, and cotangent codes backward.
 TRAIN_SLICE_TOL = {"loss": 3.5e-4, "grad_max": 5e-2, "grad_mean": 5e-2}
-
-
-# every slice check's limits; "qlinear_b8" is the B8 qlinear check's
-ALL_SLICE_TOL = {**{k: {"max": v} for k, v in SLICE_TOL.items()},
-                 **LLM_SLICE_TOL, "qlinear_b8": {"max": 2 ** -7},
-                 "train": TRAIN_SLICE_TOL}
 
 
 def cut_llm(params, cfg):
@@ -1493,6 +1651,253 @@ def train_slice_phase(torch, dev, sliced) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: FLUX text to image (T5-XXL, CLIP-L, the DiT, the VAE)
+# ---------------------------------------------------------------------------
+
+PIPE_SIDE, PIPE_STEPS = 1024, 4          # 4096 image tokens, 4 Euler steps
+PIPE_T5, PIPE_CLIP = 512, 77             # token ids per request
+PIPE_REQUIRED = ("dequant_mm:grouped", "dequant_mm:row",
+                 "dequant_gemv:grouped", "flash_attention:float_mask",
+                 "flash_attention")
+
+
+def default_recipe():
+    """SDNQ's default recipe: int8 weights, every other field at its
+    default (weight-only, auto groups of 1024 along K).  A fresh config for
+    each call: ``quantize_model`` adds the architecture's skip keys to the
+    config it is given."""
+    from sdnq_tpu_torch import QuantConfig
+    return QuantConfig(weights_dtype="int8")
+
+
+def flux_vae_config():
+    """black-forest-labs/FLUX.1-dev vae/config.json: 16 latent channels,
+    block_out (128, 256, 512, 512), 2 layers a block, 32 groups, scaling
+    0.3611 (its shift factor 0.1159 has no field: the JAX package has
+    none)."""
+    from sdnq_tpu_torch.models import VAEConfig
+    return VAEConfig(latent_channels=16, scaling_factor=0.3611)
+
+
+def build_pipeline(torch, dev):
+    """T5-XXL (google/t5-v1_1-xxl) and CLIP-L (openai/clip-vit-large-
+    patch14's text model) from seeded generators in bf16, quantized with
+    the default recipe, T5 layer by layer; T5's ``shared`` table (an
+    nn.Embedding in transformers) and CLIP's embeddings stay bf16
+    (quant_embedding off); the FLUX VAE stays bf16 (quant_conv off).  With
+    the DiT from ``build_model`` under the same recipe.  Returns (models,
+    configs)."""
+    import dataclasses
+    from sdnq_tpu_torch import quantize_model
+    from sdnq_tpu_torch.models import (
+        FLUX_DEV_CONFIG, CLIPConfig, T5Config, init_clip, init_t5,
+        init_t5_layer, init_vae)
+    dit = build_model(torch, dev, default_recipe(), "pipeline")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(30)
+    t5cfg, clipcfg, vaecfg = T5Config(), CLIPConfig(), flux_vae_config()
+    t5, _ = quantize_model(
+        init_t5(dataclasses.replace(t5cfg, num_layers=0), generator=gen,
+                device=dev, dtype=torch.bfloat16), default_recipe(),
+        kinds={"shared": "embedding"}, device=dev)
+    for _ in range(t5cfg.num_layers):
+        layer = init_t5_layer(t5cfg, generator=gen, device=dev,
+                              dtype=torch.bfloat16)
+        q, _ = quantize_model({"block": [layer]}, default_recipe(),
+                              device=dev)
+        t5["block"].append(q["block"][0])
+        del layer, q
+    clip, _ = quantize_model(
+        init_clip(clipcfg, generator=gen, device=dev, dtype=torch.bfloat16),
+        default_recipe(), device=dev)
+    vae = init_vae(vaecfg, generator=gen, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"pipeline: T5-XXL ({t5cfg.num_layers} layers), CLIP-L "
+        f"({clipcfg.num_layers}) and the FLUX VAE built and quantized in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return (dict(dit=dit, t5=t5, clip=clip, vae=vae),
+            dict(dit=FLUX_DEV_CONFIG, t5=t5cfg, clip=clipcfg, vae=vaecfg))
+
+
+def pipeline_ids(torch, dev, cfgs, seed):
+    """Random T5 and CLIP token ids (no tokenizer) from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randint(0, cfgs["t5"].vocab_size, (1, PIPE_T5),
+                          device=dev, generator=g),
+            torch.randint(0, cfgs["clip"].vocab_size, (1, PIPE_CLIP),
+                          device=dev, generator=g))
+
+
+def pipeline_request(torch, dev, models, cfgs, ids, seed, side=PIPE_SIDE,
+                     steps=PIPE_STEPS, mark=None):
+    """One request through the user's entry points: ``t5_encode``,
+    ``clip_encode`` (its pooled vector), ``flux_generate`` (noise from a
+    generator seeded ``seed``, guidance 3.5).  ``mark(stage)`` is called
+    after each stage.  Returns (T5 states, image)."""
+    from sdnq_tpu_torch.models import clip_encode, t5_encode
+    from sdnq_tpu_torch.pipeline import flux_generate
+    mark = mark or (lambda stage: None)
+    with torch.no_grad():
+        txt = t5_encode(models["t5"], ids[0], cfgs["t5"], device=dev)
+        mark("t5")
+        _, pooled = clip_encode(models["clip"], ids[1], cfgs["clip"],
+                                device=dev)
+        mark("clip")
+        image = flux_generate(
+            models["dit"], models["vae"], txt, pooled, dit_cfg=cfgs["dit"],
+            vae_cfg=cfgs["vae"], steps=steps, height=side, width=side,
+            guidance=3.5, generator=torch.Generator(device=dev).manual_seed(
+                seed), device=dev)
+        mark("generate")
+    return txt, image
+
+
+def pipeline_path(torch, dev, models, cfgs, resident, requests=2):
+    """``requests`` text-to-image requests at 1024x1024 with the launch
+    counts zeroed just before and read just after; CUDA events split each
+    request into T5, CLIP and ``flux_generate``, and one ``vae_decode``
+    timed alone splits the last into the Euler steps and the VAE.  The
+    peak memory is also given above ``resident``, the bytes that earlier
+    phases left allocated.  Every kernel mode in PIPE_REQUIRED must have
+    launched.  Returns the counts."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models import vae_decode
+
+    ids = [pipeline_ids(torch, dev, cfgs, 300 + r) for r in range(requests)]
+    n_img = (PIPE_SIDE // 16) ** 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    recs, images = [], []
+    for r in range(requests):
+        ev, seen = {}, {}
+
+        def mark(stage):
+            ev[stage] = torch.cuda.Event(enable_timing=True)
+            ev[stage].record()
+            seen[stage] = launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mark("start")
+        _, image = pipeline_request(torch, dev, models, cfgs, ids[r],
+                                    500 + r, mark=mark)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        images.append(image)
+        stages = ("start", "t5", "clip", "generate")
+        rec = {f"{b}_ms": ev[a].elapsed_time(ev[b])
+               for a, b in zip(stages, stages[1:])}
+        rec["launches"] = {b: {k: seen[b][k] - seen[a][k] for k in seen[b]
+                               if seen[b][k] - seen[a][k]}
+                           for a, b in zip(stages, stages[1:])}
+        rec["seconds_per_image"] = wall
+        recs.append(rec)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    resident /= 2**30
+    # the VAE alone, on a latent of the request's shape
+    lat = torch.randn(1, PIPE_SIDE // 8, PIPE_SIDE // 8,
+                      cfgs["vae"].latent_channels, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(9))
+    with torch.no_grad():
+        vae_ms = time_ms(lambda: vae_decode(models["vae"], lat, cfgs["vae"],
+                                            device=dev), reps=2, warmup=1)
+    del lat
+    for r, rec in enumerate(recs):
+        step_ms = (rec["generate_ms"] - vae_ms) / PIPE_STEPS
+        rec.update(vae_ms=vae_ms, ms_per_step=step_ms,
+                   image_tokens_per_s=n_img / step_ms * 1e3)
+        log(f"pipeline: request {r}: " + json.dumps(rec))
+    log("pipeline: " + json.dumps({
+        "requests": requests, "image_tokens": n_img, "steps": PIPE_STEPS,
+        "t5_tokens": PIPE_T5, "clip_tokens": PIPE_CLIP,
+        "t5_ms": statistics.mean(r["t5_ms"] for r in recs),
+        "clip_ms": statistics.mean(r["clip_ms"] for r in recs),
+        "ms_per_step": statistics.mean(r["ms_per_step"] for r in recs),
+        "vae_ms": vae_ms,
+        "seconds_per_image": statistics.mean(r["seconds_per_image"]
+                                             for r in recs),
+        "image_tokens_per_s": statistics.mean(r["image_tokens_per_s"]
+                                              for r in recs),
+        "peak_gib": peak, "peak_above_earlier_phases_gib": peak - resident,
+        "launches": {k: v for k, v in counts.items() if v}}))
+    for name in PIPE_REQUIRED:
+        check(counts[name] > 0, f"pipeline path launched {name}")
+    for image in images:
+        check(tuple(image.shape) == (1, PIPE_SIDE, PIPE_SIDE, 3)
+              and bool(torch.isfinite(image).all()),
+              f"pipeline image {tuple(image.shape)} finite")
+    if requests > 1:
+        check(not torch.equal(images[0], images[1]),
+              "pipeline: requests differ by their ids and noise")
+    return counts
+
+
+def pipeline_profile_phase(torch, dev, models, cfgs):
+    """One text-to-image request, traced."""
+    ids = pipeline_ids(torch, dev, cfgs, 600)
+    profile_step(torch, "pipeline request", lambda: pipeline_request(
+        torch, dev, models, cfgs, ids, 601), warm=0, after=1)
+
+
+# Limits of the pipeline slice check (T5 and CLIP cut to 2 layers, the DiT
+# to 1 double + 2 single blocks, the VAE whole; 2 Euler steps at 512x512,
+# kernels against the all-plain path on the card): "t5", the T5 states'
+# largest error over their largest entry; "image", the same over the image.
+# About twice the sound readings on the H100, 1.24e-2 and 3.26e-3: the
+# weight-only products sum in another order and round their bf16 outputs
+# differently, which the bf16 residual stream of T5 carries on.
+PIPE_SLICE_TOL = {"t5": 2.5e-2, "image": 7e-3}
+
+
+def cut_pipeline(models, cfgs):
+    """The first 2 layers of T5 and CLIP, 1 + 2 blocks of the DiT (``cut``),
+    the VAE whole, and the matching configs."""
+    import dataclasses
+    dit, dcfg = cut(models["dit"])
+    return (dict(dit=dit, vae=models["vae"],
+                 t5=dict(models["t5"], block=models["t5"]["block"][:2]),
+                 clip=dict(models["clip"],
+                           layers=models["clip"]["layers"][:2])),
+            dict(dit=dcfg, vae=cfgs["vae"],
+                 t5=dataclasses.replace(cfgs["t5"], num_layers=2),
+                 clip=dataclasses.replace(cfgs["clip"], num_layers=2)))
+
+
+def pipeline_slice_phase(torch, dev, sliced) -> dict:
+    """One request of the cut pipeline at 512x512 with 2 Euler steps
+    through the kernels against the all-plain path, both on the card."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    models, cfgs = sliced
+    ids = pipeline_ids(torch, dev, cfgs, 400)
+
+    def run():
+        return pipeline_request(torch, dev, models, cfgs, ids, 401,
+                                side=512, steps=2)
+    txt, image = run()
+    reset_launch_counts()
+    with plain_versions():
+        rtxt, rimage = run()
+    launched = launch_counts()
+    check(not any(launched.values()),
+          "slice pipeline: the plain path launched no kernel "
+          + json.dumps(launched))
+    readings = {k: float((a.float() - b.float()).abs().max()
+                         / b.float().abs().max())
+                for k, a, b in (("t5", txt, rtxt), ("image", image, rimage))}
+    log("slice pipeline: T5 and CLIP 2 layers, the DiT 1 + 2 blocks, the "
+        "VAE whole, 2 steps at 512x512, kernels against plain versions: "
+        + json.dumps(readings))
+    check(bool(torch.isfinite(image).all()), "slice pipeline: image finite")
+    for key, tol in PIPE_SLICE_TOL.items():
+        check(readings[key] <= tol, f"slice pipeline: kernel path vs plain "
+              f"path {key} {readings[key]:.3e} <= {tol:.1e}")
+    return readings
+
+
+# ---------------------------------------------------------------------------
 # phase 6: where one denoise step spends its device time
 # ---------------------------------------------------------------------------
 
@@ -1500,6 +1905,7 @@ _GROUPS = (
     ("B1 quantize_rows", ("quantize_rows_kernel",)),
     ("B4 scaled_gemm (B1 GEMM half)", ("scaled_mm_kernel",)),
     ("B2 dequant_gemv", ("dequant_gemv_kernel",)),
+    ("B2 dequant_mm (tiles)", ("dequant_mm_kernel",)),
     ("B3 flash_attention", ("flash_attn_kernel",)),
     ("B5 groupdot_mm", ("groupdot_mm_kernel<0",)),
     ("B6 blockdiag_mm", ("blockdiag_mm_kernel",)),
@@ -1509,7 +1915,9 @@ _GROUPS = (
     ("B10 scaled_mm_tn", ("scaled_mm_tn_kernel",)),
     ("fp64 products (attention_xla: decode, training backward)",
      ("f64", "dgemm", "Dgemm")),
-    ("softmax (attention_xla)", ("softmax",)),
+    ("softmax (attention_xla, the VAE's attention)", ("softmax",)),
+    ("cuDNN convolutions (the VAE)", ("fprop", "convolve", "implicit_gemm",
+                                      "winograd", "cudnn")),
     ("cuBLAS (unquantized linears, SVD factors, lm_head)", (
         "gemm", "gemv", "cutlass", "xmma", "nvjet")),
     ("torch elementwise / reductions", ("elementwise", "reduce", "cat",
@@ -1674,6 +2082,20 @@ FAULTS = (
     ("colscale_ignored", "quantize_rows", "quantize_rows:colscale", "train",
      [("if (cs) v = __fmul_rn(v, cs[k]);",
        "if (false) v = __fmul_rn(v, cs[k]);")]),
+    ("b2_scale_of_the_next_group", "dequant_mm", "dequant_mm:grouped",
+     "pipeline", [("s = scale[(size_t)dn * G + gi];",
+                   "s = scale[(size_t)dn * G + (gi + 1) % G];")]),
+    ("b2_drops_the_zero_point", "dequant_mm", "dequant_mm:grouped",
+     "pipeline", [("w = zp ? __fmaf_rn(w, s, z) : __fmul_rn(w, s);",
+                   "w = __fmul_rn(w, s);")]),
+    ("attn_float_mask_ignored_on_one_tile", "flash_attn",
+     "flash_attention:float_mask", "pipeline",
+     [("x = __fadd_rn(x, __fmul_rn(mask_val(a, mr, col), kLog2e));",
+       "x = kv0 == 128 ? x : __fadd_rn(x, __fmul_rn(mask_val(a, mr, col), "
+       "kLog2e));")]),
+    ("attn_float_mask_without_log2e", "flash_attn",
+     "flash_attention:float_mask", "pipeline",
+     [("__fmul_rn(mask_val(a, mr, col), kLog2e)", "mask_val(a, mr, col)")]),
 )
 
 
@@ -1730,6 +2152,10 @@ def fault_phase(torch, dev, slices, procs):
     Phase 3 must fail for the broken kernel; phase 5's reading (on the
     slice whose path runs the kernel; ``slices`` maps a label to a
     function returning its readings) are reported beside their limits."""
+    # every slice check's limits; "qlinear_b8" is the B8 qlinear check's
+    all_tol = {**{k: {"max": v} for k, v in SLICE_TOL.items()},
+               **LLM_SLICE_TOL, "qlinear_b8": {"max": 2 ** -7},
+               "train": TRAIN_SLICE_TOL, "pipeline": PIPE_SLICE_TOL}
     for tag, (proc, _) in procs.items():
         if proc.wait() != 0:
             check(False, f"fault {tag}: broken source built")
@@ -1743,7 +2169,7 @@ def fault_phase(torch, dev, slices, procs):
             readings = slices[label]()
         FAILURES[:] = sound  # the checks were meant to fail here
         caught = [r for r in rows if r["reading"] > r["tolerance"]]
-        tol = ALL_SLICE_TOL[label]
+        tol = all_tol[label]
         results.append(dict(
             fault=tag, kernel=kernel,
             phase3_failed=[f"{r['count']} {r['shape']}: {r['reading']:.3e}"
@@ -1856,6 +2282,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         train_slice_phase(torch, dev, train_cut)
 
+        resident = torch.cuda.memory_allocated()
+        models, pcfgs = build_pipeline(torch, dev)
+        counts["pipeline"] = pipeline_path(torch, dev, models, pcfgs,
+                                           resident)
+        pipe_cut = cut_pipeline(models, pcfgs)
+        pipeline_slice_phase(torch, dev, pipe_cut)
+        pipeline_profile_phase(torch, dev, models, pcfgs)
+
         for row in rows:
             row["launches"] = (counts[row["path"]][row["count"]]
                                if row["on_main_path"] else 0)
@@ -1867,6 +2301,8 @@ def main() -> int:
         checks["qlinear_b8"] = lambda: {"max": b8_qlinear_check(torch,
                                                                 dev)[1]}
         checks["train"] = lambda: train_slice_phase(torch, dev, train_cut)
+        checks["pipeline"] = lambda: pipeline_slice_phase(torch, dev,
+                                                          pipe_cut)
         fault_phase(torch, dev, checks, fault_procs)
     finally:  # no compiler outlives the script
         for proc, _ in fault_procs.values():

@@ -22,7 +22,7 @@ from .formats import (
 from .config import QuantConfig
 from .tensor import QTensor, QuantMeta, dequantize, quantize_tensor
 from .apply import quantize_model
-from .layers import qlinear
+from .layers import qconv, qlinear
 
 __all__ = [
     "FORMATS",
@@ -39,5 +39,6 @@ __all__ = [
     "dequantize",
     "quantize_model",
     "qlinear",
+    "qconv",
     "__version__",
 ]

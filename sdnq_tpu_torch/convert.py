@@ -1,7 +1,8 @@
 """Carry weights into the port from numpy.
 
 ``params_from_numpy`` turns a nested dict/list of numpy arrays (for example
-the JAX package's params after ``np.asarray``) into the port's params;
+the JAX package's params after ``np.asarray``, any rank: OIHW conv weights
+too), and of JAX QTensors among them, into the port's params;
 ``qtensor_from_numpy`` builds a QTensor from the arrays and metadata fields
 of a JAX ``QTensor``, so both packages can run on the same quantized bytes.
 ``train_params_from_numpy`` and ``opt_state_from_numpy`` carry a JAX
@@ -46,7 +47,9 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree, device=None):
     """Nested dict / list / tuple of numpy arrays -> the same structure of
-    tensors on ``device`` (the card by default)."""
+    tensors on ``device`` (the card by default); a QTensor of the JAX
+    package (read by its fields) becomes the port's QTensor on the same
+    bytes."""
     device = resolve_device(device)
 
     def conv(x):
@@ -56,6 +59,8 @@ def params_from_numpy(tree, device=None):
             return type(x)(conv(v) for v in x)
         if x is None or isinstance(x, (int, float, str, bool)):
             return x
+        if hasattr(x, "qdata") and hasattr(x, "meta"):
+            return _qtensor_like(x, device)
         return tensor_from_numpy(x, device)
 
     return conv(tree)

@@ -4,11 +4,16 @@
 //   bf16 QK:  s = q . k  with q already scaled by sm_scale * log2(e)
 //   int8 QK:  s = (q_q . k_q) * qs[i] * ks[j], qs carrying sm_scale * log2(e)
 //   s_ij = -1e30 where key j is masked: past KN, right of the diagonal
-//   (causal, i < j) or where the bool mask is 0.
+//   (causal, i < j) or where the bool mask is 0;
+//   s_ij += mask_ij * log2(e) with a float (additive) mask, whose -inf
+//   entries give p = 0.
 //
 // Replaces sdnq_tpu/kernels/attention.py `_attn_kernel` (:67, wrapper
-// `_attn_pallas` :192) in these modes: bf16 or int8 Q.K^T; bool masks read
-// through their strides (a head-broadcast mask is never materialised);
+// `_attn_pallas` :192) in these modes: bf16 or int8 Q.K^T; bool masks and
+// bf16 or fp32 additive masks (`mask_is_bool` False, :118-123: the score
+// in the exp2 domain plus mask * log2(e)), both read through their strides
+// (a head-broadcast mask such as T5's (1, H, N, N) relative position bias is
+// never materialised per batch);
 // causal, with the KV tiles wholly right of a block's last row skipped;
 // grouped KV heads (query head h of batch b reads KV head b * KH + h /
 // (H / KH), the JAX index map `b // q_per_kv`); P.V in bf16, or in int8
@@ -49,6 +54,8 @@ namespace {
 
 constexpr int BKV = 64;
 constexpr float NEG = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+enum { MASK_BOOL = 1, MASK_BF16 = 2, MASK_F32 = 3 };
 
 struct Args {
   const uint8_t* q;      // (BH, N, D) bf16 or int8
@@ -57,11 +64,16 @@ struct Args {
   const float* qs;       // (BH, N) int8 QK, else null
   const float* ks;       // (BKH, KN) int8 QK, else null
   const float* vs;       // (BKH, KN) token mode, else null
-  const uint8_t* mask;   // bool, element strides msb / msh / msn / msk, or null
+  const uint8_t* mask;   // element strides msb / msh / msn / msk, or null
   long long msb, msh, msn, msk;
+  int mkind;             // MASK_BOOL, MASK_BF16 or MASK_F32
   void* out;             // (BH, N, D)
   int N, KN, H, qpk, causal, pblock;
 };
+
+// A row whose every key is masked by -inf keeps the running max at its
+// -1e30 start, so exp2(-inf - m) = 0 and l = 0: the row's output is 0/1e-30
+// = 0, not NaN, as in the JAX kernel (:80, :186).
 
 // the last KV position (exclusive) a block of query rows q0 .. q0+bq-1 reads
 __device__ __forceinline__ int kv_stop(const Args& a, int q0, int bq) {
@@ -78,7 +90,15 @@ __device__ __forceinline__ size_t kv_head(const Args& a, size_t bh) {
 __device__ __forceinline__ const uint8_t* mask_row(const Args& a, size_t bh, int r) {
   if (!a.mask) return nullptr;
   const long long b = static_cast<long long>(bh / a.H), h = static_cast<long long>(bh % a.H);
-  return a.mask + b * a.msb + h * a.msh + static_cast<long long>(min(r, a.N - 1)) * a.msn;
+  const long long esz = a.mkind == MASK_F32 ? 4 : (a.mkind == MASK_BF16 ? 2 : 1);
+  return a.mask + (b * a.msb + h * a.msh + static_cast<long long>(min(r, a.N - 1)) * a.msn) * esz;
+}
+
+// the additive mask's entry at key col of a row from mask_row, as fp32
+__device__ __forceinline__ float mask_val(const Args& a, const uint8_t* mr, int col) {
+  const long long off = static_cast<long long>(col) * a.msk;
+  if (a.mkind == MASK_F32) return reinterpret_cast<const float*>(mr)[off];
+  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(mr)[off]);
 }
 
 // Q rows r0 and r1 = r0 + 8 as mma A fragments (zeros past N)
@@ -101,7 +121,9 @@ __device__ __forceinline__ void load_q(unsigned (&qf)[KSTEPS][4], const Args& a,
 // sK (row stride LDK bytes), scaled in int8 mode and masked: s[nt][0..1]
 // belong to row r0, s[nt][2..3] to r1, key kv0 + nt*8 + t4*2 + (i & 1).
 // `masked` / `causal` are compile-time constants where the caller knows
-// them, so the unmasked kernel carries none of the masking code.
+// them, so the unmasked kernel carries none of the masking code; whether a
+// mask is bool or additive is read from the arguments (uniform over the
+// launch).
 template <bool QUANT, int KSTEPS, int LDK>
 __device__ __forceinline__ void score_tile(float (&s)[BKV / 8][4], const unsigned (&qf)[KSTEPS][4],
                                            const uint8_t* sK, const float* sKs, float qs0,
@@ -125,6 +147,7 @@ __device__ __forceinline__ void score_tile(float (&s)[BKV / 8][4], const unsigne
         sdnq::mma_bf16(sacc[nt], qf[st], b);
     }
   const bool use_mask = masked && mr0 != nullptr;
+  const bool fmask = a.mkind != MASK_BOOL;
 #pragma unroll
   for (int nt = 0; nt < BKV / 8; ++nt)
 #pragma unroll
@@ -133,7 +156,13 @@ __device__ __forceinline__ void score_tile(float (&s)[BKV / 8][4], const unsigne
       float x = static_cast<float>(sacc[nt][i]);
       if (QUANT) x = (x * (i < 2 ? qs0 : qs1)) * sKs[col - kv0];
       bool keep = col < a.KN && !(causal && row < col);
-      if (use_mask && keep) keep = (i < 2 ? mr0 : mr1)[col * a.msk] != 0;
+      if (use_mask && keep) {
+        const uint8_t* mr = i < 2 ? mr0 : mr1;
+        if (fmask)
+          x = __fadd_rn(x, __fmul_rn(mask_val(a, mr, col), kLog2e));
+        else
+          keep = mr[col * a.msk] != 0;
+      }
       s[nt][i] = keep ? x : NEG;
     }
 }
@@ -174,7 +203,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 constexpr int WARPS = 8, NT = WARPS * 32, BQ = WARPS * 16;
 
-// MODE bit 0: bool mask; bit 1: causal
+// MODE bit 0: a mask (bool or additive); bit 1: causal
 template <int D, bool QUANT, int MODE, typename OutT>
 __global__ void __launch_bounds__(NT) flash_attn_kernel(const Args a) {
   constexpr int QB = QUANT ? D : 2 * D;  // bytes per Q / K row
@@ -509,23 +538,26 @@ int launch(const Args& a, int BH, int out_kind, cudaStream_t st) {
 // v (BH / qpk, KN, D) bf16, or int8 with vs (BH / qpk, KN) f32 (token mode,
 // P quantised per block of pblock keys: a multiple of 64 that divides KN, at
 // most 512); qs (BH, N), ks (BH / qpk, KN) f32 in int8 mode, else null;
-// mask a bool tensor read at b*msb + h*msh + row*msn + key*msk (elements)
-// for head bh = b*H + h, or null; causal 0/1; out (BH, N, D) of out_kind.
+// mask read at b*msb + h*msh + row*msn + key*msk (elements) for head bh =
+// b*H + h, or null: bool (mask_kind 1), or an additive bf16 (2) or fp32 (3)
+// mask; causal 0/1; out (BH, N, D) of out_kind.
 // D is 64 or 128; KN >= 1; qpk divides H and H divides BH.
 extern "C" int sdnq_flash_attn(const void* q, const void* k, const void* v, const void* qs,
                                const void* ks, const void* vs, const void* mask, long long msb,
                                long long msh, long long msn, long long msk, void* out, int BH,
                                int N, int KN, int D, int H, int qpk, int causal, int pblock,
-                               int quant, int out_kind, void* stream) {
+                               int quant, int mask_kind, int out_kind, void* stream) {
   if (KN < 1 || (D != 64 && D != 128) || H < 1 || qpk < 1 || H % qpk || BH % H)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mask && (mask_kind < MASK_BOOL || mask_kind > MASK_F32))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vs && (pblock < BKV || pblock > 512 || pblock % BKV || KN % pblock))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(k),
          static_cast<const uint8_t*>(v), static_cast<const float*>(qs),
          static_cast<const float*>(ks), static_cast<const float*>(vs),
-         static_cast<const uint8_t*>(mask), msb, msh, msn, msk, out, N, KN, H, qpk, causal,
-         pblock};
+         static_cast<const uint8_t*>(mask), msb, msh, msn, msk, mask_kind, out, N, KN, H, qpk,
+         causal, pblock};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;
   if (D == 64)

@@ -2,17 +2,19 @@
 
 Wrappers launch the CUDA kernel on CUDA tensors and run the plain version
 on CPU tensors; each counts its launches in ``<wrapper>.launches``, and
-``flash_attention``, ``quantize_rows`` and ``scaled_gemm`` also count their
-launches per mode in ``<wrapper>.mode_launches``.
+``flash_attention``, ``quantize_rows``, ``scaled_gemm``, ``dequant_gemv``
+and ``dequant_mm`` also count their launches per mode in
+``<wrapper>.mode_launches``.
 """
 
+from . import dequant_mm as _dequant_mm
 from .attention import flash_attention, quantized_attention
 from .dequant_mm import (
     blockdiag_i8_mm, blockdiag_mm, dequant_gemv, dequant_matmul,
     groupdot_i8_mm, groupdot_mm, packed_int8_matmul,
 )
-# (the function ``scaled_mm`` stays in its module, so that
-# ``kernels.scaled_mm`` names the module)
+# (the functions ``scaled_mm`` and ``dequant_mm`` stay in their modules, so
+# that ``kernels.scaled_mm`` and ``kernels.dequant_mm`` name the modules)
 from .scaled_mm import (
     bf16_scaled_mm, dynamic_mm_tn, quantize_rows, scaled_gemm,
     scaled_mm_fused_act, scaled_mm_tn,
@@ -23,6 +25,7 @@ KERNELS = {
     "quantize_rows": quantize_rows,
     "scaled_gemm": scaled_gemm,
     "dequant_gemv": dequant_gemv,
+    "dequant_mm": _dequant_mm.dequant_mm,
     "flash_attention": flash_attention,
     "groupdot_mm": groupdot_mm,
     "blockdiag_mm": blockdiag_mm,
@@ -31,7 +34,8 @@ KERNELS = {
     "scaled_mm_tn": scaled_mm_tn,
 }
 # the wrappers that also count their launches by mode
-_MODED = ("flash_attention", "quantize_rows", "scaled_gemm")
+_MODED = ("flash_attention", "quantize_rows", "scaled_gemm", "dequant_gemv",
+          "dequant_mm")
 
 
 def reset_launch_counts() -> None:
@@ -45,7 +49,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     """Launches by wrapper, and ``<wrapper>:<mode>`` by mode (B3's masked,
-    causal, gqa and int8_pv; B1's colscale; B4's nn)."""
+    float_mask, causal, gqa and int8_pv; B1's colscale; B4's nn; B2's
+    grouped GEMV, and the grouped and row modes of its tiles)."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     for name in _MODED:
         counts.update({f"{name}:{mode}": n

@@ -4,7 +4,9 @@ Kernel ``flash_attention`` (B3, ``csrc/flash_attn.cu``) beside its plain
 version and launch counters.  It replaces ``sdnq_tpu/kernels/attention.py``
 ``_attn_kernel`` in these modes: bf16 Q·Kᵀ with sm_scale·log2(e) folded
 into q, or int8 Q·Kᵀ with per-token scales (qs carrying sm_scale·log2(e)); bool
-masks; causal attention with its block skip; grouped KV heads; P·V in bf16,
+masks, and additive bf16 / fp32 masks (the score plus mask·log2(e), as T5's
+relative position bias reaches it); causal attention with its block skip;
+grouped KV heads; P·V in bf16,
 or in int8 on per-token-quantized V ("token" mode, P quantized once per
 block of ``p_block`` keys).  Softmax in base 2.  At FLUX's shape (24 heads,
 4608 tokens, head dim 128) and at Llama prefill it is bound by tensor-core
@@ -22,9 +24,9 @@ port of the JAX package's XLA function ``_attn_xla`` (``exp``, an fp32
 softmax, P quantized over the whole row), in plain torch on both devices:
 the JAX package computes that step outside any Pallas kernel.
 
-Still raising on both devices (later slices, ROADMAP queue B, B3): float
-additive masks, int8 P·V with one V scale per head (``pv_scale_mode=
-"head"``), fp8 Q·K; on the card, head dims other than 64 and 128.
+Still raising on both devices (later slices, ROADMAP queue B, B3): int8
+P·V with one V scale per head (``pv_scale_mode="head"``), fp8 Q·K; on the
+card, head dims other than 64 and 128.
 
 ``trainable_attention`` is ``quantized_attention`` with a gradient.  The
 JAX package cannot differentiate its attention kernel (``pallas_call`` has
@@ -59,6 +61,8 @@ LOG2E = math.log2(math.e)
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _L = ctypes.c_longlong
+# mask kinds of csrc/flash_attn.cu
+_MASK_KINDS = {torch.bool: 1, torch.bfloat16: 2, torch.float32: 3}
 
 
 def quantize_kv(k, v=None):
@@ -103,17 +107,21 @@ def _expand_kv(t, q_per_kv):
     return t if q_per_kv == 1 else t.repeat_interleave(q_per_kv, dim=0)
 
 
-def _mask_scores(s, b, h, mask, causal):
-    """s (B·H, N, KN) with -1e30 where the bool mask (broadcast to (B, H,
-    N, KN)) is False or, causal, right of the diagonal."""
+def _mask_scores(s, b, h, mask, causal, coef: float = 1.0):
+    """s (B·H, N, KN) with -1e30 where a bool mask (broadcast to (B, H, N,
+    KN)) is False or, causal, right of the diagonal; a float mask is added,
+    times ``coef`` (log2(e) in the exp2 domain)."""
     n, kn = s.shape[-2:]
     if causal:
         keep = (torch.arange(n, device=s.device)[:, None]
                 >= torch.arange(kn, device=s.device)[None, :])
         s = torch.where(keep, s, _NEG_INF)
     if mask is not None:
-        s = torch.where(mask.expand(b, h, n, kn).reshape(b * h, n, kn), s,
-                        _NEG_INF)
+        m = mask.expand(b, h, n, kn).reshape(b * h, n, kn)
+        if mask.dtype == torch.bool:
+            s = torch.where(m, s, _NEG_INF)
+        else:
+            s = s + m.float() * coef
     return s
 
 
@@ -128,8 +136,10 @@ def flash_attention_plain(q, k, v, q_scale=None, k_scale=None,
                           causal=False, v_scale=None, p_block=None):
     """Plain version of ``flash_attention``: q (B·H, N, D) float (pre-scaled
     q) or int8 with q_scale (B·H, N); k, v (B·KH, KN, D) with k_scale (B·KH,
-    KN); ``heads`` H (B·H when None); ``mask`` bool, broadcastable to (B,
-    H, N, KN); ``causal`` masks key j > query i.  Base-2 softmax.  With
+    KN); ``heads`` H (B·H when None); ``mask`` bool or additive float,
+    broadcastable to (B, H, N, KN); ``causal`` masks key j > query i.
+    Base-2 softmax, the additive mask times log2(e); the running max starts
+    at -1e30, so a row masked by -inf everywhere gives 0.  With
     ``v_scale`` (B·KH, KN), v holds int8 codes and P·V runs in token mode,
     P quantized per block of ``p_block`` keys; else P is rounded to v's
     dtype before P·V."""
@@ -143,9 +153,9 @@ def flash_attention_plain(q, k, v, q_scale=None, k_scale=None,
         s = s * q_scale.reshape(bh, n)[..., None] * k_scale[:, None, :]
     else:
         s = q.float() @ k.float().transpose(1, 2)
-    s = _mask_scores(s, bh // h, h, mask, causal)
+    s = _mask_scores(s, bh // h, h, mask, causal, LOG2E)
     if v_scale is None:
-        m = s.amax(-1, keepdim=True)
+        m = s.amax(-1, keepdim=True).clamp_min(_NEG_INF)
         p = torch.exp2(s - m)
         l = p.sum(-1, keepdim=True)
         acc = p.to(v.dtype).float() @ v.float()
@@ -182,7 +192,8 @@ def flash_attention(q, k, v, q_scale=None, k_scale=None,
     """Flash attention; see ``flash_attention_plain`` for the function.  On
     the card: q, k bf16 (or int8 with scales), v bf16 (or int8 with
     ``v_scale``), D in {64, 128}; a token-mode ``p_block`` is a multiple
-    of 64 up to 512 that divides KN."""
+    of 64 up to 512 that divides KN; the mask bool, bf16 or fp32 (another
+    float dtype is read as fp32), read through its strides."""
     kw = dict(heads=heads, mask=mask, causal=causal, v_scale=v_scale,
               p_block=p_block)
     if not is_cuda(q):
@@ -215,30 +226,34 @@ def flash_attention(q, k, v, q_scale=None, k_scale=None,
     ks = k_scale.reshape(bkh, kn).float().contiguous() if quant else None
     vs = (v_scale.reshape(bkh, kn).float().contiguous()
           if v_scale is not None else None)
-    strides = (0, 0, 0, 0)
+    strides, mkind = (0, 0, 0, 0), 0
     if mask is not None:
-        if mask.dtype != torch.bool:
-            raise ValueError(f"the kernel takes bool masks, not {mask.dtype}")
+        if mask.dtype not in _MASK_KINDS:
+            if not mask.is_floating_point():
+                raise ValueError(f"masks are bool or float, not {mask.dtype}")
+            mask = mask.float()
+        mkind = _MASK_KINDS[mask.dtype]
         mask = mask.expand(bh // h, h, n, kn)
         strides = tuple(mask.stride())
     out = torch.empty((bh, n, d), dtype=out_dtype, device=q.device)
     if n:
         fn = _build.function("flash_attn", "sdnq_flash_attn",
-                             [P] * 7 + [_L] * 4 + [P] + [I] * 10 + [P])
+                             [P] * 7 + [_L] * 4 + [P] + [I] * 11 + [P])
         _build.check(fn(*(_build.ptr(t) for t in (q, k, v, qs, ks, vs, mask)),
                         *strides, _build.ptr(out), bh, n, kn, d, h, qpk,
-                        int(causal), int(p_block or 0), int(quant),
+                        int(causal), int(p_block or 0), int(quant), mkind,
                         _build.act_kind(out_dtype), _build.stream(q)),
                      "flash_attention")
         flash_attention.launches += 1
-        _mode_counts(masked=mask is not None, causal=causal, gqa=qpk > 1,
-                     int8_pv=v_scale is not None)
+        _mode_counts(masked=mkind == 1, float_mask=mkind > 1, causal=causal,
+                     gqa=qpk > 1, int8_pv=v_scale is not None)
     return out
 
 
 flash_attention.launches = 0
 # launches of the kernel in each mode (a launch may count in several)
-flash_attention.mode_launches = dict(masked=0, causal=0, gqa=0, int8_pv=0)
+flash_attention.mode_launches = dict(masked=0, float_mask=0, causal=0, gqa=0,
+                                     int8_pv=0)
 
 
 def attention_xla(q, k, v, q_scale=None, k_scale=None, v_scale=None,
@@ -247,9 +262,10 @@ def attention_xla(q, k, v, q_scale=None, k_scale=None, v_scale=None,
     """The JAX package's ``_attn_xla`` in torch, with grouped KV heads read
     in place (not repeated): q (B·H, N, D) float or int8 with q_scale (B·H,
     N) carrying sm_scale; k, v (B·KH, KN, D), int8 k with k_scale; int8 v
-    with v_scale runs P·V quantized over the whole row.  Natural-base
-    softmax in fp32.  The products run in float64, exact for the int8
-    codes whatever the card's TF32 setting, and are rounded to fp32."""
+    with v_scale runs P·V quantized over the whole row; a float mask is
+    added to the scores.  Natural-base softmax in fp32.  The products run
+    in float64, exact for the int8 codes whatever the card's TF32 setting,
+    and are rounded to fp32."""
     bh, n, d = q.shape
     bkh, kn = k.shape[:2]
     qpk, b = bh // bkh, bh // heads
@@ -286,9 +302,11 @@ def quantized_attention(query, key, value, attn_mask=None,
     """Scaled-dot-product attention over query (B, H, N, D) and key / value
     (B, KH, KN, D), H a multiple of KH.  ``matmul_dtype`` in {"int8",
     "auto", None}; "default" reads SDNQ_TPU_ATTN_MATMUL_DTYPE (int8 when
-    unset), as the JAX package does.  ``attn_mask`` bool, broadcastable to
-    (B, H, N, KN).  ``kv_scales=(k_scale, v_scale)`` marks key (and value,
-    unless v_scale is None) as pre-quantized int8 with per-token scales
+    unset), as the JAX package does.  ``attn_mask`` bool (False masks a
+    key) or float (added to the scores, in its own dtype on the kernel
+    route), broadcastable to (B, H, N, KN).  ``kv_scales=(k_scale,
+    v_scale)`` marks key (and value, unless v_scale is None) as
+    pre-quantized int8 with per-token scales
     (B, KH, KN); int8 value runs P·V in token mode, as does
     ``pv_matmul_dtype="int8"`` with ``pv_scale_mode="token"``.
     ``force_xla`` takes the XLA route whatever the shape (the JAX
@@ -316,8 +334,6 @@ def quantized_attention(query, key, value, attn_mask=None,
     if h % kh:
         raise ValueError(f"{h} query heads do not group over {kh} KV heads")
     missing = [what for what, on in (
-        ("float attention masks",
-         attn_mask is not None and attn_mask.dtype != torch.bool),
         ("int8 P·V with one V scale per head (pv_scale_mode='head')",
          do_quant_pv and not kv_prequant and pv_scale_mode == "head"),
         (f"{matmul_dtype} Q·K", do_quant and matmul_dtype != "int8"))

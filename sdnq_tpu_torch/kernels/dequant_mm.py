@@ -2,14 +2,26 @@
 
 Kernels, each beside its plain PyTorch version and a launch counter:
 
-* ``dequant_gemv`` — B2, ``csrc/dequant_gemv.cu``.  Replaces
-  ``sdnq_tpu/kernels/dequant_mm.py`` ``_dequant_mm_kernel`` in its unpacked
-  rowwise ``row_epi`` mode: rowwise scales commute with the K sum, so
+* ``dequant_gemv`` (M <= 32, ``csrc/dequant_gemv.cu``) and ``dequant_mm``
+  (any M, tensor-core tiles, ``csrc/dequant_mm.cu``) — B2.  They replace
+  ``sdnq_tpu/kernels/dequant_mm.py`` ``_dequant_mm_kernel`` in its
+  unpacked modes, on int8, uint8 (with a zero point) and e4m3 codes:
 
-      y = (x @ codesᵀ) * scale[o] + rowsum(x) * zp[o] + bias[o]
+  - rowwise (``row_epi``): rowwise scales commute with the K sum, so
 
-  and the codes enter the dot as plain integers.  At M <= 32 it is a GEMV
-  bound by the bytes of the weight.
+        y = (x @ codesᵀ) * scale[o] + rowsum(x) * zp[o] + bias[o]
+
+    and the codes enter the dot exactly;
+  - grouped (scales (O, G), G > 1, as SDNQ's default int8 recipe stores
+    every linear: auto groups of 1024): the TPU kernel decodes each weight
+    tile into a scratch of x's dtype, so every scaled weight ``code *
+    scale + zp`` is ROUNDED TO x's DTYPE (bf16 on the card) before the
+    product, and the bias is added in fp32.  That rounding point is the
+    function; the group-dot algebra of B5 would compute another number.
+
+  The plain version of both is ``dequant_gemv_plain``: the row epilogue in
+  fp32, or ``_dequantized_dot`` for grouped scales.  At M <= 32 the GEMV is
+  bound by the bytes of the weight; above, the tiles by the tensor cores.
 * ``groupdot_mm`` — B5, ``csrc/groupdot_mm.cu``.  Replaces
   ``_groupdot_kernel``: weight-only GEMM on half-split packed integer codes.
 * ``blockdiag_mm`` — B6, ``csrc/blockdiag_mm.cu``.  Replaces
@@ -36,7 +48,9 @@ need no rounding points of their own.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version.  ``dequant_matmul`` and
-``packed_int8_matmul`` route to them.
+``packed_int8_matmul`` route to them.  Still raising on the card: packed
+bit-plane codes (B2's packed mode) and half-split codes other than 1-, 2-
+and 4-bit integers (ROADMAP queue B).
 """
 
 from __future__ import annotations
@@ -49,7 +63,8 @@ from ._build import P, I
 from .dispatch import is_cuda
 from ..packing import halfsplit_planes, unpack, unpack_codes_halfsplit
 
-__all__ = ["dequant_gemv", "dequant_gemv_plain", "groupdot_mm",
+__all__ = ["dequant_gemv", "dequant_gemv_plain", "dequant_mm",
+           "dequant_mm_plain", "groupdot_mm",
            "groupdot_mm_plain", "blockdiag_mm", "blockdiag_mm_plain",
            "groupdot_i8_mm", "groupdot_i8_mm_plain", "blockdiag_i8_mm",
            "blockdiag_i8_mm_plain", "packed_int8_route_ok", "dequant_matmul",
@@ -93,12 +108,27 @@ _BLOCKDIAG_VMEM_BYTES = int(100 * 1024 * 1024 * 0.9)
 
 
 # ---------------------------------------------------------------------------
-# B2: rowwise weight-only GEMV
+# B2: unpacked weight-only products (rowwise and grouped scales)
 # ---------------------------------------------------------------------------
 
+# code kinds of csrc/dequant_gemv.cu and csrc/dequant_mm.cu
+_CODE_KINDS = {torch.int8: 0, torch.uint8: 1, torch.float8_e4m3fn: 2}
+
+
+def _groups(scale) -> int:
+    """Groups along K of a (O,), (O, 1) or (O, G) scale."""
+    return scale.shape[-1] if scale.dim() == 2 else 1
+
+
 def dequant_gemv_plain(x, codes, scale, zp, bias, out_dtype):
-    """Plain version of ``dequant_gemv``, in fp32: ``(x @ codesᵀ) * scale
-    [+ rowsum(x) * zp] [+ bias]``."""
+    """Plain version of ``dequant_gemv`` and ``dequant_mm``.  Rowwise
+    (scale (O,) or (O, 1)): in fp32, ``(x @ codesᵀ) * scale [+ rowsum(x) *
+    zp] [+ bias]``.  Grouped (scale (O, G), G > 1): ``_dequantized_dot``,
+    the weight rounded to x's dtype before the product."""
+    groups = _groups(scale)
+    if groups > 1:
+        return _dequantized_dot(x, codes.float(), scale, zp, bias,
+                                codes.shape[1] // groups, out_dtype)
     xf = x.float()
     out = (xf @ codes.float().T) * scale.reshape(1, -1).float()
     if zp is not None:
@@ -108,10 +138,31 @@ def dequant_gemv_plain(x, codes, scale, zp, bias, out_dtype):
     return out.to(out_dtype)
 
 
+# the tile kernel computes the GEMV's function
+dequant_mm_plain = dequant_gemv_plain
+
+
+def _code_kind(codes, name):
+    if codes.dtype not in _CODE_KINDS:
+        raise ValueError(f"{name} takes int8 / uint8 / float8_e4m3fn codes, "
+                         f"not {codes.dtype}")
+    return _CODE_KINDS[codes.dtype]
+
+
+def _operands(scale, zp, bias):
+    """fp32 contiguous (O, G) scale and zero point, (O,) bias."""
+    o, groups = scale.shape[0], _groups(scale)
+    scale = scale.reshape(o, groups).float().contiguous()
+    zp = None if zp is None else zp.reshape(o, groups).float().contiguous()
+    bias = None if bias is None else bias.reshape(-1).float().contiguous()
+    return scale, zp, bias
+
+
 def dequant_gemv(x, codes, scale, zp=None, bias=None,
                  out_dtype=torch.bfloat16):
-    """Row-epilogue weight-only product for x (M, K), M <= 32 on the card;
-    codes (O, K) int8 or uint8; scale / zp (O,) or (O, 1); bias (O,)."""
+    """Weight-only GEMV for x (M, K), M <= 32 on the card, fp32 / bf16 /
+    fp16; codes (O, K) int8, uint8 or e4m3; scale / zp (O,), (O, 1) or
+    (O, G) with K / G a multiple of 8; bias (O,)."""
     if not is_cuda(x):
         return dequant_gemv_plain(x, codes, scale, zp, bias, out_dtype)
     m, k = x.shape
@@ -119,31 +170,76 @@ def dequant_gemv(x, codes, scale, zp=None, bias=None,
     if not 1 <= m <= GEMV_MAX_ROWS:
         raise ValueError(
             f"dequant_gemv takes 1..{GEMV_MAX_ROWS} rows, got {m}")
-    if codes.dtype not in (torch.int8, torch.uint8):
-        raise ValueError(f"dequant_gemv takes int8/uint8 codes, not "
-                         f"{codes.dtype}")
-    pad = (-k) % 8  # the kernel reads codes 8 at a time
+    kind = _code_kind(codes, "dequant_gemv")
+    groups = _groups(scale)
+    if groups > 1 and (k % groups or (k // groups) % 8):
+        raise ValueError(f"dequant_gemv: group {k / groups} of K {k} is not "
+                         "a multiple of 8")
+    pad = (-k) % 8  # the kernel reads codes 8 at a time (rowwise only)
     if pad:
         x = F.pad(x, (0, pad))
-        codes = F.pad(codes, (0, pad))
+        codes = F.pad(codes.view(torch.uint8), (0, pad)).view(codes.dtype)
     x, codes = x.contiguous(), codes.contiguous()
-    scale = scale.reshape(-1).float().contiguous()
-    zp = None if zp is None else zp.reshape(-1).float().contiguous()
-    bias = None if bias is None else bias.reshape(-1).float().contiguous()
+    scale, zp, bias = _operands(scale, zp, bias)
     out = torch.empty((m, o), dtype=out_dtype, device=x.device)
     fn = _build.function("dequant_gemv", "sdnq_dequant_gemv",
-                         [P, P, P, P, P, P, I, I, I, I, I, I, P])
+                         [P] * 6 + [I] * 7 + [P])
     _build.check(fn(*(_build.ptr(t) for t in (x, codes, scale, zp, bias,
                                               out)),
-                    m, k + pad, o, _build.act_kind(x.dtype),
-                    int(codes.dtype == torch.uint8),
+                    m, k + pad, o, groups, _build.act_kind(x.dtype), kind,
                     _build.act_kind(out_dtype), _build.stream(x)),
                  "dequant_gemv")
     dequant_gemv.launches += 1
+    if groups > 1:
+        dequant_gemv.mode_launches["grouped"] += 1
     return out
 
 
 dequant_gemv.launches = 0
+dequant_gemv.mode_launches = dict(grouped=0)
+
+
+def dequant_mm(x, codes, scale, zp=None, bias=None,
+               out_dtype=torch.bfloat16):
+    """Weight-only GEMM on tensor-core tiles: x (M, K), bf16 on the card;
+    codes (O, K) int8, uint8 or e4m3; scale / zp (O,) or (O, 1) (row mode)
+    or (O, G) (grouped, any group K / G); bias (O,)."""
+    if not is_cuda(x):
+        return dequant_mm_plain(x, codes, scale, zp, bias, out_dtype)
+    m, k = x.shape
+    o = codes.shape[0]
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"dequant_mm takes bf16 x, not {x.dtype}")
+    kind = _code_kind(codes, "dequant_mm")
+    groups = _groups(scale)
+    if codes.shape[1] != k or k % groups:
+        raise ValueError(f"dequant_mm: codes {tuple(codes.shape)} and "
+                         f"{groups} groups do not fit x {tuple(x.shape)}")
+    kp = -(-k // 16) * 16  # rows of 16-byte stages; the kernel masks k >= K
+    if kp != k:
+        x = F.pad(x, (0, kp - k))
+        codes = F.pad(codes.view(torch.uint8), (0, kp - k))
+    x, codes = x.contiguous(), codes.contiguous()
+    scale, zp, bias = _operands(scale, zp, bias)
+    row = groups == 1
+    xsum = (x.float().sum(-1).contiguous() if row and zp is not None
+            else None)
+    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
+    if m and o:
+        fn = _build.function("dequant_mm", "sdnq_dequant_mm",
+                             [P] * 7 + [I] * 8 + [P])
+        _build.check(fn(*(_build.ptr(t) for t in (x, codes, scale, zp, xsum,
+                                                  bias, out)),
+                        m, k, kp, o, groups, kind, int(row),
+                        _build.act_kind(out_dtype), _build.stream(x)),
+                     "dequant_mm")
+        dequant_mm.launches += 1
+        dequant_mm.mode_launches["row" if row else "grouped"] += 1
+    return out
+
+
+dequant_mm.launches = 0
+dequant_mm.mode_launches = dict(grouped=0, row=0)
 
 
 # ---------------------------------------------------------------------------
@@ -409,12 +505,20 @@ def _packed_dequant_matmul(x, wq, scale, zero_point, bias, fmt, g,
 
 
 def _dequantized_dot(x, vals, scale, zero_point, bias, g, out_dtype):
-    """CPU only: scale the (O, K) values groupwise, round the weight to x's
-    dtype, one product (the JAX package's XLA route)."""
+    """Scale the (O, K) values groupwise, round the weight to x's dtype,
+    one product in fp32 (the JAX package's XLA route, and the function of
+    its grouped kernel mode).  ``vals * scale + zero_point`` is rounded to
+    fp32 once, as XLA fuses it into one multiply-add (computed here in
+    float64, where the product of a code and an fp32 scale is exact).
+    Plain torch: the CPU's route, and the plain version of B2's grouped
+    mode."""
     o, kdim = vals.shape
-    vals = vals.reshape(o, kdim // g, g) * scale.reshape(o, -1, 1).float()
     if zero_point is not None:
-        vals = vals + zero_point.reshape(o, -1, 1).float()
+        vals = (vals.reshape(o, kdim // g, g).double()
+                * scale.reshape(o, -1, 1).double()
+                + zero_point.reshape(o, -1, 1).double()).float()
+    else:
+        vals = vals.reshape(o, kdim // g, g) * scale.reshape(o, -1, 1).float()
     w = vals.reshape(o, kdim).to(x.dtype)
     out = x.float() @ w.float().T
     if bias is not None:
@@ -426,30 +530,26 @@ def dequant_matmul(x, wq, scale, zero_point, bias, fmt, group_size: int,
                    out_dtype=torch.bfloat16, pack_layout: str = "bitplane"):
     """y = x @ dequant(wq).T + bias, weight-only.
 
-    x (M, K) float; wq (O, K) int8/uint8 codes, or packed uint8 in
-    ``pack_layout``; scale / zero_point (O, G) groupwise along K;
-    ``group_size`` the K span of one group.  Half-split 1/2/4-bit integer
-    codes take B6 on up to BLOCKDIAG_MAX_ROWS rows and B5 above; rowwise
-    unpacked codes take B2."""
+    x (M, K) float; wq (O, K) int8 / uint8 / e4m3 codes, or packed uint8
+    in ``pack_layout``; scale / zero_point (O, G) groupwise along K;
+    ``group_size`` the K span of one group.  Unpacked codes take B2 at any
+    M, rowwise or grouped: the GEMV (``dequant_gemv``) on up to
+    GEMV_MAX_ROWS rows (grouped: where the group is a multiple of 8), the
+    tensor-core tiles (``dequant_mm``) otherwise, x cast to bf16 there on
+    the card as the JAX wrapper casts it on the chip.  Half-split 1/2/4-bit
+    integer codes take B6 on up to BLOCKDIAG_MAX_ROWS rows and B5 above.
+    Bit-plane and other packed codes raise on the card."""
     m, kdim = x.shape
     g = group_size if group_size > 0 else kdim
     if fmt.is_packed:
         return _packed_dequant_matmul(x, wq, scale, zero_point, bias, fmt,
                                       g, out_dtype, pack_layout)
     groups = scale.shape[-1]
-    if groups == 1:
-        if is_cuda(x) and m > GEMV_MAX_ROWS:
-            raise NotImplementedError(
-                f"weight-only matmul on {m} rows: the card's B2 kernel takes "
-                f"at most {GEMV_MAX_ROWS}; more rows are a later slice of "
-                "the port (ROADMAP queue B, B2)")
+    if m <= GEMV_MAX_ROWS and (groups == 1 or (kdim // groups) % 8 == 0):
         return dequant_gemv(x, wq, scale, zero_point, bias, out_dtype)
-    if is_cuda(x):
-        raise NotImplementedError(
-            "grouped-scale weight-only matmul (B2 grouped mode) is a later "
-            "slice of the port (ROADMAP queue B, B2)")
-    return _dequantized_dot(x, wq.float(), scale, zero_point, bias, g,
-                            out_dtype)
+    if is_cuda(x) and x.dtype != torch.bfloat16:
+        x = x.to(torch.bfloat16)   # the tensor cores multiply bf16
+    return dequant_mm(x, wq, scale, zero_point, bias, out_dtype)
 
 
 def _blockdiag_resident_ok(mg: int, kdim: int, bits: int,

@@ -20,6 +20,28 @@
 ``qembedding`` gathers rows of an embedding table and, for a quantized
 table, dequantizes only the gathered rows (no kernel in either package).
 
+``qconv`` is the JAX package's quantized convolution.  Activations are NHWC
+as in the JAX package (its TPU-native layout) and weights OIHW (the
+checkpoints' order; (C_in, C_out, *k) for a transposed conv).  torch's
+convolutions take (N, C, *spatial): ``x.movedim(-1, 1)`` is that view of
+the NHWC memory (a channels_last tensor, no copy), cuDNN keeps the output
+channels_last, and ``movedim(1, -1)`` returns it to NHWC, again without a
+copy.  ``F.conv2d`` / ``F.conv_transpose2d`` stand for
+``lax.conv_general_dilated`` / ``lax.conv_transpose``, which the JAX
+package runs outside any Pallas kernel; their padding follows JAX's
+("SAME", "VALID" or (lo, hi) pairs), with an explicit pad or crop where the
+two sides differ.  Routes, as in JAX:
+
+* weight-only (or an unquantized weight, or a transposed conv): the weight
+  dequantized to x's dtype, one convolution, the bias added in x's dtype;
+* quantized matmul (``meta.use_quantized_matmul``): im2col (``F.unfold``,
+  features channel-major C·prod(k) like ``conv_general_dilated_patches``
+  and the OIHW flatten), then the quantized-matmul GEMM (B1 + B4) from 32
+  patch rows, else the weight-only product (B2); a grouped conv takes a
+  batched product over its groups in plain torch (the JAX package's XLA
+  batched ``dot_general``), in float64 where its operands are integer
+  codes, so the sums are exact.
+
 A Hadamard-rotated weight rotates the input instead.  SVD factors add
 ``(x @ downᵀ) @ upᵀ`` in plain torch: after the kernel in fp32 on the
 quantized-matmul route; on the weight-only route in the factors' dtype,
@@ -44,7 +66,7 @@ from .quant.core import quantize_fp_mm, quantize_int_mm, quantize_uint_mm
 from .quant.hadamard import rotate_hadamard
 from .tensor import QTensor, dequantize
 
-__all__ = ["qlinear", "qembedding"]
+__all__ = ["qlinear", "qembedding", "qconv"]
 
 
 def _min_matmul_rows() -> int:
@@ -246,3 +268,218 @@ def _row_meta(meta, rows: int):
     return dataclasses.replace(
         meta, original_shape=(rows,) + tuple(meta.original_shape[1:]),
         quantized_shape=(rows,) + tuple(meta.quantized_shape[1:]))
+
+
+# ---------------------------------------------------------------------------
+# Convolution
+# ---------------------------------------------------------------------------
+
+def _tuple(v, nd: int) -> tuple:
+    return (v,) * nd if isinstance(v, int) else tuple(v)
+
+
+def _conv_pads(padding, in_sizes, kernel, stride, dilation):
+    """JAX's padding argument as (lo, hi) per spatial dim of a forward
+    convolution ("SAME": out = ceil(in / stride), the odd pixel high)."""
+    if not isinstance(padding, str):
+        return [tuple(int(v) for v in p) for p in padding]
+    mode = padding.upper()
+    if mode == "VALID":
+        return [(0, 0)] * len(in_sizes)
+    if mode != "SAME":
+        raise ValueError(f"padding {padding!r}")
+    pads = []
+    for n, k, st, d in zip(in_sizes, kernel, stride, dilation):
+        total = max((-(-n // st) - 1) * st + d * (k - 1) + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _pad_nc(xc, pads):
+    """F.pad of an (N, C, *spatial) tensor by (lo, hi) per spatial dim
+    (negative values crop)."""
+    flat = []
+    for lo, hi in reversed(pads):
+        flat += [lo, hi]
+    return F.pad(xc, flat)
+
+
+def _padded(xc, pads):
+    """(input, torch padding) for JAX's (lo, hi) pads: equal sides go to
+    torch's padding argument, others are padded (or cropped) here."""
+    if all(lo == hi >= 0 for lo, hi in pads):
+        return xc, tuple(lo for lo, _ in pads)
+    return _pad_nc(xc, pads), (0,) * len(pads)
+
+
+def _conv_nhwc(x, wd, stride, padding, dilation, groups=1):
+    """lax.conv_general_dilated on NHWC x and an OIHW weight."""
+    nd = x.dim() - 2
+    xc = x.movedim(-1, 1)
+    xc, pad = _padded(xc, _conv_pads(padding, xc.shape[2:], wd.shape[2:],
+                                     stride, dilation))
+    conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
+    return conv(xc, wd, stride=stride, padding=pad, dilation=dilation,
+                groups=groups).movedim(1, -1)
+
+
+def _conv_transpose_nhwc(x, wd, stride, padding, dilation):
+    """lax.conv_transpose(transpose_kernel=True) on NHWC x and the stored
+    (C_in, C_out, *k) weight, which is torch's own layout for it.  The JAX
+    function is a convolution of the stride-dilated x padded by (lo, hi);
+    F.conv_transpose computes the one padded by k_eff - 1 on both sides, so
+    its edges are cropped (or zero-extended) to JAX's padding."""
+    nd = x.dim() - 2
+    conv_t = (F.conv_transpose1d, F.conv_transpose2d,
+              F.conv_transpose3d)[nd - 1]
+    out = conv_t(x.movedim(-1, 1), wd, stride=stride, dilation=dilation)
+    keff = [d * (k - 1) + 1 for k, d in zip(wd.shape[2:], dilation)]
+    if isinstance(padding, str):
+        mode = padding.upper()
+        pads = []
+        for k, st in zip(keff, stride):
+            if mode == "SAME":
+                total = k + st - 2
+                lo = k - 1 if st > k - 1 else -(-total // 2)
+            elif mode == "VALID":
+                total, lo = k + st - 2 + max(k - st, 0), k - 1
+            else:
+                raise ValueError(f"padding {padding!r}")
+            pads.append((lo, total - lo))
+    else:
+        pads = [tuple(int(v) for v in p) for p in padding]
+    out = _pad_nc(out, [(lo - (k - 1), hi - (k - 1))
+                        for (lo, hi), k in zip(pads, keff)])
+    return out.movedim(1, -1)
+
+
+def _patches(x, kshape, stride, padding, dilation):
+    """lax.conv_general_dilated_patches on NHWC x: (N, *out, C·prod(k)),
+    features channel-major (c, *k), as the OIHW flatten of the weight."""
+    if x.dim() != 4:
+        raise NotImplementedError("im2col takes 2-D convolutions (F.unfold)")
+    xc = x.movedim(-1, 1)
+    xc, pad = _padded(xc, _conv_pads(padding, xc.shape[2:], kshape, stride,
+                                     dilation))
+    cols = F.unfold(xc, kshape, dilation=dilation, padding=pad,
+                    stride=stride)                        # (N, C·k, L)
+    sizes = [(n + 2 * p - d * (k - 1) - 1) // st + 1 for n, p, k, st, d in
+             zip(xc.shape[2:], pad, kshape, stride, dilation)]
+    return cols.transpose(1, 2).reshape(x.shape[0], *sizes, -1)
+
+
+def _grouped_quantized_matmul(x2d, qt: QTensor, bias, out_dtype,
+                              groups: int):
+    """The JAX package's grouped quantized GEMM (M, G·CgK) × (O, CgK) ->
+    (M, O), O = G·Og: per-group row quantization and a batched product
+    over the groups, the zero-point algebra and SVD factors per group."""
+    meta = qt.meta
+    mfmt = meta.matmul_format
+    m, o = x2d.shape[0], meta.original_shape[0]
+    og, cgk = o // groups, x2d.shape[-1] // groups
+    if meta.use_hadamard:
+        x2d = rotate_hadamard(x2d.reshape(m * groups, cgk),
+                              meta.hadamard_group_size).reshape(m, -1)
+    xg = x2d.reshape(m, groups, cgk).transpose(0, 1)       # (G, M, CgK)
+    if meta.re_quantize_for_matmul:
+        w_q, w_scale, w_zp = _requantize_rowwise(qt)
+    elif mfmt.is_integer:
+        w_q, w_scale, w_zp = _weight_as_int8(qt)
+    else:
+        w_q = qt.qdata.reshape(qt.qdata.shape[0], -1)
+        w_scale, w_zp = qt.scale.reshape(qt.scale.shape[0], -1), None
+    wg = w_q.reshape(groups, og, cgk)
+    ws = w_scale.reshape(groups, og, 1).transpose(1, 2).float()  # (G,1,Og)
+    wz = (None if w_zp is None
+          else w_zp.reshape(groups, og, 1).transpose(1, 2).float())
+
+    def exact_bmm(a, b):  # integer codes: exact sums in float64
+        return (a.double() @ b.double().transpose(1, 2)).float()
+
+    if mfmt.is_integer:
+        if wz is not None or mfmt.is_unsigned:
+            x_q, x_scale, x_zp = quantize_uint_mm(xg.float(), -1)
+            if wz is None:
+                wz = torch.zeros((groups, 1, og), device=x2d.device)
+            out = exact_bmm(x_q, wg) * x_scale * ws
+            x_rowsum = x_q.to(torch.int32).sum(-1, keepdim=True).float()
+            w_colsum = wg.to(torch.int32).sum(-1).float().reshape(
+                groups, 1, og)
+            out = out + x_rowsum * x_scale * wz
+            out = out + x_zp * (w_colsum * ws + float(cgk) * wz)
+        else:
+            x_q, x_scale = quantize_int_mm(xg.float(), -1)
+            out = exact_bmm(x_q, wg) * x_scale * ws
+    elif mfmt.num_bits == 8:
+        x_q, x_scale = quantize_fp_mm(xg.float(), -1, fmt=mfmt)
+        out = (x_q.float() @ wg.to(torch.float8_e4m3fn).float()
+               .transpose(1, 2)) * x_scale * ws
+    else:
+        out = (xg.to(torch.bfloat16).float()
+               @ wg.to(torch.bfloat16).float().transpose(1, 2)) * ws
+    if qt.svd_up is not None:
+        t = xg.float() @ qt.svd_down.float().T                # (G, M, R)
+        upg = qt.svd_up.float().reshape(groups, og, -1).transpose(1, 2)
+        out = out + t @ upg
+    if bias is not None:
+        out = out + bias.float().reshape(groups, 1, og)
+    return out.transpose(0, 1).reshape(m, o).to(out_dtype)
+
+
+def _qconv_im2col(x, qt: QTensor, bias, stride, padding, dilation,
+                  out_dtype, groups: int = 1):
+    """im2col, then the quantized linear routes on the (M, C·prod(k))
+    patch rows."""
+    kshape = tuple(qt.meta.original_shape[2:])
+    patches = _patches(x, kshape, stride, padding, dilation)
+    lead = patches.shape[:-1]
+    m2d = patches.reshape(-1, patches.shape[-1])
+    use_mm = (qt.meta.use_quantized_matmul
+              and m2d.shape[0] >= _min_matmul_rows())
+    if groups > 1:
+        if use_mm:
+            out = _grouped_quantized_matmul(m2d, qt, bias, out_dtype, groups)
+        else:
+            cgk = m2d.shape[-1] // groups
+            wd = dequantize(qt, dtype=torch.float32).reshape(groups, -1, cgk)
+            xg = m2d.float().reshape(m2d.shape[0], groups, cgk).transpose(
+                0, 1)
+            out = (xg @ wd.transpose(1, 2)).transpose(0, 1).reshape(
+                m2d.shape[0], -1)
+            if bias is not None:
+                out = out + bias.float()
+            out = out.to(out_dtype)
+    elif use_mm:
+        out = _quantized_matmul_2d(m2d, qt, bias, out_dtype)
+    else:
+        out = _weight_only_linear_2d(m2d, qt, bias, out_dtype)
+    return out.reshape(*lead, qt.meta.original_shape[0])
+
+
+def qconv(x: torch.Tensor, w, bias: torch.Tensor | None = None, *,
+          stride=1, padding="SAME", dilation=1, feature_group_count: int = 1,
+          transpose: bool = False, out_dtype=None) -> torch.Tensor:
+    """Convolution of NHWC ``x`` with a quantized or plain weight (OIHW;
+    (C_in, C_out, *k) when ``transpose``).  A QTensor with
+    ``use_quantized_matmul`` takes im2col and the quantized matmul (not
+    when transposed); otherwise the weight is dequantized to x's dtype and
+    convolved."""
+    nd = x.dim() - 2
+    stride, dilation = _tuple(stride, nd), _tuple(dilation, nd)
+    if isinstance(w, QTensor):
+        out_dtype = out_dtype or torch_dtype(w.meta.dequant_dtype)
+        if w.meta.use_quantized_matmul and not transpose:
+            return _qconv_im2col(x, w, bias, stride, padding, dilation,
+                                 out_dtype, feature_group_count)
+        wd = dequantize(w, dtype=x.dtype)
+    else:
+        wd = w.to(x.dtype)
+        out_dtype = out_dtype or x.dtype
+    if transpose:
+        out = _conv_transpose_nhwc(x, wd, stride, padding, dilation)
+    else:
+        out = _conv_nhwc(x, wd, stride, padding, dilation,
+                         feature_group_count)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out.to(out_dtype)

@@ -8,8 +8,20 @@ from .llm import (
     LLAMA3_8B_CONFIG, LLM_TINY_CONFIG, LLMConfig, generate, init_cache,
     init_llm, init_llm_layer, llm_forward,
 )
+from .text_encoder import (
+    CLIP_TINY_CONFIG, T5_TINY_CONFIG, CLIPConfig, T5Config, clip_encode,
+    init_clip, init_t5, init_t5_layer, t5_encode,
+)
+from .vae import (
+    SD_VAE_CONFIG, VAE_TINY_CONFIG, VAEConfig, init_vae, vae_decode,
+    vae_encode,
+)
 
 __all__ = ["DiTConfig", "FLUX_DEV_CONFIG", "FLUX_TINY_CONFIG", "init_dit",
            "dit_forward", "make_rope_freqs", "LLMConfig", "LLM_TINY_CONFIG",
            "LLAMA3_8B_CONFIG", "init_llm", "init_llm_layer", "init_cache",
-           "llm_forward", "generate"]
+           "llm_forward", "generate", "CLIPConfig", "T5Config",
+           "CLIP_TINY_CONFIG", "T5_TINY_CONFIG", "init_clip", "clip_encode",
+           "init_t5", "init_t5_layer", "t5_encode", "VAEConfig",
+           "SD_VAE_CONFIG", "VAE_TINY_CONFIG", "init_vae", "vae_decode",
+           "vae_encode"]

@@ -1,6 +1,7 @@
 """Shared building blocks for the models: norms in fp32, embeddings, rope,
 attention and activations, over tensors in the JAX package's layouts
-((B, H, N, D) attention, (O, C) linear weights)."""
+((B, H, N, D) attention, (O, C) linear weights, NHWC images with OIHW conv
+weights)."""
 
 from __future__ import annotations
 
@@ -13,8 +14,9 @@ from ..kernels.attention import quantized_attention, trainable_attention
 
 Params = dict
 
-__all__ = ["linear_init", "layer_norm", "rms_norm", "timestep_embedding",
-           "rope", "apply_rope", "attention", "split_heads", "gelu", "silu"]
+__all__ = ["linear_init", "conv_init", "layer_norm", "rms_norm",
+           "group_norm", "timestep_embedding", "rope", "apply_rope",
+           "attention", "split_heads", "gelu", "silu"]
 
 
 def linear_init(in_dim: int, out_dim: int, *, generator: torch.Generator,
@@ -25,6 +27,19 @@ def linear_init(in_dim: int, out_dim: int, *, generator: torch.Generator,
     p = {"weight": w.mul_(1.0 / math.sqrt(in_dim))}
     if bias:
         p["bias"] = torch.zeros((out_dim,), device=device, dtype=dtype)
+    return p
+
+
+def conv_init(in_ch: int, out_ch: int, kernel: int = 3, *,
+              generator: torch.Generator, device, dtype=torch.float32,
+              bias: bool = True) -> Params:
+    """Normal(0, 1/fan_in) OIHW weight and zero bias, drawn on
+    ``device``."""
+    w = torch.randn((out_ch, in_ch, kernel, kernel), generator=generator,
+                    device=device, dtype=dtype)
+    p = {"weight": w.mul_(1.0 / math.sqrt(in_ch * kernel * kernel))}
+    if bias:
+        p["bias"] = torch.zeros((out_ch,), device=device, dtype=dtype)
     return p
 
 
@@ -46,6 +61,16 @@ def rms_norm(x, weight=None, eps=1e-6):
     if weight is not None:
         out = out * weight.float()
     return out.to(x.dtype)
+
+
+def group_norm(x, weight, bias, groups: int = 32, eps: float = 1e-6):
+    """x NHWC; statistics over (H, W, C / groups) in fp32."""
+    n, h, w, c = x.shape
+    xf = x.float().reshape(n, h, w, groups, c // groups)
+    mean = xf.mean((1, 2, 4), keepdim=True)
+    var = xf.var((1, 2, 4), keepdim=True, unbiased=False)
+    out = ((xf - mean) * torch.rsqrt(var + eps)).reshape(n, h, w, c)
+    return (out * weight.float() + bias.float()).to(x.dtype)
 
 
 def timestep_embedding(t, dim: int, max_period: float = 10000.0):

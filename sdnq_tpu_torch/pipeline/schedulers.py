@@ -1,9 +1,9 @@
 """Rectified-flow sampling for the Flux DiT.
 
 ``FlowMatchScheduler`` is the JAX package's flow-matching Euler schedule;
-``flux_denoise`` is the denoise loop of its ``flux_generate`` without the
-VAE decode (the VAE arrives in a later slice): it returns the final packed
-latents (B, N_img, in_channels).
+``flux_denoise`` is the denoise loop of its ``flux_generate``: it returns
+the final packed latents (B, N_img, in_channels), which
+``pipeline.diffusion.flux_generate`` unpacks and decodes with the VAE.
 """
 
 from __future__ import annotations

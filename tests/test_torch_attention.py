@@ -101,16 +101,18 @@ def test_plain_version_is_softmax_attention():
 
 @pytest.mark.parametrize("kw", [dict(pv_matmul_dtype="int8"),
                                 dict(matmul_dtype="fp8"),
-                                dict(attn_mask=torch.zeros(1, 1, 16, 16))])
+                                dict(matmul_dtype="float8_e4m3fn",
+                                     attn_mask=torch.zeros(1, 1, 16, 16))])
 def test_later_slice_modes_raise(kw):
-    """Head-mode int8 P·V (the JAX default ``pv_scale_mode``), fp8 Q·K and
-    float additive masks are later slices: they raise on both devices."""
+    """Head-mode int8 P·V (the JAX default ``pv_scale_mode``) and fp8 Q·K
+    are later slices: they raise on both devices, with or without a float
+    additive mask (which the port takes)."""
     q = torch.zeros(1, 2, 16, 64)
     with pytest.raises(NotImplementedError):
         tattn(q, q, q, **kw)
-    with pytest.raises(NotImplementedError):  # float mask with grouped KV
+    with pytest.raises(NotImplementedError):  # head-mode P·V, grouped KV
         tattn(q, q[:, :1], q[:, :1], matmul_dtype=None,
-              attn_mask=torch.zeros(16, 16))
+              pv_matmul_dtype="int8", attn_mask=torch.zeros(16, 16))
 
 
 # ---------------------------------------------------------------------------

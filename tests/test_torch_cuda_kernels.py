@@ -159,18 +159,146 @@ def test_qlinear_on_card_matches_cpu(dev, rows):
 
 
 def test_dequant_matmul_many_rows(dev):
-    """Rowwise weight-only above 32 rows has no kernel yet: on the card it
-    raises instead of running a stand-in."""
+    """Rowwise weight-only above 32 rows takes the tile kernel's row mode
+    (fp32 x cast to bf16 on the card): it launches and agrees with the
+    plain version on the bf16 rows, 1e-5 of the sum of |terms|."""
     from sdnq_tpu_torch.formats import get_format
     g = _gen(7)
-    x = torch.randn(48, 320, device=dev, generator=g).bfloat16()
+    x = torch.randn(48, 320, device=dev, generator=g)
     w = torch.randint(0, 256, (136, 320), device=dev, generator=g,
                       dtype=torch.uint8)
     s = torch.rand(136, 1, device=dev, generator=g) * 0.01
     z = torch.randn(136, 1, device=dev, generator=g)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        kd.dequant_matmul(x, w, s, z, None, get_format("uint8"), -1,
-                          out_dtype=torch.float32)
+    before = kd.dequant_mm.mode_launches["row"]
+    got = kd.dequant_matmul(x, w, s, z, None, get_format("uint8"), -1,
+                            out_dtype=torch.float32)
+    assert kd.dequant_mm.mode_launches["row"] == before + 1
+    want = kd.dequant_gemv_plain(x.bfloat16(), w, s, z, None, torch.float32)
+    bound = 1e-5 * ((x.abs() @ w.float().T) * s.T
+                    + x.abs().sum(-1, keepdim=True) * z.abs().T)
+    assert ((got - want).abs() <= bound + 1e-5).all()
+
+
+def _codes(kind, o, k, gen, dev):
+    if kind == "float8_e4m3fn":
+        return (torch.randn(o, k, device=dev, generator=gen) * 40).to(
+            torch.float8_e4m3fn)
+    lo, hi, dt = ((-128, 128, torch.int8) if kind == "int8"
+                  else (0, 256, torch.uint8))
+    return torch.randint(lo, hi, (o, k), device=dev, generator=gen, dtype=dt)
+
+
+def _grouped_bound(x, codes, scale, zp, bias):
+    """1e-5 of the sum of |terms| of each output (bf16 products are exact
+    in fp32; only the summation order differs)."""
+    w = kd.dequant_gemv_plain(torch.eye(codes.shape[1], device=x.device),
+                              codes, scale, zp, None, torch.float32).T
+    return 1e-5 * (x.float().abs() @ w.abs().T + (
+        bias.abs() if bias is not None else 0)) + 1e-6
+
+
+@pytest.mark.parametrize("m,k,o,groups", [
+    (33, 256, 200, 2), (130, 3072, 136, 3), (300, 200, 72, 5),
+    (77, 1024, 256, 8), (4, 512, 128, 4)])
+@pytest.mark.parametrize("kind", ["int8", "uint8", "float8_e4m3fn"])
+def test_dequant_mm_grouped(dev, m, k, o, groups, kind):
+    """B2's tile kernel, grouped: ragged M, N and K (K 200 is padded to a
+    multiple of 16), groups of 40 .. 1024 codes."""
+    gen = _gen(20)
+    codes = _codes(kind, o, k, gen, dev)
+    scale = torch.rand(o, groups, device=dev, generator=gen) * 0.01 + 1e-3
+    zp = (torch.randn(o, groups, device=dev, generator=gen) - 1.28
+          if kind == "uint8" else None)
+    x = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+    bias = torch.randn(o, device=dev, generator=gen)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = kd.dequant_mm(x, codes, scale, zp, bias, out_dtype).float()
+        want = kd.dequant_mm_plain(x, codes, scale, zp, bias,
+                                   torch.float32)
+        bound = _grouped_bound(x, codes, scale, zp, bias)
+        if out_dtype == torch.bfloat16:
+            bound = bound + want.abs() * 2 ** -8
+        assert ((got - want).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("m", [1, 5, 32])
+@pytest.mark.parametrize("kind", ["int8", "uint8", "float8_e4m3fn"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_dequant_gemv_grouped(dev, m, kind, x_dtype):
+    """B2's GEMV, grouped (K 3072 in 3 groups, as the FLUX modulation
+    linears) and rowwise e4m3: the weight rounded to x's dtype; fp32 sums
+    in another order, 1e-5 of the sum of |terms|."""
+    gen = _gen(21)
+    k, o = 3072, 1000
+    codes = _codes(kind, o, k, gen, dev)
+    x = torch.randn(m, k, device=dev, generator=gen).to(x_dtype)
+    bias = torch.randn(o, device=dev, generator=gen)
+    for groups in (3, 1):
+        scale = torch.rand(o, groups, device=dev, generator=gen) * 0.01
+        zp = (torch.randn(o, groups, device=dev, generator=gen)
+              if kind == "uint8" else None)
+        got = kd.dequant_gemv(x, codes, scale, zp, bias, torch.float32)
+        want = kd.dequant_gemv_plain(x, codes, scale, zp, bias,
+                                     torch.float32)
+        bound = _grouped_bound(x, codes, scale, zp, bias)
+        if groups == 1 and zp is not None:
+            bound = bound + 1e-5 * x.float().abs().sum(-1, keepdim=True) \
+                * zp.abs().T
+        assert ((got - want).abs() <= bound).all()
+
+
+def test_dequant_matmul_routes(dev):
+    """Unpacked codes take the GEMV up to 32 rows (grouped where the group
+    is a multiple of 8) and the tiles above, each mode counted."""
+    from sdnq_tpu_torch.formats import get_format
+    gen = _gen(22)
+    w = torch.randint(-128, 128, (96, 3072), device=dev, generator=gen,
+                      dtype=torch.int8)
+    s = torch.rand(96, 3, device=dev, generator=gen) * 0.01
+    fmt = get_format("int8")
+    for m, key in ((1, "dequant_gemv:grouped"), (32, "dequant_gemv:grouped"),
+                   (33, "dequant_mm:grouped")):
+        from sdnq_tpu_torch.kernels import launch_counts
+        before = launch_counts()[key]
+        kd.dequant_matmul(torch.randn(m, 3072, device=dev), w, s, None, None,
+                          fmt, 1024)
+        assert launch_counts()[key] == before + 1
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("mask_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,n", [(64, 512), (128, 200)])
+def test_flash_attention_float_mask(dev, quant, mask_dtype, d, n):
+    """B3's additive mask: a T5-style (1, H, N, N) bias over 2 batches read
+    through its strides, one query row masked by -inf everywhere (0, not
+    NaN), bf16 or int8 Q·K.  Per row against the row's largest output,
+    2^-6 (P rounded to bf16 against a running max)."""
+    g = _gen(23)
+    b, h = 2, 4
+    q = torch.randn(b * h, n, d, device=dev, generator=g) * 0.4
+    k = torch.randn(b * h, n, d, device=dev, generator=g) * 0.4
+    v = torch.randn(b * h, n, d, device=dev, generator=g).bfloat16()
+    bias = (torch.randn(1, h, n, n, device=dev, generator=g) * 2)
+    bias[:, :, 5] = float("-inf")
+    bias = bias.to(mask_dtype)
+    if quant:
+        from sdnq_tpu_torch.quant.core import quantize_int_mm
+        qq, qs = quantize_int_mm(q)
+        kq, kss = quantize_int_mm(k)
+        args = (qq, kq, v, qs[..., 0] * ka.LOG2E, kss[..., 0])
+    else:
+        args = ((q * ka.LOG2E).bfloat16(), k.bfloat16(), v)
+    before = ka.flash_attention.mode_launches["float_mask"]
+    got = ka.flash_attention(*args, out_dtype=torch.float32, heads=h,
+                             mask=bias)
+    assert ka.flash_attention.mode_launches["float_mask"] == before + 1
+    want = ka.flash_attention_plain(*args, out_dtype=torch.float32, heads=h,
+                                    mask=bias)
+    assert torch.isfinite(got).all() and not got[:, 5].any()
+    keep = torch.ones(n, dtype=torch.bool, device=dev)
+    keep[5] = False
+    err = (got - want).abs()[:, keep].amax(-1)
+    assert (err <= 2 ** -6 * want.abs()[:, keep].amax(-1)).all()
 
 
 @pytest.mark.parametrize("d", [64, 128])
