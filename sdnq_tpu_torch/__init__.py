@@ -21,8 +21,10 @@ from .formats import (
 )
 from .config import QuantConfig
 from .tensor import QTensor, QuantMeta, dequantize, quantize_tensor
-from .apply import quantize_model
-from .layers import qconv, qlinear
+from .dynamic import quantization_loss, quantize_tensor_dynamic
+from .apply import dequantize_model, model_memory_footprint, quantize_model
+from .layers import qconv, qembedding, qlinear
+from .options import apply_options_to_model, requantize_model
 
 __all__ = [
     "FORMATS",
@@ -37,8 +39,15 @@ __all__ = [
     "QuantMeta",
     "quantize_tensor",
     "dequantize",
+    "quantize_tensor_dynamic",
+    "quantization_loss",
     "quantize_model",
+    "dequantize_model",
+    "model_memory_footprint",
     "qlinear",
     "qconv",
+    "qembedding",
+    "apply_options_to_model",
+    "requantize_model",
     "__version__",
 ]

@@ -3,7 +3,11 @@ tensors becomes a QTensor, under the skip-key registry and the eligibility
 gates of ``policy`` (the JAX package's ``apply.quantize_model`` over the
 same dotted parameter paths, e.g. ``single_transformer_blocks.0.norm.
 linear.weight``).  Weights are quantized one at a time, so a model built in
-bf16 never needs a float32 copy of more than one weight.
+bf16 never needs a float32 copy of more than one weight.  Under
+``use_dynamic_quantization`` each weight climbs the format ladder
+(``dynamic``) and the config records the choices, as in the JAX package:
+``modules_dtype_dict`` (format -> paths), ``modules_to_not_convert`` (the
+layers no format passed) and ``modules_to_not_use_matmul``.
 """
 
 from __future__ import annotations
@@ -17,9 +21,11 @@ from .policy import (
     add_model_skip_keys, check_param_name_in, layer_quant_kwargs,
     quant_allowed, quantized_matmul_allowed,
 )
+from .dynamic import quantize_tensor_dynamic
 from .tensor import QTensor, quantize_tensor
 
-__all__ = ["quantize_model", "infer_layer_kind"]
+__all__ = ["quantize_model", "dequantize_model", "infer_layer_kind",
+           "model_memory_footprint"]
 
 
 def infer_layer_kind(path: str, leaf) -> str | None:
@@ -42,6 +48,8 @@ def infer_layer_kind(path: str, leaf) -> str | None:
 
 
 def _map_with_paths(tree, fn, prefix=""):
+    """``tree`` with every leaf replaced by ``fn(dotted path, leaf)``; a
+    QTensor is a leaf."""
     if isinstance(tree, dict):
         return {k: _map_with_paths(v, fn, f"{prefix}{k}.")
                 for k, v in tree.items()}
@@ -62,9 +70,6 @@ def quantize_model(params, config: QuantConfig | dict | None = None, *,
         config = QuantConfig()
     elif isinstance(config, dict):
         config = QuantConfig.from_dict(config)
-    if config.use_dynamic_quantization:
-        raise NotImplementedError(
-            "dynamic per-layer format selection is a later slice of the port")
     config = add_model_skip_keys(config, arch)
 
     def leaf(path, w):
@@ -107,4 +112,35 @@ def _maybe_quantize_leaf(path, leaf, config, kinds, generator):
             kw["use_quantized_matmul"], leaf.shape[0], leaf.shape[1])
     else:
         kw["use_quantized_matmul"] = False
+    if config.use_dynamic_quantization:
+        qt = quantize_tensor_dynamic(leaf, layer_kind=kind, config=config,
+                                     param_name=path, generator=generator,
+                                     **kw)
+        if qt is None:
+            config.modules_to_not_convert.append(path)
+            return leaf
+        config.modules_dtype_dict.setdefault(qt.meta.fmt, []).append(path)
+        return qt
     return quantize_tensor(leaf, layer_kind=kind, generator=generator, **kw)
+
+
+def dequantize_model(params, dtype=None):
+    """The tree with every QTensor dequantized (to its ``dequant_dtype``
+    unless ``dtype`` is given)."""
+    return _map_with_paths(params, lambda _, w: w.dequantize(dtype=dtype)
+                           if isinstance(w, QTensor) else w)
+
+
+def model_memory_footprint(params) -> int:
+    """Bytes of every tensor and QTensor array in the tree."""
+    total = 0
+
+    def leaf(_, w):
+        nonlocal total
+        if isinstance(w, QTensor):
+            total += w.nbytes()
+        elif isinstance(w, torch.Tensor):
+            total += w.numel() * w.element_size()
+        return w
+    _map_with_paths(params, leaf)
+    return total

@@ -13,6 +13,11 @@ bfloat16 and float8 arrays (numpy extension dtypes) keep their bits.
 The JAX objects are read by their fields alone (``qt`` and ``delta``;
 ``qdata``, ``scale``, ... and ``meta``; ``qdata``, ``scale``, ``shape`` and
 ``unsigned``), so this module needs nothing of the JAX package.
+
+A QTensor of a stacked JAX tree (``stack_dit_blocks``: every array with a
+leading layer axis, ``meta`` of one layer) crosses as the port's stacked
+QTensor, which ``models.dit`` reads layer by layer (``tensor.layer_view``).
+Arrays that fit neither one layer nor a stack of them raise.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import numpy as np
 import torch
 
 from .kernels.dispatch import resolve_device
-from .tensor import QTensor, QuantMeta
+from .tensor import QTensor, QuantMeta, layer_count
 
 __all__ = ["params_from_numpy", "qtensor_from_numpy", "tensor_from_numpy",
            "train_params_from_numpy", "opt_state_from_numpy"]
@@ -77,7 +82,32 @@ def qtensor_from_numpy(fields: dict, meta: dict, device=None) -> QTensor:
     arrays = {k: (None if fields.get(k) is None
                   else tensor_from_numpy(fields[k], device))
               for k in ("qdata", "scale", "zero_point", "svd_up", "svd_down")}
-    return QTensor(meta=QuantMeta(**kw), **arrays)
+    qt = QTensor(meta=QuantMeta(**kw), **arrays)
+    _check_shapes(qt)
+    return qt
+
+
+def _check_shapes(qt: QTensor) -> None:
+    """Raise unless every array holds one layer, or all hold the same
+    number of layers on a leading axis (a stacked QTensor)."""
+    meta = qt.meta
+    n = layer_count(qt)   # raises where the codes fit neither
+    lead = () if n is None else (n,)
+    rank = len(meta.quantized_shape)
+    o = meta.original_shape[0]
+    expect = {"scale": rank, "zero_point": rank, "svd_up": 2, "svd_down": 2}
+    for name, dims in expect.items():
+        a = getattr(qt, name)
+        if a is None:
+            continue
+        if a.dim() != dims + len(lead) or tuple(a.shape[:len(lead)]) != lead:
+            raise ValueError(f"QTensor {name} {tuple(a.shape)} does not fit "
+                             f"codes {tuple(qt.qdata.shape)} of "
+                             f"{'a stack of ' + str(n) if n else 'one layer'}"
+                             f" under meta {meta.original_shape}")
+    if qt.svd_up is not None and qt.svd_up.shape[len(lead)] != o:
+        raise ValueError(f"QTensor svd_up {tuple(qt.svd_up.shape)} does not "
+                         f"fit {o} rows")
 
 
 def _qtensor_like(obj, device) -> QTensor:

@@ -144,6 +144,121 @@ int launch_bits(int bits, const void* x, const uint8_t* w, const float* s, const
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// B6's general mode: 3/5/6/7-bit integer codes in two or three half-split
+// field planes, and minifloat codes of 1 to 7 bits (the JAX kernel decodes
+// those through packing.decode_float, dequant_mm.py:641-646).  A lane takes
+// 8 consecutive codes k .. k + 7 per 256-code chunk: they lie in one field
+// of 8 consecutive bytes of every plane (the narrowest plane's segment K /
+// pmax is a multiple of 8), read as one 8-byte load a plane; the code is
+// the shift-or of the planes' fields, decoded to its value for minifloats
+// (sdnq::decode_value).  A byte of a 4-bit plane is thus read once for
+// each of its two fields (the second time from cache); the stream is still
+// the weight's bytes.  Integer codes enter raw (zpc carries code_min);
+// minifloats are values and their zpc is the zero point alone.
+template <int MT, typename XT, typename OutT>
+__global__ void __launch_bounds__(NT)
+    blockdiag_mm_kernel_gen(const XT* __restrict__ x, const uint8_t* __restrict__ w,
+                            const float* __restrict__ scale, const float* __restrict__ zpc,
+                            const float* __restrict__ bias, OutT* __restrict__ out, int M, int K,
+                            int O, int G, int g, int bits, sdnq::CodeFmt f) {
+  constexpr int KC = 256;  // codes per chunk
+  extern __shared__ __align__(16) float xs_s[];  // [M][KC]
+  const sdnq::HalfSplit hs = sdnq::halfsplit_planes(bits, K);
+  const size_t wrow = (size_t)K * bits / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int o = blockIdx.x * WARPS + warp;
+  float acc[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    const int kc = min(KC, K - k0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < M * KC; i += NT) {
+      const int m = i / KC, kk = i - m * KC;
+      xs_s[i] = kk < kc ? sdnq::to_f32(x[(size_t)m * K + k0 + kk]) : 0.f;
+    }
+    __syncthreads();
+    const int k = k0 + lane * 8;
+    if (o < O && lane * 8 < kc) {
+      unsigned code[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) code[j] = 0u;
+#pragma unroll
+      for (int pd = 0; pd < 3; ++pd) {
+        if (pd < hs.n) {
+          const int t = k / hs.seg[pd], b = k - t * hs.seg[pd];
+          const uint2 v = *reinterpret_cast<const uint2*>(w + (size_t)o * wrow + hs.off[pd] + b);
+          const int sh = hs.width[pd] * t;
+          const unsigned mask = (1u << hs.width[pd]) - 1u;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            code[j] |= ((v.x >> (8 * j + sh)) & mask) << hs.shift[pd];
+            code[j + 4] |= ((v.y >> (8 * j + sh)) & mask) << hs.shift[pd];
+          }
+        }
+      }
+      const size_t gi = (size_t)o * G + k / g;  // 8 | g: one group
+      const float sc = scale[gi], z = zpc[gi];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m < M) {
+          const float* xr = xs_s + m * KC + lane * 8;
+          float s = 0.f, xsum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float c =
+                f.is_float ? sdnq::decode_value(code[j], f) : static_cast<float>(code[j]);
+            s = fmaf(xr[j], c, s);
+            xsum += xr[j];
+          }
+          acc[m] = fmaf(s, sc, acc[m]);
+          acc[m] = fmaf(xsum, z, acc[m]);
+        }
+      }
+    }
+  }
+  if (o >= O) return;
+
+  const float b = bias ? bias[o] : 0.f;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    if (m < M) {
+      float a = acc[m];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+      if (lane == 0) out[(size_t)m * O + o] = sdnq::from_f32<OutT>(a + b);
+    }
+  }
+}
+
+template <int MT, typename XT, typename OutT>
+int launch_gen(const void* x, const uint8_t* w, const float* s, const float* z, const float* b,
+               void* out, int M, int K, int O, int G, int g, int bits, const sdnq::CodeFmt& f,
+               cudaStream_t st) {
+  const dim3 grid((O + WARPS - 1) / WARPS);
+  const size_t smem = (size_t)M * 256 * sizeof(float);
+  blockdiag_mm_kernel_gen<MT, XT, OutT><<<grid, NT, smem, st>>>(
+      static_cast<const XT*>(x), w, s, z, b, static_cast<OutT*>(out), M, K, O, G, g, bits, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MT>
+int launch_gen_types(int x_kind, int out_kind, const void* x, const uint8_t* w, const float* s,
+                     const float* z, const float* b, void* out, int M, int K, int O, int G, int g,
+                     int bits, const sdnq::CodeFmt& f, cudaStream_t st) {
+  if (x_kind == sdnq::F32 && out_kind == sdnq::F32)
+    return launch_gen<MT, float, float>(x, w, s, z, b, out, M, K, O, G, g, bits, f, st);
+  if (x_kind == sdnq::F32 && out_kind == sdnq::BF16)
+    return launch_gen<MT, float, __nv_bfloat16>(x, w, s, z, b, out, M, K, O, G, g, bits, f, st);
+  if (x_kind == sdnq::BF16 && out_kind == sdnq::F32)
+    return launch_gen<MT, __nv_bfloat16, float>(x, w, s, z, b, out, M, K, O, G, g, bits, f, st);
+  if (x_kind == sdnq::BF16 && out_kind == sdnq::BF16)
+    return launch_gen<MT, __nv_bfloat16, __nv_bfloat16>(x, w, s, z, b, out, M, K, O, G, g, bits,
+                                                        f, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // x (M, K) contiguous of x_kind (f32 or bf16); w (O, K*bits/8) half-split
@@ -165,4 +280,30 @@ extern "C" int sdnq_blockdiag_mm(const void* x, const void* w, const void* scale
   const int G = K / g;
   if (M == 1) return launch_bits<1>(bits, x, wp, s, z, b, out, M, K, O, G, g, x_kind, out_kind, st);
   return launch_bits<8>(bits, x, wp, s, z, b, out, M, K, O, G, g, x_kind, out_kind, st);
+}
+
+// B6's general mode: x (M, K) of x_kind (f32 or bf16); w (O, K*bits/8)
+// half-split uint8 of `bits` (1..7) bits; integer codes (is_float 0, raw)
+// or minifloat codes (is_float 1 and the format's e, m, bias, is_signed);
+// scale, zpc (O, K/g) f32; bias (O,) f32 or null; out (M, O) of out_kind
+// (f32 or bf16).  1 <= M <= 8; 8 divides g and the narrowest plane's
+// segment.
+extern "C" int sdnq_blockdiag_mm_gen(const void* x, const void* w, const void* scale,
+                                     const void* zpc, const void* bias, void* out, int M, int K,
+                                     int O, int g, int bits, int is_float, int e, int m, int fbias,
+                                     int is_signed, int x_kind, int out_kind, void* stream) {
+  if (bits < 1 || bits > 7 || M < 1 || M > 8 || g <= 0 || K % g != 0 || g % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int pmax = (bits & 1) ? 8 : (bits & 2) ? 4 : 2;
+  if (K % pmax != 0 || (K / pmax) % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const sdnq::CodeFmt f{is_float, 0, e, m, fbias, is_signed};
+  const uint8_t* wp = static_cast<const uint8_t*>(w);
+  const float* s = static_cast<const float*>(scale);
+  const float* z = static_cast<const float*>(zpc);
+  const float* b = static_cast<const float*>(bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int G = K / g;
+  if (M == 1)
+    return launch_gen_types<1>(x_kind, out_kind, x, wp, s, z, b, out, M, K, O, G, g, bits, f, st);
+  return launch_gen_types<8>(x_kind, out_kind, x, wp, s, z, b, out, M, K, O, G, g, bits, f, st);
 }

@@ -42,7 +42,67 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
                "l"(gmem), "r"(n));
 }
+// 4-byte global -> shared copy through L1, zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(n));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// How a packed code becomes a value (sdnq_tpu/packing.py decode_float and
+// the offset-binary integers of packing.pack).  Integer formats: code +
+// code_min.  Minifloats (sign | e exponent bits | m mantissa bits, bias
+// 2^(e-1) - 1, subnormals, no inf or nan; e <= 5 in the registry): the
+// exponent|mantissa field goes into the fp32 slots with one shift and add;
+// the subnormal codes then read as 2^-bias * (1 + mant / 2^m), and one
+// exact subtraction of 2^(1-bias) from twice that gives 2^(1-bias) * mant /
+// 2^m.  Every value is exact in fp32 (and in bf16: m <= 6 for the
+// half-split widths, and the bit-plane tiles round scaled values anyway).
+struct CodeFmt {
+  int is_float;  // 0: value = code + code_min
+  int code_min;
+  int e, m, bias, is_signed;
+};
+
+__device__ __forceinline__ float decode_value(unsigned code, const CodeFmt& f) {
+  if (!f.is_float) return static_cast<float>(static_cast<int>(code) + f.code_min);
+  const int em = f.e + f.m;
+  const unsigned mag = code & ((1u << em) - 1u);
+  float v = __uint_as_float((mag << (23 - f.m)) + (static_cast<unsigned>(127 - f.bias) << 23));
+  if (mag < (1u << f.m))  // a subnormal code
+    v = __fsub_rn(2.f * v, __uint_as_float(static_cast<unsigned>(128 - f.bias) << 23));
+  if (f.is_signed && ((code >> em) & 1u)) v = -v;
+  return v;
+}
+
+// The half-split field planes of a `bits`-wide code (sdnq_tpu/packing.py
+// halfsplit_planes): the set bits of `bits` in {4, 2, 1}, most significant
+// first.  Plane p holds fields of width[p] bits (8 / width[p] fields a
+// byte), is seg[p] = K * width[p] / 8 bytes long, starts off[p] bytes into
+// the packed row, and contributes its field shifted left by shift[p].  The
+// code k lies in field k / seg[p] of byte k % seg[p] of each plane.
+struct HalfSplit {
+  int n;
+  int width[3], shift[3], seg[3], off[3];
+};
+
+__device__ __forceinline__ HalfSplit halfsplit_planes(int bits, int K) {
+  HalfSplit h;
+  h.n = __popc(bits & 7);
+  int rem = bits & 7, off = 0;
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {  // static indices: the planes stay in registers
+    const int w = (rem & 4) ? 4 : (rem & 2) ? 2 : (rem & 1);  // top set bit left
+    rem &= ~w;
+    h.width[p] = w;
+    h.shift[p] = rem;  // the value of the lower planes' bits
+    h.seg[p] = K * w / 8;
+    h.off[p] = off;
+    off += K * w / 8;
+  }
+  return h;
+}
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }

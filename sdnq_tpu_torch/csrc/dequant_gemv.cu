@@ -170,6 +170,123 @@ int launch_x(const Call& c, int x_kind, int out_kind, cudaStream_t st) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Bit-plane mode (B2's packed mode, sdnq_tpu/kernels/dequant_mm.py:73-113):
+//
+//   y[m, o] = sum_k x[m, k] * XT(v(code[o, k]) * scale[o, k / g]
+//                               (+ zp[o, k / g]))  (+ bias[o])
+//
+// with every scaled weight rounded to x's dtype XT, rowwise (G = 1) too,
+// as in the JAX kernel.  The codes lie in `bits` byte planes of S bytes a
+// row (bit i of byte b of plane j is bit j of code k = i*S + b); x comes
+// in the same byte-major column order, x'[m, 8*b + i] = x[m, i*S + b]
+// (zero past K), so each lane takes one byte of every plane per 256-code
+// chunk (the warp's loads of a plane are 32 consecutive bytes), rebuilds
+// its 8 codes with a shift-and-mask and a shift-or a plane, decodes and
+// scales them (each in its own group: they lie S apart) and multiplies the
+// 8 staged x' values.  Bound by the weight's bytes (O * bits * S) at M = 1,
+// as the unpacked GEMV; the decode costs some 3 * bits operations a code.
+template <int MT, typename XT, typename OutT>
+__global__ void __launch_bounds__(NT)
+    dequant_gemv_kernel_bitplane(const XT* __restrict__ x, const uint8_t* __restrict__ w,
+                                 const float* __restrict__ scale, const float* __restrict__ zp,
+                                 const float* __restrict__ bias, OutT* __restrict__ out, int M,
+                                 int K, int S, int O, int bits, int G, int g, sdnq::CodeFmt f) {
+  extern __shared__ float xs_s[];  // [M][KC]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int o = blockIdx.x * WARPS + warp;
+  const int Kx = 8 * S;  // columns of x'
+  const size_t wrow = (size_t)bits * S;
+  float acc[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+
+  for (int c0 = 0; c0 < S; c0 += KC / 8) {  // KC codes: KC / 8 bytes of each plane
+    __syncthreads();
+    for (int i = threadIdx.x; i < M * KC; i += NT) {
+      const int m = i / KC, kk = i - m * KC;
+      const int col = 8 * c0 + kk;
+      xs_s[i] = col < Kx ? sdnq::to_f32(x[(size_t)m * Kx + col]) : 0.f;
+    }
+    __syncthreads();
+    const int b = c0 + lane;
+    if (o < O && b < S) {
+      unsigned code[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) code[i] = 0u;
+      for (int j = 0; j < bits; ++j) {
+        const unsigned byte = w[(size_t)o * wrow + (size_t)j * S + b];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) code[i] |= ((byte >> i) & 1u) << j;
+      }
+      float wf[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int k = i * S + b;
+        float v = 0.f;
+        if (k < K) {
+          const size_t gi = (size_t)o * G + (G == 1 ? 0 : k / g);
+          const float c = sdnq::decode_value(code[i], f);
+          v = sdnq::to_f32(sdnq::from_f32<XT>(zp ? __fmaf_rn(c, scale[gi], zp[gi])
+                                                  : __fmul_rn(c, scale[gi])));
+        }
+        wf[i] = v;
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m < M) {
+          const float* xr = xs_s + m * KC + lane * 8;
+          float s = 0.f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) s = fmaf(xr[i], wf[i], s);
+          acc[m] += s;
+        }
+      }
+    }
+  }
+  if (o >= O) return;
+  const float bo = bias ? bias[o] : 0.f;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    if (m < M) {
+      float a = acc[m];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+      if (lane == 0) out[(size_t)m * O + o] = sdnq::from_f32<OutT>(bias ? a + bo : a);
+    }
+  }
+}
+
+template <int MT, typename XT, typename OutT>
+int launch_bitplane(const void* x, const uint8_t* w, const float* s, const float* zp,
+                    const float* b, void* out, int M, int K, int S, int O, int bits, int G,
+                    const sdnq::CodeFmt& f, cudaStream_t st) {
+  const dim3 grid((O + WARPS - 1) / WARPS);
+  const size_t smem = (size_t)M * KC * sizeof(float);
+  dequant_gemv_kernel_bitplane<MT, XT, OutT><<<grid, NT, smem, st>>>(
+      static_cast<const XT*>(x), w, s, zp, b, static_cast<OutT*>(out), M, K, S, O, bits, G,
+      K / G, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MT>
+int launch_bitplane_types(int x_kind, int out_kind, const void* x, const uint8_t* w,
+                          const float* s, const float* zp, const float* b, void* out, int M,
+                          int K, int S, int O, int bits, int G, const sdnq::CodeFmt& f,
+                          cudaStream_t st) {
+  if (x_kind == sdnq::F32 && out_kind == sdnq::F32)
+    return launch_bitplane<MT, float, float>(x, w, s, zp, b, out, M, K, S, O, bits, G, f, st);
+  if (x_kind == sdnq::F32 && out_kind == sdnq::BF16)
+    return launch_bitplane<MT, float, __nv_bfloat16>(x, w, s, zp, b, out, M, K, S, O, bits, G,
+                                                     f, st);
+  if (x_kind == sdnq::BF16 && out_kind == sdnq::F32)
+    return launch_bitplane<MT, __nv_bfloat16, float>(x, w, s, zp, b, out, M, K, S, O, bits, G,
+                                                     f, st);
+  if (x_kind == sdnq::BF16 && out_kind == sdnq::BF16)
+    return launch_bitplane<MT, __nv_bfloat16, __nv_bfloat16>(x, w, s, zp, b, out, M, K, S, O,
+                                                             bits, G, f, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // x (M, K) contiguous of x_kind; w (O, K) codes of code_kind (0 int8, 1
@@ -199,4 +316,37 @@ extern "C" int sdnq_dequant_gemv(const void* x, const void* w, const void* scale
     rc = launch_x<32>(c, x_kind, out_kind, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bit-plane mode.  x (M, 8*S) of x_kind (f32 or bf16) in byte-major column
+// order (see the kernel); w (O, bits*S) uint8 planes, 8*S >= K; scale, zp
+// (O, G) f32 with g = K / G (zp, bias (O,) may be null); the code format as
+// sdnq::CodeFmt's fields; out (M, O) of out_kind (f32 or bf16).  1 <= M <= 32.
+extern "C" int sdnq_dequant_gemv_bitplane(const void* x, const void* w, const void* scale,
+                                          const void* zp, const void* bias, void* out, int M,
+                                          int K, int S, int O, int G, int bits, int is_float,
+                                          int code_min, int e, int m, int fbias, int is_signed,
+                                          int x_kind, int out_kind, void* stream) {
+  if (M < 1 || M > 32 || K < 1 || G < 1 || K % G != 0 || bits < 1 || bits > 16 || 8 * S < K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const sdnq::CodeFmt f{is_float, code_min, e, m, fbias, is_signed};
+  const uint8_t* wp = static_cast<const uint8_t*>(w);
+  const float* s = static_cast<const float*>(scale);
+  const float* z = static_cast<const float*>(zp);
+  const float* b = static_cast<const float*>(bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M == 1)
+    return launch_bitplane_types<1>(x_kind, out_kind, x, wp, s, z, b, out, M, K, S, O, bits, G,
+                                    f, st);
+  if (M <= 4)
+    return launch_bitplane_types<4>(x_kind, out_kind, x, wp, s, z, b, out, M, K, S, O, bits, G,
+                                    f, st);
+  if (M <= 8)
+    return launch_bitplane_types<8>(x_kind, out_kind, x, wp, s, z, b, out, M, K, S, O, bits, G,
+                                    f, st);
+  if (M <= 16)
+    return launch_bitplane_types<16>(x_kind, out_kind, x, wp, s, z, b, out, M, K, S, O, bits, G,
+                                     f, st);
+  return launch_bitplane_types<32>(x_kind, out_kind, x, wp, s, z, b, out, M, K, S, O, bits, G, f,
+                                   st);
 }

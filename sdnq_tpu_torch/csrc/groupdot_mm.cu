@@ -36,6 +36,21 @@
 // single operations (no FMA contraction), so B7, whose partials are exact
 // integers, equals its plain version bit for bit.  wgmma/TMA pipelines and
 // decoding both fields of a byte per load are later work.
+//
+// B5's general mode (GEN) takes every other half-split code: 3-, 5-, 6- and
+// 7-bit integers, stored as two or three field planes (6 = 4 + 2: code >> 2
+// in a 4-bit plane, code & 3 in a 2-bit plane, sdnq::halfsplit_planes), and
+// minifloat codes of 1 to 7 bits (the `_groupdot_kernel` of the JAX package
+// decodes those through packing.decode_float, dequant_mm.py:393-401).  A
+// K step of 32 consecutive codes lies in one field of each plane (the
+// narrowest plane's segment K / pmax is a multiple of 32), so the stage
+// copies 32 bytes of every plane into one shared-memory row; each B
+// fragment's code is a shift-and-mask of its byte in every plane and a
+// shift-or of the fields, and a minifloat code is then decoded to its
+// value (sdnq::decode_value), exact in bf16.  Integer codes enter raw, as
+// in the 1/2/4-bit mode (zpc carries code_min); minifloats are signed
+// values, so their zpc is the zero point alone (zero for the signed
+// formats).  Group boundaries only need to fall on K steps (32 | g).
 #include <type_traits>
 
 #include "common.cuh"
@@ -45,8 +60,10 @@ namespace {
 constexpr int BM = 128, BN = 128, NT = 256;
 constexpr int BKB = 64;         // bytes of an x row per stage
 constexpr int LDS = BKB + 16;   // padded shared-memory row (bytes)
+constexpr int LDG = 3 * 32 + 16;  // GEN: 32 bytes of up to three planes a row
 
 enum { BF16X = 0, S8X = 1 };    // B5 / B7
+constexpr int GEN = 0;          // BITS of B5's general mode (planes at run time)
 
 // four codes of bit field `sh` of four packed bytes, as four int8 lanes
 template <int BITS>
@@ -70,9 +87,10 @@ __global__ void __launch_bounds__(NT)
                        const float* __restrict__ scale, const float* __restrict__ zpc,
                        const float* __restrict__ xsum, const float* __restrict__ xs,
                        const float* __restrict__ bias, OutT* __restrict__ out, int M, int N,
-                       int K, int G, int g) {
+                       int K, int G, int g, int gen_bits, sdnq::CodeFmt f) {
+  constexpr int LDW = BITS == GEN ? LDG : LDS;
   __shared__ __align__(16) uint8_t sX[2][BM * LDS];
-  __shared__ __align__(16) uint8_t sW[2][BN * LDS];
+  __shared__ __align__(16) uint8_t sW[2][BN * LDW];
   using PartT = typename std::conditional<KIND == S8X, int, float>::type;
   constexpr int XB = KIND == S8X ? 1 : 2;  // bytes per x value
   constexpr int BK = BKB / XB;              // codes per stage
@@ -83,9 +101,10 @@ __global__ void __launch_bounds__(NT)
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int seg = K * BITS / 8;              // bytes of a packed row
   const size_t xrow = (size_t)K * XB;
+  const sdnq::HalfSplit hs = sdnq::halfsplit_planes(gen_bits, K);  // GEN only
+  const size_t grow = (size_t)K * gen_bits / 8;
 
   auto load_stage = [&](int stage, int k0) {
-    const int t = k0 / seg, b0 = k0 - t * seg;
 #pragma unroll
     for (int i = 0; i < (BM * BKB / 16) / NT; ++i) {
       const int c = tid + i * NT;
@@ -94,11 +113,27 @@ __global__ void __launch_bounds__(NT)
       sdnq::cp_async16(&sX[stage][r * LDS + cb], X + (size_t)(gr < M ? gr : 0) * xrow +
                        (size_t)k0 * XB + cb, gr < M);
     }
-    for (int c = tid; c < BN * BK / 16; c += NT) {
-      const int r = c / (BK / 16), cb = (c % (BK / 16)) * 16;
-      const int gn = n0 + r;
-      sdnq::cp_async16(&sW[stage][r * LDS + cb], W + (size_t)(gn < N ? gn : 0) * seg + b0 + cb,
-                       gn < N);
+    if constexpr (BITS == GEN) {
+#pragma unroll
+      for (int pl = 0; pl < 3; ++pl) {
+        if (pl < hs.n) {  // 32 bytes of plane pl: its field k0 / seg[pl]
+          const int pb = k0 % hs.seg[pl];
+          for (int c = tid; c < BN * 2; c += NT) {
+            const int r = c >> 1, cb = (c & 1) * 16;
+            const int gn = n0 + r;
+            sdnq::cp_async16(&sW[stage][r * LDW + pl * 32 + cb],
+                             W + (size_t)(gn < N ? gn : 0) * grow + hs.off[pl] + pb + cb, gn < N);
+          }
+        }
+      }
+    } else {
+      const int t = k0 / seg, b0 = k0 - t * seg;
+      for (int c = tid; c < BN * BK / 16; c += NT) {
+        const int r = c / (BK / 16), cb = (c % (BK / 16)) * 16;
+        const int gn = n0 + r;
+        sdnq::cp_async16(&sW[stage][r * LDS + cb], W + (size_t)(gn < N ? gn : 0) * seg + b0 + cb,
+                         gn < N);
+      }
     }
     sdnq::cp_async_commit();
   };
@@ -128,7 +163,11 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
     const uint8_t* a_s = sX[cur];
     const uint8_t* b_s = sW[cur];
-    const int sh = BITS * ((kt * BK) / seg);  // bit field of this step's codes
+    const int sh = BITS == GEN ? 0 : BITS * ((kt * BK) / seg);  // bit field of this step's codes
+    int gsh[3];  // GEN: each plane's field of this step's codes
+#pragma unroll
+    for (int pl = 0; pl < 3; ++pl)
+      gsh[pl] = pl < hs.n ? hs.width[pl] * ((kt * BK) / hs.seg[pl]) : 0;
 #pragma unroll
     for (int ks = 0; ks < BKB; ks += 32) {
       unsigned af[4][4], bfr[4][2];
@@ -142,8 +181,31 @@ __global__ void __launch_bounds__(NT)
       }
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
-        const uint8_t* row = b_s + (wn * 32 + ni * 8 + gq) * LDS;
-        if constexpr (KIND == S8X) {
+        const uint8_t* row = b_s + (wn * 32 + ni * 8 + gq) * LDW;
+        if constexpr (BITS == GEN) {
+          // codes k = ks/2 + t4*2 .. +1 and ks/2 + 8 + t4*2 .. +1, from the
+          // same two bytes of every plane
+          const int kb = ks / 2 + t4 * 2;
+          unsigned c[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int pd = 0; pd < 3; ++pd) {
+            if (pd < hs.n) {
+              const unsigned mask = (1u << hs.width[pd]) - 1u;
+              const unsigned w0 = *reinterpret_cast<const unsigned short*>(row + pd * 32 + kb);
+              const unsigned w1 = *reinterpret_cast<const unsigned short*>(row + pd * 32 + kb + 8);
+              c[0] |= ((w0 >> gsh[pd]) & mask) << hs.shift[pd];
+              c[1] |= ((w0 >> (8 + gsh[pd])) & mask) << hs.shift[pd];
+              c[2] |= ((w1 >> gsh[pd]) & mask) << hs.shift[pd];
+              c[3] |= ((w1 >> (8 + gsh[pd])) & mask) << hs.shift[pd];
+            }
+          }
+          float v[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            v[i] = f.is_float ? sdnq::decode_value(c[i], f) : static_cast<float>(c[i]);
+          bfr[ni][0] = sdnq::pack_bf16x2(v[0], v[1]);
+          bfr[ni][1] = sdnq::pack_bf16x2(v[2], v[3]);
+        } else if constexpr (KIND == S8X) {
           // k = ks + t4*4 .. +3 and ks + 16 + t4*4 .. +3: one code byte each
           bfr[ni][0] = dec_s8x4<BITS>(*reinterpret_cast<const unsigned*>(row + ks + t4 * 4), sh);
           bfr[ni][1] =
@@ -229,19 +291,21 @@ __global__ void __launch_bounds__(NT)
 template <int KIND, int BITS>
 int launch(const void* x, const void* w, const float* scale, const float* zpc, const float* xsum,
            const float* xs, const float* bias, void* out, int M, int N, int K, int G, int g,
-           int out_kind, cudaStream_t s) {
+           int out_kind, cudaStream_t s, int gen_bits = 0, sdnq::CodeFmt f = {}) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const uint8_t* X = static_cast<const uint8_t*>(x);
   const uint8_t* Wp = static_cast<const uint8_t*>(w);
   if (out_kind == sdnq::F32)
     groupdot_mm_kernel<KIND, BITS, float><<<grid, NT, 0, s>>>(
-        X, Wp, scale, zpc, xsum, xs, bias, static_cast<float*>(out), M, N, K, G, g);
+        X, Wp, scale, zpc, xsum, xs, bias, static_cast<float*>(out), M, N, K, G, g, gen_bits, f);
   else if (out_kind == sdnq::BF16)
     groupdot_mm_kernel<KIND, BITS, __nv_bfloat16><<<grid, NT, 0, s>>>(
-        X, Wp, scale, zpc, xsum, xs, bias, static_cast<__nv_bfloat16*>(out), M, N, K, G, g);
+        X, Wp, scale, zpc, xsum, xs, bias, static_cast<__nv_bfloat16*>(out), M, N, K, G, g,
+        gen_bits, f);
   else if (out_kind == sdnq::F16)
     groupdot_mm_kernel<KIND, BITS, __half><<<grid, NT, 0, s>>>(
-        X, Wp, scale, zpc, xsum, xs, bias, static_cast<__half*>(out), M, N, K, G, g);
+        X, Wp, scale, zpc, xsum, xs, bias, static_cast<__half*>(out), M, N, K, G, g, gen_bits,
+        f);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -288,4 +352,25 @@ extern "C" int sdnq_groupdot_mm(const void* x, const void* w, const void* scale,
   if (kind == S8X)
     return launch_bits<S8X>(bits, x, w, s, z, xsm, xsc, b, out, M, N, K, G, g, out_kind, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B5's general mode: x (M, K) bf16; w (N, K*bits/8) half-split uint8 of
+// `bits` (1..7) bits in one to three field planes; integer codes
+// (is_float 0: raw codes, zpc with code_min folded in) or minifloat codes
+// (is_float 1 and the format's e, m, bias, is_signed: decoded values);
+// scale, zpc (N, K/g) f32; xsum (M, K/g) f32; bias (N,) f32 or null; out
+// (M, N) of out_kind.  32 divides g and the narrowest plane's segment.
+extern "C" int sdnq_groupdot_mm_gen(const void* x, const void* w, const void* scale,
+                                    const void* zpc, const void* xsum, const void* bias, void* out,
+                                    int M, int K, int N, int g, int bits, int is_float, int e,
+                                    int m, int fbias, int is_signed, int out_kind, void* stream) {
+  if (bits < 1 || bits > 7 || g <= 0 || K % g != 0 || g % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int pmax = (bits & 1) ? 8 : (bits & 2) ? 4 : 2;
+  if ((K / pmax) % 32 != 0 || K % pmax != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const sdnq::CodeFmt f{is_float, 0, e, m, fbias, is_signed};
+  return launch<BF16X, GEN>(x, w, static_cast<const float*>(scale),
+                            static_cast<const float*>(zpc), static_cast<const float*>(xsum),
+                            nullptr, static_cast<const float*>(bias), out, M, N, K, K / g, g,
+                            out_kind, static_cast<cudaStream_t>(stream), bits, f);
 }

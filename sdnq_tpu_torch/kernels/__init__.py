@@ -2,9 +2,9 @@
 
 Wrappers launch the CUDA kernel on CUDA tensors and run the plain version
 on CPU tensors; each counts its launches in ``<wrapper>.launches``, and
-``flash_attention``, ``quantize_rows``, ``scaled_gemm``, ``dequant_gemv``
-and ``dequant_mm`` also count their launches per mode in
-``<wrapper>.mode_launches``.
+``flash_attention``, ``quantize_rows``, ``scaled_gemm``, ``dequant_gemv``,
+``dequant_mm``, ``groupdot_mm`` and ``blockdiag_mm`` also count their
+launches per mode in ``<wrapper>.mode_launches``.
 """
 
 from . import dequant_mm as _dequant_mm
@@ -35,7 +35,7 @@ KERNELS = {
 }
 # the wrappers that also count their launches by mode
 _MODED = ("flash_attention", "quantize_rows", "scaled_gemm", "dequant_gemv",
-          "dequant_mm")
+          "dequant_mm", "groupdot_mm", "blockdiag_mm")
 
 
 def reset_launch_counts() -> None:
@@ -50,7 +50,8 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict[str, int]:
     """Launches by wrapper, and ``<wrapper>:<mode>`` by mode (B3's masked,
     float_mask, causal, gqa and int8_pv; B1's colscale; B4's nn; B2's
-    grouped GEMV, and the grouped and row modes of its tiles)."""
+    grouped and bit-plane GEMV, and the grouped, row and bit-plane modes of
+    its tiles; B5's and B6's multiplane and minifloat modes)."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     for name in _MODED:
         counts.update({f"{name}:{mode}": n

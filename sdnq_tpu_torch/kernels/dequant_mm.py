@@ -19,11 +19,18 @@ Kernels, each beside its plain PyTorch version and a launch counter:
     product, and the bias is added in fp32.  That rounding point is the
     function; the group-dot algebra of B5 would compute another number.
 
+  - bit-plane (``fmt`` a packed format, B2's packed mode): codes of any
+    width in the bit-plane layout, integers or minifloats, decoded in the
+    kernel; every scaled weight is rounded to x's dtype, rowwise too.
+
   The plain version of both is ``dequant_gemv_plain``: the row epilogue in
-  fp32, or ``_dequantized_dot`` for grouped scales.  At M <= 32 the GEMV is
-  bound by the bytes of the weight; above, the tiles by the tensor cores.
+  fp32, or ``_dequantized_dot`` for grouped scales and bit-plane codes.  At
+  M <= 32 the GEMV is bound by the bytes of the weight; above, the tiles by
+  the tensor cores (the unpacked modes) or by their decode (bit-plane).
 * ``groupdot_mm`` — B5, ``csrc/groupdot_mm.cu``.  Replaces
-  ``_groupdot_kernel``: weight-only GEMM on half-split packed integer codes.
+  ``_groupdot_kernel``: weight-only GEMM on half-split packed codes: 1/2/4-bit
+  integers in one field plane, and (its general mode, ``fmt``) 3/5/6/7-bit
+  integers in several planes and minifloat codes, decoded in the kernel.
 * ``blockdiag_mm`` — B6, ``csrc/blockdiag_mm.cu``.  Replaces
   ``_blockdiag_kernel``: the same function for a few rows, as a GEMV.
 * ``groupdot_i8_mm`` — B7, ``csrc/groupdot_mm.cu``.  Replaces
@@ -43,14 +50,15 @@ enters as a rank-G term on the per-row group sums of x:
               (+ bias[o])
 
 B7 and B8 multiply the whole by the row scale of x before the bias.
-Nothing is rounded below fp32 besides the inputs, so the plain versions
-need no rounding points of their own.
+Minifloat codes enter B5 and B6 as their decoded values (signed), so their
+zpc is the zero point alone.  Nothing is rounded below fp32 besides the
+inputs, so the plain versions need no rounding points of their own.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version.  ``dequant_matmul`` and
-``packed_int8_matmul`` route to them.  Still raising on the card: packed
-bit-plane codes (B2's packed mode) and half-split codes other than 1-, 2-
-and 4-bit integers (ROADMAP queue B).
+``packed_int8_matmul`` route to them.  Still raising on the card: B7 and
+B8 on half-split codes other than 1-, 2- and 4-bit integers (ROADMAP
+queue B).
 """
 
 from __future__ import annotations
@@ -61,7 +69,10 @@ import torch.nn.functional as F
 from . import _build
 from ._build import P, I
 from .dispatch import is_cuda
-from ..packing import halfsplit_planes, unpack, unpack_codes_halfsplit
+from ..packing import (
+    decode_float, halfsplit_planes, pad_to_multiple, unpack,
+    unpack_codes_halfsplit,
+)
 
 __all__ = ["dequant_gemv", "dequant_gemv_plain", "dequant_mm",
            "dequant_mm_plain", "groupdot_mm",
@@ -79,7 +90,8 @@ GEMV_MAX_ROWS = 32
 # mostly empty below it.
 BLOCKDIAG_MAX_ROWS = 8
 
-# code widths whose half-split layout is one field plane (the kernels' case)
+# code widths whose half-split layout is one field plane: B7 and B8, and
+# the 1/2/4-bit integer mode of B5 and B6 (their general mode takes the rest)
 _KERNEL_BITS = (1, 2, 4)
 
 # From this many rows the quantized matmul on packed codes requantizes the
@@ -120,12 +132,18 @@ def _groups(scale) -> int:
     return scale.shape[-1] if scale.dim() == 2 else 1
 
 
-def dequant_gemv_plain(x, codes, scale, zp, bias, out_dtype):
+def dequant_gemv_plain(x, codes, scale, zp, bias, out_dtype, fmt=None):
     """Plain version of ``dequant_gemv`` and ``dequant_mm``.  Rowwise
     (scale (O,) or (O, 1)): in fp32, ``(x @ codesᵀ) * scale [+ rowsum(x) *
-    zp] [+ bias]``.  Grouped (scale (O, G), G > 1): ``_dequantized_dot``,
-    the weight rounded to x's dtype before the product."""
+    zp] [+ bias]``.  Grouped (scale (O, G), G > 1) and bit-plane codes of
+    ``fmt``: ``_dequantized_dot``, the weight rounded to x's dtype before
+    the product."""
     groups = _groups(scale)
+    if fmt is not None:
+        k = x.shape[1]
+        vals = unpack(codes, fmt, k, dtype=torch.float32, layout="bitplane")
+        return _dequantized_dot(x, vals, scale, zp, bias, k // groups,
+                                out_dtype)
     if groups > 1:
         return _dequantized_dot(x, codes.float(), scale, zp, bias,
                                 codes.shape[1] // groups, out_dtype)
@@ -149,6 +167,42 @@ def _code_kind(codes, name):
     return _CODE_KINDS[codes.dtype]
 
 
+def _fmt_args(fmt) -> tuple:
+    """The fields of ``sdnq::CodeFmt`` (csrc/common.cuh) for a packed
+    format: (is_float, code_min, e, m, bias, is_signed)."""
+    if fmt.is_integer:
+        return (0, int(fmt.min), 0, 0, 0, 0)
+    return (1, 0, fmt.exponent, fmt.mantissa, fmt.bias,
+            int(not fmt.is_unsigned))
+
+
+def _bitplane_x(x, k, s, sp):
+    """x's columns in the bit-plane byte order, x'[:, 8*b + i] = x[:, i*s +
+    b] (zero where i*s + b >= K or b >= s), with 8*sp columns."""
+    m = x.shape[0]
+    xs = F.pad(x, (0, 8 * s - k)).reshape(m, 8, s)
+    if sp != s:
+        xs = F.pad(xs, (0, sp - s))
+    return xs.transpose(1, 2).reshape(m, 8 * sp).contiguous()
+
+
+def _bitplane_check(name, x, codes, scale, fmt):
+    """(M, K, O, S): the planes of S bytes a row that codes (O, bits*S)
+    hold for x (M, K)."""
+    m, k = x.shape
+    o = codes.shape[0]
+    s = pad_to_multiple(k, 8) // 8
+    groups = _groups(scale)
+    if (codes.dim() != 2 or codes.dtype != torch.uint8
+            or codes.shape[1] != fmt.code_bits * s or k % groups
+            or scale.shape[0] != o):
+        raise ValueError(f"{name}: bit-plane codes {tuple(codes.shape)} "
+                         f"{codes.dtype} of {fmt.name} and scale "
+                         f"{tuple(scale.shape)} do not fit x "
+                         f"{tuple(x.shape)}")
+    return m, k, o, s
+
+
 def _operands(scale, zp, bias):
     """fp32 contiguous (O, G) scale and zero point, (O,) bias."""
     o, groups = scale.shape[0], _groups(scale)
@@ -159,17 +213,21 @@ def _operands(scale, zp, bias):
 
 
 def dequant_gemv(x, codes, scale, zp=None, bias=None,
-                 out_dtype=torch.bfloat16):
+                 out_dtype=torch.bfloat16, fmt=None):
     """Weight-only GEMV for x (M, K), M <= 32 on the card, fp32 / bf16 /
     fp16; codes (O, K) int8, uint8 or e4m3; scale / zp (O,), (O, 1) or
-    (O, G) with K / G a multiple of 8; bias (O,)."""
+    (O, G) with K / G a multiple of 8; bias (O,).  With ``fmt`` a packed
+    format, codes (O, bits * ceil(K/8)) in its bit-plane layout (x and
+    the output fp32 or bf16 on the card; any group dividing K)."""
     if not is_cuda(x):
-        return dequant_gemv_plain(x, codes, scale, zp, bias, out_dtype)
+        return dequant_gemv_plain(x, codes, scale, zp, bias, out_dtype, fmt)
     m, k = x.shape
     o = codes.shape[0]
     if not 1 <= m <= GEMV_MAX_ROWS:
         raise ValueError(
             f"dequant_gemv takes 1..{GEMV_MAX_ROWS} rows, got {m}")
+    if fmt is not None:
+        return _bitplane_gemv(x, codes, scale, zp, bias, out_dtype, fmt)
     kind = _code_kind(codes, "dequant_gemv")
     groups = _groups(scale)
     if groups > 1 and (k % groups or (k // groups) % 8):
@@ -196,20 +254,47 @@ def dequant_gemv(x, codes, scale, zp=None, bias=None,
 
 
 dequant_gemv.launches = 0
-dequant_gemv.mode_launches = dict(grouped=0)
+dequant_gemv.mode_launches = dict(grouped=0, bitplane=0)
+
+
+def _bitplane_gemv(x, codes, scale, zp, bias, out_dtype, fmt):
+    m, k, o, s = _bitplane_check("dequant_gemv", x, codes, scale, fmt)
+    if x.dtype not in (torch.float32, torch.bfloat16) or out_dtype not in (
+            torch.float32, torch.bfloat16):
+        raise ValueError("dequant_gemv on bit-plane codes takes fp32 / bf16 "
+                         f"x and output, not {x.dtype} / {out_dtype}")
+    xp = _bitplane_x(x, k, s, s)
+    codes = codes.contiguous()
+    groups = _groups(scale)
+    scale, zp, bias = _operands(scale, zp, bias)
+    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
+    fn = _build.function("dequant_gemv", "sdnq_dequant_gemv_bitplane",
+                         [P] * 6 + [I] * 14 + [P])
+    _build.check(fn(*(_build.ptr(t) for t in (xp, codes, scale, zp, bias,
+                                              out)),
+                    m, k, s, o, groups, fmt.code_bits, *_fmt_args(fmt),
+                    _build.act_kind(x.dtype), _build.act_kind(out_dtype),
+                    _build.stream(x)), "dequant_gemv (bit-plane)")
+    dequant_gemv.launches += 1
+    dequant_gemv.mode_launches["bitplane"] += 1
+    return out
 
 
 def dequant_mm(x, codes, scale, zp=None, bias=None,
-               out_dtype=torch.bfloat16):
+               out_dtype=torch.bfloat16, fmt=None):
     """Weight-only GEMM on tensor-core tiles: x (M, K), bf16 on the card;
     codes (O, K) int8, uint8 or e4m3; scale / zp (O,) or (O, 1) (row mode)
-    or (O, G) (grouped, any group K / G); bias (O,)."""
+    or (O, G) (grouped, any group K / G); bias (O,).  With ``fmt`` a
+    packed format, codes (O, bits * ceil(K/8)) in its bit-plane layout
+    (output fp32 or bf16 on the card)."""
     if not is_cuda(x):
-        return dequant_mm_plain(x, codes, scale, zp, bias, out_dtype)
+        return dequant_mm_plain(x, codes, scale, zp, bias, out_dtype, fmt)
     m, k = x.shape
     o = codes.shape[0]
     if x.dtype != torch.bfloat16:
         raise ValueError(f"dequant_mm takes bf16 x, not {x.dtype}")
+    if fmt is not None:
+        return _bitplane_mm(x, codes, scale, zp, bias, out_dtype, fmt)
     kind = _code_kind(codes, "dequant_mm")
     groups = _groups(scale)
     if codes.shape[1] != k or k % groups:
@@ -239,7 +324,36 @@ def dequant_mm(x, codes, scale, zp=None, bias=None,
 
 
 dequant_mm.launches = 0
-dequant_mm.mode_launches = dict(grouped=0, row=0)
+dequant_mm.mode_launches = dict(grouped=0, row=0, bitplane=0)
+
+
+def _bitplane_mm(x, codes, scale, zp, bias, out_dtype, fmt):
+    m, k, o, s = _bitplane_check("dequant_mm", x, codes, scale, fmt)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("dequant_mm on bit-plane codes gives fp32 / bf16, "
+                         f"not {out_dtype}")
+    bits = fmt.code_bits
+    sp = pad_to_multiple(s, 4)  # the kernel copies 4 bytes of each plane
+    if sp != s:  # (a copy of the weight: only where K / 8 is not a
+        # multiple of 4)
+        codes = F.pad(codes.reshape(o, bits, s), (0, sp - s)).reshape(
+            o, bits * sp)
+    xp = _bitplane_x(x, k, s, sp)
+    codes = codes.contiguous()
+    groups = _groups(scale)
+    scale, zp, bias = _operands(scale, zp, bias)
+    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
+    if m and o:
+        fn = _build.function("dequant_mm", "sdnq_dequant_mm_bitplane",
+                             [P] * 6 + [I] * 14 + [P])
+        _build.check(fn(*(_build.ptr(t) for t in (xp, codes, scale, zp,
+                                                  bias, out)),
+                        m, k, s, sp, o, groups, bits, *_fmt_args(fmt),
+                        _build.act_kind(out_dtype), _build.stream(x)),
+                     "dequant_mm (bit-plane)")
+        dequant_mm.launches += 1
+        dequant_mm.mode_launches["bitplane"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -247,12 +361,24 @@ dequant_mm.mode_launches = dict(grouped=0, row=0)
 # ---------------------------------------------------------------------------
 
 def _group_operands(scale, zero_point, fmt):
-    """(O, G) fp32 scale and zpc = zero point + code_min * scale."""
+    """(O, G) fp32 scale and zpc = zero point + code_min * scale (integer
+    codes), or the zero point alone (minifloat values; zeros without
+    one)."""
     scale = scale.reshape(scale.shape[0], -1).float().contiguous()
-    zpc = float(fmt.min) * scale
+    zpc = (float(fmt.min) * scale if fmt.is_integer
+           else torch.zeros_like(scale))
     if zero_point is not None:
         zpc = zpc + zero_point.reshape(scale.shape).float()
     return scale, zpc.contiguous()
+
+
+def _halfsplit_values(codes, bits, k, fmt):
+    """(O, K) fp32 half-split codes: raw integer codes, or the decoded
+    values of a minifloat ``fmt``."""
+    c = unpack_codes_halfsplit(codes, bits, k)
+    if fmt is not None and not fmt.is_integer:
+        return decode_float(c, fmt)
+    return c.float()
 
 
 def _groupdot_plain(xf, cf, scale, zpc, xsum_of):
@@ -272,11 +398,11 @@ def _groupdot_plain(xf, cf, scale, zpc, xsum_of):
 
 
 def groupdot_mm_plain(x, codes, scale, zpc, bias=None, bits: int = 4,
-                      out_dtype=torch.bfloat16):
+                      out_dtype=torch.bfloat16, fmt=None):
     """Plain version of ``groupdot_mm`` (and ``blockdiag_mm``): the
     group-dot product in fp32."""
     xf = x.float()
-    cf = unpack_codes_halfsplit(codes, bits, x.shape[1]).float()
+    cf = _halfsplit_values(codes, bits, x.shape[1], fmt)
     acc = _groupdot_plain(xf, cf, scale.float(), zpc.float(),
                           lambda sl: xf[:, sl].sum(-1, keepdim=True))
     if bias is not None:
@@ -310,12 +436,43 @@ def groupdot_i8_mm_plain(xq, xs, codes, scale, zpc, bias=None, bits: int = 4,
 blockdiag_i8_mm_plain = groupdot_i8_mm_plain
 
 
+def _general(bits, fmt) -> bool:
+    """True where B5 / B6 take their general mode: codes in more than one
+    field plane, or minifloat codes."""
+    return bits not in _KERNEL_BITS or (fmt is not None
+                                        and not fmt.is_integer)
+
+
+def _check_general(name, x, codes, scale, zpc, bits, align):
+    """Shapes and group geometry of the general mode: ``align`` divides
+    the group and the narrowest plane's segment K / pmax."""
+    if not 1 <= bits <= 7:
+        raise ValueError(f"{name}: half-split codes are 1..7 bits, not "
+                         f"{bits}")
+    m, k = x.shape
+    o = codes.shape[0]
+    groups = scale.shape[-1]
+    pmax = max(8 // w for w, _ in halfsplit_planes(bits))
+    if (x.dim() != 2 or codes.dim() != 2 or codes.dtype != torch.uint8
+            or k % pmax or codes.shape[1] != k * bits // 8
+            or tuple(scale.shape) != (o, groups)
+            or tuple(zpc.shape) != (o, groups) or k % groups):
+        raise ValueError(f"{name}: codes {tuple(codes.shape)} "
+                         f"{codes.dtype}, scale {tuple(scale.shape)}, zpc "
+                         f"{tuple(zpc.shape)} do not fit x {tuple(x.shape)}")
+    g = k // groups
+    if g % align or (k // pmax) % align:
+        raise ValueError(f"{name}: group {g} and plane segment {k // pmax} "
+                         f"of {bits}-bit codes must be multiples of {align}")
+    return m, k, o, g
+
+
 def _check_halfsplit(name, x, codes, scale, zpc, bits, g_align):
-    """Shapes, types and group geometry the half-split kernels take."""
+    """Shapes, types and group geometry the 1/2/4-bit kernels take."""
     if bits not in _KERNEL_BITS:
         raise NotImplementedError(
             f"{name}: {bits}-bit codes (multi-plane half-split) are a later "
-            "slice of the port; the kernels take 1, 2 and 4 bits")
+            "slice of the port; this kernel takes 1, 2 and 4 bits")
     if x.dim() != 2 or codes.dim() != 2 or codes.dtype != torch.uint8:
         raise ValueError(f"{name}: x (M, K) and uint8 codes (O, K*bits/8), "
                          f"got {tuple(x.shape)} and {codes.dtype} "
@@ -351,16 +508,22 @@ def _groupdot_fn():
 
 
 def groupdot_mm(x, codes, scale, zpc, bias=None, bits: int = 4,
-                out_dtype=torch.bfloat16):
+                out_dtype=torch.bfloat16, fmt=None):
     """Weight-only group-dot GEMM: x (M, K) bf16 on the card; codes (O,
-    K*bits/8) half-split uint8; scale, zpc (O, G) fp32; bias (O,) or
-    None."""
+    K*bits/8) half-split uint8 of ``fmt`` (None: integer codes of
+    ``bits`` bits); scale, zpc (O, G) fp32; bias (O,) or None.  1/2/4-bit
+    integers: 32 divides g and g divides the field segment K*bits/8; the
+    general mode (other widths, minifloats): 32 divides g and K / pmax."""
     if not is_cuda(x):
-        return groupdot_mm_plain(x, codes, scale, zpc, bias, bits, out_dtype)
-    m, k, o, g = _check_halfsplit("groupdot_mm", x, codes, scale, zpc, bits,
-                                  32)
+        return groupdot_mm_plain(x, codes, scale, zpc, bias, bits, out_dtype,
+                                 fmt)
     if x.dtype != torch.bfloat16:
         raise ValueError(f"groupdot_mm takes bf16 x, not {x.dtype}")
+    if _general(bits, fmt):
+        return _groupdot_general(x, codes, scale, zpc, bias, bits, out_dtype,
+                                 fmt)
+    m, k, o, g = _check_halfsplit("groupdot_mm", x, codes, scale, zpc, bits,
+                                  32)
     x, codes, scale, zpc = _contiguous(x, codes, scale, zpc)
     xsum = x.float().reshape(m, k // g, g).sum(-1).contiguous()
     bias = None if bias is None else bias.reshape(-1).float().contiguous()
@@ -376,22 +539,59 @@ def groupdot_mm(x, codes, scale, zpc, bias=None, bits: int = 4,
 
 
 groupdot_mm.launches = 0
+groupdot_mm.mode_launches = dict(multiplane=0, minifloat=0)
+
+
+def _general_mode(fmt) -> str:
+    return ("minifloat" if fmt is not None and not fmt.is_integer
+            else "multiplane")
+
+
+def _float_args(fmt) -> tuple:
+    """(is_float, e, m, bias, is_signed) of the general modes' entries."""
+    a = _fmt_args(fmt) if fmt is not None else (0, 0, 0, 0, 0, 0)
+    return (a[0],) + a[2:]
+
+
+def _groupdot_general(x, codes, scale, zpc, bias, bits, out_dtype, fmt):
+    m, k, o, g = _check_general("groupdot_mm", x, codes, scale, zpc, bits,
+                                32)
+    x, codes, scale, zpc = _contiguous(x, codes, scale.float(), zpc.float())
+    xsum = x.float().reshape(m, k // g, g).sum(-1).contiguous()
+    bias = None if bias is None else bias.reshape(-1).float().contiguous()
+    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
+    if m and o:
+        fn = _build.function("groupdot_mm", "sdnq_groupdot_mm_gen",
+                             [P] * 7 + [I] * 11 + [P])
+        _build.check(fn(*(_build.ptr(t) for t in (x, codes, scale, zpc, xsum,
+                                                  bias, out)),
+                        m, k, o, g, bits, *_float_args(fmt),
+                        _build.act_kind(out_dtype), _build.stream(x)),
+                     "groupdot_mm (general mode)")
+        groupdot_mm.launches += 1
+        groupdot_mm.mode_launches[_general_mode(fmt)] += 1
+    return out
 
 
 def blockdiag_mm(x, codes, scale, zpc, bias=None, bits: int = 4,
-                 out_dtype=torch.bfloat16):
+                 out_dtype=torch.bfloat16, fmt=None):
     """Weight-only group-dot GEMV for x (M, K), M <= BLOCKDIAG_MAX_ROWS on
-    the card, fp32 / bf16 / fp16; the other operands as ``groupdot_mm``."""
+    the card, fp32 / bf16 / fp16; the other operands as ``groupdot_mm``
+    (8 in place of 32 in its geometry rules; the general mode's output is
+    fp32 or bf16)."""
     if not is_cuda(x):
         return blockdiag_mm_plain(x, codes, scale, zpc, bias, bits,
-                                  out_dtype)
-    m, k, o, g = _check_halfsplit("blockdiag_mm", x, codes, scale, zpc, bits,
-                                  8)
-    if not 1 <= m <= BLOCKDIAG_MAX_ROWS:
+                                  out_dtype, fmt)
+    if not 1 <= x.shape[0] <= BLOCKDIAG_MAX_ROWS:
         raise ValueError(f"blockdiag_mm takes 1..{BLOCKDIAG_MAX_ROWS} rows, "
-                         f"got {m}")
+                         f"got {x.shape[0]}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         x = x.float()   # the kernel reads fp32 or bf16 rows
+    if _general(bits, fmt):
+        return _blockdiag_general(x, codes, scale, zpc, bias, bits,
+                                  out_dtype, fmt)
+    m, k, o, g = _check_halfsplit("blockdiag_mm", x, codes, scale, zpc, bits,
+                                  8)
     x, codes, scale, zpc = _contiguous(x, codes, scale, zpc)
     bias = None if bias is None else bias.reshape(-1).float().contiguous()
     out = torch.empty((m, o), dtype=out_dtype, device=x.device)
@@ -407,6 +607,28 @@ def blockdiag_mm(x, codes, scale, zpc, bias=None, bits: int = 4,
 
 
 blockdiag_mm.launches = 0
+blockdiag_mm.mode_launches = dict(multiplane=0, minifloat=0)
+
+
+def _blockdiag_general(x, codes, scale, zpc, bias, bits, out_dtype, fmt):
+    m, k, o, g = _check_general("blockdiag_mm", x, codes, scale, zpc, bits,
+                                8)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("blockdiag_mm's general mode gives fp32 / bf16, "
+                         f"not {out_dtype}")
+    x, codes, scale, zpc = _contiguous(x, codes, scale.float(), zpc.float())
+    bias = None if bias is None else bias.reshape(-1).float().contiguous()
+    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
+    fn = _build.function("blockdiag_mm", "sdnq_blockdiag_mm_gen",
+                         [P] * 6 + [I] * 12 + [P])
+    _build.check(fn(*(_build.ptr(t) for t in (x, codes, scale, zpc, bias,
+                                              out)),
+                    m, k, o, g, bits, *_float_args(fmt),
+                    _build.act_kind(x.dtype), _build.act_kind(out_dtype),
+                    _build.stream(x)), "blockdiag_mm (general mode)")
+    blockdiag_mm.launches += 1
+    blockdiag_mm.mode_launches[_general_mode(fmt)] += 1
+    return out
 
 
 def groupdot_i8_mm(xq, xs, codes, scale, zpc, bias=None, bits: int = 4,
@@ -477,31 +699,23 @@ blockdiag_i8_mm.launches = 0
 # Routing (the JAX package's entry points)
 # ---------------------------------------------------------------------------
 
-def _halfsplit_kernel_fmt(fmt, pack_layout: str) -> bool:
-    return (fmt.is_packed and fmt.is_integer and pack_layout == "halfsplit"
-            and fmt.code_bits in _KERNEL_BITS)
-
-
-def _packed_dequant_matmul(x, wq, scale, zero_point, bias, fmt, g,
-                           out_dtype, pack_layout):
-    m, kdim = x.shape
-    if _halfsplit_kernel_fmt(fmt, pack_layout):
+def _packed_dequant_matmul(x, wq, scale, zero_point, bias, fmt, out_dtype,
+                           pack_layout):
+    m = x.shape[0]
+    if pack_layout == "halfsplit":
         s, zpc = _group_operands(scale, zero_point, fmt)
         if m <= BLOCKDIAG_MAX_ROWS:
             return blockdiag_mm(x, wq, s, zpc, bias, fmt.code_bits,
-                                out_dtype)
+                                out_dtype, fmt)
         if is_cuda(x) and x.dtype != torch.bfloat16:
             x = x.to(torch.bfloat16)   # the tensor cores multiply bf16
-        return groupdot_mm(x, wq, s, zpc, bias, fmt.code_bits, out_dtype)
-    if is_cuda(x):
-        what = ("bit-plane codes (the packed mode of B2)"
-                if pack_layout != "halfsplit" else
-                f"half-split {fmt.name} codes")
-        raise NotImplementedError(
-            f"weight-only matmul on {what} is a later slice of the port "
-            "(ROADMAP queue B)")
-    vals = unpack(wq, fmt, kdim, dtype=torch.float32, layout=pack_layout)
-    return _dequantized_dot(x, vals, scale, zero_point, bias, g, out_dtype)
+        return groupdot_mm(x, wq, s, zpc, bias, fmt.code_bits, out_dtype,
+                           fmt)
+    if m <= GEMV_MAX_ROWS:
+        return dequant_gemv(x, wq, scale, zero_point, bias, out_dtype, fmt)
+    if is_cuda(x) and x.dtype != torch.bfloat16:
+        x = x.to(torch.bfloat16)   # the tensor cores multiply bf16
+    return dequant_mm(x, wq, scale, zero_point, bias, out_dtype, fmt)
 
 
 def _dequantized_dot(x, vals, scale, zero_point, bias, g, out_dtype):
@@ -536,14 +750,14 @@ def dequant_matmul(x, wq, scale, zero_point, bias, fmt, group_size: int,
     M, rowwise or grouped: the GEMV (``dequant_gemv``) on up to
     GEMV_MAX_ROWS rows (grouped: where the group is a multiple of 8), the
     tensor-core tiles (``dequant_mm``) otherwise, x cast to bf16 there on
-    the card as the JAX wrapper casts it on the chip.  Half-split 1/2/4-bit
-    integer codes take B6 on up to BLOCKDIAG_MAX_ROWS rows and B5 above.
-    Bit-plane and other packed codes raise on the card."""
+    the card as the JAX wrapper casts it on the chip.  Bit-plane codes
+    take B2's packed mode, the GEMV or the tiles by the same row rule.
+    Half-split codes (integers or minifloats) take B6 on up to
+    BLOCKDIAG_MAX_ROWS rows and B5 above."""
     m, kdim = x.shape
-    g = group_size if group_size > 0 else kdim
     if fmt.is_packed:
         return _packed_dequant_matmul(x, wq, scale, zero_point, bias, fmt,
-                                      g, out_dtype, pack_layout)
+                                      out_dtype, pack_layout)
     groups = scale.shape[-1]
     if m <= GEMV_MAX_ROWS and (groups == 1 or (kdim // groups) % 8 == 0):
         return dequant_gemv(x, wq, scale, zero_point, bias, out_dtype)

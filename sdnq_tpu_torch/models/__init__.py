@@ -2,7 +2,8 @@
 
 from .dit import (
     FLUX_DEV_CONFIG, FLUX_TINY_CONFIG, DiTConfig, dit_forward, init_dit,
-    make_rope_freqs,
+    make_rope_freqs, make_staged_dit_forward, stack_dit_blocks,
+    unstack_dit_blocks,
 )
 from .llm import (
     LLAMA3_8B_CONFIG, LLM_TINY_CONFIG, LLMConfig, generate, init_cache,
@@ -18,7 +19,8 @@ from .vae import (
 )
 
 __all__ = ["DiTConfig", "FLUX_DEV_CONFIG", "FLUX_TINY_CONFIG", "init_dit",
-           "dit_forward", "make_rope_freqs", "LLMConfig", "LLM_TINY_CONFIG",
+           "dit_forward", "make_rope_freqs", "make_staged_dit_forward",
+           "stack_dit_blocks", "unstack_dit_blocks", "LLMConfig", "LLM_TINY_CONFIG",
            "LLAMA3_8B_CONFIG", "init_llm", "init_llm_layer", "init_cache",
            "llm_forward", "generate", "CLIPConfig", "T5Config",
            "CLIP_TINY_CONFIG", "T5_TINY_CONFIG", "init_clip", "clip_encode",

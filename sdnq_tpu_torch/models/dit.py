@@ -5,7 +5,18 @@ with separate image/text QKV and joint attention, then single-stream
 blocks over the joined sequence, AdaLN-Zero modulation from timestep ⊕
 guidance ⊕ pooled text, rope over (id, h, w).  Parameter names follow
 diffusers' FluxTransformer2DModel, so the skip-key registry entry
-"FluxTransformer2DModel" applies.  Blocks are lists.
+"FluxTransformer2DModel" applies.
+
+Blocks are lists, or stacked by ``stack_dit_blocks`` as the JAX package
+stacks them for its scan (and as ``__graft_entry__`` runs the model): every
+leaf gains a leading layer axis, QTensors component by component under one
+layer's meta, and a first block whose structure differs (the Flux skip keys
+leave block 0's modulation unquantized) stays apart as {"first", "rest"}.
+``dit_forward`` walks a stack layer by layer through ``_index_stacked``,
+whose leaves are views of the stacked storage: layer l of contiguous (L,
+O, K) codes is itself contiguous, so the kernels read it where it lies and
+no layer's weight is copied.  ``unstack_dit_blocks`` gives the block lists
+back as such views.
 """
 
 from __future__ import annotations
@@ -16,13 +27,15 @@ import torch
 
 from ..kernels.dispatch import check_device, resolve_device
 from ..layers import qlinear
+from ..tensor import QTensor, layer_view
 from .common import (
     Params, apply_rope, attention, gelu, layer_norm, linear_init, rms_norm,
     rope, silu, split_heads, timestep_embedding,
 )
 
 __all__ = ["DiTConfig", "init_dit", "dit_forward", "make_rope_freqs",
-           "FLUX_DEV_CONFIG", "FLUX_TINY_CONFIG"]
+           "make_staged_dit_forward", "stack_dit_blocks",
+           "unstack_dit_blocks", "FLUX_DEV_CONFIG", "FLUX_TINY_CONFIG"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,6 +208,107 @@ def _vec_mlp(p, x):
     return _lin(p["fc2"], silu(_lin(p["fc1"], x)))
 
 
+# ---------------------------------------------------------------------------
+# Stacked blocks
+# ---------------------------------------------------------------------------
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(v, fn) for v in tree)
+    return fn(tree)
+
+
+def _structure(tree):
+    """The tree's shape as JAX's tree_structure sees it: containers, and
+    a QTensor's meta and which of its arrays are present."""
+    if isinstance(tree, dict):
+        return tuple((k, _structure(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return tuple(_structure(v) for v in tree)
+    if isinstance(tree, QTensor):
+        return ("QTensor", tree.meta, tree.zero_point is None,
+                tree.svd_up is None)
+    return "leaf"
+
+
+def _stack(blocks):
+    """Blocks of one structure -> one tree whose leaves carry a leading
+    layer axis (a copy, once)."""
+    def stack(*xs):
+        x = xs[0]
+        if isinstance(x, dict):
+            return {k: stack(*(b[k] for b in xs)) for k in x}
+        if isinstance(x, (list, tuple)):
+            return type(x)(stack(*vs) for vs in zip(*xs))
+        if isinstance(x, QTensor):
+            def arr(name):
+                a = getattr(x, name)
+                return None if a is None else torch.stack(
+                    [getattr(b, name) for b in xs])
+            return QTensor(qdata=arr("qdata"), scale=arr("scale"),
+                           zero_point=arr("zero_point"),
+                           svd_up=arr("svd_up"), svd_down=arr("svd_down"),
+                           meta=x.meta)
+        return torch.stack(xs)
+    return stack(*blocks)
+
+
+def stack_dit_blocks(params: Params) -> Params:
+    """The JAX package's ``stack_dit_blocks``: each block list of one
+    structure becomes one stacked tree; where only block 0 differs, it
+    stays apart ({"first": block 0, "rest": the stack}); otherwise (layers
+    of different formats, e.g. after dynamic quantization) the list
+    stays."""
+    out = dict(params)
+    for key in ("transformer_blocks", "single_transformer_blocks"):
+        blocks = params.get(key)
+        if not isinstance(blocks, list) or not blocks:
+            continue
+        structs = [_structure(b) for b in blocks]
+        if all(st == structs[0] for st in structs[1:]):
+            out[key] = _stack(blocks)
+        elif len(blocks) > 2 and all(st == structs[1] for st in structs[2:]):
+            out[key] = {"first": blocks[0], "rest": _stack(blocks[1:])}
+    return out
+
+
+def _index_stacked(tree, i: int):
+    """Layer i of a stacked block tree: QTensors as ``layer_view``s, other
+    leaves indexed; every leaf a view of the stacked storage."""
+    return _map(tree, lambda x: layer_view(x, i) if isinstance(x, QTensor)
+                else x[i])
+
+
+def _stack_len(tree) -> int:
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return (tree.qdata if isinstance(tree, QTensor) else tree).shape[0]
+
+
+def _block_list(blocks) -> list:
+    """A list of blocks, stacked ones as views of their layer."""
+    if isinstance(blocks, list):
+        return blocks
+    first = []
+    if isinstance(blocks, dict) and "first" in blocks:
+        first, blocks = [blocks["first"]], blocks["rest"]
+    return first + [_index_stacked(blocks, i)
+                    for i in range(_stack_len(blocks))]
+
+
+def unstack_dit_blocks(params: Params) -> Params:
+    """Stacked block trees back as lists whose leaves are views of the
+    stacked storage (no copy)."""
+    out = dict(params)
+    for key in ("transformer_blocks", "single_transformer_blocks"):
+        if key in params:
+            out[key] = _block_list(params[key])
+    return out
+
+
 def dit_forward(params: Params, img: torch.Tensor, txt: torch.Tensor,
                 timesteps: torch.Tensor, pooled: torch.Tensor,
                 cfg: DiTConfig, guidance: torch.Tensor | None = None,
@@ -203,30 +317,63 @@ def dit_forward(params: Params, img: torch.Tensor, txt: torch.Tensor,
     """img (B, N_img, in_channels) packed latent patches; txt (B, L,
     txt_dim); timesteps (B,) in [0, 1]; pooled (B, vec_dim).  The inputs
     must lie on ``device`` (the card by default)."""
-    device = resolve_device(device)
-    for name, t in (("img", img), ("txt", txt), ("timesteps", timesteps),
-                    ("pooled", pooled)):
-        check_device(t, device, name)
-    img = _lin(params["x_embedder"], img)
-    txt = _lin(params["context_embedder"], txt)
-    vec = _vec_mlp(params["time_in"], timestep_embedding(timesteps * 1000.0,
-                                                         256))
-    if cfg.guidance_embed and guidance is not None:
-        vec = vec + _vec_mlp(params["guidance_in"],
-                             timestep_embedding(guidance * 1000.0, 256))
-    vec = vec + _vec_mlp(params["vector_in"], pooled)
-    vec = vec.to(img.dtype)
-    if freqs is None:
-        n_img = img.shape[1]
-        side = int(round(n_img ** 0.5))
-        freqs = make_rope_freqs(cfg, txt.shape[1], (side, n_img // side),
-                                device=device)
-    for blk in params["transformer_blocks"]:
-        img, txt = _double_block(blk, img, txt, vec, freqs, cfg, attn_config)
-    x = torch.cat([txt, img], dim=1)
-    for blk in params["single_transformer_blocks"]:
-        x = _single_block(blk, x, vec, freqs, cfg, attn_config)
-    img = x[:, txt.shape[1]:]
-    shift, scale = _modulation(params["norm_out"], vec, 2)
-    img = layer_norm(img) * (1 + scale) + shift
-    return _lin(params["proj_out"], img)
+    forward = make_staged_dit_forward(cfg, attn_config)
+    return forward(params, img, txt, timesteps, pooled, guidance, freqs,
+                   device=device)
+
+
+def make_staged_dit_forward(cfg: DiTConfig, attn_config: dict | None = None):
+    """The forward as four stages (embed, the double blocks, the single
+    blocks, the head), as the JAX package's staged forward for its
+    separately compiled programs; here each stage runs eagerly, and the
+    block stages take lists or stacked trees.  Returns ``forward(params,
+    img, txt, timesteps, pooled, guidance=None, freqs=None, *,
+    device=None)``, which computes ``dit_forward``."""
+
+    def embed(p, img, txt, timesteps, pooled, guidance):
+        img = _lin(p["x_embedder"], img)
+        txt = _lin(p["context_embedder"], txt)
+        vec = _vec_mlp(p["time_in"], timestep_embedding(timesteps * 1000.0,
+                                                        256))
+        if cfg.guidance_embed and guidance is not None:
+            vec = vec + _vec_mlp(p["guidance_in"],
+                                 timestep_embedding(guidance * 1000.0, 256))
+        vec = vec + _vec_mlp(p["vector_in"], pooled)
+        return img, txt, vec.to(img.dtype)
+
+    def run_double(blocks, img, txt, vec, freqs):
+        for blk in _block_list(blocks):
+            img, txt = _double_block(blk, img, txt, vec, freqs, cfg,
+                                     attn_config)
+        return img, txt
+
+    def run_single(blocks, x, vec, freqs):
+        for blk in _block_list(blocks):
+            x = _single_block(blk, x, vec, freqs, cfg, attn_config)
+        return x
+
+    def head(p, x, txt, vec):
+        img = x[:, txt.shape[1]:]
+        shift, scale = _modulation(p["norm_out"], vec, 2)
+        img = layer_norm(img) * (1 + scale) + shift
+        return _lin(p["proj_out"], img)
+
+    def forward(params, img, txt, timesteps, pooled, guidance=None,
+                freqs=None, *, device=None):
+        device = resolve_device(device)
+        for name, t in (("img", img), ("txt", txt),
+                        ("timesteps", timesteps), ("pooled", pooled)):
+            check_device(t, device, name)
+        img, txt, vec = embed(params, img, txt, timesteps, pooled, guidance)
+        if freqs is None:
+            n_img = img.shape[1]
+            side = int(round(n_img ** 0.5))
+            freqs = make_rope_freqs(cfg, txt.shape[1], (side, n_img // side),
+                                    device=device)
+        img, txt = run_double(params["transformer_blocks"], img, txt, vec,
+                              freqs)
+        x = run_single(params["single_transformer_blocks"],
+                       torch.cat([txt, img], dim=1), vec, freqs)
+        return head(params, x, txt, vec)
+
+    return forward

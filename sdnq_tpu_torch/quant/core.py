@@ -3,7 +3,9 @@
 The same numerics as the JAX package's ``quant.core``: absmax / (max-min)
 scales with a 2**-126 floor, true division by the scale, round half to
 even (``torch.round``), clip to the format's range.  Stochastic rounding of
-integer codes takes an explicit ``torch.Generator``.
+integer codes takes an explicit ``torch.Generator``; float formats round
+stochastically on uniform 32-bit values, drawn from the generator or fed
+in (``sr_bits``), so tests can give both packages the same bits.
 """
 
 from __future__ import annotations
@@ -65,16 +67,33 @@ def _round(q: torch.Tensor, generator: torch.Generator | None):
     return torch.round(q + 0.1 * noise)
 
 
+def _stochastic_fp(q: torch.Tensor, mantissa: int,
+                   sr_bits: torch.Tensor) -> torch.Tensor:
+    """fp32 values cut to ``mantissa`` bits after adding the low bits of
+    ``sr_bits`` below the cut: stochastic rounding of the mantissa (the
+    JAX package's ``quantize_fp_mm`` with a key)."""
+    shift = 23 - mantissa
+    jitter = (sr_bits.to(torch.int64) & ((1 << shift) - 1)).to(torch.int32)
+    iq = (q.float().contiguous().view(torch.int32) + jitter) & -(1 << shift)
+    return iq.view(torch.float32)
+
+
 def quantize_weight(w: torch.Tensor, fmt: Format | str, dims=-1, *,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None,
+                    sr_bits: torch.Tensor | None = None):
     """Quantize ``w`` to ``fmt`` with per-``dims`` scales.
 
     Returns ``(q, scale, zero_point)``: integer codes in the format's
     storage dtype (int32 for packed integer widths), fp8 values for the
     native fp8 formats, fp32 values on the format's grid for packed
     minifloats; ``zero_point`` is None for signed formats.  With a
-    generator, integer codes round stochastically and packed minifloats
-    take uniform 32-bit rounding bits from it.
+    generator, integer codes round stochastically; float formats round
+    stochastically on uniform 32-bit values (``sr_bits`` of w's shape, or
+    drawn from the generator): the packed minifloats in their codec, the
+    native fp8 formats by cutting the fp32 mantissa after adding the bits
+    below the cut (the JAX package's ``quantize_weight`` ignores its key
+    for native fp8 and rounds to nearest; its ``quantize_fp_mm`` is the
+    rule followed here).
     """
     fmt = _fmt(fmt)
     w = w.float()
@@ -88,18 +107,17 @@ def quantize_weight(w: torch.Tensor, fmt: Format | str, dims=-1, *,
     if fmt.is_integer:
         q = torch.clamp(_round(q, generator), fmt.min, fmt.max)
         q = q.to(torch.int32 if fmt.is_packed else fmt.torch_storage)
-    elif fmt.is_packed:
-        q = torch.nan_to_num(torch.clamp(q, fmt.min, fmt.max))
-        sr_bits = None if generator is None else random_bits(q.shape,
-                                                             generator)
-        q = decode_float(encode_float(q, fmt, sr_bits=sr_bits), fmt)
     else:
-        if generator is not None:
-            raise NotImplementedError(
-                "stochastic rounding of native fp8 weights is not ported "
-                "yet")
-        q = torch.nan_to_num(torch.clamp(q, fmt.min, fmt.max))
-        q = q.to(fmt.torch_storage)
+        if sr_bits is None and generator is not None:
+            sr_bits = random_bits(q.shape, generator)
+        if fmt.is_packed:
+            q = torch.nan_to_num(torch.clamp(q, fmt.min, fmt.max))
+            q = decode_float(encode_float(q, fmt, sr_bits=sr_bits), fmt)
+        else:
+            if sr_bits is not None:
+                q = _stochastic_fp(q, fmt.mantissa, sr_bits)
+            q = torch.nan_to_num(torch.clamp(q, fmt.min, fmt.max))
+            q = q.to(fmt.torch_storage)
     return q, scale, zero_point
 
 

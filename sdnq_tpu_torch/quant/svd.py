@@ -46,7 +46,8 @@ def apply_svdquant(w: torch.Tensor, rank: int = 32, niter: int = 8,
     flat = flat.to(torch.float32)
     u, s, vt = svd_lowrank(flat, rank=rank, niter=niter, generator=generator)
     svd_up = u * s[None, :]
-    svd_down = vt
+    svd_down = vt.contiguous()  # LAPACK's layout would set the products'
+    # summation order apart from a stacked copy's
     if dtype is not None:
         svd_up = svd_up.to(dtype)
         svd_down = svd_down.to(dtype)

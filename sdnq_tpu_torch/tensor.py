@@ -3,11 +3,17 @@
 The same fields and metadata as the JAX package's ``QTensor``: codes in the
 layer's natural orientation (linear (O, C)), scales and zero points
 broadcast-ready against the grouped view in ``meta.quantized_shape``,
-optional SVD factors.  Blocks of a model stay lists, so there is no stacked
-layer view.  Packed (non-native width) formats keep their codes flattened to
-(lead, -1) and packed by ``packing.pack`` in the layout the JAX package
-chooses: half-split for code widths below 8 whose row length divides, else
-bit-plane.
+optional SVD factors.  Packed (non-native width) formats keep their codes
+flattened to (lead, -1) and packed by ``packing.pack`` in the layout the JAX
+package chooses: half-split for code widths below 8 whose row length
+divides, else bit-plane.
+
+A stacked QTensor (``models.dit.stack_dit_blocks``) carries a leading layer
+axis on every array while ``meta`` describes one layer, as the JAX
+package's stacked trees do.  ``layer_count`` tells the two apart by the
+arrays' shapes, and ``layer_view(qt, i)`` is layer i: views of the stacked
+storage, no copy (layer i of contiguous (L, ...) storage is itself
+contiguous, so the kernels read it where it lies).
 
 fp16 weights under a quantized matmul are stored as bf16, as in the JAX
 package: the 16-bit GEMM flavour multiplies bf16, so storing what it
@@ -28,7 +34,8 @@ from .quant.hadamard import apply_hadamard, rotate_hadamard
 from .quant.svd import apply_svdquant
 
 __all__ = ["QuantMeta", "QTensor", "quantize_tensor", "dequantize",
-           "auto_group_size", "negotiate_group_count"]
+           "auto_group_size", "negotiate_group_count", "qdata_shape",
+           "layer_count", "layer_view"]
 
 LINEAR, CONV, CONV_TRANSPOSE, EMBEDDING = (
     "linear", "conv", "conv_transpose", "embedding")
@@ -79,6 +86,52 @@ class QTensor:
                    with_hadamard: bool = True) -> torch.Tensor:
         return dequantize(self, dtype=dtype, with_svd=with_svd,
                           with_hadamard=with_hadamard)
+
+    def nbytes(self) -> int:
+        """Bytes of the stored arrays (codes, scales, zero points, SVD
+        factors), as the JAX package's ``QTensor.nbytes``."""
+        return sum(a.numel() * a.element_size()
+                   for a in (self.qdata, self.scale, self.zero_point,
+                             self.svd_up, self.svd_down) if a is not None)
+
+
+def qdata_shape(meta: QuantMeta) -> tuple[int, ...]:
+    """The shape of one layer's stored codes: ``quantized_shape``, or
+    (rows, packed bytes) for a packed format in its layout."""
+    if not meta.is_packed:
+        return tuple(meta.quantized_shape)
+    lead = meta.quantized_shape[0]
+    flat_c = 1
+    for d in meta.quantized_shape[1:]:
+        flat_c *= d
+    bits = meta.format.code_bits
+    if meta.pack_layout == "halfsplit":
+        return (lead, flat_c * bits // 8)
+    return (lead, bits * ((flat_c + 7) // 8))
+
+
+def layer_count(qt: QTensor) -> int | None:
+    """L where the arrays carry a leading layer axis (a stacked QTensor),
+    None where they hold one layer; raises where ``qdata`` fits neither."""
+    one = qdata_shape(qt.meta)
+    shape = tuple(qt.qdata.shape)
+    if shape == one:
+        return None
+    if len(shape) == len(one) + 1 and shape[1:] == one:
+        return shape[0]
+    raise ValueError(f"QTensor codes {shape} fit neither one layer {one} "
+                     f"nor a stack of them ({qt.meta.fmt}, "
+                     f"{qt.meta.pack_layout})")
+
+
+def layer_view(qt: QTensor, i: int) -> QTensor:
+    """Layer i of a stacked QTensor: every array indexed on its leading
+    axis, so each is a view of the stacked storage (no copy)."""
+    def sel(a):
+        return None if a is None else a[i]
+    return QTensor(qdata=qt.qdata[i], scale=qt.scale[i],
+                   zero_point=sel(qt.zero_point), svd_up=sel(qt.svd_up),
+                   svd_down=sel(qt.svd_down), meta=qt.meta)
 
 
 def auto_group_size(fmt: Format, layer_kind: str, has_svd: bool,
@@ -142,11 +195,15 @@ def quantize_tensor(w: torch.Tensor, fmt: str | Format = "int8",
                     use_quantized_matmul: bool = False,
                     use_stochastic_rounding: bool = False,
                     dequant_dtype: str = "bfloat16",
-                    generator: torch.Generator | None = None) -> QTensor:
+                    generator: torch.Generator | None = None,
+                    svd_precomputed: bool = False) -> QTensor:
     """Quantize a weight into a QTensor on the weight's device.
 
     ``generator`` draws the SVD sketch (a generator seeded 0 when omitted)
-    and, with ``use_stochastic_rounding``, the rounding noise."""
+    and, with ``use_stochastic_rounding``, the rounding noise.
+    ``svd_precomputed`` marks a weight whose SVD residual the caller has
+    already taken (the dynamic ladder): the automatic group size then
+    follows the SVD rule, as the JAX package's does."""
     fmt = get_format(fmt) if isinstance(fmt, str) else fmt
     mfmt = get_format(matmul_fmt or default_matmul_format(fmt.name))
     original_shape = tuple(w.shape)
@@ -172,8 +229,9 @@ def quantize_tensor(w: torch.Tensor, fmt: str | Format = "int8",
         svd_up = svd_up.to(torch_dtype(dequant_dtype))
         svd_down = svd_down.to(torch_dtype(dequant_dtype))
     if group_size == 0:
-        group_size = auto_group_size(fmt, layer_kind, svd_up is not None,
-                                     use_quantized_matmul, re_quantize)
+        group_size = auto_group_size(
+            fmt, layer_kind, svd_up is not None or svd_precomputed,
+            use_quantized_matmul, re_quantize)
     grouped, group_axis, red_dims, g, num = _grouped_view(
         w, layer_kind, group_size)
     re_quantize = re_quantize or num > 1

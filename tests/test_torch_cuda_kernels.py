@@ -426,14 +426,134 @@ def test_packed_qlinear_on_card_matches_cpu(dev, rows, qmm, fmt):
 
 
 def test_packed_bitplane_raises_on_card(dev):
-    """Bit-plane codes (B2's packed mode) have no kernel yet: on the card
-    the weight-only matmul raises instead of running a stand-in."""
+    """Bit-plane codes (B2's packed mode) now run on the card (int12 at
+    groups of 24, 3 rows: the GEMV); what still raises instead of running a
+    stand-in is B7 / B8 on multi-plane codes (int5 under the quantized
+    matmul)."""
     import sdnq_tpu_torch as T
     w = torch.randn(64, 72, device=dev, generator=_gen(14))
     qt = T.quantize_tensor(w, "int12", group_size=24)
     assert qt.meta.pack_layout == "bitplane"
+    before = kd.dequant_gemv.mode_launches["bitplane"]
+    T.qlinear(torch.randn(3, 72, device=dev), qt)
+    assert kd.dequant_gemv.mode_launches["bitplane"] == before + 1
+    qt = T.quantize_tensor(torch.randn(256, 1024, device=dev,
+                                       generator=_gen(15)), "int5",
+                           group_size=128, use_quantized_matmul=True)
+    assert qt.meta.pack_layout == "halfsplit"
     with pytest.raises(NotImplementedError, match="later slice"):
-        T.qlinear(torch.randn(3, 72, device=dev), qt)
+        T.qlinear(torch.randn(40, 1024, device=dev), qt)
+
+
+# B2's bit-plane mode and B5 / B6's general mode (multi-plane and minifloat
+# half-split codes) against their plain versions.  B2 multiplies the same
+# bf16-rounded weights as its plain version and sums in fp32 in another
+# order; B5 and B6 form the same exact products (codes or minifloat values
+# times bf16 or fp32 x) and fold the groups in another order.  bf16
+# outputs: within one bf16 ulp of the largest (2^-7 of it); fp32 outputs:
+# 1e-5 of the sum of |terms| (B2) or of the largest output (B5, B6).
+
+def _qt_operands(qt):
+    o = qt.qdata.shape[0]
+    scale = qt.scale.reshape(o, -1)
+    zp = None if qt.zero_point is None else qt.zero_point.reshape(o, -1)
+    return qt.qdata, scale, zp
+
+
+@pytest.mark.parametrize("fmt,k,gsize", [
+    ("float8_e3m4fn", 2048, 1024), ("float9_e3m5fn", 768, -1),
+    ("int12", 384, 64), ("uint10", 256, 32), ("int9", 200, 40),
+    ("float11_e4m6fn", 136, -1), ("uint12", 1000, 200)])
+@pytest.mark.parametrize("m", [1, 5, 32, 33, 300])
+def test_dequant_bitplane(dev, fmt, k, gsize, m):
+    """Ragged K (200, 136, 1000: K / 8 not a multiple of 4, the tiles'
+    re-padded planes), groups that straddle the 8 segments of a byte,
+    rowwise scales and zero points (uint)."""
+    import sdnq_tpu_torch as T
+    g = _gen(30)
+    o = 200
+    w = torch.randn(o, k, device=dev, generator=g) * 0.02
+    w = w * (1 + 5 * (torch.rand(o, k, device=dev, generator=g) > 0.98))
+    qt = T.quantize_tensor(w, fmt, group_size=gsize)
+    assert qt.meta.pack_layout == "bitplane"
+    f = qt.meta.format
+    codes, scale, zp = _qt_operands(qt)
+    bias = torch.randn(o, device=dev, generator=g)
+    x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+    fn = kd.dequant_gemv if m <= kd.GEMV_MAX_ROWS else kd.dequant_mm
+    mode = fn.mode_launches["bitplane"]
+    got = fn(x, codes, scale, zp, bias, torch.bfloat16, fmt=f)
+    want = kd.dequant_gemv_plain(x, codes, scale, zp, bias, torch.bfloat16,
+                                 fmt=f)
+    assert fn.mode_launches["bitplane"] == mode + 1
+    assert (got.float() - want.float()).abs().max() <= \
+        2 ** -7 * want.float().abs().max()
+    got = fn(x, codes, scale, zp, None, torch.float32, fmt=f)
+    want = kd.dequant_gemv_plain(x, codes, scale, zp, None, torch.float32,
+                                 fmt=f)
+    wd = T.dequantize(qt, torch.bfloat16).float()
+    bound = 1e-5 * (x.float().abs() @ wd.abs().T) + 1e-30
+    assert ((got - want).abs() <= bound).all()
+    if m <= kd.GEMV_MAX_ROWS:  # fp32 rows: weights rounded to fp32
+        xf = x.float()
+        got = kd.dequant_gemv(xf, codes, scale, zp, bias, torch.float32,
+                              fmt=f)
+        want = kd.dequant_gemv_plain(xf, codes, scale, zp, bias,
+                                     torch.float32, fmt=f)
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+_GENERAL = [("uint3", 256, 32), ("uint5", 512, 64), ("int6", 1024, 256),
+            ("uint7", 512, -1), ("int5", 3072, 256), ("int3", 768, 96),
+            ("float5_e2m2fn", 512, 128), ("float6_e3m3fnu", 256, 64),
+            ("float4_e2m1fn", 512, 64), ("float7_e3m3fn", 1024, 1024)]
+
+
+def _general_operands(dev, fmt, k, gsize, seed):
+    import sdnq_tpu_torch as T
+    from sdnq_tpu_torch.kernels.dequant_mm import _group_operands
+    g = _gen(seed)
+    o = 160
+    w = torch.randn(o, k, device=dev, generator=g) * 0.02
+    qt = T.quantize_tensor(w, fmt, group_size=gsize)
+    assert qt.meta.pack_layout == "halfsplit"
+    codes, scale, zp = _qt_operands(qt)
+    s, zpc = _group_operands(scale, zp, qt.meta.format)
+    return codes, s, zpc, torch.randn(o, device=dev, generator=g), \
+        qt.meta.format
+
+
+@pytest.mark.parametrize("fmt,k,gsize", _GENERAL)
+@pytest.mark.parametrize("m", [9, 40, 300])
+def test_groupdot_mm_general(dev, fmt, k, gsize, m):
+    codes, s, zpc, bias, f = _general_operands(dev, fmt, k, gsize, 31)
+    x = torch.randn(m, k, device=dev, generator=_gen(32)).bfloat16()
+    mode = "minifloat" if not f.is_integer else "multiplane"
+    before = kd.groupdot_mm.mode_launches[mode]
+    for out_dtype, lim in ((torch.bfloat16, 2 ** -7), (torch.float32, 1e-5)):
+        args = (x, codes, s, zpc, bias, f.code_bits, out_dtype, f)
+        got = kd.groupdot_mm(*args).float()
+        want = kd.groupdot_mm_plain(*args).float()
+        assert (got - want).abs().max() <= lim * want.abs().max()
+    assert kd.groupdot_mm.mode_launches[mode] == before + 2
+
+
+@pytest.mark.parametrize("fmt,k,gsize", _GENERAL + [("uint5", 64, 8),
+                                                    ("float5_e2m2fn", 128,
+                                                     16)])
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_blockdiag_mm_general(dev, fmt, k, gsize, m, xdt):
+    codes, s, zpc, bias, f = _general_operands(dev, fmt, k, gsize, 33)
+    x = torch.randn(m, k, device=dev, generator=_gen(34)).to(xdt)
+    mode = "minifloat" if not f.is_integer else "multiplane"
+    before = kd.blockdiag_mm.mode_launches[mode]
+    for out_dtype, lim in ((torch.bfloat16, 2 ** -7), (torch.float32, 1e-5)):
+        args = (x, codes, s, zpc, bias, f.code_bits, out_dtype, f)
+        got = kd.blockdiag_mm(*args).float()
+        want = kd.blockdiag_mm_plain(*args).float()
+        assert (got - want).abs().max() <= lim * want.abs().max()
+    assert kd.blockdiag_mm.mode_launches[mode] == before + 2
 
 
 # ---------------------------------------------------------------------------

@@ -132,17 +132,19 @@ def test_quantize_tensor_equal(fmt, qmm, gs, had):
 
 def test_packed_formats_raise():
     """Packed formats quantize now that the codecs are ported; packing a
-    native format still raises, as does stochastic rounding of native fp8
-    weights."""
+    native format still raises.  Stochastic rounding of native fp8 weights
+    is ported (tests/test_torch_options.py holds it against the JAX
+    package's bits): it gives e4m3 values on the grid."""
     qt = T.quantize_tensor(torch.zeros(32, 64), "int4")
     assert qt.meta.pack_layout == "halfsplit"
     assert qt.qdata.dtype == torch.uint8 and qt.qdata.shape == (32, 32)
     from sdnq_tpu_torch.packing import pack
     with pytest.raises(ValueError, match="not a packed format"):
         pack(torch.zeros(2, 8, dtype=torch.int32), T.get_format("int8"))
-    with pytest.raises(NotImplementedError):
-        tcore.quantize_weight(torch.ones(4, 8), "float8_e4m3fn",
-                              generator=torch.Generator().manual_seed(0))
+    q, s, _ = tcore.quantize_weight(torch.ones(4, 8), "float8_e4m3fn",
+                                    generator=torch.Generator().manual_seed(0))
+    assert q.dtype == torch.float8_e4m3fn and q.shape == (4, 8)
+    assert torch.equal(q.float() * s, torch.ones(4, 8))
 
 
 @pytest.mark.parametrize("fmt", ["uint4", "int4", "int2"])
