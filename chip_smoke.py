@@ -21,8 +21,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               bit-plane tiles and GEMV, B5 / B6 on multi-plane and
               minifloat half-split codes, B1 + B4 on a layer of a stacked
               weight, and bench.py's shape (qlinear, int8 rowwise, M 16384
-              K 4096 N 8192, beside bf16 F.linear).  Prints one
+              K 4096 N 8192, beside bf16 F.linear); B9 (the ring's block
+              step) at the block shapes of phase 4r, its acc / l per row,
+              m and l held against the plain version.  Prints one
               {"kernels": [...]} line for the kernels of the paths.
+4r. ring    - sequence parallelism at the attention widths of two
+              models, q, k, v from a seeded generator: FLUX.1-dev's joint
+              attention at 1024x1024, (1, 24, 4608, 128), in three modes
+              (int8 Q.K with token-mode int8 P.V, the ring's default; int8
+              with bf16 P.V; bf16): ``ring_attention`` through
+              create_mesh(sequence=1) on the card (one B9 launch), the
+              ring's body for P = 2, 4 and 8 ranks in one process (B9;
+              at P = 8 the 576-key blocks take the XLA block function, as
+              in JAX), and ``ulysses_attention`` at P = 1 (B3);
+              Llama-3-8B's causal prefill, (1, 32, 8192, 128) with the 8
+              KV heads repeated, at P = 1 (an 8192^2 mask) and P = 4
+              (zigzag).  Each ring against float64 attention, against
+              ``quantized_attention`` in the same mode, and virtual P
+              against P = 1; B9 launches per ring call; ring P = 1 timed
+              beside B3.
 4. int8     - FLUX.1-dev at full width and depth (19 double + 38 single
               blocks) with random int8 weights from a seeded generator:
               2 requests of 4 flow-matching Euler steps at 1024x1024 (4096
@@ -34,6 +51,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               stack and on the lists rebuilt as views of its storage; both
               outputs bit-equal to the list model's; every layer view
               contiguous at its offset.
+4p. pipeline- ``pipeline_forward`` through create_mesh(fsdp=1) over the
+              stack's 37 uniform single-stream blocks, 2 microbatches of
+              (1, 4608, 3072): bit-equal to the stacked model's loop.
 4b. uint4   - the same model quantized to uint4 + SVD rank 32 (the
               published 4-bit recipe) on the weight-only route: 2 requests
               x 4 steps; B5, B6 and attention must launch.
@@ -92,10 +112,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               + 2 single blocks (loss and every weight gradient of one
               step), and the text-to-image pipeline cut to 2 T5 and 2 CLIP
               layers and 1 + 2 DiT blocks with the whole VAE (2 steps at
-              512x512), through the kernels against the
-              all-plain path, both on the card (the check swaps each
-              wrapper for its plain version for the reference run and
-              verifies no kernel launched in it), each with its own limit.
+              512x512), and the ring at P = 2 on (1, 24, 2304, 128),
+              through the kernels against the all-plain path, both on the
+              card (the check swaps each wrapper for its plain version for
+              the reference run and verifies no kernel launched in it),
+              each with its own limit.
 6. profile  - one Euler step of the full int8 and uint4 weight-only FLUX
               models, one prefill and one decode step of the int8-KV
               Llama-3-8B, and one text-to-image request, traced with
@@ -113,7 +134,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               ignoring the additive mask on one KV tile, B3 adding it
               without log2(e), B2 reading its bit planes in reverse order,
               B2's minifloat decode flushing subnormals, B5 ignoring the
-              second field plane, B6 dropping the minifloat sign), built
+              second field plane, B6 dropping the minifloat sign, B9
+              writing acc normalised, m in base-2 units, B3's base-2
+              exponent in B9, and l not rescaled in token mode), built
               with
               the real ones; phases 3 and 5 rerun with
               each in turn.  Phase 3 must fail for the broken kernel; phase
@@ -182,7 +205,7 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 KERNEL_SYMBOLS = {
     "quantize_rows": "quantize_rows_kernel", "scaled_gemm": "scaled_mm_kernel",
     "dequant_gemv": "dequant_gemv_kernel", "dequant_mm": "dequant_mm_kernel",
-    "flash_attention": "flash_attn",
+    "flash_attention": "flash_attn", "flash_attention_block": "flash_attn",
     "groupdot_mm": "groupdot_mm_kernel", "blockdiag_mm": "blockdiag_mm_kernel",
     "groupdot_i8_mm": "groupdot_mm_kernel",
     "blockdiag_i8_mm": "blockdiag_i8_mm_kernel",
@@ -230,15 +253,19 @@ def kernel_phase(torch, dev, timed: bool = True):
 
     def record(name, route, source, replaces, err, tol, kernel, plain_ms,
                bnd, library_ms, shape, on_path=True, path="int8",
-               count=None, reading=None, symbol=None, **extra):
+               count=None, reading=None, symbol=None, what=None, **extra):
         """``kernel`` calls the kernel's wrapper: timed with CUDA events
         around the call (``ms``, the wrapper's host work included) and by
         the profiler's kernel durations (``device_ms``).  ``reading`` is
         the number held against ``tol`` where it is not ``err`` (the
-        largest error of a row over that row's largest output)."""
+        largest error of a row over that row's largest output, or ``what``
+        it says)."""
         if reading is None:
             check(err <= tol,
                   f"{name} {shape}: max_abs_err {err:.3e} <= {tol:.3e}")
+        elif what:
+            check(reading <= tol, f"{name} {shape}: max_abs_err {err:.3e}; "
+                  f"{what} {reading:.3e} <= {tol:.3e}")
         else:
             check(reading <= tol,
                   f"{name} {shape}: max_abs_err {err:.3e}; worst row's "
@@ -450,6 +477,8 @@ def kernel_phase(torch, dev, timed: bool = True):
     # dynamic recipes give them; B1 on a stacked view; the bench.py shape
     dynamic_kernel_rows(torch, dev, g, t, record)
     stacked_and_bench_rows(torch, dev, g, t, record)
+    # B9 at the block shapes of the rings of phase 4r
+    ring_kernel_rows(torch, dev, g, t, record)
 
 
     # B5 / B6 / B7 on uint4 half-split codes, group 128 (the uint4 + SVD
@@ -1181,6 +1210,386 @@ BENCH_COUNTS: dict = {}
 
 
 # ---------------------------------------------------------------------------
+# phase 4r: sequence and pipeline parallelism (ring attention, Ulysses,
+# GPipe) on one card, and B9's rows of phase 3
+# ---------------------------------------------------------------------------
+
+# The attention shapes of the two models: FLUX.1-dev's joint attention at
+# 1024x1024 (24 heads of 128 over 4096 image + 512 text tokens) and
+# Llama-3-8B's causal prefill of 8192 tokens (32 query heads of 128 over 8
+# KV heads, repeated for the ring, which takes equal heads).
+FLUX_ATTN = (1, 24, 4608, 128)
+LLAMA_ATTN = (1, 32, 8192, 128, 8)
+RING_MODES = {"int8_token": {}, "int8": dict(quantize_pv=False),
+              "bf16": dict(matmul_dtype=None)}
+RING_P = (2, 4, 8)
+
+# Limits of B9 against its plain version (phase 3): "out", the largest
+# error of acc / l over its row's largest value; "m", the largest error of
+# the row max over max |m|; "l", the largest relative error of the row sum.
+# About twice the sound readings on the H100 over the eight shapes: out
+# 2.73e-3 where P is rounded to bf16 (against a 64-key tile's running max in
+# the kernel, a 512-key block's in the plain version), 4.5e-7 in token mode
+# (P quantized at the same points with the same expf on both sides); m 0
+# in int8 (the same exact products times the same fp32 scales), 4.6e-7 in
+# bf16 (fp32 sums in another order); l 2.9e-6.
+B9_TOL = {"bf16_p": {"out": 6e-3, "m": 1e-6, "l": 6e-6},
+          "token": {"out": 1e-6, "m": 1e-6, "l": 6e-6}}
+# Limits of the ring checks of phase 4r, the largest error over the largest
+# output: "f64", against float64 softmax attention; "b3", against the
+# single-device quantized_attention (B3) in the same mode; "p1", virtual P
+# against P = 1.  About twice the sound readings on the H100 at P = 1, 2, 4,
+# 8 (FLUX) and 1, 4 (Llama): f64 4.3e-2 token mode, 1.2e-2 int8 Q.K with
+# bf16 P.V, 4.1e-3 bf16, 1.05e-2 Llama; b3 3.6e-2, 1.2e-3, 4.3e-3, 3.8e-4;
+# p1 3.6e-2, 1.2e-3, 1.4e-3, 6.4e-5.  Token mode quantizes P once per P
+# block against that block's running max, so its readings move with the
+# block layout (B3's P = 1 agrees to 1.0e-3).
+RING_TOL = {"int8_token": {"f64": 9e-2, "b3": 7.5e-2, "p1": 7.5e-2},
+            "int8": {"f64": 2.5e-2, "b3": 2.5e-3, "p1": 2.5e-3},
+            "bf16": {"f64": 9e-3, "b3": 9e-3, "p1": 3e-3},
+            "llama": {"f64": 2.2e-2, "b3": 8e-4, "p1": 1.5e-4}}
+# Limit of the ring slice: the local ring at P = 2 with B9 against the same
+# ring on B9's plain version, both on the card, about three times its sound
+# reading on the H100, 1.6e-7 (token mode: the blocks agree to 4.5e-7 in
+# phase 3 and are merged in the same order).
+RING_SLICE_TOL = 5e-7
+
+
+def attention_f64(torch, q, k, v, causal=False, heads=4):
+    """float64 softmax attention (the JAX tests' ``_ref``) of (B, H, N, D)
+    tensors, ``heads`` heads at a time."""
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    n, kn = q.shape[2], k.shape[2]
+    keep = (torch.ones(n, kn, dtype=torch.bool, device=q.device).tril()
+            if causal else None)
+    for h0 in range(0, q.shape[1], heads):
+        hs = slice(h0, h0 + heads)
+        s = (q[:, hs].double() @ k[:, hs].double().transpose(-1, -2)) \
+            * q.shape[-1] ** -0.5
+        if causal:
+            s.masked_fill_(~keep, -1e30)
+        out[:, hs] = torch.softmax(s, -1) @ v[:, hs].double()
+        del s
+    return out
+
+
+def b9_operands(torch, q, k, v, mode):
+    """The ring's block operands from (BH, N, D) fp32 chunks: per-token
+    int8 q, k (q_scale carrying sm_scale) or bf16; v bf16, or per-token
+    int8 for token-mode P·V."""
+    from sdnq_tpu_torch.quant.core import quantize_int_mm
+    sm = q.shape[-1] ** -0.5
+    quant, token = mode != "bf16", mode == "int8_token"
+    if quant:
+        qq, qs = quantize_int_mm(q)
+        kq, ks = quantize_int_mm(k)
+        args = [qq, kq, None, qs[..., 0] * sm, ks[..., 0], None]
+    else:
+        args = [q.bfloat16(), k.bfloat16(), None, None, None, None]
+    if token:
+        vq, vs = quantize_int_mm(v)
+        args[2], args[5] = vq, vs[..., 0]
+    else:
+        args[2] = v.bfloat16()
+    return args, dict(quantized=quant, quantized_pv=token, sm_scale=sm)
+
+
+def ring_kernel_rows(torch, dev, g, t, record):
+    """Phase 3 rows of B9 at the block shapes of phase 4r's rings: FLUX at
+    P = 1 in three modes, at P = 2 and 4 (one block of rank 0's first
+    step); Llama at P = 1 (the 8192^2 causal mask) and in the zigzag layout
+    at P = 4 (1024-row chunk pairs: the triangle at step 0, and a whole
+    block).  Each row holds acc / l per row, m and l against the plain
+    version (``B9_TOL``); its reading is the largest of the three over its
+    limit."""
+    import torch.nn.functional as F
+    from sdnq_tpu_torch.kernels import attention as ka
+
+    src, rep = ("sdnq_tpu_torch/csrc/flash_attn.cu",
+                "sdnq_tpu/kernels/attention.py:259")
+
+    def row(label, q, k, v, mode, mask=None, library=None):
+        args, kw = b9_operands(torch, q, k, v, mode)
+        args.append(mask)
+        acc, m, l = ka.flash_attention_block(*args, **kw)
+        wacc, wm, wl = ka.flash_attention_block_plain(*args, **kw)
+        out, want = acc / l, wacc / wl
+        live = wm > -1e29
+        got = {"out": float(((out - want).abs().amax(-1)
+                             / want.abs().amax(-1)).max()),
+               "m": float((m - wm).abs().max() / wm[live].abs().max()),
+               "l": float(((l - wl).abs() / wl).max())}
+        tol = B9_TOL["token" if mode == "int8_token" else "bf16_p"]
+        log(f"B9 {label} {mode}: readings " + json.dumps(got)
+            + " limits " + json.dumps(tol))
+        bh, n, d = q.shape
+        kn = k.shape[1]
+        kept = (bh * n * kn if mask is None
+                else int(mask.sum()) * (bh // mask.shape[0]))
+        ops = 4 * d * kept   # Q.K^T and P.V where a key is kept
+        q_b = 1 if mode != "bf16" else 2
+        v_b = 1 if mode == "int8_token" else 2
+        moved = (bh * n * d * q_b + bh * kn * d * (q_b + v_b)
+                 + (bh * n + bh * kn) * 4 * (mode != "bf16")
+                 + bh * kn * 4 * (mode == "int8_token")
+                 + bh * n * (d + 2) * 4
+                 + (0 if mask is None else mask.numel()))
+        if mode == "int8":   # Q.K^T at the int8 rate, P.V at the bf16 rate
+            bnd = bound_ms(moved, 0.75 * ops, "bf16")
+        else:
+            bnd = bound_ms(moved, ops, "int8" if mode != "bf16" else "bf16")
+        record("flash_attention_block", "cuda", src, rep,
+               float((out - want).abs().max()), 1.0,
+               lambda: ka.flash_attention_block(*args, **kw),
+               t(lambda: ka.flash_attention_block_plain(*args, **kw),
+                 reps=3),
+               bnd, t(library) if library else None,
+               f"BH{bh} N{n} KN{kn} D{d} {mode}"
+               + ("" if mask is None else f" mask {tuple(mask.shape)}")
+               + f" ({label})", path="ring",
+               reading=max(got[key] / tol[key] for key in got),
+               what="largest reading (out, m, l) over its limit",
+               readings=got, limits=tol)
+
+    b, h, n, d = FLUX_ATTN
+    q, k, v = (torch.randn(b * h, n, d, device=dev, generator=g)
+               for _ in range(3))
+    sm = d ** -0.5
+    sdpa = (lambda: F.scaled_dot_product_attention(
+        q.bfloat16()[None], k.bfloat16()[None], v.bfloat16()[None],
+        scale=sm))
+    for mode in RING_MODES:
+        row("FLUX P1", q, k, v, mode,
+            library=sdpa if mode == "bf16" else None)
+    for p in (2, 4):
+        c = n // p
+        row(f"FLUX P{p}", q[:, :c], k[:, :c], v[:, :c], "int8_token")
+    del q, k, v
+    b, h, n, d, _ = LLAMA_ATTN
+    q, k, v = (torch.randn(b * h, n, d, device=dev, generator=g)
+               for _ in range(3))
+    causal = torch.ones(n, n, dtype=torch.bool, device=dev).tril()[None]
+    row("Llama P1 causal", q, k, v, "int8_token", mask=causal)
+    del causal
+    c = n // 8
+    tri = torch.ones(c, c, dtype=torch.bool, device=dev).tril()[None]
+    row("Llama P4 zigzag step 0", q[:, :c], k[:, :c], v[:, :c],
+        "int8_token", mask=tri)
+    row("Llama P4 zigzag", q[:, c:2 * c], k[:, :c], v[:, :c], "int8_token")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def ring_phase(torch, dev):
+    """Phase 4r: ``ring_attention`` through a mesh of one on the card
+    (create_mesh(sequence=1), P = 1) and the local ring at virtual P = 2,
+    4 and 8 at FLUX.1-dev's joint attention in three modes; Ulysses at P =
+    1 (B3); Llama-3-8B's causal prefill at P = 1 (the contiguous layout)
+    and P = 4 (zigzag).  Each ring against float64 attention, against
+    ``quantized_attention`` in the same mode, and virtual P against P = 1;
+    launch counts zeroed just before and read just after; the B9 launches
+    of each ring call; ring P = 1 timed beside B3 in the same mode; the
+    token-mode ring at P = 1 and 4 traced.  Returns the counts."""
+    from sdnq_tpu_torch.kernels import attention as ka
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.parallel import (
+        create_mesh, ring_attention, ulysses_attention,
+    )
+    from sdnq_tpu_torch.parallel.ring_attention import _local_ring
+
+    g = torch.Generator(device=dev).manual_seed(77)
+    mesh = create_mesh(sequence=1)
+    b, h, n, d = FLUX_ATTN
+    q, k, v = (torch.randn(b, h, n, d, device=dev, generator=g)
+               for _ in range(3))
+    bl, hl, nl, dl, kvh = LLAMA_ATTN
+    ql = torch.randn(bl, hl, nl, dl, device=dev, generator=g)
+    kl, vl = (torch.randn(bl, kvh, nl, dl, device=dev, generator=g)
+              .repeat_interleave(hl // kvh, dim=1) for _ in range(2))
+    b3_kw = {"int8_token": dict(matmul_dtype="int8", pv_matmul_dtype="int8",
+                                pv_scale_mode="token"),
+             "int8": dict(matmul_dtype="int8"),
+             "bf16": dict(matmul_dtype=None)}
+    per_call, outs = {}, {}
+
+    def run(label, fn):
+        b9, xla = ka.flash_attention_block.launches, \
+            ka.attention_block_xla.calls
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        per_call[label] = dict(
+            b9_launches=ka.flash_attention_block.launches - b9,
+            xla_block_calls=ka.attention_block_xla.calls - xla,
+            s=round(time.perf_counter() - t0, 4))
+        return out
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for mode, kw in RING_MODES.items():
+        outs[mode, 1] = run(f"FLUX {mode} P1", lambda: ring_attention(
+            q, k, v, mesh, **kw))
+        for p in RING_P:
+            outs[mode, p] = run(f"FLUX {mode} P{p}", lambda: _local_ring(
+                q, k, v, p, **kw))
+    uly = run("FLUX Ulysses int8 P1", lambda: ulysses_attention(
+        q, k, v, mesh))
+    llama = {1: run("Llama int8_token causal P1", lambda: ring_attention(
+        ql, kl, vl, mesh, causal=True)),
+        4: run("Llama int8_token causal P4 zigzag", lambda: _local_ring(
+            ql, kl, vl, 4, causal=True))}
+    counts = launch_counts()
+    log("ring: launches " + json.dumps(counts))
+    log("ring: per call " + json.dumps(per_call))
+    check(counts["flash_attention_block"] > 0 and counts["flash_attention"]
+          > 0, "ring path launched flash_attention_block and "
+          "flash_attention")
+    for label, c in per_call.items():
+        b9_route = "P8" not in label and "Ulysses" not in label
+        check((c["b9_launches"] > 0) == b9_route
+              and (c["xla_block_calls"] > 0) == ("P8" in label),
+              f"ring {label}: B9 launches {c['b9_launches']}, XLA block "
+              f"calls {c['xla_block_calls']}")
+
+    def rel(a, ref):
+        return float((a.double() - ref).abs().max() / ref.abs().max())
+    readings = {}
+    ref = attention_f64(torch, q, k, v)
+    for mode in RING_MODES:
+        b3 = ka.quantized_attention(q, k, v, out_dtype=torch.float32,
+                                    **b3_kw[mode]).double()
+        for p in (1,) + RING_P:
+            out = outs[mode, p]
+            r = {"f64": rel(out, ref), "b3": rel(out, b3)}
+            if p > 1:
+                r["p1"] = rel(out, outs[mode, 1].double())
+            readings[f"FLUX {mode} P{p}"] = r
+            check(tuple(out.shape) == FLUX_ATTN
+                  and bool(torch.isfinite(out).all())
+                  and all(r[key] <= RING_TOL[mode][key] for key in r),
+                  f"ring FLUX {mode} P{p}: finite, " + ", ".join(
+                      f"{key} {r[key]:.3e} <= {RING_TOL[mode][key]:.1e}"
+                      for key in r))
+    check(torch.equal(uly, ka.quantized_attention(q, k, v,
+                                                  matmul_dtype="int8")),
+          "Ulysses at P = 1 equals quantized_attention (int8 Q.K)")
+    del ref, b3
+    ref = attention_f64(torch, ql, kl, vl, causal=True)
+    b3 = ka.quantized_attention(ql, kl, vl, is_causal=True,
+                                out_dtype=torch.float32,
+                                **b3_kw["int8_token"]).double()
+    for p, out in llama.items():
+        r = {"f64": rel(out, ref), "b3": rel(out, b3)}
+        if p > 1:
+            r["p1"] = rel(out, llama[1].double())
+        readings[f"Llama causal P{p}"] = r
+        check(bool(torch.isfinite(out).all())
+              and all(r[key] <= RING_TOL["llama"][key] for key in r),
+              f"ring Llama causal P{p}: finite, " + ", ".join(
+                  f"{key} {r[key]:.3e} <= {RING_TOL['llama'][key]:.1e}"
+                  for key in r))
+    log("ring: readings (largest error over the largest output) "
+        + json.dumps(readings))
+    del ref, b3, llama, outs, uly
+    torch.cuda.empty_cache()
+
+    # the cost of quantizing and merging: ring P = 1 beside B3 alone
+    times = {}
+    for mode, kw in RING_MODES.items():
+        times[mode] = dict(
+            ring_p1_ms=time_ms(lambda: ring_attention(q, k, v, mesh, **kw),
+                               reps=5),
+            b3_ms=time_ms(lambda: ka.quantized_attention(
+                q, k, v, out_dtype=torch.float32, **b3_kw[mode]), reps=5))
+    log("ring: FLUX ring P = 1 against B3 (CUDA events, ms) "
+        + json.dumps(times))
+    profile_step(torch, "FLUX ring int8_token P1",
+                 lambda: ring_attention(q, k, v, mesh))
+    profile_step(torch, "FLUX ring int8_token P4 (one process)",
+                 lambda: _local_ring(q, k, v, 4))
+    del q, k, v, ql, kl, vl
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ring_slice_phase(torch, dev) -> dict:
+    """The local ring at P = 2 on (1, 24, 2304, 128) in the default mode
+    (int8 Q.K, token-mode P.V; blocks of 1152 keys on B9) against the same
+    ring on B9's plain version, both on the card; returns {"max": the
+    largest error over the largest output}."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.parallel.ring_attention import _local_ring
+
+    g = torch.Generator(device=dev).manual_seed(55)
+    q, k, v = (torch.randn(1, 24, 2304, 128, device=dev, generator=g)
+               for _ in range(3))
+    out = _local_ring(q, k, v, 2)
+    reset_launch_counts()
+    with plain_versions():
+        ref = _local_ring(q, k, v, 2)
+    launched = launch_counts()
+    check(not any(launched.values()),
+          "slice ring: the plain path launched no kernel "
+          + json.dumps(launched))
+    r = float((out - ref).abs().max() / ref.abs().max())
+    check(r <= RING_SLICE_TOL and bool(torch.isfinite(out).all()),
+          f"slice ring: local ring P = 2 with B9 vs its plain version rel "
+          f"err {r:.3e} <= {RING_SLICE_TOL:.1e}")
+    return {"max": r}
+
+
+def pipeline_pp_path(torch, dev, stacked):
+    """Phase 4p: ``pipeline_forward`` through a mesh of one on the card
+    (create_mesh(fsdp=1), P = 1) over the stacked single-stream blocks of
+    the int8 FLUX.1-dev model (the uniform stack after block 0), 2
+    microbatches of (1, 4608, 3072) with ``vec`` and the 1024x1024 rope
+    frequencies closed over: bit-equal to the stacked model's own loop
+    over the same layer views.  Returns the launch counts of the pipeline
+    run."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models import FLUX_DEV_CONFIG as cfg
+    from sdnq_tpu_torch.models import dit as D
+    from sdnq_tpu_torch.parallel import create_mesh, pipeline_forward
+
+    blocks = stacked["single_transformer_blocks"]
+    rest = blocks["rest"] if "rest" in blocks else blocks
+    g = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn(2, 1, 4608, cfg.hidden_size, device=dev, generator=g)
+    vec = torch.randn(1, cfg.hidden_size, device=dev, generator=g)
+    freqs = D.make_rope_freqs(cfg, 512, (64, 64), device=dev)
+
+    def block_fn(blk, h):
+        return D._single_block(blk, h, vec, freqs, cfg, None)
+    mesh = create_mesh(fsdp=1)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipeline_forward(block_fn, rest, x, mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    ref = []
+    for h in x:
+        for blk in D._block_list(rest):
+            h = D._single_block(blk, h, vec, freqs, cfg, None)
+        ref.append(h)
+    ref = torch.stack(ref)
+    layers = D._stack_len(rest)
+    log(f"pipeline parallel: {layers} stacked single blocks x 2 "
+        f"microbatches of (1, 4608, {cfg.hidden_size}) in {secs:.3f} s; "
+        "launches " + json.dumps(counts))
+    for name in ("quantize_rows", "scaled_gemm", "flash_attention"):
+        check(counts[name] > 0, f"pipeline parallel path launched {name}")
+    check(tuple(out.shape) == tuple(x.shape)
+          and bool(torch.isfinite(out).all()),
+          f"pipeline parallel output {tuple(out.shape)} finite")
+    check(torch.equal(out, ref), "pipeline parallel: output equals the "
+          "stacked model's own loop bit for bit (max diff "
+          f"{float((out - ref).abs().max()):.3e})")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5
 # ---------------------------------------------------------------------------
 
@@ -1274,7 +1683,8 @@ def stacked_path(torch, dev, qparams, list_out, required):
     stacked storage (``unstack_dit_blocks``, no second copy).  The stacked
     output must equal the list model's (``list_out``, the same request
     before stacking) and the views' bit for bit: the same kernels on the
-    same operands.  Returns the stacked run's counts."""
+    same operands.  Then phase 4p (``pipeline_pp_path``) on the stack.
+    Returns the stacked run's counts and the pipeline run's."""
     from sdnq_tpu_torch import QTensor
     from sdnq_tpu_torch.models.dit import stack_dit_blocks, unstack_dit_blocks
     from sdnq_tpu_torch.tensor import layer_count, layer_view
@@ -1318,7 +1728,7 @@ def stacked_path(torch, dev, qparams, list_out, required):
         diff = float((outs_s[0] - other).abs().max())
         check(torch.equal(outs_s[0], other),
               f"stacked: output equals that of {what} (max diff {diff:.3e})")
-    return counts
+    return counts, pipeline_pp_path(torch, dev, stacked)
 
 
 # The dynamic recipes' weights: each 2-D weight, in the model's order,
@@ -1407,6 +1817,16 @@ def with_quantized_matmul(qparams):
     return conv(qparams)
 
 
+def plain_block(q, k, v, *args, **kw):
+    """B9's route (``flash_attention_block``) with the plain version in the
+    kernel's place."""
+    from sdnq_tpu_torch.kernels import attention as ka
+    fn = (ka.flash_attention_block_plain
+          if ka.block_kernel_route(q.shape[1], k.shape[1], q.shape[2])
+          else ka.attention_block_xla)
+    return fn(q, k, v, *args, **kw)
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the model through the kernels' plain versions, on the card.
@@ -1426,6 +1846,7 @@ def plain_versions():
              (kd, "groupdot_i8_mm", kd.groupdot_i8_mm_plain),
              (kd, "blockdiag_i8_mm", kd.blockdiag_i8_mm_plain),
              (ka, "flash_attention", ka.flash_attention_plain),
+             (ka, "flash_attention_block", plain_block),
              (ks, "scaled_mm_tn", ks.scaled_mm_tn_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
@@ -2284,6 +2705,8 @@ _GROUPS = (
     ("B2 dequant_gemv", ("dequant_gemv_kernel",)),
     ("B2 dequant_mm bit-plane (tiles)", ("dequant_mm_kernel_bitplane",)),
     ("B2 dequant_mm (tiles)", ("dequant_mm_kernel",)),
+    ("B9 flash_attention_block (bf16 / int8 P.V, token-mode int8 P.V)",
+     ("float, true>",)),
     ("B3 flash_attention", ("flash_attn_kernel",)),
     ("B5 groupdot_mm general (multi-plane, minifloat)",
      ("groupdot_mm_kernel<0, 0",)),
@@ -2491,6 +2914,24 @@ FAULTS = (
     ("b6_drops_the_minifloat_sign", "blockdiag_mm", "blockdiag_mm:minifloat",
      "dyn_r2", [("common.cuh", "if (f.is_signed && ((code >> em) & 1u)) "
                  "v = -v;", "")]),
+    ("b9_writes_acc_normalised", "flash_attn", "flash_attention_block",
+     "ring",
+     [("make_float2(o_acc[dt][0], o_acc[dt][1]);",
+       "make_float2(o_acc[dt][0] / l0, o_acc[dt][1] / l0);"),
+      ("make_float2(o_acc[dt][2], o_acc[dt][3]);",
+       "make_float2(o_acc[dt][2] / l1, o_acc[dt][3] / l1);")]),
+    ("b9_m_in_base_2_units", "flash_attn", "flash_attention_block", "ring",
+     [("a.m_out[bh * a.N + r0] = m0;",
+       "a.m_out[bh * a.N + r0] = m0 * kLog2e;"),
+      ("a.m_out[bh * a.N + r1] = m1;",
+       "a.m_out[bh * a.N + r1] = m1 * kLog2e;")]),
+    ("b9_takes_b3s_base_2_exponent", "flash_attn", "flash_attention_block",
+     "ring", [("return NATURAL ? expf(x) : exp2f(x);", "return exp2f(x);")]),
+    ("b9_token_l_not_rescaled_by_alpha", "flash_attn",
+     "flash_attention_block", "ring",
+     [("l0 = __fadd_rn(__fmul_rn(l0, al0), ps0);", "l0 = __fadd_rn(l0, ps0);"),
+      ("l1 = __fadd_rn(__fmul_rn(l1, al1), ps1);",
+       "l1 = __fadd_rn(l1, ps1);")]),
 )
 
 
@@ -2553,7 +2994,8 @@ def fault_phase(torch, dev, slices, procs):
     # every slice check's limits; "qlinear_b8" is the B8 qlinear check's
     all_tol = {**{k: {"max": v} for k, v in SLICE_TOL.items()},
                **LLM_SLICE_TOL, "qlinear_b8": {"max": 2 ** -7},
-               "train": TRAIN_SLICE_TOL, "pipeline": PIPE_SLICE_TOL}
+               "train": TRAIN_SLICE_TOL, "pipeline": PIPE_SLICE_TOL,
+               "ring": {"max": RING_SLICE_TOL}}
     for tag, (proc, _) in procs.items():
         if proc.wait() != 0:
             check(False, f"fault {tag}: broken source built")
@@ -2616,6 +3058,8 @@ def main() -> int:
         b7_b8_crossover(torch, dev)
 
         counts, slices = {"bench": dict(BENCH_COUNTS)}, {}
+        counts["ring"] = ring_phase(torch, dev)
+        ring_slice_phase(torch, dev)
         int8_required = ("quantize_rows", "scaled_gemm", "dequant_gemv",
                          "flash_attention")
         qparams = build_model(
@@ -2628,8 +3072,8 @@ def main() -> int:
         slices["int8"] = cut(qparams)
         slice_phase(torch, dev, slices["int8"], "int8")
         profile_phase(torch, dev, qparams, "int8")
-        counts["stacked"] = stacked_path(torch, dev, qparams, int8_outs[0],
-                                         int8_required)
+        counts["stacked"], counts["pipeline_pp"] = stacked_path(
+            torch, dev, qparams, int8_outs[0], int8_required)
         del qparams, int8_outs
         torch.cuda.empty_cache()
 
@@ -2725,6 +3169,7 @@ def main() -> int:
         checks["qlinear_b8"] = lambda: {"max": b8_qlinear_check(torch,
                                                                 dev)[1]}
         checks["train"] = lambda: train_slice_phase(torch, dev, train_cut)
+        checks["ring"] = lambda: ring_slice_phase(torch, dev)
         checks["pipeline"] = lambda: pipeline_slice_phase(torch, dev,
                                                           pipe_cut)
         fault_phase(torch, dev, checks, fault_procs)

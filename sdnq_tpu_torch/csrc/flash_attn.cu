@@ -46,6 +46,22 @@
 // head-dim column), into an int32 accumulator per P block.  So that a
 // block's staging fits Hopper's 227 KB, it has 4 warps and 64 query rows.
 // The (N, KN) score matrix never reaches device memory.
+//
+// B9, the block mode (`PARTIAL`, entry `sdnq_flash_attn_block`): replaces
+// sdnq_tpu/kernels/attention.py `_attn_kernel` with `partial_out=True` (:67,
+// wrapper `_attn_block_pallas` :259, `pallas_call` :285), the ring's
+// per-block step.  One KV block, no causal flag; each row's unnormalised
+// fp32 acc, running max m and sum l are written (:177-184), for the
+// caller's online-softmax merge in natural-log units.  So this mode keeps
+// the scores in natural units, as the JAX block kernel does: int8 QK s =
+// (q_q . k_q) * qs[i] * ks[j] with sm_scale folded into qs by the caller,
+// bf16 QK s = (q . k) * sm_scale after the dot (:102-111), an additive mask
+// added as it is; p = expf(s - m) (`ex<true>`), and m is the natural max,
+// with no conversion on output.  The tiles, `mma.sync` loops and the staged
+// P blocks of the token mode are B3's.  A row whose every key a bool mask
+// hides keeps m = -1e30, so each of its p is exp(0) = 1 and l = KN (:119-121,
+// :143-146), as in the JAX kernel.  Bound by tensor-core operations at the
+// ring's block shapes (4 * N * KN * D per head), like B3.
 #include <type_traits>
 
 #include "common.cuh"
@@ -67,9 +83,18 @@ struct Args {
   const uint8_t* mask;   // element strides msb / msh / msn / msk, or null
   long long msb, msh, msn, msk;
   int mkind;             // MASK_BOOL, MASK_BF16 or MASK_F32
-  void* out;             // (BH, N, D)
+  void* out;             // (BH, N, D); B9: fp32 acc
   int N, KN, H, qpk, causal, pblock;
+  float* m_out;          // B9: (BH, N) row max, natural units
+  float* l_out;          // B9: (BH, N) row sum
+  float sm_scale;        // B9, bf16 QK: the score's scale after the dot
 };
+
+// p = exp(x): base 2 for B3 (log2(e) folded into the scores), base e for B9
+template <bool NATURAL>
+__device__ __forceinline__ float ex(float x) {
+  return NATURAL ? expf(x) : exp2f(x);
+}
 
 // A row whose every key is masked by -inf keeps the running max at its
 // -1e30 start, so exp2(-inf - m) = 0 and l = 0: the row's output is 0/1e-30
@@ -123,8 +148,9 @@ __device__ __forceinline__ void load_q(unsigned (&qf)[KSTEPS][4], const Args& a,
 // `masked` / `causal` are compile-time constants where the caller knows
 // them, so the unmasked kernel carries none of the masking code; whether a
 // mask is bool or additive is read from the arguments (uniform over the
-// launch).
-template <bool QUANT, int KSTEPS, int LDK>
+// launch).  NATURAL (B9): the bf16 score times sm_scale, the additive mask
+// added without log2(e).
+template <bool QUANT, int KSTEPS, int LDK, bool NATURAL>
 __device__ __forceinline__ void score_tile(float (&s)[BKV / 8][4], const unsigned (&qf)[KSTEPS][4],
                                            const uint8_t* sK, const float* sKs, float qs0,
                                            float qs1, const Args& a, int kv0, int r0, int r1,
@@ -154,11 +180,16 @@ __device__ __forceinline__ void score_tile(float (&s)[BKV / 8][4], const unsigne
     for (int i = 0; i < 4; ++i) {
       const int col = kv0 + nt * 8 + t4 * 2 + (i & 1), row = i < 2 ? r0 : r1;
       float x = static_cast<float>(sacc[nt][i]);
-      if (QUANT) x = (x * (i < 2 ? qs0 : qs1)) * sKs[col - kv0];
+      if (QUANT)
+        x = (x * (i < 2 ? qs0 : qs1)) * sKs[col - kv0];
+      else if (NATURAL)
+        x = __fmul_rn(x, a.sm_scale);
       bool keep = col < a.KN && !(causal && row < col);
       if (use_mask && keep) {
         const uint8_t* mr = i < 2 ? mr0 : mr1;
-        if (fmask)
+        if (fmask && NATURAL)
+          x = __fadd_rn(x, mask_val(a, mr, col));
+        else if (fmask)
           x = __fadd_rn(x, __fmul_rn(mask_val(a, mr, col), kLog2e));
         else
           keep = mr[col * a.msk] != 0;
@@ -188,6 +219,33 @@ __device__ __forceinline__ void store_rows(const Args& a, size_t bh, int r0, int
   }
 }
 
+// B9's epilogue: acc unnormalised in fp32, and each row's m and l (the
+// quad's four threads hold the same row values; the first writes them)
+template <int NDT>
+__device__ __forceinline__ void store_partial(const Args& a, size_t bh, int r0, int r1, int t4,
+                                              const float (&o_acc)[NDT][4], float m0, float m1,
+                                              float l0, float l1) {
+  constexpr int D = NDT * 8;
+  float* o0 = static_cast<float*>(a.out) + (bh * a.N + r0) * (size_t)D;
+  float* o1 = static_cast<float*>(a.out) + (bh * a.N + r1) * (size_t)D;
+#pragma unroll
+  for (int dt = 0; dt < NDT; ++dt) {
+    const int c = dt * 8 + t4 * 2;
+    if (r0 < a.N) *reinterpret_cast<float2*>(o0 + c) = make_float2(o_acc[dt][0], o_acc[dt][1]);
+    if (r1 < a.N) *reinterpret_cast<float2*>(o1 + c) = make_float2(o_acc[dt][2], o_acc[dt][3]);
+  }
+  if (t4 == 0) {
+    if (r0 < a.N) {
+      a.m_out[bh * a.N + r0] = m0;
+      a.l_out[bh * a.N + r0] = l0;
+    }
+    if (r1 < a.N) {
+      a.m_out[bh * a.N + r1] = m1;
+      a.l_out[bh * a.N + r1] = l1;
+    }
+  }
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -203,8 +261,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 constexpr int WARPS = 8, NT = WARPS * 32, BQ = WARPS * 16;
 
-// MODE bit 0: a mask (bool or additive); bit 1: causal
-template <int D, bool QUANT, int MODE, typename OutT>
+// MODE bit 0: a mask (bool or additive); bit 1: causal.  PARTIAL: B9
+template <int D, bool QUANT, int MODE, typename OutT, bool PARTIAL>
 __global__ void __launch_bounds__(NT) flash_attn_kernel(const Args a) {
   constexpr int QB = QUANT ? D : 2 * D;  // bytes per Q / K row
   constexpr int LDK = QB + 16;           // padded K row in shared memory
@@ -261,8 +319,8 @@ __global__ void __launch_bounds__(NT) flash_attn_kernel(const Args a) {
     __syncthreads();
 
     float s[BKV / 8][4];
-    score_tile<QUANT, KSTEPS, LDK>(s, qf, sK, sKs, qs0, qs1, a, kv0, r0, r1, MASKED, CAUSAL, mr0,
-                                   mr1, g, t4);
+    score_tile<QUANT, KSTEPS, LDK, PARTIAL>(s, qf, sK, sKs, qs0, qs1, a, kv0, r0, r1, MASKED,
+                                            CAUSAL, mr0, mr1, g, t4);
 
     // online softmax (rows r0: entries 0,1; r1: entries 2,3)
     float mx0 = NEG, mx1 = NEG;
@@ -274,16 +332,16 @@ __global__ void __launch_bounds__(NT) flash_attn_kernel(const Args a) {
     mx0 = quad_max(mx0);
     mx1 = quad_max(mx1);
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    const float al0 = ex<PARTIAL>(m0 - mn0), al1 = ex<PARTIAL>(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < BKV / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mn0);
-      s[nt][1] = exp2f(s[nt][1] - mn0);
-      s[nt][2] = exp2f(s[nt][2] - mn1);
-      s[nt][3] = exp2f(s[nt][3] - mn1);
+      s[nt][0] = ex<PARTIAL>(s[nt][0] - mn0);
+      s[nt][1] = ex<PARTIAL>(s[nt][1] - mn0);
+      s[nt][2] = ex<PARTIAL>(s[nt][2] - mn1);
+      s[nt][3] = ex<PARTIAL>(s[nt][3] - mn1);
       ps0 += s[nt][0] + s[nt][1];
       ps1 += s[nt][2] + s[nt][3];
     }
@@ -319,7 +377,10 @@ __global__ void __launch_bounds__(NT) flash_attn_kernel(const Args a) {
     }
     __syncthreads();
   }
-  store_rows<OutT, NDT>(a, bh, r0, r1, t4, o_acc, l0, l1);
+  if constexpr (PARTIAL)
+    store_partial<NDT>(a, bh, r0, r1, t4, o_acc, m0, m1, l0, l1);
+  else
+    store_rows<OutT, NDT>(a, bh, r0, r1, t4, o_acc, l0, l1);
 }
 
 // ---------------------------------------------------------------------------
@@ -348,7 +409,7 @@ __device__ __forceinline__ unsigned quant4(const float* p, float sc) {
   return (q0 & 0xff) | ((q1 & 0xff) << 8) | ((q2 & 0xff) << 16) | ((unsigned)(q3 & 0xff) << 24);
 }
 
-template <int D, bool QUANT, typename OutT>
+template <int D, bool QUANT, typename OutT, bool PARTIAL>
 __global__ void __launch_bounds__(TNT) flash_attn_tok_kernel(const Args a) {
   constexpr int QB = QUANT ? D : 2 * D;
   constexpr int LDK = QB + 16;
@@ -409,8 +470,8 @@ __global__ void __launch_bounds__(TNT) flash_attn_tok_kernel(const Args a) {
       sdnq::cp_async_wait<0>();
       __syncthreads();
       float s[BKV / 8][4];
-      score_tile<QUANT, KSTEPS, LDK>(s, qf, sK, sKs, qs0, qs1, a, kv0, r0, r1, mr0 != nullptr,
-                                     a.causal != 0, mr0, mr1, g, t4);
+      score_tile<QUANT, KSTEPS, LDK, PARTIAL>(s, qf, sK, sKs, qs0, qs1, a, kv0, r0, r1,
+                                              mr0 != nullptr, a.causal != 0, mr0, mr1, g, t4);
 #pragma unroll
       for (int nt = 0; nt < BKV / 8; ++nt) {
         const int c = kv0 - pb0 + nt * 8 + t4 * 2;
@@ -424,15 +485,15 @@ __global__ void __launch_bounds__(TNT) flash_attn_tok_kernel(const Args a) {
     mx0 = quad_max(mx0);
     mx1 = quad_max(mx1);
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    const float al0 = ex<PARTIAL>(m0 - mn0), al1 = ex<PARTIAL>(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
 
     // pass 2: S -> p_eff = exp2(s - m_new) * vs in place; l and the P scale
     float ps0 = 0.f, ps1 = 0.f, pm0 = 0.f, pm1 = 0.f;
     for (int c = t4; c < pend - pb0; c += 4) {
-      const float p0 = exp2f(sS[g * LDS + c] - mn0);
-      const float p1 = exp2f(sS[(g + 8) * LDS + c] - mn1);
+      const float p0 = ex<PARTIAL>(sS[g * LDS + c] - mn0);
+      const float p1 = ex<PARTIAL>(sS[(g + 8) * LDS + c] - mn1);
       const float e0 = p0 * sVs[c], e1 = p1 * sVs[c];
       sS[g * LDS + c] = e0;
       sS[(g + 8) * LDS + c] = e1;
@@ -497,30 +558,36 @@ __global__ void __launch_bounds__(TNT) flash_attn_tok_kernel(const Args a) {
       o_acc[dt][3] = __fadd_rn(__fmul_rn(o_acc[dt][3], al1), __fmul_rn((float)pv[dt][3], sc1));
     }
   }
-  store_rows<OutT, NDT>(a, bh, r0, r1, t4, o_acc, l0, l1);
+  if constexpr (PARTIAL)
+    store_partial<NDT>(a, bh, r0, r1, t4, o_acc, m0, m1, l0, l1);
+  else
+    store_rows<OutT, NDT>(a, bh, r0, r1, t4, o_acc, l0, l1);
 }
 
-template <int D, bool QUANT, typename OutT>
+// PARTIAL (B9) has no causal flag: its modes are 0 and 1
+template <int D, bool QUANT, typename OutT, bool PARTIAL = false>
 int launch_t(const Args& a, int BH, cudaStream_t st) {
   if (!a.vs) {
     const dim3 grid((a.N + BQ - 1) / BQ, BH);
     const int mode = (a.mask ? 1 : 0) | (a.causal ? 2 : 0);
     if (mode == 0)
-      flash_attn_kernel<D, QUANT, 0, OutT><<<grid, NT, 0, st>>>(a);
+      flash_attn_kernel<D, QUANT, 0, OutT, PARTIAL><<<grid, NT, 0, st>>>(a);
     else if (mode == 1)
-      flash_attn_kernel<D, QUANT, 1, OutT><<<grid, NT, 0, st>>>(a);
+      flash_attn_kernel<D, QUANT, 1, OutT, PARTIAL><<<grid, NT, 0, st>>>(a);
+    else if constexpr (PARTIAL)
+      return static_cast<int>(cudaErrorInvalidValue);
     else if (mode == 2)
-      flash_attn_kernel<D, QUANT, 2, OutT><<<grid, NT, 0, st>>>(a);
+      flash_attn_kernel<D, QUANT, 2, OutT, false><<<grid, NT, 0, st>>>(a);
     else
-      flash_attn_kernel<D, QUANT, 3, OutT><<<grid, NT, 0, st>>>(a);
+      flash_attn_kernel<D, QUANT, 3, OutT, false><<<grid, NT, 0, st>>>(a);
     return 0;
   }
   const int bytes = tok_smem_bytes<D, QUANT>(a.pblock);
-  cudaError_t rc = cudaFuncSetAttribute(flash_attn_tok_kernel<D, QUANT, OutT>,
+  cudaError_t rc = cudaFuncSetAttribute(flash_attn_tok_kernel<D, QUANT, OutT, PARTIAL>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid((a.N + TBQ - 1) / TBQ, BH);
-  flash_attn_tok_kernel<D, QUANT, OutT><<<grid, TNT, bytes, st>>>(a);
+  flash_attn_tok_kernel<D, QUANT, OutT, PARTIAL><<<grid, TNT, bytes, st>>>(a);
   return 0;
 }
 
@@ -557,13 +624,46 @@ extern "C" int sdnq_flash_attn(const void* q, const void* k, const void* v, cons
          static_cast<const uint8_t*>(v), static_cast<const float*>(qs),
          static_cast<const float*>(ks), static_cast<const float*>(vs),
          static_cast<const uint8_t*>(mask), msb, msh, msn, msk, mask_kind, out, N, KN, H, qpk,
-         causal, pblock};
+         causal, pblock, nullptr, nullptr, 1.f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;
   if (D == 64)
     rc = quant ? launch<64, true>(a, BH, out_kind, st) : launch<64, false>(a, BH, out_kind, st);
   else
     rc = quant ? launch<128, true>(a, BH, out_kind, st) : launch<128, false>(a, BH, out_kind, st);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B9: q (BH, N, 128), k (BH, KN, 128): bf16 (quant = 0, the score times
+// sm_scale) or int8 (quant = 1) with qs (BH, N) carrying sm_scale and ks
+// (BH, KN); v (BH, KN, 128) bf16, or int8 with vs (BH, KN) (token mode, P
+// quantised per block of pblock keys, as above); mask null, or (mask_heads,
+// N, KN) read at (bh % mask_heads)*msh + row*msn + key*msk (elements), bool
+// (mask_kind 1) or additive bf16 (2) / fp32 (3), mask_heads dividing BH.
+// Writes acc (BH, N, 128) and m, l (BH, N), all fp32.
+extern "C" int sdnq_flash_attn_block(const void* q, const void* k, const void* v, const void* qs,
+                                     const void* ks, const void* vs, const void* mask,
+                                     long long msh, long long msn, long long msk, void* acc,
+                                     void* m, void* l, int BH, int N, int KN, int D,
+                                     int mask_heads, int pblock, int quant, int mask_kind,
+                                     float sm_scale, void* stream) {
+  if (KN < 1 || D != 128 || mask_heads < 1 || BH % mask_heads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mask && (mask_kind < MASK_BOOL || mask_kind > MASK_F32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vs && (pblock < BKV || pblock > 512 || pblock % BKV || KN % pblock))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // H = mask_heads, one query head per KV head: row bh reads KV head bh and
+  // mask head bh % mask_heads (mask_row with b = bh / H, h = bh % H, msb 0)
+  Args a{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(k),
+         static_cast<const uint8_t*>(v), static_cast<const float*>(qs),
+         static_cast<const float*>(ks), static_cast<const float*>(vs),
+         static_cast<const uint8_t*>(mask), 0, msh, msn, msk, mask_kind, acc, N, KN, mask_heads,
+         1, 0, pblock, static_cast<float*>(m), static_cast<float*>(l), sm_scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rc = quant ? launch_t<128, true, float, true>(a, BH, st)
+                       : launch_t<128, false, float, true>(a, BH, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,9 @@ launches per mode in ``<wrapper>.mode_launches``.
 """
 
 from . import dequant_mm as _dequant_mm
-from .attention import flash_attention, quantized_attention
+from .attention import (
+    flash_attention, flash_attention_block, quantized_attention,
+)
 from .dequant_mm import (
     blockdiag_i8_mm, blockdiag_mm, dequant_gemv, dequant_matmul,
     groupdot_i8_mm, groupdot_mm, packed_int8_matmul,
@@ -27,6 +29,7 @@ KERNELS = {
     "dequant_gemv": dequant_gemv,
     "dequant_mm": _dequant_mm.dequant_mm,
     "flash_attention": flash_attention,
+    "flash_attention_block": flash_attention_block,
     "groupdot_mm": groupdot_mm,
     "blockdiag_mm": blockdiag_mm,
     "groupdot_i8_mm": groupdot_i8_mm,
@@ -63,7 +66,7 @@ __all__ = [
     "KERNELS", "reset_launch_counts", "launch_counts", "quantize_rows",
     "scaled_gemm", "scaled_mm_fused_act", "bf16_scaled_mm",
     "dequant_gemv", "dequant_matmul", "flash_attention",
-    "quantized_attention", "groupdot_mm", "blockdiag_mm", "groupdot_i8_mm",
+    "flash_attention_block", "quantized_attention", "groupdot_mm", "blockdiag_mm", "groupdot_i8_mm",
     "blockdiag_i8_mm", "packed_int8_matmul", "scaled_mm_tn",
     "dynamic_mm_tn",
 ]

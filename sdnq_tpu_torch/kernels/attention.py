@@ -24,6 +24,14 @@ port of the JAX package's XLA function ``_attn_xla`` (``exp``, an fp32
 softmax, P quantized over the whole row), in plain torch on both devices:
 the JAX package computes that step outside any Pallas kernel.
 
+Kernel ``flash_attention_block`` (B9, the block mode of
+``csrc/flash_attn.cu``) replaces ``_attn_kernel`` with ``partial_out=True``
+(``_attn_block_pallas``): one KV block's unnormalised fp32 (acc, m, l) in
+natural-log units, for the ring's merge (``parallel/ring_attention.py``).
+It keeps the JAX route of ``flash_attention_block``: B9 where N % 8, KN %
+128 and D % 128 are 0, ``attention_block_xla`` (the XLA block function)
+elsewhere, in plain torch on both devices.
+
 Still raising on both devices (later slices, ROADMAP queue B, B3): int8
 P·V with one V scale per head (``pv_scale_mode="head"``), fp8 Q·K; on the
 card, head dims other than 64 and 128.
@@ -55,7 +63,9 @@ from ..quant.hadamard import (
 
 __all__ = ["flash_attention", "flash_attention_plain", "attention_xla",
            "quantized_attention", "quantize_kv", "attn_auto_matmul_dtype",
-           "attn_kernel_route", "attn_p_block", "trainable_attention"]
+           "attn_kernel_route", "attn_p_block", "trainable_attention",
+           "flash_attention_block", "flash_attention_block_plain",
+           "attention_block_xla", "block_kernel_route"]
 
 LOG2E = math.log2(math.e)
 _NEG_INF = -1e30
@@ -254,6 +264,198 @@ flash_attention.launches = 0
 # launches of the kernel in each mode (a launch may count in several)
 flash_attention.mode_launches = dict(masked=0, float_mask=0, causal=0, gqa=0,
                                      int8_pv=0)
+
+
+# ---------------------------------------------------------------------------
+# B9: flash attention over one KV block, unnormalised partials
+# ---------------------------------------------------------------------------
+
+def block_kernel_route(n: int, kn: int, d: int) -> bool:
+    """Whether the JAX ``flash_attention_block`` runs its Pallas kernel at
+    this shape (its TPU rule: N % 8, KN % 128 and D % 128 all 0, which is
+    not ``attn_kernel_route``'s), kept for parity: elsewhere both packages
+    take the XLA block function, in plain torch on both devices."""
+    return n % 8 == 0 and kn % 128 == 0 and d % 128 == 0
+
+
+def _block_scores(q, k, q_scale, k_scale, sm_scale, quantized, mask,
+                  mask_is_bool, exact: bool):
+    """s (BH, N, KN) as the JAX block functions form it: int8 products
+    exact (float64), times q_scale (carrying sm_scale) and k_scale; float
+    q, k times sm_scale after the dot (in float64 where ``exact``, as the
+    XLA function's fp32 einsum is held to, else fp32 as the kernel's bf16
+    products sum); the mask (1 or BH, N, KN), row b reading mask row
+    b % mask_bh, masks to -1e30 (bool) or is added (float)."""
+    bh, n, _ = q.shape
+    if quantized or exact:
+        s = (q.double() @ k.double().transpose(1, 2)).float()
+    else:
+        s = q.float() @ k.float().transpose(1, 2)
+    if quantized:
+        s = s * q_scale.reshape(bh, n, 1) * k_scale[:, None, :]
+    elif sm_scale != 1.0:
+        s = s * sm_scale
+    if mask is not None:
+        mask = mask.repeat(bh // mask.shape[0], 1, 1)
+        s = (torch.where(mask != 0, s, _NEG_INF) if mask_is_bool
+             else s + mask.float())
+    return s
+
+
+def _quantize_p(p, v_scale):
+    """Token-mode P: p·vs quantized per row of the block, and its scale."""
+    p_eff = p * v_scale[:, None, :].float()
+    p_scale = _div(p_eff.amax(-1, keepdim=True).clamp_min(1e-20), 127.0)
+    return torch.round(p_eff / p_scale), p_scale
+
+
+def flash_attention_block_plain(q, k, v, q_scale=None, k_scale=None,
+                                v_scale=None, mask=None, *, quantized=True,
+                                quantized_pv=False, sm_scale=1.0,
+                                mask_is_bool=True):
+    """Plain version of B9 (``flash_attention_block``'s kernel route): the
+    JAX ``_attn_kernel`` with ``partial_out=True`` step by step, KV blocks
+    of ``attn_p_block(KN)`` keys with the online softmax between them in
+    natural-log units: m_new = max(m, rowmax s), p = exp(s - m_new), alpha
+    = exp(m - m_new), l = l·alpha + Σp, acc = acc·alpha + P·V, where P is
+    rounded to v's dtype (bf16 v), or, with int8 v and ``v_scale``
+    (``quantized_pv``), p·vs quantized per row of the block.  Returns fp32
+    (acc (BH, N, D) unnormalised, m (BH, N, 1), l (BH, N, 1)).  m starts
+    at -1e30, so a row that a bool mask hides everywhere has p = 1 for
+    every key and l = KN."""
+    bh, n, _ = q.shape
+    kn = k.shape[1]
+    bk = attn_p_block(kn)
+    m = torch.full((bh, n, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((bh, n, 1), device=q.device)
+    acc = torch.zeros((bh, n, v.shape[-1]), device=q.device)
+    for k0 in range(0, kn, bk):
+        blk = slice(k0, k0 + bk)
+        s = _block_scores(q, k[:, blk], q_scale,
+                          None if k_scale is None else k_scale[:, blk],
+                          sm_scale, quantized,
+                          None if mask is None else mask[..., blk],
+                          mask_is_bool, exact=False)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        vb = v[:, blk]
+        if quantized_pv:
+            p_q, p_scale = _quantize_p(p, v_scale[:, blk])
+            pv = (p_q.double() @ vb.double()).float() * p_scale
+        else:
+            pv = p.to(vb.dtype).float() @ vb.float()
+        acc = acc * alpha + pv
+        m = m_new
+    return acc, m, l
+
+
+def attention_block_xla(q, k, v, q_scale=None, k_scale=None, v_scale=None,
+                        mask=None, *, quantized=True, quantized_pv=False,
+                        sm_scale=1.0, mask_is_bool=True):
+    """The JAX package's ``_attn_block_xla`` in torch: one softmax over the
+    whole block in fp32 (m the row max, p = exp(s - m), l = Σp), P·V on
+    fp32 p, or with ``quantized_pv`` p·vs quantized over the whole row;
+    the products in float64, rounded to fp32.  Returns (acc, m, l) as
+    ``flash_attention_block_plain``."""
+    s = _block_scores(q, k, q_scale, k_scale, sm_scale, quantized, mask,
+                      mask_is_bool, exact=True)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    if quantized_pv:
+        p_q, p_scale = _quantize_p(p, v_scale)
+        acc = (p_q.double() @ v.double()).float() * p_scale
+    else:
+        acc = (p.double() @ v.double()).float()
+    return acc, m, l
+
+
+attention_block_xla.calls = 0
+
+_BLOCK_HEAD_DIMS = (128,)
+_MASK_BYTES = (torch.bool, torch.int8, torch.uint8)
+
+
+def flash_attention_block(q, k, v, q_scale=None, k_scale=None, v_scale=None,
+                          mask=None, *, quantized=True, quantized_pv=False,
+                          sm_scale=1.0, mask_is_bool=True):
+    """Flash attention over one KV block, returning the unnormalised fp32
+    partials (acc (BH, N, D), m (BH, N, 1), l (BH, N, 1)) that the ring's
+    online-softmax merge takes: q (BH, N, D) int8 with q_scale (BH, N)
+    (carrying sm_scale; ``quantized``) or float, k (BH, KN, D) likewise
+    with k_scale (BH, KN), v (BH, KN, D) bf16, or int8 with v_scale (BH,
+    KN) (``quantized_pv``); ``mask`` (1 or BH, N, KN), bool (nonzero
+    keeps a key) or, with ``mask_is_bool`` False, added to the scores.
+
+    The JAX route: where ``block_kernel_route`` holds, B9 (a CUDA tensor)
+    or its plain version (a CPU tensor); elsewhere ``attention_block_xla``
+    on both devices.  On the card B9 takes bf16 or int8 q / k, D = 128
+    (D = 256 passes the route and raises: ROADMAP queue B), a bool, int8 or
+    float mask.  ``flash_attention_block.launches`` counts B9's launches,
+    ``attention_block_xla.calls`` the XLA route's calls."""
+    bh, n, d = q.shape
+    kn = k.shape[1]
+    args = (q, k, v, q_scale, k_scale, v_scale, mask)
+    kw = dict(quantized=quantized, quantized_pv=quantized_pv,
+              sm_scale=float(sm_scale), mask_is_bool=mask_is_bool)
+    if not block_kernel_route(n, kn, d):
+        attention_block_xla.calls += 1
+        return attention_block_xla(*args, **kw)
+    if not is_cuda(q):
+        return flash_attention_block_plain(*args, **kw)
+    want = torch.int8 if quantized else torch.bfloat16
+    v_want = torch.int8 if quantized_pv else torch.bfloat16
+    if q.dtype != want or k.dtype != want or v.dtype != v_want:
+        raise ValueError(f"flash_attention_block takes {want} q/k and "
+                         f"{v_want} v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if d not in _BLOCK_HEAD_DIMS or v.shape[-1] != d:
+        raise NotImplementedError(
+            f"head dim {d}: B9 takes {_BLOCK_HEAD_DIMS} (others are a later "
+            "slice of the port, ROADMAP queue B, B9)")
+    if k.shape[0] != bh or v.shape[:2] != k.shape[:2]:
+        raise ValueError(f"shapes {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    qs = q_scale.reshape(bh, n).float().contiguous() if quantized else None
+    ks = k_scale.reshape(bh, kn).float().contiguous() if quantized else None
+    vs = (v_scale.reshape(bh, kn).float().contiguous() if quantized_pv
+          else None)
+    mask_heads, strides, mkind = bh, (0, 0, 0), 0
+    if mask is not None:
+        if (mask.dim() != 3 or bh % mask.shape[0]
+                or tuple(mask.shape[1:]) != (n, kn)):
+            raise ValueError(f"mask {tuple(mask.shape)} for ({bh}, {n}, "
+                             f"{kn})")
+        if mask_is_bool:
+            if mask.dtype not in _MASK_BYTES:
+                raise ValueError(f"a bool mask is bool or int8, not "
+                                 f"{mask.dtype}")
+            mkind = _MASK_KINDS[torch.bool]
+        else:
+            if mask.dtype not in _MASK_KINDS or mask.dtype == torch.bool:
+                mask = mask.float()
+            mkind = _MASK_KINDS[mask.dtype]
+        mask_heads, strides = mask.shape[0], tuple(mask.stride())
+    acc = torch.empty((bh, n, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((bh, n, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty((bh, n, 1), dtype=torch.float32, device=q.device)
+    if n:
+        fn = _build.function("flash_attn", "sdnq_flash_attn_block",
+                             [P] * 7 + [_L] * 3 + [P] * 3 + [I] * 8
+                             + [ctypes.c_float, P])
+        _build.check(fn(*(_build.ptr(t) for t in (q, k, v, qs, ks, vs, mask)),
+                        *strides, *(_build.ptr(t) for t in (acc, m, l)),
+                        bh, n, kn, d, mask_heads,
+                        attn_p_block(kn) if quantized_pv else 0,
+                        int(quantized), mkind, float(sm_scale),
+                        _build.stream(q)), "flash_attention_block")
+        flash_attention_block.launches += 1
+    return acc, m, l
+
+
+flash_attention_block.launches = 0
 
 
 def attention_xla(q, k, v, q_scale=None, k_scale=None, v_scale=None,

@@ -824,3 +824,137 @@ def test_scaled_mm_tn_rejects(dev):
         ks.scaled_mm_tn(a, a)
     z = torch.zeros(0, 8, device=dev, dtype=torch.int8)
     assert torch.equal(ks.scaled_mm_tn(z, z), torch.zeros(8, 8, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# B9: flash attention over one KV block (the ring's step), unnormalised
+# partials (acc, m, l) in natural-log units
+# ---------------------------------------------------------------------------
+
+def _block_inputs(dev, g, bh, n, kn, mode):
+    """The ring's block operands: per-token int8 q, k with q_scale carrying
+    sm_scale (``int8``), or bf16 (``bf16``); v bf16, or per-token int8 with
+    v_scale (``token``)."""
+    from sdnq_tpu_torch.quant.core import quantize_int_mm
+    d = 128
+    q = torch.randn(bh, n, d, device=dev, generator=g)
+    k = torch.randn(bh, kn, d, device=dev, generator=g)
+    v = torch.randn(bh, kn, d, device=dev, generator=g)
+    quant, token = mode != "bf16", mode == "int8_token"
+    if quant:
+        qq, qs = quantize_int_mm(q)
+        kq, ks = quantize_int_mm(k)
+        args = [qq, kq, None, qs[..., 0] * d ** -0.5, ks[..., 0], None]
+    else:
+        args = [q.bfloat16(), k.bfloat16(), None, None, None, None]
+    if token:
+        vq, vs = quantize_int_mm(v)
+        args[2], args[5] = vq, vs[..., 0]
+    else:
+        args[2] = v.bfloat16()
+    return args, dict(quantized=quant, quantized_pv=token,
+                      sm_scale=d ** -0.5)
+
+
+def _block_check(got, want, token):
+    """acc / l per row within 2^-6 of the row's largest output where P is
+    rounded to bf16 (against a 64-key tile's running max in the kernel, a
+    block's in the plain version), 1e-4 in token mode (P quantized at the
+    same points); m to fp32 rounding of the scores (1e-5 of max |m|); l to
+    1e-5 relative."""
+    (acc, m, l), (wacc, wm, wl) = got, want
+    assert acc.dtype == m.dtype == l.dtype == torch.float32
+    assert m.shape == l.shape == (acc.shape[0], acc.shape[1], 1)
+    live = wm > -1e29
+    assert torch.equal(m[~live], wm[~live])
+    assert (m - wm).abs().max() <= 1e-5 * wm[live].abs().max()
+    assert ((l - wl).abs() / wl).max() <= 1e-5
+    out, wout = acc / l, wacc / wl
+    row = (out - wout).abs().amax(-1) / wout.abs().amax(-1)
+    assert row.max() <= (1e-4 if token else 2 ** -6)
+
+
+@pytest.mark.parametrize("n,kn", [(72, 256), (256, 1152), (136, 1024)])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int8_token"])
+@pytest.mark.parametrize("mask", [None, "triangle", "holes_false_row"])
+def test_flash_attention_block(dev, n, kn, mode, mask):
+    """B9 against its plain version: no mask, a (1, N, KN) triangle read by
+    every head, and a (BH, N, KN) mask with random holes and one row hidden
+    everywhere (m = -1e30, every p = 1, l = KN); token mode with 1-3 P
+    blocks (KN 1152: blocks of 128)."""
+    g = _gen(40)
+    bh = 6
+    args, kw = _block_inputs(dev, g, bh, n, kn, mode)
+    if mask == "triangle":
+        args.append(torch.ones(n, kn, dtype=torch.bool, device=dev)
+                    .tril()[None])
+    elif mask == "holes_false_row":
+        hm = torch.rand(bh, n, kn, device=dev, generator=g) < 0.5
+        hm[..., 0] = True
+        hm[2, 5] = False
+        args.append(hm.to(torch.int8))
+    before = ka.flash_attention_block.launches
+    got = ka.flash_attention_block(*args, **kw)
+    assert ka.flash_attention_block.launches == before + 1
+    want = ka.flash_attention_block_plain(*args, **kw)
+    _block_check(got, want, mode == "int8_token")
+    if mask == "holes_false_row":
+        assert got[1][2, 5, 0] == torch.tensor(-1e30) and \
+            got[2][2, 5, 0] == kn
+
+
+def test_flash_attention_block_additive_mask(dev):
+    """A float mask (``mask_is_bool=False``) is added to the natural-unit
+    scores, bf16 or fp32, read through its strides."""
+    g = _gen(41)
+    args, kw = _block_inputs(dev, g, 4, 64, 512, "bf16")
+    bias = torch.randn(1, 64, 512, device=dev, generator=g)
+    for mask in (bias, bias.bfloat16()):
+        got = ka.flash_attention_block(*args, mask, mask_is_bool=False, **kw)
+        want = ka.flash_attention_block_plain(*args, mask, mask_is_bool=False,
+                                              **kw)
+        _block_check(got, want, False)
+
+
+def test_flash_attention_block_routes_on_card(dev):
+    """The JAX route on the card: KN % 128 != 0 or D 64 take the XLA block
+    function in plain torch (no launch); D 256 with KN 128 passes the
+    route and raises (ROADMAP queue B)."""
+    g = _gen(42)
+    q = torch.randn(2, 64, 128, device=dev, generator=g).bfloat16()
+    kw = dict(quantized=False, sm_scale=0.1)
+    b9, xla = ka.flash_attention_block.launches, ka.attention_block_xla.calls
+    got = ka.flash_attention_block(q, q[:, :48], q[:, :48], **kw)
+    assert ka.flash_attention_block.launches == b9
+    assert ka.attention_block_xla.calls == xla + 1
+    want = ka.attention_block_xla(*(t.cpu() for t in (q, q[:, :48],
+                                                      q[:, :48])), **kw)
+    for a, b in zip(got, want):
+        assert (a.cpu() - b).abs().max() <= 1e-5 * b.abs().max()
+    wide = torch.zeros(2, 128, 256, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="queue B"):
+        ka.flash_attention_block(wide, wide, wide, **kw)
+    k = torch.zeros(2, 128, 128, device=dev)
+    with pytest.raises(ValueError):   # float q / k on the kernel route
+        ka.flash_attention_block(q.float(), k, k.bfloat16(), **kw)
+
+
+def test_ring_on_card_matches_local_and_float64(dev):
+    """``ring_attention`` through a mesh of one on the card (B9), and the
+    local ring at P = 2 (B9) and 4 (chunks of 64 keys: the XLA block
+    function), causal in the zigzag layout, against float64 attention."""
+    from sdnq_tpu_torch.parallel import create_mesh, ring_attention
+    from sdnq_tpu_torch.parallel.ring_attention import _local_ring
+    g = _gen(43)
+    q, k, v = (torch.randn(1, 4, 512, 128, device=dev, generator=g)
+               for _ in range(3))
+    s = (q.double() @ k.double().transpose(-1, -2)) * 128 ** -0.5
+    s = s.masked_fill(~torch.ones(512, 512, dtype=torch.bool,
+                                  device=dev).tril(), float("-inf"))
+    ref = torch.softmax(s, -1) @ v.double()
+    before = ka.flash_attention_block.launches
+    outs = [ring_attention(q, k, v, create_mesh(sequence=1), causal=True)]
+    outs += [_local_ring(q, k, v, p, causal=True) for p in (2, 4)]
+    assert ka.flash_attention_block.launches > before
+    for out in outs:   # the JAX tests' limit for int8
+        assert (out.double() - ref).abs().max() < 0.05
