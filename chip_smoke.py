@@ -17,14 +17,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               same inputs, times kernel, plain version and a one-call
               PyTorch yardstick with CUDA events, and computes the bound
               (bytes over 3.35 TB/s or operations over the H100's peak for
-              their type, the larger).  The new modes of this slice: B2's
-              bit-plane tiles and GEMV, B5 / B6 on multi-plane and
-              minifloat half-split codes, B1 + B4 on a layer of a stacked
-              weight, and bench.py's shape (qlinear, int8 rowwise, M 16384
-              K 4096 N 8192, beside bf16 F.linear); B9 (the ring's block
-              step) at the block shapes of phase 4r, its acc / l per row,
-              m and l held against the plain version.  Prints one
-              {"kernels": [...]} line for the kernels of the paths.
+              their type, the larger).  Among them: B2's bit-plane tiles
+              and GEMV, B5 / B6 on multi-plane and minifloat half-split
+              codes, B1 + B4 on a layer of a stacked weight, bench.py's
+              shape (qlinear, int8 rowwise, M 16384 K 4096 N 8192, beside
+              bf16 F.linear); B9 (the ring's block step) at the block
+              shapes of phase 4r, its acc / l per row, m and l held
+              against the plain version; and the two halves of B2's tiles
+              and B5 alone at DiT linear1: decode_weight (int8 g1024,
+              float8_e3m4fn bit-plane, float5_e2m2fn half-split; bit-equal)
+              and wgmma_mm with its bias, row and fold epilogues, and once
+              at ragged M, N and K.  Then no barrier wait of wgmma_mm may
+              have given up.  Prints one {"kernels": [...]} line for the
+              kernels of the paths.
 4r. ring    - sequence parallelism at the attention widths of two
               models, q, k, v from a seeded generator: FLUX.1-dev's joint
               attention at 1024x1024, (1, 24, 4608, 128), in three modes
@@ -136,7 +141,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               B2's minifloat decode flushing subnormals, B5 ignoring the
               second field plane, B6 dropping the minifloat sign, B9
               writing acc normalised, m in base-2 units, B3's base-2
-              exponent in B9, and l not rescaled in token mode), built
+              exponent in B9, l not rescaled in token mode, and the GEMM
+              waiting on the wrong phase of its stages' barriers, starting
+              each of B5's group products one k-step late and dropping the
+              N tail), built
               with
               the real ones; phases 3 and 5 rerun with
               each in turn.  Phase 3 must fail for the broken kernel; phase
@@ -184,6 +192,22 @@ def bound_ms(bytes_moved: float, ops: float = 0.0, kind: str = "bf16"):
                                        else "operations")
 
 
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host time a call takes to return, without synchronising: the
+    wrapper's Python, allocations and launches (the card runs behind).  The
+    median, since the fault builds share the host's cores meanwhile."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Median of per-call CUDA-event times."""
     import torch
@@ -204,9 +228,12 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 # name of each wrapper's CUDA kernel, as the profiler reports it
 KERNEL_SYMBOLS = {
     "quantize_rows": "quantize_rows_kernel", "scaled_gemm": "scaled_mm_kernel",
-    "dequant_gemv": "dequant_gemv_kernel", "dequant_mm": "dequant_mm_kernel",
+    "dequant_gemv": "dequant_gemv_kernel",
+    "dequant_mm": ("decode_weight_", "wgmma_mm_kernel"),
+    "decode_weight": "decode_weight_", "wgmma_mm": "wgmma_mm_kernel",
     "flash_attention": "flash_attn", "flash_attention_block": "flash_attn",
-    "groupdot_mm": "groupdot_mm_kernel", "blockdiag_mm": "blockdiag_mm_kernel",
+    "groupdot_mm": ("decode_weight_", "wgmma_mm_kernel"),
+    "blockdiag_mm": "blockdiag_mm_kernel",
     "groupdot_i8_mm": "groupdot_mm_kernel",
     "blockdiag_i8_mm": "blockdiag_i8_mm_kernel",
     "scaled_mm_tn": "scaled_mm_tn_kernel"}
@@ -255,8 +282,9 @@ def kernel_phase(torch, dev, timed: bool = True):
                bnd, library_ms, shape, on_path=True, path="int8",
                count=None, reading=None, symbol=None, what=None, **extra):
         """``kernel`` calls the kernel's wrapper: timed with CUDA events
-        around the call (``ms``, the wrapper's host work included) and by
-        the profiler's kernel durations (``device_ms``).  ``reading`` is
+        around the call (``ms``, the wrapper's host work included), by
+        the profiler's kernel durations (``device_ms``) and on the host
+        clock until the call returns (``host_ms``).  ``reading`` is
         the number held against ``tol`` where it is not ``err`` (the
         largest error of a row over that row's largest output, or ``what``
         it says)."""
@@ -273,10 +301,12 @@ def kernel_phase(torch, dev, timed: bool = True):
         ms = t(kernel)
         dev_ms = (device_ms(torch, kernel, symbol or KERNEL_SYMBOLS[name])
                   if timed else None)
+        h_ms = host_ms(kernel) if timed else None
         rows.append(dict(name=name, route=route, source=source,
                          replaces=replaces, launches=0, max_abs_err=err,
                          reading=err if reading is None else reading,
                          tolerance=tol, ms=ms, device_ms=dev_ms,
+                         host_ms=h_ms,
                          plain_ms=plain_ms,
                          bound_ms=bnd[0], bound_by=bnd[1],
                          library_ms=library_ms, shape=shape,
@@ -476,6 +506,8 @@ def kernel_phase(torch, dev, timed: bool = True):
     # B2's bit-plane mode and B5 / B6's general mode at the shapes the
     # dynamic recipes give them; B1 on a stacked view; the bench.py shape
     dynamic_kernel_rows(torch, dev, g, t, record)
+    # the decode and the GEMM of B2's tiles and B5, each alone
+    decode_gemm_rows(torch, dev, g, t, record)
     stacked_and_bench_rows(torch, dev, g, t, record)
     # B9 at the block shapes of the rings of phase 4r
     ring_kernel_rows(torch, dev, g, t, record)
@@ -513,7 +545,7 @@ def kernel_phase(torch, dev, timed: bool = True):
         args = (x, packed, scale, zpc, bias, 4, torch.bfloat16)
         got = kd.groupdot_mm(*args)
         want = kd.groupdot_mm_plain(*args)
-        record("groupdot_mm", "cuda", "sdnq_tpu_torch/csrc/groupdot_mm.cu",
+        record("groupdot_mm", "cuda", "sdnq_tpu_torch/csrc/wgmma_mm.cu",
                "sdnq_tpu/kernels/dequant_mm.py:355",
                float((got.float() - want.float()).abs().max()),
                ulp_tol(want), lambda: kd.groupdot_mm(*args),
@@ -858,7 +890,7 @@ def pipeline_kernel_rows(torch, dev, g, t, record):
     from sdnq_tpu_torch.kernels import attention as ka
     from sdnq_tpu_torch.kernels import dequant_mm as kd
 
-    src, rep = ("sdnq_tpu_torch/csrc/dequant_mm.cu",
+    src, rep = ("sdnq_tpu_torch/csrc/wgmma_mm.cu",
                 "sdnq_tpu/kernels/dequant_mm.py:60")
 
     def weight(n, k, groups, unsigned=False):
@@ -990,6 +1022,102 @@ def pipeline_kernel_rows(torch, dev, g, t, record):
     torch.cuda.empty_cache()
 
 
+def decode_gemm_rows(torch, dev, g, t, record):
+    """Phase 3 rows of the two halves of B2's tiles and B5 alone, at DiT
+    linear1 (4608 x 3072 -> 21504): ``decode_weight`` on int8 g1024 codes
+    (the default recipe), float8_e3m4fn g1024 bit-plane codes (R1) and
+    float5_e2m2fn g128 half-split codes (R2), each bit-equal to its plain
+    version (limit 0); ``wgmma_mm`` with each epilogue against its plain
+    version (one bf16 ulp of the largest output, 2^-7 of it), and once at
+    ragged M, N and K (N % 256 != 0, K % 64 != 0) off the paths."""
+    import torch.nn.functional as F
+    from sdnq_tpu_torch import quantize_tensor
+    from sdnq_tpu_torch.kernels import dequant_mm as kd
+
+    src_d = "sdnq_tpu_torch/csrc/decode_weight.cu"
+    src_g = "sdnq_tpu_torch/csrc/wgmma_mm.cu"
+    rep = "sdnq_tpu/kernels/dequant_mm.py:60"
+    m, k, n = 4608, 3072, 21504
+
+    def err(got, want):
+        return float((got.float() - want.float()).abs().max())
+
+    codes = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                          dtype=torch.int8)
+    scale = torch.rand(n, k // 1024, device=dev, generator=g) * 2e-4 + 1e-4
+    cases = [((codes, k, scale, None), "int8 g1024", "grouped", "pipeline",
+              n * k + scale.numel() * 4, rep)]
+    qt = quantize_tensor(student_t(torch, (n, k), 2, g, dev) * 0.02,
+                         "float8_e3m4fn", group_size=1024)
+    cases.append(((qt.qdata, k, qt.scale.reshape(n, -1), None,
+                   qt.meta.format, "bitplane"), "float8_e3m4fn g1024",
+                  "bitplane", "dyn_r1",
+                  qt.qdata.numel() + qt.scale.numel() * 4, rep))
+    qt5 = quantize_tensor(student_t(torch, (n, k), 3, g, dev) * 0.02,
+                          "float5_e2m2fn", group_size=128)
+    f5 = qt5.meta.format
+    cases.append(((qt5.qdata, k, None, None, f5, "halfsplit", f5.code_bits),
+                  "float5_e2m2fn g128", "halfsplit", "dyn_r2",
+                  qt5.qdata.numel(), "sdnq_tpu/kernels/dequant_mm.py:355"))
+    for args, what, mode, path, nbytes, replaces in cases:
+        got = kd.decode_weight(*args)
+        record("decode_weight", "cuda", src_d, replaces,
+               err(got, kd.decode_weight_plain(*args)), 0.0,
+               lambda a=args: kd.decode_weight(*a),
+               t(lambda a=args: kd.decode_weight_plain(*a), reps=3),
+               bound_ms(nbytes + n * k * 2), None,
+               f"N{n} K{k} {what} ({mode}, DiT linear1)", path=path,
+               count=f"decode_weight:{mode}")
+        del got
+    del codes, qt, qt5
+
+    w = torch.randn(n, k, device=dev, generator=g).bfloat16()
+    x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+    bias = torch.randn(n, device=dev, generator=g)
+    s1 = torch.rand(n, device=dev, generator=g) * 1e-2
+    z1 = torch.randn(n, device=dev, generator=g) * 1e-2
+    sg = torch.rand(n, k // 128, device=dev, generator=g) * 1e-2
+    zg = torch.randn(n, k // 128, device=dev, generator=g) * 1e-2
+    xsum = x.float().sum(-1)
+    xsg = x.float().reshape(m, k // 128, 128).sum(-1)
+    gemm = bound_ms(m * k * 2 + n * k * 2 + m * n * 2, 2 * m * n * k, "bf16")
+    for epi, kw, lib, path in (
+            ("bias", {}, lambda: F.linear(x, w, bias.bfloat16()), "pipeline"),
+            ("row", dict(scale=s1, zp=z1, xsum=xsum), None, "pipeline"),
+            ("fold", dict(scale=sg, zp=zg, xsum=xsg), None, "uint4_wo")):
+        args = (x, w, k, epi, bias)
+        got = kd.wgmma_mm(*args, **kw)
+        want = kd.wgmma_mm_plain(*args, **kw)
+        record("wgmma_mm", "cuda", src_g, rep, err(got, want),
+               float(want.float().abs().max()) * 2 ** -7,
+               lambda a=args, kw=kw: kd.wgmma_mm(*a, **kw),
+               t(lambda a=args, kw=kw: kd.wgmma_mm_plain(*a, **kw), reps=3),
+               gemm, t(lib) if lib else None,
+               f"M{m} K{k} N{n} bf16, {epi} epilogue"
+               f"{' g128' if epi == 'fold' else ''} (DiT linear1)",
+               path=path, count=f"wgmma_mm:{epi}")
+        del got, want
+    del w, x, sg, zg, xsg
+
+    # ragged M, N and K: the TMA zero fill and the epilogue's column guard
+    m, k, n = 1000, 3000, 3000
+    w = torch.randn(n, k, device=dev, generator=g).bfloat16()
+    x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+    bias = torch.randn(n, device=dev, generator=g)
+    args = (x, w, k, "bias", bias)
+    want = kd.wgmma_mm_plain(*args)
+    record("wgmma_mm", "cuda", src_g, rep, err(kd.wgmma_mm(*args), want),
+           float(want.float().abs().max()) * 2 ** -7,
+           lambda: kd.wgmma_mm(*args),
+           t(lambda: kd.wgmma_mm_plain(*args), reps=3),
+           bound_ms(m * k * 2 + n * k * 2 + m * n * 2, 2 * m * n * k, "bf16"),
+           t(lambda: F.linear(x, w, bias.bfloat16())),
+           f"M{m} K{k} N{n} bf16, bias epilogue (ragged tails)",
+           on_path=False, count="wgmma_mm:tail")
+    del w, x
+    torch.cuda.empty_cache()
+
+
 def student_t(torch, shape, nu, g, dev):
     """Gaussian draws (nu None), or Student-t with nu degrees of freedom as
     z / sqrt(chi2_nu / nu), chi2_nu a sum of nu squared normals; fp32 on
@@ -1044,7 +1172,7 @@ def dynamic_kernel_rows(torch, dev, g, t, record):
         bias = torch.randn(n, device=dev, generator=g)
         args = (x, qt.qdata, scale, zp, bias, torch.bfloat16, f)
         want = kd.dequant_mm_plain(*args)
-        record("dequant_mm", "cuda", "sdnq_tpu_torch/csrc/dequant_mm.cu", rep,
+        record("dequant_mm", "cuda", "sdnq_tpu_torch/csrc/wgmma_mm.cu", rep,
                err(kd.dequant_mm(*args), want), ulp(want),
                lambda: kd.dequant_mm(*args),
                t(lambda: kd.dequant_mm_plain(*args), reps=3),
@@ -1082,7 +1210,7 @@ def dynamic_kernel_rows(torch, dev, g, t, record):
         args = (x, qt.qdata, s, zpc, bias, f.code_bits, torch.bfloat16, f)
         want = kd.groupdot_mm_plain(*args)
         mode = "minifloat" if not f.is_integer else "multiplane"
-        record("groupdot_mm", "cuda", "sdnq_tpu_torch/csrc/groupdot_mm.cu",
+        record("groupdot_mm", "cuda", "sdnq_tpu_torch/csrc/wgmma_mm.cu",
                "sdnq_tpu/kernels/dequant_mm.py:355",
                err(kd.groupdot_mm(*args), want), ulp(want),
                lambda: kd.groupdot_mm(*args),
@@ -1091,8 +1219,7 @@ def dynamic_kernel_rows(torch, dev, g, t, record):
                         2 * m * n * k, "bf16"),
                t(lambda: F.linear(x, wb, bias.bfloat16())),
                f"M{m} K{k} N{n} {label(fmt, gsize)} half-split {mode}",
-               path="dyn_r2", count=f"groupdot_mm:{mode}",
-               symbol="groupdot_mm_kernel<0, 0")
+               path="dyn_r2", count=f"groupdot_mm:{mode}")
         del qt, wb, x
 
     for fmt, gsize, nu in (("float5_e2m2fn", 128, 3), ("uint5", 256, 5)):
@@ -2454,6 +2581,8 @@ def train_slice_phase(torch, dev, sliced) -> dict:
 PIPE_SIDE, PIPE_STEPS = 1024, 4          # 4096 image tokens, 4 Euler steps
 PIPE_T5, PIPE_CLIP = 512, 77             # token ids per request
 PIPE_REQUIRED = ("dequant_mm:grouped", "dequant_mm:row",
+                 "decode_weight:grouped", "decode_weight:row",
+                 "wgmma_mm:bias", "wgmma_mm:row",
                  "dequant_gemv:grouped", "flash_attention:float_mask",
                  "flash_attention")
 
@@ -2703,18 +2832,19 @@ _GROUPS = (
     ("B4 scaled_gemm (B1 GEMM half)", ("scaled_mm_kernel",)),
     ("B2 dequant_gemv bit-plane", ("dequant_gemv_kernel_bitplane",)),
     ("B2 dequant_gemv", ("dequant_gemv_kernel",)),
-    ("B2 dequant_mm bit-plane (tiles)", ("dequant_mm_kernel_bitplane",)),
-    ("B2 dequant_mm (tiles)", ("dequant_mm_kernel",)),
+    ("B2 tiles: decode bit-plane", ("decode_weight_bitplane",)),
+    ("B2 tiles: decode grouped / row", ("decode_weight_unpacked",)),
+    ("B5: decode half-split", ("decode_weight_halfsplit",)),
+    ("GEMM, bias epilogue (B2 grouped / bit-plane)", ("wgmma_mm_kernel<0",)),
+    ("GEMM, row epilogue (B2 row mode)", ("wgmma_mm_kernel<1",)),
+    ("GEMM, group fold (B5)", ("wgmma_mm_kernel<2", "wgmma_mm_kernel<3")),
     ("B9 flash_attention_block (bf16 / int8 P.V, token-mode int8 P.V)",
      ("float, true>",)),
     ("B3 flash_attention", ("flash_attn_kernel",)),
-    ("B5 groupdot_mm general (multi-plane, minifloat)",
-     ("groupdot_mm_kernel<0, 0",)),
-    ("B5 groupdot_mm", ("groupdot_mm_kernel<0",)),
     ("B6 blockdiag_mm general (multi-plane, minifloat)",
      ("blockdiag_mm_kernel_gen",)),
     ("B6 blockdiag_mm", ("blockdiag_mm_kernel",)),
-    ("B7 groupdot_i8_mm", ("groupdot_mm_kernel<1",)),
+    ("B7 groupdot_i8_mm", ("groupdot_mm_kernel",)),
     ("B3 flash_attention, token-mode int8 P.V", ("flash_attn_tok_kernel",)),
     ("B8 blockdiag_i8_mm", ("blockdiag_i8_mm_kernel",)),
     ("B10 scaled_mm_tn", ("scaled_mm_tn_kernel",)),
@@ -2841,9 +2971,9 @@ FAULTS = (
      [("off > 0; off >>= 1", "off > 1; off >>= 1")]),
     ("quantize_rounds_half_away", "quantize_rows", "quantize_rows", "int8",
      [("rintf(__fdiv_rn(v, scale))", "roundf(__fdiv_rn(v, scale))")]),
-    ("groupdot_decodes_the_other_nibble", "groupdot_mm", "groupdot_mm",
-     "uint4_wo", [("bfr[ni][0] = dec_bf16x2<BITS>(w0, sh);",
-                   "bfr[ni][0] = dec_bf16x2<BITS>(w0, sh ^ 4);")]),
+    ("groupdot_decodes_the_other_nibble", "decode_weight", "groupdot_mm",
+     "uint4_wo", [("const unsigned sh = hs.width[p] * t;",
+                   "const unsigned sh = (hs.width[p] * t) ^ 4;")]),
     ("blockdiag_scale_of_the_previous_group", "blockdiag_mm", "blockdiag_mm",
      "uint4_wo", [("const float sc = scale[(size_t)o * G + gi];",
                    "const float sc = scale[(size_t)o * G + (gi + G - 1) % G];"
@@ -2888,12 +3018,12 @@ FAULTS = (
     ("colscale_ignored", "quantize_rows", "quantize_rows:colscale", "train",
      [("if (cs) v = __fmul_rn(v, cs[k]);",
        "if (false) v = __fmul_rn(v, cs[k]);")]),
-    ("b2_scale_of_the_next_group", "dequant_mm", "dequant_mm:grouped",
-     "pipeline", [("s = scale[(size_t)dn * G + gi];",
-                   "s = scale[(size_t)dn * G + (gi + 1) % G];")]),
-    ("b2_drops_the_zero_point", "dequant_mm", "dequant_mm:grouped",
-     "pipeline", [("w = zp ? __fmaf_rn(w, s, z) : __fmul_rn(w, s);",
-                   "w = __fmul_rn(w, s);")]),
+    ("b2_scale_of_the_next_group", "decode_weight", "dequant_mm:grouped",
+     "pipeline", [("const float s = scale[(size_t)n * G + gi];",
+                   "const float s = scale[(size_t)n * G + (gi + 1) % G];")]),
+    ("b2_drops_the_zero_point", "decode_weight", "dequant_mm:grouped",
+     "pipeline", [("v[j] = zp ? __fmaf_rn(w, s, z) : __fmul_rn(w, s);",
+                   "v[j] = __fmul_rn(w, s);")]),
     ("attn_float_mask_ignored_on_one_tile", "flash_attn",
      "flash_attention:float_mask", "pipeline",
      [("x = __fadd_rn(x, __fmul_rn(mask_val(a, mr, col), kLog2e));",
@@ -2902,15 +3032,23 @@ FAULTS = (
     ("attn_float_mask_without_log2e", "flash_attn",
      "flash_attention:float_mask", "pipeline",
      [("__fmul_rn(mask_val(a, mr, col), kLog2e)", "mask_val(a, mr, col)")]),
-    ("b2_bitplane_planes_reversed", "dequant_mm", "dequant_mm:bitplane",
-     "dyn_r1", [("4 * j + 2 * h", "4 * (bits - 1 - j) + 2 * h")]),
-    ("b2_minifloat_flushes_subnormals", "dequant_mm", "dequant_mm:bitplane",
+    ("b2_bitplane_planes_reversed", "decode_weight", "dequant_mm:bitplane",
+     "dyn_r1", [("row + (size_t)j * S + b", "row + (size_t)(bits - 1 - j) * S + b")]),
+    ("b2_minifloat_flushes_subnormals", "decode_weight", "dequant_mm:bitplane",
      "dyn_r1", [("common.cuh", "v = __fsub_rn(2.f * v, __uint_as_float("
                  "static_cast<unsigned>(128 - f.bias) << 23));",
                  "v = 0.f;")]),
-    ("b5_ignores_the_second_field_plane", "groupdot_mm",
+    ("b5_ignores_the_second_field_plane", "decode_weight",
      "groupdot_mm:multiplane", "dyn_r2",
-     [("if (pd < hs.n) {", "if (pd < 1) {")]),
+     [("if (p < hs.n) {", "if (p < 1) {")]),
+    ("gemm_full_barrier_phase_off_by_one", "wgmma_mm", "wgmma_mm:bias",
+     "pipeline", [("mbar_wait(&full[s], ph);", "mbar_wait(&full[s], ph ^ 1);")]),
+    ("b5_group_restarts_one_k_step_late", "wgmma_mm", "wgmma_mm:fold",
+     "uint4_wo", [("wgmma128(p, da + 2 * kk, db + 2 * kk, step != 0);",
+                   "wgmma128(p, da + 2 * kk, db + 2 * kk, step != 1);")]),
+    ("gemm_epilogue_drops_the_n_tail", "wgmma_mm", "wgmma_mm:tail",
+     "pipeline", [("const int ncols = min(BN, N - n0);",
+                   "const int ncols = N - n0 < BN ? 0 : BN;")]),
     ("b6_drops_the_minifloat_sign", "blockdiag_mm", "blockdiag_mm:minifloat",
      "dyn_r2", [("common.cuh", "if (f.is_signed && ((code >> em) & 1u)) "
                  "v = -v;", "")]),
@@ -2935,6 +3073,37 @@ FAULTS = (
 )
 
 
+# Every fault build of csrc/wgmma_mm.cu gives up a barrier wait after 2^22
+# cycles (about 2 ms) and sets a flag, where the sound build traps after
+# 2^36: a broken barrier then ends in a wrong result that phase 3 reads,
+# not in a failed launch that ends the process.
+WGMMA_WATCHDOG = (
+    ("// ---- mbarriers", "__device__ int g_watchdog;\n// ---- mbarriers"),
+    ("if (clock64() - t0 > TRAP_CYCLES) __trap();",
+     "if (clock64() - t0 > (1ll << 22)) {\n      g_watchdog = 1;\n"
+     "      return;\n    }"))
+WGMMA_WATCHDOG_READER = """
+// Whether a barrier wait gave up since the last call; clears the flag.
+extern "C" int sdnq_wgmma_watchdog(int* fired) {
+  const int zero = 0;
+  cudaError_t err = cudaMemcpyFromSymbol(fired, g_watchdog, sizeof(int));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_watchdog, &zero, sizeof(int));
+  return static_cast<int>(err);
+}
+"""
+
+
+def watchdog_fired(lib_path) -> bool:
+    """Whether a barrier wait of the fault build ``lib_path`` of
+    csrc/wgmma_mm.cu gave up since the last call (clears the flag)."""
+    import ctypes
+    fired = ctypes.c_int(0)
+    rc = ctypes.CDLL(str(lib_path)).sdnq_wgmma_watchdog(ctypes.byref(fired))
+    if rc != 0:
+        raise RuntimeError(f"sdnq_wgmma_watchdog: CUDA error {rc}")
+    return bool(fired.value)
+
+
 def start_fault_builds():
     """Write each broken source into _build/faults/<tag>/ and start its
     nvcc; returns {tag: (process, library path)}."""
@@ -2944,6 +3113,9 @@ def start_fault_builds():
     for tag, src, _, _, edits in FAULTS:  # every edit applies, or none builds
         files = {f: (csrc / f).read_text() for f in (f"{src}.cu",
                                                      "common.cuh")}
+        if src == "wgmma_mm":
+            edits = list(edits) + list(WGMMA_WATCHDOG)
+            files["wgmma_mm.cu"] += WGMMA_WATCHDOG_READER
         for edit in edits:
             name, old, new = edit if len(edit) == 3 else (f"{src}.cu",
                                                           *edit)
@@ -3007,8 +3179,11 @@ def fault_phase(torch, dev, slices, procs):
         with library_swapped(src, procs[tag][1]):
             rows = kernel_phase(torch, dev, timed=False)
             readings = slices[label]()
+            # a broken ring may leave the GEMM's barrier waits to give up
+            watchdog = src == "wgmma_mm" and watchdog_fired(procs[tag][1])
         FAILURES[:] = sound  # the checks were meant to fail here
-        caught = [r for r in rows if r["reading"] > r["tolerance"]]
+        # a NaN reading fails its check too
+        caught = [r for r in rows if not r["reading"] <= r["tolerance"]]
         tol = all_tol[label]
         results.append(dict(
             fault=tag, kernel=kernel,
@@ -3016,7 +3191,8 @@ def fault_phase(torch, dev, slices, procs):
                            f" > {r['tolerance']:.3e} (max_abs_err "
                            f"{r['max_abs_err']:.3e})" for r in caught],
             slice=label, slice_readings=readings, slice_tol=tol,
-            slice_failed=sorted(k for k in tol if readings[k] > tol[k])))
+            slice_failed=sorted(k for k in tol if not readings[k] <= tol[k]),
+            watchdog_fired=watchdog))
         check(any(r["count"] == kernel for r in caught),
               f"fault {tag}: phase 3 fails {kernel}")
     log("faults: " + json.dumps(results))
@@ -3083,7 +3259,8 @@ def main() -> int:
             "uint4_wo")
         counts["uint4_wo"] = denoise_path(
             torch, dev, qparams, "uint4_wo", 2, 4,
-            ("groupdot_mm", "blockdiag_mm", "flash_attention"))
+            ("groupdot_mm", "decode_weight:halfsplit", "wgmma_mm:fold",
+             "blockdiag_mm", "flash_attention"))
         qmm = with_quantized_matmul(qparams)
         counts["uint4_qmm"] = denoise_path(
             torch, dev, qmm, "uint4_qmm", 1, 2,
@@ -3103,11 +3280,13 @@ def main() -> int:
                 ("dyn_r1", QuantConfig(weights_dtype="int8",
                                        use_dynamic_quantization=True), 2,
                  ("dequant_mm:grouped", "dequant_mm:bitplane",
+                  "decode_weight:bitplane", "wgmma_mm:bias",
                   "dequant_gemv:bitplane", "flash_attention")),
                 ("dyn_r2", QuantConfig(weights_dtype="uint4", use_svd=True,
                                        svd_rank=32,
                                        use_dynamic_quantization=True), 1,
-                 ("groupdot_mm", "blockdiag_mm",
+                 ("groupdot_mm", "blockdiag_mm", "decode_weight:halfsplit",
+                  "wgmma_mm:fold",
                   ("groupdot_mm:multiplane", "groupdot_mm:minifloat"),
                   ("blockdiag_mm:multiplane", "blockdiag_mm:minifloat"),
                   "flash_attention"))):

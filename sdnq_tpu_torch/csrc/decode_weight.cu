@@ -1,0 +1,312 @@
+// The decode half of B2's tiles and B5: a weight's codes become a bf16
+// weight W' (N, ldo) in natural k order, once a call, for csrc/wgmma_mm.cu.
+//
+//   unpacked, grouped:  W'[o, k] = bf16(code[o, k] * scale[o, k / g] (+ zp[o, k / g]))
+//   unpacked, row mode: W'[o, k] = bf16(code[o, k])                      (exact)
+//   bit-plane:          W'[o, k] = bf16(v(code[o, k]) * scale[o, k / g] (+ zp))
+//   half-split:         W'[o, k] = bf16(v(code[o, k]))                   (exact)
+//
+// v is the integer code (plus code_min for bit-plane integers; B5 folds
+// code_min into zpc and takes the raw code) or the minifloat value
+// (sdnq::decode_value).  Columns K .. ldo - 1 (ldo = K rounded up to 8, so
+// that a row is a whole number of 16-byte units for TMA) are written 0.
+//
+// Replaces the decode of sdnq_tpu/kernels/dequant_mm.py `_dequant_mm_kernel`
+// (:60: each weight tile decoded into a scratch of x's dtype, :325) and of
+// `_groupdot_kernel` (:355: a full-K weight block decoded once per column
+// block and reused over the rows).  Here the reuse goes through device
+// memory and L2: the weight is decoded once a call, not once for every
+// 128-row tile of x as the Ampere-style tiles did.  The rounding point of
+// B2's grouped and bit-plane modes stays the function: each scaled weight
+// is one fp32 FMA (or multiply) rounded to bf16 before the product.  B2's
+// row mode and B5 write exact values (int8 / uint8 / e4m3 codes, raw
+// half-split codes below 2^7, minifloats with at most 6 mantissa bits) and
+// apply their scales in the GEMM's epilogue.
+//
+// Bound by bytes: codes in, 2 bytes a weight out (the GEMM then reads W'
+// again, mostly from L2 for the tiles that run together).  Each thread
+// writes 8 consecutive bf16 values (one 16-byte store) in the unpacked and
+// half-split kernels; the bit-plane kernel takes one byte of every plane
+// (8 codes S apart) a thread, so a warp writes 32 consecutive values of
+// each of the 8 segments, and rebuilds its 8 codes with two 8 x 8 bit
+// transposes (a few operations a code, where a bit at a time took 3 * bits).
+#include <cuda_fp8.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int NT = 256;
+enum { I8 = 0, U8 = 1, E4M3 = 2 };  // unpacked code kinds
+
+template <int KIND>
+__device__ __forceinline__ float code_f32(unsigned b) {
+  if constexpr (KIND == I8) return static_cast<float>(static_cast<int8_t>(b));
+  if constexpr (KIND == U8) return static_cast<float>(b);
+  __nv_fp8_e4m3 v;
+  v.__x = static_cast<__nv_fp8_storage_t>(b);
+  return static_cast<float>(v);
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(sdnq::pack_bf16x2(v[0], v[1]), sdnq::pack_bf16x2(v[2], v[3]),
+                 sdnq::pack_bf16x2(v[4], v[5]), sdnq::pack_bf16x2(v[6], v[7]));
+}
+
+// one thread: 8 consecutive columns k0 .. k0 + 7 of row n
+template <int KIND, bool ROW>
+__global__ void __launch_bounds__(NT)
+    decode_weight_unpacked(const uint8_t* __restrict__ W, const float* __restrict__ scale,
+                           const float* __restrict__ zp, __nv_bfloat16* __restrict__ out, int N,
+                           int K, int ldo, int G, int g) {
+  const int k0 = (blockIdx.x * NT + threadIdx.x) * 8;
+  if (k0 >= ldo) return;
+  for (int n = blockIdx.y; n < N; n += gridDim.y) {
+    const uint8_t* row = W + (size_t)n * K;
+    unsigned b[8];
+    if (K % 8 == 0) {  // k0 + 7 < K and the 8 codes are 8-byte aligned
+      const uint2 u = *reinterpret_cast<const uint2*>(row + k0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = ((j < 4 ? u.x : u.y) >> (8 * (j & 3))) & 0xffu;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = k0 + j < K ? row[k0 + j] : 0u;
+    }
+    float v[8];
+    if (!ROW && g % 8 == 0) {  // the 8 codes lie in one group
+      const int gi = k0 / g;
+      const float s = scale[(size_t)n * G + gi];
+      const float z = zp ? zp[(size_t)n * G + gi] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float w = code_f32<KIND>(b[j]);
+        v[j] = zp ? __fmaf_rn(w, s, z) : __fmul_rn(w, s);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int k = k0 + j;
+        float w = 0.f;
+        if (k < K) {
+          w = code_f32<KIND>(b[j]);
+          if constexpr (!ROW) {
+            const int gi = k / g;
+            w = zp ? __fmaf_rn(w, scale[(size_t)n * G + gi], zp[(size_t)n * G + gi])
+                   : __fmul_rn(w, scale[(size_t)n * G + gi]);
+          }
+        }
+        v[j] = w;
+      }
+    }
+    // rounded to bf16 by the store: the grouped mode's rounding point
+    store8(out + (size_t)n * ldo + k0, v);
+  }
+}
+
+// The 8 x 8 bit matrix of 8 bytes transposed: bit i of byte j becomes bit
+// j of byte i (Hacker's Delight, transpose8).
+__device__ __forceinline__ uint64_t transpose8(uint64_t x) {
+  uint64_t t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAull;
+  x = x ^ t ^ (t << 7);
+  t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCull;
+  x = x ^ t ^ (t << 14);
+  t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ull;
+  return x ^ t ^ (t << 28);
+}
+
+// k / g for 0 <= k < 2^24 by a float reciprocal and one correction
+__device__ __forceinline__ int div_small(int k, int g, float inv_g) {
+  int q = __float2int_rz(__int2float_rn(k) * inv_g);
+  q += (q + 1) * g <= k;
+  q -= q * g > k;
+  return q;
+}
+
+// Bit-plane codes (sdnq_tpu/packing.py pack_codes): a row of K codes, padded
+// to 8 * S, is `bits` planes of S bytes; bit i of byte b of plane j is bit j
+// of code k = i * S + b.  One thread: Q consecutive bytes b .. b + Q - 1 of
+// every plane (one Q-byte load a plane), codes i * S + b + q, each byte's 8
+// codes rebuilt by two 8 x 8 bit transposes (planes 0-7 and 8-15).  Q = 4
+// where S and the group are multiples of 4: the Q codes of a segment then
+// lie in one group and go out in one 8-byte store.
+// 8 * S = ldo, so every column of W' is written once.
+template <int Q>
+__global__ void __launch_bounds__(NT)
+    decode_weight_bitplane(const uint8_t* __restrict__ W, const float* __restrict__ scale,
+                           const float* __restrict__ zp, __nv_bfloat16* __restrict__ out, int N,
+                           int K, int S, int bits, int G, int g, sdnq::CodeFmt f) {
+  using Word = typename std::conditional<Q == 4, unsigned, uint8_t>::type;
+  const int b = (blockIdx.x * NT + threadIdx.x) * Q;
+  if (b >= S) return;
+  const float inv_g = 1.f / static_cast<float>(g);
+  for (int n = blockIdx.y; n < N; n += gridDim.y) {
+    const uint8_t* row = W + (size_t)n * bits * S;
+    uint64_t lo[Q], hi[Q];  // byte j of lo[q]: plane j's byte b + q (planes 8 + j in hi)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) lo[q] = hi[q] = 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (j < bits) {
+        const unsigned pl = *reinterpret_cast<const Word*>(row + (size_t)j * S + b);
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const uint64_t byte = (pl >> (8 * q)) & 0xffu;
+          if (j < 8)
+            lo[q] |= byte << (8 * j);
+          else
+            hi[q] |= byte << (8 * (j - 8));
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      lo[q] = transpose8(lo[q]);
+      hi[q] = transpose8(hi[q]);
+    }
+    __nv_bfloat16* o = out + (size_t)n * 8 * S;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int k = i * S + b;  // the first of this segment's Q codes
+      const size_t gi = (size_t)n * G + (G == 1 ? 0 : div_small(k, g, inv_g));
+      float w[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        w[q] = 0.f;
+        if (k + q < K) {
+          const unsigned code = static_cast<unsigned>((lo[q] >> (8 * i)) & 0xffu) |
+                                (static_cast<unsigned>((hi[q] >> (8 * i)) & 0xffu) << 8);
+          const float v = sdnq::decode_value(code, f);
+          w[q] = zp ? __fmaf_rn(v, scale[gi], zp[gi]) : __fmul_rn(v, scale[gi]);
+        }
+      }
+      if constexpr (Q == 4)
+        *reinterpret_cast<uint2*>(o + k) =
+            make_uint2(sdnq::pack_bf16x2(w[0], w[1]), sdnq::pack_bf16x2(w[2], w[3]));
+      else
+        o[k] = __float2bfloat16_rn(w[0]);
+    }
+  }
+}
+
+// Half-split codes (sdnq_tpu/packing.py halfsplit_planes): plane p holds
+// fields of width[p] bits; code k lies in field k / seg[p] of byte k % seg[p]
+// of plane p, and plane p contributes its field shifted left by shift[p].
+// One thread: 8 consecutive codes k0 .. k0 + 7, which lie in 8 consecutive
+// bytes (one 8-byte load) of each plane, since every seg[p] is a multiple
+// of 8.
+__global__ void __launch_bounds__(NT)
+    decode_weight_halfsplit(const uint8_t* __restrict__ W, __nv_bfloat16* __restrict__ out, int N,
+                            int K, int bits, sdnq::CodeFmt f) {
+  const int k0 = (blockIdx.x * NT + threadIdx.x) * 8;
+  if (k0 >= K) return;
+  const sdnq::HalfSplit hs = sdnq::halfsplit_planes(bits, K);
+  for (int n = blockIdx.y; n < N; n += gridDim.y) {
+    const uint8_t* row = W + (size_t)n * (K * bits / 8);
+    unsigned c[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      if (p < hs.n) {
+        const int t = k0 / hs.seg[p];
+        const uint2 u = *reinterpret_cast<const uint2*>(row + hs.off[p] + (k0 - t * hs.seg[p]));
+        const unsigned mask = (1u << hs.width[p]) - 1u;
+        const unsigned sh = hs.width[p] * t;  // the field of these codes
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const unsigned byte = ((j < 4 ? u.x : u.y) >> (8 * (j & 3))) & 0xffu;
+          c[j] |= ((byte >> sh) & mask) << hs.shift[p];
+        }
+      }
+    }
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = f.is_float ? sdnq::decode_value(c[j], f) : static_cast<float>(c[j]);
+    store8(out + (size_t)n * K + k0, v);
+  }
+}
+
+// threads along a row (x) and one row a block (y; a block walks rows
+// gridDim.y apart past 65535)
+dim3 grid(int per_row, int N) { return dim3((per_row + NT - 1) / NT, N < 65535 ? N : 65535); }
+
+template <bool ROW>
+int launch_unpacked(int kind, const uint8_t* w, const float* s, const float* z,
+                    __nv_bfloat16* out, int N, int K, int ldo, int G, cudaStream_t st) {
+  const dim3 gr = grid(ldo / 8, N);
+  const int g = K / G;
+  if (kind == I8)
+    decode_weight_unpacked<I8, ROW><<<gr, NT, 0, st>>>(w, s, z, out, N, K, ldo, G, g);
+  else if (kind == U8)
+    decode_weight_unpacked<U8, ROW><<<gr, NT, 0, st>>>(w, s, z, out, N, K, ldo, G, g);
+  else if (kind == E4M3)
+    decode_weight_unpacked<E4M3, ROW><<<gr, NT, 0, st>>>(w, s, z, out, N, K, ldo, G, g);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Unpacked codes w (N, K) of code_kind (0 int8, 1 uint8, 2 e4m3) into out
+// (N, ldo) bf16, ldo = K rounded up to 8.  row_mode 1: bf16(code) (scale,
+// zp unused); row_mode 0: scale, zp (N, G) f32 (zp may be null), g = K / G.
+extern "C" int sdnq_decode_unpacked(const void* w, const void* scale, const void* zp, void* out,
+                                    int N, int K, int ldo, int G, int code_kind, int row_mode,
+                                    void* stream) {
+  if (N < 0 || K < 1 || ldo < K || ldo % 8 != 0 || ldo - K >= 8 || G < 1 || K % G != 0 ||
+      (!row_mode && !scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return 0;
+  const uint8_t* W = static_cast<const uint8_t*>(w);
+  const float* s = static_cast<const float*>(scale);
+  const float* z = static_cast<const float*>(zp);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (row_mode) return launch_unpacked<true>(code_kind, W, s, z, o, N, K, ldo, G, st);
+  return launch_unpacked<false>(code_kind, W, s, z, o, N, K, ldo, G, st);
+}
+
+// Bit-plane codes w (N, bits * S), S = ceil(K / 8), into out (N, 8 * S)
+// bf16; scale, zp (N, G) f32 (zp may be null), g = K / G; the code format
+// as sdnq::CodeFmt's fields.
+extern "C" int sdnq_decode_bitplane(const void* w, const void* scale, const void* zp, void* out,
+                                    int N, int K, int S, int G, int bits, int is_float,
+                                    int code_min, int e, int m, int fbias, int is_signed,
+                                    void* stream) {
+  if (N < 0 || K < 1 || S != (K + 7) / 8 || G < 1 || K % G != 0 || bits < 1 || bits > 16 ||
+      !scale)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return 0;
+  const sdnq::CodeFmt f{is_float, code_min, e, m, fbias, is_signed};
+  const uint8_t* W = static_cast<const uint8_t*>(w);
+  const float* s = static_cast<const float*>(scale);
+  const float* z = static_cast<const float*>(zp);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S % 4 == 0 && (G == 1 || (K / G) % 4 == 0))
+    decode_weight_bitplane<4><<<grid(S / 4, N), NT, 0, st>>>(W, s, z, o, N, K, S, bits, G, K / G,
+                                                             f);
+  else
+    decode_weight_bitplane<1><<<grid(S, N), NT, 0, st>>>(W, s, z, o, N, K, S, bits, G, K / G, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Half-split codes w (N, K * bits / 8) of 1..7 bits into out (N, K) bf16:
+// the raw integer code (is_float 0) or the minifloat value (is_float 1 and
+// the format's e, m, bias, is_signed).  Every plane's segment a multiple of
+// 8 bytes: K * (narrowest width) / 8 a multiple of 8.
+extern "C" int sdnq_decode_halfsplit(const void* w, void* out, int N, int K, int bits,
+                                     int is_float, int e, int m, int fbias, int is_signed,
+                                     void* stream) {
+  const int wmin = bits & -bits;  // the narrowest plane's width
+  if (N < 0 || K < 1 || bits < 1 || bits > 7 || K * wmin % 64 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return 0;
+  const sdnq::CodeFmt f{is_float, 0, e, m, fbias, is_signed};
+  decode_weight_halfsplit<<<grid(K / 8, N), NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(w), static_cast<__nv_bfloat16*>(out), N, K, bits, f);
+  return static_cast<int>(cudaGetLastError());
+}

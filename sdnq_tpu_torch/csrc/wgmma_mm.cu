@@ -1,0 +1,611 @@
+// The GEMM half of B2's tiles and B5: out = x @ W'ᵀ on Hopper's tensor
+// cores, W' the bf16 weight that csrc/decode_weight.cu writes once a call,
+// with one of three epilogues:
+//
+//   EPI_BIAS  out[m, o] = acc[m, o] (+ bias[o])                 B2 grouped, bit-plane
+//   EPI_ROW   out[m, o] = acc * scale[o] (+ xsum[m] * zp[o]) (+ bias[o])   B2 row mode
+//   EPI_FOLD  acc = sum_g acc_g: at each group's end
+//             acc = acc + part_g * scale[o, g];  acc = acc + xsum[m, g] * zpc[o, g]
+//             then out = acc (+ bias[o])                         B5's group-dot algebra
+//
+// part_g is the fp32 product of group g alone (a register accumulator of
+// its own that each group starts afresh, wgmma's scale-d = 0).  Every
+// epilogue operation rounds once (__fmul_rn / __fadd_rn), in the order of
+// the plain versions.
+//
+// Replaces the tensor-core half of sdnq_tpu/kernels/dequant_mm.py
+// `_dequant_mm_kernel` (:60, wrapper :245) and `_groupdot_kernel` (:355,
+// wrapper :471).  At the FLUX.1-dev shapes (M 4096-4608, K 3072-15360) the
+// product is bound by bf16 tensor-core operations (2 M N K), so the design
+// is Hopper's: x and W' tiles arrive by TMA (128-byte swizzle, the zero fill
+// takes the M, N and K tails) in a ring of stages guarded by mbarriers; one
+// producer warp issues the loads; two consumer warpgroups each run wgmma
+// (both operands in shared memory, K-major) on 64 rows of the tile: 128 x
+// 256 with m64n256k16 for the bias and row epilogues (128 x 128 where that
+// fills the card in fewer rounds), 128 x 128 with m64n128k16 for the fold,
+// whose group products take the registers.  One wgmma group stays in
+// flight while the next stage is issued.  Groups of whole stages alternate
+// two products, so a group is folded while the next one's wgmmas run;
+// groups that end inside a stage wait for their wgmmas.  The fold's terms
+// are copied to shared memory a group ahead, from group-major arrays: one
+// coalesced row a group (read column by column from (N, G), they slowed
+// the fold at K 15360).  The blocks persist, one an
+// SM, walking tiles with M fastest so that x stays in L2 and the producer
+// fills the next tile's stages while the consumers store the last one.
+//
+// A barrier wait that lasts longer than TRAP_CYCLES (over 30 s) traps: the
+// launch fails and the next synchronising call raises, where a broken
+// barrier would otherwise hold the card.
+#include <cuda.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int BM = 128, BK = 64;
+constexpr int NT = 384;  // two consumer warpgroups, then the producer's
+constexpr long long TRAP_CYCLES = 1ll << 36;
+
+// EPI_FOLD takes groups that are multiples of the stage (64), EPI_FOLD_FINE
+// any multiple of 16 (a group may end inside a stage)
+enum { EPI_BIAS = 0, EPI_ROW = 1, EPI_FOLD = 2, EPI_FOLD_FINE = 3 };
+
+struct Epi {
+  const float* bias;   // (N,) or null
+  const float* scale;  // ROW: (N,); FOLD: (G, N)
+  const float* zp;     // ROW: (N,) or null; FOLD: zpc (G, N)
+  const float* xsum;   // ROW: (M,) (with zp); FOLD: (G, M)
+  int g;               // FOLD: the group size
+};
+
+// ---- mbarriers -------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(sdnq::smem_addr(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   sdnq::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(sdnq::smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try(unsigned addr, unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = sdnq::smem_addr(bar);
+  if (mbar_try(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(a, parity))
+    if (clock64() - t0 > TRAP_CYCLES) __trap();
+}
+
+// ---- TMA and wgmma -----------------------------------------------------------
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(sdnq::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(sdnq::smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile of 128-byte rows in the
+// 128-byte swizzle (as TMA writes it): start >> 4, leading offset 16 bytes
+// (unused), 1024 bytes between groups of 8 rows, layout 1 (SWIZZLE_128B).
+// The tile starts on a 1024-byte boundary; +2 advances 16 bf16 along K.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t a = sdnq::smem_addr(p);
+  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous wgmma's fences and waits
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D(64 x 128, f32) (+)= A(64 x 16, bf16) * B(128 x 16, bf16)ᵀ; D is
+// overwritten where scale_d is 0.  Thread t of the warpgroup holds, for
+// each 8-column chunk j, d[4j], d[4j+1] at row 16 (t / 32) + (t % 32) / 4,
+// columns 8j + 2 (t % 4) + {0, 1}, and d[4j+2], d[4j+3] 8 rows below.
+__device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The same with B 256 x 16 and D 64 x 256: 32 chunks of 8 columns, d[4j ..]
+// as above (A read once for both halves of a 128 x 256 tile).
+__device__ __forceinline__ void wgmma256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, 1, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db));
+}
+
+// two neighbouring outputs in one store (the address is a multiple of two)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+// Tiles of 128 x 128 NB: the bias and row epilogues keep one fp32
+// accumulator and take NB = 2 (128 registers a thread) unless the grid
+// fills the card better with NB = 1; the fold keeps two or three products
+// and takes NB = 1.  A stage holds BM x 64 of x and BN x 64 of W'.
+template <int NB_>
+struct Tile {
+  static constexpr int NB = NB_;  // n128 halves
+  static constexpr int BN = 128 * NB;
+  static constexpr int ST = NB == 2 ? 4 : 6;  // stages
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + BN * BK * 2;
+  // + barriers, the fold's terms (two warpgroups x two buffers), alignment
+  static constexpr int SMEM_BYTES = ST * STAGE_BYTES + 2 * ST * 8 + (NB == 1 ? 4 * 320 * 4 : 0) + 1024;
+};
+
+// A persistent kernel: block b takes output tiles b, b + gridDim.x, ..,
+// numbered with the M tile fastest (the blocks that run together share W'
+// tiles, and x stays in L2).  The producer runs on into the next tile's
+// stages while the consumers store the last one.
+template <int EPI, int NB_, typename OutT>
+__global__ void __launch_bounds__(NT, 1)
+    wgmma_mm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                    OutT* __restrict__ out, int M, int N, int K, Epi e) {
+  using T = Tile<NB_>;
+  constexpr int NB = T::NB, BN = T::BN, ST = T::ST;
+  constexpr int A_BYTES = T::A_BYTES, STAGE_BYTES = T::STAGE_BYTES;
+  constexpr bool FOLD = EPI == EPI_FOLD || EPI == EPI_FOLD_FINE;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * STAGE_BYTES);
+  uint64_t* empty = full + ST;
+  const int mt = (M + BM - 1) / BM;
+  const int tiles = mt * ((N + BN - 1) / BN);
+  const int nk = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive, with the stage's bytes
+      mbar_init(&empty[s], 8);  // one arrive from each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      int it = 0;  // stages filled so far: stage it % ST, round it / ST
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % mt) * BM, n0 = (tile / mt) * BN;
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int s = it % ST;
+          mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);  // the first round passes at once
+          // and the stage's last load has landed (implied by the consumers'
+          // release; waited for all the same, so that a stage never has two
+          // loads in flight on its barrier)
+          if (it >= ST) mbar_wait(&full[s], ((it / ST) & 1) ^ 1);
+          mbar_expect_tx(&full[s], STAGE_BYTES);
+          tma_load(smem + s * STAGE_BYTES, &tx, &full[s], kb * BK, m0);
+          tma_load(smem + s * STAGE_BYTES + A_BYTES, &tw, &full[s], kb * BK, n0);
+        }
+      }
+      // no load may be in flight when the block exits
+      for (int j = it > ST ? it - ST : 0; j < it; ++j) mbar_wait(&full[j % ST], (j / ST) & 1);
+    }
+  } else {  // consumer warpgroups 0 and 1: rows 64 wg .. 64 wg + 63 of a tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lane = threadIdx.x & 31, wr = (threadIdx.x & 127) >> 5, t = threadIdx.x & 127;
+    const int cq = 2 * (lane & 3);  // this thread's columns 128 h + 8 j + cq + {0, 1}
+    float acc[NB * 64];             // columns 128 h + .. in acc[64 h ..]
+    float part[64], part2[64];      // EPI_FOLD*: the groups' products
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    };
+    int pending = -1;  // the stage whose wgmmas may still be in flight
+    int it = 0;        // stages consumed so far
+    // EPI_FOLD*: each group's scale and zero-point terms of the tile's 128
+    // columns and xsum of the warpgroup's 64 rows, copied to shared memory
+    // (two buffers a warpgroup) a group ahead, so the copies overlap the
+    // group's wgmmas
+    float* fbuf = reinterpret_cast<float*>(smem + ST * STAGE_BYTES + 2 * ST * 8) + wg * 640;
+    if constexpr (FOLD) {
+      // warpgroup 1 starts once warpgroup 0 has issued its first stage, so
+      // that the two fold at different times
+      if (wg == 1) asm volatile("bar.sync 3, 256;\n" ::: "memory");
+    }
+
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % mt) * BM, n0 = (tile / mt) * BN;
+      const int r0 = m0 + wg * 64 + wr * 16 + (lane >> 2);  // this thread's rows r0, r0 + 8
+#pragma unroll
+      for (int i = 0; i < NB * 64; ++i) acc[i] = 0.f;
+      auto load_group = [&](int gi) {
+        float* d = fbuf + (gi & 1) * 320;
+        const int col = n0 + t, row = m0 + wg * 64 + t;
+        sdnq::cp_async4(d + t, e.scale + (size_t)gi * N + (col < N ? col : 0), col < N);
+        sdnq::cp_async4(d + 128 + t, e.zp + (size_t)gi * N + (col < N ? col : 0), col < N);
+        if (t < 64)
+          sdnq::cp_async4(d + 256 + t, e.xsum + (size_t)gi * M + (row < M ? row : 0), row < M);
+        sdnq::cp_async_commit();
+      };
+      // group gi's terms, from its buffer once every thread of the
+      // warpgroup has them; the next group's copy starts into the other
+      auto terms = [&](int gi) {
+        sdnq::cp_async_wait<0>();
+        // every thread is done with the other buffer (the last fold's) too
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+        if ((gi + 1) * e.g < K) load_group(gi + 1);
+        return static_cast<const float*>(fbuf + (gi & 1) * 320);
+      };
+      // acc = acc + q * scale; acc = acc + xsum * zpc, for group gi's
+      // product q, whose wgmmas have completed
+      auto fold_into = [&](float(&q)[64], int gi) {
+        const float* d = terms(gi);
+        fence_regs(q);
+        const float x0 = d[256 + wr * 16 + (lane >> 2)], x1 = d[256 + wr * 16 + (lane >> 2) + 8];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 sc = *reinterpret_cast<const float2*>(d + 8 * j + cq);
+          const float2 zc = *reinterpret_cast<const float2*>(d + 128 + 8 * j + cq);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int i = 4 * j + 2 * h + c;
+              float a = acc[i];
+              a = __fadd_rn(a, __fmul_rn(q[i], c ? sc.y : sc.x));
+              a = __fadd_rn(a, __fmul_rn(h ? x1 : x0, c ? zc.y : zc.x));
+              acc[i] = a;
+            }
+        }
+        fence_regs(q);
+      };
+      if constexpr (FOLD) {
+        // the last tile's folds are done with both buffers
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+        load_group(0);
+      }
+
+      if constexpr (EPI == EPI_FOLD) {
+        // Groups of whole stages: two products in turn, so that a group is
+        // folded while the next one's wgmmas run (no wait for all).
+        const int kpg = e.g / BK, G = K / e.g;
+        auto group = [&](float(&p)[64], float(&q)[64], int gi) {
+          for (int j = 0; j < kpg; ++j, ++it) {
+            const int s = it % ST;
+            const unsigned ph = (it / ST) & 1;
+            mbar_wait(&full[s], ph);
+            const uint64_t da = sw128_desc(smem + s * STAGE_BYTES + wg * 64 * 128);
+            const uint64_t db = sw128_desc(smem + s * STAGE_BYTES + A_BYTES);
+            fence_regs(p);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk) {
+              const int step = j * (BK / 16) + kk;  // k16 steps into the group
+              wgmma128(p, da + 2 * kk, db + 2 * kk, step != 0);  // a group starts afresh
+            }
+            wgmma_commit();
+            if (wg == 0 && it == 0) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+            wgmma_wait<1>();  // the stage before (and the group before) are done
+            if (pending >= 0) release(pending);
+            pending = s;
+            if (j == 0 && gi > 0) fold_into(q, gi - 1);
+          }
+        };
+        for (int gi = 0; gi < G; gi += 2) {
+          group(part, part2, gi);
+          if (gi + 1 < G) group(part2, part, gi + 1);
+        }
+        wgmma_wait<0>();
+        if ((G - 1) & 1)
+          fold_into(part2, G - 1);
+        else
+          fold_into(part, G - 1);
+      } else {
+        // the group that ends at k = kfold (EPI_FOLD_FINE: inside a stage or
+        // at its end), folded once every wgmma issued so far has completed
+        auto fold = [&](int kfold) {
+          wgmma_wait<0>();
+          if (pending >= 0) {
+            release(pending);
+            pending = -1;
+          }
+          fold_into(part, kfold / e.g - 1);
+        };
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int s = it % ST;
+          const unsigned ph = (it / ST) & 1;
+          mbar_wait(&full[s], ph);
+          const uint64_t da = sw128_desc(smem + s * STAGE_BYTES + wg * 64 * 128);
+          const uint64_t db = sw128_desc(smem + s * STAGE_BYTES + A_BYTES);
+          if constexpr (FOLD)
+            fence_regs(part);
+          else
+            fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            if constexpr (!FOLD) {
+              if constexpr (NB == 2)
+                wgmma256(acc, da + 2 * kk, db + 2 * kk);
+              else
+                wgmma128(acc, da + 2 * kk, db + 2 * kk, 1);
+            } else {  // past K the tiles are zero-filled: those steps add 0
+              const int kg = kb * BK + kk * 16;
+              wgmma128(part, da + 2 * kk, db + 2 * kk, kg % e.g != 0);  // a group starts afresh
+              if (kk + 1 < BK / 16 && kg + 16 <= K && (kg + 16) % e.g == 0) {
+                wgmma_commit();
+                fold(kg + 16);
+                wgmma_fence();
+              }
+            }
+          }
+          wgmma_commit();
+          bool drained = false;
+          if constexpr (FOLD) {
+            if (wg == 0 && it == 0) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+            const int kfold = (kb + 1) * BK;  // the k after this stage
+            if (kfold <= K && kfold % e.g == 0) {
+              fold(kfold);
+              drained = true;
+            }
+          }
+          if (drained) {  // every wgmma on stage s has completed
+            release(s);
+          } else {
+            wgmma_wait<1>();  // those of the stage before have
+            if (pending >= 0) release(pending);
+            pending = s;
+          }
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (pending >= 0) {  // the producer fills it for the next tile meanwhile
+        release(pending);
+        pending = -1;
+      }
+
+      // the epilogue: two neighbouring columns a store where they can pair
+      const int ncols = min(BN, N - n0);
+      const bool pairs = N % 2 == 0;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = r0 + 8 * hr;
+        if (row >= M) continue;
+        float xs = 0.f;
+        if constexpr (EPI == EPI_ROW) xs = e.zp ? e.xsum[row] : 0.f;
+        OutT* orow = out + (size_t)row * N + n0;
+#pragma unroll
+        for (int h = 0; h < NB; ++h)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int cc = 128 * h + 8 * j + cq;
+            if (cc >= ncols) continue;
+            float v[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int col = n0 + min(cc + c, ncols - 1);
+              float a = acc[64 * h + 4 * j + 2 * hr + c];
+              if constexpr (EPI == EPI_ROW) {
+                a = __fmul_rn(a, e.scale[col]);
+                if (e.zp) a = __fadd_rn(a, __fmul_rn(xs, e.zp[col]));
+              }
+              if (e.bias) a = __fadd_rn(a, e.bias[col]);
+              v[c] = a;
+            }
+            if (pairs && cc + 1 < ncols) {
+              store2(orow + cc, v[0], v[1]);
+            } else {
+              orow[cc] = sdnq::from_f32<OutT>(v[0]);
+              if (cc + 1 < ncols) orow[cc + 1] = sdnq::from_f32<OutT>(v[1]);
+            }
+          }
+      }
+    }
+  }
+}
+
+// ---- host ------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up at run time through the
+// runtime's entry-point query (the library links the CUDA runtime only)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (rows, K) bf16 matrix with rows `ld` elements apart, read in boxes of
+// 64 k x `box_rows` rows, 128-byte swizzle, zeros past K and past `rows`
+bool tensor_map(CUtensorMap* map, const void* base, int rows, int K, int ld, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int EPI, int NB, typename OutT>
+int launch(const CUtensorMap& tx, const CUtensorMap& tw, void* out, int M, int N, int K,
+           const Epi& e, int grid, cudaStream_t st) {
+  static bool ready = false;  // the block's shared memory is above the 48 KB default
+  if (!ready) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(wgmma_mm_kernel<EPI, NB, OutT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<NB>::SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready = true;
+  }
+  wgmma_mm_kernel<EPI, NB, OutT><<<grid, NT, Tile<NB>::SMEM_BYTES, st>>>(
+      tx, tw, static_cast<OutT*>(out), M, N, K, e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int EPI, int NB>
+int launch_out(int out_kind, const CUtensorMap& tx, const CUtensorMap& tw, void* out, int M,
+               int N, int K, const Epi& e, int grid, cudaStream_t st) {
+  if (out_kind == sdnq::F32) return launch<EPI, NB, float>(tx, tw, out, M, N, K, e, grid, st);
+  if (out_kind == sdnq::BF16)
+    return launch<EPI, NB, __nv_bfloat16>(tx, tw, out, M, N, K, e, grid, st);
+  if (out_kind == sdnq::F16) return launch<EPI, NB, __half>(tx, tw, out, M, N, K, e, grid, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+}  // namespace
+
+// out (M, N) of out_kind = x (M, K) @ w (N, K)ᵀ with the epilogue `epi`:
+// x and w bf16 with rows ldx and ldw elements apart (multiples of 8, base
+// addresses 16-byte aligned); epi 0: bias (N,) f32 or null; epi 1: scale
+// (N,), zp (N,) or null, xsum (M,) (with zp), bias; epi 2: scale and zpc
+// (G, N), xsum (G, M), bias, groups of g (a multiple of 16 dividing K).
+extern "C" int sdnq_wgmma_mm(const void* x, int ldx, const void* w, int ldw, void* out, int M,
+                             int N, int K, int epi, const void* bias, const void* scale,
+                             const void* zp, const void* xsum, int g, int out_kind,
+                             void* stream) {
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (M < 0 || N < 0 || K < 1 || ldx < K || ldw < K || ldx % 8 != 0 || ldw % 8 != 0 ||
+      misaligned(x) || misaligned(w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (epi == EPI_ROW && (!scale || (zp && !xsum))) return static_cast<int>(cudaErrorInvalidValue);
+  if (epi == EPI_FOLD && (!scale || !zp || !xsum || g < 16 || g % 16 != 0 || K % g != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (epi == EPI_FOLD && g % BK != 0) epi = EPI_FOLD_FINE;
+  if (M == 0 || N == 0) return 0;
+  const int sms = sm_count();
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // the bias and row epilogues take 128 x 256 tiles, unless they fill the
+  // card's blocks at most twice and 128 x 128 ones finish in fewer rounds
+  // (counted in 128 x 128 units): small grids, where the rounds weigh most
+  const long long mt = (M + BM - 1) / BM;
+  const long long t2 = mt * ((N + 255) / 256), t1 = mt * ((N + 127) / 128);
+  const long long r2 = (t2 + sms - 1) / sms, r1 = (t1 + sms - 1) / sms;
+  const int nb = (epi == EPI_BIAS || epi == EPI_ROW) && !(r2 <= 2 && r1 < 2 * r2) ? 2 : 1;
+  const long long tiles = nb == 2 ? t2 : t1;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);  // one block an SM
+  CUtensorMap tx, tw;
+  if (!tensor_map(&tx, x, M, K, ldx, BM) || !tensor_map(&tw, w, N, K, ldw, 128 * nb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Epi e{static_cast<const float*>(bias), static_cast<const float*>(scale),
+              static_cast<const float*>(zp), static_cast<const float*>(xsum), g};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (epi == EPI_BIAS)
+    return nb == 2 ? launch_out<EPI_BIAS, 2>(out_kind, tx, tw, out, M, N, K, e, grid, st)
+                   : launch_out<EPI_BIAS, 1>(out_kind, tx, tw, out, M, N, K, e, grid, st);
+  if (epi == EPI_ROW)
+    return nb == 2 ? launch_out<EPI_ROW, 2>(out_kind, tx, tw, out, M, N, K, e, grid, st)
+                   : launch_out<EPI_ROW, 1>(out_kind, tx, tw, out, M, N, K, e, grid, st);
+  if (epi == EPI_FOLD) return launch_out<EPI_FOLD, 1>(out_kind, tx, tw, out, M, N, K, e, grid, st);
+  if (epi == EPI_FOLD_FINE)
+    return launch_out<EPI_FOLD_FINE, 1>(out_kind, tx, tw, out, M, N, K, e, grid, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

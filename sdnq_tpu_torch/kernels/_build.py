@@ -23,9 +23,9 @@ __all__ = ["SOURCES", "build", "library", "build_dir", "command"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _HEADERS = ("common.cuh",)
-SOURCES = ("quantize_rows", "scaled_mm", "dequant_gemv", "dequant_mm",
-           "flash_attn", "groupdot_mm", "blockdiag_mm", "blockdiag_i8_mm",
-           "scaled_mm_tn")
+SOURCES = ("quantize_rows", "scaled_mm", "dequant_gemv", "decode_weight",
+           "wgmma_mm", "flash_attn", "groupdot_mm", "blockdiag_mm",
+           "blockdiag_i8_mm", "scaled_mm_tn")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -3,7 +3,7 @@
 Kernels, each beside its plain PyTorch version and a launch counter:
 
 * ``dequant_gemv`` (M <= 32, ``csrc/dequant_gemv.cu``) and ``dequant_mm``
-  (any M, tensor-core tiles, ``csrc/dequant_mm.cu``) — B2.  They replace
+  (any M: ``decode_weight`` then ``wgmma_mm``, below) — B2.  They replace
   ``sdnq_tpu/kernels/dequant_mm.py`` ``_dequant_mm_kernel`` in its
   unpacked modes, on int8, uint8 (with a zero point) and e4m3 codes:
 
@@ -25,12 +25,18 @@ Kernels, each beside its plain PyTorch version and a launch counter:
 
   The plain version of both is ``dequant_gemv_plain``: the row epilogue in
   fp32, or ``_dequantized_dot`` for grouped scales and bit-plane codes.  At
-  M <= 32 the GEMV is bound by the bytes of the weight; above, the tiles by
-  the tensor cores (the unpacked modes) or by their decode (bit-plane).
-* ``groupdot_mm`` — B5, ``csrc/groupdot_mm.cu``.  Replaces
-  ``_groupdot_kernel``: weight-only GEMM on half-split packed codes: 1/2/4-bit
-  integers in one field plane, and (its general mode, ``fmt``) 3/5/6/7-bit
-  integers in several planes and minifloat codes, decoded in the kernel.
+  M <= 32 the GEMV is bound by the bytes of the weight; above, the GEMM by
+  the tensor cores.
+* ``groupdot_mm`` — B5.  Replaces ``_groupdot_kernel``: weight-only GEMM on
+  half-split packed codes: 1/2/4-bit integers in one field plane, and (its
+  general mode, ``fmt``) 3/5/6/7-bit integers in several planes and
+  minifloat codes.
+* ``decode_weight`` (``csrc/decode_weight.cu``) and ``wgmma_mm``
+  (``csrc/wgmma_mm.cu``): the two kernels of B2's tiles and B5 on the card.
+  Each call decodes the weight once into a bf16 W' (scaled and rounded
+  where B2 rounds it, the exact code values for B2's row mode and B5), and
+  one Hopper GEMM (TMA, ``wgmma``) multiplies it with the mode's epilogue:
+  the bias, B2's row scales and zero point, or B5's group fold.
 * ``blockdiag_mm`` — B6, ``csrc/blockdiag_mm.cu``.  Replaces
   ``_blockdiag_kernel``: the same function for a few rows, as a GEMV.
 * ``groupdot_i8_mm`` — B7, ``csrc/groupdot_mm.cu``.  Replaces
@@ -123,7 +129,7 @@ _BLOCKDIAG_VMEM_BYTES = int(100 * 1024 * 1024 * 0.9)
 # B2: unpacked weight-only products (rowwise and grouped scales)
 # ---------------------------------------------------------------------------
 
-# code kinds of csrc/dequant_gemv.cu and csrc/dequant_mm.cu
+# code kinds of csrc/dequant_gemv.cu and csrc/decode_weight.cu
 _CODE_KINDS = {torch.int8: 0, torch.uint8: 1, torch.float8_e4m3fn: 2}
 
 
@@ -286,40 +292,42 @@ def dequant_mm(x, codes, scale, zp=None, bias=None,
     codes (O, K) int8, uint8 or e4m3; scale / zp (O,) or (O, 1) (row mode)
     or (O, G) (grouped, any group K / G); bias (O,).  With ``fmt`` a
     packed format, codes (O, bits * ceil(K/8)) in its bit-plane layout
-    (output fp32 or bf16 on the card)."""
+    (output fp32 or bf16 on the card).  On the card the weight is decoded
+    once (``decode_weight``) and multiplied by ``wgmma_mm``."""
     if not is_cuda(x):
         return dequant_mm_plain(x, codes, scale, zp, bias, out_dtype, fmt)
     m, k = x.shape
     o = codes.shape[0]
     if x.dtype != torch.bfloat16:
         raise ValueError(f"dequant_mm takes bf16 x, not {x.dtype}")
-    if fmt is not None:
-        return _bitplane_mm(x, codes, scale, zp, bias, out_dtype, fmt)
-    kind = _code_kind(codes, "dequant_mm")
     groups = _groups(scale)
-    if codes.shape[1] != k or k % groups:
-        raise ValueError(f"dequant_mm: codes {tuple(codes.shape)} and "
-                         f"{groups} groups do not fit x {tuple(x.shape)}")
-    kp = -(-k // 16) * 16  # rows of 16-byte stages; the kernel masks k >= K
-    if kp != k:
-        x = F.pad(x, (0, kp - k))
-        codes = F.pad(codes.view(torch.uint8), (0, kp - k))
-    x, codes = x.contiguous(), codes.contiguous()
+    if fmt is not None:
+        _bitplane_check("dequant_mm", x, codes, scale, fmt)
+        if out_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError("dequant_mm on bit-plane codes gives fp32 / bf16, "
+                             f"not {out_dtype}")
+        mode = "bitplane"
+    else:
+        _code_kind(codes, "dequant_mm")
+        if codes.shape[1] != k or k % groups:
+            raise ValueError(f"dequant_mm: codes {tuple(codes.shape)} and "
+                             f"{groups} groups do not fit x {tuple(x.shape)}")
+        mode = "row" if groups == 1 else "grouped"
+    if not (m and o):
+        return torch.empty((m, o), dtype=out_dtype, device=x.device)
     scale, zp, bias = _operands(scale, zp, bias)
-    row = groups == 1
-    xsum = (x.float().sum(-1).contiguous() if row and zp is not None
-            else None)
-    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
-    if m and o:
-        fn = _build.function("dequant_mm", "sdnq_dequant_mm",
-                             [P] * 7 + [I] * 8 + [P])
-        _build.check(fn(*(_build.ptr(t) for t in (x, codes, scale, zp, xsum,
-                                                  bias, out)),
-                        m, k, kp, o, groups, kind, int(row),
-                        _build.act_kind(out_dtype), _build.stream(x)),
-                     "dequant_mm")
-        dequant_mm.launches += 1
-        dequant_mm.mode_launches["row" if row else "grouped"] += 1
+    if mode == "row":   # the codes enter exactly; the scales in the epilogue
+        w = decode_weight(codes, k)
+        xsum = None if zp is None else x.sum(-1, dtype=torch.float32)
+        out = wgmma_mm(x, w, k, "row", bias, scale.reshape(-1),
+                       None if zp is None else zp.reshape(-1), xsum,
+                       out_dtype)
+    else:
+        w = decode_weight(codes, k, scale, zp, fmt,
+                          "bitplane" if fmt is not None else "unpacked")
+        out = wgmma_mm(x, w, k, "bias", bias, out_dtype=out_dtype)
+    dequant_mm.launches += 1
+    dequant_mm.mode_launches[mode] += 1
     return out
 
 
@@ -327,33 +335,198 @@ dequant_mm.launches = 0
 dequant_mm.mode_launches = dict(grouped=0, row=0, bitplane=0)
 
 
-def _bitplane_mm(x, codes, scale, zp, bias, out_dtype, fmt):
-    m, k, o, s = _bitplane_check("dequant_mm", x, codes, scale, fmt)
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError("dequant_mm on bit-plane codes gives fp32 / bf16, "
-                         f"not {out_dtype}")
-    bits = fmt.code_bits
-    sp = pad_to_multiple(s, 4)  # the kernel copies 4 bytes of each plane
-    if sp != s:  # (a copy of the weight: only where K / 8 is not a
-        # multiple of 4)
-        codes = F.pad(codes.reshape(o, bits, s), (0, sp - s)).reshape(
-            o, bits * sp)
-    xp = _bitplane_x(x, k, s, sp)
+# ---------------------------------------------------------------------------
+# The decode-once design of B2's tiles and B5: decode_weight, then wgmma_mm
+# ---------------------------------------------------------------------------
+
+def _padded_k(k: int) -> int:
+    """Columns of a decoded weight: K rounded up to 8 (16-byte rows)."""
+    return -(-k // 8) * 8
+
+
+def _scaled(vals, scale, zero_point, g):
+    """``vals * scale (+ zero_point)`` groupwise in fp32, the product and
+    the sum rounded once (computed in float64, where the product of a code
+    and an fp32 scale is exact).  The same lines as the first half of
+    ``_dequantized_dot``, which is B2's plain version and is left as it
+    is: a change to one is made in both (tests/test_torch_decode_once.py
+    holds decode-then-GEMM equal to ``dequant_mm_plain``)."""
+    o, kdim = vals.shape
+    if zero_point is not None:
+        vals = (vals.reshape(o, kdim // g, g).double()
+                * scale.reshape(o, -1, 1).double()
+                + zero_point.reshape(o, -1, 1).double()).float()
+    else:
+        vals = vals.reshape(o, kdim // g, g) * scale.reshape(o, -1, 1).float()
+    return vals.reshape(o, kdim)
+
+
+def decode_weight_plain(codes, k, scale=None, zp=None, fmt=None,
+                        layout="unpacked", bits=None):
+    """Plain version of ``decode_weight``."""
+    if layout == "halfsplit":
+        vals = _halfsplit_values(codes, bits or fmt.code_bits, k, fmt)
+    elif layout == "bitplane":
+        vals = unpack(codes, fmt, k, dtype=torch.float32, layout="bitplane")
+    else:
+        vals = codes.float()
+    if scale is not None and layout != "halfsplit":
+        vals = _scaled(vals, scale, zp, k // _groups(scale))
+    return F.pad(vals.to(torch.bfloat16), (0, _padded_k(k) - k))
+
+
+def decode_weight(codes, k, scale=None, zp=None, fmt=None, layout="unpacked",
+                  bits=None):
+    """The bf16 weight W' (O, K rounded up to 8; the padding columns 0) of
+    a weight's codes, in natural k order, for ``wgmma_mm``:
+
+    * ``unpacked`` (B2): codes (O, K) int8, uint8 or e4m3; with scale /
+      zp (O, G) each weight ``code * scale (+ zp)`` rounded to bf16 (B2's
+      rounding point), without them bf16(code) (exact; the row mode);
+    * ``bitplane`` (B2): codes (O, bits * ceil(K/8)) of ``fmt``, decoded,
+      scaled and rounded as above;
+    * ``halfsplit`` (B5): codes (O, K * bits / 8) of ``bits`` bits, the raw
+      integer code or the minifloat value of ``fmt`` (exact)."""
+    if not is_cuda(codes):
+        return decode_weight_plain(codes, k, scale, zp, fmt, layout, bits)
+    o = codes.shape[0]
+    ldo = _padded_k(k)
+    out = torch.empty((o, ldo), dtype=torch.bfloat16, device=codes.device)
     codes = codes.contiguous()
-    groups = _groups(scale)
-    scale, zp, bias = _operands(scale, zp, bias)
-    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
-    if m and o:
-        fn = _build.function("dequant_mm", "sdnq_dequant_mm_bitplane",
-                             [P] * 6 + [I] * 14 + [P])
-        _build.check(fn(*(_build.ptr(t) for t in (xp, codes, scale, zp,
-                                                  bias, out)),
-                        m, k, s, sp, o, groups, bits, *_fmt_args(fmt),
-                        _build.act_kind(out_dtype), _build.stream(x)),
-                     "dequant_mm (bit-plane)")
-        dequant_mm.launches += 1
-        dequant_mm.mode_launches["bitplane"] += 1
+    st = _build.stream(codes)
+    if layout == "halfsplit":
+        bits = bits or fmt.code_bits
+        fn = _build.function("decode_weight", "sdnq_decode_halfsplit",
+                             [P, P] + [I] * 8 + [P])
+        rc = fn(codes.data_ptr(), out.data_ptr(), o, k, bits,
+                *_float_args(fmt), st)
+        mode = "halfsplit"
+    elif layout == "bitplane":
+        groups = _groups(scale)
+        scale, zp, _ = _operands(scale, zp, None)
+        fn = _build.function("decode_weight", "sdnq_decode_bitplane",
+                             [P] * 4 + [I] * 11 + [P])
+        rc = fn(*(_build.ptr(t) for t in (codes, scale, zp, out)), o, k,
+                ldo // 8, groups, fmt.code_bits, *_fmt_args(fmt), st)
+        mode = "bitplane"
+    else:
+        kind = _code_kind(codes, "decode_weight")
+        row = scale is None
+        groups = 1 if row else _groups(scale)
+        if not row:
+            scale, zp, _ = _operands(scale, zp, None)
+        fn = _build.function("decode_weight", "sdnq_decode_unpacked",
+                             [P] * 4 + [I] * 6 + [P])
+        rc = fn(*(_build.ptr(t) for t in (codes.view(torch.uint8),
+                                          None if row else scale,
+                                          None if row else zp, out)),
+                o, k, ldo, groups, kind, int(row), st)
+        mode = "row" if row else "grouped"
+    _build.check(rc, f"decode_weight ({mode})")
+    decode_weight.launches += 1
+    decode_weight.mode_launches[mode] += 1
     return out
+
+
+decode_weight.launches = 0
+decode_weight.mode_launches = dict(grouped=0, row=0, bitplane=0, halfsplit=0)
+
+# epilogues of csrc/wgmma_mm.cu
+_EPILOGUES = {"bias": 0, "row": 1, "fold": 2}
+
+
+def _tma_rows(t, k):
+    """``t`` if TMA can read its first K columns in place (unit column
+    stride, rows 16-byte aligned), else a copy with K rounded up to 8
+    columns (the padding 0)."""
+    if t.stride(1) == 1 and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((t.shape[0], _padded_k(k)))
+    out[:, :k] = t[:, :k]
+    return out
+
+
+def wgmma_mm_plain(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
+                   xsum=None, out_dtype=torch.bfloat16):
+    """Plain version of ``wgmma_mm``, in fp32 in the kernel's order of
+    operations."""
+    xf = x.float()
+    wf = w[:, :k].float().contiguous()
+    if epilogue == "fold":
+        g = k // scale.shape[1]
+        acc = _groupdot_plain(xf, wf, scale.float(), zp.float(),
+                              lambda sl: xsum[:, sl.start // g, None].float())
+    else:
+        acc = xf @ wf.T
+        if epilogue == "row":
+            acc = acc * scale.reshape(1, -1).float()
+            if zp is not None:
+                acc = acc + xsum.reshape(-1, 1).float() * zp.reshape(
+                    1, -1).float()
+    if bias is not None:
+        acc = acc + bias.reshape(1, -1).float()
+    return acc.to(out_dtype)
+
+
+def wgmma_mm(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
+             xsum=None, out_dtype=torch.bfloat16):
+    """out (M, O) = x (M, K) @ w[:, :K]ᵀ with x and w bf16 (w (O, >= K),
+    as ``decode_weight`` writes it) and an epilogue in fp32:
+
+    * ``bias``: ``+ bias`` (O,) where given;
+    * ``row``: ``* scale[o] (+ xsum[m] * zp[o]) (+ bias[o])``, scale / zp
+      (O,), xsum (M,) the row sums of x;
+    * ``fold``: B5's group-dot algebra, each group's product folded as
+      ``acc + part * scale[o, g] + xsum[m, g] * zp[o, g]`` (zp the zpc of
+      ``_group_operands``), scale / zp (O, G), xsum (M, G), groups of a
+      multiple of 16; then ``+ bias``.  The kernel reads them group-major:
+      scale and zp are copied, xsum is read in place where it is the
+      transposed view of a (G, M) tensor.
+
+    fp32, bf16 or fp16 out.  On the card a Hopper wgmma kernel fed by TMA
+    (csrc/wgmma_mm.cu)."""
+    if not is_cuda(x):
+        return wgmma_mm_plain(x, w, k, epilogue, bias, scale, zp, xsum,
+                              out_dtype)
+    m, o = x.shape[0], w.shape[0]
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(f"wgmma_mm takes bf16 x and w, not {x.dtype} and "
+                         f"{w.dtype}")
+    if x.shape[1] < k or w.shape[1] < k:
+        raise ValueError(f"wgmma_mm: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} do not hold K {k}")
+    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
+    if not (m and o):
+        return out
+    x, w = _tma_rows(x, k), _tma_rows(w, k)
+
+    def f32(t):
+        return None if t is None else t.float().contiguous()
+    g = 0
+    if epilogue == "fold":   # read group-major: (G, O) and (G, M)
+        if scale is None or zp is None or xsum is None:
+            raise ValueError("wgmma_mm: the fold takes scale, zp and xsum")
+        g = k // scale.shape[1]
+        scale, zp = torch.stack((scale.float().t(), zp.float().t()))
+        xsum = xsum.float().t().contiguous()   # a view of (G, M): no copy
+    else:
+        scale, zp, xsum = (f32(None if t is None else t.reshape(-1))
+                           for t in (scale, zp, xsum))
+    bias = f32(None if bias is None else bias.reshape(-1))
+    fn = _build.function("wgmma_mm", "sdnq_wgmma_mm",
+                         [P, I, P, I, P] + [I] * 4 + [P] * 4 + [I, I, P])
+    _build.check(fn(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
+                    out.data_ptr(), m, o, k, _EPILOGUES[epilogue],
+                    *(_build.ptr(t) for t in (bias, scale, zp, xsum)), g,
+                    _build.act_kind(out_dtype), _build.stream(x)),
+                 f"wgmma_mm ({epilogue})")
+    wgmma_mm.launches += 1
+    wgmma_mm.mode_launches[epilogue] += 1
+    return out
+
+
+wgmma_mm.launches = 0
+wgmma_mm.mode_launches = dict(bias=0, row=0, fold=0)
 
 
 # ---------------------------------------------------------------------------
@@ -500,41 +673,35 @@ def _contiguous(*ts):
     return tuple(t.contiguous() for t in ts)
 
 
-def _groupdot_fn():
-    """``sdnq_groupdot_mm`` of csrc/groupdot_mm.cu: B5 (kind 0) and B7
-    (kind 1)."""
-    return _build.function("groupdot_mm", "sdnq_groupdot_mm",
-                           [P] * 8 + [I] * 7 + [P])
-
-
 def groupdot_mm(x, codes, scale, zpc, bias=None, bits: int = 4,
                 out_dtype=torch.bfloat16, fmt=None):
     """Weight-only group-dot GEMM: x (M, K) bf16 on the card; codes (O,
     K*bits/8) half-split uint8 of ``fmt`` (None: integer codes of
     ``bits`` bits); scale, zpc (O, G) fp32; bias (O,) or None.  1/2/4-bit
     integers: 32 divides g and g divides the field segment K*bits/8; the
-    general mode (other widths, minifloats): 32 divides g and K / pmax."""
+    general mode (other widths, minifloats): 32 divides g and K / pmax.
+    On the card the codes are decoded once (``decode_weight``: raw codes or
+    minifloat values, exact in bf16) and ``wgmma_mm`` folds each group's
+    product with its scale and zero-point term."""
     if not is_cuda(x):
         return groupdot_mm_plain(x, codes, scale, zpc, bias, bits, out_dtype,
                                  fmt)
     if x.dtype != torch.bfloat16:
         raise ValueError(f"groupdot_mm takes bf16 x, not {x.dtype}")
-    if _general(bits, fmt):
-        return _groupdot_general(x, codes, scale, zpc, bias, bits, out_dtype,
-                                 fmt)
-    m, k, o, g = _check_halfsplit("groupdot_mm", x, codes, scale, zpc, bits,
-                                  32)
-    x, codes, scale, zpc = _contiguous(x, codes, scale, zpc)
-    xsum = x.float().reshape(m, k // g, g).sum(-1).contiguous()
-    bias = None if bias is None else bias.reshape(-1).float().contiguous()
-    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
-    if m and o:
-        _build.check(_groupdot_fn()(
-            *(_build.ptr(t) for t in (x, codes, scale, zpc, xsum, None, bias,
-                                      out)),
-            m, k, o, g, bits, 0, _build.act_kind(out_dtype),
-            _build.stream(x)), "groupdot_mm")
-        groupdot_mm.launches += 1
+    general = _general(bits, fmt)
+    check = _check_general if general else _check_halfsplit
+    m, k, o, g = check("groupdot_mm", x, codes, scale, zpc, bits, 32)
+    if not (m and o):
+        return torch.empty((m, o), dtype=out_dtype, device=x.device)
+    # the row sums of each group, summed group-major into (G, M)
+    xsum = torch.empty((k // g, m), dtype=torch.float32, device=x.device)
+    torch.sum(x.reshape(m, k // g, g).transpose(0, 1), -1,
+              dtype=torch.float32, out=xsum)
+    w = decode_weight(codes, k, fmt=fmt, layout="halfsplit", bits=bits)
+    out = wgmma_mm(x, w, k, "fold", bias, scale, zpc, xsum.t(), out_dtype)
+    groupdot_mm.launches += 1
+    if general:
+        groupdot_mm.mode_launches[_general_mode(fmt)] += 1
     return out
 
 
@@ -551,26 +718,6 @@ def _float_args(fmt) -> tuple:
     """(is_float, e, m, bias, is_signed) of the general modes' entries."""
     a = _fmt_args(fmt) if fmt is not None else (0, 0, 0, 0, 0, 0)
     return (a[0],) + a[2:]
-
-
-def _groupdot_general(x, codes, scale, zpc, bias, bits, out_dtype, fmt):
-    m, k, o, g = _check_general("groupdot_mm", x, codes, scale, zpc, bits,
-                                32)
-    x, codes, scale, zpc = _contiguous(x, codes, scale.float(), zpc.float())
-    xsum = x.float().reshape(m, k // g, g).sum(-1).contiguous()
-    bias = None if bias is None else bias.reshape(-1).float().contiguous()
-    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
-    if m and o:
-        fn = _build.function("groupdot_mm", "sdnq_groupdot_mm_gen",
-                             [P] * 7 + [I] * 11 + [P])
-        _build.check(fn(*(_build.ptr(t) for t in (x, codes, scale, zpc, xsum,
-                                                  bias, out)),
-                        m, k, o, g, bits, *_float_args(fmt),
-                        _build.act_kind(out_dtype), _build.stream(x)),
-                     "groupdot_mm (general mode)")
-        groupdot_mm.launches += 1
-        groupdot_mm.mode_launches[_general_mode(fmt)] += 1
-    return out
 
 
 def blockdiag_mm(x, codes, scale, zpc, bias=None, bits: int = 4,
@@ -650,11 +797,12 @@ def groupdot_i8_mm(xq, xs, codes, scale, zpc, bias=None, bits: int = 4,
     bias = None if bias is None else bias.reshape(-1).float().contiguous()
     out = torch.empty((m, o), dtype=out_dtype, device=xq.device)
     if m and o:
-        _build.check(_groupdot_fn()(
-            *(_build.ptr(t) for t in (xq, codes, scale, zpc, xsum, xs, bias,
-                                      out)),
-            m, k, o, g, bits, 1, _build.act_kind(out_dtype),
-            _build.stream(xq)), "groupdot_i8_mm")
+        fn = _build.function("groupdot_mm", "sdnq_groupdot_i8_mm",
+                             [P] * 8 + [I] * 6 + [P])
+        _build.check(fn(*(_build.ptr(t) for t in (xq, codes, scale, zpc, xsum,
+                                                  xs, bias, out)),
+                        m, k, o, g, bits, _build.act_kind(out_dtype),
+                        _build.stream(xq)), "groupdot_i8_mm")
         groupdot_i8_mm.launches += 1
     return out
 

@@ -557,6 +557,151 @@ def test_blockdiag_mm_general(dev, fmt, k, gsize, m, xdt):
 
 
 # ---------------------------------------------------------------------------
+# The decode-once design of B2's tiles and B5: decode_weight, then wgmma_mm
+# ---------------------------------------------------------------------------
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int16),
+                                              b.view(torch.int16))
+
+
+@pytest.mark.parametrize("kind", ["int8", "uint8", "float8_e4m3fn"])
+@pytest.mark.parametrize("k,groups", [(3072, 3), (200, 5), (1000, 1),
+                                      (77, 7)])
+@pytest.mark.parametrize("row", [False, True])
+def test_decode_weight_unpacked_bit_equal(dev, kind, k, groups, row):
+    """Unpacked codes: grouped (code * scale (+ zp) rounded to bf16) and
+    the row mode (bf16(code)), ragged K (the padding columns 0)."""
+    gen = _gen(40)
+    o = 136
+    codes = _codes(kind, o, k, gen, dev)
+    scale = torch.rand(o, groups, device=dev, generator=gen) * 0.01 + 1e-3
+    zp = (torch.randn(o, groups, device=dev, generator=gen) - 1.28
+          if kind == "uint8" else None)
+    args = (codes, k) if row else (codes, k, scale, zp)
+    mode = "row" if row else "grouped"
+    before = kd.decode_weight.mode_launches[mode]
+    got = kd.decode_weight(*args)
+    assert kd.decode_weight.mode_launches[mode] == before + 1
+    assert _bits_equal(got, kd.decode_weight_plain(*args))
+
+
+@pytest.mark.parametrize("fmt,k,gsize", [
+    ("float8_e3m4fn", 2048, 1024), ("float9_e3m5fn", 768, -1),
+    ("int12", 384, 64), ("uint10", 256, 32), ("int9", 200, 40),
+    ("float11_e4m6fn", 136, -1), ("uint12", 1000, 200),
+    ("int11", 40, -1), ("int10", 1020, 102), ("uint9", 1020, 204)])
+def test_decode_weight_bitplane_bit_equal(dev, fmt, k, gsize):
+    """Bit-plane integers and minifloats, S = K / 8 not a multiple of 4
+    (200, 136, 1000, 40: a byte a thread), S a multiple of 4 with a group
+    that is not (1020 / 102) and with a K tail (1020 / 204: four bytes a
+    thread), zero points on the unsigned formats."""
+    import sdnq_tpu_torch as T
+    from sdnq_tpu_torch.formats import get_format
+    assert get_format(fmt).is_packed
+    g = _gen(41)
+    o = 200
+    qt = T.quantize_tensor(torch.randn(o, k, device=dev, generator=g) * 0.02,
+                           fmt, group_size=gsize)
+    codes, scale, zp = _qt_operands(qt)
+    args = (codes, k, scale, zp, qt.meta.format, "bitplane")
+    got = kd.decode_weight(*args)
+    assert _bits_equal(got, kd.decode_weight_plain(*args))
+
+
+@pytest.mark.parametrize("fmt,k", [
+    ("uint4", 256), ("int4", 3072), ("uint2", 512), ("uint1", 1024),
+    ("uint3", 256), ("uint5", 512), ("int6", 1024), ("uint7", 512),
+    ("float5_e2m2fn", 512), ("float6_e3m3fnu", 256), ("float4_e2m1fn", 512),
+    ("float7_e3m3fn", 1024)])
+def test_decode_weight_halfsplit_bit_equal(dev, fmt, k):
+    """Half-split codes in one to three field planes: the raw integer code
+    or the minifloat value, exact in bf16."""
+    import sdnq_tpu_torch as T
+    g = _gen(42)
+    qt = T.quantize_tensor(torch.randn(96, k, device=dev, generator=g), fmt,
+                           group_size=32)
+    assert qt.meta.pack_layout == "halfsplit"
+    f = qt.meta.format
+    args = (qt.qdata, k, None, None, f, "halfsplit", f.code_bits)
+    got = kd.decode_weight(*args)
+    assert _bits_equal(got, kd.decode_weight_plain(*args))
+
+
+def _gemm_operands(m, n, k, groups, dev, seed):
+    g = _gen(seed)
+    x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+    w = kd.decode_weight(torch.randint(-127, 128, (n, k), device=dev,
+                                       generator=g, dtype=torch.int8), k)
+    scale = torch.rand(n, groups, device=dev, generator=g) * 0.01 + 1e-3
+    zp = torch.randn(n, groups, device=dev, generator=g) * 0.05
+    bias = torch.randn(n, device=dev, generator=g)
+    return x, w, scale, zp, bias
+
+
+_GEMM_SHAPES = [(33, 200, 200), (77, 3072, 768), (129, 1000, 3000),
+                (4608, 136, 3072), (300, 128, 64), (1, 8, 40)]
+
+
+@pytest.mark.parametrize("m,n,k", _GEMM_SHAPES)
+@pytest.mark.parametrize("epilogue", ["bias", "row"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+def test_wgmma_mm(dev, m, n, k, epilogue, out_dtype):
+    """The GEMM against its plain version at ragged M, N (N % 128 != 0)
+    and K (K % 64 != 0, K % 8 != 0 at 3000 / 40: x re-padded): the same
+    bf16 products summed in another order; 2^-7 of the largest output in
+    bf16 / fp16, 1e-5 of it in fp32."""
+    x, w, scale, zp, bias = _gemm_operands(m, n, k, 1, dev, 43)
+    kw = {}
+    if epilogue == "row":
+        kw = dict(scale=scale[:, 0], zp=zp[:, 0], xsum=x.float().sum(-1))
+    before = kd.wgmma_mm.mode_launches[epilogue]
+    got = kd.wgmma_mm(x, w, k, epilogue, bias, out_dtype=out_dtype, **kw)
+    assert kd.wgmma_mm.mode_launches[epilogue] == before + 1
+    want = kd.wgmma_mm_plain(x, w, k, epilogue, bias, out_dtype=torch.float32,
+                             **kw)
+    lim = 1e-5 if out_dtype == torch.float32 else 2 ** -7
+    assert (got.float() - want).abs().max() <= lim * want.abs().max()
+
+
+@pytest.mark.parametrize("m,n,k", [(33, 200, 256), (77, 1000, 3072),
+                                   (129, 136, 1024), (4608, 200, 2048)])
+@pytest.mark.parametrize("g", [32, 128, 1024])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_wgmma_mm_fold(dev, m, n, k, g, out_dtype):
+    """B5's group fold: a group ends inside a stage (32), on a stage's end
+    (128) or after many (1024; where K < g the group is K)."""
+    g = min(g, k)
+    x, w, scale, zp, bias = _gemm_operands(m, n, k, k // g, dev, 44)
+    xsum = x.float().reshape(m, k // g, g).sum(-1)
+    got = kd.wgmma_mm(x, w, k, "fold", bias, scale, zp, xsum, out_dtype)
+    want = kd.wgmma_mm_plain(x, w, k, "fold", bias, scale, zp, xsum,
+                             torch.float32)
+    lim = 1e-5 if out_dtype == torch.float32 else 2 ** -7
+    assert (got.float() - want).abs().max() <= lim * want.abs().max()
+
+
+def test_wgmma_mm_strided_views(dev):
+    """x a column slice of a wider tensor (rows 16-byte aligned: read in
+    place), x at an odd offset (copied), and w a layer view of a stack."""
+    x_wide = torch.randn(150, 1040, device=dev, generator=_gen(45)).bfloat16()
+    x = x_wide[:, 8:1032]
+    stack = torch.randn(3, 200, 1024, device=dev,
+                        generator=_gen(46)).bfloat16()
+    got = kd.wgmma_mm(x, stack[1], 1024, out_dtype=torch.float32)
+    want = kd.wgmma_mm_plain(x, stack[1], 1024, out_dtype=torch.float32)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    # a contiguous x whose rows do not start on 16-byte boundaries: copied
+    flat = torch.randn(150 * 1024 + 1, device=dev,
+                       generator=_gen(47)).bfloat16()
+    x = flat[1:].view(150, 1024)
+    got = kd.wgmma_mm(x, stack[1], 1024, out_dtype=torch.float32)
+    want = kd.wgmma_mm_plain(x, stack[1], 1024, out_dtype=torch.float32)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+# ---------------------------------------------------------------------------
 # B3 serving modes and B8
 # ---------------------------------------------------------------------------
 
