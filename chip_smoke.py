@@ -23,12 +23,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               shape (qlinear, int8 rowwise, M 16384 K 4096 N 8192, beside
               bf16 F.linear); B9 (the ring's block step) at the block
               shapes of phase 4r, its acc / l per row, m and l held
-              against the plain version; and the two halves of B2's tiles
-              and B5 alone at DiT linear1: decode_weight (int8 g1024,
-              float8_e3m4fn bit-plane, float5_e2m2fn half-split; bit-equal)
-              and wgmma_mm with its bias, row and fold epilogues, and once
-              at ragged M, N and K.  Then no barrier wait of wgmma_mm may
-              have given up.  Prints one {"kernels": [...]} line for the
+              against the plain version; B7 on uint4 at the uint4 q
+              path's shapes and on uint5 g256 (three field planes), and
+              the bit-plane GEMV at M 1 and 32; and the two halves of B2's
+              tiles, B5 and B7 alone at DiT linear1: decode_weight (int8
+              g1024, float8_e3m4fn bit-plane, float5_e2m2fn half-split,
+              uint4 half-split into int8; bit-equal) and wgmma_mm with its
+              bias, row, fold and int8 fold epilogues, and once at ragged
+              M, N and K.  Prints one {"kernels": [...]} line for the
               kernels of the paths.
 4r. ring    - sequence parallelism at the attention widths of two
               models, q, k, v from a seeded generator: FLUX.1-dev's joint
@@ -64,8 +66,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               x 4 steps; B5, B6 and attention must launch.
 4c. uint4 q - the same stored tensors on the quantized-matmul route
               (``use_quantized_matmul`` set on each QTensor's meta): 1
-              request x 2 steps; B7, B6 and the requantize fallback (B1 +
-              B4, for the 96- and 120-group layers) must launch.
+              request x 2 steps; B7 (its int8 decode and int8-fold GEMM),
+              B6 and the requantize fallback (B1 + B4, for the 96- and
+              120-group layers) must launch.
 4g. dynamic - SDNQ's dynamic per-layer format selection on FLUX.1-dev at
               full width and depth, each 2-D weight redrawn with a tail
               from the cycle Gaussian, Student-t 5, 3, 2 (DYN_LAWS): R1
@@ -122,10 +125,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               card (the check swaps each wrapper for its plain version for
               the reference run and verifies no kernel launched in it),
               each with its own limit.
-6. profile  - one Euler step of the full int8 and uint4 weight-only FLUX
-              models, one prefill and one decode step of the int8-KV
-              Llama-3-8B, and one text-to-image request, traced with
-              torch.profiler: device time by kernel group, idle share.
+6. profile  - one Euler step of the full int8, uint4 weight-only, uint4
+              quantized-matmul, R1 and R2 FLUX models, one prefill and one
+              decode step of the int8-KV Llama-3-8B, and one text-to-image
+              request, traced with torch.profiler: device time by kernel
+              group, idle share.
 7. faults   - broken copies of the kernel sources (FAULTS: a skipped KV
               tile, a missing rescale, a dropped K stage, a short warp
               reduction, round-half-away, the other nibble decoded, a
@@ -144,7 +148,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               exponent in B9, l not rescaled in token mode, and the GEMM
               waiting on the wrong phase of its stages' barriers, starting
               each of B5's group products one k-step late and dropping the
-              N tail), built
+              N tail, B7's fold taking the next group's xsum, B7's group
+              product never restarted after the first group, the bit-plane
+              GEMV reading its planes in reverse order and its x one code
+              late), built
               with
               the real ones; phases 3 and 5 rerun with
               each in turn.  Phase 3 must fail for the broken kernel; phase
@@ -234,7 +241,7 @@ KERNEL_SYMBOLS = {
     "flash_attention": "flash_attn", "flash_attention_block": "flash_attn",
     "groupdot_mm": ("decode_weight_", "wgmma_mm_kernel"),
     "blockdiag_mm": "blockdiag_mm_kernel",
-    "groupdot_i8_mm": "groupdot_mm_kernel",
+    "groupdot_i8_mm": ("decode_weight_halfsplit", "wgmma_i8_fold_kernel"),
     "blockdiag_i8_mm": "blockdiag_i8_mm_kernel",
     "scaled_mm_tn": "scaled_mm_tn_kernel"}
 
@@ -575,25 +582,31 @@ def kernel_phase(torch, dev, timed: bool = True):
                f"M1 K{k} N{n} uint4 g128", path="uint4_wo")
         del packed, w_deq
 
-    for m, k, n in ((4608, 3072, 21504), (4096, 3072, 9216)):
-        packed, scale, zpc, w_deq = packed_weight(n, k)
+    # B7: the uint4 q path's shapes, then uint5 g256 (three field planes)
+    # at R2's 15360 -> 3072 shape, off the paths (the route sends 5-bit
+    # codes to B7 only under the quantized matmul, which R2 does not use)
+    for m, k, n, bits, gsize in ((4608, 3072, 21504, 4, 128),
+                                 (4096, 3072, 9216, 4, 128),
+                                 (4608, 15360, 3072, 5, 256)):
+        packed, scale, zpc, w_deq = packed_weight(n, k, bits, gsize)
         xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
                            dtype=torch.int8)
         xs = torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3
         bias = torch.randn(n, device=dev, generator=g)
-        args = (xq, xs, packed, scale, zpc, bias, 4, torch.bfloat16)
+        args = (xq, xs, packed, scale, zpc, bias, bits, torch.bfloat16)
         got = kd.groupdot_i8_mm(*args)
         want = kd.groupdot_i8_mm_plain(*args)
         xb = (xq.float() * xs).bfloat16()
-        record("groupdot_i8_mm", "cuda", "sdnq_tpu_torch/csrc/groupdot_mm.cu",
+        record("groupdot_i8_mm", "cuda", "sdnq_tpu_torch/csrc/wgmma_mm.cu",
                "sdnq_tpu/kernels/dequant_mm.py:741",
                float((got.float() - want.float()).abs().max()),
                ulp_tol(want), lambda: kd.groupdot_i8_mm(*args),
                t(lambda: kd.groupdot_i8_mm_plain(*args), reps=3),
-               bound_ms(m * k + halfsplit_bytes(n, k) + m * 4 + m * n * 2,
-                        2 * m * n * k, "int8"),
+               bound_ms(m * k + halfsplit_bytes(n, k, gsize, bits) + m * 4
+                        + m * n * 2, 2 * m * n * k, "int8"),
                t(lambda: F.linear(xb, w_deq, bias.bfloat16())),
-               f"M{m} K{k} N{n} uint4 g128", path="uint4_qmm")
+               f"M{m} K{k} N{n} uint{bits} g{gsize}", path="uint4_qmm",
+               on_path=bits == 4)
         del packed, w_deq, xq, xb
 
     # B8 at the decode shapes of its domain: meta-llama/Llama-3.2-1B's q and
@@ -1023,16 +1036,18 @@ def pipeline_kernel_rows(torch, dev, g, t, record):
 
 
 def decode_gemm_rows(torch, dev, g, t, record):
-    """Phase 3 rows of the two halves of B2's tiles and B5 alone, at DiT
-    linear1 (4608 x 3072 -> 21504): ``decode_weight`` on int8 g1024 codes
-    (the default recipe), float8_e3m4fn g1024 bit-plane codes (R1) and
-    float5_e2m2fn g128 half-split codes (R2), each bit-equal to its plain
-    version (limit 0); ``wgmma_mm`` with each epilogue against its plain
-    version (one bf16 ulp of the largest output, 2^-7 of it), and once at
+    """Phase 3 rows of the two halves of B2's tiles, B5 and B7 alone, at
+    DiT linear1 (4608 x 3072 -> 21504): ``decode_weight`` on int8 g1024
+    codes (the default recipe), float8_e3m4fn g1024 bit-plane codes (R1),
+    float5_e2m2fn g128 half-split codes (R2) and uint4 half-split codes into
+    int8 (B7), each bit-equal to its plain version (limit 0); ``wgmma_mm``
+    with each epilogue against its plain version (one bf16 ulp of the
+    largest output, 2^-7 of it; B7's int8 fold bit-equal), and once at
     ragged M, N and K (N % 256 != 0, K % 64 != 0) off the paths."""
     import torch.nn.functional as F
     from sdnq_tpu_torch import quantize_tensor
     from sdnq_tpu_torch.kernels import dequant_mm as kd
+    from sdnq_tpu_torch.packing import pack_codes_halfsplit
 
     src_d = "sdnq_tpu_torch/csrc/decode_weight.cu"
     src_g = "sdnq_tpu_torch/csrc/wgmma_mm.cu"
@@ -1045,31 +1060,64 @@ def decode_gemm_rows(torch, dev, g, t, record):
     codes = torch.randint(-127, 128, (n, k), device=dev, generator=g,
                           dtype=torch.int8)
     scale = torch.rand(n, k // 1024, device=dev, generator=g) * 2e-4 + 1e-4
+    # (arguments, what, mode, path, bytes read and written, replaces)
     cases = [((codes, k, scale, None), "int8 g1024", "grouped", "pipeline",
-              n * k + scale.numel() * 4, rep)]
+              n * k + scale.numel() * 4 + n * k * 2, rep)]
     qt = quantize_tensor(student_t(torch, (n, k), 2, g, dev) * 0.02,
                          "float8_e3m4fn", group_size=1024)
     cases.append(((qt.qdata, k, qt.scale.reshape(n, -1), None,
                    qt.meta.format, "bitplane"), "float8_e3m4fn g1024",
                   "bitplane", "dyn_r1",
-                  qt.qdata.numel() + qt.scale.numel() * 4, rep))
+                  qt.qdata.numel() + qt.scale.numel() * 4 + n * k * 2, rep))
     qt5 = quantize_tensor(student_t(torch, (n, k), 3, g, dev) * 0.02,
                           "float5_e2m2fn", group_size=128)
     f5 = qt5.meta.format
     cases.append(((qt5.qdata, k, None, None, f5, "halfsplit", f5.code_bits),
                   "float5_e2m2fn g128", "halfsplit", "dyn_r2",
-                  qt5.qdata.numel(), "sdnq_tpu/kernels/dequant_mm.py:355"))
+                  qt5.qdata.numel() + n * k * 2,
+                  "sdnq_tpu/kernels/dequant_mm.py:355"))
+    # B7's decode: uint4 g128 codes into int8, one byte a weight
+    packed4 = pack_codes_halfsplit(torch.randint(
+        0, 16, (n, k), device=dev, generator=g, dtype=torch.int32), 4)
+    cases.append(((packed4, k, None, None, None, "halfsplit", 4, torch.int8),
+                  "uint4 g128 into int8", "halfsplit_i8", "uint4_qmm",
+                  packed4.numel() + n * k, "sdnq_tpu/kernels/dequant_mm.py:741"))
     for args, what, mode, path, nbytes, replaces in cases:
         got = kd.decode_weight(*args)
         record("decode_weight", "cuda", src_d, replaces,
                err(got, kd.decode_weight_plain(*args)), 0.0,
                lambda a=args: kd.decode_weight(*a),
                t(lambda a=args: kd.decode_weight_plain(*a), reps=3),
-               bound_ms(nbytes + n * k * 2), None,
+               bound_ms(nbytes), None,
                f"N{n} K{k} {what} ({mode}, DiT linear1)", path=path,
                count=f"decode_weight:{mode}")
         del got
     del codes, qt, qt5
+
+    # B7's GEMM alone at linear1: int8 x and W' (uint4 codes), g 128
+    w8 = kd.decode_weight(packed4, k, layout="halfsplit", bits=4,
+                          dtype=torch.int8)
+    xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                       dtype=torch.int8)
+    s8 = torch.rand(n, k // 128, device=dev, generator=g) * 2e-3 + 1e-3
+    z8 = -8 * s8
+    xs8 = torch.rand(m, device=dev, generator=g) * 0.02 + 1e-3
+    b8 = torch.randn(n, device=dev, generator=g)
+    args = (xq, w8, k, "fold_i8", b8, s8, z8,
+            xq.float().reshape(m, k // 128, 128).sum(-1), torch.bfloat16)
+    want = kd.wgmma_mm_plain(*args, xs=xs8)
+    xb, wb = xq.bfloat16(), w8.bfloat16()
+    record("wgmma_mm", "cuda", src_g, "sdnq_tpu/kernels/dequant_mm.py:741",
+           err(kd.wgmma_mm(*args, xs=xs8), want),
+           float(want.float().abs().max()) * 2 ** -7,
+           lambda: kd.wgmma_mm(*args, xs=xs8),
+           t(lambda: kd.wgmma_mm_plain(*args, xs=xs8), reps=3),
+           bound_ms(m * k + n * k + m * n * 2, 2 * m * n * k, "int8"),
+           t(lambda: F.linear(xb, wb)),
+           f"M{m} K{k} N{n} int8, int8 fold g128 (DiT linear1)",
+           path="uint4_qmm", count="wgmma_mm:fold_i8",
+           symbol="wgmma_i8_fold_kernel")
+    del packed4, w8, xq, xb, wb, want
 
     w = torch.randn(n, k, device=dev, generator=g).bfloat16()
     x = torch.randn(m, k, device=dev, generator=g).bfloat16()
@@ -1183,19 +1231,26 @@ def dynamic_kernel_rows(torch, dev, g, t, record):
                path="dyn_r1", count="dequant_mm:bitplane")
         k, n = 3072, 18432
         qt, scale, zp, wb, side = qweight(n, k, fmt, gsize, nu)
-        x = torch.randn(1, k, device=dev, generator=g).bfloat16()
-        bias = torch.randn(n, device=dev, generator=g)
-        args = (x, qt.qdata, scale, zp, bias, torch.bfloat16, f)
-        want = kd.dequant_gemv_plain(*args)
-        record("dequant_gemv", "cuda", "sdnq_tpu_torch/csrc/dequant_gemv.cu",
-               rep, err(kd.dequant_gemv(*args), want), ulp(want),
-               lambda: kd.dequant_gemv(*args),
-               t(lambda: kd.dequant_gemv_plain(*args), reps=5),
-               bound_ms(k * 2 + qt.qdata.numel() + side + n * 2, 2 * n * k,
-                        "fp32"),
-               t(lambda: F.linear(x, wb, bias.bfloat16()), reps=20),
-               f"M1 K{k} N{n} {label(fmt, gsize)} bit-plane (modulation)",
-               path="dyn_r1", count="dequant_gemv:bitplane")
+        # M 1: the modulation linears at batch 1; M 32 (float8): the most
+        # rows the GEMV takes, off the paths
+        for mg in (1,) if gsize < 0 else (1, 32):
+            x = torch.randn(mg, k, device=dev, generator=g).bfloat16()
+            bias = torch.randn(n, device=dev, generator=g)
+            args = (x, qt.qdata, scale, zp, bias, torch.bfloat16, f)
+            want = kd.dequant_gemv_plain(*args)
+            record("dequant_gemv", "cuda",
+                   "sdnq_tpu_torch/csrc/dequant_gemv.cu", rep,
+                   err(kd.dequant_gemv(*args), want), ulp(want),
+                   lambda a=args: kd.dequant_gemv(*a),
+                   t(lambda a=args: kd.dequant_gemv_plain(*a), reps=5),
+                   bound_ms(mg * k * 2 + qt.qdata.numel() + side + mg * n * 2,
+                            2 * mg * n * k, "bf16"),
+                   t(lambda x=x, b=bias: F.linear(x, wb, b.bfloat16()),
+                     reps=20),
+                   f"M{mg} K{k} N{n} {label(fmt, gsize)} bit-plane "
+                   f"({'modulation' if mg == 1 else 'many rows'})",
+                   path="dyn_r1", count="dequant_gemv:bitplane",
+                   on_path=mg == 1)
         del qt, wb, x
 
     for fmt, gsize, nu, m, k, n in (
@@ -1238,7 +1293,7 @@ def dynamic_kernel_rows(torch, dev, g, t, record):
                lambda: kd.blockdiag_mm(*args),
                t(lambda: kd.blockdiag_mm_plain(*args), reps=5),
                bound_ms(k * 2 + qt.qdata.numel() + side + n * 2, 2 * n * k,
-                        "fp32"),
+                        "bf16"),
                t(lambda: F.linear(x, wb, bias.bfloat16()), reps=20),
                f"M1 K{k} N{n} {label(fmt, gsize)} half-split {mode}",
                path="dyn_r2", count=f"blockdiag_mm:{mode}",
@@ -2834,17 +2889,19 @@ _GROUPS = (
     ("B2 dequant_gemv", ("dequant_gemv_kernel",)),
     ("B2 tiles: decode bit-plane", ("decode_weight_bitplane",)),
     ("B2 tiles: decode grouped / row", ("decode_weight_unpacked",)),
+    ("B7: decode half-split into int8", ("decode_weight_halfsplit<signed char",
+                                         "decode_weight_halfsplit<char")),
     ("B5: decode half-split", ("decode_weight_halfsplit",)),
     ("GEMM, bias epilogue (B2 grouped / bit-plane)", ("wgmma_mm_kernel<0",)),
     ("GEMM, row epilogue (B2 row mode)", ("wgmma_mm_kernel<1",)),
     ("GEMM, group fold (B5)", ("wgmma_mm_kernel<2", "wgmma_mm_kernel<3")),
+    ("GEMM, int8 group fold (B7)", ("wgmma_i8_fold_kernel",)),
     ("B9 flash_attention_block (bf16 / int8 P.V, token-mode int8 P.V)",
      ("float, true>",)),
     ("B3 flash_attention", ("flash_attn_kernel",)),
     ("B6 blockdiag_mm general (multi-plane, minifloat)",
      ("blockdiag_mm_kernel_gen",)),
     ("B6 blockdiag_mm", ("blockdiag_mm_kernel",)),
-    ("B7 groupdot_i8_mm", ("groupdot_mm_kernel",)),
     ("B3 flash_attention, token-mode int8 P.V", ("flash_attn_tok_kernel",)),
     ("B8 blockdiag_i8_mm", ("blockdiag_i8_mm_kernel",)),
     ("B10 scaled_mm_tn", ("scaled_mm_tn_kernel",)),
@@ -2978,9 +3035,10 @@ FAULTS = (
      "uint4_wo", [("const float sc = scale[(size_t)o * G + gi];",
                    "const float sc = scale[(size_t)o * G + (gi + G - 1) % G];"
                    )]),
-    ("groupdot_i8_keeps_the_other_field_bits", "groupdot_mm",
+    ("groupdot_i8_keeps_the_other_field_bits", "decode_weight",
      "groupdot_i8_mm", "uint4_qmm",
-     [("return (v >> sh) & MASK4;", "return (v >> sh) & 0xffffffffu;")]),
+     [("c[j] |= ((byte >> sh) & mask) << hs.shift[p];",
+       "c[j] |= (byte >> sh) << hs.shift[p];")]),
     ("attn_mask_ignored_on_first_tile", "flash_attn",
      "flash_attention:masked", "llm_bf16kv",
      [("const bool use_mask = masked && mr0 != nullptr;",
@@ -3035,9 +3093,9 @@ FAULTS = (
     ("b2_bitplane_planes_reversed", "decode_weight", "dequant_mm:bitplane",
      "dyn_r1", [("row + (size_t)j * S + b", "row + (size_t)(bits - 1 - j) * S + b")]),
     ("b2_minifloat_flushes_subnormals", "decode_weight", "dequant_mm:bitplane",
-     "dyn_r1", [("common.cuh", "v = __fsub_rn(2.f * v, __uint_as_float("
-                 "static_cast<unsigned>(128 - f.bias) << 23));",
-                 "v = 0.f;")]),
+     "dyn_r1", [("common.cuh", "return __fmul_rn(__uint_as_float(b), f.pow2);",
+                 "return __fmul_rn(__uint_as_float(b & 0x7f800000u ? b : 0u), "
+                 "f.pow2);")]),
     ("b5_ignores_the_second_field_plane", "decode_weight",
      "groupdot_mm:multiplane", "dyn_r2",
      [("if (p < hs.n) {", "if (p < 1) {")]),
@@ -3050,8 +3108,20 @@ FAULTS = (
      "pipeline", [("const int ncols = min(BN, N - n0);",
                    "const int ncols = N - n0 < BN ? 0 : BN;")]),
     ("b6_drops_the_minifloat_sign", "blockdiag_mm", "blockdiag_mm:minifloat",
-     "dyn_r2", [("common.cuh", "if (f.is_signed && ((code >> em) & 1u)) "
-                 "v = -v;", "")]),
+     "dyn_r2", [("common.cuh", " | ((code << f.sign_shift) & 0x80000000u);",
+                 ";")]),
+    ("b7_fold_takes_the_next_groups_xsum", "wgmma_mm", "groupdot_i8_mm",
+     "uint4_qmm", [("xsum + (size_t)gi * M + (row < M ? row : 0)",
+                    "xsum + (size_t)((gi + 1) % (K / g)) * M + "
+                    "(row < M ? row : 0)")]),
+    ("b7_partial_not_restarted_at_group_end", "wgmma_mm", "groupdot_i8_mm",
+     "uint4_qmm", [("const int acc_in = ka != k0;", "const int acc_in = ka != 0;")]),
+    ("gemv_bitplane_planes_reversed", "dequant_gemv", "dequant_gemv:bitplane",
+     "dyn_r1", [("const uint8_t* p = wr + (size_t)j * S + b;",
+                 "const uint8_t* p = wr + (size_t)(bits - 1 - j) * S + b;")]),
+    ("gemv_bitplane_x_one_code_late", "dequant_gemv", "dequant_gemv:bitplane",
+     "dyn_r1", [("sdnq::to_f32(x[(size_t)(r >> 3) * K + (size_t)i * S + b])",
+                 "sdnq::to_f32(x[(size_t)(r >> 3) * K + (size_t)i * S + b + 1])")]),
     ("b9_writes_acc_normalised", "flash_attn", "flash_attention_block",
      "ring",
      [("make_float2(o_acc[dt][0], o_acc[dt][1]);",
@@ -3264,13 +3334,15 @@ def main() -> int:
         qmm = with_quantized_matmul(qparams)
         counts["uint4_qmm"] = denoise_path(
             torch, dev, qmm, "uint4_qmm", 1, 2,
-            ("groupdot_i8_mm", "blockdiag_mm", "quantize_rows",
+            ("groupdot_i8_mm", "decode_weight:halfsplit_i8",
+             "wgmma_mm:fold_i8", "blockdiag_mm", "quantize_rows",
              "scaled_gemm", "flash_attention"))
         slices["uint4_wo"] = cut(qparams)
         slices["uint4_qmm"] = cut(qmm)
         slice_phase(torch, dev, slices["uint4_wo"], "uint4_wo")
         slice_phase(torch, dev, slices["uint4_qmm"], "uint4_qmm")
         profile_phase(torch, dev, qparams, "uint4_wo")
+        profile_phase(torch, dev, qmm, "uint4_qmm")
         del qparams, qmm
         torch.cuda.empty_cache()
 

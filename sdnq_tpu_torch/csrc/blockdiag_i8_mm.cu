@@ -4,7 +4,7 @@
 //               + bias[o]
 //   P_g[m, o] = sum_{k in group g} xq[m, k] * c[o, k]        (exact int32)
 //
-// The same function as B7 (csrc/groupdot_mm.cu kind 1); c are the raw codes
+// The same function as B7 (csrc/wgmma_mm.cu's int8 fold); c are the raw codes
 // 0 .. 2^BITS - 1 of a half-split row (byte b of the seg = K * BITS / 8
 // packed bytes carries code t * seg + b in bit field t), zpc folds the zero
 // point and the offset-binary minimum, xsum is the per-row group sum of the

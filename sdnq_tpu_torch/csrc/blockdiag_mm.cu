@@ -3,7 +3,7 @@
 //   y[m, o] = sum_g scale[o, g] * (x_g[m] . c_g[o]) + xsum[m, g] * zpc[o, g]
 //             (+ bias[o])
 //
-// the same function as B5 (csrc/groupdot_mm.cu, which explains the layout
+// the same function as B5 (kernels/dequant_mm.py explains the layout
 // and zpc), for M <= 8 rows.  Replaces sdnq_tpu/kernels/dequant_mm.py
 // `_blockdiag_kernel` (:593, wrapper `_blockdiag_mm_pallas` :655).  The TPU
 // kernel expands x block-diagonally so that one matrix-unit dot yields
@@ -284,19 +284,19 @@ extern "C" int sdnq_blockdiag_mm(const void* x, const void* w, const void* scale
 
 // B6's general mode: x (M, K) of x_kind (f32 or bf16); w (O, K*bits/8)
 // half-split uint8 of `bits` (1..7) bits; integer codes (is_float 0, raw)
-// or minifloat codes (is_float 1 and the format's e, m, bias, is_signed);
+// or minifloat codes (is_float 1 and the format's e, m, bias);
 // scale, zpc (O, K/g) f32; bias (O,) f32 or null; out (M, O) of out_kind
 // (f32 or bf16).  1 <= M <= 8; 8 divides g and the narrowest plane's
 // segment.
 extern "C" int sdnq_blockdiag_mm_gen(const void* x, const void* w, const void* scale,
                                      const void* zpc, const void* bias, void* out, int M, int K,
                                      int O, int g, int bits, int is_float, int e, int m, int fbias,
-                                     int is_signed, int x_kind, int out_kind, void* stream) {
+                                     int x_kind, int out_kind, void* stream) {
   if (bits < 1 || bits > 7 || M < 1 || M > 8 || g <= 0 || K % g != 0 || g % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int pmax = (bits & 1) ? 8 : (bits & 2) ? 4 : 2;
   if (K % pmax != 0 || (K / pmax) % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const sdnq::CodeFmt f{is_float, 0, e, m, fbias, is_signed};
+  const sdnq::CodeFmt f = sdnq::code_fmt(is_float, 0, e, m, fbias);
   const uint8_t* wp = static_cast<const uint8_t*>(w);
   const float* s = static_cast<const float*>(scale);
   const float* z = static_cast<const float*>(zpc);

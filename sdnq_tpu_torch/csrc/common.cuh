@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cmath>
+
 namespace sdnq {
 
 enum { F32 = 0, BF16 = 1, F16 = 2 };
@@ -51,29 +53,98 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool val
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 // How a packed code becomes a value (sdnq_tpu/packing.py decode_float and
-// the offset-binary integers of packing.pack).  Integer formats: code +
-// code_min.  Minifloats (sign | e exponent bits | m mantissa bits, bias
-// 2^(e-1) - 1, subnormals, no inf or nan; e <= 5 in the registry): the
-// exponent|mantissa field goes into the fp32 slots with one shift and add;
-// the subnormal codes then read as 2^-bias * (1 + mant / 2^m), and one
-// exact subtraction of 2^(1-bias) from twice that gives 2^(1-bias) * mant /
-// 2^m.  Every value is exact in fp32 (and in bf16: m <= 6 for the
-// half-split widths, and the bit-plane tiles round scaled values anyway).
+// the offset-binary integers of packing.pack), exactly, in a few
+// operations.  Integer formats: code + code_min, through the fp32 magic
+// number 1.5 * 2^23 (an integer add and one exact subtraction, where a
+// conversion instruction runs at a quarter of the rate; exact below 2^22 in
+// magnitude).  Minifloats (sign | e exponent bits | m mantissa bits, bias
+// 2^(e-1) - 1, subnormals, no inf or nan; unsigned ones have no sign bit):
+// the exponent|mantissa field laid into fp32's slots (exponent field E at
+// bit 23) and the sign bit at bit 31, then one exact multiply by 2^(127 -
+// bias): a normal code reads 2^(E-127)(1 + f) * 2^(127-bias), a subnormal
+// one (E = 0) the fp32 denormal 2^-126 f * 2^(127-bias) = 2^(1-bias) f.
+// (The build keeps fp32 denormals: no -ftz.)  Every value is exact in fp32
+// (and in bf16: m <= 6 for the half-split widths, and the bit-plane kernels
+// round scaled values anyway).
 struct CodeFmt {
-  int is_float;  // 0: value = code + code_min
-  int code_min;
-  int e, m, bias, is_signed;
+  int is_float;
+  int int_base;        // integers: bits of 1.5 * 2^23 plus code_min
+  int mag_shift;       // minifloats: 23 - m
+  unsigned mag_mask;   // the exponent|mantissa field at mag_shift
+  int sign_shift;      // 31 - (e + m)
+  float pow2;          // 2^(127 - bias)
 };
 
+// on the host, for a kernel's argument
+inline CodeFmt code_fmt(int is_float, int code_min, int e, int m, int bias) {
+  CodeFmt r{};
+  r.is_float = is_float;
+  r.int_base = 0x4B400000 + code_min;
+  if (is_float) {
+    r.mag_shift = 23 - m;
+    r.mag_mask = ((1u << (e + m)) - 1u) << r.mag_shift;
+    r.sign_shift = 31 - (e + m);
+    r.pow2 = std::ldexp(1.f, 127 - bias);
+  }
+  return r;
+}
+
+template <bool FLOAT>
 __device__ __forceinline__ float decode_value(unsigned code, const CodeFmt& f) {
-  if (!f.is_float) return static_cast<float>(static_cast<int>(code) + f.code_min);
-  const int em = f.e + f.m;
-  const unsigned mag = code & ((1u << em) - 1u);
-  float v = __uint_as_float((mag << (23 - f.m)) + (static_cast<unsigned>(127 - f.bias) << 23));
-  if (mag < (1u << f.m))  // a subnormal code
-    v = __fsub_rn(2.f * v, __uint_as_float(static_cast<unsigned>(128 - f.bias) << 23));
-  if (f.is_signed && ((code >> em) & 1u)) v = -v;
-  return v;
+  if constexpr (!FLOAT) {
+    return __fsub_rn(__int_as_float(static_cast<int>(code) + f.int_base), 12582912.f);
+  } else {
+    const unsigned b =
+        ((code << f.mag_shift) & f.mag_mask) | ((code << f.sign_shift) & 0x80000000u);
+    return __fmul_rn(__uint_as_float(b), f.pow2);
+  }
+}
+
+__device__ __forceinline__ float decode_value(unsigned code, const CodeFmt& f) {
+  return f.is_float ? decode_value<true>(code, f) : decode_value<false>(code, f);
+}
+
+// The 8 x 8 bit matrix of 8 bytes transposed: bit i of byte j becomes bit
+// j of byte i (Hacker's Delight, transpose8).
+__device__ __forceinline__ uint64_t transpose8(uint64_t x) {
+  uint64_t t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAull;
+  x = x ^ t ^ (t << 7);
+  t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCull;
+  x = x ^ t ^ (t << 14);
+  t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ull;
+  return x ^ t ^ (t << 28);
+}
+
+// Bit-plane codes (sdnq_tpu/packing.py pack_codes): bit i of byte b of
+// plane j is bit j of code i * S + b.  From one 32-bit word of each of 8
+// planes (w[j]: bytes b .. b + 3 of plane j; 0 past the last plane), c[q]
+// holds in its byte i the 8 bits those planes give code i * S + b + q: two
+// 4 x 4 byte transposes gather each byte position's planes, and an 8 x 8
+// bit transpose turns planes into codes.
+__device__ __forceinline__ void bitplane_codes4(const unsigned* w, uint64_t (&c)[4]) {
+  unsigned t[4][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // planes 4h .. 4h + 3; byte q of t[q][h] is plane 4h + j's byte q
+    const unsigned* a = w + 4 * h;
+    const unsigned t0 = __byte_perm(a[0], a[1], 0x5140), t1 = __byte_perm(a[0], a[1], 0x7362);
+    const unsigned t2 = __byte_perm(a[2], a[3], 0x5140), t3 = __byte_perm(a[2], a[3], 0x7362);
+    t[0][h] = __byte_perm(t0, t2, 0x5410);
+    t[1][h] = __byte_perm(t0, t2, 0x7632);
+    t[2][h] = __byte_perm(t1, t3, 0x5410);
+    t[3][h] = __byte_perm(t1, t3, 0x7632);
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) c[q] = transpose8(t[q][0] | (static_cast<uint64_t>(t[q][1]) << 32));
+}
+
+// k / g for 0 <= k < 2^31 with inv = floor((2^32 - 1) / g): the high word
+// of k * inv is k / g or one below it (k * inv / 2^32 > k / g - 1), so one
+// correction makes it exact; a few integer operations where a division
+// takes dozens.
+__device__ __forceinline__ int div_magic(int k, int g, unsigned inv) {
+  int q = static_cast<int>(__umulhi(static_cast<unsigned>(k), inv));
+  q += (q + 1) * g <= k;
+  return q;
 }
 
 // The half-split field planes of a `bits`-wide code (sdnq_tpu/packing.py

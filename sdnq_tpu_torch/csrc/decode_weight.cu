@@ -1,35 +1,40 @@
-// The decode half of B2's tiles and B5: a weight's codes become a bf16
+// The decode half of B2's tiles, B5 and B7: a weight's codes become a
 // weight W' (N, ldo) in natural k order, once a call, for csrc/wgmma_mm.cu.
 //
 //   unpacked, grouped:  W'[o, k] = bf16(code[o, k] * scale[o, k / g] (+ zp[o, k / g]))
 //   unpacked, row mode: W'[o, k] = bf16(code[o, k])                      (exact)
 //   bit-plane:          W'[o, k] = bf16(v(code[o, k]) * scale[o, k / g] (+ zp))
 //   half-split:         W'[o, k] = bf16(v(code[o, k]))                   (exact)
+//   half-split, int8:   W'[o, k] = code[o, k]                     (B7, exact)
 //
-// v is the integer code (plus code_min for bit-plane integers; B5 folds
-// code_min into zpc and takes the raw code) or the minifloat value
-// (sdnq::decode_value).  Columns K .. ldo - 1 (ldo = K rounded up to 8, so
-// that a row is a whole number of 16-byte units for TMA) are written 0.
+// v is the integer code (plus code_min for bit-plane integers; B5 and B7
+// fold code_min into zpc and take the raw code) or the minifloat value
+// (sdnq::decode_value).  bf16 columns K .. ldo - 1 (ldo = K rounded up to
+// 8, so that a row is a whole number of 16-byte units for TMA) are written
+// 0; B7's K is a multiple of 64.
 //
 // Replaces the decode of sdnq_tpu/kernels/dequant_mm.py `_dequant_mm_kernel`
-// (:60: each weight tile decoded into a scratch of x's dtype, :325) and of
+// (:60: each weight tile decoded into a scratch of x's dtype, :325), of
 // `_groupdot_kernel` (:355: a full-K weight block decoded once per column
-// block and reused over the rows).  Here the reuse goes through device
-// memory and L2: the weight is decoded once a call, not once for every
-// 128-row tile of x as the Ampere-style tiles did.  The rounding point of
-// B2's grouped and bit-plane modes stays the function: each scaled weight
-// is one fp32 FMA (or multiply) rounded to bf16 before the product.  B2's
-// row mode and B5 write exact values (int8 / uint8 / e4m3 codes, raw
-// half-split codes below 2^7, minifloats with at most 6 mantissa bits) and
-// apply their scales in the GEMM's epilogue.
+// block and reused over the rows) and of `_groupdot_i8_kernel` (:741: the
+// raw codes of a column block written once into an int8 scratch, :776-781,
+// since every code of 1-7 bits is below 2^7).  Here the reuse goes through
+// device memory and L2: the weight is decoded once a call, not once for
+// every 128-row tile of x as the Ampere-style tiles did.  The rounding point
+// of B2's grouped and bit-plane modes stays the function: each scaled
+// weight is one fp32 FMA (or multiply) rounded to bf16 before the product.
+// B2's row mode, B5 and B7 write exact values (int8 / uint8 / e4m3 codes,
+// raw half-split codes below 2^7, minifloats with at most 6 mantissa bits)
+// and apply their scales in the GEMM's epilogue.
 //
-// Bound by bytes: codes in, 2 bytes a weight out (the GEMM then reads W'
-// again, mostly from L2 for the tiles that run together).  Each thread
-// writes 8 consecutive bf16 values (one 16-byte store) in the unpacked and
-// half-split kernels; the bit-plane kernel takes one byte of every plane
-// (8 codes S apart) a thread, so a warp writes 32 consecutive values of
-// each of the 8 segments, and rebuilds its 8 codes with two 8 x 8 bit
-// transposes (a few operations a code, where a bit at a time took 3 * bits).
+// Bound by bytes: codes in, 2 bytes (B7: 1) a weight out (the GEMM then
+// reads W' again, mostly from L2 for the tiles that run together).  Each
+// thread writes 8 consecutive values (one 16-byte store, B7's 8 bytes) in
+// the unpacked and half-split kernels; the bit-plane kernel takes 4 bytes
+// of every plane a thread, so a warp writes 128 consecutive values of each
+// of the 8 segments, and rebuilds its 32 codes with byte and 8 x 8 bit
+// transposes (sdnq::bitplane_codes4: a few operations a code, where a bit
+// at a time took 3 * bits).
 #include <cuda_fp8.h>
 
 #include <type_traits>
@@ -106,71 +111,51 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// The 8 x 8 bit matrix of 8 bytes transposed: bit i of byte j becomes bit
-// j of byte i (Hacker's Delight, transpose8).
-__device__ __forceinline__ uint64_t transpose8(uint64_t x) {
-  uint64_t t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAull;
-  x = x ^ t ^ (t << 7);
-  t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCull;
-  x = x ^ t ^ (t << 14);
-  t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ull;
-  return x ^ t ^ (t << 28);
-}
-
-// k / g for 0 <= k < 2^24 by a float reciprocal and one correction
-__device__ __forceinline__ int div_small(int k, int g, float inv_g) {
-  int q = __float2int_rz(__int2float_rn(k) * inv_g);
-  q += (q + 1) * g <= k;
-  q -= q * g > k;
-  return q;
-}
-
 // Bit-plane codes (sdnq_tpu/packing.py pack_codes): a row of K codes, padded
 // to 8 * S, is `bits` planes of S bytes; bit i of byte b of plane j is bit j
 // of code k = i * S + b.  One thread: Q consecutive bytes b .. b + Q - 1 of
-// every plane (one Q-byte load a plane), codes i * S + b + q, each byte's 8
-// codes rebuilt by two 8 x 8 bit transposes (planes 0-7 and 8-15).  Q = 4
-// where S and the group are multiples of 4: the Q codes of a segment then
-// lie in one group and go out in one 8-byte store.
-// 8 * S = ldo, so every column of W' is written once.
+// every plane, codes i * S + b + q.  Q = 4 where S and the group are
+// multiples of 4: one 4-byte load a plane, the codes rebuilt by
+// sdnq::bitplane_codes4 (planes 0-7 and 8-15), the Q codes of a segment in
+// one group and one 8-byte store; else a byte a plane and one 8 x 8 bit
+// transpose.  8 * S = ldo, so every column of W' is written once.
 template <int Q>
 __global__ void __launch_bounds__(NT)
     decode_weight_bitplane(const uint8_t* __restrict__ W, const float* __restrict__ scale,
                            const float* __restrict__ zp, __nv_bfloat16* __restrict__ out, int N,
-                           int K, int S, int bits, int G, int g, sdnq::CodeFmt f) {
-  using Word = typename std::conditional<Q == 4, unsigned, uint8_t>::type;
+                           int K, int S, int bits, int G, int g, unsigned ginv, sdnq::CodeFmt f) {
   const int b = (blockIdx.x * NT + threadIdx.x) * Q;
   if (b >= S) return;
-  const float inv_g = 1.f / static_cast<float>(g);
   for (int n = blockIdx.y; n < N; n += gridDim.y) {
     const uint8_t* row = W + (size_t)n * bits * S;
-    uint64_t lo[Q], hi[Q];  // byte j of lo[q]: plane j's byte b + q (planes 8 + j in hi)
+    uint64_t lo[Q], hi[Q];  // byte i of lo[q]: bits 0-7 of code i * S + b + q (8-15 in hi)
+    if constexpr (Q == 4) {
+      unsigned pl[16];
 #pragma unroll
-    for (int q = 0; q < Q; ++q) lo[q] = hi[q] = 0;
+      for (int j = 0; j < 16; ++j)
+        pl[j] = j < bits ? *reinterpret_cast<const unsigned*>(row + (size_t)j * S + b) : 0u;
+      sdnq::bitplane_codes4(pl, lo);
+      sdnq::bitplane_codes4(pl + 8, hi);
+    } else {
+      lo[0] = hi[0] = 0;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      if (j < bits) {
-        const unsigned pl = *reinterpret_cast<const Word*>(row + (size_t)j * S + b);
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const uint64_t byte = (pl >> (8 * q)) & 0xffu;
+      for (int j = 0; j < 16; ++j) {
+        if (j < bits) {
+          const uint64_t byte = row[(size_t)j * S + b];
           if (j < 8)
-            lo[q] |= byte << (8 * j);
+            lo[0] |= byte << (8 * j);
           else
-            hi[q] |= byte << (8 * (j - 8));
+            hi[0] |= byte << (8 * (j - 8));
         }
       }
-    }
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      lo[q] = transpose8(lo[q]);
-      hi[q] = transpose8(hi[q]);
+      lo[0] = sdnq::transpose8(lo[0]);
+      hi[0] = sdnq::transpose8(hi[0]);
     }
     __nv_bfloat16* o = out + (size_t)n * 8 * S;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int k = i * S + b;  // the first of this segment's Q codes
-      const size_t gi = (size_t)n * G + (G == 1 ? 0 : div_small(k, g, inv_g));
+      const size_t gi = (size_t)n * G + (G == 1 ? 0 : sdnq::div_magic(k, g, ginv));
       float w[Q];
 #pragma unroll
       for (int q = 0; q < Q; ++q) {
@@ -196,10 +181,13 @@ __global__ void __launch_bounds__(NT)
 // of plane p, and plane p contributes its field shifted left by shift[p].
 // One thread: 8 consecutive codes k0 .. k0 + 7, which lie in 8 consecutive
 // bytes (one 8-byte load) of each plane, since every seg[p] is a multiple
-// of 8.
+// of 8.  OutT bf16 (B5): the raw code or the minifloat value; int8 (B7):
+// the raw integer code, below 2^7, as an int8 (the operand of the int8
+// GEMM), 8 codes in one 8-byte store.
+template <typename OutT>
 __global__ void __launch_bounds__(NT)
-    decode_weight_halfsplit(const uint8_t* __restrict__ W, __nv_bfloat16* __restrict__ out, int N,
-                            int K, int bits, sdnq::CodeFmt f) {
+    decode_weight_halfsplit(const uint8_t* __restrict__ W, OutT* __restrict__ out, int N, int K,
+                            int bits, sdnq::CodeFmt f) {
   const int k0 = (blockIdx.x * NT + threadIdx.x) * 8;
   if (k0 >= K) return;
   const sdnq::HalfSplit hs = sdnq::halfsplit_planes(bits, K);
@@ -220,11 +208,17 @@ __global__ void __launch_bounds__(NT)
         }
       }
     }
-    float v[8];
+    if constexpr (std::is_same<OutT, int8_t>::value) {
+      *reinterpret_cast<uint2*>(out + (size_t)n * K + k0) =
+          make_uint2(c[0] | c[1] << 8 | c[2] << 16 | c[3] << 24,
+                     c[4] | c[5] << 8 | c[6] << 16 | c[7] << 24);
+    } else {
+      float v[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      v[j] = f.is_float ? sdnq::decode_value(c[j], f) : static_cast<float>(c[j]);
-    store8(out + (size_t)n * K + k0, v);
+      for (int j = 0; j < 8; ++j)
+        v[j] = f.is_float ? sdnq::decode_value(c[j], f) : static_cast<float>(c[j]);
+      store8(out + (size_t)n * K + k0, v);
+    }
   }
 }
 
@@ -271,42 +265,50 @@ extern "C" int sdnq_decode_unpacked(const void* w, const void* scale, const void
 
 // Bit-plane codes w (N, bits * S), S = ceil(K / 8), into out (N, 8 * S)
 // bf16; scale, zp (N, G) f32 (zp may be null), g = K / G; the code format
-// as sdnq::CodeFmt's fields.
+// as sdnq::code_fmt's arguments.
 extern "C" int sdnq_decode_bitplane(const void* w, const void* scale, const void* zp, void* out,
                                     int N, int K, int S, int G, int bits, int is_float,
-                                    int code_min, int e, int m, int fbias, int is_signed,
-                                    void* stream) {
+                                    int code_min, int e, int m, int fbias, void* stream) {
   if (N < 0 || K < 1 || S != (K + 7) / 8 || G < 1 || K % G != 0 || bits < 1 || bits > 16 ||
       !scale)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
-  const sdnq::CodeFmt f{is_float, code_min, e, m, fbias, is_signed};
+  const sdnq::CodeFmt f = sdnq::code_fmt(is_float, code_min, e, m, fbias);
   const uint8_t* W = static_cast<const uint8_t*>(w);
   const float* s = static_cast<const float*>(scale);
   const float* z = static_cast<const float*>(zp);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S % 4 == 0 && (G == 1 || (K / G) % 4 == 0))
-    decode_weight_bitplane<4><<<grid(S / 4, N), NT, 0, st>>>(W, s, z, o, N, K, S, bits, G, K / G,
+  const int g = K / G;
+  const unsigned ginv = 0xffffffffu / static_cast<unsigned>(g);
+  if (S % 4 == 0 && (G == 1 || g % 4 == 0))
+    decode_weight_bitplane<4><<<grid(S / 4, N), NT, 0, st>>>(W, s, z, o, N, K, S, bits, G, g, ginv,
                                                              f);
   else
-    decode_weight_bitplane<1><<<grid(S, N), NT, 0, st>>>(W, s, z, o, N, K, S, bits, G, K / G, f);
+    decode_weight_bitplane<1><<<grid(S, N), NT, 0, st>>>(W, s, z, o, N, K, S, bits, G, g, ginv, f);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Half-split codes w (N, K * bits / 8) of 1..7 bits into out (N, K) bf16:
-// the raw integer code (is_float 0) or the minifloat value (is_float 1 and
-// the format's e, m, bias, is_signed).  Every plane's segment a multiple of
-// 8 bytes: K * (narrowest width) / 8 a multiple of 8.
+// Half-split codes w (N, K * bits / 8) of 1..7 bits into out (N, K): bf16
+// (out_i8 0) the raw integer code (is_float 0) or the minifloat value
+// (is_float 1 and the format's e, m, bias); int8 (out_i8 1) the
+// raw integer code.  Every plane's segment a multiple of 8 bytes: K *
+// (narrowest width) / 8 a multiple of 8.
 extern "C" int sdnq_decode_halfsplit(const void* w, void* out, int N, int K, int bits,
-                                     int is_float, int e, int m, int fbias, int is_signed,
+                                     int is_float, int e, int m, int fbias, int out_i8,
                                      void* stream) {
   const int wmin = bits & -bits;  // the narrowest plane's width
-  if (N < 0 || K < 1 || bits < 1 || bits > 7 || K * wmin % 64 != 0)
+  if (N < 0 || K < 1 || bits < 1 || bits > 7 || K * wmin % 64 != 0 || (out_i8 && is_float))
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
-  const sdnq::CodeFmt f{is_float, 0, e, m, fbias, is_signed};
-  decode_weight_halfsplit<<<grid(K / 8, N), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(w), static_cast<__nv_bfloat16*>(out), N, K, bits, f);
+  const sdnq::CodeFmt f = sdnq::code_fmt(is_float, 0, e, m, fbias);
+  const uint8_t* W = static_cast<const uint8_t*>(w);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_i8)
+    decode_weight_halfsplit<int8_t><<<grid(K / 8, N), NT, 0, st>>>(
+        W, static_cast<int8_t*>(out), N, K, bits, f);
+  else
+    decode_weight_halfsplit<__nv_bfloat16><<<grid(K / 8, N), NT, 0, st>>>(
+        W, static_cast<__nv_bfloat16*>(out), N, K, bits, f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,37 +1,43 @@
-// The GEMM half of B2's tiles and B5: out = x @ W'ᵀ on Hopper's tensor
-// cores, W' the bf16 weight that csrc/decode_weight.cu writes once a call,
-// with one of three epilogues:
+// The GEMM half of B2's tiles, B5 and B7: out = x @ W'ᵀ on Hopper's tensor
+// cores, W' the weight that csrc/decode_weight.cu writes once a call, with
+// one of four epilogues:
 //
 //   EPI_BIAS  out[m, o] = acc[m, o] (+ bias[o])                 B2 grouped, bit-plane
 //   EPI_ROW   out[m, o] = acc * scale[o] (+ xsum[m] * zp[o]) (+ bias[o])   B2 row mode
 //   EPI_FOLD  acc = sum_g acc_g: at each group's end
 //             acc = acc + part_g * scale[o, g];  acc = acc + xsum[m, g] * zpc[o, g]
 //             then out = acc (+ bias[o])                         B5's group-dot algebra
+//   B7 (wgmma_i8_fold_kernel): x and W' int8, part_g the int32 product,
+//             folded as EPI_FOLD with float(part_g), then out = acc * xs[m] (+ bias[o])
 //
-// part_g is the fp32 product of group g alone (a register accumulator of
-// its own that each group starts afresh, wgmma's scale-d = 0).  Every
-// epilogue operation rounds once (__fmul_rn / __fadd_rn), in the order of
-// the plain versions.
+// part_g is the product of group g alone (a register accumulator of its
+// own that each group starts afresh, wgmma's scale-d = 0): fp32 for bf16
+// operands, an exact int32 for B7's.  Every epilogue operation rounds once
+// (__fmul_rn / __fadd_rn), in the order of the plain versions, so B7 equals
+// its plain version bit for bit.
 //
 // Replaces the tensor-core half of sdnq_tpu/kernels/dequant_mm.py
-// `_dequant_mm_kernel` (:60, wrapper :245) and `_groupdot_kernel` (:355,
-// wrapper :471).  At the FLUX.1-dev shapes (M 4096-4608, K 3072-15360) the
-// product is bound by bf16 tensor-core operations (2 M N K), so the design
-// is Hopper's: x and W' tiles arrive by TMA (128-byte swizzle, the zero fill
-// takes the M, N and K tails) in a ring of stages guarded by mbarriers; one
+// `_dequant_mm_kernel` (:60, wrapper :245), `_groupdot_kernel` (:355,
+// wrapper :471) and `_groupdot_i8_kernel` (:741, wrapper :808).  At the
+// FLUX.1-dev shapes (M 4096-4608, K 3072-15360) the product is bound by
+// tensor-core operations (2 M N K; bf16, or int8 at twice the rate), so
+// the design is Hopper's: x and W' tiles arrive by TMA (128-byte swizzle, a
+// stage row of 128 bytes: 64 bf16 or 128 int8 values; the zero fill takes
+// the M, N and K tails) in a ring of stages guarded by mbarriers; one
 // producer warp issues the loads; two consumer warpgroups each run wgmma
 // (both operands in shared memory, K-major) on 64 rows of the tile: 128 x
 // 256 with m64n256k16 for the bias and row epilogues (128 x 128 where that
-// fills the card in fewer rounds), 128 x 128 with m64n128k16 for the fold,
-// whose group products take the registers.  One wgmma group stays in
-// flight while the next stage is issued.  Groups of whole stages alternate
-// two products, so a group is folded while the next one's wgmmas run;
-// groups that end inside a stage wait for their wgmmas.  The fold's terms
-// are copied to shared memory a group ahead, from group-major arrays: one
+// fills the card in fewer rounds), 128 x 128 with m64n128k16 for the fold
+// and m64n128k32 s8 for B7, whose group products take the registers.  One
+// wgmma group stays in flight while the next stage is issued.  B5's groups
+// of whole stages alternate two products, so a group is folded on the CUDA
+// cores while the next one's wgmmas run; its groups that end inside a
+// stage, and all of B7's, wait for their wgmmas.  The fold's terms are
+// copied to shared memory two groups ahead, from group-major arrays: one
 // coalesced row a group (read column by column from (N, G), they slowed
-// the fold at K 15360).  The blocks persist, one an
-// SM, walking tiles with M fastest so that x stays in L2 and the producer
-// fills the next tile's stages while the consumers store the last one.
+// the fold at K 15360).  The blocks persist, one an SM, walking tiles with
+// M fastest so that x stays in L2 and the producer fills the next tile's
+// stages while the consumers store the last one.
 //
 // A barrier wait that lasts longer than TRAP_CYCLES (over 30 s) traps: the
 // launch fails and the next synchronising call raises, where a broken
@@ -126,6 +132,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // D(64 x 128, f32) (+)= A(64 x 16, bf16) * B(128 x 16, bf16)ᵀ; D is
 // overwritten where scale_d is 0.  Thread t of the warpgroup holds, for
@@ -194,6 +205,31 @@ __device__ __forceinline__ void wgmma256(float (&d)[128], uint64_t da, uint64_t 
       : "l"(da), "l"(db));
 }
 
+// D(64 x 128, s32) (+)= A(64 x 32, s8) * B(128 x 32, s8)ᵀ, both K-major (the
+// only layout of 8-bit operands); D is overwritten where scale_d is 0.  The
+// fragment layout of D is wgmma128's.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // two neighbouring outputs in one store (the address is a multiple of two)
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -203,6 +239,107 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__half* p, float a, float b) {
   *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+// The producer's loop: one thread issues each stage's two TMA loads (BM
+// rows of x and BN of W', BKE elements of K) into a ring of ST stages, the
+// tiles walked as the consumers walk them.  It waits for a stage's last
+// load before re-arming it, and for every load before it returns.
+template <int ST, int STAGE_BYTES, int A_BYTES, int BKE, int BN>
+__device__ __forceinline__ void produce(const CUtensorMap* tx, const CUtensorMap* tw,
+                                        uint8_t* smem, uint64_t* full, uint64_t* empty, int mt,
+                                        int tiles, int nk) {
+  int it = 0;  // stages filled so far: stage it % ST, round it / ST
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile % mt) * BM, n0 = (tile / mt) * BN;
+    for (int kb = 0; kb < nk; ++kb, ++it) {
+      const int s = it % ST;
+      mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);  // the first round passes at once
+      // and the stage's last load has landed (implied by the consumers'
+      // release; waited for all the same, so that a stage never has two
+      // loads in flight on its barrier)
+      if (it >= ST) mbar_wait(&full[s], ((it / ST) & 1) ^ 1);
+      mbar_expect_tx(&full[s], STAGE_BYTES);
+      tma_load(smem + s * STAGE_BYTES, tx, &full[s], kb * BKE, m0);
+      tma_load(smem + s * STAGE_BYTES + A_BYTES, tw, &full[s], kb * BKE, n0);
+    }
+  }
+  // no load may be in flight when the block exits
+  for (int j = it > ST ? it - ST : 0; j < it; ++j) mbar_wait(&full[j % ST], (j / ST) & 1);
+}
+
+// The group fold's terms: each group's scale and zero-point terms of a
+// tile's 128 columns and xsum of a warpgroup's 64 rows, copied to shared
+// memory (three buffers of 320 floats a warpgroup) two groups ahead, so
+// that the copies overlap two groups' wgmmas and folds.
+struct FoldTerms {
+  float* buf;  // the warpgroup's three buffers
+  const float *scale, *zpc, *xsum;  // (G, N), (G, N), (G, M)
+  int g, t, wg, m0, n0, M, N, K;
+  __device__ __forceinline__ void load(int gi) const {
+    float* d = buf + (gi % 3) * 320;
+    const int col = n0 + t, row = m0 + wg * 64 + t;
+    sdnq::cp_async4(d + t, scale + (size_t)gi * N + (col < N ? col : 0), col < N);
+    sdnq::cp_async4(d + 128 + t, zpc + (size_t)gi * N + (col < N ? col : 0), col < N);
+    if (t < 64) sdnq::cp_async4(d + 256 + t, xsum + (size_t)gi * M + (row < M ? row : 0), row < M);
+    sdnq::cp_async_commit();
+  }
+  // a tile's first two groups; every thread of the warpgroup is done with
+  // the last tile's buffers
+  __device__ __forceinline__ void start() const {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    load(0);
+    if (g < K) load(1);
+  }
+  // group gi's terms, once every thread of the warpgroup has them (the
+  // copy of group gi + 1 may still be in flight); group gi + 2's copy
+  // starts into the buffer of group gi - 1, which every thread is done with
+  __device__ __forceinline__ const float* get(int gi) const {
+    if ((gi + 1) * g < K)
+      sdnq::cp_async_wait<1>();
+    else
+      sdnq::cp_async_wait<0>();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if ((gi + 2) * g < K) load(gi + 2);
+    return buf + (gi % 3) * 320;
+  }
+};
+
+// A consumer thread's share of a tile's outputs: rows r0 and r0 + 8,
+// columns 128 h + 8 j + cq + {0, 1} from acc[64 h + 4 j + 2 hr + c], each
+// out = epi(acc, row_term(row), col); two neighbouring columns a store
+// where they can pair.
+template <int NB, typename OutT, typename RowTerm, typename Epilogue>
+__device__ __forceinline__ void store_tile(const float (&acc)[NB * 64], OutT* __restrict__ out,
+                                           int r0, int n0, int cq, int M, int N, RowTerm row_term,
+                                           Epilogue epi) {
+  constexpr int BN = 128 * NB;
+  const int ncols = min(BN, N - n0);
+  const bool pairs = N % 2 == 0;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + 8 * hr;
+    if (row >= M) continue;
+    const float rt = row_term(row);
+    OutT* orow = out + (size_t)row * N + n0;
+#pragma unroll
+    for (int h = 0; h < NB; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int cc = 128 * h + 8 * j + cq;
+        if (cc >= ncols) continue;
+        float v[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          v[c] = epi(acc[64 * h + 4 * j + 2 * hr + c], rt, n0 + min(cc + c, ncols - 1));
+        if (pairs && cc + 1 < ncols) {
+          store2(orow + cc, v[0], v[1]);
+        } else {
+          orow[cc] = sdnq::from_f32<OutT>(v[0]);
+          if (cc + 1 < ncols) orow[cc + 1] = sdnq::from_f32<OutT>(v[1]);
+        }
+      }
+  }
 }
 
 // Tiles of 128 x 128 NB: the bias and row epilogues keep one fp32
@@ -216,8 +353,8 @@ struct Tile {
   static constexpr int ST = NB == 2 ? 4 : 6;  // stages
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int STAGE_BYTES = A_BYTES + BN * BK * 2;
-  // + barriers, the fold's terms (two warpgroups x two buffers), alignment
-  static constexpr int SMEM_BYTES = ST * STAGE_BYTES + 2 * ST * 8 + (NB == 1 ? 4 * 320 * 4 : 0) + 1024;
+  // + barriers, the fold's terms (two warpgroups x three buffers), alignment
+  static constexpr int SMEM_BYTES = ST * STAGE_BYTES + 2 * ST * 8 + (NB == 1 ? 6 * 320 * 4 : 0) + 1024;
 };
 
 // A persistent kernel: block b takes output tiles b, b + gridDim.x, ..,
@@ -233,8 +370,9 @@ __global__ void __launch_bounds__(NT, 1)
   constexpr int A_BYTES = T::A_BYTES, STAGE_BYTES = T::STAGE_BYTES;
   constexpr bool FOLD = EPI == EPI_FOLD || EPI == EPI_FOLD_FINE;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  // the first 1024-byte boundary (an offset from smem_raw, so that the
+  // compiler keeps the shared address space: shared loads, not generic)
+  uint8_t* smem = smem_raw + ((1024u - (sdnq::smem_addr(smem_raw) & 1023u)) & 1023u);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * STAGE_BYTES);
   uint64_t* empty = full + ST;
   const int mt = (M + BM - 1) / BM;
@@ -253,25 +391,8 @@ __global__ void __launch_bounds__(NT, 1)
 
   if (wg == 2) {  // the producer warpgroup: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 256) {
-      int it = 0;  // stages filled so far: stage it % ST, round it / ST
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = (tile % mt) * BM, n0 = (tile / mt) * BN;
-        for (int kb = 0; kb < nk; ++kb, ++it) {
-          const int s = it % ST;
-          mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);  // the first round passes at once
-          // and the stage's last load has landed (implied by the consumers'
-          // release; waited for all the same, so that a stage never has two
-          // loads in flight on its barrier)
-          if (it >= ST) mbar_wait(&full[s], ((it / ST) & 1) ^ 1);
-          mbar_expect_tx(&full[s], STAGE_BYTES);
-          tma_load(smem + s * STAGE_BYTES, &tx, &full[s], kb * BK, m0);
-          tma_load(smem + s * STAGE_BYTES + A_BYTES, &tw, &full[s], kb * BK, n0);
-        }
-      }
-      // no load may be in flight when the block exits
-      for (int j = it > ST ? it - ST : 0; j < it; ++j) mbar_wait(&full[j % ST], (j / ST) & 1);
-    }
+    if (threadIdx.x == 256)
+      produce<ST, STAGE_BYTES, A_BYTES, BK, BN>(&tx, &tw, smem, full, empty, mt, tiles, nk);
   } else {  // consumer warpgroups 0 and 1: rows 64 wg .. 64 wg + 63 of a tile
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int lane = threadIdx.x & 31, wr = (threadIdx.x & 127) >> 5, t = threadIdx.x & 127;
@@ -284,11 +405,9 @@ __global__ void __launch_bounds__(NT, 1)
     };
     int pending = -1;  // the stage whose wgmmas may still be in flight
     int it = 0;        // stages consumed so far
-    // EPI_FOLD*: each group's scale and zero-point terms of the tile's 128
-    // columns and xsum of the warpgroup's 64 rows, copied to shared memory
-    // (two buffers a warpgroup) a group ahead, so the copies overlap the
-    // group's wgmmas
-    float* fbuf = reinterpret_cast<float*>(smem + ST * STAGE_BYTES + 2 * ST * 8) + wg * 640;
+    // EPI_FOLD*: the fold's terms, a group ahead
+    FoldTerms terms{reinterpret_cast<float*>(smem + ST * STAGE_BYTES + 2 * ST * 8) + wg * 960,
+                    e.scale, e.zp, e.xsum, e.g, t, wg, 0, 0, M, N, K};
     if constexpr (FOLD) {
       // warpgroup 1 starts once warpgroup 0 has issued its first stage, so
       // that the two fold at different times
@@ -300,28 +419,12 @@ __global__ void __launch_bounds__(NT, 1)
       const int r0 = m0 + wg * 64 + wr * 16 + (lane >> 2);  // this thread's rows r0, r0 + 8
 #pragma unroll
       for (int i = 0; i < NB * 64; ++i) acc[i] = 0.f;
-      auto load_group = [&](int gi) {
-        float* d = fbuf + (gi & 1) * 320;
-        const int col = n0 + t, row = m0 + wg * 64 + t;
-        sdnq::cp_async4(d + t, e.scale + (size_t)gi * N + (col < N ? col : 0), col < N);
-        sdnq::cp_async4(d + 128 + t, e.zp + (size_t)gi * N + (col < N ? col : 0), col < N);
-        if (t < 64)
-          sdnq::cp_async4(d + 256 + t, e.xsum + (size_t)gi * M + (row < M ? row : 0), row < M);
-        sdnq::cp_async_commit();
-      };
-      // group gi's terms, from its buffer once every thread of the
-      // warpgroup has them; the next group's copy starts into the other
-      auto terms = [&](int gi) {
-        sdnq::cp_async_wait<0>();
-        // every thread is done with the other buffer (the last fold's) too
-        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-        if ((gi + 1) * e.g < K) load_group(gi + 1);
-        return static_cast<const float*>(fbuf + (gi & 1) * 320);
-      };
+      terms.m0 = m0;
+      terms.n0 = n0;
       // acc = acc + q * scale; acc = acc + xsum * zpc, for group gi's
       // product q, whose wgmmas have completed
       auto fold_into = [&](float(&q)[64], int gi) {
-        const float* d = terms(gi);
+        const float* d = terms.get(gi);
         fence_regs(q);
         const float x0 = d[256 + wr * 16 + (lane >> 2)], x1 = d[256 + wr * 16 + (lane >> 2) + 8];
 #pragma unroll
@@ -341,11 +444,7 @@ __global__ void __launch_bounds__(NT, 1)
         }
         fence_regs(q);
       };
-      if constexpr (FOLD) {
-        // the last tile's folds are done with both buffers
-        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-        load_group(0);
-      }
+      if constexpr (FOLD) terms.start();
 
       if constexpr (EPI == EPI_FOLD) {
         // Groups of whole stages: two products in turn, so that a group is
@@ -447,43 +546,175 @@ __global__ void __launch_bounds__(NT, 1)
         pending = -1;
       }
 
-      // the epilogue: two neighbouring columns a store where they can pair
-      const int ncols = min(BN, N - n0);
-      const bool pairs = N % 2 == 0;
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int row = r0 + 8 * hr;
-        if (row >= M) continue;
-        float xs = 0.f;
-        if constexpr (EPI == EPI_ROW) xs = e.zp ? e.xsum[row] : 0.f;
-        OutT* orow = out + (size_t)row * N + n0;
-#pragma unroll
-        for (int h = 0; h < NB; ++h)
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const int cc = 128 * h + 8 * j + cq;
-            if (cc >= ncols) continue;
-            float v[2];
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const int col = n0 + min(cc + c, ncols - 1);
-              float a = acc[64 * h + 4 * j + 2 * hr + c];
-              if constexpr (EPI == EPI_ROW) {
-                a = __fmul_rn(a, e.scale[col]);
-                if (e.zp) a = __fadd_rn(a, __fmul_rn(xs, e.zp[col]));
-              }
-              if (e.bias) a = __fadd_rn(a, e.bias[col]);
-              v[c] = a;
+      store_tile<NB>(
+          acc, out, r0, n0, cq, M, N,
+          [&](int row) { return EPI == EPI_ROW && e.zp ? e.xsum[row] : 0.f; },
+          [&](float a, float xs, int col) {
+            if constexpr (EPI == EPI_ROW) {
+              a = __fmul_rn(a, e.scale[col]);
+              if (e.zp) a = __fadd_rn(a, __fmul_rn(xs, e.zp[col]));
             }
-            if (pairs && cc + 1 < ncols) {
-              store2(orow + cc, v[0], v[1]);
-            } else {
-              orow[cc] = sdnq::from_f32<OutT>(v[0]);
-              if (cc + 1 < ncols) orow[cc + 1] = sdnq::from_f32<OutT>(v[1]);
-            }
-          }
-      }
+            if (e.bias) a = __fadd_rn(a, e.bias[col]);
+            return a;
+          });
     }
+  }
+}
+
+// ---- B7: int8 x int8 with the group fold ---------------------------------
+// A stage holds BM x 128 int8 codes of x and 128 x 128 of W' (128-byte
+// rows, as the bf16 tiles' 64 values).  The tiles are 128 x 128: a group's
+// int32 product and the fp32 sum of 128 x 256 would take 256 registers a
+// thread.
+constexpr int BKI = 128;  // codes of a stage row
+struct I8Tile {
+  static constexpr int BN = 128, ST = 6;
+  static constexpr int A_BYTES = BM * BKI;
+  static constexpr int STAGE_BYTES = A_BYTES + BN * BKI;
+  static constexpr int SMEM_BYTES = ST * STAGE_BYTES + 2 * ST * 8 + 6 * 320 * 4 + 1024;
+};
+
+// acc = acc + float(q) * scale; acc = acc + xsum * zpc for one group, with
+// its terms d (FoldTerms' buffer) and q's wgmmas complete.  float(q) rounds
+// to nearest (exact below 2^24), as the plain version's float64 -> fp32
+// cast.
+__device__ __forceinline__ void fold_i8(float (&acc)[64], int (&q)[64], const float* d, int wr,
+                                        int lane, int cq) {
+  fence_regs(q);
+  const float x0 = d[256 + wr * 16 + (lane >> 2)], x1 = d[256 + wr * 16 + (lane >> 2) + 8];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float2 sc = *reinterpret_cast<const float2*>(d + 8 * j + cq);
+    const float2 zc = *reinterpret_cast<const float2*>(d + 128 + 8 * j + cq);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = 4 * j + 2 * h + c;
+        float a = acc[i];
+        a = __fadd_rn(a, __fmul_rn(__int2float_rn(q[i]), c ? sc.y : sc.x));
+        a = __fadd_rn(a, __fmul_rn(h ? x1 : x0, c ? zc.y : zc.x));
+        acc[i] = a;
+      }
+  }
+  fence_regs(q);
+}
+
+// The persistent kernel of B7: tiles, producer and stages as
+// wgmma_mm_kernel's.  A group's k32 steps are issued in runs that end at
+// the stages' ends (groups are multiples of 64 codes, so a stage holds one
+// or two runs), the product started afresh (scale-d 0) at the group's
+// first step; once they have completed, the group is folded.  One int32
+// product and the fp32 sum take 128 registers a thread, which leaves the
+// fold room.  Two products in turn, so that a group's fold overlaps the
+// next group's wgmmas (as B5's fold does), measured slower on the H100, as
+// did the two warpgroups taking turns at the tensor cores and releasing a
+// stage before the fold.  After the last group: out = acc * xs[m] (+
+// bias[n]).
+template <typename OutT>
+__global__ void __launch_bounds__(NT, 1)
+    wgmma_i8_fold_kernel(const __grid_constant__ CUtensorMap tx,
+                         const __grid_constant__ CUtensorMap tw, OutT* __restrict__ out, int M,
+                         int N, int K, Epi e, const float* __restrict__ xs) {
+  using T = I8Tile;
+  constexpr int BN = T::BN, ST = T::ST, A_BYTES = T::A_BYTES, STAGE_BYTES = T::STAGE_BYTES;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // the first 1024-byte boundary (an offset from smem_raw, so that the
+  // compiler keeps the shared address space: shared loads, not generic)
+  uint8_t* smem = smem_raw + ((1024u - (sdnq::smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * STAGE_BYTES);
+  uint64_t* empty = full + ST;
+  const int mt = (M + BM - 1) / BM;
+  const int tiles = mt * ((N + BN - 1) / BN);
+  const int nk = (K + BKI - 1) / BKI;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256)
+      produce<ST, STAGE_BYTES, A_BYTES, BKI, BN>(&tx, &tw, smem, full, empty, mt, tiles, nk);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x & 127) >> 5, t = threadIdx.x & 127;
+  const int cq = 2 * (lane & 3);
+  float acc[64];
+  int part[64];  // the group's product
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  int pending = -1;  // the stage of the newest run, whose wgmmas may be in flight
+  int base = 0;      // the ring index of the tile's first stage
+  FoldTerms terms{reinterpret_cast<float*>(smem + ST * STAGE_BYTES + 2 * ST * 8) + wg * 960,
+                  e.scale, e.zp, e.xsum, e.g, t, wg, 0, 0, M, N, K};
+  const int G = K / e.g;
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, base += nk) {
+    const int m0 = (tile % mt) * BM, n0 = (tile / mt) * BN;
+    const int r0 = m0 + wg * 64 + wr * 16 + (lane >> 2);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    terms.m0 = m0;
+    terms.n0 = n0;
+    terms.start();
+    int waited = -1;  // the tile's stage whose full barrier has been waited for
+    for (int gi = 0; gi < G; ++gi) {
+      const int k0 = gi * e.g, k1 = k0 + e.g;
+      for (int ka = k0; ka < k1;) {
+        const int kb = ka / BKI, kend = min(k1, (kb + 1) * BKI);
+        const int s = (base + kb) % ST;
+        if (kb != waited) {
+          mbar_wait(&full[s], ((base + kb) / ST) & 1);
+          waited = kb;
+        }
+        // the run's k32 steps, straight-line (a branch between two wgmmas
+        // makes the compiler fence them apart): a whole stage, or the half
+        // at c0
+        const int c0 = 2 * ((ka - kb * BKI) / 32);
+        const uint64_t da = sw128_desc(smem + s * STAGE_BYTES + wg * 64 * BKI) + c0;
+        const uint64_t db = sw128_desc(smem + s * STAGE_BYTES + A_BYTES) + c0;
+        const int acc_in = ka != k0;
+        fence_regs(part);
+        if (kend - ka == BKI) {
+          wgmma_fence();
+          wgmma_s8(part, da, db, acc_in);
+          wgmma_s8(part, da + 2, db + 2, 1);
+          wgmma_s8(part, da + 4, db + 4, 1);
+          wgmma_s8(part, da + 6, db + 6, 1);
+        } else {
+          wgmma_fence();
+          wgmma_s8(part, da, db, acc_in);
+          wgmma_s8(part, da + 2, db + 2, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // every run but this one has completed
+        if (pending >= 0 && pending != s) release(pending);
+        pending = s;
+        ka = kend;
+      }
+      wgmma_wait<0>();
+      fold_i8(acc, part, terms.get(gi), wr, lane, cq);
+    }
+    release(pending);  // the producer fills it for the next tile meanwhile
+    pending = -1;
+
+    store_tile<1>(
+        acc, out, r0, n0, cq, M, N, [&](int row) { return xs[row]; },
+        [&](float a, float xr, int col) {
+          a = __fmul_rn(a, xr);
+          if (e.bias) a = __fadd_rn(a, e.bias[col]);
+          return a;
+        });
   }
 }
 
@@ -510,19 +741,21 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (rows, K) bf16 matrix with rows `ld` elements apart, read in boxes of
-// 64 k x `box_rows` rows, 128-byte swizzle, zeros past K and past `rows`
-bool tensor_map(CUtensorMap* map, const void* base, int rows, int K, int ld, int box_rows) {
+// a (rows, K) matrix of `type` (`esize` bytes an element) with rows `ld`
+// elements apart, read in boxes of `box_k` elements (128 bytes) x
+// `box_rows` rows, 128-byte swizzle, zeros past K and past `rows`
+bool tensor_map(CUtensorMap* map, const void* base, int rows, int K, int ld, int box_rows,
+                CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, int esize = 2,
+                int box_k = BK) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * esize};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_k), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int EPI, int NB, typename OutT>
@@ -549,6 +782,21 @@ int launch_out(int out_kind, const CUtensorMap& tx, const CUtensorMap& tw, void*
     return launch<EPI, NB, __nv_bfloat16>(tx, tw, out, M, N, K, e, grid, st);
   if (out_kind == sdnq::F16) return launch<EPI, NB, __half>(tx, tw, out, M, N, K, e, grid, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename OutT>
+int launch_i8(const CUtensorMap& tx, const CUtensorMap& tw, void* out, int M, int N, int K,
+              const Epi& e, const float* xs, int grid, cudaStream_t st) {
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wgmma_i8_fold_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, I8Tile::SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready = true;
+  }
+  wgmma_i8_fold_kernel<OutT><<<grid, NT, I8Tile::SMEM_BYTES, st>>>(
+      tx, tw, static_cast<OutT*>(out), M, N, K, e, xs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int sm_count() {
@@ -607,5 +855,40 @@ extern "C" int sdnq_wgmma_mm(const void* x, int ldx, const void* w, int ldw, voi
   if (epi == EPI_FOLD) return launch_out<EPI_FOLD, 1>(out_kind, tx, tw, out, M, N, K, e, grid, st);
   if (epi == EPI_FOLD_FINE)
     return launch_out<EPI_FOLD_FINE, 1>(out_kind, tx, tw, out, M, N, K, e, grid, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B7: out (M, N) of out_kind from int8 codes x (M, K) and w (N, K), rows
+// ldx and ldw bytes apart (multiples of 16, base addresses 16-byte
+// aligned): groups of g codes (a multiple of 64 dividing K), each group's
+// int32 product P folded as acc = acc + float(P) * scale[g, n]; acc = acc +
+// xsum[g, m] * zpc[g, n]; then out = acc * xs[m] (+ bias[n]).  scale, zpc
+// (G, N), xsum (G, M), xs (M,), bias (N,) or null, all f32.
+extern "C" int sdnq_wgmma_i8_mm(const void* x, int ldx, const void* w, int ldw, void* out, int M,
+                                int N, int K, const void* bias, const void* scale, const void* zpc,
+                                const void* xsum, const void* xs, int g, int out_kind,
+                                void* stream) {
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (M < 0 || N < 0 || K < 1 || ldx < K || ldw < K || ldx % 16 != 0 || ldw % 16 != 0 ||
+      misaligned(x) || misaligned(w) || !scale || !zpc || !xsum || !xs || g < 64 || g % 64 != 0 ||
+      K % g != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0 || N == 0) return 0;
+  const int sms = sm_count();
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + I8Tile::BN - 1) / I8Tile::BN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  CUtensorMap tx, tw;
+  if (!tensor_map(&tx, x, M, K, ldx, BM, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, BKI) ||
+      !tensor_map(&tw, w, N, K, ldw, I8Tile::BN, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, BKI))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Epi e{static_cast<const float*>(bias), static_cast<const float*>(scale),
+              static_cast<const float*>(zpc), static_cast<const float*>(xsum), g};
+  const float* xsc = static_cast<const float*>(xs);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_kind == sdnq::F32) return launch_i8<float>(tx, tw, out, M, N, K, e, xsc, grid, st);
+  if (out_kind == sdnq::BF16)
+    return launch_i8<__nv_bfloat16>(tx, tw, out, M, N, K, e, xsc, grid, st);
+  if (out_kind == sdnq::F16) return launch_i8<__half>(tx, tw, out, M, N, K, e, xsc, grid, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,10 +3,11 @@
 Wrappers launch the CUDA kernel on CUDA tensors and run the plain version
 on CPU tensors; each counts its launches in ``<wrapper>.launches``, and
 ``flash_attention``, ``quantize_rows``, ``scaled_gemm``, ``dequant_gemv``,
-``dequant_mm``, ``groupdot_mm``, ``blockdiag_mm``, ``decode_weight`` and
-``wgmma_mm`` also count their launches per mode in
-``<wrapper>.mode_launches``.  ``dequant_mm`` (B2's tiles) and
-``groupdot_mm`` (B5) launch ``decode_weight`` and then ``wgmma_mm``.
+``dequant_mm``, ``groupdot_mm``, ``blockdiag_mm``, ``groupdot_i8_mm``,
+``decode_weight`` and ``wgmma_mm`` also count their launches per mode in
+``<wrapper>.mode_launches``.  ``dequant_mm`` (B2's tiles), ``groupdot_mm``
+(B5) and ``groupdot_i8_mm`` (B7) launch ``decode_weight`` and then
+``wgmma_mm``.
 """
 
 from . import dequant_mm as _dequant_mm
@@ -42,8 +43,8 @@ KERNELS = {
 }
 # the wrappers that also count their launches by mode
 _MODED = ("flash_attention", "quantize_rows", "scaled_gemm", "dequant_gemv",
-          "dequant_mm", "groupdot_mm", "blockdiag_mm", "decode_weight",
-          "wgmma_mm")
+          "dequant_mm", "groupdot_mm", "blockdiag_mm", "groupdot_i8_mm",
+          "decode_weight", "wgmma_mm")
 
 
 def reset_launch_counts() -> None:
@@ -59,9 +60,10 @@ def launch_counts() -> dict[str, int]:
     """Launches by wrapper, and ``<wrapper>:<mode>`` by mode (B3's masked,
     float_mask, causal, gqa and int8_pv; B1's colscale; B4's nn; B2's
     grouped and bit-plane GEMV, and the grouped, row and bit-plane modes of
-    its tiles; B5's and B6's multiplane and minifloat modes; the decode's
-    grouped, row, bit-plane and half-split modes and the GEMM's bias, row
-    and fold epilogues)."""
+    its tiles; B5's and B6's multiplane and minifloat modes, B7's
+    multiplane mode; the decode's grouped, row, bit-plane, half-split and
+    int8 half-split modes and the GEMM's bias, row, fold and int8 fold
+    epilogues)."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     for name in _MODED:
         counts.update({f"{name}:{mode}": n

@@ -24,8 +24,8 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _HEADERS = ("common.cuh",)
 SOURCES = ("quantize_rows", "scaled_mm", "dequant_gemv", "decode_weight",
-           "wgmma_mm", "flash_attn", "groupdot_mm", "blockdiag_mm",
-           "blockdiag_i8_mm", "scaled_mm_tn")
+           "wgmma_mm", "flash_attn", "blockdiag_mm", "blockdiag_i8_mm",
+           "scaled_mm_tn")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

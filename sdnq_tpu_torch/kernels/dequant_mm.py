@@ -32,15 +32,17 @@ Kernels, each beside its plain PyTorch version and a launch counter:
   general mode, ``fmt``) 3/5/6/7-bit integers in several planes and
   minifloat codes.
 * ``decode_weight`` (``csrc/decode_weight.cu``) and ``wgmma_mm``
-  (``csrc/wgmma_mm.cu``): the two kernels of B2's tiles and B5 on the card.
-  Each call decodes the weight once into a bf16 W' (scaled and rounded
-  where B2 rounds it, the exact code values for B2's row mode and B5), and
-  one Hopper GEMM (TMA, ``wgmma``) multiplies it with the mode's epilogue:
-  the bias, B2's row scales and zero point, or B5's group fold.
+  (``csrc/wgmma_mm.cu``): the two kernels of B2's tiles, B5 and B7 on the
+  card.  Each call decodes the weight once into a W' (bf16: scaled and
+  rounded where B2 rounds it, the exact code values for B2's row mode and
+  B5; int8: B7's raw codes), and one Hopper GEMM (TMA, ``wgmma``)
+  multiplies it with the mode's epilogue: the bias, B2's row scales and
+  zero point, B5's group fold, or B7's fold of int32 group products.
 * ``blockdiag_mm`` — B6, ``csrc/blockdiag_mm.cu``.  Replaces
   ``_blockdiag_kernel``: the same function for a few rows, as a GEMV.
-* ``groupdot_i8_mm`` — B7, ``csrc/groupdot_mm.cu``.  Replaces
-  ``_groupdot_i8_kernel``: per-row int8 activations times the raw codes.
+* ``groupdot_i8_mm`` — B7, ``decode_weight`` (int8) then ``wgmma_mm``
+  (``fold_i8``).  Replaces ``_groupdot_i8_kernel``: per-row int8
+  activations times the raw codes of 1-7-bit integers.
 * ``blockdiag_i8_mm`` — B8, ``csrc/blockdiag_i8_mm.cu``.  Replaces
   ``_blockdiag_i8_kernel``: B7's function at any group size (down to the
   8- and 16-code groups of 1- and 2-bit formats, groups that straddle the
@@ -62,9 +64,8 @@ inputs, so the plain versions need no rounding points of their own.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version.  ``dequant_matmul`` and
-``packed_int8_matmul`` route to them.  Still raising on the card: B7 and
-B8 on half-split codes other than 1-, 2- and 4-bit integers (ROADMAP
-queue B).
+``packed_int8_matmul`` route to them.  Still raising on the card: B8 on
+half-split codes other than 1-, 2- and 4-bit integers (ROADMAP queue B).
 """
 
 from __future__ import annotations
@@ -96,8 +97,8 @@ GEMV_MAX_ROWS = 32
 # mostly empty below it.
 BLOCKDIAG_MAX_ROWS = 8
 
-# code widths whose half-split layout is one field plane: B7 and B8, and
-# the 1/2/4-bit integer mode of B5 and B6 (their general mode takes the rest)
+# code widths whose half-split layout is one field plane: B8, and the
+# 1/2/4-bit integer mode of B5 and B6 (their general mode takes the rest)
 _KERNEL_BITS = (1, 2, 4)
 
 # From this many rows the quantized matmul on packed codes requantizes the
@@ -174,22 +175,11 @@ def _code_kind(codes, name):
 
 
 def _fmt_args(fmt) -> tuple:
-    """The fields of ``sdnq::CodeFmt`` (csrc/common.cuh) for a packed
-    format: (is_float, code_min, e, m, bias, is_signed)."""
+    """The arguments of ``sdnq::code_fmt`` (csrc/common.cuh) for a packed
+    format: (is_float, code_min, e, m, bias)."""
     if fmt.is_integer:
-        return (0, int(fmt.min), 0, 0, 0, 0)
-    return (1, 0, fmt.exponent, fmt.mantissa, fmt.bias,
-            int(not fmt.is_unsigned))
-
-
-def _bitplane_x(x, k, s, sp):
-    """x's columns in the bit-plane byte order, x'[:, 8*b + i] = x[:, i*s +
-    b] (zero where i*s + b >= K or b >= s), with 8*sp columns."""
-    m = x.shape[0]
-    xs = F.pad(x, (0, 8 * s - k)).reshape(m, 8, s)
-    if sp != s:
-        xs = F.pad(xs, (0, sp - s))
-    return xs.transpose(1, 2).reshape(m, 8 * sp).contiguous()
+        return (0, int(fmt.min), 0, 0, 0)
+    return (1, 0, fmt.exponent, fmt.mantissa, fmt.bias)
 
 
 def _bitplane_check(name, x, codes, scale, fmt):
@@ -269,14 +259,13 @@ def _bitplane_gemv(x, codes, scale, zp, bias, out_dtype, fmt):
             torch.float32, torch.bfloat16):
         raise ValueError("dequant_gemv on bit-plane codes takes fp32 / bf16 "
                          f"x and output, not {x.dtype} / {out_dtype}")
-    xp = _bitplane_x(x, k, s, s)
-    codes = codes.contiguous()
+    x, codes = x.contiguous(), codes.contiguous()
     groups = _groups(scale)
     scale, zp, bias = _operands(scale, zp, bias)
     out = torch.empty((m, o), dtype=out_dtype, device=x.device)
     fn = _build.function("dequant_gemv", "sdnq_dequant_gemv_bitplane",
-                         [P] * 6 + [I] * 14 + [P])
-    _build.check(fn(*(_build.ptr(t) for t in (xp, codes, scale, zp, bias,
+                         [P] * 6 + [I] * 13 + [P])
+    _build.check(fn(*(_build.ptr(t) for t in (x, codes, scale, zp, bias,
                                               out)),
                     m, k, s, o, groups, fmt.code_bits, *_fmt_args(fmt),
                     _build.act_kind(x.dtype), _build.act_kind(out_dtype),
@@ -362,8 +351,11 @@ def _scaled(vals, scale, zero_point, g):
 
 
 def decode_weight_plain(codes, k, scale=None, zp=None, fmt=None,
-                        layout="unpacked", bits=None):
+                        layout="unpacked", bits=None, dtype=torch.bfloat16):
     """Plain version of ``decode_weight``."""
+    if dtype == torch.int8:   # B7: the raw half-split codes, below 2^7
+        return unpack_codes_halfsplit(codes, bits or fmt.code_bits,
+                                      k).to(torch.int8)
     if layout == "halfsplit":
         vals = _halfsplit_values(codes, bits or fmt.code_bits, k, fmt)
     elif layout == "bitplane":
@@ -376,22 +368,30 @@ def decode_weight_plain(codes, k, scale=None, zp=None, fmt=None,
 
 
 def decode_weight(codes, k, scale=None, zp=None, fmt=None, layout="unpacked",
-                  bits=None):
-    """The bf16 weight W' (O, K rounded up to 8; the padding columns 0) of
-    a weight's codes, in natural k order, for ``wgmma_mm``:
+                  bits=None, dtype=torch.bfloat16):
+    """The weight W' (O, K rounded up to 8; the padding columns 0) of a
+    weight's codes, in natural k order, for ``wgmma_mm``; bf16, or (B7,
+    ``dtype`` int8) the raw half-split integer codes, (O, K):
 
     * ``unpacked`` (B2): codes (O, K) int8, uint8 or e4m3; with scale /
       zp (O, G) each weight ``code * scale (+ zp)`` rounded to bf16 (B2's
       rounding point), without them bf16(code) (exact; the row mode);
     * ``bitplane`` (B2): codes (O, bits * ceil(K/8)) of ``fmt``, decoded,
       scaled and rounded as above;
-    * ``halfsplit`` (B5): codes (O, K * bits / 8) of ``bits`` bits, the raw
-      integer code or the minifloat value of ``fmt`` (exact)."""
+    * ``halfsplit`` (B5, B7): codes (O, K * bits / 8) of ``bits`` bits,
+      the raw integer code or the minifloat value of ``fmt`` (exact; int8:
+      integer codes only)."""
     if not is_cuda(codes):
-        return decode_weight_plain(codes, k, scale, zp, fmt, layout, bits)
+        return decode_weight_plain(codes, k, scale, zp, fmt, layout, bits,
+                                   dtype)
     o = codes.shape[0]
-    ldo = _padded_k(k)
-    out = torch.empty((o, ldo), dtype=torch.bfloat16, device=codes.device)
+    i8 = dtype == torch.int8
+    if i8 and (layout != "halfsplit" or (fmt is not None
+                                         and not fmt.is_integer)):
+        raise ValueError("decode_weight writes int8 from half-split integer "
+                         "codes only")
+    out = torch.empty((o, k if i8 else _padded_k(k)), dtype=dtype,
+                      device=codes.device)
     codes = codes.contiguous()
     st = _build.stream(codes)
     if layout == "halfsplit":
@@ -399,15 +399,16 @@ def decode_weight(codes, k, scale=None, zp=None, fmt=None, layout="unpacked",
         fn = _build.function("decode_weight", "sdnq_decode_halfsplit",
                              [P, P] + [I] * 8 + [P])
         rc = fn(codes.data_ptr(), out.data_ptr(), o, k, bits,
-                *_float_args(fmt), st)
-        mode = "halfsplit"
+                *_float_args(fmt), int(i8), st)
+        mode = "halfsplit_i8" if i8 else "halfsplit"
     elif layout == "bitplane":
         groups = _groups(scale)
         scale, zp, _ = _operands(scale, zp, None)
         fn = _build.function("decode_weight", "sdnq_decode_bitplane",
-                             [P] * 4 + [I] * 11 + [P])
+                             [P] * 4 + [I] * 10 + [P])
         rc = fn(*(_build.ptr(t) for t in (codes, scale, zp, out)), o, k,
-                ldo // 8, groups, fmt.code_bits, *_fmt_args(fmt), st)
+                out.shape[1] // 8, groups, fmt.code_bits, *_fmt_args(fmt),
+                st)
         mode = "bitplane"
     else:
         kind = _code_kind(codes, "decode_weight")
@@ -420,7 +421,7 @@ def decode_weight(codes, k, scale=None, zp=None, fmt=None, layout="unpacked",
         rc = fn(*(_build.ptr(t) for t in (codes.view(torch.uint8),
                                           None if row else scale,
                                           None if row else zp, out)),
-                o, k, ldo, groups, kind, int(row), st)
+                o, k, out.shape[1], groups, kind, int(row), st)
         mode = "row" if row else "grouped"
     _build.check(rc, f"decode_weight ({mode})")
     decode_weight.launches += 1
@@ -429,33 +430,40 @@ def decode_weight(codes, k, scale=None, zp=None, fmt=None, layout="unpacked",
 
 
 decode_weight.launches = 0
-decode_weight.mode_launches = dict(grouped=0, row=0, bitplane=0, halfsplit=0)
+decode_weight.mode_launches = dict(grouped=0, row=0, bitplane=0, halfsplit=0,
+                                   halfsplit_i8=0)
 
-# epilogues of csrc/wgmma_mm.cu
+# epilogues of csrc/wgmma_mm.cu (fold_i8: its int8 kernel)
 _EPILOGUES = {"bias": 0, "row": 1, "fold": 2}
 
 
 def _tma_rows(t, k):
     """``t`` if TMA can read its first K columns in place (unit column
-    stride, rows 16-byte aligned), else a copy with K rounded up to 8
-    columns (the padding 0)."""
-    if t.stride(1) == 1 and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0:
+    stride, rows 16-byte aligned), else a copy with K rounded up to 16
+    bytes (the padding 0)."""
+    per = 16 // t.element_size()
+    if (t.stride(1) == 1 and t.stride(0) % per == 0
+            and t.data_ptr() % 16 == 0):
         return t
-    out = t.new_zeros((t.shape[0], _padded_k(k)))
+    out = t.new_zeros((t.shape[0], -(-k // per) * per))
     out[:, :k] = t[:, :k]
     return out
 
 
 def wgmma_mm_plain(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
-                   xsum=None, out_dtype=torch.bfloat16):
+                   xsum=None, out_dtype=torch.bfloat16, xs=None):
     """Plain version of ``wgmma_mm``, in fp32 in the kernel's order of
-    operations."""
-    xf = x.float()
-    wf = w[:, :k].float().contiguous()
-    if epilogue == "fold":
+    operations (``fold_i8``: each group's integer product summed in
+    float64, exact, as ``groupdot_i8_mm_plain``)."""
+    i8 = epilogue == "fold_i8"
+    xf = x.double() if i8 else x.float()
+    wf = w[:, :k].to(xf.dtype).contiguous()
+    if epilogue in ("fold", "fold_i8"):
         g = k // scale.shape[1]
         acc = _groupdot_plain(xf, wf, scale.float(), zp.float(),
                               lambda sl: xsum[:, sl.start // g, None].float())
+        if i8:
+            acc = acc * xs.reshape(-1, 1).float()
     else:
         acc = xf @ wf.T
         if epilogue == "row":
@@ -469,7 +477,7 @@ def wgmma_mm_plain(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
 
 
 def wgmma_mm(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
-             xsum=None, out_dtype=torch.bfloat16):
+             xsum=None, out_dtype=torch.bfloat16, xs=None):
     """out (M, O) = x (M, K) @ w[:, :K]ᵀ with x and w bf16 (w (O, >= K),
     as ``decode_weight`` writes it) and an epilogue in fp32:
 
@@ -481,17 +489,21 @@ def wgmma_mm(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
       ``_group_operands``), scale / zp (O, G), xsum (M, G), groups of a
       multiple of 16; then ``+ bias``.  The kernel reads them group-major:
       scale and zp are copied, xsum is read in place where it is the
-      transposed view of a (G, M) tensor.
+      transposed view of a (G, M) tensor;
+    * ``fold_i8`` (B7): x and w int8, each group's int32 product folded as
+      ``fold``'s (groups of a multiple of 64), then ``* xs[m]`` (M,) and
+      ``+ bias``.
 
     fp32, bf16 or fp16 out.  On the card a Hopper wgmma kernel fed by TMA
     (csrc/wgmma_mm.cu)."""
     if not is_cuda(x):
         return wgmma_mm_plain(x, w, k, epilogue, bias, scale, zp, xsum,
-                              out_dtype)
+                              out_dtype, xs)
     m, o = x.shape[0], w.shape[0]
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f"wgmma_mm takes bf16 x and w, not {x.dtype} and "
-                         f"{w.dtype}")
+    dt = torch.int8 if epilogue == "fold_i8" else torch.bfloat16
+    if x.dtype != dt or w.dtype != dt:
+        raise ValueError(f"wgmma_mm ({epilogue}) takes {dt} x and w, not "
+                         f"{x.dtype} and {w.dtype}")
     if x.shape[1] < k or w.shape[1] < k:
         raise ValueError(f"wgmma_mm: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} do not hold K {k}")
@@ -503,7 +515,7 @@ def wgmma_mm(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
     def f32(t):
         return None if t is None else t.float().contiguous()
     g = 0
-    if epilogue == "fold":   # read group-major: (G, O) and (G, M)
+    if epilogue in ("fold", "fold_i8"):   # read group-major: (G, O), (G, M)
         if scale is None or zp is None or xsum is None:
             raise ValueError("wgmma_mm: the fold takes scale, zp and xsum")
         g = k // scale.shape[1]
@@ -513,20 +525,32 @@ def wgmma_mm(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
         scale, zp, xsum = (f32(None if t is None else t.reshape(-1))
                            for t in (scale, zp, xsum))
     bias = f32(None if bias is None else bias.reshape(-1))
-    fn = _build.function("wgmma_mm", "sdnq_wgmma_mm",
-                         [P, I, P, I, P] + [I] * 4 + [P] * 4 + [I, I, P])
-    _build.check(fn(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
-                    out.data_ptr(), m, o, k, _EPILOGUES[epilogue],
-                    *(_build.ptr(t) for t in (bias, scale, zp, xsum)), g,
-                    _build.act_kind(out_dtype), _build.stream(x)),
-                 f"wgmma_mm ({epilogue})")
+    if epilogue == "fold_i8":
+        if xs is None:
+            raise ValueError("wgmma_mm: fold_i8 takes the row scales xs")
+        fn = _build.function("wgmma_mm", "sdnq_wgmma_i8_mm",
+                             [P, I, P, I, P] + [I] * 3 + [P] * 5 + [I] * 2
+                             + [P])
+        rc = fn(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
+                out.data_ptr(), m, o, k,
+                *(_build.ptr(t) for t in (bias, scale, zp, xsum,
+                                          f32(xs.reshape(-1)))),
+                g, _build.act_kind(out_dtype), _build.stream(x))
+    else:
+        fn = _build.function("wgmma_mm", "sdnq_wgmma_mm",
+                             [P, I, P, I, P] + [I] * 4 + [P] * 4 + [I, I, P])
+        rc = fn(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
+                out.data_ptr(), m, o, k, _EPILOGUES[epilogue],
+                *(_build.ptr(t) for t in (bias, scale, zp, xsum)), g,
+                _build.act_kind(out_dtype), _build.stream(x))
+    _build.check(rc, f"wgmma_mm ({epilogue})")
     wgmma_mm.launches += 1
     wgmma_mm.mode_launches[epilogue] += 1
     return out
 
 
 wgmma_mm.launches = 0
-wgmma_mm.mode_launches = dict(bias=0, row=0, fold=0)
+wgmma_mm.mode_launches = dict(bias=0, row=0, fold=0, fold_i8=0)
 
 
 # ---------------------------------------------------------------------------
@@ -715,8 +739,8 @@ def _general_mode(fmt) -> str:
 
 
 def _float_args(fmt) -> tuple:
-    """(is_float, e, m, bias, is_signed) of the general modes' entries."""
-    a = _fmt_args(fmt) if fmt is not None else (0, 0, 0, 0, 0, 0)
+    """(is_float, e, m, bias) of the general modes' entries."""
+    a = _fmt_args(fmt) if fmt is not None else (0, 0, 0, 0, 0)
     return (a[0],) + a[2:]
 
 
@@ -767,7 +791,7 @@ def _blockdiag_general(x, codes, scale, zpc, bias, bits, out_dtype, fmt):
     bias = None if bias is None else bias.reshape(-1).float().contiguous()
     out = torch.empty((m, o), dtype=out_dtype, device=x.device)
     fn = _build.function("blockdiag_mm", "sdnq_blockdiag_mm_gen",
-                         [P] * 6 + [I] * 12 + [P])
+                         [P] * 6 + [I] * 11 + [P])
     _build.check(fn(*(_build.ptr(t) for t in (x, codes, scale, zpc, bias,
                                               out)),
                     m, k, o, g, bits, *_float_args(fmt),
@@ -781,33 +805,38 @@ def _blockdiag_general(x, codes, scale, zpc, bias, bits, out_dtype, fmt):
 def groupdot_i8_mm(xq, xs, codes, scale, zpc, bias=None, bits: int = 4,
                    out_dtype=torch.bfloat16):
     """int8 rows times raw half-split codes: xq (M, K) int8 with row scales
-    xs (M, 1); codes, scale, zpc and bias as ``groupdot_mm``."""
+    xs (M, 1); codes (O, K*bits/8) half-split uint8 of 1-7-bit integers;
+    scale, zpc (O, G) fp32; bias (O,) or None.  64 divides the group and
+    the narrowest plane's segment.  On the card the codes are decoded once
+    into int8 (``decode_weight``) and ``wgmma_mm`` folds each group's
+    int32 product with its scale and zero-point term."""
     if not is_cuda(xq):
         return groupdot_i8_mm_plain(xq, xs, codes, scale, zpc, bias, bits,
                                     out_dtype)
-    m, k, o, g = _check_halfsplit("groupdot_i8_mm", xq, codes, scale, zpc,
-                                  bits, 64)
+    m, k, o, g = _check_general("groupdot_i8_mm", xq, codes, scale, zpc,
+                                bits, 64)
     if xq.dtype != torch.int8:
         raise ValueError(f"groupdot_i8_mm takes int8 x codes, not "
                          f"{xq.dtype}")
-    xq, codes, scale, zpc = _contiguous(xq, codes, scale, zpc)
-    # per-row group sums of the codes: integers, exact in fp32
-    xsum = xq.reshape(m, k // g, g).to(torch.int32).sum(-1).float()
-    xs = xs.reshape(-1).float().contiguous()
-    bias = None if bias is None else bias.reshape(-1).float().contiguous()
-    out = torch.empty((m, o), dtype=out_dtype, device=xq.device)
-    if m and o:
-        fn = _build.function("groupdot_mm", "sdnq_groupdot_i8_mm",
-                             [P] * 8 + [I] * 6 + [P])
-        _build.check(fn(*(_build.ptr(t) for t in (xq, codes, scale, zpc, xsum,
-                                                  xs, bias, out)),
-                        m, k, o, g, bits, _build.act_kind(out_dtype),
-                        _build.stream(xq)), "groupdot_i8_mm")
-        groupdot_i8_mm.launches += 1
+    if not (m and o):
+        return torch.empty((m, o), dtype=out_dtype, device=xq.device)
+    # per-row group sums of the codes, group-major (G, M): integers below
+    # 2^24, exact in fp32 in any order
+    xsum = torch.empty((k // g, m), dtype=torch.float32, device=xq.device)
+    torch.sum(xq.reshape(m, k // g, g).transpose(0, 1), -1,
+              dtype=torch.float32, out=xsum)
+    w = decode_weight(codes, k, layout="halfsplit", bits=bits,
+                      dtype=torch.int8)
+    out = wgmma_mm(xq, w, k, "fold_i8", bias, scale, zpc, xsum.t(),
+                   out_dtype, xs=xs)
+    groupdot_i8_mm.launches += 1
+    if bits not in _KERNEL_BITS:
+        groupdot_i8_mm.mode_launches["multiplane"] += 1
     return out
 
 
 groupdot_i8_mm.launches = 0
+groupdot_i8_mm.mode_launches = dict(multiplane=0)
 
 
 def blockdiag_i8_mm(xq, xs, codes, scale, zpc, bias=None, bits: int = 4,

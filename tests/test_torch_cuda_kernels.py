@@ -383,21 +383,69 @@ def test_blockdiag_mm(dev, bits, m, k, o, g, x_dtype):
 
 @pytest.mark.parametrize("bits,m,k,o,g", [
     (4, 33, 256, 200, 128), (4, 300, 3072, 136, 128), (2, 130, 1024, 384, 128),
-    (1, 64, 2048, 128, 256), (4, 40, 1024, 64, 64)])
+    (1, 64, 2048, 128, 256), (4, 40, 1024, 64, 64), (3, 77, 1024, 130, 128),
+    (5, 129, 1024, 200, 64), (6, 40, 512, 72, 128), (7, 300, 2048, 136, 256),
+    (5, 33, 15360, 96, 256), (6, 65, 768, 65, 192), (7, 50, 4096, 64, 1024),
+    (4, 40, 8192, 64, 4096)])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_groupdot_i8_mm_exact(dev, bits, m, k, o, g, out_dtype):
     """B7: integer partials and the same rounded fp32 folds, so the kernel
-    equals its plain version bit for bit."""
+    equals its plain version bit for bit: 1-7-bit codes in one to three
+    field planes, groups of 64 and 192 (ending inside a 128-code stage),
+    ragged M and N tails, and large partials (7 bits at g 1024, 4 bits at
+    g 4096)."""
     gen = _gen(12)
     packed, scale, zpc = _halfsplit(o, k, bits, g, dev, gen, bits == 2)
     xq = torch.randint(-127, 128, (m, k), device=dev, generator=gen,
                        dtype=torch.int8)
     xs = torch.rand(m, 1, device=dev, generator=gen) * 0.02 + 1e-3
     bias = torch.randn(o, device=dev, generator=gen)
+    before = kd.groupdot_i8_mm.launches
     got = kd.groupdot_i8_mm(xq, xs, packed, scale, zpc, bias, bits, out_dtype)
+    assert kd.groupdot_i8_mm.launches == before + 1
     want = kd.groupdot_i8_mm_plain(xq, xs, packed, scale, zpc, bias, bits,
                                    out_dtype)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [16, 3])
+def test_groupdot_i8_mm_strided_x(dev, offset):
+    """B7 on x a column slice of a wider int8 tensor: rows 16-byte aligned
+    (TMA reads it in place) or not (copied); bit-equal."""
+    gen = _gen(16)
+    m, k, o, g = 70, 1024, 136, 128
+    packed, scale, zpc = _halfsplit(o, k, 5, g, dev, gen)
+    wide = torch.randint(-127, 128, (m, k + 32), device=dev, generator=gen,
+                         dtype=torch.int8)
+    xq = wide[:, offset:offset + k]
+    xs = torch.rand(m, 1, device=dev, generator=gen) * 0.02 + 1e-3
+    got = kd.groupdot_i8_mm(xq, xs, packed, scale, zpc, None, 5,
+                            torch.float32)
+    want = kd.groupdot_i8_mm_plain(xq, xs, packed, scale, zpc, None, 5,
+                                   torch.float32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,n,k,g", [(33, 200, 256, 64), (129, 136, 768, 192),
+                                     (300, 1000, 3072, 128)])
+def test_wgmma_mm_fold_i8(dev, m, n, k, g):
+    """B7's GEMM alone on any int8 W' (negative codes too): exact integer
+    partials, the plain version's fold; bit-equal."""
+    gen = _gen(17)
+    x = torch.randint(-128, 128, (m, k), device=dev, generator=gen,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (n, k), device=dev, generator=gen,
+                      dtype=torch.int8)
+    scale = torch.rand(n, k // g, device=dev, generator=gen) * 0.01 + 1e-3
+    zpc = torch.randn(n, k // g, device=dev, generator=gen) * 0.05
+    xsum = x.float().reshape(m, k // g, g).sum(-1)
+    xs = torch.rand(m, device=dev, generator=gen) * 0.02 + 1e-3
+    bias = torch.randn(n, device=dev, generator=gen)
+    args = (x, w, k, "fold_i8", bias, scale, zpc, xsum, torch.float32)
+    before = kd.wgmma_mm.mode_launches["fold_i8"]
+    got = kd.wgmma_mm(*args, xs=xs)
+    assert kd.wgmma_mm.mode_launches["fold_i8"] == before + 1
+    assert torch.equal(got, kd.wgmma_mm_plain(*args, xs=xs))
 
 
 @pytest.mark.parametrize("rows,qmm", [(5, False), (40, False), (40, True)])
@@ -427,9 +475,9 @@ def test_packed_qlinear_on_card_matches_cpu(dev, rows, qmm, fmt):
 
 def test_packed_bitplane_raises_on_card(dev):
     """Bit-plane codes (B2's packed mode) now run on the card (int12 at
-    groups of 24, 3 rows: the GEMV); what still raises instead of running a
-    stand-in is B7 / B8 on multi-plane codes (int5 under the quantized
-    matmul)."""
+    groups of 24, 3 rows: the GEMV), and so do multi-plane codes under the
+    quantized matmul above 32 rows (int5, B7); what still raises instead of
+    running a stand-in is B8 on multi-plane codes (int5 at 32 rows)."""
     import sdnq_tpu_torch as T
     w = torch.randn(64, 72, device=dev, generator=_gen(14))
     qt = T.quantize_tensor(w, "int12", group_size=24)
@@ -441,8 +489,11 @@ def test_packed_bitplane_raises_on_card(dev):
                                        generator=_gen(15)), "int5",
                            group_size=128, use_quantized_matmul=True)
     assert qt.meta.pack_layout == "halfsplit"
+    before = kd.groupdot_i8_mm.mode_launches["multiplane"]
+    T.qlinear(torch.randn(40, 1024, device=dev), qt)
+    assert kd.groupdot_i8_mm.mode_launches["multiplane"] == before + 1
     with pytest.raises(NotImplementedError, match="later slice"):
-        T.qlinear(torch.randn(40, 1024, device=dev), qt)
+        T.qlinear(torch.randn(32, 1024, device=dev), qt)
 
 
 # B2's bit-plane mode and B5 / B6's general mode (multi-plane and minifloat
@@ -463,12 +514,14 @@ def _qt_operands(qt):
 @pytest.mark.parametrize("fmt,k,gsize", [
     ("float8_e3m4fn", 2048, 1024), ("float9_e3m5fn", 768, -1),
     ("int12", 384, 64), ("uint10", 256, 32), ("int9", 200, 40),
-    ("float11_e4m6fn", 136, -1), ("uint12", 1000, 200)])
+    ("float11_e4m6fn", 136, -1), ("uint12", 1000, 200),
+    ("float8_e3m4fn", 3104, 776), ("float9_e3m5fn", 1040, -1)])
 @pytest.mark.parametrize("m", [1, 5, 32, 33, 300])
 def test_dequant_bitplane(dev, fmt, k, gsize, m):
-    """Ragged K (200, 136, 1000: K / 8 not a multiple of 4, the tiles'
-    re-padded planes), groups that straddle the 8 segments of a byte,
-    rowwise scales and zero points (uint)."""
+    """Ragged K (200, 136, 1000, 1040: K / 8 not a multiple of 4, a byte a
+    lane in the GEMV), planes whose bytes are not a multiple of 32 (3104:
+    388 bytes, the GEMV's last 128-byte step short), groups that straddle
+    the 8 segments of a byte, rowwise scales and zero points (uint)."""
     import sdnq_tpu_torch as T
     g = _gen(30)
     o = 200
@@ -626,6 +679,25 @@ def test_decode_weight_halfsplit_bit_equal(dev, fmt, k):
     args = (qt.qdata, k, None, None, f, "halfsplit", f.code_bits)
     got = kd.decode_weight(*args)
     assert _bits_equal(got, kd.decode_weight_plain(*args))
+
+
+@pytest.mark.parametrize("fmt,k", [
+    ("uint4", 256), ("int4", 3072), ("uint2", 512), ("uint1", 1024),
+    ("uint3", 256), ("uint5", 512), ("int6", 1024), ("uint7", 512)])
+def test_decode_weight_halfsplit_i8_bit_equal(dev, fmt, k):
+    """B7's decode: the raw half-split integer codes as int8, one to three
+    field planes."""
+    import sdnq_tpu_torch as T
+    g = _gen(48)
+    qt = T.quantize_tensor(torch.randn(96, k, device=dev, generator=g), fmt,
+                           group_size=32)
+    assert qt.meta.pack_layout == "halfsplit"
+    f = qt.meta.format
+    args = (qt.qdata, k, None, None, f, "halfsplit", f.code_bits)
+    before = kd.decode_weight.mode_launches["halfsplit_i8"]
+    got = kd.decode_weight(*args, dtype=torch.int8)
+    assert kd.decode_weight.mode_launches["halfsplit_i8"] == before + 1
+    assert torch.equal(got, kd.decode_weight_plain(*args, dtype=torch.int8))
 
 
 def _gemm_operands(m, n, k, groups, dev, seed):

@@ -239,3 +239,33 @@ def test_decode_then_fold_equals_groupdot_mm_plain(fmt, k, g):
     got = tdq.wgmma_mm_plain(x, w, k, "fold", bias, s, zpc, xsum,
                              torch.float32)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fmt,k,g", [("uint4", 256, 128), ("int4", 512, 64),
+                                     ("int2", 512, 128), ("uint3", 1024, 128),
+                                     ("int5", 512, 64), ("int6", 768, 192),
+                                     ("uint7", 1024, 256)])
+def test_decode_i8_then_fold_equals_groupdot_i8_mm_plain(fmt, k, g):
+    """B7 on the card: decode the half-split codes once into int8 (the raw
+    codes, as the JAX package unpacks them), then the int8 GEMM whose
+    epilogue folds each group's integer product: plain decode then plain
+    GEMM equal ``groupdot_i8_mm_plain`` bit for bit."""
+    rng = np.random.default_rng(k + g)
+    f = tfmt(fmt)
+    codes, scale, zp = (_t(a) for a in _packed(fmt, 80, k, g, k + g,
+                                               "halfsplit"))
+    s, zpc = tdq._group_operands(scale, zp, f)
+    bias = torch.from_numpy(rng.normal(size=(80,)).astype(np.float32))
+    xq = torch.from_numpy(rng.integers(-127, 128, (48, k)).astype(np.int8))
+    xs = torch.from_numpy(rng.uniform(1e-3, 2e-2, (48, 1)).astype(np.float32))
+    w = tdq.decode_weight_plain(codes, k, fmt=f, layout="halfsplit",
+                                dtype=torch.int8)
+    ref = np.asarray(junpack_halfsplit(jnp.asarray(codes.numpy()),
+                                       f.code_bits, k))
+    assert w.dtype == torch.int8 and np.array_equal(w.numpy(), ref)
+    want = tdq.groupdot_i8_mm_plain(xq, xs, codes, s, zpc, bias, f.code_bits,
+                                    torch.float32)
+    xsum = xq.to(torch.int32).reshape(48, k // g, g).sum(-1).float()
+    got = tdq.wgmma_mm_plain(xq, w, k, "fold_i8", bias, s, zpc, xsum,
+                             torch.float32, xs=xs)
+    assert torch.equal(got, want)

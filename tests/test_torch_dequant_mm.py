@@ -204,13 +204,19 @@ def test_blockdiag_b6_vs_pallas(interpret, fmt, m, k, g, with_bias):
 
 @pytest.mark.parametrize("fmt,m,k,with_bias", [
     ("uint4", 33, 256, True), ("int4", 300, 1024, False),
-    ("int2", 33, 1024, True), ("uint4", 300, 1024, True)])
+    ("int2", 33, 1024, True), ("uint4", 300, 1024, True),
+    ("uint3", 33, 1024, True), ("int5", 40, 1024, False),
+    ("int6", 33, 512, True), ("uint7", 40, 1024, False)])
 def test_groupdot_i8_b7_vs_pallas(interpret, fmt, m, k, with_bias):
     """B7: ``packed_int8_matmul`` against the JAX package's, which runs
     ``_groupdot_i8_mm_pallas`` at these shapes (g = 128, more than 32
-    rows).  Both divide for the x codes, which are bit-equal, so only the
-    order of the fp32 epilogue differs."""
+    rows), on 1-7-bit codes in one to three field planes; the port takes
+    B7 (``groupdot_i8_mm``) at all of them.  Both divide for the x codes,
+    which are bit-equal, so only the order of the fp32 epilogue differs:
+    rtol 1e-5 plus 1e-5 of the largest output."""
     x, wq, scale, zp, b = _packed(fmt, m, k, 128, m + k)
+    assert m > tdq.I8_BLOCKDIAG_MAX_ROWS and tdq.packed_int8_route_ok(
+        m, k, 128, tfmt(fmt), "halfsplit")
     b = b if with_bias else None
     ref = jdq.packed_int8_matmul(_j(x), _j(wq), _j(scale), _j(zp), _j(b),
                                  jfmt(fmt), 128, out_dtype=jnp.float32,

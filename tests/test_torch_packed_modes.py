@@ -10,8 +10,9 @@ package and carried across):
   minifloat codes against ``_groupdot_mm_pallas`` /
   ``_blockdiag_mm_pallas`` in interpret mode.
 
-fp32 throughout: the same exact products summed in another order, so rtol
-1e-5 plus 1e-5 of the largest output (as tests/test_torch_dequant_mm.py)."""
+fp32 (and bf16 x at R1's bit-plane formats): the same exact products of
+the same weights summed in another order, so rtol 1e-5 plus 1e-5 of the
+largest output (as tests/test_torch_dequant_mm.py)."""
 
 import importlib
 
@@ -81,19 +82,33 @@ def _close(out, ref):
                                rtol=1e-5, atol=1e-5 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("fmt,k,g", [
-    ("float8_e3m4fn", 2048, 1024), ("float9_e3m5fn", 1024, -1),
-    ("int12", 1024, 128), ("uint10", 1024, 256)])
-@pytest.mark.parametrize("m", [1, 40])
-def test_bitplane_b2_vs_jax(backend, fmt, k, g, m):
+@pytest.mark.parametrize("fmt,k,g,xdt", [
+    ("float8_e3m4fn", 2048, 1024, "f32"), ("float9_e3m5fn", 1024, -1, "f32"),
+    ("int12", 1024, 128, "f32"), ("uint10", 1024, 256, "f32"),
+    ("float8_e3m4fn", 2048, 1024, "bf16"), ("float9_e3m5fn", 2048, -1, "bf16")],
+    ids=["float8_e3m4fn-2048-1024", "float9_e3m5fn-1024--1", "int12-1024-128",
+         "uint10-1024-256", "float8_e3m4fn-2048-1024-bf16",
+         "float9_e3m5fn-2048--1-bf16"])
+@pytest.mark.parametrize("m", [1, 40, 32])
+def test_bitplane_b2_vs_jax(backend, fmt, k, g, xdt, m):
     """``dequant_matmul`` on bit-plane codes (the GEMV's plain version at 1
-    row, the tiles' at 40); on the interpret backend the JAX side runs its
-    packed Pallas body (K a multiple of 1024)."""
+    and 32 rows, the tiles' at 40); on the interpret backend the JAX side
+    runs its packed Pallas body (K a multiple of 1024).  bf16 x at R1's
+    formats, as R1's layers give it: each weight rounded to bf16 before the
+    product, x read in its natural order.  (With a zero point the JAX
+    package's XLA route rounds code * scale before it adds the zero point,
+    where its Pallas body and the port fuse the two, so a bf16 weight may
+    differ by one ulp between the JAX routes: R1's formats have none.)"""
     x, wq, scale, zp, b = _quantized(fmt, m, k, g, m + k, "bitplane")
+    xt = torch.from_numpy(x)
+    xj = _j(x)
+    if xdt == "bf16":
+        xt = xt.bfloat16()
+        xj = jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16)
     gsize = k // scale.shape[1]
-    ref = jdq.dequant_matmul(_j(x), _j(wq), _j(scale), _j(zp), _j(b),
+    ref = jdq.dequant_matmul(xj, _j(wq), _j(scale), _j(zp), _j(b),
                              jfmt(fmt), gsize, out_dtype=jnp.float32)
-    out = tdq.dequant_matmul(_t(x), _t(wq), _t(scale), _t(zp), _t(b),
+    out = tdq.dequant_matmul(xt, _t(wq), _t(scale), _t(zp), _t(b),
                              tfmt(fmt), gsize, out_dtype=torch.float32)
     _close(out.numpy(), ref)
 
