@@ -46,7 +46,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               (zigzag).  Each ring against float64 attention, against
               ``quantized_attention`` in the same mode, and virtual P
               against P = 1; B9 launches per ring call; ring P = 1 timed
-              beside B3.
+              beside B3, and traced (int8 with token-mode P.V, and bf16)
+              as phase 6 traces.
 4. int8     - FLUX.1-dev at full width and depth (19 double + 38 single
               blocks) with random int8 weights from a seeded generator:
               2 requests of 4 flow-matching Euler steps at 1024x1024 (4096
@@ -151,11 +152,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               N tail, B7's fold taking the next group's xsum, B7's group
               product never restarted after the first group, the bit-plane
               GEMV reading its planes in reverse order and its x one code
-              late), built
+              late, B3's TMA + wgmma kernel waiting on the wrong phase of
+              its K stages' barriers, taking P.V from the other V stage and
+              storing its second consumer warpgroup's rows at the first
+              one's), built
               with
               the real ones; phases 3 and 5 rerun with
               each in turn.  Phase 3 must fail for the broken kernel; phase
               5's readings are printed beside their limits.
+8. probes   - B3 bf16 and B9 bf16 at FLUX's P = 1 block timed by CUDA
+              events over bursts of calls under builds of flash_attn.cu
+              edited as PROBES says (built beside the faults, each with
+              their barrier watchdog, and one with that alone; B9 with
+              B3's exponent, with exp as exp2f(x log2(e)), without the
+              sm_scale multiply, with B3's bf16 epilogue; no ping-pong;
+              three K / V stages), beside the shipped build and SDPA;
+              B9's readings beside its limits under each.
 
 The last line is {"ok": true, "device": {...}}.  Numbers are this card's,
 at the power limit printed beside them.
@@ -215,6 +227,27 @@ def host_ms(fn, reps: int = 20) -> float:
     return statistics.median(times) * 1e3
 
 
+def burst_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Median over ``reps`` bursts of the CUDA-event time per call of ``n``
+    calls issued back to back.  With calls of a fraction of a millisecond
+    the host stays ahead of the card, so this is close to the device time,
+    and it needs no profiler."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Median of per-call CUDA-event times."""
     import torch
@@ -246,10 +279,12 @@ KERNEL_SYMBOLS = {
     "scaled_mm_tn": "scaled_mm_tn_kernel"}
 
 
-def device_ms(torch, fn, symbol, reps: int = 5):
+def device_ms(torch, fn, symbol, reps: int = 5, seen=None):
     """Mean device time per call of the kernels named ``symbol`` (or any of
-    a tuple of names) that ``fn`` launches, from torch.profiler (host work
-    not included); None when the profiler records no such kernel."""
+    a tuple of names; "" names every kernel) that ``fn`` launches, from
+    torch.profiler (host work not included); None when the profiler
+    records no such kernel.  The names timed are added to the set
+    ``seen``, where one is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -259,9 +294,11 @@ def device_ms(torch, fn, symbol, reps: int = 5):
             fn()
         torch.cuda.synchronize()
     names = (symbol,) if isinstance(symbol, str) else symbol
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA
-          and any(n in e.name for n in names)]
+    timed = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+             and any(n in e.name for n in names)]
+    if seen is not None:
+        seen.update(e.name[:120] for e in timed)
+    us = [e.time_range.elapsed_us() for e in timed]
     return sum(us) / 1e3 / reps if us else None
 
 
@@ -287,14 +324,18 @@ def kernel_phase(torch, dev, timed: bool = True):
 
     def record(name, route, source, replaces, err, tol, kernel, plain_ms,
                bnd, library_ms, shape, on_path=True, path="int8",
-               count=None, reading=None, symbol=None, what=None, **extra):
+               count=None, reading=None, symbol=None, what=None,
+               library_fn=None, **extra):
         """``kernel`` calls the kernel's wrapper: timed with CUDA events
         around the call (``ms``, the wrapper's host work included), by
         the profiler's kernel durations (``device_ms``) and on the host
         clock until the call returns (``host_ms``).  ``reading`` is
         the number held against ``tol`` where it is not ``err`` (the
         largest error of a row over that row's largest output, or ``what``
-        it says)."""
+        it says).  ``library_fn`` (B3 and B9: the SDPA call timed as
+        ``library_ms``) is also timed by the profiler, every kernel it
+        launches (``library_device_ms``), so that the kernel and SDPA are
+        compared device time against device time."""
         if reading is None:
             check(err <= tol,
                   f"{name} {shape}: max_abs_err {err:.3e} <= {tol:.3e}")
@@ -309,6 +350,18 @@ def kernel_phase(torch, dev, timed: bool = True):
         dev_ms = (device_ms(torch, kernel, symbol or KERNEL_SYMBOLS[name])
                   if timed else None)
         h_ms = host_ms(kernel) if timed else None
+        lib_dev, lib_names = None, set()
+        if timed and library_fn is not None:
+            lib_dev = device_ms(torch, library_fn, "", seen=lib_names)
+        if timed and dev_ms and name in ("flash_attention",
+                                         "flash_attention_block"):
+            lib = (f"SDPA device {lib_dev:.4f} ms (events {library_ms:.4f}),"
+                   f" {dev_ms / lib_dev:.2f}x SDPA device / device, "
+                   f"{ms / library_ms:.2f}x events / events "
+                   f"(SDPA's kernels: {sorted(lib_names)})"
+                   if lib_dev else "no SDPA")
+            log(f"{name} {shape}: device {dev_ms:.4f} ms (events {ms:.4f}), "
+                f"{lib}, bound {bnd[0]:.4f} ms, {dev_ms / bnd[0]:.2f}x bound")
         rows.append(dict(name=name, route=route, source=source,
                          replaces=replaces, launches=0, max_abs_err=err,
                          reading=err if reading is None else reading,
@@ -316,7 +369,8 @@ def kernel_phase(torch, dev, timed: bool = True):
                          host_ms=h_ms,
                          plain_ms=plain_ms,
                          bound_ms=bnd[0], bound_by=bnd[1],
-                         library_ms=library_ms, shape=shape,
+                         library_ms=library_ms,
+                         library_device_ms=lib_dev, shape=shape,
                          on_main_path=on_path, path=path,
                          count=count or name, **extra))
 
@@ -461,8 +515,9 @@ def kernel_phase(torch, dev, timed: bool = True):
     qb = (q * (sm * ka.LOG2E)).bfloat16()
     kb = kk.bfloat16()
     flops = 4 * bh * n * n * d
+    q16 = q.bfloat16()[None]
     sdpa = (lambda: F.scaled_dot_product_attention(
-        q.bfloat16()[None], kb[None], v[None], scale=sm))
+        q16, kb[None], v[None], scale=sm))
     got = ka.flash_attention(qb, kb, v)
     want = ka.flash_attention_plain(qb, kb, v)
     record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
@@ -471,7 +526,7 @@ def kernel_phase(torch, dev, timed: bool = True):
            lambda: ka.flash_attention(qb, kb, v),
            t(lambda: ka.flash_attention_plain(qb, kb, v), reps=3),
            bound_ms(4 * bh * n * d * 2, flops, "bf16"), t(sdpa),
-           f"BH{bh} N{n} D{d} bf16")
+           f"BH{bh} N{n} D{d} bf16", library_fn=sdpa)
     # int8-QK mode (the "auto" policy takes it at d <= 64; not on this path)
     qq, qs = quantize_int_mm(q)
     kq, kss = quantize_int_mm(kk)
@@ -489,8 +544,8 @@ def kernel_phase(torch, dev, timed: bool = True):
            # 1/4 + 1/2 of the bf16 mode's operations
            bound_ms(bh * n * d * (1 + 1 + 2 + 2) + 2 * bh * n * 4,
                     0.75 * flops, "bf16"), t(sdpa),
-           f"BH{bh} N{n} D{d} int8-QK", on_path=False)
-    del q, kk, v, qb, kb, qq, kq
+           f"BH{bh} N{n} D{d} int8-QK", on_path=False, library_fn=sdpa)
+    del q, kk, v, qb, kb, qq, kq, q16
 
     # B3 serving modes at Llama-3-8B's shapes: 4 requests x 32 heads over 8
     # KV heads (GQA), head dim 128.  Prefill: 896 prompt tokens into a
@@ -727,15 +782,16 @@ def llm_attention_rows(torch, dev, g, t, record):
     q4 = q.bfloat16().reshape(b, h, n, d)
     k4, v4 = (x.reshape(b, kh, kn, d).repeat_interleave(h // kh, 1)
               for x in (kb, vb))
+    sdpa = (lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, scale=sm))
     record("flash_attention", "cuda", src, rep, err, 2 ** -6,
            lambda: ka.flash_attention(*args, **kw),
            t(lambda: ka.flash_attention_plain(*args, **kw), reps=3),
            bound_ms(2 * (b * h * n * d + 2 * b * kh * kn * d)
                     + b * n * kn + b * h * n * d * 2, flops, "bf16"),
-           t(lambda: F.scaled_dot_product_attention(
-               q4, k4, v4, attn_mask=mask, scale=sm)),
-           f"BH{b * h} KH{b * kh} N{n} KN{kn} D{d} mask bf16",
-           path="llm_bf16kv", count="flash_attention:masked", reading=row)
+           t(sdpa), f"BH{b * h} KH{b * kh} N{n} KN{kn} D{d} mask bf16",
+           path="llm_bf16kv", count="flash_attention:masked", reading=row,
+           library_fn=sdpa)
     del q, k, v, qb, kb, vb, q4, k4, v4
 
     # the cache-free forward: causal over 2 x 1024 tokens, 32 over 8 heads;
@@ -752,16 +808,17 @@ def llm_attention_rows(torch, dev, g, t, record):
     q4 = (qb.float() / (sm * ka.LOG2E)).bfloat16().reshape(b, h, n, d)
     k4, v4 = (x.reshape(b, kh, n, d).repeat_interleave(h // kh, 1)
               for x in (kb, vb))
+    sdpa = (lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=sm))
     record("flash_attention", "cuda", src, rep, err, 2 ** -6,
            lambda: ka.flash_attention(*args, **kw),
            t(lambda: ka.flash_attention_plain(*args, **kw), reps=3),
            bound_ms(2 * (b * h * n * d + 2 * b * kh * n * d)
                     + b * h * n * d * 2,
                     4 * d * b * h * n * (n + 1) // 2, "bf16"),
-           t(lambda: F.scaled_dot_product_attention(
-               q4, k4, v4, is_causal=True, scale=sm)),
-           f"BH{b * h} KH{b * kh} N{n} KN{n} D{d} causal bf16",
-           path="llm_causal", count="flash_attention:causal", reading=row)
+           t(sdpa), f"BH{b * h} KH{b * kh} N{n} KN{n} D{d} causal bf16",
+           path="llm_causal", count="flash_attention:causal", reading=row,
+           library_fn=sdpa)
 
 
 def train_kernel_rows(torch, dev, g, t, record):
@@ -1020,17 +1077,17 @@ def pipeline_kernel_rows(torch, dev, g, t, record):
     err = (got - want).abs()
     row = float((err.amax(-1) / want.abs().amax(-1)).max())
     q4, k4, v4 = (a.bfloat16()[None] for a in (q, kk, v))
+    sdpa = (lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias,
+                                                   scale=1.0))
     record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
            "sdnq_tpu/kernels/attention.py:67", float(err.max()), 2 ** -6,
            lambda: ka.flash_attention(qb, kb, vb, **kw),
            t(lambda: ka.flash_attention_plain(qb, kb, vb, **kw), reps=3),
            bound_ms(3 * h * n * d * 2 + h * n * n * 4 + h * n * d * 2,
                     4 * h * n * n * d, "bf16"),
-           t(lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                    attn_mask=bias,
-                                                    scale=1.0)),
-           f"BH{h} N{n} KN{n} D{d} fp32 additive mask bf16 (T5)",
-           path="pipeline", count="flash_attention:float_mask", reading=row)
+           t(sdpa), f"BH{h} N{n} KN{n} D{d} fp32 additive mask bf16 (T5)",
+           path="pipeline", count="flash_attention:float_mask", reading=row,
+           library_fn=sdpa)
     del q, kk, v, qb, kb, vb, q4, k4, v4, bias
     torch.cuda.empty_cache()
 
@@ -1476,6 +1533,18 @@ def b9_operands(torch, q, k, v, mode):
     return args, dict(quantized=quant, quantized_pv=token, sm_scale=sm)
 
 
+def b9_readings(got, want) -> dict:
+    """B9's (acc, m, l) against the plain version's: acc / l per row over
+    the row's largest output, m over the largest live |m|, l relative."""
+    (acc, m, l), (wacc, wm, wl) = got, want
+    out, ref = acc / l, wacc / wl
+    live = wm > -1e29
+    return {"out": float(((out - ref).abs().amax(-1)
+                          / ref.abs().amax(-1)).max()),
+            "m": float((m - wm).abs().max() / wm[live].abs().max()),
+            "l": float(((l - wl).abs() / wl).max())}
+
+
 def ring_kernel_rows(torch, dev, g, t, record):
     """Phase 3 rows of B9 at the block shapes of phase 4r's rings: FLUX at
     P = 1 in three modes, at P = 2 and 4 (one block of rank 0's first
@@ -1496,11 +1565,7 @@ def ring_kernel_rows(torch, dev, g, t, record):
         acc, m, l = ka.flash_attention_block(*args, **kw)
         wacc, wm, wl = ka.flash_attention_block_plain(*args, **kw)
         out, want = acc / l, wacc / wl
-        live = wm > -1e29
-        got = {"out": float(((out - want).abs().amax(-1)
-                             / want.abs().amax(-1)).max()),
-               "m": float((m - wm).abs().max() / wm[live].abs().max()),
-               "l": float(((l - wl).abs() / wl).max())}
+        got = b9_readings((acc, m, l), (wacc, wm, wl))
         tol = B9_TOL["token" if mode == "int8_token" else "bf16_p"]
         log(f"B9 {label} {mode}: readings " + json.dumps(got)
             + " limits " + json.dumps(tol))
@@ -1531,22 +1596,21 @@ def ring_kernel_rows(torch, dev, g, t, record):
                + f" ({label})", path="ring",
                reading=max(got[key] / tol[key] for key in got),
                what="largest reading (out, m, l) over its limit",
-               readings=got, limits=tol)
+               readings=got, limits=tol, library_fn=library)
 
     b, h, n, d = FLUX_ATTN
     q, k, v = (torch.randn(b * h, n, d, device=dev, generator=g)
                for _ in range(3))
     sm = d ** -0.5
-    sdpa = (lambda: F.scaled_dot_product_attention(
-        q.bfloat16()[None], k.bfloat16()[None], v.bfloat16()[None],
-        scale=sm))
+    q16, k16, v16 = (x.bfloat16()[None] for x in (q, k, v))
+    sdpa = (lambda: F.scaled_dot_product_attention(q16, k16, v16, scale=sm))
     for mode in RING_MODES:
         row("FLUX P1", q, k, v, mode,
             library=sdpa if mode == "bf16" else None)
     for p in (2, 4):
         c = n // p
         row(f"FLUX P{p}", q[:, :c], k[:, :c], v[:, :c], "int8_token")
-    del q, k, v
+    del q, k, v, q16, k16, v16
     b, h, n, d, _ = LLAMA_ATTN
     q, k, v = (torch.randn(b * h, n, d, device=dev, generator=g)
                for _ in range(3))
@@ -1687,6 +1751,8 @@ def ring_phase(torch, dev):
         + json.dumps(times))
     profile_step(torch, "FLUX ring int8_token P1",
                  lambda: ring_attention(q, k, v, mesh))
+    profile_step(torch, "FLUX ring bf16 P1",
+                 lambda: ring_attention(q, k, v, mesh, **RING_MODES["bf16"]))
     profile_step(torch, "FLUX ring int8_token P4 (one process)",
                  lambda: _local_ring(q, k, v, 4))
     del q, k, v, ql, kl, vl
@@ -2897,8 +2963,9 @@ _GROUPS = (
     ("GEMM, group fold (B5)", ("wgmma_mm_kernel<2", "wgmma_mm_kernel<3")),
     ("GEMM, int8 group fold (B7)", ("wgmma_i8_fold_kernel",)),
     ("B9 flash_attention_block (bf16 / int8 P.V, token-mode int8 P.V)",
-     ("float, true>",)),
-    ("B3 flash_attention", ("flash_attn_kernel",)),
+     ("float, true>", "128, false, false, true>", "128, true, false, true>",
+      "128, false, true, true>", "128, true, true, true>")),
+    ("B3 flash_attention", ("flash_attn_wgmma_kernel",)),
     ("B6 blockdiag_mm general (multi-plane, minifloat)",
      ("blockdiag_mm_kernel_gen",)),
     ("B6 blockdiag_mm", ("blockdiag_mm_kernel",)),
@@ -3019,7 +3086,8 @@ def profile_step(torch, label, step, warm: int = 3, after: int = 3):
 # time, and phases 3 and 5 rerun against them.
 FAULTS = (
     ("attn_skips_first_kv_tile", "flash_attn", "flash_attention", "int8",
-     [("int kv0 = 0; kv0 < kv_end", "int kv0 = BKV; kv0 < kv_end")]),
+     [("issue_pv<D>(of, p, v_stage(st));",
+       "if (kv0 != 0) issue_pv<D>(of, p, v_stage(st));")]),
     ("attn_no_running_max_rescale_of_o", "flash_attn", "flash_attention",
      "int8", [("*= al0;", "*= 1.f;"), ("*= al1;", "*= 1.f;")]),
     ("gemm_drops_last_k_stage", "scaled_mm", "scaled_gemm", "int8",
@@ -3041,24 +3109,22 @@ FAULTS = (
        "c[j] |= (byte >> sh) << hs.shift[p];")]),
     ("attn_mask_ignored_on_first_tile", "flash_attn",
      "flash_attention:masked", "llm_bf16kv",
-     [("const bool use_mask = masked && mr0 != nullptr;",
-       "const bool use_mask = masked && mr0 != nullptr && kv0 != 0;")]),
+     [("if (MASKED && keep && (!EDGE || col < a.KN)) {",
+       "if (MASKED && keep && !EDGE) {")]),
     ("attn_masked_skips_a_middle_kv_tile", "flash_attn",
      "flash_attention:masked", "llm_bf16kv",
-     [("bool keep = col < a.KN && !(causal && row < col);",
-       "bool keep = col < a.KN && !(causal && row < col) && "
-       "!(masked && kv0 == 448);")]),
+     [("bool keep = true;\n      if constexpr (EDGE)",
+       "bool keep = !(MASKED && kv0 == 384);\n      if constexpr (EDGE)")]),
     ("attn_causal_skips_a_middle_kv_tile", "flash_attn",
      "flash_attention:causal", "llm_causal",
-     [("bool keep = col < a.KN && !(causal && row < col);",
-       "bool keep = col < a.KN && !(causal && row < col) && "
-       "!(causal && kv0 == 448);")]),
+     [("bool keep = true;\n      if constexpr (EDGE)",
+       "bool keep = !(a.causal && kv0 == 384);\n      if constexpr (EDGE)")]),
     ("attn_p_scale_per_64_key_tile", "flash_attn", "flash_attention:int8_pv",
      "llm_int8kv", [("const int PB = a.pblock;", "const int PB = BKV;")]),
     ("attn_causal_skip_one_tile_early", "flash_attn",
      "flash_attention:causal", "llm_causal",
      [("return a.causal ? min(a.KN, q0 + bq) : a.KN;",
-       "return a.causal ? min(a.KN, q0 + bq - BKV) : a.KN;")]),
+       "return a.causal ? min(a.KN, q0 + bq - BN) : a.KN;")]),
     ("attn_gqa_head_modulo", "flash_attn", "flash_attention:masked",
      "llm_int8kv", [("return (bh / a.H) * KH + hh / a.qpk;",
                      "return (bh / a.H) * KH + hh % KH;")]),
@@ -3084,12 +3150,11 @@ FAULTS = (
                    "v[j] = __fmul_rn(w, s);")]),
     ("attn_float_mask_ignored_on_one_tile", "flash_attn",
      "flash_attention:float_mask", "pipeline",
-     [("x = __fadd_rn(x, __fmul_rn(mask_val(a, mr, col), kLog2e));",
-       "x = kv0 == 128 ? x : __fadd_rn(x, __fmul_rn(mask_val(a, mr, col), "
-       "kLog2e));")]),
+     [("x = __fadd_rn(x, __fmul_rn(mv[e], kLog2e));",
+       "x = kv0 == 128 ? x : __fadd_rn(x, __fmul_rn(mv[e], kLog2e));")]),
     ("attn_float_mask_without_log2e", "flash_attn",
      "flash_attention:float_mask", "pipeline",
-     [("__fmul_rn(mask_val(a, mr, col), kLog2e)", "mask_val(a, mr, col)")]),
+     [("__fmul_rn(mv[e], kLog2e)", "mv[e]")]),
     ("b2_bitplane_planes_reversed", "decode_weight", "dequant_mm:bitplane",
      "dyn_r1", [("row + (size_t)j * S + b", "row + (size_t)(bits - 1 - j) * S + b")]),
     ("b2_minifloat_flushes_subnormals", "decode_weight", "dequant_mm:bitplane",
@@ -3140,32 +3205,45 @@ FAULTS = (
      [("l0 = __fadd_rn(__fmul_rn(l0, al0), ps0);", "l0 = __fadd_rn(l0, ps0);"),
       ("l1 = __fadd_rn(__fmul_rn(l1, al1), ps1);",
        "l1 = __fadd_rn(l1, ps1);")]),
+    ("attn_k_stage_parity_flipped", "flash_attn", "flash_attention", "int8",
+     [("mbar_wait(&k_full[i % ST], (i / ST) & 1);",
+       "mbar_wait(&k_full[i % ST], ((i / ST) & 1) ^ 1);")]),
+    ("attn_pv_reads_the_previous_v_stage", "flash_attn", "flash_attention",
+     "int8", [("issue_pv<D>(of, p, v_stage(st));",
+               "issue_pv<D>(of, p, v_stage((st + ST - 1) % ST));")]),
+    ("attn_second_warpgroup_stores_the_first_ones_rows", "flash_attn",
+     "flash_attention", "int8",
+     [("(a, bh, r0, r1, t4, o, l0, l1);",
+       "(a, bh, r0 - 64 * wg, r1 - 64 * wg, t4, o, l0, l1);")]),
 )
 
 
-# Every fault build of csrc/wgmma_mm.cu gives up a barrier wait after 2^22
-# cycles (about 2 ms) and sets a flag, where the sound build traps after
-# 2^36: a broken barrier then ends in a wrong result that phase 3 reads,
-# not in a failed launch that ends the process.
+# Every fault build of the sources on csrc/hopper.cuh's barriers
+# (WATCHED) gives up a barrier wait after 2^22 cycles (about 2 ms) and sets
+# a flag, where the sound build traps after 2^36: a broken barrier then
+# ends in a wrong result that phase 3 reads, not in a failed launch that
+# ends the process.
+WATCHED = ("wgmma_mm", "flash_attn")
 WGMMA_WATCHDOG = (
-    ("// ---- mbarriers", "__device__ int g_watchdog;\n// ---- mbarriers"),
-    ("if (clock64() - t0 > TRAP_CYCLES) __trap();",
+    ("hopper.cuh", "// ---- mbarriers",
+     "__device__ int g_watchdog;\n// ---- mbarriers"),
+    ("hopper.cuh", "if (clock64() - t0 > TRAP_CYCLES) __trap();",
      "if (clock64() - t0 > (1ll << 22)) {\n      g_watchdog = 1;\n"
      "      return;\n    }"))
 WGMMA_WATCHDOG_READER = """
 // Whether a barrier wait gave up since the last call; clears the flag.
 extern "C" int sdnq_wgmma_watchdog(int* fired) {
   const int zero = 0;
-  cudaError_t err = cudaMemcpyFromSymbol(fired, g_watchdog, sizeof(int));
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_watchdog, &zero, sizeof(int));
+  cudaError_t err = cudaMemcpyFromSymbol(fired, sdnq::g_watchdog, sizeof(int));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(sdnq::g_watchdog, &zero, sizeof(int));
   return static_cast<int>(err);
 }
 """
 
 
 def watchdog_fired(lib_path) -> bool:
-    """Whether a barrier wait of the fault build ``lib_path`` of
-    csrc/wgmma_mm.cu gave up since the last call (clears the flag)."""
+    """Whether a barrier wait of the fault build ``lib_path`` (of a source
+    in WATCHED) gave up since the last call (clears the flag)."""
     import ctypes
     fired = ctypes.c_int(0)
     rc = ctypes.CDLL(str(lib_path)).sdnq_wgmma_watchdog(ctypes.byref(fired))
@@ -3174,28 +3252,64 @@ def watchdog_fired(lib_path) -> bool:
     return bool(fired.value)
 
 
-def start_fault_builds():
-    """Write each broken source into _build/faults/<tag>/ and start its
-    nvcc; returns {tag: (process, library path)}."""
+# Timing probes of B3 / B9's bf16 P.V kernel: builds of csrc/flash_attn.cu
+# with text edits, built as the faults are and timed after them
+# (probe_phase).  Each build of a source in WATCHED carries the barrier
+# watchdog, so "watchdog_only" (no other edit) is the one the others are
+# compared with.  Three b9_* builds each give B9 one part of B3's (its
+# exp2f, scores without the sm_scale multiply, the bf16 epilogue), so that
+# the reference's time less each one's is that part's cost; the fourth
+# takes B9's exp(x) as exp2f(x log2(e)), which keeps its natural units.
+# The last two take out the ping-pong of the consumer warpgroups and add a
+# third K / V stage.
+PROBES = (
+    ("watchdog_only", "flash_attn", []),
+    ("b9_exp2f", "flash_attn",
+     [("return NATURAL ? expf(x) : exp2f(x);", "return exp2f(x);")]),
+    ("b9_expf_as_exp2f", "flash_attn",
+     [("return NATURAL ? expf(x) : exp2f(x);",
+       "return NATURAL ? exp2f(x * kLog2e) : exp2f(x);")]),
+    ("b9_no_sm_scale", "flash_attn",
+     [("else if constexpr (NATURAL)\n        x = __fmul_rn(x, a.sm_scale);",
+       "else if constexpr (NATURAL)\n        x = x;")]),
+    ("b9_bf16_epilogue", "flash_attn",
+     [("store_partial<NDT>(a, bh, r0, r1, t4, o, m0, m1, l0, l1);",
+       "store_rows<__nv_bfloat16, NDT>(a, bh, r0, r1, t4, o, l0, l1);")]),
+    ("no_pingpong", "flash_attn",
+     [('asm volatile("bar.sync %0, 256;\\n" ::"r"(1 + wg) : "memory");',
+       "(void)wg;"),
+      ('asm volatile("bar.arrive %0, 256;\\n" ::"r"(2 - wg) : "memory");',
+       "(void)wg;")]),
+    ("three_stages", "flash_attn",
+     [("constexpr int ST = 2;", "constexpr int ST = 3;")]),
+)
+
+
+def start_fault_builds(entries=None, sub: str = "faults"):
+    """Write each source of ``entries`` ((tag, source, edits); FAULTS's by
+    default) with its edits into _build/<sub>/<tag>/ and start its nvcc;
+    returns {tag: (process, library path)}."""
     from sdnq_tpu_torch.kernels import _build
     csrc = ROOT / "sdnq_tpu_torch" / "csrc"
+    if entries is None:
+        entries = [(tag, src, edits) for tag, src, _, _, edits in FAULTS]
     texts = {}
-    for tag, src, _, _, edits in FAULTS:  # every edit applies, or none builds
+    for tag, src, edits in entries:  # every edit applies, or none builds
         files = {f: (csrc / f).read_text() for f in (f"{src}.cu",
-                                                     "common.cuh")}
-        if src == "wgmma_mm":
+                                                     *_build._HEADERS)}
+        if src in WATCHED:
             edits = list(edits) + list(WGMMA_WATCHDOG)
-            files["wgmma_mm.cu"] += WGMMA_WATCHDOG_READER
+            files[f"{src}.cu"] += WGMMA_WATCHDOG_READER
         for edit in edits:
             name, old, new = edit if len(edit) == 3 else (f"{src}.cu",
                                                           *edit)
             if old not in files[name]:
-                raise RuntimeError(f"fault {tag}: {old!r} not in {name}")
+                raise RuntimeError(f"{sub} {tag}: {old!r} not in {name}")
             files[name] = files[name].replace(old, new)
         texts[tag] = files
     procs = {}
-    for tag, src, _, _, _ in FAULTS:
-        d = _build.build_dir() / "faults" / tag
+    for tag, src, _ in entries:
+        d = _build.build_dir() / sub / tag
         d.mkdir(parents=True, exist_ok=True)
         for name, text in texts[tag].items():
             (d / name).write_text(text)
@@ -3250,7 +3364,7 @@ def fault_phase(torch, dev, slices, procs):
             rows = kernel_phase(torch, dev, timed=False)
             readings = slices[label]()
             # a broken ring may leave the GEMM's barrier waits to give up
-            watchdog = src == "wgmma_mm" and watchdog_fired(procs[tag][1])
+            watchdog = src in WATCHED and watchdog_fired(procs[tag][1])
         FAILURES[:] = sound  # the checks were meant to fail here
         # a NaN reading fails its check too
         caught = [r for r in rows if not r["reading"] <= r["tolerance"]]
@@ -3266,6 +3380,50 @@ def fault_phase(torch, dev, slices, procs):
         check(any(r["count"] == kernel for r in caught),
               f"fault {tag}: phase 3 fails {kernel}")
     log("faults: " + json.dumps(results))
+
+
+def probe_phase(torch, dev, procs):
+    """B3 bf16 and B9 bf16 at FLUX's P = 1 block (24 heads, 4608 tokens,
+    D 128) under each build of PROBES, between two runs of the shipped
+    build, beside SDPA on the same inputs: ms a call by ``burst_ms`` (late
+    in the run the profiler recorded no kernels for some of these calls),
+    and B9's readings against its plain version (``B9_TOL``; a probe may
+    change what B9 computes)."""
+    import torch.nn.functional as F
+    from sdnq_tpu_torch.kernels import attention as ka
+    for tag, (proc, _) in procs.items():
+        check(proc.wait() == 0, f"probe {tag}: built")
+    if FAILURES:
+        return
+    g = torch.Generator(device=dev).manual_seed(77)
+    b, h, n, d = FLUX_ATTN
+    q, k, v = (torch.randn(b * h, n, d, device=dev, generator=g)
+               for _ in range(3))
+    sm = d ** -0.5
+    qb = (q * (sm * ka.LOG2E)).bfloat16()
+    q16, k16, v16 = (x.bfloat16() for x in (q, k, v))
+    args, kw = b9_operands(torch, q, k, v, "bf16")
+    args.append(None)
+    want = ka.flash_attention_block_plain(*args, **kw)
+    calls = {"b3": lambda: ka.flash_attention(qb, k16, v16),
+             "b9": lambda: ka.flash_attention_block(*args, **kw)}
+
+    def run():
+        r = {key: burst_ms(fn) for key, fn in calls.items()}
+        r["b9_readings"] = b9_readings(calls["b9"](), want)
+        return r
+    out = {"sdpa": burst_ms(lambda: F.scaled_dot_product_attention(
+        q16[None], k16[None], v16[None], scale=sm)), "shipped": run()}
+    for tag, (_, lib) in procs.items():
+        with library_swapped("flash_attn", lib):
+            out[tag] = run()
+            check(not watchdog_fired(lib),
+                  f"probe {tag}: no barrier wait gave up")
+    out["shipped, again"] = run()
+    log("probes (ms a call in bursts of 20, FLUX's P = 1 block; B9 limits "
+        + json.dumps(B9_TOL["bf16_p"]) + "): " + json.dumps(out))
+    del q, k, v, qb, q16, k16, v16, args, want
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3295,8 +3453,10 @@ def main() -> int:
     from sdnq_tpu_torch import QuantConfig
     from sdnq_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    fault_procs = start_fault_builds()
+    fault_procs, probe_procs = {}, {}
     try:
+        fault_procs = start_fault_builds()
+        probe_procs = start_fault_builds(PROBES, "probes")
         secs = _build.build()
         log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
             + json.dumps({k: round(v, 1) for k, v in secs.items()}))
@@ -3424,8 +3584,9 @@ def main() -> int:
         checks["pipeline"] = lambda: pipeline_slice_phase(torch, dev,
                                                           pipe_cut)
         fault_phase(torch, dev, checks, fault_procs)
+        probe_phase(torch, dev, probe_procs)
     finally:  # no compiler outlives the script
-        for proc, _ in fault_procs.values():
+        for proc, _ in [*fault_procs.values(), *probe_procs.values()]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()

@@ -19,15 +19,31 @@
 // (H / KH), the JAX index map `b // q_per_kv`); P.V in bf16, or in int8
 // ("token" mode, :148-157) on per-token-quantized V.
 //
-// bf16 P.V (`flash_attn_kernel`).  At FLUX's shape (24 heads, N = 4608, D =
-// 128) attention is bound by tensor-core operations (4*N^2*D per head).  One
-// block of 8 warps takes 128 query rows of one (batch*head); each warp keeps
-// its 16 rows of Q as mma A fragments in registers and walks the KV sequence
-// in 64-key tiles staged in padded shared memory by cp.async (K and V in two
-// copy groups, so V lands while Q.K^T runs).  S = Q.K^T comes from mma.sync
-// (bf16 m16n8k16 or s8 m16n8k32), the running max / sum use exp2f, P is
-// rounded to bf16 in registers and reused directly as the A fragment of P.V,
-// whose B fragment is read with ldmatrix.trans.
+// bf16 P.V (`flash_attn_wgmma_kernel`).  At FLUX's shape (24 heads, N =
+// 4608, D = 128) attention is bound by tensor-core operations (4*N^2*D per
+// head), which on Hopper only wgmma reaches.  One block takes 128 query rows
+// of one (batch*head): two consumer warpgroups of 64 rows each and a
+// producer warp whose lane 0 issues every load.  TMA brings Q once
+// and K and V in tiles of 128 keys into a ring of two stages, K and V each
+// with full and empty mbarriers (Q.K^T of a tile starts before its V has
+// landed); the tensor maps are 3-D, (D, rows, heads), so the zero fill
+// takes a head's ragged end and no row of the next head is read.  Rows of
+// 256 bytes (bf16 at D 128) are two 128-byte-swizzled column chunks, int8
+// rows of 64 bytes one 64-byte-swizzled chunk.  S = Q.K^T is an SS wgmma
+// (bf16 m64n128k16, or s8 m64n128k32 into int32 for the int8 mode), both
+// operands K-major; the online softmax runs in registers on the
+// accumulator layout (a thread holds two rows, each row's other values on
+// the three other lanes of its quad); P is rounded to bf16 in registers
+// and is the A operand of an RS wgmma m64n{D}k16 against V's tile read
+// MN-major (V row-major is B transposed).  Overlap: the two warpgroups
+// take turns at issuing Q.K^T (named barriers), so that one's softmax runs
+// under the other's products; within a warpgroup the products and the
+// softmax of a tile follow each other (168 registers a thread hold S, O and
+// P of D 128 one after the other, not S of the next tile in flight beside
+// O and P).  The tiles run from the last in key order down: the first a
+// block takes holds the ragged end of KN and the causal diagonal and is the
+// only one with masking code for them; tiles right of the diagonal are never
+// loaded, and the unmasked path reads no mask.
 //
 // int8 P.V (`flash_attn_tok_kernel`).  The JAX kernel quantises P once per
 // P block of `bk` keys (bk = min(512, KN), halved until it divides KN):
@@ -57,18 +73,21 @@
 // (q_q . k_q) * qs[i] * ks[j] with sm_scale folded into qs by the caller,
 // bf16 QK s = (q . k) * sm_scale after the dot (:102-111), an additive mask
 // added as it is; p = expf(s - m) (`ex<true>`), and m is the natural max,
-// with no conversion on output.  The tiles, `mma.sync` loops and the staged
-// P blocks of the token mode are B3's.  A row whose every key a bool mask
+// with no conversion on output.  The kernels and the staged P blocks of the
+// token mode are B3's.  A row whose every key a bool mask
 // hides keeps m = -1e30, so each of its p is exp(0) = 1 and l = KN (:119-121,
 // :143-146), as in the JAX kernel.  Bound by tensor-core operations at the
 // ring's block shapes (4 * N * KN * D per head), like B3.
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BKV = 64;
+using namespace sdnq;
+
+constexpr int BKV = 64;               // keys of a token-mode tile
+constexpr int BM = 128, BN = 128;     // query rows of a block, keys of a tile (bf16 P.V)
 constexpr float NEG = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 enum { MASK_BOOL = 1, MASK_BF16 = 2, MASK_F32 = 3 };
@@ -88,6 +107,7 @@ struct Args {
   float* m_out;          // B9: (BH, N) row max, natural units
   float* l_out;          // B9: (BH, N) row sum
   float sm_scale;        // B9, bf16 QK: the score's scale after the dot
+  int out_kind;          // B3, bf16 P.V: the type of out (sdnq::F32 / BF16 / F16)
 };
 
 // p = exp(x): base 2 for B3 (log2(e) folded into the scores), base e for B9
@@ -145,11 +165,9 @@ __device__ __forceinline__ void load_q(unsigned (&qf)[KSTEPS][4], const Args& a,
 // s = Q . K^T for one warp's 16 rows x the 64 keys of the tile at kv0 in
 // sK (row stride LDK bytes), scaled in int8 mode and masked: s[nt][0..1]
 // belong to row r0, s[nt][2..3] to r1, key kv0 + nt*8 + t4*2 + (i & 1).
-// `masked` / `causal` are compile-time constants where the caller knows
-// them, so the unmasked kernel carries none of the masking code; whether a
-// mask is bool or additive is read from the arguments (uniform over the
-// launch).  NATURAL (B9): the bf16 score times sm_scale, the additive mask
-// added without log2(e).
+// `masked` / `causal` and whether a mask is bool or additive are read from
+// the arguments (uniform over the launch).  NATURAL (B9): the bf16 score
+// times sm_scale, the additive mask added without log2(e).
 template <bool QUANT, int KSTEPS, int LDK, bool NATURAL>
 __device__ __forceinline__ void score_tile(float (&s)[BKV / 8][4], const unsigned (&qf)[KSTEPS][4],
                                            const uint8_t* sK, const float* sKs, float qs0,
@@ -256,131 +274,365 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 P.V
+// bf16 P.V: TMA + wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int WARPS = 8, NT = WARPS * 32, BQ = WARPS * 16;
+constexpr int ST = 2;  // stages of K and of V
+// Two consumer warpgroups, then the producer warp.  ptxas gives each thread
+// 168 registers (as for 384 threads): S, O and P of D 128 fit one after the
+// other, not S of the next tile in flight beside O and P of this one (ptxas
+// then serializes the wgmmas and spills).  setmaxnreg (the producer's dec
+// 24, the consumers' inc 240) did not raise its allocation above 168, and
+// the card refused to launch a 224-register build (__maxnreg__).
+constexpr int WGT = 128, NTW = 2 * WGT + 32;
 
-// MODE bit 0: a mask (bool or additive); bit 1: causal.  PARTIAL: B9
-template <int D, bool QUANT, int MODE, typename OutT, bool PARTIAL>
-__global__ void __launch_bounds__(NT) flash_attn_kernel(const Args a) {
-  constexpr int QB = QUANT ? D : 2 * D;  // bytes per Q / K row
-  constexpr int LDK = QB + 16;           // padded K row in shared memory
-  constexpr int LDV = 2 * D + 16;        // padded V row in shared memory
-  constexpr int KSTEPS = QB / 32;        // mma K steps over the head dim
-  constexpr int NDT = D / 8;             // n8 tiles of the output
-  __shared__ __align__(16) uint8_t sK[BKV * LDK];
-  __shared__ __align__(16) uint8_t sV[BKV * LDV];
-  __shared__ float sKs[BKV];
+// Shared memory of a mode: Q (BM rows), ST stages of K and of V (BN rows
+// each), ST stages of the int8 mode's key scales, the barriers.  A row of Q
+// or K is QB bytes, stored as column chunks of CH bytes a row (a chunk of R
+// rows takes R * CH bytes): 128-byte chunks in the 128-byte swizzle, or at
+// 64-byte rows (int8, D 64) one chunk in the 64-byte swizzle.  V's rows
+// (2 D bytes) are 128-byte chunks of 64 columns.
+template <int D, bool QUANT>
+struct Smem {
+  static constexpr int QB = QUANT ? D : 2 * D;
+  static constexpr int CH = QB < 128 ? QB : 128;
+  static constexpr int Q_BYTES = BM * QB, K_BYTES = BN * QB, V_BYTES = BN * 2 * D;
+  static constexpr int KS_BYTES = QUANT ? BN * 4 : 0;
+  static constexpr int K_OFF = Q_BYTES, V_OFF = K_OFF + ST * K_BYTES;
+  static constexpr int KS_OFF = V_OFF + ST * V_BYTES, BAR_OFF = KS_OFF + ST * KS_BYTES;
+  static constexpr int BYTES = BAR_OFF + (1 + 4 * ST) * 8 + 1024;  // + the 1024-byte alignment
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const size_t bh = blockIdx.y, kvbh = kv_head(a, bh);
-  const int r0 = blockIdx.x * BQ + warp * 16 + g;  // this thread's rows r0, r0 + 8
-  const int r1 = r0 + 8;
-  const int KN = a.KN;
+template <int CH>
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p) {
+  return CH == 128 ? sw128_desc(p) : sw64_desc(p);
+}
 
-  unsigned qf[KSTEPS][4];
-  load_q<QB, KSTEPS>(qf, a, bh, r0, r1, t4);
-  float qs0 = 0.f, qs1 = 0.f;
-  if (QUANT) {
-    qs0 = r0 < a.N ? a.qs[bh * a.N + r0] : 0.f;
-    qs1 = r1 < a.N ? a.qs[bh * a.N + r1] : 0.f;
+// S = Q.K^T of a warpgroup's 64 rows (sq) and a tile's BN keys (sk), both
+// K-major: bf16 m64n128k16 or s8 m64n128k32 (into S's registers as int32),
+// 32 bytes of the rows a step.
+template <int D, bool QUANT>
+__device__ __forceinline__ void issue_qk(float (&s)[64], const uint8_t* sq, const uint8_t* sk) {
+  using L = Smem<D, QUANT>;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int st = 0; st < L::QB / 32; ++st) {
+    const int c = st * 32 / L::CH, step = (st * 32 % L::CH) / 16;
+    const uint64_t da = kmajor_desc<L::CH>(sq + c * BM * L::CH) + step;
+    const uint64_t db = kmajor_desc<L::CH>(sk + c * BN * L::CH) + step;
+    if constexpr (QUANT)
+      wgmma_s8(reinterpret_cast<int(&)[64]>(s), da, db, st != 0);
+    else
+      wgmma128(s, da, db, st != 0);
   }
-  constexpr bool MASKED = MODE & 1, CAUSAL = MODE & 2;
-  const uint8_t* mr0 = MASKED ? mask_row(a, bh, r0) : nullptr;
-  const uint8_t* mr1 = MASKED ? mask_row(a, bh, r1) : nullptr;
+  wgmma_commit();
+}
 
-  float o_acc[NDT][4];
+// O += P.V over a tile: P (the warpgroup's 64 rows x BN keys as bf16 pairs,
+// p[4 kk .. 4 kk + 3] the A operand of keys 16 kk ..) times V (BN keys x D,
+// chunks of 64 columns BN * 128 bytes apart), V an MN-major B.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const unsigned (&p)[BN / 4],
+                                         const uint8_t* sv) {
+  fence_regs(o);
+  wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < NDT; ++i) o_acc[i][0] = o_acc[i][1] = o_acc[i][2] = o_acc[i][3] = 0.f;
-  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const unsigned a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    const uint64_t db = sw128_desc_mn(sv + kk * 16 * 128, BN * 128);
+    if constexpr (D == 128)
+      wgmma_rs128_t(o, a, db);
+    else
+      wgmma_rs64_t(o, a, db);
+  }
+  wgmma_commit();
+}
 
-  const uint8_t* kbase = a.k + kvbh * (size_t)KN * QB;
-  const uint8_t* vbase = a.v + kvbh * (size_t)KN * (2 * D);
-  const int kv_end = kv_stop(a, blockIdx.x * BQ, BQ);
+// The mask values of 16 scores (4 chunks of 8 keys from chunk j0: keys kv0
+// + 8 j + 2 (t % 4) + {0, 1} of rows r0 and r1, in fix_scores' order): bool
+// masks as 0 / 1, additive ones as fp32, 0 past KN (not read).  The kind is
+// branched on once and the loads are issued together, so that their
+// latencies overlap.
+template <bool EDGE>
+__device__ __forceinline__ void load_mask16(float (&mv)[16], const Args& a, const uint8_t* mrow0,
+                                            const uint8_t* mrow1, int kv0, int j0, int t4) {
+  auto col_of = [&](int e) { return kv0 + 8 * (j0 + e / 4) + 2 * t4 + (e & 1); };
+  auto in = [&](int e) { return !EDGE || col_of(e) < a.KN; };
+  auto at = [&](int e) { return ((e & 2) ? mrow1 : mrow0); };
+  if (a.mkind == MASK_F32) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      mv[e] = in(e) ? reinterpret_cast<const float*>(at(e))[col_of(e) * a.msk] : 0.f;
+  } else if (a.mkind == MASK_BF16) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      mv[e] = in(e) ? __bfloat162float(
+                          reinterpret_cast<const __nv_bfloat16*>(at(e))[col_of(e) * a.msk])
+                    : 0.f;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) mv[e] = in(e) && at(e)[col_of(e) * a.msk] != 0 ? 1.f : 0.f;
+  }
+}
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
-    // stage K and V tiles (two cp.async groups); rows past KN are zeros
-    for (int c = tid; c < BKV * QB / 16; c += NT) {
-      const int r = c / (QB / 16), cb = (c % (QB / 16)) * 16;
-      const bool ok = kv0 + r < KN;
-      sdnq::cp_async16(sK + r * LDK + cb, kbase + (size_t)(ok ? kv0 + r : 0) * QB + cb, ok);
+// A tile's scores after Q.K^T (s[4j], s[4j+1] of row r0 and s[4j+2],
+// s[4j+3] of row r1 at keys kv0 + 8j + 2 (t % 4) + {0, 1}): the int8 mode's
+// scales, B9's sm_scale on bf16 products, and the masks.  The EDGE tile (the
+// first a block takes: the last in key order) masks keys past KN with -inf,
+// so that they add nothing even to a row a bool mask hides everywhere, and,
+// causal, keys right of the diagonal; MASKED reads the bool or additive
+// mask of each (row, key), 16 values at a time.  The tiles inside KN and
+// left of the diagonal carry none of this code.
+template <bool QUANT, bool NATURAL, bool MASKED, bool EDGE>
+__device__ __forceinline__ void fix_scores(float (&s)[64], const float* sks, float qs0, float qs1,
+                                           const Args& a, int kv0, int r0, int r1,
+                                           const uint8_t* mrow0, const uint8_t* mrow1, int t4) {
+  const bool fmask = a.mkind != MASK_BOOL;
+#pragma unroll
+  for (int j0 = 0; j0 < BN / 8; j0 += 4) {
+    float mv[16];
+    if constexpr (MASKED) load_mask16<EDGE>(mv, a, mrow0, mrow1, kv0, j0, t4);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int j = j0 + e / 4, i = e & 3;
+      const int c = 8 * j + 2 * t4 + (i & 1), col = kv0 + c, row = i < 2 ? r0 : r1;
+      float x = s[4 * j + i];
+      if constexpr (QUANT)
+        x = (static_cast<float>(__float_as_int(x)) * (i < 2 ? qs0 : qs1)) * sks[c];
+      else if constexpr (NATURAL)
+        x = __fmul_rn(x, a.sm_scale);
+      bool keep = true;
+      if constexpr (EDGE) keep = !(a.causal && row < col);
+      if (MASKED && keep && (!EDGE || col < a.KN)) {
+        if (fmask && NATURAL)
+          x = __fadd_rn(x, mv[e]);
+        else if (fmask)
+          x = __fadd_rn(x, __fmul_rn(mv[e], kLog2e));
+        else
+          keep = mv[e] != 0.f;
+      }
+      x = keep ? x : NEG;
+      if (EDGE && col >= a.KN) x = -INFINITY;
+      s[4 * j + i] = x;
     }
-    sdnq::cp_async_commit();
-    for (int c = tid; c < BKV * 2 * D / 16; c += NT) {
-      const int r = c / (2 * D / 16), cb = (c % (2 * D / 16)) * 16;
-      const bool ok = kv0 + r < KN;
-      sdnq::cp_async16(sV + r * LDV + cb, vbase + (size_t)(ok ? kv0 + r : 0) * (2 * D) + cb, ok);
-    }
-    sdnq::cp_async_commit();
-    if (QUANT && tid < BKV) sKs[tid] = kv0 + tid < KN ? a.ks[kvbh * KN + kv0 + tid] : 0.f;
-    sdnq::cp_async_wait<1>();
-    __syncthreads();
+  }
+}
 
-    float s[BKV / 8][4];
-    score_tile<QUANT, KSTEPS, LDK, PARTIAL>(s, qf, sK, sKs, qs0, qs1, a, kv0, r0, r1, MASKED,
-                                            CAUSAL, mr0, mr1, g, t4);
+// The online softmax of a tile on the accumulator layout: s becomes p =
+// ex(s - m_new); al0 / al1 the factors of the sums so far; l0 / l1 this
+// thread's share of its rows' sums (the quad's four summed at the end).
+template <bool NATURAL>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float& m0, float& m1, float& l0,
+                                             float& l1, float& al0, float& al1) {
+  float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+  al0 = ex<NATURAL>(m0 - mn0);
+  al1 = ex<NATURAL>(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    s[4 * j] = ex<NATURAL>(s[4 * j] - mn0);
+    s[4 * j + 1] = ex<NATURAL>(s[4 * j + 1] - mn0);
+    s[4 * j + 2] = ex<NATURAL>(s[4 * j + 2] - mn1);
+    s[4 * j + 3] = ex<NATURAL>(s[4 * j + 3] - mn1);
+    ps0 += s[4 * j] + s[4 * j + 1];
+    ps1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * al0 + ps0;
+  l1 = l1 * al1 + ps1;
+}
 
-    // online softmax (rows r0: entries 0,1; r1: entries 2,3)
-    float mx0 = NEG, mx1 = NEG;
+template <int NDT>
+__device__ __forceinline__ void rescale(float (&o)[NDT][4], float al0, float al1) {
 #pragma unroll
-    for (int nt = 0; nt < BKV / 8; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = ex<PARTIAL>(m0 - mn0), al1 = ex<PARTIAL>(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < BKV / 8; ++nt) {
-      s[nt][0] = ex<PARTIAL>(s[nt][0] - mn0);
-      s[nt][1] = ex<PARTIAL>(s[nt][1] - mn0);
-      s[nt][2] = ex<PARTIAL>(s[nt][2] - mn1);
-      s[nt][3] = ex<PARTIAL>(s[nt][3] - mn1);
-      ps0 += s[nt][0] + s[nt][1];
-      ps1 += s[nt][2] + s[nt][3];
-    }
-    ps0 = quad_sum(ps0);
-    ps1 = quad_sum(ps1);
-    l0 = l0 * al0 + ps0;
-    l1 = l1 * al1 + ps1;
-#pragma unroll
-    for (int dt = 0; dt < NDT; ++dt) {
-      o_acc[dt][0] *= al0;
-      o_acc[dt][1] *= al0;
-      o_acc[dt][2] *= al1;
-      o_acc[dt][3] *= al1;
-    }
+  for (int dt = 0; dt < NDT; ++dt) {
+    o[dt][0] *= al0;
+    o[dt][1] *= al0;
+    o[dt][2] *= al1;
+    o[dt][3] *= al1;
+  }
+}
 
-    sdnq::cp_async_wait<0>();
-    __syncthreads();
+// P = bf16(p) in the A operand's order: neighbouring columns paired
+__device__ __forceinline__ void pack_p(unsigned (&p)[BN / 4], const float (&s)[64]) {
+#pragma unroll
+  for (int i = 0; i < BN / 4; ++i) p[i] = pack_bf16x2(s[2 * i], s[2 * i + 1]);
+}
 
-    // O += P . V ; the S accumulator layout is the A fragment layout of P
+// Ping-pong: warpgroup wg waits at named barrier 1 + wg before it issues a
+// tile's Q.K^T and, once it is issued, lets the other one go (barrier 2 -
+// wg); each barrier counts the 128 threads waiting and the 128 arriving.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+
+// B3 / B9 with bf16 P.V; grid (ceil(N / BM), BH).  MASKED: a bool or
+// additive mask; PARTIAL: B9's natural units and epilogue.  A consumer
+// warpgroup takes each tile in turn: Q.K^T, the softmax once it has
+// completed, P.V; warpgroup 0 issues each tile's Q.K^T first.
+template <int D, bool QUANT, bool MASKED, bool PARTIAL>
+__global__ void __launch_bounds__(NTW, 1)
+    flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv, const Args a) {
+  using L = Smem<D, QUANT>;
+  constexpr int NDT = D / 8;
+  constexpr int NCH = L::QB / L::CH;  // column chunks of a Q / K row
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // the first 1024-byte boundary (an offset from smem_raw, so that the
+  // compiler keeps the shared address space)
+  uint8_t* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + ST;
+  uint64_t* v_full = k_empty + ST;
+  uint64_t* v_empty = v_full + ST;
+  const int wg = threadIdx.x / WGT;
+  const int q0 = blockIdx.x * BM;
+  const size_t bh = blockIdx.y;
+  const int kvbh = static_cast<int>(kv_head(a, bh));
+  const int n_tiles = (kv_stop(a, q0, BM) + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      // the producer's arrive with the stage's bytes (and, int8, its arrive
+      // once the key scales are stored)
+      mbar_init(&k_full[s], QUANT ? 2 : 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 8);  // one arrive from each consumer warp
+      mbar_init(&v_empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warp: lane 0 issues every load
+    const bool leader = threadIdx.x == 2 * WGT;
+    constexpr int CE = QUANT ? L::CH : L::CH / 2;  // elements of a chunk's row
+    if (leader) {
+      mbar_expect_tx(q_full, L::Q_BYTES);
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      const unsigned pa[4] = {sdnq::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                              sdnq::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                              sdnq::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              sdnq::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint8_t* vrow = sV + (kk * 16 + (lane & 15)) * LDV;
+      for (int c = 0; c < NCH; ++c)
+        tma_load_3d(smem + c * BM * L::CH, &tq, q_full, c * CE, q0, static_cast<int>(bh));
+    }
+    for (int i = 0; i < n_tiles; ++i) {  // tile i of the block: keys from kv0
+      const int s = i % ST, kv0 = (n_tiles - 1 - i) * BN;
+      const unsigned ph = ((i / ST) & 1) ^ 1;  // the first round passes at once
+      // the stage is released, and its last load has landed (implied by
+      // the release; waited for all the same, so that a stage never has
+      // two loads in flight on its barrier)
+      mbar_wait(&k_empty[s], ph);
+      if (i >= ST) mbar_wait(&k_full[s], ph);
+      if (leader) {
+        mbar_expect_tx(&k_full[s], L::K_BYTES);
+        uint8_t* sk = smem + L::K_OFF + s * L::K_BYTES;
 #pragma unroll
-      for (int dt = 0; dt < NDT; ++dt) {
-        unsigned b[2];
-        sdnq::ldmatrix_x2_trans(b[0], b[1], vrow + dt * 16);
-        sdnq::mma_bf16(o_acc[dt], pa, b);
+        for (int c = 0; c < NCH; ++c)
+          tma_load_3d(sk + c * BN * L::CH, &tk, &k_full[s], c * CE, kv0, kvbh);
+      }
+      if constexpr (QUANT) {  // the tile's key scales, zeros past KN, by the warp
+        float* sks = reinterpret_cast<float*>(smem + L::KS_OFF + s * L::KS_BYTES);
+        const float* ks = a.ks + static_cast<size_t>(kvbh) * a.KN;
+        for (int c = threadIdx.x % 32; c < BN; c += 32)
+          sks[c] = kv0 + c < a.KN ? ks[kv0 + c] : 0.f;
+        __syncwarp();
+        if (leader) mbar_arrive(&k_full[s]);
+      }
+      mbar_wait(&v_empty[s], ph);
+      if (i >= ST) mbar_wait(&v_full[s], ph);
+      if (leader) {
+        mbar_expect_tx(&v_full[s], L::V_BYTES);
+        uint8_t* sv = smem + L::V_OFF + s * L::V_BYTES;
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_3d(sv + c * BN * 128, &tv, &v_full[s], c * 64, kv0, kvbh);
       }
     }
-    __syncthreads();
+  } else {  // consumer warpgroups 0 and 1: rows 64 wg .. 64 wg + 63 of the block
+    const int t = threadIdx.x % WGT, lane = t % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = q0 + 64 * wg + 16 * (t / 32) + g;  // this thread's rows r0, r0 + 8
+    const int r1 = r0 + 8;
+    float qs0 = 0.f, qs1 = 0.f;
+    if constexpr (QUANT) {
+      qs0 = r0 < a.N ? a.qs[bh * a.N + r0] : 0.f;
+      qs1 = r1 < a.N ? a.qs[bh * a.N + r1] : 0.f;
+    }
+    const uint8_t* mr0 = MASKED ? mask_row(a, bh, r0) : nullptr;
+    const uint8_t* mr1 = MASKED ? mask_row(a, bh, r1) : nullptr;
+    const uint8_t* sq = smem + wg * 64 * L::CH;
+    auto k_stage = [&](int s) { return smem + L::K_OFF + s * L::K_BYTES; };
+    auto ks_stage = [&](int s) {
+      return reinterpret_cast<const float*>(smem + L::KS_OFF + s * L::KS_BYTES);
+    };
+    auto v_stage = [&](int s) { return smem + L::V_OFF + s * L::V_BYTES; };
+    // tile i's K and V have landed
+    auto wait_k = [&](int i) { mbar_wait(&k_full[i % ST], (i / ST) & 1); };
+    auto wait_v = [&](int i) { mbar_wait(&v_full[i % ST], (i / ST) & 1); };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    float s[64], o[NDT][4];
+    unsigned p[BN / 4];
+    float(&of)[D / 2] = reinterpret_cast<float(&)[D / 2]>(o);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NDT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+    float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f, al0 = 1.f, al1 = 1.f;
+
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {  // tile i: keys from kv0, in stage st
+      const int kv0 = (n_tiles - 1 - i) * BN, st = i % ST;
+      if (wg == 1 || i > 0) turn_wait(wg);
+      wait_k(i);
+      issue_qk<D, QUANT>(s, sq, k_stage(st));
+      if (wg == 0 || i < n_tiles - 1) turn_pass(wg);
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (i == 0)
+        fix_scores<QUANT, PARTIAL, MASKED, true>(s, ks_stage(st), qs0, qs1, a, kv0, r0, r1, mr0,
+                                                 mr1, t4);
+      else
+        fix_scores<QUANT, PARTIAL, MASKED, false>(s, ks_stage(st), qs0, qs1, a, kv0, r0, r1, mr0,
+                                                  mr1, t4);
+      release(&k_empty[st]);
+      softmax_tile<PARTIAL>(s, m0, m1, l0, l1, al0, al1);
+      rescale(o, al0, al1);
+      pack_p(p, s);
+      wait_v(i);
+      issue_pv<D>(of, p, v_stage(st));
+      wgmma_wait<0>();
+      fence_regs(of);
+      fence_regs(p);
+      release(&v_empty[st]);
+    }
+
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    if constexpr (PARTIAL)
+      store_partial<NDT>(a, bh, r0, r1, t4, o, m0, m1, l0, l1);
+    else if (a.out_kind == sdnq::F32)
+      store_rows<float, NDT>(a, bh, r0, r1, t4, o, l0, l1);
+    else if (a.out_kind == sdnq::BF16)
+      store_rows<__nv_bfloat16, NDT>(a, bh, r0, r1, t4, o, l0, l1);
+    else
+      store_rows<__half, NDT>(a, bh, r0, r1, t4, o, l0, l1);
   }
-  if constexpr (PARTIAL)
-    store_partial<NDT>(a, bh, r0, r1, t4, o_acc, m0, m1, l0, l1);
-  else
-    store_rows<OutT, NDT>(a, bh, r0, r1, t4, o_acc, l0, l1);
 }
 
 // ---------------------------------------------------------------------------
@@ -564,24 +816,40 @@ __global__ void __launch_bounds__(TNT) flash_attn_tok_kernel(const Args a) {
     store_rows<OutT, NDT>(a, bh, r0, r1, t4, o_acc, l0, l1);
 }
 
-// PARTIAL (B9) has no causal flag: its modes are 0 and 1
-template <int D, bool QUANT, typename OutT, bool PARTIAL = false>
-int launch_t(const Args& a, int BH, cudaStream_t st) {
-  if (!a.vs) {
-    const dim3 grid((a.N + BQ - 1) / BQ, BH);
-    const int mode = (a.mask ? 1 : 0) | (a.causal ? 2 : 0);
-    if (mode == 0)
-      flash_attn_kernel<D, QUANT, 0, OutT, PARTIAL><<<grid, NT, 0, st>>>(a);
-    else if (mode == 1)
-      flash_attn_kernel<D, QUANT, 1, OutT, PARTIAL><<<grid, NT, 0, st>>>(a);
-    else if constexpr (PARTIAL)
-      return static_cast<int>(cudaErrorInvalidValue);
-    else if (mode == 2)
-      flash_attn_kernel<D, QUANT, 2, OutT, false><<<grid, NT, 0, st>>>(a);
-    else
-      flash_attn_kernel<D, QUANT, 3, OutT, false><<<grid, NT, 0, st>>>(a);
-    return 0;
+// B3 / B9 with bf16 P.V: the tensor maps of q (D, N, BH), k and v (D, KN,
+// BKH), then the kernel of the mask mode
+template <int D, bool QUANT, bool PARTIAL>
+int launch_wgmma(const Args& a, int BH, int BKH, cudaStream_t st) {
+  using L = Smem<D, QUANT>;
+  const CUtensorMapDataType qk_type =
+      QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const int es = QUANT ? 1 : 2;
+  const CUtensorMapSwizzle swz =
+      L::CH == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map_3d(&tq, a.q, qk_type, es, D, a.N, BH, L::CH / es, BM, swz) ||
+      !tensor_map_3d(&tk, a.k, qk_type, es, D, a.KN, BKH, L::CH / es, BN, swz) ||
+      !tensor_map_3d(&tv, a.v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, a.KN, BKH, 64, BN,
+                     CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool masked = a.mask != nullptr;
+  auto kernel = masked ? flash_attn_wgmma_kernel<D, QUANT, true, PARTIAL>
+                       : flash_attn_wgmma_kernel<D, QUANT, false, PARTIAL>;
+  static bool ready[2] = {false, false};  // the block's shared memory is above the 48 KB default
+  if (!ready[masked]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[masked] = true;
   }
+  const dim3 grid((a.N + BM - 1) / BM, BH);
+  kernel<<<grid, NTW, L::BYTES, st>>>(tq, tk, tv, a);
+  return 0;
+}
+
+// token mode (int8 P.V)
+template <int D, bool QUANT, typename OutT, bool PARTIAL = false>
+int launch_tok(const Args& a, int BH, cudaStream_t st) {
   const int bytes = tok_smem_bytes<D, QUANT>(a.pblock);
   cudaError_t rc = cudaFuncSetAttribute(flash_attn_tok_kernel<D, QUANT, OutT, PARTIAL>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -592,12 +860,14 @@ int launch_t(const Args& a, int BH, cudaStream_t st) {
 }
 
 template <int D, bool QUANT>
-int launch(const Args& a, int BH, int out_kind, cudaStream_t st) {
-  if (out_kind == sdnq::F32) return launch_t<D, QUANT, float>(a, BH, st);
-  if (out_kind == sdnq::BF16) return launch_t<D, QUANT, __nv_bfloat16>(a, BH, st);
-  if (out_kind == sdnq::F16) return launch_t<D, QUANT, __half>(a, BH, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+int launch(const Args& a, int BH, int BKH, int out_kind, cudaStream_t st) {
+  if (!a.vs) return launch_wgmma<D, QUANT, false>(a, BH, BKH, st);
+  if (out_kind == sdnq::F32) return launch_tok<D, QUANT, float>(a, BH, st);
+  if (out_kind == sdnq::BF16) return launch_tok<D, QUANT, __nv_bfloat16>(a, BH, st);
+  return launch_tok<D, QUANT, __half>(a, BH, st);
 }
+
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 }  // namespace
 
@@ -608,7 +878,8 @@ int launch(const Args& a, int BH, int out_kind, cudaStream_t st) {
 // mask read at b*msb + h*msh + row*msn + key*msk (elements) for head bh =
 // b*H + h, or null: bool (mask_kind 1), or an additive bf16 (2) or fp32 (3)
 // mask; causal 0/1; out (BH, N, D) of out_kind.
-// D is 64 or 128; KN >= 1; qpk divides H and H divides BH.
+// D is 64 or 128; KN >= 1; qpk divides H and H divides BH; q, k, v 16-byte
+// aligned.
 extern "C" int sdnq_flash_attn(const void* q, const void* k, const void* v, const void* qs,
                                const void* ks, const void* vs, const void* mask, long long msb,
                                long long msh, long long msn, long long msk, void* out, int BH,
@@ -620,17 +891,23 @@ extern "C" int sdnq_flash_attn(const void* q, const void* k, const void* v, cons
     return static_cast<int>(cudaErrorInvalidValue);
   if (vs && (pblock < BKV || pblock > 512 || pblock % BKV || KN % pblock))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (out_kind < sdnq::F32 || out_kind > sdnq::F16 || misaligned(q) || misaligned(k) ||
+      misaligned(v))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(k),
          static_cast<const uint8_t*>(v), static_cast<const float*>(qs),
          static_cast<const float*>(ks), static_cast<const float*>(vs),
          static_cast<const uint8_t*>(mask), msb, msh, msn, msk, mask_kind, out, N, KN, H, qpk,
-         causal, pblock, nullptr, nullptr, 1.f};
+         causal, pblock, nullptr, nullptr, 1.f, out_kind};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int BKH = BH / qpk;
   int rc;
   if (D == 64)
-    rc = quant ? launch<64, true>(a, BH, out_kind, st) : launch<64, false>(a, BH, out_kind, st);
+    rc = quant ? launch<64, true>(a, BH, BKH, out_kind, st)
+               : launch<64, false>(a, BH, BKH, out_kind, st);
   else
-    rc = quant ? launch<128, true>(a, BH, out_kind, st) : launch<128, false>(a, BH, out_kind, st);
+    rc = quant ? launch<128, true>(a, BH, BKH, out_kind, st)
+               : launch<128, false>(a, BH, BKH, out_kind, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
@@ -640,8 +917,9 @@ extern "C" int sdnq_flash_attn(const void* q, const void* k, const void* v, cons
 // (BH, KN); v (BH, KN, 128) bf16, or int8 with vs (BH, KN) (token mode, P
 // quantised per block of pblock keys, as above); mask null, or (mask_heads,
 // N, KN) read at (bh % mask_heads)*msh + row*msn + key*msk (elements), bool
-// (mask_kind 1) or additive bf16 (2) / fp32 (3), mask_heads dividing BH.
-// Writes acc (BH, N, 128) and m, l (BH, N), all fp32.
+// (mask_kind 1) or additive bf16 (2) / fp32 (3), mask_heads dividing BH;
+// q, k, v 16-byte aligned.  Writes acc (BH, N, 128) and m, l (BH, N), all
+// fp32.
 extern "C" int sdnq_flash_attn_block(const void* q, const void* k, const void* v, const void* qs,
                                      const void* ks, const void* vs, const void* mask,
                                      long long msh, long long msn, long long msk, void* acc,
@@ -654,16 +932,23 @@ extern "C" int sdnq_flash_attn_block(const void* q, const void* k, const void* v
     return static_cast<int>(cudaErrorInvalidValue);
   if (vs && (pblock < BKV || pblock > 512 || pblock % BKV || KN % pblock))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (misaligned(q) || misaligned(k) || misaligned(v))
+    return static_cast<int>(cudaErrorInvalidValue);
   // H = mask_heads, one query head per KV head: row bh reads KV head bh and
   // mask head bh % mask_heads (mask_row with b = bh / H, h = bh % H, msb 0)
   Args a{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(k),
          static_cast<const uint8_t*>(v), static_cast<const float*>(qs),
          static_cast<const float*>(ks), static_cast<const float*>(vs),
          static_cast<const uint8_t*>(mask), 0, msh, msn, msk, mask_kind, acc, N, KN, mask_heads,
-         1, 0, pblock, static_cast<float*>(m), static_cast<float*>(l), sm_scale};
+         1, 0, pblock, static_cast<float*>(m), static_cast<float*>(l), sm_scale, sdnq::F32};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rc = quant ? launch_t<128, true, float, true>(a, BH, st)
-                       : launch_t<128, false, float, true>(a, BH, st);
+  int rc;
+  if (vs)
+    rc = quant ? launch_tok<128, true, float, true>(a, BH, st)
+               : launch_tok<128, false, float, true>(a, BH, st);
+  else
+    rc = quant ? launch_wgmma<128, true, true>(a, BH, BH, st)
+               : launch_wgmma<128, false, true>(a, BH, BH, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use by ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` inside
 the package (a directory git ignores).  The hash covers the source and the
-shared header, so an edited source builds anew.  ``build()`` compiles
+shared headers, so an edited source builds anew.  ``build()`` compiles
 several sources at once, one ``nvcc`` process each.  Nothing here runs at
 import time.
 """
@@ -22,7 +22,7 @@ __all__ = ["SOURCES", "build", "library", "build_dir", "command"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "hopper.cuh")
 SOURCES = ("quantize_rows", "scaled_mm", "dequant_gemv", "decode_weight",
            "wgmma_mm", "flash_attn", "blockdiag_mm", "blockdiag_i8_mm",
            "scaled_mm_tn")

@@ -1175,3 +1175,102 @@ def test_ring_on_card_matches_local_and_float64(dev):
     assert ka.flash_attention_block.launches > before
     for out in outs:   # the JAX tests' limit for int8
         assert (out.double() - ref).abs().max() < 0.05
+
+
+# ---------------------------------------------------------------------------
+# B3 / B9's TMA + wgmma kernel (bf16 P.V) at its edges: tensor maps per
+# head, a ring of stages that wraps many times, the diagonal tile with a
+# ragged end, the ring's block shapes, fp16 output, int8 Q.K^T at D 64
+# (the 64-byte swizzle) over grouped heads.  Limits as above: 2^-6 of the
+# largest output (per row under masks); B9's m and l within 1e-5.
+# ---------------------------------------------------------------------------
+
+def _rows_close(got, want, limit=2 ** -6):
+    assert torch.isfinite(got).all()
+    row = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    assert row.max() <= limit
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_attention_head_edge_reads_no_next_head(dev, quant):
+    """KN 200 (a ragged last tile) over 3 KV heads, 6 query heads: k and v
+    are the first 3 heads of a 4-head tensor whose 4th is NaN, so a tile
+    that read past its head's KN into the next head's rows would give NaN
+    (0 x NaN); the 3-D tensor maps zero-fill there instead."""
+    g = _gen(60)
+    n, kn, d = 136, 200, 128
+    q = torch.randn(6, n, d, device=dev, generator=g)
+    kbig, vbig = (torch.randn(4, kn, d, device=dev, generator=g)
+                  for _ in range(2))
+    kbig[3], vbig[3] = float("nan"), float("nan")
+    if quant:
+        from sdnq_tpu_torch.quant.core import quantize_int_mm
+        qq, qs = quantize_int_mm(q)
+        kq, kss = quantize_int_mm(kbig)
+        args = (qq, kq[:3], vbig.bfloat16()[:3],
+                qs[..., 0] * d ** -0.5 * ka.LOG2E, kss[:3, :, 0])
+    else:
+        args = ((q * d ** -0.5 * ka.LOG2E).bfloat16(), kbig.bfloat16()[:3],
+                vbig.bfloat16()[:3])
+    got = ka.flash_attention(*args, out_dtype=torch.float32, heads=6)
+    want = ka.flash_attention_plain(*args, out_dtype=torch.float32, heads=6)
+    _rows_close(got, want)
+
+
+def test_flash_attention_long_ring(dev):
+    """N = KN = 4608 at BH 2: 36 tiles of 128 keys a block, so the ring of
+    K / V stages wraps many times."""
+    args, _ = _attn_inputs(dev, _gen(61), 2, 2, 4608, 4608, 128, False,
+                           False)
+    got = ka.flash_attention(*args[:3], out_dtype=torch.float32)
+    want = ka.flash_attention_plain(*args[:3], out_dtype=torch.float32)
+    assert (got - want).abs().max() <= 2 ** -6 * want.abs().max()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float16])
+def test_flash_attention_causal_ragged_diagonal(dev, out_dtype):
+    """Causal at N = KN = 1000: every block's first tile holds its diagonal,
+    the last block's also KN's ragged end (1000 = 7 x 128 + 104); fp16
+    output."""
+    args, _ = _attn_inputs(dev, _gen(62), 4, 2, 1000, 1000, 128, False,
+                           False)
+    kw = dict(heads=4, causal=True)
+    got = ka.flash_attention(*args[:3], out_dtype=out_dtype, **kw)
+    assert got.dtype == out_dtype
+    want = ka.flash_attention_plain(*args[:3], out_dtype=torch.float32, **kw)
+    _rows_close(got.float(), want)
+
+
+def test_flash_attention_int8_qk_d64_gqa(dev):
+    """int8 Q.K^T at D 64 (64-byte rows, the 64-byte swizzle) with 8 query
+    heads over 2 KV heads, bf16 P.V, a bool mask with random holes."""
+    g = _gen(63)
+    b, h, kh, n, kn = 2, 8, 2, 200, 384
+    args, _ = _attn_inputs(dev, g, b * h, b * kh, n, kn, 64, True, False)
+    mask = torch.rand(b, 1, n, kn, device=dev, generator=g) < 0.7
+    mask[..., 0] = True
+    kw = dict(heads=h, mask=mask)
+    got = ka.flash_attention(*args, out_dtype=torch.float32, **kw)
+    want = ka.flash_attention_plain(*args, out_dtype=torch.float32, **kw)
+    _rows_close(got, want)
+
+
+@pytest.mark.parametrize("n", [2304, 1152])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_flash_attention_block_ring_shapes(dev, n, mode):
+    """B9 at the ring's P = 2 and P = 4 block shapes of FLUX's joint
+    attention (4608 tokens cut in 2 and 4), bf16 P.V."""
+    args, kw = _block_inputs(dev, _gen(64), 4, n, n, mode)
+    args.append(None)
+    got = ka.flash_attention_block(*args, **kw)
+    want = ka.flash_attention_block_plain(*args, **kw)
+    _block_check(got, want, False)
+
+
+def test_flash_attention_rejects_misaligned(dev):
+    """q, k and v go through TMA tensor maps: a view off a 16-byte boundary
+    raises rather than launching."""
+    q = torch.zeros(2 * 64 * 128 + 1, device=dev, dtype=torch.bfloat16)
+    view = q[1:].view(2, 64, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        ka.flash_attention(view, view, view)

@@ -1,0 +1,84 @@
+"""The planted faults of ``chip_smoke.py`` against the sources they edit.
+
+Phase 7 of ``chip_smoke.py`` builds a broken copy of a kernel source for
+each entry of ``FAULTS`` and needs every one of its edits to apply; an edit
+whose text a later change of the source removed would stop the script on
+the card.  These tests apply each fault's edits to the sources here, as the
+fault builder does (a later edit sees the earlier ones), and so find such a
+fault on the CPU.  ``WGMMA_WATCHDOG`` (the barrier watchdog every fault
+build of the watched sources gets) and the timing probes (``PROBES``,
+built the same way) are held to the same.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+CSRC = ROOT / "sdnq_tpu_torch" / "csrc"
+HEADERS = ("common.cuh", "hopper.cuh")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _chip_smoke()
+
+
+def _apply(src: str, edits) -> dict[str, str]:
+    """The fault build's files after ``edits``; fails on an edit whose text
+    is not in the file it names, or that changes nothing."""
+    files = {f: (CSRC / f).read_text() for f in (f"{src}.cu", *HEADERS)}
+    for edit in edits:
+        name, old, new = edit if len(edit) == 3 else (f"{src}.cu", *edit)
+        assert name in files, f"{name} is not a file of {src}'s build"
+        assert old in files[name], f"{old!r} not in {name}"
+        assert new != old
+        files[name] = files[name].replace(old, new)
+    return files
+
+
+@pytest.mark.parametrize("fault", CS.FAULTS, ids=[f[0] for f in CS.FAULTS])
+def test_fault_edits_apply(fault):
+    tag, src, kernel, label, edits = fault
+    assert (CSRC / f"{src}.cu").is_file(), f"{tag}: no csrc/{src}.cu"
+    assert edits, tag
+    edits = list(edits) + (list(CS.WGMMA_WATCHDOG) if src in CS.WATCHED
+                           else [])
+    files = _apply(src, edits)
+    assert files[f"{src}.cu"] != (CSRC / f"{src}.cu").read_text() or any(
+        files[h] != (CSRC / h).read_text() for h in HEADERS)
+
+
+@pytest.mark.parametrize("probe", CS.PROBES, ids=[p[0] for p in CS.PROBES])
+def test_probe_edits_apply(probe):
+    tag, src, edits = probe
+    assert edits or src in CS.WATCHED, tag  # else it builds the source
+    files = _apply(src, list(edits) + (list(CS.WGMMA_WATCHDOG)
+                                       if src in CS.WATCHED else []))
+    assert any(files[f] != (CSRC / f).read_text() for f in files)
+    assert tag not in {f[0] for f in CS.FAULTS}
+
+
+@pytest.mark.parametrize("src", CS.WATCHED)
+def test_watchdog_edits_apply(src):
+    files = _apply(src, CS.WGMMA_WATCHDOG)
+    assert "g_watchdog = 1;" in files["hopper.cuh"]
+    assert '#include "hopper.cuh"' in files[f"{src}.cu"]
+
+
+def test_fault_tags_unique_and_counted():
+    tags = [f[0] for f in CS.FAULTS]
+    assert len(tags) == len(set(tags))
+    assert len(tags) >= 40
+    slices = set(CS.SLICE_TOL) | set(CS.LLM_SLICE_TOL) | {
+        "qlinear_b8", "train", "ring", "pipeline"}
+    assert {f[3] for f in CS.FAULTS} <= slices
