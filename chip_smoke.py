@@ -30,8 +30,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               g1024, float8_e3m4fn bit-plane, float5_e2m2fn half-split,
               uint4 half-split into int8; bit-equal) and wgmma_mm with its
               bias, row, fold and int8 fold epilogues, and once at ragged
-              M, N and K.  Prints one {"kernels": [...]} line for the
-              kernels of the paths.
+              M, N and K; B4 (TMA + wgmma) at a ragged shape with every
+              epilogue term (int8 and e4m3), its int8 rows beside
+              torch._int_mm alone and with the epilogue; B8 on uint5 (two
+              field planes).  Then B7 against B8 at 32, 64 and 128 rows
+              on four shapes: dequant_mm.I8_BLOCKDIAG_MAX_ROWS must equal
+              the largest row count at which B8 is the faster on all.
+              Prints one {"kernels": [...]} line for the kernels of the
+              paths.
 4r. ring    - sequence parallelism at the attention widths of two
               models, q, k, v from a seeded generator: FLUX.1-dev's joint
               attention at 1024x1024, (1, 24, 4608, 128), in three modes
@@ -132,7 +138,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               request, traced with torch.profiler: device time by kernel
               group, idle share.
 7. faults   - broken copies of the kernel sources (FAULTS: a skipped KV
-              tile, a missing rescale, a dropped K stage, a short warp
+              tile, a missing rescale, B4 dropping its last K stage and
+              its N tail, B8 ignoring the second field plane, a short warp
               reduction, round-half-away, the other nibble decoded, a
               neighbouring group's scale (B6 and B8), the other field's
               bits kept, a mask ignored on one tile, the P scale taken per
@@ -155,9 +162,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               late, B3's TMA + wgmma kernel waiting on the wrong phase of
               its K stages' barriers, taking P.V from the other V stage and
               storing its second consumer warpgroup's rows at the first
-              one's), built
-              with
-              the real ones; phases 3 and 5 rerun with
+              one's), built with the real ones; phases 3 and 5 rerun with
               each in turn.  Phase 3 must fail for the broken kernel; phase
               5's readings are printed beside their limits.
 8. probes   - B3 bf16 and B9 bf16 at FLUX's P = 1 block timed by CUDA
@@ -167,7 +172,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               B3's exponent, with exp as exp2f(x log2(e)), without the
               sm_scale multiply, with B3's bf16 epilogue; no ping-pong;
               three K / V stages), beside the shipped build and SDPA;
-              B9's readings beside its limits under each.
+              B9's readings beside its limits under each.  B4's e4m3 mode
+              under builds of scaled_mm.cu that multiply with the fp8
+              wgmma (no promotion, an fp32 sum promoted every stage or
+              every k32 step) in place of the shipped fp16 conversion:
+              its worst error over the card tests' limit at their shapes
+              and over phase 3's at FLUX's, and its time, beside
+              torch._scaled_mm.
 
 The last line is {"ok": true, "device": {...}}.  Numbers are this card's,
 at the power limit printed beside them.
@@ -267,7 +278,8 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 # name of each wrapper's CUDA kernel, as the profiler reports it
 KERNEL_SYMBOLS = {
-    "quantize_rows": "quantize_rows_kernel", "scaled_gemm": "scaled_mm_kernel",
+    "quantize_rows": "quantize_rows_kernel",
+    "scaled_gemm": ("scaled_mm_wgmma_kernel", "scaled_mm_nn_kernel"),
     "dequant_gemv": "dequant_gemv_kernel",
     "dequant_mm": ("decode_weight_", "wgmma_mm_kernel"),
     "decode_weight": "decode_weight_", "wgmma_mm": "wgmma_mm_kernel",
@@ -404,9 +416,13 @@ def kernel_phase(torch, dev, timed: bool = True):
         want = ks.scaled_gemm_plain(a, b, torch.bfloat16, xs, ws, bias)
         err = float((got.float() - want.float()).abs().max())
 
-        def library():
-            acc = torch._int_mm(a, b.t())
-            return ((acc.float() * xs) * ws + bias).to(torch.bfloat16)
+        def int_mm():
+            return torch._int_mm(a, b.t())
+
+        def with_epilogue():
+            return ((int_mm().float() * xs) * ws + bias).to(torch.bfloat16)
+        # the library: torch._int_mm alone (its int32 product), and with
+        # the epilogue as four elementwise passes
         record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
                "sdnq_tpu/kernels/scaled_mm.py:57", err,
                # bit-exact expected; one bf16 ulp (at most 2^-7 relative)
@@ -418,7 +434,43 @@ def kernel_phase(torch, dev, timed: bool = True):
                                               ws, bias), reps=3),
                bound_ms(m * k + n * k + m * n * 2 + (m + 2 * n) * 4,
                         2 * m * n * k, "int8"),
-               t(library), f"M{m} K{k} N{n} int8")
+               t(int_mm), f"M{m} K{k} N{n} int8", library_fn=int_mm,
+               int_mm_epilogue_ms=t(with_epilogue))
+        del a, b
+
+    # B4 at a ragged shape (M, N and K off every tile; TMA's zero fill),
+    # every epilogue term, int8 (bit-exact) and e4m3; not on a path
+    m2, k2, n2 = 1000, 3000, 3000
+    for kind in ("int8", "fp8"):
+        if kind == "int8":
+            a, b = (torch.randint(-128, 128, (r, k2), device=dev,
+                                  generator=g, dtype=torch.int8)
+                    for r in (m2, n2))
+        else:
+            a, b = ((torch.randn(r, k2, device=dev, generator=g) * 4).to(
+                torch.float8_e4m3fn) for r in (m2, n2))
+        xs = torch.rand(m2, 1, device=dev, generator=g) * 0.02 + 1e-3
+        ws = torch.rand(n2, device=dev, generator=g) * 0.02 + 1e-3
+        bias, vz0, vz1 = (torch.randn(n2, device=dev, generator=g)
+                          for _ in range(3))
+        rs, zp = (torch.randn(m2, device=dev, generator=g)
+                  for _ in range(2))
+        args = (a, b, torch.bfloat16, xs, ws, bias, rs, zp, vz0, vz1)
+        got = ks.scaled_gemm(*args)
+        want = ks.scaled_gemm_plain(*args)
+        tol = float(want.float().abs().max()) * 2 ** -7
+        if kind == "fp8":
+            tol += float(1e-5 * ((a.float().abs() @ b.float().abs().T)
+                                 * xs * ws).max())
+        record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
+               "sdnq_tpu/kernels/scaled_mm.py:57",
+               float((got.float() - want.float()).abs().max()), tol,
+               lambda: ks.scaled_gemm(*args),
+               t(lambda: ks.scaled_gemm_plain(*args), reps=3),
+               bound_ms(m2 * k2 + n2 * k2 + m2 * n2 * 2
+                        + (3 * m2 + 5 * n2) * 4, 2 * m2 * n2 * k2, kind),
+               None, f"M{m2} K{k2} N{n2} {kind}, every epilogue term",
+               on_path=False)
         del a, b
 
     # B4 bf16 flavour (the 16-bit family; not on this main path)
@@ -667,11 +719,12 @@ def kernel_phase(torch, dev, timed: bool = True):
     # B8 at the decode shapes of its domain: meta-llama/Llama-3.2-1B's q and
     # gate projections (hidden 2048, intermediate 8192) at a decode batch of
     # 32 rows, uint4 at its auto group of 64 (the JAX route takes B8 there:
-    # 32 x 32 groups <= 1024, g not a multiple of 128), and int2 at g 16.
-    # Bit-equal expected (exact integer partials, the same fp32 folds):
-    # limit one bf16 ulp of the largest output.
+    # 32 x 32 groups <= 1024, g not a multiple of 128), int2 at g 16, and
+    # uint5 (two field planes) at g 64 (not on a path).  Bit-equal expected
+    # (exact integer partials, the same fp32 folds): limit one bf16 ulp of
+    # the largest output.
     for bits, gsize, k, n in ((4, 64, 2048, 8192), (4, 64, 2048, 2048),
-                              (2, 16, 512, 4096)):
+                              (2, 16, 512, 4096), (5, 64, 2048, 8192)):
         packed, scale, zpc, w_deq = packed_weight(n, k, bits, gsize)
         xq = torch.randint(-127, 128, (32, k), device=dev, generator=g,
                            dtype=torch.int8)
@@ -689,41 +742,51 @@ def kernel_phase(torch, dev, timed: bool = True):
                bound_ms(32 * k + halfsplit_bytes(n, k, gsize, bits) + 32 * 4
                         + 32 * n * 2, 2 * 32 * n * k, "int8"),
                t(lambda: F.linear(xb, w_deq), reps=20),
-               f"M32 K{k} N{n} {'uint4' if bits == 4 else 'uint2'} g{gsize}",
-               path="qlinear_b8")
+               f"M32 K{k} N{n} uint{bits} g{gsize}", path="qlinear_b8",
+               on_path=bits != 5)
         del packed, w_deq
     torch.cuda.empty_cache()
     return rows
+
+
+CROSSOVER_ROWS = (32, 64, 128)
 
 
 def b7_b8_crossover(torch, dev):
     """Device time of B8 and B7 on the same uint4 g 64 weights, at shapes
     where both kernels take the groups and the JAX route has a result at 32
     rows (K 2048 -> 8192, 2048 and 512: Llama-3.2-1B's q / gate, o and kv
-    projections; K 1024 -> 4096), at 32 and 64 rows: the measurement behind
-    ``dequant_mm.I8_BLOCKDIAG_MAX_ROWS``."""
+    projections; K 1024 -> 4096), at CROSSOVER_ROWS rows: the measurement
+    behind ``dequant_mm.I8_BLOCKDIAG_MAX_ROWS``, which must equal the
+    largest row count at which B8 is the faster on every shape."""
     from sdnq_tpu_torch.kernels import dequant_mm as kd
     from sdnq_tpu_torch.packing import pack_codes_halfsplit
     g = torch.Generator(device=dev).manual_seed(90)
-    res = {}
+    res, wins = {}, {m: True for m in CROSSOVER_ROWS}
     for k, n in ((2048, 8192), (2048, 2048), (2048, 512), (1024, 4096)):
         codes = torch.randint(0, 16, (n, k), device=dev, generator=g,
                               dtype=torch.int32)
         packed = pack_codes_halfsplit(codes, 4)
         scale = torch.rand(n, k // 64, device=dev, generator=g) * 1e-3
         zpc = -8 * scale
-        for m in (32, 64):
+        for m in CROSSOVER_ROWS:
             xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
                                dtype=torch.int8)
             xs = torch.rand(m, 1, device=dev, generator=g)
             args = (xq, xs, packed, scale, zpc, None, 4)
-            res[f"M{m} K{k} N{n}"] = {
+            r = res[f"M{m} K{k} N{n}"] = {
                 "B8_device_ms": device_ms(torch, lambda: kd.blockdiag_i8_mm(
                     *args), KERNEL_SYMBOLS["blockdiag_i8_mm"]),
                 "B7_device_ms": device_ms(torch, lambda: kd.groupdot_i8_mm(
                     *args), KERNEL_SYMBOLS["groupdot_i8_mm"])}
+            wins[m] = wins[m] and r["B8_device_ms"] < r["B7_device_ms"]
+    cut = max([m for m in CROSSOVER_ROWS if wins[m]], default=0)
     log("B7 / B8 crossover, uint4 g64 (I8_BLOCKDIAG_MAX_ROWS = "
-        f"{kd.I8_BLOCKDIAG_MAX_ROWS}): " + json.dumps(res))
+        f"{kd.I8_BLOCKDIAG_MAX_ROWS}; B8 the faster on every shape at "
+        f"{[m for m in CROSSOVER_ROWS if wins[m]]} rows): " + json.dumps(res))
+    check(cut == kd.I8_BLOCKDIAG_MAX_ROWS,
+          f"B7 / B8 crossover {cut} rows == I8_BLOCKDIAG_MAX_ROWS "
+          f"{kd.I8_BLOCKDIAG_MAX_ROWS}")
 
 
 def llm_attention_rows(torch, dev, g, t, record):
@@ -1400,7 +1463,7 @@ def stacked_and_bench_rows(torch, dev, g, t, record):
                     "int8"), None,
            f"M{m} K{k} N{n} int8, layer 2 of a ({layers}, N, K) stack "
            "(B1 + B4 on a stacked view)", path="stacked",
-           symbol=("quantize_rows_kernel", "scaled_mm_kernel"))
+           symbol=("quantize_rows_kernel", "scaled_mm_wgmma_kernel"))
     del stack, view, got, want
 
     from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1439,7 +1502,7 @@ def stacked_and_bench_rows(torch, dev, g, t, record):
                     "int8"), t(library),
            f"bench.py M{m} K{k} N{n} int8 rowwise qlinear + bias "
            "(B1 + B4)", path="bench",
-           symbol=("quantize_rows_kernel", "scaled_mm_kernel"),
+           symbol=("quantize_rows_kernel", "scaled_mm_wgmma_kernel"),
            bf16_linear_ms=bf16_ms)
     del qt, x, got, want, xq, wb
     torch.cuda.empty_cache()
@@ -2950,7 +3013,9 @@ def pipeline_slice_phase(torch, dev, sliced) -> dict:
 
 _GROUPS = (
     ("B1 quantize_rows", ("quantize_rows_kernel",)),
-    ("B4 scaled_gemm (B1 GEMM half)", ("scaled_mm_kernel",)),
+    ("B4 scaled_gemm nt, TMA + wgmma (B1 GEMM half)",
+     ("scaled_mm_wgmma_kernel",)),
+    ("B4 scaled_gemm nn, mma.sync (B1's grad-input)", ("scaled_mm_nn_kernel",)),
     ("B2 dequant_gemv bit-plane", ("dequant_gemv_kernel_bitplane",)),
     ("B2 dequant_gemv", ("dequant_gemv_kernel",)),
     ("B2 tiles: decode bit-plane", ("decode_weight_bitplane",)),
@@ -3091,7 +3156,11 @@ FAULTS = (
     ("attn_no_running_max_rescale_of_o", "flash_attn", "flash_attention",
      "int8", [("*= al0;", "*= 1.f;"), ("*= al1;", "*= 1.f;")]),
     ("gemm_drops_last_k_stage", "scaled_mm", "scaled_gemm", "int8",
-     [("const int nk = Kb / BKB;", "const int nk = Kb / BKB - 1;")]),
+     [("const int nk = (K + BKE - 1) / BKE;  // the k-stages of a tile",
+       "const int nk = (K + BKE - 1) / BKE - 1;")]),
+    ("b4_drops_the_n_tail", "scaled_mm", "scaled_gemm", "int8",
+     [("hopper.cuh", "const int ncols = min(BN, N - n0);",
+       "const int ncols = N - n0 < BN ? 0 : BN;")]),
     ("gemv_reduce_one_shuffle_short", "dequant_gemv", "dequant_gemv", "int8",
      [("off > 0; off >>= 1", "off > 1; off >>= 1")]),
     ("quantize_rounds_half_away", "quantize_rows", "quantize_rows", "int8",
@@ -3130,8 +3199,12 @@ FAULTS = (
                      "return (bh / a.H) * KH + hh % KH;")]),
     ("blockdiag_i8_scale_of_the_previous_group", "blockdiag_i8_mm",
      "blockdiag_i8_mm", "qlinear_b8",
-     [("sc[j] = scale[(size_t)(col < N ? col : 0) * G + gi];",
-       "sc[j] = scale[(size_t)(col < N ? col : 0) * G + (gi + G - 1) % G];")]),
+     [("(size_t)(col < a.N ? col : 0) * a.G + e0 + j,",
+       "(size_t)(col < a.N ? col : 0) * a.G + (q < BN ? (e0 + j + a.G - 1) "
+       "% a.G : e0 + j),")]),
+    ("b8_ignores_the_second_field_plane", "blockdiag_i8_mm",
+     "blockdiag_i8_mm", "qlinear_b8",
+     [("m4[p] = p < hs.n ? 0x01010101u", "m4[p] = p < 1 ? 0x01010101u")]),
     ("tn_drops_the_m_tail", "scaled_mm_tn", "scaled_mm_tn", "train",
      [("const int nm = (M + BM - 1) / BM;", "const int nm = M / BM;")]),
     ("tn_swaps_a_and_b_scales", "scaled_mm_tn", "scaled_mm_tn", "train",
@@ -3170,7 +3243,7 @@ FAULTS = (
      "uint4_wo", [("wgmma128(p, da + 2 * kk, db + 2 * kk, step != 0);",
                    "wgmma128(p, da + 2 * kk, db + 2 * kk, step != 1);")]),
     ("gemm_epilogue_drops_the_n_tail", "wgmma_mm", "wgmma_mm:tail",
-     "pipeline", [("const int ncols = min(BN, N - n0);",
+     "pipeline", [("hopper.cuh", "const int ncols = min(BN, N - n0);",
                    "const int ncols = N - n0 < BN ? 0 : BN;")]),
     ("b6_drops_the_minifloat_sign", "blockdiag_mm", "blockdiag_mm:minifloat",
      "dyn_r2", [("common.cuh", " | ((code << f.sign_shift) & 0x80000000u);",
@@ -3223,7 +3296,7 @@ FAULTS = (
 # a flag, where the sound build traps after 2^36: a broken barrier then
 # ends in a wrong result that phase 3 reads, not in a failed launch that
 # ends the process.
-WATCHED = ("wgmma_mm", "flash_attn")
+WATCHED = ("wgmma_mm", "flash_attn", "scaled_mm")
 WGMMA_WATCHDOG = (
     ("hopper.cuh", "// ---- mbarriers",
      "__device__ int g_watchdog;\n// ---- mbarriers"),
@@ -3252,7 +3325,67 @@ def watchdog_fired(lib_path) -> bool:
     return bool(fired.value)
 
 
-# Timing probes of B3 / B9's bf16 P.V kernel: builds of csrc/flash_attn.cu
+# B4's e4m3 mode with Hopper's fp8 wgmma (the shipped kernel converts each
+# e4m3 stage to fp16 and multiplies as fp16): the wgmma wrapper, and each
+# stage's four k32 steps (m64n128k32) run in place of the conversion, into
+# the accumulator itself ("every" 0), or into a fresh fp32 partial that is
+# added to it with one rounding each "every" k32 steps (4: once a stage,
+# 128 of K; 1: every k32 step).
+E4M3_PROMOTION = (("no_promotion", 0), ("promoted_every_stage", 4),
+                  ("promoted_every_k32", 1))
+WGMMA_E4M3 = (
+    "__device__ __forceinline__ void wgmma_e4m3(float (&d)[64], uint64_t da,"
+    " uint64_t db, int scale_d) {\n"
+    '  asm volatile("{\\n .reg .pred p;\\n setp.ne.b32 p, %66, 0;\\n"\n'
+    '      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 {'
+    + ", ".join(f"%{i}" for i in range(64)) + '}, %64, %65, p, 1, 1;\\n}\\n"\n'
+    "      : " + ", ".join(f'"+f"(d[{i}])' for i in range(64))
+    + '\n      : "l"(da), "l"(db), "r"(scale_d));\n}\n\n')
+
+
+def e4m3_wgmma_edits(every: int):
+    """The edits of scaled_mm.cu for an fp8-wgmma e4m3 build (see
+    E4M3_PROMOTION): the stage's products, then ``continue`` past the
+    conversion to fp16."""
+    head = ("        const uint64_t da = sw128_desc(smem + s * STAGE_BYTES + "
+            "wg * 64 * 128);\n"
+            "        const uint64_t db = sw128_desc(smem + s * STAGE_BYTES + "
+            "A_BYTES);\n")
+    if every:
+        body = (f"        float part[64] = {{}};\n"
+                f"#pragma unroll\n"
+                f"        for (int c = 0; c < 4; c += {every}) {{\n"
+                f"          fence_regs(part);\n"
+                f"          wgmma_fence();\n"
+                f"#pragma unroll\n"
+                f"          for (int kk = c; kk < c + {every}; ++kk)\n"
+                f"            wgmma_e4m3(part, da + 2 * kk, db + 2 * kk, "
+                f"kk != c);\n"
+                f"          wgmma_commit();\n"
+                f"          wgmma_wait<0>();\n"
+                f"          fence_regs(part);\n"
+                f"#pragma unroll\n"
+                f"          for (int i = 0; i < 64; ++i) acc[i] = "
+                f"__fadd_rn(acc[i], part[i]);\n"
+                f"        }}\n")
+    else:
+        body = ("        fence_regs(acc);\n"
+                "        wgmma_fence();\n"
+                "#pragma unroll\n"
+                "        for (int kk = 0; kk < 4; ++kk) "
+                "wgmma_e4m3(acc, da + 2 * kk, db + 2 * kk, 1);\n"
+                "        wgmma_commit();\n"
+                "        wgmma_wait<0>();\n"
+                "        fence_regs(acc);\n")
+    anchor = "        uint8_t* cv = conv + (it & 1) * CONV_BYTES;\n"
+    return [("// the two consumer warpgroups meet (named barrier 1;",
+             WGMMA_E4M3 + "// the two consumer warpgroups meet (named "
+             "barrier 1;"),
+            (anchor, head + body + "        release(s);\n        continue;\n"
+             + anchor)]
+
+
+# Probes of B3 / B9's bf16 P.V kernel: timed builds of csrc/flash_attn.cu
 # with text edits, built as the faults are and timed after them
 # (probe_phase).  Each build of a source in WATCHED carries the barrier
 # watchdog, so "watchdog_only" (no other edit) is the one the others are
@@ -3261,7 +3394,8 @@ def watchdog_fired(lib_path) -> bool:
 # the reference's time less each one's is that part's cost; the fourth
 # takes B9's exp(x) as exp2f(x log2(e)), which keeps its natural units.
 # The last two take out the ping-pong of the consumer warpgroups and add a
-# third K / V stage.
+# third K / V stage.  Then the e4m3 builds of csrc/scaled_mm.cu
+# (E4M3_PROMOTION), read for their error as well as timed.
 PROBES = (
     ("watchdog_only", "flash_attn", []),
     ("b9_exp2f", "flash_attn",
@@ -3282,6 +3416,8 @@ PROBES = (
        "(void)wg;")]),
     ("three_stages", "flash_attn",
      [("constexpr int ST = 2;", "constexpr int ST = 3;")]),
+    *((f"b4_e4m3_wgmma_{name}", "scaled_mm", e4m3_wgmma_edits(every))
+      for name, every in E4M3_PROMOTION),
 )
 
 
@@ -3383,18 +3519,96 @@ def fault_phase(torch, dev, slices, procs):
 
 
 def probe_phase(torch, dev, procs):
-    """B3 bf16 and B9 bf16 at FLUX's P = 1 block (24 heads, 4608 tokens,
-    D 128) under each build of PROBES, between two runs of the shipped
-    build, beside SDPA on the same inputs: ms a call by ``burst_ms`` (late
-    in the run the profiler recorded no kernels for some of these calls),
-    and B9's readings against its plain version (``B9_TOL``; a probe may
-    change what B9 computes)."""
-    import torch.nn.functional as F
-    from sdnq_tpu_torch.kernels import attention as ka
+    """Wait for the builds of PROBES and run each source's probes."""
     for tag, (proc, _) in procs.items():
         check(proc.wait() == 0, f"probe {tag}: built")
     if FAILURES:
         return
+    src = {tag: s for tag, s, _ in PROBES}
+    for name, run in (("flash_attn", attention_probes),
+                      ("scaled_mm", e4m3_probes)):
+        run(torch, dev, {tag: lib for tag, (_, lib) in procs.items()
+                         if src[tag] == name})
+
+
+# B4 e4m3 at the card tests' shapes (tests/test_torch_cuda_kernels.py:
+# test_scaled_gemm_fp8, then test_scaled_gemm_nt_ragged's with every
+# epilogue term): (M, N, K, every term)
+E4M3_TEST_SHAPES = ((150, 72, 200, False), (1000, 3000, 3000, True),
+                    (33, 200, 1088, True), (1, 8, 24, True),
+                    (300, 520, 100, True))
+
+
+def e4m3_probes(torch, dev, libs):
+    """B4 e4m3 under the shipped build and each fp8-wgmma build of PROBES
+    (E4M3_PROMOTION), then the shipped one again: at each of
+    E4M3_TEST_SHAPES (fp32 out) the worst |got - want| over the card
+    tests' bound (1e-5 of sum |a b| xs ws, plus 1e-6; above 1 fails the
+    test); at phase 3's FLUX shape (M 4608, K 3072, N 9216, bf16 out) the
+    same over phase 3's limit, and ms a call by ``burst_ms`` beside
+    ``torch._scaled_mm``'s."""
+    from sdnq_tpu_torch.kernels import scaled_mm as ks
+    g = torch.Generator(device=dev).manual_seed(78)
+    f8 = torch.float8_e4m3fn
+    cases = []
+    for m, n, k, terms in E4M3_TEST_SHAPES:
+        a = torch.randn(m, k, device=dev, generator=g).to(f8)
+        b = (torch.randn(n, k, device=dev, generator=g) * 4).to(f8)
+        kw = dict(xs=torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3)
+        if terms:
+            kw.update(ws=torch.rand(n, device=dev, generator=g) * 0.02 + 1e-3,
+                      bias=torch.randn(n, device=dev, generator=g),
+                      **{t: torch.randn(r, device=dev, generator=g)
+                         for t, r in (("rs", m), ("zp", m), ("vz0", n),
+                                      ("vz1", n))})
+        mag = (a.float().abs() @ b.float().abs().T) * kw["xs"]
+        if terms:
+            mag = mag * kw["ws"][None, :]
+        want = ks.scaled_gemm_plain(a, b, torch.float32, **kw)
+        cases.append((f"M{m} K{k} N{n}", a, b, kw, want, 1e-5 * mag + 1e-6))
+    m, k, n = 4608, 3072, 9216
+    x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+    a, xs = ks.quantize_rows(x, "float8_e4m3fn")[:2]
+    b = (torch.randn(n, k, device=dev, generator=g) * 50).to(f8)
+    ws = torch.rand(n, device=dev, generator=g) * 1e-3
+    want = ks.scaled_gemm_plain(a, b, torch.bfloat16, xs, ws)
+    tol = float(1e-5 * ((a.float().abs() @ b.float().abs().T) * xs
+                        * ws).max() + want.float().abs().max() * 2 ** -7)
+
+    def run():
+        r = {name: float(((ks.scaled_gemm(ca, cb, torch.float32, **kw)
+                           - cw).abs() / bound).max())
+             for name, ca, cb, kw, cw, bound in cases}
+        got = ks.scaled_gemm(a, b, torch.bfloat16, xs, ws)
+        r[f"M{m} K{k} N{n} (phase 3 limit)"] = float(
+            (got.float() - want.float()).abs().max()) / tol
+        r["ms"] = burst_ms(lambda: ks.scaled_gemm(a, b, torch.bfloat16, xs,
+                                                  ws))
+        return r
+    out = {"_scaled_mm ms": burst_ms(lambda: torch._scaled_mm(
+        a, b.t(), scale_a=xs, scale_b=ws[None, :],
+        out_dtype=torch.bfloat16)), "shipped": run()}
+    for tag, lib in libs.items():
+        with library_swapped("scaled_mm", lib):
+            out[tag] = run()
+            check(not watchdog_fired(lib),
+                  f"probe {tag}: no barrier wait gave up")
+    out["shipped, again"] = run()
+    log("e4m3 probes (worst error over the limit, above 1 fails; ms a call "
+        "in bursts of 20 at M 4608 K 3072 N 9216): " + json.dumps(out))
+    del cases, x, a, b, want
+    torch.cuda.empty_cache()
+
+
+def attention_probes(torch, dev, libs):
+    """B3 bf16 and B9 bf16 at FLUX's P = 1 block (24 heads, 4608 tokens,
+    D 128) under each flash_attn build of PROBES, between two runs of the
+    shipped build, beside SDPA on the same inputs: ms a call by
+    ``burst_ms`` (late in the run the profiler recorded no kernels for
+    some of these calls), and B9's readings against its plain version
+    (``B9_TOL``; a probe may change what B9 computes)."""
+    import torch.nn.functional as F
+    from sdnq_tpu_torch.kernels import attention as ka
     g = torch.Generator(device=dev).manual_seed(77)
     b, h, n, d = FLUX_ATTN
     q, k, v = (torch.randn(b * h, n, d, device=dev, generator=g)
@@ -3414,7 +3628,7 @@ def probe_phase(torch, dev, procs):
         return r
     out = {"sdpa": burst_ms(lambda: F.scaled_dot_product_attention(
         q16[None], k16[None], v16[None], scale=sm)), "shipped": run()}
-    for tag, (_, lib) in procs.items():
+    for tag, lib in libs.items():
         with library_swapped("flash_attn", lib):
             out[tag] = run()
             check(not watchdog_fired(lib),

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels
-// (csrc/wgmma_mm.cu, csrc/flash_attn.cu): mbarriers whose waits trap,
-// TMA loads through 2- and 3-D tensor maps, shared-memory matrix
-// descriptors (K-major in the 128- and 64-byte swizzles, and the
-// MN-major "transposed" B of a row-major V tile), the wgmma wrappers, and
-// the host's tensor-map encoder.
+// (csrc/wgmma_mm.cu, csrc/scaled_mm.cu, csrc/flash_attn.cu): mbarriers
+// whose waits trap, TMA loads through 2- and 3-D tensor maps, shared-memory
+// matrix descriptors (K-major in the 128- and 64-byte swizzles, and the
+// MN-major "transposed" B of a row-major V tile), the wgmma wrappers, the
+// persistent GEMMs' producer loop, tile store and tile-size rule, and the
+// host's tensor-map encoder.
 //
 // A barrier wait that lasts longer than TRAP_CYCLES (over 30 s) traps: the
 // launch fails and the next synchronising call raises, where a broken
@@ -217,6 +218,70 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D(64 x 256, s32) += A(64 x 32, s8) * B(256 x 32, s8)ᵀ, both K-major; D's
+// layout is wgmma256's.
+__device__ __forceinline__ void wgmma_s8_256(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, 1;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db));
+}
+
+// wgmma128 with fp16 operands.
+__device__ __forceinline__ void wgmma128_f16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D(64 x 128, f32) += A(64 x 16, bf16, registers) * B(16 x 128, bf16),
 // B MN-major (trans-b; its descriptor from sw128_desc_mn).  A's registers
 // take wgmma's accumulator layout of a 64 x 16 tile: a[0] row r, columns
@@ -260,7 +325,107 @@ __device__ __forceinline__ void wgmma_rs64_t(float (&d)[32], const unsigned (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+// ---- the persistent GEMMs (csrc/wgmma_mm.cu, csrc/scaled_mm.cu) -------------
+// Output tiles of GEMM_BM rows; a stage row is 128 bytes of K.
+constexpr int GEMM_BM = 128;
+
+// The producer's loop: one thread issues each stage's two TMA loads
+// (GEMM_BM rows of x and BN of w, BKE elements of K) into a ring of ST
+// stages, the tiles walked as the consumers walk them (tile b, b +
+// gridDim.x, .., the M tile fastest).  It waits for a stage's last load
+// before re-arming it, and for every load before it returns.
+template <int ST, int STAGE_BYTES, int A_BYTES, int BKE, int BN>
+__device__ __forceinline__ void produce(const CUtensorMap* tx, const CUtensorMap* tw,
+                                        uint8_t* smem, uint64_t* full, uint64_t* empty, int mt,
+                                        int tiles, int nk) {
+  int it = 0;  // stages filled so far: stage it % ST, round it / ST
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile % mt) * GEMM_BM, n0 = (tile / mt) * BN;
+    for (int kb = 0; kb < nk; ++kb, ++it) {
+      const int s = it % ST;
+      mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);  // the first round passes at once
+      // and the stage's last load has landed (implied by the consumers'
+      // release; waited for all the same, so that a stage never has two
+      // loads in flight on its barrier)
+      if (it >= ST) mbar_wait(&full[s], ((it / ST) & 1) ^ 1);
+      mbar_expect_tx(&full[s], STAGE_BYTES);
+      tma_load(smem + s * STAGE_BYTES, tx, &full[s], kb * BKE, m0);
+      tma_load(smem + s * STAGE_BYTES + A_BYTES, tw, &full[s], kb * BKE, n0);
+    }
+  }
+  // no load may be in flight when the block exits
+  for (int j = it > ST ? it - ST : 0; j < it; ++j) mbar_wait(&full[j % ST], (j / ST) & 1);
+}
+
+// two neighbouring outputs in one store (the address is a multiple of two)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+// A consumer thread's share of a tile's outputs: rows r0 and r0 + 8,
+// columns 128 h + 8 j + cq + {0, 1} from acc[64 h + 4 j + 2 hr + c] (the
+// wgmma accumulator layout), each out = epi(acc, row_term(row), col); two
+// neighbouring columns a store where they can pair.
+template <int NB, typename AccT, typename OutT, typename RowTerm, typename Epilogue>
+__device__ __forceinline__ void store_tile(const AccT (&acc)[NB * 64], OutT* __restrict__ out,
+                                           int r0, int n0, int cq, int M, int N, RowTerm row_term,
+                                           Epilogue epi) {
+  constexpr int BN = 128 * NB;
+  const int ncols = min(BN, N - n0);
+  const bool pairs = N % 2 == 0;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + 8 * hr;
+    if (row >= M) continue;
+    const auto rt = row_term(row);
+    OutT* orow = out + (size_t)row * N + n0;
+#pragma unroll
+    for (int h = 0; h < NB; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int cc = 128 * h + 8 * j + cq;
+        if (cc >= ncols) continue;
+        float v[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          v[c] = epi(acc[64 * h + 4 * j + 2 * hr + c], rt, n0 + min(cc + c, ncols - 1));
+        if (pairs && cc + 1 < ncols) {
+          store2(orow + cc, v[0], v[1]);
+        } else {
+          orow[cc] = sdnq::from_f32<OutT>(v[0]);
+          if (cc + 1 < ncols) orow[cc + 1] = sdnq::from_f32<OutT>(v[1]);
+        }
+      }
+  }
+}
+
 // ---- host ------------------------------------------------------------------
+inline int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// Whether a persistent GEMM of mt row tiles and N columns takes 128 x 256
+// tiles: yes, unless they fill the card's blocks at most twice and 128 x
+// 128 ones finish in fewer rounds (counted in 128 x 128 units): small
+// grids, where the rounds weigh most.
+inline bool wide_tiles(long long mt, long long N, int sms) {
+  const long long t2 = mt * ((N + 255) / 256), t1 = mt * ((N + 127) / 128);
+  const long long r2 = (t2 + sms - 1) / sms, r1 = (t1 + sms - 1) / sms;
+  return !(r2 <= 2 && r1 < 2 * r2);
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,

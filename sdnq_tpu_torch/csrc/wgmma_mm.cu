@@ -39,15 +39,16 @@
 // M fastest so that x stays in L2 and the producer fills the next tile's
 // stages while the consumers store the last one.
 //
-// The barriers, TMA loads, descriptors and wgmma wrappers are
-// csrc/hopper.cuh's (a barrier wait that lasts over 2^36 cycles traps).
+// The barriers, TMA loads, descriptors, wgmma wrappers, the producer's loop
+// and the tile store are csrc/hopper.cuh's, shared with B4
+// (csrc/scaled_mm.cu); a barrier wait that lasts over 2^36 cycles traps.
 #include "hopper.cuh"
 
 namespace {
 
 using namespace sdnq;
 
-constexpr int BM = 128, BK = 64;
+constexpr int BM = GEMM_BM, BK = 64;
 constexpr int NT = 384;  // two consumer warpgroups, then the producer's
 
 // EPI_FOLD takes groups that are multiples of the stage (64), EPI_FOLD_FINE
@@ -61,44 +62,6 @@ struct Epi {
   const float* xsum;   // ROW: (M,) (with zp); FOLD: (G, M)
   int g;               // FOLD: the group size
 };
-
-// two neighbouring outputs in one store (the address is a multiple of two)
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(__half* p, float a, float b) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
-}
-
-// The producer's loop: one thread issues each stage's two TMA loads (BM
-// rows of x and BN of W', BKE elements of K) into a ring of ST stages, the
-// tiles walked as the consumers walk them.  It waits for a stage's last
-// load before re-arming it, and for every load before it returns.
-template <int ST, int STAGE_BYTES, int A_BYTES, int BKE, int BN>
-__device__ __forceinline__ void produce(const CUtensorMap* tx, const CUtensorMap* tw,
-                                        uint8_t* smem, uint64_t* full, uint64_t* empty, int mt,
-                                        int tiles, int nk) {
-  int it = 0;  // stages filled so far: stage it % ST, round it / ST
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = (tile % mt) * BM, n0 = (tile / mt) * BN;
-    for (int kb = 0; kb < nk; ++kb, ++it) {
-      const int s = it % ST;
-      mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);  // the first round passes at once
-      // and the stage's last load has landed (implied by the consumers'
-      // release; waited for all the same, so that a stage never has two
-      // loads in flight on its barrier)
-      if (it >= ST) mbar_wait(&full[s], ((it / ST) & 1) ^ 1);
-      mbar_expect_tx(&full[s], STAGE_BYTES);
-      tma_load(smem + s * STAGE_BYTES, tx, &full[s], kb * BKE, m0);
-      tma_load(smem + s * STAGE_BYTES + A_BYTES, tw, &full[s], kb * BKE, n0);
-    }
-  }
-  // no load may be in flight when the block exits
-  for (int j = it > ST ? it - ST : 0; j < it; ++j) mbar_wait(&full[j % ST], (j / ST) & 1);
-}
 
 // The group fold's terms: each group's scale and zero-point terms of a
 // tile's 128 columns and xsum of a warpgroup's 64 rows, copied to shared
@@ -136,43 +99,6 @@ struct FoldTerms {
     return buf + (gi % 3) * 320;
   }
 };
-
-// A consumer thread's share of a tile's outputs: rows r0 and r0 + 8,
-// columns 128 h + 8 j + cq + {0, 1} from acc[64 h + 4 j + 2 hr + c], each
-// out = epi(acc, row_term(row), col); two neighbouring columns a store
-// where they can pair.
-template <int NB, typename OutT, typename RowTerm, typename Epilogue>
-__device__ __forceinline__ void store_tile(const float (&acc)[NB * 64], OutT* __restrict__ out,
-                                           int r0, int n0, int cq, int M, int N, RowTerm row_term,
-                                           Epilogue epi) {
-  constexpr int BN = 128 * NB;
-  const int ncols = min(BN, N - n0);
-  const bool pairs = N % 2 == 0;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = r0 + 8 * hr;
-    if (row >= M) continue;
-    const float rt = row_term(row);
-    OutT* orow = out + (size_t)row * N + n0;
-#pragma unroll
-    for (int h = 0; h < NB; ++h)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int cc = 128 * h + 8 * j + cq;
-        if (cc >= ncols) continue;
-        float v[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          v[c] = epi(acc[64 * h + 4 * j + 2 * hr + c], rt, n0 + min(cc + c, ncols - 1));
-        if (pairs && cc + 1 < ncols) {
-          store2(orow + cc, v[0], v[1]);
-        } else {
-          orow[cc] = sdnq::from_f32<OutT>(v[0]);
-          if (cc + 1 < ncols) orow[cc + 1] = sdnq::from_f32<OutT>(v[1]);
-        }
-      }
-  }
-}
 
 // Tiles of 128 x 128 NB: the bias and row epilogues keep one fp32
 // accumulator and take NB = 2 (128 registers a thread) unless the grid
@@ -592,16 +518,6 @@ int launch_i8(const CUtensorMap& tx, const CUtensorMap& tw, void* out, int M, in
   return static_cast<int>(cudaGetLastError());
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
 }  // namespace
 
 // out (M, N) of out_kind = x (M, K) @ w (N, K)ᵀ with the epilogue `epi`:
@@ -624,14 +540,11 @@ extern "C" int sdnq_wgmma_mm(const void* x, int ldx, const void* w, int ldw, voi
   if (M == 0 || N == 0) return 0;
   const int sms = sm_count();
   if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
-  // the bias and row epilogues take 128 x 256 tiles, unless they fill the
-  // card's blocks at most twice and 128 x 128 ones finish in fewer rounds
-  // (counted in 128 x 128 units): small grids, where the rounds weigh most
+  // the bias and row epilogues take 128 x 256 tiles where wide_tiles says
+  // (hopper.cuh), the folds 128 x 128
   const long long mt = (M + BM - 1) / BM;
-  const long long t2 = mt * ((N + 255) / 256), t1 = mt * ((N + 127) / 128);
-  const long long r2 = (t2 + sms - 1) / sms, r1 = (t1 + sms - 1) / sms;
-  const int nb = (epi == EPI_BIAS || epi == EPI_ROW) && !(r2 <= 2 && r1 < 2 * r2) ? 2 : 1;
-  const long long tiles = nb == 2 ? t2 : t1;
+  const int nb = (epi == EPI_BIAS || epi == EPI_ROW) && wide_tiles(mt, N, sms) ? 2 : 1;
+  const long long tiles = mt * ((N + 128 * nb - 1) / (128 * nb));
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);  // one block an SM
   CUtensorMap tx, tw;
   if (!tensor_map(&tx, x, M, K, ldx, BM) || !tensor_map(&tw, w, N, K, ldw, 128 * nb))

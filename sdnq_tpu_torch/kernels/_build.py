@@ -18,7 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "library", "build_dir", "command"]
+__all__ = ["SOURCES", "build", "library", "build_dir", "command",
+           "tma_rows"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -143,3 +144,20 @@ def act_kind(dtype) -> int:
     if dtype not in kinds:
         raise ValueError(f"kernels take float32/bfloat16/float16, not {dtype}")
     return kinds[dtype]
+
+
+def tma_rows(t, k: int | None = None):
+    """``t`` if a TMA tensor map can read its first ``k`` entries along the
+    last axis (all of them by default) in place: unit stride along that
+    axis, every other stride a positive multiple of 16 bytes, the data on a
+    16-byte boundary.  Else a copy, the last axis rounded up to 16 bytes with
+    zeros.  The Hopper kernels' operands go through it (a misaligned or
+    strided view is copied, never refused)."""
+    k = t.shape[-1] if k is None else k
+    per = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st > 0 and st % per == 0 for st in t.stride()[:-1])):
+        return t
+    out = t.new_zeros((*t.shape[:-1], -(-k // per) * per))
+    out[..., :k] = t[..., :k]
+    return out

@@ -135,15 +135,6 @@ def _mask_scores(s, b, h, mask, causal, coef: float = 1.0):
     return s
 
 
-def _check_aligned(what, *ts):
-    """The kernels read q, k and v through TMA tensor maps, whose base
-    addresses are 16-byte aligned: raise for a view that is not."""
-    for t in ts:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: operands must start on a 16-byte "
-                             f"boundary (a view at offset {t.storage_offset()})")
-
-
 def _div(x, c: float):
     """x / c as a true division also on the card (a torch division by a
     Python scalar runs there as a multiply by the reciprocal)."""
@@ -240,8 +231,8 @@ def flash_attention(q, k, v, q_scale=None, k_scale=None,
             p_block and p_block % 64 == 0 and p_block <= 512
             and kn % p_block == 0):
         raise ValueError(f"token-mode P block {p_block} for KN {kn}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _check_aligned("flash_attention", q, k, v)
+    # TMA reads q, k and v: a view off a 16-byte boundary is copied
+    q, k, v = (_build.tma_rows(t.contiguous()) for t in (q, k, v))
     qs = q_scale.reshape(bh, n).float().contiguous() if quant else None
     ks = k_scale.reshape(bkh, kn).float().contiguous() if quant else None
     vs = (v_scale.reshape(bkh, kn).float().contiguous()
@@ -427,8 +418,7 @@ def flash_attention_block(q, k, v, q_scale=None, k_scale=None, v_scale=None,
     if k.shape[0] != bh or v.shape[:2] != k.shape[:2]:
         raise ValueError(f"shapes {tuple(q.shape)} {tuple(k.shape)} "
                          f"{tuple(v.shape)}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _check_aligned("flash_attention_block", q, k, v)
+    q, k, v = (_build.tma_rows(t.contiguous()) for t in (q, k, v))
     qs = q_scale.reshape(bh, n).float().contiguous() if quantized else None
     ks = k_scale.reshape(bh, kn).float().contiguous() if quantized else None
     vs = (v_scale.reshape(bh, kn).float().contiguous() if quantized_pv

@@ -44,9 +44,10 @@ Kernels, each beside its plain PyTorch version and a launch counter:
   (``fold_i8``).  Replaces ``_groupdot_i8_kernel``: per-row int8
   activations times the raw codes of 1-7-bit integers.
 * ``blockdiag_i8_mm`` — B8, ``csrc/blockdiag_i8_mm.cu``.  Replaces
-  ``_blockdiag_i8_kernel``: B7's function at any group size (down to the
-  8- and 16-code groups of 1- and 2-bit formats, groups that straddle the
-  half-split field boundary included) and at few rows.
+  ``_blockdiag_i8_kernel``: B7's function on 1-7-bit integer codes at any
+  group size (down to the 8- and 16-code groups of 1- and 2-bit formats,
+  groups that straddle the half-split field boundary included) and at few
+  rows: the codes decoded in registers into ``mma.sync`` s8 fragments.
 
 B5, B6 and B7 use the group-dot algebra on half-split codes (``packing``):
 the raw codes c (0 .. 2^bits - 1) enter the dot exactly, each group's
@@ -64,8 +65,7 @@ inputs, so the plain versions need no rounding points of their own.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version.  ``dequant_matmul`` and
-``packed_int8_matmul`` route to them.  Still raising on the card: B8 on
-half-split codes other than 1-, 2- and 4-bit integers (ROADMAP queue B).
+``packed_int8_matmul`` route to them.
 """
 
 from __future__ import annotations
@@ -106,15 +106,16 @@ _KERNEL_BITS = (1, 2, 4)
 # default SDNQ_TPU_PACKED_MM_MAX_ROWS, kept for the same route).
 PACKED_MM_MAX_ROWS = 8192
 
-# Where packed_int8_matmul has a result, at most this many rows take B8 (a
-# CUDA-core dp4a kernel whose tiles are 32 rows) even where B7 (128-row
-# tensor-core tiles) could take the groups; more rows take B7.  On an H100
-# at uint4 g 64, B8 is the faster at 32 rows on each of four shapes (K 2048
-# -> 8192, 2048, 512; K 1024 -> 4096) and B7 at 64 rows on the widest
-# (device times printed by chip_smoke.py, ``b7_b8_crossover``).  qlinear
-# calls packed_int8_matmul from 32 rows, so B8 takes its 32-row decode
-# batches.
-I8_BLOCKDIAG_MAX_ROWS = 32
+# Where packed_int8_matmul has a result, at most this many rows take B8
+# (the codes decoded in registers into mma.sync fragments, no W' written)
+# even where B7 (the decode into int8, then 128-row tensor-core tiles)
+# could take the groups; more rows take B7.  On an H100 at uint4 g 64
+# (device times by chip_smoke.py's ``b7_b8_crossover``), B8 is the faster
+# at 64 rows on each of its four shapes (K 2048 -> 8192, 2048, 512; K 1024
+# -> 4096; by 15% or more, the closest 27.8 against 32.9 us at 2048 ->
+# 512) and B7 at 128 rows on the widest (48.6 against 65.1 us at 2048 ->
+# 8192).  Both compute the same bits.
+I8_BLOCKDIAG_MAX_ROWS = 64
 
 # The JAX package's TPU route rule of packed_int8_matmul, kept for parity
 # (the int8 route and the rowwise-requantize route give different numbers;
@@ -437,19 +438,6 @@ decode_weight.mode_launches = dict(grouped=0, row=0, bitplane=0, halfsplit=0,
 _EPILOGUES = {"bias": 0, "row": 1, "fold": 2}
 
 
-def _tma_rows(t, k):
-    """``t`` if TMA can read its first K columns in place (unit column
-    stride, rows 16-byte aligned), else a copy with K rounded up to 16
-    bytes (the padding 0)."""
-    per = 16 // t.element_size()
-    if (t.stride(1) == 1 and t.stride(0) % per == 0
-            and t.data_ptr() % 16 == 0):
-        return t
-    out = t.new_zeros((t.shape[0], -(-k // per) * per))
-    out[:, :k] = t[:, :k]
-    return out
-
-
 def wgmma_mm_plain(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
                    xsum=None, out_dtype=torch.bfloat16, xs=None):
     """Plain version of ``wgmma_mm``, in fp32 in the kernel's order of
@@ -510,7 +498,7 @@ def wgmma_mm(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
     out = torch.empty((m, o), dtype=out_dtype, device=x.device)
     if not (m and o):
         return out
-    x, w = _tma_rows(x, k), _tma_rows(w, k)
+    x, w = _build.tma_rows(x, k), _build.tma_rows(w, k)
 
     def f32(t):
         return None if t is None else t.float().contiguous()
@@ -842,30 +830,40 @@ groupdot_i8_mm.mode_launches = dict(multiplane=0)
 def blockdiag_i8_mm(xq, xs, codes, scale, zpc, bias=None, bits: int = 4,
                     out_dtype=torch.bfloat16):
     """B7's function at any group size g dividing K: xq (M, K) int8 with
-    row scales xs (M, 1); codes (O, K*bits/8) half-split uint8 whose field
-    segment K*bits/8 is a multiple of 64; scale, zpc (O, K/g) fp32."""
+    row scales xs (M, 1); codes (O, K*bits/8) half-split uint8 of 1-7-bit
+    integers whose narrowest field plane's segment K / pmax is a multiple
+    of 64; scale, zpc (O, K/g) fp32."""
     if not is_cuda(xq):
         return blockdiag_i8_mm_plain(xq, xs, codes, scale, zpc, bias, bits,
                                      out_dtype)
-    m, k, o, g = _check_halfsplit("blockdiag_i8_mm", xq, codes, scale, zpc,
-                                  bits, None)
-    if xq.dtype != torch.int8 or (k * bits // 8) % 64:
+    m, k, o, g = _check_general("blockdiag_i8_mm", xq, codes, scale, zpc,
+                                bits, 1)
+    pmax = max(8 // w for w, _ in halfsplit_planes(bits))
+    if xq.dtype != torch.int8 or (k // pmax) % 64:
         raise ValueError(f"blockdiag_i8_mm takes int8 x codes and a field "
-                         f"segment that is a multiple of 64, got {xq.dtype}, "
-                         f"K {k}")
-    xq, codes, scale, zpc = _contiguous(xq, codes, scale, zpc)
-    xsum = xq.reshape(m, k // g, g).to(torch.int32).sum(-1).float()
+                         f"segment K / {pmax} that is a multiple of 64, got "
+                         f"{xq.dtype}, K {k}")
+    out = torch.empty((m, o), dtype=out_dtype, device=xq.device)
+    if not (m and o):
+        return out
+    # the kernel reads rows at their dense strides (K, K * bits / 8) from
+    # 16-byte boundaries
+    xq, codes = (_build.tma_rows(t.contiguous()) for t in (xq, codes))
+    scale, zpc = (t.float().contiguous() for t in (scale, zpc))
+    # per-row group sums of the codes, group-major (G, M): integers below
+    # 2^24, exact in fp32 in any order
+    xsum = torch.empty((k // g, m), dtype=torch.float32, device=xq.device)
+    torch.sum(xq.reshape(m, k // g, g).transpose(0, 1), -1,
+              dtype=torch.float32, out=xsum)
     xs = xs.reshape(-1).float().contiguous()
     bias = None if bias is None else bias.reshape(-1).float().contiguous()
-    out = torch.empty((m, o), dtype=out_dtype, device=xq.device)
-    if m and o:
-        fn = _build.function("blockdiag_i8_mm", "sdnq_blockdiag_i8_mm",
-                             [P] * 8 + [I] * 6 + [P])
-        _build.check(fn(*(_build.ptr(t) for t in (xq, codes, scale, zpc,
-                                                  xsum, xs, bias, out)),
-                        m, k, o, g, bits, _build.act_kind(out_dtype),
-                        _build.stream(xq)), "blockdiag_i8_mm")
-        blockdiag_i8_mm.launches += 1
+    fn = _build.function("blockdiag_i8_mm", "sdnq_blockdiag_i8_mm",
+                         [P] * 8 + [I] * 6 + [P])
+    _build.check(fn(*(_build.ptr(t) for t in (xq, codes, scale, zpc, xsum,
+                                              xs, bias, out)),
+                    m, k, o, g, bits, _build.act_kind(out_dtype),
+                    _build.stream(xq)), "blockdiag_i8_mm")
+    blockdiag_i8_mm.launches += 1
     return out
 
 

@@ -18,12 +18,15 @@ Kernels, each beside its plain PyTorch version and a launch counter:
   (or e4m3) codes and one scale per row.  Its ``colscale`` mode multiplies
   each column by an fp32 scale first (the prologue's ``x_colscale``).
 * ``scaled_gemm`` — B4, and B1's GEMM half, ``csrc/scaled_mm.cu``.  Replaces
-  ``_mm_kernel`` and the GEMM of ``_fused_act_mm_kernel``: mma.sync int8
-  (int32 accumulate), fp8 e4m3 or bf16 (fp32 accumulate), bound by tensor-core
+  ``_mm_kernel`` and the GEMM of ``_fused_act_mm_kernel``: int8 (int32
+  accumulate), fp8 e4m3 or bf16 (fp32 accumulate), bound by tensor-core
   operations at the FLUX shapes, with the scale/bias/zero-point epilogue
-  fused so the accumulator never reaches device memory.  Its "nn" mode
+  fused so the accumulator never reaches device memory.  Its "nt" mode (the
+  forward) is a persistent TMA + ``wgmma`` GEMM that reads both operands
+  where they lie (``_build.tma_rows``: rows of a multiple of 16 bytes, a
+  misaligned or strided view copied); its "nn" mode (B1's grad-input)
   reads B (K, N) N-contiguous and transposes each 8-bit stage in shared
-  memory.
+  memory for ``mma.sync``.
 * ``scaled_mm_tn`` — B10, ``csrc/scaled_mm_tn.cu``.  Replaces
   ``_tn_mm_kernel``: int8 (int32 accumulate) or e4m3 (fp32 accumulate),
   both operands read in their natural layout and transposed stage by stage
@@ -59,7 +62,7 @@ __all__ = ["quantize_rows", "quantize_rows_plain", "scaled_gemm",
            "bf16_scaled_mm", "scaled_mm_tn", "scaled_mm_tn_plain",
            "dynamic_mm_tn"]
 
-# The GEMM kernel walks K in 64-byte stages.
+# The nn GEMM kernel walks K in 64-byte stages.
 _K_BYTES = 64
 
 
@@ -212,14 +215,17 @@ def scaled_gemm(a, b, out_dtype=torch.bfloat16, xs=None, ws=None, bias=None,
         raise ValueError("rs needs vz0 and zp needs vz1")
     m, k = a.shape
     n = b.shape[1 if nn else 0]
-    pad = _k_pad(k, a.element_size())
-    if pad:  # zeros add nothing to the sums
-        a, b = _pad_k(a, pad), _pad_k(b, pad, rows=nn)
-    # the nn loader reads B in 4-byte words along N
-    n_pad = (-n) % 4 if nn else 0
-    if n_pad:
-        b = _pad_k(b, n_pad)
-    a, b = a.contiguous(), b.contiguous()
+    if nn:
+        a, b, n_pad, k_pad = _nn_operands(a, b, k, n)
+        lda, ldb = k + k_pad, n + n_pad
+    else:
+        if k < 1 or (a.dtype == torch.int8 and k >= _I8_MAX_K):
+            raise ValueError(f"scaled_gemm takes 1 <= K < {_I8_MAX_K} for "
+                             f"int8 (an exact int32 sum), got K {k}")
+        # TMA reads the rows where they lie, zero-filling the K tail
+        a, b = _build.tma_rows(a, k), _build.tma_rows(b, k)
+        n_pad = k_pad = 0
+        lda, ldb = a.stride(0), b.stride(0)
     xs, rs, zp = (_vec(t, m, nm) for t, nm in ((xs, "xs"), (rs, "rs"),
                                                 (zp, "zp")))
     ws, bias, vz0, vz1 = (_vec(t, n, nm) for t, nm in (
@@ -230,21 +236,37 @@ def scaled_gemm(a, b, out_dtype=torch.bfloat16, xs=None, ws=None, bias=None,
     out = torch.empty((m, n + n_pad), dtype=out_dtype, device=a.device)
     if m and n:
         fn = _build.function("scaled_mm", "sdnq_scaled_mm",
-                             [P] * 10 + [I] * 6 + [P])
-        _build.check(fn(*(_build.ptr(t) for t in (a, b, out, xs, ws, bias,
-                                                  rs, zp, vz0, vz1)),
-                        m, n + n_pad, k + pad, _GEMM_KINDS[a.dtype],
+                             [P, I, P, I] + [P] * 8 + [I] * 6 + [P])
+        _build.check(fn(_build.ptr(a), lda, _build.ptr(b), ldb,
+                        *(_build.ptr(t) for t in (out, xs, ws, bias, rs, zp,
+                                                  vz0, vz1)),
+                        m, n + n_pad, k + k_pad, _GEMM_KINDS[a.dtype],
                         _build.act_kind(out_dtype), int(nn),
                         _build.stream(a)), "scaled_gemm")
         scaled_gemm.launches += 1
-        if nn:
-            scaled_gemm.mode_launches["nn"] += 1
+        scaled_gemm.mode_launches["nn" if nn else "nt"] += 1
     return out[:, :n] if n_pad else out
 
 
 scaled_gemm.launches = 0
-scaled_gemm.mode_launches = dict(nn=0)
+scaled_gemm.mode_launches = dict(nt=0, nn=0)
 _GEMM_KINDS = {torch.int8: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+# The nt kernel's int32 sum is exact while 128 * 128 * K < 2^31.
+_I8_MAX_K = 1 << 17
+
+
+def _nn_operands(a, b, k, n):
+    """The nn kernel's operands: K zero-padded to a multiple of 64 bytes
+    (zeros add nothing to the sums) and N to a multiple of 4 (its loader
+    reads B in 4-byte words along N), both contiguous; returns (a, b,
+    n_pad, k_pad)."""
+    k_pad = _k_pad(k, a.element_size())
+    if k_pad:
+        a, b = _pad_k(a, k_pad), _pad_k(b, k_pad, rows=True)
+    n_pad = (-n) % 4
+    if n_pad:
+        b = _pad_k(b, n_pad)
+    return a.contiguous(), b.contiguous(), n_pad, k_pad
 
 
 # ---------------------------------------------------------------------------
@@ -359,19 +381,27 @@ def scaled_mm_fused_act(x, w_q, w_scale=None, bias=None, *,
     if emit_quantized and b_layout != "nt":
         raise ValueError("emit_quantized takes the nt layout")
     kdim = x.shape[-1]
-    # K is padded after the row statistics, so zeros never skew min/max
-    pad = _k_pad(kdim, 1) if is_cuda(x) else 0
+    nn = b_layout == "nn"
+    # K is padded after the row statistics, so zeros never skew min/max:
+    # to the nn kernel's 64-byte stages, or rows of a multiple of 16 bytes
+    # that TMA reads in place (the nt kernel takes the first K codes)
+    pad = ((_k_pad(kdim, 1) if nn else (-kdim) % 16) if is_cuda(x)
+           else 0)
     x_q, x_scale, x_zp, x_rs = quantize_rows(x, x_fmt, k_pad=pad,
                                              colscale=x_colscale)
+    x_in = x_q
     if pad:
-        w_q = _pad_k(w_q, pad, rows=b_layout == "nn")
-    out = scaled_gemm(x_q, w_q, out_dtype, x_scale, w_scale, bias,
+        x_q = x_q[:, :kdim]   # the codes (emitted), a view
+        if nn:   # the padded codes against a weight padded alike
+            w_q = _pad_k(w_q, pad, rows=True)
+        else:
+            x_in = x_q
+    out = scaled_gemm(x_in, w_q, out_dtype, x_scale, w_scale, bias,
                       rs=x_rs, zp=x_zp, vz0=v_zp0 if asym else None,
                       vz1=v_zp1 if asym else None, b_layout=b_layout)
     out = _add_lowrank(out, lowrank_u, lowrank_v, out_dtype)
     if not emit_quantized:
         return out
-    x_q = x_q[:, :kdim] if pad else x_q
     return (out, x_q, x_scale, x_zp) if asym else (out, x_q, x_scale)
 
 

@@ -474,10 +474,13 @@ def test_packed_qlinear_on_card_matches_cpu(dev, rows, qmm, fmt):
 
 
 def test_packed_bitplane_raises_on_card(dev):
-    """Bit-plane codes (B2's packed mode) now run on the card (int12 at
-    groups of 24, 3 rows: the GEMV), and so do multi-plane codes under the
-    quantized matmul above 32 rows (int5, B7); what still raises instead of
-    running a stand-in is B8 on multi-plane codes (int5 at 32 rows)."""
+    """Bit-plane codes (B2's packed mode) run on the card (int12 at groups
+    of 24, 3 rows: the GEMV), and so do multi-plane codes under the
+    quantized matmul: above I8_BLOCKDIAG_MAX_ROWS rows on B7 and, since B8
+    takes them too, at up to that many rows on B8 (int5), which raised
+    before; both agree with the same QTensor on the CPU (one bf16 ulp of
+    the largest output)."""
+    import dataclasses
     import sdnq_tpu_torch as T
     w = torch.randn(64, 72, device=dev, generator=_gen(14))
     qt = T.quantize_tensor(w, "int12", group_size=24)
@@ -489,11 +492,17 @@ def test_packed_bitplane_raises_on_card(dev):
                                        generator=_gen(15)), "int5",
                            group_size=128, use_quantized_matmul=True)
     assert qt.meta.pack_layout == "halfsplit"
-    before = kd.groupdot_i8_mm.mode_launches["multiplane"]
-    T.qlinear(torch.randn(40, 1024, device=dev), qt)
-    assert kd.groupdot_i8_mm.mode_launches["multiplane"] == before + 1
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.qlinear(torch.randn(32, 1024, device=dev), qt)
+    qt_cpu = dataclasses.replace(qt, **{
+        f: (None if getattr(qt, f) is None else getattr(qt, f).cpu())
+        for f in ("qdata", "scale", "zero_point", "svd_up", "svd_down")})
+    rows = kd.I8_BLOCKDIAG_MAX_ROWS
+    for m, counter in ((rows + 8, kd.groupdot_i8_mm), (rows, kd.blockdiag_i8_mm)):
+        x = torch.randn(m, 1024, device=dev, generator=_gen(16))
+        before = counter.launches
+        got = T.qlinear(x, qt).float().cpu()
+        assert counter.launches == before + 1
+        want = T.qlinear(x.cpu(), qt_cpu).float()
+        assert (got - want).abs().max() <= 2 ** -7 * want.abs().max()
 
 
 # B2's bit-plane mode and B5 / B6's general mode (multi-plane and minifloat
@@ -1268,9 +1277,162 @@ def test_flash_attention_block_ring_shapes(dev, n, mode):
 
 
 def test_flash_attention_rejects_misaligned(dev):
-    """q, k and v go through TMA tensor maps: a view off a 16-byte boundary
-    raises rather than launching."""
-    q = torch.zeros(2 * 64 * 128 + 1, device=dev, dtype=torch.bfloat16)
-    view = q[1:].view(2, 64, 128)
-    with pytest.raises(ValueError, match="16-byte"):
-        ka.flash_attention(view, view, view)
+    """q, k and v go through TMA tensor maps: views off a 16-byte boundary
+    are copied before the launch (no longer refused), and the result
+    equals the kernel's on fresh aligned copies and agrees with the plain
+    version as the other B3 rows do (2^-6 of each row's largest output);
+    B9 the same."""
+    g = _gen(65)
+    args, _ = _attn_inputs(dev, g, 2, 2, 64, 128, 128, False, False)
+    views = []
+    for t in args[:3]:
+        buf = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        views.append(view)
+    got = ka.flash_attention(*views, out_dtype=torch.float32)
+    aligned = ka.flash_attention(*(v.clone() for v in views),
+                                 out_dtype=torch.float32)
+    assert torch.equal(got, aligned)
+    want = ka.flash_attention_plain(*args[:3], out_dtype=torch.float32)
+    _rows_close(got, want)
+    bargs, kw = _block_inputs(dev, g, 2, 128, 256, "bf16")
+    bviews = []
+    for t in bargs[:3]:
+        buf = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)
+        bviews.append(buf[1:].view(t.shape))
+        bviews[-1].copy_(t)
+    got = ka.flash_attention_block(*bviews, *bargs[3:], None, **kw)
+    want = ka.flash_attention_block_plain(*bargs, None, **kw)
+    _block_check(got, want, False)
+
+
+# B4's nt kernel (TMA + wgmma): every operand kind at ragged M, N and K, every
+# epilogue term and output type, a layer view of a stacked weight and
+# misaligned views.  int8 is bit-equal; e4m3 and bf16 differ from the plain
+# version in summation order only (1e-5 / 1e-4 of the sum of |terms|, as
+# test_scaled_gemm_fp8 / _bf16).
+
+def _b4_operands(dev, g, kind, m, n, k):
+    if kind == "int8":
+        a = torch.randint(-128, 128, (m, k), device=dev, generator=g,
+                          dtype=torch.int8)
+        b = torch.randint(-128, 128, (n, k), device=dev, generator=g,
+                          dtype=torch.int8)
+    else:
+        dt = torch.bfloat16 if kind == "bf16" else torch.float8_e4m3fn
+        a = torch.randn(m, k, device=dev, generator=g).to(dt)
+        b = (torch.randn(n, k, device=dev, generator=g) * 4).to(dt)
+    return a, b
+
+
+def _b4_check(a, b, got, want, xs, ws):
+    if a.dtype == torch.int8:
+        assert torch.equal(got, want)
+        return
+    rtol = 1e-4 if a.dtype == torch.bfloat16 else 1e-5
+    mag = a.float().abs() @ b.float().abs().T
+    if xs is not None:
+        mag = mag * xs.reshape(-1, 1)
+    if ws is not None:
+        mag = mag * ws.reshape(1, -1)
+    # one ulp of the output type on top where it is narrower than fp32
+    ulp = {torch.float32: 0.0, torch.bfloat16: 2 ** -7,
+           torch.float16: 2 ** -10}[got.dtype]
+    bound = rtol * mag + ulp * want.float().abs() + 1e-6
+    assert ((got.float() - want.float()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("kind", ["int8", "e4m3", "bf16"])
+@pytest.mark.parametrize("m,n,k", [(1000, 3000, 3000), (33, 200, 1088),
+                                   (1, 8, 24), (300, 520, 100)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+def test_scaled_gemm_nt_ragged(dev, kind, m, n, k, out_dtype):
+    """Ragged M, N and K (K not a multiple of the 128-byte stage row: TMA's
+    zero fill), with and without every epilogue term (xs, ws, bias and the
+    uint8 rank-1 terms)."""
+    g = _gen(30)
+    a, b = _b4_operands(dev, g, kind, m, n, k)
+    xs = torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3
+    ws = torch.rand(n, device=dev, generator=g) * 0.02 + 1e-3
+    bias = torch.randn(n, device=dev, generator=g)
+    rs, zp = (torch.randn(m, device=dev, generator=g) for _ in range(2))
+    vz0, vz1 = (torch.randn(n, device=dev, generator=g) for _ in range(2))
+    before = ks.scaled_gemm.mode_launches["nt"]
+    for extra in ({}, dict(xs=xs, ws=ws, bias=bias, rs=rs, zp=zp, vz0=vz0,
+                           vz1=vz1)):
+        got = ks.scaled_gemm(a, b, out_dtype, **extra)
+        want = ks.scaled_gemm_plain(a, b, out_dtype, **extra)
+        _b4_check(a, b, got, want, extra.get("xs"), extra.get("ws"))
+    assert ks.scaled_gemm.mode_launches["nt"] == before + 2
+
+
+@pytest.mark.parametrize("kind", ["int8", "e4m3", "bf16"])
+def test_scaled_gemm_nt_views(dev, kind):
+    """A layer of a stacked (L, N, K) weight read in place (its view's
+    base), and operands off a 16-byte boundary or with a row stride that is
+    not a multiple of 16 bytes, copied before the launch: all equal the
+    kernel on fresh contiguous copies."""
+    g = _gen(31)
+    m, n, k = 200, 384, 512
+    a, _ = _b4_operands(dev, g, kind, m, n, k)
+    stack, _ = _b4_operands(dev, g, kind, 3 * n, n, k)
+    stack = stack.reshape(3, n, k)
+    xs = torch.rand(m, 1, device=dev, generator=g) * 0.02
+    layer = stack[1]
+    got = ks.scaled_gemm(a, layer, torch.float32, xs)
+    assert torch.equal(got, ks.scaled_gemm(a, layer.clone(), torch.float32,
+                                           xs))
+    _b4_check(a, layer, got, ks.scaled_gemm_plain(a, layer, torch.float32,
+                                                  xs), xs, None)
+    # misaligned base; a row stride of K + 1 elements
+    buf = torch.zeros(m * k + 1, device=dev, dtype=a.dtype)
+    off = buf[1:].view(m, k)
+    off.copy_(a)
+    wide = torch.zeros(n, k + 1, device=dev, dtype=a.dtype)
+    wide[:, :k].copy_(layer)
+    got = ks.scaled_gemm(off, wide[:, :k], torch.float32, xs)
+    assert torch.equal(got, ks.scaled_gemm(a, layer.clone(), torch.float32,
+                                           xs))
+
+
+def test_scaled_gemm_refuses_inexact_int8_k(dev):
+    """The int32 sum is exact only for K < 2^17: a larger K raises."""
+    a = torch.zeros(2, 1 << 17, device=dev, dtype=torch.int8)
+    with pytest.raises(ValueError, match="exact int32"):
+        ks.scaled_gemm(a, a, torch.float32)
+
+
+# B8 on the tensor cores: every half-split width; groups of 8 and 16, of 40
+# (ending inside k32 steps), of 64, and of 1024 (straddling every plane's
+# field boundaries at K 5120); rows from 1 up to past the route's cut-off;
+# exact integer partials and the plain version's fp32 folds, so bit-equal.
+# x and the codes also as views whose row stride is padded past the dense
+# one (the kernel reads dense rows: the wrapper copies such views).
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("g", [8, 16, 40, 64, 1024])
+@pytest.mark.parametrize("m", [1, 17, 32, 128])
+def test_blockdiag_i8_mm_widths(dev, bits, g, m):
+    gen = _gen(32)
+    k, o = 5120, 72
+    packed, scale, zpc = _halfsplit(o, k, bits, g, dev, gen, bits == 2)
+    xq = torch.randint(-127, 128, (m, k), device=dev, generator=gen,
+                       dtype=torch.int8)
+    xs = torch.rand(m, 1, device=dev, generator=gen) * 0.02 + 1e-3
+    bias = torch.randn(o, device=dev, generator=gen)
+    got = kd.blockdiag_i8_mm(xq, xs, packed, scale, zpc, bias, bits,
+                             torch.float32)
+    want = kd.blockdiag_i8_mm_plain(xq, xs, packed, scale, zpc, bias, bits,
+                                    torch.float32)
+    assert torch.equal(got, want)
+    nb = packed.shape[1]
+    xpad = torch.zeros(m, k + 16, device=dev, dtype=torch.int8)
+    xpad[:, :k].copy_(xq)
+    cpad = torch.zeros(o, nb + 16, device=dev, dtype=torch.uint8)
+    cpad[:, :nb].copy_(packed)
+    got = kd.blockdiag_i8_mm(xpad[:, :k], xs, cpad[:, :nb], scale, zpc, bias,
+                             bits, torch.float32)
+    assert torch.equal(got, want)

@@ -206,17 +206,20 @@ def test_blockdiag_b6_vs_pallas(interpret, fmt, m, k, g, with_bias):
     ("uint4", 33, 256, True), ("int4", 300, 1024, False),
     ("int2", 33, 1024, True), ("uint4", 300, 1024, True),
     ("uint3", 33, 1024, True), ("int5", 40, 1024, False),
-    ("int6", 33, 512, True), ("uint7", 40, 1024, False)])
+    ("int6", 33, 512, True), ("uint7", 40, 1024, False),
+    ("uint3", 72, 1024, True), ("int5", 72, 1024, False),
+    ("int6", 72, 512, True)])
 def test_groupdot_i8_b7_vs_pallas(interpret, fmt, m, k, with_bias):
-    """B7: ``packed_int8_matmul`` against the JAX package's, which runs
-    ``_groupdot_i8_mm_pallas`` at these shapes (g = 128, more than 32
-    rows), on 1-7-bit codes in one to three field planes; the port takes
-    B7 (``groupdot_i8_mm``) at all of them.  Both divide for the x codes,
-    which are bit-equal, so only the order of the fp32 epilogue differs:
-    rtol 1e-5 plus 1e-5 of the largest output."""
+    """B7 and B8: ``packed_int8_matmul`` against the JAX package's, which
+    runs ``_groupdot_i8_mm_pallas`` at these shapes (g = 128, more than 32
+    rows), on 1-7-bit codes in one to three field planes.  The port's route
+    takes B7 (``groupdot_i8_mm``) above I8_BLOCKDIAG_MAX_ROWS rows and B8
+    (``blockdiag_i8_mm``, the same function) at or below: both are held
+    here, B8 on codes in several field planes too.  Both divide for the x
+    codes, which are bit-equal, so only the order of the fp32 epilogue
+    differs: rtol 1e-5 plus 1e-5 of the largest output."""
     x, wq, scale, zp, b = _packed(fmt, m, k, 128, m + k)
-    assert m > tdq.I8_BLOCKDIAG_MAX_ROWS and tdq.packed_int8_route_ok(
-        m, k, 128, tfmt(fmt), "halfsplit")
+    assert tdq.packed_int8_route_ok(m, k, 128, tfmt(fmt), "halfsplit")
     b = b if with_bias else None
     ref = jdq.packed_int8_matmul(_j(x), _j(wq), _j(scale), _j(zp), _j(b),
                                  jfmt(fmt), 128, out_dtype=jnp.float32,
@@ -352,13 +355,14 @@ def test_packed_int8_fine_groups_vs_jax(interpret, fmt, m, k, g):
 
 @pytest.mark.parametrize("fmt,m,k,g", [
     ("uint4", 5, 1024, 64), ("int2", 3, 512, 16), ("uint1", 4, 1024, 8),
-    ("uint4", 8, 16640, 256)])
+    ("uint4", 8, 16640, 256), ("uint5", 3, 1024, 64), ("int3", 2, 1024, 16)])
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_blockdiag_i8_b8_vs_pallas(interpret, fmt, m, k, g, with_bias):
     """B8's plain version (``blockdiag_i8_mm`` on CPU tensors) against
     ``_blockdiag_i8_mm_pallas`` on the same int8 rows: g 64, g 16 and g 8
-    (the auto groups of 4-, 2- and 1-bit codes) and 65 groups with one
-    straddling the field boundary.  Exact integer partials; the JAX body
+    (the auto groups of 4-, 2- and 1-bit codes), 65 groups with one
+    straddling the field boundary, and codes in two field planes (uint5 g
+    64, int3 g 16).  Exact integer partials; the JAX body
     reduces the groups with an fp32 dot: rtol 1e-5 plus 1e-5 of the
     largest output."""
     x, wq, scale, zp, b = _packed(fmt, m, k, g, 7 * m + g, o=80)
@@ -384,12 +388,14 @@ def test_packed_int8_route_picks_b7_or_b8():
     so the choice is read from which wrapper the route calls."""
     calls = []
     real = (tdq.groupdot_i8_mm, tdq.blockdiag_i8_mm)
+    rows = tdq.I8_BLOCKDIAG_MAX_ROWS
     try:
         tdq.groupdot_i8_mm = lambda *a, **k: calls.append("B7")
         tdq.blockdiag_i8_mm = lambda *a, **k: calls.append("B8")
         f = tfmt("uint4")
-        for m, k, g in ((32, 1024, 64), (33, 1024, 128), (300, 768, 256),
-                        (15, 2048, 64), (100, 1024, 256), (65, 512, 16)):
+        for m, k, g in ((rows, 1024, 128), (rows + 1, 1024, 128),
+                        (300, 768, 256), (15, 2048, 64),
+                        (max(100, rows + 1), 1024, 256), (65, 512, 16)):
             wq = torch.zeros(16, k // 2, dtype=torch.uint8)
             s = torch.ones(16, k // g)
             tdq.packed_int8_matmul(torch.randn(m, k), wq, s, None, None, f,

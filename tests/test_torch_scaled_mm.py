@@ -390,3 +390,28 @@ def test_dynamic_mm_tn_and_nn(fmt, m):
     out = ttm._dynamic_mm_nn(torch.from_numpy(a), torch.from_numpy(w),
                              fmt).numpy()
     _close(out, ref)
+
+
+def test_tma_rows_copies_only_what_tma_cannot_read():
+    """The operand helper of the Hopper kernels (B3, B4, B8, B9 and the
+    GEMM): a tensor TMA can read in place comes back as itself; a view off
+    a 16-byte boundary, with a row stride that is not a multiple of 16
+    bytes, or with a zero (broadcast) stride, comes back as an equal copy
+    on a 16-byte boundary, its rows padded to 16 bytes with zeros."""
+    from sdnq_tpu_torch.kernels import _build
+    t = torch.arange(4 * 32, dtype=torch.float32).reshape(4, 32)
+    assert _build.tma_rows(t) is t
+    view = t[:, :20]   # rows 128 bytes apart: read in place
+    assert _build.tma_rows(view, 20) is view
+    flat = torch.arange(1 + 3 * 2 * 64, dtype=torch.int8)
+    off = flat[1:].view(3, 2, 64)
+    assert off.data_ptr() % 16
+    c = _build.tma_rows(off)
+    assert c.data_ptr() % 16 == 0 and torch.equal(c, off)
+    rows = torch.randn(5, 13).bfloat16()
+    c = _build.tma_rows(rows)
+    assert c.data_ptr() % 16 == 0 and c.stride(0) == 16
+    assert torch.equal(c[:, :13], rows) and not c[:, 13:].any()
+    bcast = torch.randn(1, 32).expand(3, 32)
+    c = _build.tma_rows(bcast)
+    assert c.stride(0) == 32 and torch.equal(c, bcast)
