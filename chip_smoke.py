@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py              # from the root of a checkout
+    python3 chip_smoke.py --no-faults  # no phases 7 and 8, nor their builds
+
+``--no-faults`` starts no builds of planted faults or probes, so that the
+timed phases have the host's cores to themselves (the default run builds
+them at the lowest priority while phases 3 to 6 run); it skips phases 7
+and 8 and checks all else.
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -25,14 +31,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               shapes of phase 4r, its acc / l per row, m and l held
               against the plain version; B7 on uint4 at the uint4 q
               path's shapes and on uint5 g256 (three field planes), and
-              the bit-plane GEMV at M 1 and 32; and the two halves of B2's
+              the bit-plane GEMV at M 1 and 32; B6 at M 8 (uint4,
+              float5_e2m2fn) and B10 with the uint8 family's rank-2 term in
+              its epilogue (limit TN_LOWRANK_TOL); and the two halves of B2's
               tiles, B5 and B7 alone at DiT linear1: decode_weight (int8
               g1024, float8_e3m4fn bit-plane, float5_e2m2fn half-split,
               uint4 half-split into int8; bit-equal) and wgmma_mm with its
               bias, row, fold and int8 fold epilogues, and once at ragged
               M, N and K; B4 (TMA + wgmma) at a ragged shape with every
               epilogue term (int8 and e4m3), its int8 rows beside
-              torch._int_mm alone and with the epilogue; B8 on uint5 (two
+              torch._int_mm alone and with the epilogue; B10 beside
+              torch._int_mm / torch._scaled_mm alone and with the
+              transposed copies and scales; B6 also with its weight cold
+              (called on copies that exceed the L2 cache four times over,
+              in turn), beside F.linear so timed; B8 on uint5 (two
               field planes).  Then B7 against B8 at 32, 64 and 128 rows
               on four shapes: dequant_mm.I8_BLOCKDIAG_MAX_ROWS must equal
               the largest row count at which B8 is the faster on all.
@@ -146,12 +158,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               64-key tile, the causal skip a tile early, the GQA map
               h % KH, a middle KV tile skipped under a mask and under
               causal, B10 dropping the M tail, B10 with a_s and b_s
-              swapped, B1's prologue ignoring the column scale, B2 taking
+              swapped, a byte lane swapped in B10's shared-memory
+              transpose, B1's prologue ignoring the column scale, B2 taking
               the next group's scale, B2 dropping the zero point, B3
               ignoring the additive mask on one KV tile, B3 adding it
               without log2(e), B2 reading its bit planes in reverse order,
               B2's minifloat decode flushing subnormals, B5 ignoring the
-              second field plane, B6 dropping the minifloat sign, B9
+              second field plane, B6 dropping the minifloat sign and
+              reading its minifloat table one entry off, B9
               writing acc normalised, m in base-2 units, B3's base-2
               exponent in B9, l not rescaled in token mode, and the GEMM
               waiting on the wrong phase of its stages' barriers, starting
@@ -178,7 +192,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               every k32 step) in place of the shipped fp16 conversion:
               its worst error over the card tests' limit at their shapes
               and over phase 3's at FLUX's, and its time, beside
-              torch._scaled_mm.
+              torch._scaled_mm.  B10 under builds of scaled_mm_tn.cu
+              with clock64 counters (cycles a tile in the main loop, in
+              the epilogue, waiting for TMA, rewriting stages), alone and
+              without the stage rewrite; B6 with its weight cold under
+              builds of blockdiag_mm.cu with one part taken out each (the
+              decode, the scale and zpc loads, the x loads, the weight
+              loads: wrong outputs, the time the rest takes).
 
 The last line is {"ok": true, "device": {...}}.  Numbers are this card's,
 at the power limit printed beside them.
@@ -187,6 +207,7 @@ at the power limit printed beside them.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -225,7 +246,8 @@ def bound_ms(bytes_moved: float, ops: float = 0.0, kind: str = "bf16"):
 def host_ms(fn, reps: int = 20) -> float:
     """Median host time a call takes to return, without synchronising: the
     wrapper's Python, allocations and launches (the card runs behind).  The
-    median, since the fault builds share the host's cores meanwhile."""
+    median, since the fault builds share the host's cores meanwhile
+    (unless ``--no-faults``)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -276,6 +298,60 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+L2_BYTES = 50 * 2 ** 20   # the H100's L2 cache
+
+
+def cold_copies(nbytes: int) -> int:
+    """How many copies of an operand of ``nbytes`` exceed the L2 cache four
+    times over (three at least), so that a call on each in turn reads its
+    operand from device memory, as a layer's weight is read on the path."""
+    return max(3, -(-4 * L2_BYTES // nbytes))
+
+
+def cold_ms(torch, calls, symbol):
+    """(events ms, device ms) a call, the ``calls`` (each on its own copy of
+    the weight, ``cold_copies`` of them) called in turn: CUDA events around
+    each call (``time_ms``) and the profiler's kernel time (``device_ms``,
+    ``symbol`` as there)."""
+    it = itertools.cycle(calls)
+
+    def fn():
+        return next(it)()
+    return (time_ms(fn, reps=2 * len(calls), warmup=len(calls)),
+            device_ms(torch, fn, symbol, reps=2 * len(calls)))
+
+
+def b6_cold_calls(args):
+    """Calls of B6 (``blockdiag_mm(*args)``), each on its own copy of the
+    codes, scales and zpc, ``cold_copies`` of them."""
+    from sdnq_tpu_torch.kernels import dequant_mm as kd
+    x, codes, scale, zpc = args[:4]
+    n = cold_copies(codes.numel() + 4 * (scale.numel() + zpc.numel()))
+    ops = [(codes, scale, zpc)] + [
+        tuple(t.clone() for t in (codes, scale, zpc)) for _ in range(n - 1)]
+    return [lambda o=o: kd.blockdiag_mm(x, *o, *args[4:]) for o in ops]
+
+
+def b6_cold(torch, args, wb, timed: bool = True):
+    """B6 and its yardstick ``F.linear`` on the bf16 weight ``wb``, each
+    with its weight cold (``cold_ms`` over copies of the codes, scales and
+    zpc, and of ``wb``): the row's readings, none where not ``timed``."""
+    import torch.nn.functional as F
+    if not timed:
+        return {}
+    k_ms, k_dev = cold_ms(torch, b6_cold_calls(args),
+                          KERNEL_SYMBOLS["blockdiag_mm"])
+    xb, bias = args[0].bfloat16(), args[4]
+    bb = None if bias is None else bias.bfloat16()
+    ws = [wb] + [wb.clone() for _ in range(cold_copies(2 * wb.numel()) - 1)]
+    l_ms, l_dev = cold_ms(torch, [lambda w=w: F.linear(xb, w, bb)
+                                  for w in ws], "")
+    del ws
+    torch.cuda.empty_cache()
+    return dict(cold_ms=k_ms, cold_device_ms=k_dev, library_cold_ms=l_ms,
+                library_cold_device_ms=l_dev)
+
+
 # name of each wrapper's CUDA kernel, as the profiler reports it
 KERNEL_SYMBOLS = {
     "quantize_rows": "quantize_rows_kernel",
@@ -288,26 +364,31 @@ KERNEL_SYMBOLS = {
     "blockdiag_mm": "blockdiag_mm_kernel",
     "groupdot_i8_mm": ("decode_weight_halfsplit", "wgmma_i8_fold_kernel"),
     "blockdiag_i8_mm": "blockdiag_i8_mm_kernel",
-    "scaled_mm_tn": "scaled_mm_tn_kernel"}
+    "scaled_mm_tn": "scaled_mm_tn_wgmma_kernel"}
 
 
 def device_ms(torch, fn, symbol, reps: int = 5, seen=None):
     """Mean device time per call of the kernels named ``symbol`` (or any of
     a tuple of names; "" names every kernel) that ``fn`` launches, from
     torch.profiler (host work not included); None when the profiler
-    records no such kernel.  The names timed are added to the set
-    ``seen``, where one is given."""
+    records no such kernel in three tries (with the fault builds loading
+    the host, a trace has now and then held no event of a kernel that
+    ran).  The names timed are added to the set ``seen``, where one is
+    given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     names = (symbol,) if isinstance(symbol, str) else symbol
-    timed = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-             and any(n in e.name for n in names)]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        timed = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and any(n in e.name for n in names)]
+        if timed:
+            break
     if seen is not None:
         seen.update(e.name[:120] for e in timed)
     us = [e.time_range.elapsed_us() for e in timed]
@@ -333,6 +414,7 @@ def kernel_phase(torch, dev, timed: bool = True):
 
     def t(fn, reps: int = 10):
         return time_ms(fn, reps=reps) if timed else None
+    t.timed = timed  # for the row functions given ``t``
 
     def record(name, route, source, replaces, err, tol, kernel, plain_ms,
                bnd, library_ms, shape, on_path=True, path="int8",
@@ -670,23 +752,31 @@ def kernel_phase(torch, dev, timed: bool = True):
                f"M{m} K{k} N{n} uint4 g128", path="uint4_wo")
         del packed, w_deq, x
 
-    for k, n in ((3072, 18432), (256, 3072)):
+    # B6 at M 1 (the modulation and embedding linears at batch 1), and at
+    # M 8, the most rows it takes (off the paths)
+    for mg, k, n in ((1, 3072, 18432), (1, 256, 3072), (8, 3072, 18432)):
         packed, scale, zpc, w_deq = packed_weight(n, k)
-        x = torch.randn(1, k, device=dev, generator=g)
+        x = torch.randn(mg, k, device=dev, generator=g)
         bias = torch.randn(n, device=dev, generator=g)
         args = (x, packed, scale, zpc, bias, 4, torch.bfloat16)
         got = kd.blockdiag_mm(*args)
         want = kd.blockdiag_mm_plain(*args)
         xb = x.bfloat16()
+
+        def library(xb=xb, w_deq=w_deq, bias=bias):
+            return F.linear(xb, w_deq, bias.bfloat16())
+        # a weight of 28 MB stays in the 50 MB L2 between repeated calls;
+        # the path reads each layer's cold: timed so too
+        cold = b6_cold(torch, args, w_deq, timed) if n * k >= 1 << 24 else {}
         record("blockdiag_mm", "cuda", "sdnq_tpu_torch/csrc/blockdiag_mm.cu",
                "sdnq_tpu/kernels/dequant_mm.py:593",
                float((got.float() - want.float()).abs().max()),
-               ulp_tol(want), lambda: kd.blockdiag_mm(*args),
-               t(lambda: kd.blockdiag_mm_plain(*args), reps=5),
-               bound_ms(halfsplit_bytes(n, k) + k * 4 + n * 2, 2 * n * k,
-                        "fp32"),
-               t(lambda: F.linear(xb, w_deq, bias.bfloat16()), reps=20),
-               f"M1 K{k} N{n} uint4 g128", path="uint4_wo")
+               ulp_tol(want), lambda a=args: kd.blockdiag_mm(*a),
+               t(lambda a=args: kd.blockdiag_mm_plain(*a), reps=5),
+               bound_ms(halfsplit_bytes(n, k) + mg * k * 4 + mg * n * 2,
+                        2 * mg * n * k, "fp32"),
+               t(library, reps=20), f"M{mg} K{k} N{n} uint4 g128",
+               path="uint4_wo", on_path=mg == 1, library_fn=library, **cold)
         del packed, w_deq
 
     # B7: the uint4 q path's shapes, then uint5 g256 (three field planes)
@@ -779,7 +869,10 @@ def b7_b8_crossover(torch, dev):
                     *args), KERNEL_SYMBOLS["blockdiag_i8_mm"]),
                 "B7_device_ms": device_ms(torch, lambda: kd.groupdot_i8_mm(
                     *args), KERNEL_SYMBOLS["groupdot_i8_mm"])}
-            wins[m] = wins[m] and r["B8_device_ms"] < r["B7_device_ms"]
+            timed = None not in r.values()
+            check(timed, f"B7 / B8 crossover M{m} K{k} N{n}: both timed")
+            wins[m] = (wins[m] and timed
+                       and r["B8_device_ms"] < r["B7_device_ms"])
     cut = max([m for m in CROSSOVER_ROWS if wins[m]], default=0)
     log("B7 / B8 crossover, uint4 g64 (I8_BLOCKDIAG_MAX_ROWS = "
         f"{kd.I8_BLOCKDIAG_MAX_ROWS}; B8 the faster on every shape at "
@@ -900,6 +993,14 @@ def train_kernel_rows(torch, dev, g, t, record):
             return None
         return t(fn)
 
+    def padded(fn, what):
+        """The yardstick with the transposed copies and the scales its
+        call needs around it (events and device ms of every kernel), for
+        ``library_padded_ms`` beside the call alone's ``library_ms``."""
+        ms = library_or_none(fn, what)
+        return dict(library_padded_ms=ms, library_padded_device_ms=(
+            device_ms(torch, fn, "") if ms is not None else None))
+
     src_tn = "sdnq_tpu_torch/csrc/scaled_mm_tn.cu"
     rep_tn = "sdnq_tpu/kernels/scaled_mm.py:534"
     # B10 int8: gw = g^T x with both quantized columnwise.  Bit-equal to
@@ -921,21 +1022,59 @@ def train_kernel_rows(torch, dev, g, t, record):
         err = float((got - want).abs().max())
         del got, want
 
-        def library():
+        def with_copies():
             if m == 1:  # _int_mm takes no K of 1; one int8 product is
                 # exact in fp32, so the outer product is the same function
                 acc = torch.outer(a[0].float(), b[0].float())
             else:
                 acc = torch._int_mm(a.t().contiguous(), b).float()
             return acc * a_s[:, None] * b_s[None, :]
+        # the product alone, on operands laid out for it beforehand (A^T
+        # row-major, B column-major: cuBLASLt's int8 layout)
+        at = a.t().contiguous() if m > 1 else a[0].float()
+        bt = b.t().contiguous().t() if m > 1 else b[0].float()
+
+        def library():
+            return torch.outer(at, bt) if m == 1 else torch._int_mm(at, bt)
+        lib_ms = library_or_none(library, f"scaled_mm_tn {what}")
+        extra = padded(with_copies, f"scaled_mm_tn {what}, padded")
         record("scaled_mm_tn", "cuda", src_tn, rep_tn, err, 0.0,
                lambda: ks.scaled_mm_tn(a, b, a_s, b_s),
                t(lambda: ks.scaled_mm_tn_plain(a, b, a_s, b_s), reps=3),
                bound_ms(m * n + m * k + 4 * n * k + 4 * (n + k),
                         2 * m * n * k, "int8"),
-               library_or_none(library, f"scaled_mm_tn {what}"),
-               f"M{m} N{n} K{k} int8 ({what} grad-weight)", path="train")
-        del a, b
+               lib_ms, f"M{m} N{n} K{k} int8 ({what} grad-weight)",
+               path="train", library_fn=library if lib_ms else None, **extra)
+        del a, b, at, bt
+
+    # the uint8 family's grad-weight (``dynamic_mm_tn``): its rank-2
+    # zero-point term u (N, 2) @ v (2, K) in B10's epilogue, summed in fp32
+    # in r order, against the plain version's torch u @ v on the same
+    # operands: read as the worst |got - want| over |want| + |u| @ |v|
+    # (``scaled_mm.TN_LOWRANK_TOL``).  Off the paths (the training path's
+    # int8 weights take the int8 family).
+    m, n, k = 1024, 12288, 3072
+    ga = torch.randn(m, n, device=dev, generator=g) + 0.5
+    xb = torch.randn(m, k, device=dev, generator=g) * 2
+    ops = ks.uint8_tn_operands(ga, xb)
+    got = ks.dynamic_mm_tn(ga, xb, "uint8")
+    want = ks.scaled_mm_tn_plain(*ops[:4], lowrank_u=ops[4],
+                                 lowrank_v=ops[5])
+    mag = want.abs() + ops[4].abs() @ ops[5].abs()
+    diff = (got - want).abs()
+    reading, err = float((diff / mag).max()), float(diff.max())
+    del got, want, mag, diff, ga, xb
+    record("scaled_mm_tn", "cuda", src_tn, rep_tn, err, ks.TN_LOWRANK_TOL,
+           lambda: ks.scaled_mm_tn(*ops[:4], lowrank_u=ops[4],
+                                   lowrank_v=ops[5]),
+           t(lambda: ks.scaled_mm_tn_plain(*ops[:4], lowrank_u=ops[4],
+                                           lowrank_v=ops[5]), reps=3),
+           bound_ms(m * n + m * k + 4 * n * k + 12 * (n + k), 2 * m * n * k,
+                    "int8"),
+           None, f"M{m} N{n} K{k} uint8 family, rank-2 term (img fc1 "
+           "grad-weight)", on_path=False, reading=reading,
+           what="worst |got - want| / (|want| + |u| @ |v|)")
+    del ops
 
     # B10 e4m3 (fp8 weights train their grad-weight in fp8): products exact
     # in fp32, fp32 sums in another order.  Read as the worst error over
@@ -957,20 +1096,28 @@ def train_kernel_rows(torch, dev, g, t, record):
     del got, want, terms, diff
     one = torch.ones((), device=dev)
 
-    def library():
+    def with_copies():
         out = torch._scaled_mm(a.t().contiguous(), b.t().contiguous().t(),
                                scale_a=one, scale_b=one,
                                out_dtype=torch.float32)
         return out * a_s[:, None] * b_s[None, :]
+    # the product alone (no scales), on operands laid out for it beforehand
+    at, bt = a.t().contiguous(), b.t().contiguous().t()
+
+    def library():
+        return torch._scaled_mm(at, bt, scale_a=one, scale_b=one,
+                                out_dtype=torch.float32)
+    lib_ms = library_or_none(library, "scaled_mm_tn fp8")
+    extra = padded(with_copies, "scaled_mm_tn fp8, padded")
     record("scaled_mm_tn", "cuda", src_tn, rep_tn, err, 1e-5,
            lambda: ks.scaled_mm_tn(a, b, a_s, b_s),
            t(lambda: ks.scaled_mm_tn_plain(a, b, a_s, b_s), reps=3),
            bound_ms(m * n + m * k + 4 * n * k + 4 * (n + k), 2 * m * n * k,
                     "fp8"),
-           library_or_none(library, "scaled_mm_tn fp8"),
-           f"M{m} N{n} K{k} e4m3 (linear1 grad-weight)", on_path=False,
-           reading=reading)
-    del a, b
+           lib_ms, f"M{m} N{n} K{k} e4m3 (linear1 grad-weight)",
+           on_path=False, reading=reading,
+           library_fn=library if lib_ms else None, **extra)
+    del a, b, at, bt
 
     # B1 in the grad-input route at single-block linear1: the bf16
     # cotangent g (1536, 21504) times the weight's row scales (colscale),
@@ -1397,27 +1544,33 @@ def dynamic_kernel_rows(torch, dev, g, t, record):
                path="dyn_r2", count=f"groupdot_mm:{mode}")
         del qt, wb, x
 
-    for fmt, gsize, nu in (("float5_e2m2fn", 128, 3), ("uint5", 256, 5)):
+    # M 1 on the paths; float5 at M 8 too (off the paths)
+    for fmt, gsize, nu, mg in (("float5_e2m2fn", 128, 3, 1), ("uint5", 256, 5, 1),
+                               ("float5_e2m2fn", 128, 3, 8)):
         k, n = 3072, 18432
         qt, scale, zp, wb, side = qweight(n, k, fmt, gsize, nu)
         f = qt.meta.format
         s, zpc = kd._group_operands(scale, zp, f)
-        x = torch.randn(1, k, device=dev, generator=g).bfloat16()
+        x = torch.randn(mg, k, device=dev, generator=g).bfloat16()
         bias = torch.randn(n, device=dev, generator=g)
         args = (x, qt.qdata, s, zpc, bias, f.code_bits, torch.bfloat16, f)
         want = kd.blockdiag_mm_plain(*args)
         mode = "minifloat" if not f.is_integer else "multiplane"
+
+        def library(x=x, wb=wb, bias=bias):
+            return F.linear(x, wb, bias.bfloat16())
+        cold = b6_cold(torch, args, wb, t.timed)
         record("blockdiag_mm", "cuda", "sdnq_tpu_torch/csrc/blockdiag_mm.cu",
                "sdnq_tpu/kernels/dequant_mm.py:593",
                err(kd.blockdiag_mm(*args), want), ulp(want),
-               lambda: kd.blockdiag_mm(*args),
-               t(lambda: kd.blockdiag_mm_plain(*args), reps=5),
-               bound_ms(k * 2 + qt.qdata.numel() + side + n * 2, 2 * n * k,
-                        "bf16"),
-               t(lambda: F.linear(x, wb, bias.bfloat16()), reps=20),
-               f"M1 K{k} N{n} {label(fmt, gsize)} half-split {mode}",
-               path="dyn_r2", count=f"blockdiag_mm:{mode}",
-               symbol="blockdiag_mm_kernel_gen")
+               lambda a=args: kd.blockdiag_mm(*a),
+               t(lambda a=args: kd.blockdiag_mm_plain(*a), reps=5),
+               bound_ms(mg * k * 2 + qt.qdata.numel() + side + mg * n * 2,
+                        2 * mg * n * k, "bf16"),
+               t(library, reps=20),
+               f"M{mg} K{k} N{n} {label(fmt, gsize)} half-split {mode}",
+               path="dyn_r2", count=f"blockdiag_mm:{mode}", on_path=mg == 1,
+               library_fn=library, **cold)
         del qt, wb
     torch.cuda.empty_cache()
 
@@ -3032,11 +3185,12 @@ _GROUPS = (
       "128, false, true, true>", "128, true, true, true>")),
     ("B3 flash_attention", ("flash_attn_wgmma_kernel",)),
     ("B6 blockdiag_mm general (multi-plane, minifloat)",
-     ("blockdiag_mm_kernel_gen",)),
+     tuple(f"blockdiag_mm_kernel<{b}, true" for b in range(1, 8))
+     + tuple(f"blockdiag_mm_kernel<{b}, false" for b in (3, 5, 6, 7))),
     ("B6 blockdiag_mm", ("blockdiag_mm_kernel",)),
     ("B3 flash_attention, token-mode int8 P.V", ("flash_attn_tok_kernel",)),
     ("B8 blockdiag_i8_mm", ("blockdiag_i8_mm_kernel",)),
-    ("B10 scaled_mm_tn", ("scaled_mm_tn_kernel",)),
+    ("B10 scaled_mm_tn, TMA + wgmma", ("scaled_mm_tn_wgmma_kernel",)),
     ("fp64 products (attention_xla: decode, training backward)",
      ("f64", "dgemm", "Dgemm")),
     ("softmax (attention_xla, the VAE's attention)", ("softmax",)),
@@ -3169,8 +3323,8 @@ FAULTS = (
      "uint4_wo", [("const unsigned sh = hs.width[p] * t;",
                    "const unsigned sh = (hs.width[p] * t) ^ 4;")]),
     ("blockdiag_scale_of_the_previous_group", "blockdiag_mm", "blockdiag_mm",
-     "uint4_wo", [("const float sc = scale[(size_t)o * G + gi];",
-                   "const float sc = scale[(size_t)o * G + (gi + G - 1) % G];"
+     "uint4_wo", [("sc[r] = __ldg(a.scale + (size_t)o * a.G + gi);",
+                   "sc[r] = __ldg(a.scale + (size_t)o * a.G + (gi + a.G - 1) % a.G);"
                    )]),
     ("groupdot_i8_keeps_the_other_field_bits", "decode_weight",
      "groupdot_i8_mm", "uint4_qmm",
@@ -3206,12 +3360,16 @@ FAULTS = (
      "blockdiag_i8_mm", "qlinear_b8",
      [("m4[p] = p < hs.n ? 0x01010101u", "m4[p] = p < 1 ? 0x01010101u")]),
     ("tn_drops_the_m_tail", "scaled_mm_tn", "scaled_mm_tn", "train",
-     [("const int nm = (M + BM - 1) / BM;", "const int nm = M / BM;")]),
+     [("const int nk = (M + tok - 1) / tok;  // the stages of a tile",
+       "const int nk = M / tok;")]),
     ("tn_swaps_a_and_b_scales", "scaled_mm_tn", "scaled_mm_tn", "train",
-     [("const float sa = as ? as[row] : 1.f;",
-       "const float sa = bs ? bs[row % K] : 1.f;"),
-      ("const float sb = bs ? bs[col] : 1.f;",
-       "const float sb = as ? as[col % N] : 1.f;")]),
+     [("sa[hr] = ep.as ? __ldg(ep.as + min(nk0.x + rl + 8 * hr, N - 1)) : 1.f;",
+       "sa[hr] = ep.bs ? __ldg(ep.bs + min(nk0.x + rl + 8 * hr, N - 1) % K) : 1.f;"),
+      ("sb[e] = ep.bs ? __ldg(ep.bs + min(k0 + e, K - 1)) : 1.f;",
+       "sb[e] = ep.as ? __ldg(ep.as + min(k0 + e, K - 1) % N) : 1.f;")]),
+    ("tn_transpose_swaps_a_byte_lane", "scaled_mm_tn", "scaled_mm_tn",
+     "train", [("hopper.cuh", "x1 = rr & 2 ? 0x3276u : 0x7632u;",
+                "x1 = rr & 2 ? 0x3276u : 0x6732u;")]),
     ("colscale_ignored", "quantize_rows", "quantize_rows:colscale", "train",
      [("if (cs) v = __fmul_rn(v, cs[k]);",
        "if (false) v = __fmul_rn(v, cs[k]);")]),
@@ -3246,8 +3404,11 @@ FAULTS = (
      "pipeline", [("hopper.cuh", "const int ncols = min(BN, N - n0);",
                    "const int ncols = N - n0 < BN ? 0 : BN;")]),
     ("b6_drops_the_minifloat_sign", "blockdiag_mm", "blockdiag_mm:minifloat",
-     "dyn_r2", [("common.cuh", " | ((code << f.sign_shift) & 0x80000000u);",
-                 ";")]),
+     "dyn_r2", [("tab[i] = a.table[i];", "tab[i] = fabsf(a.table[i]);")]),
+    ("b6_minifloat_table_one_entry_off", "blockdiag_mm",
+     "blockdiag_mm:minifloat", "dyn_r2",
+     [("tab[(c4 >> (8 * e)) & 0xFFu]",
+       "tab[((c4 >> (8 * e)) + 1) & ((1u << BITS) - 1u)]")]),
     ("b7_fold_takes_the_next_groups_xsum", "wgmma_mm", "groupdot_i8_mm",
      "uint4_qmm", [("xsum + (size_t)gi * M + (row < M ? row : 0)",
                     "xsum + (size_t)((gi + 1) % (K / g)) * M + "
@@ -3296,7 +3457,7 @@ FAULTS = (
 # a flag, where the sound build traps after 2^36: a broken barrier then
 # ends in a wrong result that phase 3 reads, not in a failed launch that
 # ends the process.
-WATCHED = ("wgmma_mm", "flash_attn", "scaled_mm")
+WATCHED = ("wgmma_mm", "flash_attn", "scaled_mm", "scaled_mm_tn")
 WGMMA_WATCHDOG = (
     ("hopper.cuh", "// ---- mbarriers",
      "__device__ int g_watchdog;\n// ---- mbarriers"),
@@ -3395,7 +3556,55 @@ def e4m3_wgmma_edits(every: int):
 # takes B9's exp(x) as exp2f(x log2(e)), which keeps its natural units.
 # The last two take out the ping-pong of the consumer warpgroups and add a
 # third K / V stage.  Then the e4m3 builds of csrc/scaled_mm.cu
-# (E4M3_PROMOTION), read for their error as well as timed.
+# (E4M3_PROMOTION), read for their error as well as timed, B10's counters
+# and B6 with one part taken out each (the decode, the scale and zpc loads,
+# the x loads, the weight loads; wrong outputs, the time the rest takes).
+# B10's probes: clock64 counters (cycles a tile in the main loop and in the
+# epilogue, waiting for TMA and rewriting stages, summed over each block's
+# thread 0 and read by `sdnq_prof`), and the same without the stage rewrite
+# (wrong outputs: the time the rest takes)
+_TN_SPLIT = [
+    ("namespace {\n\nusing namespace sdnq;",
+     "namespace {\n__device__ unsigned long long g_prof[5];\nusing namespace sdnq;"),
+    ("  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {\n"
+     "    const int2 nk0 = at(tile);\n#pragma unroll",
+     "  long long w_cyc = 0, x_cyc = 0;\n"
+     "  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {\n"
+     "    const long long t_a = clock64();\n"
+     "    const int2 nk0 = at(tile);\n#pragma unroll"),
+    ("      mbar_wait(&full[s], (it / ST) & 1);",
+     "      const long long t_w = clock64();\n"
+     "      mbar_wait(&full[s], (it / ST) & 1);\n      w_cyc += clock64() - t_w;"),
+    ("      consumers_sync();\n      if constexpr (KIND == S8) {",
+     "      const long long t_x = clock64();\n      consumers_sync();\n"
+     "      if constexpr (KIND == S8) {"),
+    ("      __syncwarp();\n      if (lane == 0) mbar_arrive(&empty[s]);",
+     "      x_cyc += clock64() - t_x;\n      __syncwarp();\n"
+     "      if (lane == 0) mbar_arrive(&empty[s]);"),
+    ("    wgmma_wait<0>();\n    fence_regs(acc);\n    consumers_sync();",
+     "    const long long t_b = clock64();\n    wgmma_wait<0>();\n"
+     "    fence_regs(acc);\n    consumers_sync();"),
+    ("    store_tile_tn<NB>(acc, conv, out, nk0, cq, ep);\n  }",
+     "    store_tile_tn<NB>(acc, conv, out, nk0, cq, ep);\n"
+     "    if (threadIdx.x == 0) {\n"
+     "      atomicAdd(&g_prof[0], (unsigned long long)(t_b - t_a));\n"
+     "      atomicAdd(&g_prof[1], (unsigned long long)(clock64() - t_b));\n"
+     "      atomicAdd(&g_prof[2], 1ull);\n    }\n  }\n"
+     "  if (threadIdx.x == 0) {\n"
+     "    atomicAdd(&g_prof[3], (unsigned long long)w_cyc);\n"
+     "    atomicAdd(&g_prof[4], (unsigned long long)x_cyc);\n  }"),
+    ("}  // namespace\n",
+     "}  // namespace\n\nextern \"C\" int sdnq_prof(unsigned long long* h) {\n"
+     "  cudaError_t e = cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof));\n"
+     "  const unsigned long long z[5] = {0, 0, 0, 0, 0};\n"
+     "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_prof, z, sizeof(z));\n"
+     "  return (int)e;\n}\n"),
+]
+_TN_NO_REWRITE = [
+    ("        for (int h = 0; h <= NB; ++h) tr.run(st + h * BOX, cv + h * 128 * 128, tok);"
+     "  // A, then B's", "        (void)tr;"),
+    ("          e4m3_rows_to_f16(st + h * BOX, cv + h * 2 * BOX, tok, BOX, threadIdx.x);",
+     "          (void)h;")]
 PROBES = (
     ("watchdog_only", "flash_attn", []),
     ("b9_exp2f", "flash_attn",
@@ -3418,6 +3627,23 @@ PROBES = (
      [("constexpr int ST = 2;", "constexpr int ST = 3;")]),
     *((f"b4_e4m3_wgmma_{name}", "scaled_mm", e4m3_wgmma_edits(every))
       for name, every in E4M3_PROMOTION),
+    ("tn_split", "scaled_mm_tn", _TN_SPLIT),
+    ("tn_split_no_rewrite", "scaled_mm_tn", _TN_SPLIT + _TN_NO_REWRITE),
+    ("b6_no_decode", "blockdiag_mm",
+     [("      decode8<BITS, TABLE, J>(wv[r], tab, cf[r]);",
+       "      for (int e = 0; e < 8; ++e) cf[r][e] = __uint_as_float(wv[r][0].x"
+       " & 0x3f800000u);")]),
+    ("b6_no_scale_loads", "blockdiag_mm",
+     [("      sc[r] = __ldg(a.scale + (size_t)o * a.G + gi);\n"
+       "      z[r] = __ldg(a.zpc + (size_t)o * a.G + gi);",
+       "      sc[r] = 1.f + o;\n      z[r] = 0.5f + gi;")]),
+    ("b6_no_x_loads", "blockdiag_mm",
+     [("        load8(xp + (size_t)m * a.K + k0, xv);",
+       "        for (int e = 0; e < 8; ++e) xv[e] = 1.f + e + m;")]),
+    ("b6_no_weight_loads", "blockdiag_mm",
+     [("        wv[v][r][i] = ok ? __ldg(reinterpret_cast<const uint2*>(p + "
+       "(size_t)S * i)) : make_uint2(0, 0);",
+       "        wv[v][r][i] = make_uint2(u * 7 + i, o);")]),
 )
 
 
@@ -3526,7 +3752,9 @@ def probe_phase(torch, dev, procs):
         return
     src = {tag: s for tag, s, _ in PROBES}
     for name, run in (("flash_attn", attention_probes),
-                      ("scaled_mm", e4m3_probes)):
+                      ("scaled_mm", e4m3_probes),
+                      ("scaled_mm_tn", tn_probes),
+                      ("blockdiag_mm", b6_probes)):
         run(torch, dev, {tag: lib for tag, (_, lib) in procs.items()
                          if src[tag] == name})
 
@@ -3600,6 +3828,91 @@ def e4m3_probes(torch, dev, libs):
     torch.cuda.empty_cache()
 
 
+def tn_probes(torch, dev, libs):
+    """B10 under the two ``tn_split`` builds of PROBES (watchdog and
+    counters, then also without the stage rewrite) at linear1 (int8,
+    e4m3) and the modulation shape at M 1 (int8): ms a call (CUDA events)
+    and each counter's cycles a tile."""
+    import ctypes
+    from sdnq_tpu_torch.kernels import scaled_mm as ks
+    g = torch.Generator(device=dev).manual_seed(79)
+    cases = []
+    for label, m, n, k, dt in (("int8 linear1", 1536, 21504, 3072, torch.int8),
+                               ("int8 M1", 1, 18432, 3072, torch.int8),
+                               ("e4m3 linear1", 1536, 21504, 3072,
+                                torch.float8_e4m3fn)):
+        if dt == torch.int8:
+            a, b = (torch.randint(-128, 128, (m, c), device=dev, generator=g,
+                                  dtype=dt) for c in (n, k))
+        else:
+            a, b = (torch.randn(m, c, device=dev, generator=g).to(dt)
+                    for c in (n, k))
+        cases.append((label, a, b, torch.rand(n, device=dev, generator=g),
+                      torch.rand(k, device=dev, generator=g)))
+    out = {}
+    buf = (ctypes.c_ulonglong * 5)()
+    for tag, lib in libs.items():
+        reader = ctypes.CDLL(str(lib)).sdnq_prof
+        with library_swapped("scaled_mm_tn", lib):
+            for label, a, b, a_s, b_s in cases:
+                def fn():
+                    return ks.scaled_mm_tn(a, b, a_s, b_s)
+                fn()
+                torch.cuda.synchronize()
+                reader(buf)  # read and zeroed
+                ms = time_ms(fn, reps=10, warmup=0)
+                torch.cuda.synchronize()
+                reader(buf)
+                tiles = max(buf[2], 1)
+                out[f"{tag} {label}"] = dict(
+                    ms=ms, main_cycles=buf[0] / tiles,
+                    epilogue_cycles=buf[1] / tiles,
+                    tma_wait_cycles=buf[3] / tiles,
+                    rewrite_cycles=buf[4] / tiles)
+            check(not watchdog_fired(lib),
+                  f"probe {tag}: no barrier wait gave up")
+    log("B10 probes (ms a call; cycles a tile, block thread 0): "
+        + json.dumps(out))
+    del cases
+    torch.cuda.empty_cache()
+
+
+def b6_probes(torch, dev, libs):
+    """B6 at M 1, 3072 -> 18432 (uint4 g128 with fp32 x, float5_e2m2fn
+    g128 and uint5 g256 with bf16 x) with its weight cold (``cold_ms``),
+    under the shipped build, each b6_* build of PROBES, and the shipped
+    one again: device ms a call."""
+    from sdnq_tpu_torch import quantize_tensor
+    from sdnq_tpu_torch.kernels import dequant_mm as kd
+    g = torch.Generator(device=dev).manual_seed(80)
+    n, k = 18432, 3072
+    cases = []
+    for fmt, gsize, xdt in (("uint4", 128, torch.float32),
+                            ("float5_e2m2fn", 128, torch.bfloat16),
+                            ("uint5", 256, torch.bfloat16)):
+        qt = quantize_tensor(torch.randn(n, k, device=dev, generator=g)
+                             * 0.02, fmt, group_size=gsize)
+        f = qt.meta.format
+        zp = None if qt.zero_point is None else qt.zero_point.reshape(n, -1)
+        sc, zpc = kd._group_operands(qt.scale.reshape(n, -1), zp, f)
+        x = torch.randn(1, k, device=dev, generator=g).to(xdt)
+        cases.append((fmt, b6_cold_calls((x, qt.qdata, sc, zpc, None,
+                                          f.code_bits, torch.bfloat16, f))))
+
+    def run():
+        return {fmt: cold_ms(torch, calls, KERNEL_SYMBOLS["blockdiag_mm"])[1]
+                for fmt, calls in cases}
+    out = {"shipped": run()}
+    for tag, lib in libs.items():
+        with library_swapped("blockdiag_mm", lib):
+            out[tag] = run()
+    out["shipped, again"] = run()
+    log(f"B6 probes (device ms a call, M 1 K {k} N {n}, weight cold): "
+        + json.dumps(out))
+    del cases
+    torch.cuda.empty_cache()
+
+
 def attention_probes(torch, dev, libs):
     """B3 bf16 and B9 bf16 at FLUX's P = 1 block (24 heads, 4608 tokens,
     D 128) under each flash_attn build of PROBES, between two runs of the
@@ -3668,9 +3981,11 @@ def main() -> int:
     from sdnq_tpu_torch.kernels import _build
     t0 = time.perf_counter()
     fault_procs, probe_procs = {}, {}
+    faults = "--no-faults" not in sys.argv[1:]
     try:
-        fault_procs = start_fault_builds()
-        probe_procs = start_fault_builds(PROBES, "probes")
+        if faults:
+            fault_procs = start_fault_builds()
+            probe_procs = start_fault_builds(PROBES, "probes")
         secs = _build.build()
         log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
             + json.dumps({k: round(v, 1) for k, v in secs.items()}))
@@ -3797,8 +4112,12 @@ def main() -> int:
         checks["ring"] = lambda: ring_slice_phase(torch, dev)
         checks["pipeline"] = lambda: pipeline_slice_phase(torch, dev,
                                                           pipe_cut)
-        fault_phase(torch, dev, checks, fault_procs)
-        probe_phase(torch, dev, probe_procs)
+        if faults:
+            fault_phase(torch, dev, checks, fault_procs)
+            probe_phase(torch, dev, probe_procs)
+        else:
+            log("faults and probes not built (--no-faults): phases 7 and 8 "
+                "skipped")
     finally:  # no compiler outlives the script
         for proc, _ in [*fault_procs.values(), *probe_procs.values()]:
             if proc.poll() is None:

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels
-// (csrc/wgmma_mm.cu, csrc/scaled_mm.cu, csrc/flash_attn.cu): mbarriers
-// whose waits trap, TMA loads through 2- and 3-D tensor maps, shared-memory
-// matrix descriptors (K-major in the 128- and 64-byte swizzles, and the
-// MN-major "transposed" B of a row-major V tile), the wgmma wrappers, the
-// persistent GEMMs' producer loop, tile store and tile-size rule, and the
-// host's tensor-map encoder.
+// (csrc/wgmma_mm.cu, csrc/scaled_mm.cu, csrc/scaled_mm_tn.cu,
+// csrc/flash_attn.cu): mbarriers whose waits trap, TMA loads through 2- and
+// 3-D tensor maps, shared-memory matrix descriptors (K-major in the 128-
+// and 64-byte swizzles, and MN-major "transposed" operands of row-major
+// tiles), the wgmma wrappers, the persistent GEMMs' producer loops (and the
+// one for operands contracted along their rows), tile store and tile-size
+// rule, the 8-bit transposer in shared memory, and the host's tensor-map
+// encoder.
 //
 // A barrier wait that lasts longer than TRAP_CYCLES (over 30 s) traps: the
 // launch fails and the next synchronising call raises, where a broken
@@ -282,6 +284,72 @@ __device__ __forceinline__ void wgmma128_f16(float (&d)[64], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// wgmma128_f16 with both operands MN-major (trans-a and trans-b; each
+// descriptor from sw128_desc_mn): A stored K-row by K-row, 64 M values a
+// row; B as wgmma_rs128_t's.
+__device__ __forceinline__ void wgmma128_f16_tt(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, 1, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db));
+}
+
+// The same with B 256 wide and D 64 x 256 (wgmma256's layout).
+__device__ __forceinline__ void wgmma256_f16_tt(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, 1, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]),
+        "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]),
+        "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+        "+f"(d[127])
+      : "l"(da), "l"(db));
+}
+
 // D(64 x 128, f32) += A(64 x 16, bf16, registers) * B(16 x 128, bf16),
 // B MN-major (trans-b; its descriptor from sw128_desc_mn).  A's registers
 // take wgmma's accumulator layout of a 64 x 16 tile: a[0] row r, columns
@@ -356,6 +424,99 @@ __device__ __forceinline__ void produce(const CUtensorMap* tx, const CUtensorMap
   // no load may be in flight when the block exits
   for (int j = it > ST ? it - ST : 0; j < it; ++j) mbar_wait(&full[j % ST], (j / ST) & 1);
 }
+
+// The grad-weight GEMM's producer loop (csrc/scaled_mm_tn.cu), `produce`
+// for operands whose contraction is their leading (row) axis: each stage
+// is one TMA box of `tok` contraction rows x 128 columns of A at column n0
+// and NB such boxes of B at columns k0, k0 + 128, .. (boxes BOX bytes
+// apart, A's first), both read in their natural row-major layout; `at`
+// maps a tile to its (n0, k0).  The boxes of a ragged tail are zero-filled
+// by TMA and still count their whole size.
+template <int ST, int STAGE_BYTES, int BOX, int NB, typename TileAt>
+__device__ __forceinline__ void produce_tn(const CUtensorMap* ta, const CUtensorMap* tb,
+                                           uint8_t* smem, uint64_t* full, uint64_t* empty,
+                                           int tiles, int nk, int tok, TileAt at) {
+  const unsigned tx = static_cast<unsigned>(tok) * 128u * (1 + NB);
+  int it = 0;  // stages filled so far
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int2 nk0 = at(tile);
+    for (int kb = 0; kb < nk; ++kb, ++it) {
+      const int s = it % ST;
+      mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+      if (it >= ST) mbar_wait(&full[s], ((it / ST) & 1) ^ 1);
+      mbar_expect_tx(&full[s], tx);
+      uint8_t* st = smem + s * STAGE_BYTES;
+      tma_load(st, ta, &full[s], nk0.x, kb * tok);
+#pragma unroll
+      for (int h = 0; h < NB; ++h) tma_load(st + (1 + h) * BOX, tb, &full[s], nk0.y + 128 * h, kb * tok);
+    }
+  }
+  for (int j = it > ST ? it - ST : 0; j < it; ++j) mbar_wait(&full[j % ST], (j / ST) & 1);
+}
+
+// ---- the 8-bit transposer ----------------------------------------------------
+// An 8-bit tile of `rows` contraction rows (a multiple of 32, at most 128)
+// x 128 columns, as TMA writes it in the 128-byte swizzle (16-byte unit u
+// of row r at u ^ (r & 7)), into its transpose in shared memory: 128 rows,
+// one a column, each 128 bytes of contraction, in the same swizzle: the
+// K-major layout that sw128_desc reads, the only layout of 8-bit wgmma
+// operands (bytes past `rows` are left as they were).  Each of 256 threads
+// takes blocks of 4 rows x 4 columns (rows / 32 of them): four 32-bit
+// loads, __byte_perm's 4 x 4 byte transpose, four 32-bit stores.  A warp's
+// 32 blocks span 4 column quads and 8 row quads, and each lane reads its
+// four rows and writes its four columns in an order turned by its row quad
+// (loads) and column quad (stores), so that every load and every store of
+// the warp falls in 32 different banks; the turns live in the byte
+// selectors, and the addresses are fixed a thread but for a constant a
+// block, so a block costs 18 instructions.  Construct once a thread, then
+// run() a tile at a time.  The next reader of a transposed tile is wgmma
+// (the async proxy): fence.proxy.async first.
+struct Transpose8 {
+  unsigned ld[4], st[4];  // byte offsets of a thread's loads and stores, block 0
+  unsigned lo, hi, x0, x1;  // the byte selectors of the two perm stages
+
+  __device__ __forceinline__ explicit Transpose8(int t) {
+    const int lane = t & 31, cq = ((t >> 5) << 2) | (lane & 3);  // columns 4 cq ..
+    const int tq = lane >> 2;  // rows 4 tq .. (block 0; block i adds 32 i)
+    const int rr = (tq >> 1) & 3, turn = cq & 2;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int row = 4 * tq + (s ^ rr);  // load s: row 4 tq + (s ^ rr)
+      ld[s] = row * 128 + ((((cq >> 2) ^ row) & 7) << 4) + ((cq & 3) << 2);
+      const int col = 4 * cq + (s ^ turn);  // store s: column 4 cq + (s ^ turn)
+      st[s] = (col * 128 + ((tq & 3) << 2)) | ((((lane >> 4) ^ col) & 7) << 4);
+    }
+    // w[s] holds row s ^ rr: the first stage pairs rows (0, 1) and (2, 3)
+    // with their operands swapped where rr & 1, the second stage where
+    // rr & 2; `turn` swaps the first stage's two halves
+    lo = rr & 1 ? 0x1504u : 0x5140u;
+    hi = rr & 1 ? 0x3726u : 0x7362u;
+    if (turn) {
+      const unsigned x = lo;
+      lo = hi;
+      hi = x;
+    }
+    x0 = rr & 2 ? 0x1054u : 0x5410u;
+    x1 = rr & 2 ? 0x3276u : 0x7632u;
+  }
+
+  __device__ __forceinline__ void run(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
+                                      int rows) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // block i: rows 32 i ..
+      if (i * 32 >= rows) break;
+      unsigned w[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) w[s] = *reinterpret_cast<const unsigned*>(src + ld[s] + 4096 * i);
+      const unsigned alo = __byte_perm(w[0], w[1], lo), ahi = __byte_perm(w[0], w[1], hi);
+      const unsigned blo = __byte_perm(w[2], w[3], lo), bhi = __byte_perm(w[2], w[3], hi);
+      const unsigned c[4] = {__byte_perm(alo, blo, x0), __byte_perm(alo, blo, x1),
+                             __byte_perm(ahi, bhi, x0), __byte_perm(ahi, bhi, x1)};
+#pragma unroll
+      for (int s = 0; s < 4; ++s) *reinterpret_cast<unsigned*>(dst + (st[s] ^ (i << 5))) = c[s];
+    }
+  }
+};
 
 // two neighbouring outputs in one store (the address is a multiple of two)
 __device__ __forceinline__ void store2(float* p, float a, float b) {

@@ -161,3 +161,4 @@ def tma_rows(t, k: int | None = None):
     out = t.new_zeros((*t.shape[:-1], -(-k // per) * per))
     out[..., :k] = t[..., :k]
     return out
+

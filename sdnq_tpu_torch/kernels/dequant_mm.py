@@ -681,10 +681,6 @@ def _check_halfsplit(name, x, codes, scale, zpc, bits, g_align):
     return m, k, o, g
 
 
-def _contiguous(*ts):
-    return tuple(t.contiguous() for t in ts)
-
-
 def groupdot_mm(x, codes, scale, zpc, bias=None, bits: int = 4,
                 out_dtype=torch.bfloat16, fmt=None):
     """Weight-only group-dot GEMM: x (M, K) bf16 on the card; codes (O,
@@ -737,30 +733,46 @@ def blockdiag_mm(x, codes, scale, zpc, bias=None, bits: int = 4,
     """Weight-only group-dot GEMV for x (M, K), M <= BLOCKDIAG_MAX_ROWS on
     the card, fp32 / bf16 / fp16; the other operands as ``groupdot_mm``
     (8 in place of 32 in its geometry rules; the general mode's output is
-    fp32 or bf16)."""
+    fp32 or bf16).  One kernel takes every mode: the codes of 1 to 7 bits
+    in their field planes, integers raw and minifloats through the table
+    of their values (``minifloat_table``)."""
     if not is_cuda(x):
         return blockdiag_mm_plain(x, codes, scale, zpc, bias, bits,
                                   out_dtype, fmt)
     if not 1 <= x.shape[0] <= BLOCKDIAG_MAX_ROWS:
         raise ValueError(f"blockdiag_mm takes 1..{BLOCKDIAG_MAX_ROWS} rows, "
                          f"got {x.shape[0]}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        x = x.float()   # the kernel reads fp32 or bf16 rows
-    if _general(bits, fmt):
-        return _blockdiag_general(x, codes, scale, zpc, bias, bits,
-                                  out_dtype, fmt)
-    m, k, o, g = _check_halfsplit("blockdiag_mm", x, codes, scale, zpc, bits,
-                                  8)
-    x, codes, scale, zpc = _contiguous(x, codes, scale, zpc)
-    bias = None if bias is None else bias.reshape(-1).float().contiguous()
+    general = _general(bits, fmt)
+    if general:
+        m, k, o, g = _check_general("blockdiag_mm", x, codes, scale, zpc,
+                                    bits, 8)
+        if out_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError("blockdiag_mm's general mode gives fp32 / bf16, "
+                             f"not {out_dtype}")
+    else:
+        m, k, o, g = _check_halfsplit("blockdiag_mm", x, codes, scale, zpc,
+                                      bits, 8)
+    x, codes, scale, zpc, bias = blockdiag_operands(x, codes, scale, zpc,
+                                                    bias)
     out = torch.empty((m, o), dtype=out_dtype, device=x.device)
-    fn = _build.function("blockdiag_mm", "sdnq_blockdiag_mm",
-                         [P, P, P, P, P, P, I, I, I, I, I, I, I, P])
-    _build.check(fn(*(_build.ptr(t) for t in (x, codes, scale, zpc, bias,
-                                              out)),
-                    m, k, o, g, bits, _build.act_kind(x.dtype),
-                    _build.act_kind(out_dtype), _build.stream(x)),
-                 "blockdiag_mm")
+    ptrs = [_build.ptr(t) for t in (x, codes, scale, zpc, bias)]
+    st = _build.stream(x)
+    if general:
+        table = (minifloat_table(fmt, x.device)
+                 if fmt is not None and not fmt.is_integer else None)
+        fn = _build.function("blockdiag_mm", "sdnq_blockdiag_mm_gen",
+                             [P] * 7 + [I] * 7 + [P])
+        _build.check(fn(*ptrs, _build.ptr(table), out.data_ptr(), m, k, o, g,
+                        bits, _build.act_kind(x.dtype),
+                        _build.act_kind(out_dtype), st),
+                     "blockdiag_mm (general mode)")
+        blockdiag_mm.mode_launches[_general_mode(fmt)] += 1
+    else:
+        fn = _build.function("blockdiag_mm", "sdnq_blockdiag_mm",
+                             [P] * 6 + [I] * 7 + [P])
+        _build.check(fn(*ptrs, out.data_ptr(), m, k, o, g, bits,
+                        _build.act_kind(x.dtype), _build.act_kind(out_dtype),
+                        st), "blockdiag_mm")
     blockdiag_mm.launches += 1
     return out
 
@@ -769,25 +781,49 @@ blockdiag_mm.launches = 0
 blockdiag_mm.mode_launches = dict(multiplane=0, minifloat=0)
 
 
-def _blockdiag_general(x, codes, scale, zpc, bias, bits, out_dtype, fmt):
-    m, k, o, g = _check_general("blockdiag_mm", x, codes, scale, zpc, bits,
-                                8)
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError("blockdiag_mm's general mode gives fp32 / bf16, "
-                         f"not {out_dtype}")
-    x, codes, scale, zpc = _contiguous(x, codes, scale.float(), zpc.float())
-    bias = None if bias is None else bias.reshape(-1).float().contiguous()
-    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
-    fn = _build.function("blockdiag_mm", "sdnq_blockdiag_mm_gen",
-                         [P] * 6 + [I] * 11 + [P])
-    _build.check(fn(*(_build.ptr(t) for t in (x, codes, scale, zpc, bias,
-                                              out)),
-                    m, k, o, g, bits, *_float_args(fmt),
-                    _build.act_kind(x.dtype), _build.act_kind(out_dtype),
-                    _build.stream(x)), "blockdiag_mm (general mode)")
-    blockdiag_mm.launches += 1
-    blockdiag_mm.mode_launches[_general_mode(fmt)] += 1
-    return out
+def _f32(t):
+    """``t`` as a contiguous fp32 tensor: itself where it already is one
+    (no call that makes a new tensor object), else a copy."""
+    if t is None or (t.dtype == torch.float32 and t.is_contiguous()):
+        return t
+    return t.float().contiguous()
+
+
+def blockdiag_operands(x, codes, scale, zpc, bias):
+    """B6's operands as its kernel reads them: x fp32 or bf16 (another
+    float type as fp32), contiguous, from a 16-byte boundary; the codes
+    contiguous from an 8-byte boundary; scale, zpc and bias fp32 and
+    contiguous (bias (O,)).  A tensor that already is so comes back as
+    itself; only the others are copied."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.float()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if x.data_ptr() % 16:   # a view off a 16-byte boundary: a fresh copy
+        x = x.clone()
+    if not codes.is_contiguous():
+        codes = codes.contiguous()
+    if codes.data_ptr() % 8:
+        codes = codes.clone()
+    if bias is not None and bias.dim() != 1:
+        bias = bias.reshape(-1)
+    return x, codes, _f32(scale), _f32(zpc), _f32(bias)
+
+
+_TABLES: dict = {}
+
+
+def minifloat_table(fmt, device=None):
+    """The 2^bits fp32 values of a minifloat format's codes 0 .. 2^bits - 1
+    (``packing.decode_float``), on ``device``, made once: B6's kernel
+    decodes its minifloat codes through this table in shared memory."""
+    key = (fmt.name, str(device))
+    t = _TABLES.get(key)
+    if t is None:
+        codes = torch.arange(1 << fmt.code_bits, dtype=torch.int32)
+        t = decode_float(codes, fmt).float().contiguous().to(device)
+        _TABLES[key] = t
+    return t
 
 
 def groupdot_i8_mm(xq, xs, codes, scale, zpc, bias=None, bits: int = 4,

@@ -28,9 +28,12 @@ Kernels, each beside its plain PyTorch version and a launch counter:
   reads B (K, N) N-contiguous and transposes each 8-bit stage in shared
   memory for ``mma.sync``.
 * ``scaled_mm_tn`` — B10, ``csrc/scaled_mm_tn.cu``.  Replaces
-  ``_tn_mm_kernel``: int8 (int32 accumulate) or e4m3 (fp32 accumulate),
-  both operands read in their natural layout and transposed stage by stage
-  in shared memory, the columnwise scales in the epilogue, fp32 out.  The
+  ``_tn_mm_kernel``: int8 (int32 accumulate) or e4m3 (fp32 accumulate), a
+  persistent TMA + ``wgmma`` GEMM that reads both operands in their natural
+  layout and rewrites each stage in shared memory (int8: transposed for
+  the s8 ``wgmma``; e4m3: converted to fp16), the columnwise scales and
+  the rank-R term in the epilogue, fp32 out (``tn_plan`` picks its tokens
+  a stage and walk order; ``_build.tma_rows`` copies what TMA cannot read).  The
   JAX package sends the grad-weight GEMM to its kernel only under
   ``SDNQ_TPU_TN_MM_BLOCKS`` (a v5e speed choice); its XLA route computes
   the same int32 sum with the same epilogue order, so the port sends every
@@ -296,7 +299,8 @@ def scaled_mm_tn(a_q, b_q, a_scale=None, b_scale=None,
     [+ u @ v]``, contracting the leading (M) axis of a_q (M, N) and b_q
     (M, K), both int8 or both fp8 e4m3, any M (M = 1 included); the
     columnwise scales (N,) / (K,) are optional; the rank-R u (N, R) @ v
-    (R, K) term is added after the kernel in fp32."""
+    (R, K) term is added in the kernel's epilogue (fp32, summed in r
+    order)."""
     if not is_cuda(a_q):
         return scaled_mm_tn_plain(a_q, b_q, a_scale, b_scale, out_dtype,
                                   lowrank_u, lowrank_v)
@@ -305,36 +309,71 @@ def scaled_mm_tn(a_q, b_q, a_scale=None, b_scale=None,
                          f"operands, got {a_q.dtype} x {b_q.dtype}")
     if a_q.dim() != 2 or b_q.dim() != 2 or a_q.shape[0] != b_q.shape[0]:
         raise ValueError(f"shapes {tuple(a_q.shape)} x {tuple(b_q.shape)}")
+    if (lowrank_u is None) != (lowrank_v is None):
+        raise ValueError("lowrank_u needs lowrank_v")
     m, n = a_q.shape
     k = b_q.shape[1]
+    if a_q.dtype == torch.int8 and m >= _I8_MAX_K:
+        raise ValueError(f"scaled_mm_tn takes M < {_I8_MAX_K} for int8 (an "
+                         f"exact int32 sum), got M {m}")
     a_s, b_s = _vec(a_scale, n, "a_scale"), _vec(b_scale, k, "b_scale")
-    # the kernel reads rows in 4-byte words: zero columns where needed
-    n_pad, k_pad = (-n) % 4, (-k) % 4
-    if n_pad:
-        a_q = _pad_k(a_q, n_pad)
-        a_s = None if a_s is None else F.pad(a_s, (0, n_pad))
-    if k_pad:
-        b_q = _pad_k(b_q, k_pad)
-        b_s = None if b_s is None else F.pad(b_s, (0, k_pad))
-    a_q, b_q = a_q.contiguous(), b_q.contiguous()
-    out = torch.empty((n + n_pad, k + k_pad), dtype=torch.float32,
-                      device=a_q.device)
-    if m and n and k:
-        fn = _build.function("scaled_mm_tn", "sdnq_scaled_mm_tn",
-                             [P] * 5 + [I] * 4 + [P])
-        _build.check(fn(*(_build.ptr(t) for t in (a_q, b_q, out, a_s, b_s)),
-                        m, n + n_pad, k + k_pad, _TN_KINDS[a_q.dtype],
-                        _build.stream(a_q)), "scaled_mm_tn")
-        scaled_mm_tn.launches += 1
-    else:
+    u, v, r = _tn_lowrank(lowrank_u, lowrank_v, n, k)
+    out = torch.empty((n, k), dtype=torch.float32, device=a_q.device)
+    if not (n and k):
+        return out.to(out_dtype)
+    if not m:   # an empty sum
         out.zero_()
-    if n_pad or k_pad:
-        out = out[:n, :k]
-    return _add_lowrank(out, lowrank_u, lowrank_v, out_dtype).to(out_dtype)
+        if u is not None:
+            out += u @ v
+        return out.to(out_dtype)
+    # TMA reads rows a multiple of 16 bytes apart from a 16-byte boundary:
+    # others are copied (the zero columns past N or K reach no output)
+    a_q, b_q = _build.tma_rows(a_q), _build.tma_rows(b_q)
+    tok, k_fast = tn_plan(m, n, k, a_q.dtype)
+    fn = _build.function("scaled_mm_tn", "sdnq_scaled_mm_tn",
+                         [P, I, P, I] + [P] * 5 + [I] * 7 + [P])
+    _build.check(fn(_build.ptr(a_q), a_q.stride(0), _build.ptr(b_q),
+                    b_q.stride(0), *(_build.ptr(t) for t in (out, a_s, b_s,
+                                                             u, v)),
+                    r, m, n, k, _TN_KINDS[a_q.dtype], tok, int(k_fast),
+                    _build.stream(a_q)), "scaled_mm_tn")
+    scaled_mm_tn.launches += 1
+    return out.to(out_dtype)
 
 
 scaled_mm_tn.launches = 0
 _TN_KINDS = {torch.int8: 0, torch.float8_e4m3fn: 2}
+# The rank-R term against the plain version's torch u @ v: the kernel sums
+# it in fp32 in r order and adds it last, so each output may differ by an
+# fp32 rounding or two of |out| + |u| @ |v|; the limit on the worst
+# |got - want| / (|want| + |u| @ |v|), about twice the sound readings
+# (chip_smoke.py phase 3 and the card tests).
+TN_LOWRANK_TOL = 2.4e-7
+
+
+def tn_plan(m: int, n: int, k: int, dtype):
+    """B10's stage plan for a (M, N) x (M, K) product: ``(tok, k_fast)``.
+    A stage takes ``tok`` tokens: 128 (int8) or 64 (e4m3), or M rounded up
+    to 32 where it is smaller (32, 64 or 96; the batch-1 modulation linears
+    take one k32 step with 31 zero-filled rows).  ``k_fast``: the K tiles
+    are walked fastest when A (M, N) is the larger operand, so that each of
+    its column stripes is read once while B's stay in the L2 cache.  The
+    tile width (128 x 128 or 128 x 256) is the C entry's, by hopper.cuh's
+    ``wide_tiles`` as for B4."""
+    tok = min(128 if dtype == torch.int8 else 64, -(-m // 32) * 32)
+    return tok, n >= k
+
+
+def _tn_lowrank(u, v, n, k):
+    """(u (N, R), v (R, K), R) as the kernel reads them: fp32, contiguous
+    (no copy of a tensor that already is); (None, None, 0) without."""
+    if u is None:
+        return None, None, 0
+    if u.dim() != 2 or v.dim() != 2 or u.shape[0] != n or v.shape[1] != k \
+            or u.shape[1] != v.shape[0] or u.shape[1] < 1:
+        raise ValueError(f"lowrank u {tuple(u.shape)}, v {tuple(v.shape)} "
+                         f"for an ({n}, {k}) output")
+    return (u.float().contiguous(), v.float().contiguous(), u.shape[1])
 
 
 def _add_lowrank(out, u, v, out_dtype):
@@ -412,11 +451,10 @@ def dynamic_mm_tn(a, b, mm_fmt: str = "int8", out_dtype=torch.float32,
     torch as in the JAX package) and multiplied by B10: the grad-weight
     GEMM with no transposed copy.  ``saved_b`` replaces the b-side quantize
     with a pre-quantized (q, scale[, zp]) tuple.  The uint8 family's three
-    rank-1 cross terms go after the kernel as a rank-2 u @ v in fp32; the
+    rank-1 cross terms enter B10's epilogue as a rank-2 u @ v in fp32; the
     16-bit family is one bf16-valued product accumulated in fp32 (no
     kernel, as in the JAX package)."""
     f = get_format(mm_fmt)
-    mdim = a.shape[0]
     a = a.float()
     if f.is_integer and not f.is_unsigned:
         a_q, a_s = quantize_int_mm(a, 0)
@@ -425,17 +463,7 @@ def dynamic_mm_tn(a, b, mm_fmt: str = "int8", out_dtype=torch.float32,
         return scaled_mm_tn(a_q, b_q, a_s.reshape(-1), b_s.reshape(-1),
                             out_dtype=out_dtype)
     if f.is_integer:
-        a_q, a_s, a_zp = quantize_uint_mm(a, 0)
-        b_q, b_s, b_zp = (quantize_uint_mm(b.float(), 0) if saved_b is None
-                          else saved_b)
-        # aᵀb = (a_q s_a + z_a)ᵀ(b_q s_b + z_b): colsum(a_q)·s_a ⊗ z_b,
-        # z_a ⊗ colsum(b_q)·s_b and M·z_a ⊗ z_b, as one rank-2 term
-        a_s1, a_zp1 = a_s.reshape(-1), a_zp.reshape(-1)
-        b_s1, b_zp1 = b_s.reshape(-1), b_zp.reshape(-1)
-        csa = a_q.to(torch.int32).sum(0).float()
-        csb = b_q.to(torch.int32).sum(0).float()
-        u = torch.stack([csa * a_s1, a_zp1], dim=-1)
-        v = torch.stack([b_zp1, csb * b_s1 + float(mdim) * b_zp1], dim=0)
+        a_q, b_q, a_s1, b_s1, u, v = uint8_tn_operands(a, b, saved_b)
         return scaled_mm_tn(a_q, b_q, a_s1, b_s1, out_dtype=out_dtype,
                             lowrank_u=u, lowrank_v=v)
     if f.num_bits == 8:
@@ -447,6 +475,25 @@ def dynamic_mm_tn(a, b, mm_fmt: str = "int8", out_dtype=torch.float32,
     # 16-bit family: bf16 values, products exact in fp32, fp32 sums
     acc = a.to(torch.bfloat16).float().T @ b.to(torch.bfloat16).float()
     return acc.to(out_dtype)
+
+
+def uint8_tn_operands(a, b, saved_b=None):
+    """The uint8 family's B10 operands for aᵀ @ b: ``(a_q, b_q, a_s, b_s,
+    u, v)``, both quantized columnwise with a zero point (``saved_b`` the
+    b side's (q, scale, zp)).  aᵀb = (a_q s_a + z_a)ᵀ(b_q s_b + z_b):
+    colsum(a_q)·s_a ⊗ z_b, z_a ⊗ colsum(b_q)·s_b and M·z_a ⊗ z_b, as one
+    rank-2 term u (N, 2) @ v (2, K)."""
+    mdim = a.shape[0]
+    a_q, a_s, a_zp = quantize_uint_mm(a.float(), 0)
+    b_q, b_s, b_zp = (quantize_uint_mm(b.float(), 0) if saved_b is None
+                      else saved_b)
+    a_s1, a_zp1 = a_s.reshape(-1), a_zp.reshape(-1)
+    b_s1, b_zp1 = b_s.reshape(-1), b_zp.reshape(-1)
+    csa = a_q.to(torch.int32).sum(0).float()
+    csb = b_q.to(torch.int32).sum(0).float()
+    u = torch.stack([csa * a_s1, a_zp1], dim=-1)
+    v = torch.stack([b_zp1, csb * b_s1 + float(mdim) * b_zp1], dim=0)
+    return a_q, b_q, a_s1, b_s1, u, v
 
 
 def bf16_scaled_mm(x, w, x_scale=None, w_scale=None, bias=None,

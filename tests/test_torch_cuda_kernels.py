@@ -365,19 +365,32 @@ def test_groupdot_mm(dev, bits, m, k, o, g, signed):
 
 @pytest.mark.parametrize("bits,m,k,o,g", [
     (4, 1, 3072, 1000, 128), (4, 8, 256, 300, 128), (2, 3, 256, 300, 64),
-    (1, 5, 1024, 200, 128), (4, 2, 15360, 64, 128)])
+    (1, 5, 1024, 200, 128), (4, 2, 15360, 64, 128), (4, 4, 256, 77, 8),
+    (2, 6, 512, 130, 128), (1, 7, 1024, 33, 8), (4, 1, 64, 5, 32),
+    (1, 8, 128, 64, 16)])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_blockdiag_mm(dev, bits, m, k, o, g, x_dtype):
     """B6: fp32 sums in another order (and with FMA): 1e-5 of the sum of
-    |terms|."""
+    |terms| in fp32, and that plus half an ulp of the output in bf16 and
+    fp16; groups down to 8 codes and up to the field segment, every row
+    count 1..8, x from a view off a 16-byte boundary too."""
     gen = _gen(11)
     packed, scale, zpc = _halfsplit(o, k, bits, g, dev, gen, m % 2 == 0)
     x = torch.randn(m, k, device=dev, generator=gen).to(x_dtype)
     bias = torch.randn(o, device=dev, generator=gen)
-    got = kd.blockdiag_mm(x, packed, scale, zpc, bias, bits, torch.float32)
     want = kd.blockdiag_mm_plain(x, packed, scale, zpc, bias, bits,
                                  torch.float32)
     bound = 1e-5 * _magnitude(x, packed, scale, zpc, bits) + 1e-6
+    for out_dtype, half_ulp in ((torch.float32, 0.0), (torch.bfloat16, 2 ** -8),
+                                (torch.float16, 2 ** -11)):
+        got = kd.blockdiag_mm(x, packed, scale, zpc, bias, bits, out_dtype)
+        assert got.dtype == out_dtype
+        assert ((got.float() - want).abs()
+                <= bound + half_ulp * want.abs()).all()
+    flat = torch.zeros(m * k + 1, dtype=x_dtype, device=dev)
+    xv = flat[1:].view(m, k)
+    xv.copy_(x)
+    got = kd.blockdiag_mm(xv, packed, scale, zpc, bias, bits, torch.float32)
     assert ((got - want).abs() <= bound).all()
 
 
@@ -600,9 +613,23 @@ def test_groupdot_mm_general(dev, fmt, k, gsize, m):
     assert kd.groupdot_mm.mode_launches[mode] == before + 2
 
 
+def _minifloats():
+    """Every minifloat format of 1 to 7 bits in the registry, each at a K
+    whose narrowest plane's segment is 64 codes and groups of 8 (the
+    geometry limit)."""
+    from sdnq_tpu_torch.formats import FORMATS
+    out = []
+    for name, f in sorted(FORMATS.items()):
+        if not f.is_integer and f.num_bits <= 7:
+            low = f.num_bits & -f.num_bits
+            out.append((name, 64 * 8 // low, 8))
+    return out
+
+
 @pytest.mark.parametrize("fmt,k,gsize", _GENERAL + [("uint5", 64, 8),
                                                     ("float5_e2m2fn", 128,
-                                                     16)])
+                                                     16)]
+                         + _minifloats())
 @pytest.mark.parametrize("m", [1, 3, 8])
 @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
 def test_blockdiag_mm_general(dev, fmt, k, gsize, m, xdt):
@@ -982,10 +1009,31 @@ def test_fused_act_nn_colscale_emit(dev, m):
     assert torch.equal(eq, pq) and torch.equal(es, ps)
 
 
+def _unreadable_rows(t, g):
+    """An equal view of ``t`` (M, C) that TMA cannot read in place: rows
+    a multiple of 4 but not of 16 bytes apart, and one byte off a 16-byte
+    boundary where the rows are dense."""
+    m, c = t.shape
+    pad = 4 if (c + 4) % 16 else 8
+    big = torch.zeros(m * (c + pad) + 1, dtype=t.dtype, device=t.device)
+    v = big[1:].view(m, c + pad)[:, :c]
+    v.copy_(t)
+    return v
+
+
 @pytest.mark.parametrize("m,n,k", [(1, 8, 64), (1, 18432, 3072),
                                    (37, 200, 132), (100, 258, 126),
-                                   (1536, 384, 640)])
+                                   (1536, 384, 640), (7, 100, 36),
+                                   (31, 132, 260), (32, 388, 68),
+                                   (33, 260, 516), (70, 200, 136),
+                                   (96, 132, 260), (1000, 1028, 300)])
 def test_scaled_mm_tn_int8_exact(dev, m, n, k):
+    """B10 int8 bit-equal to its plain version at ragged M (a stage of 32,
+    64, 96 or 128 tokens), N and K (multiples of 4 but not of 16 included),
+    with and without each scale and on views TMA cannot read in place (the
+    wrapper copies them); the rank-R term within ``TN_LOWRANK_TOL`` (fp32
+    in r order against torch's u @ v), also as the uint8 family's rank-2
+    term through ``dynamic_mm_tn``."""
     g = _gen(24)
     a = torch.randint(-128, 128, (m, n), device=dev, generator=g,
                       dtype=torch.int8)
@@ -993,30 +1041,54 @@ def test_scaled_mm_tn_int8_exact(dev, m, n, k):
                       dtype=torch.int8)
     a_s = torch.rand(n, device=dev, generator=g) * 0.02
     b_s = torch.rand(k, device=dev, generator=g) * 0.02
-    for sc in ((a_s, b_s), (None, b_s), (None, None)):
+    for sc in ((a_s, b_s), (a_s, None), (None, b_s), (None, None)):
         got = ks.scaled_mm_tn(a, b, *sc)
         want = ks.scaled_mm_tn_plain(a, b, *sc)
         assert torch.equal(got, want)
+    av, bv = _unreadable_rows(a, g), _unreadable_rows(b, g)
+    assert torch.equal(ks.scaled_mm_tn(av, bv, a_s, b_s),
+                       ks.scaled_mm_tn_plain(a, b, a_s, b_s))
+
+    def within(got, want, u, v):
+        mag = want.abs() + u.abs() @ v.abs()
+        return bool(((got - want).abs() <= ks.TN_LOWRANK_TOL * mag).all())
     u = torch.randn(n, 2, device=dev, generator=g)
     v = torch.randn(2, k, device=dev, generator=g)
     got = ks.scaled_mm_tn(a, b, a_s, b_s, lowrank_u=u, lowrank_v=v)
-    assert torch.equal(got, ks.scaled_mm_tn_plain(a, b, a_s, b_s,
-                                                  lowrank_u=u, lowrank_v=v))
+    assert within(got, ks.scaled_mm_tn_plain(a, b, a_s, b_s, lowrank_u=u,
+                                             lowrank_v=v), u, v)
+    ga = torch.randn(m, n, device=dev, generator=g) + 0.5
+    xb = torch.randn(m, k, device=dev, generator=g) * 2
+    ops = ks.uint8_tn_operands(ga, xb)
+    want = ks.scaled_mm_tn_plain(*ops[:4], lowrank_u=ops[4], lowrank_v=ops[5])
+    assert within(ks.dynamic_mm_tn(ga, xb, "uint8"), want, ops[4], ops[5])
 
 
 @pytest.mark.parametrize("m,n,k", [(1, 64, 64), (70, 200, 136),
-                                   (1024, 512, 256)])
+                                   (1024, 512, 256), (7, 100, 36),
+                                   (31, 132, 260), (32, 388, 68),
+                                   (33, 260, 516), (1000, 1028, 300)])
 def test_scaled_mm_tn_fp8(dev, m, n, k):
+    """B10 e4m3 (fp16 wgmma on converted stages): 1e-5 of the sum of
+    |terms|, with and without each scale, and on views TMA cannot read in
+    place."""
     g = _gen(25)
     a = torch.randn(m, n, device=dev, generator=g).to(torch.float8_e4m3fn)
     b = torch.randn(m, k, device=dev, generator=g).to(torch.float8_e4m3fn)
     a_s = torch.rand(n, device=dev, generator=g)
     b_s = torch.rand(k, device=dev, generator=g)
-    got = ks.scaled_mm_tn(a, b, a_s, b_s)
+    terms = a.float().abs().T @ b.float().abs()
+    for sc in ((a_s, b_s), (a_s, None), (None, b_s), (None, None)):
+        got = ks.scaled_mm_tn(a, b, *sc)
+        want = ks.scaled_mm_tn_plain(a, b, *sc)
+        bound = terms * (1 if sc[0] is None else a_s[:, None]) \
+            * (1 if sc[1] is None else b_s[None, :])
+        assert ((got - want).abs() <= 1e-5 * bound + 1e-6).all()
+    got = ks.scaled_mm_tn(_unreadable_rows(a, g), _unreadable_rows(b, g),
+                          a_s, b_s)
     want = ks.scaled_mm_tn_plain(a, b, a_s, b_s)
-    bound = 1e-5 * (a.float().abs().T @ b.float().abs()) * a_s[:, None] \
-        * b_s[None, :]
-    assert ((got - want).abs() <= bound + 1e-6).all()
+    bound = terms * a_s[:, None] * b_s[None, :]
+    assert ((got - want).abs() <= 1e-5 * bound + 1e-6).all()
 
 
 def test_fit_adamw_sr_on_card(dev):
