@@ -42,10 +42,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               epilogue term (int8 and e4m3), its int8 rows beside
               torch._int_mm alone and with the epilogue; B10 beside
               torch._int_mm / torch._scaled_mm alone and with the
-              transposed copies and scales; B6 also with its weight cold
-              (called on copies that exceed the L2 cache four times over,
-              in turn), beside F.linear so timed; B8 on uint5 (two
-              field planes).  Then B7 against B8 at 32, 64 and 128 rows
+              transposed copies and scales; B6 and B2's GEMV also with
+              their weight cold (called on copies that exceed the L2 cache
+              four times over, in turn), beside F.linear so timed, B2's
+              GEMV also at the Llama-3-8B decode step's shapes (M 4: 4096
+              -> 4096, 1024, 14336; 14336 -> 4096); each token-mode row
+              (int8 P.V) beside the bf16-P.V kernel at its shape (events
+              and device ms), and token mode also causal (off the paths);
+              B8 on uint5 (two field planes).  Then B7 against B8 at 32, 64 and 128 rows
               on four shapes: dequant_mm.I8_BLOCKDIAG_MAX_ROWS must equal
               the largest row count at which B8 is the faster on all.
               Prints one {"kernels": [...]} line for the kernels of the
@@ -176,7 +180,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               late, B3's TMA + wgmma kernel waiting on the wrong phase of
               its K stages' barriers, taking P.V from the other V stage and
               storing its second consumer warpgroup's rows at the first
-              one's), built with the real ones; phases 3 and 5 rerun with
+              one's, the token kernel reading the next row's mask on one
+              tile, leaving its diagonal tile unmasked, and its V^T slots
+              in another order, B2's GEMV taking the next group's scale
+              and dropping the last K slice of a split row), built with
+              the real ones; phases 3 and 5 rerun with
               each in turn.  Phase 3 must fail for the broken kernel; phase
               5's readings are printed beside their limits.
 8. probes   - B3 bf16 and B9 bf16 at FLUX's P = 1 block timed by CUDA
@@ -198,7 +206,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               without the stage rewrite; B6 with its weight cold under
               builds of blockdiag_mm.cu with one part taken out each (the
               decode, the scale and zpc loads, the x loads, the weight
-              loads: wrong outputs, the time the rest takes).
+              loads: wrong outputs, the time the rest takes).  The
+              token-mode kernel (B9 at FLUX's P = 1 block, the Llama
+              int8-KV prefill call) with one part taken out each (Q.K^T, P.V, the quantisation, the exponent,
+              the V^T copy); B2's GEMV with its weight cold without the
+              weight's loads, the x loads or the decode.
 
 The last line is {"ok": true, "device": {...}}.  Numbers are this card's,
 at the power limit printed beside them.
@@ -332,16 +344,17 @@ def b6_cold_calls(args):
     return [lambda o=o: kd.blockdiag_mm(x, *o, *args[4:]) for o in ops]
 
 
-def b6_cold(torch, args, wb, timed: bool = True):
-    """B6 and its yardstick ``F.linear`` on the bf16 weight ``wb``, each
-    with its weight cold (``cold_ms`` over copies of the codes, scales and
-    zpc, and of ``wb``): the row's readings, none where not ``timed``."""
+def weight_cold(torch, calls, symbol, x, wb, bias, timed: bool = True):
+    """A weight-only kernel (``calls``, each on its own copy of the weight,
+    ``symbol`` its kernels' name) and its yardstick ``F.linear`` of bf16 x
+    on the bf16 weight ``wb``, each with its weight cold (``cold_ms`` over
+    the copies, and over copies of ``wb``): the row's readings, none where
+    not ``timed``."""
     import torch.nn.functional as F
     if not timed:
         return {}
-    k_ms, k_dev = cold_ms(torch, b6_cold_calls(args),
-                          KERNEL_SYMBOLS["blockdiag_mm"])
-    xb, bias = args[0].bfloat16(), args[4]
+    k_ms, k_dev = cold_ms(torch, calls, symbol)
+    xb = x.bfloat16()
     bb = None if bias is None else bias.bfloat16()
     ws = [wb] + [wb.clone() for _ in range(cold_copies(2 * wb.numel()) - 1)]
     l_ms, l_dev = cold_ms(torch, [lambda w=w: F.linear(xb, w, bb)
@@ -352,11 +365,40 @@ def b6_cold(torch, args, wb, timed: bool = True):
                 library_cold_device_ms=l_dev)
 
 
+def b6_cold(torch, args, wb, timed: bool = True):
+    """B6 and ``F.linear`` on ``wb``, each with its weight cold
+    (``weight_cold``)."""
+    if not timed:
+        return {}
+    return weight_cold(torch, b6_cold_calls(args),
+                       KERNEL_SYMBOLS["blockdiag_mm"], args[0], wb, args[4])
+
+
+def gemv_cold_calls(args):
+    """Calls of B2's GEMV (``dequant_gemv(*args)``), each on its own copy
+    of the codes and scales, ``cold_copies`` of them."""
+    from sdnq_tpu_torch.kernels import dequant_mm as kd
+    x, codes, scale = args[:3]
+    n = cold_copies(codes.numel() + 4 * scale.numel())
+    ops = [(codes, scale)] + [(codes.clone(), scale.clone())
+                              for _ in range(n - 1)]
+    return [lambda o=o: kd.dequant_gemv(x, *o, *args[3:]) for o in ops]
+
+
+def gemv_cold(torch, args, wb, timed: bool = True):
+    """B2's GEMV and ``F.linear`` on ``wb``, each with its weight cold
+    (``weight_cold``)."""
+    if not timed:
+        return {}
+    return weight_cold(torch, gemv_cold_calls(args),
+                       KERNEL_SYMBOLS["dequant_gemv"], args[0], wb, args[4])
+
+
 # name of each wrapper's CUDA kernel, as the profiler reports it
 KERNEL_SYMBOLS = {
     "quantize_rows": "quantize_rows_kernel",
     "scaled_gemm": ("scaled_mm_wgmma_kernel", "scaled_mm_nn_kernel"),
-    "dequant_gemv": "dequant_gemv_kernel",
+    "dequant_gemv": ("dequant_gemv_kernel", "dequant_gemv_mma_kernel"),
     "dequant_mm": ("decode_weight_", "wgmma_mm_kernel"),
     "decode_weight": "decode_weight_", "wgmma_mm": "wgmma_mm_kernel",
     "flash_attention": "flash_attn", "flash_attention_block": "flash_attn",
@@ -370,29 +412,37 @@ KERNEL_SYMBOLS = {
 def device_ms(torch, fn, symbol, reps: int = 5, seen=None):
     """Mean device time per call of the kernels named ``symbol`` (or any of
     a tuple of names; "" names every kernel) that ``fn`` launches, from
-    torch.profiler (host work not included); None when the profiler
-    records no such kernel in three tries (with the fault builds loading
-    the host, a trace has now and then held no event of a kernel that
-    ran).  The names timed are added to the set ``seen``, where one is
-    given."""
+    torch.profiler (host work not included).  A reading counts only where
+    the trace holds every launch: the names of its kernels, in the order
+    they ran, must be one call's sequence ``reps`` times over (with the
+    fault builds loading the host, traces have lost events, and the mean
+    of what was left read below the bound).  None when three traces give
+    no such sequence.  The names timed are added to the set ``seen``,
+    where one is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    names = (symbol,) if isinstance(symbol, str) else symbol
     fn()
     torch.cuda.synchronize()
-    names = (symbol,) if isinstance(symbol, str) else symbol
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        timed = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                 and any(n in e.name for n in names)]
-        if timed:
+        timed = sorted((e for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and any(x in e.name for x in names)),
+                       key=lambda e: e.time_range.start)
+        seq = [e.name for e in timed]
+        per = len(seq) // reps
+        if seq and seq == seq[:per] * reps:
             break
+    else:
+        log(f"device_ms {names}: no whole trace in three tries")
+        return None
     if seen is not None:
-        seen.update(e.name[:120] for e in timed)
-    us = [e.time_range.elapsed_us() for e in timed]
-    return sum(us) / 1e3 / reps if us else None
+        seen.update(n[:120] for n in seq)
+    return sum(e.time_range.elapsed_us() for e in timed) / 1e3 / reps
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +493,11 @@ def kernel_phase(torch, dev, timed: bool = True):
         ms = t(kernel)
         dev_ms = (device_ms(torch, kernel, symbol or KERNEL_SYMBOLS[name])
                   if timed else None)
+        for key, val in (("device_ms", dev_ms),
+                         ("cold_device_ms", extra.get("cold_device_ms"))):
+            if val is not None:
+                check(val >= bnd[0], f"{name} {shape}: {key} {val:.4f} >= "
+                      f"bound {bnd[0]:.4f}")
         h_ms = host_ms(kernel) if timed else None
         lib_dev, lib_names = None, set()
         if timed and library_fn is not None:
@@ -629,8 +684,39 @@ def kernel_phase(torch, dev, timed: bool = True):
                                           torch.bfloat16), reps=5),
            bound_ms(o * k + k * 4 + o * 2 + 2 * o * 4, 2 * o * k, "fp32"),
            t(lambda: F.linear(xb, w_deq, bias.bfloat16()), reps=20),
-           f"M1 K{k} O{o} int8")
+           f"M1 K{k} O{o} int8",
+           library_fn=lambda: F.linear(xb, w_deq, bias.bfloat16()),
+           **gemv_cold(torch, (x, w, s, None, bias, torch.bfloat16), w_deq,
+                       t.timed))
     del w, w_deq
+    # B2's GEMV at the Llama-3-8B decode step's shapes: M 4 (the requests),
+    # int8 rowwise codes, bf16 x and out; q / o, k / v (1024 rows: K split
+    # over the warps of a row), gate / up and down.  Also with the weight
+    # cold: a step reads 6.98 GB of codes, which never sit in the L2.
+    for k, o, what in ((4096, 4096, "q / o"), (4096, 1024, "k / v"),
+                       (4096, 14336, "gate / up"), (14336, 4096, "down")):
+        x = torch.randn(4, k, device=dev, generator=g).bfloat16()
+        w = torch.randint(-128, 128, (o, k), device=dev, generator=g,
+                          dtype=torch.int8)
+        s = torch.rand(o, device=dev, generator=g) * 1e-3
+        args = (x, w, s, None, None, torch.bfloat16)
+        got = kd.dequant_gemv(*args)
+        want = kd.dequant_gemv_plain(*args)
+        tol = float(1e-4 * ((x.float().abs() @ w.float().abs().T) * s).max()
+                    + want.float().abs().max() * 2 ** -7)
+        w_deq = (w.float() * s[:, None]).bfloat16()
+        record("dequant_gemv", "cuda", "sdnq_tpu_torch/csrc/dequant_gemv.cu",
+               "sdnq_tpu/kernels/dequant_mm.py:60",
+               float((got.float() - want.float()).abs().max()), tol,
+               lambda: kd.dequant_gemv(*args),
+               t(lambda: kd.dequant_gemv_plain(*args), reps=5),
+               bound_ms(o * k + 4 * k * 2 + o * 4 + 4 * o * 2, 8 * o * k,
+                        "fp32"),
+               t(lambda: F.linear(x, w_deq), reps=20),
+               f"M4 K{k} O{o} int8 rowwise bf16 (Llama decode {what})",
+               path="llm_int8kv", library_fn=lambda: F.linear(x, w_deq),
+               **gemv_cold(torch, args, w_deq, t.timed))
+        del w, w_deq, got, want
 
     # B3: joint attention, 24 heads, 4608 tokens, head dim 128.  Kernel and
     # plain version round P to bf16 against a running and the final row max
@@ -919,6 +1005,10 @@ def llm_attention_rows(torch, dev, g, t, record):
     args = (qq, kq, vq, qs, ks)
     kw = dict(heads=h, mask=mask, v_scale=vs, p_block=ka.attn_p_block(kn))
     err, row, _ = errors(ka.flash_attention, args, kw)
+    # the bf16-P.V kernel at the same shape (int8 Q.K^T, V in bf16): the
+    # token kernel's point of comparison, as no one PyTorch call computes
+    # token-mode P.V
+    vb16 = v.bfloat16()
     record("flash_attention", "cuda", src, rep, err, 2 ** -10,
            lambda: ka.flash_attention(*args, **kw),
            t(lambda: ka.flash_attention_plain(*args, **kw), reps=3),
@@ -927,8 +1017,9 @@ def llm_attention_rows(torch, dev, g, t, record):
                     + b * h * n * d * 2, flops, "int8"),
            None, f"BH{b * h} KH{b * kh} N{n} KN{kn} D{d} mask int8-QK "
            "token-P.V", path="llm_int8kv", count="flash_attention:int8_pv",
-           reading=row)
-    del qq, kq, vq
+           reading=row, **bf16_pv_beside(torch, t, lambda: ka.flash_attention(
+               qq, kq, vb16, qs, ks, heads=h, mask=mask)))
+    del qq, kq, vq, vb16
 
     # bf16 KV cache: bf16 Q.K^T and P.V under the same mask
     qb, kb, vb = (q * (sm * ka.LOG2E)).bfloat16(), k.bfloat16(), v.bfloat16()
@@ -975,6 +1066,34 @@ def llm_attention_rows(torch, dev, g, t, record):
            t(sdpa), f"BH{b * h} KH{b * kh} N{n} KN{n} D{d} causal bf16",
            path="llm_causal", count="flash_attention:causal", reading=row,
            library_fn=sdpa)
+    # the same causal forward with int8 Q, K and V (token-mode P.V; off the
+    # paths): the token kernel's diagonal tile and causal skip
+    qq, qs = quantize_int_mm(qb.float())
+    kq, ks, vq, vs = ka.quantize_kv(kb.float(), vb.float())
+    args = (qq, kq, vq, qs[..., 0], ks)
+    kw = dict(heads=h, causal=True, v_scale=vs, p_block=ka.attn_p_block(n))
+    err, row, _ = errors(ka.flash_attention, args, kw)
+    record("flash_attention", "cuda", src, rep, err, 2 ** -10,
+           lambda: ka.flash_attention(*args, **kw),
+           t(lambda: ka.flash_attention_plain(*args, **kw), reps=3),
+           bound_ms(b * h * n * d + 2 * b * kh * n * d
+                    + (b * h * n + 2 * b * kh * n) * 4 + b * h * n * d * 2,
+                    4 * d * b * h * n * (n + 1) // 2, "int8"),
+           None, f"BH{b * h} KH{b * kh} N{n} KN{n} D{d} causal int8-QK "
+           "token-P.V", on_path=False, path="llm_causal",
+           count="flash_attention:int8_pv", reading=row,
+           **bf16_pv_beside(torch, t, lambda: ka.flash_attention(
+               qq, kq, vb, qs[..., 0], ks, heads=h, causal=True)))
+
+
+def bf16_pv_beside(torch, t, fn):
+    """The bf16-P.V kernel's events ms and device ms at a token row's shape
+    (``fn`` calls it), the token kernel's point of comparison: keys of the
+    row."""
+    if not t.timed:
+        return dict(bf16_pv_ms=None, bf16_pv_device_ms=None)
+    return dict(bf16_pv_ms=t(fn), bf16_pv_device_ms=device_ms(
+        torch, fn, KERNEL_SYMBOLS["flash_attention"]))
 
 
 def train_kernel_rows(torch, dev, g, t, record):
@@ -1241,7 +1360,9 @@ def pipeline_kernel_rows(torch, dev, g, t, record):
                     2 * n * k, "fp32"),
            t(lambda: F.linear(x.bfloat16(), wb, bias.bfloat16()), reps=20),
            f"M1 K{k} N{n} int8 g1024 (modulation)", path="pipeline",
-           count="dequant_gemv:grouped")
+           count="dequant_gemv:grouped",
+           library_fn=lambda: F.linear(x.bfloat16(), wb, bias.bfloat16()),
+           **gemv_cold(torch, args, wb, t.timed))
     del codes, wb
 
     # row mode, tiles: CLIP's fc1 (77 tokens, 768 -> 3072, one group)
@@ -1801,6 +1922,13 @@ def ring_kernel_rows(torch, dev, g, t, record):
             bnd = bound_ms(moved, 0.75 * ops, "bf16")
         else:
             bnd = bound_ms(moved, ops, "int8" if mode != "bf16" else "bf16")
+        beside = {}
+        if mode == "int8_token":  # the bf16-P.V kernel at the same shape
+            a16, kw16 = b9_operands(torch, q, k, v, "int8")
+            a16.append(mask)
+            beside = bf16_pv_beside(
+                torch, t, lambda: ka.flash_attention_block(*a16, **kw16))
+            del a16
         record("flash_attention_block", "cuda", src, rep,
                float((out - want).abs().max()), 1.0,
                lambda: ka.flash_attention_block(*args, **kw),
@@ -1812,7 +1940,7 @@ def ring_kernel_rows(torch, dev, g, t, record):
                + f" ({label})", path="ring",
                reading=max(got[key] / tol[key] for key in got),
                what="largest reading (out, m, l) over its limit",
-               readings=got, limits=tol, library_fn=library)
+               readings=got, limits=tol, library_fn=library, **beside)
 
     b, h, n, d = FLUX_ATTN
     q, k, v = (torch.randn(b * h, n, d, device=dev, generator=g)
@@ -3170,7 +3298,7 @@ _GROUPS = (
      ("scaled_mm_wgmma_kernel",)),
     ("B4 scaled_gemm nn, mma.sync (B1's grad-input)", ("scaled_mm_nn_kernel",)),
     ("B2 dequant_gemv bit-plane", ("dequant_gemv_kernel_bitplane",)),
-    ("B2 dequant_gemv", ("dequant_gemv_kernel",)),
+    ("B2 dequant_gemv", ("dequant_gemv_kernel", "dequant_gemv_mma_kernel")),
     ("B2 tiles: decode bit-plane", ("decode_weight_bitplane",)),
     ("B2 tiles: decode grouped / row", ("decode_weight_unpacked",)),
     ("B7: decode half-split into int8", ("decode_weight_halfsplit<signed char",
@@ -3180,8 +3308,9 @@ _GROUPS = (
     ("GEMM, row epilogue (B2 row mode)", ("wgmma_mm_kernel<1",)),
     ("GEMM, group fold (B5)", ("wgmma_mm_kernel<2", "wgmma_mm_kernel<3")),
     ("GEMM, int8 group fold (B7)", ("wgmma_i8_fold_kernel",)),
+    ("B3 / B9 token mode: V^T copy", ("flash_attn_vt_kernel",)),
     ("B9 flash_attention_block (bf16 / int8 P.V, token-mode int8 P.V)",
-     ("float, true>", "128, false, false, true>", "128, true, false, true>",
+     ("128, false, false, true>", "128, true, false, true>",
       "128, false, true, true>", "128, true, true, true>")),
     ("B3 flash_attention", ("flash_attn_wgmma_kernel",)),
     ("B6 blockdiag_mm general (multi-plane, minifloat)",
@@ -3343,12 +3472,12 @@ FAULTS = (
      [("bool keep = true;\n      if constexpr (EDGE)",
        "bool keep = !(a.causal && kv0 == 384);\n      if constexpr (EDGE)")]),
     ("attn_p_scale_per_64_key_tile", "flash_attn", "flash_attention:int8_pv",
-     "llm_int8kv", [("const int PB = a.pblock;", "const int PB = BKV;")]),
+     "llm_int8kv", [("const int PB = a.pblock;", "const int PB = TBN;")]),
     ("attn_causal_skip_one_tile_early", "flash_attn",
      "flash_attention:causal", "llm_causal",
      [("return a.causal ? min(a.KN, q0 + bq) : a.KN;",
        "return a.causal ? min(a.KN, q0 + bq - BN) : a.KN;")]),
-    ("attn_gqa_head_modulo", "flash_attn", "flash_attention:masked",
+    ("attn_gqa_head_modulo", "flash_attn", "flash_attention:int8_pv",
      "llm_int8kv", [("return (bh / a.H) * KH + hh / a.qpk;",
                      "return (bh / a.H) * KH + hh % KH;")]),
     ("blockdiag_i8_scale_of_the_previous_group", "blockdiag_i8_mm",
@@ -3418,9 +3547,11 @@ FAULTS = (
     ("gemv_bitplane_planes_reversed", "dequant_gemv", "dequant_gemv:bitplane",
      "dyn_r1", [("const uint8_t* p = wr + (size_t)j * S + b;",
                  "const uint8_t* p = wr + (size_t)(bits - 1 - j) * S + b;")]),
+    # one code late within the row: a read past the end of x can land on
+    # unmapped memory, and the illegal address ends the whole run
     ("gemv_bitplane_x_one_code_late", "dequant_gemv", "dequant_gemv:bitplane",
      "dyn_r1", [("sdnq::to_f32(x[(size_t)(r >> 3) * K + (size_t)i * S + b])",
-                 "sdnq::to_f32(x[(size_t)(r >> 3) * K + (size_t)i * S + b + 1])")]),
+                 "sdnq::to_f32(x[(size_t)(r >> 3) * K + ((size_t)i * S + b + 1) % K])")]),
     ("b9_writes_acc_normalised", "flash_attn", "flash_attention_block",
      "ring",
      [("make_float2(o_acc[dt][0], o_acc[dt][1]);",
@@ -3439,6 +3570,30 @@ FAULTS = (
      [("l0 = __fadd_rn(__fmul_rn(l0, al0), ps0);", "l0 = __fadd_rn(l0, ps0);"),
       ("l1 = __fadd_rn(__fmul_rn(l1, al1), ps1);",
        "l1 = __fadd_rn(l1, ps1);")]),
+    ("tok_mask_of_the_next_row_on_one_tile", "flash_attn",
+     "flash_attention:int8_pv", "llm_int8kv",
+     [("false>(s, sks + (kv0 - pb0), qs0, qs1, a, kv0, r0, r1,\n"
+       "                                                mr0, mr1, t4);",
+       "false>(s, sks + (kv0 - pb0), qs0, qs1, a, kv0, r0, r1,\n"
+       "                                                kv0 == 128 ? mr1 : mr0, mr1, t4);")]),
+    ("tok_causal_diagonal_tile_unmasked", "flash_attn",
+     "flash_attention:int8_pv", "llm_causal",
+     [("if (a.causal && kv0 + TBN > q0)  // the tile of the diagonal",
+       "if (a.causal && kv0 + TBN > q0 + TBM)  // the tile of the diagonal")]),
+    ("tok_vt_slots_in_another_order", "flash_attn", "flash_attention:int8_pv",
+     "llm_int8kv", [("+ (pos & 1) + 8 * ((pos >> 1) & 1);",
+                     "+ ((pos >> 1) & 1) + 8 * (pos & 1);")]),
+    ("gemv_scale_of_the_next_group", "dequant_gemv", "dequant_gemv:grouped",
+     "pipeline",
+     [("min(sdnq::div_magic(k0, a.g, a.ginv), a.G - 1);",
+       "(min(sdnq::div_magic(k0, a.g, a.ginv), a.G - 1) + 1) % a.G;"),
+      ("const int gi = min(sdnq::div_magic(min(k, K - 1), a.g, a.ginv), a.G - 1);",
+       "const int gi = (min(sdnq::div_magic(min(k, K - 1), a.g, a.ginv), a.G - 1) + 1) % a.G;")]),
+    ("gemv_k_split_drops_the_last_slice", "dequant_gemv", "dequant_gemv",
+     "llm_int8kv", [("for (int j = 1; j < S; ++j) {",
+                     "for (int j = 1; j < S - 1; ++j) {"),
+                    ("for (int p = 1; p < S; ++p) {",
+                     "for (int p = 1; p < S - 1; ++p) {")]),
     ("attn_k_stage_parity_flipped", "flash_attn", "flash_attention", "int8",
      [("mbar_wait(&k_full[i % ST], (i / ST) & 1);",
        "mbar_wait(&k_full[i % ST], ((i / ST) & 1) ^ 1);")]),
@@ -3457,7 +3612,7 @@ FAULTS = (
 # a flag, where the sound build traps after 2^36: a broken barrier then
 # ends in a wrong result that phase 3 reads, not in a failed launch that
 # ends the process.
-WATCHED = ("wgmma_mm", "flash_attn", "scaled_mm", "scaled_mm_tn")
+WATCHED = ("wgmma_mm", "flash_attn", "scaled_mm", "scaled_mm_tn", "dequant_gemv")
 WGMMA_WATCHDOG = (
     ("hopper.cuh", "// ---- mbarriers",
      "__device__ int g_watchdog;\n// ---- mbarriers"),
@@ -3627,6 +3782,44 @@ PROBES = (
      [("constexpr int ST = 2;", "constexpr int ST = 3;")]),
     *((f"b4_e4m3_wgmma_{name}", "scaled_mm", e4m3_wgmma_edits(every))
       for name, every in E4M3_PROMOTION),
+    # the token kernel with one part taken out each (wrong outputs: the time
+    # the rest takes)
+    ("tok_no_qk", "flash_attn",
+     [("    tok_qk<D, QUANT>(s, smem, k_stage(st));\n", "")]),
+    ("tok_no_pv", "flash_attn",
+     [("          wgmma_rs_s8_128(pv, pa[kk], db, i > 0 || kk > 0);",
+       "          (void)db;")]),
+    ("tok_no_quantize", "flash_attn",
+     [("  const float y = __fmul_rn(e, inv);\n  const float r = __fadd_rn(y, 12582912.f);\n"
+       "  near |= fabsf(__fsub_rn(y, __fsub_rn(r, 12582912.f))) > 0.499975f;\n"
+       "  return __float_as_uint(r);",
+       "  return __float_as_uint(e) ^ __float_as_uint(inv);")]),
+    ("tok_no_exp", "flash_attn", [("= ex<PARTIAL>(__fsub_rn(", "= (__fsub_rn(")]),
+    ("tok_no_vt", "flash_attn",
+     [("  flash_attn_vt_kernel<D><<<dim3(a.KN / TBN, BKH), 256, 0, st>>>(a.v, "
+       "static_cast<uint8_t*>(vt),\n"
+       "                                                                 a.KN);\n", "")]),
+    # B2's GEMV with one part taken out each
+    ("gemv_no_weight_loads", "dequant_gemv",
+     [("      sdnq::mbar_expect_tx(&full[s], static_cast<unsigned>(nr * len));\n"
+       "      for (int r = 0; r < nr; ++r)\n"
+       "        sdnq::bulk_load(smem + s * STAGE_BYTES + r * KC, a.w + (size_t)(o0 + r) * K + k0, "
+       "len, &full[s]);",
+       "      sdnq::mbar_arrive(&full[s]);\n      (void)nr, (void)len;"),
+      ("    ca = in && ra < O ? __ldg(reinterpret_cast<const uint4*>(wa + k)) : make_uint4(0u, 0u, 0u, 0u);\n"
+       "    cb = in && rb < O ? __ldg(reinterpret_cast<const uint4*>(wb + k)) : make_uint4(0u, 0u, 0u, 0u);",
+       "    ca = make_uint4(k, j, ra, 1u);\n    cb = make_uint4(k, j, rb, 2u);")]),
+    ("gemv_no_x_loads", "dequant_gemv",
+     [("              load4(xp + (size_t)m * K + k0, xv);",
+       "              for (int e = 0; e < 4; ++e) xv[e] = 1.f + e + m;"),
+      ("        if (m < M && k < K) xb = __ldg(reinterpret_cast<const uint2*>(x + (size_t)m * K + k));",
+       "        xb = make_uint2(0x3f803f80u + m, 0x3f803f80u + k);")]),
+    ("gemv_no_decode", "dequant_gemv",
+     [("          decode4<FP8>(cw[q], flip, off, w);",
+       "          for (int e = 0; e < 4; ++e) w[e] = __uint_as_float((cw[q] >> e) & 0x3f800000u);"),
+      ("      decode4<FP8>(wa4[s4], flip, off, fa);\n      decode4<FP8>(wb4[s4], flip, off, fb);",
+       "      for (int e = 0; e < 4; ++e) fa[e] = __uint_as_float((wa4[s4] >> e) & 0x3f800000u),\n"
+       "                                  fb[e] = __uint_as_float((wb4[s4] >> e) & 0x3f800000u);")]),
     ("tn_split", "scaled_mm_tn", _TN_SPLIT),
     ("tn_split_no_rewrite", "scaled_mm_tn", _TN_SPLIT + _TN_NO_REWRITE),
     ("b6_no_decode", "blockdiag_mm",
@@ -3751,12 +3944,15 @@ def probe_phase(torch, dev, procs):
     if FAILURES:
         return
     src = {tag: s for tag, s, _ in PROBES}
-    for name, run in (("flash_attn", attention_probes),
-                      ("scaled_mm", e4m3_probes),
-                      ("scaled_mm_tn", tn_probes),
-                      ("blockdiag_mm", b6_probes)):
+    for name, run, sel in (
+            ("flash_attn", attention_probes, lambda t: not t.startswith("tok_")),
+            ("flash_attn", token_probes,
+             lambda t: t.startswith("tok_") or t == "watchdog_only"),
+            ("scaled_mm", e4m3_probes, None), ("scaled_mm_tn", tn_probes, None),
+            ("blockdiag_mm", b6_probes, None),
+            ("dequant_gemv", gemv_probes, None)):
         run(torch, dev, {tag: lib for tag, (_, lib) in procs.items()
-                         if src[tag] == name})
+                         if src[tag] == name and (sel is None or sel(tag))})
 
 
 # B4 e4m3 at the card tests' shapes (tests/test_torch_cuda_kernels.py:
@@ -3913,6 +4109,87 @@ def b6_probes(torch, dev, libs):
     torch.cuda.empty_cache()
 
 
+def token_probes(torch, dev, libs):
+    """The token kernel under each tok_* build of PROBES (and the watchdog
+    build alone), between two runs of the shipped build: ms a call by
+    ``burst_ms`` and device ms (``device_ms``) of B9 at FLUX's P = 1 block
+    and of the Llama int8-KV prefill call (B3, 128 heads over 32 KV heads,
+    896 x 1024 under its cache mask), and B9's readings against its plain
+    version (a probe may change what it computes)."""
+    from sdnq_tpu_torch.kernels import attention as ka
+    from sdnq_tpu_torch.quant.core import quantize_int_mm
+    g = torch.Generator(device=dev).manual_seed(78)
+    b, h, n, d = FLUX_ATTN
+    q, k, v = (torch.randn(b * h, n, d, device=dev, generator=g)
+               for _ in range(3))
+    args, kw = b9_operands(torch, q, k, v, "int8_token")
+    args.append(None)
+    want = ka.flash_attention_block_plain(*args, **kw)
+    del q, k, v
+    lb, lh, lkh, ln, lkn = 4, 32, 8, 896, 1024
+    lq, qs = quantize_int_mm(torch.randn(lb * lh, ln, d, device=dev,
+                                         generator=g))
+    lk, ks, lv, vs = ka.quantize_kv(
+        torch.randn(lb * lkh, lkn, d, device=dev, generator=g),
+        torch.randn(lb * lkh, lkn, d, device=dev, generator=g))
+    pos = torch.arange(ln, device=dev)
+    mask = (torch.arange(lkn, device=dev)[None, :] <= pos[:, None])[
+        None, None].expand(lb, 1, ln, lkn)
+    lkw = dict(heads=lh, mask=mask, v_scale=vs, p_block=ka.attn_p_block(lkn))
+    qs = (qs[..., 0] * d ** -0.5) * ka.LOG2E
+    calls = {"b9_flux_p1": lambda: ka.flash_attention_block(*args, **kw),
+             "b3_llama_int8kv": lambda: ka.flash_attention(lq, lk, lv, qs, ks,
+                                                           **lkw)}
+    sym = KERNEL_SYMBOLS["flash_attention"]
+
+    def run():
+        r = {key: {"ms": burst_ms(fn), "device_ms": device_ms(torch, fn, sym)}
+             for key, fn in calls.items()}
+        r["b9_readings"] = b9_readings(calls["b9_flux_p1"](), want)
+        return r
+    out = {"shipped": run()}
+    for tag, lib in libs.items():
+        with library_swapped("flash_attn", lib):
+            out[tag] = run()
+            check(not watchdog_fired(lib),
+                  f"probe {tag}: no barrier wait gave up")
+    out["shipped, again"] = run()
+    log("token probes (ms a call in bursts of 20 and device ms; B9 limits "
+        + json.dumps(B9_TOL["token"]) + "): " + json.dumps(out))
+    del args, want, lq, lk, lv
+    torch.cuda.empty_cache()
+
+
+def gemv_probes(torch, dev, libs):
+    """B2's GEMV with its weight cold (``cold_ms``: int8 rowwise, M 1 fp32 x
+    at 3072 -> 18432; M 4 bf16 x at Llama's 4096 -> 4096 and 4096 -> 1024)
+    under the shipped build, each gemv_* build of PROBES, and the shipped
+    one again: device ms a call."""
+    g = torch.Generator(device=dev).manual_seed(81)
+    cases = {}
+    for m, k, o, xdt in ((1, 3072, 18432, torch.float32),
+                         (4, 4096, 4096, torch.bfloat16),
+                         (4, 4096, 1024, torch.bfloat16)):
+        x = torch.randn(m, k, device=dev, generator=g).to(xdt)
+        w = torch.randint(-128, 128, (o, k), device=dev, generator=g,
+                          dtype=torch.int8)
+        s = torch.rand(o, device=dev, generator=g) * 1e-3
+        cases[f"M{m} {k}->{o}"] = gemv_cold_calls(
+            (x, w, s, None, None, torch.bfloat16))
+
+    def run():
+        return {key: cold_ms(torch, calls, KERNEL_SYMBOLS["dequant_gemv"])[1]
+                for key, calls in cases.items()}
+    out = {"shipped": run()}
+    for tag, lib in libs.items():
+        with library_swapped("dequant_gemv", lib):
+            out[tag] = run()
+    out["shipped, again"] = run()
+    log("GEMV probes (device ms a call, weight cold): " + json.dumps(out))
+    del cases
+    torch.cuda.empty_cache()
+
+
 def attention_probes(torch, dev, libs):
     """B3 bf16 and B9 bf16 at FLUX's P = 1 block (24 heads, 4608 tokens,
     D 128) under each flash_attn build of PROBES, between two runs of the
@@ -3983,14 +4260,17 @@ def main() -> int:
     fault_procs, probe_procs = {}, {}
     faults = "--no-faults" not in sys.argv[1:]
     try:
-        if faults:
-            fault_procs = start_fault_builds()
-            probe_procs = start_fault_builds(PROBES, "probes")
         secs = _build.build()
         log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
             + json.dumps({k: round(v, 1) for k, v in secs.items()}))
-        rows = kernel_phase(torch, dev)
+        # the crossover's timing decides a route: on a quiet host, before
+        # the fault builds (after the real sources, which then have the
+        # host's cores) start
         b7_b8_crossover(torch, dev)
+        if faults:
+            fault_procs = start_fault_builds()
+            probe_procs = start_fault_builds(PROBES, "probes")
+        rows = kernel_phase(torch, dev)
 
         counts, slices = {"bench": dict(BENCH_COUNTS)}, {}
         counts["ring"] = ring_phase(torch, dev)

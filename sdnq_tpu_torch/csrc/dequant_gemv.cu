@@ -16,160 +16,504 @@
 // (widened before the scale, as :133-135) or float8 e4m3.  The layers below
 // the 32-row cut-off take it: at batch 1 the FLUX modulation linears and the
 // time / vector / guidance MLPs, M = 1 (grouped under the default int8
-// recipe, K 3072 in 3 groups of 1024).
+// recipe, K 3072 in 3 groups of 1024), and every linear of a Llama decode
+// step (M = the batch).
 //
-// At M <= 32 the product is a GEMV, bound by the bytes of the weight
-// (O*K bytes) over memory bandwidth.  Each warp owns one output row o: every
-// lane reads 8 codes as one 8-byte load per 256-wide K chunk, and the block
-// stages that chunk of x (all M rows, as fp32) in shared memory once for
-// its 8 warps.  In the grouped mode the 8 codes of a load lie in one group
-// (g % 8 == 0), whose scale and zero point the lane reads once per chunk.
-// Partial sums stay in registers (MT = M rounded up to 1, 4, 8, 16 or 32)
-// and are reduced across the warp at the end.  K must be a multiple of 8
-// (the wrapper zero-pads in the row mode).
+// At M <= 32 the product is a GEMV, bound by the bytes of the weight (O*K:
+// 56.6 MB for FLUX.1-dev's 3072 -> 18432 modulation linear, 16.9 us at 3.35
+// TB/s).  bf16 and fp16 x take the tensor cores (dequant_gemv_mma_kernel,
+// below): on the CUDA cores x times the codes costs some 11 instructions a
+// code at Llama-3-8B's M 4, more than the bytes allow.  fp32 x (the FLUX
+// modulation linears' vec) stays on the CUDA cores, as a stream of those
+// bytes:
+//  - a producer warp copies the weight into a ring of four 16 KB stages of
+//    shared memory by the TMA unit (cp.async.bulk, one copy a row and K
+//    chunk, mbarriers full and empty a stage), so that up to 64 KB a block
+//    are in flight whatever the registers of the eight consumer warps;
+//  - a consumer warp owns one output row (or a K slice of one, below) of a
+//    stage and takes 512 codes at a time, a lane four runs of 4 codes 128
+//    apart, so that the lanes' reads of the codes and of x in shared memory
+//    are neighbours (no bank conflicts: runs of 16 codes a lane, 64 bytes of
+//    fp32 x apart, cost four times the shared-memory wavefronts);
+//  - x is staged once a block for the whole K where M * K fits XS_MAX,
+//    while the first stages load, else read through the L1 cache;
+//  - int8 and uint8 codes decode through the fp32 magic number 2^23 (a byte
+//    permute and one exact subtraction), e4m3 by the e4m3x2 -> f16x2
+//    conversion; every value exact;
+//  - grouped: each run of 4 codes lies in one group (8 | g), whose scale and
+//    zero point are read once (each weight fp32, x's dtype);
+//  - the blocks persist, as many as fit on the card, and walk units of 8 / S
+//    rows.  Where a layer has too few rows to give every SM two units
+//    (Llama-3-8B's 4096 -> 1024 k and v projections), the S warps of a row
+//    split its K and their sums meet in shared memory, added in a fixed
+//    order.
+// The lanes' fp32 sums are reduced across the warp at the end of a row.  K
+// is a multiple of 16 (the wrapper zero-pads the codes and x; a grouped
+// weight's pad takes its last group's scale, times x's zeros).
 #include <cuda_fp8.h>
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int WARPS = 8, NT = WARPS * 32, KC = 256;
+constexpr int WARPS = 8, NT = WARPS * 32 + 32;  // consumer warps, then the producer warp
+constexpr int ST = 4, STAGE_BYTES = 16 * 1024;  // the weight's ring
+constexpr int XS_MAX = 128 * 1024;              // bytes of x staged in shared memory
+constexpr int RED_BYTES = WARPS * 2 * 32 * 4;   // the K split's partial sums
+constexpr int HEAD = ST * STAGE_BYTES + RED_BYTES + 2 * ST * 8;  // ring, sums, barriers
 
 enum { I8 = 0, U8 = 1, E4M3 = 2 };  // code kinds
 
-__device__ __forceinline__ float code_f32(unsigned b, int kind) {
-  if (kind == I8) return static_cast<float>(static_cast<int8_t>(b));
-  if (kind == U8) return static_cast<float>(b);
-  __nv_fp8_e4m3 v;
-  v.__x = static_cast<__nv_fp8_storage_t>(b);
-  return static_cast<float>(v);
+struct GemvArgs {
+  const void* x;        // (M, K) of XT
+  const uint8_t* w;     // (O, K) codes
+  const float* scale;   // (O,) or (O, G)
+  const float* zp;      // the same, or null
+  const float* bias;    // (O,) or null
+  void* out;            // (M, O) of out_kind
+  int M, K, O, G, g;
+  unsigned ginv;        // floor((2^32 - 1) / g), for sdnq::div_magic
+  int kind, out_kind;
+  int S, KC, nc;        // warps a row (K split), codes a stage row, stages a row
+  int stage;            // x is copied into shared memory
+};
+
+// 4 codes (a 32-bit word) as their values; integer codes as bytes b ^ flip
+// less off (int8: flip 0x80, off 2^23 + 128; uint8: 0, 2^23): the fp32
+// bits 0x4B0000bb are 2^23 + b, and the subtraction is exact
+template <bool FP8>
+__device__ __forceinline__ void decode4(unsigned u, unsigned flip, float off, float (&w)[4]) {
+  if constexpr (FP8) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>((u >> (16 * h)) & 0xFFFFu), __NV_E4M3);
+      const float2 f = __half22float2(__half2(r));
+      w[2 * h] = f.x;
+      w[2 * h + 1] = f.y;
+    }
+  } else {
+    const unsigned b = u ^ flip;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w[e] = __fsub_rn(__uint_as_float(__byte_perm(b, 0x4B000000u, 0x7440u | e)), off);
+  }
 }
 
-template <int MT, typename XT, bool GROUPED, typename OutT>
-__global__ void __launch_bounds__(NT)
-    dequant_gemv_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
-                        const float* __restrict__ scale, const float* __restrict__ zp,
-                        const float* __restrict__ bias, OutT* __restrict__ out, int M, int K,
-                        int O, int kind, int G, int g) {
-  extern __shared__ float xs_s[];  // [M][KC]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int o = blockIdx.x * WARPS + warp;
-  float acc[MT], xsum[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = xsum[m] = 0.f;
+// 4 consecutive fp32 x values from p (aligned to 4 of them)
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+}
+__device__ __forceinline__ void store_out(void* out, int kind, size_t i, float v) {
+  if (kind == sdnq::F32)
+    static_cast<float*>(out)[i] = v;
+  else if (kind == sdnq::BF16)
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
+  else
+    static_cast<__half*>(out)[i] = __float2half_rn(v);
+}
 
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kc = min(KC, K - k0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < M * KC; i += NT) {
-      const int m = i / KC, kk = i - m * KC;
-      xs_s[i] = kk < kc ? sdnq::to_f32(x[(size_t)m * K + k0 + kk]) : 0.f;
+// the consumer warps' named barrier (barrier 1, their 256 threads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+template <int MT, bool FP8, bool GROUPED>
+__global__ void __launch_bounds__(NT) dequant_gemv_kernel(const GemvArgs a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* red = reinterpret_cast<float*>(smem + ST * STAGE_BYTES);  // [warp][acc, xsum][m]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * STAGE_BYTES + RED_BYTES);
+  uint64_t* empty = full + ST;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int M = a.M, K = a.K, O = a.O;
+  const int S = a.S, rows = WARPS / S;  // rows a unit
+  const int KC = a.KC, nc = a.nc;       // codes a stage row, stages a unit
+  const int units = (O + rows - 1) / rows;
+  // the block's stages: unit blockIdx.x + (st / nc) grid strides on, K chunk st % nc
+  const int nsteps =
+      (units - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
+      static_cast<int>(gridDim.x) * nc;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      sdnq::mbar_init(&full[s], 1);
+      sdnq::mbar_init(&empty[s], WARPS);  // one arrive from each consumer warp
     }
-    __syncthreads();
-    const int kk = lane * 8;
-    if (o < O && kk < kc) {
-      const uint2 wv = *reinterpret_cast<const uint2*>(w + (size_t)o * K + k0 + kk);
-      float wf[8];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == WARPS) {  // the producer warp: lane 0 copies each stage's rows
+    if (lane != 0) return;
+    for (int st = 0; st < nsteps; ++st) {
+      const int s = st % ST;
+      const unsigned ph = ((st / ST) & 1) ^ 1;  // the first round passes at once
+      sdnq::mbar_wait(&empty[s], ph);
+      if (st >= ST) sdnq::mbar_wait(&full[s], ph);  // and its last copy has landed
+      const int o0 = (blockIdx.x + (st / nc) * gridDim.x) * rows, k0 = (st % nc) * KC;
+      const int nr = min(rows, O - o0), len = min(KC, K - k0);
+      sdnq::mbar_expect_tx(&full[s], static_cast<unsigned>(nr * len));
+      for (int r = 0; r < nr; ++r)
+        sdnq::bulk_load(smem + s * STAGE_BYTES + r * KC, a.w + (size_t)(o0 + r) * K + k0, len, &full[s]);
+    }
+    return;
+  }
+
+  const float* xp = static_cast<const float*>(a.x);
+  if (a.stage) {  // 16-byte pieces, while the first stages load
+    float* xs = reinterpret_cast<float*>(smem + HEAD);
+    const int n = M * K * 4 / 16;
+    for (int i = threadIdx.x; i < n; i += WARPS * 32)
+      reinterpret_cast<uint4*>(xs)[i] = reinterpret_cast<const uint4*>(xp)[i];
+    xp = xs;
+    consumers_sync();
+  }
+  const int slot = warp / S, part = warp % S;  // this warp's row of a unit, and K slice
+  const bool xsum_on = !GROUPED && a.zp;
+  const unsigned flip = a.kind == I8 ? 0x80808080u : 0u;
+  const float off = a.kind == I8 ? 8388736.f : 8388608.f;
+
+  float acc[MT], xsm[MT];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wf[j] = code_f32((wv.x >> (8 * j)) & 0xffu, kind);
-        wf[j + 4] = code_f32((wv.y >> (8 * j)) & 0xffu, kind);
-      }
-      if constexpr (GROUPED) {
-        // the 8 codes lie in one group: scale (and zero point) once, and
-        // each weight rounded to x's dtype before it multiplies x
-        const size_t gi = (size_t)o * G + (k0 + kk) / g;
-        const float s = scale[gi];
-        const float z = zp ? zp[gi] : 0.f;
+  for (int m = 0; m < MT; ++m) acc[m] = xsm[m] = 0.f;
+  for (int st = 0; st < nsteps; ++st) {
+    const int s = st % ST, c = st % nc;
+    const int o = (blockIdx.x + (st / nc) * gridDim.x) * rows + slot;
+    const int kc = c * KC, len = min(KC, K - kc);
+    sdnq::mbar_wait(&full[s], (st / ST) & 1);
+    if (o < O) {
+      const uint8_t* row = smem + s * STAGE_BYTES + slot * KC;
+      // a warp takes 512 codes at a time, a lane four runs of 4 (128 apart),
+      // so that the lanes' reads of the stage and of x are neighbours
+#pragma unroll 2
+      for (int j0 = part * 512 + lane * 4; j0 < len; j0 += S * 512) {
+        unsigned cw[4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float v = zp ? __fmaf_rn(wf[j], s, z) : __fmul_rn(wf[j], s);
-          wf[j] = sdnq::to_f32(sdnq::from_f32<XT>(v));
+        for (int q = 0; q < 4; ++q)
+          cw[q] = j0 + 128 * q < len ? *reinterpret_cast<const unsigned*>(row + j0 + 128 * q) : 0u;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k0 = kc + j0 + 128 * q;  // codes k0 .. k0 + 3
+          if (j0 + 128 * q >= len) continue;
+          float w[4];
+          decode4<FP8>(cw[q], flip, off, w);
+          if constexpr (GROUPED) {
+            // the run lies in one group (the pad past g G in the last): its
+            // scale and zero point (each weight in x's fp32)
+            const size_t gi = (size_t)o * a.G + min(sdnq::div_magic(k0, a.g, a.ginv), a.G - 1);
+            const float sc = __ldg(a.scale + gi);
+            const float z = a.zp ? __ldg(a.zp + gi) : 0.f;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              w[e] = a.zp ? __fmaf_rn(w[e], sc, z) : __fmul_rn(w[e], sc);
+          }
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            if (m < M) {
+              float xv[4];
+              load4(xp + (size_t)m * K + k0, xv);
+              acc[m] = fmaf(xv[3], w[3], fmaf(xv[2], w[2], fmaf(xv[1], w[1], fmaf(xv[0], w[0], acc[m]))));
+              if (xsum_on) xsm[m] += (xv[0] + xv[1]) + (xv[2] + xv[3]);
+            }
+          }
         }
       }
+    }
+    __syncwarp();
+    if (lane == 0) sdnq::mbar_arrive(&empty[s]);  // the stage's row is read
+
+    if (c == nc - 1) {  // the unit's last stage: reduce, store
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         if (m < M) {
-          const float* xr = xs_s + m * KC + kk;
-          float s = 0.f, t = 0.f;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            s = fmaf(xr[j], wf[j], s);
-            t += xr[j];
+          for (int off = 16; off > 0; off >>= 1) {
+            acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], off);
+            if (xsum_on) xsm[m] += __shfl_xor_sync(0xffffffffu, xsm[m], off);
           }
-          acc[m] += s;
-          xsum[m] += t;
+        }
+      }
+      if (S > 1) {  // the row's S slices meet in shared memory, in slice order
+        if (lane == 0) {
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            if (m < M) red[warp * 64 + m] = acc[m], red[warp * 64 + 32 + m] = xsm[m];
+        }
+        consumers_sync();
+        if (part == 0) {
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            if (m < M) {
+              acc[m] = red[warp * 64 + m];
+              xsm[m] = red[warp * 64 + 32 + m];
+              for (int j = 1; j < S; ++j) {
+                acc[m] += red[(warp + j) * 64 + m];
+                xsm[m] += red[(warp + j) * 64 + 32 + m];
+              }
+            }
+          }
+        }
+        consumers_sync();
+      }
+      if (lane == 0 && part == 0 && o < O) {
+        const float sc = GROUPED ? 1.f : a.scale[o];
+        const float z = xsum_on ? a.zp[o] : 0.f;
+        const float bo = a.bias ? a.bias[o] : 0.f;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if (m < M) {
+            float v = GROUPED ? acc[m] : acc[m] * sc;
+            if (xsum_on) v += xsm[m] * z;
+            if (a.bias) v += bo;
+            store_out(a.out, a.out_kind, (size_t)m * O + o, v);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) acc[m] = xsm[m] = 0.f;
+    }
+  }
+}
+
+template <int MT, bool FP8, bool GROUPED>
+int launch(GemvArgs a, cudaStream_t st) {
+  auto kern = dequant_gemv_kernel<MT, FP8, GROUPED>;
+  const long long xbytes = 4LL * a.M * a.K;
+  a.stage = xbytes <= XS_MAX;
+  const int smem = HEAD + (a.stage ? static_cast<int>(xbytes) : 0);
+  static bool big = false;  // above the 48 KB default, once
+  if (!big) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, HEAD + XS_MAX);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    big = true;
+  }
+  static int occ_smem = -1, occ = 0;  // blocks an SM at the last size
+  if (smem != occ_smem) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, NT, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    occ_smem = smem;
+  }
+  // split K over S warps a row until the card has two units an SM, while
+  // each warp keeps at least 1024 codes of a row; a stage row is 16 KB over
+  // the unit's rows
+  const int sms = sdnq::sm_count();
+  int S = 1;
+  while (S < WARPS && (a.O + WARPS / S - 1) / (WARPS / S) < 2 * sms && a.K >= 2 * S * 1024) S *= 2;
+  a.S = S;
+  a.KC = STAGE_BYTES / (WARPS / S);
+  a.nc = (a.K + a.KC - 1) / a.KC;
+  const long long units = (a.O + WARPS / S - 1) / (WARPS / S);
+  const long long cap = (long long)sms * (occ > 0 ? occ : 1);
+  kern<<<static_cast<int>(units < cap ? units : cap), NT, smem, st>>>(a);
+  return 0;
+}
+
+// the partial sums of MT rows of x stay in registers: 1, 4, 8 or 32
+template <bool FP8, bool GROUPED>
+int launch_rows(const GemvArgs& a, cudaStream_t st) {
+  if (a.M == 1) return launch<1, FP8, GROUPED>(a, st);
+  if (a.M <= 4) return launch<4, FP8, GROUPED>(a, st);
+  if (a.M <= 8) return launch<8, FP8, GROUPED>(a, st);
+  return launch<32, FP8, GROUPED>(a, st);
+}
+
+// fp32 x
+int launch_x(const GemvArgs& a, cudaStream_t st) {
+  const bool fp8 = a.kind == E4M3, grouped = a.G > 1;
+  if (fp8) return grouped ? launch_rows<true, true>(a, st) : launch_rows<true, false>(a, st);
+  return grouped ? launch_rows<false, true>(a, st) : launch_rows<false, false>(a, st);
+}
+
+// bf16 / fp16 x: the tensor cores.  Each scaled weight is a bf16 / fp16
+// value (the codes exactly; grouped, rounded to x's dtype, as the function
+// says), so x times the weight is mma.sync m16n8k16 of the weight (A, 16
+// rows) and x (B, its rows as the n columns), fp32 sums: the CUDA cores
+// only decode.  A warp takes 16 rows and steps of 64 codes: lane (g, t) of
+// the mma layout loads 16 codes of rows g and g + 8 (one 16-byte load each,
+// a row's 64 bytes by four lanes), and k16 step s of the four takes codes
+// 4 s .. 4 s + 3 of each lane's 16: the mma's k slots 2t, 2t + 1, 2t + 8,
+// 2t + 9 of a lane hold its codes 16 t + 4 s + 0 .. 3, and x's B fragment
+// the same four k (the sum over k is the same in any order).  The next
+// step's codes load while this one's decode; S warps split a row tile's K
+// where the layer has few rows, their sums meeting in shared memory in a
+// fixed order.
+constexpr int MW = 8, MNT = MW * 32;  // warps, threads of a block
+
+template <typename XT>
+__device__ __forceinline__ unsigned pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ unsigned pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+template <>
+__device__ __forceinline__ unsigned pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// D += A(16x16, row) * B(16x8, col), fp32 sums, in x's 16-bit type
+template <typename XT>
+__device__ __forceinline__ void mma16(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  if constexpr (std::is_same<XT, __nv_bfloat16>::value)
+    sdnq::mma_bf16(d, a, b);
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ float xval(const __nv_bfloat16* p, int i) { return __bfloat162float(p[i]); }
+__device__ __forceinline__ float xval(const __half* p, int i) { return __half2float(p[i]); }
+
+// NTN n tiles of 8 rows of x (M <= 8 NTN)
+template <int NTN, typename XT, bool FP8, bool GROUPED>
+__global__ void __launch_bounds__(MNT) dequant_gemv_mma_kernel(const GemvArgs a) {
+  __shared__ float red[MW][32][5 * NTN];  // the K split's sums: acc, then x's row sums
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int M = a.M, K = a.K, O = a.O, S = a.S;
+  const int part = warp % S;
+  const int o0 = (blockIdx.x * (MW / S) + warp / S) * 16;  // the warp's 16 rows
+  const bool xsum_on = !GROUPED && a.zp;
+  const unsigned flip = a.kind == I8 ? 0x80808080u : 0u;
+  const float off = a.kind == I8 ? 8388736.f : 8388608.f;
+  const XT* x = static_cast<const XT*>(a.x);
+  const int ra = o0 + g, rb = o0 + g + 8;  // the lane's two rows
+  const uint8_t* wa = a.w + (size_t)min(ra, O - 1) * K;
+  const uint8_t* wb = a.w + (size_t)min(rb, O - 1) * K;
+  const int nsteps = (K + 63) / 64;
+
+  float acc[NTN][4], xs[NTN];
+#pragma unroll
+  for (int n = 0; n < NTN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = xs[n] = 0.f;
+  // the codes of step j (k 64 j + 16 t ..) of both rows, zeros past K and O
+  auto load = [&](int j, uint4& ca, uint4& cb) {
+    const int k = 64 * j + 16 * t;
+    const bool in = j < nsteps && k < K;
+    ca = in && ra < O ? __ldg(reinterpret_cast<const uint4*>(wa + k)) : make_uint4(0u, 0u, 0u, 0u);
+    cb = in && rb < O ? __ldg(reinterpret_cast<const uint4*>(wb + k)) : make_uint4(0u, 0u, 0u, 0u);
+  };
+  uint4 ca, cb, na, nb;
+  load(part, ca, cb);
+  for (int j = part; j < nsteps; j += S) {
+    load(j + S, na, nb);  // in flight while these decode
+    const unsigned wa4[4] = {ca.x, ca.y, ca.z, ca.w}, wb4[4] = {cb.x, cb.y, cb.z, cb.w};
+#pragma unroll
+    for (int s4 = 0; s4 < 4; ++s4) {
+      const int k = 64 * j + 16 * t + 4 * s4;  // this lane's four k of step s4
+      float fa[4], fb[4];
+      decode4<FP8>(wa4[s4], flip, off, fa);
+      decode4<FP8>(wb4[s4], flip, off, fb);
+      if constexpr (GROUPED) {  // four codes lie in one group (a pad in the last)
+        const int gi = min(sdnq::div_magic(min(k, K - 1), a.g, a.ginv), a.G - 1);
+        const size_t ia = (size_t)min(ra, O - 1) * a.G + gi, ib = (size_t)min(rb, O - 1) * a.G + gi;
+        const float sa = __ldg(a.scale + ia), sb = __ldg(a.scale + ib);
+        const float za = a.zp ? __ldg(a.zp + ia) : 0.f, zb = a.zp ? __ldg(a.zp + ib) : 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fa[e] = a.zp ? __fmaf_rn(fa[e], sa, za) : __fmul_rn(fa[e], sa);
+          fb[e] = a.zp ? __fmaf_rn(fb[e], sb, zb) : __fmul_rn(fb[e], sb);
+        }
+      }
+      // slots 2t, 2t + 1 (a[0] row g, a[1] row g + 8) and 2t + 8, 2t + 9
+      const unsigned af[4] = {pack2<XT>(fa[0], fa[1]), pack2<XT>(fb[0], fb[1]),
+                              pack2<XT>(fa[2], fa[3]), pack2<XT>(fb[2], fb[3])};
+#pragma unroll
+      for (int n = 0; n < NTN; ++n) {
+        const int m = 8 * n + g;
+        uint2 xb = make_uint2(0u, 0u);
+        if (m < M && k < K) xb = __ldg(reinterpret_cast<const uint2*>(x + (size_t)m * K + k));
+        const unsigned bf[2] = {xb.x, xb.y};
+        mma16<XT>(acc[n], af, bf);
+        if (xsum_on) {
+          const XT* xe = reinterpret_cast<const XT*>(&xb);
+          xs[n] += (xval(xe, 0) + xval(xe, 1)) + (xval(xe, 2) + xval(xe, 3));
+        }
+      }
+    }
+    ca = na, cb = nb;
+  }
+  if (xsum_on) {  // row 8 n + g's sum over this warp's k
+#pragma unroll
+    for (int n = 0; n < NTN; ++n) {
+      xs[n] += __shfl_xor_sync(0xffffffffu, xs[n], 1);
+      xs[n] += __shfl_xor_sync(0xffffffffu, xs[n], 2);
+    }
+  }
+  if (S > 1) {  // the tile's S slices meet in shared memory, in slice order
+#pragma unroll
+    for (int n = 0; n < NTN; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) red[warp][lane][4 * n + i] = acc[n][i];
+      red[warp][lane][4 * NTN + n] = xs[n];
+    }
+    __syncthreads();
+    if (part == 0) {
+      for (int p = 1; p < S; ++p) {
+#pragma unroll
+        for (int n = 0; n < NTN; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[n][i] += red[warp + p][lane][4 * n + i];
+          xs[n] += red[warp + p][lane][4 * NTN + n];
         }
       }
     }
   }
-  if (o >= O) return;
-
-  const float sc = GROUPED ? 1.f : scale[o];
-  const float z = (!GROUPED && zp) ? zp[o] : 0.f;
-  const float b = bias ? bias[o] : 0.f;
+  if (part != 0) return;
+  // acc[n][2 h + c]: row o0 + g + 8 h, x row 8 n + 2 t + c
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m < M) {
-      float a = acc[m], t = xsum[m];
+  for (int n = 0; n < NTN; ++n) {
+    float xm[2] = {0.f, 0.f};  // x's row sums of rows 8 n + 2 t + c (from quad 2 t + c)
+    if (xsum_on) {
+      xm[0] = __shfl_sync(0xffffffffu, xs[n], 8 * t);
+      xm[1] = __shfl_sync(0xffffffffu, xs[n], 8 * t + 4);
+    }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        a += __shfl_xor_sync(0xffffffffu, a, off);
-        t += __shfl_xor_sync(0xffffffffu, t, off);
-      }
-      if (lane == 0) {
-        float v = GROUPED ? a : a * sc;
-        if (!GROUPED && zp) v += t * z;
-        if (bias) v += b;
-        out[(size_t)m * O + o] = sdnq::from_f32<OutT>(v);
+    for (int h = 0; h < 2; ++h) {
+      const int o = o0 + g + 8 * h;
+      if (o >= O) continue;
+      const float sc = GROUPED ? 1.f : a.scale[o];
+      const float z = xsum_on ? a.zp[o] : 0.f;
+      const float bo = a.bias ? a.bias[o] : 0.f;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int m = 8 * n + 2 * t + c;
+        if (m >= M) continue;
+        float v = GROUPED ? acc[n][2 * h + c] : acc[n][2 * h + c] * sc;
+        if (xsum_on) v += xm[c] * z;
+        if (a.bias) v += bo;
+        store_out(a.out, a.out_kind, (size_t)m * O + o, v);
       }
     }
   }
 }
 
-struct Call {
-  const void* x;
-  const uint8_t* w;
-  const float *s, *zp, *b;
-  void* out;
-  int M, K, O, kind, G, g;
-};
-
-template <int MT, typename XT, typename OutT>
-void launch(const Call& c, cudaStream_t st) {
-  const dim3 grid((c.O + WARPS - 1) / WARPS);
-  const size_t smem = (size_t)c.M * KC * sizeof(float);
-  if (c.G > 1)
-    dequant_gemv_kernel<MT, XT, true, OutT><<<grid, NT, smem, st>>>(
-        static_cast<const XT*>(c.x), c.w, c.s, c.zp, c.b, static_cast<OutT*>(c.out), c.M, c.K,
-        c.O, c.kind, c.G, c.g);
-  else
-    dequant_gemv_kernel<MT, XT, false, OutT><<<grid, NT, smem, st>>>(
-        static_cast<const XT*>(c.x), c.w, c.s, c.zp, c.b, static_cast<OutT*>(c.out), c.M, c.K,
-        c.O, c.kind, c.G, c.g);
-}
-
-template <int MT, typename XT>
-int launch_out(const Call& c, int out_kind, cudaStream_t st) {
-  if (out_kind == sdnq::F32)
-    launch<MT, XT, float>(c, st);
-  else if (out_kind == sdnq::BF16)
-    launch<MT, XT, __nv_bfloat16>(c, st);
-  else if (out_kind == sdnq::F16)
-    launch<MT, XT, __half>(c, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+template <int NTN, typename XT, bool FP8, bool GROUPED>
+int launch_mma(GemvArgs a, cudaStream_t st) {
+  // split K over S warps a 16-row tile until the card has three blocks an
+  // SM, while each warp keeps at least 256 codes (4 steps of 64)
+  const int sms = sdnq::sm_count(), tiles = (a.O + 15) / 16;
+  int S = 1;
+  while (S < MW && (tiles + MW / S - 1) / (MW / S) < 3 * sms && a.K >= 2 * S * 256) S *= 2;
+  a.S = S;
+  const int blocks = (tiles + MW / S - 1) / (MW / S);
+  dequant_gemv_mma_kernel<NTN, XT, FP8, GROUPED><<<blocks, MNT, 0, st>>>(a);
   return 0;
 }
 
-template <int MT>
-int launch_x(const Call& c, int x_kind, int out_kind, cudaStream_t st) {
-  if (x_kind == sdnq::F32) return launch_out<MT, float>(c, out_kind, st);
-  if (x_kind == sdnq::BF16) return launch_out<MT, __nv_bfloat16>(c, out_kind, st);
-  if (x_kind == sdnq::F16) return launch_out<MT, __half>(c, out_kind, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+template <typename XT>
+int launch_x_mma(const GemvArgs& a, cudaStream_t st) {
+  const bool fp8 = a.kind == E4M3, grouped = a.G > 1, four = a.M > 8;
+  if (fp8 && grouped) return four ? launch_mma<4, XT, true, true>(a, st) : launch_mma<1, XT, true, true>(a, st);
+  if (fp8) return four ? launch_mma<4, XT, true, false>(a, st) : launch_mma<1, XT, true, false>(a, st);
+  if (grouped) return four ? launch_mma<4, XT, false, true>(a, st) : launch_mma<1, XT, false, true>(a, st);
+  return four ? launch_mma<4, XT, false, false>(a, st) : launch_mma<1, XT, false, false>(a, st);
 }
 
 // Bit-plane mode (B2's packed mode, sdnq_tpu/kernels/dequant_mm.py:73-113):
@@ -432,31 +776,33 @@ int launch_bitplane_types(int x_kind, int out_kind, const void* x, const uint8_t
 
 }  // namespace
 
-// x (M, K) contiguous of x_kind; w (O, K) codes of code_kind (0 int8, 1
-// uint8, 2 e4m3); G = 1: scale (O,), zp (O,) or null; G > 1: scale, zp
-// (O, G) with g = K / G a multiple of 8; bias (O,) or null; all f32; out
-// (M, O) of out_kind.  1 <= M <= 32, K % 8 == 0.
+// x (M, K) contiguous of x_kind and w (O, K) codes of code_kind (0 int8,
+// 1 uint8, 2 e4m3), both 16-byte aligned, K a multiple of 16; G = 1: scale
+// (O,), zp (O,) or null; G > 1: scale, zp (O, G), groups of g codes (a
+// multiple of 8), the last ending within 16 codes of K (the wrapper's pad);
+// bias (O,) or null; all f32; out (M, O) of out_kind.  1 <= M <= 32.
 extern "C" int sdnq_dequant_gemv(const void* x, const void* w, const void* scale, const void* zp,
-                                 const void* bias, void* out, int M, int K, int O, int G,
+                                 const void* bias, void* out, int M, int K, int O, int G, int g,
                                  int x_kind, int code_kind, int out_kind, void* stream) {
-  if (M < 1 || M > 32 || K % 8 != 0 || G < 1 || K % G != 0 || (G > 1 && (K / G) % 8 != 0) ||
-      code_kind < I8 || code_kind > E4M3)
+  if (M < 1 || M > 32 || K < 16 || K % 16 != 0 || O < 0 || G < 1 || g < 8 || g % 8 != 0 ||
+      (long long)g * G > K || K - (long long)g * G >= 16 || code_kind < I8 || code_kind > E4M3 ||
+      out_kind < sdnq::F32 || out_kind > sdnq::F16 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Call c{x, static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
-               static_cast<const float*>(zp), static_cast<const float*>(bias), out, M, K, O,
-               code_kind, G, K / G};
+  if (O == 0) return 0;
+  const GemvArgs a{x, static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
+                   static_cast<const float*>(zp), static_cast<const float*>(bias), out, M, K, O,
+                   G, g, 0xffffffffu / static_cast<unsigned>(g), code_kind, out_kind, 1, K, 1, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;
-  if (M == 1)
-    rc = launch_x<1>(c, x_kind, out_kind, st);
-  else if (M <= 4)
-    rc = launch_x<4>(c, x_kind, out_kind, st);
-  else if (M <= 8)
-    rc = launch_x<8>(c, x_kind, out_kind, st);
-  else if (M <= 16)
-    rc = launch_x<16>(c, x_kind, out_kind, st);
+  if (x_kind == sdnq::F32)
+    rc = launch_x(a, st);
+  else if (x_kind == sdnq::BF16)
+    rc = launch_x_mma<__nv_bfloat16>(a, st);
+  else if (x_kind == sdnq::F16)
+    rc = launch_x_mma<__half>(a, st);
   else
-    rc = launch_x<32>(c, x_kind, out_kind, st);
+    return static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

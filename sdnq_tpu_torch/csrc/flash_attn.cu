@@ -51,17 +51,24 @@
 // p_eff = p * vs, p_scale = max(rowmax(p_eff), 1e-20) / 127, p_q =
 // rint(p_eff / p_scale), acc = acc * alpha + (p_q . v_q)_int32 * p_scale,
 // while l sums the unquantised p.  The P block is part of the function, so
-// the wrapper passes it, and a 64-key tile cannot quantise P on its own
-// tile's max.  This design stages each warp's S rows of one P block in
-// shared memory (16 rows x bk fp32, 32 KB per warp at bk = 512) rather than
-// recomputing Q.K^T in three sweeps: one sweep of Q.K^T tiles writes S and
-// the row max, one pass over the staged rows turns S into p_eff (each
-// thread owns the two rows it holds fragments of, so the row reductions stay
-// inside a quad), and one sweep of V tiles quantises p_eff into s8 A
-// fragments for m16n8k32 against V staged transposed (keys contiguous per
-// head-dim column), into an int32 accumulator per P block.  So that a
-// block's staging fits Hopper's 227 KB, it has 4 warps and 64 query rows.
-// The (N, KN) score matrix never reaches device memory.
+// the wrapper passes it, and every key of a block is scored before any of
+// its P.V (p_scale takes the block's final max).  Bound by operations, 4 N
+// KN D a head (Q.K^T and P.V at the int8 rate), and by the CUDA cores'
+// exponent and quantisation of every (row, key).  A block takes 64 query
+// rows of one (batch*head): a consumer warpgroup and a producer warp whose
+// lane 0 issues every TMA load, Q once, K tiles of 64 keys and V^T tiles
+// into rings of three stages.  The s8 wgmma reads its B operand K-major
+// only (keys contiguous), so `flash_attn_vt_kernel` writes V^T once a call,
+// each 16 keys' slots in vt_key's order: the scores' accumulator layout,
+// so that P's A registers are the thread's own values (no shuffle).  Three
+// passes a P block: (A) Q.K^T a tile (SS wgmma m64n64, s8 or bf16),
+// fix_scores, the values kept in the thread's own slots of shared memory
+// (64 rows x 512 keys x 4 bytes) and the row max; (B) p, l, p_eff = p vs in
+// place and its row max; (C) rint(p_eff / p_scale) by a multiply that falls
+// back to the division next to half-integers (quant_fast, the same codes),
+// the RS s8 wgmma m64nDk32 into an int32 sum for the block, then acc = acc
+// alpha + sum p_scale.  The (N, KN) score matrix never reaches device
+// memory.
 //
 // B9, the block mode (`PARTIAL`, entry `sdnq_flash_attn_block`): replaces
 // sdnq_tpu/kernels/attention.py `_attn_kernel` with `partial_out=True` (:67,
@@ -73,7 +80,7 @@
 // (q_q . k_q) * qs[i] * ks[j] with sm_scale folded into qs by the caller,
 // bf16 QK s = (q . k) * sm_scale after the dot (:102-111), an additive mask
 // added as it is; p = expf(s - m) (`ex<true>`), and m is the natural max,
-// with no conversion on output.  The kernels and the staged P blocks of the
+// with no conversion on output.  The kernels and the three passes of the
 // token mode are B3's.  A row whose every key a bool mask
 // hides keeps m = -1e30, so each of its p is exp(0) = 1 and l = KN (:119-121,
 // :143-146), as in the JAX kernel.  Bound by tensor-core operations at the
@@ -86,7 +93,6 @@ namespace {
 
 using namespace sdnq;
 
-constexpr int BKV = 64;               // keys of a token-mode tile
 constexpr int BM = 128, BN = 128;     // query rows of a block, keys of a tile (bf16 P.V)
 constexpr float NEG = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -137,83 +143,6 @@ __device__ __forceinline__ const uint8_t* mask_row(const Args& a, size_t bh, int
   const long long b = static_cast<long long>(bh / a.H), h = static_cast<long long>(bh % a.H);
   const long long esz = a.mkind == MASK_F32 ? 4 : (a.mkind == MASK_BF16 ? 2 : 1);
   return a.mask + (b * a.msb + h * a.msh + static_cast<long long>(min(r, a.N - 1)) * a.msn) * esz;
-}
-
-// the additive mask's entry at key col of a row from mask_row, as fp32
-__device__ __forceinline__ float mask_val(const Args& a, const uint8_t* mr, int col) {
-  const long long off = static_cast<long long>(col) * a.msk;
-  if (a.mkind == MASK_F32) return reinterpret_cast<const float*>(mr)[off];
-  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(mr)[off]);
-}
-
-// Q rows r0 and r1 = r0 + 8 as mma A fragments (zeros past N)
-template <int QB, int KSTEPS>
-__device__ __forceinline__ void load_q(unsigned (&qf)[KSTEPS][4], const Args& a, size_t bh, int r0,
-                                       int r1, int t4) {
-  const uint8_t* q0 = a.q + (bh * a.N + r0) * (size_t)QB;
-  const uint8_t* q1 = a.q + (bh * a.N + r1) * (size_t)QB;
-#pragma unroll
-  for (int s = 0; s < KSTEPS; ++s) {
-    const int c = s * 32 + t4 * 4;
-    qf[s][0] = r0 < a.N ? *reinterpret_cast<const unsigned*>(q0 + c) : 0u;
-    qf[s][1] = r1 < a.N ? *reinterpret_cast<const unsigned*>(q1 + c) : 0u;
-    qf[s][2] = r0 < a.N ? *reinterpret_cast<const unsigned*>(q0 + c + 16) : 0u;
-    qf[s][3] = r1 < a.N ? *reinterpret_cast<const unsigned*>(q1 + c + 16) : 0u;
-  }
-}
-
-// s = Q . K^T for one warp's 16 rows x the 64 keys of the tile at kv0 in
-// sK (row stride LDK bytes), scaled in int8 mode and masked: s[nt][0..1]
-// belong to row r0, s[nt][2..3] to r1, key kv0 + nt*8 + t4*2 + (i & 1).
-// `masked` / `causal` and whether a mask is bool or additive are read from
-// the arguments (uniform over the launch).  NATURAL (B9): the bf16 score
-// times sm_scale, the additive mask added without log2(e).
-template <bool QUANT, int KSTEPS, int LDK, bool NATURAL>
-__device__ __forceinline__ void score_tile(float (&s)[BKV / 8][4], const unsigned (&qf)[KSTEPS][4],
-                                           const uint8_t* sK, const float* sKs, float qs0,
-                                           float qs1, const Args& a, int kv0, int r0, int r1,
-                                           bool masked, bool causal, const uint8_t* mr0,
-                                           const uint8_t* mr1, int g, int t4) {
-  using AccT = typename std::conditional<QUANT, int, float>::type;
-  AccT sacc[BKV / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < BKV / 8; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0;
-#pragma unroll
-  for (int st = 0; st < KSTEPS; ++st)
-#pragma unroll
-    for (int nt = 0; nt < BKV / 8; ++nt) {
-      const uint8_t* p = sK + (nt * 8 + g) * LDK + st * 32 + t4 * 4;
-      const unsigned b[2] = {*reinterpret_cast<const unsigned*>(p),
-                             *reinterpret_cast<const unsigned*>(p + 16)};
-      if constexpr (QUANT)
-        sdnq::mma_s8(sacc[nt], qf[st], b);
-      else
-        sdnq::mma_bf16(sacc[nt], qf[st], b);
-    }
-  const bool use_mask = masked && mr0 != nullptr;
-  const bool fmask = a.mkind != MASK_BOOL;
-#pragma unroll
-  for (int nt = 0; nt < BKV / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = kv0 + nt * 8 + t4 * 2 + (i & 1), row = i < 2 ? r0 : r1;
-      float x = static_cast<float>(sacc[nt][i]);
-      if (QUANT)
-        x = (x * (i < 2 ? qs0 : qs1)) * sKs[col - kv0];
-      else if (NATURAL)
-        x = __fmul_rn(x, a.sm_scale);
-      bool keep = col < a.KN && !(causal && row < col);
-      if (use_mask && keep) {
-        const uint8_t* mr = i < 2 ? mr0 : mr1;
-        if (fmask && NATURAL)
-          x = __fadd_rn(x, mask_val(a, mr, col));
-        else if (fmask)
-          x = __fadd_rn(x, __fmul_rn(mask_val(a, mr, col), kLog2e));
-        else
-          keep = mr[col * a.msk] != 0;
-      }
-      s[nt][i] = keep ? x : NEG;
-    }
 }
 
 template <typename OutT, int NDT>
@@ -384,13 +313,13 @@ __device__ __forceinline__ void load_mask16(float (&mv)[16], const Args& a, cons
 // causal, keys right of the diagonal; MASKED reads the bool or additive
 // mask of each (row, key), 16 values at a time.  The tiles inside KN and
 // left of the diagonal carry none of this code.
-template <bool QUANT, bool NATURAL, bool MASKED, bool EDGE>
-__device__ __forceinline__ void fix_scores(float (&s)[64], const float* sks, float qs0, float qs1,
+template <bool QUANT, bool NATURAL, bool MASKED, bool EDGE, int NS>
+__device__ __forceinline__ void fix_scores(float (&s)[NS], const float* sks, float qs0, float qs1,
                                            const Args& a, int kv0, int r0, int r1,
                                            const uint8_t* mrow0, const uint8_t* mrow1, int t4) {
   const bool fmask = a.mkind != MASK_BOOL;
 #pragma unroll
-  for (int j0 = 0; j0 < BN / 8; j0 += 4) {
+  for (int j0 = 0; j0 < NS / 4; j0 += 4) {
     float mv[16];
     if constexpr (MASKED) load_mask16<EDGE>(mv, a, mrow0, mrow1, kv0, j0, t4);
 #pragma unroll
@@ -636,184 +565,419 @@ __global__ void __launch_bounds__(NTW, 1)
 }
 
 // ---------------------------------------------------------------------------
-// int8 P.V, token mode
+// int8 P.V, token mode: TMA + s8 wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int TWARPS = 4, TNT = TWARPS * 32, TBQ = TWARPS * 16;
-constexpr int LDVT = BKV + 16;  // padded key row of the transposed V tile (bytes)
+constexpr int TBM = 64, TBN = 64;  // query rows of a block, keys of a tile
+constexpr int TST = 3;             // stages of K and of V^T
+constexpr int TPB = 512;           // the largest P block (attn_p_block)
+constexpr int TNT = WGT + 32;      // one consumer warpgroup, then the producer warp
 
+// Shared memory of the token kernel: Q (TBM rows), TST stages of K (TBN
+// rows) and of V^T (D rows of TBN keys, 64-byte swizzle), the P block's
+// scores (each thread's accumulator values, TPB keys), its key and V
+// scales, the barriers.
 template <int D, bool QUANT>
-constexpr int tok_fixed_smem() {
-  return BKV * ((QUANT ? D : 2 * D) + 16) + D * LDVT + BKV * 4;
+struct TokSmem {
+  static constexpr int QB = QUANT ? D : 2 * D;
+  static constexpr int CH = QB < 128 ? QB : 128;
+  static constexpr int Q_BYTES = TBM * QB, K_BYTES = TBN * QB, V_BYTES = D * TBN;
+  static constexpr int K_OFF = Q_BYTES, V_OFF = K_OFF + TST * K_BYTES;
+  static constexpr int S_OFF = V_OFF + TST * V_BYTES;
+  static constexpr int S_BYTES = TBM * TPB * 4;
+  static constexpr int SC_OFF = S_OFF + S_BYTES;
+  static constexpr int BAR_OFF = SC_OFF + 2 * TPB * 4;
+  static constexpr int BYTES = BAR_OFF + (1 + 4 * TST) * 8 + 1024;
+};
+
+// The key held by slot `pos` of V^T.  The s8 wgmma's A operand from
+// registers gives thread t (t % 4 = q) of a row the P of slots 4 q .. 4 q +
+// 3 of each 16-key half of a k32 step, in one register; the scores'
+// accumulator gives it keys 2 q, 2 q + 1, 8 + 2 q, 9 + 2 q of each 16.  V^T's
+// slots take the keys in that order within each 16 (the sum over keys is
+// exact in int32, so their order is free), and P goes into the A registers
+// as it lies, with no shuffle.
+__host__ __device__ constexpr int vt_key(int pos) {
+  return (pos & ~15) + 2 * ((pos & 15) >> 2) + (pos & 1) + 8 * ((pos >> 1) & 1);
 }
 
-// dynamic shared memory of the token-mode kernel for a P block of pb keys
+// V (BKH, KN, D) int8 -> V^T (BKH, D, KN), its slots in vt_key's order;
+// grid (KN / TBN, BKH): a tile of TBN keys through shared memory, rows
+// padded by 4 bytes so that a warp's gathers spread over the banks
+template <int D>
+__global__ void __launch_bounds__(256) flash_attn_vt_kernel(const uint8_t* __restrict__ v,
+                                                            uint8_t* __restrict__ vt, int KN) {
+  constexpr int LD = D + 4;
+  __shared__ __align__(16) uint8_t tile[TBN * LD];
+  const int k0 = blockIdx.x * TBN;
+  const size_t h = blockIdx.y;
+  const uint4* src = reinterpret_cast<const uint4*>(v + (h * KN + k0) * D);
+  for (int i = threadIdx.x; i < TBN * D / 16; i += 256) {
+    const uint4 w = src[i];
+    unsigned* dst = reinterpret_cast<unsigned*>(tile + (i / (D / 16)) * LD + (i % (D / 16)) * 16);
+    dst[0] = w.x, dst[1] = w.y, dst[2] = w.z, dst[3] = w.w;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < D * TBN / 4; i += 256) {  // word w of row d: slots 4 w ..
+    const int d = i / (TBN / 4), w = i % (TBN / 4);
+    unsigned word = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) word |= static_cast<unsigned>(tile[vt_key(4 * w + b) * LD + d]) << (8 * b);
+    reinterpret_cast<unsigned*>(vt + (h * D + d) * KN + k0)[w] = word;
+  }
+}
+
+// S = Q.K^T of the warpgroup's 64 rows (sq) and a tile's TBN keys (sk), both
+// K-major: s8 m64n64k32 into S's registers as int32, or bf16 m64n64k16
 template <int D, bool QUANT>
-int tok_smem_bytes(int pb) {
-  return tok_fixed_smem<D, QUANT>() + pb * 4 + TWARPS * 16 * (pb + 8) * 4;
+__device__ __forceinline__ void tok_qk(float (&s)[32], const uint8_t* sq, const uint8_t* sk) {
+  using L = TokSmem<D, QUANT>;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int st = 0; st < L::QB / 32; ++st) {
+    const int c = st * 32 / L::CH, step = (st * 32 % L::CH) / 16;
+    const uint64_t da = kmajor_desc<L::CH>(sq + c * TBM * L::CH) + step;
+    const uint64_t db = kmajor_desc<L::CH>(sk + c * TBN * L::CH) + step;
+    if constexpr (QUANT)
+      wgmma_s8_64(reinterpret_cast<int(&)[32]>(s), da, db, st != 0);
+    else
+      wgmma64(s, da, db, st != 0);
+  }
+  wgmma_commit();
 }
 
-// four p_eff values -> rint(p_eff / p_scale) as four s8 lanes
-__device__ __forceinline__ unsigned quant4(const float* p, float sc) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  const int q0 = __float2int_rn(__fdiv_rn(v.x, sc)), q1 = __float2int_rn(__fdiv_rn(v.y, sc));
-  const int q2 = __float2int_rn(__fdiv_rn(v.z, sc)), q3 = __float2int_rn(__fdiv_rn(v.w, sc));
-  return (q0 & 0xff) | ((q1 & 0xff) << 8) | ((q2 & 0xff) << 16) | ((unsigned)(q3 & 0xff) << 24);
+// rint(e / sc) for 0 <= e <= 127 sc, as the IEEE division rounds it.  y = e
+// * inv (inv = 1 / sc rounded) lies within 1.9e-5 of the rounded quotient
+// (two roundings of 2^-24 at y < 128, and half an ulp of the quotient), so
+// where y is more than 2.5e-5 from a half-integer both round to the same
+// integer: the low byte of y + 1.5 * 2^23, which rounds y to the nearest,
+// ties to even.  `near` is set where y is nearer; the division decides there
+// (quant_div).
+__device__ __forceinline__ unsigned quant_fast(float e, float inv, bool& near) {
+  const float y = __fmul_rn(e, inv);
+  const float r = __fadd_rn(y, 12582912.f);
+  near |= fabsf(__fsub_rn(y, __fsub_rn(r, 12582912.f))) > 0.499975f;
+  return __float_as_uint(r);
+}
+__device__ __forceinline__ unsigned quant_div(float e, float sc) {
+  return static_cast<unsigned>(__float2int_rn(__fdiv_rn(e, sc)));
 }
 
-template <int D, bool QUANT, typename OutT, bool PARTIAL>
-__global__ void __launch_bounds__(TNT) flash_attn_tok_kernel(const Args a) {
-  constexpr int QB = QUANT ? D : 2 * D;
-  constexpr int LDK = QB + 16;
-  constexpr int KSTEPS = QB / 32;
+// the low bytes of a, b, c, d in one word, a's in the low byte
+__device__ __forceinline__ unsigned pack4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040u), __byte_perm(c, d, 0x0040u), 0x5410u);
+}
+
+// the consumer warpgroup's named barrier (barrier 1, its 128 threads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// B3 / B9 in token mode; grid (ceil(N / TBM), BH).  Three passes over each
+// P block of pblock keys, in key order: (A) Q.K^T of each tile (s8 or bf16
+// wgmma), scaled and masked by fix_scores, kept in shared memory, and the
+// block's row max; (B) p = ex(s - m_new), l, p_eff = p * vs and its row max,
+// p_eff kept in place of s; (C) P_q = rint(p_eff / p_scale) into the A
+// registers and the RS s8 wgmma against V^T's tile, into an int32 sum for
+// the block, then acc = acc * alpha + sum * p_scale.
+template <int D, bool QUANT, bool MASKED, bool PARTIAL>
+__global__ void __launch_bounds__(TNT, 1)
+    flash_attn_tok_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const Args a) {
+  using L = TokSmem<D, QUANT>;
   constexpr int NDT = D / 8;
-  const int PB = a.pblock;      // keys per P block: P is quantised once per block
-  const int LDS = PB + 8;       // padded S row (floats)
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* sK = smem;                                         // BKV x LDK
-  uint8_t* sVt = sK + BKV * LDK;                              // D x LDVT, keys contiguous
-  float* sKs = reinterpret_cast<float*>(sVt + D * LDVT);      // BKV
-  float* sVs = sKs + BKV;                                     // PB
+  constexpr int NCH = L::QB / L::CH;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + TST;
+  uint64_t* v_full = k_empty + TST;
+  uint64_t* v_empty = v_full + TST;
+  const int q0 = blockIdx.x * TBM;
+  const size_t bh = blockIdx.y;
+  const int kvh = static_cast<int>(kv_head(a, bh));
+  const int PB = a.pblock;  // keys per P block: P is quantised once per block
+  const int kv_end = kv_stop(a, q0, TBM);
+  auto k_stage = [&](int s) { return smem + L::K_OFF + s * L::K_BYTES; };
+  auto v_stage = [&](int s) { return smem + L::V_OFF + s * L::V_BYTES; };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  float* sS = sVs + PB + warp * 16 * LDS;  // this warp's 16 rows of the P block
-  const size_t bh = blockIdx.y, kvbh = kv_head(a, bh);
-  const int r0 = blockIdx.x * TBQ + warp * 16 + g;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < TST; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 4);  // one arrive from each consumer warp
+      mbar_init(&v_empty[s], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WGT) {  // the producer warp: lane 0 issues every load
+    if (threadIdx.x != WGT) return;
+    constexpr int CE = QUANT ? L::CH : L::CH / 2;  // elements of a chunk's row
+    mbar_expect_tx(q_full, L::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+      tma_load_3d(smem + c * TBM * L::CH, &tq, q_full, c * CE, q0, static_cast<int>(bh));
+    int ik = 0, iv = 0;  // loads issued into the K and the V^T ring
+    // wait until a stage is released and its last load has landed, then
+    // arm it (the first round passes at once)
+    auto arm = [&](uint64_t* full, uint64_t* empty, int i, unsigned bytes) {
+      const int s = i % TST;
+      const unsigned ph = ((i / TST) & 1) ^ 1;
+      mbar_wait(&empty[s], ph);
+      if (i >= TST) mbar_wait(&full[s], ph);
+      mbar_expect_tx(&full[s], bytes);
+      return s;
+    };
+    auto load_k = [&](int kv0) {
+      const int s = arm(k_full, k_empty, ik++, L::K_BYTES);
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+        tma_load_3d(k_stage(s) + c * TBN * L::CH, &tk, &k_full[s], c * CE, kv0, kvh);
+    };
+    auto load_v = [&](int kv0) {
+      const int s = arm(v_full, v_empty, iv++, L::V_BYTES);
+      tma_load_3d(v_stage(s), &tv, &v_full[s], kv0, 0, kvh);
+    };
+    // the order in which the consumers take them
+    for (int pb0 = 0; pb0 < kv_end; pb0 += PB) {
+      const int pend = min(pb0 + PB, kv_end);
+      for (int kv0 = pb0; kv0 < pend; kv0 += TBN) load_k(kv0);
+      for (int kv0 = pb0; kv0 < pend; kv0 += TBN) load_v(kv0);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: rows q0 .. q0 + 63
+  const int t = threadIdx.x, lane = t % 32;
+  const int t4 = lane & 3;
+  const int r0 = q0 + 16 * (t / 32) + (lane >> 2);  // this thread's rows r0, r0 + 8
   const int r1 = r0 + 8;
-  const int KN = a.KN;
-
-  unsigned qf[KSTEPS][4];
-  load_q<QB, KSTEPS>(qf, a, bh, r0, r1, t4);
   float qs0 = 0.f, qs1 = 0.f;
-  if (QUANT) {
+  if constexpr (QUANT) {
     qs0 = r0 < a.N ? a.qs[bh * a.N + r0] : 0.f;
     qs1 = r1 < a.N ? a.qs[bh * a.N + r1] : 0.f;
   }
-  const uint8_t* mr0 = mask_row(a, bh, r0);
-  const uint8_t* mr1 = mask_row(a, bh, r1);
+  const uint8_t* mr0 = MASKED ? mask_row(a, bh, r0) : nullptr;
+  const uint8_t* mr1 = MASKED ? mask_row(a, bh, r1) : nullptr;
+  float* sks = reinterpret_cast<float*>(smem + L::SC_OFF);  // the block's key scales
+  float* svs = sks + TPB;                                   // and V scales
+  float4* sS = reinterpret_cast<float4*>(smem + L::S_OFF) + t;  // this thread's scores
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
 
-  float o_acc[NDT][4];
+  float oacc[NDT][4];
 #pragma unroll
-  for (int i = 0; i < NDT; ++i) o_acc[i][0] = o_acc[i][1] = o_acc[i][2] = o_acc[i][3] = 0.f;
+  for (int i = 0; i < NDT; ++i) oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
   float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
-
-  const uint8_t* kbase = a.k + kvbh * (size_t)KN * QB;
-  const uint8_t* vbase = a.v + kvbh * (size_t)KN * D;
-  const float* vsb = a.vs + kvbh * (size_t)KN;
-  const int kv_end = kv_stop(a, blockIdx.x * TBQ, TBQ);
-
-  for (int pb0 = 0; pb0 < kv_end; pb0 += PB) {
-    const int pend = min(pb0 + PB, kv_end);
-    // sweep 1: S tiles of the P block into shared memory, and the row max
-    float mx0 = NEG, mx1 = NEG;
-    for (int kv0 = pb0; kv0 < pend; kv0 += BKV) {
-      for (int c = tid; c < BKV * QB / 16; c += TNT) {
-        const int r = c / (QB / 16), cb = (c % (QB / 16)) * 16;
-        const bool ok = kv0 + r < KN;
-        sdnq::cp_async16(sK + r * LDK + cb, kbase + (size_t)(ok ? kv0 + r : 0) * QB + cb, ok);
-      }
-      sdnq::cp_async_commit();
-      if (tid < BKV) {
-        const bool ok = kv0 + tid < KN;
-        if (QUANT) sKs[tid] = ok ? a.ks[kvbh * KN + kv0 + tid] : 0.f;
-        sVs[kv0 - pb0 + tid] = ok ? vsb[kv0 + tid] : 0.f;
-      }
-      sdnq::cp_async_wait<0>();
-      __syncthreads();
-      float s[BKV / 8][4];
-      score_tile<QUANT, KSTEPS, LDK, PARTIAL>(s, qf, sK, sKs, qs0, qs1, a, kv0, r0, r1,
-                                              mr0 != nullptr, a.causal != 0, mr0, mr1, g, t4);
+  int ik = 0, iv = 0;  // tiles taken from the K and the V^T ring
+  float s[32];
+  // the scores of the tile at kv0 of the block at pb0 (the ik-th K tile)
+  // into s: Q.K^T once the tile has landed, its stage released once the
+  // products are done, then scaled and masked
+  auto scores = [&](int kv0, int pb0) {
+    const int st = ik % TST;
+    mbar_wait(&k_full[st], (ik / TST) & 1);
+    tok_qk<D, QUANT>(s, smem, k_stage(st));
+    wgmma_wait<0>();
+    fence_regs(s);
+    release(&k_empty[st]);
+    ++ik;
+    if (a.causal && kv0 + TBN > q0)  // the tile of the diagonal
+      fix_scores<QUANT, PARTIAL, MASKED, true>(s, sks + (kv0 - pb0), qs0, qs1, a, kv0, r0, r1,
+                                               mr0, mr1, t4);
+    else
+      fix_scores<QUANT, PARTIAL, MASKED, false>(s, sks + (kv0 - pb0), qs0, qs1, a, kv0, r0, r1,
+                                                mr0, mr1, t4);
+  };
+  // p = ex(s - m) in place (each step rounded as the plain version's: no
+  // contraction with the scores' products)
+  auto exp_tile = [&](float mn0, float mn1) {
 #pragma unroll
-      for (int nt = 0; nt < BKV / 8; ++nt) {
-        const int c = kv0 - pb0 + nt * 8 + t4 * 2;
-        *reinterpret_cast<float2*>(sS + g * LDS + c) = make_float2(s[nt][0], s[nt][1]);
-        *reinterpret_cast<float2*>(sS + (g + 8) * LDS + c) = make_float2(s[nt][2], s[nt][3]);
-        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-      }
-      __syncthreads();
+    for (int j = 0; j < 8; ++j) {
+      s[4 * j] = ex<PARTIAL>(__fsub_rn(s[4 * j], mn0));
+      s[4 * j + 1] = ex<PARTIAL>(__fsub_rn(s[4 * j + 1], mn0));
+      s[4 * j + 2] = ex<PARTIAL>(__fsub_rn(s[4 * j + 2], mn1));
+      s[4 * j + 3] = ex<PARTIAL>(__fsub_rn(s[4 * j + 3], mn1));
     }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  };
+  // p_eff = p * vs of tile i in place
+  auto times_vs = [&](int i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 vs = *reinterpret_cast<const float2*>(svs + i * TBN + 8 * j + 2 * t4);
+      s[4 * j] = __fmul_rn(s[4 * j], vs.x);
+      s[4 * j + 1] = __fmul_rn(s[4 * j + 1], vs.y);
+      s[4 * j + 2] = __fmul_rn(s[4 * j + 2], vs.x);
+      s[4 * j + 3] = __fmul_rn(s[4 * j + 3], vs.y);
+    }
+  };
+  auto keep = [&](int i) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      sS[(i * 8 + q) * WGT] = make_float4(s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]);
+  };
+  auto fetch = [&](int i) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float4 v = sS[(i * 8 + q) * WGT];
+      s[4 * q] = v.x, s[4 * q + 1] = v.y, s[4 * q + 2] = v.z, s[4 * q + 3] = v.w;
+    }
+  };
+
+  mbar_wait(q_full, 0);
+  const size_t srow = static_cast<size_t>(kvh) * a.KN;  // the head's scales
+  for (int pb0 = 0; pb0 < kv_end; pb0 += PB) {
+    const int pend = min(pb0 + PB, kv_end), nt = (pend - pb0) / TBN;
+    consumers_sync();  // every thread is done with the last block's scales
+    for (int c = t; c < pend - pb0; c += WGT) {
+      if constexpr (QUANT) sks[c] = a.ks[srow + pb0 + c];
+      svs[c] = a.vs[srow + pb0 + c];
+    }
+    consumers_sync();
+
+    // (A) the scores and the block's row max.  (Two tiles' Q.K^T in flight
+    // together took ptxas to 255 registers, and the next tile's in flight
+    // while this one is fixed made it serialize every wgmma of the kernel,
+    // C7515: both measured slower.)
+    float mx0 = NEG, mx1 = NEG;
+    for (int i = 0; i < nt; ++i) {
+      scores(pb0 + i * TBN, pb0);
+      keep(i);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
     const float al0 = ex<PARTIAL>(m0 - mn0), al1 = ex<PARTIAL>(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
 
-    // pass 2: S -> p_eff = exp2(s - m_new) * vs in place; l and the P scale
+    // (B) p, l, p_eff = p * vs and its row max
     float ps0 = 0.f, ps1 = 0.f, pm0 = 0.f, pm1 = 0.f;
-    for (int c = t4; c < pend - pb0; c += 4) {
-      const float p0 = ex<PARTIAL>(sS[g * LDS + c] - mn0);
-      const float p1 = ex<PARTIAL>(sS[(g + 8) * LDS + c] - mn1);
-      const float e0 = p0 * sVs[c], e1 = p1 * sVs[c];
-      sS[g * LDS + c] = e0;
-      sS[(g + 8) * LDS + c] = e1;
-      ps0 += p0;
-      ps1 += p1;
-      pm0 = fmaxf(pm0, e0);
-      pm1 = fmaxf(pm1, e1);
+    for (int i = 0; i < nt; ++i) {
+      fetch(i);
+      exp_tile(mn0, mn1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        ps0 += s[4 * j] + s[4 * j + 1];
+        ps1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+      times_vs(i);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        pm0 = fmaxf(pm0, fmaxf(s[4 * j], s[4 * j + 1]));
+        pm1 = fmaxf(pm1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      keep(i);
     }
     ps0 = quad_sum(ps0);
     ps1 = quad_sum(ps1);
-    pm0 = quad_max(pm0);
-    pm1 = quad_max(pm1);
     l0 = __fadd_rn(__fmul_rn(l0, al0), ps0);
     l1 = __fadd_rn(__fmul_rn(l1, al1), ps1);
-    const float sc0 = __fdiv_rn(fmaxf(pm0, 1e-20f), 127.f);
-    const float sc1 = __fdiv_rn(fmaxf(pm1, 1e-20f), 127.f);
-    __syncwarp();
+    const float sc0_ = __fdiv_rn(fmaxf(quad_max(pm0), 1e-20f), 127.f);
+    const float sc1_ = __fdiv_rn(fmaxf(quad_max(pm1), 1e-20f), 127.f);
+    const float inv0 = __frcp_rn(sc0_), inv1 = __frcp_rn(sc1_);
 
-    // sweep 3: P_q . V_q over the block's V tiles, int32
-    int pv[NDT][4];
+    // (C) P_q . V_q over the block's V^T tiles, into an int32 sum; tile i + 1
+    // is quantised while tile i's wgmma runs (two sets of A registers)
+    int pv[D / 2] = {};
+    // the A registers of tile i's two k32 steps: keys 32 kk + 16 h + .. of row
+    // r0 (rr 0) and r1 (rr 1), chunks 4 kk + 2 h and the next
+    auto quantize = [&](int i, unsigned (&pa)[2][4]) {
+      fetch(i);
+      bool near = false;
 #pragma unroll
-    for (int i = 0; i < NDT; ++i) pv[i][0] = pv[i][1] = pv[i][2] = pv[i][3] = 0;
-    for (int kv0 = pb0; kv0 < pend; kv0 += BKV) {
-      // V tile transposed into sVt[d][key], 4 x 4 bytes at a time
-      for (int c = tid; c < (BKV / 4) * (D / 4); c += TNT) {
-        const int kq = c / (D / 4), dq = c % (D / 4);
-        unsigned w[4];
+      for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = kv0 + kq * 4 + i;
-          w[i] = key < KN ? *reinterpret_cast<const unsigned*>(vbase + (size_t)key * D + dq * 4)
-                          : 0u;
-        }
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          *reinterpret_cast<unsigned*>(sVt + (dq * 4 + j) * LDVT + kq * 4) =
-              ((w[0] >> (8 * j)) & 0xffu) | (((w[1] >> (8 * j)) & 0xffu) << 8) |
-              (((w[2] >> (8 * j)) & 0xffu) << 16) | (((w[3] >> (8 * j)) & 0xffu) << 24);
+          for (int rr = 0; rr < 2; ++rr) {
+            const int b = 4 * (4 * kk + 2 * h) + 2 * rr;
+            const float inv = rr ? inv1 : inv0;
+            pa[kk][2 * h + rr] = pack4(quant_fast(s[b], inv, near), quant_fast(s[b + 1], inv, near),
+                                       quant_fast(s[b + 4], inv, near),
+                                       quant_fast(s[b + 5], inv, near));
+          }
+      if (__any_sync(0xffffffffu, near) && near) {  // a code next to a half-integer
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int b = 4 * (4 * kk + 2 * h) + 2 * rr;
+              const float sc = rr ? sc1_ : sc0_;
+              pa[kk][2 * h + rr] = pack4(quant_div(s[b], sc), quant_div(s[b + 1], sc),
+                                         quant_div(s[b + 4], sc), quant_div(s[b + 5], sc));
+            }
       }
-      __syncthreads();
+    };
+    // tile i's wgmmas against its V^T stage (the iv-th), once it has landed
+    auto issue_pv = [&](int i, const unsigned (&pa)[2][4]) {
+      const int st = iv % TST;
+      mbar_wait(&v_full[st], (iv / TST) & 1);
+      fence_regs(pv);
+      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BKV / 32; ++kk) {
-        const int cb = kv0 - pb0 + kk * 32 + t4 * 4;
-        const unsigned pa[4] = {quant4(sS + g * LDS + cb, sc0), quant4(sS + (g + 8) * LDS + cb, sc1),
-                                quant4(sS + g * LDS + cb + 16, sc0),
-                                quant4(sS + (g + 8) * LDS + cb + 16, sc1)};
-#pragma unroll
-        for (int dt = 0; dt < NDT; ++dt) {
-          const uint8_t* p = sVt + (dt * 8 + g) * LDVT + kk * 32 + t4 * 4;
-          const unsigned b[2] = {*reinterpret_cast<const unsigned*>(p),
-                                 *reinterpret_cast<const unsigned*>(p + 16)};
-          sdnq::mma_s8(pv[dt], pa, b);
-        }
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint64_t db = sw64_desc(v_stage(st)) + 2 * kk;
+        if constexpr (D == 128)
+          wgmma_rs_s8_128(pv, pa[kk], db, i > 0 || kk > 0);
+        else
+          wgmma_rs_s8_64(pv, pa[kk], db, i > 0 || kk > 0);
       }
-      __syncthreads();
+      wgmma_commit();
+    };
+    // the issued wgmmas done: their A registers free, their stage released
+    auto retire = [&](unsigned (&pa)[2][4]) {
+      wgmma_wait<0>();
+      fence_regs(pv);
+      fence_regs(pa[0]);
+      fence_regs(pa[1]);
+      release(&v_empty[iv % TST]);
+      ++iv;
+    };
+    unsigned qa[2][4], qb[2][4];
+    for (int i = 0; i < nt; i += 2) {
+      quantize(i, qa);
+      if (i > 0) retire(qb);
+      issue_pv(i, qa);
+      if (i + 1 < nt) {
+        quantize(i + 1, qb);
+        retire(qa);
+        issue_pv(i + 1, qb);
+      }
     }
+    if (nt & 1)
+      retire(qa);
+    else
+      retire(qb);
 #pragma unroll
     for (int dt = 0; dt < NDT; ++dt) {
-      o_acc[dt][0] = __fadd_rn(__fmul_rn(o_acc[dt][0], al0), __fmul_rn((float)pv[dt][0], sc0));
-      o_acc[dt][1] = __fadd_rn(__fmul_rn(o_acc[dt][1], al0), __fmul_rn((float)pv[dt][1], sc0));
-      o_acc[dt][2] = __fadd_rn(__fmul_rn(o_acc[dt][2], al1), __fmul_rn((float)pv[dt][2], sc1));
-      o_acc[dt][3] = __fadd_rn(__fmul_rn(o_acc[dt][3], al1), __fmul_rn((float)pv[dt][3], sc1));
+      oacc[dt][0] = __fadd_rn(__fmul_rn(oacc[dt][0], al0), __fmul_rn((float)pv[4 * dt], sc0_));
+      oacc[dt][1] = __fadd_rn(__fmul_rn(oacc[dt][1], al0), __fmul_rn((float)pv[4 * dt + 1], sc0_));
+      oacc[dt][2] = __fadd_rn(__fmul_rn(oacc[dt][2], al1), __fmul_rn((float)pv[4 * dt + 2], sc1_));
+      oacc[dt][3] = __fadd_rn(__fmul_rn(oacc[dt][3], al1), __fmul_rn((float)pv[4 * dt + 3], sc1_));
     }
   }
   if constexpr (PARTIAL)
-    store_partial<NDT>(a, bh, r0, r1, t4, o_acc, m0, m1, l0, l1);
+    store_partial<NDT>(a, bh, r0, r1, t4, oacc, m0, m1, l0, l1);
+  else if (a.out_kind == sdnq::F32)
+    store_rows<float, NDT>(a, bh, r0, r1, t4, oacc, l0, l1);
+  else if (a.out_kind == sdnq::BF16)
+    store_rows<__nv_bfloat16, NDT>(a, bh, r0, r1, t4, oacc, l0, l1);
   else
-    store_rows<OutT, NDT>(a, bh, r0, r1, t4, o_acc, l0, l1);
+    store_rows<__half, NDT>(a, bh, r0, r1, t4, oacc, l0, l1);
 }
 
 // B3 / B9 with bf16 P.V: the tensor maps of q (D, N, BH), k and v (D, KN,
@@ -847,24 +1011,44 @@ int launch_wgmma(const Args& a, int BH, int BKH, cudaStream_t st) {
   return 0;
 }
 
-// token mode (int8 P.V)
-template <int D, bool QUANT, typename OutT, bool PARTIAL = false>
-int launch_tok(const Args& a, int BH, cudaStream_t st) {
-  const int bytes = tok_smem_bytes<D, QUANT>(a.pblock);
-  cudaError_t rc = cudaFuncSetAttribute(flash_attn_tok_kernel<D, QUANT, OutT, PARTIAL>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid((a.N + TBQ - 1) / TBQ, BH);
-  flash_attn_tok_kernel<D, QUANT, OutT, PARTIAL><<<grid, TNT, bytes, st>>>(a);
+// token mode (int8 P.V): V^T into vt (slots in vt_key's order), the tensor
+// maps of q (D, N, BH), k (D, KN, BKH) and V^T (KN, D, BKH), then the kernel
+// of the mask mode
+template <int D, bool QUANT, bool PARTIAL>
+int launch_tok(const Args& a, void* vt, int BH, int BKH, cudaStream_t st) {
+  using L = TokSmem<D, QUANT>;
+  flash_attn_vt_kernel<D><<<dim3(a.KN / TBN, BKH), 256, 0, st>>>(a.v, static_cast<uint8_t*>(vt),
+                                                                 a.KN);
+  const CUtensorMapDataType qk_type =
+      QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const int es = QUANT ? 1 : 2;
+  const CUtensorMapSwizzle swz =
+      L::CH == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map_3d(&tq, a.q, qk_type, es, D, a.N, BH, L::CH / es, TBM, swz) ||
+      !tensor_map_3d(&tk, a.k, qk_type, es, D, a.KN, BKH, L::CH / es, TBN, swz) ||
+      !tensor_map_3d(&tv, vt, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.KN, D, BKH, TBN, D,
+                     CU_TENSOR_MAP_SWIZZLE_64B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool masked = a.mask != nullptr;
+  auto kernel = masked ? flash_attn_tok_kernel<D, QUANT, true, PARTIAL>
+                       : flash_attn_tok_kernel<D, QUANT, false, PARTIAL>;
+  static bool ready[2] = {false, false};  // the block's shared memory is above the 48 KB default
+  if (!ready[masked]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[masked] = true;
+  }
+  const dim3 grid((a.N + TBM - 1) / TBM, BH);
+  kernel<<<grid, TNT, L::BYTES, st>>>(tq, tk, tv, a);
   return 0;
 }
 
 template <int D, bool QUANT>
-int launch(const Args& a, int BH, int BKH, int out_kind, cudaStream_t st) {
+int launch(const Args& a, void* vt, int BH, int BKH, cudaStream_t st) {
   if (!a.vs) return launch_wgmma<D, QUANT, false>(a, BH, BKH, st);
-  if (out_kind == sdnq::F32) return launch_tok<D, QUANT, float>(a, BH, st);
-  if (out_kind == sdnq::BF16) return launch_tok<D, QUANT, __nv_bfloat16>(a, BH, st);
-  return launch_tok<D, QUANT, __half>(a, BH, st);
+  return launch_tok<D, QUANT, false>(a, vt, BH, BKH, st);
 }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
@@ -874,7 +1058,8 @@ bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0
 // q (BH, N, D), k (BH / qpk, KN, D): bf16 (quant = 0) or int8 (quant = 1);
 // v (BH / qpk, KN, D) bf16, or int8 with vs (BH / qpk, KN) f32 (token mode,
 // P quantised per block of pblock keys: a multiple of 64 that divides KN, at
-// most 512); qs (BH, N), ks (BH / qpk, KN) f32 in int8 mode, else null;
+// most 512) and vt (BH / qpk, D, KN) int8 scratch for V^T; qs (BH, N), ks
+// (BH / qpk, KN) f32 in int8 mode, else null;
 // mask read at b*msb + h*msh + row*msn + key*msk (elements) for head bh =
 // b*H + h, or null: bool (mask_kind 1), or an additive bf16 (2) or fp32 (3)
 // mask; causal 0/1; out (BH, N, D) of out_kind.
@@ -882,14 +1067,14 @@ bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0
 // aligned.
 extern "C" int sdnq_flash_attn(const void* q, const void* k, const void* v, const void* qs,
                                const void* ks, const void* vs, const void* mask, long long msb,
-                               long long msh, long long msn, long long msk, void* out, int BH,
-                               int N, int KN, int D, int H, int qpk, int causal, int pblock,
+                               long long msh, long long msn, long long msk, void* out, void* vt,
+                               int BH, int N, int KN, int D, int H, int qpk, int causal, int pblock,
                                int quant, int mask_kind, int out_kind, void* stream) {
   if (KN < 1 || (D != 64 && D != 128) || H < 1 || qpk < 1 || H % qpk || BH % H)
     return static_cast<int>(cudaErrorInvalidValue);
   if (mask && (mask_kind < MASK_BOOL || mask_kind > MASK_F32))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (vs && (pblock < BKV || pblock > 512 || pblock % BKV || KN % pblock))
+  if (vs && (pblock < TBN || pblock > TPB || pblock % TBN || KN % pblock || !vt))
     return static_cast<int>(cudaErrorInvalidValue);
   if (out_kind < sdnq::F32 || out_kind > sdnq::F16 || misaligned(q) || misaligned(k) ||
       misaligned(v))
@@ -903,11 +1088,9 @@ extern "C" int sdnq_flash_attn(const void* q, const void* k, const void* v, cons
   const int BKH = BH / qpk;
   int rc;
   if (D == 64)
-    rc = quant ? launch<64, true>(a, BH, BKH, out_kind, st)
-               : launch<64, false>(a, BH, BKH, out_kind, st);
+    rc = quant ? launch<64, true>(a, vt, BH, BKH, st) : launch<64, false>(a, vt, BH, BKH, st);
   else
-    rc = quant ? launch<128, true>(a, BH, BKH, out_kind, st)
-               : launch<128, false>(a, BH, BKH, out_kind, st);
+    rc = quant ? launch<128, true>(a, vt, BH, BKH, st) : launch<128, false>(a, vt, BH, BKH, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
@@ -915,7 +1098,8 @@ extern "C" int sdnq_flash_attn(const void* q, const void* k, const void* v, cons
 // B9: q (BH, N, 128), k (BH, KN, 128): bf16 (quant = 0, the score times
 // sm_scale) or int8 (quant = 1) with qs (BH, N) carrying sm_scale and ks
 // (BH, KN); v (BH, KN, 128) bf16, or int8 with vs (BH, KN) (token mode, P
-// quantised per block of pblock keys, as above); mask null, or (mask_heads,
+// quantised per block of pblock keys, as above, V^T in the scratch vt (BH,
+// 128, KN) int8); mask null, or (mask_heads,
 // N, KN) read at (bh % mask_heads)*msh + row*msn + key*msk (elements), bool
 // (mask_kind 1) or additive bf16 (2) / fp32 (3), mask_heads dividing BH;
 // q, k, v 16-byte aligned.  Writes acc (BH, N, 128) and m, l (BH, N), all
@@ -923,14 +1107,14 @@ extern "C" int sdnq_flash_attn(const void* q, const void* k, const void* v, cons
 extern "C" int sdnq_flash_attn_block(const void* q, const void* k, const void* v, const void* qs,
                                      const void* ks, const void* vs, const void* mask,
                                      long long msh, long long msn, long long msk, void* acc,
-                                     void* m, void* l, int BH, int N, int KN, int D,
+                                     void* m, void* l, void* vt, int BH, int N, int KN, int D,
                                      int mask_heads, int pblock, int quant, int mask_kind,
                                      float sm_scale, void* stream) {
   if (KN < 1 || D != 128 || mask_heads < 1 || BH % mask_heads)
     return static_cast<int>(cudaErrorInvalidValue);
   if (mask && (mask_kind < MASK_BOOL || mask_kind > MASK_F32))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (vs && (pblock < BKV || pblock > 512 || pblock % BKV || KN % pblock))
+  if (vs && (pblock < TBN || pblock > TPB || pblock % TBN || KN % pblock || !vt))
     return static_cast<int>(cudaErrorInvalidValue);
   if (misaligned(q) || misaligned(k) || misaligned(v))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -944,8 +1128,8 @@ extern "C" int sdnq_flash_attn_block(const void* q, const void* k, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;
   if (vs)
-    rc = quant ? launch_tok<128, true, float, true>(a, BH, st)
-               : launch_tok<128, false, float, true>(a, BH, st);
+    rc = quant ? launch_tok<128, true, true>(a, vt, BH, BH, st)
+               : launch_tok<128, false, true>(a, vt, BH, BH, st);
   else
     rc = quant ? launch_wgmma<128, true, true>(a, BH, BH, st)
                : launch_wgmma<128, false, true>(a, BH, BH, st);

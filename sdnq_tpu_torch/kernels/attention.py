@@ -190,6 +190,15 @@ def flash_attention_plain(q, k, v, q_scale=None, k_scale=None,
     return (acc / l.clamp_min(1e-30)).to(out_dtype)
 
 
+def _vt_scratch(v, vs):
+    """Token mode's V^T scratch (BKH, D, KN) int8, written by the C entry;
+    None in the bf16 P·V mode."""
+    if vs is None:
+        return None
+    return torch.empty((v.shape[0], v.shape[2], v.shape[1]), dtype=torch.int8,
+                       device=v.device)
+
+
 def _mode_counts(**on):
     for mode, flag in on.items():
         if flag:
@@ -247,11 +256,13 @@ def flash_attention(q, k, v, q_scale=None, k_scale=None,
         mask = mask.expand(bh // h, h, n, kn)
         strides = tuple(mask.stride())
     out = torch.empty((bh, n, d), dtype=out_dtype, device=q.device)
+    vt = _vt_scratch(v, vs)
     if n:
         fn = _build.function("flash_attn", "sdnq_flash_attn",
-                             [P] * 7 + [_L] * 4 + [P] + [I] * 11 + [P])
+                             [P] * 7 + [_L] * 4 + [P] * 2 + [I] * 11 + [P])
         _build.check(fn(*(_build.ptr(t) for t in (q, k, v, qs, ks, vs, mask)),
-                        *strides, _build.ptr(out), bh, n, kn, d, h, qpk,
+                        *strides, _build.ptr(out), _build.ptr(vt), bh, n, kn,
+                        d, h, qpk,
                         int(causal), int(p_block or 0), int(quant), mkind,
                         _build.act_kind(out_dtype), _build.stream(q)),
                      "flash_attention")
@@ -442,12 +453,13 @@ def flash_attention_block(q, k, v, q_scale=None, k_scale=None, v_scale=None,
     acc = torch.empty((bh, n, d), dtype=torch.float32, device=q.device)
     m = torch.empty((bh, n, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((bh, n, 1), dtype=torch.float32, device=q.device)
+    vt = _vt_scratch(v, vs)
     if n:
         fn = _build.function("flash_attn", "sdnq_flash_attn_block",
-                             [P] * 7 + [_L] * 3 + [P] * 3 + [I] * 8
+                             [P] * 7 + [_L] * 3 + [P] * 4 + [I] * 8
                              + [ctypes.c_float, P])
         _build.check(fn(*(_build.ptr(t) for t in (q, k, v, qs, ks, vs, mask)),
-                        *strides, *(_build.ptr(t) for t in (acc, m, l)),
+                        *strides, *(_build.ptr(t) for t in (acc, m, l, vt)),
                         bh, n, kn, d, mask_heads,
                         attn_p_block(kn) if quantized_pv else 0,
                         int(quantized), mkind, float(sm_scale),

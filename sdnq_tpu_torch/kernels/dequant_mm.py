@@ -209,6 +209,12 @@ def _operands(scale, zp, bias):
     return scale, zp, bias
 
 
+def _aligned(t, n: int):
+    """``t`` (contiguous) if its data starts on an ``n``-byte boundary, else
+    a copy that does (the GEMV's 16-byte x loads and weight copies)."""
+    return t if t.data_ptr() % n == 0 else t.clone()
+
+
 def dequant_gemv(x, codes, scale, zp=None, bias=None,
                  out_dtype=torch.bfloat16, fmt=None):
     """Weight-only GEMV for x (M, K), M <= 32 on the card, fp32 / bf16 /
@@ -230,18 +236,22 @@ def dequant_gemv(x, codes, scale, zp=None, bias=None,
     if groups > 1 and (k % groups or (k // groups) % 8):
         raise ValueError(f"dequant_gemv: group {k / groups} of K {k} is not "
                          "a multiple of 8")
-    pad = (-k) % 8  # the kernel reads codes 8 at a time (rowwise only)
+    # the kernel streams rows of a multiple of 16 codes: zero codes times
+    # zero x add nothing (a grouped pad takes the last group's scale)
+    pad = (-k) % 16
     if pad:
         x = F.pad(x, (0, pad))
         codes = F.pad(codes.view(torch.uint8), (0, pad)).view(codes.dtype)
-    x, codes = x.contiguous(), codes.contiguous()
+    x, codes = _aligned(x.contiguous(), 16), _aligned(codes.contiguous(), 16)
     scale, zp, bias = _operands(scale, zp, bias)
     out = torch.empty((m, o), dtype=out_dtype, device=x.device)
     fn = _build.function("dequant_gemv", "sdnq_dequant_gemv",
-                         [P] * 6 + [I] * 7 + [P])
+                         [P] * 6 + [I] * 8 + [P])
     _build.check(fn(*(_build.ptr(t) for t in (x, codes, scale, zp, bias,
                                               out)),
-                    m, k + pad, o, groups, _build.act_kind(x.dtype), kind,
+                    m, k + pad, o, groups,
+                    k + pad if groups == 1 else k // groups,
+                    _build.act_kind(x.dtype), kind,
                     _build.act_kind(out_dtype), _build.stream(x)),
                  "dequant_gemv")
     dequant_gemv.launches += 1

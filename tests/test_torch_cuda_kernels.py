@@ -1508,3 +1508,202 @@ def test_blockdiag_i8_mm_widths(dev, bits, g, m):
     got = kd.blockdiag_i8_mm(xpad[:, :k], xs, cpad[:, :nb], scale, zpc, bias,
                              bits, torch.float32)
     assert torch.equal(got, want)
+
+
+# B3 / B9 in token mode on the TMA + s8 wgmma kernel (64-key tiles, V^T
+# written once a call in vt_key's order, three passes a P block).  Token
+# mode quantizes P at the same points as the plain version (the codes by
+# the division's rounding), so each row agrees to fp32 rounding: 1e-4 of
+# the row's largest output, as test_flash_attention_serving_modes.
+
+def _token_inputs(dev, g, bh, bkh, n, kn, d, quant=True):
+    args, vs = _attn_inputs(dev, g, bh, bkh, n, kn, d, quant, True)
+    return args, dict(v_scale=vs, p_block=ka.attn_p_block(kn))
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 896])
+@pytest.mark.parametrize("kn", [64, 192, 1024])
+@pytest.mark.parametrize("d,qpk", [(64, 1), (64, 4), (128, 1), (128, 4)])
+def test_flash_attention_token(dev, n, kn, d, qpk):
+    """Query rows off and on the 64-row blocks, P blocks of 64, 192 (three
+    tiles) and 512 keys (two blocks), one and four query heads a KV head,
+    D 64 and 128, int8 Q.K^T."""
+    g = _gen(70)
+    b, kh = 2, 2
+    args, kw = _token_inputs(dev, g, b * kh * qpk, b * kh, n, kn, d)
+    kw["heads"] = kh * qpk
+    before = ka.flash_attention.mode_launches["int8_pv"]
+    got = ka.flash_attention(*args, out_dtype=torch.float32, **kw)
+    assert ka.flash_attention.mode_launches["int8_pv"] == before + 1
+    want = ka.flash_attention_plain(*args, out_dtype=torch.float32, **kw)
+    _rows_close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("mask", ["causal", "bool", "bf16", "fp32"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_attention_token_masks(dev, mask, out_dtype, quant):
+    """Causal (the diagonal's tile masked inside, the tiles right of it not
+    read), a bool (B, 1, N, KN) mask with holes, and additive bf16 / fp32
+    (1, H, N, KN) masks broadcast over the batch with one row -inf
+    everywhere (0, not NaN); int8 or bf16 Q.K^T, every output type (bf16 /
+    fp16: one ulp of the output on top).  bf16 Q.K^T sums its products in
+    another order than the plain version, so a P code may round the other
+    way: 2^-6 of the row's largest output there, as in
+    test_flash_attention_serving_modes."""
+    g = _gen(71)
+    b, h, kh, n = 2, 4, 2, 320   # P blocks of 320 keys: five tiles
+    args, kw = _token_inputs(dev, g, b * h, b * kh, n, n, 128, quant)
+    kw["heads"] = h
+    row = None
+    if mask == "causal":
+        kw["causal"] = True
+    elif mask == "bool":
+        mk = torch.rand(b, 1, n, n, device=dev, generator=g) < 0.6
+        mk[..., 0] = True
+        kw["mask"] = mk
+    else:
+        mk = torch.randn(1, h, n, n, device=dev, generator=g) * 2
+        row = 7
+        mk[:, :, row] = float("-inf")
+        kw["mask"] = mk.to(torch.bfloat16 if mask == "bf16" else
+                           torch.float32)
+    got = ka.flash_attention(*args, out_dtype=out_dtype, **kw).float()
+    want = ka.flash_attention_plain(*args, out_dtype=torch.float32, **kw)
+    assert torch.isfinite(got).all()
+    keep = torch.ones(n, dtype=torch.bool, device=dev)
+    if row is not None:
+        assert not got[:, row].any()
+        keep[row] = False
+    ulp = {torch.float32: 0.0, torch.bfloat16: 2 ** -8,
+           torch.float16: 2 ** -11}[out_dtype]
+    err = (got - want).abs()[:, keep]
+    lim = (1e-4 if quant else 2 ** -6) * want.abs()[:, keep].amax(
+        -1, keepdim=True) \
+        + ulp * want.abs()[:, keep]
+    assert (err <= lim).all()
+
+
+@pytest.mark.parametrize("mask_heads", [1, 3, 6])
+@pytest.mark.parametrize("kn", [384, 1024])
+def test_flash_attention_block_token_mask_heads(dev, mask_heads, kn):
+    """B9's token mode with a bool mask of 1, 3 or 6 heads over BH 6 (row bh
+    reads mask head bh % mask_heads), one row hidden everywhere (m = -1e30,
+    every p = 1, l = KN), N 136 off the 64-row blocks, P blocks of 384 keys
+    (six tiles) and 512."""
+    g = _gen(72)
+    bh, n = 6, 136
+    args, kw = _block_inputs(dev, g, bh, n, kn, "int8_token")
+    mk = torch.rand(mask_heads, n, kn, device=dev, generator=g) < 0.5
+    mk[..., 0] = True
+    mk[0, 9] = False
+    args.append(mk)
+    got = ka.flash_attention_block(*args, **kw)
+    want = ka.flash_attention_block_plain(*args, **kw)
+    _block_check(got, want, True)
+    assert got[1][0, 9, 0] == torch.tensor(-1e30) and got[2][0, 9, 0] == kn
+
+
+def test_flash_attention_token_views_off_16_bytes(dev):
+    """q, k and v views that start off a 16-byte boundary are copied by the
+    wrappers (TMA reads them), in token mode as in the bf16 one: the result
+    equals the kernel's on aligned copies, for B3 and B9."""
+    g = _gen(73)
+    args, kw = _token_inputs(dev, g, 4, 2, 100, 256, 128)
+    views = []
+    for t in args[:3]:
+        buf = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        views.append(view)
+    kw["heads"] = 4
+    got = ka.flash_attention(*views, *args[3:], out_dtype=torch.float32, **kw)
+    aligned = ka.flash_attention(*(v.clone() for v in views), *args[3:],
+                                 out_dtype=torch.float32, **kw)
+    assert torch.equal(got, aligned)
+    bargs, bkw = _block_inputs(dev, g, 2, 128, 512, "int8_token")
+    bviews = []
+    for t in bargs[:3]:
+        buf = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)
+        bviews.append(buf[1:].view(t.shape))
+        bviews[-1].copy_(t)
+    got = ka.flash_attention_block(*bviews, *bargs[3:], None, **bkw)
+    want = ka.flash_attention_block_plain(*bargs, None, **bkw)
+    _block_check(got, want, True)
+
+
+# B2's rowwise and grouped GEMV (a stream of the weight: 16-byte code loads,
+# x staged once a block, K split over warps for layers with few rows).  fp32
+# sums in another order than the plain version's: 1e-5 of the sum of
+# |terms| (_grouped_bound, the weight rounded to x's dtype in both).
+
+@pytest.mark.parametrize("m", [1, 4, 5, 8, 17, 32])
+@pytest.mark.parametrize("k,o", [(8, 7), (771, 1024), (14336, 1),
+                                 (4096, 14336), (14336, 1024)])
+def test_dequant_gemv_rows(dev, m, k, o):
+    """Rowwise int8 codes with bf16 x at every row count: K 8 and K 771
+    (the wrapper pads them to multiples of 16), K 14336 (x staged up to 128
+    KB, read through L1 above), one output row, 1024 rows (K split over
+    warps) and 14336."""
+    gen = _gen(74)
+    codes = _codes("int8", o, k, gen, dev)
+    scale = torch.rand(o, device=dev, generator=gen) * 0.01 + 1e-3
+    x = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+    bias = torch.randn(o, device=dev, generator=gen)
+    got = kd.dequant_gemv(x, codes, scale, None, bias, torch.float32)
+    want = kd.dequant_gemv_plain(x, codes, scale, None, bias, torch.float32)
+    assert ((got - want).abs() <= _grouped_bound(x, codes, scale, None,
+                                                 bias)).all()
+
+
+@pytest.mark.parametrize("kind", ["int8", "uint8", "float8_e4m3fn"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16,
+                                     torch.float16])
+@pytest.mark.parametrize("gsize", [8, 32, 128, 1024, None])
+def test_dequant_gemv_groups(dev, kind, x_dtype, gsize):
+    """Every code kind (uint8 with a zero point), x dtype and group size
+    (None: rowwise), at M 4 (x staged) and 5, O 1024 (K split) and 72."""
+    gen = _gen(75)
+    k = 3072
+    groups = 1 if gsize is None else k // gsize
+    for m, o in ((4, 1024), (5, 72)):
+        codes = _codes(kind, o, k, gen, dev)
+        scale = torch.rand(o, groups, device=dev, generator=gen) * 0.01 \
+            + 1e-3
+        zp = (torch.randn(o, groups, device=dev, generator=gen) - 1.28
+              if kind == "uint8" else None)
+        x = torch.randn(m, k, device=dev, generator=gen).to(x_dtype)
+        bias = torch.randn(o, device=dev, generator=gen)
+        if gsize is None:
+            scale = scale[:, 0]
+            zp = None if zp is None else zp[:, 0]
+        got = kd.dequant_gemv(x, codes, scale, zp, bias, torch.float32)
+        want = kd.dequant_gemv_plain(x, codes, scale, zp, bias,
+                                     torch.float32)
+        bound = _grouped_bound(x, codes, scale, zp, bias)
+        if gsize is None and zp is not None:
+            bound = bound + 1e-5 * x.float().abs().sum(-1, keepdim=True) \
+                * zp.abs()[None]
+        assert ((got - want).abs() <= bound).all()
+
+
+def test_dequant_gemv_views_off_alignment(dev):
+    """x and codes starting off a 16-byte boundary are copied by the
+    wrapper; the result equals the aligned call's."""
+    gen = _gen(76)
+    k, o = 1024, 300
+    codes = _codes("int8", o, k, gen, dev)
+    scale = torch.rand(o, 8, device=dev, generator=gen) * 0.01
+    x = torch.randn(3, k, device=dev, generator=gen).bfloat16()
+    xb = torch.empty(x.numel() + 1, device=dev, dtype=x.dtype)
+    xv = xb[1:].view(x.shape)
+    xv.copy_(x)
+    cb = torch.empty(codes.numel() + 3, device=dev, dtype=codes.dtype)
+    cv = cb[3:].view(codes.shape)
+    cv.copy_(codes)
+    assert xv.data_ptr() % 16 and cv.data_ptr() % 16
+    got = kd.dequant_gemv(xv, cv, scale, None, None, torch.float32)
+    assert torch.equal(got, kd.dequant_gemv(x, codes, scale, None, None,
+                                            torch.float32))
