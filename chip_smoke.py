@@ -2,12 +2,13 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py              # from the root of a checkout
-    python3 chip_smoke.py --no-faults  # no phases 7 and 8, nor their builds
+    python3 chip_smoke.py --no-faults  # no phase 7, nor its builds
+    python3 chip_smoke.py --b1-probes  # only B1's quantizer and B4 nn's plans, timed
 
-``--no-faults`` starts no builds of planted faults or probes, so that the
-timed phases have the host's cores to themselves (the default run builds
-them at the lowest priority while phases 3 to 6 run); it skips phases 7
-and 8 and checks all else.
+``--no-faults`` starts no builds of planted faults, so that the timed
+phases have the host's cores to themselves (the default run builds them
+at the lowest priority while phases 3 to 6 run); it skips phase 7 and
+checks all else.
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -40,7 +41,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               bias, row, fold and int8 fold epilogues, and once at ragged
               M, N and K; B4 (TMA + wgmma) at a ragged shape with every
               epilogue term (int8 and e4m3), its int8 rows beside
-              torch._int_mm alone and with the epilogue; B10 beside
+              torch._int_mm alone and with the epilogue; B4's nn layout
+              (B1's grad-input) at every grad-input shape of the training
+              step (NN_SHAPES: linear1, linear2, img qkv / fc1 / fc2,
+              txt qkv, M 1 at 18432 and 9216 -> 3072; bit-equal, beside
+              torch._int_mm alone on operands laid out beforehand and
+              with the weight's transposed copy), at a ragged shape with
+              every epilogue term and in e4m3 (off the paths); B10 beside
               torch._int_mm / torch._scaled_mm alone and with the
               transposed copies and scales; B6 and B2's GEMV also with
               their weight cold (called on copies that exceed the L2 cache
@@ -183,34 +190,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               one's, the token kernel reading the next row's mask on one
               tile, leaving its diagonal tile unmasked, and its V^T slots
               in another order, B2's GEMV taking the next group's scale
-              and dropping the last K slice of a split row), built with
-              the real ones; phases 3 and 5 rerun with
-              each in turn.  Phase 3 must fail for the broken kernel; phase
-              5's readings are printed beside their limits.
-8. probes   - B3 bf16 and B9 bf16 at FLUX's P = 1 block timed by CUDA
-              events over bursts of calls under builds of flash_attn.cu
-              edited as PROBES says (built beside the faults, each with
-              their barrier watchdog, and one with that alone; B9 with
-              B3's exponent, with exp as exp2f(x log2(e)), without the
-              sm_scale multiply, with B3's bf16 epilogue; no ping-pong;
-              three K / V stages), beside the shipped build and SDPA;
-              B9's readings beside its limits under each.  B4's e4m3 mode
-              under builds of scaled_mm.cu that multiply with the fp8
-              wgmma (no promotion, an fp32 sum promoted every stage or
-              every k32 step) in place of the shipped fp16 conversion:
-              its worst error over the card tests' limit at their shapes
-              and over phase 3's at FLUX's, and its time, beside
-              torch._scaled_mm.  B10 under builds of scaled_mm_tn.cu
-              with clock64 counters (cycles a tile in the main loop, in
-              the epilogue, waiting for TMA, rewriting stages), alone and
-              without the stage rewrite; B6 with its weight cold under
-              builds of blockdiag_mm.cu with one part taken out each (the
-              decode, the scale and zpc loads, the x loads, the weight
-              loads: wrong outputs, the time the rest takes).  The
-              token-mode kernel (B9 at FLUX's P = 1 block, the Llama
-              int8-KV prefill call) with one part taken out each (Q.K^T, P.V, the quantisation, the exponent,
-              the V^T copy); B2's GEMV with its weight cold without the
-              weight's loads, the x loads or the decode.
+              and dropping the last K slice of a split row, B1's quantize
+              without its division fallback, B4 nn with a byte lane of its
+              transpose swapped, the last slice of a split contraction
+              dropped, its split counters left set after a call and the M
+              tail dropped), built with the real ones;
+              for each in turn phase 3's rows of the kernels built from
+              the broken source and phase 5's slice of its path rerun.
+              Phase 3 must fail for the broken kernel; phase 5's readings
+              are printed beside their limits.
+``--b1-probes`` builds B1's and B4's sources, times B1's quantizer at
+phase 3's shapes and B4's nn layout at NN_SHAPES under every plan of
+``scaled_mm.nn_plan`` (device ms), and exits: the readings that plan is
+fitted to.
 
 The last line is {"ok": true, "device": {...}}.  Numbers are this card's,
 at the power limit printed beside them.
@@ -396,8 +388,8 @@ def gemv_cold(torch, args, wb, timed: bool = True):
 
 # name of each wrapper's CUDA kernel, as the profiler reports it
 KERNEL_SYMBOLS = {
-    "quantize_rows": "quantize_rows_kernel",
-    "scaled_gemm": ("scaled_mm_wgmma_kernel", "scaled_mm_nn_kernel"),
+    "quantize_rows": "quantize_rows_",
+    "scaled_gemm": ("scaled_mm_wgmma_kernel", "scaled_mm_nn_wgmma_kernel"),
     "dequant_gemv": ("dequant_gemv_kernel", "dequant_gemv_mma_kernel"),
     "dequant_mm": ("decode_weight_", "wgmma_mm_kernel"),
     "decode_weight": "decode_weight_", "wgmma_mm": "wgmma_mm_kernel",
@@ -449,9 +441,11 @@ def device_ms(torch, fn, symbol, reps: int = 5, seen=None):
 # phase 3: kernels against their plain versions at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def kernel_phase(torch, dev, timed: bool = True):
+def kernel_phase(torch, dev, timed: bool = True, only=None):
     """Each kernel against its plain version; with ``timed`` False only the
-    comparison runs (the times are None)."""
+    comparison runs (the times are None).  ``only`` (a set of csrc source
+    names) keeps the rows of the kernels built from those sources (the
+    fault phase's rerun of one broken source)."""
     import torch.nn.functional as F
     from sdnq_tpu_torch.kernels import attention as ka
     from sdnq_tpu_torch.kernels import dequant_mm as kd
@@ -464,7 +458,12 @@ def kernel_phase(torch, dev, timed: bool = True):
 
     def t(fn, reps: int = 10):
         return time_ms(fn, reps=reps) if timed else None
+
+    def runs(*sources):
+        """Whether the rows of kernels built from ``sources`` run."""
+        return only is None or any(x in only for x in sources)
     t.timed = timed  # for the row functions given ``t``
+    t.runs = runs
 
     def record(name, route, source, replaces, err, tol, kernel, plain_ms,
                bnd, library_ms, shape, on_path=True, path="int8",
@@ -493,6 +492,15 @@ def kernel_phase(torch, dev, timed: bool = True):
         ms = t(kernel)
         dev_ms = (device_ms(torch, kernel, symbol or KERNEL_SYMBOLS[name])
                   if timed else None)
+        for _ in range(2):
+            # a whole trace under the fault builds' load has read below the
+            # bound (half the quiet run's reading): trace it again
+            if dev_ms is None or dev_ms >= bnd[0]:
+                break
+            log(f"{name} {shape}: device_ms {dev_ms:.4f} below bound "
+                f"{bnd[0]:.4f}, traced again")
+            dev_ms = device_ms(torch, kernel,
+                               symbol or KERNEL_SYMBOLS[name])
         for key, val in (("device_ms", dev_ms),
                          ("cold_device_ms", extra.get("cold_device_ms"))):
             if val is not None:
@@ -526,197 +534,204 @@ def kernel_phase(torch, dev, timed: bool = True):
     m = 4608
     # B1, quantize half: fp32 rows into qkv / linear1 / fc1 (K 3072) and
     # bf16 rows into linear2 (K 15360)
-    for k, dt in ((3072, torch.float32), (15360, torch.bfloat16)):
-        x = torch.randn(m, k, device=dev, generator=g).to(dt)
-        got = ks.quantize_rows(x)
-        want = ks.quantize_rows_plain(x)
+    if runs("quantize_rows"):
+        for k, dt in ((3072, torch.float32), (15360, torch.bfloat16)):
+            x = torch.randn(m, k, device=dev, generator=g).to(dt)
+            got = ks.quantize_rows(x)
+            want = ks.quantize_rows_plain(x)
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got[:2], want[:2]))
+            record("quantize_rows", "cuda", "sdnq_tpu_torch/csrc/quantize_rows.cu",
+                   "sdnq_tpu/kernels/scaled_mm.py:230", err, 0.0,
+                   lambda: ks.quantize_rows(x),
+                   t(lambda: ks.quantize_rows_plain(x), reps=3),
+                   bound_ms(m * k * (x.element_size() + 1) + m * 4,
+                            3 * m * k, "fp32"),
+                   None, f"M{m} K{k} {str(dt)[6:]}")
+
+    # B4 / B1 GEMM half: int8 x int8 -> int32, epilogue, bf16 out
+    if runs("scaled_mm"):
+        for k, n in ((3072, 9216), (3072, 21504), (15360, 3072)):
+            a = torch.randint(-128, 128, (m, k), device=dev, generator=g,
+                              dtype=torch.int8)
+            b = torch.randint(-128, 128, (n, k), device=dev, generator=g,
+                              dtype=torch.int8)
+            xs = torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3
+            ws = torch.rand(n, device=dev, generator=g) * 2e-4 + 1e-5
+            bias = torch.randn(n, device=dev, generator=g)
+            got = ks.scaled_gemm(a, b, torch.bfloat16, xs, ws, bias)
+            want = ks.scaled_gemm_plain(a, b, torch.bfloat16, xs, ws, bias)
+            err = float((got.float() - want.float()).abs().max())
+
+            def int_mm():
+                return torch._int_mm(a, b.t())
+
+            def with_epilogue():
+                return ((int_mm().float() * xs) * ws + bias).to(torch.bfloat16)
+            # the library: torch._int_mm alone (its int32 product), and with
+            # the epilogue as four elementwise passes
+            record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
+                   "sdnq_tpu/kernels/scaled_mm.py:57", err,
+                   # bit-exact expected; one bf16 ulp (at most 2^-7 relative)
+                   # of the largest output
+                   float(want.float().abs().max()) * 2 ** -7,
+                   lambda: ks.scaled_gemm(a, b, torch.bfloat16, xs, ws,
+                                            bias),
+                   t(lambda: ks.scaled_gemm_plain(a, b, torch.bfloat16, xs,
+                                                  ws, bias), reps=3),
+                   bound_ms(m * k + n * k + m * n * 2 + (m + 2 * n) * 4,
+                            2 * m * n * k, "int8"),
+                   t(int_mm), f"M{m} K{k} N{n} int8", library_fn=int_mm,
+                   int_mm_epilogue_ms=t(with_epilogue))
+            del a, b
+
+    # B4 at a ragged shape (M, N and K off every tile; TMA's zero fill),
+    # every epilogue term, int8 (bit-exact) and e4m3; not on a path
+    if runs("scaled_mm"):
+        m2, k2, n2 = 1000, 3000, 3000
+        for kind in ("int8", "fp8"):
+            if kind == "int8":
+                a, b = (torch.randint(-128, 128, (r, k2), device=dev,
+                                      generator=g, dtype=torch.int8)
+                        for r in (m2, n2))
+            else:
+                a, b = ((torch.randn(r, k2, device=dev, generator=g) * 4).to(
+                    torch.float8_e4m3fn) for r in (m2, n2))
+            xs = torch.rand(m2, 1, device=dev, generator=g) * 0.02 + 1e-3
+            ws = torch.rand(n2, device=dev, generator=g) * 0.02 + 1e-3
+            bias, vz0, vz1 = (torch.randn(n2, device=dev, generator=g)
+                              for _ in range(3))
+            rs, zp = (torch.randn(m2, device=dev, generator=g)
+                      for _ in range(2))
+            args = (a, b, torch.bfloat16, xs, ws, bias, rs, zp, vz0, vz1)
+            got = ks.scaled_gemm(*args)
+            want = ks.scaled_gemm_plain(*args)
+            tol = float(want.float().abs().max()) * 2 ** -7
+            if kind == "fp8":
+                tol += float(1e-5 * ((a.float().abs() @ b.float().abs().T)
+                                     * xs * ws).max())
+            record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
+                   "sdnq_tpu/kernels/scaled_mm.py:57",
+                   float((got.float() - want.float()).abs().max()), tol,
+                   lambda: ks.scaled_gemm(*args),
+                   t(lambda: ks.scaled_gemm_plain(*args), reps=3),
+                   bound_ms(m2 * k2 + n2 * k2 + m2 * n2 * 2
+                            + (3 * m2 + 5 * n2) * 4, 2 * m2 * n2 * k2, kind),
+                   None, f"M{m2} K{k2} N{n2} {kind}, every epilogue term",
+                   on_path=False)
+            del a, b
+
+    # B4 bf16 flavour (the 16-bit family; not on this main path)
+    if runs("scaled_mm"):
+        a = torch.randn(m, 3072, device=dev, generator=g).bfloat16()
+        b = torch.randn(3072, 3072, device=dev, generator=g).bfloat16()
+        got = ks.scaled_gemm(a, b, torch.float32)
+        want = ks.scaled_gemm_plain(a, b, torch.float32)
+        tol = float(1e-4 * (a.float().abs() @ b.float().abs().T).max())
+        record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
+               "sdnq_tpu/kernels/scaled_mm.py:57",
+               float((got - want).abs().max()), tol,
+               lambda: ks.scaled_gemm(a, b, torch.float32),
+               t(lambda: ks.scaled_gemm_plain(a, b, torch.float32), reps=3),
+               bound_ms(2 * (m * 3072 + 3072 * 3072) + m * 3072 * 4,
+                        2 * m * 3072 * 3072, "bf16"),
+               t(lambda: F.linear(a, b).float()), f"M{m} K3072 N3072 bf16",
+               on_path=False)
+        del a, b
+
+    # B1/B4 fp8 e4m3 mode (fp8 weights; not on this main path)
+    if runs("quantize_rows", "scaled_mm"):
+        k, n = 3072, 9216
+        x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+        got = ks.quantize_rows(x, "float8_e4m3fn")
+        want = ks.quantize_rows_plain(x, "float8_e4m3fn")
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(got[:2], want[:2]))
         record("quantize_rows", "cuda", "sdnq_tpu_torch/csrc/quantize_rows.cu",
                "sdnq_tpu/kernels/scaled_mm.py:230", err, 0.0,
-               lambda: ks.quantize_rows(x),
-               t(lambda: ks.quantize_rows_plain(x), reps=3),
-               bound_ms(m * k * (x.element_size() + 1) + m * 4,
-                        3 * m * k, "fp32"),
-               None, f"M{m} K{k} {str(dt)[6:]}")
-
-    # B4 / B1 GEMM half: int8 x int8 -> int32, epilogue, bf16 out
-    for k, n in ((3072, 9216), (3072, 21504), (15360, 3072)):
-        a = torch.randint(-128, 128, (m, k), device=dev, generator=g,
-                          dtype=torch.int8)
-        b = torch.randint(-128, 128, (n, k), device=dev, generator=g,
-                          dtype=torch.int8)
-        xs = torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3
-        ws = torch.rand(n, device=dev, generator=g) * 2e-4 + 1e-5
-        bias = torch.randn(n, device=dev, generator=g)
-        got = ks.scaled_gemm(a, b, torch.bfloat16, xs, ws, bias)
-        want = ks.scaled_gemm_plain(a, b, torch.bfloat16, xs, ws, bias)
-        err = float((got.float() - want.float()).abs().max())
-
-        def int_mm():
-            return torch._int_mm(a, b.t())
-
-        def with_epilogue():
-            return ((int_mm().float() * xs) * ws + bias).to(torch.bfloat16)
-        # the library: torch._int_mm alone (its int32 product), and with
-        # the epilogue as four elementwise passes
-        record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
-               "sdnq_tpu/kernels/scaled_mm.py:57", err,
-               # bit-exact expected; one bf16 ulp (at most 2^-7 relative)
-               # of the largest output
-               float(want.float().abs().max()) * 2 ** -7,
-               lambda: ks.scaled_gemm(a, b, torch.bfloat16, xs, ws,
-                                        bias),
-               t(lambda: ks.scaled_gemm_plain(a, b, torch.bfloat16, xs,
-                                              ws, bias), reps=3),
-               bound_ms(m * k + n * k + m * n * 2 + (m + 2 * n) * 4,
-                        2 * m * n * k, "int8"),
-               t(int_mm), f"M{m} K{k} N{n} int8", library_fn=int_mm,
-               int_mm_epilogue_ms=t(with_epilogue))
-        del a, b
-
-    # B4 at a ragged shape (M, N and K off every tile; TMA's zero fill),
-    # every epilogue term, int8 (bit-exact) and e4m3; not on a path
-    m2, k2, n2 = 1000, 3000, 3000
-    for kind in ("int8", "fp8"):
-        if kind == "int8":
-            a, b = (torch.randint(-128, 128, (r, k2), device=dev,
-                                  generator=g, dtype=torch.int8)
-                    for r in (m2, n2))
-        else:
-            a, b = ((torch.randn(r, k2, device=dev, generator=g) * 4).to(
-                torch.float8_e4m3fn) for r in (m2, n2))
-        xs = torch.rand(m2, 1, device=dev, generator=g) * 0.02 + 1e-3
-        ws = torch.rand(n2, device=dev, generator=g) * 0.02 + 1e-3
-        bias, vz0, vz1 = (torch.randn(n2, device=dev, generator=g)
-                          for _ in range(3))
-        rs, zp = (torch.randn(m2, device=dev, generator=g)
-                  for _ in range(2))
-        args = (a, b, torch.bfloat16, xs, ws, bias, rs, zp, vz0, vz1)
-        got = ks.scaled_gemm(*args)
-        want = ks.scaled_gemm_plain(*args)
-        tol = float(want.float().abs().max()) * 2 ** -7
-        if kind == "fp8":
-            tol += float(1e-5 * ((a.float().abs() @ b.float().abs().T)
-                                 * xs * ws).max())
+               lambda: ks.quantize_rows(x, "float8_e4m3fn"),
+               t(lambda: ks.quantize_rows_plain(x, "float8_e4m3fn"), reps=3),
+               bound_ms(m * k * 3 + m * 4, 3 * m * k, "fp32"), None,
+               f"M{m} K{k} bfloat16 fp8", on_path=False)
+        a = got[0]
+        b = (torch.randn(n, k, device=dev, generator=g) * 50).to(
+            torch.float8_e4m3fn)
+        xs, ws = got[1], torch.rand(n, device=dev, generator=g) * 1e-3
+        got = ks.scaled_gemm(a, b, torch.bfloat16, xs, ws)
+        want = ks.scaled_gemm_plain(a, b, torch.bfloat16, xs, ws)
+        tol = float(1e-5 * ((a.float().abs() @ b.float().abs().T) * xs
+                            * ws).max() + want.float().abs().max() * 2 ** -7)
         record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
                "sdnq_tpu/kernels/scaled_mm.py:57",
                float((got.float() - want.float()).abs().max()), tol,
-               lambda: ks.scaled_gemm(*args),
-               t(lambda: ks.scaled_gemm_plain(*args), reps=3),
-               bound_ms(m2 * k2 + n2 * k2 + m2 * n2 * 2
-                        + (3 * m2 + 5 * n2) * 4, 2 * m2 * n2 * k2, kind),
-               None, f"M{m2} K{k2} N{n2} {kind}, every epilogue term",
-               on_path=False)
-        del a, b
-
-    # B4 bf16 flavour (the 16-bit family; not on this main path)
-    a = torch.randn(m, 3072, device=dev, generator=g).bfloat16()
-    b = torch.randn(3072, 3072, device=dev, generator=g).bfloat16()
-    got = ks.scaled_gemm(a, b, torch.float32)
-    want = ks.scaled_gemm_plain(a, b, torch.float32)
-    tol = float(1e-4 * (a.float().abs() @ b.float().abs().T).max())
-    record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
-           "sdnq_tpu/kernels/scaled_mm.py:57",
-           float((got - want).abs().max()), tol,
-           lambda: ks.scaled_gemm(a, b, torch.float32),
-           t(lambda: ks.scaled_gemm_plain(a, b, torch.float32), reps=3),
-           bound_ms(2 * (m * 3072 + 3072 * 3072) + m * 3072 * 4,
-                    2 * m * 3072 * 3072, "bf16"),
-           t(lambda: F.linear(a, b).float()), f"M{m} K3072 N3072 bf16",
-           on_path=False)
-    del a, b
-
-    # B1/B4 fp8 e4m3 mode (fp8 weights; not on this main path)
-    k, n = 3072, 9216
-    x = torch.randn(m, k, device=dev, generator=g).bfloat16()
-    got = ks.quantize_rows(x, "float8_e4m3fn")
-    want = ks.quantize_rows_plain(x, "float8_e4m3fn")
-    err = max(float((a.float() - b.float()).abs().max())
-              for a, b in zip(got[:2], want[:2]))
-    record("quantize_rows", "cuda", "sdnq_tpu_torch/csrc/quantize_rows.cu",
-           "sdnq_tpu/kernels/scaled_mm.py:230", err, 0.0,
-           lambda: ks.quantize_rows(x, "float8_e4m3fn"),
-           t(lambda: ks.quantize_rows_plain(x, "float8_e4m3fn"), reps=3),
-           bound_ms(m * k * 3 + m * 4, 3 * m * k, "fp32"), None,
-           f"M{m} K{k} bfloat16 fp8", on_path=False)
-    a = got[0]
-    b = (torch.randn(n, k, device=dev, generator=g) * 50).to(
-        torch.float8_e4m3fn)
-    xs, ws = got[1], torch.rand(n, device=dev, generator=g) * 1e-3
-    got = ks.scaled_gemm(a, b, torch.bfloat16, xs, ws)
-    want = ks.scaled_gemm_plain(a, b, torch.bfloat16, xs, ws)
-    tol = float(1e-5 * ((a.float().abs() @ b.float().abs().T) * xs
-                        * ws).max() + want.float().abs().max() * 2 ** -7)
-    record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
-           "sdnq_tpu/kernels/scaled_mm.py:57",
-           float((got.float() - want.float()).abs().max()), tol,
-           lambda: ks.scaled_gemm(a, b, torch.bfloat16, xs, ws),
-           t(lambda: ks.scaled_gemm_plain(a, b, torch.bfloat16, xs, ws),
-             reps=3),
-           bound_ms(m * k + n * k + m * n * 2 + (m + n) * 4, 2 * m * n * k,
-                    "fp8"),
-           t(lambda: torch._scaled_mm(
-               a, b.t(), scale_a=xs, scale_b=ws[None, :],
-               out_dtype=torch.bfloat16)),
-           f"M{m} K{k} N{n} fp8", on_path=False)
-    del a, b, x
+               lambda: ks.scaled_gemm(a, b, torch.bfloat16, xs, ws),
+               t(lambda: ks.scaled_gemm_plain(a, b, torch.bfloat16, xs, ws),
+                 reps=3),
+               bound_ms(m * k + n * k + m * n * 2 + (m + n) * 4, 2 * m * n * k,
+                        "fp8"),
+               t(lambda: torch._scaled_mm(
+                   a, b.t(), scale_a=xs, scale_b=ws[None, :],
+                   out_dtype=torch.bfloat16)),
+               f"M{m} K{k} N{n} fp8", on_path=False)
+        del a, b, x
 
     # B2: M = 1 modulation GEMV, fp32 rows, int8 codes, bf16 out
-    k, o = 3072, 18432
-    x = torch.randn(1, k, device=dev, generator=g)
-    w = torch.randint(-128, 128, (o, k), device=dev, generator=g,
-                      dtype=torch.int8)
-    s = torch.rand(o, device=dev, generator=g) * 1e-3
-    bias = torch.randn(o, device=dev, generator=g)
-    got = kd.dequant_gemv(x, w, s, None, bias, torch.bfloat16)
-    want = kd.dequant_gemv_plain(x, w, s, None, bias, torch.bfloat16)
-    tol = float(1e-4 * ((x.abs() @ w.float().abs().T) * s).max()
-                + want.float().abs().max() * 2 ** -7)
-    w_deq = (w.float() * s[:, None]).bfloat16()
-    xb = x.bfloat16()
-    record("dequant_gemv", "cuda", "sdnq_tpu_torch/csrc/dequant_gemv.cu",
-           "sdnq_tpu/kernels/dequant_mm.py:60",
-           float((got.float() - want.float()).abs().max()), tol,
-           lambda: kd.dequant_gemv(x, w, s, None, bias,
-                                    torch.bfloat16),
-           t(lambda: kd.dequant_gemv_plain(x, w, s, None, bias,
-                                          torch.bfloat16), reps=5),
-           bound_ms(o * k + k * 4 + o * 2 + 2 * o * 4, 2 * o * k, "fp32"),
-           t(lambda: F.linear(xb, w_deq, bias.bfloat16()), reps=20),
-           f"M1 K{k} O{o} int8",
-           library_fn=lambda: F.linear(xb, w_deq, bias.bfloat16()),
-           **gemv_cold(torch, (x, w, s, None, bias, torch.bfloat16), w_deq,
-                       t.timed))
-    del w, w_deq
+    if runs("dequant_gemv"):
+        k, o = 3072, 18432
+        x = torch.randn(1, k, device=dev, generator=g)
+        w = torch.randint(-128, 128, (o, k), device=dev, generator=g,
+                          dtype=torch.int8)
+        s = torch.rand(o, device=dev, generator=g) * 1e-3
+        bias = torch.randn(o, device=dev, generator=g)
+        got = kd.dequant_gemv(x, w, s, None, bias, torch.bfloat16)
+        want = kd.dequant_gemv_plain(x, w, s, None, bias, torch.bfloat16)
+        tol = float(1e-4 * ((x.abs() @ w.float().abs().T) * s).max()
+                    + want.float().abs().max() * 2 ** -7)
+        w_deq = (w.float() * s[:, None]).bfloat16()
+        xb = x.bfloat16()
+        record("dequant_gemv", "cuda", "sdnq_tpu_torch/csrc/dequant_gemv.cu",
+               "sdnq_tpu/kernels/dequant_mm.py:60",
+               float((got.float() - want.float()).abs().max()), tol,
+               lambda: kd.dequant_gemv(x, w, s, None, bias,
+                                        torch.bfloat16),
+               t(lambda: kd.dequant_gemv_plain(x, w, s, None, bias,
+                                              torch.bfloat16), reps=5),
+               bound_ms(o * k + k * 4 + o * 2 + 2 * o * 4, 2 * o * k, "fp32"),
+               t(lambda: F.linear(xb, w_deq, bias.bfloat16()), reps=20),
+               f"M1 K{k} O{o} int8",
+               library_fn=lambda: F.linear(xb, w_deq, bias.bfloat16()),
+               **gemv_cold(torch, (x, w, s, None, bias, torch.bfloat16), w_deq,
+                           t.timed))
+        del w, w_deq
     # B2's GEMV at the Llama-3-8B decode step's shapes: M 4 (the requests),
     # int8 rowwise codes, bf16 x and out; q / o, k / v (1024 rows: K split
     # over the warps of a row), gate / up and down.  Also with the weight
     # cold: a step reads 6.98 GB of codes, which never sit in the L2.
-    for k, o, what in ((4096, 4096, "q / o"), (4096, 1024, "k / v"),
-                       (4096, 14336, "gate / up"), (14336, 4096, "down")):
-        x = torch.randn(4, k, device=dev, generator=g).bfloat16()
-        w = torch.randint(-128, 128, (o, k), device=dev, generator=g,
-                          dtype=torch.int8)
-        s = torch.rand(o, device=dev, generator=g) * 1e-3
-        args = (x, w, s, None, None, torch.bfloat16)
-        got = kd.dequant_gemv(*args)
-        want = kd.dequant_gemv_plain(*args)
-        tol = float(1e-4 * ((x.float().abs() @ w.float().abs().T) * s).max()
-                    + want.float().abs().max() * 2 ** -7)
-        w_deq = (w.float() * s[:, None]).bfloat16()
-        record("dequant_gemv", "cuda", "sdnq_tpu_torch/csrc/dequant_gemv.cu",
-               "sdnq_tpu/kernels/dequant_mm.py:60",
-               float((got.float() - want.float()).abs().max()), tol,
-               lambda: kd.dequant_gemv(*args),
-               t(lambda: kd.dequant_gemv_plain(*args), reps=5),
-               bound_ms(o * k + 4 * k * 2 + o * 4 + 4 * o * 2, 8 * o * k,
-                        "fp32"),
-               t(lambda: F.linear(x, w_deq), reps=20),
-               f"M4 K{k} O{o} int8 rowwise bf16 (Llama decode {what})",
-               path="llm_int8kv", library_fn=lambda: F.linear(x, w_deq),
-               **gemv_cold(torch, args, w_deq, t.timed))
-        del w, w_deq, got, want
+    if runs("dequant_gemv"):
+        for k, o, what in ((4096, 4096, "q / o"), (4096, 1024, "k / v"),
+                           (4096, 14336, "gate / up"), (14336, 4096, "down")):
+            x = torch.randn(4, k, device=dev, generator=g).bfloat16()
+            w = torch.randint(-128, 128, (o, k), device=dev, generator=g,
+                              dtype=torch.int8)
+            s = torch.rand(o, device=dev, generator=g) * 1e-3
+            args = (x, w, s, None, None, torch.bfloat16)
+            got = kd.dequant_gemv(*args)
+            want = kd.dequant_gemv_plain(*args)
+            tol = float(1e-4 * ((x.float().abs() @ w.float().abs().T) * s).max()
+                        + want.float().abs().max() * 2 ** -7)
+            w_deq = (w.float() * s[:, None]).bfloat16()
+            record("dequant_gemv", "cuda", "sdnq_tpu_torch/csrc/dequant_gemv.cu",
+                   "sdnq_tpu/kernels/dequant_mm.py:60",
+                   float((got.float() - want.float()).abs().max()), tol,
+                   lambda: kd.dequant_gemv(*args),
+                   t(lambda: kd.dequant_gemv_plain(*args), reps=5),
+                   bound_ms(o * k + 4 * k * 2 + o * 4 + 4 * o * 2, 8 * o * k,
+                            "fp32"),
+                   t(lambda: F.linear(x, w_deq), reps=20),
+                   f"M4 K{k} O{o} int8 rowwise bf16 (Llama decode {what})",
+                   path="llm_int8kv", library_fn=lambda: F.linear(x, w_deq),
+                   **gemv_cold(torch, args, w_deq, t.timed))
+            del w, w_deq, got, want
 
     # B3: joint attention, 24 heads, 4608 tokens, head dim 128.  Kernel and
     # plain version round P to bf16 against a running and the final row max
@@ -724,48 +739,49 @@ def kernel_phase(torch, dev, timed: bool = True):
     # limit is two ulps of the largest output (2^-6 of it): with 4608 keys
     # the outputs are small (about 0.1), so a limit tied to |v| would pass
     # a kernel that dropped a whole KV tile.
-    def attn_tol(want):
-        return 2 ** -6 * float(want.float().abs().max())
+    if runs("flash_attn"):
+        def attn_tol(want):
+            return 2 ** -6 * float(want.float().abs().max())
 
-    bh, n, d = 24, 4608, 128
-    q = torch.randn(bh, n, d, device=dev, generator=g)
-    kk = torch.randn(bh, n, d, device=dev, generator=g)
-    v = torch.randn(bh, n, d, device=dev, generator=g).bfloat16()
-    sm = d ** -0.5
-    qb = (q * (sm * ka.LOG2E)).bfloat16()
-    kb = kk.bfloat16()
-    flops = 4 * bh * n * n * d
-    q16 = q.bfloat16()[None]
-    sdpa = (lambda: F.scaled_dot_product_attention(
-        q16, kb[None], v[None], scale=sm))
-    got = ka.flash_attention(qb, kb, v)
-    want = ka.flash_attention_plain(qb, kb, v)
-    record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
-           "sdnq_tpu/kernels/attention.py:67",
-           float((got.float() - want.float()).abs().max()), attn_tol(want),
-           lambda: ka.flash_attention(qb, kb, v),
-           t(lambda: ka.flash_attention_plain(qb, kb, v), reps=3),
-           bound_ms(4 * bh * n * d * 2, flops, "bf16"), t(sdpa),
-           f"BH{bh} N{n} D{d} bf16", library_fn=sdpa)
-    # int8-QK mode (the "auto" policy takes it at d <= 64; not on this path)
-    qq, qs = quantize_int_mm(q)
-    kq, kss = quantize_int_mm(kk)
-    qs = (qs[..., 0] * sm) * ka.LOG2E
-    kss = kss[..., 0]
-    got = ka.flash_attention(qq, kq, v, qs, kss)
-    want = ka.flash_attention_plain(qq, kq, v, qs, kss)
-    record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
-           "sdnq_tpu/kernels/attention.py:67",
-           float((got.float() - want.float()).abs().max()), attn_tol(want),
-           lambda: ka.flash_attention(qq, kq, v, qs, kss),
-           t(lambda: ka.flash_attention_plain(qq, kq, v, qs, kss),
-             reps=3),
-           # Q.K^T at the int8 rate, P.V at the bf16 rate: in bf16 terms
-           # 1/4 + 1/2 of the bf16 mode's operations
-           bound_ms(bh * n * d * (1 + 1 + 2 + 2) + 2 * bh * n * 4,
-                    0.75 * flops, "bf16"), t(sdpa),
-           f"BH{bh} N{n} D{d} int8-QK", on_path=False, library_fn=sdpa)
-    del q, kk, v, qb, kb, qq, kq, q16
+        bh, n, d = 24, 4608, 128
+        q = torch.randn(bh, n, d, device=dev, generator=g)
+        kk = torch.randn(bh, n, d, device=dev, generator=g)
+        v = torch.randn(bh, n, d, device=dev, generator=g).bfloat16()
+        sm = d ** -0.5
+        qb = (q * (sm * ka.LOG2E)).bfloat16()
+        kb = kk.bfloat16()
+        flops = 4 * bh * n * n * d
+        q16 = q.bfloat16()[None]
+        sdpa = (lambda: F.scaled_dot_product_attention(
+            q16, kb[None], v[None], scale=sm))
+        got = ka.flash_attention(qb, kb, v)
+        want = ka.flash_attention_plain(qb, kb, v)
+        record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
+               "sdnq_tpu/kernels/attention.py:67",
+               float((got.float() - want.float()).abs().max()), attn_tol(want),
+               lambda: ka.flash_attention(qb, kb, v),
+               t(lambda: ka.flash_attention_plain(qb, kb, v), reps=3),
+               bound_ms(4 * bh * n * d * 2, flops, "bf16"), t(sdpa),
+               f"BH{bh} N{n} D{d} bf16", library_fn=sdpa)
+        # int8-QK mode (the "auto" policy takes it at d <= 64; not on this path)
+        qq, qs = quantize_int_mm(q)
+        kq, kss = quantize_int_mm(kk)
+        qs = (qs[..., 0] * sm) * ka.LOG2E
+        kss = kss[..., 0]
+        got = ka.flash_attention(qq, kq, v, qs, kss)
+        want = ka.flash_attention_plain(qq, kq, v, qs, kss)
+        record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
+               "sdnq_tpu/kernels/attention.py:67",
+               float((got.float() - want.float()).abs().max()), attn_tol(want),
+               lambda: ka.flash_attention(qq, kq, v, qs, kss),
+               t(lambda: ka.flash_attention_plain(qq, kq, v, qs, kss),
+                 reps=3),
+               # Q.K^T at the int8 rate, P.V at the bf16 rate: in bf16 terms
+               # 1/4 + 1/2 of the bf16 mode's operations
+               bound_ms(bh * n * d * (1 + 1 + 2 + 2) + 2 * bh * n * 4,
+                        0.75 * flops, "bf16"), t(sdpa),
+               f"BH{bh} N{n} D{d} int8-QK", on_path=False, library_fn=sdpa)
+        del q, kk, v, qb, kb, qq, kq, q16
 
     # B3 serving modes at Llama-3-8B's shapes: 4 requests x 32 heads over 8
     # KV heads (GQA), head dim 128.  Prefill: 896 prompt tokens into a
@@ -779,7 +795,8 @@ def kernel_phase(torch, dev, timed: bool = True):
     # P block of 512 keys, two per row), so they agree to fp32 rounding:
     # 2^-10 of the row's largest output; the bf16 modes round P to bf16
     # against other maxima: 2^-6 of it.
-    llm_attention_rows(torch, dev, g, t, record)
+    if runs("flash_attn"):
+        llm_attention_rows(torch, dev, g, t, record)
     # B10 and B1's nn / colscale modes at the training step's shapes
     train_kernel_rows(torch, dev, g, t, record)
     # B2's grouped and row modes and B3's additive mask at the shapes of
@@ -789,10 +806,13 @@ def kernel_phase(torch, dev, timed: bool = True):
     # dynamic recipes give them; B1 on a stacked view; the bench.py shape
     dynamic_kernel_rows(torch, dev, g, t, record)
     # the decode and the GEMM of B2's tiles and B5, each alone
-    decode_gemm_rows(torch, dev, g, t, record)
-    stacked_and_bench_rows(torch, dev, g, t, record)
+    if runs("decode_weight", "wgmma_mm"):
+        decode_gemm_rows(torch, dev, g, t, record)
+    if runs("quantize_rows", "scaled_mm"):
+        stacked_and_bench_rows(torch, dev, g, t, record)
     # B9 at the block shapes of the rings of phase 4r
-    ring_kernel_rows(torch, dev, g, t, record)
+    if runs("flash_attn"):
+        ring_kernel_rows(torch, dev, g, t, record)
 
 
     # B5 / B6 / B7 on uint4 half-split codes, group 128 (the uint4 + SVD
@@ -819,78 +839,81 @@ def kernel_phase(torch, dev, timed: bool = True):
     def halfsplit_bytes(n, k, gsize=128, bits=4):
         return n * k * bits // 8 + 2 * n * (k // gsize) * 4 + n * 4
 
-    for m, k, n in ((4608, 3072, 21504), (4608, 15360, 3072),
-                    (512, 3072, 9216)):
-        packed, scale, zpc, w_deq = packed_weight(n, k)
-        x = torch.randn(m, k, device=dev, generator=g).bfloat16()
-        bias = torch.randn(n, device=dev, generator=g)
-        args = (x, packed, scale, zpc, bias, 4, torch.bfloat16)
-        got = kd.groupdot_mm(*args)
-        want = kd.groupdot_mm_plain(*args)
-        record("groupdot_mm", "cuda", "sdnq_tpu_torch/csrc/wgmma_mm.cu",
-               "sdnq_tpu/kernels/dequant_mm.py:355",
-               float((got.float() - want.float()).abs().max()),
-               ulp_tol(want), lambda: kd.groupdot_mm(*args),
-               t(lambda: kd.groupdot_mm_plain(*args), reps=3),
-               bound_ms(m * k * 2 + halfsplit_bytes(n, k) + m * n * 2,
-                        2 * m * n * k, "bf16"),
-               t(lambda: F.linear(x, w_deq, bias.bfloat16())),
-               f"M{m} K{k} N{n} uint4 g128", path="uint4_wo")
-        del packed, w_deq, x
+    if runs("decode_weight", "wgmma_mm"):
+        for m, k, n in ((4608, 3072, 21504), (4608, 15360, 3072),
+                        (512, 3072, 9216)):
+            packed, scale, zpc, w_deq = packed_weight(n, k)
+            x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+            bias = torch.randn(n, device=dev, generator=g)
+            args = (x, packed, scale, zpc, bias, 4, torch.bfloat16)
+            got = kd.groupdot_mm(*args)
+            want = kd.groupdot_mm_plain(*args)
+            record("groupdot_mm", "cuda", "sdnq_tpu_torch/csrc/wgmma_mm.cu",
+                   "sdnq_tpu/kernels/dequant_mm.py:355",
+                   float((got.float() - want.float()).abs().max()),
+                   ulp_tol(want), lambda: kd.groupdot_mm(*args),
+                   t(lambda: kd.groupdot_mm_plain(*args), reps=3),
+                   bound_ms(m * k * 2 + halfsplit_bytes(n, k) + m * n * 2,
+                            2 * m * n * k, "bf16"),
+                   t(lambda: F.linear(x, w_deq, bias.bfloat16())),
+                   f"M{m} K{k} N{n} uint4 g128", path="uint4_wo")
+            del packed, w_deq, x
 
     # B6 at M 1 (the modulation and embedding linears at batch 1), and at
     # M 8, the most rows it takes (off the paths)
-    for mg, k, n in ((1, 3072, 18432), (1, 256, 3072), (8, 3072, 18432)):
-        packed, scale, zpc, w_deq = packed_weight(n, k)
-        x = torch.randn(mg, k, device=dev, generator=g)
-        bias = torch.randn(n, device=dev, generator=g)
-        args = (x, packed, scale, zpc, bias, 4, torch.bfloat16)
-        got = kd.blockdiag_mm(*args)
-        want = kd.blockdiag_mm_plain(*args)
-        xb = x.bfloat16()
+    if runs("blockdiag_mm"):
+        for mg, k, n in ((1, 3072, 18432), (1, 256, 3072), (8, 3072, 18432)):
+            packed, scale, zpc, w_deq = packed_weight(n, k)
+            x = torch.randn(mg, k, device=dev, generator=g)
+            bias = torch.randn(n, device=dev, generator=g)
+            args = (x, packed, scale, zpc, bias, 4, torch.bfloat16)
+            got = kd.blockdiag_mm(*args)
+            want = kd.blockdiag_mm_plain(*args)
+            xb = x.bfloat16()
 
-        def library(xb=xb, w_deq=w_deq, bias=bias):
-            return F.linear(xb, w_deq, bias.bfloat16())
-        # a weight of 28 MB stays in the 50 MB L2 between repeated calls;
-        # the path reads each layer's cold: timed so too
-        cold = b6_cold(torch, args, w_deq, timed) if n * k >= 1 << 24 else {}
-        record("blockdiag_mm", "cuda", "sdnq_tpu_torch/csrc/blockdiag_mm.cu",
-               "sdnq_tpu/kernels/dequant_mm.py:593",
-               float((got.float() - want.float()).abs().max()),
-               ulp_tol(want), lambda a=args: kd.blockdiag_mm(*a),
-               t(lambda a=args: kd.blockdiag_mm_plain(*a), reps=5),
-               bound_ms(halfsplit_bytes(n, k) + mg * k * 4 + mg * n * 2,
-                        2 * mg * n * k, "fp32"),
-               t(library, reps=20), f"M{mg} K{k} N{n} uint4 g128",
-               path="uint4_wo", on_path=mg == 1, library_fn=library, **cold)
-        del packed, w_deq
+            def library(xb=xb, w_deq=w_deq, bias=bias):
+                return F.linear(xb, w_deq, bias.bfloat16())
+            # a weight of 28 MB stays in the 50 MB L2 between repeated calls;
+            # the path reads each layer's cold: timed so too
+            cold = b6_cold(torch, args, w_deq, timed) if n * k >= 1 << 24 else {}
+            record("blockdiag_mm", "cuda", "sdnq_tpu_torch/csrc/blockdiag_mm.cu",
+                   "sdnq_tpu/kernels/dequant_mm.py:593",
+                   float((got.float() - want.float()).abs().max()),
+                   ulp_tol(want), lambda a=args: kd.blockdiag_mm(*a),
+                   t(lambda a=args: kd.blockdiag_mm_plain(*a), reps=5),
+                   bound_ms(halfsplit_bytes(n, k) + mg * k * 4 + mg * n * 2,
+                            2 * mg * n * k, "fp32"),
+                   t(library, reps=20), f"M{mg} K{k} N{n} uint4 g128",
+                   path="uint4_wo", on_path=mg == 1, library_fn=library, **cold)
+            del packed, w_deq
 
     # B7: the uint4 q path's shapes, then uint5 g256 (three field planes)
     # at R2's 15360 -> 3072 shape, off the paths (the route sends 5-bit
     # codes to B7 only under the quantized matmul, which R2 does not use)
-    for m, k, n, bits, gsize in ((4608, 3072, 21504, 4, 128),
-                                 (4096, 3072, 9216, 4, 128),
-                                 (4608, 15360, 3072, 5, 256)):
-        packed, scale, zpc, w_deq = packed_weight(n, k, bits, gsize)
-        xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
-                           dtype=torch.int8)
-        xs = torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3
-        bias = torch.randn(n, device=dev, generator=g)
-        args = (xq, xs, packed, scale, zpc, bias, bits, torch.bfloat16)
-        got = kd.groupdot_i8_mm(*args)
-        want = kd.groupdot_i8_mm_plain(*args)
-        xb = (xq.float() * xs).bfloat16()
-        record("groupdot_i8_mm", "cuda", "sdnq_tpu_torch/csrc/wgmma_mm.cu",
-               "sdnq_tpu/kernels/dequant_mm.py:741",
-               float((got.float() - want.float()).abs().max()),
-               ulp_tol(want), lambda: kd.groupdot_i8_mm(*args),
-               t(lambda: kd.groupdot_i8_mm_plain(*args), reps=3),
-               bound_ms(m * k + halfsplit_bytes(n, k, gsize, bits) + m * 4
-                        + m * n * 2, 2 * m * n * k, "int8"),
-               t(lambda: F.linear(xb, w_deq, bias.bfloat16())),
-               f"M{m} K{k} N{n} uint{bits} g{gsize}", path="uint4_qmm",
-               on_path=bits == 4)
-        del packed, w_deq, xq, xb
+    if runs("decode_weight", "wgmma_mm"):
+        for m, k, n, bits, gsize in ((4608, 3072, 21504, 4, 128),
+                                     (4096, 3072, 9216, 4, 128),
+                                     (4608, 15360, 3072, 5, 256)):
+            packed, scale, zpc, w_deq = packed_weight(n, k, bits, gsize)
+            xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                               dtype=torch.int8)
+            xs = torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3
+            bias = torch.randn(n, device=dev, generator=g)
+            args = (xq, xs, packed, scale, zpc, bias, bits, torch.bfloat16)
+            got = kd.groupdot_i8_mm(*args)
+            want = kd.groupdot_i8_mm_plain(*args)
+            xb = (xq.float() * xs).bfloat16()
+            record("groupdot_i8_mm", "cuda", "sdnq_tpu_torch/csrc/wgmma_mm.cu",
+                   "sdnq_tpu/kernels/dequant_mm.py:741",
+                   float((got.float() - want.float()).abs().max()),
+                   ulp_tol(want), lambda: kd.groupdot_i8_mm(*args),
+                   t(lambda: kd.groupdot_i8_mm_plain(*args), reps=3),
+                   bound_ms(m * k + halfsplit_bytes(n, k, gsize, bits) + m * 4
+                            + m * n * 2, 2 * m * n * k, "int8"),
+                   t(lambda: F.linear(xb, w_deq, bias.bfloat16())),
+                   f"M{m} K{k} N{n} uint{bits} g{gsize}", path="uint4_qmm",
+                   on_path=bits == 4)
+            del packed, w_deq, xq, xb
 
     # B8 at the decode shapes of its domain: meta-llama/Llama-3.2-1B's q and
     # gate projections (hidden 2048, intermediate 8192) at a decode batch of
@@ -899,28 +922,29 @@ def kernel_phase(torch, dev, timed: bool = True):
     # uint5 (two field planes) at g 64 (not on a path).  Bit-equal expected
     # (exact integer partials, the same fp32 folds): limit one bf16 ulp of
     # the largest output.
-    for bits, gsize, k, n in ((4, 64, 2048, 8192), (4, 64, 2048, 2048),
-                              (2, 16, 512, 4096), (5, 64, 2048, 8192)):
-        packed, scale, zpc, w_deq = packed_weight(n, k, bits, gsize)
-        xq = torch.randint(-127, 128, (32, k), device=dev, generator=g,
-                           dtype=torch.int8)
-        xs = torch.rand(32, 1, device=dev, generator=g) * 0.02 + 1e-3
-        args = (xq, xs, packed, scale, zpc, None, bits, torch.bfloat16)
-        got = kd.blockdiag_i8_mm(*args)
-        want = kd.blockdiag_i8_mm_plain(*args)
-        xb = (xq.float() * xs).bfloat16()
-        record("blockdiag_i8_mm", "cuda",
-               "sdnq_tpu_torch/csrc/blockdiag_i8_mm.cu",
-               "sdnq_tpu/kernels/dequant_mm.py:890",
-               float((got.float() - want.float()).abs().max()),
-               ulp_tol(want), lambda: kd.blockdiag_i8_mm(*args),
-               t(lambda: kd.blockdiag_i8_mm_plain(*args), reps=3),
-               bound_ms(32 * k + halfsplit_bytes(n, k, gsize, bits) + 32 * 4
-                        + 32 * n * 2, 2 * 32 * n * k, "int8"),
-               t(lambda: F.linear(xb, w_deq), reps=20),
-               f"M32 K{k} N{n} uint{bits} g{gsize}", path="qlinear_b8",
-               on_path=bits != 5)
-        del packed, w_deq
+    if runs("blockdiag_i8_mm"):
+        for bits, gsize, k, n in ((4, 64, 2048, 8192), (4, 64, 2048, 2048),
+                                  (2, 16, 512, 4096), (5, 64, 2048, 8192)):
+            packed, scale, zpc, w_deq = packed_weight(n, k, bits, gsize)
+            xq = torch.randint(-127, 128, (32, k), device=dev, generator=g,
+                               dtype=torch.int8)
+            xs = torch.rand(32, 1, device=dev, generator=g) * 0.02 + 1e-3
+            args = (xq, xs, packed, scale, zpc, None, bits, torch.bfloat16)
+            got = kd.blockdiag_i8_mm(*args)
+            want = kd.blockdiag_i8_mm_plain(*args)
+            xb = (xq.float() * xs).bfloat16()
+            record("blockdiag_i8_mm", "cuda",
+                   "sdnq_tpu_torch/csrc/blockdiag_i8_mm.cu",
+                   "sdnq_tpu/kernels/dequant_mm.py:890",
+                   float((got.float() - want.float()).abs().max()),
+                   ulp_tol(want), lambda: kd.blockdiag_i8_mm(*args),
+                   t(lambda: kd.blockdiag_i8_mm_plain(*args), reps=3),
+                   bound_ms(32 * k + halfsplit_bytes(n, k, gsize, bits) + 32 * 4
+                            + 32 * n * 2, 2 * 32 * n * k, "int8"),
+                   t(lambda: F.linear(xb, w_deq), reps=20),
+                   f"M32 K{k} N{n} uint{bits} g{gsize}", path="qlinear_b8",
+                   on_path=bits != 5)
+            del packed, w_deq
     torch.cuda.empty_cache()
     return rows
 
@@ -1120,6 +1144,7 @@ def train_kernel_rows(torch, dev, g, t, record):
         return dict(library_padded_ms=ms, library_padded_device_ms=(
             device_ms(torch, fn, "") if ms is not None else None))
 
+    runs = t.runs
     src_tn = "sdnq_tpu_torch/csrc/scaled_mm_tn.cu"
     rep_tn = "sdnq_tpu/kernels/scaled_mm.py:534"
     # B10 int8: gw = g^T x with both quantized columnwise.  Bit-equal to
@@ -1127,44 +1152,45 @@ def train_kernel_rows(torch, dev, g, t, record):
     # 0.  Shapes: single-block linear1 (1536 x 21504 by 1536 x 3072),
     # double-block img fc1 (1024 x 12288 by 1024 x 3072), and a modulation
     # linear at batch 1 (M = 1: 1 x 18432 by 1 x 3072).
-    for m, n, k, what in ((1536, 21504, 3072, "linear1"),
-                          (1024, 12288, 3072, "img fc1"),
-                          (1, 18432, 3072, "img_mod")):
-        a = torch.randint(-128, 128, (m, n), device=dev, generator=g,
-                          dtype=torch.int8)
-        b = torch.randint(-128, 128, (m, k), device=dev, generator=g,
-                          dtype=torch.int8)
-        a_s = torch.rand(n, device=dev, generator=g) * 1e-3 + 1e-5
-        b_s = torch.rand(k, device=dev, generator=g) * 1e-2 + 1e-4
-        got = ks.scaled_mm_tn(a, b, a_s, b_s)
-        want = ks.scaled_mm_tn_plain(a, b, a_s, b_s)
-        err = float((got - want).abs().max())
-        del got, want
+    if runs("scaled_mm_tn"):
+        for m, n, k, what in ((1536, 21504, 3072, "linear1"),
+                              (1024, 12288, 3072, "img fc1"),
+                              (1, 18432, 3072, "img_mod")):
+            a = torch.randint(-128, 128, (m, n), device=dev, generator=g,
+                              dtype=torch.int8)
+            b = torch.randint(-128, 128, (m, k), device=dev, generator=g,
+                              dtype=torch.int8)
+            a_s = torch.rand(n, device=dev, generator=g) * 1e-3 + 1e-5
+            b_s = torch.rand(k, device=dev, generator=g) * 1e-2 + 1e-4
+            got = ks.scaled_mm_tn(a, b, a_s, b_s)
+            want = ks.scaled_mm_tn_plain(a, b, a_s, b_s)
+            err = float((got - want).abs().max())
+            del got, want
 
-        def with_copies():
-            if m == 1:  # _int_mm takes no K of 1; one int8 product is
-                # exact in fp32, so the outer product is the same function
-                acc = torch.outer(a[0].float(), b[0].float())
-            else:
-                acc = torch._int_mm(a.t().contiguous(), b).float()
-            return acc * a_s[:, None] * b_s[None, :]
-        # the product alone, on operands laid out for it beforehand (A^T
-        # row-major, B column-major: cuBLASLt's int8 layout)
-        at = a.t().contiguous() if m > 1 else a[0].float()
-        bt = b.t().contiguous().t() if m > 1 else b[0].float()
+            def with_copies():
+                if m == 1:  # _int_mm takes no K of 1; one int8 product is
+                    # exact in fp32, so the outer product is the same function
+                    acc = torch.outer(a[0].float(), b[0].float())
+                else:
+                    acc = torch._int_mm(a.t().contiguous(), b).float()
+                return acc * a_s[:, None] * b_s[None, :]
+            # the product alone, on operands laid out for it beforehand (A^T
+            # row-major, B column-major: cuBLASLt's int8 layout)
+            at = a.t().contiguous() if m > 1 else a[0].float()
+            bt = b.t().contiguous().t() if m > 1 else b[0].float()
 
-        def library():
-            return torch.outer(at, bt) if m == 1 else torch._int_mm(at, bt)
-        lib_ms = library_or_none(library, f"scaled_mm_tn {what}")
-        extra = padded(with_copies, f"scaled_mm_tn {what}, padded")
-        record("scaled_mm_tn", "cuda", src_tn, rep_tn, err, 0.0,
-               lambda: ks.scaled_mm_tn(a, b, a_s, b_s),
-               t(lambda: ks.scaled_mm_tn_plain(a, b, a_s, b_s), reps=3),
-               bound_ms(m * n + m * k + 4 * n * k + 4 * (n + k),
-                        2 * m * n * k, "int8"),
-               lib_ms, f"M{m} N{n} K{k} int8 ({what} grad-weight)",
-               path="train", library_fn=library if lib_ms else None, **extra)
-        del a, b, at, bt
+            def library():
+                return torch.outer(at, bt) if m == 1 else torch._int_mm(at, bt)
+            lib_ms = library_or_none(library, f"scaled_mm_tn {what}")
+            extra = padded(with_copies, f"scaled_mm_tn {what}, padded")
+            record("scaled_mm_tn", "cuda", src_tn, rep_tn, err, 0.0,
+                   lambda: ks.scaled_mm_tn(a, b, a_s, b_s),
+                   t(lambda: ks.scaled_mm_tn_plain(a, b, a_s, b_s), reps=3),
+                   bound_ms(m * n + m * k + 4 * n * k + 4 * (n + k),
+                            2 * m * n * k, "int8"),
+                   lib_ms, f"M{m} N{n} K{k} int8 ({what} grad-weight)",
+                   path="train", library_fn=library if lib_ms else None, **extra)
+            del a, b, at, bt
 
     # the uint8 family's grad-weight (``dynamic_mm_tn``): its rank-2
     # zero-point term u (N, 2) @ v (2, K) in B10's epilogue, summed in fp32
@@ -1172,71 +1198,73 @@ def train_kernel_rows(torch, dev, g, t, record):
     # operands: read as the worst |got - want| over |want| + |u| @ |v|
     # (``scaled_mm.TN_LOWRANK_TOL``).  Off the paths (the training path's
     # int8 weights take the int8 family).
-    m, n, k = 1024, 12288, 3072
-    ga = torch.randn(m, n, device=dev, generator=g) + 0.5
-    xb = torch.randn(m, k, device=dev, generator=g) * 2
-    ops = ks.uint8_tn_operands(ga, xb)
-    got = ks.dynamic_mm_tn(ga, xb, "uint8")
-    want = ks.scaled_mm_tn_plain(*ops[:4], lowrank_u=ops[4],
-                                 lowrank_v=ops[5])
-    mag = want.abs() + ops[4].abs() @ ops[5].abs()
-    diff = (got - want).abs()
-    reading, err = float((diff / mag).max()), float(diff.max())
-    del got, want, mag, diff, ga, xb
-    record("scaled_mm_tn", "cuda", src_tn, rep_tn, err, ks.TN_LOWRANK_TOL,
-           lambda: ks.scaled_mm_tn(*ops[:4], lowrank_u=ops[4],
-                                   lowrank_v=ops[5]),
-           t(lambda: ks.scaled_mm_tn_plain(*ops[:4], lowrank_u=ops[4],
-                                           lowrank_v=ops[5]), reps=3),
-           bound_ms(m * n + m * k + 4 * n * k + 12 * (n + k), 2 * m * n * k,
-                    "int8"),
-           None, f"M{m} N{n} K{k} uint8 family, rank-2 term (img fc1 "
-           "grad-weight)", on_path=False, reading=reading,
-           what="worst |got - want| / (|want| + |u| @ |v|)")
-    del ops
+    if runs("scaled_mm_tn"):
+        m, n, k = 1024, 12288, 3072
+        ga = torch.randn(m, n, device=dev, generator=g) + 0.5
+        xb = torch.randn(m, k, device=dev, generator=g) * 2
+        ops = ks.uint8_tn_operands(ga, xb)
+        got = ks.dynamic_mm_tn(ga, xb, "uint8")
+        want = ks.scaled_mm_tn_plain(*ops[:4], lowrank_u=ops[4],
+                                     lowrank_v=ops[5])
+        mag = want.abs() + ops[4].abs() @ ops[5].abs()
+        diff = (got - want).abs()
+        reading, err = float((diff / mag).max()), float(diff.max())
+        del got, want, mag, diff, ga, xb
+        record("scaled_mm_tn", "cuda", src_tn, rep_tn, err, ks.TN_LOWRANK_TOL,
+               lambda: ks.scaled_mm_tn(*ops[:4], lowrank_u=ops[4],
+                                       lowrank_v=ops[5]),
+               t(lambda: ks.scaled_mm_tn_plain(*ops[:4], lowrank_u=ops[4],
+                                               lowrank_v=ops[5]), reps=3),
+               bound_ms(m * n + m * k + 4 * n * k + 12 * (n + k), 2 * m * n * k,
+                        "int8"),
+               None, f"M{m} N{n} K{k} uint8 family, rank-2 term (img fc1 "
+               "grad-weight)", on_path=False, reading=reading,
+               what="worst |got - want| / (|want| + |u| @ |v|)")
+        del ops
 
     # B10 e4m3 (fp8 weights train their grad-weight in fp8): products exact
     # in fp32, fp32 sums in another order.  Read as the worst error over
     # the sum of |terms| of its element; limit 1e-5.
-    m, n, k = 1536, 21504, 3072
-    a = (torch.randn(m, n, device=dev, generator=g) * 30).to(
-        torch.float8_e4m3fn)
-    b = (torch.randn(m, k, device=dev, generator=g) * 30).to(
-        torch.float8_e4m3fn)
-    a_s = torch.rand(n, device=dev, generator=g) * 1e-3 + 1e-5
-    b_s = torch.rand(k, device=dev, generator=g) * 1e-2 + 1e-4
-    got = ks.scaled_mm_tn(a, b, a_s, b_s)
-    want = ks.scaled_mm_tn_plain(a, b, a_s, b_s)
-    terms = (a.float().abs().T @ b.float().abs()) * a_s[:, None] \
-        * b_s[None, :]
-    diff = (got - want).abs()
-    reading = float((diff / (terms + 1e-30)).max())
-    err = float(diff.max())
-    del got, want, terms, diff
-    one = torch.ones((), device=dev)
+    if runs("scaled_mm_tn"):
+        m, n, k = 1536, 21504, 3072
+        a = (torch.randn(m, n, device=dev, generator=g) * 30).to(
+            torch.float8_e4m3fn)
+        b = (torch.randn(m, k, device=dev, generator=g) * 30).to(
+            torch.float8_e4m3fn)
+        a_s = torch.rand(n, device=dev, generator=g) * 1e-3 + 1e-5
+        b_s = torch.rand(k, device=dev, generator=g) * 1e-2 + 1e-4
+        got = ks.scaled_mm_tn(a, b, a_s, b_s)
+        want = ks.scaled_mm_tn_plain(a, b, a_s, b_s)
+        terms = (a.float().abs().T @ b.float().abs()) * a_s[:, None] \
+            * b_s[None, :]
+        diff = (got - want).abs()
+        reading = float((diff / (terms + 1e-30)).max())
+        err = float(diff.max())
+        del got, want, terms, diff
+        one = torch.ones((), device=dev)
 
-    def with_copies():
-        out = torch._scaled_mm(a.t().contiguous(), b.t().contiguous().t(),
-                               scale_a=one, scale_b=one,
-                               out_dtype=torch.float32)
-        return out * a_s[:, None] * b_s[None, :]
-    # the product alone (no scales), on operands laid out for it beforehand
-    at, bt = a.t().contiguous(), b.t().contiguous().t()
+        def with_copies():
+            out = torch._scaled_mm(a.t().contiguous(), b.t().contiguous().t(),
+                                   scale_a=one, scale_b=one,
+                                   out_dtype=torch.float32)
+            return out * a_s[:, None] * b_s[None, :]
+        # the product alone (no scales), on operands laid out for it beforehand
+        at, bt = a.t().contiguous(), b.t().contiguous().t()
 
-    def library():
-        return torch._scaled_mm(at, bt, scale_a=one, scale_b=one,
-                                out_dtype=torch.float32)
-    lib_ms = library_or_none(library, "scaled_mm_tn fp8")
-    extra = padded(with_copies, "scaled_mm_tn fp8, padded")
-    record("scaled_mm_tn", "cuda", src_tn, rep_tn, err, 1e-5,
-           lambda: ks.scaled_mm_tn(a, b, a_s, b_s),
-           t(lambda: ks.scaled_mm_tn_plain(a, b, a_s, b_s), reps=3),
-           bound_ms(m * n + m * k + 4 * n * k + 4 * (n + k), 2 * m * n * k,
-                    "fp8"),
-           lib_ms, f"M{m} N{n} K{k} e4m3 (linear1 grad-weight)",
-           on_path=False, reading=reading,
-           library_fn=library if lib_ms else None, **extra)
-    del a, b, at, bt
+        def library():
+            return torch._scaled_mm(at, bt, scale_a=one, scale_b=one,
+                                    out_dtype=torch.float32)
+        lib_ms = library_or_none(library, "scaled_mm_tn fp8")
+        extra = padded(with_copies, "scaled_mm_tn fp8, padded")
+        record("scaled_mm_tn", "cuda", src_tn, rep_tn, err, 1e-5,
+               lambda: ks.scaled_mm_tn(a, b, a_s, b_s),
+               t(lambda: ks.scaled_mm_tn_plain(a, b, a_s, b_s), reps=3),
+               bound_ms(m * n + m * k + 4 * n * k + 4 * (n + k), 2 * m * n * k,
+                        "fp8"),
+               lib_ms, f"M{m} N{n} K{k} e4m3 (linear1 grad-weight)",
+               on_path=False, reading=reading,
+               library_fn=library if lib_ms else None, **extra)
+        del a, b, at, bt
 
     # B1 in the grad-input route at single-block linear1: the bf16
     # cotangent g (1536, 21504) times the weight's row scales (colscale),
@@ -1244,47 +1272,163 @@ def train_kernel_rows(torch, dev, g, t, record):
     # the stored (O, K) weight as it lies (nn).  Both bit-equal to their
     # plain versions (limit 0): the codes, and the bf16 output, which both
     # sides round once from the same exact integer sum and fp32 epilogue.
-    o, kk = 21504, 3072
-    x = torch.randn(m, o, device=dev, generator=g).bfloat16()
-    cs = torch.rand(o, device=dev, generator=g) * 2e-3 + 1e-5
-    got = ks.quantize_rows(x, colscale=cs)
-    want = ks.quantize_rows_plain(x, colscale=cs)
-    err = max(float((u.float() - v.float()).abs().max())
-              for u, v in zip(got[:2], want[:2]))
-    record("quantize_rows", "cuda", "sdnq_tpu_torch/csrc/quantize_rows.cu",
-           "sdnq_tpu/kernels/scaled_mm.py:230", err, 0.0,
-           lambda: ks.quantize_rows(x, colscale=cs),
-           t(lambda: ks.quantize_rows_plain(x, colscale=cs), reps=3),
-           bound_ms(m * o * 3 + o * 4 + m * 4, 4 * m * o, "fp32"), None,
-           f"M{m} K{o} bfloat16 colscale (linear1 grad-input)",
-           path="train", count="quantize_rows:colscale")
-    xq, xs = got[:2]
-    w = torch.randint(-127, 128, (o, kk), device=dev, generator=g,
+    if runs("quantize_rows"):
+        m, o = 1536, 21504
+        x = torch.randn(m, o, device=dev, generator=g).bfloat16()
+        cs = torch.rand(o, device=dev, generator=g) * 2e-3 + 1e-5
+        got = ks.quantize_rows(x, colscale=cs)
+        want = ks.quantize_rows_plain(x, colscale=cs)
+        err = max(float((u.float() - v.float()).abs().max())
+                  for u, v in zip(got[:2], want[:2]))
+        record("quantize_rows", "cuda", "sdnq_tpu_torch/csrc/quantize_rows.cu",
+               "sdnq_tpu/kernels/scaled_mm.py:230", err, 0.0,
+               lambda: ks.quantize_rows(x, colscale=cs),
+               t(lambda: ks.quantize_rows_plain(x, colscale=cs), reps=3),
+               bound_ms(m * o * 3 + o * 4 + m * 4, 4 * m * o, "fp32"), None,
+               f"M{m} K{o} bfloat16 colscale (linear1 grad-input)",
+               path="train", count="quantize_rows:colscale")
+        del x
+    if runs("scaled_mm"):
+        nn_rows(torch, dev, g, t, record, library_or_none, padded,
+                got[:2] if runs("quantize_rows") else None)
+    torch.cuda.empty_cache()
+
+
+# B4 nn at the grad-input GEMMs of the FLUX.1-dev training step (batch 1,
+# 1024 image + 512 text tokens): (M, contraction, N, what, launches a step:
+# the 10 double blocks' image and text streams, the 20 single blocks).
+NN_SHAPES = ((1536, 21504, 3072, "single linear1", 20),
+             (1536, 3072, 15360, "single linear2", 20),
+             (1024, 9216, 3072, "img qkv", 10),
+             (1024, 12288, 3072, "img fc1", 10),
+             (1024, 3072, 12288, "img fc2", 10),
+             (512, 9216, 3072, "txt qkv", 10),
+             (1, 18432, 3072, "img_mod / txt_mod", 20),
+             (1, 9216, 3072, "single modulation", 20))
+
+
+def nn_rows(torch, dev, g, t, record, library_or_none, padded, linear1_q):
+    """Phase 3 rows of B4 nn (the grad-input GEMM g_q (M, O) . W (O, K) on
+    the stored weight as it lies, TMA + s8 wgmma with B transposed in shared
+    memory, the contraction split where ``nn_plan`` says) at every shape of
+    NN_SHAPES, linear1's codes from the colscale row before; each call of
+    two in a row bit-equal to its plain version (limit 0: the same exact
+    integer sum, the same fp32 epilogue and bf16 rounding; the second finds
+    the split counters as the first left them), beside ``torch._int_mm`` alone on
+    operands laid out for it beforehand (B column-major: cuBLASLt's int8
+    layout; none at M 1, which it refuses) and with the transposed copy of
+    the weight and the epilogue.  Then the ragged shape with every
+    epilogue term and e4m3 (off the paths)."""
+    from sdnq_tpu_torch.kernels import scaled_mm as ks
+    src, rep = ("sdnq_tpu_torch/csrc/scaled_mm.cu",
+                "sdnq_tpu/kernels/scaled_mm.py:230")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m, o, kk, what, per_step in NN_SHAPES:
+        if what == "single linear1" and linear1_q is not None:
+            xq, xs = linear1_q
+        else:
+            xq = torch.randint(-127, 128, (m, o), device=dev, generator=g,
+                               dtype=torch.int8)
+            xs = torch.rand(m, 1, device=dev, generator=g) * 1e-4 + 1e-6
+        w = torch.randint(-127, 128, (o, kk), device=dev, generator=g,
+                          dtype=torch.int8)
+        want = ks.scaled_gemm_plain(xq, w, torch.bfloat16, xs,
+                                    b_layout="nn")
+        err = 0.0
+        for _ in range(2):   # the second call on the workspace the first left
+            got = ks.scaled_gemm(xq, w, torch.bfloat16, xs, b_layout="nn")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+        del got, want
+        w_cm = w.t().contiguous().t()   # cuBLASLt's layout, made beforehand
+
+        def library(xq=xq, w_cm=w_cm):
+            return torch._int_mm(xq, w_cm)
+
+        def with_copies(xq=xq, w=w, xs=xs):
+            acc = torch._int_mm(xq, w.t().contiguous().t())
+            return (acc.float() * xs).to(torch.bfloat16)
+        lib_ms = library_or_none(library, f"scaled_gemm nn {what}")
+        extra = padded(with_copies, f"scaled_gemm nn {what}, padded")
+        nb, whole, splits = ks.nn_plan(m, kk, o, torch.int8, sms)
+        record("scaled_gemm", "cuda", src, rep, err, 0.0,
+               lambda xq=xq, w=w, xs=xs: ks.scaled_gemm(
+                   xq, w, torch.bfloat16, xs, b_layout="nn"),
+               t(lambda: ks.scaled_gemm_plain(xq, w, torch.bfloat16, xs,
+                                              b_layout="nn"), reps=3),
+               bound_ms(m * o + o * kk + m * kk * 2 + m * 4,
+                        2 * m * o * kk, "int8"),
+               lib_ms, f"M{m} K{o} N{kk} int8 nn ({what} grad-input)",
+               path="train", count="scaled_gemm:nn",
+               library_fn=library if lib_ms else None,
+               plan=f"128 x {128 * nb} tiles, {whole} whole, the others "
+               f"split {splits} ways",
+               launches_a_step=per_step, **extra)
+        del xq, w, w_cm
+
+    # ragged M, N and K (TMA's zero fill of A's rows, B's rows and
+    # columns), every epilogue term, int8 bit-equal; then e4m3 at linear1
+    # (fp16 wgmma, B MN-major), read as the worst error over the sum of
+    # |terms| of its element, limit 1e-5.  Off the paths.
+    m, o, kk = 1000, 2000, 3008
+    a = torch.randint(-128, 128, (m, o), device=dev, generator=g,
                       dtype=torch.int8)
-    got = ks.scaled_gemm(xq, w, torch.bfloat16, xs, b_layout="nn")
-    want = ks.scaled_gemm_plain(xq, w, torch.bfloat16, xs, b_layout="nn")
+    b = torch.randint(-128, 128, (o, kk), device=dev, generator=g,
+                      dtype=torch.int8)
+    xs = torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3
+    ws = torch.rand(kk, device=dev, generator=g) * 0.02 + 1e-3
+    bias, vz0, vz1 = (torch.randn(kk, device=dev, generator=g)
+                      for _ in range(3))
+    rs, zp = (torch.randn(m, device=dev, generator=g) for _ in range(2))
+    args = (a, b, torch.bfloat16, xs, ws, bias, rs, zp, vz0, vz1)
+    got = ks.scaled_gemm(*args, b_layout="nn")
+    want = ks.scaled_gemm_plain(*args, b_layout="nn")
+    record("scaled_gemm", "cuda", src, rep,
+           float((got.float() - want.float()).abs().max()), 0.0,
+           lambda: ks.scaled_gemm(*args, b_layout="nn"),
+           t(lambda: ks.scaled_gemm_plain(*args, b_layout="nn"), reps=3),
+           bound_ms(m * o + o * kk + m * kk * 2 + (3 * m + 5 * kk) * 4,
+                    2 * m * o * kk, "int8"),
+           None, f"M{m} K{o} N{kk} int8 nn, every epilogue term",
+           on_path=False, count="scaled_gemm:nn")
+    del a, b, got, want
+
+    m, o, kk = 1536, 21504, 3072
+    a = (torch.randn(m, o, device=dev, generator=g) * 8).to(
+        torch.float8_e4m3fn)
+    b = (torch.randn(o, kk, device=dev, generator=g) * 8).to(
+        torch.float8_e4m3fn)
+    xs = torch.rand(m, 1, device=dev, generator=g) * 1e-3 + 1e-5
+    got = ks.scaled_gemm(a, b, torch.float32, xs, b_layout="nn")
+    want = ks.scaled_gemm_plain(a, b, torch.float32, xs, b_layout="nn")
+    terms = (a.float().abs() @ b.float().abs()) * xs
+    diff = (got - want).abs()
+    reading, err = float((diff / (terms + 1e-30)).max()), float(diff.max())
+    del got, want, terms, diff
+    one = torch.ones((), device=dev)
+    b_cm = b.t().contiguous().t()
 
     def library():
-        return (torch._int_mm(xq, w).float() * xs).to(torch.bfloat16)
-    record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
-           "sdnq_tpu/kernels/scaled_mm.py:230",
-           float((got.float() - want.float()).abs().max()), 0.0,
-           lambda: ks.scaled_gemm(xq, w, torch.bfloat16, xs, b_layout="nn"),
-           t(lambda: ks.scaled_gemm_plain(xq, w, torch.bfloat16, xs,
+        return torch._scaled_mm(a, b_cm, scale_a=one, scale_b=one,
+                                out_dtype=torch.float32)
+    lib_ms = library_or_none(library, "scaled_gemm nn fp8")
+    record("scaled_gemm", "cuda", src, rep, err, 1e-5,
+           lambda: ks.scaled_gemm(a, b, torch.float32, xs, b_layout="nn"),
+           t(lambda: ks.scaled_gemm_plain(a, b, torch.float32, xs,
                                           b_layout="nn"), reps=3),
-           bound_ms(m * o + o * kk + m * kk * 2 + m * 4, 2 * m * o * kk,
-                    "int8"),
-           library_or_none(library, "scaled_gemm nn"),
-           f"M{m} K{o} N{kk} int8 nn (linear1 grad-input)", path="train",
-           count="scaled_gemm:nn")
-    del x, xq, w, got, want
-    torch.cuda.empty_cache()
+           bound_ms(m * o + o * kk + m * kk * 4 + m * 4, 2 * m * o * kk,
+                    "fp8"),
+           lib_ms, f"M{m} K{o} N{kk} e4m3 nn (linear1 grad-input)",
+           on_path=False, reading=reading, count="scaled_gemm:nn",
+           library_fn=library if lib_ms else None,
+           what="worst |got - want| / sum |a b| xs")
+    del a, b, b_cm
 
 
 def pipeline_kernel_rows(torch, dev, g, t, record):
     """Phase 3 rows of B2's grouped and row modes and of B3's additive
     mask, at the shapes of the FLUX text-to-image pipeline under SDNQ's
     default int8 recipe (weight-only, groups of 1024 along K)."""
+    runs = t.runs
     import torch.nn.functional as F
     from sdnq_tpu_torch.kernels import attention as ka
     from sdnq_tpu_torch.kernels import dequant_mm as kd
@@ -1317,109 +1461,113 @@ def pipeline_kernel_rows(torch, dev, g, t, record):
     # path: the recipe is symmetric).  The kernel and the plain version
     # multiply the same bf16 weights and sum in fp32 in another order: the
     # bf16 outputs agree to one bf16 ulp of the largest (2^-7 of it).
-    for m, k, n, what, unsigned in (
-            (4608, 3072, 21504, "DiT linear1", False),
-            (512, 4096, 10240, "T5 wi_0", False),
-            (512, 4096, 4096, "uint8 + zp", True)):
-        codes, scale, zp = weight(n, k, k // 1024, unsigned)
+    if runs("decode_weight", "wgmma_mm"):
+        for m, k, n, what, unsigned in (
+                (4608, 3072, 21504, "DiT linear1", False),
+                (512, 4096, 10240, "T5 wi_0", False),
+                (512, 4096, 4096, "uint8 + zp", True)):
+            codes, scale, zp = weight(n, k, k // 1024, unsigned)
+            x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+            bias = torch.randn(n, device=dev, generator=g)
+            args = (x, codes, scale, zp, bias, torch.bfloat16)
+            got = kd.dequant_mm(*args)
+            want = kd.dequant_mm_plain(*args)
+            wb = w_bf16(codes, scale, zp)
+            record("dequant_mm", "cuda", src, rep,
+                   float((got.float() - want.float()).abs().max()),
+                   float(want.float().abs().max()) * 2 ** -7,
+                   lambda: kd.dequant_mm(*args),
+                   t(lambda: kd.dequant_mm_plain(*args), reps=3),
+                   bound_ms(m * k * 2 + n * k + 2 * n * (k // 1024) * 4
+                            + n * 4 + m * n * 2, 2 * m * n * k, "bf16"),
+                   t(lambda: F.linear(x, wb, bias.bfloat16())),
+                   f"M{m} K{k} N{n} {'uint8+zp' if unsigned else 'int8'} g1024 "
+                   f"({what})", on_path=not unsigned, path="pipeline",
+                   count="dequant_mm:grouped")
+            del codes, x, wb, got, want
+
+    # grouped, GEMV: a modulation linear at batch 1 (3072 -> 18432, 3
+    # groups), fp32 rows as the DiT's vec; fp32 sums in another order
+    if runs("dequant_gemv"):
+        k, n = 3072, 18432
+        codes, scale, _ = weight(n, k, 3)
+        x = torch.randn(1, k, device=dev, generator=g)
+        bias = torch.randn(n, device=dev, generator=g)
+        args = (x, codes, scale, None, bias, torch.bfloat16)
+        got = kd.dequant_gemv(*args)
+        want = kd.dequant_gemv_plain(*args)
+        wb = w_bf16(codes, scale, None)
+        record("dequant_gemv", "cuda", "sdnq_tpu_torch/csrc/dequant_gemv.cu", rep,
+               float((got.float() - want.float()).abs().max()),
+               float(want.float().abs().max()) * 2 ** -7,
+               lambda: kd.dequant_gemv(*args),
+               t(lambda: kd.dequant_gemv_plain(*args), reps=5),
+               bound_ms(n * k + k * 4 + 2 * n * 3 * 4 + n * 4 + n * 2,
+                        2 * n * k, "fp32"),
+               t(lambda: F.linear(x.bfloat16(), wb, bias.bfloat16()), reps=20),
+               f"M1 K{k} N{n} int8 g1024 (modulation)", path="pipeline",
+               count="dequant_gemv:grouped",
+               library_fn=lambda: F.linear(x.bfloat16(), wb, bias.bfloat16()),
+               **gemv_cold(torch, args, wb, t.timed))
+        del codes, wb
+
+    # row mode, tiles: CLIP's fc1 (77 tokens, 768 -> 3072, one group)
+    if runs("decode_weight", "wgmma_mm"):
+        m, k, n = 77, 768, 3072
+        codes, scale, _ = weight(n, k, 1)
         x = torch.randn(m, k, device=dev, generator=g).bfloat16()
         bias = torch.randn(n, device=dev, generator=g)
-        args = (x, codes, scale, zp, bias, torch.bfloat16)
+        args = (x, codes, scale, None, bias, torch.bfloat16)
         got = kd.dequant_mm(*args)
         want = kd.dequant_mm_plain(*args)
-        wb = w_bf16(codes, scale, zp)
+        wb = (codes.float() * scale).bfloat16()
         record("dequant_mm", "cuda", src, rep,
                float((got.float() - want.float()).abs().max()),
                float(want.float().abs().max()) * 2 ** -7,
                lambda: kd.dequant_mm(*args),
-               t(lambda: kd.dequant_mm_plain(*args), reps=3),
-               bound_ms(m * k * 2 + n * k + 2 * n * (k // 1024) * 4
-                        + n * 4 + m * n * 2, 2 * m * n * k, "bf16"),
-               t(lambda: F.linear(x, wb, bias.bfloat16())),
-               f"M{m} K{k} N{n} {'uint8+zp' if unsigned else 'int8'} g1024 "
-               f"({what})", on_path=not unsigned, path="pipeline",
-               count="dequant_mm:grouped")
-        del codes, x, wb, got, want
-
-    # grouped, GEMV: a modulation linear at batch 1 (3072 -> 18432, 3
-    # groups), fp32 rows as the DiT's vec; fp32 sums in another order
-    k, n = 3072, 18432
-    codes, scale, _ = weight(n, k, 3)
-    x = torch.randn(1, k, device=dev, generator=g)
-    bias = torch.randn(n, device=dev, generator=g)
-    args = (x, codes, scale, None, bias, torch.bfloat16)
-    got = kd.dequant_gemv(*args)
-    want = kd.dequant_gemv_plain(*args)
-    wb = w_bf16(codes, scale, None)
-    record("dequant_gemv", "cuda", "sdnq_tpu_torch/csrc/dequant_gemv.cu", rep,
-           float((got.float() - want.float()).abs().max()),
-           float(want.float().abs().max()) * 2 ** -7,
-           lambda: kd.dequant_gemv(*args),
-           t(lambda: kd.dequant_gemv_plain(*args), reps=5),
-           bound_ms(n * k + k * 4 + 2 * n * 3 * 4 + n * 4 + n * 2,
-                    2 * n * k, "fp32"),
-           t(lambda: F.linear(x.bfloat16(), wb, bias.bfloat16()), reps=20),
-           f"M1 K{k} N{n} int8 g1024 (modulation)", path="pipeline",
-           count="dequant_gemv:grouped",
-           library_fn=lambda: F.linear(x.bfloat16(), wb, bias.bfloat16()),
-           **gemv_cold(torch, args, wb, t.timed))
-    del codes, wb
-
-    # row mode, tiles: CLIP's fc1 (77 tokens, 768 -> 3072, one group)
-    m, k, n = 77, 768, 3072
-    codes, scale, _ = weight(n, k, 1)
-    x = torch.randn(m, k, device=dev, generator=g).bfloat16()
-    bias = torch.randn(n, device=dev, generator=g)
-    args = (x, codes, scale, None, bias, torch.bfloat16)
-    got = kd.dequant_mm(*args)
-    want = kd.dequant_mm_plain(*args)
-    wb = (codes.float() * scale).bfloat16()
-    record("dequant_mm", "cuda", src, rep,
-           float((got.float() - want.float()).abs().max()),
-           float(want.float().abs().max()) * 2 ** -7,
-           lambda: kd.dequant_mm(*args),
-           t(lambda: kd.dequant_mm_plain(*args), reps=5),
-           bound_ms(m * k * 2 + n * k + 2 * n * 4 + m * n * 2,
-                    2 * m * n * k, "bf16"),
-           t(lambda: F.linear(x, wb, bias.bfloat16()), reps=20),
-           f"M{m} K{k} N{n} int8 rowwise (CLIP fc1)", path="pipeline",
-           count="dequant_mm:row")
-    del codes, wb
+               t(lambda: kd.dequant_mm_plain(*args), reps=5),
+               bound_ms(m * k * 2 + n * k + 2 * n * 4 + m * n * 2,
+                        2 * m * n * k, "bf16"),
+               t(lambda: F.linear(x, wb, bias.bfloat16()), reps=20),
+               f"M{m} K{k} N{n} int8 rowwise (CLIP fc1)", path="pipeline",
+               count="dequant_mm:row")
+        del codes, wb
 
     # B3's additive mask at T5-XXL's shape: 64 heads, 512 tokens, head dim
     # 64, scale 1, a relative position bias (1, 64, 512, 512) in fp32 from a
     # (32, 64) table gathered by the bucket table (its values about 2, so a
     # fault in the mask moves the softmax).  Held per row against the row's
     # largest output: 2^-6 (P rounded to bf16 against a running max).
-    from sdnq_tpu_torch.models.text_encoder import _rel_bucket
-    h, n, d = 64, 512, 64
-    pos = torch.arange(n, device=dev)
-    table = torch.randn(32, h, device=dev, generator=g) * 2
-    bias = table[_rel_bucket(pos[None, :] - pos[:, None], 32, 128)].permute(
-        2, 0, 1)[None].contiguous()
-    q, kk, v = (torch.randn(h, n, d, device=dev, generator=g) * 0.4
-                for _ in range(3))
-    qb = (q * ka.LOG2E).bfloat16()
-    kb, vb = kk.bfloat16(), v.bfloat16()
-    kw = dict(heads=h, mask=bias)
-    got = ka.flash_attention(qb, kb, vb, out_dtype=torch.float32, **kw)
-    want = ka.flash_attention_plain(qb, kb, vb, out_dtype=torch.float32,
-                                    **kw)
-    err = (got - want).abs()
-    row = float((err.amax(-1) / want.abs().amax(-1)).max())
-    q4, k4, v4 = (a.bfloat16()[None] for a in (q, kk, v))
-    sdpa = (lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias,
-                                                   scale=1.0))
-    record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
-           "sdnq_tpu/kernels/attention.py:67", float(err.max()), 2 ** -6,
-           lambda: ka.flash_attention(qb, kb, vb, **kw),
-           t(lambda: ka.flash_attention_plain(qb, kb, vb, **kw), reps=3),
-           bound_ms(3 * h * n * d * 2 + h * n * n * 4 + h * n * d * 2,
-                    4 * h * n * n * d, "bf16"),
-           t(sdpa), f"BH{h} N{n} KN{n} D{d} fp32 additive mask bf16 (T5)",
-           path="pipeline", count="flash_attention:float_mask", reading=row,
-           library_fn=sdpa)
-    del q, kk, v, qb, kb, vb, q4, k4, v4, bias
+    if runs("flash_attn"):
+        from sdnq_tpu_torch.models.text_encoder import _rel_bucket
+        h, n, d = 64, 512, 64
+        pos = torch.arange(n, device=dev)
+        table = torch.randn(32, h, device=dev, generator=g) * 2
+        bias = table[_rel_bucket(pos[None, :] - pos[:, None], 32, 128)].permute(
+            2, 0, 1)[None].contiguous()
+        q, kk, v = (torch.randn(h, n, d, device=dev, generator=g) * 0.4
+                    for _ in range(3))
+        qb = (q * ka.LOG2E).bfloat16()
+        kb, vb = kk.bfloat16(), v.bfloat16()
+        kw = dict(heads=h, mask=bias)
+        got = ka.flash_attention(qb, kb, vb, out_dtype=torch.float32, **kw)
+        want = ka.flash_attention_plain(qb, kb, vb, out_dtype=torch.float32,
+                                        **kw)
+        err = (got - want).abs()
+        row = float((err.amax(-1) / want.abs().amax(-1)).max())
+        q4, k4, v4 = (a.bfloat16()[None] for a in (q, kk, v))
+        sdpa = (lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias,
+                                                       scale=1.0))
+        record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
+               "sdnq_tpu/kernels/attention.py:67", float(err.max()), 2 ** -6,
+               lambda: ka.flash_attention(qb, kb, vb, **kw),
+               t(lambda: ka.flash_attention_plain(qb, kb, vb, **kw), reps=3),
+               bound_ms(3 * h * n * d * 2 + h * n * n * 4 + h * n * d * 2,
+                        4 * h * n * n * d, "bf16"),
+               t(sdpa), f"BH{h} N{n} KN{n} D{d} fp32 additive mask bf16 (T5)",
+               path="pipeline", count="flash_attention:float_mask", reading=row,
+               library_fn=sdpa)
+        del q, kk, v, qb, kb, vb, q4, k4, v4, bias
     torch.cuda.empty_cache()
 
 
@@ -1576,6 +1724,7 @@ def dynamic_kernel_rows(torch, dev, g, t, record):
     kernels and the plain versions multiply the same bf16 (B2) or exact
     (B5, B6) weights and sum in fp32 in other orders: one bf16 ulp of the
     largest output (2^-7 of it)."""
+    runs = t.runs
     import torch.nn.functional as F
     from sdnq_tpu_torch import dequantize, quantize_tensor
     from sdnq_tpu_torch.kernels import dequant_mm as kd
@@ -1599,100 +1748,103 @@ def dynamic_kernel_rows(torch, dev, g, t, record):
         return f"{fmt} {'rowwise' if gsize < 0 else f'g{gsize}'}"
 
     rep = "sdnq_tpu/kernels/dequant_mm.py:60"
-    for fmt, gsize, nu in (("float9_e3m5fn", -1, 3),
-                           ("float8_e3m4fn", 1024, 2)):
-        m, k, n = 4608, 3072, 21504
-        qt, scale, zp, wb, side = qweight(n, k, fmt, gsize, nu)
-        f = qt.meta.format
-        x = torch.randn(m, k, device=dev, generator=g).bfloat16()
-        bias = torch.randn(n, device=dev, generator=g)
-        args = (x, qt.qdata, scale, zp, bias, torch.bfloat16, f)
-        want = kd.dequant_mm_plain(*args)
-        record("dequant_mm", "cuda", "sdnq_tpu_torch/csrc/wgmma_mm.cu", rep,
-               err(kd.dequant_mm(*args), want), ulp(want),
-               lambda: kd.dequant_mm(*args),
-               t(lambda: kd.dequant_mm_plain(*args), reps=3),
-               bound_ms(m * k * 2 + qt.qdata.numel() + side + m * n * 2,
-                        2 * m * n * k, "bf16"),
-               t(lambda: F.linear(x, wb, bias.bfloat16())),
-               f"M{m} K{k} N{n} {label(fmt, gsize)} bit-plane (DiT linear1)",
-               path="dyn_r1", count="dequant_mm:bitplane")
-        k, n = 3072, 18432
-        qt, scale, zp, wb, side = qweight(n, k, fmt, gsize, nu)
-        # M 1: the modulation linears at batch 1; M 32 (float8): the most
-        # rows the GEMV takes, off the paths
-        for mg in (1,) if gsize < 0 else (1, 32):
-            x = torch.randn(mg, k, device=dev, generator=g).bfloat16()
+    if runs("decode_weight", "wgmma_mm", "dequant_gemv"):
+        for fmt, gsize, nu in (("float9_e3m5fn", -1, 3),
+                               ("float8_e3m4fn", 1024, 2)):
+            m, k, n = 4608, 3072, 21504
+            qt, scale, zp, wb, side = qweight(n, k, fmt, gsize, nu)
+            f = qt.meta.format
+            x = torch.randn(m, k, device=dev, generator=g).bfloat16()
             bias = torch.randn(n, device=dev, generator=g)
             args = (x, qt.qdata, scale, zp, bias, torch.bfloat16, f)
-            want = kd.dequant_gemv_plain(*args)
-            record("dequant_gemv", "cuda",
-                   "sdnq_tpu_torch/csrc/dequant_gemv.cu", rep,
-                   err(kd.dequant_gemv(*args), want), ulp(want),
-                   lambda a=args: kd.dequant_gemv(*a),
-                   t(lambda a=args: kd.dequant_gemv_plain(*a), reps=5),
-                   bound_ms(mg * k * 2 + qt.qdata.numel() + side + mg * n * 2,
-                            2 * mg * n * k, "bf16"),
-                   t(lambda x=x, b=bias: F.linear(x, wb, b.bfloat16()),
-                     reps=20),
-                   f"M{mg} K{k} N{n} {label(fmt, gsize)} bit-plane "
-                   f"({'modulation' if mg == 1 else 'many rows'})",
-                   path="dyn_r1", count="dequant_gemv:bitplane",
-                   on_path=mg == 1)
-        del qt, wb, x
+            want = kd.dequant_mm_plain(*args)
+            record("dequant_mm", "cuda", "sdnq_tpu_torch/csrc/wgmma_mm.cu", rep,
+                   err(kd.dequant_mm(*args), want), ulp(want),
+                   lambda: kd.dequant_mm(*args),
+                   t(lambda: kd.dequant_mm_plain(*args), reps=3),
+                   bound_ms(m * k * 2 + qt.qdata.numel() + side + m * n * 2,
+                            2 * m * n * k, "bf16"),
+                   t(lambda: F.linear(x, wb, bias.bfloat16())),
+                   f"M{m} K{k} N{n} {label(fmt, gsize)} bit-plane (DiT linear1)",
+                   path="dyn_r1", count="dequant_mm:bitplane")
+            k, n = 3072, 18432
+            qt, scale, zp, wb, side = qweight(n, k, fmt, gsize, nu)
+            # M 1: the modulation linears at batch 1; M 32 (float8): the most
+            # rows the GEMV takes, off the paths
+            for mg in (1,) if gsize < 0 else (1, 32):
+                x = torch.randn(mg, k, device=dev, generator=g).bfloat16()
+                bias = torch.randn(n, device=dev, generator=g)
+                args = (x, qt.qdata, scale, zp, bias, torch.bfloat16, f)
+                want = kd.dequant_gemv_plain(*args)
+                record("dequant_gemv", "cuda",
+                       "sdnq_tpu_torch/csrc/dequant_gemv.cu", rep,
+                       err(kd.dequant_gemv(*args), want), ulp(want),
+                       lambda a=args: kd.dequant_gemv(*a),
+                       t(lambda a=args: kd.dequant_gemv_plain(*a), reps=5),
+                       bound_ms(mg * k * 2 + qt.qdata.numel() + side + mg * n * 2,
+                                2 * mg * n * k, "bf16"),
+                       t(lambda x=x, b=bias: F.linear(x, wb, b.bfloat16()),
+                         reps=20),
+                       f"M{mg} K{k} N{n} {label(fmt, gsize)} bit-plane "
+                       f"({'modulation' if mg == 1 else 'many rows'})",
+                       path="dyn_r1", count="dequant_gemv:bitplane",
+                       on_path=mg == 1)
+            del qt, wb, x
 
-    for fmt, gsize, nu, m, k, n in (
-            ("float5_e2m2fn", 128, 3, 4608, 3072, 21504),
-            ("uint5", 256, 5, 4608, 15360, 3072),
-            ("int6", 512, 2, 4608, 3072, 21504)):
-        qt, scale, zp, wb, side = qweight(n, k, fmt, gsize, nu)
-        f = qt.meta.format
-        s, zpc = kd._group_operands(scale, zp, f)
-        x = torch.randn(m, k, device=dev, generator=g).bfloat16()
-        bias = torch.randn(n, device=dev, generator=g)
-        args = (x, qt.qdata, s, zpc, bias, f.code_bits, torch.bfloat16, f)
-        want = kd.groupdot_mm_plain(*args)
-        mode = "minifloat" if not f.is_integer else "multiplane"
-        record("groupdot_mm", "cuda", "sdnq_tpu_torch/csrc/wgmma_mm.cu",
-               "sdnq_tpu/kernels/dequant_mm.py:355",
-               err(kd.groupdot_mm(*args), want), ulp(want),
-               lambda: kd.groupdot_mm(*args),
-               t(lambda: kd.groupdot_mm_plain(*args), reps=3),
-               bound_ms(m * k * 2 + qt.qdata.numel() + side + m * n * 2,
-                        2 * m * n * k, "bf16"),
-               t(lambda: F.linear(x, wb, bias.bfloat16())),
-               f"M{m} K{k} N{n} {label(fmt, gsize)} half-split {mode}",
-               path="dyn_r2", count=f"groupdot_mm:{mode}")
-        del qt, wb, x
+    if runs("decode_weight", "wgmma_mm"):
+        for fmt, gsize, nu, m, k, n in (
+                ("float5_e2m2fn", 128, 3, 4608, 3072, 21504),
+                ("uint5", 256, 5, 4608, 15360, 3072),
+                ("int6", 512, 2, 4608, 3072, 21504)):
+            qt, scale, zp, wb, side = qweight(n, k, fmt, gsize, nu)
+            f = qt.meta.format
+            s, zpc = kd._group_operands(scale, zp, f)
+            x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+            bias = torch.randn(n, device=dev, generator=g)
+            args = (x, qt.qdata, s, zpc, bias, f.code_bits, torch.bfloat16, f)
+            want = kd.groupdot_mm_plain(*args)
+            mode = "minifloat" if not f.is_integer else "multiplane"
+            record("groupdot_mm", "cuda", "sdnq_tpu_torch/csrc/wgmma_mm.cu",
+                   "sdnq_tpu/kernels/dequant_mm.py:355",
+                   err(kd.groupdot_mm(*args), want), ulp(want),
+                   lambda: kd.groupdot_mm(*args),
+                   t(lambda: kd.groupdot_mm_plain(*args), reps=3),
+                   bound_ms(m * k * 2 + qt.qdata.numel() + side + m * n * 2,
+                            2 * m * n * k, "bf16"),
+                   t(lambda: F.linear(x, wb, bias.bfloat16())),
+                   f"M{m} K{k} N{n} {label(fmt, gsize)} half-split {mode}",
+                   path="dyn_r2", count=f"groupdot_mm:{mode}")
+            del qt, wb, x
 
     # M 1 on the paths; float5 at M 8 too (off the paths)
-    for fmt, gsize, nu, mg in (("float5_e2m2fn", 128, 3, 1), ("uint5", 256, 5, 1),
-                               ("float5_e2m2fn", 128, 3, 8)):
-        k, n = 3072, 18432
-        qt, scale, zp, wb, side = qweight(n, k, fmt, gsize, nu)
-        f = qt.meta.format
-        s, zpc = kd._group_operands(scale, zp, f)
-        x = torch.randn(mg, k, device=dev, generator=g).bfloat16()
-        bias = torch.randn(n, device=dev, generator=g)
-        args = (x, qt.qdata, s, zpc, bias, f.code_bits, torch.bfloat16, f)
-        want = kd.blockdiag_mm_plain(*args)
-        mode = "minifloat" if not f.is_integer else "multiplane"
+    if runs("blockdiag_mm"):
+        for fmt, gsize, nu, mg in (("float5_e2m2fn", 128, 3, 1), ("uint5", 256, 5, 1),
+                                   ("float5_e2m2fn", 128, 3, 8)):
+            k, n = 3072, 18432
+            qt, scale, zp, wb, side = qweight(n, k, fmt, gsize, nu)
+            f = qt.meta.format
+            s, zpc = kd._group_operands(scale, zp, f)
+            x = torch.randn(mg, k, device=dev, generator=g).bfloat16()
+            bias = torch.randn(n, device=dev, generator=g)
+            args = (x, qt.qdata, s, zpc, bias, f.code_bits, torch.bfloat16, f)
+            want = kd.blockdiag_mm_plain(*args)
+            mode = "minifloat" if not f.is_integer else "multiplane"
 
-        def library(x=x, wb=wb, bias=bias):
-            return F.linear(x, wb, bias.bfloat16())
-        cold = b6_cold(torch, args, wb, t.timed)
-        record("blockdiag_mm", "cuda", "sdnq_tpu_torch/csrc/blockdiag_mm.cu",
-               "sdnq_tpu/kernels/dequant_mm.py:593",
-               err(kd.blockdiag_mm(*args), want), ulp(want),
-               lambda a=args: kd.blockdiag_mm(*a),
-               t(lambda a=args: kd.blockdiag_mm_plain(*a), reps=5),
-               bound_ms(mg * k * 2 + qt.qdata.numel() + side + mg * n * 2,
-                        2 * mg * n * k, "bf16"),
-               t(library, reps=20),
-               f"M{mg} K{k} N{n} {label(fmt, gsize)} half-split {mode}",
-               path="dyn_r2", count=f"blockdiag_mm:{mode}", on_path=mg == 1,
-               library_fn=library, **cold)
-        del qt, wb
+            def library(x=x, wb=wb, bias=bias):
+                return F.linear(x, wb, bias.bfloat16())
+            cold = b6_cold(torch, args, wb, t.timed)
+            record("blockdiag_mm", "cuda", "sdnq_tpu_torch/csrc/blockdiag_mm.cu",
+                   "sdnq_tpu/kernels/dequant_mm.py:593",
+                   err(kd.blockdiag_mm(*args), want), ulp(want),
+                   lambda a=args: kd.blockdiag_mm(*a),
+                   t(lambda a=args: kd.blockdiag_mm_plain(*a), reps=5),
+                   bound_ms(mg * k * 2 + qt.qdata.numel() + side + mg * n * 2,
+                            2 * mg * n * k, "bf16"),
+                   t(library, reps=20),
+                   f"M{mg} K{k} N{n} {label(fmt, gsize)} half-split {mode}",
+                   path="dyn_r2", count=f"blockdiag_mm:{mode}", on_path=mg == 1,
+                   library_fn=library, **cold)
+            del qt, wb
     torch.cuda.empty_cache()
 
 
@@ -1737,7 +1889,7 @@ def stacked_and_bench_rows(torch, dev, g, t, record):
                     "int8"), None,
            f"M{m} K{k} N{n} int8, layer 2 of a ({layers}, N, K) stack "
            "(B1 + B4 on a stacked view)", path="stacked",
-           symbol=("quantize_rows_kernel", "scaled_mm_wgmma_kernel"))
+           symbol=("quantize_rows_", "scaled_mm_wgmma_kernel"))
     del stack, view, got, want
 
     from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1776,7 +1928,7 @@ def stacked_and_bench_rows(torch, dev, g, t, record):
                     "int8"), t(library),
            f"bench.py M{m} K{k} N{n} int8 rowwise qlinear + bias "
            "(B1 + B4)", path="bench",
-           symbol=("quantize_rows_kernel", "scaled_mm_wgmma_kernel"),
+           symbol=("quantize_rows_", "scaled_mm_wgmma_kernel"),
            bf16_linear_ms=bf16_ms)
     del qt, x, got, want, xq, wb
     torch.cuda.empty_cache()
@@ -3293,10 +3445,11 @@ def pipeline_slice_phase(torch, dev, sliced) -> dict:
 # ---------------------------------------------------------------------------
 
 _GROUPS = (
-    ("B1 quantize_rows", ("quantize_rows_kernel",)),
+    ("B1 quantize_rows", ("quantize_rows_",)),
     ("B4 scaled_gemm nt, TMA + wgmma (B1 GEMM half)",
      ("scaled_mm_wgmma_kernel",)),
-    ("B4 scaled_gemm nn, mma.sync (B1's grad-input)", ("scaled_mm_nn_kernel",)),
+    ("B4 scaled_gemm nn, TMA + wgmma (B1's grad-input)",
+     ("scaled_mm_nn_wgmma_kernel",)),
     ("B2 dequant_gemv bit-plane", ("dequant_gemv_kernel_bitplane",)),
     ("B2 dequant_gemv", ("dequant_gemv_kernel", "dequant_gemv_mma_kernel")),
     ("B2 tiles: decode bit-plane", ("decode_weight_bitplane",)),
@@ -3447,7 +3600,12 @@ FAULTS = (
     ("gemv_reduce_one_shuffle_short", "dequant_gemv", "dequant_gemv", "int8",
      [("off > 0; off >>= 1", "off > 1; off >>= 1")]),
     ("quantize_rounds_half_away", "quantize_rows", "quantize_rows", "int8",
-     [("rintf(__fdiv_rn(v, scale))", "roundf(__fdiv_rn(v, scale))")]),
+     [("static_cast<int>(sdnq::quant_div(v, scale))",
+       "static_cast<int>(roundf(__fdiv_rn(v, scale)))")]),
+    ("quantize_without_the_division_fallback", "quantize_rows",
+     "quantize_rows", "int8",
+     [("if (near) {  // a quotient next to a half-integer: the division decides",
+       "if (false) {  // a quotient next to a half-integer: the division decides")]),
     ("groupdot_decodes_the_other_nibble", "decode_weight", "groupdot_mm",
      "uint4_wo", [("const unsigned sh = hs.width[p] * t;",
                    "const unsigned sh = (hs.width[p] * t) ^ 4;")]),
@@ -3500,8 +3658,19 @@ FAULTS = (
      "train", [("hopper.cuh", "x1 = rr & 2 ? 0x3276u : 0x7632u;",
                 "x1 = rr & 2 ? 0x3276u : 0x6732u;")]),
     ("colscale_ignored", "quantize_rows", "quantize_rows:colscale", "train",
-     [("if (cs) v = __fmul_rn(v, cs[k]);",
-       "if (false) v = __fmul_rn(v, cs[k]);")]),
+     [("for (int e = 0; e < EPV; ++e) f[e] = __fmul_rn(f[e], c[e]);",
+       "for (int e = 0; e < EPV; ++e) f[e] = __fmul_rn(f[e], 1.f);")]),
+    ("nn_transpose_swaps_a_byte_lane", "scaled_mm", "scaled_gemm:nn", "train",
+     [("hopper.cuh", "x1 = rr & 2 ? 0x3276u : 0x7632u;",
+       "x1 = rr & 2 ? 0x3276u : 0x6732u;")]),
+    ("nn_split_drops_the_last_slice", "scaled_mm", "scaled_gemm:nn", "train",
+     [("w.kb1 = ((w.split + 1) * p.nk) / p.splits;",
+       "w.kb1 = w.split == p.splits - 1 && p.splits > 1 ? w.kb0 : ((w.split + 1) * p.nk) / p.splits;")]),
+    ("nn_split_keeps_its_counters", "scaled_mm", "scaled_gemm:nn", "train",
+     [("        if (*last) counters[w.part] = 0;", "")]),
+    ("nn_drops_the_m_tail", "scaled_mm", "scaled_gemm:nn", "train",
+     [("tensor_map(&ta, a, M, K, lda, BM, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 128)",
+       "tensor_map(&ta, a, M > BM ? M - M % BM : M, K, lda, BM, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 128)")]),
     ("b2_scale_of_the_next_group", "decode_weight", "dequant_mm:grouped",
      "pipeline", [("const float s = scale[(size_t)n * G + gi];",
                    "const float s = scale[(size_t)n * G + (gi + 1) % G];")]),
@@ -3641,213 +3810,13 @@ def watchdog_fired(lib_path) -> bool:
     return bool(fired.value)
 
 
-# B4's e4m3 mode with Hopper's fp8 wgmma (the shipped kernel converts each
-# e4m3 stage to fp16 and multiplies as fp16): the wgmma wrapper, and each
-# stage's four k32 steps (m64n128k32) run in place of the conversion, into
-# the accumulator itself ("every" 0), or into a fresh fp32 partial that is
-# added to it with one rounding each "every" k32 steps (4: once a stage,
-# 128 of K; 1: every k32 step).
-E4M3_PROMOTION = (("no_promotion", 0), ("promoted_every_stage", 4),
-                  ("promoted_every_k32", 1))
-WGMMA_E4M3 = (
-    "__device__ __forceinline__ void wgmma_e4m3(float (&d)[64], uint64_t da,"
-    " uint64_t db, int scale_d) {\n"
-    '  asm volatile("{\\n .reg .pred p;\\n setp.ne.b32 p, %66, 0;\\n"\n'
-    '      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 {'
-    + ", ".join(f"%{i}" for i in range(64)) + '}, %64, %65, p, 1, 1;\\n}\\n"\n'
-    "      : " + ", ".join(f'"+f"(d[{i}])' for i in range(64))
-    + '\n      : "l"(da), "l"(db), "r"(scale_d));\n}\n\n')
-
-
-def e4m3_wgmma_edits(every: int):
-    """The edits of scaled_mm.cu for an fp8-wgmma e4m3 build (see
-    E4M3_PROMOTION): the stage's products, then ``continue`` past the
-    conversion to fp16."""
-    head = ("        const uint64_t da = sw128_desc(smem + s * STAGE_BYTES + "
-            "wg * 64 * 128);\n"
-            "        const uint64_t db = sw128_desc(smem + s * STAGE_BYTES + "
-            "A_BYTES);\n")
-    if every:
-        body = (f"        float part[64] = {{}};\n"
-                f"#pragma unroll\n"
-                f"        for (int c = 0; c < 4; c += {every}) {{\n"
-                f"          fence_regs(part);\n"
-                f"          wgmma_fence();\n"
-                f"#pragma unroll\n"
-                f"          for (int kk = c; kk < c + {every}; ++kk)\n"
-                f"            wgmma_e4m3(part, da + 2 * kk, db + 2 * kk, "
-                f"kk != c);\n"
-                f"          wgmma_commit();\n"
-                f"          wgmma_wait<0>();\n"
-                f"          fence_regs(part);\n"
-                f"#pragma unroll\n"
-                f"          for (int i = 0; i < 64; ++i) acc[i] = "
-                f"__fadd_rn(acc[i], part[i]);\n"
-                f"        }}\n")
-    else:
-        body = ("        fence_regs(acc);\n"
-                "        wgmma_fence();\n"
-                "#pragma unroll\n"
-                "        for (int kk = 0; kk < 4; ++kk) "
-                "wgmma_e4m3(acc, da + 2 * kk, db + 2 * kk, 1);\n"
-                "        wgmma_commit();\n"
-                "        wgmma_wait<0>();\n"
-                "        fence_regs(acc);\n")
-    anchor = "        uint8_t* cv = conv + (it & 1) * CONV_BYTES;\n"
-    return [("// the two consumer warpgroups meet (named barrier 1;",
-             WGMMA_E4M3 + "// the two consumer warpgroups meet (named "
-             "barrier 1;"),
-            (anchor, head + body + "        release(s);\n        continue;\n"
-             + anchor)]
-
-
-# Probes of B3 / B9's bf16 P.V kernel: timed builds of csrc/flash_attn.cu
-# with text edits, built as the faults are and timed after them
-# (probe_phase).  Each build of a source in WATCHED carries the barrier
-# watchdog, so "watchdog_only" (no other edit) is the one the others are
-# compared with.  Three b9_* builds each give B9 one part of B3's (its
-# exp2f, scores without the sm_scale multiply, the bf16 epilogue), so that
-# the reference's time less each one's is that part's cost; the fourth
-# takes B9's exp(x) as exp2f(x log2(e)), which keeps its natural units.
-# The last two take out the ping-pong of the consumer warpgroups and add a
-# third K / V stage.  Then the e4m3 builds of csrc/scaled_mm.cu
-# (E4M3_PROMOTION), read for their error as well as timed, B10's counters
-# and B6 with one part taken out each (the decode, the scale and zpc loads,
-# the x loads, the weight loads; wrong outputs, the time the rest takes).
-# B10's probes: clock64 counters (cycles a tile in the main loop and in the
-# epilogue, waiting for TMA and rewriting stages, summed over each block's
-# thread 0 and read by `sdnq_prof`), and the same without the stage rewrite
-# (wrong outputs: the time the rest takes)
-_TN_SPLIT = [
-    ("namespace {\n\nusing namespace sdnq;",
-     "namespace {\n__device__ unsigned long long g_prof[5];\nusing namespace sdnq;"),
-    ("  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {\n"
-     "    const int2 nk0 = at(tile);\n#pragma unroll",
-     "  long long w_cyc = 0, x_cyc = 0;\n"
-     "  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {\n"
-     "    const long long t_a = clock64();\n"
-     "    const int2 nk0 = at(tile);\n#pragma unroll"),
-    ("      mbar_wait(&full[s], (it / ST) & 1);",
-     "      const long long t_w = clock64();\n"
-     "      mbar_wait(&full[s], (it / ST) & 1);\n      w_cyc += clock64() - t_w;"),
-    ("      consumers_sync();\n      if constexpr (KIND == S8) {",
-     "      const long long t_x = clock64();\n      consumers_sync();\n"
-     "      if constexpr (KIND == S8) {"),
-    ("      __syncwarp();\n      if (lane == 0) mbar_arrive(&empty[s]);",
-     "      x_cyc += clock64() - t_x;\n      __syncwarp();\n"
-     "      if (lane == 0) mbar_arrive(&empty[s]);"),
-    ("    wgmma_wait<0>();\n    fence_regs(acc);\n    consumers_sync();",
-     "    const long long t_b = clock64();\n    wgmma_wait<0>();\n"
-     "    fence_regs(acc);\n    consumers_sync();"),
-    ("    store_tile_tn<NB>(acc, conv, out, nk0, cq, ep);\n  }",
-     "    store_tile_tn<NB>(acc, conv, out, nk0, cq, ep);\n"
-     "    if (threadIdx.x == 0) {\n"
-     "      atomicAdd(&g_prof[0], (unsigned long long)(t_b - t_a));\n"
-     "      atomicAdd(&g_prof[1], (unsigned long long)(clock64() - t_b));\n"
-     "      atomicAdd(&g_prof[2], 1ull);\n    }\n  }\n"
-     "  if (threadIdx.x == 0) {\n"
-     "    atomicAdd(&g_prof[3], (unsigned long long)w_cyc);\n"
-     "    atomicAdd(&g_prof[4], (unsigned long long)x_cyc);\n  }"),
-    ("}  // namespace\n",
-     "}  // namespace\n\nextern \"C\" int sdnq_prof(unsigned long long* h) {\n"
-     "  cudaError_t e = cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof));\n"
-     "  const unsigned long long z[5] = {0, 0, 0, 0, 0};\n"
-     "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_prof, z, sizeof(z));\n"
-     "  return (int)e;\n}\n"),
-]
-_TN_NO_REWRITE = [
-    ("        for (int h = 0; h <= NB; ++h) tr.run(st + h * BOX, cv + h * 128 * 128, tok);"
-     "  // A, then B's", "        (void)tr;"),
-    ("          e4m3_rows_to_f16(st + h * BOX, cv + h * 2 * BOX, tok, BOX, threadIdx.x);",
-     "          (void)h;")]
-PROBES = (
-    ("watchdog_only", "flash_attn", []),
-    ("b9_exp2f", "flash_attn",
-     [("return NATURAL ? expf(x) : exp2f(x);", "return exp2f(x);")]),
-    ("b9_expf_as_exp2f", "flash_attn",
-     [("return NATURAL ? expf(x) : exp2f(x);",
-       "return NATURAL ? exp2f(x * kLog2e) : exp2f(x);")]),
-    ("b9_no_sm_scale", "flash_attn",
-     [("else if constexpr (NATURAL)\n        x = __fmul_rn(x, a.sm_scale);",
-       "else if constexpr (NATURAL)\n        x = x;")]),
-    ("b9_bf16_epilogue", "flash_attn",
-     [("store_partial<NDT>(a, bh, r0, r1, t4, o, m0, m1, l0, l1);",
-       "store_rows<__nv_bfloat16, NDT>(a, bh, r0, r1, t4, o, l0, l1);")]),
-    ("no_pingpong", "flash_attn",
-     [('asm volatile("bar.sync %0, 256;\\n" ::"r"(1 + wg) : "memory");',
-       "(void)wg;"),
-      ('asm volatile("bar.arrive %0, 256;\\n" ::"r"(2 - wg) : "memory");',
-       "(void)wg;")]),
-    ("three_stages", "flash_attn",
-     [("constexpr int ST = 2;", "constexpr int ST = 3;")]),
-    *((f"b4_e4m3_wgmma_{name}", "scaled_mm", e4m3_wgmma_edits(every))
-      for name, every in E4M3_PROMOTION),
-    # the token kernel with one part taken out each (wrong outputs: the time
-    # the rest takes)
-    ("tok_no_qk", "flash_attn",
-     [("    tok_qk<D, QUANT>(s, smem, k_stage(st));\n", "")]),
-    ("tok_no_pv", "flash_attn",
-     [("          wgmma_rs_s8_128(pv, pa[kk], db, i > 0 || kk > 0);",
-       "          (void)db;")]),
-    ("tok_no_quantize", "flash_attn",
-     [("  const float y = __fmul_rn(e, inv);\n  const float r = __fadd_rn(y, 12582912.f);\n"
-       "  near |= fabsf(__fsub_rn(y, __fsub_rn(r, 12582912.f))) > 0.499975f;\n"
-       "  return __float_as_uint(r);",
-       "  return __float_as_uint(e) ^ __float_as_uint(inv);")]),
-    ("tok_no_exp", "flash_attn", [("= ex<PARTIAL>(__fsub_rn(", "= (__fsub_rn(")]),
-    ("tok_no_vt", "flash_attn",
-     [("  flash_attn_vt_kernel<D><<<dim3(a.KN / TBN, BKH), 256, 0, st>>>(a.v, "
-       "static_cast<uint8_t*>(vt),\n"
-       "                                                                 a.KN);\n", "")]),
-    # B2's GEMV with one part taken out each
-    ("gemv_no_weight_loads", "dequant_gemv",
-     [("      sdnq::mbar_expect_tx(&full[s], static_cast<unsigned>(nr * len));\n"
-       "      for (int r = 0; r < nr; ++r)\n"
-       "        sdnq::bulk_load(smem + s * STAGE_BYTES + r * KC, a.w + (size_t)(o0 + r) * K + k0, "
-       "len, &full[s]);",
-       "      sdnq::mbar_arrive(&full[s]);\n      (void)nr, (void)len;"),
-      ("    ca = in && ra < O ? __ldg(reinterpret_cast<const uint4*>(wa + k)) : make_uint4(0u, 0u, 0u, 0u);\n"
-       "    cb = in && rb < O ? __ldg(reinterpret_cast<const uint4*>(wb + k)) : make_uint4(0u, 0u, 0u, 0u);",
-       "    ca = make_uint4(k, j, ra, 1u);\n    cb = make_uint4(k, j, rb, 2u);")]),
-    ("gemv_no_x_loads", "dequant_gemv",
-     [("              load4(xp + (size_t)m * K + k0, xv);",
-       "              for (int e = 0; e < 4; ++e) xv[e] = 1.f + e + m;"),
-      ("        if (m < M && k < K) xb = __ldg(reinterpret_cast<const uint2*>(x + (size_t)m * K + k));",
-       "        xb = make_uint2(0x3f803f80u + m, 0x3f803f80u + k);")]),
-    ("gemv_no_decode", "dequant_gemv",
-     [("          decode4<FP8>(cw[q], flip, off, w);",
-       "          for (int e = 0; e < 4; ++e) w[e] = __uint_as_float((cw[q] >> e) & 0x3f800000u);"),
-      ("      decode4<FP8>(wa4[s4], flip, off, fa);\n      decode4<FP8>(wb4[s4], flip, off, fb);",
-       "      for (int e = 0; e < 4; ++e) fa[e] = __uint_as_float((wa4[s4] >> e) & 0x3f800000u),\n"
-       "                                  fb[e] = __uint_as_float((wb4[s4] >> e) & 0x3f800000u);")]),
-    ("tn_split", "scaled_mm_tn", _TN_SPLIT),
-    ("tn_split_no_rewrite", "scaled_mm_tn", _TN_SPLIT + _TN_NO_REWRITE),
-    ("b6_no_decode", "blockdiag_mm",
-     [("      decode8<BITS, TABLE, J>(wv[r], tab, cf[r]);",
-       "      for (int e = 0; e < 8; ++e) cf[r][e] = __uint_as_float(wv[r][0].x"
-       " & 0x3f800000u);")]),
-    ("b6_no_scale_loads", "blockdiag_mm",
-     [("      sc[r] = __ldg(a.scale + (size_t)o * a.G + gi);\n"
-       "      z[r] = __ldg(a.zpc + (size_t)o * a.G + gi);",
-       "      sc[r] = 1.f + o;\n      z[r] = 0.5f + gi;")]),
-    ("b6_no_x_loads", "blockdiag_mm",
-     [("        load8(xp + (size_t)m * a.K + k0, xv);",
-       "        for (int e = 0; e < 8; ++e) xv[e] = 1.f + e + m;")]),
-    ("b6_no_weight_loads", "blockdiag_mm",
-     [("        wv[v][r][i] = ok ? __ldg(reinterpret_cast<const uint2*>(p + "
-       "(size_t)S * i)) : make_uint2(0, 0);",
-       "        wv[v][r][i] = make_uint2(u * 7 + i, o);")]),
-)
-
-
-def start_fault_builds(entries=None, sub: str = "faults"):
-    """Write each source of ``entries`` ((tag, source, edits); FAULTS's by
-    default) with its edits into _build/<sub>/<tag>/ and start its nvcc;
-    returns {tag: (process, library path)}."""
+def start_fault_builds():
+    """Write each source of FAULTS with its edits into
+    _build/faults/<tag>/ and start its nvcc; returns {tag: (process,
+    library path)}."""
     from sdnq_tpu_torch.kernels import _build
     csrc = ROOT / "sdnq_tpu_torch" / "csrc"
-    if entries is None:
-        entries = [(tag, src, edits) for tag, src, _, _, edits in FAULTS]
+    entries = [(tag, src, edits) for tag, src, _, _, edits in FAULTS]
     texts = {}
     for tag, src, edits in entries:  # every edit applies, or none builds
         files = {f: (csrc / f).read_text() for f in (f"{src}.cu",
@@ -3859,12 +3828,12 @@ def start_fault_builds(entries=None, sub: str = "faults"):
             name, old, new = edit if len(edit) == 3 else (f"{src}.cu",
                                                           *edit)
             if old not in files[name]:
-                raise RuntimeError(f"{sub} {tag}: {old!r} not in {name}")
+                raise RuntimeError(f"fault {tag}: {old!r} not in {name}")
             files[name] = files[name].replace(old, new)
         texts[tag] = files
     procs = {}
     for tag, src, _ in entries:
-        d = _build.build_dir() / sub / tag
+        d = _build.build_dir() / "faults" / tag
         d.mkdir(parents=True, exist_ok=True)
         for name, text in texts[tag].items():
             (d / name).write_text(text)
@@ -3898,10 +3867,12 @@ def library_swapped(name, lib_path):
 
 
 def fault_phase(torch, dev, slices, procs):
-    """Rerun phases 3 (untimed) and 5 with each planted fault in place.
-    Phase 3 must fail for the broken kernel; phase 5's reading (on the
-    slice whose path runs the kernel; ``slices`` maps a label to a
-    function returning its readings) are reported beside their limits."""
+    """Rerun phase 3 (untimed; the rows of the kernels built from the
+    broken source) and phase 5's slice of the fault's path with each planted
+    fault in place.  Phase 3 must fail for the broken kernel; phase 5's
+    readings (on the slice whose path runs the kernel; ``slices`` maps a
+    label to a function returning its readings) are reported beside their
+    limits."""
     # every slice check's limits; "qlinear_b8" is the B8 qlinear check's
     all_tol = {**{k: {"max": v} for k, v in SLICE_TOL.items()},
                **LLM_SLICE_TOL, "qlinear_b8": {"max": 2 ** -7},
@@ -3913,10 +3884,11 @@ def fault_phase(torch, dev, slices, procs):
     if FAILURES:
         return
     results = []
+    t0 = time.perf_counter()
     for tag, src, kernel, label, _ in FAULTS:
         sound = list(FAILURES)
         with library_swapped(src, procs[tag][1]):
-            rows = kernel_phase(torch, dev, timed=False)
+            rows = kernel_phase(torch, dev, timed=False, only={src})
             readings = slices[label]()
             # a broken ring may leave the GEMM's barrier waits to give up
             watchdog = src in WATCHED and watchdog_fired(procs[tag][1])
@@ -3935,299 +3907,81 @@ def fault_phase(torch, dev, slices, procs):
         check(any(r["count"] == kernel for r in caught),
               f"fault {tag}: phase 3 fails {kernel}")
     log("faults: " + json.dumps(results))
+    log(f"fault phase: {len(FAULTS)} faults in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
-def probe_phase(torch, dev, procs):
-    """Wait for the builds of PROBES and run each source's probes."""
-    for tag, (proc, _) in procs.items():
-        check(proc.wait() == 0, f"probe {tag}: built")
-    if FAILURES:
-        return
-    src = {tag: s for tag, s, _ in PROBES}
-    for name, run, sel in (
-            ("flash_attn", attention_probes, lambda t: not t.startswith("tok_")),
-            ("flash_attn", token_probes,
-             lambda t: t.startswith("tok_") or t == "watchdog_only"),
-            ("scaled_mm", e4m3_probes, None), ("scaled_mm_tn", tn_probes, None),
-            ("blockdiag_mm", b6_probes, None),
-            ("dequant_gemv", gemv_probes, None)):
-        run(torch, dev, {tag: lib for tag, (_, lib) in procs.items()
-                         if src[tag] == name and (sel is None or sel(tag))})
-
-
-# B4 e4m3 at the card tests' shapes (tests/test_torch_cuda_kernels.py:
-# test_scaled_gemm_fp8, then test_scaled_gemm_nt_ragged's with every
-# epilogue term): (M, N, K, every term)
-E4M3_TEST_SHAPES = ((150, 72, 200, False), (1000, 3000, 3000, True),
-                    (33, 200, 1088, True), (1, 8, 24, True),
-                    (300, 520, 100, True))
-
-
-def e4m3_probes(torch, dev, libs):
-    """B4 e4m3 under the shipped build and each fp8-wgmma build of PROBES
-    (E4M3_PROMOTION), then the shipped one again: at each of
-    E4M3_TEST_SHAPES (fp32 out) the worst |got - want| over the card
-    tests' bound (1e-5 of sum |a b| xs ws, plus 1e-6; above 1 fails the
-    test); at phase 3's FLUX shape (M 4608, K 3072, N 9216, bf16 out) the
-    same over phase 3's limit, and ms a call by ``burst_ms`` beside
-    ``torch._scaled_mm``'s."""
+def b1_probes(torch, dev):
+    """``--b1-probes``: B1's row quantizer at phase 3's three shapes and at
+    the grad-input's without its column scale (CUDA events over bursts and
+    the profiler's device time, beside the bytes bound), then B4 nn at each
+    shape of NN_SHAPES under every plan (tiles 128 x 128 or 128 x 256; all
+    whole, or full rounds whole and the other tiles' contraction split
+    1-16 ways; the profiler's device time of the kernel): the readings
+    ``nn_plan`` is fitted to.  One line a shape and one JSON line of the nn
+    plans' readings."""
     from sdnq_tpu_torch.kernels import scaled_mm as ks
-    g = torch.Generator(device=dev).manual_seed(78)
-    f8 = torch.float8_e4m3fn
-    cases = []
-    for m, n, k, terms in E4M3_TEST_SHAPES:
-        a = torch.randn(m, k, device=dev, generator=g).to(f8)
-        b = (torch.randn(n, k, device=dev, generator=g) * 4).to(f8)
-        kw = dict(xs=torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3)
-        if terms:
-            kw.update(ws=torch.rand(n, device=dev, generator=g) * 0.02 + 1e-3,
-                      bias=torch.randn(n, device=dev, generator=g),
-                      **{t: torch.randn(r, device=dev, generator=g)
-                         for t, r in (("rs", m), ("zp", m), ("vz0", n),
-                                      ("vz1", n))})
-        mag = (a.float().abs() @ b.float().abs().T) * kw["xs"]
-        if terms:
-            mag = mag * kw["ws"][None, :]
-        want = ks.scaled_gemm_plain(a, b, torch.float32, **kw)
-        cases.append((f"M{m} K{k} N{n}", a, b, kw, want, 1e-5 * mag + 1e-6))
-    m, k, n = 4608, 3072, 9216
-    x = torch.randn(m, k, device=dev, generator=g).bfloat16()
-    a, xs = ks.quantize_rows(x, "float8_e4m3fn")[:2]
-    b = (torch.randn(n, k, device=dev, generator=g) * 50).to(f8)
-    ws = torch.rand(n, device=dev, generator=g) * 1e-3
-    want = ks.scaled_gemm_plain(a, b, torch.bfloat16, xs, ws)
-    tol = float(1e-5 * ((a.float().abs() @ b.float().abs().T) * xs
-                        * ws).max() + want.float().abs().max() * 2 ** -7)
-
-    def run():
-        r = {name: float(((ks.scaled_gemm(ca, cb, torch.float32, **kw)
-                           - cw).abs() / bound).max())
-             for name, ca, cb, kw, cw, bound in cases}
-        got = ks.scaled_gemm(a, b, torch.bfloat16, xs, ws)
-        r[f"M{m} K{k} N{n} (phase 3 limit)"] = float(
-            (got.float() - want.float()).abs().max()) / tol
-        r["ms"] = burst_ms(lambda: ks.scaled_gemm(a, b, torch.bfloat16, xs,
-                                                  ws))
-        return r
-    out = {"_scaled_mm ms": burst_ms(lambda: torch._scaled_mm(
-        a, b.t(), scale_a=xs, scale_b=ws[None, :],
-        out_dtype=torch.bfloat16)), "shipped": run()}
-    for tag, lib in libs.items():
-        with library_swapped("scaled_mm", lib):
-            out[tag] = run()
-            check(not watchdog_fired(lib),
-                  f"probe {tag}: no barrier wait gave up")
-    out["shipped, again"] = run()
-    log("e4m3 probes (worst error over the limit, above 1 fails; ms a call "
-        "in bursts of 20 at M 4608 K 3072 N 9216): " + json.dumps(out))
-    del cases, x, a, b, want
-    torch.cuda.empty_cache()
-
-
-def tn_probes(torch, dev, libs):
-    """B10 under the two ``tn_split`` builds of PROBES (watchdog and
-    counters, then also without the stage rewrite) at linear1 (int8,
-    e4m3) and the modulation shape at M 1 (int8): ms a call (CUDA events)
-    and each counter's cycles a tile."""
-    import ctypes
-    from sdnq_tpu_torch.kernels import scaled_mm as ks
-    g = torch.Generator(device=dev).manual_seed(79)
-    cases = []
-    for label, m, n, k, dt in (("int8 linear1", 1536, 21504, 3072, torch.int8),
-                               ("int8 M1", 1, 18432, 3072, torch.int8),
-                               ("e4m3 linear1", 1536, 21504, 3072,
-                                torch.float8_e4m3fn)):
-        if dt == torch.int8:
-            a, b = (torch.randint(-128, 128, (m, c), device=dev, generator=g,
-                                  dtype=dt) for c in (n, k))
-        else:
-            a, b = (torch.randn(m, c, device=dev, generator=g).to(dt)
-                    for c in (n, k))
-        cases.append((label, a, b, torch.rand(n, device=dev, generator=g),
-                      torch.rand(k, device=dev, generator=g)))
-    out = {}
-    buf = (ctypes.c_ulonglong * 5)()
-    for tag, lib in libs.items():
-        reader = ctypes.CDLL(str(lib)).sdnq_prof
-        with library_swapped("scaled_mm_tn", lib):
-            for label, a, b, a_s, b_s in cases:
-                def fn():
-                    return ks.scaled_mm_tn(a, b, a_s, b_s)
-                fn()
-                torch.cuda.synchronize()
-                reader(buf)  # read and zeroed
-                ms = time_ms(fn, reps=10, warmup=0)
-                torch.cuda.synchronize()
-                reader(buf)
-                tiles = max(buf[2], 1)
-                out[f"{tag} {label}"] = dict(
-                    ms=ms, main_cycles=buf[0] / tiles,
-                    epilogue_cycles=buf[1] / tiles,
-                    tma_wait_cycles=buf[3] / tiles,
-                    rewrite_cycles=buf[4] / tiles)
-            check(not watchdog_fired(lib),
-                  f"probe {tag}: no barrier wait gave up")
-    log("B10 probes (ms a call; cycles a tile, block thread 0): "
-        + json.dumps(out))
-    del cases
-    torch.cuda.empty_cache()
-
-
-def b6_probes(torch, dev, libs):
-    """B6 at M 1, 3072 -> 18432 (uint4 g128 with fp32 x, float5_e2m2fn
-    g128 and uint5 g256 with bf16 x) with its weight cold (``cold_ms``),
-    under the shipped build, each b6_* build of PROBES, and the shipped
-    one again: device ms a call."""
-    from sdnq_tpu_torch import quantize_tensor
-    from sdnq_tpu_torch.kernels import dequant_mm as kd
-    g = torch.Generator(device=dev).manual_seed(80)
-    n, k = 18432, 3072
-    cases = []
-    for fmt, gsize, xdt in (("uint4", 128, torch.float32),
-                            ("float5_e2m2fn", 128, torch.bfloat16),
-                            ("uint5", 256, torch.bfloat16)):
-        qt = quantize_tensor(torch.randn(n, k, device=dev, generator=g)
-                             * 0.02, fmt, group_size=gsize)
-        f = qt.meta.format
-        zp = None if qt.zero_point is None else qt.zero_point.reshape(n, -1)
-        sc, zpc = kd._group_operands(qt.scale.reshape(n, -1), zp, f)
-        x = torch.randn(1, k, device=dev, generator=g).to(xdt)
-        cases.append((fmt, b6_cold_calls((x, qt.qdata, sc, zpc, None,
-                                          f.code_bits, torch.bfloat16, f))))
-
-    def run():
-        return {fmt: cold_ms(torch, calls, KERNEL_SYMBOLS["blockdiag_mm"])[1]
-                for fmt, calls in cases}
-    out = {"shipped": run()}
-    for tag, lib in libs.items():
-        with library_swapped("blockdiag_mm", lib):
-            out[tag] = run()
-    out["shipped, again"] = run()
-    log(f"B6 probes (device ms a call, M 1 K {k} N {n}, weight cold): "
-        + json.dumps(out))
-    del cases
-    torch.cuda.empty_cache()
-
-
-def token_probes(torch, dev, libs):
-    """The token kernel under each tok_* build of PROBES (and the watchdog
-    build alone), between two runs of the shipped build: ms a call by
-    ``burst_ms`` and device ms (``device_ms``) of B9 at FLUX's P = 1 block
-    and of the Llama int8-KV prefill call (B3, 128 heads over 32 KV heads,
-    896 x 1024 under its cache mask), and B9's readings against its plain
-    version (a probe may change what it computes)."""
-    from sdnq_tpu_torch.kernels import attention as ka
-    from sdnq_tpu_torch.quant.core import quantize_int_mm
-    g = torch.Generator(device=dev).manual_seed(78)
-    b, h, n, d = FLUX_ATTN
-    q, k, v = (torch.randn(b * h, n, d, device=dev, generator=g)
-               for _ in range(3))
-    args, kw = b9_operands(torch, q, k, v, "int8_token")
-    args.append(None)
-    want = ka.flash_attention_block_plain(*args, **kw)
-    del q, k, v
-    lb, lh, lkh, ln, lkn = 4, 32, 8, 896, 1024
-    lq, qs = quantize_int_mm(torch.randn(lb * lh, ln, d, device=dev,
-                                         generator=g))
-    lk, ks, lv, vs = ka.quantize_kv(
-        torch.randn(lb * lkh, lkn, d, device=dev, generator=g),
-        torch.randn(lb * lkh, lkn, d, device=dev, generator=g))
-    pos = torch.arange(ln, device=dev)
-    mask = (torch.arange(lkn, device=dev)[None, :] <= pos[:, None])[
-        None, None].expand(lb, 1, ln, lkn)
-    lkw = dict(heads=lh, mask=mask, v_scale=vs, p_block=ka.attn_p_block(lkn))
-    qs = (qs[..., 0] * d ** -0.5) * ka.LOG2E
-    calls = {"b9_flux_p1": lambda: ka.flash_attention_block(*args, **kw),
-             "b3_llama_int8kv": lambda: ka.flash_attention(lq, lk, lv, qs, ks,
-                                                           **lkw)}
-    sym = KERNEL_SYMBOLS["flash_attention"]
-
-    def run():
-        r = {key: {"ms": burst_ms(fn), "device_ms": device_ms(torch, fn, sym)}
-             for key, fn in calls.items()}
-        r["b9_readings"] = b9_readings(calls["b9_flux_p1"](), want)
-        return r
-    out = {"shipped": run()}
-    for tag, lib in libs.items():
-        with library_swapped("flash_attn", lib):
-            out[tag] = run()
-            check(not watchdog_fired(lib),
-                  f"probe {tag}: no barrier wait gave up")
-    out["shipped, again"] = run()
-    log("token probes (ms a call in bursts of 20 and device ms; B9 limits "
-        + json.dumps(B9_TOL["token"]) + "): " + json.dumps(out))
-    del args, want, lq, lk, lv
-    torch.cuda.empty_cache()
-
-
-def gemv_probes(torch, dev, libs):
-    """B2's GEMV with its weight cold (``cold_ms``: int8 rowwise, M 1 fp32 x
-    at 3072 -> 18432; M 4 bf16 x at Llama's 4096 -> 4096 and 4096 -> 1024)
-    under the shipped build, each gemv_* build of PROBES, and the shipped
-    one again: device ms a call."""
-    g = torch.Generator(device=dev).manual_seed(81)
-    cases = {}
-    for m, k, o, xdt in ((1, 3072, 18432, torch.float32),
-                         (4, 4096, 4096, torch.bfloat16),
-                         (4, 4096, 1024, torch.bfloat16)):
-        x = torch.randn(m, k, device=dev, generator=g).to(xdt)
-        w = torch.randint(-128, 128, (o, k), device=dev, generator=g,
-                          dtype=torch.int8)
-        s = torch.rand(o, device=dev, generator=g) * 1e-3
-        cases[f"M{m} {k}->{o}"] = gemv_cold_calls(
-            (x, w, s, None, None, torch.bfloat16))
-
-    def run():
-        return {key: cold_ms(torch, calls, KERNEL_SYMBOLS["dequant_gemv"])[1]
-                for key, calls in cases.items()}
-    out = {"shipped": run()}
-    for tag, lib in libs.items():
-        with library_swapped("dequant_gemv", lib):
-            out[tag] = run()
-    out["shipped, again"] = run()
-    log("GEMV probes (device ms a call, weight cold): " + json.dumps(out))
-    del cases
-    torch.cuda.empty_cache()
-
-
-def attention_probes(torch, dev, libs):
-    """B3 bf16 and B9 bf16 at FLUX's P = 1 block (24 heads, 4608 tokens,
-    D 128) under each flash_attn build of PROBES, between two runs of the
-    shipped build, beside SDPA on the same inputs: ms a call by
-    ``burst_ms`` (late in the run the profiler recorded no kernels for
-    some of these calls), and B9's readings against its plain version
-    (``B9_TOL``; a probe may change what B9 computes)."""
-    import torch.nn.functional as F
-    from sdnq_tpu_torch.kernels import attention as ka
     g = torch.Generator(device=dev).manual_seed(77)
-    b, h, n, d = FLUX_ATTN
-    q, k, v = (torch.randn(b * h, n, d, device=dev, generator=g)
-               for _ in range(3))
-    sm = d ** -0.5
-    qb = (q * (sm * ka.LOG2E)).bfloat16()
-    q16, k16, v16 = (x.bfloat16() for x in (q, k, v))
-    args, kw = b9_operands(torch, q, k, v, "bf16")
-    args.append(None)
-    want = ka.flash_attention_block_plain(*args, **kw)
-    calls = {"b3": lambda: ka.flash_attention(qb, k16, v16),
-             "b9": lambda: ka.flash_attention_block(*args, **kw)}
-
-    def run():
-        r = {key: burst_ms(fn) for key, fn in calls.items()}
-        r["b9_readings"] = b9_readings(calls["b9"](), want)
-        return r
-    out = {"sdpa": burst_ms(lambda: F.scaled_dot_product_attention(
-        q16[None], k16[None], v16[None], scale=sm)), "shipped": run()}
-    for tag, lib in libs.items():
-        with library_swapped("flash_attn", lib):
-            out[tag] = run()
-            check(not watchdog_fired(lib),
-                  f"probe {tag}: no barrier wait gave up")
-    out["shipped, again"] = run()
-    log("probes (ms a call in bursts of 20, FLUX's P = 1 block; B9 limits "
-        + json.dumps(B9_TOL["bf16_p"]) + "): " + json.dumps(out))
-    del q, k, v, qb, q16, k16, v16, args, want
-    torch.cuda.empty_cache()
+    for m, k, dt, cs in ((4608, 3072, torch.float32, False),
+                         (4608, 15360, torch.bfloat16, False),
+                         (1536, 21504, torch.bfloat16, True),
+                         (1536, 21504, torch.bfloat16, False)):
+        x = torch.randn(m, k, device=dev, generator=g).to(dt)
+        c = (torch.rand(k, device=dev, generator=g) * 2e-3 + 1e-5
+             if cs else None)
+        got = ks.quantize_rows(x, colscale=c)
+        want = ks.quantize_rows_plain(x, colscale=c)
+        check(all(torch.equal(u, v) for u, v in zip(got[:2], want[:2])),
+              f"quantize M{m} K{k} bit-equal")
+        bnd = bound_ms(m * k * (x.element_size() + 1) + m * 4
+                       + (k * 4 if cs else 0))[0]
+        ev = burst_ms(lambda: ks.quantize_rows(x, colscale=c))
+        dv = device_ms(torch, lambda: ks.quantize_rows(x, colscale=c),
+                       KERNEL_SYMBOLS["quantize_rows"], reps=20)
+        what = f"M{m} K{k} {str(dt)[6:]}{' colscale' if cs else ''}"
+        log(f"quantize {what}: events {ev:.4f} ms, device {dv} ms, bytes "
+            f"bound {bnd:.4f} ms")
+        del x
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan, out = ks.nn_plan, []
+    try:
+        for m, o, kk, what, _ in NN_SHAPES:
+            a = torch.randint(-127, 128, (m, o), device=dev, generator=g,
+                              dtype=torch.int8)
+            w = torch.randint(-127, 128, (o, kk), device=dev, generator=g,
+                              dtype=torch.int8)
+            xs = torch.rand(m, 1, device=dev, generator=g) * 1e-4
+            want = ks.scaled_gemm_plain(a, w, torch.bfloat16, xs,
+                                        b_layout="nn")
+            times = {}
+            for nb in (1, 2):
+                tiles = -(-m // 128) * -(-kk // (128 * nb))
+                for whole in sorted({tiles, tiles // sms * sms}):
+                    for splits in range(1, (min(16, -(-o // 128)) + 1)
+                                        if whole < tiles else 2):
+                        ks.nn_plan = lambda *_, p=(nb, whole, splits): p
+                        got = ks.scaled_gemm(a, w, torch.bfloat16, xs,
+                                             b_layout="nn")
+                        key = f"{nb}/{whole}/{splits}"
+                        check(torch.equal(got, want),
+                              f"nn plan {what} {key}: bit-equal")
+                        times[key] = device_ms(
+                            torch, lambda: ks.scaled_gemm(
+                                a, w, torch.bfloat16, xs, b_layout="nn"),
+                            KERNEL_SYMBOLS["scaled_gemm"], reps=10)
+            ks.nn_plan = plan
+            times = {k: v for k, v in times.items() if v is not None}
+            chosen = "%d/%d/%d" % plan(m, kk, o, torch.int8, sms)
+            best = min(times, key=times.get)
+            log(f"nn plans M{m} K{o} N{kk} ({what}), nb/whole/splits, "
+                f"device ms: model {chosen} {times.get(chosen)}, best "
+                f"{best} {times[best]:.4f}")
+            out.append(dict(shape=[m, o, kk], what=what, chosen=chosen,
+                            best=best, ms=times))
+            del a, w, want
+    finally:
+        ks.nn_plan = plan
+    log("nn plans: " + json.dumps(out))
 
 
 def main() -> int:
@@ -4257,19 +4011,23 @@ def main() -> int:
     from sdnq_tpu_torch import QuantConfig
     from sdnq_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    fault_procs, probe_procs = {}, {}
+    fault_procs = {}
     faults = "--no-faults" not in sys.argv[1:]
     try:
-        secs = _build.build()
+        b1_only = "--b1-probes" in sys.argv[1:]
+        secs = _build.build(("quantize_rows", "scaled_mm") if b1_only
+                            else _build.SOURCES)
         log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
             + json.dumps({k: round(v, 1) for k, v in secs.items()}))
+        if b1_only:
+            b1_probes(torch, dev)
+            return 1 if FAILURES else 0
         # the crossover's timing decides a route: on a quiet host, before
         # the fault builds (after the real sources, which then have the
         # host's cores) start
         b7_b8_crossover(torch, dev)
         if faults:
             fault_procs = start_fault_builds()
-            probe_procs = start_fault_builds(PROBES, "probes")
         rows = kernel_phase(torch, dev)
 
         counts, slices = {"bench": dict(BENCH_COUNTS)}, {}
@@ -4394,12 +4152,10 @@ def main() -> int:
                                                           pipe_cut)
         if faults:
             fault_phase(torch, dev, checks, fault_procs)
-            probe_phase(torch, dev, probe_procs)
         else:
-            log("faults and probes not built (--no-faults): phases 7 and 8 "
-                "skipped")
+            log("faults not built (--no-faults): phase 7 skipped")
     finally:  # no compiler outlives the script
-        for proc, _ in [*fault_procs.values(), *probe_procs.values()]:
+        for proc, _ in fault_procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -4408,6 +4164,8 @@ def main() -> int:
     for r in rows:
         if not r["on_main_path"]:
             log("off-path kernel mode: " + json.dumps(r))
+    log(f"device_ms: {sum(r['device_ms'] is None for r in rows)} of "
+        f"{len(rows)} phase-3 readings null")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": path}))
     if FAILURES:

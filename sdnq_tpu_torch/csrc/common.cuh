@@ -188,16 +188,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// D += A(16x32 e4m3, row) * B(32x8 e4m3, col), fp32 accumulate (sm_89+).
-__device__ __forceinline__ void mma_e4m3(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // D += A(16x16 bf16, row) * B(16x8 bf16, col), fp32 accumulate.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
                                          const unsigned (&b)[2]) {
@@ -216,89 +206,36 @@ __device__ __forceinline__ void ldmatrix_x2_trans(unsigned& r0, unsigned& r1, co
                : "r"(smem_addr(p)));
 }
 
-// An 8-bit tile of R contraction rows x 128 columns, from a matrix stored
-// (rows, cols) with cols contiguous, into shared memory as [col][row]: the
-// K-major layout that the 8-bit operands of mma.sync need.  ldmatrix.trans
-// moves 16-bit elements only, so the transpose goes through registers: each
-// thread loads four 32-bit words of four consecutive rows (4 x 4 bytes) and
-// transposes them with __byte_perm into four words, one per column, each
-// stored with one 32-bit store.  Lanes take 4 row groups x 8 column groups,
-// so one load instruction of a warp reads whole 32-byte sectors.  Rows >=
-// `rows` and columns >= `cols` read as zero; `cols` and `ld` are multiples
-// of 4 bytes.  Each of the NT threads holds R * 8 / NT blocks of four words:
-// load() the next stage's tile while the current one is in use, store() it
-// after.
-template <int NT, int R>
-struct TransTile8 {
-  static constexpr int PER = R * 8 / NT;  // 4x4 blocks per thread
-  static_assert(PER >= 1 && R * 8 % NT == 0, "tile does not divide over the threads");
-  unsigned w[PER][4];
-
-  __device__ __forceinline__ void load(const uint8_t* __restrict__ src, size_t ld, int row0, int rows,
-                                       int col0, int cols, int tid) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int idx = tid + i * NT;
-      const int rq = (idx & 3) + 4 * (idx >> 7), cq = (idx >> 2) & 31;
-      const int col = col0 + 4 * cq;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = row0 + 4 * rq + j;
-        w[i][j] = (row < rows && col < cols)
-                      ? *reinterpret_cast<const unsigned*>(src + (size_t)row * ld + col)
-                      : 0u;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(uint8_t* smem, int lds, int tid) const {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int idx = tid + i * NT;
-      const int rq = (idx & 3) + 4 * (idx >> 7), cq = (idx >> 2) & 31;
-      // bytes r.b<c> of rows r0..r3 -> word c = [r0.b<c>, r1.b<c>, r2.b<c>, r3.b<c>]
-      const unsigned t0 = __byte_perm(w[i][0], w[i][1], 0x5140);
-      const unsigned t1 = __byte_perm(w[i][0], w[i][1], 0x7362);
-      const unsigned t2 = __byte_perm(w[i][2], w[i][3], 0x5140);
-      const unsigned t3 = __byte_perm(w[i][2], w[i][3], 0x7362);
-      uint8_t* p = smem + (4 * cq) * lds + 4 * rq;
-      *reinterpret_cast<unsigned*>(p) = __byte_perm(t0, t2, 0x5410);
-      *reinterpret_cast<unsigned*>(p + lds) = __byte_perm(t0, t2, 0x7632);
-      *reinterpret_cast<unsigned*>(p + 2 * lds) = __byte_perm(t1, t3, 0x5410);
-      *reinterpret_cast<unsigned*>(p + 3 * lds) = __byte_perm(t1, t3, 0x7632);
-    }
-  }
-};
-
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-struct MaxOp {
-  __device__ __forceinline__ float operator()(float a, float b) const { return fmaxf(a, b); }
-};
-struct MinOp {
-  __device__ __forceinline__ float operator()(float a, float b) const { return fminf(a, b); }
-};
-struct SumOp {
-  __device__ __forceinline__ int operator()(int a, int b) const { return a + b; }
-};
+// rint(e / sc) as the IEEE division rounds it (ties to even), in the low
+// byte of the result, for |e / sc| <= 129 (larger quotients: see the
+// callers' clips).  y = e * inv (inv = 1 / sc rounded) differs from the
+// rounded quotient by at most two roundings of 2^-24 |y| and half an ulp of
+// the quotient: under 2.4e-5 below 129.  So where y is more than 2.5e-5
+// from a half-integer both round to the same integer: the low byte of y +
+// 1.5 * 2^23, which rounds y to the nearest, ties to even (its low byte is
+// the integer's two's complement byte).  `near` is set where y is nearer;
+// the division decides there (quant_div).  B1's row quantizer
+// (quantize_rows.cu) and B3 / B9's token mode (flash_attn.cu) use it.
+__device__ __forceinline__ unsigned quant_round(float y, bool& near) {
+  const float r = __fadd_rn(y, 12582912.f);
+  near |= fabsf(__fsub_rn(y, __fsub_rn(r, 12582912.f))) > 0.499975f;
+  return __float_as_uint(r);
+}
+__device__ __forceinline__ unsigned quant_fast(float e, float inv, bool& near) {
+  return quant_round(__fmul_rn(e, inv), near);
+}
+__device__ __forceinline__ unsigned quant_div(float e, float sc) {
+  return static_cast<unsigned>(__float2int_rn(__fdiv_rn(e, sc)));
+}
 
-// Reduction over a block of exactly NT threads (a multiple of 32, <= 1024);
-// every thread gets the result.  `scratch` holds 32 values.
-template <int NT, typename T, typename Op>
-__device__ __forceinline__ T block_reduce(T v, Op op, T identity, T* scratch) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  if (l == 0) scratch[w] = v;
-  __syncthreads();
-  v = (l < NT / 32) ? scratch[l] : identity;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();  // scratch may be reused by the caller's next reduce
-  return v;
+// the low bytes of a, b, c, d in one word, a's in the low byte
+__device__ __forceinline__ unsigned pack4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040u), __byte_perm(c, d, 0x0040u), 0x5410u);
 }
 
 }  // namespace sdnq

@@ -647,28 +647,6 @@ __device__ __forceinline__ void tok_qk(float (&s)[32], const uint8_t* sq, const 
   wgmma_commit();
 }
 
-// rint(e / sc) for 0 <= e <= 127 sc, as the IEEE division rounds it.  y = e
-// * inv (inv = 1 / sc rounded) lies within 1.9e-5 of the rounded quotient
-// (two roundings of 2^-24 at y < 128, and half an ulp of the quotient), so
-// where y is more than 2.5e-5 from a half-integer both round to the same
-// integer: the low byte of y + 1.5 * 2^23, which rounds y to the nearest,
-// ties to even.  `near` is set where y is nearer; the division decides there
-// (quant_div).
-__device__ __forceinline__ unsigned quant_fast(float e, float inv, bool& near) {
-  const float y = __fmul_rn(e, inv);
-  const float r = __fadd_rn(y, 12582912.f);
-  near |= fabsf(__fsub_rn(y, __fsub_rn(r, 12582912.f))) > 0.499975f;
-  return __float_as_uint(r);
-}
-__device__ __forceinline__ unsigned quant_div(float e, float sc) {
-  return static_cast<unsigned>(__float2int_rn(__fdiv_rn(e, sc)));
-}
-
-// the low bytes of a, b, c, d in one word, a's in the low byte
-__device__ __forceinline__ unsigned pack4(unsigned a, unsigned b, unsigned c, unsigned d) {
-  return __byte_perm(__byte_perm(a, b, 0x0040u), __byte_perm(c, d, 0x0040u), 0x5410u);
-}
-
 // the consumer warpgroup's named barrier (barrier 1, its 128 threads)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 128;\n" ::: "memory");

@@ -6,8 +6,8 @@
 // and 64-byte swizzles, and MN-major "transposed" operands of row-major
 // tiles), the wgmma wrappers, the persistent GEMMs' producer loops (and the
 // one for operands contracted along their rows), tile store and tile-size
-// rule, the 8-bit transposer in shared memory, and the host's tensor-map
-// encoder.
+// rule, the 8-bit transposer and the e4m3-to-fp16 conversion in shared
+// memory, and the host's tensor-map encoder.
 //
 // A barrier wait that lasts longer than TRAP_CYCLES (over 30 s) traps: the
 // launch fails and the next synchronising call raises, where a broken
@@ -295,6 +295,31 @@ __device__ __forceinline__ void wgmma128_f16(float (&d)[64], uint64_t da, uint64
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// wgmma128_f16 with A K-major (sw128_desc) and B MN-major (trans-b; its
+// descriptor from sw128_desc_mn).
+__device__ __forceinline__ void wgmma128_f16_tb(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, 1, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db));
 }
 
 // wgmma128_f16 with both operands MN-major (trans-a and trans-b; each
@@ -605,6 +630,40 @@ struct Transpose8 {
     }
   }
 };
+
+// ---- e4m3 stages as fp16 ----------------------------------------------------
+// The e4m3 GEMMs (scaled_mm.cu, scaled_mm_tn.cu) multiply as fp16: e4m3
+// values and their products are exact in fp16 and fp32, and the fp8
+// wgmma's own sum keeps about 14 bits (DeepSeek-V3 §3.3.2), too few for
+// the card tests' 1e-5 of sum |a b|.
+__device__ __forceinline__ unsigned e4m3x2_to_f16x2(unsigned v) {
+  unsigned r;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(r) : "h"(static_cast<unsigned short>(v)));
+  return r;
+}
+
+// `rows` e4m3 rows of 128 codes (128-byte swizzle, as TMA wrote them) into
+// fp16: two chunks of `rows` rows x 64 values in the 128-byte swizzle,
+// `chunk` bytes apart, as sw128_desc_mn reads an operand whose rows are
+// contraction rows (`chunk` its lbo).  Thread t of 256 takes 16-byte
+// pieces; lanes of the second chunk store their high half first, so that a
+// quarter warp's stores fall in eight bank groups.
+__device__ __forceinline__ void e4m3_rows_to_f16(const uint8_t* src, uint8_t* dst, int rows,
+                                                 int chunk, int t) {
+  for (int id = t; id < rows * 8; id += 256) {
+    const int r = id >> 3, c = id & 7;  // codes 16 c .. 16 c + 15 of row r
+    const uint4 v = *reinterpret_cast<const uint4*>(src + r * 128 + ((c ^ (r & 7)) << 4));
+    const uint4 lo = make_uint4(e4m3x2_to_f16x2(v.x), e4m3x2_to_f16x2(v.x >> 16),
+                                e4m3x2_to_f16x2(v.y), e4m3x2_to_f16x2(v.y >> 16));
+    const uint4 hi = make_uint4(e4m3x2_to_f16x2(v.z), e4m3x2_to_f16x2(v.z >> 16),
+                                e4m3x2_to_f16x2(v.w), e4m3x2_to_f16x2(v.w >> 16));
+    uint8_t* d = dst + (c >> 2) * chunk + r * 128;
+    const int ulo = ((2 * (c & 3)) ^ (r & 7)) << 4, uhi = ((2 * (c & 3) + 1) ^ (r & 7)) << 4;
+    const bool swap = c & 4;
+    *reinterpret_cast<uint4*>(d + (swap ? uhi : ulo)) = swap ? hi : lo;
+    *reinterpret_cast<uint4*>(d + (swap ? ulo : uhi)) = swap ? lo : hi;
+  }
+}
 
 // two neighbouring outputs in one store (the address is a multiple of two)
 __device__ __forceinline__ void store2(float* p, float a, float b) {

@@ -34,16 +34,33 @@
 // version's order, so the int8 result equals it bit for bit.
 //
 // "nn" is B1's grad-input orientation (`_fused_act_mm_kernel` with b_dim0,
-// scaled_mm.py:283): the stored (O, K) weight is B with the contraction O
-// as its slow axis.  8-bit wgmma operands are K-major only, so this mode
-// keeps mma.sync m16n8k32: 128x128 output tiles, 8 warps each owning
-// 64x32, 64-byte K stages double-buffered with cp.async, A's fragments
-// from padded shared memory (80-byte rows: conflict-free 32-bit loads),
-// and each 64-row stage of B read through registers and transposed in
-// shared memory (sdnq::TransTile8, shared with scaled_mm_tn.cu), its loads
-// issued before the current stage's products; no transposed weight is
-// written to device memory.  K must be a multiple of 64 bytes (the wrapper
-// zero-pads) and N a multiple of 4.
+// scaled_mm.py:283): the stored (O, K) weight is B (K, N) with the
+// contraction as its slow axis, read as it lies: no transposed copy is
+// written to device memory.  The same persistent TMA + wgmma GEMM: A
+// arrives K-major (nt's boxes), B in boxes of 128 contraction rows x 128
+// columns (as scaled_mm_tn.cu's `produce_tn` reads its operands), and the
+// consumers rewrite each B stage in shared memory into the layout wgmma
+// reads, into one of two buffers, while the stage before multiplies:
+//  - int8: 8-bit wgmma operands are K-major only, so each B box is
+//    transposed (hopper.cuh's `Transpose8`) into [column][contraction]
+//    rows in the 128-byte swizzle; A is read from the stage as TMA wrote
+//    it, so the transpose traffic is half of B10's; s8 wgmma m64n128k32 /
+//    m64n256k32 into int32 (128 x 256 tiles where the plan says);
+//  - e4m3: each stage converted to fp16, A K-major and B MN-major (trans-b:
+//    no transpose), fp32 sums, 128 x 128 tiles.
+// The grad-input's output is narrow ((M, 3072) against a contraction of
+// 9216-21504; M = 1 at the batch-1 modulation linears: 24 tiles), so its
+// tiles fill the SMs in few rounds, the last one part-empty.  The wrapper's
+// plan (scaled_mm.py `nn_plan`) computes the first `whole` tiles whole, in
+// full rounds, and splits the contraction of the others `splits` ways, so
+// that their units fill the last round: such a unit writes its partial sum
+// (int32 or fp32) to its slab of the workspace and counts itself in; the
+// tile's last unit sets the tile's counter back to 0 (so that the next call
+// finds the counters as it needs them, with no fill), adds the other slabs
+// in split order and runs the epilogue.  Int32 partials add exactly in any order, so the int8 result
+// stays bit-equal to the plain version's.
+// At the training shapes it is bound by tensor-core operations; at M = 1
+// by reading the weight (2 M N K operations against K N bytes).
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -115,20 +132,16 @@ __device__ __forceinline__ void mma_step(AccT (&acc)[NB * 64], uint64_t da, uint
 // exact in fp16 and fp32), because the fp8 wgmma's own sum keeps about 14
 // bits (DeepSeek-V3 §3.3.2), too few for 1e-5 of sum |a b|, even with a
 // fresh partial for every k32 step.
-__device__ __forceinline__ unsigned e4m3x2_to_f16x2(unsigned v) {
-  unsigned r;
-  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(r) : "h"(static_cast<unsigned short>(v)));
-  return r;
-}
 constexpr int CONV_BYTES = 2 * 128 * 256;  // A' and B': 128 rows of 128 fp16 each
 
-// Stage s's e4m3 rows (A's 128, then B's; 128-byte swizzle, as TMA wrote
-// them) into dst as fp16: A' then B', each two k64 sub-tiles of 128 rows
-// in the 128-byte swizzle that sw128_desc reads; thread t of the 256
-// consumer threads takes eight 16-byte chunks.
+// ROWS e4m3 rows of a stage (nt: A's 128, then B's; nn: A's; 128-byte
+// swizzle, as TMA wrote them) into dst as fp16: A' then B', each two k64
+// sub-tiles of 128 rows in the 128-byte swizzle that sw128_desc reads;
+// thread t of the 256 consumer threads takes ROWS / 32 16-byte chunks.
+template <int ROWS = 256>
 __device__ __forceinline__ void e4m3_to_f16(const uint8_t* src, uint8_t* dst, int t) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < ROWS / 32; ++i) {
     const int id = t + 256 * i;
     const int r = id >> 3, c = id & 7, rr = r & 127;  // codes 16 c .. 16 c + 15 of row r
     const uint4 v = *reinterpret_cast<const uint4*>(src + r * 128 + ((c ^ (r & 7)) << 4));
@@ -299,141 +312,306 @@ int launch_nt_kind(int nb, int out_kind, const CUtensorMap& ta, const CUtensorMa
                    : launch_nt_out<KIND, 1>(out_kind, ta, tb, out, M, N, K, ep, grid, s);
 }
 
-// ---- nn: mma.sync with B transposed stage by stage --------------------------
-constexpr int NN_BN = 128, BKB = 64;  // tile cols, K bytes per stage
-constexpr int LDS = BKB + 16;         // padded shared-memory row (bytes)
-constexpr int NN_NT = 256;
+// ---- nn: TMA + wgmma, B rewritten stage by stage in shared memory -----------
+// A stage holds A's box (128 rows x 128 bytes of K, as nt's) and NB boxes of
+// B (128 contraction rows x 128 columns each, as they lie); BOX bytes each.
+constexpr int BOX = 128 * 128;
 
-template <int KIND, typename OutT>
-__global__ void __launch_bounds__(NN_NT)
-    scaled_mm_nn_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict__ B,
-                        OutT* __restrict__ C, int M, int N, int Kb, Epilogue ep) {
-  __shared__ __align__(16) uint8_t sA[2][BM * LDS];
-  __shared__ __align__(16) uint8_t sB[2][NN_BN * LDS];
-  using AccT = typename std::conditional<KIND == KIND_S8, int, float>::type;
+template <int KIND, int NB>
+struct NnTile {
+  static constexpr int BN = 128 * NB;
+  static constexpr int STAGE_BYTES = BOX * (1 + NB);
+  static constexpr int ST = KIND == KIND_E4M3 ? 2 : NB == 2 ? 3 : 4;  // stages
+  // each of the consumers' two buffers: int8 B' (BN rows of 128 bytes of
+  // contraction); e4m3 A' (two k64 fp16 sub-tiles of 128 rows) then B'
+  // (two fp16 chunks of 64 columns x 128 contraction rows)
+  static constexpr int CONV = KIND == KIND_E4M3 ? 4 * BOX : NB * BOX;
+  static constexpr int SMEM_BYTES = ST * STAGE_BYTES + 2 * CONV + 2 * ST * 8 + 16 + 1024;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps: 64 rows x 32 cols each
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * NN_BN;
-
-  auto load_a = [&](int stage, int kb0) {
-#pragma unroll
-    for (int i = 0; i < (BM * BKB / 16) / NN_NT; ++i) {
-      const int c = tid + i * NN_NT;
-      const int r = c >> 2, cb = (c & 3) * 16;
-      const int ga = m0 + r;
-      sdnq::cp_async16(&sA[stage][r * LDS + cb], A + (size_t)(ga < M ? ga : 0) * Kb + kb0 + cb,
-                       ga < M);
-    }
-    sdnq::cp_async_commit();
-  };
-  sdnq::TransTile8<NN_NT, BKB> tb;  // B's stages through registers
-
-  AccT acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
-
-  const int nk = Kb / BKB;
-  load_a(0, 0);
-  tb.load(B, N, 0, Kb, n0, N, tid);
-  tb.store(sB[0], LDS, tid);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      load_a(cur ^ 1, (kt + 1) * BKB);
-      tb.load(B, N, (kt + 1) * BKB, Kb, n0, N, tid);
-      sdnq::cp_async_wait<1>();
-    } else {
-      sdnq::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint8_t* a_s = sA[cur];
-    const uint8_t* b_s = sB[cur];
-#pragma unroll
-    for (int ks = 0; ks < BKB; ks += 32) {
-      unsigned af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const uint8_t* p = a_s + (wm * 64 + mi * 16 + g) * LDS + ks + t4 * 4;
-        af[mi][0] = *reinterpret_cast<const unsigned*>(p);
-        af[mi][1] = *reinterpret_cast<const unsigned*>(p + 8 * LDS);
-        af[mi][2] = *reinterpret_cast<const unsigned*>(p + 16);
-        af[mi][3] = *reinterpret_cast<const unsigned*>(p + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const uint8_t* p = b_s + (wn * 32 + ni * 8 + g) * LDS + ks + t4 * 4;
-        bfr[ni][0] = *reinterpret_cast<const unsigned*>(p);
-        bfr[ni][1] = *reinterpret_cast<const unsigned*>(p + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          if constexpr (KIND == KIND_S8)
-            sdnq::mma_s8(acc[mi][ni], af[mi], bfr[ni]);
-          else
-            sdnq::mma_e4m3(acc[mi][ni], af[mi], bfr[ni]);
-        }
-    }
-    // sB[cur ^ 1] was last read before the previous barrier
-    if (kt + 1 < nk) tb.store(sB[cur ^ 1], LDS, tid);
-    __syncthreads();
+// The units of a call: tiles 0 .. whole - 1 whole (M fastest), then split
+// s of tail tile t (tile whole + t) for s = 0 .. splits - 1 (one split of
+// every tail tile before the next split, so that the blocks at work at once
+// share their stripes of B in the L2 cache).  A unit takes stages [kb0,
+// kb1) of nk; `part` is its tail tile's index, -1 for a whole tile.
+struct NnPlan {
+  int mt, tiles, whole, splits, nk;
+  __device__ __forceinline__ int units() const { return whole + (tiles - whole) * splits; }
+};
+struct NnUnit {
+  int part, split, m0, n0, kb0, kb1;
+};
+__device__ __forceinline__ NnUnit nn_unit(int u, const NnPlan& p, int bn) {
+  NnUnit w;
+  int tile = u;
+  w.part = -1, w.split = 0, w.kb0 = 0, w.kb1 = p.nk;
+  if (u >= p.whole) {
+    const int tail = p.tiles - p.whole, v = u - p.whole;
+    w.part = v % tail;
+    w.split = v / tail;
+    tile = p.whole + w.part;
+    w.kb0 = (w.split * p.nk) / p.splits;
+    w.kb1 = ((w.split + 1) * p.nk) / p.splits;
   }
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + mi * 16 + g + h * 8;
-      if (row >= M) continue;
-      const RowTerms rt = row_terms(ep, row);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = n0 + wn * 32 + ni * 8 + t4 * 2 + j;
-          if (col >= N) continue;
-          C[(size_t)row * N + col] = sdnq::from_f32<OutT>(epilogue(ep, acc[mi][ni][h * 2 + j], rt, col));
-        }
-    }
+  w.m0 = (tile % p.mt) * BM;
+  w.n0 = (tile / p.mt) * bn;
+  return w;
 }
 
-template <int KIND>
-int launch_nn(const void* a, const void* b, void* out, int M, int N, int Kb, int out_kind,
-              const Epilogue& ep, cudaStream_t s) {
-  dim3 grid((N + NN_BN - 1) / NN_BN, (M + BM - 1) / BM);
-  const uint8_t* A = static_cast<const uint8_t*>(a);
-  const uint8_t* B = static_cast<const uint8_t*>(b);
-  if (out_kind == sdnq::F32)
-    scaled_mm_nn_kernel<KIND, float><<<grid, NN_NT, 0, s>>>(A, B, static_cast<float*>(out), M, N, Kb, ep);
-  else if (out_kind == sdnq::BF16)
-    scaled_mm_nn_kernel<KIND, __nv_bfloat16>
-        <<<grid, NN_NT, 0, s>>>(A, B, static_cast<__nv_bfloat16*>(out), M, N, Kb, ep);
-  else if (out_kind == sdnq::F16)
-    scaled_mm_nn_kernel<KIND, __half><<<grid, NN_NT, 0, s>>>(A, B, static_cast<__half*>(out), M, N, Kb, ep);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+// The producer's loop: one thread issues each stage's loads, A's box at
+// (kb * 128, m0) and B's at (n0 + 128 h, kb * 128), the units walked as the
+// consumers walk them; it waits for a stage's last load before re-arming
+// it, and for every load before it returns.
+template <int ST, int STAGE_BYTES, int NB>
+__device__ __forceinline__ void produce_nn(const CUtensorMap* ta, const CUtensorMap* tb,
+                                           uint8_t* smem, uint64_t* full, uint64_t* empty,
+                                           const NnPlan& p) {
+  int it = 0;  // stages filled so far
+  for (int u = blockIdx.x; u < p.units(); u += gridDim.x) {
+    const NnUnit w = nn_unit(u, p, 128 * NB);
+    for (int kb = w.kb0; kb < w.kb1; ++kb, ++it) {
+      const int s = it % ST;
+      mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+      if (it >= ST) mbar_wait(&full[s], ((it / ST) & 1) ^ 1);
+      mbar_expect_tx(&full[s], STAGE_BYTES);
+      uint8_t* st = smem + s * STAGE_BYTES;
+      tma_load(st, ta, &full[s], kb * 128, w.m0);
+#pragma unroll
+      for (int h = 0; h < NB; ++h) tma_load(st + (1 + h) * BOX, tb, &full[s], w.n0 + 128 * h, kb * 128);
+    }
+  }
+  for (int j = it > ST ? it - ST : 0; j < it; ++j) mbar_wait(&full[j % ST], (j / ST) & 1);
+}
+
+// The split tiles' workspace: an arrival counter a tail tile (0 between
+// calls), and a slab of partial sums a split and tail tile, the tile's
+// 128 x BN accumulators row by row.  A thread's share (wgmma's layout, as
+// store_tile reads it): local rows rl, rl + 8, columns 128 h + 8 j + cq +
+// {0, 1}, two to a store; only the tile's rows below M (`rows`) are
+// written and read (at M = 1, one row), columns past N as they are.
+template <int NB, typename AccT>
+__device__ __forceinline__ void slab_store(const AccT (&acc)[NB * 64], AccT* slab, int rl, int cq,
+                                           int rows) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (rl + 8 * hr >= rows) continue;
+#pragma unroll
+    for (int h = 0; h < NB; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int i = 64 * h + 4 * j + 2 * hr;
+        AccT* p = slab + (rl + 8 * hr) * (128 * NB) + 128 * h + 8 * j + cq;
+        if constexpr (std::is_same<AccT, int>::value)
+          *reinterpret_cast<int2*>(p) = make_int2(acc[i], acc[i + 1]);
+        else
+          *reinterpret_cast<float2*>(p) = make_float2(acc[i], acc[i + 1]);
+      }
+  }
+}
+// acc += the slab's share (read through the L2: other SMs wrote it)
+template <int NB, typename AccT>
+__device__ __forceinline__ void slab_add(AccT (&acc)[NB * 64], const AccT* slab, int rl, int cq,
+                                         int rows) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (rl + 8 * hr >= rows) continue;
+#pragma unroll
+    for (int h = 0; h < NB; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int i = 64 * h + 4 * j + 2 * hr;
+        const AccT* p = slab + (rl + 8 * hr) * (128 * NB) + 128 * h + 8 * j + cq;
+        if constexpr (std::is_same<AccT, int>::value) {
+          const int2 v = __ldcg(reinterpret_cast<const int2*>(p));
+          acc[i] += v.x, acc[i + 1] += v.y;
+        } else {
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+          acc[i] += v.x, acc[i + 1] += v.y;
+        }
+      }
+  }
+}
+
+struct NnWork {
+  int* counters;
+  void* slabs;
+};
+
+template <int KIND, int NB, typename OutT>
+__global__ void __launch_bounds__(NT, 1)
+    scaled_mm_nn_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                              const __grid_constant__ CUtensorMap tb, OutT* __restrict__ out,
+                              int M, int N, int K, int whole, int splits, NnWork work,
+                              Epilogue ep) {
+  using T = NnTile<KIND, NB>;
+  using AccT = typename std::conditional<KIND == KIND_S8, int, float>::type;
+  constexpr int BN = T::BN, ST = T::ST, STAGE_BYTES = T::STAGE_BYTES, CONV = T::CONV;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (sdnq::smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint8_t* conv = smem + ST * STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(conv + 2 * CONV);
+  uint64_t* empty = full + ST;
+  int* last = reinterpret_cast<int*>(empty + ST);  // this tile's last unit
+  const int mt = (M + BM - 1) / BM;
+  const int tiles = mt * ((N + BN - 1) / BN);
+  const NnPlan plan{mt, tiles, whole, splits, (K + 127) / 128};  // 128 contraction rows a stage
+  const int tail = tiles - whole;
+  const int wg = threadIdx.x / 128;
+  int* counters = work.counters;
+  AccT* slabs = static_cast<AccT*>(work.slabs);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive, with the stage's bytes
+      mbar_init(&empty[s], 8);  // one arrive from each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256)
+      produce_nn<ST, STAGE_BYTES, NB>(&ta, &tb, smem, full, empty, plan);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x & 127) >> 5;
+  const int cq = 2 * (lane & 3);
+  const Transpose8 tr(threadIdx.x);
+  AccT acc[NB * 64];
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  int pending = -1;  // int8: the stage whose wgmmas (reading A there) may be in flight
+  int it = 0;        // stages consumed so far
+
+  for (int u = blockIdx.x; u < plan.units(); u += gridDim.x) {
+    const NnUnit w = nn_unit(u, plan, BN);
+    const int rl = wg * 64 + wr * 16 + (lane >> 2), r0 = w.m0 + rl;  // rows r0, r0 + 8
+#pragma unroll
+    for (int i = 0; i < NB * 64; ++i) acc[i] = 0;
+    for (int kb = w.kb0; kb < w.kb1; ++kb, ++it) {
+      const int s = it % ST;
+      const uint8_t* st = smem + s * STAGE_BYTES;
+      uint8_t* buf = conv + (it & 1) * CONV;
+      mbar_wait(&full[s], (it / ST) & 1);
+      // buffer it & 1 was last read by the wgmmas of stage it - 2, which
+      // both warpgroups have waited for
+      consumers_sync();
+      if constexpr (KIND == KIND_S8) {
+#pragma unroll
+        for (int h = 0; h < NB; ++h) tr.run(st + (1 + h) * BOX, buf + h * BOX, 128);  // B's boxes
+      } else {
+        e4m3_to_f16<128>(st, buf, threadIdx.x);                          // A' K-major
+        e4m3_rows_to_f16(st + BOX, buf + 2 * BOX, 128, BOX, threadIdx.x);  // B' MN-major
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
+      consumers_sync();
+      fence_regs(acc);
+      wgmma_fence();
+      if constexpr (KIND == KIND_S8) {
+        const uint64_t da = sw128_desc(st + wg * 64 * 128);
+        const uint64_t db = sw128_desc(buf);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // +2: 32 bytes along the contraction
+          mma_step<KIND_S8, NB>(acc, da + 2 * kk, db + 2 * kk);
+      } else {
+        release(s);  // the raw stage is converted
+        const uint64_t db = sw128_desc_mn(buf + 2 * BOX, BOX);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint64_t da = sw128_desc(buf + h * BOX + wg * 64 * 128);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)  // +128: 16 contraction rows of B'
+            wgmma128_f16_tb(acc, da + 2 * kk, db + 128 * (4 * h + kk));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the stage before's wgmmas have completed
+      if constexpr (KIND == KIND_S8) {
+        if (pending >= 0) release(pending);
+        pending = s;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (pending >= 0) {  // the producer fills it for the next unit meanwhile
+      release(pending);
+      pending = -1;
+    }
+    if (w.part >= 0 && splits > 1) {  // a split tile: its partial sum, then the last adds them
+      constexpr int SLAB = 128 * BN;
+      slab_store<NB>(acc, slabs + ((size_t)w.split * tail + w.part) * SLAB, rl, cq, M - w.m0);
+      __threadfence();
+      consumers_sync();
+      if (threadIdx.x == 0) {
+        *last = atomicAdd(counters + w.part, 1) == splits - 1;
+        if (*last) counters[w.part] = 0;  // every unit of the tile has counted itself in
+      }
+      consumers_sync();
+      if (!*last) continue;
+      __threadfence();
+      for (int sp = 0; sp < splits; ++sp)
+        if (sp != w.split)
+          slab_add<NB>(acc, slabs + ((size_t)sp * tail + w.part) * SLAB, rl, cq, M - w.m0);
+    }
+    store_tile<NB>(
+        acc, out, r0, w.n0, cq, M, N, [&](int row) { return row_terms(ep, row); },
+        [&](AccT a, const RowTerms& rt, int col) { return epilogue(ep, a, rt, col); });
+  }
+}
+
+template <int KIND, int NB, typename OutT>
+int launch_nn(const CUtensorMap& ta, const CUtensorMap& tb, void* out, int M, int N, int K,
+              int whole, int splits, const NnWork& work, const Epilogue& ep, int grid,
+              cudaStream_t s) {
+  constexpr int smem = NnTile<KIND, NB>::SMEM_BYTES;
+  static bool ready = false;  // the block's shared memory is above the 48 KB default
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(scaled_mm_nn_wgmma_kernel<KIND, NB, OutT>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready = true;
+  }
+  scaled_mm_nn_wgmma_kernel<KIND, NB, OutT>
+      <<<grid, NT, smem, s>>>(ta, tb, static_cast<OutT*>(out), M, N, K, whole, splits, work, ep);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int KIND, int NB>
+int launch_nn_out(int out_kind, const CUtensorMap& ta, const CUtensorMap& tb, void* out, int M,
+                  int N, int K, int whole, int splits, const NnWork& work, const Epilogue& ep,
+                  int grid, cudaStream_t s) {
+  if (out_kind == sdnq::F32)
+    return launch_nn<KIND, NB, float>(ta, tb, out, M, N, K, whole, splits, work, ep, grid, s);
+  if (out_kind == sdnq::BF16)
+    return launch_nn<KIND, NB, __nv_bfloat16>(ta, tb, out, M, N, K, whole, splits, work, ep, grid,
+                                              s);
+  if (out_kind == sdnq::F16)
+    return launch_nn<KIND, NB, __half>(ta, tb, out, M, N, K, whole, splits, work, ep, grid, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // in_kind 0 int8 / 1 bf16 / 2 fp8 e4m3; out (M, N) of out_kind; epilogue
-// pointers may be null (rs needs vz0, zp needs vz1), all f32.
-// nt (b_nn 0): a (M, K) and b (N, K) with rows lda and ldb elements apart
-// (multiples of 16 bytes, base addresses 16-byte aligned); int8 K < 2^17.
-// nn (b_nn 1, 8-bit kinds): a (M, K) and b (K, N) contiguous, K a multiple
-// of 64 bytes, N of 4.
+// pointers may be null (rs needs vz0, zp needs vz1), all f32.  Rows lda and
+// ldb elements apart (multiples of 16 bytes, base addresses 16-byte
+// aligned); int8 K < 2^17.
+// nt (b_nn 0): a (M, K) and b (N, K).
+// nn (b_nn 1, 8-bit kinds): a (M, K) and b (K, N); the wrapper's plan
+// (scaled_mm.py `nn_plan`): tiles 128 x 128 nb (int8 nb 1 or 2, e4m3 1),
+// the first `whole` whole, the contraction of the other `tail` split
+// `splits` ways (at most its stages of 128), and where they are split
+// `counters`: tail int32 counters, zero (each call leaves them so), and
+// `slabs`: splits x tail x 128 x 128 nb partial sums of 4 bytes.
 extern "C" int sdnq_scaled_mm(const void* a, int lda, const void* b, int ldb, void* out,
                               const void* xs, const void* ws, const void* bias, const void* rs,
                               const void* zp, const void* vz0, const void* vz1, int M, int N,
-                              int K, int in_kind, int out_kind, int b_nn, void* stream) {
+                              int K, int in_kind, int out_kind, int b_nn, int nb, int whole,
+                              int splits, void* counters, void* slabs, void* stream) {
   if (in_kind != KIND_S8 && in_kind != KIND_BF16 && in_kind != KIND_E4M3) return static_cast<int>(cudaErrorInvalidValue);
   if ((rs && !vz0) || (zp && !vz1) || M < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int esize = in_kind == KIND_BF16 ? 2 : 1;
@@ -442,32 +620,49 @@ extern "C" int sdnq_scaled_mm(const void* a, int lda, const void* b, int ldb, vo
                     static_cast<const float*>(zp),  static_cast<const float*>(vz0),
                     static_cast<const float*>(vz1)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b_nn) {
-    const int Kb = K * esize;
-    if (Kb % BKB != 0 || in_kind == KIND_BF16 || N % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    if (M == 0 || N == 0) return 0;
-    if (in_kind == KIND_S8) return launch_nn<KIND_S8>(a, b, out, M, N, Kb, out_kind, ep, s);
-    return launch_nn<KIND_E4M3>(a, b, out, M, N, Kb, out_kind, ep, s);
-  }
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (K < 1 || lda < K || ldb < K || (lda * esize) % 16 != 0 || (ldb * esize) % 16 != 0 ||
-      misaligned(a) || misaligned(b) || (in_kind == KIND_S8 && K >= (1 << 17)))
+  if (K < 1 || lda < K || ldb < (b_nn ? N : K) || (lda * esize) % 16 != 0 ||
+      (ldb * esize) % 16 != 0 || misaligned(a) || misaligned(b) ||
+      (in_kind == KIND_S8 && K >= (1 << 17)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (M == 0 || N == 0) return 0;
   const int sms = sm_count();
   if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long mt = (M + BM - 1) / BM;
-  const int nb = in_kind != KIND_E4M3 && wide_tiles(mt, N, sms) ? 2 : 1;
-  const long long tiles = mt * ((N + 128 * nb - 1) / (128 * nb));
-  const int grid = static_cast<int>(tiles < sms ? tiles : sms);  // one block an SM
   const CUtensorMapDataType type =
       in_kind == KIND_BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  const int box_k = 128 / esize;
   CUtensorMap ta, tb;
+  if (b_nn) {
+    const int nk = (K + 127) / 128;
+    const long long tiles = mt * ((N + 128 * nb - 1) / (128 * nb));
+    if (in_kind == KIND_BF16 || (nb != 1 && nb != 2) || (in_kind == KIND_E4M3 && nb != 1) ||
+        splits < 1 || splits > nk || whole < 0 || whole > tiles ||
+        (splits > 1 && whole < tiles && !(counters && slabs)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (M == 0 || N == 0) return 0;
+    const long long units = whole + (tiles - whole) * splits;
+    const NnWork work{static_cast<int*>(counters), slabs};
+    const int grid = static_cast<int>(units < sms ? units : sms);  // one block an SM
+    // A: boxes of 128 rows x 128 bytes of K; B (K rows of N): 128 x 128
+    if (!tensor_map(&ta, a, M, K, lda, BM, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 128) ||
+        !tensor_map(&tb, b, K, N, ldb, 128, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 128))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (in_kind == KIND_E4M3)
+      return launch_nn_out<KIND_E4M3, 1>(out_kind, ta, tb, out, M, N, K, whole, splits, work, ep,
+                                         grid, s);
+    return nb == 2 ? launch_nn_out<KIND_S8, 2>(out_kind, ta, tb, out, M, N, K, whole, splits, work,
+                                               ep, grid, s)
+                   : launch_nn_out<KIND_S8, 1>(out_kind, ta, tb, out, M, N, K, whole, splits, work,
+                                               ep, grid, s);
+  }
+  if (M == 0 || N == 0) return 0;
+  const int nbt = in_kind != KIND_E4M3 && wide_tiles(mt, N, sms) ? 2 : 1;
+  const long long tiles = mt * ((N + 128 * nbt - 1) / (128 * nbt));
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);  // one block an SM
+  const int box_k = 128 / esize;
   if (!tensor_map(&ta, a, M, K, lda, BM, type, esize, box_k) ||
-      !tensor_map(&tb, b, N, K, ldb, 128 * nb, type, esize, box_k))
+      !tensor_map(&tb, b, N, K, ldb, 128 * nbt, type, esize, box_k))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (in_kind == KIND_S8) return launch_nt_kind<KIND_S8>(nb, out_kind, ta, tb, out, M, N, K, ep, grid, s);
-  if (in_kind == KIND_E4M3) return launch_nt_kind<KIND_E4M3>(nb, out_kind, ta, tb, out, M, N, K, ep, grid, s);
-  return launch_nt_kind<KIND_BF16>(nb, out_kind, ta, tb, out, M, N, K, ep, grid, s);
+  if (in_kind == KIND_S8) return launch_nt_kind<KIND_S8>(nbt, out_kind, ta, tb, out, M, N, K, ep, grid, s);
+  if (in_kind == KIND_E4M3) return launch_nt_kind<KIND_E4M3>(nbt, out_kind, ta, tb, out, M, N, K, ep, grid, s);
+  return launch_nt_kind<KIND_BF16>(nbt, out_kind, ta, tb, out, M, N, K, ep, grid, s);
 }

@@ -81,34 +81,6 @@ struct TnEpilogue {
   int R, N, K;
 };
 
-__device__ __forceinline__ unsigned e4m3x2_to_f16x2(unsigned v) {
-  unsigned r;
-  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(r) : "h"(static_cast<unsigned short>(v)));
-  return r;
-}
-
-// `rows` (32 or 64) e4m3 rows of 128 codes (128-byte swizzle, as TMA wrote
-// them) into fp16: two chunks of `rows` rows x 64 values in the 128-byte
-// swizzle, `chunk` bytes apart, as sw128_desc_mn reads them.  Thread t of
-// 256 takes 16-byte pieces; lanes of the second chunk store their high half
-// first, so that a quarter warp's stores fall in eight bank groups.
-__device__ __forceinline__ void e4m3_rows_to_f16(const uint8_t* src, uint8_t* dst, int rows,
-                                                 int chunk, int t) {
-  for (int id = t; id < rows * 8; id += 256) {
-    const int r = id >> 3, c = id & 7;  // codes 16 c .. 16 c + 15 of row r
-    const uint4 v = *reinterpret_cast<const uint4*>(src + r * 128 + ((c ^ (r & 7)) << 4));
-    const uint4 lo = make_uint4(e4m3x2_to_f16x2(v.x), e4m3x2_to_f16x2(v.x >> 16),
-                                e4m3x2_to_f16x2(v.y), e4m3x2_to_f16x2(v.y >> 16));
-    const uint4 hi = make_uint4(e4m3x2_to_f16x2(v.z), e4m3x2_to_f16x2(v.z >> 16),
-                                e4m3x2_to_f16x2(v.w), e4m3x2_to_f16x2(v.w >> 16));
-    uint8_t* d = dst + (c >> 2) * chunk + r * 128;
-    const int ulo = ((2 * (c & 3)) ^ (r & 7)) << 4, uhi = ((2 * (c & 3) + 1) ^ (r & 7)) << 4;
-    const bool swap = c & 4;
-    *reinterpret_cast<uint4*>(d + (swap ? uhi : ulo)) = swap ? hi : lo;
-    *reinterpret_cast<uint4*>(d + (swap ? ulo : uhi)) = swap ? lo : hi;
-  }
-}
-
 // the two consumer warpgroups meet (named barrier 1; the producer's warp
 // does not take part)
 __device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }

@@ -14,9 +14,11 @@ Kernels, each beside its plain PyTorch version and a launch counter:
   ``_fused_act_mm_kernel``.  The TPU kernel quantizes each row block of x
   inside the GEMM because the full-K block fits VMEM; on Hopper it cannot
   (227 KB of shared memory against 1.9 MB for 64 bf16 rows at K = 15360), so
-  the quantize is a separate memory-bound pass: read x once, write int8
-  (or e4m3) codes and one scale per row.  Its ``colscale`` mode multiplies
-  each column by an fp32 scale first (the prologue's ``x_colscale``).
+  the quantize is a separate memory-bound pass: read x once (rows staged
+  in shared memory by TMA bulk copies), write int8 (or e4m3) codes and
+  one scale per row.
+  Its ``colscale`` mode multiplies each column by an fp32 scale first (the
+  prologue's ``x_colscale``).
 * ``scaled_gemm`` — B4, and B1's GEMM half, ``csrc/scaled_mm.cu``.  Replaces
   ``_mm_kernel`` and the GEMM of ``_fused_act_mm_kernel``: int8 (int32
   accumulate), fp8 e4m3 or bf16 (fp32 accumulate), bound by tensor-core
@@ -24,9 +26,11 @@ Kernels, each beside its plain PyTorch version and a launch counter:
   fused so the accumulator never reaches device memory.  Its "nt" mode (the
   forward) is a persistent TMA + ``wgmma`` GEMM that reads both operands
   where they lie (``_build.tma_rows``: rows of a multiple of 16 bytes, a
-  misaligned or strided view copied); its "nn" mode (B1's grad-input)
-  reads B (K, N) N-contiguous and transposes each 8-bit stage in shared
-  memory for ``mma.sync``.
+  misaligned or strided view copied); its "nn" mode (B1's grad-input) is
+  the same GEMM reading B (K, N) as it lies, each int8 stage of B
+  transposed in shared memory for the s8 ``wgmma`` (e4m3: converted to
+  fp16 and read MN-major), the contraction split where ``nn_plan`` says
+  (its partial sums added in the kernel, bit-equal for int8).
 * ``scaled_mm_tn`` — B10, ``csrc/scaled_mm_tn.cu``.  Replaces
   ``_tn_mm_kernel``: int8 (int32 accumulate) or e4m3 (fp32 accumulate), a
   persistent TMA + ``wgmma`` GEMM that reads both operands in their natural
@@ -63,25 +67,7 @@ from ..quant.core import quantize_fp_mm, quantize_int_mm, quantize_uint_mm
 __all__ = ["quantize_rows", "quantize_rows_plain", "scaled_gemm",
            "scaled_gemm_plain", "scaled_mm", "scaled_mm_fused_act",
            "bf16_scaled_mm", "scaled_mm_tn", "scaled_mm_tn_plain",
-           "dynamic_mm_tn"]
-
-# The nn GEMM kernel walks K in 64-byte stages.
-_K_BYTES = 64
-
-
-def _k_pad(k: int, itemsize: int) -> int:
-    mult = _K_BYTES // itemsize
-    return (-k) % mult
-
-
-def _pad_k(t: torch.Tensor, pad: int, rows: bool = False) -> torch.Tensor:
-    """``pad`` zero columns (zero rows with ``rows``); for one-byte codes
-    (int8, e4m3) through a uint8 view, since zero bytes are zero values in
-    both."""
-    widths = (0, 0, 0, pad) if rows else (0, pad)
-    if t.element_size() == 1:
-        return F.pad(t.view(torch.uint8), widths).view(t.dtype)
-    return F.pad(t, widths)
+           "dynamic_mm_tn", "nn_plan"]
 
 
 # ---------------------------------------------------------------------------
@@ -109,8 +95,8 @@ def quantize_rows_plain(x: torch.Tensor, x_fmt: str = "int8",
         q, s = quantize_int_mm(x, -1)
     else:
         q, s = quantize_fp_mm(x, -1, fmt=x_fmt)
-    if k_pad:
-        q = _pad_k(q, k_pad)
+    if k_pad:   # zero bytes are zero values of int8 and e4m3 both
+        q = F.pad(q.view(torch.uint8), (0, k_pad)).view(q.dtype)
     return q, s, zp, rs
 
 
@@ -140,7 +126,7 @@ def quantize_rows(x: torch.Tensor, x_fmt: str = "int8", k_pad: int = 0,
     rs = torch.empty_like(xs) if asym else None
     if m:
         fn = _build.function("quantize_rows", "sdnq_quantize_rows",
-                             [P, P, P, P, P, P, I, I, I, I, I, P])
+                             [P, P, P, P, P, P] + [I] * 5 + [P])
         _build.check(fn(_build.ptr(x), _build.ptr(xq), _build.ptr(xs),
                         _build.ptr(zp), _build.ptr(rs), _build.ptr(cs), m, k,
                         k + k_pad, _build.act_kind(x.dtype), mode,
@@ -218,58 +204,145 @@ def scaled_gemm(a, b, out_dtype=torch.bfloat16, xs=None, ws=None, bias=None,
         raise ValueError("rs needs vz0 and zp needs vz1")
     m, k = a.shape
     n = b.shape[1 if nn else 0]
-    if nn:
-        a, b, n_pad, k_pad = _nn_operands(a, b, k, n)
-        lda, ldb = k + k_pad, n + n_pad
-    else:
-        if k < 1 or (a.dtype == torch.int8 and k >= _I8_MAX_K):
-            raise ValueError(f"scaled_gemm takes 1 <= K < {_I8_MAX_K} for "
-                             f"int8 (an exact int32 sum), got K {k}")
-        # TMA reads the rows where they lie, zero-filling the K tail
-        a, b = _build.tma_rows(a, k), _build.tma_rows(b, k)
-        n_pad = k_pad = 0
-        lda, ldb = a.stride(0), b.stride(0)
+    if k < 1 or (a.dtype == torch.int8 and k >= _I8_MAX_K):
+        raise ValueError(f"scaled_gemm takes 1 <= K < {_I8_MAX_K} for "
+                         f"int8 (an exact int32 sum), got K {k}")
+    a, b = gemm_operands(a, b, nn)
     xs, rs, zp = (_vec(t, m, nm) for t, nm in ((xs, "xs"), (rs, "rs"),
                                                 (zp, "zp")))
     ws, bias, vz0, vz1 = (_vec(t, n, nm) for t, nm in (
         (ws, "ws"), (bias, "bias"), (vz0, "vz0"), (vz1, "vz1")))
-    if n_pad:
-        ws, bias, vz0, vz1 = (None if t is None else F.pad(t, (0, n_pad))
-                              for t in (ws, bias, vz0, vz1))
-    out = torch.empty((m, n + n_pad), dtype=out_dtype, device=a.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m and n:
         fn = _build.function("scaled_mm", "sdnq_scaled_mm",
-                             [P, I, P, I] + [P] * 8 + [I] * 6 + [P])
-        _build.check(fn(_build.ptr(a), lda, _build.ptr(b), ldb,
+                             [P, I, P, I] + [P] * 8 + [I] * 9 + [P, P, P])
+        plan, work = (1, 0, 1), (None, None)
+        if nn:
+            plan = nn_plan(m, n, k, a.dtype, _sm_count(a.device))
+            work = _nn_work(fn, m, n, plan, a)
+        _build.check(fn(_build.ptr(a), a.stride(0), _build.ptr(b),
+                        b.stride(0),
                         *(_build.ptr(t) for t in (out, xs, ws, bias, rs, zp,
                                                   vz0, vz1)),
-                        m, n + n_pad, k + k_pad, _GEMM_KINDS[a.dtype],
-                        _build.act_kind(out_dtype), int(nn),
-                        _build.stream(a)), "scaled_gemm")
+                        m, n, k, _GEMM_KINDS[a.dtype],
+                        _build.act_kind(out_dtype), int(nn), *plan,
+                        *(_build.ptr(t) for t in work), _build.stream(a)),
+                     "scaled_gemm")
         scaled_gemm.launches += 1
         scaled_gemm.mode_launches["nn" if nn else "nt"] += 1
-    return out[:, :n] if n_pad else out
+    return out
+
+
+def gemm_operands(a, b, nn: bool):
+    """a and b as the kernel reads them: TMA reads the rows where they
+    lie and zero-fills the K (nt), or K and N (nn), tails, so each comes
+    back as itself unless TMA cannot read it (``_build.tma_rows``: a view
+    off a 16-byte boundary or with rows not a multiple of 16 bytes apart),
+    then as a copy; nothing is padded to a tile."""
+    k = a.shape[1]
+    return (_build.tma_rows(a, k),
+            _build.tma_rows(b) if nn else _build.tma_rows(b, k))
 
 
 scaled_gemm.launches = 0
 scaled_gemm.mode_launches = dict(nt=0, nn=0)
 _GEMM_KINDS = {torch.int8: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
-# The nt kernel's int32 sum is exact while 128 * 128 * K < 2^31.
+# The int32 sum is exact while 128 * 128 * K < 2^31.
 _I8_MAX_K = 1 << 17
+# The nn kernel's stages take 128 contraction rows; a split tile's
+# contraction is split at most this many ways.
+NN_STAGE = 128
+NN_MAX_SPLITS = 16
+# The plan's costs, in the time of one stage of a 128 x 128 tile (fitted
+# to ``chip_smoke.py --b1-probes`` on an H100 80GB HBM3 at 700 W): a 128 x
+# 256 tile's stage (its A read once for both halves: 1.63-1.73), a unit's
+# start and end (the ring's first stages, the epilogue), and a split
+# unit's partial sums written, and read back by its tile's last unit, for
+# 128 rows.
+_NN_WIDE_STAGE = 1.65
+_NN_UNIT = 3.0
+_NN_SLAB_WRITE = 8.0
+_NN_SLAB_READ = 4.0
 
 
-def _nn_operands(a, b, k, n):
-    """The nn kernel's operands: K zero-padded to a multiple of 64 bytes
-    (zeros add nothing to the sums) and N to a multiple of 4 (its loader
-    reads B in 4-byte words along N), both contiguous; returns (a, b,
-    n_pad, k_pad)."""
-    k_pad = _k_pad(k, a.element_size())
-    if k_pad:
-        a, b = _pad_k(a, k_pad), _pad_k(b, k_pad, rows=True)
-    n_pad = (-n) % 4
-    if n_pad:
-        b = _pad_k(b, n_pad)
-    return a.contiguous(), b.contiguous(), n_pad, k_pad
+def nn_plan(m: int, n: int, k: int, dtype, sms: int = 132):
+    """B4 nn's plan for a (M, K) x (K, N) product: ``(nb, whole, splits)``:
+    tiles 128 x 128 nb, the first ``whole`` computed whole and the
+    contraction of the others split ``splits`` ways, so that their units
+    fill the round the whole tiles leave part-empty (128 x 128 tiles only:
+    the wide tiles' partial sums cost more than they save, in every
+    reading of ``chip_smoke.py --b1-probes``).  It minimises the
+    busiest SM's time, in stages of a 128 x 128 tile: the whole tiles' full
+    rounds of ``stages = ceil(K / 128)`` each, then ``ceil(tail * splits /
+    sms)`` rounds of ``ceil(stages / splits)``, where a wide stage costs
+    ``_NN_WIDE_STAGE``, a round ``_NN_UNIT`` more, and a split unit its
+    partial sums' traffic (in proportion to its rows): written by each,
+    read by its tile's last.  e4m3 takes 128 x 128 tiles only."""
+    stages = -(-k // NN_STAGE)
+    mt = -(-m // 128)
+    rows = min(m, 128) / 128
+    best = None
+    for nb in (1, 2) if dtype == torch.int8 else (1,):
+        tiles = mt * -(-n // (128 * nb))
+        stage = _NN_WIDE_STAGE if nb == 2 else 1.0
+        for whole in sorted({tiles, tiles // sms * sms} if nb == 1
+                            else {tiles}, reverse=True):
+            tail = tiles - whole
+            for splits in range(1, min(stages, NN_MAX_SPLITS) + 1
+                                if tail else 2):
+                cost = -(-whole // sms) * (stages * stage + _NN_UNIT)
+                if tail:
+                    per = -(-stages // splits) * stage + _NN_UNIT
+                    if splits > 1:
+                        per += _NN_SLAB_WRITE * rows
+                        cost += _NN_SLAB_READ * rows * (splits - 1)
+                    cost += -(-tail * splits // sms) * per
+                if best is None or cost < best[0] - 1e-9:
+                    best = (cost, nb, whole, splits)
+    return best[1:]
+
+
+def nn_work_ints(m: int, n: int, nb: int, whole: int, splits: int):
+    """The nn kernel's workspace in int32 entries, ``(counters, slabs)``:
+    an arrival counter a split tile, and a slab of its 128 x 128 nb partial
+    sums a split and split tile; none without a split."""
+    tail = -(-m // 128) * -(-n // (128 * nb)) - whole
+    if splits == 1 or not tail:
+        return 0, 0
+    return tail, splits * tail * 128 * 128 * nb
+
+
+def _nn_work(fn, m, n, plan, a):
+    """The workspace of a split call: ``(counters, slabs)``, or ``(None,
+    None)``.  One a build of the kernel (``fn``), device and stream, kept
+    between calls and grown as needed: its counters are zeroed when made,
+    and each call leaves them 0 (a tile's last unit resets its own), so no
+    call fills them; the slabs are written before they are read."""
+    counters, slabs = nn_work_ints(m, n, *plan)
+    if not slabs:
+        return None, None
+    cache = getattr(fn, "nn_work", None)
+    if cache is None:
+        cache = fn.nn_work = {}
+    key = (a.device.index, _build.stream(a))
+    c, s = cache.get(key, (None, None))
+    if c is None or c.numel() < counters:
+        c = torch.zeros(counters, dtype=torch.int32, device=a.device)
+    if s is None or s.numel() < slabs:
+        s = torch.empty(slabs, dtype=torch.int32, device=a.device)
+    cache[key] = (c, s)
+    return c, s
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 # ---------------------------------------------------------------------------
@@ -420,22 +493,15 @@ def scaled_mm_fused_act(x, w_q, w_scale=None, bias=None, *,
     if emit_quantized and b_layout != "nt":
         raise ValueError("emit_quantized takes the nt layout")
     kdim = x.shape[-1]
-    nn = b_layout == "nn"
-    # K is padded after the row statistics, so zeros never skew min/max:
-    # to the nn kernel's 64-byte stages, or rows of a multiple of 16 bytes
-    # that TMA reads in place (the nt kernel takes the first K codes)
-    pad = ((_k_pad(kdim, 1) if nn else (-kdim) % 16) if is_cuda(x)
-           else 0)
+    # the codes' rows padded to a multiple of 16 bytes (after the row
+    # statistics, so zeros never skew min/max): TMA reads them in place, the
+    # first K codes of each (the GEMM's view)
+    pad = (-kdim) % 16 if is_cuda(x) else 0
     x_q, x_scale, x_zp, x_rs = quantize_rows(x, x_fmt, k_pad=pad,
                                              colscale=x_colscale)
-    x_in = x_q
     if pad:
-        x_q = x_q[:, :kdim]   # the codes (emitted), a view
-        if nn:   # the padded codes against a weight padded alike
-            w_q = _pad_k(w_q, pad, rows=True)
-        else:
-            x_in = x_q
-    out = scaled_gemm(x_in, w_q, out_dtype, x_scale, w_scale, bias,
+        x_q = x_q[:, :kdim]
+    out = scaled_gemm(x_q, w_q, out_dtype, x_scale, w_scale, bias,
                       rs=x_rs, zp=x_zp, vz0=v_zp0 if asym else None,
                       vz1=v_zp1 if asym else None, b_layout=b_layout)
     out = _add_lowrank(out, lowrank_u, lowrank_v, out_dtype)

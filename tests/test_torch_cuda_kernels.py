@@ -988,6 +988,160 @@ def test_scaled_gemm_nn_fp8(dev):
     assert ((got - want).abs() <= bound + 1e-6).all()
 
 
+def _equal_bytes(a, b):
+    return torch.equal(a.view(torch.uint8) if a.element_size() == 1 else a,
+                       b.view(torch.uint8) if b.element_size() == 1 else b)
+
+
+@pytest.mark.parametrize("m", [1, 37, 64, 65, 200, 1536])
+@pytest.mark.parametrize("k,n", [(1000, 300), (2000, 3008)])
+def test_scaled_gemm_nn_int8_shapes(dev, m, k, n):
+    """B4 nn (TMA + s8 wgmma, B transposed in shared memory) bit-equal to
+    its plain version at ragged M, N and K, every epilogue term: K and N
+    off every tile, and (1000, 300) rows that TMA cannot read in place (the
+    wrapper copies them)."""
+    g = _gen(25)
+    a = torch.randint(-128, 128, (m, k), device=dev, generator=g,
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (k, n), device=dev, generator=g,
+                      dtype=torch.int8)
+    xs = torch.rand(m, 1, device=dev, generator=g) * 0.02
+    ws = torch.rand(n, device=dev, generator=g) * 0.02
+    bias, vz0, vz1 = (torch.randn(n, device=dev, generator=g)
+                      for _ in range(3))
+    rs, zp = (torch.randn(m, device=dev, generator=g) for _ in range(2))
+    for args in ((xs, ws, bias, rs, zp, vz0, vz1), (xs,), ()):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = ks.scaled_gemm(a, b, out_dtype, *args, b_layout="nn")
+            want = ks.scaled_gemm_plain(a, b, out_dtype, *args,
+                                        b_layout="nn")
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 18432, 3072), (1, 9216, 3072),
+                                   (512, 9216, 3072), (1536, 21504, 3072),
+                                   (3, 300, 40)])
+def test_scaled_gemm_nn_split_contraction(dev, m, k, n):
+    """The contraction split by ``nn_plan`` (the batch-1 modulation
+    grad-inputs, txt qkv, linear1) adds its int32 partials exactly:
+    bit-equal to the plain version and to the kernel with no split, call
+    after call on the workspace (its counters as the last call left
+    them)."""
+    g = _gen(26)
+    a = torch.randint(-128, 128, (m, k), device=dev, generator=g,
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (k, n), device=dev, generator=g,
+                      dtype=torch.int8)
+    xs = torch.rand(m, 1, device=dev, generator=g) * 1e-4
+    nb, whole, splits = ks.nn_plan(m, n, k, torch.int8,
+                                   torch.cuda.get_device_properties(0)
+                                   .multi_processor_count)
+    got = ks.scaled_gemm(a, b, torch.float32, xs, b_layout="nn")
+    assert torch.equal(got, ks.scaled_gemm_plain(a, b, torch.float32, xs,
+                                                 b_layout="nn"))
+    tiles = -(-m // 128) * -(-n // (128 * nb))
+    plan = ks.nn_plan
+    try:  # every tile whole; every tile split 2, 3 and 7 ways; the tail only
+        for p in ((nb, tiles, 1), (nb, 0, 2), (nb, 0, 3), (nb, 0, 7),
+                  (nb, tiles // 2, 5)):
+            if p[2] > -(-k // 128):
+                continue
+            ks.nn_plan = lambda *args, p=p, **kw: p
+            for _ in range(2):
+                assert torch.equal(ks.scaled_gemm(a, b, torch.float32, xs,
+                                                  b_layout="nn"), got), p
+    finally:
+        ks.nn_plan = plan
+
+
+def test_scaled_gemm_nn_views(dev):
+    """Operands off a 16-byte boundary or with rows TMA cannot read are
+    copied by the wrapper, and the result equals the plain version."""
+    g = _gen(27)
+    a = torch.randint(-128, 128, (70, 200), device=dev, generator=g,
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (200, 260), device=dev, generator=g,
+                      dtype=torch.int8)
+    xs = torch.rand(70, 1, device=dev, generator=g) * 0.02
+    want = ks.scaled_gemm_plain(a, b, torch.float32, xs, b_layout="nn")
+    av, bv = _unreadable_rows(a, g), _unreadable_rows(b, g)
+    assert torch.equal(ks.scaled_gemm(av, bv, torch.float32, xs,
+                                      b_layout="nn"), want)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 18432, 3072), (65, 1000, 300),
+                                   (200, 2000, 3008)])
+def test_scaled_gemm_nn_fp8_shapes(dev, m, k, n):
+    """e4m3 nn (fp16 wgmma, B MN-major) within 1e-5 of sum |a b| at ragged
+    shapes and with the contraction split (M = 1)."""
+    g = _gen(28)
+    a = (torch.randn(m, k, device=dev, generator=g) * 8).to(
+        torch.float8_e4m3fn)
+    b = (torch.randn(k, n, device=dev, generator=g) * 8).to(
+        torch.float8_e4m3fn)
+    xs = torch.rand(m, 1, device=dev, generator=g)
+    got = ks.scaled_gemm(a, b, torch.float32, xs, b_layout="nn")
+    want = ks.scaled_gemm_plain(a, b, torch.float32, xs, b_layout="nn")
+    bound = 1e-5 * (a.float().abs() @ b.float().abs()) * xs
+    assert ((got - want).abs() <= bound + 1e-6).all()
+
+
+def _planted_rows(m, k, x_fmt, dtype, g):
+    """Rows of x whose quotients x / scale are half-integers where the
+    plain version's division rounds them (ties to even): each row's scale
+    is s0 = 2^-4 exactly (its largest |x| 127 s0; uint8 also its least
+    -128 s0, so that zp is 0), and half of its values are (n + 1/2) s0,
+    exact in bf16 and fp16."""
+    s0 = 2.0 ** -4
+    x = (torch.rand(m, k, device="cuda", generator=g) * 250 - 125) * s0
+    n = torch.randint(-127, 127, (m, k), device="cuda", generator=g)
+    half = torch.rand(m, k, device="cuda", generator=g) < 0.5
+    x = torch.where(half, (n.float() + 0.5) * s0, x)
+    x[:, 0] = 127 * s0
+    if x_fmt == "uint8" and k > 1:
+        x[:, 1] = -128 * s0
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("m,k", [(1, 37), (300, 37), (1, 21504),
+                                 (300, 21504), (64, 3072), (5000, 3072),
+                                 (5, 18432), (3, 30000)])
+@pytest.mark.parametrize("x_fmt", ["int8", "uint8", "float8_e4m3fn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_quantize_rows_bit_equal(dev, m, k, x_fmt, dtype):
+    """B1's row quantizer (one read of x, the multiply with the division
+    next to half-integers) bit-equal to the plain version in every mode
+    and dtype: codes, scales, zero points, row sums, with and without the
+    column scale, with half-integer quotients planted, through each of its
+    kernels: rows staged in shared memory a block a row (K 3072 to 21504;
+    M 1 included, and M 5000, where a block takes several rows through
+    both of its buffers more than once), the two-pass loop with 16-byte
+    loads (fp32 at K 30000: two rows do not fit in shared memory) and a
+    value at a time (odd K, and any K of x off a 16-byte boundary)."""
+    g = _gen(29)
+    x = _planted_rows(m, k, x_fmt, dtype, g)
+    for cs in (None, torch.ones(k, device=dev),
+               2.0 ** torch.randint(-2, 3, (k,), device=dev,
+                                    generator=g).float()):
+        for pad in (0, 11):
+            got = ks.quantize_rows(x, x_fmt, k_pad=pad, colscale=cs)
+            want = ks.quantize_rows_plain(x, x_fmt, k_pad=pad, colscale=cs)
+            for a, b in zip(got, want):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    assert _equal_bytes(a, b)
+    off = torch.empty(m * k + 1, dtype=dtype, device=dev)[1:].view(m, k)
+    off.copy_(x)   # contiguous, one value off a 16-byte boundary
+    for pad in (0, 11):
+        got = ks.quantize_rows(off, x_fmt, k_pad=pad)
+        want = ks.quantize_rows_plain(x, x_fmt, k_pad=pad)
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert _equal_bytes(a, b)
+
+
 @pytest.mark.parametrize("m", [1, 37, 64, 200])
 def test_fused_act_nn_colscale_emit(dev, m):
     """The grad-input route (nn + colscale) and the forward's emitted

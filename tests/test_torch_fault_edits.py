@@ -6,8 +6,7 @@ whose text a later change of the source removed would stop the script on
 the card.  These tests apply each fault's edits to the sources here, as the
 fault builder does (a later edit sees the earlier ones), and so find such a
 fault on the CPU.  ``WGMMA_WATCHDOG`` (the barrier watchdog every fault
-build of the watched sources gets) and the timing probes (``PROBES``,
-built the same way) are held to the same.
+build of the watched sources gets) is held to the same.
 """
 
 from __future__ import annotations
@@ -56,16 +55,6 @@ def test_fault_edits_apply(fault):
     files = _apply(src, edits)
     assert files[f"{src}.cu"] != (CSRC / f"{src}.cu").read_text() or any(
         files[h] != (CSRC / h).read_text() for h in HEADERS)
-
-
-@pytest.mark.parametrize("probe", CS.PROBES, ids=[p[0] for p in CS.PROBES])
-def test_probe_edits_apply(probe):
-    tag, src, edits = probe
-    assert edits or src in CS.WATCHED, tag  # else it builds the source
-    files = _apply(src, list(edits) + (list(CS.WGMMA_WATCHDOG)
-                                       if src in CS.WATCHED else []))
-    assert any(files[f] != (CSRC / f).read_text() for f in files)
-    assert tag not in {f[0] for f in CS.FAULTS}
 
 
 @pytest.mark.parametrize("src", CS.WATCHED)
