@@ -4,6 +4,8 @@
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --no-faults  # no phase 7, nor its builds
     python3 chip_smoke.py --b1-probes  # only B1's quantizer and B4 nn's plans, timed
+    python3 chip_smoke.py --phase-4i   # only phase 4i (model files), and
+                                       # the builds its paths need
 
 ``--no-faults`` starts no builds of planted faults, so that the timed
 phases have the host's cores to themselves (the default run builds them
@@ -142,6 +144,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               (grouped and row modes), its grouped GEMV, B3 with the
               additive mask and B3 bf16 must launch; the images finite,
               (1, 1024, 1024, 3).
+4i. files   - model files, written into a temporary directory (free disk
+              checked first; removed at the end) and read on the card:
+              FLUX.1-dev at full width cut to 2 + 4 blocks (seeded bf16
+              weights written in diffusers' FluxTransformer2DModel layout
+              over two shards and an index) streamed, fused and quantized
+              to int8 by ``load_flux``, bit-equal to ``quantize_model`` of
+              the tree in memory, its forward at 1024x1024 with 512 text
+              tokens bit-equal (B1, B4, B2's GEMV and B3 must launch), and
+              again after ``save_quantized`` / ``load_quantized``; one
+              shard through ``fast_load_safetensors`` (the reader's bytes)
+              and ``device_put_packed`` (bit-equal), and the int8 tree
+              through ``device_put_packed``; Llama-3-8B at full width cut
+              to 2 layers in transformers' LlamaForCausalLM layout through
+              ``load_llama`` (int8), ``generate`` of 2 x 128 + 8 tokens
+              equal and the causal forward's logits bit-equal to the
+              in-memory model's (B1, B4, B2's GEMV and B3 causal must
+              launch); ``fit`` on a fresh 2 + 2-block training slice
+              (int8, AdamW with 8-bit moments and Kahan) for 2 steps with
+              a checkpoint every step: ``restore_checkpoint`` of step_1
+              bit-equal to the state after step 1, and a ``fit`` resumed
+              from step_1 (the generator set to its state there) bit-equal
+              at its end to the uninterrupted run (B10, B1's nn and
+              colscale, B1, B4, B2 and B3 must launch).  Each write, load,
+              native read and transfer logs its bytes, seconds and GB/s
+              beside the card's name and power limit.
 5. slice    - each FLUX model (R1 and R2 too) cut to 1 double + 2 single
               blocks, one
               forward at 1024x1024 with 512 text tokens, and Llama-3-8B cut
@@ -223,9 +250,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s
-HBM_BPS = 3.35e12
-PEAK = {"int8": 1979e12, "fp8": 1979e12, "bf16": 989e12, "fp32": 67e12}
+
+def peaks() -> tuple[float, dict]:
+    """The H100 SXM's dense peaks (NVIDIA data sheet), from the port's
+    ``utils.profiling``: memory bytes/s and operations/s by operand type."""
+    from sdnq_tpu_torch.utils.profiling import CHIPS
+    chip = CHIPS["h100"]
+    return chip.hbm_gbps * 1e9, {k: chip.peak(k) for k in
+                                 ("int8", "fp8", "bf16", "fp32")}
+
 
 FAILURES: list[str] = []
 
@@ -241,8 +274,9 @@ def check(ok: bool, what: str):
 
 
 def bound_ms(bytes_moved: float, ops: float = 0.0, kind: str = "bf16"):
-    t_bytes = bytes_moved / HBM_BPS
-    t_ops = ops / PEAK[kind] if ops else 0.0
+    hbm_bps, peak = peaks()
+    t_bytes = bytes_moved / hbm_bps
+    t_ops = ops / peak[kind] if ops else 0.0
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -3021,21 +3055,22 @@ def build_train_model(torch, dev):
     return tparams, cfg
 
 
-def train_inputs(torch, dev, cfg, seed: int = 21):
+def train_inputs(torch, dev, cfg, seed: int = 21, side: int = TRAIN_SIDE,
+                 txt_len: int = TRAIN_TXT):
     """Batch 1 at 512x512 (1024 image tokens), 512 text tokens, guidance
     3.5, t and a target drawn from a seeded generator."""
     from sdnq_tpu_torch.models.dit import make_rope_freqs
     g = torch.Generator(device=dev).manual_seed(seed)
-    hw = (TRAIN_SIDE // 16, TRAIN_SIDE // 16)
+    hw = (side // 16, side // 16)
     n = hw[0] * hw[1]
     return dict(
         img=torch.randn(1, n, cfg.in_channels, device=dev, generator=g),
-        txt=torch.randn(1, TRAIN_TXT, cfg.txt_dim, device=dev, generator=g),
+        txt=torch.randn(1, txt_len, cfg.txt_dim, device=dev, generator=g),
         pooled=torch.randn(1, cfg.vec_dim, device=dev, generator=g),
         t=torch.rand(1, device=dev, generator=g),
         guidance=torch.full((1,), 3.5, device=dev),
         target=torch.randn(1, n, cfg.in_channels, device=dev, generator=g),
-        freqs=make_rope_freqs(cfg, TRAIN_TXT, hw, device=dev))
+        freqs=make_rope_freqs(cfg, txt_len, hw, device=dev))
 
 
 def train_loss(params, cfg, inp, dev):
@@ -3438,6 +3473,627 @@ def pipeline_slice_phase(torch, dev, sliced) -> dict:
         check(readings[key] <= tol, f"slice pipeline: kernel path vs plain "
               f"path {key} {readings[key]:.3e} <= {tol:.1e}")
     return readings
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: model files, streamed and quantized on the card, and fit's
+# checkpoints
+# ---------------------------------------------------------------------------
+
+IO_FLUX_DEPTH = (2, 4)         # of 19 + 38: 2.6 GB of bf16 to write
+IO_LLM_LAYERS = 2              # of 32: 3.0 GB of bf16, most of it the
+IO_LLM_PROMPT, IO_LLM_NEW = 128, 8   # embedding and the head
+IO_TRAIN_DEPTH = (2, 2)
+# the sources of the kernels phase 4i's paths launch (``--phase-4i``)
+IO_SOURCES = ("quantize_rows", "scaled_mm", "dequant_gemv", "flash_attn",
+              "scaled_mm_tn")
+IO_FLUX_REQUIRED = ("quantize_rows", "scaled_gemm", "dequant_gemv",
+                    "flash_attention")
+IO_LLM_REQUIRED = ("quantize_rows", "scaled_gemm", "dequant_gemv",
+                   "flash_attention:causal")
+# free disk a part needs, as a multiple of the bytes it writes at most
+IO_DISK_MARGIN = 1.25
+
+
+def _sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _is_node(x) -> bool:
+    from sdnq_tpu_torch.optim.base import BufferQ
+    from sdnq_tpu_torch.tensor import QTensor
+    from sdnq_tpu_torch.train import TrainQTensor
+    return isinstance(x, (QTensor, TrainQTensor, BufferQ))
+
+
+def _arrays(leaf):
+    """(name, tensor) of a leaf's tensors: a tensor, a QTensor's fields, a
+    TrainQTensor's (not its gradient carrier), a BufferQ's; none of a
+    scalar or None."""
+    import torch
+    if isinstance(leaf, torch.Tensor):
+        return [("", leaf)]
+    if not _is_node(leaf):
+        return []
+    if hasattr(leaf, "delta"):
+        leaf = leaf.qt
+    names = (("qdata", "scale", "zero_point", "svd_up", "svd_down")
+             if hasattr(leaf, "meta") else ("qdata", "scale"))
+    return [(n, getattr(leaf, n)) for n in names
+            if getattr(leaf, n) is not None]
+
+
+def tree_bytes(tree) -> int:
+    from sdnq_tpu_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for leaf in tree_leaves(tree, is_leaf=_is_node)
+               for _, t in _arrays(leaf))
+
+
+def tree_mismatches(got, want) -> list[str]:
+    """Paths where two trees differ: structure, a QTensor's meta, a
+    BufferQ's shape, a scalar, or any tensor's dtype, shape or bits."""
+    import torch
+    from sdnq_tpu_torch.tree import tree_leaves_with_paths
+    fg = tree_leaves_with_paths(got, is_leaf=_is_node)
+    fw = tree_leaves_with_paths(want, is_leaf=_is_node)
+    if [p for p, _ in fg] != [p for p, _ in fw]:
+        return ["<structure>"]
+    bad = []
+    for (path, g), (_, w) in zip(fg, fw):
+        if type(g) is not type(w):
+            bad.append(path)
+            continue
+        if not isinstance(w, torch.Tensor) and not _is_node(w):
+            if g != w:
+                bad.append(path)
+            continue
+        if getattr(getattr(w, "qt", w), "meta", None) != getattr(
+                getattr(g, "qt", g), "meta", None) or getattr(
+                w, "shape", None) != getattr(g, "shape", None):
+            bad.append(path)
+            continue
+        ag, aw = _arrays(g), _arrays(w)
+        if [n for n, _ in ag] != [n for n, _ in aw] or not all(
+                bits_equal(x, y) for (_, x), (_, y) in zip(ag, aw)):
+            bad.append(path)
+    return bad
+
+
+def bits_equal(x, y) -> bool:
+    """Same dtype, shape and bits (``y`` brought to ``x``'s device)."""
+    import torch
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    y = y.to(x.device)
+    if x.is_floating_point():
+        view = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[x.element_size()]
+        x, y = x.detach().view(view), y.detach().view(view)
+    return bool(torch.equal(x, y))
+
+
+def io_rate(what: str, nbytes: int, secs: float, card: str) -> dict:
+    rec = {"what": what, "bytes": nbytes, "seconds": secs,
+           "gb_per_s": nbytes / secs / 1e9 if secs else None, "card": card}
+    log("io: " + json.dumps(rec))
+    return rec
+
+
+def log_files(path) -> None:
+    """The size of each file under ``path``."""
+    for root, _, names in os.walk(path):
+        for name in sorted(names):
+            f = os.path.join(root, name)
+            log(f"io file: {os.path.relpath(f, os.path.dirname(path))} "
+                f"{os.path.getsize(f)} bytes")
+
+
+def disk_check(path, need: int, what: str) -> None:
+    """Fail the run, never skip, where the disk under ``path`` lacks
+    IO_DISK_MARGIN times the ``need`` bytes."""
+    import shutil
+    free = shutil.disk_usage(path).free
+    ok = free >= IO_DISK_MARGIN * need
+    check(ok, f"io {what}: {free / 1e9:.1f} GB free under {path} for "
+          f"{need / 1e9:.2f} GB to write (x{IO_DISK_MARGIN})")
+    if not ok:
+        raise RuntimeError(f"phase 4i: too little disk for {what}")
+
+
+def diffusers_flux_state(params, cfg) -> dict:
+    """The DiT tree in diffusers' FluxTransformer2DModel keys: qkv and
+    linear1 split into to_q / to_k / to_v (and proj_mlp), norm_out as
+    [scale, shift]: the inverse of ``io.keymaps.fuse_flux_params``.  The
+    tensors are views of the tree's."""
+    import torch
+    d = cfg.hidden_size
+    mlp = int(d * cfg.mlp_ratio)
+    sd = {}
+
+    def emit(stem, p):
+        for leaf in ("weight", "bias"):
+            if leaf in p:
+                sd[f"{stem}.{leaf}"] = p[leaf]
+
+    def split(p, sizes):
+        out, o = [], 0
+        for s in sizes:
+            out.append({k: v[o:o + s] for k, v in p.items()})
+            o += s
+        return out
+
+    for stem in ("x_embedder", "context_embedder", "proj_out"):
+        emit(stem, params[stem])
+    for ours, theirs in (("time_in", "timestep_embedder"),
+                         ("vector_in", "text_embedder"),
+                         ("guidance_in", "guidance_embedder")):
+        if ours in params:
+            emit(f"time_text_embed.{theirs}.linear_1", params[ours]["fc1"])
+            emit(f"time_text_embed.{theirs}.linear_2", params[ours]["fc2"])
+    emit("norm_out.linear", {k: torch.cat([v[d:], v[:d]]) for k, v in
+                             params["norm_out"]["linear"].items()})
+    for i, blk in enumerate(params["transformer_blocks"]):
+        pre = f"transformer_blocks.{i}"
+        emit(f"{pre}.norm1.linear", blk["img_mod"]["linear"])
+        emit(f"{pre}.norm1_context.linear", blk["txt_mod"]["linear"])
+        for attn, names, nq, nk, out in (
+                ("img_attn", ("to_q", "to_k", "to_v"), "norm_q", "norm_k",
+                 "to_out.0"),
+                ("txt_attn", ("add_q_proj", "add_k_proj", "add_v_proj"),
+                 "norm_added_q", "norm_added_k", "to_add_out")):
+            for n, p in zip(names, split(blk[attn]["qkv"], [d, d, d])):
+                emit(f"{pre}.attn.{n}", p)
+            emit(f"{pre}.attn.{nq}", blk[attn]["norm_q"])
+            emit(f"{pre}.attn.{nk}", blk[attn]["norm_k"])
+            emit(f"{pre}.attn.{out}", blk[attn]["proj"])
+        emit(f"{pre}.ff.net.0.proj", blk["img_mlp"]["fc1"])
+        emit(f"{pre}.ff.net.2", blk["img_mlp"]["fc2"])
+        emit(f"{pre}.ff_context.net.0.proj", blk["txt_mlp"]["fc1"])
+        emit(f"{pre}.ff_context.net.2", blk["txt_mlp"]["fc2"])
+    for i, blk in enumerate(params["single_transformer_blocks"]):
+        pre = f"single_transformer_blocks.{i}"
+        emit(f"{pre}.norm.linear", blk["norm"]["linear"])
+        for n, p in zip(("attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp"),
+                        split(blk["linear1"], [d, d, d, mlp])):
+            emit(f"{pre}.{n}", p)
+        emit(f"{pre}.attn.norm_q", blk["norm_q"])
+        emit(f"{pre}.attn.norm_k", blk["norm_k"])
+        emit(f"{pre}.proj_out", blk["linear2"])
+    return sd
+
+
+def flux_hf_config(cfg) -> dict:
+    """The fields of diffusers' transformer/config.json that
+    ``flux_config_from_hf`` reads."""
+    return {"_class_name": "FluxTransformer2DModel",
+            "in_channels": cfg.in_channels,
+            "num_attention_heads": cfg.num_heads,
+            "attention_head_dim": cfg.hidden_size // cfg.num_heads,
+            "num_layers": cfg.depth_double,
+            "num_single_layers": cfg.depth_single,
+            "joint_attention_dim": cfg.txt_dim,
+            "pooled_projection_dim": cfg.vec_dim,
+            "axes_dims_rope": list(cfg.axes_dims),
+            "guidance_embeds": cfg.guidance_embed}
+
+
+def write_sharded(state: dict, path, shards: int = 2) -> int:
+    """``state`` over ``shards`` files of about equal bytes, named as
+    diffusers names them, with its index; returns the bytes."""
+    from sdnq_tpu_torch.io._safetensors import INDEX_NAMES, save_file
+    keys = sorted(state)
+    sizes = [state[k].numel() * state[k].element_size() for k in keys]
+    total, acc, groups = sum(sizes), 0, [[] for _ in range(shards)]
+    for k, s in zip(keys, sizes):
+        groups[min(shards - 1, int(acc * shards / max(total, 1)))].append(k)
+        acc += s
+    weight_map = {}
+    for i, ks in enumerate(groups):
+        name = f"diffusion_pytorch_model-{i + 1:05d}-of-{shards:05d}" \
+               ".safetensors"
+        save_file({k: state[k] for k in ks}, os.path.join(path, name))
+        weight_map.update({k: name for k in ks})
+    with open(os.path.join(path, INDEX_NAMES[1]), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    return total
+
+
+def llama_hf_config(cfg) -> dict:
+    """transformers' LlamaConfig fields of meta-llama/Meta-Llama-3-8B's
+    config.json, with the model's layer count."""
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.ff_dim,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta,
+            "rms_norm_eps": 1e-5, "max_position_embeddings": 8192,
+            "tie_word_embeddings": cfg.tie_embeddings,
+            "torch_dtype": "bfloat16"}
+
+
+def transformers_llama_state(params) -> dict:
+    """The LLM tree in transformers' LlamaForCausalLM keys."""
+    from sdnq_tpu_torch.tree import tree_leaves_with_paths
+    return {(p if p.startswith("lm_head.") else "model." + p): t
+            for p, t in tree_leaves_with_paths(params)}
+
+
+def io_flux_part(torch, dev, tmp, card, cfg, side=1024, txt_len=512,
+                 required=IO_FLUX_REQUIRED) -> dict:
+    """FLUX.1-dev in diffusers' layout: written, streamed and quantized by
+    ``load_flux`` on the card, bit-equal to ``quantize_model`` of the tree
+    in memory, before and after ``save_quantized`` / ``load_quantized``;
+    then the native reader and the packed transfer.  Returns the launch
+    counts of the loaded model's forward."""
+    from sdnq_tpu_torch import QuantConfig, quantize_model
+    from sdnq_tpu_torch.io import (load_flux, load_quantized, save_quantized,
+                                   stream_state_dict)
+    from sdnq_tpu_torch.io._safetensors import checkpoint_files, load_file
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models.dit import init_dit
+    from sdnq_tpu_torch.native import fast_load_safetensors
+    from sdnq_tpu_torch.tree import tree_leaves
+    from sdnq_tpu_torch.utils.transfer import device_put_packed
+
+    qc = dict(weights_dtype="int8", use_quantized_matmul=True)
+    params = init_dit(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(40))
+    hf = os.path.join(tmp, "flux")
+    os.makedirs(hf)
+    state = diffusers_flux_state(params, cfg)
+    disk_check(tmp, 2 * tree_bytes(state), "FLUX")
+    t0 = time.perf_counter()
+    nbytes = write_sharded(state, hf)
+    io_rate("FLUX.1-dev bf16, diffusers layout, 2 shards: write", nbytes,
+            time.perf_counter() - t0, card)
+    del state
+    with open(os.path.join(hf, "config.json"), "w") as f:
+        json.dump(flux_hf_config(cfg), f)
+    log_files(hf)
+
+    t0 = time.perf_counter()
+    for _ in stream_state_dict(hf):
+        pass
+    io_rate("FLUX.1-dev: the two shards read alone (stream_state_dict)",
+            nbytes, time.perf_counter() - t0, card)
+    _sync(torch)
+    t0 = time.perf_counter()
+    loaded, lcfg, _ = load_flux(hf, QuantConfig(**qc), device=dev)
+    _sync(torch)
+    io_rate("FLUX.1-dev: load_flux (stream, fuse, quantize int8)", nbytes,
+            time.perf_counter() - t0, card)
+    check(lcfg == cfg, "io FLUX: config.json read back as the model's")
+    t0 = time.perf_counter()
+    direct, _ = quantize_model(params, QuantConfig(**qc),
+                               arch="FluxTransformer2DModel", device=dev)
+    _sync(torch)
+    io_rate("FLUX.1-dev: quantize_model of the tree in memory", nbytes,
+            time.perf_counter() - t0, card)
+    del params
+    bad = tree_mismatches(loaded, direct)
+    check(not bad, f"io FLUX: load_flux bit-equal to quantize_model in "
+          f"memory ({len(bad)} leaves differ: {bad[:3]})")
+
+    inp = dit_inputs(torch, dev, cfg, side=side, txt_len=txt_len)
+    want = forward(direct, cfg, inp, dev)
+    del direct
+    _sync(torch)
+    reset_launch_counts()
+    got = forward(loaded, cfg, inp, dev)
+    _sync(torch)
+    counts = launch_counts()
+    check(bits_equal(got, want), "io FLUX: the loaded model's forward at "
+          f"{side}x{side} with {txt_len} text tokens bit-equal to the "
+          "in-memory model's")
+    check(bool(torch.isfinite(got).all()), "io FLUX: forward finite")
+    for name in required:
+        check(counts[name] > 0, f"io FLUX: the forward launched {name}")
+
+    qdir = os.path.join(tmp, "flux_int8")
+    qbytes = tree_bytes(loaded)
+    disk_check(tmp, qbytes, "FLUX int8")
+    _sync(torch)
+    t0 = time.perf_counter()
+    save_quantized(loaded, qdir, QuantConfig(**qc))
+    io_rate("FLUX.1-dev int8: save_quantized", qbytes,
+            time.perf_counter() - t0, card)
+    log_files(qdir)
+    t0 = time.perf_counter()
+    again, qcfg = load_quantized(qdir, device=dev)
+    _sync(torch)
+    io_rate("FLUX.1-dev int8: load_quantized", qbytes,
+            time.perf_counter() - t0, card)
+    bad = tree_mismatches(again, loaded)
+    check(not bad and qcfg.weights_dtype == "int8",
+          f"io FLUX: save_quantized / load_quantized bit-equal "
+          f"({len(bad)} leaves differ: {bad[:3]})")
+    check(bits_equal(forward(again, cfg, inp, dev), want),
+          "io FLUX: the forward after load_quantized bit-equal")
+    del again
+
+    shard = checkpoint_files(hf)[0]
+    t0 = time.perf_counter()
+    plain = load_file(shard)
+    t_plain = time.perf_counter() - t0
+    sbytes = tree_bytes(plain)
+    io_rate("FLUX shard 1: the port's reader (one thread)", sbytes, t_plain,
+            card)
+    for target, what in (("cpu", "pageable"), (dev, "pinned")):
+        t0 = time.perf_counter()
+        native = fast_load_safetensors(shard, device=target)
+        io_rate(f"FLUX shard 1: fast_load_safetensors (native threads, "
+                f"{what})", sbytes, time.perf_counter() - t0, card)
+    check(not tree_mismatches(native, plain),
+          "io FLUX: fast_load_safetensors gives the reader's bytes")
+    _sync(torch)
+    t0 = time.perf_counter()
+    moved = device_put_packed(native, dev)
+    _sync(torch)
+    io_rate("FLUX shard 1: device_put_packed", sbytes,
+            time.perf_counter() - t0, card)
+    check(not tree_mismatches(moved, plain), "io FLUX: device_put_packed of "
+          "the shard bit-equal")
+    del plain, native, moved
+    host = device_put_packed(loaded, "cpu")
+    _sync(torch)
+    t0 = time.perf_counter()
+    moved = device_put_packed(host, dev)
+    _sync(torch)
+    io_rate("FLUX.1-dev int8 tree: device_put_packed", qbytes,
+            time.perf_counter() - t0, card)
+    check(not tree_mismatches(moved, loaded) and all(
+        t.device == torch.device(dev)
+        for leaf in tree_leaves(moved, is_leaf=_is_node)
+        for _, t in _arrays(leaf)),
+        "io FLUX: device_put_packed of the int8 tree bit-equal on the card")
+    return counts
+
+
+def io_llama_part(torch, dev, tmp, card, cfg, prompt=IO_LLM_PROMPT,
+                  new=IO_LLM_NEW, required=IO_LLM_REQUIRED) -> dict:
+    """Llama-3-8B in transformers' layout: written, streamed and quantized
+    by ``load_llama`` on the card, bit-equal to ``quantize_model`` of the
+    tree in memory; ``generate`` of 2 prompts gives the same tokens and
+    the causal forward bit-equal logits.  Returns the launch counts of
+    the loaded model's ``generate`` and forward."""
+    from sdnq_tpu_torch import QuantConfig, quantize_model
+    from sdnq_tpu_torch.io import load_llama
+    from sdnq_tpu_torch.io._safetensors import save_file
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models import generate, init_llm, llm_forward
+
+    qc = dict(weights_dtype="int8", use_quantized_matmul=True)
+    params = init_llm(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(41))
+    hf = os.path.join(tmp, "llama")
+    os.makedirs(hf)
+    state = transformers_llama_state(params)
+    nbytes = tree_bytes(state)
+    disk_check(tmp, nbytes, "Llama")
+    t0 = time.perf_counter()
+    save_file(state, os.path.join(hf, "model.safetensors"),
+              metadata={"format": "pt"})
+    io_rate("Llama-3-8B bf16, transformers layout: write", nbytes,
+            time.perf_counter() - t0, card)
+    del state
+    with open(os.path.join(hf, "config.json"), "w") as f:
+        json.dump(llama_hf_config(cfg), f)
+    log_files(hf)
+
+    _sync(torch)
+    t0 = time.perf_counter()
+    loaded, lcfg, _ = load_llama(hf, QuantConfig(**qc), device=dev)
+    _sync(torch)
+    io_rate("Llama-3-8B: load_llama (stream, quantize int8)", nbytes,
+            time.perf_counter() - t0, card)
+    check(lcfg == cfg, "io Llama: config.json read back as the model's")
+    direct, _ = quantize_model(params, QuantConfig(**qc), arch="llama",
+                               kinds={"embed_tokens.weight": "embedding"},
+                               device=dev)
+    del params
+    bad = tree_mismatches(loaded, direct)
+    check(not bad, f"io Llama: load_llama bit-equal to quantize_model in "
+          f"memory ({len(bad)} leaves differ: {bad[:3]})")
+
+    ids = torch.randint(0, cfg.vocab_size, (2, prompt), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(42))
+    want_toks = generate(direct, ids, cfg, max_new_tokens=new, device=dev)
+    want, _ = llm_forward(direct, ids, cfg, device=dev)
+    del direct
+    _sync(torch)
+    reset_launch_counts()
+    toks = generate(loaded, ids, cfg, max_new_tokens=new, device=dev)
+    got, _ = llm_forward(loaded, ids, cfg, device=dev)
+    _sync(torch)
+    counts = launch_counts()
+    check(bool(torch.equal(toks, want_toks)), f"io Llama: generate of 2 x "
+          f"{prompt} + {new} tokens equal to the in-memory model's")
+    check(bits_equal(got, want), "io Llama: causal forward logits bit-equal")
+    check(bool(torch.isfinite(got).all()), "io Llama: logits finite")
+    for name in required:
+        check(counts[name] > 0, f"io Llama: generate and forward launched "
+              f"{name}")
+    return counts
+
+
+def snapshot(tree):
+    """A copy of a training state whose tensors are clones: the optimizer
+    updates the state in place."""
+    import dataclasses
+    import torch
+
+    def copy(x):
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(copy(v) for v in x)
+        if isinstance(x, torch.Tensor):
+            return x.detach().clone().requires_grad_(x.requires_grad)
+        if hasattr(x, "delta"):
+            return dataclasses.replace(x, qt=copy(x.qt))
+        if _is_node(x):
+            return dataclasses.replace(x, **{n: t.clone()
+                                             for n, t in _arrays(x)})
+        return x
+    return copy(tree)
+
+
+@contextlib.contextmanager
+def timed_saves(records: list):
+    """Times each ``io.save_checkpoint`` call that ``fit`` makes."""
+    import sdnq_tpu_torch.io as io
+    real = io.save_checkpoint
+
+    def save(path, state):
+        _sync(__import__("torch"))
+        t0 = time.perf_counter()
+        real(path, state)
+        records.append(time.perf_counter() - t0)
+    io.save_checkpoint = save
+    try:
+        yield
+    finally:
+        io.save_checkpoint = real
+
+
+def io_fit_part(torch, dev, tmp, card, cfg, side=TRAIN_SIDE,
+                txt_len=TRAIN_TXT, required=TRAIN_REQUIRED) -> dict:
+    """``fit`` on the training slice with checkpoints every step (keep 2):
+    ``restore_checkpoint`` of step_1 bit-equal to the state after step 1,
+    and a second ``fit`` resumed from step_1, the generator set to its
+    state after step 1, bit-equal at its end to the uninterrupted run.
+    Returns the launch counts of the uninterrupted run."""
+    import shutil
+    from sdnq_tpu_torch import QuantConfig, quantize_model
+    from sdnq_tpu_torch.io import restore_checkpoint
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models.dit import init_dit
+    from sdnq_tpu_torch.optim import adamw
+    from sdnq_tpu_torch.train import convert_model_to_training, fit
+
+    params = init_dit(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(43))
+    qparams, _ = quantize_model(
+        params, QuantConfig(weights_dtype="int8", use_quantized_matmul=True),
+        arch="FluxTransformer2DModel", device=dev)
+    del params
+    opt = adamw(lr=1e-5, quantize_state=True, stochastic_rounding=True)
+    tparams = convert_model_to_training(qparams)
+    del qparams
+    state = {"params": tparams, "opt": opt.init(tparams)}
+    del tparams
+    inp = train_inputs(torch, dev, cfg, seed=44, side=side, txt_len=txt_len)
+
+    def step_fn(st, gen):
+        loss = train_loss(st["params"], cfg, inp, dev)
+        loss.backward()
+
+        def apply():
+            opt.update(None, st["opt"], st["params"], generator=gen)
+            return st
+        return loss, apply
+
+    ck_bytes = tree_bytes(state)
+    disk_check(tmp, 3 * ck_bytes, "fit checkpoints")
+    run_a, run_b = os.path.join(tmp, "fit"), os.path.join(tmp, "resume")
+    gen = torch.Generator(device=dev).manual_seed(45)
+    after_1 = {}
+
+    def on_metrics(step, loss, step_time):
+        if step == 0:
+            after_1["state"] = snapshot(state)
+            after_1["gen"] = gen.get_state()
+            after_1["loss"] = loss
+
+    saves = []
+    _sync(torch)
+    reset_launch_counts()
+    with timed_saves(saves):
+        full = fit(step_fn, state, 2, generator=gen, device=dev,
+                   ckpt_dir=run_a, save_every=1, keep=2,
+                   on_metrics=on_metrics)
+    _sync(torch)
+    counts = launch_counts()
+    for name in required:
+        check(counts[name] > 0, f"io fit: the two steps launched {name}")
+    check(sorted(os.listdir(run_a)) == ["step_1", "step_2"],
+          f"io fit: checkpoints {sorted(os.listdir(run_a))}")
+    log_files(run_a)
+    for s in saves:
+        io_rate("fit checkpoint (2 + 2 blocks, int8, AdamW 8-bit moments, "
+                "Kahan): save_checkpoint", ck_bytes, s, card)
+    t0 = time.perf_counter()
+    restored = restore_checkpoint(os.path.join(run_a, "step_1"), state)
+    _sync(torch)
+    io_rate("fit checkpoint: restore_checkpoint", ck_bytes,
+            time.perf_counter() - t0, card)
+    bad = tree_mismatches(restored, after_1["state"])
+    check(not bad, f"io fit: restore_checkpoint of step_1 bit-equal to "
+          f"the state after step 1 ({len(bad)} leaves differ: {bad[:3]})")
+    del restored, after_1["state"]
+
+    os.makedirs(run_b)
+    shutil.copytree(os.path.join(run_a, "step_1"),
+                    os.path.join(run_b, "step_1"), copy_function=os.link)
+    gen_b = torch.Generator(device=dev)
+    gen_b.set_state(after_1["gen"])
+    resumed = fit(step_fn, full, 2, generator=gen_b, device=dev,
+                  ckpt_dir=run_b, save_every=1, keep=2)
+    _sync(torch)
+    bad = tree_mismatches(resumed, full)
+    check(not bad and resumed is not full, f"io fit: resumed from step_1, "
+          f"bit-equal to the uninterrupted run ({len(bad)} leaves differ: "
+          f"{bad[:3]})")
+    check(sorted(os.listdir(run_b)) == ["step_1", "step_2"],
+          "io fit: the resumed run saved step_2")
+    log("io fit: " + json.dumps({
+        "depth": [cfg.depth_double, cfg.depth_single],
+        "checkpoint_bytes": ck_bytes, "loss_step_1": after_1["loss"]}))
+    return counts
+
+
+def io_phase(torch, dev) -> dict:
+    """Phase 4i at full width: FLUX.1-dev (IO_FLUX_DEPTH), Llama-3-8B
+    (IO_LLM_LAYERS) and the training slice (IO_TRAIN_DEPTH), every file
+    in one temporary directory that is removed at the end.  Returns the
+    launch counts of each path."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from sdnq_tpu_torch.models import FLUX_DEV_CONFIG, LLAMA3_8B_CONFIG
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="sdnq_io_")
+    counts = {}
+    try:
+        counts["io_flux"] = io_flux_part(
+            torch, dev, tmp, smi, dataclasses.replace(
+                FLUX_DEV_CONFIG, depth_double=IO_FLUX_DEPTH[0],
+                depth_single=IO_FLUX_DEPTH[1]))
+        shutil.rmtree(os.path.join(tmp, "flux"))
+        shutil.rmtree(os.path.join(tmp, "flux_int8"))
+        torch.cuda.empty_cache()
+        counts["io_llama"] = io_llama_part(
+            torch, dev, tmp, smi, dataclasses.replace(
+                LLAMA3_8B_CONFIG, num_layers=IO_LLM_LAYERS))
+        shutil.rmtree(os.path.join(tmp, "llama"))
+        torch.cuda.empty_cache()
+        counts["io_fit"] = io_fit_part(torch, dev, tmp, smi,
+                                       train_config(IO_TRAIN_DEPTH))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"io: phase 4i took {time.perf_counter() - t_start:.1f} s ({smi})")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -4015,12 +4671,16 @@ def main() -> int:
     faults = "--no-faults" not in sys.argv[1:]
     try:
         b1_only = "--b1-probes" in sys.argv[1:]
+        io_only = "--phase-4i" in sys.argv[1:]
         secs = _build.build(("quantize_rows", "scaled_mm") if b1_only
-                            else _build.SOURCES)
+                            else IO_SOURCES if io_only else _build.SOURCES)
         log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
             + json.dumps({k: round(v, 1) for k, v in secs.items()}))
         if b1_only:
             b1_probes(torch, dev)
+            return 1 if FAILURES else 0
+        if io_only:
+            log(json.dumps(io_phase(torch, dev)))
             return 1 if FAILURES else 0
         # the crossover's timing decides a route: on a quiet host, before
         # the fault builds (after the real sources, which then have the
@@ -4135,6 +4795,7 @@ def main() -> int:
         pipe_cut = cut_pipeline(models, pcfgs)
         pipeline_slice_phase(torch, dev, pipe_cut)
         pipeline_profile_phase(torch, dev, models, pcfgs)
+        counts.update(io_phase(torch, dev))
 
         for row in rows:
             row["launches"] = (counts[row["path"]][row["count"]]

@@ -8,7 +8,7 @@ from .matmul import (
 from .convert import (
     convert_model_to_training, convert_training_model_to_inference,
 )
-from .loop import fit
+from .loop import fit, latest_checkpoint_step
 from .remat import checkpoint_block, dots_saveable_policy
 
 __all__ = [
@@ -16,6 +16,6 @@ __all__ = [
     "extract_weight_grads", "apply_weight_updates", "grad_carrier",
     "DynamicTensor", "dynamic_qlinear",
     "convert_model_to_training", "convert_training_model_to_inference",
-    "fit", "checkpoint_block",
+    "fit", "latest_checkpoint_step", "checkpoint_block",
     "dots_saveable_policy",
 ]

@@ -10,7 +10,7 @@ tree of parameters.
 
 from __future__ import annotations
 
-__all__ = ["tree_leaves", "tree_map"]
+__all__ = ["tree_leaves", "tree_leaves_with_paths", "tree_map"]
 
 
 def _children(tree):
@@ -32,6 +32,24 @@ def tree_leaves(tree, is_leaf=None) -> list:
     out = []
     for kid in kids:
         out.extend(tree_leaves(kid, is_leaf))
+    return out
+
+
+def tree_leaves_with_paths(tree, is_leaf=None, prefix: str = "") -> list:
+    """(dotted path, leaf) of each leaf in ``tree_leaves``'s order: dict
+    keys and list indices joined by dots, as the JAX package names a leaf
+    of its parameter pytrees."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix[:-1], tree)]
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [(prefix[:-1], tree)]
+    out = []
+    for k, v in items:
+        out.extend(tree_leaves_with_paths(v, is_leaf, f"{prefix}{k}."))
     return out
 
 

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points do not quietly run on the CPU."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+``safetensors``, ``transformers`` or ``orbax``, which the card's machine
+does not have), and its entry points do not quietly run on the CPU."""
 
 import ast
 import os
@@ -24,9 +25,11 @@ def test_fresh_import_leaves_jax_out():
             "sdnq_tpu_torch.models, sdnq_tpu_torch.pipeline, "
             "sdnq_tpu_torch.convert, sdnq_tpu_torch.packing, "
             "sdnq_tpu_torch.quant.svd, sdnq_tpu_torch.train, "
-            "sdnq_tpu_torch.optim\n"
+            "sdnq_tpu_torch.optim, sdnq_tpu_torch.io, "
+            "sdnq_tpu_torch.native, sdnq_tpu_torch.utils\n"
             "bad = [m for m in sys.modules if m == 'jax' "
-            "or m.startswith(('jax.', 'jaxlib', 'sdnq_tpu.')) "
+            "or m.startswith(('jax.', 'jaxlib', 'sdnq_tpu.', 'safetensors', "
+            "'transformers', 'orbax')) "
             "or m == 'sdnq_tpu']\n"
             "print(bad)\n"
             "assert not bad, bad\n")
@@ -50,11 +53,16 @@ def test_no_source_imports_jax():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     assert {PKG / "packing.py", PKG / "quant" / "svd.py",
-            PKG / "train" / "matmul.py", PKG / "optim" / "base.py"} <= set(files)
+            PKG / "train" / "matmul.py", PKG / "optim" / "base.py",
+            PKG / "io" / "hf.py", PKG / "io" / "checkpoint.py",
+            PKG / "native" / "loader.py",
+            PKG / "utils" / "transfer.py"} <= set(files)
     for f in files:
         for mod in _imported_roots(f):
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "sdnq_tpu", "flax"), (f, mod)
+            assert root not in ("jax", "jaxlib", "sdnq_tpu", "flax",
+                                "safetensors", "transformers", "orbax"), (
+                f, mod)
 
 
 @pytest.fixture

@@ -25,6 +25,7 @@ its reason:
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -408,10 +409,11 @@ def test_flux_tiny_training_step_matches_jax():
 # the loop and checkpointing
 # ---------------------------------------------------------------------------
 
-def test_fit_skips_non_finite_steps():
+def test_fit_skips_non_finite_steps(tmp_path):
     """A bad loss skips the step's in-place update and drops its gradient:
     the parameter keeps its value, as the JAX loop keeps its pre-step
-    state, and the next step's gradient is its own."""
+    state, and the next step's gradient is its own.  With a ``ckpt_dir``
+    the loop saves, prunes and resumes from the newest step."""
     seen = []
     param = torch.zeros(3, requires_grad=True)
 
@@ -438,8 +440,31 @@ def test_fit_skips_non_finite_steps():
     with pytest.raises(FloatingPointError):
         fit(lambda s, g: (torch.tensor(float("inf")), lambda: s), 0, 10,
             device="cpu", max_bad_steps=3)
-    with pytest.raises(NotImplementedError):
-        fit(step, param, 1, device="cpu", ckpt_dir="ckpt")
+
+    def plain(p, gen):
+        loss = (p * 2.0).sum()
+        loss.backward()
+
+        def apply():
+            with torch.no_grad():
+                p.sub_(p.grad)
+            p.grad = None
+            return p
+        return loss, apply
+
+    ckpt = str(tmp_path / "ckpt")
+    first = torch.zeros(3, requires_grad=True)
+    out = fit(plain, first, 2, device="cpu", ckpt_dir=ckpt, save_every=1,
+              keep=1)
+    assert os.listdir(ckpt) == ["step_2"]
+    assert torch.equal(out.detach(), torch.full((3,), -4.))
+    # a new run resumes from step_2 into a fresh leaf and takes step 3
+    second = torch.zeros(3, requires_grad=True)
+    out = fit(plain, second, 3, device="cpu", ckpt_dir=ckpt, save_every=1,
+              keep=1)
+    assert torch.equal(out.detach(), torch.full((3,), -6.))
+    assert out.requires_grad and torch.equal(second.detach(), torch.zeros(3))
+    assert os.listdir(ckpt) == ["step_3"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):  # the card is the default
             fit(step, param, 1)
