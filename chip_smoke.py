@@ -6,6 +6,9 @@
     python3 chip_smoke.py --b1-probes  # only B1's quantizer and B4 nn's plans, timed
     python3 chip_smoke.py --phase-4i   # only phase 4i (model files), and
                                        # the builds its paths need
+    python3 chip_smoke.py --phase-4u   # only phase 4u (the SD UNet, with
+                                       # its slice and trace), and the
+                                       # builds its paths need
 
 ``--no-faults`` starts no builds of planted faults, so that the timed
 phases have the host's cores to themselves (the default run builds them
@@ -58,7 +61,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               -> 4096, 1024, 14336; 14336 -> 4096); each token-mode row
               (int8 P.V) beside the bf16-P.V kernel at its shape (events
               and device ms), and token mode also causal (off the paths);
-              B8 on uint5 (two field planes).  Then B7 against B8 at 32, 64 and 128 rows
+              B8 on uint5 (two field planes); B3 at the UNet's
+              self-attention shapes (5 x 4096^2, 10 x 4096^2, 20 x
+              1024^2, D 64): the modes its paths run, head-mode int8 P.V
+              (int8 and e4m3 Q.K) and e4m3 Q.K alone and with token-mode
+              P.V, head mode also at FLUX's 24 x 4608^2, D 128, beside
+              SDPA and the bf16-P.V kernel; B9 with e4m3 Q.K at FLUX's
+              P = 1 block.  Then B7 against B8 at 32, 64 and 128 rows
               on four shapes: dequant_mm.I8_BLOCKDIAG_MAX_ROWS must equal
               the largest row count at which B8 is the faster on all.
               Prints one {"kernels": [...]} line for the kernels of the
@@ -144,6 +153,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               (grouped and row modes), its grouped GEMV, B3 with the
               additive mask and B3 bf16 must launch; the images finite,
               (1, 1024, 1024, 3).
+4u. unet    - the SD UNet at full width and depth, random weights from
+              seeded generators, through ``sd_generate`` (DDIM,
+              classifier-free guidance 7.5, 77 text tokens, the SD VAE):
+              SD1.5 int8 weight-only with quantized convolutions at
+              512x512, 2 requests x 4 steps (B2 tiles and GEMV, B3 int8
+              Q.K at 4096 tokens); SDXL int8 with the quantized matmul on
+              the linears and the im2col convolutions at 1024x1024,
+              added conditions of 2816, 1 x 4 (B1 + B4, B2's GEMV, B3
+              int8 Q.K and bf16); the SD1.5 model with fp8 e4m3 Q.K and
+              head-mode int8 P.V, 1 x 2 (the cross-attention on head
+              mode's XLA branch).  Seconds per image split into the UNet
+              steps and the VAE, peak memory, launches per UNet forward
+              by kernel and mode, the XLA attention's calls a forward;
+              then one SDXL DDIM step traced (phase 6) and the UNet slice
+              (phase 5).
 4i. files   - model files, written into a temporary directory (free disk
               checked first; removed at the end) and read on the card:
               FLUX.1-dev at full width cut to 2 + 4 blocks (seeded bf16
@@ -177,16 +201,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               + 2 single blocks (loss and every weight gradient of one
               step), and the text-to-image pipeline cut to 2 T5 and 2 CLIP
               layers and 1 + 2 DiT blocks with the whole VAE (2 steps at
-              512x512), and the ring at P = 2 on (1, 24, 2304, 128),
+              512x512), and the ring at P = 2 on (1, 24, 2304, 128), and
+              SD1.5 at full width cut to one resnet a level (one forward
+              at 32x32 latents, fp8 Q.K and head-mode P.V),
               through the kernels against the all-plain path, both on the
               card (the check swaps each wrapper for its plain version for
               the reference run and verifies no kernel launched in it),
               each with its own limit.
 6. profile  - one Euler step of the full int8, uint4 weight-only, uint4
               quantized-matmul, R1 and R2 FLUX models, one prefill and one
-              decode step of the int8-KV Llama-3-8B, and one text-to-image
-              request, traced with torch.profiler: device time by kernel
-              group, idle share.
+              decode step of the int8-KV Llama-3-8B, one text-to-image
+              request and one SDXL DDIM step (two UNet forwards at
+              1024x1024), traced with torch.profiler: device time by
+              kernel group, idle share.
 7. faults   - broken copies of the kernel sources (FAULTS: a skipped KV
               tile, a missing rescale, B4 dropping its last K stage and
               its N tail, B8 ignoring the second field plane, a short warp
@@ -221,7 +248,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               without its division fallback, B4 nn with a byte lane of its
               transpose swapped, the last slice of a split contraction
               dropped, its split counters left set after a call and the M
-              tail dropped), built with the real ones;
+              tail dropped, B3's head mode without its log2 127 shift,
+              and its e4m3 Q.K taking the next key's scale), built with
+              the real ones;
               for each in turn phase 3's rows of the kernels built from
               the broken source and phase 5's slice of its path rerun.
               Phase 3 must fail for the broken kernel; phase 5's readings
@@ -274,9 +303,16 @@ def check(ok: bool, what: str):
 
 
 def bound_ms(bytes_moved: float, ops: float = 0.0, kind: str = "bf16"):
+    return bound_mixed_ms(bytes_moved, (ops, kind))
+
+
+def bound_mixed_ms(bytes_moved: float, *terms):
+    """(the least ms the card could take, "bytes" or "operations"): the
+    bytes over the memory rate, or ``terms`` (operations, kind) each at
+    its type's peak, summed, whichever is larger."""
     hbm_bps, peak = peaks()
     t_bytes = bytes_moved / hbm_bps
-    t_ops = ops / peak[kind] if ops else 0.0
+    t_ops = sum(ops / peak[kind] for ops, kind in terms)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -475,11 +511,13 @@ def device_ms(torch, fn, symbol, reps: int = 5, seen=None):
 # phase 3: kernels against their plain versions at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def kernel_phase(torch, dev, timed: bool = True, only=None):
+def kernel_phase(torch, dev, timed: bool = True, only=None, count=None):
     """Each kernel against its plain version; with ``timed`` False only the
     comparison runs (the times are None).  ``only`` (a set of csrc source
     names) keeps the rows of the kernels built from those sources (the
-    fault phase's rerun of one broken source)."""
+    fault phase's rerun of one broken source); ``count`` (the fault's
+    count key) keeps, of the rows of B3's head mode and e4m3 Q.K and of
+    the UNet shapes, those of that key (``t.fresh``)."""
     import torch.nn.functional as F
     from sdnq_tpu_torch.kernels import attention as ka
     from sdnq_tpu_torch.kernels import dequant_mm as kd
@@ -498,6 +536,12 @@ def kernel_phase(torch, dev, timed: bool = True, only=None):
         return only is None or any(x in only for x in sources)
     t.timed = timed  # for the row functions given ``t``
     t.runs = runs
+    # one call of a slow plain version, timed
+    t.once = (lambda fn: time_ms(fn, reps=1, warmup=0)) if timed else (
+        lambda fn: None)
+    # the rows of B3's head mode and e4m3 Q.K and of the UNet's shapes run
+    # in the default run, and in the fault phase for faults of their keys
+    t.fresh = lambda *keys: count is None or count in keys
 
     def record(name, route, source, replaces, err, tol, kernel, plain_ms,
                bnd, library_ms, shape, on_path=True, path="int8",
@@ -773,7 +817,7 @@ def kernel_phase(torch, dev, timed: bool = True, only=None):
     # limit is two ulps of the largest output (2^-6 of it): with 4608 keys
     # the outputs are small (about 0.1), so a limit tied to |v| would pass
     # a kernel that dropped a whole KV tile.
-    if runs("flash_attn"):
+    if runs("flash_attn", "flash_attn_e4m3"):
         def attn_tol(want):
             return 2 ** -6 * float(want.float().abs().max())
 
@@ -790,7 +834,7 @@ def kernel_phase(torch, dev, timed: bool = True, only=None):
             q16, kb[None], v[None], scale=sm))
         got = ka.flash_attention(qb, kb, v)
         want = ka.flash_attention_plain(qb, kb, v)
-        record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
+        record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cuh",
                "sdnq_tpu/kernels/attention.py:67",
                float((got.float() - want.float()).abs().max()), attn_tol(want),
                lambda: ka.flash_attention(qb, kb, v),
@@ -804,7 +848,7 @@ def kernel_phase(torch, dev, timed: bool = True, only=None):
         kss = kss[..., 0]
         got = ka.flash_attention(qq, kq, v, qs, kss)
         want = ka.flash_attention_plain(qq, kq, v, qs, kss)
-        record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
+        record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cuh",
                "sdnq_tpu/kernels/attention.py:67",
                float((got.float() - want.float()).abs().max()), attn_tol(want),
                lambda: ka.flash_attention(qq, kq, v, qs, kss),
@@ -829,8 +873,9 @@ def kernel_phase(torch, dev, timed: bool = True, only=None):
     # P block of 512 keys, two per row), so they agree to fp32 rounding:
     # 2^-10 of the row's largest output; the bf16 modes round P to bf16
     # against other maxima: 2^-6 of it.
-    if runs("flash_attn"):
+    if runs("flash_attn", "flash_attn_e4m3"):
         llm_attention_rows(torch, dev, g, t, record)
+        unet_attention_rows(torch, dev, g, t, record)
     # B10 and B1's nn / colscale modes at the training step's shapes
     train_kernel_rows(torch, dev, g, t, record)
     # B2's grouped and row modes and B3's additive mask at the shapes of
@@ -845,7 +890,7 @@ def kernel_phase(torch, dev, timed: bool = True, only=None):
     if runs("quantize_rows", "scaled_mm"):
         stacked_and_bench_rows(torch, dev, g, t, record)
     # B9 at the block shapes of the rings of phase 4r
-    if runs("flash_attn"):
+    if runs("flash_attn", "flash_attn_e4m3"):
         ring_kernel_rows(torch, dev, g, t, record)
 
 
@@ -1032,7 +1077,7 @@ def llm_attention_rows(torch, dev, g, t, record):
     from sdnq_tpu_torch.kernels import attention as ka
     from sdnq_tpu_torch.quant.core import quantize_int_mm
 
-    src, rep = ("sdnq_tpu_torch/csrc/flash_attn.cu",
+    src, rep = ("sdnq_tpu_torch/csrc/flash_attn.cuh",
                 "sdnq_tpu/kernels/attention.py:67")
     b, h, kh, d, n, kn = 4, 32, 8, 128, 896, 1024
     sm = d ** -0.5
@@ -1142,6 +1187,130 @@ def llm_attention_rows(torch, dev, g, t, record):
            count="flash_attention:int8_pv", reading=row,
            **bf16_pv_beside(torch, t, lambda: ka.flash_attention(
                qq, kq, vb, qs[..., 0], ks, heads=h, causal=True)))
+
+
+# B3's head-mode int8 P.V and e4m3 Q.K at the UNet's self-attention shapes
+# (BH, N, D 64; N = KN): 5 x 4096 (SD1.5 level 0 at 512x512), 10 x 4096
+# (SDXL level 1 at 1024x1024), 20 x 1024 (SDXL level 2); head mode also at
+# FLUX's 24 x 4608, D 128.
+UNET_ATTN = ((5, 4096, 64, "SD1.5 L0"), (10, 4096, 64, "SDXL L1"),
+             (20, 1024, 64, "SDXL L2"))
+
+
+def attn_mode_operands(torch, q, k, v, qk, pv):
+    """flash_attention's operands from (BH, N, D) fp32 q, k, v: q, k bf16
+    (q pre-scaled by sm_scale log2 e) or per-token int8 / e4m3 with
+    q_scale carrying sm_scale log2 e; v bf16 (``pv`` "bf16"), per-token
+    int8 ("token") or int8 of one scale a head ("head")."""
+    from sdnq_tpu_torch.kernels import attention as ka
+    from sdnq_tpu_torch.quant.core import quantize_fp_mm, quantize_int_mm
+    sm = q.shape[-1] ** -0.5
+    if qk == "bf16":
+        args = [(q * (sm * ka.LOG2E)).bfloat16(), k.bfloat16(), None]
+    else:
+        quant = quantize_int_mm if qk == "int8" else quantize_fp_mm
+        (qq, qs), (kq, ks) = quant(q), quant(k)
+        args = [qq, kq, None, (qs[..., 0] * sm) * ka.LOG2E, ks[..., 0]]
+    kw = {}
+    if pv == "bf16":
+        args[2] = v.bfloat16()
+    elif pv == "token":
+        vq, vs = quantize_int_mm(v)
+        args[2] = vq
+        kw = dict(v_scale=vs[..., 0], p_block=ka.attn_p_block(k.shape[1]))
+    else:
+        vs = v.abs().amax((1, 2)).clamp_min(1e-20) / 127.0
+        args[2] = torch.round(v / vs[:, None, None]).to(torch.int8)
+        kw = dict(v_head_scale=vs, p_block=ka.attn_p_block(k.shape[1]))
+    return args, kw
+
+
+def unet_attention_rows(torch, dev, g, t, record):
+    """Phase 3 rows of B3 at the UNet's self-attention shapes: the modes
+    its paths run (int8 Q.K with bf16 P.V at 4096 tokens, bf16 at 1024;
+    e4m3 Q.K with head-mode P.V at 5 x 4096, the fp8 recipe), and head mode
+    and e4m3 Q.K (alone, with token-mode and head-mode P.V) off the paths,
+    head mode also at FLUX's joint attention.  Each row in fp32 against its
+    plain version, each row of the output over its own largest value: int8
+    P.V (head and token mode) quantizes P at the same points on both
+    sides, 2^-10 with int8 Q.K^T (its scores bit-equal); e4m3 Q.K^T's
+    scores are the kernel's fp32 sums of exact products in another order
+    than the plain version's, so a P code at a rounding tie may move by
+    one step (sound readings up to 2.97e-3 on the H100): 2^-7; bf16 P is
+    rounded against other maxima, 2^-6.  The bound takes Q.K^T and P.V
+    each at their operand type's peak."""
+    import torch.nn.functional as F
+    from sdnq_tpu_torch.kernels import attention as ka
+
+    src, rep = ("sdnq_tpu_torch/csrc/flash_attn.cuh",
+                "sdnq_tpu/kernels/attention.py:67")
+    kinds = {"bf16": "bf16", "int8": "int8", "e4m3": "fp8", "token": "int8",
+             "head": "int8"}
+
+    def row(label, q, k, v, qk, pv, path, count, on_path=False):
+        bh, n, d = q.shape
+        kn = k.shape[1]
+        args, kw = attn_mode_operands(torch, q, k, v, qk, pv)
+        got = ka.flash_attention(*args, out_dtype=torch.float32, **kw)
+        want = ka.flash_attention_plain(*args, out_dtype=torch.float32,
+                                        **kw)
+        err = (got - want).abs()
+        reading = float((err.amax(-1) / want.abs().amax(-1)).max())
+        del got, want
+        qb, vb = (2 if qk == "bf16" else 1), (2 if pv == "bf16" else 1)
+        moved = (bh * n * d * qb + bh * kn * d * (qb + vb)
+                 + (bh * (n + kn) * 4 if qk != "bf16" else 0)
+                 + (bh * kn * 4 if pv == "token" else 0)
+                 + bh * n * d * 2)
+        ops = 2 * bh * n * kn * d
+        bnd = bound_mixed_ms(moved, (ops, kinds[qk]), (ops, kinds[pv]))
+        q16, k16, v16 = (x.bfloat16()[None] for x in (q, k, v))
+        sdpa = (lambda: F.scaled_dot_product_attention(q16, k16, v16,
+                                                       scale=d ** -0.5))
+        beside = {}
+        if pv != "bf16":  # the bf16-P.V kernel at the same shape
+            a16, _ = attn_mode_operands(torch, q, k, v, qk, "bf16")
+            beside = bf16_pv_beside(torch, t, lambda: ka.flash_attention(
+                *a16))
+        tol = (2 ** -6 if pv == "bf16" else 2 ** -7 if qk == "e4m3"
+               else 2 ** -10)
+        record("flash_attention", "cuda", src, rep, float(err.max()), tol,
+               lambda: ka.flash_attention(*args, **kw),
+               t.once(lambda: ka.flash_attention_plain(*args, **kw)), bnd,
+               t(sdpa), f"BH{bh} N{n} KN{kn} D{d} {qk}-QK {pv}-P.V "
+               f"({label})", on_path=on_path, path=path, count=count,
+               reading=reading, library_fn=sdpa, **beside)
+
+    for bh, n, d, label in UNET_ATTN:
+        q, k, v = (torch.randn(bh, n, d, device=dev, generator=g)
+                   for _ in range(3))
+        if t.fresh():   # the modes the paths run at these shapes
+            if n == 4096:
+                path = "sd15" if bh == 5 else "sdxl"
+                row(label, q, k, v, "int8", "bf16", path,
+                    "flash_attention:int8_qk", on_path=True)
+            else:
+                row(label, q, k, v, "bf16", "bf16", "sdxl",
+                    "flash_attention:bf16_qk", on_path=True)
+        if t.fresh("flash_attention:head_pv"):
+            row(label, q, k, v, "int8", "head", "sd15_fp8",
+                "flash_attention:head_pv")
+            row(label, q, k, v, "e4m3", "head", "sd15_fp8",
+                "flash_attention:head_pv", on_path=bh == 5)
+        if t.fresh("flash_attention:e4m3_qk") and bh == 5:
+            row(label, q, k, v, "e4m3", "bf16", "sd15_fp8",
+                "flash_attention:e4m3_qk")
+            row(label, q, k, v, "e4m3", "token", "sd15_fp8",
+                "flash_attention:e4m3_qk")
+        del q, k, v
+    if t.fresh("flash_attention:head_pv"):
+        b, h, n, d = FLUX_ATTN
+        q, k, v = (torch.randn(b * h, n, d, device=dev, generator=g)
+                   for _ in range(3))
+        row("FLUX", q, k, v, "int8", "head", "int8",
+            "flash_attention:head_pv")
+        del q, k, v
+    torch.cuda.empty_cache()
 
 
 def bf16_pv_beside(torch, t, fn):
@@ -1572,7 +1741,7 @@ def pipeline_kernel_rows(torch, dev, g, t, record):
     # (32, 64) table gathered by the bucket table (its values about 2, so a
     # fault in the mask moves the softmax).  Held per row against the row's
     # largest output: 2^-6 (P rounded to bf16 against a running max).
-    if runs("flash_attn"):
+    if runs("flash_attn", "flash_attn_e4m3"):
         from sdnq_tpu_torch.models.text_encoder import _rel_bucket
         h, n, d = 64, 512, 64
         pos = torch.arange(n, device=dev)
@@ -1592,7 +1761,7 @@ def pipeline_kernel_rows(torch, dev, g, t, record):
         q4, k4, v4 = (a.bfloat16()[None] for a in (q, kk, v))
         sdpa = (lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias,
                                                        scale=1.0))
-        record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cu",
+        record("flash_attention", "cuda", "sdnq_tpu_torch/csrc/flash_attn.cuh",
                "sdnq_tpu/kernels/attention.py:67", float(err.max()), 2 ** -6,
                lambda: ka.flash_attention(qb, kb, vb, **kw),
                t(lambda: ka.flash_attention_plain(qb, kb, vb, **kw), reps=3),
@@ -1996,7 +2165,13 @@ RING_P = (2, 4, 8)
 # in int8 (the same exact products times the same fp32 scales), 4.6e-7 in
 # bf16 (fp32 sums in another order); l 2.9e-6.
 B9_TOL = {"bf16_p": {"out": 6e-3, "m": 1e-6, "l": 6e-6},
-          "token": {"out": 1e-6, "m": 1e-6, "l": 6e-6}}
+          "int8_token": {"out": 1e-6, "m": 1e-6, "l": 6e-6},
+          # e4m3 Q.K: the kernel's fp32 sums of exact products in another
+          # order than the plain version's, so a P code at a rounding tie
+          # may move by one step
+          # (sound readings on the H100 at FLUX's P = 1 block: out 2.41e-3,
+          # m 1.4e-7, l 1.2e-6)
+          "e4m3_token": {"out": 6e-3, "m": 1e-6, "l": 6e-6}}
 # Limits of the ring checks of phase 4r, the largest error over the largest
 # output: "f64", against float64 softmax attention; "b3", against the
 # single-device quantized_attention (B3) in the same mode; "p1", virtual P
@@ -2037,14 +2212,15 @@ def attention_f64(torch, q, k, v, causal=False, heads=4):
 
 def b9_operands(torch, q, k, v, mode):
     """The ring's block operands from (BH, N, D) fp32 chunks: per-token
-    int8 q, k (q_scale carrying sm_scale) or bf16; v bf16, or per-token
-    int8 for token-mode P·V."""
-    from sdnq_tpu_torch.quant.core import quantize_int_mm
+    int8 (or, "e4m3_token", e4m3) q, k (q_scale carrying sm_scale) or bf16;
+    v bf16, or per-token int8 for token-mode P·V."""
+    from sdnq_tpu_torch.quant.core import quantize_fp_mm, quantize_int_mm
     sm = q.shape[-1] ** -0.5
-    quant, token = mode != "bf16", mode == "int8_token"
+    quant, token = mode != "bf16", mode.endswith("_token")
     if quant:
-        qq, qs = quantize_int_mm(q)
-        kq, ks = quantize_int_mm(k)
+        qfn = quantize_fp_mm if mode.startswith("e4m3") else quantize_int_mm
+        qq, qs = qfn(q)
+        kq, ks = qfn(k)
         args = [qq, kq, None, qs[..., 0] * sm, ks[..., 0], None]
     else:
         args = [q.bfloat16(), k.bfloat16(), None, None, None, None]
@@ -2079,17 +2255,17 @@ def ring_kernel_rows(torch, dev, g, t, record):
     import torch.nn.functional as F
     from sdnq_tpu_torch.kernels import attention as ka
 
-    src, rep = ("sdnq_tpu_torch/csrc/flash_attn.cu",
+    src, rep = ("sdnq_tpu_torch/csrc/flash_attn.cuh",
                 "sdnq_tpu/kernels/attention.py:259")
 
-    def row(label, q, k, v, mode, mask=None, library=None):
+    def row(label, q, k, v, mode, mask=None, library=None, **extra):
         args, kw = b9_operands(torch, q, k, v, mode)
         args.append(mask)
         acc, m, l = ka.flash_attention_block(*args, **kw)
         wacc, wm, wl = ka.flash_attention_block_plain(*args, **kw)
         out, want = acc / l, wacc / wl
         got = b9_readings((acc, m, l), (wacc, wm, wl))
-        tol = B9_TOL["token" if mode == "int8_token" else "bf16_p"]
+        tol = B9_TOL.get(mode, B9_TOL["bf16_p"])
         log(f"B9 {label} {mode}: readings " + json.dumps(got)
             + " limits " + json.dumps(tol))
         bh, n, d = q.shape
@@ -2098,19 +2274,21 @@ def ring_kernel_rows(torch, dev, g, t, record):
                 else int(mask.sum()) * (bh // mask.shape[0]))
         ops = 4 * d * kept   # Q.K^T and P.V where a key is kept
         q_b = 1 if mode != "bf16" else 2
-        v_b = 1 if mode == "int8_token" else 2
+        v_b = 1 if mode.endswith("_token") else 2
         moved = (bh * n * d * q_b + bh * kn * d * (q_b + v_b)
                  + (bh * n + bh * kn) * 4 * (mode != "bf16")
-                 + bh * kn * 4 * (mode == "int8_token")
+                 + bh * kn * 4 * mode.endswith("_token")
                  + bh * n * (d + 2) * 4
                  + (0 if mask is None else mask.numel()))
         if mode == "int8":   # Q.K^T at the int8 rate, P.V at the bf16 rate
             bnd = bound_ms(moved, 0.75 * ops, "bf16")
+        elif mode == "e4m3_token":   # Q.K^T at the fp8 rate, P.V at int8's
+            bnd = bound_mixed_ms(moved, (ops / 2, "fp8"), (ops / 2, "int8"))
         else:
             bnd = bound_ms(moved, ops, "int8" if mode != "bf16" else "bf16")
         beside = {}
-        if mode == "int8_token":  # the bf16-P.V kernel at the same shape
-            a16, kw16 = b9_operands(torch, q, k, v, "int8")
+        if mode.endswith("_token"):  # the bf16-P.V kernel at the same shape
+            a16, kw16 = b9_operands(torch, q, k, v, mode[:4])
             a16.append(mask)
             beside = bf16_pv_beside(
                 torch, t, lambda: ka.flash_attention_block(*a16, **kw16))
@@ -2126,7 +2304,8 @@ def ring_kernel_rows(torch, dev, g, t, record):
                + f" ({label})", path="ring",
                reading=max(got[key] / tol[key] for key in got),
                what="largest reading (out, m, l) over its limit",
-               readings=got, limits=tol, library_fn=library, **beside)
+               readings=got, limits=tol, library_fn=library,
+               **beside, **extra)
 
     b, h, n, d = FLUX_ATTN
     q, k, v = (torch.randn(b * h, n, d, device=dev, generator=g)
@@ -2134,6 +2313,9 @@ def ring_kernel_rows(torch, dev, g, t, record):
     sm = d ** -0.5
     q16, k16, v16 = (x.bfloat16()[None] for x in (q, k, v))
     sdpa = (lambda: F.scaled_dot_product_attention(q16, k16, v16, scale=sm))
+    if t.fresh("flash_attention:e4m3_qk"):  # off the ring's modes
+        row("FLUX P1", q, k, v, "e4m3_token", library=sdpa, on_path=False,
+            count="flash_attention_block:e4m3_qk")
     for mode in RING_MODES:
         row("FLUX P1", q, k, v, mode,
             library=sdpa if mode == "bf16" else None)
@@ -4097,6 +4279,292 @@ def io_phase(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4u: the SD1.5 / SDXL UNet, DDIM and sd_generate
+# ---------------------------------------------------------------------------
+
+UNET_SOURCES = ("quantize_rows", "scaled_mm", "dequant_gemv", "decode_weight",
+                "wgmma_mm", "flash_attn", "flash_attn_e4m3")
+UNET_CTX = 77                 # CLIP's text tokens: cross-attention keys
+UNET_FP8_ATTN = {"matmul_dtype": "fp8", "pv_matmul_dtype": "int8"}
+# (label, model, side, requests, steps, attn_config, required kernel modes
+# (a key, or a tuple of keys of which one must count)).  "sd15": BASELINE
+# config 1, int8 weight-only (B2 on the linears; the convolutions' int8
+# weights dequantized for cuDNN, as in JAX); "sdxl": BASELINE config 2,
+# int8 with the quantized matmul on the linears and the im2col convolutions
+# (B1 + B4); "sd15_fp8": the SD1.5 model with fp8 e4m3 Q.K and head-mode
+# int8 P.V.  "auto" attention takes int8 Q.K at 4096 tokens (D 64) and bf16
+# below.
+UNET_RECIPES = (
+    ("sd15", "sd15", 512, 2, 4, None,
+     ("dequant_mm", "dequant_gemv", "flash_attention:int8_qk")),
+    ("sdxl", "sdxl", 1024, 1, 4, None,
+     ("quantize_rows", "scaled_gemm", "dequant_gemv",
+      "flash_attention:int8_qk", "flash_attention:bf16_qk")),
+    ("sd15_fp8", "sd15", 512, 1, 2, UNET_FP8_ATTN,
+     ("flash_attention:head_pv", "flash_attention:e4m3_qk")),
+)
+# Limit of the UNet slice (phase 5): the kernel path against the all-plain
+# path on the card, the largest error over the largest output, about twice
+# its sound reading on the H100, 2.13e-2 (1.76e-2 of it with "auto"
+# attention: B2's bf16 rounding over the slice's 22 resnets and 7
+# transformers; the rest e4m3 Q.K's and head mode's P codes at ties).  The
+# planted e4m3 fault reads 5.87e-2 (the head-mode fault breaks the bf16 /
+# int8 library, which the slice's e4m3 attention does not use).
+UNET_SLICE_TOL = {"max": 4.5e-2}
+
+
+def unet_recipe(label):
+    """The QuantConfig and skip-key architecture of a UNet model."""
+    from sdnq_tpu_torch import QuantConfig
+    if label == "sd15":
+        return QuantConfig(weights_dtype="int8", quant_conv=True), "SD15UNet"
+    return QuantConfig(weights_dtype="int8", quant_conv=True,
+                       use_quantized_matmul=True,
+                       use_quantized_matmul_conv=True), "SDXLUNet"
+
+
+def build_unet(torch, dev, cfg, label, seed=40):
+    """A UNet at full width from a seeded generator in bf16, quantized with
+    its label's recipe; the bf16 weights freed afterwards."""
+    from sdnq_tpu_torch import quantize_model
+    from sdnq_tpu_torch.models import init_unet
+    from sdnq_tpu_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    params = init_unet(cfg, generator=torch.Generator(device=dev).manual_seed(
+        seed), device=dev, dtype=torch.bfloat16)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    qc, arch = unet_recipe(label)
+    qparams, _ = quantize_model(params, qc, arch=arch, device=dev)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"{label}: UNet {cfg.block_out_channels} x {cfg.layers_per_block} "
+        f"({n_params / 1e9:.3f} G parameters) built in {t1 - t0:.1f} s, "
+        f"quantized in {time.perf_counter() - t1:.1f} s to "
+        f"{tree_bytes(qparams) / 2**30:.2f} GiB, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return qparams
+
+
+def unet_inputs(torch, dev, cfg, seed):
+    """Random conditional and unconditional text states (1, 77,
+    cross_attention_dim) and, for SDXL, added conditions (1, 2816)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    text, uncond = (torch.randn(1, UNET_CTX, cfg.cross_attention_dim,
+                                device=dev, generator=g) for _ in range(2))
+    added = (torch.randn(1, cfg.addition_embed_dim, device=dev,
+                         generator=g) if cfg.addition_embed_dim else None)
+    return text, uncond, added
+
+
+@contextlib.contextmanager
+def im2col_counted(counts):
+    """Count the convolutions that take im2col (``counts["im2col"]``) and
+    the B4 launches made inside them (``counts["im2col_scaled_gemm"]``)."""
+    from sdnq_tpu_torch import layers
+    from sdnq_tpu_torch.kernels import scaled_gemm
+    real = layers._qconv_im2col
+
+    def counted(*a, **kw):
+        before = scaled_gemm.launches
+        out = real(*a, **kw)
+        counts["im2col"] += 1
+        counts["im2col_scaled_gemm"] += scaled_gemm.launches - before
+        return out
+    layers._qconv_im2col = counted
+    try:
+        yield
+    finally:
+        layers._qconv_im2col = real
+
+
+def unet_path(torch, dev, params, cfg, vae, vcfg, label, side, requests,
+              steps, attn_config, required):
+    """``sd_generate`` (DDIM, guidance 7.5, 77 text tokens) at side x side:
+    ``requests`` requests of ``steps`` steps with the launch counts zeroed
+    just before and read just after; the VAE timed alone on a latent of the
+    request's shape splits a request into its UNet steps and its VAE.
+    Launches per UNet forward by kernel and mode, and the calls of the XLA
+    attention function (the 77-key cross-attention) per forward.  Every key
+    in ``required`` must have launched, the images must be finite.  Returns
+    the counts."""
+    from sdnq_tpu_torch.kernels import attention as ka
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models import vae_decode
+    from sdnq_tpu_torch.pipeline import sd_generate
+
+    text, uncond, added = unet_inputs(torch, dev, cfg, 50)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ka.attention_xla.calls = ka.attention_xla.head_calls = 0
+    conv = {"im2col": 0, "im2col_scaled_gemm": 0}
+    images, walls = [], []
+    with torch.no_grad(), im2col_counted(conv):
+        for r in range(requests):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            images.append(sd_generate(
+                params, vae, text, uncond, unet_cfg=cfg, vae_cfg=vcfg,
+                steps=steps, height=side, width=side, guidance_scale=7.5,
+                generator=torch.Generator(device=dev).manual_seed(60 + r),
+                added_cond=added, attn_config=attn_config, device=dev))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+    counts = launch_counts()
+    counts.update(conv, attention_xla=ka.attention_xla.calls,
+                  attention_xla_head=ka.attention_xla.head_calls)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lat = torch.randn(1, side // 8, side // 8, cfg.in_channels, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(9))
+    with torch.no_grad():
+        vae_ms = time_ms(lambda: vae_decode(vae, lat, vcfg, device=dev),
+                         reps=2, warmup=1)
+    del lat
+    forwards = 2 * requests * steps
+    for r, wall in enumerate(walls):
+        unet_s = wall - vae_ms / 1e3
+        log(f"{label}: request {r}: {wall:.3f} s per image: UNet "
+            f"{unet_s:.3f} s ({unet_s / steps * 1e3:.1f} ms a DDIM step of "
+            f"2 forwards), VAE {vae_ms:.1f} ms")
+    log(f"{label}: " + json.dumps({
+        "side": side, "latent": side // 8, "requests": requests,
+        "steps": steps, "text_tokens": UNET_CTX,
+        "attn_config": attn_config or "auto",
+        "seconds_per_image": statistics.mean(walls), "vae_ms": vae_ms,
+        "peak_gib": peak,
+        "launches_per_forward": {k: v / forwards for k, v in counts.items()
+                                 if v}}))
+    for name in required:
+        alts = (name,) if isinstance(name, str) else name
+        check(any(counts[a] > 0 for a in alts),
+              f"{label} path launched {' or '.join(alts)}")
+    check(counts["attention_xla"] > 0,
+          f"{label}: the cross-attention took the XLA function "
+          f"({counts['attention_xla'] / forwards:.0f} calls a forward)")
+    if attn_config:
+        check(counts["attention_xla_head"] == counts["attention_xla"],
+              f"{label}: the cross-attention took head mode's XLA branch")
+    if cfg.addition_embed_dim:
+        check(counts["im2col_scaled_gemm"] > 0
+              and counts["scaled_gemm"] > counts["im2col_scaled_gemm"],
+              f"{label}: B4 launched on the linears and on the im2col "
+              f"convolutions ({counts['im2col_scaled_gemm']} of "
+              f"{counts['scaled_gemm']})")
+    for image in images:
+        check(tuple(image.shape) == (1, side, side, 3)
+              and bool(torch.isfinite(image).all()),
+              f"{label} image {tuple(image.shape)} finite")
+    if requests > 1:
+        check(not torch.equal(images[0], images[1]),
+              f"{label}: requests differ by their noise")
+    return counts
+
+
+def unet_profile_phase(torch, dev, params, cfg, label, side):
+    """One DDIM step (two UNet forwards) at side x side, traced."""
+    from sdnq_tpu_torch.models import make_staged_unet_forward
+    from sdnq_tpu_torch.pipeline import DDIMScheduler
+    text, uncond, added = unet_inputs(torch, dev, cfg, 70)
+    lat = torch.randn(1, side // 8, side // 8, cfg.in_channels, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(71))
+    forward = make_staged_unet_forward(cfg)
+    sched = DDIMScheduler()
+    t = torch.full((1,), 801, device=dev)
+
+    @torch.no_grad()
+    def step():
+        eps_c = forward(params, lat, t.float(), text, added, device=dev)
+        eps_u = forward(params, lat, t.float(), uncond, added, device=dev)
+        eps = eps_u + 7.5 * (eps_c - eps_u)
+        return sched.step(eps.float(), t, t - 250, lat)
+    profile_step(torch, f"{label} DDIM step", step)
+
+
+def unet_slice(torch, dev):
+    """SD1.5 at full width cut to one resnet a level (and its transformer),
+    int8 weight-only, for phase 5; with its inputs at 32x32 latents."""
+    import dataclasses
+    from sdnq_tpu_torch.models import SD15_CONFIG
+    cfg = dataclasses.replace(SD15_CONFIG, layers_per_block=1)
+    params = build_unet(torch, dev, cfg, "sd15", seed=41)
+    text, _, _ = unet_inputs(torch, dev, cfg, 80)
+    g = torch.Generator(device=dev).manual_seed(81)
+    return dict(params=params, cfg=cfg, text=text,
+                x=torch.randn(1, 32, 32, 4, device=dev, generator=g),
+                t=torch.full((1,), 601.0, device=dev))
+
+
+def unet_slice_phase(torch, dev, sliced) -> dict:
+    """The UNet slice, one forward with fp8 Q.K and head-mode P.V, through
+    the kernels against the all-plain path, both on the card; returns
+    {"max": the largest error over the largest output}."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models import unet_forward
+
+    def run():
+        with torch.no_grad():
+            return unet_forward(sliced["params"], sliced["x"], sliced["t"],
+                                sliced["text"], sliced["cfg"],
+                                attn_config=UNET_FP8_ATTN,
+                                device=dev).float()
+    reset_launch_counts()
+    out = run()
+    launched = launch_counts()
+    reset_launch_counts()
+    with plain_versions():
+        ref = run()
+    plain = launch_counts()
+    check(launched["flash_attention:head_pv"] > 0
+          and launched["flash_attention:e4m3_qk"] > 0,
+          "slice unet: the kernel path ran head mode and e4m3 Q.K")
+    check(not any(plain.values()),
+          "slice unet: the plain path launched no kernel " + json.dumps(plain))
+    rel = float((out - ref).abs().max() / ref.abs().max())
+    log("slice unet: SD1.5 at full width, one resnet a level, 32x32 "
+        f"latents, {UNET_CTX} text tokens, fp8 Q.K and head-mode P.V, "
+        "kernels against plain versions")
+    check(rel <= UNET_SLICE_TOL["max"] and bool(torch.isfinite(out).all()),
+          f"slice unet: kernel path vs plain path rel err {rel:.3e} <= "
+          f"{UNET_SLICE_TOL['max']:.1e}")
+    return {"max": rel}
+
+
+def unet_phase(torch, dev, traced: bool = True):
+    """Phase 4u: SD1.5 (int8 weight-only) and SDXL (int8 with the quantized
+    matmul) at full width and depth, random weights from seeded generators,
+    the SD VAE in bf16 weights; the recipes of UNET_RECIPES through
+    ``sd_generate``; the SDXL DDIM step traced (phase 6) where ``traced``.
+    Returns (counts by recipe, the phase-5 slice)."""
+    from sdnq_tpu_torch.models import (
+        SD15_CONFIG, SD_VAE_CONFIG, SDXL_CONFIG, init_vae)
+    t_start = time.perf_counter()
+    cfgs = {"sd15": SD15_CONFIG, "sdxl": SDXL_CONFIG}
+    vae = init_vae(SD_VAE_CONFIG, generator=torch.Generator(
+        device=dev).manual_seed(42), device=dev, dtype=torch.bfloat16)
+    counts = {}
+    for model in ("sd15", "sdxl"):
+        params = build_unet(torch, dev, cfgs[model], model)
+        for label, m, side, requests, steps, attn, required in UNET_RECIPES:
+            if m == model:
+                counts[label] = unet_path(
+                    torch, dev, params, cfgs[model], vae, SD_VAE_CONFIG,
+                    label, side, requests, steps, attn, required)
+        if model == "sdxl" and traced:
+            unet_profile_phase(torch, dev, params, cfgs[model], "sdxl",
+                               1024)
+        del params
+        torch.cuda.empty_cache()
+    del vae
+    sliced = unet_slice(torch, dev)
+    unet_slice_phase(torch, dev, sliced)
+    log(f"unet: phase 4u took {time.perf_counter() - t_start:.1f} s")
+    return counts, sliced
+
+
+# ---------------------------------------------------------------------------
 # phase 6: where one denoise step spends its device time
 # ---------------------------------------------------------------------------
 
@@ -4117,20 +4585,23 @@ _GROUPS = (
     ("GEMM, row epilogue (B2 row mode)", ("wgmma_mm_kernel<1",)),
     ("GEMM, group fold (B5)", ("wgmma_mm_kernel<2", "wgmma_mm_kernel<3")),
     ("GEMM, int8 group fold (B7)", ("wgmma_i8_fold_kernel",)),
-    ("B3 / B9 token mode: V^T copy", ("flash_attn_vt_kernel",)),
-    ("B9 flash_attention_block (bf16 / int8 P.V, token-mode int8 P.V)",
-     ("128, false, false, true>", "128, true, false, true>",
-      "128, false, true, true>", "128, true, true, true>")),
+    ("B3 / B9 int8 P.V: V^T copy", ("flash_attn_vt_kernel",)),
+    ("B9 flash_attention_block (bf16 / int8 / e4m3 Q.K; bf16 or token-mode "
+     "int8 P.V)",
+     tuple(f"flash_attn_{kern}_kernel<128, {qk}, {m}, true>"
+           for kern in ("wgmma", "tok") for qk in (0, 1, 2)
+           for m in ("false", "true"))),
     ("B3 flash_attention", ("flash_attn_wgmma_kernel",)),
     ("B6 blockdiag_mm general (multi-plane, minifloat)",
      tuple(f"blockdiag_mm_kernel<{b}, true" for b in range(1, 8))
      + tuple(f"blockdiag_mm_kernel<{b}, false" for b in (3, 5, 6, 7))),
     ("B6 blockdiag_mm", ("blockdiag_mm_kernel",)),
-    ("B3 flash_attention, token-mode int8 P.V", ("flash_attn_tok_kernel",)),
+    ("B3 flash_attention, int8 P.V (token and head mode)",
+     ("flash_attn_tok_kernel",)),
     ("B8 blockdiag_i8_mm", ("blockdiag_i8_mm_kernel",)),
     ("B10 scaled_mm_tn, TMA + wgmma", ("scaled_mm_tn_wgmma_kernel",)),
-    ("fp64 products (attention_xla: decode, training backward)",
-     ("f64", "dgemm", "Dgemm")),
+    ("fp64 products (attention_xla: decode, the UNet's cross-attention, "
+     "training backward)", ("f64", "dgemm", "Dgemm")),
     ("softmax (attention_xla, the VAE's attention)", ("softmax",)),
     ("cuDNN convolutions (the VAE)", ("fprop", "convolve", "implicit_gemm",
                                       "winograd", "cudnn")),
@@ -4179,8 +4650,9 @@ def llm_profile_phase(torch, dev, params, cfg):
     profile_step(torch, "llm_int8kv decode", decode)
 
 
-def profile_step(torch, label, step, warm: int = 3, after: int = 3):
-    """Trace one ``step`` with torch.profiler after ``warm`` untraced ones;
+def profile_step(torch, label, step, warm: int = 1, after: int = 2):
+    """Trace one ``step`` with torch.profiler after ``warm`` untraced ones
+    (one: every path has run before it is traced);
     print the step's host-clock time, device busy time (kernel times summed
     on the one stream), the idle share, device time by kernel group, and
     the host-clock times of ``after`` untraced steps."""
@@ -4237,8 +4709,9 @@ def profile_step(torch, label, step, warm: int = 3, after: int = 3):
 
 # (tag, source, kernel, slice, [(text, broken text)]): each a bug a kernel
 # could ship with, the phase 3 count key of the rows it must fail, and the
-# slice check that runs it.  An edit (file, text, broken text) breaks
-# another file of the source's build (common.cuh), for that build alone.
+# slice check that runs it.  An edit applies to the source's kernel file
+# (KERNEL_FILES); one of (file, text, broken text) breaks another file of
+# the source's build (common.cuh), for that build alone.
 # The broken sources are built beside the real ones, swapped in one at a
 # time, and phases 3 and 5 rerun against them.
 FAULTS = (
@@ -4429,6 +4902,14 @@ FAULTS = (
      "flash_attention", "int8",
      [("(a, bh, r0, r1, t4, o, l0, l1);",
        "(a, bh, r0 - 64 * wg, r1 - 64 * wg, t4, o, l0, l1);")]),
+    ("attn_head_mode_drops_the_log2_127_shift", "flash_attn",
+     "flash_attention:head_pv", "unet",
+     [("__fsub_rn(mn0, kLog2_127)", "mn0"),
+      ("__fsub_rn(mn1, kLog2_127)", "mn1")]),
+    ("attn_e4m3_takes_the_next_keys_scale", "flash_attn_e4m3",
+     "flash_attention:e4m3_qk", "unet",
+     [("(x, i < 2 ? qs0 : qs1), sks[c]);",
+       "(x, i < 2 ? qs0 : qs1), sks[c ^ 1]);")]),
 )
 
 
@@ -4437,7 +4918,8 @@ FAULTS = (
 # a flag, where the sound build traps after 2^36: a broken barrier then
 # ends in a wrong result that phase 3 reads, not in a failed launch that
 # ends the process.
-WATCHED = ("wgmma_mm", "flash_attn", "scaled_mm", "scaled_mm_tn", "dequant_gemv")
+WATCHED = ("wgmma_mm", "flash_attn", "flash_attn_e4m3", "scaled_mm",
+           "scaled_mm_tn", "dequant_gemv")
 WGMMA_WATCHDOG = (
     ("hopper.cuh", "// ---- mbarriers",
      "__device__ int g_watchdog;\n// ---- mbarriers"),
@@ -4453,6 +4935,22 @@ extern "C" int sdnq_wgmma_watchdog(int* fired) {
   return static_cast<int>(err);
 }
 """
+
+
+# The file a fault's (text, broken text) edits apply to: its source, or
+# for the two flash attention libraries the kernels they share.
+KERNEL_FILES = {"flash_attn": "flash_attn.cuh",
+                "flash_attn_e4m3": "flash_attn.cuh"}
+
+
+def build_edits(src, edits) -> list:
+    """A fault build's edits as (file, text, broken text): the fault's own,
+    then the barrier watchdog where the source is WATCHED."""
+    home = KERNEL_FILES.get(src, f"{src}.cu")
+    out = [edit if len(edit) == 3 else (home, *edit) for edit in edits]
+    if src in WATCHED:
+        out += WGMMA_WATCHDOG
+    return out
 
 
 def watchdog_fired(lib_path) -> bool:
@@ -4472,17 +4970,15 @@ def start_fault_builds():
     library path)}."""
     from sdnq_tpu_torch.kernels import _build
     csrc = ROOT / "sdnq_tpu_torch" / "csrc"
-    entries = [(tag, src, edits) for tag, src, _, _, edits in FAULTS]
+    entries = [(tag, src, build_edits(src, edits))
+               for tag, src, _, _, edits in FAULTS]
     texts = {}
     for tag, src, edits in entries:  # every edit applies, or none builds
         files = {f: (csrc / f).read_text() for f in (f"{src}.cu",
                                                      *_build._HEADERS)}
         if src in WATCHED:
-            edits = list(edits) + list(WGMMA_WATCHDOG)
             files[f"{src}.cu"] += WGMMA_WATCHDOG_READER
-        for edit in edits:
-            name, old, new = edit if len(edit) == 3 else (f"{src}.cu",
-                                                          *edit)
+        for name, old, new in edits:
             if old not in files[name]:
                 raise RuntimeError(f"fault {tag}: {old!r} not in {name}")
             files[name] = files[name].replace(old, new)
@@ -4533,7 +5029,7 @@ def fault_phase(torch, dev, slices, procs):
     all_tol = {**{k: {"max": v} for k, v in SLICE_TOL.items()},
                **LLM_SLICE_TOL, "qlinear_b8": {"max": 2 ** -7},
                "train": TRAIN_SLICE_TOL, "pipeline": PIPE_SLICE_TOL,
-               "ring": {"max": RING_SLICE_TOL}}
+               "ring": {"max": RING_SLICE_TOL}, "unet": UNET_SLICE_TOL}
     for tag, (proc, _) in procs.items():
         if proc.wait() != 0:
             check(False, f"fault {tag}: broken source built")
@@ -4544,7 +5040,8 @@ def fault_phase(torch, dev, slices, procs):
     for tag, src, kernel, label, _ in FAULTS:
         sound = list(FAILURES)
         with library_swapped(src, procs[tag][1]):
-            rows = kernel_phase(torch, dev, timed=False, only={src})
+            rows = kernel_phase(torch, dev, timed=False, only={src},
+                                count=kernel)
             readings = slices[label]()
             # a broken ring may leave the GEMM's barrier waits to give up
             watchdog = src in WATCHED and watchdog_fired(procs[tag][1])
@@ -4666,14 +5163,20 @@ def main() -> int:
 
     from sdnq_tpu_torch import QuantConfig
     from sdnq_tpu_torch.kernels import _build
+
+    def mark(what):  # where the run's time goes
+        log(f"at {time.perf_counter() - t_start:.1f} s: {what} done")
     t0 = time.perf_counter()
     fault_procs = {}
     faults = "--no-faults" not in sys.argv[1:]
     try:
         b1_only = "--b1-probes" in sys.argv[1:]
         io_only = "--phase-4i" in sys.argv[1:]
+        unet_only = "--phase-4u" in sys.argv[1:]
         secs = _build.build(("quantize_rows", "scaled_mm") if b1_only
-                            else IO_SOURCES if io_only else _build.SOURCES)
+                            else IO_SOURCES if io_only
+                            else UNET_SOURCES if unet_only
+                            else _build.SOURCES)
         log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
             + json.dumps({k: round(v, 1) for k, v in secs.items()}))
         if b1_only:
@@ -4682,17 +5185,23 @@ def main() -> int:
         if io_only:
             log(json.dumps(io_phase(torch, dev)))
             return 1 if FAILURES else 0
+        if unet_only:
+            unet_phase(torch, dev)
+            return 1 if FAILURES else 0
         # the crossover's timing decides a route: on a quiet host, before
         # the fault builds (after the real sources, which then have the
         # host's cores) start
         b7_b8_crossover(torch, dev)
         if faults:
             fault_procs = start_fault_builds()
+        mark("build and crossover")
         rows = kernel_phase(torch, dev)
+        mark("phase 3")
 
         counts, slices = {"bench": dict(BENCH_COUNTS)}, {}
         counts["ring"] = ring_phase(torch, dev)
         ring_slice_phase(torch, dev)
+        mark("phase 4r")
         int8_required = ("quantize_rows", "scaled_gemm", "dequant_gemv",
                          "flash_attention")
         qparams = build_model(
@@ -4709,6 +5218,7 @@ def main() -> int:
             torch, dev, qparams, int8_outs[0], int8_required)
         del qparams, int8_outs
         torch.cuda.empty_cache()
+        mark("FLUX int8, stacked, pipeline-parallel")
 
         qparams = build_model(
             torch, dev,
@@ -4732,6 +5242,7 @@ def main() -> int:
         profile_phase(torch, dev, qmm, "uint4_qmm")
         del qparams, qmm
         torch.cuda.empty_cache()
+        mark("FLUX uint4")
 
         # SDNQ's dynamic per-layer format selection on weights with tails:
         # R1, SDNQ's default int8 recipe; R2, the uint4 + SVD r32 recipe
@@ -4758,6 +5269,7 @@ def main() -> int:
             del qparams
             torch.cuda.empty_cache()
 
+        mark("phase 4g")
         params, lcfg = build_llm(torch, dev)
         counts["llm_int8kv"] = llm_path(
             torch, dev, params, lcfg, "llm_int8kv", "int8", 2,
@@ -4781,6 +5293,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         counts["qlinear_b8"] = b8_qlinear_check(torch, dev)[0]
 
+        mark("phase 4d")
         tparams, tcfg = build_train_model(torch, dev)
         counts["train"], state = train_path(torch, dev, tparams, tcfg)
         train_cut = cut_train(tparams)
@@ -4788,6 +5301,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         train_slice_phase(torch, dev, train_cut)
 
+        mark("phase 4e")
         resident = torch.cuda.memory_allocated()
         models, pcfgs = build_pipeline(torch, dev)
         counts["pipeline"] = pipeline_path(torch, dev, models, pcfgs,
@@ -4795,7 +5309,12 @@ def main() -> int:
         pipe_cut = cut_pipeline(models, pcfgs)
         pipeline_slice_phase(torch, dev, pipe_cut)
         pipeline_profile_phase(torch, dev, models, pcfgs)
+        mark("phase 4f")
         counts.update(io_phase(torch, dev))
+        mark("phase 4i")
+        unet_counts, unet_cut = unet_phase(torch, dev)
+        counts.update(unet_counts)
+        mark("phase 4u")
 
         for row in rows:
             row["launches"] = (counts[row["path"]][row["count"]]
@@ -4811,6 +5330,7 @@ def main() -> int:
         checks["ring"] = lambda: ring_slice_phase(torch, dev)
         checks["pipeline"] = lambda: pipeline_slice_phase(torch, dev,
                                                           pipe_cut)
+        checks["unet"] = lambda: unet_slice_phase(torch, dev, unet_cut)
         if faults:
             fault_phase(torch, dev, checks, fault_procs)
         else:

@@ -2,7 +2,8 @@
 
 Wrappers launch the CUDA kernel on CUDA tensors and run the plain version
 on CPU tensors; each counts its launches in ``<wrapper>.launches``, and
-``flash_attention``, ``quantize_rows``, ``scaled_gemm``, ``dequant_gemv``,
+``flash_attention``, ``flash_attention_block``, ``quantize_rows``,
+``scaled_gemm``, ``dequant_gemv``,
 ``dequant_mm``, ``groupdot_mm``, ``blockdiag_mm``, ``groupdot_i8_mm``,
 ``decode_weight`` and ``wgmma_mm`` also count their launches per mode in
 ``<wrapper>.mode_launches``.  ``dequant_mm`` (B2's tiles), ``groupdot_mm``
@@ -42,9 +43,9 @@ KERNELS = {
     "scaled_mm_tn": scaled_mm_tn,
 }
 # the wrappers that also count their launches by mode
-_MODED = ("flash_attention", "quantize_rows", "scaled_gemm", "dequant_gemv",
-          "dequant_mm", "groupdot_mm", "blockdiag_mm", "groupdot_i8_mm",
-          "decode_weight", "wgmma_mm")
+_MODED = ("flash_attention", "flash_attention_block", "quantize_rows",
+          "scaled_gemm", "dequant_gemv", "dequant_mm", "groupdot_mm",
+          "blockdiag_mm", "groupdot_i8_mm", "decode_weight", "wgmma_mm")
 
 
 def reset_launch_counts() -> None:
@@ -58,7 +59,9 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     """Launches by wrapper, and ``<wrapper>:<mode>`` by mode (B3's masked,
-    float_mask, causal, gqa and int8_pv; B1's colscale; B4's nn; B2's
+    float_mask, causal, gqa, int8_pv (token mode), head_pv, and its Q·K
+    kind bf16_qk, int8_qk or e4m3_qk; B9's e4m3_qk and int8_pv; B1's
+    colscale; B4's nn; B2's
     grouped and bit-plane GEMV, and the grouped, row and bit-plane modes of
     its tiles; B5's and B6's multiplane and minifloat modes, B7's
     multiplane mode; the decode's grouped, row, bit-plane, half-split and

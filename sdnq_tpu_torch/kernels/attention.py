@@ -1,6 +1,8 @@
 """Quantized scaled-dot-product attention.
 
-Kernel ``flash_attention`` (B3, ``csrc/flash_attn.cu``) beside its plain
+Kernel ``flash_attention`` (B3, ``csrc/flash_attn.cuh``, built as
+``flash_attn.cu`` for bf16 and int8 Q·K and ``flash_attn_e4m3.cu`` for
+e4m3) beside its plain
 version and launch counters.  It replaces ``sdnq_tpu/kernels/attention.py``
 ``_attn_kernel`` in these modes: bf16 Q·Kᵀ with sm_scale·log2(e) folded
 into q, or int8 Q·Kᵀ with per-token scales (qs carrying sm_scale·log2(e)); bool
@@ -25,16 +27,26 @@ softmax, P quantized over the whole row), in plain torch on both devices:
 the JAX package computes that step outside any Pallas kernel.
 
 Kernel ``flash_attention_block`` (B9, the block mode of
-``csrc/flash_attn.cu``) replaces ``_attn_kernel`` with ``partial_out=True``
+``csrc/flash_attn.cuh``) replaces ``_attn_kernel`` with ``partial_out=True``
 (``_attn_block_pallas``): one KV block's unnormalised fp32 (acc, m, l) in
 natural-log units, for the ring's merge (``parallel/ring_attention.py``).
 It keeps the JAX route of ``flash_attention_block``: B9 where N % 8, KN %
 128 and D % 128 are 0, ``attention_block_xla`` (the XLA block function)
 elsewhere, in plain torch on both devices.
 
-Still raising on both devices (later slices, ROADMAP queue B, B3): int8
-P·V with one V scale per head (``pv_scale_mode="head"``), fp8 Q·K; on the
-card, head dims other than 64 and 128.
+Two more modes follow the JAX wrapper line for line.  fp8 e4m3 Q·K
+(``matmul_dtype`` "fp8" or "float8_e4m3fn"): q and k quantized per token by
+``quantize_fp_mm``, the product summed in fp32 (the kernel converts its e4m3
+stages to fp16 in shared memory and runs the fp16 ``wgmma``: e4m3 values
+and their products are exact there), then times q_scale·k_scale.  Head-mode
+int8 P·V (``pv_scale_mode="head"``, the JAX default): one V scale per
+(batch, KV head), vs = max|v| / 127, v_q = rint(v / vs); on the kernel
+route the JAX constant-p-scale body (:127-141): p127 = exp2(s − (m −
+log2 127)) per P block, l sums the unrounded p127, rint(p127) times v_q in
+int8, out = acc / l rounded to the output type, then times vs; on the XLA
+route (:633-652) token-mode requantisation of P over the whole row with V
+scales of 1, then times vs.  On the card, head dims other than 64 and 128
+still raise (ROADMAP queue B, B3).
 
 ``trainable_attention`` is ``quantized_attention`` with a gradient.  The
 JAX package cannot differentiate its attention kernel (``pallas_call`` has
@@ -56,7 +68,7 @@ import torch
 from . import _build
 from ._build import P, I
 from .dispatch import is_cuda
-from ..quant.core import quantize_int_mm
+from ..quant.core import quantize_fp_mm, quantize_int_mm
 from ..quant.hadamard import (
     get_hadamard_group_size, next_power_of_2, rotate_hadamard,
 )
@@ -68,11 +80,20 @@ __all__ = ["flash_attention", "flash_attention_plain", "attention_xla",
            "attention_block_xla", "block_kernel_route"]
 
 LOG2E = math.log2(math.e)
+LOG2_127 = math.log2(127.0)
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _L = ctypes.c_longlong
-# mask kinds of csrc/flash_attn.cu
+# mask kinds and Q.K kinds of csrc/flash_attn.cuh
 _MASK_KINDS = {torch.bool: 1, torch.bfloat16: 2, torch.float32: 3}
+_QK_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+
+
+def _library(q) -> str:
+    """The library of q's Q·K kind (e4m3 is built apart)."""
+    return "flash_attn_e4m3" if q.dtype == torch.float8_e4m3fn \
+        else "flash_attn"
+_FP8 = ("fp8", "float8_e4m3fn")
 
 
 def quantize_kv(k, v=None):
@@ -143,15 +164,20 @@ def _div(x, c: float):
 
 def flash_attention_plain(q, k, v, q_scale=None, k_scale=None,
                           out_dtype=torch.bfloat16, *, heads=None, mask=None,
-                          causal=False, v_scale=None, p_block=None):
+                          causal=False, v_scale=None, p_block=None,
+                          v_head_scale=None):
     """Plain version of ``flash_attention``: q (B·H, N, D) float (pre-scaled
-    q) or int8 with q_scale (B·H, N); k, v (B·KH, KN, D) with k_scale (B·KH,
-    KN); ``heads`` H (B·H when None); ``mask`` bool or additive float,
-    broadcastable to (B, H, N, KN); ``causal`` masks key j > query i.
-    Base-2 softmax, the additive mask times log2(e); the running max starts
-    at -1e30, so a row masked by -inf everywhere gives 0.  With
-    ``v_scale`` (B·KH, KN), v holds int8 codes and P·V runs in token mode,
-    P quantized per block of ``p_block`` keys; else P is rounded to v's
+    q), or int8 or e4m3 with q_scale (B·H, N); k, v (B·KH, KN, D) with
+    k_scale (B·KH, KN); ``heads`` H (B·H when None); ``mask`` bool or
+    additive float, broadcastable to (B, H, N, KN); ``causal`` masks key j
+    > query i.  Base-2 softmax, the additive mask times log2(e); the
+    running max starts at -1e30, so a row masked by -inf everywhere gives
+    0.  With ``v_scale`` (B·KH, KN), v holds int8 codes and P·V runs in
+    token mode, P quantized per block of ``p_block`` keys; with
+    ``v_head_scale`` (B·KH,), v holds int8 codes of one scale per KV head
+    and P·V runs in head mode over the same blocks (p127 = exp2(s − (m −
+    log2 127)), rounded, times the codes; the output rounded to
+    ``out_dtype``, then times the head's scale); else P is rounded to v's
     dtype before P·V."""
     bh, n, _ = q.shape
     h = bh if heads is None else heads
@@ -164,13 +190,15 @@ def flash_attention_plain(q, k, v, q_scale=None, k_scale=None,
     else:
         s = q.float() @ k.float().transpose(1, 2)
     s = _mask_scores(s, bh // h, h, mask, causal, LOG2E)
-    if v_scale is None:
+    if v_scale is None and v_head_scale is None:
         m = s.amax(-1, keepdim=True).clamp_min(_NEG_INF)
         p = torch.exp2(s - m)
         l = p.sum(-1, keepdim=True)
         acc = p.to(v.dtype).float() @ v.float()
         return (acc / l.clamp_min(1e-30)).to(out_dtype)
-    vs = _expand_kv(v_scale.float(), qpk)
+    head = v_head_scale is not None
+    if not head:
+        vs = _expand_kv(v_scale.float(), qpk)
     kn = s.shape[-1]
     m = torch.full((bh, n, 1), _NEG_INF, device=q.device)
     l = torch.zeros((bh, n, 1), device=q.device)
@@ -178,22 +206,41 @@ def flash_attention_plain(q, k, v, q_scale=None, k_scale=None,
     for k0 in range(0, kn, p_block):
         sb = s[..., k0:k0 + p_block]
         m_new = torch.maximum(m, sb.amax(-1, keepdim=True))
-        p = torch.exp2(sb - m_new)
         alpha = torch.exp2(m - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        p_eff = p * vs[:, None, k0:k0 + p_block]
-        p_scale = _div(p_eff.amax(-1, keepdim=True).clamp_min(1e-20), 127.0)
-        p_q = torch.round(p_eff / p_scale)
-        pv = (p_q.double() @ v[:, k0:k0 + p_block].double()).float()
-        acc = acc * alpha + pv * p_scale
+        if head:
+            p127 = torch.exp2(sb - (m_new - LOG2_127))
+            l = l * alpha + p127.sum(-1, keepdim=True)
+            pv = (torch.round(p127).double()
+                  @ v[:, k0:k0 + p_block].double()).float()
+            acc = acc * alpha + pv
+        else:
+            p = torch.exp2(sb - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            p_eff = p * vs[:, None, k0:k0 + p_block]
+            p_scale = _div(p_eff.amax(-1, keepdim=True).clamp_min(1e-20),
+                           127.0)
+            p_q = torch.round(p_eff / p_scale)
+            pv = (p_q.double() @ v[:, k0:k0 + p_block].double()).float()
+            acc = acc * alpha + pv * p_scale
         m = m_new
-    return (acc / l.clamp_min(1e-30)).to(out_dtype)
+    out = (acc / l.clamp_min(1e-30)).to(out_dtype)
+    if head:
+        out = _times_head_scale(out, v_head_scale, qpk)
+    return out
 
 
-def _vt_scratch(v, vs):
-    """Token mode's V^T scratch (BKH, D, KN) int8, written by the C entry;
-    None in the bf16 P·V mode."""
-    if vs is None:
+def _times_head_scale(out, v_head_scale, qpk):
+    """Head mode's last step, as the JAX wrapper takes it: the output (B·H,
+    N, D) in its own dtype times its KV head's V scale (B·KH,), in fp32,
+    rounded back."""
+    vs = _expand_kv(v_head_scale.reshape(-1).float(), qpk)
+    return (out.float() * vs[:, None, None]).to(out.dtype)
+
+
+def _vt_scratch(v, int8_pv: bool):
+    """The int8 P·V modes' V^T scratch (BKH, D, KN) int8, written by the C
+    entry; None in the bf16 P·V mode."""
+    if not int8_pv:
         return None
     return torch.empty((v.shape[0], v.shape[2], v.shape[1]), dtype=torch.int8,
                        device=v.device)
@@ -207,14 +254,16 @@ def _mode_counts(**on):
 
 def flash_attention(q, k, v, q_scale=None, k_scale=None,
                     out_dtype=torch.bfloat16, *, heads=None, mask=None,
-                    causal=False, v_scale=None, p_block=None):
+                    causal=False, v_scale=None, p_block=None,
+                    v_head_scale=None):
     """Flash attention; see ``flash_attention_plain`` for the function.  On
-    the card: q, k bf16 (or int8 with scales), v bf16 (or int8 with
-    ``v_scale``), D in {64, 128}; a token-mode ``p_block`` is a multiple
-    of 64 up to 512 that divides KN; the mask bool, bf16 or fp32 (another
-    float dtype is read as fp32), read through its strides."""
+    the card: q, k bf16 (or int8 or e4m3 with scales), v bf16 (or int8
+    with ``v_scale`` or ``v_head_scale``), D in {64, 128}; an int8 P·V
+    mode's ``p_block`` is a multiple of 64 up to 512 that divides KN; the
+    mask bool, bf16 or fp32 (another float dtype is read as fp32), read
+    through its strides."""
     kw = dict(heads=heads, mask=mask, causal=causal, v_scale=v_scale,
-              p_block=p_block)
+              p_block=p_block, v_head_scale=v_head_scale)
     if not is_cuda(q):
         return flash_attention_plain(q, k, v, q_scale, k_scale, out_dtype,
                                      **kw)
@@ -222,11 +271,14 @@ def flash_attention(q, k, v, q_scale=None, k_scale=None,
     bkh, kn = k.shape[:2]
     h = bh if heads is None else heads
     quant = q_scale is not None
-    want = torch.int8 if quant else torch.bfloat16
-    v_want = torch.int8 if v_scale is not None else torch.bfloat16
-    if q.dtype != want or k.dtype != want or v.dtype != v_want:
-        raise ValueError(f"flash_attention takes {want} q/k and {v_want} v, "
-                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    int8_pv = v_scale is not None or v_head_scale is not None
+    v_want = torch.int8 if int8_pv else torch.bfloat16
+    if (q.dtype not in _QK_KINDS or k.dtype != q.dtype
+            or quant != (q.dtype != torch.bfloat16) or v.dtype != v_want
+            or (v_scale is not None and v_head_scale is not None)):
+        raise ValueError(f"flash_attention takes bf16 q/k, or int8 or e4m3 "
+                         f"with scales, and {v_want} v; got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if d not in _HEAD_DIMS or v.shape[-1] != d:
         raise NotImplementedError(
             f"head dim {d}: the kernel takes {_HEAD_DIMS} (others are a "
@@ -236,16 +288,18 @@ def flash_attention(q, k, v, q_scale=None, k_scale=None,
             or h % qpk):
         raise ValueError(f"shapes {tuple(q.shape)} {tuple(k.shape)} "
                          f"{tuple(v.shape)} with {h} heads")
-    if v_scale is not None and not (
+    if int8_pv and not (
             p_block and p_block % 64 == 0 and p_block <= 512
             and kn % p_block == 0):
-        raise ValueError(f"token-mode P block {p_block} for KN {kn}")
+        raise ValueError(f"int8 P·V block {p_block} for KN {kn}")
     # TMA reads q, k and v: a view off a 16-byte boundary is copied
     q, k, v = (_build.tma_rows(t.contiguous()) for t in (q, k, v))
     qs = q_scale.reshape(bh, n).float().contiguous() if quant else None
     ks = k_scale.reshape(bkh, kn).float().contiguous() if quant else None
     vs = (v_scale.reshape(bkh, kn).float().contiguous()
           if v_scale is not None else None)
+    vh = (v_head_scale.reshape(bkh).float().contiguous()
+          if v_head_scale is not None else None)
     strides, mkind = (0, 0, 0, 0), 0
     if mask is not None:
         if mask.dtype not in _MASK_KINDS:
@@ -256,26 +310,31 @@ def flash_attention(q, k, v, q_scale=None, k_scale=None,
         mask = mask.expand(bh // h, h, n, kn)
         strides = tuple(mask.stride())
     out = torch.empty((bh, n, d), dtype=out_dtype, device=q.device)
-    vt = _vt_scratch(v, vs)
+    vt = _vt_scratch(v, int8_pv)
     if n:
-        fn = _build.function("flash_attn", "sdnq_flash_attn",
-                             [P] * 7 + [_L] * 4 + [P] * 2 + [I] * 11 + [P])
-        _build.check(fn(*(_build.ptr(t) for t in (q, k, v, qs, ks, vs, mask)),
+        fn = _build.function(_library(q), "sdnq_flash_attn",
+                             [P] * 8 + [_L] * 4 + [P] * 2 + [I] * 11 + [P])
+        _build.check(fn(*(_build.ptr(t) for t in (q, k, v, qs, ks, vs, vh,
+                                                  mask)),
                         *strides, _build.ptr(out), _build.ptr(vt), bh, n, kn,
                         d, h, qpk,
-                        int(causal), int(p_block or 0), int(quant), mkind,
-                        _build.act_kind(out_dtype), _build.stream(q)),
+                        int(causal), int(p_block or 0), _QK_KINDS[q.dtype],
+                        mkind, _build.act_kind(out_dtype), _build.stream(q)),
                      "flash_attention")
         flash_attention.launches += 1
         _mode_counts(masked=mkind == 1, float_mask=mkind > 1, causal=causal,
-                     gqa=qpk > 1, int8_pv=v_scale is not None)
+                     gqa=qpk > 1, int8_pv=v_scale is not None,
+                     head_pv=vh is not None, bf16_qk=not quant,
+                     int8_qk=q.dtype == torch.int8,
+                     e4m3_qk=q.dtype == torch.float8_e4m3fn)
     return out
 
 
 flash_attention.launches = 0
 # launches of the kernel in each mode (a launch may count in several)
 flash_attention.mode_launches = dict(masked=0, float_mask=0, causal=0, gqa=0,
-                                     int8_pv=0)
+                                     int8_pv=0, head_pv=0, bf16_qk=0,
+                                     int8_qk=0, e4m3_qk=0)
 
 
 # ---------------------------------------------------------------------------
@@ -292,11 +351,11 @@ def block_kernel_route(n: int, kn: int, d: int) -> bool:
 
 def _block_scores(q, k, q_scale, k_scale, sm_scale, quantized, mask,
                   mask_is_bool, exact: bool):
-    """s (BH, N, KN) as the JAX block functions form it: int8 products
-    exact (float64), times q_scale (carrying sm_scale) and k_scale; float
-    q, k times sm_scale after the dot (in float64 where ``exact``, as the
-    XLA function's fp32 einsum is held to, else fp32 as the kernel's bf16
-    products sum); the mask (1 or BH, N, KN), row b reading mask row
+    """s (BH, N, KN) as the JAX block functions form it: int8 or e4m3
+    products in float64, rounded to fp32, times q_scale (carrying sm_scale)
+    and k_scale; float q, k times sm_scale after the dot (in float64 where
+    ``exact``, as the XLA function's fp32 einsum is held to, else fp32 as
+    the kernel's bf16 products sum); the mask (1 or BH, N, KN), row b reading mask row
     b % mask_bh, masks to -1e30 (bool) or is added (float)."""
     bh, n, _ = q.shape
     if quantized or exact:
@@ -395,17 +454,18 @@ def flash_attention_block(q, k, v, q_scale=None, k_scale=None, v_scale=None,
                           sm_scale=1.0, mask_is_bool=True):
     """Flash attention over one KV block, returning the unnormalised fp32
     partials (acc (BH, N, D), m (BH, N, 1), l (BH, N, 1)) that the ring's
-    online-softmax merge takes: q (BH, N, D) int8 with q_scale (BH, N)
-    (carrying sm_scale; ``quantized``) or float, k (BH, KN, D) likewise
+    online-softmax merge takes: q (BH, N, D) int8 or e4m3 with q_scale (BH,
+    N) (carrying sm_scale; ``quantized``) or float, k (BH, KN, D) likewise
     with k_scale (BH, KN), v (BH, KN, D) bf16, or int8 with v_scale (BH,
     KN) (``quantized_pv``); ``mask`` (1 or BH, N, KN), bool (nonzero
     keeps a key) or, with ``mask_is_bool`` False, added to the scores.
 
     The JAX route: where ``block_kernel_route`` holds, B9 (a CUDA tensor)
     or its plain version (a CPU tensor); elsewhere ``attention_block_xla``
-    on both devices.  On the card B9 takes bf16 or int8 q / k, D = 128
-    (D = 256 passes the route and raises: ROADMAP queue B), a bool, int8 or
-    float mask.  ``flash_attention_block.launches`` counts B9's launches,
+    on both devices.  On the card B9 takes bf16, int8 or e4m3 q / k, D =
+    128 (D = 256 passes the route and raises: ROADMAP queue B), a bool,
+    int8 or float mask.  ``flash_attention_block.launches`` counts B9's
+    launches (``.mode_launches`` its e4m3 Q·K and token-mode ones),
     ``attention_block_xla.calls`` the XLA route's calls."""
     bh, n, d = q.shape
     kn = k.shape[1]
@@ -417,11 +477,13 @@ def flash_attention_block(q, k, v, q_scale=None, k_scale=None, v_scale=None,
         return attention_block_xla(*args, **kw)
     if not is_cuda(q):
         return flash_attention_block_plain(*args, **kw)
-    want = torch.int8 if quantized else torch.bfloat16
     v_want = torch.int8 if quantized_pv else torch.bfloat16
-    if q.dtype != want or k.dtype != want or v.dtype != v_want:
-        raise ValueError(f"flash_attention_block takes {want} q/k and "
-                         f"{v_want} v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if (q.dtype not in _QK_KINDS or k.dtype != q.dtype
+            or quantized != (q.dtype != torch.bfloat16)
+            or v.dtype != v_want):
+        raise ValueError(f"flash_attention_block takes bf16 q/k, or int8 or "
+                         f"e4m3 with scales, and {v_want} v; got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if d not in _BLOCK_HEAD_DIMS or v.shape[-1] != d:
         raise NotImplementedError(
             f"head dim {d}: B9 takes {_BLOCK_HEAD_DIMS} (others are a later "
@@ -453,22 +515,26 @@ def flash_attention_block(q, k, v, q_scale=None, k_scale=None, v_scale=None,
     acc = torch.empty((bh, n, d), dtype=torch.float32, device=q.device)
     m = torch.empty((bh, n, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((bh, n, 1), dtype=torch.float32, device=q.device)
-    vt = _vt_scratch(v, vs)
+    vt = _vt_scratch(v, vs is not None)
     if n:
-        fn = _build.function("flash_attn", "sdnq_flash_attn_block",
+        fn = _build.function(_library(q), "sdnq_flash_attn_block",
                              [P] * 7 + [_L] * 3 + [P] * 4 + [I] * 8
                              + [ctypes.c_float, P])
         _build.check(fn(*(_build.ptr(t) for t in (q, k, v, qs, ks, vs, mask)),
                         *strides, *(_build.ptr(t) for t in (acc, m, l, vt)),
                         bh, n, kn, d, mask_heads,
                         attn_p_block(kn) if quantized_pv else 0,
-                        int(quantized), mkind, float(sm_scale),
+                        _QK_KINDS[q.dtype], mkind, float(sm_scale),
                         _build.stream(q)), "flash_attention_block")
         flash_attention_block.launches += 1
+        modes = flash_attention_block.mode_launches
+        modes["e4m3_qk"] += q.dtype == torch.float8_e4m3fn
+        modes["int8_pv"] += quantized_pv
     return acc, m, l
 
 
 flash_attention_block.launches = 0
+flash_attention_block.mode_launches = dict(e4m3_qk=0, int8_pv=0)
 
 
 def attention_xla(q, k, v, q_scale=None, k_scale=None, v_scale=None,
@@ -505,6 +571,10 @@ def attention_xla(q, k, v, q_scale=None, k_scale=None, v_scale=None,
     return out.to(out_dtype)
 
 
+attention_xla.calls = 0
+attention_xla.head_calls = 0
+
+
 def quantized_attention(query, key, value, attn_mask=None,
                         is_causal: bool = False, scale: float | None = None,
                         *, smooth_k: bool = False, use_hadamard: bool = False,
@@ -516,15 +586,18 @@ def quantized_attention(query, key, value, attn_mask=None,
                         force_xla: bool = False):
     """Scaled-dot-product attention over query (B, H, N, D) and key / value
     (B, KH, KN, D), H a multiple of KH.  ``matmul_dtype`` in {"int8",
-    "auto", None}; "default" reads SDNQ_TPU_ATTN_MATMUL_DTYPE (int8 when
+    "fp8", "auto", None}; "default" reads SDNQ_TPU_ATTN_MATMUL_DTYPE (int8 when
     unset), as the JAX package does.  ``attn_mask`` bool (False masks a
     key) or float (added to the scores, in its own dtype on the kernel
     route), broadcastable to (B, H, N, KN).  ``kv_scales=(k_scale,
     v_scale)`` marks key (and value, unless v_scale is None) as
     pre-quantized int8 with per-token scales
     (B, KH, KN); int8 value runs P·V in token mode, as does
-    ``pv_matmul_dtype="int8"`` with ``pv_scale_mode="token"``.
-    ``force_xla`` takes the XLA route whatever the shape (the JAX
+    ``pv_matmul_dtype="int8"`` with ``pv_scale_mode="token"``; with
+    ``pv_scale_mode="head"`` (the default) it runs in head mode.
+    ``matmul_dtype`` "fp8" or "float8_e4m3fn" quantizes q and k to e4m3.
+    The XLA route's calls count in ``attention_xla.calls`` (head mode's
+    in ``attention_xla.head_calls``).  ``force_xla`` takes the XLA route whatever the shape (the JAX
     package's ``SDNQ_TPU_ATTN_FORCE_XLA``)."""
     b, h, n, d = query.shape
     _, kh, kn, _ = key.shape
@@ -548,15 +621,8 @@ def quantized_attention(query, key, value, attn_mask=None,
         pv_matmul_dtype not in (None, "auto", "none", "no", "disabled")
     if h % kh:
         raise ValueError(f"{h} query heads do not group over {kh} KV heads")
-    missing = [what for what, on in (
-        ("int8 P·V with one V scale per head (pv_scale_mode='head')",
-         do_quant_pv and not kv_prequant and pv_scale_mode == "head"),
-        (f"{matmul_dtype} Q·K", do_quant and matmul_dtype != "int8"))
-        if on]
-    if missing:
-        raise NotImplementedError(
-            ", ".join(missing)
-            + ": later slices of the port (ROADMAP queue B, B3)")
+    use_fp8 = matmul_dtype in _FP8
+    pv_head = do_quant_pv and not kv_prequant and pv_scale_mode == "head"
 
     qf = query.float()
     kf = key if kv_prequant else key.float()
@@ -578,18 +644,25 @@ def quantized_attention(query, key, value, attn_mask=None,
         while mask.dim() < 4:
             mask = mask[None]
 
-    q_scale = k_scale = v_scale = None
+    q_scale = k_scale = v_scale = vs_head = None
     if do_quant:
-        q_in, q_s = quantize_int_mm(qf, -1)
+        quant = quantize_fp_mm if use_fp8 else quantize_int_mm
+        q_in, q_s = quant(qf, -1)
         q_scale = q_s.reshape(b * h, n) * scale
         if kv_prequant:
             k_in, k_scale = kf, kv_scales[0].reshape(b * kh, kn).float()
         else:
-            k_in, k_s = quantize_int_mm(kf, -1)
+            k_in, k_s = quant(kf, -1)
             k_scale = k_s.reshape(b * kh, kn)
     else:
         q_in, k_in = qf, kf
-    if do_quant_pv:
+    if pv_head:
+        # one V scale per (batch, KV head): the JAX constant-p-scale path
+        vf = vf.float()
+        vs_head = _div(vf.abs().amax(dim=(1, 2), keepdim=True)
+                       .clamp_min(1e-20), 127.0)
+        v_in = torch.round(vf / vs_head).to(torch.int8)
+    elif do_quant_pv:
         if kv_prequant:
             v_in, v_scale = vf, kv_scales[1].reshape(b * kh, kn).float()
         else:
@@ -599,16 +672,24 @@ def quantized_attention(query, key, value, attn_mask=None,
         v_in = vf
 
     if force_xla or not attn_kernel_route(n, kn, d):
+        if pv_head:
+            # the JAX XLA route: token-mode P over the whole row, V scales 1
+            v_scale = torch.ones((b * kh, kn), device=vf.device)
+        attention_xla.calls += 1
+        attention_xla.head_calls += pv_head
         out = attention_xla(q_in, k_in, v_in, q_scale, k_scale, v_scale,
                             mask, heads=h, causal=is_causal, sm_scale=scale,
                             out_dtype=out_dtype)
+        if pv_head:
+            out = _times_head_scale(out, vs_head, h // kh)
         return out.reshape(b, h, n, -1)
 
     # bf16 operands on both devices, as the JAX kernel path casts them
-    if v_scale is None:
+    if not do_quant_pv:
         v_in = v_in.to(torch.bfloat16)
     kw = dict(heads=h, mask=mask, causal=is_causal, v_scale=v_scale,
-              p_block=attn_p_block(kn) if v_scale is not None else None)
+              p_block=attn_p_block(kn) if do_quant_pv else None,
+              v_head_scale=vs_head)
     if do_quant:
         out = flash_attention(q_in, k_in, v_in, q_scale * LOG2E, k_scale,
                               out_dtype, **kw)

@@ -354,18 +354,18 @@ def _conv_transpose_nhwc(x, wd, stride, padding, dilation):
 
 
 def _patches(x, kshape, stride, padding, dilation):
-    """lax.conv_general_dilated_patches on NHWC x: (N, *out, C·prod(k)),
-    features channel-major (c, *k), as the OIHW flatten of the weight."""
-    if x.dim() != 4:
-        raise NotImplementedError("im2col takes 2-D convolutions (F.unfold)")
-    xc = x.movedim(-1, 1)
-    xc, pad = _padded(xc, _conv_pads(padding, xc.shape[2:], kshape, stride,
-                                     dilation))
-    cols = F.unfold(xc, kshape, dilation=dilation, padding=pad,
-                    stride=stride)                        # (N, C·k, L)
-    sizes = [(n + 2 * p - d * (k - 1) - 1) // st + 1 for n, p, k, st, d in
-             zip(xc.shape[2:], pad, kshape, stride, dilation)]
-    return cols.transpose(1, 2).reshape(x.shape[0], *sizes, -1)
+    """lax.conv_general_dilated_patches on channels-last x of any spatial
+    rank: (N, *out, C·prod(k)), features channel-major (c, *k), as the
+    OIHW flatten of the weight.  x is padded (or cropped) as JAX pads it,
+    then each spatial axis is cut into its dilated windows by ``unfold``."""
+    nd = x.dim() - 2
+    xc = _pad_nc(x.movedim(-1, 1), _conv_pads(padding, x.shape[1:-1],
+                                              kshape, stride, dilation))
+    for i, (k, st, d) in enumerate(zip(kshape, stride, dilation)):
+        xc = xc.unfold(2 + i, d * (k - 1) + 1, st)[..., ::d]
+    # (N, C, *out, *k) -> (N, *out, C, *k)
+    out = xc.permute(0, *range(2, 2 + nd), 1, *range(2 + nd, 2 + 2 * nd))
+    return out.reshape(*out.shape[:1 + nd], -1)
 
 
 def _grouped_quantized_matmul(x2d, qt: QTensor, bias, out_dtype,

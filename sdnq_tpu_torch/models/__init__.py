@@ -13,6 +13,10 @@ from .text_encoder import (
     CLIP_TINY_CONFIG, T5_TINY_CONFIG, CLIPConfig, T5Config, clip_encode,
     init_clip, init_t5, init_t5_layer, t5_encode,
 )
+from .unet import (
+    SD15_CONFIG, SDXL_CONFIG, UNET_TINY_CONFIG, UNetConfig, init_unet,
+    make_staged_unet_forward, unet_forward,
+)
 from .vae import (
     SD_VAE_CONFIG, VAE_TINY_CONFIG, VAEConfig, init_vae, vae_decode,
     vae_encode,
@@ -26,4 +30,6 @@ __all__ = ["DiTConfig", "FLUX_DEV_CONFIG", "FLUX_TINY_CONFIG", "init_dit",
            "CLIP_TINY_CONFIG", "T5_TINY_CONFIG", "init_clip", "clip_encode",
            "init_t5", "init_t5_layer", "t5_encode", "VAEConfig",
            "SD_VAE_CONFIG", "VAE_TINY_CONFIG", "init_vae", "vae_decode",
-           "vae_encode"]
+           "vae_encode", "UNetConfig", "SD15_CONFIG", "SDXL_CONFIG",
+           "UNET_TINY_CONFIG", "init_unet", "unet_forward",
+           "make_staged_unet_forward"]

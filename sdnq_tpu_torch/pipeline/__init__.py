@@ -1,6 +1,9 @@
-"""Samplers and the text-to-image pipeline."""
+"""Samplers and the text-to-image pipelines."""
 
-from .diffusion import flux_generate
-from .schedulers import FlowMatchScheduler, flux_denoise
+from .diffusion import flux_generate, sd_generate
+from .schedulers import (
+    DDIMScheduler, EulerScheduler, FlowMatchScheduler, flux_denoise,
+)
 
-__all__ = ["FlowMatchScheduler", "flux_denoise", "flux_generate"]
+__all__ = ["DDIMScheduler", "EulerScheduler", "FlowMatchScheduler",
+           "flux_denoise", "flux_generate", "sd_generate"]

@@ -99,20 +99,89 @@ def test_plain_version_is_softmax_attention():
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("kw", [dict(pv_matmul_dtype="int8"),
-                                dict(matmul_dtype="fp8"),
-                                dict(matmul_dtype="float8_e4m3fn",
-                                     attn_mask=torch.zeros(1, 1, 16, 16))])
-def test_later_slice_modes_raise(kw):
-    """Head-mode int8 P·V (the JAX default ``pv_scale_mode``) and fp8 Q·K
-    are later slices: they raise on both devices, with or without a float
-    additive mask (which the port takes)."""
-    q = torch.zeros(1, 2, 16, 64)
-    with pytest.raises(NotImplementedError):
-        tattn(q, q, q, **kw)
-    with pytest.raises(NotImplementedError):  # head-mode P·V, grouped KV
-        tattn(q, q[:, :1], q[:, :1], matmul_dtype=None,
-              pv_matmul_dtype="int8", attn_mask=torch.zeros(16, 16))
+# ---------------------------------------------------------------------------
+# Head-mode int8 P·V and fp8 e4m3 Q·K against the JAX wrapper on both of its
+# routes: KN 256 takes the Pallas body (interpret mode; P blocks of 256
+# keys), KN 77 (the UNet's text tokens) the XLA function.  Grouped KV heads
+# (4 query heads over 2) and a float additive mask (random, with a -inf
+# hole) where a case says so.  Each row's error over that row's largest
+# output.  Head mode quantizes P at the same points on both sides; where
+# exp2 differs by an ulp between XLA and torch a code at a rounding tie
+# moves by one step (1/127 of its key's weight), so its limit is token
+# mode's, 4e-3 (measured at most 5.2e-7: no code moved).  e4m3 codes are
+# exact in both packages, and the products summed in fp32 (JAX) and float64
+# (the port) differ by fp32 rounding; with bf16 P·V (one P block of 256
+# keys: P rounded to bf16 against the same max) measured at most 7.3e-5:
+# 1e-3.
+# ---------------------------------------------------------------------------
+
+NEW_MODES = {
+    "head_bf16_qk": dict(matmul_dtype=None, pv_matmul_dtype="int8"),
+    "head_int8_qk": dict(matmul_dtype="int8", pv_matmul_dtype="int8"),
+    "head_e4m3_qk": dict(matmul_dtype="fp8", pv_matmul_dtype="int8"),
+    "e4m3_qk_bf16_pv": dict(matmul_dtype="float8_e4m3fn"),
+    "e4m3_qk_token_pv": dict(matmul_dtype="fp8", pv_matmul_dtype="int8",
+                             pv_scale_mode="token"),
+    "head_gqa_float_mask": dict(matmul_dtype="int8", pv_matmul_dtype="int8",
+                                gqa=True, float_mask=True),
+    "e4m3_gqa_float_mask": dict(matmul_dtype="fp8", gqa=True,
+                                float_mask=True),
+    "head_e4m3_causal": dict(matmul_dtype="fp8", pv_matmul_dtype="int8",
+                             is_causal=True),
+}
+
+
+@pytest.mark.parametrize("kn", [256, 77])
+@pytest.mark.parametrize("mode", list(NEW_MODES))
+def test_head_pv_and_e4m3_qk_against_jax(monkeypatch, mode, kn):
+    monkeypatch.setenv("SDNQ_TPU_KERNEL_BACKEND", "interpret")
+    kw = dict(NEW_MODES[mode])
+    gqa, float_mask = kw.pop("gqa", False), kw.pop("float_mask", False)
+    rng = np.random.default_rng(kn + len(mode))
+    b, h, d = 1, 4, 64
+    kh = 2 if gqa else h
+    n = kn if kw.get("is_causal") else 32
+    q = _bf16_exact(rng, (b, h, n, d))
+    k = _bf16_exact(rng, (b, kh, kn, d))
+    v = _bf16_exact(rng, (b, kh, kn, d))
+    jkw, tkw = dict(kw), dict(kw)
+    if float_mask:
+        mask = _bf16_exact(rng, (b, 1, n, kn))
+        mask[..., 3] = -np.inf
+        jkw["attn_mask"], tkw["attn_mask"] = (jnp.asarray(mask),
+                                              torch.from_numpy(mask))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    if kw.get("matmul_dtype") is None:
+        # bf16 operands (the kernel path casts them), the JAX fp32 output
+        tq, tk, tv = (a.to(torch.bfloat16) for a in (tq, tk, tv))
+        tkw["out_dtype"] = torch.float32
+    ref = np.asarray(jattn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           **jkw))
+    out = tattn(tq, tk, tv, **tkw).float().numpy()
+    assert np.isfinite(out).all()
+    limit = 1e-3 if kw.get("pv_matmul_dtype") is None else 4e-3
+    row_err = np.abs(out - ref).max(-1) / np.abs(ref).max(-1)
+    assert row_err.max() <= limit, (row_err.max(), limit)
+
+
+def test_head_mode_routes_and_counts():
+    """Head mode takes the constant-p-scale body where the kernel route
+    holds and the XLA function (counted in ``attention_xla.head_calls``)
+    where it does not; an e4m3 Q·K quantizes to float8_e4m3fn codes."""
+    from sdnq_tpu_torch.kernels import attention as ka
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(_bf16_exact(rng, (1, 2, 16, 64)))
+    k77 = torch.from_numpy(_bf16_exact(rng, (1, 2, 77, 64)))
+    k128 = torch.from_numpy(_bf16_exact(rng, (1, 2, 128, 64)))
+    calls, head_calls = ka.attention_xla.calls, ka.attention_xla.head_calls
+    tattn(q, k128, k128, matmul_dtype="int8", pv_matmul_dtype="int8")
+    assert ka.attention_xla.calls == calls
+    tattn(q, k77, k77, matmul_dtype="fp8", pv_matmul_dtype="int8")
+    assert ka.attention_xla.calls == calls + 1
+    assert ka.attention_xla.head_calls == head_calls + 1
+    tattn(q, k77, k77, matmul_dtype="fp8", pv_matmul_dtype="int8",
+          pv_scale_mode="token")
+    assert ka.attention_xla.head_calls == head_calls + 1
 
 
 # ---------------------------------------------------------------------------

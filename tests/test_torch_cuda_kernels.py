@@ -1861,3 +1861,139 @@ def test_dequant_gemv_views_off_alignment(dev):
     got = kd.dequant_gemv(xv, cv, scale, None, None, torch.float32)
     assert torch.equal(got, kd.dequant_gemv(x, codes, scale, None, None,
                                             torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Head-mode int8 P·V and e4m3 Q·K (B3, and B9 for e4m3).  Head mode rounds
+# p127 at the same points as its plain version and e4m3 products are exact
+# in the fp16 wgmma's fp32 sum, so with int8 or e4m3 Q·K each row agrees to
+# 1e-4 of its largest output, as token mode does; with bf16 Q·K (products
+# summed in another order) a code may round the other way: 2^-6, and
+# likewise where P is rounded to bf16 (bf16 P·V).
+# ---------------------------------------------------------------------------
+
+def _new_mode_inputs(dev, g, bh, bkh, n, kn, d, qk, pv):
+    """q, k of Q·K kind ``qk`` (bf16 pre-scaled, or int8 / e4m3 per token
+    with q_scale carrying sm_scale·log2 e), v for P·V mode ``pv`` (bf16,
+    token or head), and the keywords of that mode."""
+    from sdnq_tpu_torch.quant.core import quantize_fp_mm, quantize_int_mm
+    q = torch.randn(bh, n, d, device=dev, generator=g)
+    k = torch.randn(bkh, kn, d, device=dev, generator=g)
+    v = torch.randn(bkh, kn, d, device=dev, generator=g)
+    if qk == "bf16":
+        args = [(q * d ** -0.5 * ka.LOG2E).bfloat16(), k.bfloat16(), None,
+                None, None]
+    else:
+        quant = quantize_int_mm if qk == "int8" else quantize_fp_mm
+        (qq, qs), (kq, ks) = quant(q), quant(k)
+        args = [qq, kq, None, qs[..., 0] * d ** -0.5 * ka.LOG2E, ks[..., 0]]
+    kw = {}
+    if pv == "bf16":
+        args[2] = v.bfloat16()
+    elif pv == "token":
+        vq, vs = quantize_int_mm(v)
+        args[2] = vq
+        kw = dict(v_scale=vs[..., 0], p_block=ka.attn_p_block(kn))
+    else:
+        vs = v.abs().amax((1, 2)).clamp_min(1e-20) / 127.0
+        args[2] = torch.round(v / vs[:, None, None]).to(torch.int8)
+        kw = dict(v_head_scale=vs, p_block=ka.attn_p_block(kn))
+    return args, kw
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n,kn,qpk", [(72, 256, 1), (200, 1024, 2),
+                                      (65, 192, 4)])
+@pytest.mark.parametrize("qk", ["bf16", "int8", "e4m3"])
+def test_flash_attention_head_mode(dev, d, n, kn, qpk, qk):
+    """Head-mode P·V with every Q·K kind: query rows off the 64-row blocks,
+    P blocks of 192 (three tiles), 256 and 512 keys (two blocks), grouped KV
+    heads; fp32 and bf16 output (the head scale applied to the rounded
+    output, as the JAX wrapper does)."""
+    g = _gen(80)
+    b, kh = 2, 2
+    args, kw = _new_mode_inputs(dev, g, b * kh * qpk, b * kh, n, kn, d, qk,
+                                "head")
+    kw["heads"] = kh * qpk
+    before = dict(ka.flash_attention.mode_launches)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = ka.flash_attention(*args, out_dtype=out_dtype, **kw).float()
+        want = ka.flash_attention_plain(*args, out_dtype=out_dtype,
+                                        **kw).float()
+        _rows_close(got, want, (1e-4 if qk != "bf16" else 2 ** -6)
+                    + (2 ** -8 if out_dtype == torch.bfloat16 else 0))
+    modes = ka.flash_attention.mode_launches
+    assert modes["head_pv"] == before["head_pv"] + 2
+    assert modes[f"{qk}_qk"] == before[f"{qk}_qk"] + 2
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("pv", ["bf16", "token", "head"])
+@pytest.mark.parametrize("mask", [None, "causal", "bool", "fp32"])
+def test_flash_attention_e4m3(dev, d, pv, mask):
+    """e4m3 Q·K (Q and every K tile converted to fp16 in shared memory) with
+    each P·V mode, a ragged KN (bf16 P·V: the last tile zero-filled), 4
+    query heads over 2 KV heads, and each mask kind."""
+    g = _gen(81)
+    b, h, kh, n = 2, 4, 2, 136
+    kn = 320 if pv != "bf16" else 200
+    args, kw = _new_mode_inputs(dev, g, b * h, b * kh, n, kn, d, "e4m3", pv)
+    kw["heads"] = h
+    if mask == "causal":
+        kw["causal"] = True
+    elif mask == "bool":
+        mk = torch.rand(b, 1, n, kn, device=dev, generator=g) < 0.6
+        mk[..., 0] = True
+        kw["mask"] = mk
+    elif mask == "fp32":
+        kw["mask"] = torch.randn(1, h, n, kn, device=dev, generator=g) * 2
+    got = ka.flash_attention(*args, out_dtype=torch.float32, **kw)
+    want = ka.flash_attention_plain(*args, out_dtype=torch.float32, **kw)
+    _rows_close(got, want, 2 ** -6 if pv == "bf16" else 1e-4)
+
+
+@pytest.mark.parametrize("n,kn", [(72, 256), (136, 1024)])
+@pytest.mark.parametrize("token", [False, True])
+def test_flash_attention_block_e4m3(dev, n, kn, token):
+    """B9 with e4m3 Q·K (q_scale carrying sm_scale) and bf16 or token-mode
+    P·V, a bool mask with one row hidden everywhere."""
+    from sdnq_tpu_torch.quant.core import quantize_fp_mm, quantize_int_mm
+    g = _gen(82)
+    bh, d = 4, 128
+    q, k, v = (torch.randn(bh, s, d, device=dev, generator=g)
+               for s in (n, kn, kn))
+    (qq, qs), (kq, ks) = quantize_fp_mm(q), quantize_fp_mm(k)
+    args = [qq, kq, v.bfloat16(), qs[..., 0] * d ** -0.5, ks[..., 0], None]
+    if token:
+        vq, vs = quantize_int_mm(v)
+        args[2], args[5] = vq, vs[..., 0]
+    mk = torch.rand(1, n, kn, device=dev, generator=g) < 0.5
+    mk[..., 0] = True
+    mk[0, 9] = False
+    args.append(mk)
+    kw = dict(quantized=True, quantized_pv=token, sm_scale=d ** -0.5)
+    before = ka.flash_attention_block.mode_launches["e4m3_qk"]
+    got = ka.flash_attention_block(*args, **kw)
+    assert ka.flash_attention_block.mode_launches["e4m3_qk"] == before + 1
+    _block_check(got, ka.flash_attention_block_plain(*args, **kw), token)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(matmul_dtype="int8", pv_matmul_dtype="int8"),
+    dict(matmul_dtype="fp8", pv_matmul_dtype="int8"),
+    dict(matmul_dtype="fp8")])
+@pytest.mark.parametrize("kn", [256, 77])
+def test_quantized_attention_new_modes_card_vs_cpu(dev, kw, kn):
+    """``quantized_attention`` in head mode and with fp8 Q·K on the card
+    (B3 at KN 256, the XLA function at the UNet's 77 text tokens) against
+    the same call on the CPU, bf16 in and out: 2^-6 of each row's largest
+    output on top of two bf16 ulps (the CPU's plain version and the card
+    round bf16 P, and the output, at other points)."""
+    g = torch.Generator().manual_seed(83)
+    q = torch.randn(2, 5, 256, 64, generator=g).bfloat16()
+    k, v = (torch.randn(2, 5, kn, 64, generator=g).bfloat16()
+            for _ in range(2))
+    want = ka.quantized_attention(q, k, v, **kw).float()
+    got = ka.quantized_attention(q.to(dev), k.to(dev), v.to(dev),
+                                 **kw).float().cpu()
+    _rows_close(got, want, 2 ** -6 + 2 ** -7)

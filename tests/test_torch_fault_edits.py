@@ -16,9 +16,10 @@ from pathlib import Path
 
 import pytest
 
+from sdnq_tpu_torch.kernels._build import _HEADERS as HEADERS
+
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "sdnq_tpu_torch" / "csrc"
-HEADERS = ("common.cuh", "hopper.cuh")
 
 
 def _chip_smoke():
@@ -50,9 +51,7 @@ def test_fault_edits_apply(fault):
     tag, src, kernel, label, edits = fault
     assert (CSRC / f"{src}.cu").is_file(), f"{tag}: no csrc/{src}.cu"
     assert edits, tag
-    edits = list(edits) + (list(CS.WGMMA_WATCHDOG) if src in CS.WATCHED
-                           else [])
-    files = _apply(src, edits)
+    files = _apply(src, CS.build_edits(src, edits))
     assert files[f"{src}.cu"] != (CSRC / f"{src}.cu").read_text() or any(
         files[h] != (CSRC / h).read_text() for h in HEADERS)
 
@@ -61,7 +60,13 @@ def test_fault_edits_apply(fault):
 def test_watchdog_edits_apply(src):
     files = _apply(src, CS.WGMMA_WATCHDOG)
     assert "g_watchdog = 1;" in files["hopper.cuh"]
-    assert '#include "hopper.cuh"' in files[f"{src}.cu"]
+    # the source includes hopper.cuh, itself or through its kernel file
+    text = files[f"{src}.cu"]
+    home = CS.KERNEL_FILES.get(src)
+    if home:
+        assert f'#include "{home}"' in text
+        text = files[home]
+    assert '#include "hopper.cuh"' in text
 
 
 def test_fault_tags_unique_and_counted():
@@ -69,5 +74,5 @@ def test_fault_tags_unique_and_counted():
     assert len(tags) == len(set(tags))
     assert len(tags) >= 40
     slices = set(CS.SLICE_TOL) | set(CS.LLM_SLICE_TOL) | {
-        "qlinear_b8", "train", "ring", "pipeline"}
+        "qlinear_b8", "train", "ring", "pipeline", "unet"}
     assert {f[3] for f in CS.FAULTS} <= slices

@@ -101,6 +101,53 @@ def test_patches_match_conv_general_dilated_patches():
         np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
+# 1-D and 3-D convolutions: (spatial shape, kernel, stride, dilation,
+# padding, groups)
+ND_CASES = {
+    "1d_same_stride2": ((17,), (3,), (2,), (1,), "SAME", 1),
+    "1d_explicit_dilated": ((16,), (3,), (1,), (2,), ((2, 1),), 1),
+    "1d_grouped_valid": ((15,), (4,), (3,), (1,), "VALID", 2),
+    "3d_same": ((5, 6, 7), (3, 3, 3), (1, 2, 1), (1, 1, 1), "SAME", 1),
+    "3d_explicit_dilated_grouped": ((6, 7, 5), (3, 2, 3), (2, 1, 1),
+                                    (1, 2, 2), ((1, 1), (0, 2), (2, 0)), 2),
+}
+
+
+@pytest.mark.parametrize("case", list(ND_CASES))
+def test_patches_and_im2col_any_rank(case):
+    """im2col of 1-D and 3-D convolutions: the patches equal JAX's
+    ``conv_general_dilated_patches`` exactly (channel-major (c, *k)
+    features); ``qconv`` on an int8 weight with the quantized matmul (im2col,
+    per-group codes where grouped) within 1e-5 of max |out| of JAX's, as
+    the 2-D cases."""
+    spatial, kshape, stride, dil, pad, groups = ND_CASES[case]
+    nd = len(spatial)
+    rng = np.random.default_rng(len(case))
+    cin, cout = 4, 6
+    x = rng.normal(size=(2, *spatial, cin)).astype(np.float32)
+    sp = "DHW"[-nd:]
+    ref = jax.lax.conv_general_dilated_patches(
+        jnp.asarray(x), filter_shape=kshape, window_strides=stride,
+        padding=pad, rhs_dilation=dil,
+        dimension_numbers=(f"N{sp}C", f"{sp}IO", f"N{sp}C"))
+    out = _patches(torch.from_numpy(x), kshape, stride, pad, dil)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    w = (rng.normal(size=(cout, cin // groups, *kshape))
+         / np.sqrt(cin * np.prod(kshape))).astype(np.float32)
+    b = rng.normal(size=(cout,)).astype(np.float32)
+    jw = J.quantize_tensor(jnp.asarray(w), "int8", layer_kind="conv",
+                           use_quantized_matmul=True, dequant_dtype="float32")
+    ref = np.asarray(jlayers.qconv(jnp.asarray(x), jw, jnp.asarray(b),
+                                   stride=stride, padding=pad, dilation=dil,
+                                   feature_group_count=groups))
+    got = T.qconv(torch.from_numpy(x), _carry(jw), torch.from_numpy(b),
+                  stride=stride, padding=pad, dilation=dil,
+                  feature_group_count=groups).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+
+
 @pytest.mark.parametrize("route", ["plain", "weight_only", "im2col",
                                    "im2col_weight_only"])
 @pytest.mark.parametrize("stride,pad", [(1, "SAME"),

@@ -6,7 +6,9 @@ the JAX package's, on the same seeded numpy inputs.
   ``partial_out=True``) in interpret mode, at BH 4, N 256, KN 256, D 128
   (one KV block) and at KN 1024 (two blocks of 512, so the online softmax
   and the token mode's per-block P quantization run between blocks); bf16,
-  int8 and int8 + token-mode P·V; no mask, a full mask, the triangle, and
+  int8 and int8 + token-mode P·V, and e4m3 Q·K with bf16 and token-mode
+  P·V (e4m3 values exact on both sides, the products summed in fp32 by
+  JAX and in float64 by the port); no mask, a full mask, the triangle, and
   random holes with one row hidden everywhere (m = -1e30, every p = 1, l =
   KN).  The int8 scores are the same exact integer products times the same
   fp32 scales on both sides, so m agrees to rounding; bf16 scores sum the
@@ -33,7 +35,7 @@ from sdnq_tpu_torch.kernels.attention import (
     flash_attention_block_plain,
 )
 
-MODES = ("bf16", "int8", "int8_token_pv")
+MODES = ("bf16", "int8", "int8_token_pv", "e4m3", "e4m3_token_pv")
 MASKS = (None, "full", "triangle", "holes_false_row")
 
 
@@ -42,10 +44,15 @@ def _inputs(mode, bh, n, kn, d, mask_kind, seed):
     rng = np.random.default_rng(seed)
     sm = d ** -0.5
     quantized = mode != "bf16"
-    pv = mode == "int8_token_pv"
+    pv = mode.endswith("token_pv")
+    if mode.startswith("e4m3"):  # e4m3 values, as fp32 (exact)
+        q, k = (torch.randn(s, generator=torch.Generator().manual_seed(seed))
+                .mul(64).to(torch.float8_e4m3fn).float().numpy()
+                for s in ((bh, n, d), (bh, kn, d)))
     if quantized:
-        q = rng.integers(-127, 128, (bh, n, d)).astype(np.int8)
-        k = rng.integers(-127, 128, (bh, kn, d)).astype(np.int8)
+        if not mode.startswith("e4m3"):
+            q = rng.integers(-127, 128, (bh, n, d)).astype(np.int8)
+            k = rng.integers(-127, 128, (bh, kn, d)).astype(np.int8)
         qs = (rng.random((bh, n)) * 0.02 + 0.005).astype(np.float32) * sm
         ks = (rng.random((bh, kn)) * 0.02 + 0.005).astype(np.float32)
     else:
@@ -79,7 +86,9 @@ def _jax_args(args, mode):
     cast = (lambda a: jnp.asarray(a, jnp.bfloat16))
     jq, jk = ((jnp.asarray(q), jnp.asarray(k)) if mode != "bf16"
               else (cast(q), cast(k)))
-    jv = jnp.asarray(v) if mode == "int8_token_pv" else cast(v)
+    if mode.startswith("e4m3"):
+        jq, jk = (a.astype(jnp.float8_e4m3fn) for a in (jq, jk))
+    jv = jnp.asarray(v) if mode.endswith("token_pv") else cast(v)
     opt = (lambda a: None if a is None else jnp.asarray(a))
     return (jq, jk, jv, opt(qs), opt(ks), opt(vs), opt(mask))
 
@@ -90,7 +99,9 @@ def _torch_args(args, mode):
     tq, tk = t(q), t(k)
     if mode == "bf16":
         tq, tk = tq.to(torch.bfloat16), tk.to(torch.bfloat16)
-    tv = t(v) if mode == "int8_token_pv" else t(v).to(torch.bfloat16)
+    if mode.startswith("e4m3"):
+        tq, tk = tq.to(torch.float8_e4m3fn), tk.to(torch.float8_e4m3fn)
+    tv = t(v) if mode.endswith("token_pv") else t(v).to(torch.bfloat16)
     return (tq, tk, tv, t(qs), t(ks), t(vs), t(mask))
 
 

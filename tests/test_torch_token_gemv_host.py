@@ -1,8 +1,8 @@
 """Host-side pieces of the token-mode attention kernel and of B2's GEMV
-(``csrc/flash_attn.cu``, ``csrc/dequant_gemv.cu``), on the CPU.
+(``csrc/flash_attn.cuh``, ``csrc/dequant_gemv.cu``), on the CPU.
 
 * The V^T layout (``_vt_key``, ``_token_vt_plain``: copies of
-  ``flash_attn.cu``'s ``vt_key`` and ``flash_attn_vt_kernel``, which own
+  ``flash_attn.cuh``'s ``vt_key`` and ``flash_attn_vt_kernel``, which own
   it; the card tests check the kernel's): a permutation of each 16 keys,
   under which the s8 ``wgmma``'s A registers filled from the scores'
   accumulator layout multiply V as P @ V in natural order.
@@ -33,7 +33,7 @@ MAGIC = np.float32(12582912.0)  # 1.5 * 2^23
 
 def _vt_key(kn: int):
     """The key that each slot of the token kernel's V^T holds, for KN keys
-    (``vt_key`` in ``csrc/flash_attn.cu``): within each 16, slot 4 q + i
+    (``vt_key`` in ``csrc/flash_attn.cuh``): within each 16, slot 4 q + i
     holds key 2 q + (i & 1) + 8 (i >> 1) (q, i < 4).  The s8 ``wgmma``'s A
     operand from registers gives thread q of a row's quad the P of slots
     4 q .. 4 q + 3 of each 16-key half of a k32 step; the scores'
