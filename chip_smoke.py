@@ -9,6 +9,9 @@
     python3 chip_smoke.py --phase-4u   # only phase 4u (the SD UNet, with
                                        # its slice and trace), and the
                                        # builds its paths need
+    python3 chip_smoke.py --phases-4m-4b-4o  # only phases 4m, 4b, 4o and
+                                             # 4u's fp16 recipe, with their
+                                             # phase 3 rows
 
 ``--no-faults`` starts no builds of planted faults, so that the timed
 phases have the host's cores to themselves (the default run builds them
@@ -67,8 +70,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               (int8 and e4m3 Q.K) and e4m3 Q.K alone and with token-mode
               P.V, head mode also at FLUX's 24 x 4608^2, D 128, beside
               SDPA and the bf16-P.V kernel; B9 with e4m3 Q.K at FLUX's
-              P = 1 block.  Then B7 against B8 at 32, 64 and 128 rows
-              on four shapes: dequant_mm.I8_BLOCKDIAG_MAX_ROWS must equal
+              P = 1 block; phases 4m-4o's modes (``mbo_rows``):
+              B3 at head dim 100 (OpenLLaMA-3B-v2's prefill and causal
+              shapes, padded to 128), 160, 256 and v's head dim other than
+              q's, through ``quantized_attention`` against the plain
+              version on the unpadded operands; B9 at D 256; B2's e5m2
+              GEMV and tiles at phase 4b's shapes; fp16 x on B2's bit-plane
+              GEMV and tiles, its grouped tiles and B5 at SD1.5's.  Then
+              B7 against B8 at 32, 64 and 128 rows on four shapes: dequant_mm.I8_BLOCKDIAG_MAX_ROWS must equal
               the largest row count at which B8 is the faster on all.
               Prints one {"kernels": [...]} line for the kernels of the
               paths.
@@ -102,16 +111,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 4p. pipeline- ``pipeline_forward`` through create_mesh(fsdp=1) over the
               stack's 37 uniform single-stream blocks, 2 microbatches of
               (1, 4608, 3072): bit-equal to the stacked model's loop.
-4b. uint4   - the same model quantized to uint4 + SVD rank 32 (the
+4w. uint4   - FLUX.1-dev cut to 5 + 10 blocks (FLUX_CUT_DEPTH), quantized
+              to uint4 + SVD rank 32 (the
               published 4-bit recipe) on the weight-only route: 2 requests
               x 4 steps; B5, B6 and attention must launch.
-4c. uint4 q - the same stored tensors on the quantized-matmul route
+4q. uint4 q - the same stored tensors on the quantized-matmul route
               (``use_quantized_matmul`` set on each QTensor's meta): 1
               request x 2 steps; B7 (its int8 decode and int8-fold GEMM),
               B6 and the requantize fallback (B1 + B4, for the 96- and
               120-group layers) must launch.
 4g. dynamic - SDNQ's dynamic per-layer format selection on FLUX.1-dev at
-              full width and depth, each 2-D weight redrawn with a tail
+              full width cut to 5 + 10 blocks, each 2-D weight redrawn
+              with a tail
               from the cycle Gaussian, Student-t 5, 3, 2 (DYN_LAWS): R1
               QuantConfig(weights_dtype="int8", use_dynamic_quantization)
               2 x 4 steps (B2 grouped and bit-plane, tiles and GEMV); R2
@@ -128,8 +139,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               per prefill and per decode step; B1, B2, B4 and the new B3
               modes (masked, GQA, int8 P.V, causal) must launch.  Then one
               uint4 g64 layer through ``qlinear`` at 32 rows: B8 launches.
-4e. train   - FLUX.1-dev training at full width, depth cut to 10 double +
-              20 single blocks (memory: about 9 bytes a quantized weight),
+4e. train   - FLUX.1-dev training at full width, depth cut to 5 double +
+              10 single blocks (memory and the run's time),
               random bf16 weights quantized to int8 (quantized matmul) under
               the Flux skip keys, ``convert_model_to_training``, AdamW with
               8-bit moments, stochastic rounding and Kahan; batch 1 at
@@ -168,6 +179,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               by kernel and mode, the XLA attention's calls a forward;
               then one SDXL DDIM step traced (phase 6) and the UNet slice
               (phase 5).
+4m. moe     - Mixtral-8x7B's expert FFN (``MoEConfig()``: hidden 4096,
+              ff 14336, 8 experts, top-2, capacity factor 1.25) with
+              random weights, ``moe_ffn`` on 4 x 1024 bf16 tokens (1280
+              rows an expert) with the int8 banks on the quantized matmul
+              (B1 + B4 on each expert's layer view: 24 launches of B4 a
+              call) and weight-only (dequantized, B4's bf16 mode): ms a
+              call, the dropped share, the aux loss, each against its
+              all-plain path; one call traced.
+4b. batch   - ``ContinuousBatcher`` over FLUX.1-dev (19 + 38 blocks)
+              with every linear stored as native float8_e5m2,
+              weight-only: 4 slots, 6 requests of 2, 3 and 4 FlowMatch
+              steps at 1024x1024 with 512 text tokens, each with its own
+              seed and schedule (the step function gathers each slot's
+              timestep); efficiency, iterations, slot-steps a second;
+              every request against itself run alone through
+              ``flux_denoise`` at batch 1; one 4-slot step traced; the
+              model's 1 + 2-block slice.
+4o. llm100  - a Llama at OpenLLaMA-3B-v2's widths (hidden 3200, 32
+              heads of 100, ff 8640, 26 layers, vocab 32000), int8 with the
+              quantized matmul: ``generate`` of 4 x 896 + 128 tokens with
+              the int8 KV cache (B3 at head dim 100, padded to 128, token
+              mode; the decode steps at N = 1 on the XLA route) and the
+              causal forward of 2 x 1024 tokens; a prefill and a decode
+              step traced; the 2-layer slice.
+4u16.       - phase 4u's fp16 recipe: SD1.5 at fp16 activations and
+              parameters, its 2-D weights with tails, quantized by the
+              dynamic R1 ladder from int8 (dequant dtype fp16): 1 request
+              x 2 DDIM steps at 512x512 (B2's bit-plane and grouped tiles
+              at fp16 x; the time embedding's GEMV rows at fp32 x), the
+              format histogram, and the SD1.5 slice at fp16.
 4i. files   - model files, written into a temporary directory (free disk
               checked first; removed at the end) and read on the card:
               FLUX.1-dev at full width cut to 2 + 4 blocks (seeded bf16
@@ -203,7 +244,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               layers and 1 + 2 DiT blocks with the whole VAE (2 steps at
               512x512), and the ring at P = 2 on (1, 24, 2304, 128), and
               SD1.5 at full width cut to one resnet a level (one forward
-              at 32x32 latents, fp8 Q.K and head-mode P.V),
+              at 32x32 latents, fp8 Q.K and head-mode P.V; and at fp16
+              with R1), the MoE banks on 512 tokens, the e5m2 FLUX model
+              and OpenLLaMA's 2 layers,
               through the kernels against the all-plain path, both on the
               card (the check swaps each wrapper for its plain version for
               the reference run and verifies no kernel launched in it),
@@ -212,8 +255,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               quantized-matmul, R1 and R2 FLUX models, one prefill and one
               decode step of the int8-KV Llama-3-8B, one text-to-image
               request and one SDXL DDIM step (two UNet forwards at
-              1024x1024), traced with torch.profiler: device time by
-              kernel group, idle share.
+              1024x1024), one MoE call of each bank, one 4-slot e5m2 FLUX
+              step and an OpenLLaMA prefill and decode step, traced with
+              torch.profiler: device time by kernel group, idle share.
 7. faults   - broken copies of the kernel sources (FAULTS: a skipped KV
               tile, a missing rescale, B4 dropping its last K stage and
               its N tail, B8 ignoring the second field plane, a short warp
@@ -249,8 +293,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               transpose swapped, the last slice of a split contraction
               dropped, its split counters left set after a call and the M
               tail dropped, B3's head mode without its log2 127 shift,
-              and its e4m3 Q.K taking the next key's scale), built with
-              the real ones;
+              and its e4m3 Q.K taking the next key's scale, every D-256
+              block writing the first 128 columns, B2's GEMV and decode
+              reading e5m2 codes as e4m3, the bit-plane GEMV rounding fp16
+              weights through bf16), built with the real ones, and
+              Python faults (PY_FAULTS: the tiles casting fp16 x to bf16,
+              the softmax scale taken from the padded head dim) loaded in
+              their modules' place;
               for each in turn phase 3's rows of the kernels built from
               the broken source and phase 5's slice of its path rerun.
               Phase 3 must fail for the broken kernel; phase 5's readings
@@ -511,13 +560,16 @@ def device_ms(torch, fn, symbol, reps: int = 5, seen=None):
 # phase 3: kernels against their plain versions at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def kernel_phase(torch, dev, timed: bool = True, only=None, count=None):
+def kernel_phase(torch, dev, timed: bool = True, only=None, count=None,
+                 mbo_only: bool = False):
     """Each kernel against its plain version; with ``timed`` False only the
     comparison runs (the times are None).  ``only`` (a set of csrc source
     names) keeps the rows of the kernels built from those sources (the
     fault phase's rerun of one broken source); ``count`` (the fault's
-    count key) keeps, of the rows of B3's head mode and e4m3 Q.K and of
-    the UNet shapes, those of that key (``t.fresh``)."""
+    count key) keeps, of the rows of B3's head mode and e4m3 Q.K, of the
+    UNet shapes and of phases 4m-4o's modes, those of that key
+    (``t.fresh``).  ``mbo_only`` keeps phases 4m-4o's rows alone
+    (``--phases-4m-4b-4o``)."""
     import torch.nn.functional as F
     from sdnq_tpu_torch.kernels import attention as ka
     from sdnq_tpu_torch.kernels import dequant_mm as kd
@@ -609,6 +661,9 @@ def kernel_phase(torch, dev, timed: bool = True, only=None, count=None):
                          on_main_path=on_path, path=path,
                          count=count or name, **extra))
 
+    if mbo_only:
+        mbo_rows(torch, dev, g, t, record, runs)
+        return rows
     m = 4608
     # B1, quantize half: fp32 rows into qkv / linear1 / fc1 (K 3072) and
     # bf16 rows into linear2 (K 15360)
@@ -892,6 +947,9 @@ def kernel_phase(torch, dev, timed: bool = True, only=None, count=None):
     # B9 at the block shapes of the rings of phase 4r
     if runs("flash_attn", "flash_attn_e4m3"):
         ring_kernel_rows(torch, dev, g, t, record)
+    # phases 4m-4o's modes: B3 at padded head dims and D 256, B9
+    # at D 256, B2's e5m2 codes and fp16 x on B2 and B5
+    mbo_rows(torch, dev, g, t, record, runs)
 
 
     # B5 / B6 / B7 on uint4 half-split codes, group 128 (the uint4 + SVD
@@ -1499,15 +1557,15 @@ def train_kernel_rows(torch, dev, g, t, record):
 
 # B4 nn at the grad-input GEMMs of the FLUX.1-dev training step (batch 1,
 # 1024 image + 512 text tokens): (M, contraction, N, what, launches a step:
-# the 10 double blocks' image and text streams, the 20 single blocks).
-NN_SHAPES = ((1536, 21504, 3072, "single linear1", 20),
-             (1536, 3072, 15360, "single linear2", 20),
-             (1024, 9216, 3072, "img qkv", 10),
-             (1024, 12288, 3072, "img fc1", 10),
-             (1024, 3072, 12288, "img fc2", 10),
-             (512, 9216, 3072, "txt qkv", 10),
-             (1, 18432, 3072, "img_mod / txt_mod", 20),
-             (1, 9216, 3072, "single modulation", 20))
+# the 5 double blocks' image and text streams, the 10 single blocks).
+NN_SHAPES = ((1536, 21504, 3072, "single linear1", 10),
+             (1536, 3072, 15360, "single linear2", 10),
+             (1024, 9216, 3072, "img qkv", 5),
+             (1024, 12288, 3072, "img fc1", 5),
+             (1024, 3072, 12288, "img fc2", 5),
+             (512, 9216, 3072, "txt qkv", 5),
+             (1, 18432, 3072, "img_mod / txt_mod", 10),
+             (1, 9216, 3072, "single modulation", 10))
 
 
 def nn_rows(torch, dev, g, t, record, library_or_none, padded, linear1_q):
@@ -2553,16 +2611,26 @@ def pipeline_pp_path(torch, dev, stacked):
 # phases 4 and 5
 # ---------------------------------------------------------------------------
 
-def build_model(torch, dev, qconfig, label):
-    """FLUX.1-dev at full width and depth, bf16 weights from a seeded
-    generator on the card, quantized layer by layer with ``qconfig``; the
-    bf16 model is freed afterwards."""
-    from sdnq_tpu_torch import quantize_model
+def flux_config(depth=None):
+    """FLUX.1-dev's config, at ``depth`` (double, single blocks) where
+    given."""
+    import dataclasses
     from sdnq_tpu_torch.models import FLUX_DEV_CONFIG
+    if depth is None:
+        return FLUX_DEV_CONFIG
+    return dataclasses.replace(FLUX_DEV_CONFIG, depth_double=depth[0],
+                               depth_single=depth[1])
+
+
+def build_model(torch, dev, qconfig, label, depth=None):
+    """FLUX.1-dev at full width and depth (or ``depth``), bf16 weights
+    from a seeded generator on the card, quantized layer by layer with
+    ``qconfig``; the bf16 model is freed afterwards."""
+    from sdnq_tpu_torch import quantize_model
     from sdnq_tpu_torch.models.dit import init_dit
 
     t0 = time.perf_counter()
-    params = init_dit(FLUX_DEV_CONFIG, device=dev, dtype=torch.bfloat16,
+    params = init_dit(flux_config(depth), device=dev, dtype=torch.bfloat16,
                       generator=torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -2572,25 +2640,26 @@ def build_model(torch, dev, qconfig, label):
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"{label}: FLUX.1-dev weights built in {t1 - t0:.1f} s, quantized "
+    log(f"{label}: FLUX.1-dev ({flux_config(depth).depth_double} + "
+        f"{flux_config(depth).depth_single} blocks) weights built in "
+        f"{t1 - t0:.1f} s, quantized "
         f"in {time.perf_counter() - t1:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     return qparams
 
 
 def denoise_path(torch, dev, qparams, label, requests, steps, required,
-                 outputs=None):
+                 outputs=None, depth=None):
     """``flux_denoise`` at 1024x1024, 512 text tokens, guidance 3.5:
     ``requests`` requests of ``steps`` steps with the launch counts zeroed
     just before and read just after; every kernel in ``required`` (a count
     key, or a tuple of keys of which one must count) must have launched.
     Returns the counts; the latents are appended to ``outputs`` when it is
-    a list."""
+    a list.  ``depth``: the model's (double, single) blocks where cut."""
     from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from sdnq_tpu_torch.models import FLUX_DEV_CONFIG
     from sdnq_tpu_torch.pipeline import flux_denoise
 
-    cfg = FLUX_DEV_CONFIG
+    cfg = flux_config(depth)
     g = torch.Generator(device=dev).manual_seed(7)
     txt_len, side = 512, 1024
     txt = torch.randn(1, txt_len, cfg.txt_dim, device=dev, generator=g)
@@ -2698,32 +2767,18 @@ def stacked_path(torch, dev, qparams, list_out, required):
 DYN_LAWS = (None, 5, 3, 2)
 
 
-def build_dynamic_model(torch, dev, qconfig, label):
-    """FLUX.1-dev at full width and depth, bf16 weights from a seeded
-    generator with tails (DYN_LAWS), quantized under ``qconfig`` with
-    ``use_dynamic_quantization``.  Prints the format histogram, the
-    quantize seconds and the GiB of the quantized model."""
+def build_dynamic_model(torch, dev, qconfig, label, depth=None):
+    """FLUX.1-dev at full width and depth (or ``depth``), bf16 weights
+    from a seeded generator with tails (DYN_LAWS), quantized under
+    ``qconfig`` with ``use_dynamic_quantization``.  Prints the format
+    histogram, the quantize seconds and the GiB of the quantized model."""
     from sdnq_tpu_torch import QTensor, model_memory_footprint, quantize_model
-    from sdnq_tpu_torch.models import FLUX_DEV_CONFIG
     from sdnq_tpu_torch.models.dit import init_dit
 
     t0 = time.perf_counter()
-    params = init_dit(FLUX_DEV_CONFIG, device=dev, dtype=torch.bfloat16,
+    params = init_dit(flux_config(depth), device=dev, dtype=torch.bfloat16,
                       generator=torch.Generator(device=dev).manual_seed(0))
-    g = torch.Generator(device=dev).manual_seed(3)
-    n = 0
-
-    def tails(tree):
-        nonlocal n
-        for v in (tree.values() if isinstance(tree, dict) else tree):
-            if isinstance(v, (dict, list)):
-                tails(v)
-            elif v.dim() == 2:
-                t = student_t(torch, tuple(v.shape), DYN_LAWS[n % 4], g, dev)
-                v.copy_(t.mul_(v.float().std() / t.std()))
-                n += 1
-                del t
-    tails(params)
+    n = with_tails(torch, dev, params)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     qparams, cfg = quantize_model(
@@ -2744,7 +2799,9 @@ def build_dynamic_model(torch, dev, qconfig, label):
                 qbytes += v.nbytes()
     qsum(qparams)
     hist = {f: len(p) for f, p in sorted(cfg.modules_dtype_dict.items())}
-    log(f"{label}: FLUX.1-dev weights built with tails in {t1 - t0:.1f} s "
+    log(f"{label}: FLUX.1-dev ({flux_config(depth).depth_double} + "
+        f"{flux_config(depth).depth_single} blocks) weights built with "
+        f"tails in {t1 - t0:.1f} s "
         f"({n} 2-D weights), quantized dynamically in {t2 - t1:.1f} s; "
         f"format histogram {json.dumps(hist)}, "
         f"{sum(hist.values())} layers quantized, "
@@ -2849,9 +2906,10 @@ def forward(params, cfg, inp, dev):
 # with the quantized matmul: 1.08e-2, int8 activation codes again.  The
 # dynamic recipes (weight-only, bf16 rounding alone): R1 6.09e-3, R2
 # 6.43e-3; their weights have tails, so a few large outputs carry more
-# of the output rounding than under Gaussian weights.
+# of the output rounding than under Gaussian weights.  e5m2 weight-only
+# (phase 4b's model): 2.07e-3.
 SLICE_TOL = {"int8": 2e-2, "uint4_wo": 6e-3, "uint4_qmm": 2.2e-2,
-             "dyn_r1": 1.2e-2, "dyn_r2": 1.3e-2}
+             "dyn_r1": 1.2e-2, "dyn_r2": 1.3e-2, "e5m2": 4.5e-3}
 
 
 def cut(qparams):
@@ -2908,10 +2966,15 @@ def slice_phase(torch, dev, sliced, label) -> dict:
 # moves the cache.  The bf16 modes also round P against other maxima.
 # Sound readings (max, decode_max, mean): int8 KV 2.34e-2, 6.8e-3, 1.36e-3;
 # bf16 KV 5.00e-2, 9.6e-3, 3.8e-3; causal 4.93e-2 and mean 5.6e-3.
+# Llama-3-8B's slice checks (phase 5)
+LLM_LABELS = ("llm_int8kv", "llm_bf16kv", "llm_causal")
 LLM_SLICE_TOL = {
     "llm_int8kv": {"max": 5e-2, "decode_max": 1.4e-2, "mean": 2.7e-3},
     "llm_bf16kv": {"max": 1e-1, "decode_max": 2e-2, "mean": 7.5e-3},
-    "llm_causal": {"max": 1e-1, "mean": 1.12e-2}}
+    "llm_causal": {"max": 1e-1, "mean": 1.12e-2},
+    # OpenLLaMA-3B-v2's 2-layer slice (phase 4o), Llama-3-8B's limits: it
+    # read 2.49e-2, 7.5e-3 and 1.10e-3
+    "llm100_int8kv": {"max": 5e-2, "decode_max": 1.4e-2, "mean": 2.7e-3}}
 # Limits of the training slice check (loss and every weight gradient of
 # one step on 2 double + 2 single blocks, kernels against plain versions on
 # the card), about twice the sound readings on the H100: "loss", the
@@ -2944,12 +3007,12 @@ def llm_slice_phase(torch, dev, sliced, label) -> dict:
 
     @torch.no_grad()
     def run():
-        if label == "llm_causal":
+        if label.endswith("causal"):
             ids = llm_prompts(torch, dev, cfg, 81, batch=2,
                               n=LLM_PROMPT + LLM_NEW)
             return [llm_forward(params, ids, cfg, device=dev)[0]]
         c = dataclasses.replace(cfg, kv_cache_dtype="int8"
-                                if label == "llm_int8kv" else "bfloat16")
+                                if label.endswith("int8kv") else "bfloat16")
         caches = init_cache(c, LLM_BATCH, LLM_PROMPT + LLM_NEW, device=dev)
         logits, caches = llm_forward(params, llm_prompts(torch, dev, c, 82),
                                      c, caches=caches, device=dev)
@@ -2980,8 +3043,9 @@ def llm_slice_phase(torch, dev, sliced, label) -> dict:
         readings["decode_max"] = max(float(e.max()) for e in errs[1:])
     agree = min(float((o.argmax(-1) == r.argmax(-1)).float().mean())
                 for o, r in zip(out, ref))
-    log(f"slice {label}: 2 of 32 layers at full width, kernels against "
-        f"plain versions; greedy tokens agree {agree:.3f} (worst step)")
+    log(f"slice {label}: 2 layers at full width (head dim {cfg.head_dim}), "
+        f"kernels against plain versions; greedy tokens agree {agree:.3f} "
+        "(worst step)")
     check(all(bool(torch.isfinite(o).all()) for o in out),
           f"slice {label}: logits finite")
     for key, tol in LLM_SLICE_TOL[label].items():
@@ -2998,18 +3062,18 @@ def llm_slice_phase(torch, dev, sliced, label) -> dict:
 LLM_BATCH, LLM_PROMPT, LLM_NEW = 4, 896, 128   # cache 1024: prefill on B3
 
 
-def build_llm(torch, dev):
-    """meta-llama/Meta-Llama-3-8B at full width and depth, bf16 weights
-    from a seeded generator, each layer quantized to int8 (quantized
-    matmul) as soon as it is drawn, so the 16 GB of bf16 never sit whole
-    beside the int8 copy; embed_tokens and lm_head stay bf16 under the
-    policy (quant_embedding off; lm_head a common skip key)."""
+def build_llm(torch, dev, cfg=None, label="llm"):
+    """meta-llama/Meta-Llama-3-8B (or ``cfg``) at full width and depth,
+    bf16 weights from a seeded generator, each layer quantized to int8
+    (quantized matmul) as soon as it is drawn, so the 16 GB of bf16 never
+    sit whole beside the int8 copy; embed_tokens and lm_head stay bf16
+    under the policy (quant_embedding off; lm_head a common skip key)."""
     import dataclasses
     from sdnq_tpu_torch import QuantConfig, quantize_model
     from sdnq_tpu_torch.models import LLAMA3_8B_CONFIG, init_llm
     from sdnq_tpu_torch.models.llm import init_llm_layer
 
-    cfg = LLAMA3_8B_CONFIG
+    cfg = cfg or LLAMA3_8B_CONFIG
     qc = QuantConfig(weights_dtype="int8", use_quantized_matmul=True)
     gen = torch.Generator(device=dev).manual_seed(3)
     t0 = time.perf_counter()
@@ -3026,8 +3090,9 @@ def build_llm(torch, dev):
                                device=dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"llm: Llama-3-8B built and quantized layer by layer in "
-        f"{time.perf_counter() - t0:.1f} s, "
+    log(f"{label}: {cfg.num_layers} layers of hidden {cfg.hidden_size}, "
+        f"{cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim} built "
+        f"and quantized layer by layer in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     return params, cfg
 
@@ -3076,8 +3141,8 @@ def llm_path(torch, dev, params, cfg, label, kv, requests, required):
     per_step = {k: (counts[k] / requests - per_prefill[k]) / (LLM_NEW - 1)
                 for k in counts}
     log(f"{label}: {requests} requests of {LLM_BATCH} x {LLM_PROMPT} prompt "
-        f"tokens + {LLM_NEW} new, KV cache {kv}, Llama-3-8B "
-        f"({cfg.num_layers} layers)")
+        f"tokens + {LLM_NEW} new, KV cache {kv}, {cfg.num_layers} layers, "
+        f"head dim {cfg.head_dim}")
     for r, tr in enumerate(times):
         log(f"{label}: request {r}: {tr:.3f} s, "
             f"{LLM_BATCH * LLM_NEW / tr:.1f} output tokens/s end to end")
@@ -3184,12 +3249,21 @@ def b8_qlinear_check(torch, dev):
 # phase 4e: quantized training of FLUX.1-dev
 # ---------------------------------------------------------------------------
 
+# Depth of the FLUX models of the uint4 + SVD paths (weight-only and
+# quantized matmul) and of the dynamic recipes R1 / R2, of 19 + 38: cut so
+# that the default run, which phases 4m-4o and their faults lengthened
+# by about 170 s, stays within its time (it read 833–1156 s at 10 + 19 as
+# the host varied); their kernels and shapes are the full model's.
+FLUX_CUT_DEPTH = (5, 10)
+
 # Depth of the training model: AdamW training holds about 9 bytes per
 # quantized weight (int8 code 1, fp32 gradient 4, two 8-bit moments with
 # their group scales about 2.03, bf16 Kahan buffer 2), so the full 11.8 B
 # quantized weights (19 + 38 blocks, about 106 GB) do not fit the card's
-# 80 GB; 10 + 20 blocks hold 6.23 B (about 56 GB).
-TRAIN_DEPTH = (10, 20)
+# 80 GB; 10 + 20 blocks hold 6.23 B (about 56 GB).  Cut to 5 + 10 so that
+# the default run, which phases 4m-4o lengthened, stays within its time
+# (the step's kernels and shapes are the full model's).
+TRAIN_DEPTH = (5, 10)
 TRAIN_SIDE, TRAIN_TXT = 512, 512          # 1024 image tokens, 512 text
 TRAIN_STEPS = 3                           # timed, after one warm-up step
 TRAIN_REQUIRED = ("scaled_mm_tn", "scaled_gemm:nn", "quantize_rows:colscale",
@@ -4282,6 +4356,10 @@ def io_phase(torch, dev) -> dict:
 # phase 4u: the SD1.5 / SDXL UNet, DDIM and sd_generate
 # ---------------------------------------------------------------------------
 
+# the sources phases 4m-4o and their rows launch (``--phases-4m-4b-4o``)
+MBO_SOURCES = ("quantize_rows", "scaled_mm", "dequant_gemv",
+                   "decode_weight", "wgmma_mm", "flash_attn",
+                   "flash_attn_d256", "flash_attn_e4m3")
 UNET_SOURCES = ("quantize_rows", "scaled_mm", "dequant_gemv", "decode_weight",
                 "wgmma_mm", "flash_attn", "flash_attn_e4m3")
 UNET_CTX = 77                 # CLIP's text tokens: cross-attention keys
@@ -4381,21 +4459,24 @@ def im2col_counted(counts):
 
 
 def unet_path(torch, dev, params, cfg, vae, vcfg, label, side, requests,
-              steps, attn_config, required):
+              steps, attn_config, required, dtype=None):
     """``sd_generate`` (DDIM, guidance 7.5, 77 text tokens) at side x side:
     ``requests`` requests of ``steps`` steps with the launch counts zeroed
     just before and read just after; the VAE timed alone on a latent of the
     request's shape splits a request into its UNet steps and its VAE.
     Launches per UNet forward by kernel and mode, and the calls of the XLA
     attention function (the 77-key cross-attention) per forward.  Every key
-    in ``required`` must have launched, the images must be finite.  Returns
-    the counts."""
+    in ``required`` must have launched, the images must be finite.  The
+    text states in ``dtype`` where given (the fp16 recipe's).  Returns the
+    counts."""
     from sdnq_tpu_torch.kernels import attention as ka
     from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
     from sdnq_tpu_torch.models import vae_decode
     from sdnq_tpu_torch.pipeline import sd_generate
 
     text, uncond, added = unet_inputs(torch, dev, cfg, 50)
+    if dtype is not None:
+        text, uncond = text.to(dtype), uncond.to(dtype)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -4483,17 +4564,20 @@ def unet_profile_phase(torch, dev, params, cfg, label, side):
     profile_step(torch, f"{label} DDIM step", step)
 
 
-def unet_slice(torch, dev):
+def unet_slice(torch, dev, cfg=None, params=None, dtype=None):
     """SD1.5 at full width cut to one resnet a level (and its transformer),
-    int8 weight-only, for phase 5; with its inputs at 32x32 latents."""
+    int8 weight-only (or ``params`` of ``cfg``), for phase 5; with its
+    inputs at 32x32 latents in ``dtype``."""
     import dataclasses
     from sdnq_tpu_torch.models import SD15_CONFIG
-    cfg = dataclasses.replace(SD15_CONFIG, layers_per_block=1)
-    params = build_unet(torch, dev, cfg, "sd15", seed=41)
+    if cfg is None:
+        cfg = dataclasses.replace(SD15_CONFIG, layers_per_block=1)
+        params = build_unet(torch, dev, cfg, "sd15", seed=41)
     text, _, _ = unet_inputs(torch, dev, cfg, 80)
     g = torch.Generator(device=dev).manual_seed(81)
-    return dict(params=params, cfg=cfg, text=text,
-                x=torch.randn(1, 32, 32, 4, device=dev, generator=g),
+    dtype = dtype or torch.float32
+    return dict(params=params, cfg=cfg, text=text.to(dtype),
+                x=torch.randn(1, 32, 32, 4, device=dev, generator=g).to(dtype),
                 t=torch.full((1,), 601.0, device=dev))
 
 
@@ -4565,6 +4649,710 @@ def unet_phase(torch, dev, traced: bool = True):
 
 
 # ---------------------------------------------------------------------------
+# Phases 4m-4o: MoE (phase 4m), continuous batching (4b), a Llama
+# at head dim 100 (4o), SD1.5 at fp16 (4u's fp16 recipe), and the phase 3
+# rows of their kernel modes
+# ---------------------------------------------------------------------------
+
+# openlm-research/open_llama_3b_v2 config.json: hidden 3200, 26 layers, 32
+# heads and 32 KV heads of 100, intermediate 8640, vocab 32000,
+# LlamaForCausalLM; rms_norm_eps 1e-6 (the eps both packages fix)
+OPENLLAMA_3B_V2 = dict(vocab_size=32000, hidden_size=3200, num_layers=26,
+                       num_heads=32, num_kv_heads=32, head_dim=100,
+                       ff_dim=8640, rope_theta=10000.0)
+MOE_TOKENS = (4, 1024)   # batch x sequence: C = 1280 rows an expert
+# phase 4b: 4 slots, 6 requests of 2, 3 and 4 FlowMatch steps at
+# 1024x1024 with 512 text tokens
+BATCH_SLOTS, BATCH_STEPS = 4, (2, 3, 4, 2, 3, 4)
+BATCH_SIDE, BATCH_TXT = 1024, 512
+# Limits of the new paths' checks, the largest error over the largest
+# output, each about twice its sound reading on the H100 (NVIDIA H100
+# 80GB HBM3, 700 W).  Phase 4m against its all-plain path: int8 with the
+# quantized matmul reads 0 (B1's codes and B4's int8 product and
+# epilogue are bit-equal to their plain versions, and the einsums run
+# alike); the weight-only bank 5.65e-3 (B4's bf16 products summed in
+# another order than the plain fp32 product: the bf16 hidden state and
+# the bf16 output an ulp apart, 2^-8 of the largest output).  Phase 4b,
+# each request against itself alone at batch 1: 3.15e-3 (the same
+# kernels at another M).  Phase 4u's fp16 recipe, the UNet slice at fp16
+# against its plain path: 1.95e-3.
+MBO_TOL = {"moe_qmm": 1e-6, "moe_wo": 1.2e-2, "batch": 7e-3,
+               "sd15_fp16": 4e-3}
+
+
+def with_tails(torch, dev, params, seed: int = 3) -> int:
+    """Every 2-D weight of ``params`` (in place) redrawn at its own std
+    with the tail of DYN_LAWS' cycle; returns the number redrawn."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = 0
+
+    def walk(tree):
+        nonlocal n
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            if isinstance(v, (dict, list)):
+                walk(v)
+            elif v.dim() == 2:
+                t = student_t(torch, tuple(v.shape), DYN_LAWS[n % 4], g, dev)
+                v.copy_(t.mul_(v.float().std() / t.std()))
+                n += 1
+                del t
+    walk(params)
+    return n
+
+
+def mbo_rows(torch, dev, g, t, record, runs):
+    """Phase 3 rows of phases 4m-4o's kernel modes: B3 at head dim
+    100 (OpenLLaMA-3B-v2's, padded to 128) at phase 4o's prefill and
+    causal shapes, at 160, at 256 and with v's head dim other than q's; B9
+    at D 256 on a ring block of the zigzag layout; B2's e5m2 codes (the
+    GEMV at phase 4b's modulation, M = the 4 slots; the tiles at its image
+    qkv), fp16 x on B2's bit-plane GEMV and tiles, its unpacked tiles and
+    B5, at SD1.5's shapes (phase 4u's fp16 recipe).  The B3 rows at padded
+    head dims go through ``quantized_attention`` (its scale, q's own head
+    dim's, and its padding) against the plain version on the unpadded
+    operands; the B2 rows through ``dequant_matmul``."""
+    import torch.nn.functional as F
+    import sdnq_tpu_torch as T
+    from sdnq_tpu_torch.kernels import attention as ka
+    from sdnq_tpu_torch.kernels import dequant_mm as kd
+    from sdnq_tpu_torch.quant.core import quantize_int_mm
+
+    src, rep = ("sdnq_tpu_torch/csrc/flash_attn.cuh",
+                "sdnq_tpu/kernels/attention.py:67")
+    kinds = {"bf16": "bf16", "int8": "int8", "e4m3": "fp8", "token": "int8",
+             "head": "int8"}
+
+    def attn_row(label, b, h, n, kn, d, vd, qk, pv, path, count,
+                 on_path=False, causal=False):
+        q = torch.randn(b, h, n, d, device=dev, generator=g)
+        k = torch.randn(b, h, kn, d, device=dev, generator=g)
+        v = torch.randn(b, h, kn, vd, device=dev, generator=g)
+        qkw = {"bf16": dict(matmul_dtype=None),
+               "int8": dict(matmul_dtype="int8"),
+               "e4m3": dict(matmul_dtype="fp8")}[qk]
+        if pv != "bf16":
+            qkw.update(pv_matmul_dtype="int8", pv_scale_mode=pv)
+        kernel = (lambda: ka.quantized_attention(
+            q, k, v, is_causal=causal, out_dtype=torch.float32, **qkw))
+        got = kernel()
+        args, kw = attn_mode_operands(
+            torch, q.reshape(b * h, n, d), k.reshape(b * h, kn, d),
+            v.reshape(b * h, kn, vd), qk, pv)
+        want = ka.flash_attention_plain(*args, out_dtype=torch.float32,
+                                        causal=causal, **kw)
+        got = got.reshape(b * h, n, vd)
+        err = (got - want).abs()
+        reading = float((err.amax(-1) / want.abs().amax(-1)).max())
+        del got
+        qb, vb = (2 if qk == "bf16" else 1), (2 if pv == "bf16" else 1)
+        pairs = b * h * (n * (n + 1) // 2 if causal else n * kn)
+        moved = (b * h * n * d * qb + b * h * kn * (d * qb + vd * vb)
+                 + (b * h * (n + kn) * 4 if qk != "bf16" else 0)
+                 + (b * h * kn * 4 if pv == "token" else 0)
+                 + b * h * n * vd * 4)
+        bnd = bound_mixed_ms(moved, (2 * d * pairs, kinds[qk]),
+                             (2 * vd * pairs, kinds[pv]))
+        sdpa = None
+        if vd == d:
+            q16, k16, v16 = (x.bfloat16() for x in (q, k, v))
+            sdpa = (lambda: F.scaled_dot_product_attention(
+                q16, k16, v16, is_causal=causal, scale=d ** -0.5))
+        tol = (2 ** -6 if pv == "bf16" else 2 ** -7 if qk == "e4m3"
+               else 2 ** -10)
+        record("flash_attention", "cuda", src, rep, float(err.max()), tol,
+               kernel, t.once(lambda: ka.flash_attention_plain(
+                   *args, causal=causal, **kw)), bnd,
+               t(sdpa) if sdpa else None,
+               f"B{b} H{h} N{n} KN{kn} D{d}" + (f" vD{vd}" if vd != d else "")
+               + f" {qk}-QK {pv}-P.V" + (" causal" if causal else "")
+               + f" ({label}; the kernel's D "
+               f"{ka.kernel_head_dim(max(d, vd))})",
+               on_path=on_path, path=path, count=count, reading=reading,
+               library_fn=sdpa, symbol="flash_attn")
+        del q, k, v, want, args
+
+    if runs("flash_attn"):
+        if t.fresh("flash_attention:padded"):
+            # phase 4o: the prefill of 4 x 896 tokens into the int8 cache
+            # (token mode) and the causal forward (bf16 P.V), D 100 -> 128
+            attn_row("OpenLLaMA prefill", 4, 32, 896, 1024, 100, 100, "int8",
+                     "token", "llm100_int8kv", "flash_attention:padded",
+                     on_path=True)
+            attn_row("OpenLLaMA causal", 2, 32, 1024, 1024, 100, 100,
+                     "int8", "bf16", "llm100_causal",
+                     "flash_attention:padded", on_path=True, causal=True)
+            attn_row("D 160", 1, 32, 2048, 2048, 160, 160, "int8", "bf16",
+                     "llm100_causal", "flash_attention:padded")
+            attn_row("vD != D", 1, 32, 2048, 2048, 100, 128, "int8", "bf16",
+                     "llm100_causal", "flash_attention:padded")
+    if runs("flash_attn_d256") and t.fresh("flash_attention:d256"):
+        attn_row("D 256", 1, 32, 2048, 2048, 256, 256, "int8", "bf16",
+                 "llm100_causal", "flash_attention:d256")
+        attn_row("D 256", 1, 32, 2048, 2048, 256, 256, "int8", "token",
+                 "llm100_causal", "flash_attention:d256")
+        attn_row("D 256 causal", 1, 32, 2048, 2048, 256, 256, "bf16", "bf16",
+                 "llm100_causal", "flash_attention:d256", causal=True)
+    if runs("flash_attn_e4m3") and t.fresh("flash_attention:e4m3_qk"):
+        attn_row("D 256", 1, 32, 2048, 2048, 256, 256, "e4m3", "head",
+                 "llm100_causal", "flash_attention:e4m3_qk")
+
+    # B9 at D 256: a block of the zigzag layout at P = 4 (1024-row chunks),
+    # 32 heads
+    if runs("flash_attn_d256") and t.fresh("flash_attention:d256"):
+        bsrc = "sdnq_tpu/kernels/attention.py:259"
+        for mode in ("bf16", "int8", "int8_token"):
+            q, k, v = (torch.randn(32, 1024, 256, device=dev, generator=g)
+                       for _ in range(3))
+            args, kw = b9_operands(torch, q, k, v, mode)
+            args.append(None)
+            got = ka.flash_attention_block(*args, **kw)
+            want = ka.flash_attention_block_plain(*args, **kw)
+            rd = b9_readings(got, want)
+            tol = B9_TOL.get(mode, B9_TOL["bf16_p"])
+            qb = 1 if mode != "bf16" else 2
+            vb = 1 if mode.endswith("_token") else 2
+            ops = 4 * 256 * 32 * 1024 * 1024
+            moved = 32 * 1024 * 256 * (qb + qb + vb) + 32 * 1024 * 258 * 4
+            bnd = (bound_ms(moved, 0.75 * ops, "bf16") if mode == "int8"
+                   else bound_ms(moved, ops,
+                                 "int8" if mode != "bf16" else "bf16"))
+            q16, k16, v16 = (x.bfloat16()[None] for x in (q, k, v))
+            sdpa = (lambda: F.scaled_dot_product_attention(
+                q16, k16, v16, scale=256 ** -0.5)) if mode == "bf16" else None
+            log(f"B9 D 256 {mode}: readings " + json.dumps(rd) + " limits "
+                + json.dumps(tol))
+            record("flash_attention_block", "cuda", src, bsrc,
+                   float((got[0] / got[2] - want[0] / want[2]).abs().max()),
+                   1.0, lambda: ka.flash_attention_block(*args, **kw),
+                   t(lambda: ka.flash_attention_block_plain(*args, **kw),
+                     reps=3), bnd, t(sdpa) if sdpa else None,
+                   f"BH32 N1024 KN1024 D256 {mode} (Llama-style zigzag "
+                   "block at D 256)", on_path=False, path="ring",
+                   count="flash_attention_block:d256",
+                   reading=max(rd[key] / tol[key] for key in rd),
+                   what="largest reading (out, m, l) over its limit",
+                   readings=rd, limits=tol, library_fn=sdpa)
+            del q, k, v, got, want, args
+
+    def b2_row(label, m, k, o, fmt, gsize, xdt, path, count, on_path=True,
+               seed=0, tails=False):
+        """dequant_matmul on a weight quantized on the card, against the
+        plain version on the same operands: each output's error over 1e-5
+        of its sum of |terms| (the weight rounded to x's type where the
+        kernel rounds it), held against 1."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        w = student_t(torch, (o, k), 3 if tails else None, gen, dev) * 0.02
+        qt = T.quantize_tensor(w, fmt, group_size=gsize)
+        del w
+        meta = qt.meta
+        codes = qt.qdata if meta.is_packed else qt.qdata.reshape(o, -1)
+        scale = qt.scale.reshape(o, -1)
+        zp = None if qt.zero_point is None else qt.zero_point.reshape(o, -1)
+        gs = k // scale.shape[1]
+        x = torch.randn(m, k, device=dev, generator=gen).to(xdt)
+        bias = torch.randn(o, device=dev, generator=gen)
+        args = (x, codes, scale, zp, bias, meta.format, gs)
+        kw = dict(out_dtype=torch.float32, pack_layout=meta.pack_layout)
+        kernel = lambda: kd.dequant_matmul(*args, **kw)  # noqa: E731
+        got = kernel()
+        plain = {"dequant_gemv": kd.dequant_gemv_plain,
+                 "dequant_mm": kd.dequant_mm_plain,
+                 "groupdot_mm": None}[count.split(":")[0]]
+        if plain is None:
+            from sdnq_tpu_torch.kernels.dequant_mm import _group_operands
+            s, zpc = _group_operands(scale, zp, meta.format)
+            pargs = (x, codes, s, zpc, bias, meta.format.code_bits,
+                     torch.float32, meta.format)
+            plain_fn = lambda: kd.groupdot_mm_plain(*pargs)  # noqa: E731
+        else:
+            fmt_arg = meta.format if meta.is_packed else None
+            plain_fn = lambda: plain(x, codes, scale, zp, bias,  # noqa: E731
+                                     torch.float32, fmt_arg)
+        want = plain_fn()
+        wd = T.dequantize(qt, torch.float32)
+        if plain is None:   # B5: each group's exact codes times its scale
+            vals = kd._halfsplit_values(codes, meta.format.code_bits, k,
+                                        meta.format).reshape(o, -1, gs)
+            wx = (vals.abs() * s[..., None] + zpc.abs()[..., None]).reshape(
+                o, k)
+            del vals
+        else:               # the weight as x's type rounds it
+            wx = wd.to(xdt).float()
+        terms = x.float().abs() @ wx.abs().T + bias.abs()
+        reading = float(((got - want).abs() / (1e-5 * terms + 1e-30)).max())
+        wl = wd.to(xdt if xdt != torch.float32 else torch.bfloat16)
+        xl = x if xdt != torch.float32 else x.bfloat16()
+        lib = lambda: F.linear(xl, wl)  # noqa: E731
+        name = count.split(":")[0]
+        codes_b = codes.numel() * codes.element_size()
+        bnd = bound_ms(m * k * x.element_size() + codes_b + o * 8
+                       + m * o * 4, 2 * m * o * k,
+                       "bf16" if xdt != torch.float32 else "fp32")
+        record(name, "cuda",
+               {"dequant_gemv": "sdnq_tpu_torch/csrc/dequant_gemv.cu",
+                "dequant_mm": "sdnq_tpu_torch/csrc/decode_weight.cu + "
+                              "wgmma_mm.cu",
+                "groupdot_mm": "sdnq_tpu_torch/csrc/decode_weight.cu + "
+                               "wgmma_mm.cu"}[name],
+               {"groupdot_mm": "sdnq_tpu/kernels/dequant_mm.py:355"}.get(
+                   name, "sdnq_tpu/kernels/dequant_mm.py:60"),
+               float((got - want).abs().max()), 1.0, kernel,
+               t(plain_fn, reps=3), bnd, t(lib),
+               f"M{m} K{k} -> {o} {fmt} g{gsize if gsize > 0 else 'row'} "
+               f"{str(xdt)[6:]} x ({label})", on_path=on_path, path=path,
+               count=count, reading=reading,
+               what="largest error over 1e-5 of its output's sum of |terms|")
+        del qt, codes, x, got, want, wd, wx, wl
+
+    if runs("dequant_gemv") and t.fresh("dequant_gemv:e5m2"):
+        # phase 4b: a double block's modulation at 4 slots (fp32 vec)
+        b2_row("FLUX modulation, 4 slots", 4, 3072, 18432, "float8_e5m2", 0,
+               torch.float32, "batch_e5m2", "dequant_gemv:e5m2", seed=1)
+    if runs("decode_weight", "wgmma_mm") and t.fresh("dequant_mm:e5m2"):
+        b2_row("FLUX img qkv, 4 slots", 16384, 3072, 9216, "float8_e5m2", 0,
+               torch.bfloat16, "batch_e5m2", "dequant_mm:e5m2", seed=2)
+    if runs("dequant_gemv") and t.fresh("dequant_gemv:fp16"):
+        # SD1.5's time embedding at the doubled batch (R1's bit-plane
+        # formats on weights with tails) at fp16 x: off phase 4u's fp16
+        # recipe, whose time embedding is fp32
+        b2_row("SD1.5 time embedding", 2, 1280, 1280, "float8_e3m4fn", 1024,
+               torch.float16, "sd15_fp16", "dequant_gemv:fp16",
+               on_path=False, seed=3, tails=True)
+        b2_row("SD1.5 time embedding", 2, 320, 1280, "float9_e3m5fn", -1,
+               torch.float16, "sd15_fp16", "dequant_gemv:fp16",
+               on_path=False, seed=4, tails=True)
+    if runs("decode_weight", "wgmma_mm") and t.fresh("dequant_mm:fp16"):
+        # SD1.5 level 0 at 512x512 (2 x 4096 tokens): the GEGLU projection
+        # 320 -> 2560 on R1's bit-plane codes and int8 grouped codes, and
+        # B5 (uint4 g128, off the path) at the same shape
+        b2_row("SD1.5 L0 GEGLU", 8192, 320, 2560, "float9_e3m5fn", -1,
+               torch.float16, "sd15_fp16", "dequant_mm:bitplane", seed=5,
+               tails=True)
+        b2_row("SD1.5 L1 ff out", 2048, 2560, 640, "int8", 1280,
+               torch.float16, "sd15_fp16", "dequant_mm:fp16", seed=6)
+        b2_row("SD1.5 L1 ff out, B5", 2048, 2560, 640, "uint4", 128,
+               torch.float16, "sd15_fp16", "groupdot_mm:fp16",
+               on_path=False, seed=7)
+    torch.cuda.empty_cache()
+
+
+# ---- phase 4m: MoE ---------------------------------------------------------
+
+def moe_banks(torch, dev):
+    """Mixtral-8x7B's expert FFN (``MoEConfig()``) from a seeded generator
+    in bf16, quantized two ways: int8 with the quantized matmul (rowwise
+    int8 codes: B1 + B4) and int8 weight-only (grouped codes, dequantized
+    for B4's bf16 mode)."""
+    from sdnq_tpu_torch.models import MoEConfig, init_moe, quantize_moe
+    cfg = MoEConfig()
+    t0 = time.perf_counter()
+    params = init_moe(cfg, generator=torch.Generator(device=dev).manual_seed(
+        17), device=dev, dtype=torch.bfloat16)
+    qmm = quantize_moe(params, "int8", use_quantized_matmul=True)
+    wo = quantize_moe(params, "int8")
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    nbytes = sum(qmm[k]["weight"].nbytes() for k in ("gate_proj", "up_proj",
+                                                     "down_proj"))
+    log(f"moe: Mixtral-8x7B expert banks ({cfg.num_experts} x "
+        f"{cfg.hidden_size} x {cfg.ff_dim}, top-{cfg.top_k}, capacity "
+        f"{cfg.capacity_factor}) drawn and quantized twice in "
+        f"{time.perf_counter() - t0:.1f} s; int8 banks {nbytes / 1e9:.2f} GB")
+    return cfg, {"moe_qmm": qmm, "moe_wo": wo}
+
+
+def moe_tokens(torch, dev, cfg, seed=18, shape=MOE_TOKENS):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(*shape, cfg.hidden_size, device=dev,
+                       generator=g).bfloat16()
+
+
+def moe_check(torch, dev, cfg, params, label, x) -> dict:
+    """``moe_ffn`` through the kernels against the all-plain path on the
+    card; returns {"max": the largest error over the largest output}."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models import moe_ffn
+    with torch.no_grad():
+        y, aux = moe_ffn(params, x, cfg)
+        reset_launch_counts()
+        with plain_versions():
+            ref, ref_aux = moe_ffn(params, x, cfg)
+    plain = launch_counts()
+    check(not any(plain.values()),
+          f"{label}: the plain path launched no kernel "
+          + json.dumps({k: v for k, v in plain.items() if v}))
+    rel = float((y.float() - ref.float()).abs().max()
+                / ref.float().abs().max())
+    check(rel <= MBO_TOL[label] and bool(torch.isfinite(y).all())
+          and float(aux) == float(ref_aux),
+          f"{label}: kernel path vs plain path rel err {rel:.3e} <= "
+          f"{MBO_TOL[label]:.1e}, aux loss equal")
+    return {"max": rel}
+
+
+def moe_phase(torch, dev, traced: bool = True):
+    """Phase 4m: ``moe_ffn`` at Mixtral-8x7B's expert widths on 4 x 1024
+    bf16 tokens (capacity 1280 rows an expert) with each bank: the launch
+    counts zeroed just before and read just after a call, the time of a
+    call (CUDA events), the dropped-token share and the aux loss, the
+    output against the all-plain path; one call traced.  Returns (counts
+    by label, (cfg, banks) for phase 7's slice)."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models import moe_ffn
+    from sdnq_tpu_torch.models.moe import top_k
+
+    t_start = time.perf_counter()
+    cfg, banks = moe_banks(torch, dev)
+    x = moe_tokens(torch, dev, cfg)
+    t_tok = x.shape[0] * x.shape[1]
+    cap = max(1, int(cfg.capacity_factor * cfg.top_k * t_tok
+                     / cfg.num_experts))
+    with torch.no_grad():   # the routing, as moe_ffn computes it
+        xf = x.reshape(t_tok, -1)
+        probs = torch.softmax(xf.float() @ banks["moe_qmm"]["router"][
+            "weight"].float().T, -1)
+        _, idx = top_k(probs, cfg.top_k)
+        oh = torch.nn.functional.one_hot(idx, cfg.num_experts).int()
+        flat = oh.reshape(-1, cfg.num_experts)
+        pos = ((torch.cumsum(flat, 0) - flat).reshape(oh.shape) * oh).sum(-1)
+        dropped = float((pos >= cap).float().mean())
+        per_expert = oh.sum((0, 1)).tolist()
+    counts = {}
+    required = {"moe_qmm": ("quantize_rows", "scaled_gemm"),
+                "moe_wo": ("scaled_gemm:bf16",)}
+    for label, params in banks.items():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with torch.no_grad():
+            y, aux = moe_ffn(params, x, cfg)
+        torch.cuda.synchronize()
+        counts[label] = launch_counts()
+        with torch.no_grad():
+            ms = time_ms(lambda: moe_ffn(params, x, cfg), reps=3, warmup=1)
+        readings = moe_check(torch, dev, cfg, params, label, x)
+        log(f"{label}: " + json.dumps({
+            "tokens": t_tok, "capacity": cap, "ms_a_call": ms,
+            "tokens_per_s": t_tok / ms * 1e3,
+            "dropped_share": dropped, "choices_per_expert": per_expert,
+            "aux_loss": float(aux), "readings": readings,
+            "launches": {k: v for k, v in counts[label].items() if v}}))
+        for name in required[label]:
+            check(counts[label][name] > 0, f"{label} path launched {name}")
+        check(tuple(y.shape) == tuple(x.shape)
+              and bool(torch.isfinite(y).all()),
+              f"{label} output {tuple(y.shape)} finite")
+        if label == "moe_qmm":
+            check(counts[label]["scaled_gemm"] == 3 * cfg.num_experts,
+                  f"{label}: B4 launched once an expert and projection "
+                  f"({counts[label]['scaled_gemm']})")
+        if traced:
+            profile_step(torch, f"{label} moe_ffn",
+                         torch.no_grad()(lambda: moe_ffn(params, x, cfg)))
+    log(f"moe: phase 4m took {time.perf_counter() - t_start:.1f} s")
+    return counts, (cfg, banks)
+
+
+def moe_slice_phase(torch, dev, sliced) -> dict:
+    """Phase 7's MoE check: the int8 quantized-matmul bank on 512 tokens
+    against its all-plain path."""
+    cfg, banks = sliced
+    x = moe_tokens(torch, dev, cfg, seed=19, shape=(1, 512))
+    return moe_check(torch, dev, cfg, banks["moe_qmm"], "moe_qmm", x)
+
+
+# ---- phase 4b: continuous batching of FLUX.1-dev ---------------------------
+
+def flux_slot_step(params, cfg, freqs, dev):
+    """One flow-matching Euler step of every slot at its own timestep: slot
+    s is at step t_idx[s] of its request's schedule cond["ts"][s] (zeros
+    past its last step), so t and the next t are gathered per slot, and
+    the update is ``flux_denoise``'s; inactive slots keep their latents."""
+    import torch
+    from sdnq_tpu_torch.models.dit import dit_forward
+
+    def step(lat, cond, t_idx, active):
+        rows = torch.arange(lat.shape[0], device=lat.device)
+        # an idle slot may stand past its schedule: any in-range index
+        i = t_idx.long().clamp(max=cond["ts"].shape[1] - 2)
+        t, t_prev = cond["ts"][rows, i], cond["ts"][rows, i + 1]
+        g = torch.full((lat.shape[0],), 3.5, device=lat.device)
+        v = dit_forward(params, lat, cond["txt"], t, cond["pooled"], cfg,
+                        guidance=g, freqs=freqs, device=dev)
+        new = lat + (t_prev - t)[:, None, None] * v.float()
+        return torch.where(active[:, None, None], new, lat)
+    return step
+
+
+def batch_requests(torch, dev, cfg, txt_len=512, steps=BATCH_STEPS):
+    """The queue of phase 4b: a request a step count, each with its own
+    text states, pooled vector, noise seed and FlowMatch schedule (shift
+    3, zeros past its last step)."""
+    from sdnq_tpu_torch.pipeline import FlowMatchScheduler, Request
+    sched = FlowMatchScheduler(shift=3.0)
+    reqs = []
+    for i, n in enumerate(steps):
+        g = torch.Generator(device=dev).manual_seed(200 + i)
+        ts = torch.zeros(max(steps) + 1, device=dev)
+        ts[:n] = sched.timesteps(n, device=dev)
+        reqs.append(Request(i, {
+            "txt": torch.randn(txt_len, cfg.txt_dim, device=dev, generator=g),
+            "pooled": torch.randn(cfg.vec_dim, device=dev, generator=g),
+            "ts": ts}, n, rng_seed=300 + i))
+    return reqs
+
+
+def batch_run(torch, dev, params, cfg, side, txt_len, slots, steps,
+              label, required=(), solo=True):
+    """``ContinuousBatcher`` over ``batch_requests``: the counts zeroed
+    just before the run and read just after, the efficiency, iterations
+    and slot-steps a second; then each request alone through
+    ``flux_denoise`` at batch 1 on the same noise: returns (counts, the
+    largest error of a request over its solo run's largest value)."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models.dit import make_rope_freqs
+    from sdnq_tpu_torch.pipeline import ContinuousBatcher, flux_denoise
+
+    lh = lw = side // 16
+    freqs = make_rope_freqs(cfg, txt_len, (lh, lw), device=dev)
+
+    def init(req):
+        g = torch.Generator(device=dev).manual_seed(req.rng_seed)
+        return torch.randn(lh * lw, cfg.in_channels, device=dev, generator=g)
+
+    reqs = batch_requests(torch, dev, cfg, txt_len, steps)
+    batcher = ContinuousBatcher(flux_slot_step(params, cfg, freqs, dev),
+                                init, slots, max(steps))
+    for r in reqs:
+        batcher.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        done = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    iters = batcher.total_slot_steps // slots
+    log(f"{label}: " + json.dumps({
+        "slots": slots, "requests": len(reqs), "steps": list(steps),
+        "image_tokens": lh * lw, "text_tokens": txt_len,
+        "finish_order": [r.request_id for r in done],
+        "iterations": iters, "efficiency": batcher.efficiency,
+        "seconds": wall, "ms_an_iteration": wall / iters * 1e3,
+        "slot_steps_per_s": batcher.total_slot_steps / wall,
+        "active_slot_steps_per_s": batcher.active_slot_steps / wall,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches_per_iteration": {k: v / iters for k, v in counts.items()
+                                   if v}}))
+    for name in required:
+        check(counts[name] > 0, f"{label} path launched {name}")
+    check(sorted(r.request_id for r in done) == list(range(len(reqs))),
+          f"{label}: every request completed")
+    worst = 0.0
+    if solo:
+        with torch.no_grad():
+            for r in done:
+                ref = flux_denoise(params, r.cond["txt"][None],
+                                   r.cond["pooled"][None], cfg,
+                                   steps=r.num_steps, height=side,
+                                   width=side, latents=init(r)[None],
+                                   device=dev)[0]
+                got = torch.from_numpy(r.result).to(dev)
+                err = float((got - ref).abs().max() / ref.abs().max())
+                worst = max(worst, err)
+                check(bool(torch.isfinite(got).all()),
+                      f"{label}: request {r.request_id} finite")
+        log(f"{label}: each request against its solo run at batch 1: "
+            f"largest error over the largest value {worst:.3e}")
+    return counts, worst
+
+
+def batch_phase(torch, dev, traced: bool = True):
+    """Phase 4b: FLUX.1-dev (19 + 38 blocks) with every linear stored as
+    native float8_e5m2 (weight-only) behind ``ContinuousBatcher``: 4
+    slots, 6 requests of 2, 3 and 4 steps at 1024x1024 with 512 text
+    tokens; each request against its solo run; one 4-slot step traced.
+    Returns (counts, the phase-7 slice)."""
+    from sdnq_tpu_torch import QuantConfig
+    from sdnq_tpu_torch.models import FLUX_DEV_CONFIG
+    from sdnq_tpu_torch.models.dit import make_rope_freqs
+
+    t_start = time.perf_counter()
+    cfg = FLUX_DEV_CONFIG
+    qparams = build_model(torch, dev, QuantConfig(
+        weights_dtype="float8_e5m2"), "batch_e5m2")
+    counts, worst = batch_run(
+        torch, dev, qparams, cfg, BATCH_SIDE, BATCH_TXT, BATCH_SLOTS,
+        BATCH_STEPS,
+        "batch_e5m2", required=("dequant_gemv:e5m2", "dequant_mm:e5m2",
+                                "flash_attention"))
+    check(worst <= MBO_TOL["batch"],
+          f"batch_e5m2: every request equals its solo run within "
+          f"{MBO_TOL['batch']:.1e} ({worst:.3e})")
+    if traced:
+        hw = BATCH_SIDE // 16
+        freqs = make_rope_freqs(cfg, BATCH_TXT, (hw, hw), device=dev)
+        step = flux_slot_step(qparams, cfg, freqs, dev)
+        reqs = batch_requests(torch, dev, cfg, BATCH_TXT)[:BATCH_SLOTS]
+        g = torch.Generator(device=dev).manual_seed(5)
+        lat = torch.randn(BATCH_SLOTS, hw * hw, cfg.in_channels, device=dev,
+                          generator=g)
+        cond = {k: torch.stack([r.cond[k] for r in reqs])
+                for k in ("txt", "pooled", "ts")}
+        t_idx = torch.zeros(BATCH_SLOTS, dtype=torch.int32, device=dev)
+        active = torch.ones(BATCH_SLOTS, dtype=torch.bool, device=dev)
+        profile_step(torch, "batch_e5m2 4-slot step", torch.no_grad()(
+            lambda: step(lat, cond, t_idx, active)))
+    sliced = cut(qparams)
+    slice_phase(torch, dev, sliced, "e5m2")
+    del qparams
+    torch.cuda.empty_cache()
+    log(f"batch: phase 4b took {time.perf_counter() - t_start:.1f} s")
+    return counts, sliced
+
+
+# ---- phase 4o: a Llama at head dim 100 ------------------------------------
+
+def llm100_phase(torch, dev, traced: bool = True):
+    """Phase 4o: OpenLLaMA-3B-v2's widths (head dim 100, padded to the
+    kernel's 128) with int8 weights and the quantized matmul through
+    ``llm_path`` (1 request of 4 x 896 prompt tokens into the int8 cache
+    of 1024, 128 new tokens; the decode step at N = 1 on the XLA route, as
+    in the JAX package) and the causal forward of 2 x 1024 tokens; a
+    prefill and a decode step traced.  Returns (counts by label, the
+    phase-7 slice)."""
+    import dataclasses
+    from sdnq_tpu_torch.kernels import attention as ka
+    from sdnq_tpu_torch.models import LLMConfig
+
+    t_start = time.perf_counter()
+    cfg = LLMConfig(**OPENLLAMA_3B_V2)
+    params, cfg = build_llm(torch, dev, cfg, "llm100")
+    counts = {}
+    ka.attention_xla.calls = 0
+    counts["llm100_int8kv"] = llm_path(
+        torch, dev, params, cfg, "llm100_int8kv", "int8", 1,
+        ("quantize_rows", "scaled_gemm", "dequant_gemv",
+         "flash_attention:padded", "flash_attention:int8_pv",
+         "flash_attention:masked"))
+    check(ka.attention_xla.calls > 0,
+          f"llm100_int8kv: the decode steps (N = 1) took the XLA route "
+          f"({ka.attention_xla.calls} calls)")
+    log(f"llm100_int8kv: {ka.attention_xla.calls} attention_xla calls "
+        "(the decode steps at N = 1: the JAX package's XLA route)")
+    counts["llm100_causal"] = llm_causal_path(
+        torch, dev, params, cfg, "llm100_causal",
+        ("quantize_rows", "scaled_gemm", "flash_attention:padded",
+         "flash_attention:causal"))
+    if traced:
+        llm_profile_phase(torch, dev, params, cfg, "llm100_int8kv")
+    sliced = cut_llm(params, cfg)
+    llm_slice_phase(torch, dev, sliced, "llm100_int8kv")
+    del params
+    torch.cuda.empty_cache()
+    log(f"llm100: phase 4o took {time.perf_counter() - t_start:.1f} s")
+    return counts, sliced
+
+
+# ---- phase 4u's fp16 recipe -------------------------------------------------
+
+def build_unet_fp16(torch, dev, cfg, label, seed=43):
+    """SD1.5 at fp16 parameters from a seeded generator, its 2-D weights
+    redrawn with tails (as phase 4g's), quantized with the dynamic R1
+    ladder from int8 (dequant dtype fp16); prints the format histogram."""
+    from sdnq_tpu_torch import QuantConfig, quantize_model
+    from sdnq_tpu_torch.models import init_unet
+    t0 = time.perf_counter()
+    params = init_unet(cfg, generator=torch.Generator(device=dev).manual_seed(
+        seed), device=dev, dtype=torch.float16)
+    n = with_tails(torch, dev, params)
+    qc = QuantConfig(weights_dtype="int8", use_dynamic_quantization=True,
+                     dequant_dtype="float16")
+    t1 = time.perf_counter()
+    qparams, qcfg = quantize_model(params, qc, arch="SD15UNet", device=dev)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    hist = {f: len(p) for f, p in sorted(qcfg.modules_dtype_dict.items())}
+    log(f"{label}: SD1.5 UNet at fp16 ({n} 2-D weights with tails) built in "
+        f"{t1 - t0:.1f} s, quantized dynamically in "
+        f"{time.perf_counter() - t1:.1f} s; format histogram "
+        f"{json.dumps(hist)}, {tree_bytes(qparams) / 2**30:.2f} GiB")
+    return qparams
+
+
+def unet_fp16_phase(torch, dev):
+    """Phase 4u's fp16 recipe: SD1.5 at fp16 activations and parameters
+    (the dtype diffusers runs SD1.5 in) with the dynamic R1 ladder from
+    int8, 1 request x 2 DDIM steps at 512x512 through ``sd_generate``
+    (B2's bit-plane and unpacked tiles at fp16 x), the SD VAE in bf16 as
+    phase 4u's (its random weights could overflow fp16); then the UNet
+    slice at fp16 against its plain path.  The UNet's time embedding is
+    fp32 (its sinusoidal features are, in both packages), so its MLP and
+    the resnets' time projections (2 rows: B2's GEMV) take fp32 x; the
+    GEMV at fp16 x is held in phase 3.  Returns (counts, the phase-7
+    slice)."""
+    import dataclasses
+    from sdnq_tpu_torch.models import SD15_CONFIG, SD_VAE_CONFIG, init_vae
+
+    t_start = time.perf_counter()
+    vae = init_vae(SD_VAE_CONFIG, generator=torch.Generator(
+        device=dev).manual_seed(42), device=dev, dtype=torch.bfloat16)
+    params = build_unet_fp16(torch, dev, SD15_CONFIG, "sd15_fp16")
+    counts = unet_path(torch, dev, params, SD15_CONFIG, vae, SD_VAE_CONFIG,
+                       "sd15_fp16", 512, 1, 2, None,
+                       ("dequant_mm:fp16", "dequant_mm:bitplane"),
+                       dtype=torch.float16)
+    log("sd15_fp16: B2 launches at fp16 x " + json.dumps({
+        k: counts[k] for k in ("dequant_mm", "dequant_mm:fp16",
+                               "dequant_gemv", "dequant_gemv:fp16")})
+        + "; the GEMV's rows (the time embedding's, 2 rows) take fp32 x")
+    del params, vae
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(SD15_CONFIG, layers_per_block=1)
+    sliced = unet_slice(torch, dev, cfg=cfg, params=build_unet_fp16(
+        torch, dev, cfg, "sd15_fp16 slice", seed=44), dtype=torch.float16)
+    unet_fp16_slice_phase(torch, dev, sliced)
+    log(f"unet: the fp16 recipe took {time.perf_counter() - t_start:.1f} s")
+    return counts, sliced
+
+
+def unet_fp16_slice_phase(torch, dev, sliced) -> dict:
+    """The fp16 UNet slice, one forward with "auto" attention, through the
+    kernels against the all-plain path on the card."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models import unet_forward
+
+    def run():
+        with torch.no_grad():
+            return unet_forward(sliced["params"], sliced["x"], sliced["t"],
+                                sliced["text"], sliced["cfg"],
+                                device=dev).float()
+    reset_launch_counts()
+    out = run()
+    launched = launch_counts()
+    reset_launch_counts()
+    with plain_versions():
+        ref = run()
+    plain = launch_counts()
+    check(launched["dequant_mm:fp16"] > 0,
+          "slice sd15_fp16: the kernel path ran B2's tiles at fp16 x")
+    check(not any(plain.values()),
+          "slice sd15_fp16: the plain path launched no kernel "
+          + json.dumps(plain))
+    rel = float((out - ref).abs().max() / ref.abs().max())
+    tol = MBO_TOL["sd15_fp16"]
+    log("slice sd15_fp16: SD1.5 at fp16, one resnet a level, R1 from int8, "
+        f"32x32 latents, kernels against plain versions: {rel:.3e}")
+    check(rel <= tol and bool(torch.isfinite(out).all()),
+          f"slice sd15_fp16: kernel path vs plain path rel err {rel:.3e} <= "
+          f"{tol:.1e}")
+    return {"max": rel}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: where one denoise step spends its device time
 # ---------------------------------------------------------------------------
 
@@ -4588,9 +5376,9 @@ _GROUPS = (
     ("B3 / B9 int8 P.V: V^T copy", ("flash_attn_vt_kernel",)),
     ("B9 flash_attention_block (bf16 / int8 / e4m3 Q.K; bf16 or token-mode "
      "int8 P.V)",
-     tuple(f"flash_attn_{kern}_kernel<128, {qk}, {m}, true>"
-           for kern in ("wgmma", "tok") for qk in (0, 1, 2)
-           for m in ("false", "true"))),
+     tuple(f"flash_attn_{kern}_kernel<{d}, {qk}, {m}, true>"
+           for kern in ("wgmma", "tok") for d in (128, 256)
+           for qk in (0, 1, 2) for m in ("false", "true"))),
     ("B3 flash_attention", ("flash_attn_wgmma_kernel",)),
     ("B6 blockdiag_mm general (multi-plane, minifloat)",
      tuple(f"blockdiag_mm_kernel<{b}, true" for b in range(1, 8))
@@ -4612,19 +5400,18 @@ _GROUPS = (
 )
 
 
-def profile_phase(torch, dev, qparams, label):
-    """One Euler step of the full FLUX.1-dev model, traced."""
-    from sdnq_tpu_torch.models import FLUX_DEV_CONFIG
-
-    cfg = FLUX_DEV_CONFIG
+def profile_phase(torch, dev, qparams, label, depth=None):
+    """One Euler step of the FLUX.1-dev model (at ``depth`` where cut),
+    traced."""
+    cfg = flux_config(depth)
     inp = dit_inputs(torch, dev, cfg)
     profile_step(torch, label, lambda: inp["img"] + (-0.25) * forward(
         qparams, cfg, inp, dev).float())
 
 
-def llm_profile_phase(torch, dev, params, cfg):
+def llm_profile_phase(torch, dev, params, cfg, label="llm_int8kv"):
     """One prefill (4 x 896 tokens into a fresh int8 cache of 1024) and one
-    decode step (4 x 1 token at position 896) of Llama-3-8B, traced."""
+    decode step (4 x 1 token at position 896) of the model, traced."""
     import dataclasses
     from sdnq_tpu_torch.models import init_cache, llm_forward
 
@@ -4646,8 +5433,8 @@ def llm_profile_phase(torch, dev, params, cfg):
                     positions=torch.full((LLM_BATCH, 1), LLM_PROMPT,
                                          device=dev))
 
-    profile_step(torch, "llm_int8kv prefill", prefill)
-    profile_step(torch, "llm_int8kv decode", decode)
+    profile_step(torch, f"{label} prefill", prefill)
+    profile_step(torch, f"{label} decode", decode)
 
 
 def profile_step(torch, label, step, warm: int = 1, after: int = 2):
@@ -4763,7 +5550,7 @@ FAULTS = (
     ("attn_causal_skip_one_tile_early", "flash_attn",
      "flash_attention:causal", "llm_causal",
      [("return a.causal ? min(a.KN, q0 + bq) : a.KN;",
-       "return a.causal ? min(a.KN, q0 + bq - BN) : a.KN;")]),
+       "return a.causal ? min(a.KN, q0 + bq - 128) : a.KN;")]),
     ("attn_gqa_head_modulo", "flash_attn", "flash_attention:int8_pv",
      "llm_int8kv", [("return (bh / a.H) * KH + hh / a.qpk;",
                      "return (bh / a.H) * KH + hh % KH;")]),
@@ -4825,8 +5612,8 @@ FAULTS = (
     ("gemm_full_barrier_phase_off_by_one", "wgmma_mm", "wgmma_mm:bias",
      "pipeline", [("mbar_wait(&full[s], ph);", "mbar_wait(&full[s], ph ^ 1);")]),
     ("b5_group_restarts_one_k_step_late", "wgmma_mm", "wgmma_mm:fold",
-     "uint4_wo", [("wgmma128(p, da + 2 * kk, db + 2 * kk, step != 0);",
-                   "wgmma128(p, da + 2 * kk, db + 2 * kk, step != 1);")]),
+     "uint4_wo", [("mma128<AT>(p, da + 2 * kk, db + 2 * kk, step != 0);",
+                   "mma128<AT>(p, da + 2 * kk, db + 2 * kk, step != 1);")]),
     ("gemm_epilogue_drops_the_n_tail", "wgmma_mm", "wgmma_mm:tail",
      "pipeline", [("hopper.cuh", "const int ncols = min(BN, N - n0);",
                    "const int ncols = N - n0 < BN ? 0 : BN;")]),
@@ -4910,6 +5697,36 @@ FAULTS = (
      "flash_attention:e4m3_qk", "unet",
      [("(x, i < 2 ? qs0 : qs1), sks[c]);",
        "(x, i < 2 ? qs0 : qs1), sks[c ^ 1]);")]),
+    ("attn_d256_blocks_all_write_the_first_columns", "flash_attn_d256",
+     "flash_attention:d256", "ring",
+     [("const int c0 = blockIdx.z * NDT * 8;", "const int c0 = 0;")]),
+    ("gemv_decodes_e5m2_as_e4m3", "dequant_gemv", "dequant_gemv:e5m2",
+     "e5m2", [("e5m2 ? __NV_E5M2 : __NV_E4M3", "__NV_E4M3")]),
+    ("decode_reads_e5m2_as_e4m3", "decode_weight", "dequant_mm:e5m2",
+     "e5m2", [("  if constexpr (KIND == E5M2) {  // the high byte of an fp16",
+               "  if constexpr (false) {  // the high byte of an fp16")]),
+    ("bitplane_gemv_rounds_fp16_weights_through_bf16", "dequant_gemv",
+     "dequant_gemv:fp16", "sd15_fp16",
+     [("    const __half2 a = __floats2half2_rn(w[0], w[1]);",
+       "    const __half2 a = __floats2half2_rn(__bfloat162float("
+       "__float2bfloat16_rn(w[0])), w[1]);")]),
+)
+
+# Faults of the Python wrappers: (tag, module under sdnq_tpu_torch/, the
+# csrc sources whose phase 3 rows rerun, kernel, slice, [(text, broken
+# text)]).  The module is loaded again from its broken text in its place
+# (``module_swapped``) while phase 3 reruns.
+PY_FAULTS = (
+    ("tiles_cast_fp16_x_to_bf16", "kernels/dequant_mm.py",
+     ("decode_weight", "wgmma_mm"), "dequant_mm:fp16", "sd15_fp16",
+     [("    if is_cuda(x) and x.dtype == torch.float32:\n"
+       "        return x.to(torch.bfloat16)",
+       "    if is_cuda(x) and x.dtype != torch.bfloat16:\n"
+       "        return x.to(torch.bfloat16)")]),
+    ("attn_softmax_scale_of_the_padded_head_dim", "kernels/attention.py",
+     ("flash_attn",), "flash_attention:padded", "llm100_int8kv",
+     [("        scale = d ** -0.5",
+       "        scale = kernel_head_dim(d) ** -0.5")]),
 )
 
 
@@ -4918,7 +5735,8 @@ FAULTS = (
 # a flag, where the sound build traps after 2^36: a broken barrier then
 # ends in a wrong result that phase 3 reads, not in a failed launch that
 # ends the process.
-WATCHED = ("wgmma_mm", "flash_attn", "flash_attn_e4m3", "scaled_mm",
+WATCHED = ("wgmma_mm", "flash_attn", "flash_attn_e4m3", "flash_attn_d256",
+           "scaled_mm",
            "scaled_mm_tn", "dequant_gemv")
 WGMMA_WATCHDOG = (
     ("hopper.cuh", "// ---- mbarriers",
@@ -4940,7 +5758,8 @@ extern "C" int sdnq_wgmma_watchdog(int* fired) {
 # The file a fault's (text, broken text) edits apply to: its source, or
 # for the two flash attention libraries the kernels they share.
 KERNEL_FILES = {"flash_attn": "flash_attn.cuh",
-                "flash_attn_e4m3": "flash_attn.cuh"}
+                "flash_attn_e4m3": "flash_attn.cuh",
+                "flash_attn_d256": "flash_attn.cuh"}
 
 
 def build_edits(src, edits) -> list:
@@ -5018,6 +5837,42 @@ def library_swapped(name, lib_path):
         use(real)
 
 
+def py_fault_text(rel, edits) -> str:
+    """The text of sdnq_tpu_torch/``rel`` with ``edits`` applied; raises
+    where one's text is not there."""
+    text = (ROOT / "sdnq_tpu_torch" / rel).read_text()
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"{rel}: {old!r} not found")
+        text = text.replace(old, new)
+    return text
+
+
+@contextlib.contextmanager
+def module_swapped(tag, rel, edits):
+    """sdnq_tpu_torch/``rel`` loaded again from its broken text (written
+    under _build/faults/<tag>/) under its own name, in its place in
+    ``sys.modules`` and in its package, while the block runs."""
+    import importlib.util
+    from sdnq_tpu_torch.kernels import _build
+    name = "sdnq_tpu_torch." + rel[:-3].replace("/", ".")
+    parent, attr = name.rsplit(".", 1)
+    path = _build.build_dir() / "faults" / tag / Path(rel).name
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(py_fault_text(rel, edits))
+    spec = importlib.util.spec_from_file_location(name, path)
+    broken = importlib.util.module_from_spec(spec)
+    real = sys.modules[name]
+    sys.modules[name] = broken
+    try:
+        spec.loader.exec_module(broken)
+        setattr(sys.modules[parent], attr, broken)
+        yield
+    finally:
+        sys.modules[name] = real
+        setattr(sys.modules[parent], attr, real)
+
+
 def fault_phase(torch, dev, slices, procs):
     """Rerun phase 3 (untimed; the rows of the kernels built from the
     broken source) and phase 5's slice of the fault's path with each planted
@@ -5029,7 +5884,9 @@ def fault_phase(torch, dev, slices, procs):
     all_tol = {**{k: {"max": v} for k, v in SLICE_TOL.items()},
                **LLM_SLICE_TOL, "qlinear_b8": {"max": 2 ** -7},
                "train": TRAIN_SLICE_TOL, "pipeline": PIPE_SLICE_TOL,
-               "ring": {"max": RING_SLICE_TOL}, "unet": UNET_SLICE_TOL}
+               "ring": {"max": RING_SLICE_TOL}, "unet": UNET_SLICE_TOL,
+               "moe": {"max": MBO_TOL["moe_qmm"]},
+               "sd15_fp16": {"max": MBO_TOL["sd15_fp16"]}}
     for tag, (proc, _) in procs.items():
         if proc.wait() != 0:
             check(False, f"fault {tag}: broken source built")
@@ -5059,8 +5916,26 @@ def fault_phase(torch, dev, slices, procs):
             watchdog_fired=watchdog))
         check(any(r["count"] == kernel for r in caught),
               f"fault {tag}: phase 3 fails {kernel}")
+    for tag, rel, sources, kernel, label, edits in PY_FAULTS:
+        sound = list(FAILURES)
+        with module_swapped(tag, rel, edits):
+            rows = kernel_phase(torch, dev, timed=False, only=set(sources),
+                                count=kernel)
+            readings = slices[label]()
+        FAILURES[:] = sound  # the checks were meant to fail here
+        caught = [r for r in rows if not r["reading"] <= r["tolerance"]]
+        tol = all_tol[label]
+        results.append(dict(
+            fault=tag, kernel=kernel, module=rel,
+            phase3_failed=[f"{r['count']} {r['shape']}: {r['reading']:.3e}"
+                           f" > {r['tolerance']:.3e} (max_abs_err "
+                           f"{r['max_abs_err']:.3e})" for r in caught],
+            slice=label, slice_readings=readings, slice_tol=tol,
+            slice_failed=sorted(k for k in tol if not readings[k] <= tol[k])))
+        check(any(r["count"] == kernel for r in caught),
+              f"fault {tag}: phase 3 fails {kernel}")
     log("faults: " + json.dumps(results))
-    log(f"fault phase: {len(FAULTS)} faults in "
+    log(f"fault phase: {len(FAULTS) + len(PY_FAULTS)} faults in "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -5173,9 +6048,11 @@ def main() -> int:
         b1_only = "--b1-probes" in sys.argv[1:]
         io_only = "--phase-4i" in sys.argv[1:]
         unet_only = "--phase-4u" in sys.argv[1:]
+        mbo_only = "--phases-4m-4b-4o" in sys.argv[1:]
         secs = _build.build(("quantize_rows", "scaled_mm") if b1_only
                             else IO_SOURCES if io_only
                             else UNET_SOURCES if unet_only
+                            else MBO_SOURCES if mbo_only
                             else _build.SOURCES)
         log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
             + json.dumps({k: round(v, 1) for k, v in secs.items()}))
@@ -5188,6 +6065,14 @@ def main() -> int:
         if unet_only:
             unet_phase(torch, dev)
             return 1 if FAILURES else 0
+        if mbo_only:
+            rows = kernel_phase(torch, dev, mbo_only=True)
+            mark("phase 3 (phases 4m-4o's rows)")
+            counts = mbo_phases(torch, dev, mark)[0]
+            for row in rows:
+                row["launches"] = (counts[row["path"]][row["count"]]
+                                   if row["on_main_path"] else 0)
+            return finish(torch, rows, t_start)
         # the crossover's timing decides a route: on a quiet host, before
         # the fault builds (after the real sources, which then have the
         # host's cores) start
@@ -5223,23 +6108,23 @@ def main() -> int:
         qparams = build_model(
             torch, dev,
             QuantConfig(weights_dtype="uint4", use_svd=True, svd_rank=32),
-            "uint4_wo")
+            "uint4_wo", depth=FLUX_CUT_DEPTH)
         counts["uint4_wo"] = denoise_path(
             torch, dev, qparams, "uint4_wo", 2, 4,
             ("groupdot_mm", "decode_weight:halfsplit", "wgmma_mm:fold",
-             "blockdiag_mm", "flash_attention"))
+             "blockdiag_mm", "flash_attention"), depth=FLUX_CUT_DEPTH)
         qmm = with_quantized_matmul(qparams)
         counts["uint4_qmm"] = denoise_path(
             torch, dev, qmm, "uint4_qmm", 1, 2,
             ("groupdot_i8_mm", "decode_weight:halfsplit_i8",
              "wgmma_mm:fold_i8", "blockdiag_mm", "quantize_rows",
-             "scaled_gemm", "flash_attention"))
+             "scaled_gemm", "flash_attention"), depth=FLUX_CUT_DEPTH)
         slices["uint4_wo"] = cut(qparams)
         slices["uint4_qmm"] = cut(qmm)
         slice_phase(torch, dev, slices["uint4_wo"], "uint4_wo")
         slice_phase(torch, dev, slices["uint4_qmm"], "uint4_qmm")
-        profile_phase(torch, dev, qparams, "uint4_wo")
-        profile_phase(torch, dev, qmm, "uint4_qmm")
+        profile_phase(torch, dev, qparams, "uint4_wo", FLUX_CUT_DEPTH)
+        profile_phase(torch, dev, qmm, "uint4_qmm", FLUX_CUT_DEPTH)
         del qparams, qmm
         torch.cuda.empty_cache()
         mark("FLUX uint4")
@@ -5260,12 +6145,14 @@ def main() -> int:
                   ("groupdot_mm:multiplane", "groupdot_mm:minifloat"),
                   ("blockdiag_mm:multiplane", "blockdiag_mm:minifloat"),
                   "flash_attention"))):
-            qparams = build_dynamic_model(torch, dev, qc, label)
+            qparams = build_dynamic_model(torch, dev, qc, label,
+                                          FLUX_CUT_DEPTH)
             counts[label] = denoise_path(torch, dev, qparams, label,
-                                         requests, 4, required)
+                                         requests, 4, required,
+                                         depth=FLUX_CUT_DEPTH)
             slices[label] = cut(qparams)
             slice_phase(torch, dev, slices[label], label)
-            profile_phase(torch, dev, qparams, label)
+            profile_phase(torch, dev, qparams, label, FLUX_CUT_DEPTH)
             del qparams
             torch.cuda.empty_cache()
 
@@ -5286,7 +6173,7 @@ def main() -> int:
              "flash_attention:gqa"))
         decode_attention_ms(torch, dev)
         llm_cut = cut_llm(params, lcfg)
-        for label in LLM_SLICE_TOL:
+        for label in LLM_LABELS:
             llm_slice_phase(torch, dev, llm_cut, label)
         llm_profile_phase(torch, dev, params, lcfg)
         del params
@@ -5315,6 +6202,8 @@ def main() -> int:
         unet_counts, unet_cut = unet_phase(torch, dev)
         counts.update(unet_counts)
         mark("phase 4u")
+        mbo_counts, mbo_cuts = mbo_phases(torch, dev, mark)
+        counts.update(mbo_counts)
 
         for row in rows:
             row["launches"] = (counts[row["path"]][row["count"]]
@@ -5323,7 +6212,14 @@ def main() -> int:
                                                        slices[lb], lb))
                   for label in slices}
         checks.update({label: (lambda lb=label: llm_slice_phase(
-            torch, dev, llm_cut, lb)) for label in LLM_SLICE_TOL})
+            torch, dev, llm_cut, lb)) for label in LLM_LABELS})
+        checks["e5m2"] = lambda: slice_phase(torch, dev, mbo_cuts["e5m2"],
+                                             "e5m2")
+        checks["moe"] = lambda: moe_slice_phase(torch, dev, mbo_cuts["moe"])
+        checks["llm100_int8kv"] = lambda: llm_slice_phase(
+            torch, dev, mbo_cuts["llm100"], "llm100_int8kv")
+        checks["sd15_fp16"] = lambda: unet_fp16_slice_phase(
+            torch, dev, mbo_cuts["sd15_fp16"])
         checks["qlinear_b8"] = lambda: {"max": b8_qlinear_check(torch,
                                                                 dev)[1]}
         checks["train"] = lambda: train_slice_phase(torch, dev, train_cut)
@@ -5341,6 +6237,29 @@ def main() -> int:
                 proc.kill()
                 proc.wait()
 
+    return finish(torch, rows, t_start)
+
+
+def mbo_phases(torch, dev, mark):
+    """Phases 4m, 4b, 4o and 4u's fp16 recipe, in turn; returns (their
+    counts by path label, their phase-7 slices)."""
+    counts, cuts = {}, {}
+    moe_counts, cuts["moe"] = moe_phase(torch, dev)
+    counts.update(moe_counts)
+    mark("phase 4m")
+    counts["batch_e5m2"], cuts["e5m2"] = batch_phase(torch, dev)
+    mark("phase 4b")
+    llm100_counts, cuts["llm100"] = llm100_phase(torch, dev)
+    counts.update(llm100_counts)
+    mark("phase 4o")
+    counts["sd15_fp16"], cuts["sd15_fp16"] = unet_fp16_phase(torch, dev)
+    mark("phase 4u's fp16 recipe")
+    return counts, cuts
+
+
+def finish(torch, rows, t_start) -> int:
+    """The off-path rows logged, the kernels line, then the last line (or
+    the failures and exit code 1)."""
     path = [r for r in rows if r["on_main_path"]]
     for r in rows:
         if not r["on_main_path"]:

@@ -12,6 +12,7 @@
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 namespace sdnq {
 
@@ -209,6 +210,20 @@ __device__ __forceinline__ void ldmatrix_x2_trans(unsigned& r0, unsigned& r1, co
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
+}
+
+__device__ __forceinline__ unsigned pack_f16x2(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// two values rounded to T (bf16 or fp16), lo in the low half
+template <typename T>
+__device__ __forceinline__ unsigned pack_x2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value)
+    return pack_f16x2(lo, hi);
+  else
+    return pack_bf16x2(lo, hi);
 }
 
 // rint(e / sc) as the IEEE division rounds it (ties to even), in the low

@@ -13,7 +13,7 @@
 // ROUNDED TO x's DTYPE XT (the TPU kernel's decode scratch has x's dtype,
 // :325) and x multiplies the rounded weight; code * scale + zp is one fused
 // multiply-add, as XLA computes it.  Codes are int8, uint8
-// (widened before the scale, as :133-135) or float8 e4m3.  The layers below
+// (widened before the scale, as :133-135), float8 e4m3 or e5m2.  The layers below
 // the 32-row cut-off take it: at batch 1 the FLUX modulation linears and the
 // time / vector / guidance MLPs, M = 1 (grouped under the default int8
 // recipe, K 3072 in 3 groups of 1024), and every linear of a Llama decode
@@ -38,8 +38,8 @@
 //  - x is staged once a block for the whole K where M * K fits XS_MAX,
 //    while the first stages load, else read through the L1 cache;
 //  - int8 and uint8 codes decode through the fp32 magic number 2^23 (a byte
-//    permute and one exact subtraction), e4m3 by the e4m3x2 -> f16x2
-//    conversion; every value exact;
+//    permute and one exact subtraction), e4m3 and e5m2 by the fp8x2 ->
+//    f16x2 conversion; every value exact;
 //  - grouped: each run of 4 codes lies in one group (8 | g), whose scale and
 //    zero point are read once (each weight fp32, x's dtype);
 //  - the blocks persist, as many as fit on the card, and walk units of 8 / S
@@ -64,7 +64,7 @@ constexpr int XS_MAX = 128 * 1024;              // bytes of x staged in shared m
 constexpr int RED_BYTES = WARPS * 2 * 32 * 4;   // the K split's partial sums
 constexpr int HEAD = ST * STAGE_BYTES + RED_BYTES + 2 * ST * 8;  // ring, sums, barriers
 
-enum { I8 = 0, U8 = 1, E4M3 = 2 };  // code kinds
+enum { I8 = 0, U8 = 1, E4M3 = 2, E5M2 = 3 };  // code kinds
 
 struct GemvArgs {
   const void* x;        // (M, K) of XT
@@ -82,14 +82,17 @@ struct GemvArgs {
 
 // 4 codes (a 32-bit word) as their values; integer codes as bytes b ^ flip
 // less off (int8: flip 0x80, off 2^23 + 128; uint8: 0, 2^23): the fp32
-// bits 0x4B0000bb are 2^23 + b, and the subtraction is exact
+// bits 0x4B0000bb are 2^23 + b, and the subtraction is exact; fp8 codes
+// as e4m3, or as e5m2 where `e5m2` (one choice for a whole call)
 template <bool FP8>
-__device__ __forceinline__ void decode4(unsigned u, unsigned flip, float off, float (&w)[4]) {
+__device__ __forceinline__ void decode4(unsigned u, unsigned flip, float off, float (&w)[4],
+                                        bool e5m2) {
   if constexpr (FP8) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
-          static_cast<__nv_fp8x2_storage_t>((u >> (16 * h)) & 0xFFFFu), __NV_E4M3);
+          static_cast<__nv_fp8x2_storage_t>((u >> (16 * h)) & 0xFFFFu),
+          e5m2 ? __NV_E5M2 : __NV_E4M3);
       const float2 f = __half22float2(__half2(r));
       w[2 * h] = f.x;
       w[2 * h + 1] = f.y;
@@ -171,7 +174,7 @@ __global__ void __launch_bounds__(NT) dequant_gemv_kernel(const GemvArgs a) {
     consumers_sync();
   }
   const int slot = warp / S, part = warp % S;  // this warp's row of a unit, and K slice
-  const bool xsum_on = !GROUPED && a.zp;
+  const bool xsum_on = !GROUPED && a.zp, e5m2 = a.kind == E5M2;
   const unsigned flip = a.kind == I8 ? 0x80808080u : 0u;
   const float off = a.kind == I8 ? 8388736.f : 8388608.f;
 
@@ -198,7 +201,7 @@ __global__ void __launch_bounds__(NT) dequant_gemv_kernel(const GemvArgs a) {
           const int k0 = kc + j0 + 128 * q;  // codes k0 .. k0 + 3
           if (j0 + 128 * q >= len) continue;
           float w[4];
-          decode4<FP8>(cw[q], flip, off, w);
+          decode4<FP8>(cw[q], flip, off, w, e5m2);
           if constexpr (GROUPED) {
             // the run lies in one group (the pad past g G in the last): its
             // scale and zero point (each weight in x's fp32)
@@ -322,7 +325,7 @@ int launch_rows(const GemvArgs& a, cudaStream_t st) {
 
 // fp32 x
 int launch_x(const GemvArgs& a, cudaStream_t st) {
-  const bool fp8 = a.kind == E4M3, grouped = a.G > 1;
+  const bool fp8 = a.kind == E4M3 || a.kind == E5M2, grouped = a.G > 1;
   if (fp8) return grouped ? launch_rows<true, true>(a, st) : launch_rows<true, false>(a, st);
   return grouped ? launch_rows<false, true>(a, st) : launch_rows<false, false>(a, st);
 }
@@ -380,7 +383,7 @@ __global__ void __launch_bounds__(MNT) dequant_gemv_mma_kernel(const GemvArgs a)
   const int M = a.M, K = a.K, O = a.O, S = a.S;
   const int part = warp % S;
   const int o0 = (blockIdx.x * (MW / S) + warp / S) * 16;  // the warp's 16 rows
-  const bool xsum_on = !GROUPED && a.zp;
+  const bool xsum_on = !GROUPED && a.zp, e5m2 = a.kind == E5M2;
   const unsigned flip = a.kind == I8 ? 0x80808080u : 0u;
   const float off = a.kind == I8 ? 8388736.f : 8388608.f;
   const XT* x = static_cast<const XT*>(a.x);
@@ -408,8 +411,8 @@ __global__ void __launch_bounds__(MNT) dequant_gemv_mma_kernel(const GemvArgs a)
     for (int s4 = 0; s4 < 4; ++s4) {
       const int k = 64 * j + 16 * t + 4 * s4;  // this lane's four k of step s4
       float fa[4], fb[4];
-      decode4<FP8>(wa4[s4], flip, off, fa);
-      decode4<FP8>(wb4[s4], flip, off, fb);
+      decode4<FP8>(wa4[s4], flip, off, fa, e5m2);
+      decode4<FP8>(wb4[s4], flip, off, fb, e5m2);
       if constexpr (GROUPED) {  // four codes lie in one group (a pad in the last)
         const int gi = min(sdnq::div_magic(min(k, K - 1), a.g, a.ginv), a.G - 1);
         const size_t ia = (size_t)min(ra, O - 1) * a.G + gi, ib = (size_t)min(rb, O - 1) * a.G + gi;
@@ -509,7 +512,7 @@ int launch_mma(GemvArgs a, cudaStream_t st) {
 
 template <typename XT>
 int launch_x_mma(const GemvArgs& a, cudaStream_t st) {
-  const bool fp8 = a.kind == E4M3, grouped = a.G > 1, four = a.M > 8;
+  const bool fp8 = a.kind == E4M3 || a.kind == E5M2, grouped = a.G > 1, four = a.M > 8;
   if (fp8 && grouped) return four ? launch_mma<4, XT, true, true>(a, st) : launch_mma<1, XT, true, true>(a, st);
   if (fp8) return four ? launch_mma<4, XT, true, false>(a, st) : launch_mma<1, XT, true, false>(a, st);
   if (grouped) return four ? launch_mma<4, XT, false, true>(a, st) : launch_mma<1, XT, false, true>(a, st);
@@ -553,6 +556,13 @@ __device__ __forceinline__ void round4(float (&w)[4]) {
   if constexpr (std::is_same<XT, __nv_bfloat16>::value) {
     const __nv_bfloat162 a = __floats2bfloat162_rn(w[0], w[1]);
     const __nv_bfloat162 b = __floats2bfloat162_rn(w[2], w[3]);
+    w[0] = __low2float(a);
+    w[1] = __high2float(a);
+    w[2] = __low2float(b);
+    w[3] = __high2float(b);
+  } else if constexpr (std::is_same<XT, __half>::value) {
+    const __half2 a = __floats2half2_rn(w[0], w[1]);
+    const __half2 b = __floats2half2_rn(w[2], w[3]);
     w[0] = __low2float(a);
     w[1] = __high2float(a);
     w[2] = __low2float(b);
@@ -653,13 +663,13 @@ __device__ __forceinline__ void bitplane_row_of(const uint8_t* __restrict__ wr,
                                       c0, cend, lane, acc);
 }
 
-template <int MT, typename XT, typename OutT>
+template <int MT, typename XT>
 __global__ void __launch_bounds__(BP_NT)
     dequant_gemv_kernel_bitplane(const XT* __restrict__ x, const uint8_t* __restrict__ w,
                                  const float* __restrict__ scale, const float* __restrict__ zp,
-                                 const float* __restrict__ bias, OutT* __restrict__ out, int M,
-                                 int K, int S, int O, int bits, int G, int g, unsigned ginv,
-                                 sdnq::CodeFmt f, int aligned, int BB) {
+                                 const float* __restrict__ bias, void* __restrict__ out,
+                                 int out_kind, int M, int K, int S, int O, int bits, int G, int g,
+                                 unsigned ginv, sdnq::CodeFmt f, int aligned, int BB) {
   extern __shared__ __align__(16) float xs_s[];  // [M][8][BB]: x[m, i*S + c0 + bb]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = M * 8 * BB;  // staged values a chunk
@@ -706,18 +716,18 @@ __global__ void __launch_bounds__(BP_NT)
           float a = acc[m];
 #pragma unroll
           for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-          if (lane == 0) out[(size_t)m * O + o] = sdnq::from_f32<OutT>(bias ? a + bo : a);
+          if (lane == 0) store_out(out, out_kind, (size_t)m * O + o, bias ? a + bo : a);
         }
       }
     }
   }
 }
 
-template <int MT, typename XT, typename OutT>
+template <int MT, typename XT>
 int launch_bitplane(const void* x, const uint8_t* w, const float* s, const float* zp,
-                    const float* b, void* out, int M, int K, int S, int O, int bits, int G,
-                    const sdnq::CodeFmt& f, cudaStream_t st) {
-  auto kernel = dequant_gemv_kernel_bitplane<MT, XT, OutT>;
+                    const float* b, void* out, int out_kind, int M, int K, int S, int O, int bits,
+                    int G, const sdnq::CodeFmt& f, cudaStream_t st) {
+  auto kernel = dequant_gemv_kernel_bitplane<MT, XT>;
   static bool ready = false;  // chunks of more than 48 KB at many rows
   if (!ready) {
     const cudaError_t err =
@@ -750,7 +760,7 @@ int launch_bitplane(const void* x, const uint8_t* w, const float* s, const float
     blocks = min(blocks, occ_blocks);
   }
   kernel<<<blocks, BP_NT, smem, st>>>(
-      static_cast<const XT*>(x), w, s, zp, b, static_cast<OutT*>(out), M, K, S, O, bits, G, g,
+      static_cast<const XT*>(x), w, s, zp, b, out, out_kind, M, K, S, O, bits, G, g,
       0xffffffffu / static_cast<unsigned>(g), f, aligned, BB);
   return static_cast<int>(cudaGetLastError());
 }
@@ -760,24 +770,20 @@ int launch_bitplane_types(int x_kind, int out_kind, const void* x, const uint8_t
                           const float* s, const float* zp, const float* b, void* out, int M,
                           int K, int S, int O, int bits, int G, const sdnq::CodeFmt& f,
                           cudaStream_t st) {
-  if (x_kind == sdnq::F32 && out_kind == sdnq::F32)
-    return launch_bitplane<MT, float, float>(x, w, s, zp, b, out, M, K, S, O, bits, G, f, st);
-  if (x_kind == sdnq::F32 && out_kind == sdnq::BF16)
-    return launch_bitplane<MT, float, __nv_bfloat16>(x, w, s, zp, b, out, M, K, S, O, bits, G,
-                                                     f, st);
-  if (x_kind == sdnq::BF16 && out_kind == sdnq::F32)
-    return launch_bitplane<MT, __nv_bfloat16, float>(x, w, s, zp, b, out, M, K, S, O, bits, G,
-                                                     f, st);
-  if (x_kind == sdnq::BF16 && out_kind == sdnq::BF16)
-    return launch_bitplane<MT, __nv_bfloat16, __nv_bfloat16>(x, w, s, zp, b, out, M, K, S, O,
-                                                             bits, G, f, st);
+  if (x_kind == sdnq::F32)
+    return launch_bitplane<MT, float>(x, w, s, zp, b, out, out_kind, M, K, S, O, bits, G, f, st);
+  if (x_kind == sdnq::BF16)
+    return launch_bitplane<MT, __nv_bfloat16>(x, w, s, zp, b, out, out_kind, M, K, S, O, bits, G,
+                                              f, st);
+  if (x_kind == sdnq::F16)
+    return launch_bitplane<MT, __half>(x, w, s, zp, b, out, out_kind, M, K, S, O, bits, G, f, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // x (M, K) contiguous of x_kind and w (O, K) codes of code_kind (0 int8,
-// 1 uint8, 2 e4m3), both 16-byte aligned, K a multiple of 16; G = 1: scale
+// 1 uint8, 2 e4m3, 3 e5m2), both 16-byte aligned, K a multiple of 16; G = 1: scale
 // (O,), zp (O,) or null; G > 1: scale, zp (O, G), groups of g codes (a
 // multiple of 8), the last ending within 16 codes of K (the wrapper's pad);
 // bias (O,) or null; all f32; out (M, O) of out_kind.  1 <= M <= 32.
@@ -785,7 +791,7 @@ extern "C" int sdnq_dequant_gemv(const void* x, const void* w, const void* scale
                                  const void* bias, void* out, int M, int K, int O, int G, int g,
                                  int x_kind, int code_kind, int out_kind, void* stream) {
   if (M < 1 || M > 32 || K < 16 || K % 16 != 0 || O < 0 || G < 1 || g < 8 || g % 8 != 0 ||
-      (long long)g * G > K || K - (long long)g * G >= 16 || code_kind < I8 || code_kind > E4M3 ||
+      (long long)g * G > K || K - (long long)g * G >= 16 || code_kind < I8 || code_kind > E5M2 ||
       out_kind < sdnq::F32 || out_kind > sdnq::F16 || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -807,16 +813,17 @@ extern "C" int sdnq_dequant_gemv(const void* x, const void* w, const void* scale
   return static_cast<int>(cudaGetLastError());
 }
 
-// Bit-plane mode.  x (M, K) of x_kind (f32 or bf16), contiguous; w (O,
-// bits*S) uint8 planes, S = ceil(K / 8); scale, zp (O, G) f32 with g = K /
-// G (zp, bias (O,) may be null); the code format as sdnq::code_fmt's
-// arguments; out (M, O) of out_kind (f32 or bf16).  1 <= M <= 32.
+// Bit-plane mode.  x (M, K) of x_kind (f32, bf16 or fp16), contiguous; w
+// (O, bits*S) uint8 planes, S = ceil(K / 8); scale, zp (O, G) f32 with g =
+// K / G (zp, bias (O,) may be null); the code format as sdnq::code_fmt's
+// arguments; out (M, O) of out_kind (f32, bf16 or fp16).  1 <= M <= 32.
 extern "C" int sdnq_dequant_gemv_bitplane(const void* x, const void* w, const void* scale,
                                           const void* zp, const void* bias, void* out, int M,
                                           int K, int S, int O, int G, int bits, int is_float,
                                           int code_min, int e, int m, int fbias, int x_kind,
                                           int out_kind, void* stream) {
-  if (M < 1 || M > 32 || K < 1 || G < 1 || K % G != 0 || bits < 1 || bits > 16 || S != (K + 7) / 8)
+  if (M < 1 || M > 32 || K < 1 || G < 1 || K % G != 0 || bits < 1 || bits > 16 ||
+      S != (K + 7) / 8 || out_kind < sdnq::F32 || out_kind > sdnq::F16)
     return static_cast<int>(cudaErrorInvalidValue);
   const sdnq::CodeFmt f = sdnq::code_fmt(is_float, code_min, e, m, fbias);
   const uint8_t* wp = static_cast<const uint8_t*>(w);

@@ -1,8 +1,24 @@
 // B3: flash attention, online softmax in base 2.  The kernels and C entries
-// of two libraries: flash_attn.cu builds them for bf16 and int8 Q.K^T,
-// flash_attn_e4m3.cu (SDNQ_FLASH_E4M3) for e4m3 Q.K^T, so that the two
-// compile in parallel; a library called with a kind it does not hold
-// returns cudaErrorNotSupported.
+// of three libraries: flash_attn.cu builds them for bf16 and int8 Q.K^T at
+// head dims 64 and 128, flash_attn_d256.cu (SDNQ_FLASH_D256) for those
+// kinds at head dim 256, flash_attn_e4m3.cu (SDNQ_FLASH_E4M3) for e4m3
+// Q.K^T at every head dim, so that the three compile in parallel; a
+// library called with a kind or head dim it does not hold returns
+// cudaErrorNotSupported.  Other head dims up to 256 are zero-padded by the
+// wrapper (kernels/attention.py) to the next of 64, 128 and 256.
+//
+// Head dim 256 (D 256).  O (64 rows x 256 columns of fp32 a warpgroup) and
+// the int32 P.V sum of token mode would take 128 registers a thread each,
+// beside S and P.  So each block writes DV = 128 of the D output columns
+// (grid.z = D / DV: the blocks of a query tile compute Q.K^T and the
+// softmax over all D, and P.V against their own half of V), and the
+// registers are those of D 128.  The bf16-P.V kernel takes tiles of 64 keys
+// at D 256 (Q 64 KB and two stages of K 32 KB, of V 16 KB: 160 KB of shared
+// memory in bf16, 225 KB with e4m3's fp16 copies); the token kernel keeps
+// its 64-key tiles and 128 KB of scores and takes one stage of K and V^T in
+// bf16 and e4m3 Q.K^T (three in int8), e4m3's Q as TMA loaded it lying in
+// the scores' space until its conversion.  Q.K^T and the softmax run twice
+// a query tile: 1.5 times D 128's operations for D 256's work.
 //
 //   out[b, i] = sum_j p_ij v[kvb, j] / sum_j p_ij,  p_ij = exp2(s_ij - max_j s_ij)
 //   bf16 QK:  s = q . k  with q already scaled by sm_scale * log2(e)
@@ -66,9 +82,10 @@
 // softmax of a tile follow each other (168 registers a thread hold S, O and
 // P of D 128 one after the other, not S of the next tile in flight beside
 // O and P).  The tiles run from the last in key order down: the first a
-// block takes holds the ragged end of KN and the causal diagonal and is the
-// only one with masking code for them; tiles right of the diagonal are never
-// loaded, and the unmasked path reads no mask.
+// block takes holds the ragged end of KN and the causal diagonal (at D 256,
+// with 64-key tiles, the diagonal's two tiles) and only they run masking
+// code for them; tiles right of the diagonal are never loaded, and the
+// unmasked path reads no mask.
 //
 // int8 P.V (`flash_attn_tok_kernel`).  The JAX kernel quantises P once per
 // P block of `bk` keys (bk = min(512, KN), halved until it divides KN):
@@ -120,7 +137,12 @@ namespace {
 
 using namespace sdnq;
 
-constexpr int BM = 128, BN = 128;     // query rows of a block, keys of a tile (bf16 P.V)
+constexpr int BM = 128;  // query rows of a block (bf16 P.V)
+// keys of a tile of the bf16-P.V kernel, and output columns of a block
+template <int D>
+__host__ __device__ constexpr int bn_of() { return D == 256 ? 64 : 128; }
+template <int D>
+__host__ __device__ constexpr int dv_of() { return D > 128 ? 128 : D; }
 constexpr float NEG = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLog2_127 = 6.988684686772166f;  // head mode's shift
@@ -183,14 +205,16 @@ __device__ __forceinline__ OutT out_val(float acc, float d, float vh) {
   return sdnq::from_f32<OutT>(__fmul_rn(sdnq::to_f32(o), vh));
 }
 
-template <typename OutT, int NDT>
+// rows r0, r1 of the block's output columns c0 .. c0 + 8 NDT - 1 (c0 =
+// blockIdx.z * 8 NDT: D 256 takes two blocks a query tile) of rows D wide
+template <typename OutT, int D, int NDT>
 __device__ __forceinline__ void store_rows(const Args& a, size_t bh, int r0, int r1, int t4,
                                            const float (&o_acc)[NDT][4], float l0, float l1) {
-  constexpr int D = NDT * 8;
+  const int c0 = blockIdx.z * NDT * 8;
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   const float vh = a.vhead ? a.vhead[kv_head(a, bh)] : 1.f;
-  OutT* o0 = static_cast<OutT*>(a.out) + (bh * a.N + r0) * (size_t)D;
-  OutT* o1 = static_cast<OutT*>(a.out) + (bh * a.N + r1) * (size_t)D;
+  OutT* o0 = static_cast<OutT*>(a.out) + (bh * a.N + r0) * (size_t)D + c0;
+  OutT* o1 = static_cast<OutT*>(a.out) + (bh * a.N + r1) * (size_t)D + c0;
 #pragma unroll
   for (int dt = 0; dt < NDT; ++dt) {
     const int c = dt * 8 + t4 * 2;
@@ -207,20 +231,20 @@ __device__ __forceinline__ void store_rows(const Args& a, size_t bh, int r0, int
 
 // B9's epilogue: acc unnormalised in fp32, and each row's m and l (the
 // quad's four threads hold the same row values; the first writes them)
-template <int NDT>
+template <int D, int NDT>
 __device__ __forceinline__ void store_partial(const Args& a, size_t bh, int r0, int r1, int t4,
                                               const float (&o_acc)[NDT][4], float m0, float m1,
                                               float l0, float l1) {
-  constexpr int D = NDT * 8;
-  float* o0 = static_cast<float*>(a.out) + (bh * a.N + r0) * (size_t)D;
-  float* o1 = static_cast<float*>(a.out) + (bh * a.N + r1) * (size_t)D;
+  const int c0 = blockIdx.z * NDT * 8;
+  float* o0 = static_cast<float*>(a.out) + (bh * a.N + r0) * (size_t)D + c0;
+  float* o1 = static_cast<float*>(a.out) + (bh * a.N + r1) * (size_t)D + c0;
 #pragma unroll
   for (int dt = 0; dt < NDT; ++dt) {
     const int c = dt * 8 + t4 * 2;
     if (r0 < a.N) *reinterpret_cast<float2*>(o0 + c) = make_float2(o_acc[dt][0], o_acc[dt][1]);
     if (r1 < a.N) *reinterpret_cast<float2*>(o1 + c) = make_float2(o_acc[dt][2], o_acc[dt][3]);
   }
-  if (t4 == 0) {
+  if (t4 == 0 && blockIdx.z == 0) {  // the blocks of a tile hold the same m, l
     if (r0 < a.N) {
       a.m_out[bh * a.N + r0] = m0;
       a.l_out[bh * a.N + r0] = l0;
@@ -241,20 +265,22 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// `rows` e4m3 rows of D codes as TMA wrote them (one chunk a row: 64-byte
-// rows in the 64-byte swizzle, 16-byte unit u of row r at u ^ ((r >> 1) &
-// 3), or 128-byte rows in the 128-byte swizzle, at u ^ (r & 7)) into fp16
-// in the bf16 mode's K-major layout: chunks of 64 values `chunk` bytes
-// apart, 128-byte rows in the 128-byte swizzle.  NT threads, this one t.
-// The next reader is wgmma (the async proxy): fence_async first.
+// `rows` e4m3 rows of D codes as TMA wrote them (64-byte rows in the
+// 64-byte swizzle, 16-byte unit u of row r at u ^ ((r >> 1) & 3); else
+// chunks of 128 bytes a row, `src_chunk` bytes apart, in the 128-byte
+// swizzle, at u ^ (r & 7)) into fp16 in the bf16 mode's K-major layout:
+// chunks of 64 values `chunk` bytes apart, 128-byte rows in the 128-byte
+// swizzle.  NT threads, this one t.  The next reader is wgmma (the async
+// proxy): fence_async first.
 template <int D, int NT>
 __device__ __forceinline__ void e4m3_to_f16_rows(const uint8_t* src, uint8_t* dst, int rows,
-                                                 int chunk, int t) {
+                                                 int src_chunk, int chunk, int t) {
   constexpr int U = D / 16;  // 16-code units of a row
   for (int id = t; id < rows * U; id += NT) {
     const int r = id / U, c = id % U;
-    const int su = D == 128 ? c ^ (r & 7) : c ^ ((r >> 1) & 3);
-    const uint4 v = *reinterpret_cast<const uint4*>(src + r * D + (su << 4));
+    const uint8_t* at = D == 64 ? src + r * 64 + ((c ^ ((r >> 1) & 3)) << 4)
+                                : src + (c >> 3) * src_chunk + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+    const uint4 v = *reinterpret_cast<const uint4*>(at);
     const uint4 lo = make_uint4(e4m3x2_to_f16x2(v.x), e4m3x2_to_f16x2(v.x >> 16),
                                 e4m3x2_to_f16x2(v.y), e4m3x2_to_f16x2(v.y >> 16));
     const uint4 hi = make_uint4(e4m3x2_to_f16x2(v.z), e4m3x2_to_f16x2(v.z >> 16),
@@ -289,20 +315,24 @@ constexpr int WGT = 128, NTW = 2 * WGT + 32;
 // column chunks of CH bytes a row (a chunk of R rows takes R * CH bytes):
 // 128-byte chunks in the 128-byte swizzle, or at 64-byte rows (int8, D 64)
 // one chunk in the 64-byte swizzle.  As TMA loads it, TB bytes in chunks of
-// TCH (e4m3: int8's layout).  V's rows (2 D bytes) are 128-byte chunks of
-// 64 columns.
+// TCH (e4m3: int8's layout).  V's rows (the block's DV columns, 2 DV bytes)
+// are 128-byte chunks of 64 columns.
 template <int D, int QKIND>
 struct Smem {
+  static constexpr int BN = bn_of<D>(), DV = dv_of<D>();
   static constexpr bool CONV = QKIND == QK_E4M3;
   static constexpr int QB = QKIND == QK_S8 ? D : 2 * D;
   static constexpr int CH = QB < 128 ? QB : 128;
   static constexpr int TB = QKIND == QK_BF16 ? 2 * D : D;
   static constexpr int TCH = TB < 128 ? TB : 128;
-  static constexpr int Q_BYTES = BM * QB, K_BYTES = BN * TB, V_BYTES = BN * 2 * D;
+  static constexpr int Q_BYTES = BM * QB, K_BYTES = BN * TB, V_BYTES = BN * 2 * DV;
   static constexpr int KS_BYTES = QKIND != QK_BF16 ? BN * 4 : 0;
   static constexpr int KC_BYTES = CONV ? BN * QB : 0, QT_BYTES = CONV ? BM * TB : 0;
   static constexpr int K_OFF = Q_BYTES, V_OFF = K_OFF + ST * K_BYTES;
-  static constexpr int KS_OFF = V_OFF + ST * V_BYTES, KC_OFF = KS_OFF + ST * KS_BYTES;
+  // the key scales' span rounded up to 1024 bytes, the converted tiles'
+  // swizzle alignment
+  static constexpr int KS_SPAN = (ST * KS_BYTES + 1023) / 1024 * 1024;
+  static constexpr int KS_OFF = V_OFF + ST * V_BYTES, KC_OFF = KS_OFF + KS_SPAN;
   static constexpr int QT_OFF = KC_OFF + 2 * KC_BYTES, BAR_OFF = QT_OFF + QT_BYTES;
   static constexpr int QL_OFF = CONV ? QT_OFF : 0;  // where TMA writes Q
   static constexpr int BYTES = BAR_OFF + (1 + 4 * ST) * 8 + 1024;  // + the 1024-byte alignment
@@ -314,10 +344,11 @@ __device__ __forceinline__ uint64_t kmajor_desc(const void* p) {
 }
 
 // S = Q.K^T of a warpgroup's 64 rows (sq) and a tile's BN keys (sk), both
-// K-major: bf16 or fp16 (e4m3 converted) m64n128k16, or s8 m64n128k32 (into
-// S's registers as int32), 32 bytes of the rows a step.
+// K-major: bf16 or fp16 (e4m3 converted) m64n{BN}k16, or s8 m64n{BN}k32
+// (into S's registers as int32), 32 bytes of the rows a step.
 template <int D, int QKIND>
-__device__ __forceinline__ void issue_qk(float (&s)[64], const uint8_t* sq, const uint8_t* sk) {
+__device__ __forceinline__ void issue_qk(float (&s)[bn_of<D>() / 2], const uint8_t* sq,
+                                         const uint8_t* sk) {
   using L = Smem<D, QKIND>;
   fence_regs(s);
   wgmma_fence();
@@ -325,30 +356,41 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], const uint8_t* sq, cons
   for (int st = 0; st < L::QB / 32; ++st) {
     const int c = st * 32 / L::CH, step = (st * 32 % L::CH) / 16;
     const uint64_t da = kmajor_desc<L::CH>(sq + c * BM * L::CH) + step;
-    const uint64_t db = kmajor_desc<L::CH>(sk + c * BN * L::CH) + step;
-    if constexpr (QKIND == QK_S8)
-      wgmma_s8(reinterpret_cast<int(&)[64]>(s), da, db, st != 0);
-    else if constexpr (QKIND == QK_E4M3)
-      wgmma128_f16(s, da, db, st != 0);
-    else
-      wgmma128(s, da, db, st != 0);
+    const uint64_t db = kmajor_desc<L::CH>(sk + c * L::BN * L::CH) + step;
+    if constexpr (L::BN == 64) {
+      if constexpr (QKIND == QK_S8)
+        wgmma_s8_64(reinterpret_cast<int(&)[32]>(s), da, db, st != 0);
+      else if constexpr (QKIND == QK_E4M3)
+        wgmma64_f16(s, da, db, st != 0);
+      else
+        wgmma64(s, da, db, st != 0);
+    } else {
+      if constexpr (QKIND == QK_S8)
+        wgmma_s8(reinterpret_cast<int(&)[64]>(s), da, db, st != 0);
+      else if constexpr (QKIND == QK_E4M3)
+        wgmma128_f16(s, da, db, st != 0);
+      else
+        wgmma128(s, da, db, st != 0);
+    }
   }
   wgmma_commit();
 }
 
 // O += P.V over a tile: P (the warpgroup's 64 rows x BN keys as bf16 pairs,
-// p[4 kk .. 4 kk + 3] the A operand of keys 16 kk ..) times V (BN keys x D,
-// chunks of 64 columns BN * 128 bytes apart), V an MN-major B.
+// p[4 kk .. 4 kk + 3] the A operand of keys 16 kk ..) times V (BN keys x
+// the block's DV columns, chunks of 64 columns BN * 128 bytes apart), V an
+// MN-major B.
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const unsigned (&p)[BN / 4],
-                                         const uint8_t* sv) {
+__device__ __forceinline__ void issue_pv(float (&o)[dv_of<D>() / 2],
+                                         const unsigned (&p)[bn_of<D>() / 4], const uint8_t* sv) {
+  constexpr int BN = bn_of<D>();
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
     const unsigned a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
     const uint64_t db = sw128_desc_mn(sv + kk * 16 * 128, BN * 128);
-    if constexpr (D == 128)
+    if constexpr (dv_of<D>() == 128)
       wgmma_rs128_t(o, a, db);
     else
       wgmma_rs64_t(o, a, db);
@@ -430,12 +472,12 @@ __device__ __forceinline__ void fix_scores(float (&s)[NS], const float* sks, flo
 // The online softmax of a tile on the accumulator layout: s becomes p =
 // ex(s - m_new); al0 / al1 the factors of the sums so far; l0 / l1 this
 // thread's share of its rows' sums (the quad's four summed at the end).
-template <bool NATURAL>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float& m0, float& m1, float& l0,
+template <bool NATURAL, int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float& m0, float& m1, float& l0,
                                              float& l1, float& al0, float& al1) {
   float mx0 = NEG, mx1 = NEG;
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < NS / 4; ++j) {
     mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
     mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
@@ -446,7 +488,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float& m0, float& m
   m1 = mn1;
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < NS / 4; ++j) {
     s[4 * j] = ex<NATURAL>(s[4 * j] - mn0);
     s[4 * j + 1] = ex<NATURAL>(s[4 * j + 1] - mn0);
     s[4 * j + 2] = ex<NATURAL>(s[4 * j + 2] - mn1);
@@ -470,9 +512,10 @@ __device__ __forceinline__ void rescale(float (&o)[NDT][4], float al0, float al1
 }
 
 // P = bf16(p) in the A operand's order: neighbouring columns paired
-__device__ __forceinline__ void pack_p(unsigned (&p)[BN / 4], const float (&s)[64]) {
+template <int NS>
+__device__ __forceinline__ void pack_p(unsigned (&p)[NS / 2], const float (&s)[NS]) {
 #pragma unroll
-  for (int i = 0; i < BN / 4; ++i) p[i] = pack_bf16x2(s[2 * i], s[2 * i + 1]);
+  for (int i = 0; i < NS / 2; ++i) p[i] = pack_bf16x2(s[2 * i], s[2 * i + 1]);
 }
 
 // Ping-pong: warpgroup wg waits at named barrier 1 + wg before it issues a
@@ -490,7 +533,7 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
 }
 
-// B3 / B9 with bf16 P.V; grid (ceil(N / BM), BH).  QKIND: the Q.K^T kind;
+// B3 / B9 with bf16 P.V; grid (ceil(N / BM), BH, D / DV).  QKIND: the Q.K^T kind;
 // MASKED: a bool or additive mask; PARTIAL: B9's natural units and
 // epilogue.  A consumer warpgroup takes each tile in turn: Q.K^T (e4m3:
 // the tile converted to fp16 first), the softmax once it has completed,
@@ -502,7 +545,8 @@ __global__ void __launch_bounds__(NTW, 1)
                             const __grid_constant__ CUtensorMap tv, const Args a) {
   using L = Smem<D, QKIND>;
   constexpr bool QUANT = QKIND != QK_BF16, CONV = L::CONV;
-  constexpr int NDT = D / 8;
+  constexpr int BN = L::BN, DV = L::DV, NS = BN / 2;  // S's registers a thread
+  constexpr int NDT = DV / 8;
   constexpr int NCH = L::TB / L::TCH;  // column chunks of a Q / K row as TMA loads it
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // the first 1024-byte boundary (an offset from smem_raw, so that the
@@ -572,8 +616,8 @@ __global__ void __launch_bounds__(NTW, 1)
         mbar_expect_tx(&v_full[s], L::V_BYTES);
         uint8_t* sv = smem + L::V_OFF + s * L::V_BYTES;
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_3d(sv + c * BN * 128, &tv, &v_full[s], c * 64, kv0, kvbh);
+        for (int c = 0; c < DV / 64; ++c)  // the block's columns of V
+          tma_load_3d(sv + c * BN * 128, &tv, &v_full[s], blockIdx.z * DV + c * 64, kv0, kvbh);
       }
     }
   } else {  // consumer warpgroups 0 and 1: rows 64 wg .. 64 wg + 63 of the block
@@ -603,19 +647,19 @@ __global__ void __launch_bounds__(NTW, 1)
       if (lane == 0) mbar_arrive(bar);
     };
 
-    float s[64], o[NDT][4];
-    unsigned p[BN / 4];
-    float(&of)[D / 2] = reinterpret_cast<float(&)[D / 2]>(o);
+    float s[NS], o[NDT][4];
+    unsigned p[NS / 2];
+    float(&of)[DV / 2] = reinterpret_cast<float(&)[DV / 2]>(o);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < NDT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
     float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f, al0 = 1.f, al1 = 1.f;
 
     mbar_wait(q_full, 0);
     if constexpr (CONV) {  // the warpgroup's 64 rows of Q as fp16
-      e4m3_to_f16_rows<D, WGT>(smem + L::QL_OFF + wg * 64 * L::TB, smem + wg * 64 * 128, 64,
-                               BM * 128, t);
+      e4m3_to_f16_rows<D, WGT>(smem + L::QL_OFF + wg * 64 * L::TCH, smem + wg * 64 * 128, 64,
+                               BM * 128, BM * 128, t);
       fence_async();
       wg_sync(wg);
     }
@@ -624,7 +668,7 @@ __global__ void __launch_bounds__(NTW, 1)
       if constexpr (CONV) {  // the tile as fp16, before this warpgroup's turn
         wait_k(i);
         wg_sync(wg);  // the last tile's Q.K^T has read kc in every warp
-        e4m3_to_f16_rows<D, WGT>(k_stage(st), kc, BN, BN * 128, t);
+        e4m3_to_f16_rows<D, WGT>(k_stage(st), kc, BN, BN * 128, BN * 128, t);
         fence_async();
         wg_sync(wg);
       }
@@ -634,7 +678,9 @@ __global__ void __launch_bounds__(NTW, 1)
       if (wg == 0 || i < n_tiles - 1) turn_pass(wg);
       wgmma_wait<0>();
       fence_regs(s);
-      if (i == 0)
+      // the edge tiles: the first (KN's ragged end) and, causal, every tile
+      // that reaches past the block's first row (two of 64 keys at D 256)
+      if (i == 0 || (a.causal && kv0 + BN > q0))
         fix_scores<QKIND, PARTIAL, MASKED, true>(s, ks_stage(st), qs0, qs1, a, kv0, r0, r1, mr0,
                                                  mr1, t4);
       else
@@ -655,13 +701,13 @@ __global__ void __launch_bounds__(NTW, 1)
     l0 = quad_sum(l0);
     l1 = quad_sum(l1);
     if constexpr (PARTIAL)
-      store_partial<NDT>(a, bh, r0, r1, t4, o, m0, m1, l0, l1);
+      store_partial<D, NDT>(a, bh, r0, r1, t4, o, m0, m1, l0, l1);
     else if (a.out_kind == sdnq::F32)
-      store_rows<float, NDT>(a, bh, r0, r1, t4, o, l0, l1);
+      store_rows<float, D, NDT>(a, bh, r0, r1, t4, o, l0, l1);
     else if (a.out_kind == sdnq::BF16)
-      store_rows<__nv_bfloat16, NDT>(a, bh, r0, r1, t4, o, l0, l1);
+      store_rows<__nv_bfloat16, D, NDT>(a, bh, r0, r1, t4, o, l0, l1);
     else
-      store_rows<__half, NDT>(a, bh, r0, r1, t4, o, l0, l1);
+      store_rows<__half, D, NDT>(a, bh, r0, r1, t4, o, l0, l1);
   }
 }
 
@@ -670,33 +716,37 @@ __global__ void __launch_bounds__(NTW, 1)
 // ---------------------------------------------------------------------------
 
 constexpr int TBM = 64, TBN = 64;  // query rows of a block, keys of a tile
-constexpr int TST = 3;             // stages of K and of V^T
+constexpr int TST = 3;             // stages of K and of V^T (D 256: see TokSmem)
 constexpr int TPB = 512;           // the largest P block (attn_p_block)
 constexpr int TNT = WGT + 32;      // one consumer warpgroup, then the producer warp
 
-// Shared memory of the token kernel: Q (TBM rows), TST stages of K (TBN
-// rows) and of V^T (D rows of TBN keys, 64-byte swizzle), the P block's
-// scores (each thread's accumulator values, TPB keys), its key and V
-// scales, in the e4m3 mode the converted K tile and Q as TMA loaded it,
-// the barriers.  Rows as in Smem (QB / CH as wgmma reads them, TB / TCH as
-// TMA loads them).
+// Shared memory of the token kernel: Q (TBM rows), NST stages of K (TBN
+// rows) and of V^T (the block's DV rows of TBN keys, 64-byte swizzle), the
+// P block's scores (each thread's accumulator values, TPB keys), its key
+// and V scales, in the e4m3 mode the converted K tile, the barriers; e4m3's
+// Q as TMA loads it lies in the scores' space (converted before the first
+// score is kept).  Rows as in Smem (QB / CH as wgmma reads them, TB / TCH
+// as TMA loads them).  NST is TST but at D 256 with 16-bit K rows, where
+// one stage fits beside the scores.
 template <int D, int QKIND>
 struct TokSmem {
+  static constexpr int DV = dv_of<D>();
+  static constexpr int NST = D == 256 && QKIND != QK_S8 ? 1 : TST;
   static constexpr bool CONV = QKIND == QK_E4M3;
   static constexpr int QB = QKIND == QK_S8 ? D : 2 * D;
   static constexpr int CH = QB < 128 ? QB : 128;
   static constexpr int TB = QKIND == QK_BF16 ? 2 * D : D;
   static constexpr int TCH = TB < 128 ? TB : 128;
-  static constexpr int Q_BYTES = TBM * QB, K_BYTES = TBN * TB, V_BYTES = D * TBN;
-  static constexpr int K_OFF = Q_BYTES, V_OFF = K_OFF + TST * K_BYTES;
-  static constexpr int S_OFF = V_OFF + TST * V_BYTES;
+  static constexpr int Q_BYTES = TBM * QB, K_BYTES = TBN * TB, V_BYTES = DV * TBN;
+  static constexpr int K_OFF = Q_BYTES, V_OFF = K_OFF + NST * K_BYTES;
+  static constexpr int S_OFF = V_OFF + NST * V_BYTES;
   static constexpr int S_BYTES = TBM * TPB * 4;
   static constexpr int SC_OFF = S_OFF + S_BYTES;
   static constexpr int KC_OFF = SC_OFF + 2 * TPB * 4;
-  static constexpr int KC_BYTES = CONV ? TBN * QB : 0, QT_BYTES = CONV ? TBM * TB : 0;
-  static constexpr int QT_OFF = KC_OFF + KC_BYTES, BAR_OFF = QT_OFF + QT_BYTES;
-  static constexpr int QL_OFF = CONV ? QT_OFF : 0;  // where TMA writes Q
-  static constexpr int BYTES = BAR_OFF + (1 + 4 * TST) * 8 + 1024;
+  static constexpr int KC_BYTES = CONV ? TBN * QB : 0;
+  static constexpr int BAR_OFF = KC_OFF + KC_BYTES;
+  static constexpr int QL_OFF = CONV ? S_OFF : 0;  // where TMA writes Q
+  static constexpr int BYTES = BAR_OFF + (1 + 4 * NST) * 8 + 1024;
 };
 
 // The key held by slot `pos` of V^T.  The s8 wgmma's A operand from
@@ -765,7 +815,7 @@ __device__ __forceinline__ void consumers_sync() {
 }
 
 // B3 / B9 in token mode, and B3 in head mode (a.vhead); grid (ceil(N / TBM),
-// BH).  Three passes over each P block of pblock keys, in key order: (A)
+// BH, D / DV).  Three passes over each P block of pblock keys, in key order: (A)
 // Q.K^T of each tile (s8, bf16 or fp16 wgmma; e4m3 converted to fp16
 // first), scaled and masked by fix_scores, kept in shared memory, and the
 // block's row max; (B) p = ex(s - m_new), l, p_eff = p * vs and its row
@@ -781,7 +831,7 @@ __global__ void __launch_bounds__(TNT, 1)
                           const __grid_constant__ CUtensorMap tv, const Args a) {
   using L = TokSmem<D, QKIND>;
   constexpr bool QUANT = QKIND != QK_BF16, CONV = L::CONV;
-  constexpr int NDT = D / 8;
+  constexpr int DV = L::DV, NDT = DV / 8, TST = L::NST;  // stages of each ring
   constexpr int NCH = L::TB / L::TCH;
   // head mode: the token passes with V scales of 1, the log2 127 shift and
   // a p scale of 1 (selects once a P block: the score loops are token
@@ -839,9 +889,9 @@ __global__ void __launch_bounds__(TNT, 1)
       for (int c = 0; c < NCH; ++c)
         tma_load_3d(k_stage(s) + c * TBN * L::TCH, &tk, &k_full[s], c * CE, kv0, kvh);
     };
-    auto load_v = [&](int kv0) {
+    auto load_v = [&](int kv0) {  // V^T's rows of the block's columns
       const int s = arm(v_full, v_empty, iv++, L::V_BYTES);
-      tma_load_3d(v_stage(s), &tv, &v_full[s], kv0, 0, kvh);
+      tma_load_3d(v_stage(s), &tv, &v_full[s], kv0, blockIdx.z * DV, kvh);
     };
     // the order in which the consumers take them
     for (int pb0 = 0; pb0 < kv_end; pb0 += PB) {
@@ -887,7 +937,7 @@ __global__ void __launch_bounds__(TNT, 1)
     mbar_wait(&k_full[st], (ik / TST) & 1);
     if constexpr (CONV) {
       consumers_sync();  // the last tile's Q.K^T has read kc in every warp
-      e4m3_to_f16_rows<D, WGT>(k_stage(st), kc, TBN, TBN * 128, t);
+      e4m3_to_f16_rows<D, WGT>(k_stage(st), kc, TBN, TBN * 128, TBN * 128, t);
       fence_async();
       consumers_sync();
     }
@@ -940,7 +990,7 @@ __global__ void __launch_bounds__(TNT, 1)
 
   mbar_wait(q_full, 0);
   if constexpr (CONV) {  // Q as fp16, where the wgmma reads it
-    e4m3_to_f16_rows<D, WGT>(smem + L::QL_OFF, smem, TBM, TBM * 128, t);
+    e4m3_to_f16_rows<D, WGT>(smem + L::QL_OFF, smem, TBM, TBM * 128, TBM * 128, t);
     fence_async();
     consumers_sync();
   }
@@ -1006,7 +1056,7 @@ __global__ void __launch_bounds__(TNT, 1)
 
     // (C) P_q . V_q over the block's V^T tiles, into an int32 sum; tile i + 1
     // is quantised while tile i's wgmma runs (two sets of A registers)
-    int pv[D / 2] = {};
+    int pv[DV / 2] = {};
     // the A registers of tile i's two k32 steps: keys 32 kk + 16 h + .. of row
     // r0 (rr 0) and r1 (rr 1), chunks 4 kk + 2 h and the next
     auto quantize = [&](int i, unsigned (&pa)[2][4]) {
@@ -1047,7 +1097,7 @@ __global__ void __launch_bounds__(TNT, 1)
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         const uint64_t db = sw64_desc(v_stage(st)) + 2 * kk;
-        if constexpr (D == 128)
+        if constexpr (DV == 128)
           wgmma_rs_s8_128(pv, pa[kk], db, i > 0 || kk > 0);
         else
           wgmma_rs_s8_64(pv, pa[kk], db, i > 0 || kk > 0);
@@ -1087,13 +1137,13 @@ __global__ void __launch_bounds__(TNT, 1)
     }
   }
   if constexpr (PARTIAL)
-    store_partial<NDT>(a, bh, r0, r1, t4, oacc, m0, m1, l0, l1);
+    store_partial<D, NDT>(a, bh, r0, r1, t4, oacc, m0, m1, l0, l1);
   else if (a.out_kind == sdnq::F32)
-    store_rows<float, NDT>(a, bh, r0, r1, t4, oacc, l0, l1);
+    store_rows<float, D, NDT>(a, bh, r0, r1, t4, oacc, l0, l1);
   else if (a.out_kind == sdnq::BF16)
-    store_rows<__nv_bfloat16, NDT>(a, bh, r0, r1, t4, oacc, l0, l1);
+    store_rows<__nv_bfloat16, D, NDT>(a, bh, r0, r1, t4, oacc, l0, l1);
   else
-    store_rows<__half, NDT>(a, bh, r0, r1, t4, oacc, l0, l1);
+    store_rows<__half, D, NDT>(a, bh, r0, r1, t4, oacc, l0, l1);
 }
 
 // The tensor maps' element type and size of q and k: int8 and e4m3 are
@@ -1113,8 +1163,8 @@ int launch_wgmma(const Args& a, int BH, int BKH, cudaStream_t st) {
       L::TCH == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap tq, tk, tv;
   if (!tensor_map_3d(&tq, a.q, qk_type, es, D, a.N, BH, L::TCH / es, BM, swz) ||
-      !tensor_map_3d(&tk, a.k, qk_type, es, D, a.KN, BKH, L::TCH / es, BN, swz) ||
-      !tensor_map_3d(&tv, a.v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, a.KN, BKH, 64, BN,
+      !tensor_map_3d(&tk, a.k, qk_type, es, D, a.KN, BKH, L::TCH / es, L::BN, swz) ||
+      !tensor_map_3d(&tv, a.v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, a.KN, BKH, 64, L::BN,
                      CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool masked = a.mask != nullptr;
@@ -1127,7 +1177,7 @@ int launch_wgmma(const Args& a, int BH, int BKH, cudaStream_t st) {
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[masked] = true;
   }
-  const dim3 grid((a.N + BM - 1) / BM, BH);
+  const dim3 grid((a.N + BM - 1) / BM, BH, D / L::DV);
   kernel<<<grid, NTW, L::BYTES, st>>>(tq, tk, tv, a);
   return 0;
 }
@@ -1147,7 +1197,7 @@ int launch_tok(const Args& a, void* vt, int BH, int BKH, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   if (!tensor_map_3d(&tq, a.q, qk_type, es, D, a.N, BH, L::TCH / es, TBM, swz) ||
       !tensor_map_3d(&tk, a.k, qk_type, es, D, a.KN, BKH, L::TCH / es, TBN, swz) ||
-      !tensor_map_3d(&tv, vt, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.KN, D, BKH, TBN, D,
+      !tensor_map_3d(&tv, vt, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.KN, D, BKH, TBN, L::DV,
                      CU_TENSOR_MAP_SWIZZLE_64B))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool masked = a.mask != nullptr;
@@ -1160,7 +1210,7 @@ int launch_tok(const Args& a, void* vt, int BH, int BKH, cudaStream_t st) {
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[masked] = true;
   }
-  const dim3 grid((a.N + TBM - 1) / TBM, BH);
+  const dim3 grid((a.N + TBM - 1) / TBM, BH, D / L::DV);
   kernel<<<grid, TNT, L::BYTES, st>>>(tq, tk, tv, a);
   return 0;
 }
@@ -1171,33 +1221,45 @@ int launch(const Args& a, void* vt, int BH, int BKH, cudaStream_t st) {
   return launch_tok<D, QKIND, false>(a, vt, BH, BKH, st);
 }
 
-// B3's kernels of the Q.K^T kinds this library holds
+// Whether this library holds the kernels of a Q.K^T kind at head dim D
+constexpr bool holds(int D, int quant) {
+#if defined(SDNQ_FLASH_E4M3)
+  return quant == QK_E4M3;
+#elif defined(SDNQ_FLASH_D256)
+  return quant != QK_E4M3 && D == 256;
+#else
+  return quant != QK_E4M3 && D != 256;
+#endif
+}
+
+// B3's kernels of the Q.K^T kinds this library holds at head dim D
 template <int D>
 int launch_kind(const Args& a, void* vt, int BH, int BKH, int quant, cudaStream_t st) {
-#ifdef SDNQ_FLASH_E4M3
-  if (quant == QK_E4M3) return launch<D, QK_E4M3>(a, vt, BH, BKH, st);
-#else
-  if (quant == QK_S8) return launch<D, QK_S8>(a, vt, BH, BKH, st);
-  if (quant == QK_BF16) return launch<D, QK_BF16>(a, vt, BH, BKH, st);
-#endif
+  if constexpr (holds(D, QK_E4M3))
+    if (quant == QK_E4M3) return launch<D, QK_E4M3>(a, vt, BH, BKH, st);
+  if constexpr (holds(D, QK_S8))
+    if (quant == QK_S8) return launch<D, QK_S8>(a, vt, BH, BKH, st);
+  if constexpr (holds(D, QK_BF16))
+    if (quant == QK_BF16) return launch<D, QK_BF16>(a, vt, BH, BKH, st);
   return static_cast<int>(cudaErrorNotSupported);
 }
 
-// B9's kernels (D 128) of the Q.K^T kinds this library holds: token mode
-// where a.vs is given, else bf16 P.V
-template <int QKIND>
+// B9's kernels (D 128 or 256) of the Q.K^T kinds this library holds: token
+// mode where a.vs is given, else bf16 P.V
+template <int D, int QKIND>
 int launch_block(const Args& a, void* vt, int BH, cudaStream_t st) {
-  return a.vs ? launch_tok<128, QKIND, true>(a, vt, BH, BH, st)
-              : launch_wgmma<128, QKIND, true>(a, BH, BH, st);
+  return a.vs ? launch_tok<D, QKIND, true>(a, vt, BH, BH, st)
+              : launch_wgmma<D, QKIND, true>(a, BH, BH, st);
 }
 
+template <int D>
 int launch_block_kind(const Args& a, void* vt, int BH, int quant, cudaStream_t st) {
-#ifdef SDNQ_FLASH_E4M3
-  if (quant == QK_E4M3) return launch_block<QK_E4M3>(a, vt, BH, st);
-#else
-  if (quant == QK_S8) return launch_block<QK_S8>(a, vt, BH, st);
-  if (quant == QK_BF16) return launch_block<QK_BF16>(a, vt, BH, st);
-#endif
+  if constexpr (holds(D, QK_E4M3))
+    if (quant == QK_E4M3) return launch_block<D, QK_E4M3>(a, vt, BH, st);
+  if constexpr (holds(D, QK_S8))
+    if (quant == QK_S8) return launch_block<D, QK_S8>(a, vt, BH, st);
+  if constexpr (holds(D, QK_BF16))
+    if (quant == QK_BF16) return launch_block<D, QK_BF16>(a, vt, BH, st);
   return static_cast<int>(cudaErrorNotSupported);
 }
 
@@ -1214,15 +1276,15 @@ bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0
 // mask read at b*msb + h*msh + row*msn + key*msk (elements) for head bh =
 // b*H + h, or null: bool (mask_kind 1), or an additive bf16 (2) or fp32 (3)
 // mask; causal 0/1; out (BH, N, D) of out_kind.
-// D is 64 or 128; KN >= 1; qpk divides H and H divides BH; q, k, v 16-byte
-// aligned.
+// D is 64, 128 or 256; KN >= 1; qpk divides H and H divides BH; q, k, v
+// 16-byte aligned.
 extern "C" int sdnq_flash_attn(const void* q, const void* k, const void* v, const void* qs,
                                const void* ks, const void* vs, const void* vhead, const void* mask,
                                long long msb, long long msh, long long msn, long long msk,
                                void* out, void* vt, int BH, int N, int KN, int D, int H, int qpk,
                                int causal, int pblock, int quant, int mask_kind, int out_kind,
                                void* stream) {
-  if (KN < 1 || (D != 64 && D != 128) || H < 1 || qpk < 1 || H % qpk || BH % H)
+  if (KN < 1 || (D != 64 && D != 128 && D != 256) || H < 1 || qpk < 1 || H % qpk || BH % H)
     return static_cast<int>(cudaErrorInvalidValue);
   if (mask && (mask_kind < MASK_BOOL || mask_kind > MASK_F32))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1240,20 +1302,21 @@ extern "C" int sdnq_flash_attn(const void* q, const void* k, const void* v, cons
          causal, pblock, nullptr, nullptr, 1.f, out_kind, static_cast<const float*>(vhead)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BKH = BH / qpk;
-  const int rc = D == 64 ? launch_kind<64>(a, vt, BH, BKH, quant, st)
-                         : launch_kind<128>(a, vt, BH, BKH, quant, st);
+  const int rc = D == 64    ? launch_kind<64>(a, vt, BH, BKH, quant, st)
+                 : D == 128 ? launch_kind<128>(a, vt, BH, BKH, quant, st)
+                            : launch_kind<256>(a, vt, BH, BKH, quant, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 
-// B9: q (BH, N, 128), k (BH, KN, 128): bf16 (quant = 0, the score times
-// sm_scale), or int8 (quant = 1) or e4m3 (2) with qs (BH, N) carrying
-// sm_scale and ks (BH, KN); v (BH, KN, 128) bf16, or int8 with vs (BH, KN) (token mode, P
-// quantised per block of pblock keys, as above, V^T in the scratch vt (BH,
-// 128, KN) int8); mask null, or (mask_heads,
-// N, KN) read at (bh % mask_heads)*msh + row*msn + key*msk (elements), bool
+// B9: q (BH, N, D), k (BH, KN, D), D 128 or 256: bf16 (quant = 0, the
+// score times sm_scale), or int8 (quant = 1) or e4m3 (2) with qs (BH, N)
+// carrying sm_scale and ks (BH, KN); v (BH, KN, D) bf16, or int8 with vs
+// (BH, KN) (token mode, P quantised per block of pblock keys, as above,
+// V^T in the scratch vt (BH, D, KN) int8); mask null, or (mask_heads, N,
+// KN) read at (bh % mask_heads)*msh + row*msn + key*msk (elements), bool
 // (mask_kind 1) or additive bf16 (2) / fp32 (3), mask_heads dividing BH;
-// q, k, v 16-byte aligned.  Writes acc (BH, N, 128) and m, l (BH, N), all
+// q, k, v 16-byte aligned.  Writes acc (BH, N, D) and m, l (BH, N), all
 // fp32.
 extern "C" int sdnq_flash_attn_block(const void* q, const void* k, const void* v, const void* qs,
                                      const void* ks, const void* vs, const void* mask,
@@ -1261,7 +1324,7 @@ extern "C" int sdnq_flash_attn_block(const void* q, const void* k, const void* v
                                      void* m, void* l, void* vt, int BH, int N, int KN, int D,
                                      int mask_heads, int pblock, int quant, int mask_kind,
                                      float sm_scale, void* stream) {
-  if (KN < 1 || D != 128 || mask_heads < 1 || BH % mask_heads || quant < QK_BF16 ||
+  if (KN < 1 || (D != 128 && D != 256) || mask_heads < 1 || BH % mask_heads || quant < QK_BF16 ||
       quant > QK_E4M3 || (quant != QK_BF16 && (!qs || !ks)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (mask && (mask_kind < MASK_BOOL || mask_kind > MASK_F32))
@@ -1278,7 +1341,9 @@ extern "C" int sdnq_flash_attn_block(const void* q, const void* k, const void* v
          static_cast<const uint8_t*>(mask), 0, msh, msn, msk, mask_kind, acc, N, KN, mask_heads,
          1, 0, pblock, static_cast<float*>(m), static_cast<float*>(l), sm_scale, sdnq::F32,
          nullptr};
-  const int rc = launch_block_kind(a, vt, BH, quant, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rc = D == 128 ? launch_block_kind<128>(a, vt, BH, quant, st)
+                          : launch_block_kind<256>(a, vt, BH, quant, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 // The GEMM half of B2's tiles, B5 and B7: out = x @ W'ᵀ on Hopper's tensor
-// cores, W' the weight that csrc/decode_weight.cu writes once a call, with
-// one of four epilogues:
+// cores, W' the weight that csrc/decode_weight.cu writes once a call in x's
+// 16-bit type (bf16 or fp16: the wgmma of either, fp32 sums), with one of
+// four epilogues:
 //
 //   EPI_BIAS  out[m, o] = acc[m, o] (+ bias[o])                 B2 grouped, bit-plane
 //   EPI_ROW   out[m, o] = acc * scale[o] (+ xsum[m] * zp[o]) (+ bias[o])   B2 row mode
@@ -100,6 +101,23 @@ struct FoldTerms {
   }
 };
 
+// bf16 or fp16 operands: the wgmma of that type (the same shapes,
+// descriptors and accumulator layout)
+template <typename AT>
+__device__ __forceinline__ void mma128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (std::is_same<AT, __half>::value)
+    wgmma128_f16(d, da, db, scale_d);
+  else
+    wgmma128(d, da, db, scale_d);
+}
+template <typename AT>
+__device__ __forceinline__ void mma256(float (&d)[128], uint64_t da, uint64_t db) {
+  if constexpr (std::is_same<AT, __half>::value)
+    wgmma256_f16(d, da, db);
+  else
+    wgmma256(d, da, db);
+}
+
 // Tiles of 128 x 128 NB: the bias and row epilogues keep one fp32
 // accumulator and take NB = 2 (128 registers a thread) unless the grid
 // fills the card better with NB = 1; the fold keeps two or three products
@@ -119,7 +137,7 @@ struct Tile {
 // numbered with the M tile fastest (the blocks that run together share W'
 // tiles, and x stays in L2).  The producer runs on into the next tile's
 // stages while the consumers store the last one.
-template <int EPI, int NB_, typename OutT>
+template <int EPI, int NB_, typename AT, typename OutT>
 __global__ void __launch_bounds__(NT, 1)
     wgmma_mm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                     OutT* __restrict__ out, int M, int N, int K, Epi e) {
@@ -220,7 +238,7 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
             for (int kk = 0; kk < BK / 16; ++kk) {
               const int step = j * (BK / 16) + kk;  // k16 steps into the group
-              wgmma128(p, da + 2 * kk, db + 2 * kk, step != 0);  // a group starts afresh
+              mma128<AT>(p, da + 2 * kk, db + 2 * kk, step != 0);  // a group starts afresh
             }
             wgmma_commit();
             if (wg == 0 && it == 0) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
@@ -265,12 +283,12 @@ __global__ void __launch_bounds__(NT, 1)
           for (int kk = 0; kk < BK / 16; ++kk) {
             if constexpr (!FOLD) {
               if constexpr (NB == 2)
-                wgmma256(acc, da + 2 * kk, db + 2 * kk);
+                mma256<AT>(acc, da + 2 * kk, db + 2 * kk);
               else
-                wgmma128(acc, da + 2 * kk, db + 2 * kk, 1);
+                mma128<AT>(acc, da + 2 * kk, db + 2 * kk, 1);
             } else {  // past K the tiles are zero-filled: those steps add 0
               const int kg = kb * BK + kk * 16;
-              wgmma128(part, da + 2 * kk, db + 2 * kk, kg % e.g != 0);  // a group starts afresh
+              mma128<AT>(part, da + 2 * kk, db + 2 * kk, kg % e.g != 0);  // a group starts afresh
               if (kk + 1 < BK / 16 && kg + 16 <= K && (kg + 16) % e.g == 0) {
                 wgmma_commit();
                 fold(kg + 16);
@@ -477,29 +495,45 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 // ---- host ------------------------------------------------------------------
-template <int EPI, int NB, typename OutT>
+template <int EPI, int NB, typename AT, typename OutT>
 int launch(const CUtensorMap& tx, const CUtensorMap& tw, void* out, int M, int N, int K,
            const Epi& e, int grid, cudaStream_t st) {
   static bool ready = false;  // the block's shared memory is above the 48 KB default
   if (!ready) {
     const cudaError_t err =
-        cudaFuncSetAttribute(wgmma_mm_kernel<EPI, NB, OutT>,
+        cudaFuncSetAttribute(wgmma_mm_kernel<EPI, NB, AT, OutT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<NB>::SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready = true;
   }
-  wgmma_mm_kernel<EPI, NB, OutT><<<grid, NT, Tile<NB>::SMEM_BYTES, st>>>(
+  wgmma_mm_kernel<EPI, NB, AT, OutT><<<grid, NT, Tile<NB>::SMEM_BYTES, st>>>(
       tx, tw, static_cast<OutT*>(out), M, N, K, e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int EPI, int NB>
+template <int EPI, int NB, typename AT>
 int launch_out(int out_kind, const CUtensorMap& tx, const CUtensorMap& tw, void* out, int M,
                int N, int K, const Epi& e, int grid, cudaStream_t st) {
-  if (out_kind == sdnq::F32) return launch<EPI, NB, float>(tx, tw, out, M, N, K, e, grid, st);
+  if (out_kind == sdnq::F32) return launch<EPI, NB, AT, float>(tx, tw, out, M, N, K, e, grid, st);
   if (out_kind == sdnq::BF16)
-    return launch<EPI, NB, __nv_bfloat16>(tx, tw, out, M, N, K, e, grid, st);
-  if (out_kind == sdnq::F16) return launch<EPI, NB, __half>(tx, tw, out, M, N, K, e, grid, st);
+    return launch<EPI, NB, AT, __nv_bfloat16>(tx, tw, out, M, N, K, e, grid, st);
+  if (out_kind == sdnq::F16) return launch<EPI, NB, AT, __half>(tx, tw, out, M, N, K, e, grid, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename AT>
+int launch_epi(int epi, int nb, int out_kind, const CUtensorMap& tx, const CUtensorMap& tw,
+               void* out, int M, int N, int K, const Epi& e, int grid, cudaStream_t st) {
+  if (epi == EPI_BIAS)
+    return nb == 2 ? launch_out<EPI_BIAS, 2, AT>(out_kind, tx, tw, out, M, N, K, e, grid, st)
+                   : launch_out<EPI_BIAS, 1, AT>(out_kind, tx, tw, out, M, N, K, e, grid, st);
+  if (epi == EPI_ROW)
+    return nb == 2 ? launch_out<EPI_ROW, 2, AT>(out_kind, tx, tw, out, M, N, K, e, grid, st)
+                   : launch_out<EPI_ROW, 1, AT>(out_kind, tx, tw, out, M, N, K, e, grid, st);
+  if (epi == EPI_FOLD)
+    return launch_out<EPI_FOLD, 1, AT>(out_kind, tx, tw, out, M, N, K, e, grid, st);
+  if (epi == EPI_FOLD_FINE)
+    return launch_out<EPI_FOLD_FINE, 1, AT>(out_kind, tx, tw, out, M, N, K, e, grid, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -521,17 +555,18 @@ int launch_i8(const CUtensorMap& tx, const CUtensorMap& tw, void* out, int M, in
 }  // namespace
 
 // out (M, N) of out_kind = x (M, K) @ w (N, K)ᵀ with the epilogue `epi`:
-// x and w bf16 with rows ldx and ldw elements apart (multiples of 8, base
-// addresses 16-byte aligned); epi 0: bias (N,) f32 or null; epi 1: scale
-// (N,), zp (N,) or null, xsum (M,) (with zp), bias; epi 2: scale and zpc
-// (G, N), xsum (G, M), bias, groups of g (a multiple of 16 dividing K).
+// x and w of in_kind (bf16 1 or fp16 2) with rows ldx and ldw elements
+// apart (multiples of 8, base addresses 16-byte aligned); epi 0: bias (N,)
+// f32 or null; epi 1: scale (N,), zp (N,) or null, xsum (M,) (with zp),
+// bias; epi 2: scale and zpc (G, N), xsum (G, M), bias, groups of g (a
+// multiple of 16 dividing K).
 extern "C" int sdnq_wgmma_mm(const void* x, int ldx, const void* w, int ldw, void* out, int M,
                              int N, int K, int epi, const void* bias, const void* scale,
-                             const void* zp, const void* xsum, int g, int out_kind,
+                             const void* zp, const void* xsum, int g, int in_kind, int out_kind,
                              void* stream) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (M < 0 || N < 0 || K < 1 || ldx < K || ldw < K || ldx % 8 != 0 || ldw % 8 != 0 ||
-      misaligned(x) || misaligned(w))
+      misaligned(x) || misaligned(w) || (in_kind != sdnq::BF16 && in_kind != sdnq::F16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (epi == EPI_ROW && (!scale || (zp && !xsum))) return static_cast<int>(cudaErrorInvalidValue);
   if (epi == EPI_FOLD && (!scale || !zp || !xsum || g < 16 || g % 16 != 0 || K % g != 0))
@@ -546,22 +581,17 @@ extern "C" int sdnq_wgmma_mm(const void* x, int ldx, const void* w, int ldw, voi
   const int nb = (epi == EPI_BIAS || epi == EPI_ROW) && wide_tiles(mt, N, sms) ? 2 : 1;
   const long long tiles = mt * ((N + 128 * nb - 1) / (128 * nb));
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);  // one block an SM
+  const bool f16 = in_kind == sdnq::F16;
+  const CUtensorMapDataType type =
+      f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tx, tw;
-  if (!tensor_map(&tx, x, M, K, ldx, BM) || !tensor_map(&tw, w, N, K, ldw, 128 * nb))
+  if (!tensor_map(&tx, x, M, K, ldx, BM, type) || !tensor_map(&tw, w, N, K, ldw, 128 * nb, type))
     return static_cast<int>(cudaErrorInvalidValue);
   const Epi e{static_cast<const float*>(bias), static_cast<const float*>(scale),
               static_cast<const float*>(zp), static_cast<const float*>(xsum), g};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (epi == EPI_BIAS)
-    return nb == 2 ? launch_out<EPI_BIAS, 2>(out_kind, tx, tw, out, M, N, K, e, grid, st)
-                   : launch_out<EPI_BIAS, 1>(out_kind, tx, tw, out, M, N, K, e, grid, st);
-  if (epi == EPI_ROW)
-    return nb == 2 ? launch_out<EPI_ROW, 2>(out_kind, tx, tw, out, M, N, K, e, grid, st)
-                   : launch_out<EPI_ROW, 1>(out_kind, tx, tw, out, M, N, K, e, grid, st);
-  if (epi == EPI_FOLD) return launch_out<EPI_FOLD, 1>(out_kind, tx, tw, out, M, N, K, e, grid, st);
-  if (epi == EPI_FOLD_FINE)
-    return launch_out<EPI_FOLD_FINE, 1>(out_kind, tx, tw, out, M, N, K, e, grid, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return f16 ? launch_epi<__half>(epi, nb, out_kind, tx, tw, out, M, N, K, e, grid, st)
+             : launch_epi<__nv_bfloat16>(epi, nb, out_kind, tx, tw, out, M, N, K, e, grid, st);
 }
 
 // B7: out (M, N) of out_kind from int8 codes x (M, K) and w (N, K), rows

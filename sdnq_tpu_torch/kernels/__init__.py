@@ -59,11 +59,13 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     """Launches by wrapper, and ``<wrapper>:<mode>`` by mode (B3's masked,
-    float_mask, causal, gqa, int8_pv (token mode), head_pv, and its Q·K
-    kind bf16_qk, int8_qk or e4m3_qk; B9's e4m3_qk and int8_pv; B1's
-    colscale; B4's nn; B2's
-    grouped and bit-plane GEMV, and the grouped, row and bit-plane modes of
-    its tiles; B5's and B6's multiplane and minifloat modes, B7's
+    float_mask, causal, gqa, int8_pv (token mode), head_pv, its Q·K
+    kind bf16_qk, int8_qk or e4m3_qk, padded (a head dim padded to the
+    kernel's) and d256; B9's e4m3_qk, int8_pv and d256; B1's colscale;
+    B4's nn and bf16; B2's grouped and bit-plane GEMV and its e5m2 codes
+    and fp16 x, and the grouped, row and bit-plane modes of its tiles and
+    their fp16 x and e5m2 codes; B5's fp16 x; B5's and B6's multiplane and
+    minifloat modes, B7's
     multiplane mode; the decode's grouped, row, bit-plane, half-split and
     int8 half-split modes and the GEMM's bias, row, fold and int8 fold
     epilogues)."""

@@ -25,8 +25,8 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _HEADERS = ("common.cuh", "hopper.cuh", "flash_attn.cuh")
 SOURCES = ("quantize_rows", "scaled_mm", "dequant_gemv", "decode_weight",
-           "wgmma_mm", "flash_attn", "flash_attn_e4m3", "blockdiag_mm",
-           "blockdiag_i8_mm", "scaled_mm_tn")
+           "wgmma_mm", "flash_attn", "flash_attn_e4m3", "flash_attn_d256",
+           "blockdiag_mm", "blockdiag_i8_mm", "scaled_mm_tn")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -45,8 +45,19 @@ route the JAX constant-p-scale body (:127-141): p127 = exp2(s − (m −
 log2 127)) per P block, l sums the unrounded p127, rint(p127) times v_q in
 int8, out = acc / l rounded to the output type, then times vs; on the XLA
 route (:633-652) token-mode requantisation of P over the whole row with V
-scales of 1, then times vs.  On the card, head dims other than 64 and 128
-still raise (ROADMAP queue B, B3).
+scales of 1, then times vs.
+
+Head dims.  The kernels hold head dims 64, 128 and 256 (the JAX wrapper
+pads any D <= 256 to max(128, pow2(D)), :592-631).  On the card
+``flash_attention`` pads q, k and v with zeros to the next of those
+(``kernel_head_dim``) and slices the output back to v's head dim, which
+may differ from q's: zeros add nothing to Q·Kᵀ or P·V, and the per-token
+scales are taken before the padding, so the function is unchanged.  The
+softmax scale is the caller's, from q's own head dim, never the padded
+one (``quantized_attention`` folds it into q or q_scale before the kernel
+sees the operands).  Head dims above 256 raise, where the JAX route leaves
+its kernel too.  B9 holds D 128 and 256 (its JAX route takes D % 128 =
+0).
 
 ``trainable_attention`` is ``quantized_attention`` with a gradient.  The
 JAX package cannot differentiate its attention kernel (``pallas_call`` has
@@ -77,22 +88,43 @@ __all__ = ["flash_attention", "flash_attention_plain", "attention_xla",
            "quantized_attention", "quantize_kv", "attn_auto_matmul_dtype",
            "attn_kernel_route", "attn_p_block", "trainable_attention",
            "flash_attention_block", "flash_attention_block_plain",
-           "attention_block_xla", "block_kernel_route"]
+           "attention_block_xla", "block_kernel_route", "kernel_head_dim"]
 
 LOG2E = math.log2(math.e)
 LOG2_127 = math.log2(127.0)
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 128)
+# the head dims the kernels hold; other dims up to 256 are padded
+_HEAD_DIMS = (64, 128, 256)
 _L = ctypes.c_longlong
 # mask kinds and Q.K kinds of csrc/flash_attn.cuh
 _MASK_KINDS = {torch.bool: 1, torch.bfloat16: 2, torch.float32: 3}
 _QK_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
-def _library(q) -> str:
-    """The library of q's Q·K kind (e4m3 is built apart)."""
-    return "flash_attn_e4m3" if q.dtype == torch.float8_e4m3fn \
-        else "flash_attn"
+def _library(q, d: int) -> str:
+    """The library of q's Q·K kind and head dim d (e4m3, and bf16 / int8
+    at D 256, are built apart)."""
+    if q.dtype == torch.float8_e4m3fn:
+        return "flash_attn_e4m3"
+    return "flash_attn_d256" if d == 256 else "flash_attn"
+
+
+def kernel_head_dim(d: int) -> int | None:
+    """The head dim of the kernel that runs head dim ``d``: the first of
+    64, 128 and 256 at or above it; None above 256."""
+    return next((h for h in _HEAD_DIMS if d <= h), None)
+
+
+def _pad_head(t, d: int):
+    """t (..., D) with zero columns up to d (int8 and fp8 codes padded as
+    bytes: a zero byte is their zero)."""
+    pad = d - t.shape[-1]
+    if not pad:
+        return t
+    if t.element_size() == 1:
+        return torch.nn.functional.pad(t.view(torch.uint8),
+                                       (0, pad)).view(t.dtype)
+    return torch.nn.functional.pad(t, (0, pad))
 _FP8 = ("fp8", "float8_e4m3fn")
 
 
@@ -258,10 +290,11 @@ def flash_attention(q, k, v, q_scale=None, k_scale=None,
                     v_head_scale=None):
     """Flash attention; see ``flash_attention_plain`` for the function.  On
     the card: q, k bf16 (or int8 or e4m3 with scales), v bf16 (or int8
-    with ``v_scale`` or ``v_head_scale``), D in {64, 128}; an int8 P·V
-    mode's ``p_block`` is a multiple of 64 up to 512 that divides KN; the
-    mask bool, bf16 or fp32 (another float dtype is read as fp32), read
-    through its strides."""
+    with ``v_scale`` or ``v_head_scale``), q's and v's head dims up to 256
+    (zero-padded to the kernel's, ``kernel_head_dim``; the output has v's);
+    an int8 P·V mode's ``p_block`` is a multiple of 64 up to 512 that
+    divides KN; the mask bool, bf16 or fp32 (another float dtype is read
+    as fp32), read through its strides."""
     kw = dict(heads=heads, mask=mask, causal=causal, v_scale=v_scale,
               p_block=p_block, v_head_scale=v_head_scale)
     if not is_cuda(q):
@@ -279,10 +312,13 @@ def flash_attention(q, k, v, q_scale=None, k_scale=None,
         raise ValueError(f"flash_attention takes bf16 q/k, or int8 or e4m3 "
                          f"with scales, and {v_want} v; got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in _HEAD_DIMS or v.shape[-1] != d:
+    vd = v.shape[-1]
+    dk = kernel_head_dim(max(d, vd))
+    if dk is None or k.shape[-1] != d:
         raise NotImplementedError(
-            f"head dim {d}: the kernel takes {_HEAD_DIMS} (others are a "
-            "later slice of the port, ROADMAP queue B, B3)")
+            f"head dims {d} / {vd}: the kernels take q / k / v head dims up "
+            f"to 256 (padded to {_HEAD_DIMS}), q's equal to k's; above 256 "
+            "the JAX route leaves its kernel too")
     qpk = bh // bkh if bkh and bh % bkh == 0 else 0
     if (kn < 1 or v.shape[:2] != k.shape[:2] or bh % h or not qpk
             or h % qpk):
@@ -292,8 +328,10 @@ def flash_attention(q, k, v, q_scale=None, k_scale=None,
             p_block and p_block % 64 == 0 and p_block <= 512
             and kn % p_block == 0):
         raise ValueError(f"int8 P·V block {p_block} for KN {kn}")
-    # TMA reads q, k and v: a view off a 16-byte boundary is copied
-    q, k, v = (_build.tma_rows(t.contiguous()) for t in (q, k, v))
+    # zero columns up to the kernel's head dim; TMA reads q, k and v: a view
+    # off a 16-byte boundary is copied
+    q, k, v = (_build.tma_rows(_pad_head(t, dk).contiguous())
+               for t in (q, k, v))
     qs = q_scale.reshape(bh, n).float().contiguous() if quant else None
     ks = k_scale.reshape(bkh, kn).float().contiguous() if quant else None
     vs = (v_scale.reshape(bkh, kn).float().contiguous()
@@ -309,15 +347,15 @@ def flash_attention(q, k, v, q_scale=None, k_scale=None,
         mkind = _MASK_KINDS[mask.dtype]
         mask = mask.expand(bh // h, h, n, kn)
         strides = tuple(mask.stride())
-    out = torch.empty((bh, n, d), dtype=out_dtype, device=q.device)
+    out = torch.empty((bh, n, dk), dtype=out_dtype, device=q.device)
     vt = _vt_scratch(v, int8_pv)
     if n:
-        fn = _build.function(_library(q), "sdnq_flash_attn",
+        fn = _build.function(_library(q, dk), "sdnq_flash_attn",
                              [P] * 8 + [_L] * 4 + [P] * 2 + [I] * 11 + [P])
         _build.check(fn(*(_build.ptr(t) for t in (q, k, v, qs, ks, vs, vh,
                                                   mask)),
                         *strides, _build.ptr(out), _build.ptr(vt), bh, n, kn,
-                        d, h, qpk,
+                        dk, h, qpk,
                         int(causal), int(p_block or 0), _QK_KINDS[q.dtype],
                         mkind, _build.act_kind(out_dtype), _build.stream(q)),
                      "flash_attention")
@@ -326,15 +364,16 @@ def flash_attention(q, k, v, q_scale=None, k_scale=None,
                      gqa=qpk > 1, int8_pv=v_scale is not None,
                      head_pv=vh is not None, bf16_qk=not quant,
                      int8_qk=q.dtype == torch.int8,
-                     e4m3_qk=q.dtype == torch.float8_e4m3fn)
-    return out
+                     e4m3_qk=q.dtype == torch.float8_e4m3fn,
+                     padded=dk != d or vd != d, d256=dk == 256)
+    return out if vd == dk else out[..., :vd]
 
 
 flash_attention.launches = 0
 # launches of the kernel in each mode (a launch may count in several)
 flash_attention.mode_launches = dict(masked=0, float_mask=0, causal=0, gqa=0,
                                      int8_pv=0, head_pv=0, bf16_qk=0,
-                                     int8_qk=0, e4m3_qk=0)
+                                     int8_qk=0, e4m3_qk=0, padded=0, d256=0)
 
 
 # ---------------------------------------------------------------------------
@@ -445,7 +484,7 @@ def attention_block_xla(q, k, v, q_scale=None, k_scale=None, v_scale=None,
 
 attention_block_xla.calls = 0
 
-_BLOCK_HEAD_DIMS = (128,)
+_BLOCK_HEAD_DIMS = (128, 256)
 _MASK_BYTES = (torch.bool, torch.int8, torch.uint8)
 
 
@@ -462,9 +501,9 @@ def flash_attention_block(q, k, v, q_scale=None, k_scale=None, v_scale=None,
 
     The JAX route: where ``block_kernel_route`` holds, B9 (a CUDA tensor)
     or its plain version (a CPU tensor); elsewhere ``attention_block_xla``
-    on both devices.  On the card B9 takes bf16, int8 or e4m3 q / k, D =
-    128 (D = 256 passes the route and raises: ROADMAP queue B), a bool,
-    int8 or float mask.  ``flash_attention_block.launches`` counts B9's
+    on both devices.  On the card B9 takes bf16, int8 or e4m3 q / k, D 128
+    or 256 (the route's D % 128 = 0 up to the kernels' 256), a bool, int8
+    or float mask.  ``flash_attention_block.launches`` counts B9's
     launches (``.mode_launches`` its e4m3 Q·K and token-mode ones),
     ``attention_block_xla.calls`` the XLA route's calls."""
     bh, n, d = q.shape
@@ -486,8 +525,8 @@ def flash_attention_block(q, k, v, q_scale=None, k_scale=None, v_scale=None,
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     if d not in _BLOCK_HEAD_DIMS or v.shape[-1] != d:
         raise NotImplementedError(
-            f"head dim {d}: B9 takes {_BLOCK_HEAD_DIMS} (others are a later "
-            "slice of the port, ROADMAP queue B, B9)")
+            f"head dim {d}: B9 takes {_BLOCK_HEAD_DIMS} (above 256 the "
+            "JAX kernel's block mode has no counterpart here)")
     if k.shape[0] != bh or v.shape[:2] != k.shape[:2]:
         raise ValueError(f"shapes {tuple(q.shape)} {tuple(k.shape)} "
                          f"{tuple(v.shape)}")
@@ -517,7 +556,7 @@ def flash_attention_block(q, k, v, q_scale=None, k_scale=None, v_scale=None,
     l = torch.empty((bh, n, 1), dtype=torch.float32, device=q.device)
     vt = _vt_scratch(v, vs is not None)
     if n:
-        fn = _build.function(_library(q), "sdnq_flash_attn_block",
+        fn = _build.function(_library(q, d), "sdnq_flash_attn_block",
                              [P] * 7 + [_L] * 3 + [P] * 4 + [I] * 8
                              + [ctypes.c_float, P])
         _build.check(fn(*(_build.ptr(t) for t in (q, k, v, qs, ks, vs, mask)),
@@ -530,11 +569,12 @@ def flash_attention_block(q, k, v, q_scale=None, k_scale=None, v_scale=None,
         modes = flash_attention_block.mode_launches
         modes["e4m3_qk"] += q.dtype == torch.float8_e4m3fn
         modes["int8_pv"] += quantized_pv
+        modes["d256"] += d == 256
     return acc, m, l
 
 
 flash_attention_block.launches = 0
-flash_attention_block.mode_launches = dict(e4m3_qk=0, int8_pv=0)
+flash_attention_block.mode_launches = dict(e4m3_qk=0, int8_pv=0, d256=0)
 
 
 def attention_xla(q, k, v, q_scale=None, k_scale=None, v_scale=None,

@@ -15,8 +15,8 @@ Kernels, each beside its plain PyTorch version and a launch counter:
   - grouped (scales (O, G), G > 1, as SDNQ's default int8 recipe stores
     every linear: auto groups of 1024): the TPU kernel decodes each weight
     tile into a scratch of x's dtype, so every scaled weight ``code *
-    scale + zp`` is ROUNDED TO x's DTYPE (bf16 on the card) before the
-    product, and the bias is added in fp32.  That rounding point is the
+    scale + zp`` is ROUNDED TO x's DTYPE (bf16 or fp16 on the card) before
+    the product, and the bias is added in fp32.  That rounding point is the
     function; the group-dot algebra of B5 would compute another number.
 
   - bit-plane (``fmt`` a packed format, B2's packed mode): codes of any
@@ -33,9 +33,10 @@ Kernels, each beside its plain PyTorch version and a launch counter:
   minifloat codes.
 * ``decode_weight`` (``csrc/decode_weight.cu``) and ``wgmma_mm``
   (``csrc/wgmma_mm.cu``): the two kernels of B2's tiles, B5 and B7 on the
-  card.  Each call decodes the weight once into a W' (bf16: scaled and
-  rounded where B2 rounds it, the exact code values for B2's row mode and
-  B5; int8: B7's raw codes), and one Hopper GEMM (TMA, ``wgmma``)
+  card.  Each call decodes the weight once into a W' (x's type, bf16 or
+  fp16: scaled and rounded where B2 rounds it, the exact code values for
+  B2's row mode and B5; int8: B7's raw codes), and one Hopper GEMM (TMA,
+  ``wgmma``)
   multiplies it with the mode's epilogue: the bias, B2's row scales and
   zero point, B5's group fold, or B7's fold of int32 group products.
 * ``blockdiag_mm`` — B6, ``csrc/blockdiag_mm.cu``.  Replaces
@@ -132,7 +133,10 @@ _BLOCKDIAG_VMEM_BYTES = int(100 * 1024 * 1024 * 0.9)
 # ---------------------------------------------------------------------------
 
 # code kinds of csrc/dequant_gemv.cu and csrc/decode_weight.cu
-_CODE_KINDS = {torch.int8: 0, torch.uint8: 1, torch.float8_e4m3fn: 2}
+_CODE_KINDS = {torch.int8: 0, torch.uint8: 1, torch.float8_e4m3fn: 2,
+               torch.float8_e5m2: 3}
+# x's types of the tensor-core tiles (the decode writes W' in x's type)
+_TILE_TYPES = (torch.bfloat16, torch.float16)
 
 
 def _groups(scale) -> int:
@@ -170,8 +174,8 @@ dequant_mm_plain = dequant_gemv_plain
 
 def _code_kind(codes, name):
     if codes.dtype not in _CODE_KINDS:
-        raise ValueError(f"{name} takes int8 / uint8 / float8_e4m3fn codes, "
-                         f"not {codes.dtype}")
+        raise ValueError(f"{name} takes int8 / uint8 / float8_e4m3fn / "
+                         f"float8_e5m2 codes, not {codes.dtype}")
     return _CODE_KINDS[codes.dtype]
 
 
@@ -218,10 +222,10 @@ def _aligned(t, n: int):
 def dequant_gemv(x, codes, scale, zp=None, bias=None,
                  out_dtype=torch.bfloat16, fmt=None):
     """Weight-only GEMV for x (M, K), M <= 32 on the card, fp32 / bf16 /
-    fp16; codes (O, K) int8, uint8 or e4m3; scale / zp (O,), (O, 1) or
-    (O, G) with K / G a multiple of 8; bias (O,).  With ``fmt`` a packed
-    format, codes (O, bits * ceil(K/8)) in its bit-plane layout (x and
-    the output fp32 or bf16 on the card; any group dividing K)."""
+    fp16; codes (O, K) int8, uint8, e4m3 or e5m2; scale / zp (O,), (O, 1)
+    or (O, G) with K / G a multiple of 8; bias (O,).  With ``fmt`` a
+    packed format, codes (O, bits * ceil(K/8)) in its bit-plane layout
+    (any group dividing K)."""
     if not is_cuda(x):
         return dequant_gemv_plain(x, codes, scale, zp, bias, out_dtype, fmt)
     m, k = x.shape
@@ -257,19 +261,18 @@ def dequant_gemv(x, codes, scale, zp=None, bias=None,
     dequant_gemv.launches += 1
     if groups > 1:
         dequant_gemv.mode_launches["grouped"] += 1
+    if kind == _CODE_KINDS[torch.float8_e5m2]:
+        dequant_gemv.mode_launches["e5m2"] += 1
+    dequant_gemv.mode_launches["fp16"] += x.dtype == torch.float16
     return out
 
 
 dequant_gemv.launches = 0
-dequant_gemv.mode_launches = dict(grouped=0, bitplane=0)
+dequant_gemv.mode_launches = dict(grouped=0, bitplane=0, e5m2=0, fp16=0)
 
 
 def _bitplane_gemv(x, codes, scale, zp, bias, out_dtype, fmt):
     m, k, o, s = _bitplane_check("dequant_gemv", x, codes, scale, fmt)
-    if x.dtype not in (torch.float32, torch.bfloat16) or out_dtype not in (
-            torch.float32, torch.bfloat16):
-        raise ValueError("dequant_gemv on bit-plane codes takes fp32 / bf16 "
-                         f"x and output, not {x.dtype} / {out_dtype}")
     x, codes = x.contiguous(), codes.contiguous()
     groups = _groups(scale)
     scale, zp, bias = _operands(scale, zp, bias)
@@ -283,29 +286,27 @@ def _bitplane_gemv(x, codes, scale, zp, bias, out_dtype, fmt):
                     _build.stream(x)), "dequant_gemv (bit-plane)")
     dequant_gemv.launches += 1
     dequant_gemv.mode_launches["bitplane"] += 1
+    dequant_gemv.mode_launches["fp16"] += x.dtype == torch.float16
     return out
 
 
 def dequant_mm(x, codes, scale, zp=None, bias=None,
                out_dtype=torch.bfloat16, fmt=None):
-    """Weight-only GEMM on tensor-core tiles: x (M, K), bf16 on the card;
-    codes (O, K) int8, uint8 or e4m3; scale / zp (O,) or (O, 1) (row mode)
-    or (O, G) (grouped, any group K / G); bias (O,).  With ``fmt`` a
-    packed format, codes (O, bits * ceil(K/8)) in its bit-plane layout
-    (output fp32 or bf16 on the card).  On the card the weight is decoded
-    once (``decode_weight``) and multiplied by ``wgmma_mm``."""
+    """Weight-only GEMM on tensor-core tiles: x (M, K), bf16 or fp16 on
+    the card; codes (O, K) int8, uint8, e4m3 or e5m2; scale / zp (O,) or
+    (O, 1) (row mode) or (O, G) (grouped, any group K / G); bias (O,).
+    With ``fmt`` a packed format, codes (O, bits * ceil(K/8)) in its
+    bit-plane layout.  On the card the weight is decoded once
+    (``decode_weight``, in x's type) and multiplied by ``wgmma_mm``."""
     if not is_cuda(x):
         return dequant_mm_plain(x, codes, scale, zp, bias, out_dtype, fmt)
     m, k = x.shape
     o = codes.shape[0]
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"dequant_mm takes bf16 x, not {x.dtype}")
+    if x.dtype not in _TILE_TYPES:
+        raise ValueError(f"dequant_mm takes bf16 or fp16 x, not {x.dtype}")
     groups = _groups(scale)
     if fmt is not None:
         _bitplane_check("dequant_mm", x, codes, scale, fmt)
-        if out_dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError("dequant_mm on bit-plane codes gives fp32 / bf16, "
-                             f"not {out_dtype}")
         mode = "bitplane"
     else:
         _code_kind(codes, "dequant_mm")
@@ -317,22 +318,27 @@ def dequant_mm(x, codes, scale, zp=None, bias=None,
         return torch.empty((m, o), dtype=out_dtype, device=x.device)
     scale, zp, bias = _operands(scale, zp, bias)
     if mode == "row":   # the codes enter exactly; the scales in the epilogue
-        w = decode_weight(codes, k)
+        w = decode_weight(codes, k, dtype=x.dtype)
         xsum = None if zp is None else x.sum(-1, dtype=torch.float32)
         out = wgmma_mm(x, w, k, "row", bias, scale.reshape(-1),
                        None if zp is None else zp.reshape(-1), xsum,
                        out_dtype)
     else:
         w = decode_weight(codes, k, scale, zp, fmt,
-                          "bitplane" if fmt is not None else "unpacked")
+                          "bitplane" if fmt is not None else "unpacked",
+                          dtype=x.dtype)
         out = wgmma_mm(x, w, k, "bias", bias, out_dtype=out_dtype)
     dequant_mm.launches += 1
     dequant_mm.mode_launches[mode] += 1
+    if x.dtype == torch.float16:
+        dequant_mm.mode_launches["fp16"] += 1
+    if codes.dtype == torch.float8_e5m2:
+        dequant_mm.mode_launches["e5m2"] += 1
     return out
 
 
 dequant_mm.launches = 0
-dequant_mm.mode_launches = dict(grouped=0, row=0, bitplane=0)
+dequant_mm.mode_launches = dict(grouped=0, row=0, bitplane=0, fp16=0, e5m2=0)
 
 
 # ---------------------------------------------------------------------------
@@ -375,18 +381,20 @@ def decode_weight_plain(codes, k, scale=None, zp=None, fmt=None,
         vals = codes.float()
     if scale is not None and layout != "halfsplit":
         vals = _scaled(vals, scale, zp, k // _groups(scale))
-    return F.pad(vals.to(torch.bfloat16), (0, _padded_k(k) - k))
+    return F.pad(vals.to(dtype), (0, _padded_k(k) - k))
 
 
 def decode_weight(codes, k, scale=None, zp=None, fmt=None, layout="unpacked",
                   bits=None, dtype=torch.bfloat16):
     """The weight W' (O, K rounded up to 8; the padding columns 0) of a
-    weight's codes, in natural k order, for ``wgmma_mm``; bf16, or (B7,
-    ``dtype`` int8) the raw half-split integer codes, (O, K):
+    weight's codes, in natural k order, for ``wgmma_mm``; ``dtype`` bf16
+    or fp16 (x's type), or (B7, ``dtype`` int8) the raw half-split integer
+    codes, (O, K):
 
-    * ``unpacked`` (B2): codes (O, K) int8, uint8 or e4m3; with scale /
-      zp (O, G) each weight ``code * scale (+ zp)`` rounded to bf16 (B2's
-      rounding point), without them bf16(code) (exact; the row mode);
+    * ``unpacked`` (B2): codes (O, K) int8, uint8, e4m3 or e5m2; with
+      scale / zp (O, G) each weight ``code * scale (+ zp)`` rounded to
+      ``dtype`` (B2's rounding point), without them the code (exact; the
+      row mode);
     * ``bitplane`` (B2): codes (O, bits * ceil(K/8)) of ``fmt``, decoded,
       scaled and rounded as above;
     * ``halfsplit`` (B5, B7): codes (O, K * bits / 8) of ``bits`` bits,
@@ -401,6 +409,10 @@ def decode_weight(codes, k, scale=None, zp=None, fmt=None, layout="unpacked",
                                          and not fmt.is_integer)):
         raise ValueError("decode_weight writes int8 from half-split integer "
                          "codes only")
+    if not i8 and dtype not in _TILE_TYPES:
+        raise ValueError(f"decode_weight writes bf16, fp16 or int8, not "
+                         f"{dtype}")
+    kind16 = 0 if i8 else _build.act_kind(dtype)
     out = torch.empty((o, k if i8 else _padded_k(k)), dtype=dtype,
                       device=codes.device)
     codes = codes.contiguous()
@@ -408,18 +420,18 @@ def decode_weight(codes, k, scale=None, zp=None, fmt=None, layout="unpacked",
     if layout == "halfsplit":
         bits = bits or fmt.code_bits
         fn = _build.function("decode_weight", "sdnq_decode_halfsplit",
-                             [P, P] + [I] * 8 + [P])
+                             [P, P] + [I] * 9 + [P])
         rc = fn(codes.data_ptr(), out.data_ptr(), o, k, bits,
-                *_float_args(fmt), int(i8), st)
+                *_float_args(fmt), int(i8), kind16, st)
         mode = "halfsplit_i8" if i8 else "halfsplit"
     elif layout == "bitplane":
         groups = _groups(scale)
         scale, zp, _ = _operands(scale, zp, None)
         fn = _build.function("decode_weight", "sdnq_decode_bitplane",
-                             [P] * 4 + [I] * 10 + [P])
+                             [P] * 4 + [I] * 11 + [P])
         rc = fn(*(_build.ptr(t) for t in (codes, scale, zp, out)), o, k,
                 out.shape[1] // 8, groups, fmt.code_bits, *_fmt_args(fmt),
-                st)
+                kind16, st)
         mode = "bitplane"
     else:
         kind = _code_kind(codes, "decode_weight")
@@ -428,11 +440,11 @@ def decode_weight(codes, k, scale=None, zp=None, fmt=None, layout="unpacked",
         if not row:
             scale, zp, _ = _operands(scale, zp, None)
         fn = _build.function("decode_weight", "sdnq_decode_unpacked",
-                             [P] * 4 + [I] * 6 + [P])
+                             [P] * 4 + [I] * 7 + [P])
         rc = fn(*(_build.ptr(t) for t in (codes.view(torch.uint8),
                                           None if row else scale,
                                           None if row else zp, out)),
-                o, k, out.shape[1], groups, kind, int(row), st)
+                o, k, out.shape[1], groups, kind, int(row), kind16, st)
         mode = "row" if row else "grouped"
     _build.check(rc, f"decode_weight ({mode})")
     decode_weight.launches += 1
@@ -476,8 +488,9 @@ def wgmma_mm_plain(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
 
 def wgmma_mm(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
              xsum=None, out_dtype=torch.bfloat16, xs=None):
-    """out (M, O) = x (M, K) @ w[:, :K]ᵀ with x and w bf16 (w (O, >= K),
-    as ``decode_weight`` writes it) and an epilogue in fp32:
+    """out (M, O) = x (M, K) @ w[:, :K]ᵀ with x and w both bf16 or both
+    fp16 (w (O, >= K), as ``decode_weight`` writes it) and an epilogue in
+    fp32:
 
     * ``bias``: ``+ bias`` (O,) where given;
     * ``row``: ``* scale[o] (+ xsum[m] * zp[o]) (+ bias[o])``, scale / zp
@@ -498,10 +511,10 @@ def wgmma_mm(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
         return wgmma_mm_plain(x, w, k, epilogue, bias, scale, zp, xsum,
                               out_dtype, xs)
     m, o = x.shape[0], w.shape[0]
-    dt = torch.int8 if epilogue == "fold_i8" else torch.bfloat16
-    if x.dtype != dt or w.dtype != dt:
-        raise ValueError(f"wgmma_mm ({epilogue}) takes {dt} x and w, not "
-                         f"{x.dtype} and {w.dtype}")
+    kinds = (torch.int8,) if epilogue == "fold_i8" else _TILE_TYPES
+    if x.dtype not in kinds or w.dtype != x.dtype:
+        raise ValueError(f"wgmma_mm ({epilogue}) takes x and w both of "
+                         f"{kinds}, not {x.dtype} and {w.dtype}")
     if x.shape[1] < k or w.shape[1] < k:
         raise ValueError(f"wgmma_mm: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} do not hold K {k}")
@@ -536,11 +549,13 @@ def wgmma_mm(x, w, k, epilogue="bias", bias=None, scale=None, zp=None,
                 g, _build.act_kind(out_dtype), _build.stream(x))
     else:
         fn = _build.function("wgmma_mm", "sdnq_wgmma_mm",
-                             [P, I, P, I, P] + [I] * 4 + [P] * 4 + [I, I, P])
+                             [P, I, P, I, P] + [I] * 4 + [P] * 4
+                             + [I, I, I, P])
         rc = fn(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
                 out.data_ptr(), m, o, k, _EPILOGUES[epilogue],
                 *(_build.ptr(t) for t in (bias, scale, zp, xsum)), g,
-                _build.act_kind(out_dtype), _build.stream(x))
+                _build.act_kind(x.dtype), _build.act_kind(out_dtype),
+                _build.stream(x))
     _build.check(rc, f"wgmma_mm ({epilogue})")
     wgmma_mm.launches += 1
     wgmma_mm.mode_launches[epilogue] += 1
@@ -693,19 +708,20 @@ def _check_halfsplit(name, x, codes, scale, zpc, bits, g_align):
 
 def groupdot_mm(x, codes, scale, zpc, bias=None, bits: int = 4,
                 out_dtype=torch.bfloat16, fmt=None):
-    """Weight-only group-dot GEMM: x (M, K) bf16 on the card; codes (O,
-    K*bits/8) half-split uint8 of ``fmt`` (None: integer codes of
+    """Weight-only group-dot GEMM: x (M, K) bf16 or fp16 on the card;
+    codes (O, K*bits/8) half-split uint8 of ``fmt`` (None: integer codes of
     ``bits`` bits); scale, zpc (O, G) fp32; bias (O,) or None.  1/2/4-bit
     integers: 32 divides g and g divides the field segment K*bits/8; the
     general mode (other widths, minifloats): 32 divides g and K / pmax.
-    On the card the codes are decoded once (``decode_weight``: raw codes or
-    minifloat values, exact in bf16) and ``wgmma_mm`` folds each group's
-    product with its scale and zero-point term."""
+    On the card the codes are decoded once (``decode_weight`` in x's type:
+    raw codes or minifloat values, exact in bf16 and, but for the two
+    largest values of 5-exponent-bit minifloats, in fp16) and ``wgmma_mm``
+    folds each group's product with its scale and zero-point term."""
     if not is_cuda(x):
         return groupdot_mm_plain(x, codes, scale, zpc, bias, bits, out_dtype,
                                  fmt)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"groupdot_mm takes bf16 x, not {x.dtype}")
+    if x.dtype not in _TILE_TYPES:
+        raise ValueError(f"groupdot_mm takes bf16 or fp16 x, not {x.dtype}")
     general = _general(bits, fmt)
     check = _check_general if general else _check_halfsplit
     m, k, o, g = check("groupdot_mm", x, codes, scale, zpc, bits, 32)
@@ -715,16 +731,19 @@ def groupdot_mm(x, codes, scale, zpc, bias=None, bits: int = 4,
     xsum = torch.empty((k // g, m), dtype=torch.float32, device=x.device)
     torch.sum(x.reshape(m, k // g, g).transpose(0, 1), -1,
               dtype=torch.float32, out=xsum)
-    w = decode_weight(codes, k, fmt=fmt, layout="halfsplit", bits=bits)
+    w = decode_weight(codes, k, fmt=fmt, layout="halfsplit", bits=bits,
+                      dtype=x.dtype)
     out = wgmma_mm(x, w, k, "fold", bias, scale, zpc, xsum.t(), out_dtype)
     groupdot_mm.launches += 1
     if general:
         groupdot_mm.mode_launches[_general_mode(fmt)] += 1
+    if x.dtype == torch.float16:
+        groupdot_mm.mode_launches["fp16"] += 1
     return out
 
 
 groupdot_mm.launches = 0
-groupdot_mm.mode_launches = dict(multiplane=0, minifloat=0)
+groupdot_mm.mode_launches = dict(multiplane=0, minifloat=0, fp16=0)
 
 
 def _general_mode(fmt) -> str:
@@ -928,15 +947,21 @@ def _packed_dequant_matmul(x, wq, scale, zero_point, bias, fmt, out_dtype,
         if m <= BLOCKDIAG_MAX_ROWS:
             return blockdiag_mm(x, wq, s, zpc, bias, fmt.code_bits,
                                 out_dtype, fmt)
-        if is_cuda(x) and x.dtype != torch.bfloat16:
-            x = x.to(torch.bfloat16)   # the tensor cores multiply bf16
-        return groupdot_mm(x, wq, s, zpc, bias, fmt.code_bits, out_dtype,
-                           fmt)
+        return groupdot_mm(_tile_x(x), wq, s, zpc, bias, fmt.code_bits,
+                           out_dtype, fmt)
     if m <= GEMV_MAX_ROWS:
         return dequant_gemv(x, wq, scale, zero_point, bias, out_dtype, fmt)
-    if is_cuda(x) and x.dtype != torch.bfloat16:
-        x = x.to(torch.bfloat16)   # the tensor cores multiply bf16
-    return dequant_mm(x, wq, scale, zero_point, bias, out_dtype, fmt)
+    return dequant_mm(_tile_x(x), wq, scale, zero_point, bias, out_dtype,
+                      fmt)
+
+
+def _tile_x(x):
+    """x as the tensor-core tiles take it: fp32 cast to bf16 on the card,
+    as the JAX wrapper casts fp32 x on the chip; bf16 and fp16 as they
+    are (an fp16 x multiplies weights rounded to fp16)."""
+    if is_cuda(x) and x.dtype == torch.float32:
+        return x.to(torch.bfloat16)
+    return x
 
 
 def _dequantized_dot(x, vals, scale, zero_point, bias, g, out_dtype):
@@ -970,8 +995,9 @@ def dequant_matmul(x, wq, scale, zero_point, bias, fmt, group_size: int,
     ``group_size`` the K span of one group.  Unpacked codes take B2 at any
     M, rowwise or grouped: the GEMV (``dequant_gemv``) on up to
     GEMV_MAX_ROWS rows (grouped: where the group is a multiple of 8), the
-    tensor-core tiles (``dequant_mm``) otherwise, x cast to bf16 there on
-    the card as the JAX wrapper casts it on the chip.  Bit-plane codes
+    tensor-core tiles (``dequant_mm``) otherwise, an fp32 x cast to bf16
+    there on the card as the JAX wrapper casts it on the chip (bf16 and
+    fp16 x as they are).  Bit-plane codes
     take B2's packed mode, the GEMV or the tiles by the same row rule.
     Half-split codes (integers or minifloats) take B6 on up to
     BLOCKDIAG_MAX_ROWS rows and B5 above."""
@@ -982,9 +1008,7 @@ def dequant_matmul(x, wq, scale, zero_point, bias, fmt, group_size: int,
     groups = scale.shape[-1]
     if m <= GEMV_MAX_ROWS and (groups == 1 or (kdim // groups) % 8 == 0):
         return dequant_gemv(x, wq, scale, zero_point, bias, out_dtype)
-    if is_cuda(x) and x.dtype != torch.bfloat16:
-        x = x.to(torch.bfloat16)   # the tensor cores multiply bf16
-    return dequant_mm(x, wq, scale, zero_point, bias, out_dtype)
+    return dequant_mm(_tile_x(x), wq, scale, zero_point, bias, out_dtype)
 
 
 def _blockdiag_resident_ok(mg: int, kdim: int, bits: int,

@@ -230,6 +230,7 @@ def scaled_gemm(a, b, out_dtype=torch.bfloat16, xs=None, ws=None, bias=None,
                      "scaled_gemm")
         scaled_gemm.launches += 1
         scaled_gemm.mode_launches["nn" if nn else "nt"] += 1
+        scaled_gemm.mode_launches["bf16"] += a.dtype == torch.bfloat16
     return out
 
 
@@ -245,7 +246,7 @@ def gemm_operands(a, b, nn: bool):
 
 
 scaled_gemm.launches = 0
-scaled_gemm.mode_launches = dict(nt=0, nn=0)
+scaled_gemm.mode_launches = dict(nt=0, nn=0, bf16=0)
 _GEMM_KINDS = {torch.int8: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 # The int32 sum is exact while 128 * 128 * K < 2^31.
 _I8_MAX_K = 1 << 17

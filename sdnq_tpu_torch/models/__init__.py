@@ -9,6 +9,10 @@ from .llm import (
     LLAMA3_8B_CONFIG, LLM_TINY_CONFIG, LLMConfig, generate, init_cache,
     init_llm, init_llm_layer, llm_forward,
 )
+from .moe import (
+    MOE_TINY_CONFIG, MoEConfig, init_moe, moe_ffn, qlinear_batched,
+    quantize_moe,
+)
 from .text_encoder import (
     CLIP_TINY_CONFIG, T5_TINY_CONFIG, CLIPConfig, T5Config, clip_encode,
     init_clip, init_t5, init_t5_layer, t5_encode,
@@ -32,4 +36,5 @@ __all__ = ["DiTConfig", "FLUX_DEV_CONFIG", "FLUX_TINY_CONFIG", "init_dit",
            "SD_VAE_CONFIG", "VAE_TINY_CONFIG", "init_vae", "vae_decode",
            "vae_encode", "UNetConfig", "SD15_CONFIG", "SDXL_CONFIG",
            "UNET_TINY_CONFIG", "init_unet", "unet_forward",
-           "make_staged_unet_forward"]
+           "make_staged_unet_forward", "MoEConfig", "MOE_TINY_CONFIG",
+           "init_moe", "quantize_moe", "qlinear_batched", "moe_ffn"]

@@ -11,12 +11,13 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.attention import quantized_attention, trainable_attention
+from ..layers import qlinear
 
 Params = dict
 
 __all__ = ["linear_init", "conv_init", "layer_norm", "rms_norm",
            "group_norm", "timestep_embedding", "rope", "apply_rope",
-           "attention", "split_heads", "gelu", "silu"]
+           "attention", "split_heads", "gelu", "silu", "mlp_forward"]
 
 
 def linear_init(in_dim: int, out_dim: int, *, generator: torch.Generator,
@@ -134,3 +135,12 @@ def gelu(x):
 
 def silu(x):
     return F.silu(x)
+
+
+def mlp_forward(params: Params, x, act=gelu, out_dtype=None):
+    """fc1, the activation, fc2: each a ``qlinear`` of ``params[name]``'s
+    weight and optional bias."""
+    h = qlinear(x, params["fc1"]["weight"], params["fc1"].get("bias"))
+    h = act(h)
+    return qlinear(h, params["fc2"]["weight"], params["fc2"].get("bias"),
+                   out_dtype=out_dtype)

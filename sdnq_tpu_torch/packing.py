@@ -42,6 +42,7 @@ __all__ = [
     "decode_float",
     "pack",
     "unpack",
+    "quantize_to_float_format",
 ]
 
 
@@ -218,6 +219,12 @@ def decode_float(code: torch.Tensor, fmt: Format,
     if sign is not None:
         val = torch.where(sign == 1, -val, val)
     return val.to(dtype)
+
+
+def quantize_to_float_format(x: torch.Tensor, fmt: Format) -> torch.Tensor:
+    """fp32 values rounded to the representable set of ``fmt``: encoded,
+    then decoded (the JAX package's ``quantize_to_float_format``)."""
+    return decode_float(encode_float(x, fmt), fmt)
 
 
 # ---------------------------------------------------------------------------

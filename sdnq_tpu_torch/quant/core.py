@@ -19,6 +19,7 @@ __all__ = [
     "get_scale_symmetric",
     "get_scale_asymmetric",
     "quantize_weight",
+    "dequantize_values",
     "quantize_int_mm",
     "quantize_uint_mm",
     "quantize_fp_mm",
@@ -119,6 +120,17 @@ def quantize_weight(w: torch.Tensor, fmt: Format | str, dims=-1, *,
             q = torch.nan_to_num(torch.clamp(q, fmt.min, fmt.max))
             q = q.to(fmt.torch_storage)
     return q, scale, zero_point
+
+
+def dequantize_values(q: torch.Tensor, scale: torch.Tensor,
+                      zero_point: torch.Tensor | None = None,
+                      dtype=torch.float32) -> torch.Tensor:
+    """q * scale (+ zero_point), q taken in the scale's dtype and the
+    scales broadcast against q; the result in ``dtype``."""
+    out = q.to(scale.dtype) * scale
+    if zero_point is not None:
+        out = out + zero_point
+    return out.to(dtype)
 
 
 def random_bits(shape, generator: torch.Generator) -> torch.Tensor:

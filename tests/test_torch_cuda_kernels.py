@@ -1371,7 +1371,7 @@ def test_flash_attention_block_additive_mask(dev):
 def test_flash_attention_block_routes_on_card(dev):
     """The JAX route on the card: KN % 128 != 0 or D 64 take the XLA block
     function in plain torch (no launch); D 256 with KN 128 passes the
-    route and raises (ROADMAP queue B)."""
+    route and runs B9 (its D 256 kernels), D 384 passes it and raises."""
     g = _gen(42)
     q = torch.randn(2, 64, 128, device=dev, generator=g).bfloat16()
     kw = dict(quantized=False, sm_scale=0.1)
@@ -1383,9 +1383,15 @@ def test_flash_attention_block_routes_on_card(dev):
                                                       q[:, :48])), **kw)
     for a, b in zip(got, want):
         assert (a.cpu() - b).abs().max() <= 1e-5 * b.abs().max()
-    wide = torch.zeros(2, 128, 256, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="queue B"):
-        ka.flash_attention_block(wide, wide, wide, **kw)
+    wide = torch.randn(2, 128, 256, device=dev, generator=g).bfloat16()
+    b9 = ka.flash_attention_block.launches
+    got = ka.flash_attention_block(wide, wide, wide, **kw)
+    assert ka.flash_attention_block.launches == b9 + 1
+    _block_check(got, ka.flash_attention_block_plain(wide, wide, wide, **kw),
+                 False)
+    wider = torch.zeros(2, 128, 384, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="above 256"):
+        ka.flash_attention_block(wider, wider, wider, **kw)
     k = torch.zeros(2, 128, 128, device=dev)
     with pytest.raises(ValueError):   # float q / k on the kernel route
         ka.flash_attention_block(q.float(), k, k.bfloat16(), **kw)
@@ -1997,3 +2003,261 @@ def test_quantized_attention_new_modes_card_vs_cpu(dev, kw, kn):
     got = ka.quantized_attention(q.to(dev), k.to(dev), v.to(dev),
                                  **kw).float().cpu()
     _rows_close(got, want, 2 ** -6 + 2 ** -7)
+
+
+# ---------------------------------------------------------------------------
+# fp16 x on B2's tiles and B5 (the weight decoded in x's type), B2's e5m2
+# codes and fp16 bit-plane mode, B3 at any head dim up to 256 and at a value
+# head dim other than the query's (zero-padded), B9 at D 256
+# ---------------------------------------------------------------------------
+
+def _terms_bound(x, w, lim=1e-5):
+    """``lim`` of each output's sum of |terms|, x (M, K) times the weight
+    w (O, K) as the kernel multiplies it."""
+    return lim * (x.float().abs() @ w.float().abs().T) + 1e-30
+
+
+def _fp16_operands(dev, mode, m, seed=90):
+    """x fp16 (M, K) and a weight quantized on the card for one of B2's
+    tile modes (grouped int8, rowwise uint8 with a zero point, bit-plane
+    float8_e3m4fn of R1, B5's uint4): (x, codes, scale, zp, bias, fmt, g,
+    layout, the weight as fp16 rounds it)."""
+    import sdnq_tpu_torch as T
+    g = _gen(seed)
+    fmt, gsize, k = {"grouped": ("int8", 128, 2048),
+                     "row": ("uint8", -1, 1536),
+                     "bitplane": ("float8_e3m4fn", 1024, 2048),
+                     "halfsplit": ("uint4", 128, 2048)}[mode]
+    o = 200
+    w = torch.randn(o, k, device=dev, generator=g) * 0.02
+    qt = T.quantize_tensor(w, fmt, group_size=gsize)
+    codes, scale, zp = _qt_operands(qt)
+    if codes.dim() > 2:
+        codes = codes.reshape(o, -1)
+    x = torch.randn(m, k, device=dev, generator=g).half()
+    bias = torch.randn(o, device=dev, generator=g)
+    wd = T.dequantize(qt, torch.float32)
+    return (x, codes, scale, zp, bias, qt.meta.format, k // scale.shape[1],
+            qt.meta.pack_layout, wd)
+
+
+def _kernel_terms(mode, x, codes, scale, zp, f, wd):
+    """Each output's sum of |terms| as the kernel forms it: B2 grouped and
+    bit-plane, x times each weight rounded to x's type; the row mode, x
+    times the exact codes, then the scale, plus rowsum(x) times the zero
+    point; B5, each group's product of x and the exact codes (or minifloat
+    values) times its scale, plus the group's rowsum times zpc."""
+    xa = x.float().abs()
+    if mode in ("grouped", "bitplane"):
+        return xa @ wd.to(x.dtype).float().abs().T
+    o, k = wd.shape
+    if mode == "row":
+        c = codes.float() * scale.reshape(o, 1)
+        off = zp.reshape(o, 1).abs().expand(o, k) if zp is not None else 0
+        return xa @ (c.abs() + off).T
+    from sdnq_tpu_torch.kernels.dequant_mm import (
+        _group_operands, _halfsplit_values)
+    s, zpc = _group_operands(scale, zp, f)
+    vals = _halfsplit_values(codes, f.code_bits, k, f)
+    g = k // s.shape[1]
+    c = (vals.reshape(o, -1, g).abs() * s[..., None]
+         + zpc.abs()[..., None]).reshape(o, k)
+    return xa @ c.T
+
+
+@pytest.mark.parametrize("mode", ["grouped", "row", "bitplane", "halfsplit"])
+@pytest.mark.parametrize("m", [40, 300])
+def test_fp16_x_on_the_tiles(dev, mode, m):
+    """fp16 x stays fp16 on B2's tiles and B5: the weight is decoded in
+    fp16 (B2: each scaled weight rounded to fp16, as the TPU kernel's
+    scratch of x's dtype rounds it) and multiplied by the fp16 wgmma.
+    fp32 out within 1e-5 of each output's sum of |terms| as the kernel
+    forms them; fp16 out within 2^-10 of the largest output.  The old cast
+    of x (and so of the weight) to bf16 misses the first bound."""
+    x, codes, scale, zp, bias, f, g, layout, wd = _fp16_operands(dev, mode, m)
+    fn = kd.groupdot_mm if mode == "halfsplit" else kd.dequant_mm
+    before = fn.mode_launches["fp16"]
+    args = (x, codes, scale, zp, bias, f, g)
+    got = kd.dequant_matmul(*args, out_dtype=torch.float32,
+                            pack_layout=layout)
+    want = kd.dequant_matmul(*(t.cpu() if torch.is_tensor(t) else t
+                               for t in args), out_dtype=torch.float32,
+                             pack_layout=layout).to(dev)
+    assert fn.mode_launches["fp16"] == before + 1
+    bound = 1e-5 * (_kernel_terms(mode, x, codes, scale, zp, f, wd)
+                    + bias.abs()) + 1e-30
+    assert ((got - want).abs() <= bound).all()
+    got16 = kd.dequant_matmul(*args, out_dtype=torch.float16,
+                              pack_layout=layout).float()
+    assert (got16 - want).abs().max() <= 2 ** -10 * want.abs().max()
+    old = kd.dequant_matmul(x.bfloat16(), *args[1:], out_dtype=torch.float32,
+                            pack_layout=layout)
+    assert not ((old - want).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("kind", ["float8_e5m2", "int8"])
+@pytest.mark.parametrize("k,groups,row", [(3072, 3, False), (200, 5, False),
+                                          (1000, 1, True)])
+def test_decode_weight_fp16_and_e5m2_bit_equal(dev, kind, k, groups, row):
+    """The decode in fp16 (x's type) and of e5m2 codes (the high byte of
+    their fp16 value), bit-equal to the plain version in bf16 and fp16."""
+    gen = _gen(91)
+    o = 136
+    codes = (torch.randn(o, k, device=dev, generator=gen) * 300).to(
+        torch.float8_e5m2) if kind == "float8_e5m2" else _codes(
+            kind, o, k, gen, dev)
+    scale = torch.rand(o, groups, device=dev, generator=gen) * 0.01 + 1e-3
+    args = (codes, k) if row else (codes, k, scale, None)
+    for dt in (torch.bfloat16, torch.float16):
+        got = kd.decode_weight(*args, dtype=dt)
+        assert got.dtype == dt
+        assert _bits_equal(got, kd.decode_weight_plain(*args, dtype=dt))
+
+
+@pytest.mark.parametrize("m", [1, 4, 32, 40, 300])
+@pytest.mark.parametrize("g", [-1, 128])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16,
+                                 torch.float16])
+def test_e5m2_codes(dev, m, g, xdt):
+    """Native e5m2 weights (rowwise and grouped): the GEMV (M <= 32, every
+    x type) and the tiles (bf16 and fp16 x), fp32 out: 1e-5 of each
+    output's sum of |terms|."""
+    import sdnq_tpu_torch as T
+    gen = _gen(92)
+    o, k = 264, 1024
+    qt = T.quantize_tensor(torch.randn(o, k, device=dev, generator=gen),
+                           "float8_e5m2", group_size=g)
+    codes, scale, zp = _qt_operands(qt)
+    codes = codes.reshape(o, k)
+    assert codes.dtype == torch.float8_e5m2
+    x = torch.randn(m, k, device=dev, generator=gen).to(xdt)
+    bias = torch.randn(o, device=dev, generator=gen)
+    if m > kd.GEMV_MAX_ROWS and xdt == torch.float32:
+        x = x.bfloat16()   # the tiles take 16-bit x
+    fn = kd.dequant_gemv if m <= kd.GEMV_MAX_ROWS else kd.dequant_mm
+    before = fn.launches
+    got = fn(x, codes, scale, zp, bias, torch.float32)
+    want = kd.dequant_gemv_plain(x, codes, scale, zp, bias, torch.float32)
+    assert fn.launches == before + 1
+    wd = T.dequantize(qt, torch.float32)
+    assert ((got - want).abs()
+            <= _terms_bound(x, wd) + 1e-6 * bias.abs().max()).all()
+
+
+@pytest.mark.parametrize("fmt,k,gsize", [("float8_e3m4fn", 2048, 1024),
+                                         ("float9_e3m5fn", 1040, -1),
+                                         ("uint10", 256, 32)])
+@pytest.mark.parametrize("m", [1, 5, 32])
+def test_bitplane_gemv_fp16(dev, fmt, k, gsize, m):
+    """B2's bit-plane GEMV at fp16 x: each scaled weight rounded to fp16;
+    fp32 out within 1e-5 of each output's sum of |terms|, fp16 out within
+    2^-10 of the largest output."""
+    import sdnq_tpu_torch as T
+    g = _gen(93)
+    o = 200
+    qt = T.quantize_tensor(torch.randn(o, k, device=dev, generator=g) * 0.02,
+                           fmt, group_size=gsize)
+    codes, scale, zp = _qt_operands(qt)
+    f = qt.meta.format
+    x = torch.randn(m, k, device=dev, generator=g).half()
+    bias = torch.randn(o, device=dev, generator=g)
+    before = kd.dequant_gemv.mode_launches["bitplane"]
+    got = kd.dequant_gemv(x, codes, scale, zp, bias, torch.float32, fmt=f)
+    want = kd.dequant_gemv_plain(x, codes, scale, zp, bias, torch.float32,
+                                 fmt=f)
+    assert kd.dequant_gemv.mode_launches["bitplane"] == before + 1
+    wd = T.dequantize(qt, torch.float32).half()
+    assert ((got - want).abs()
+            <= _terms_bound(x, wd) + 1e-6 * bias.abs().max()).all()
+    got16 = kd.dequant_gemv(x, codes, scale, zp, bias, torch.float16, fmt=f)
+    assert got16.dtype == torch.float16
+    assert (got16.float() - want).abs().max() <= 2 ** -10 * want.abs().max()
+
+
+def _head_dim_inputs(dev, g, bh, bkh, n, kn, d, vd, qk, pv):
+    """``_new_mode_inputs`` with v at its own head dim vd."""
+    from sdnq_tpu_torch.quant.core import quantize_fp_mm, quantize_int_mm
+    args, kw = _new_mode_inputs(dev, g, bh, bkh, n, kn, d, qk, "bf16")
+    v = torch.randn(bkh, kn, vd, device=dev, generator=g)
+    if pv == "bf16":
+        args[2] = v.bfloat16()
+    elif pv == "token":
+        vq, vs = quantize_int_mm(v)
+        args[2] = vq
+        kw = dict(v_scale=vs[..., 0], p_block=ka.attn_p_block(kn))
+    else:
+        vs = v.abs().amax((1, 2)).clamp_min(1e-20) / 127.0
+        args[2] = torch.round(v / vs[:, None, None]).to(torch.int8)
+        kw = dict(v_head_scale=vs, p_block=ka.attn_p_block(kn))
+    return args, kw
+
+
+@pytest.mark.parametrize("d,vd", [(100, 100), (160, 160), (256, 256),
+                                  (32, 32), (64, 96), (200, 128)])
+@pytest.mark.parametrize("qk", ["bf16", "int8", "e4m3"])
+@pytest.mark.parametrize("pv", ["bf16", "token", "head"])
+def test_flash_attention_any_head_dim(dev, d, vd, qk, pv):
+    """B3 at head dims the kernels do not hold (zero-padded to the next of
+    64, 128, 256: D 32, 100, 160, 200) and at D 256 (two blocks a query
+    tile, each writing 128 of the output columns), v's head dim other than
+    q's (64 / 96, 200 / 128), 4 query heads over 2 KV heads, a ragged KN
+    for bf16 P·V, causal at D 256 and 100.  Against the plain version on
+    the unpadded operands: 2^-6 of each row's largest output with bf16
+    P·V or bf16 Q·K, 2^-7 with e4m3 Q·K, 1e-4 otherwise."""
+    g = _gen(94)
+    b, h, kh, n = 2, 4, 2, 136
+    kn = 320 if pv != "bf16" else 200
+    args, kw = _head_dim_inputs(dev, g, b * h, b * kh, n, kn, d, vd, qk, pv)
+    kw["heads"] = h
+    if d in (100, 256) and pv != "bf16":
+        kw["causal"] = True
+        args, kw2 = _head_dim_inputs(dev, g, b * h, b * kh, kn, kn, d, vd,
+                                     qk, pv)
+        kw2.update(heads=h, causal=True)
+        kw = kw2
+    before = dict(ka.flash_attention.mode_launches)
+    got = ka.flash_attention(*args, out_dtype=torch.float32, **kw)
+    want = ka.flash_attention_plain(*args, out_dtype=torch.float32, **kw)
+    assert got.shape == want.shape and got.shape[-1] == vd
+    modes = ka.flash_attention.mode_launches
+    assert modes["padded"] == before["padded"] + (d not in (64, 128, 256)
+                                                  or vd != d)
+    assert modes["d256"] == before["d256"] + (max(d, vd) > 128)
+    # bf16 Q.K^T sums its products in another order than the plain
+    # version, as e4m3's do: a P code at a tie moves by a step there
+    _rows_close(got, want, 2 ** -6 if pv == "bf16" or qk == "bf16" else
+                2 ** -7 if qk == "e4m3" else 1e-4)
+
+
+@pytest.mark.parametrize("qk", ["bf16", "int8", "e4m3"])
+@pytest.mark.parametrize("token", [False, True])
+def test_flash_attention_block_d256(dev, qk, token):
+    """B9 at D 256 (two blocks a query tile; the first writes m and l) with
+    each Q·K kind, bf16 or token-mode P·V, a bool mask with a row hidden
+    everywhere."""
+    from sdnq_tpu_torch.quant.core import quantize_fp_mm, quantize_int_mm
+    g = _gen(95)
+    bh, d, n, kn = 4, 256, 136, 1024
+    q, k, v = (torch.randn(bh, s, d, device=dev, generator=g)
+               for s in (n, kn, kn))
+    if qk == "bf16":
+        args = [q.bfloat16(), k.bfloat16(), v.bfloat16(), None, None, None]
+    else:
+        quant = quantize_int_mm if qk == "int8" else quantize_fp_mm
+        (qq, qs), (kq, ks) = quant(q), quant(k)
+        args = [qq, kq, v.bfloat16(), qs[..., 0] * d ** -0.5, ks[..., 0],
+                None]
+    if token:
+        vq, vs = quantize_int_mm(v)
+        args[2], args[5] = vq, vs[..., 0]
+    mk = torch.rand(1, n, kn, device=dev, generator=g) < 0.5
+    mk[..., 0] = True
+    mk[0, 9] = False
+    args.append(mk)
+    kw = dict(quantized=qk != "bf16", quantized_pv=token,
+              sm_scale=d ** -0.5)
+    before = ka.flash_attention_block.mode_launches["d256"]
+    got = ka.flash_attention_block(*args, **kw)
+    assert ka.flash_attention_block.mode_launches["d256"] == before + 1
+    _block_check(got, ka.flash_attention_block_plain(*args, **kw),
+                 token and qk == "int8")

@@ -70,9 +70,25 @@ def test_watchdog_edits_apply(src):
 
 
 def test_fault_tags_unique_and_counted():
-    tags = [f[0] for f in CS.FAULTS]
+    tags = [f[0] for f in CS.FAULTS] + [f[0] for f in CS.PY_FAULTS]
     assert len(tags) == len(set(tags))
     assert len(tags) >= 40
     slices = set(CS.SLICE_TOL) | set(CS.LLM_SLICE_TOL) | {
-        "qlinear_b8", "train", "ring", "pipeline", "unet"}
+        "qlinear_b8", "train", "ring", "pipeline", "unet", "moe",
+        "sd15_fp16"}
     assert {f[3] for f in CS.FAULTS} <= slices
+    assert {f[4] for f in CS.PY_FAULTS} <= slices
+
+
+@pytest.mark.parametrize("fault", CS.PY_FAULTS,
+                         ids=[f[0] for f in CS.PY_FAULTS])
+def test_py_fault_edits_apply(fault):
+    """A fault of a Python wrapper: its edits find their text in the
+    module, change it, and the broken text still compiles."""
+    tag, rel, sources, kernel, label, edits = fault
+    path = ROOT / "sdnq_tpu_torch" / rel
+    assert path.is_file(), f"{tag}: no sdnq_tpu_torch/{rel}"
+    assert all((CSRC / f"{src}.cu").is_file() for src in sources)
+    broken = CS.py_fault_text(rel, edits)
+    assert broken != path.read_text()
+    compile(broken, str(path), "exec")
