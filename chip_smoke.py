@@ -12,6 +12,8 @@
     python3 chip_smoke.py --phases-4m-4b-4o  # only phases 4m, 4b, 4o and
                                              # 4u's fp16 recipe, with their
                                              # phase 3 rows
+    python3 chip_smoke.py --phases-4n-4t     # only phases 4n and 4t, with
+                                             # their phase 3 rows and slices
 
 ``--no-faults`` starts no builds of planted faults, so that the timed
 phases have the host's cores to themselves (the default run builds them
@@ -209,6 +211,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               x 2 DDIM steps at 512x512 (B2's bit-plane and grouped tiles
               at fp16 x; the time embedding's GEMV rows at fp32 x), the
               format histogram, and the SD1.5 slice at fp16.
+4n. muon    - phase 4e's training model under ``muon(
+              use_quantized_matmul_ns=True)`` (8-bit state, SR, Kahan):
+              one warm-up and two timed steps, forward / backward /
+              optimizer ms, the NS calls' ms, 15 B4 launches a NS leaf, peak
+              GiB, the loss and the codes moved; phase 3 holds the NS of a
+              leaf at linear1's width (classic, Gram-NS, adaptive) on B4
+              bit-equal to NS on B4's plain version, and B4 at its three
+              shapes beside ``torch._int_mm``; phase 5 one Muon step of the
+              2 + 2-block training slice against the all-plain path.
+4t. parallel- on phase 4's int8 FLUX.1-dev (19 + 38 blocks, 1024x1024;
+              built again after the fault builds, whose load the
+              host-bound virtual ranks would share):
+              an NCCL process group of one, the ``shard_params(...,
+              DIT_TP_RULES)`` forward through create_mesh(tensor=1)
+              bit-equal to ``dit_forward``, ``dryrun_multichip(1)`` on
+              it, ``local_tp`` at virtual T = 2
+              and 4 against the unsharded forward (launches of B1, B1's
+              given-scale mode, B4, B3, B2 a forward); phase 4m's banks
+              over virtual 2, 4 and 8 expert ranks (``shard_moe``) against
+              ``moe_ffn``; one iteration of phase 4b's batcher with its
+              slots over create_mesh(data=1), bit-equal to mesh=None; the
+              TP x DP training step at virtual T = 2 on the 2 + 2-block
+              training slice against the unsharded step (loss, gradients,
+              updated codes); phase 3 holds B1's given-scale mode and a 1
+              + 2-block cut at T = 2; phase 5 the cut at T = 2 against its
+              plain path.
 4i. files   - model files, written into a temporary directory (free disk
               checked first; removed at the end) and read on the card:
               FLUX.1-dev at full width cut to 2 + 4 blocks (seeded bf16
@@ -274,7 +302,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               without log2(e), B2 reading its bit planes in reverse order,
               B2's minifloat decode flushing subnormals, B5 ignoring the
               second field plane, B6 dropping the minifloat sign and
-              reading its minifloat table one entry off, B9
+              reading its minifloat table one entry off, B1 ignoring
+              a given row scale, B9
               writing acc normalised, m in base-2 units, B3's base-2
               exponent in B9, l not rescaled in token mode, and the GEMM
               waiting on the wrong phase of its stages' barriers, starting
@@ -297,12 +326,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               block writing the first 128 columns, B2's GEMV and decode
               reading e5m2 codes as e4m3, the bit-plane GEMV rounding fp16
               weights through bf16), built with the real ones, and
-              Python faults (PY_FAULTS: the tiles casting fp16 x to bf16,
-              the softmax scale taken from the padded head dim) loaded in
-              their modules' place;
+              Python faults (PY_FAULTS: Muon's quantized product
+              quantizing b where bᵀ belongs, the qkv layout shifted by one
+              head, the tiles casting fp16 x to bf16, the softmax scale
+              taken from the padded head dim) loaded in their modules'
+              place;
               for each in turn phase 3's rows of the kernels built from
               the broken source and phase 5's slice of its path rerun.
-              Phase 3 must fail for the broken kernel; phase 5's readings
+              Phase 3 must fail for the broken kernel (the sharding
+              layout's fault: phase 5's TP slice); phase 5's readings
               are printed beside their limits.
 ``--b1-probes`` builds B1's and B4's sources, times B1's quantizer at
 phase 3's shapes and B4's nn layout at NN_SHAPES under every plan of
@@ -561,7 +593,7 @@ def device_ms(torch, fn, symbol, reps: int = 5, seen=None):
 # ---------------------------------------------------------------------------
 
 def kernel_phase(torch, dev, timed: bool = True, only=None, count=None,
-                 mbo_only: bool = False):
+                 mbo_only: bool = False, nt_only: bool = False):
     """Each kernel against its plain version; with ``timed`` False only the
     comparison runs (the times are None).  ``only`` (a set of csrc source
     names) keeps the rows of the kernels built from those sources (the
@@ -569,7 +601,8 @@ def kernel_phase(torch, dev, timed: bool = True, only=None, count=None,
     count key) keeps, of the rows of B3's head mode and e4m3 Q.K, of the
     UNet shapes and of phases 4m-4o's modes, those of that key
     (``t.fresh``).  ``mbo_only`` keeps phases 4m-4o's rows alone
-    (``--phases-4m-4b-4o``)."""
+    (``--phases-4m-4b-4o``), ``nt_only`` phases 4n and 4t's
+    (``--phases-4n-4t``)."""
     import torch.nn.functional as F
     from sdnq_tpu_torch.kernels import attention as ka
     from sdnq_tpu_torch.kernels import dequant_mm as kd
@@ -663,6 +696,9 @@ def kernel_phase(torch, dev, timed: bool = True, only=None, count=None,
 
     if mbo_only:
         mbo_rows(torch, dev, g, t, record, runs)
+        return rows
+    if nt_only:
+        nt_rows(torch, dev, g, t, record, runs)
         return rows
     m = 4608
     # B1, quantize half: fp32 rows into qkv / linear1 / fc1 (K 3072) and
@@ -950,6 +986,9 @@ def kernel_phase(torch, dev, timed: bool = True, only=None, count=None,
     # phases 4m-4o's modes: B3 at padded head dims and D 256, B9
     # at D 256, B2's e5m2 codes and fp16 x on B2 and B5
     mbo_rows(torch, dev, g, t, record, runs)
+    # phases 4n and 4t: B1 with a given row scale, B4 at Muon's NS shapes,
+    # the NS itself, the tensor-parallel heads
+    nt_rows(torch, dev, g, t, record, runs)
 
 
     # B5 / B6 / B7 on uint4 half-split codes, group 128 (the uint4 + SVD
@@ -3266,6 +3305,7 @@ FLUX_CUT_DEPTH = (5, 10)
 TRAIN_DEPTH = (5, 10)
 TRAIN_SIDE, TRAIN_TXT = 512, 512          # 1024 image tokens, 512 text
 TRAIN_STEPS = 3                           # timed, after one warm-up step
+TRAIN_MEAN_OPTIMIZER_MS: dict = {}       # AdamW's, for phase 4n's log
 TRAIN_REQUIRED = ("scaled_mm_tn", "scaled_gemm:nn", "quantize_rows:colscale",
                   "quantize_rows", "scaled_gemm", "dequant_gemv",
                   "flash_attention")
@@ -3415,8 +3455,8 @@ def train_path(torch, dev, tparams, cfg):
         "mean_step_ms": statistics.mean(r["step_ms"] for r in timed),
         "mean_forward_ms": statistics.mean(r["forward_ms"] for r in timed),
         "mean_backward_ms": statistics.mean(r["backward_ms"] for r in timed),
-        "mean_optimizer_ms": statistics.mean(r["optimizer_ms"]
-                                             for r in timed),
+        "mean_optimizer_ms": TRAIN_MEAN_OPTIMIZER_MS.setdefault(
+            "adamw", statistics.mean(r["optimizer_ms"] for r in timed)),
         "image_tokens_per_s": statistics.mean(r["image_tokens_per_s"]
                                               for r in timed),
         "peak_gib": max(r["peak_gib"] for r in records)}))
@@ -4752,17 +4792,15 @@ def mbo_rows(torch, dev, g, t, record, runs):
                  + b * h * n * vd * 4)
         bnd = bound_mixed_ms(moved, (2 * d * pairs, kinds[qk]),
                              (2 * vd * pairs, kinds[pv]))
-        sdpa = None
-        if vd == d:
-            q16, k16, v16 = (x.bfloat16() for x in (q, k, v))
-            sdpa = (lambda: F.scaled_dot_product_attention(
-                q16, k16, v16, is_causal=causal, scale=d ** -0.5))
+        # SDPA takes v's head dim apart from q's too (the yardstick)
+        q16, k16, v16 = (x.bfloat16() for x in (q, k, v))
+        sdpa = (lambda: F.scaled_dot_product_attention(
+            q16, k16, v16, is_causal=causal, scale=d ** -0.5))
         tol = (2 ** -6 if pv == "bf16" else 2 ** -7 if qk == "e4m3"
                else 2 ** -10)
         record("flash_attention", "cuda", src, rep, float(err.max()), tol,
                kernel, t.once(lambda: ka.flash_attention_plain(
-                   *args, causal=causal, **kw)), bnd,
-               t(sdpa) if sdpa else None,
+                   *args, causal=causal, **kw)), bnd, t(sdpa),
                f"B{b} H{h} N{n} KN{kn} D{d}" + (f" vD{vd}" if vd != d else "")
                + f" {qk}-QK {pv}-P.V" + (" causal" if causal else "")
                + f" ({label}; the kernel's D "
@@ -5205,6 +5243,7 @@ def batch_phase(torch, dev, traced: bool = True):
         active = torch.ones(BATCH_SLOTS, dtype=torch.bool, device=dev)
         profile_step(torch, "batch_e5m2 4-slot step", torch.no_grad()(
             lambda: step(lat, cond, t_idx, active)))
+    batch_mesh_check(torch, dev, qparams, cfg)
     sliced = cut(qparams)
     slice_phase(torch, dev, sliced, "e5m2")
     del qparams
@@ -5491,6 +5530,683 @@ def profile_step(torch, label, step, warm: int = 1, after: int = 2):
 
 
 # ---------------------------------------------------------------------------
+# phases 4n (Muon) and 4t (tensor, expert and data parallelism)
+# ---------------------------------------------------------------------------
+
+# The sources the paths of phases 4n and 4t run (``--phases-4n-4t``).
+NT_SOURCES = ("quantize_rows", "scaled_mm", "scaled_mm_tn", "dequant_gemv",
+              "flash_attn", "decode_weight", "wgmma_mm")
+# A Muon leaf at FLUX's linear1 width: (21504, 3072), worked on transposed
+# as 3072 x 21504, so B4 runs at the Gram (3072, 3072, K 21504), its
+# square (3072^3) and the update (3072, 21504, K 3072).
+MUON_LEAF = (21504, 3072)
+MUON_SQUARE = 3072             # the leaf of the quantized-vs-fp32 NS row
+GIVEN_SCALE_ROWS = (4608, 15360)   # linear2's input rows at 1024x1024
+MUON_STEPS = 2                 # timed, after one warm-up step
+MUON_LR = 1e-3
+TP_SIZES = (2, 4)              # phase 4t's virtual tensor ranks
+EP_SIZES = (2, 4, 8)           # phase 4t's virtual expert ranks
+# Limits of phases 4n and 4t and of their phase-3 and phase-5 checks, each
+# about twice its sound reading on the H100 (NVIDIA H100 80GB HBM3, 700 W;
+# ``--phases-4n-4t``).  tp2 / tp4: the TP forward of the 19 + 38 blocks at
+# virtual T = 2 / 4 against the unsharded forward, the largest error over
+# the largest output (read 2.38e-2 / 2.41e-2): the row-parallel layers'
+# fp32 partial sums are added in another order, and an ulp there moves an
+# activation code at a rounding tie in a later layer, as between the two
+# packages, compounded over the blocks.  tp_slice / tp_heads: phase 5's
+# 1 + 2-block cut at T = 2 against the plain path / the unsharded forward
+# (8.8e-3 / 6.0e-3).  ep: the expert-parallel call against moe_ffn, both
+# with fp32 output (8.6e-8, about one fp32 ulp of the largest output: the
+# experts' fp32 parts summed in rank order; rounding each rank's part to
+# bf16 would read about 2^-9).  muon_ns: NS's quantized product against the
+# fp32 one at 3072^2 (1.31e-2).  tp_step_*: the TP x DP step at T = 2
+# against the unsharded step: loss 3.7e-5, gradients 1.56e-2 (activation
+# codes at ties, as tp2), the share of updated codes that differ 3.1e-9
+# (one code; the limit a few hundred).  muon_slice_*: one Muon step of the
+# 2 + 2-block slice through the kernels against the all-plain path: loss
+# 2.4e-5, codes that differ 1.2e-3.
+NT_TOL = {"tp2": 5e-2, "tp4": 5e-2, "tp_slice": 2e-2, "tp_heads": 1.2e-2,
+          "ep": 2 ** -22, "muon_ns": 3e-2, "tp_step_loss": 1e-4,
+          "tp_step_grad": 3.5e-2, "tp_step_codes": 1e-6,
+          "muon_slice_codes": 2.5e-3, "muon_slice_loss": 1e-4}
+
+
+def _ns_bound(shapes):
+    """The bound of a Newton-Schulz call's B4 GEMMs: each (M, N, K) reads
+    its int8 operands, writes fp32, and does 2MNK int8 operations."""
+    nbytes = sum(m * k + n * k + 4 * m * n + 4 * (m + n)
+                 for m, n, k in shapes)
+    return bound_ms(nbytes, sum(2 * m * n * k for m, n, k in shapes),
+                    "int8")
+
+
+def _b4_shapes(fn):
+    """The (M, N, K) of every B4 GEMM ``fn`` runs through
+    ``scaled_mm.scaled_mm``."""
+    from sdnq_tpu_torch.kernels import scaled_mm as ks
+    seen, real = [], ks.scaled_mm
+
+    def spy(a, b, *args, **kw):
+        seen.append((a.shape[0], b.shape[0], a.shape[1]))
+        return real(a, b, *args, **kw)
+    ks.scaled_mm = spy
+    try:
+        fn()
+    finally:
+        ks.scaled_mm = real
+    return seen
+
+
+def nt_rows(torch, dev, g, t, record, runs):
+    """Phase 3's rows of phases 4n and 4t: B1 with a given row scale (a
+    row-parallel shard's rows against the whole rows' scale); B4 nt at the
+    Newton-Schulz shapes of a FLUX leaf, beside ``torch._int_mm``; the
+    whole quantized NS of that leaf (classic, Gram-NS and adaptive mode's
+    sign input) on B4 against NS on B4's plain version (bit-equal); the
+    and the quantized NS against fp32 NS on a 3072^2 leaf.  The Muon
+    module is looked up at the call, so that phase 7's broken copy takes
+    its place."""
+    import importlib
+    from sdnq_tpu_torch.kernels import scaled_mm as ks
+
+    if runs("quantize_rows"):
+        m, k = GIVEN_SCALE_ROWS   # a rank's half of linear2's inputs
+        x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+        whole = ks.quantize_rows_plain(x)
+        part = x[:, k // 2:].contiguous()
+        s = whole[1].reshape(-1)
+        got = ks.quantize_rows(part, row_scale=s)
+        want = ks.quantize_rows_plain(part, row_scale=s)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got[:2], want[:2]))
+        err = max(err, float((got[0].float()
+                              - whole[0][:, k // 2:].float()).abs().max()))
+        record("quantize_rows", "cuda",
+               "sdnq_tpu_torch/csrc/quantize_rows.cu",
+               "sdnq_tpu/kernels/scaled_mm.py:230", err, 0.0,
+               lambda: ks.quantize_rows(part, row_scale=s),
+               t(lambda: ks.quantize_rows_plain(part, row_scale=s), reps=3),
+               bound_ms(m * (k // 2) * 3 + m * 8, 2 * m * (k // 2), "fp32"),
+               None, f"M{m} K{k // 2} bf16, the whole rows' scale given",
+               path="tp", count="quantize_rows:given_scale")
+        del x, whole, part
+
+    if runs("scaled_mm"):
+        n, w = MUON_LEAF[1], MUON_LEAF[0]
+        for mm_, nn_, kk, what in ((n, n, w, "Gram x.xT"),
+                                   (n, n, n, "its square"),
+                                   (n, w, n, "the update, bT as (N, K)")):
+            a = torch.randint(-127, 128, (mm_, kk), device=dev, generator=g,
+                              dtype=torch.int8)
+            b = torch.randint(-127, 128, (nn_, kk), device=dev, generator=g,
+                              dtype=torch.int8)
+            xs = torch.rand(mm_, 1, device=dev, generator=g) * 1e-3 + 1e-5
+            ws = torch.rand(nn_, 1, device=dev, generator=g) * 1e-3 + 1e-5
+            got = ks.scaled_mm(a, b, xs, ws, out_dtype=torch.float32)
+            want = ks.scaled_gemm_plain(a, b, torch.float32, xs, ws)
+            err = float((got - want).abs().max())
+            record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
+                   "sdnq_tpu/kernels/scaled_mm.py:57", err, 0.0,
+                   lambda: ks.scaled_mm(a, b, xs, ws,
+                                        out_dtype=torch.float32),
+                   t.once(lambda: ks.scaled_gemm_plain(
+                       a, b, torch.float32, xs, ws)),
+                   _ns_bound([(mm_, nn_, kk)]),
+                   t(lambda: torch._int_mm(a, b.t())),
+                   f"M{mm_} N{nn_} K{kk} int8 fp32 out, Muon NS: {what}",
+                   path="muon", count="scaled_gemm")
+            del a, b, got, want
+
+    if runs("scaled_mm"):
+        tm = importlib.import_module("sdnq_tpu_torch.optim.muon")
+        u = torch.randn(*MUON_LEAF, device=dev, generator=g)
+        for mode, kw, on_path in (("classic", {}, True),
+                                  ("Gram-NS", dict(use_gram_ns=True), False),
+                                  ("adaptive (sign input)", {}, False)):
+            inp = torch.sign(u) if mode.startswith("adaptive") else u
+
+            def ns(inp=inp, kw=kw):
+                return tm.zeropower_via_newtonschulz5(
+                    inp, 5, use_quantized_matmul=True, **kw)
+            try:
+                got = ns()
+                with plain_versions():
+                    want = ns()
+                err = float((got - want).abs().max())
+                shapes = _b4_shapes(ns)
+            except (RuntimeError, ValueError) as e:   # a broken glue
+                log(f"muon NS {mode}: raised {e!r}")
+                err, shapes = math.inf, [(1, 1, 1)]
+            record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
+                   "sdnq_tpu/kernels/scaled_mm.py:57", err, 0.0, ns,
+                   t.once(lambda: _plain_call(ns)), _ns_bound(shapes), None,
+                   f"Muon {mode} NS of a 21504 x 3072 leaf ({len(shapes)} "
+                   f"GEMMs), B4 against its plain version",
+                   on_path=on_path, path="muon", count="scaled_gemm")
+        del u
+        # the quantized product of NS (``_make_mm``: both operands to int8
+        # codes, bᵀ as (N, K), then B4) against the fp32 product, on a
+        # Gram x.xᵀ and a product of two leaves
+        x = torch.randn(MUON_SQUARE, MUON_SQUARE, device=dev, generator=g)
+        y = torch.randn(MUON_SQUARE, MUON_SQUARE, device=dev, generator=g)
+        mm = tm._make_mm(True, torch.float32)
+        try:
+            reading = max(float((mm(a, b) - a @ b).abs().max()
+                                / (a @ b).abs().max())
+                          for a, b in ((x, x.T), (x, y)))
+        except (RuntimeError, ValueError) as e:
+            log(f"muon NS product: raised {e!r}")
+            reading = math.inf
+        record("scaled_gemm", "cuda", "sdnq_tpu_torch/csrc/scaled_mm.cu",
+               "sdnq_tpu/kernels/scaled_mm.py:57", reading, NT_TOL["muon_ns"],
+               lambda: mm(x, y), t(lambda: x @ y, reps=3),
+               _ns_bound([(MUON_SQUARE,) * 3]), None,
+               f"Muon's quantized NS product at {MUON_SQUARE}^2 (x.xT and "
+               "x.y) against the fp32 product",
+               on_path=False, path="muon", count="muon_ns", reading=reading,
+               what="largest error over the fp32 product's largest value")
+        del x, y
+
+
+def _plain_call(fn):
+    with plain_versions():
+        return fn()
+
+
+def _train_copy(torch, params):
+    """A training tree whose updates leave ``params`` as they are: each
+    TrainQTensor a new carrier over the same codes (an update replaces
+    them), each float leaf a copy."""
+    from sdnq_tpu_torch.train import TrainQTensor
+    from sdnq_tpu_torch.train.matmul import grad_carrier
+    from sdnq_tpu_torch.tree import tree_map
+
+    def one(x):
+        if isinstance(x, TrainQTensor):
+            return TrainQTensor(qt=x.qt, delta=grad_carrier(
+                x.delta.shape, x.qt.qdata.device))
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x.detach().clone().requires_grad_(x.requires_grad)
+        return x
+    return tree_map(one, params, is_leaf=lambda x: isinstance(
+        x, TrainQTensor))
+
+
+def _qcodes(tree):
+    from sdnq_tpu_torch import QTensor
+    from sdnq_tpu_torch.train import TrainQTensor
+    from sdnq_tpu_torch.tree import tree_leaves
+    out = []
+    for x in tree_leaves(tree, is_leaf=lambda v: isinstance(
+            v, (QTensor, TrainQTensor))):
+        if isinstance(x, TrainQTensor):
+            x = x.qt
+        if isinstance(x, QTensor):
+            out.append(x.qdata)
+    return out
+
+
+def tp_phase(torch, dev, qparams):
+    """Phase 4t on phase 4's int8 FLUX.1-dev (19 + 38 blocks, 1024x1024,
+    512 text tokens): an NCCL process group of one on the card, its
+    collectives through ``DistComm``; the forward of ``shard_params(...,
+    DIT_TP_RULES)`` through create_mesh(tensor=1), bit-equal to
+    ``dit_forward``; then ``local_tp`` at virtual T = 2 and 4 (the ranks
+    in turn on the card: overhead, not speed-up) against the unsharded
+    forward, with the launches of B1, B4, B3 and B2 a forward.  Returns the
+    counts of the T = 2 forward."""
+    import socket
+    import torch.distributed as dist
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models import FLUX_DEV_CONFIG as cfg
+    from sdnq_tpu_torch.parallel import (
+        DIT_TP_RULES, create_mesh, shard_params,
+    )
+    from sdnq_tpu_torch.parallel._collectives import DistComm
+    from sdnq_tpu_torch.parallel.dryrun import dryrun_multichip
+    from sdnq_tpu_torch.parallel.tp import local_tp
+
+    t_start = time.perf_counter()
+    inp = dit_inputs(torch, dev, cfg, seed=43)
+    with torch.no_grad():
+        forward(qparams, cfg, inp, dev)          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = forward(qparams, cfg, inp, dev)
+        torch.cuda.synchronize()
+    secs = {"unsharded": time.perf_counter() - t0}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = create_mesh(tensor=1, device=dev)
+        comm = DistComm(mesh, "tensor")   # the collectives through NCCL
+        x = torch.randn(64, 128, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(44))
+        parts = comm._gather_list(x)
+        y = x.clone()
+        dist.broadcast(y, 0, group=mesh.get_group("tensor"))
+        z = x.clone()
+        dist.all_reduce(z, group=mesh.get_group("tensor"))
+        torch.cuda.synchronize()
+        check(len(parts) == 1 and torch.equal(parts[0], x)
+              and torch.equal(y, x) and torch.equal(z, x),
+              f"tp: NCCL ({dist.get_backend()}) world of one: all_gather, "
+              "broadcast and all_reduce give the tensor back")
+        sharded = shard_params(qparams, mesh, DIT_TP_RULES)
+        with torch.no_grad():
+            forward(sharded, cfg, inp, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = forward(sharded, cfg, inp, dev)
+            torch.cuda.synchronize()
+        secs["t1"] = time.perf_counter() - t0
+        check(torch.equal(out, ref), "tp: T = 1 through create_mesh("
+              "tensor=1) on NCCL bit-equal to dit_forward")
+        del sharded, out
+        # the JAX dry run's quantized training step, on this process group
+        t0 = time.perf_counter()
+        loss = dryrun_multichip(1, device=dev)
+        check(math.isfinite(loss), f"tp: dryrun_multichip(1) on NCCL, loss "
+              f"{loss:.6f} finite ({time.perf_counter() - t0:.2f} s)")
+    finally:
+        dist.destroy_process_group()
+    counts = {}
+    readings = {}
+    for n in TP_SIZES:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = local_tp(qparams, inp["img"], inp["txt"], inp["t"],
+                           inp["pooled"], cfg, n, guidance=inp["guidance"],
+                           freqs=inp["freqs"], device=dev)
+        torch.cuda.synchronize()
+        secs[f"t{n}"] = time.perf_counter() - t0
+        c = launch_counts()
+        counts[n] = c
+        readings[n] = float((out.float() - ref.float()).abs().max()
+                            / ref.float().abs().max())
+        check(readings[n] <= NT_TOL[f"tp{n}"]
+              and bool(torch.isfinite(out).all()),
+              f"tp: virtual T = {n} against the unsharded forward "
+              f"{readings[n]:.3e} <= {NT_TOL[f'tp{n}']:.1e}")
+        for name in ("quantize_rows", "quantize_rows:given_scale",
+                     "scaled_gemm", "flash_attention", "dequant_gemv"):
+            check(c[name] > 0, f"tp: T = {n} launched {name}")
+        log(f"tp: T = {n}: " + json.dumps({
+            "seconds_a_forward_sharding_included": secs[f"t{n}"],
+            "reading": readings[n],
+            "launches_a_forward": {k: c[k] for k in (
+                "quantize_rows", "quantize_rows:given_scale", "scaled_gemm",
+                "flash_attention", "dequant_gemv")}}))
+        del out
+        torch.cuda.empty_cache()
+    log("tp: FLUX.1-dev 19 + 38 blocks, 1024x1024, 512 text tokens, "
+        "seconds a forward: " + json.dumps(secs)
+        + f"; phase 4t's forwards took {time.perf_counter() - t_start:.1f} s")
+    return counts[2]
+
+
+def tp_slice_phase(torch, dev, sliced) -> dict:
+    """Phase 5's TP check: ``local_tp`` at T = 2 on a 1 + 2-block cut
+    through the kernels against the same through the plain versions
+    ("max"), and against the unsharded forward through the kernels
+    ("heads": the heads and MLP slice each rank holds), all on the card.
+    The sharding module is looked up at the call, so that phase 7's broken
+    copy's layout takes its place."""
+    import importlib
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.parallel.tp import local_tp
+    sh = importlib.import_module("sdnq_tpu_torch.parallel.sharding")
+    params, cfg = sliced
+    inp = dit_inputs(torch, dev, cfg, seed=45)
+
+    def run():
+        with torch.no_grad():
+            return local_tp(params, inp["img"], inp["txt"], inp["t"],
+                            inp["pooled"], cfg, 2, guidance=inp["guidance"],
+                            freqs=inp["freqs"], device=dev,
+                            segments=sh.DIT_TP_SEGMENTS)
+    got = run()
+    with torch.no_grad():
+        whole = forward(params, cfg, inp, dev)
+    heads = float((got.float() - whole.float()).abs().max()
+                  / whole.float().abs().max())
+    del whole
+    reset_launch_counts()
+    with plain_versions():
+        want = run()
+    launched = launch_counts()
+    check(not any(launched.values()), "slice tp: the plain path launched "
+          "no kernel")
+    reading = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+    log(f"slice tp: 1 + 2 blocks at T = 2, kernels against plain versions "
+        f"{reading:.3e}, against the unsharded forward {heads:.3e}")
+    check(reading <= NT_TOL["tp_slice"], f"slice tp: {reading:.3e} <= "
+          f"{NT_TOL['tp_slice']:.1e}")
+    check(heads <= NT_TOL["tp_heads"], f"slice tp: against the unsharded "
+          f"forward {heads:.3e} <= {NT_TOL['tp_heads']:.1e}")
+    return {"max": reading, "heads": heads}
+
+
+def ep_phase(torch, dev, cfg, banks):
+    """Phase 4t's expert parallelism: phase 4m's int8 banks (quantized
+    matmul) spread by ``shard_moe`` over virtual 2, 4 and 8 ranks, each
+    call against ``moe_ffn`` on the whole banks."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models.moe import moe_ffn, shard_moe
+    from sdnq_tpu_torch.parallel._collectives import run_virtual
+    x = moe_tokens(torch, dev, cfg)
+    qp = banks["moe_qmm"]
+    f32 = torch.float32   # fp32 out: the sums' order shows in fp32 ulps
+    with torch.no_grad():
+        ref = moe_ffn(qp, x, cfg, out_dtype=f32)[0]
+    out = {}
+    for n in EP_SIZES:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y = run_virtual(lambda m: moe_ffn(shard_moe(qp, m), x, cfg,
+                                              out_dtype=f32)[0],
+                            {"tensor": n}, "cuda")[0]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c = launch_counts()
+        err = float((y.float() - ref.float()).abs().max()
+                    / ref.float().abs().max())
+        check(err <= NT_TOL["ep"], f"ep: {n} virtual ranks against moe_ffn "
+              f"{err:.3e} <= {NT_TOL['ep']:.1e}")
+        check(c["scaled_gemm"] == 3 * cfg.num_experts,
+              f"ep: {n} ranks launched B4 once an expert and projection "
+              f"({c['scaled_gemm']})")
+        out[n] = dict(seconds_sharding_included=secs, reading=err,
+                      launches={k: v for k, v in c.items() if v})
+        del y
+    with torch.no_grad():
+        ms = time_ms(lambda: moe_ffn(qp, x, cfg), reps=3, warmup=1)
+    log("ep: Mixtral-8x7B banks over virtual ranks: " + json.dumps(
+        {"whole_ms_a_call": ms, **{str(k): v for k, v in out.items()}}))
+    return out
+
+
+def batch_mesh_check(torch, dev, params, cfg):
+    """Phase 4t's batcher: one iteration of phase 4b's 4-slot step with the
+    slot axis over a data axis of one (create_mesh(data=1)), bit-equal to
+    ``mesh=None``."""
+    from sdnq_tpu_torch.models.dit import make_rope_freqs
+    from sdnq_tpu_torch.parallel import create_mesh
+    from sdnq_tpu_torch.pipeline import ContinuousBatcher
+    lh = BATCH_SIDE // 16
+    freqs = make_rope_freqs(cfg, BATCH_TXT, (lh, lh), device=dev)
+
+    def init(req):
+        gen = torch.Generator(device=dev).manual_seed(req.rng_seed)
+        return torch.randn(lh * lh, cfg.in_channels, device=dev,
+                           generator=gen)
+    lats = []
+    for mesh in (None, create_mesh(data=1, device=dev)):
+        b = ContinuousBatcher(flux_slot_step(params, cfg, freqs, dev), init,
+                              BATCH_SLOTS, max(BATCH_STEPS), mesh=mesh)
+        for r in batch_requests(torch, dev, cfg, BATCH_TXT):
+            b.submit(r)
+        with torch.no_grad():
+            b.run(max_iterations=1)
+        lats.append(b.latents)
+    check(torch.equal(lats[0], lats[1]), "batch: one iteration with the "
+          "slots over create_mesh(data=1) bit-equal to mesh=None")
+
+
+def muon_phase(torch, dev, tparams, cfg, adamw_ms=None):
+    """Phase 4n: phase 4e's training model under a fresh ``muon(
+    use_quantized_matmul_ns=True)`` with 8-bit state, stochastic rounding
+    and Kahan: one warm-up and MUON_STEPS timed steps, forward, backward
+    and optimizer ms, the NS calls' ms, B4 launches in the optimizer (15 a
+    classic NS leaf), peak GiB, the loss (finite) and the share of weight
+    codes moved (above 0).  Returns the counts over the steps."""
+    import importlib
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.train import TrainQTensor
+    from sdnq_tpu_torch.tree import tree_leaves
+    tm = importlib.import_module("sdnq_tpu_torch.optim.muon")
+
+    inp = train_inputs(torch, dev, cfg, seed=46)
+    opt = tm.muon(lr=MUON_LR, use_quantized_matmul_ns=True,
+                  quantize_state=True, stochastic_rounding=True)
+    t0 = time.perf_counter()
+    state = opt.init(tparams)
+    torch.cuda.synchronize()
+    n_muon = sum(1 for st in state["per_param"] if st and st["muon"])
+    log(f"muon: state built in {time.perf_counter() - t0:.1f} s, {n_muon} "
+        f"NS leaves, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    gen = torch.Generator(device=dev).manual_seed(47)
+    qleaves = [p for p in tree_leaves(tparams, is_leaf=lambda x: isinstance(
+        x, TrainQTensor)) if isinstance(p, TrainQTensor)]
+    n_codes = sum(p.qt.qdata.numel() for p in qleaves)
+    real_ns = tm.zeropower_via_newtonschulz5
+    ns_events = []
+
+    def timed_ns(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_ns(*a, **kw)
+        ev[1].record()
+        ns_events.append(ev)
+        return out
+    tm.zeropower_via_newtonschulz5 = timed_ns
+    records = []
+    try:
+        reset_launch_counts()
+        for i in range(1 + MUON_STEPS):
+            old = [p.qt.qdata.cpu() for p in qleaves]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ns_events.clear()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            loss = train_loss(tparams, cfg, inp, dev)
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            torch.cuda.synchronize()
+            before = launch_counts()
+            opt.update(None, state, tparams, generator=gen)
+            ev[3].record()
+            torch.cuda.synchronize()
+            after = launch_counts()
+            b4 = after["scaled_gemm"] - before["scaled_gemm"]
+            moved = sum(int((p.qt.qdata != o.to(dev)).sum())
+                        for p, o in zip(qleaves, old))
+            del old
+            fwd, bwd, upd = (ev[j].elapsed_time(ev[j + 1]) for j in range(3))
+            rec = dict(step=i, warm_up=i == 0, loss=float(loss.detach()),
+                       forward_ms=fwd, backward_ms=bwd, optimizer_ms=upd,
+                       ns_ms=sum(a.elapsed_time(b) for a, b in ns_events),
+                       ns_calls=len(ns_events), b4_launches_optimizer=b4,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       codes_moved_share=moved / n_codes)
+            log("muon: " + json.dumps(rec))
+            records.append(rec)
+            del loss
+            check(math.isfinite(rec["loss"]), f"muon step {i}: loss finite")
+            check(rec["codes_moved_share"] > 0, f"muon step {i}: the update "
+                  f"moved {rec['codes_moved_share']:.3e} of the codes")
+            check(b4 == 15 * n_muon and rec["ns_calls"] == n_muon,
+                  f"muon step {i}: {b4} B4 launches in the optimizer, 15 "
+                  f"each of {n_muon} NS leaves")
+        counts = launch_counts()
+    finally:
+        tm.zeropower_via_newtonschulz5 = real_ns
+    timed = records[1:]
+    log("muon: " + json.dumps({
+        "depth": list(TRAIN_DEPTH), "timed_steps": len(timed),
+        "mean_optimizer_ms": statistics.mean(r["optimizer_ms"]
+                                             for r in timed),
+        "mean_ns_ms": statistics.mean(r["ns_ms"] for r in timed),
+        "mean_forward_ms": statistics.mean(r["forward_ms"] for r in timed),
+        "mean_backward_ms": statistics.mean(r["backward_ms"] for r in timed),
+        "adamw_mean_optimizer_ms": adamw_ms,
+        "peak_gib": max(r["peak_gib"] for r in records)}))
+    del state
+    return counts
+
+
+def muon_slice_phase(torch, dev, sliced) -> dict:
+    """Phase 5's Muon check: one Muon step (quantized NS, 8-bit state,
+    SR from a seeded generator, Kahan) on the 2 + 2-block training slice
+    through the kernels against the all-plain path, both on the card: the
+    loss and the share of updated codes that differ."""
+    import importlib
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    tm = importlib.import_module("sdnq_tpu_torch.optim.muon")
+    params, cfg = sliced
+    inp = train_inputs(torch, dev, cfg, seed=48)
+
+    def run():
+        p = _train_copy(torch, params)
+        opt = tm.muon(lr=MUON_LR, use_quantized_matmul_ns=True,
+                      quantize_state=True, stochastic_rounding=True)
+        st = opt.init(p)
+        loss = train_loss(p, cfg, inp, dev)
+        loss.backward()
+        opt.update(None, st, p,
+                   generator=torch.Generator(device=dev).manual_seed(49))
+        return float(loss.detach()), _qcodes(p)
+    try:
+        loss, codes = run()
+        reset_launch_counts()
+        with plain_versions():
+            ref_loss, ref_codes = run()
+    except (RuntimeError, ValueError) as e:   # a broken glue may raise
+        check(False, f"slice muon: the step raised {e!r}")
+        return {"loss": math.inf, "codes": math.inf}
+    launched = launch_counts()
+    check(not any(launched.values()), "slice muon: the plain path launched "
+          "no kernel")
+    diff = sum(int((a != b).sum()) for a, b in zip(codes, ref_codes))
+    total = sum(a.numel() for a in codes)
+    readings = {"loss": abs(loss - ref_loss) / abs(ref_loss),
+                "codes": diff / total}
+    log("slice muon: one step of the 2 + 2-block slice, kernels against "
+        "plain versions: " + json.dumps(readings))
+    check(math.isfinite(loss), "slice muon: loss finite")
+    check(readings["loss"] <= NT_TOL["muon_slice_loss"]
+          and readings["codes"] <= NT_TOL["muon_slice_codes"],
+          f"slice muon: loss {readings['loss']:.3e} <= "
+          f"{NT_TOL['muon_slice_loss']:.1e}, codes that differ "
+          f"{readings['codes']:.3e} <= {NT_TOL['muon_slice_codes']:.1e}")
+    return readings
+
+
+def tp_train_phase(torch, dev, sliced):
+    """Phase 4t's TP x DP step at virtual T = 2 on phase 5's 2 + 2-block
+    training slice (``local_train_step``: AdamW with 8-bit state and SR,
+    each rank's generator seeded alike), against the unsharded step: the
+    loss, every weight gradient, and the updated codes."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.optim import adamw
+    from sdnq_tpu_torch.parallel import DIT_TP_RULES, shard_params
+    from sdnq_tpu_torch.parallel._collectives import run_virtual
+    from sdnq_tpu_torch.parallel.dryrun import local_train_step
+    from sdnq_tpu_torch.parallel.sharding import unshard_params
+    from sdnq_tpu_torch.train import extract_weight_grads
+    from sdnq_tpu_torch.tree import tree_leaves
+    params, cfg = sliced
+    inp = train_inputs(torch, dev, cfg, seed=50)
+    batch = dict(img=inp["img"], txt=inp["txt"], timesteps=inp["t"],
+                 pooled=inp["pooled"], guidance=inp["guidance"],
+                 target=inp["target"])
+    opt = adamw(lr=1e-5, quantize_state=True, stochastic_rounding=True)
+    ref = _train_copy(torch, params)
+    st = opt.init(ref)
+    loss = train_loss(ref, cfg, inp, dev)
+    loss.backward()
+    ref_grads = tree_leaves(extract_weight_grads(ref))
+    opt.update(None, st, ref,
+               generator=torch.Generator(device=dev).manual_seed(51))
+    shape = {"tensor": 2}
+    trees = run_virtual(lambda m: shard_params(params, m, DIT_TP_RULES),
+                        shape, "cuda")
+    states = [opt.init(params) for _ in trees]
+    gens = [torch.Generator(device=dev).manual_seed(51) for _ in trees]
+    grads = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tp_loss = local_train_step(trees, opt, states, batch, cfg, shape,
+                               freqs=inp["freqs"], generators=gens,
+                               device=dev, grads_out=grads)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    whole = run_virtual(lambda m: unshard_params(trees[m.index]), shape,
+                        "cuda")[0]
+    g_err = max(float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max().clamp_min(1e-30))
+                for a, b in zip(grads, ref_grads)
+                if a is not None and b is not None)
+    got_c, want_c = _qcodes(whole), _qcodes(ref)
+    diff = sum(int((a != b).sum()) for a, b in zip(got_c, want_c))
+    total = sum(a.numel() for a in want_c)
+    readings = {"loss": abs(tp_loss.item() - loss.item()) / abs(loss.item()),
+                "grad": g_err, "codes": diff / total}
+    log("tp step: TP x DP at virtual T = 2 on the 2 + 2-block training "
+        "slice against the unsharded step: " + json.dumps({
+            **readings, "seconds": secs,
+            "launches": {k: v for k, v in counts.items() if v}}))
+    for key in ("loss", "grad", "codes"):
+        check(readings[key] <= NT_TOL[f"tp_step_{key}"],
+              f"tp step: {key} {readings[key]:.3e} <= "
+              f"{NT_TOL[f'tp_step_{key}']:.1e}")
+    for name in ("scaled_mm_tn", "scaled_gemm:nn", "quantize_rows:colscale",
+                 "quantize_rows:given_scale", "scaled_gemm"):
+        check(counts[name] > 0, f"tp step launched {name}")
+    return readings
+
+
+def nt_phases(torch, dev, mark):
+    """``--phases-4n-4t``: phases 4n and 4t with the models they reuse
+    built here (phase 4's int8 FLUX.1-dev, phase 4e's training model,
+    phase 4m's banks, phase 4b's e5m2 FLUX.1-dev) and their phase-5
+    checks; returns the counts by path label."""
+    from sdnq_tpu_torch import QuantConfig
+    from sdnq_tpu_torch.models import FLUX_DEV_CONFIG
+    counts = {}
+    qparams = build_model(torch, dev, QuantConfig(
+        weights_dtype="int8", use_quantized_matmul=True), "int8")
+    counts["tp"] = tp_phase(torch, dev, qparams)
+    tp_slice_phase(torch, dev, cut(qparams))
+    del qparams
+    torch.cuda.empty_cache()
+    mark("phase 4t (TP forwards)")
+    tparams, tcfg = build_train_model(torch, dev)
+    counts["muon"] = muon_phase(torch, dev, tparams, tcfg)
+    train_cut = cut_train(tparams)
+    del tparams
+    torch.cuda.empty_cache()
+    tp_train_phase(torch, dev, train_cut)
+    muon_slice_phase(torch, dev, train_cut)
+    del train_cut
+    torch.cuda.empty_cache()
+    mark("phase 4n, the TP x DP step")
+    cfg, banks = moe_banks(torch, dev)
+    ep_phase(torch, dev, cfg, banks)
+    del banks
+    torch.cuda.empty_cache()
+    qparams = build_model(torch, dev, QuantConfig(
+        weights_dtype="float8_e5m2"), "batch_e5m2")
+    batch_mesh_check(torch, dev, qparams, FLUX_DEV_CONFIG)
+    del qparams
+    torch.cuda.empty_cache()
+    mark("phase 4t (EP, batcher)")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 7: planted bugs that the checks of phases 3 and 5 must see
 # ---------------------------------------------------------------------------
 
@@ -5518,6 +6234,9 @@ FAULTS = (
     ("quantize_rounds_half_away", "quantize_rows", "quantize_rows", "int8",
      [("static_cast<int>(sdnq::quant_div(v, scale))",
        "static_cast<int>(roundf(__fdiv_rn(v, scale)))")]),
+    ("quantize_ignores_the_given_scale", "quantize_rows",
+     "quantize_rows:given_scale", "tp",
+     [("if (a.gs) {", "if (false) {")]),
     ("quantize_without_the_division_fallback", "quantize_rows",
      "quantize_rows", "int8",
      [("if (near) {  // a quotient next to a half-integer: the division decides",
@@ -5715,8 +6434,17 @@ FAULTS = (
 # Faults of the Python wrappers: (tag, module under sdnq_tpu_torch/, the
 # csrc sources whose phase 3 rows rerun, kernel, slice, [(text, broken
 # text)]).  The module is loaded again from its broken text in its place
-# (``module_swapped``) while phase 3 reruns.
+# (``module_swapped``) while phase 3 and the slice rerun.  A kernel of
+# None: a layout fault, which no kernel's row sees and its slice must
+# catch.
 PY_FAULTS = (
+    ("muon_mm_quantizes_b_not_bT", "optim/muon.py", ("scaled_mm",),
+     "muon_ns", "muon",
+     [("b_q, b_s = quantize_int_mm(b.T.contiguous(), -1)",
+       "b_q, b_s = quantize_int_mm(b.contiguous(), -1)")]),
+    ("tp_qkv_heads_shifted_by_one", "parallel/sharding.py", (), None, "tp",
+     [('    "qkv": lambda o, k: (o // 3,) * 3,',
+       '    "qkv": lambda o, k: (o // 3 + 128, o // 3 - 128, o // 3),')]),
     ("tiles_cast_fp16_x_to_bf16", "kernels/dequant_mm.py",
      ("decode_weight", "wgmma_mm"), "dequant_mm:fp16", "sd15_fp16",
      [("    if is_cuda(x) and x.dtype == torch.float32:\n"
@@ -5886,6 +6614,10 @@ def fault_phase(torch, dev, slices, procs):
                "train": TRAIN_SLICE_TOL, "pipeline": PIPE_SLICE_TOL,
                "ring": {"max": RING_SLICE_TOL}, "unet": UNET_SLICE_TOL,
                "moe": {"max": MBO_TOL["moe_qmm"]},
+               "tp": {"max": NT_TOL["tp_slice"],
+                      "heads": NT_TOL["tp_heads"]},
+               "muon": {"loss": NT_TOL["muon_slice_loss"],
+                        "codes": NT_TOL["muon_slice_codes"]},
                "sd15_fp16": {"max": MBO_TOL["sd15_fp16"]}}
     for tag, (proc, _) in procs.items():
         if proc.wait() != 0:
@@ -5920,7 +6652,7 @@ def fault_phase(torch, dev, slices, procs):
         sound = list(FAILURES)
         with module_swapped(tag, rel, edits):
             rows = kernel_phase(torch, dev, timed=False, only=set(sources),
-                                count=kernel)
+                                count=kernel) if sources else []
             readings = slices[label]()
         FAILURES[:] = sound  # the checks were meant to fail here
         caught = [r for r in rows if not r["reading"] <= r["tolerance"]]
@@ -5932,8 +6664,12 @@ def fault_phase(torch, dev, slices, procs):
                            f"{r['max_abs_err']:.3e})" for r in caught],
             slice=label, slice_readings=readings, slice_tol=tol,
             slice_failed=sorted(k for k in tol if not readings[k] <= tol[k])))
-        check(any(r["count"] == kernel for r in caught),
-              f"fault {tag}: phase 3 fails {kernel}")
+        if kernel is None:   # a layout fault: its phase-5 slice must fail
+            check(results[-1]["slice_failed"],
+                  f"fault {tag}: phase 5's {label} slice fails")
+        else:
+            check(any(r["count"] == kernel for r in caught),
+                  f"fault {tag}: phase 3 fails {kernel}")
     log("faults: " + json.dumps(results))
     log(f"fault phase: {len(FAULTS) + len(PY_FAULTS)} faults in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -6049,10 +6785,12 @@ def main() -> int:
         io_only = "--phase-4i" in sys.argv[1:]
         unet_only = "--phase-4u" in sys.argv[1:]
         mbo_only = "--phases-4m-4b-4o" in sys.argv[1:]
+        nt_only = "--phases-4n-4t" in sys.argv[1:]
         secs = _build.build(("quantize_rows", "scaled_mm") if b1_only
                             else IO_SOURCES if io_only
                             else UNET_SOURCES if unet_only
                             else MBO_SOURCES if mbo_only
+                            else NT_SOURCES if nt_only
                             else _build.SOURCES)
         log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
             + json.dumps({k: round(v, 1) for k, v in secs.items()}))
@@ -6069,6 +6807,14 @@ def main() -> int:
             rows = kernel_phase(torch, dev, mbo_only=True)
             mark("phase 3 (phases 4m-4o's rows)")
             counts = mbo_phases(torch, dev, mark)[0]
+            for row in rows:
+                row["launches"] = (counts[row["path"]][row["count"]]
+                                   if row["on_main_path"] else 0)
+            return finish(torch, rows, t_start)
+        if nt_only:
+            rows = kernel_phase(torch, dev, nt_only=True)
+            mark("phase 3 (phases 4n and 4t's rows)")
+            counts = nt_phases(torch, dev, mark)
             for row in rows:
                 row["launches"] = (counts[row["path"]][row["count"]]
                                    if row["on_main_path"] else 0)
@@ -6183,10 +6929,17 @@ def main() -> int:
         mark("phase 4d")
         tparams, tcfg = build_train_model(torch, dev)
         counts["train"], state = train_path(torch, dev, tparams, tcfg)
+        del state
+        torch.cuda.empty_cache()
+        counts["muon"] = muon_phase(torch, dev, tparams, tcfg,
+                                    TRAIN_MEAN_OPTIMIZER_MS.get("adamw"))
         train_cut = cut_train(tparams)
-        del tparams, state
+        del tparams
         torch.cuda.empty_cache()
         train_slice_phase(torch, dev, train_cut)
+        muon_slice_phase(torch, dev, train_cut)
+        tp_train_phase(torch, dev, train_cut)
+        mark("phase 4n, the TP x DP step")
 
         mark("phase 4e")
         resident = torch.cuda.memory_allocated()
@@ -6204,6 +6957,20 @@ def main() -> int:
         mark("phase 4u")
         mbo_counts, mbo_cuts = mbo_phases(torch, dev, mark)
         counts.update(mbo_counts)
+        # the virtual ranks' forwards are host-bound: after the fault
+        # builds (which the fault phase waits for anyway), on phase 4's
+        # int8 model built again (about a second)
+        for proc, _ in fault_procs.values():
+            proc.wait()
+        qparams = build_model(
+            torch, dev,
+            QuantConfig(weights_dtype="int8", use_quantized_matmul=True),
+            "int8")
+        counts["tp"] = tp_phase(torch, dev, qparams)
+        del qparams
+        torch.cuda.empty_cache()
+        tp_slice_phase(torch, dev, slices["int8"])
+        mark("phase 4t's forwards")
 
         for row in rows:
             row["launches"] = (counts[row["path"]][row["count"]]
@@ -6223,6 +6990,8 @@ def main() -> int:
         checks["qlinear_b8"] = lambda: {"max": b8_qlinear_check(torch,
                                                                 dev)[1]}
         checks["train"] = lambda: train_slice_phase(torch, dev, train_cut)
+        checks["muon"] = lambda: muon_slice_phase(torch, dev, train_cut)
+        checks["tp"] = lambda: tp_slice_phase(torch, dev, slices["int8"])
         checks["ring"] = lambda: ring_slice_phase(torch, dev)
         checks["pipeline"] = lambda: pipeline_slice_phase(torch, dev,
                                                           pipe_cut)
@@ -6246,9 +7015,10 @@ def mbo_phases(torch, dev, mark):
     counts, cuts = {}, {}
     moe_counts, cuts["moe"] = moe_phase(torch, dev)
     counts.update(moe_counts)
-    mark("phase 4m")
+    ep_phase(torch, dev, *cuts["moe"])
+    mark("phase 4m, phase 4t's expert parallelism")
     counts["batch_e5m2"], cuts["e5m2"] = batch_phase(torch, dev)
-    mark("phase 4b")
+    mark("phase 4b, phase 4t's batcher")
     llm100_counts, cuts["llm100"] = llm100_phase(torch, dev)
     counts.update(llm100_counts)
     mark("phase 4o")

@@ -148,7 +148,8 @@ def train_params_from_numpy(tree, device=None):
 
 def opt_state_from_numpy(state, device=None) -> dict:
     """A JAX optimizer state ``{"step", "per_param": [None | {name: BufferQ
-    | array}]}`` -> the port's, with BufferQs, tensors and an int step."""
+    | array}]}`` -> the port's, with BufferQs, tensors and an int step.
+    Muon's per-leaf ``"muon"`` flag stays a Python bool."""
     from .optim.base import BufferQ
     device = resolve_device(device)
 
@@ -162,5 +163,6 @@ def opt_state_from_numpy(state, device=None) -> dict:
 
     return {"step": int(np.asarray(state["step"])),
             "per_param": [None if st is None
-                          else {k: buf(v) for k, v in st.items()}
+                          else {k: bool(np.asarray(v)) if k == "muon"
+                                else buf(v) for k, v in st.items()}
                           for st in state["per_param"]]}

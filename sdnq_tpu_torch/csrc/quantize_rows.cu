@@ -63,6 +63,7 @@ struct Args {
   float* zp;
   float* rs;
   const float* cs;
+  const float* gs;  // a given scale a row (M,), or null: the row's own
   int M, K, Kpad;
   int cvec;  // cs on a 16-byte boundary: 16-byte loads of it
 };
@@ -288,11 +289,15 @@ __global__ void __launch_bounds__(NT_CS) quantize_rows_kernel(const Args a, int 
     if (threadIdx.x == 0) fetch(i + 1);
     sdnq::mbar_wait(&bar[b], (i >> 1) & 1);
     const uint4* buf = reinterpret_cast<const uint4*>(rows_smem + (size_t)b * bytes);
-    float amax = 0.f, vmin = kInf, vmax = -kInf;
+    float scale, zp = 0.f;
+    if (a.gs) {
+      scale = a.gs[row];
+    } else {
+      float amax = 0.f, vmin = kInf, vmax = -kInf;
 #pragma unroll 4
-    for (int vi = threadIdx.x; vi < nv; vi += blockDim.x) ops.stat(buf[vi], vi, amax, vmin, vmax);
-    float scale, zp;
-    ops.row_scale(amax, vmin, vmax, fscratch, scale, zp);
+      for (int vi = threadIdx.x; vi < nv; vi += blockDim.x) ops.stat(buf[vi], vi, amax, vmin, vmax);
+      ops.row_scale(amax, vmin, vmax, fscratch, scale, zp);
+    }
     const float inv = __frcp_rn(scale);
     uint8_t* qr = a.xq + (size_t)row * a.Kpad;
     int qsum = 0;
@@ -333,11 +338,15 @@ __global__ void __launch_bounds__(NT) quantize_rows_loop_kernel(const Args a) {
       return make_uint4(w[0], w[1], w[2], w[3]);
     }
   };
-  float amax = 0.f, vmin = kInf, vmax = -kInf;
+  float scale, zp = 0.f;
+  if (a.gs) {
+    scale = a.gs[row];
+  } else {
+    float amax = 0.f, vmin = kInf, vmax = -kInf;
 #pragma unroll 4
-  for (int vi = threadIdx.x; vi < nv; vi += NT) ops.stat(load(vi), vi, amax, vmin, vmax);
-  float scale, zp;
-  ops.row_scale(amax, vmin, vmax, fscratch, scale, zp);
+    for (int vi = threadIdx.x; vi < nv; vi += NT) ops.stat(load(vi), vi, amax, vmin, vmax);
+    ops.row_scale(amax, vmin, vmax, fscratch, scale, zp);
+  }
   const float inv = __frcp_rn(scale);
   uint8_t* qr = a.xq + (size_t)row * a.Kpad;
   const bool vst = VEC && a.Kpad % EPV == 0;
@@ -397,14 +406,18 @@ int launch(Args a, int mode, cudaStream_t s) {
 // x (M, K) contiguous, x_kind 0 f32 / 1 bf16 / 2 f16; xq (M, Kpad) int8 or
 // e4m3 bytes; xs (M,) f32; zp, rs (M,) f32 (uint8 mode only, else may be
 // null); cs (K,) f32 column scale or null; mode 0 int8 / 1 uint8 / 2 fp8
-// e4m3.
+// e4m3; gs (M,) f32 a given scale a row or null (int8 and fp8 only: the
+// codes against it, no statistics pass; xs gets gs).
 extern "C" int sdnq_quantize_rows(const void* x, void* xq, void* xs, void* zp, void* rs,
-                                  const void* cs, int M, int K, int Kpad, int x_kind, int mode,
-                                  void* stream) {
-  if (M < 1 || K < 1 || Kpad < K) return static_cast<int>(cudaErrorInvalidValue);
+                                  const void* cs, const void* gs, int M, int K, int Kpad,
+                                  int x_kind, int mode, void* stream) {
+  if (M < 1 || K < 1 || Kpad < K || (gs && mode == UINT8))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Args a{x, static_cast<uint8_t*>(xq), static_cast<float*>(xs), static_cast<float*>(zp),
-         static_cast<float*>(rs), static_cast<const float*>(cs), M, K, Kpad, 0};
+  Args a{x,      static_cast<uint8_t*>(xq),     static_cast<float*>(xs),
+         static_cast<float*>(zp), static_cast<float*>(rs), static_cast<const float*>(cs),
+         static_cast<const float*>(gs), M,   K,
+         Kpad,   0};
   if (x_kind == sdnq::F32) return launch<float>(a, mode, s);
   if (x_kind == sdnq::BF16) return launch<__nv_bfloat16>(a, mode, s);
   if (x_kind == sdnq::F16) return launch<__half>(a, mode, s);

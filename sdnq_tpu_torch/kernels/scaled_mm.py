@@ -62,9 +62,12 @@ from . import _build
 from ._build import P, I
 from .dispatch import is_cuda
 from ..formats import get_format
-from ..quant.core import quantize_fp_mm, quantize_int_mm, quantize_uint_mm
+from ..quant.core import (
+    get_scale_symmetric, quantize_fp_mm, quantize_int_mm, quantize_uint_mm,
+)
 
-__all__ = ["quantize_rows", "quantize_rows_plain", "scaled_gemm",
+__all__ = ["quantize_rows", "quantize_rows_plain", "row_scale_from_amax",
+           "quantize_with_scale", "scaled_gemm",
            "scaled_gemm_plain", "scaled_mm", "scaled_mm_fused_act",
            "bf16_scaled_mm", "scaled_mm_tn", "scaled_mm_tn_plain",
            "dynamic_mm_tn", "nn_plan"]
@@ -80,15 +83,19 @@ _ROW_FORMATS = {"int8": (torch.int8, 0), "uint8": (torch.int8, 1),
 
 
 def quantize_rows_plain(x: torch.Tensor, x_fmt: str = "int8",
-                        k_pad: int = 0, colscale=None):
+                        k_pad: int = 0, colscale=None, row_scale=None):
     """Plain version of ``quantize_rows``: x times ``colscale`` (K,) in
     fp32 where given, then ``quant.core.quantize_int_mm`` /
-    ``quantize_uint_mm`` / ``quantize_fp_mm`` per row, then ``k_pad`` zero
-    columns."""
+    ``quantize_uint_mm`` / ``quantize_fp_mm`` per row (against
+    ``row_scale`` where given), then ``k_pad`` zero columns."""
     zp = rs = None
     if colscale is not None:
         x = x.float() * colscale.reshape(1, -1).float()
-    if x_fmt == "uint8":
+    if row_scale is not None:
+        _given_scale_fmt(x_fmt)
+        q = quantize_with_scale(x, row_scale.reshape(-1, 1), x_fmt)
+        s = row_scale.reshape(-1, 1).float()
+    elif x_fmt == "uint8":
         q, s, zp = quantize_uint_mm(x, -1)
         rs = q.to(torch.int32).sum(-1, keepdim=True).float() * s
     elif x_fmt == "int8":
@@ -100,10 +107,42 @@ def quantize_rows_plain(x: torch.Tensor, x_fmt: str = "int8",
     return q, s, zp, rs
 
 
+def _given_scale_fmt(x_fmt):
+    if x_fmt == "uint8":
+        raise ValueError("a given row scale takes int8 or float8_e4m3fn "
+                         "rows (uint8 rows need their own min and max)")
+
+
+def row_scale_from_amax(amax: torch.Tensor, x_fmt: str = "int8"):
+    """The row scale ``quantize_rows`` takes for rows of absolute maximum
+    ``amax``: ``max(amax / qmax, 2^-126)``, the division true, as the
+    kernel and ``quant.core`` compute it."""
+    _given_scale_fmt(x_fmt)
+    return get_scale_symmetric(amax.float().reshape(-1, 1), -1,
+                               get_format(x_fmt))
+
+
+def quantize_with_scale(x: torch.Tensor, scale: torch.Tensor,
+                        x_fmt: str = "int8"):
+    """x's codes against a given scale (broadcast against x: (M, 1) a
+    row, (1, K) a column), as ``quantize_int_mm`` / ``quantize_fp_mm``
+    round them."""
+    f = get_format(x_fmt)
+    v = x.float() / scale.float()
+    if f.is_integer:
+        return torch.clamp(torch.round(v), f.min, f.max).to(torch.int8)
+    return torch.nan_to_num(torch.clamp(v, f.min, f.max)).to(
+        f.torch_storage)
+
+
 def quantize_rows(x: torch.Tensor, x_fmt: str = "int8", k_pad: int = 0,
-                  colscale=None):
+                  colscale=None, row_scale=None):
     """Per-row quantization of x (M, K) float, times ``colscale`` (K,) per
     column where given, to ``x_fmt`` ("int8", "uint8" or "float8_e4m3fn").
+    ``row_scale`` (M,) gives each row's scale ("int8" and "float8_e4m3fn"):
+    the kernel skips its statistics pass and quantizes against it (a
+    row-parallel layer's rows, whose absolute maximum is all-reduced over
+    the tensor axis; ``row_scale_from_amax``).
 
     Returns ``(x_q (M, K + k_pad), x_scale (M, 1), x_zp, x_rowsum)``; the
     last two are (M, 1) for "uint8" (signed codes with x = x_q*scale + zp,
@@ -112,12 +151,15 @@ def quantize_rows(x: torch.Tensor, x_fmt: str = "int8", k_pad: int = 0,
     if x_fmt not in _ROW_FORMATS:
         raise ValueError(f"no row quantize to {x_fmt!r}")
     if not is_cuda(x):
-        return quantize_rows_plain(x, x_fmt, k_pad, colscale)
+        return quantize_rows_plain(x, x_fmt, k_pad, colscale, row_scale)
     if x.dim() != 2:
         raise ValueError(f"quantize_rows takes (M, K), got {tuple(x.shape)}")
+    if row_scale is not None:
+        _given_scale_fmt(x_fmt)
     x = x.contiguous()
     m, k = x.shape
     cs = _vec(colscale, k, "colscale")
+    gs = _vec(row_scale, m, "row_scale")
     dtype, mode = _ROW_FORMATS[x_fmt]
     asym = x_fmt == "uint8"
     xq = torch.empty((m, k + k_pad), dtype=dtype, device=x.device)
@@ -126,19 +168,22 @@ def quantize_rows(x: torch.Tensor, x_fmt: str = "int8", k_pad: int = 0,
     rs = torch.empty_like(xs) if asym else None
     if m:
         fn = _build.function("quantize_rows", "sdnq_quantize_rows",
-                             [P, P, P, P, P, P] + [I] * 5 + [P])
+                             [P] * 7 + [I] * 5 + [P])
         _build.check(fn(_build.ptr(x), _build.ptr(xq), _build.ptr(xs),
-                        _build.ptr(zp), _build.ptr(rs), _build.ptr(cs), m, k,
-                        k + k_pad, _build.act_kind(x.dtype), mode,
-                        _build.stream(x)), "quantize_rows")
+                        _build.ptr(zp), _build.ptr(rs), _build.ptr(cs),
+                        _build.ptr(gs), m, k, k + k_pad,
+                        _build.act_kind(x.dtype), mode, _build.stream(x)),
+                     "quantize_rows")
         quantize_rows.launches += 1
         if cs is not None:
             quantize_rows.mode_launches["colscale"] += 1
+        if gs is not None:
+            quantize_rows.mode_launches["given_scale"] += 1
     return xq, xs, zp, rs
 
 
 quantize_rows.launches = 0
-quantize_rows.mode_launches = dict(colscale=0)
+quantize_rows.mode_launches = dict(colscale=0, given_scale=0)
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +518,8 @@ def scaled_mm_fused_act(x, w_q, w_scale=None, bias=None, *,
                         x_fmt: str = "int8", out_dtype=torch.bfloat16,
                         lowrank_u=None, lowrank_v=None, v_zp0=None,
                         v_zp1=None, b_layout: str = "nt",
-                        emit_quantized: bool = False, x_colscale=None):
+                        emit_quantized: bool = False, x_colscale=None,
+                        x_row_scale=None):
     """``scaled_mm`` with per-row activation quantization of x (M, K) float:
     ``quantize_rows`` then ``scaled_gemm`` (two launches).
 
@@ -483,7 +529,9 @@ def scaled_mm_fused_act(x, w_q, w_scale=None, bias=None, *,
     (with e4m3 weights).  ``b_layout`` "nt": w_q (O, K), out = x @ w_qᵀ;
     "nn": w_q (K, O), out = x @ w_q, the stored (O, K) weight read as it
     lies when the cotangent plays x (the grad-input).  ``x_colscale`` (K,)
-    multiplies x's columns before the row statistics.  ``emit_quantized``
+    multiplies x's columns before the row statistics; ``x_row_scale``
+    (M,) gives the rows' scales ("int8" / e4m3: a shard's row statistics,
+    all-reduced).  ``emit_quantized``
     ("nt" only) also returns the row codes and scales, unpadded, as the
     JAX package orders them: ``(y, x_q (M, K), x_scale (M, 1))``, and for
     "uint8" (signed codes with x = x_q*scale + zp) ``(y, x_q, x_scale,
@@ -498,8 +546,8 @@ def scaled_mm_fused_act(x, w_q, w_scale=None, bias=None, *,
     # statistics, so zeros never skew min/max): TMA reads them in place, the
     # first K codes of each (the GEMM's view)
     pad = (-kdim) % 16 if is_cuda(x) else 0
-    x_q, x_scale, x_zp, x_rs = quantize_rows(x, x_fmt, k_pad=pad,
-                                             colscale=x_colscale)
+    x_q, x_scale, x_zp, x_rs = quantize_rows(
+        x, x_fmt, k_pad=pad, colscale=x_colscale, row_scale=x_row_scale)
     if pad:
         x_q = x_q[:, :kdim]
     out = scaled_gemm(x_q, w_q, out_dtype, x_scale, w_scale, bias,
@@ -512,7 +560,7 @@ def scaled_mm_fused_act(x, w_q, w_scale=None, bias=None, *,
 
 
 def dynamic_mm_tn(a, b, mm_fmt: str = "int8", out_dtype=torch.float32,
-                  saved_b: tuple | None = None):
+                  saved_b: tuple | None = None, stats=None):
     """aᵀ @ b with both operands quantized **columnwise** in the ``mm_fmt``
     family (per out-row n over M for a, per out-col k over M for b, plain
     torch as in the JAX package) and multiplied by B10: the grad-weight
@@ -520,9 +568,22 @@ def dynamic_mm_tn(a, b, mm_fmt: str = "int8", out_dtype=torch.float32,
     with a pre-quantized (q, scale[, zp]) tuple.  The uint8 family's three
     rank-1 cross terms enter B10's epilogue as a rank-2 u @ v in fp32; the
     16-bit family is one bf16-valued product accumulated in fp32 (no
-    kernel, as in the JAX package)."""
+    kernel, as in the JAX package).  ``stats`` (int8 / e4m3): the
+    columns' absolute maxima (a's (N,), b's (K,)) to quantize by, where
+    the tokens are split over data ranks."""
     f = get_format(mm_fmt)
     a = a.float()
+    if stats is not None:
+        if saved_b is not None or not (f.num_bits == 8
+                                       and not f.is_unsigned):
+            raise ValueError("given column statistics take int8 or e4m3 "
+                             "operands quantized here")
+        a_s, b_s = (row_scale_from_amax(v, f.name).reshape(1, -1)
+                    for v in stats)
+        return scaled_mm_tn(quantize_with_scale(a, a_s, f.name),
+                            quantize_with_scale(b.float(), b_s, f.name),
+                            a_s.reshape(-1), b_s.reshape(-1),
+                            out_dtype=out_dtype)
     if f.is_integer and not f.is_unsigned:
         a_q, a_s = quantize_int_mm(a, 0)
         b_q, b_s = (quantize_int_mm(b.float(), 0) if saved_b is None

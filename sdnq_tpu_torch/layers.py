@@ -61,7 +61,9 @@ from .formats import torch_dtype
 from .kernels.dequant_mm import (
     PACKED_MM_MAX_ROWS, dequant_matmul, packed_int8_matmul,
 )
-from .kernels.scaled_mm import bf16_scaled_mm, scaled_mm_fused_act
+from .kernels.scaled_mm import (
+    bf16_scaled_mm, row_scale_from_amax, scaled_mm_fused_act,
+)
 from .quant.core import quantize_fp_mm, quantize_int_mm, quantize_uint_mm
 from .quant.hadamard import rotate_hadamard
 from .tensor import QTensor, dequantize
@@ -109,12 +111,26 @@ def _requantize_rowwise(qt: QTensor):
     return (wd / s).to(torch.bfloat16), s, None
 
 
+def _given_row_scale(x2d, x_amax_reduce, x_fmt):
+    """The rows' scale where ``x_amax_reduce`` is given: the function of
+    the rows' absolute maxima (M,) (taken in x's own dtype, exact) that
+    returns the maxima to quantize by."""
+    if x_amax_reduce is None:
+        return None
+    return row_scale_from_amax(x_amax_reduce(x2d.abs().amax(-1)), x_fmt)
+
+
 def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype,
-                         emit_quantized: bool = False):
+                         emit_quantized: bool = False, x_amax_reduce=None):
     """The quantized GEMM with its folds.  ``emit_quantized`` also returns
     the row-quantized (post-Hadamard) input as the training residual:
     ``(y, x_q, x_scale)``, or ``(y, x_q, x_scale, x_zp)`` for the
-    asymmetric uint8 family (see ``scaled_mm_fused_act``)."""
+    asymmetric uint8 family (see ``scaled_mm_fused_act``).
+    ``x_amax_reduce`` (a row-parallel shard's all-reduce, max, over the
+    tensor axis) maps the rows' absolute maxima to those the rows are
+    quantized by, so that a shard's codes are the whole rows' (int8 and
+    e4m3 rows; the asymmetric family raises, the 16-bit one quantizes
+    none)."""
     meta = qt.meta
     mfmt = meta.matmul_format
     if meta.use_hadamard:
@@ -149,6 +165,10 @@ def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype,
 
     if mfmt.is_integer:
         if w_zp is not None or mfmt.is_unsigned:
+            if x_amax_reduce is not None:
+                raise ValueError("the asymmetric (uint8) rows take their "
+                                 "own minimum and maximum: a row-parallel "
+                                 "shard of that family is not exact")
             # y += [rowsum(x_q)*x_s] ⊗ w_zp
             #      + x_zp ⊗ [colsum(w_q)*w_s + K*w_zp]
             kdim = x2d.shape[-1]
@@ -161,14 +181,16 @@ def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype,
                 lowrank_u=u, lowrank_v=v, v_zp0=wz,
                 v_zp1=w_colsum * w_scale.reshape(1, -1) + float(kdim) * wz,
                 emit_quantized=emit_quantized)
-        return scaled_mm_fused_act(x2d, w_q, w_scale, bias, x_fmt="int8",
-                                   out_dtype=out_dtype, lowrank_u=u,
-                                   lowrank_v=v, emit_quantized=emit_quantized)
+        return scaled_mm_fused_act(
+            x2d, w_q, w_scale, bias, x_fmt="int8", out_dtype=out_dtype,
+            lowrank_u=u, lowrank_v=v, emit_quantized=emit_quantized,
+            x_row_scale=_given_row_scale(x2d, x_amax_reduce, "int8"))
     if mfmt.num_bits == 8:
         return scaled_mm_fused_act(
             x2d, w_q.to(torch.float8_e4m3fn), w_scale, bias,
             x_fmt=mfmt.name, out_dtype=out_dtype, lowrank_u=u, lowrank_v=v,
-            emit_quantized=emit_quantized)
+            emit_quantized=emit_quantized,
+            x_row_scale=_given_row_scale(x2d, x_amax_reduce, mfmt.name))
     if emit_quantized:
         raise ValueError("the 16-bit family has no quantized input to emit")
     return bf16_scaled_mm(x2d, w_q, None, w_scale, bias, out_dtype=out_dtype,
@@ -211,15 +233,22 @@ def _weight_only_linear_2d(x2d, qt: QTensor, bias, out_dtype):
 
 
 def qlinear(x: torch.Tensor, w, bias: torch.Tensor | None = None,
-            out_dtype=None) -> torch.Tensor:
+            out_dtype=None, x_amax_reduce=None) -> torch.Tensor:
     """y = x @ w.T + bias with w a QTensor, a trainable weight
     (``TrainQTensor``: bf16 out whatever ``out_dtype``, as in the JAX
-    package; ``DynamicTensor``) or a plain weight tensor."""
+    package; ``DynamicTensor``) or a plain weight tensor.
+    ``x_amax_reduce``: where the quantized matmul quantizes x's rows, the
+    function that maps their absolute maxima (M,) to those they are
+    quantized by (``_quantized_matmul_2d``; a QTensor's)."""
     kind = type(w).__name__
     if kind == "TrainQTensor":  # (a local import: train imports layers)
         from .train.matmul import train_qlinear
-        return train_qlinear(x, w, bias)
+        return train_qlinear(x, w, bias, x_amax_reduce=x_amax_reduce)
     if kind == "DynamicTensor":
+        if x_amax_reduce is not None:
+            raise ValueError("a dynamic weight quantizes its input rows by "
+                             "their own statistics: it takes no given "
+                             "row maxima")
         from .train.matmul import dynamic_qlinear
         return dynamic_qlinear(x, w, bias)
     if not isinstance(w, QTensor):
@@ -233,7 +262,8 @@ def qlinear(x: torch.Tensor, w, bias: torch.Tensor | None = None,
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
     if meta.use_quantized_matmul and x2d.shape[0] >= _min_matmul_rows():
-        out = _quantized_matmul_2d(x2d, w, bias, out_dtype)
+        out = _quantized_matmul_2d(x2d, w, bias, out_dtype,
+                                   x_amax_reduce=x_amax_reduce)
     else:
         out = _weight_only_linear_2d(x2d, w, bias, out_dtype)
     return out.reshape(*lead, meta.original_shape[0])

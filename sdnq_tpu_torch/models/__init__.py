@@ -7,11 +7,11 @@ from .dit import (
 )
 from .llm import (
     LLAMA3_8B_CONFIG, LLM_TINY_CONFIG, LLMConfig, generate, init_cache,
-    init_llm, init_llm_layer, llm_forward,
+    init_llm, init_llm_layer, llm_forward, stack_llm_blocks,
 )
 from .moe import (
     MOE_TINY_CONFIG, MoEConfig, init_moe, moe_ffn, qlinear_batched,
-    quantize_moe,
+    quantize_moe, shard_moe,
 )
 from .text_encoder import (
     CLIP_TINY_CONFIG, T5_TINY_CONFIG, CLIPConfig, T5Config, clip_encode,
@@ -37,4 +37,5 @@ __all__ = ["DiTConfig", "FLUX_DEV_CONFIG", "FLUX_TINY_CONFIG", "init_dit",
            "vae_encode", "UNetConfig", "SD15_CONFIG", "SDXL_CONFIG",
            "UNET_TINY_CONFIG", "init_unet", "unet_forward",
            "make_staged_unet_forward", "MoEConfig", "MOE_TINY_CONFIG",
-           "init_moe", "quantize_moe", "qlinear_batched", "moe_ffn"]
+           "init_moe", "quantize_moe", "qlinear_batched", "moe_ffn",
+           "shard_moe", "stack_llm_blocks"]

@@ -27,7 +27,9 @@ import torch
 
 from ..kernels.dispatch import check_device, resolve_device
 from ..layers import qlinear
+from ..parallel.sharding import is_sharded
 from ..tensor import QTensor, layer_view
+from ..train.matmul import TrainQTensor
 from .common import (
     Params, apply_rope, attention, gelu, layer_norm, linear_init, rms_norm,
     rope, silu, split_heads, timestep_embedding,
@@ -122,17 +124,38 @@ def init_dit(cfg: DiTConfig = FLUX_TINY_CONFIG, *,
     return p
 
 
-def _lin(p, x, out_dtype=None):
+def _lin(p, x, out_dtype=None, gather=False):
+    """The layer ``p`` on x; a tensor-parallel shard (``parallel.tp``)
+    runs its collectives, and with ``gather`` returns the whole output."""
+    tp = p.get("tp")
+    if tp is not None:
+        return tp(p, x, out_dtype, gather)
     return qlinear(x, p["weight"], p.get("bias"), out_dtype=out_dtype)
 
 
+def _heads(cfg, p) -> int:
+    """The heads this rank holds: all of them, or their share over the
+    ranks that the layer ``p`` (qkv or linear1) is split over."""
+    tp = p.get("tp")
+    t = 1 if tp is None else tp.size
+    if cfg.num_heads % t:
+        raise ValueError(f"{cfg.num_heads} heads do not divide over {t} "
+                         "tensor ranks")
+    return cfg.num_heads // t
+
+
 def _modulation(params, vec, n_chunks):
-    out = _lin(params["linear"], silu(vec))
+    out = _lin(params["linear"], silu(vec), gather=True)
     return torch.chunk(out[:, None, :], n_chunks, dim=-1)
 
 
+def _norm_weight(n):
+    tp = n.get("tp")   # on sharded heads: the gradient summed over them
+    return n["weight"] if tp is None else tp.comm.copy(n["weight"])
+
+
 def _qk_norm(q, k, nq, nk):
-    return rms_norm(q, nq["weight"]), rms_norm(k, nk["weight"])
+    return rms_norm(q, _norm_weight(nq)), rms_norm(k, _norm_weight(nk))
 
 
 def _gelu_mlp(mlp, x):
@@ -140,7 +163,7 @@ def _gelu_mlp(mlp, x):
 
 
 def _double_block(blk, img, txt, vec, freqs, cfg, attn_cfg):
-    h = cfg.num_heads
+    h = _heads(cfg, blk["img_attn"]["qkv"])
     i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = \
         _modulation(blk["img_mod"], vec, 6)
     t_shift1, t_scale1, t_gate1, t_shift2, t_scale2, t_gate2 = \
@@ -172,8 +195,8 @@ def _double_block(blk, img, txt, vec, freqs, cfg, attn_cfg):
 
 
 def _single_block(blk, x, vec, freqs, cfg, attn_cfg):
-    h = cfg.num_heads
-    d = cfg.hidden_size
+    h = _heads(cfg, blk["linear1"])
+    d = h * cfg.head_dim
     shift, scale, gate = _modulation(blk["norm"], vec, 3)
     xn = layer_norm(x) * (1 + scale) + shift
     proj = _lin(blk["linear1"], xn)
@@ -277,8 +300,13 @@ def stack_dit_blocks(params: Params) -> Params:
 def _index_stacked(tree, i: int):
     """Layer i of a stacked block tree: QTensors as ``layer_view``s, other
     leaves indexed; every leaf a view of the stacked storage."""
-    return _map(tree, lambda x: layer_view(x, i) if isinstance(x, QTensor)
-                else x[i])
+    def one(x):
+        if isinstance(x, QTensor):
+            return layer_view(x, i)
+        if isinstance(x, TrainQTensor):
+            return TrainQTensor(qt=layer_view(x.qt, i), delta=x.delta[i])
+        return x[i] if isinstance(x, torch.Tensor) else x
+    return _map(tree, one)
 
 
 def _stack_len(tree) -> int:
@@ -361,6 +389,9 @@ def make_staged_dit_forward(cfg: DiTConfig, attn_config: dict | None = None):
     def forward(params, img, txt, timesteps, pooled, guidance=None,
                 freqs=None, *, device=None):
         device = resolve_device(device)
+        if is_sharded(params):   # shard_params' tree: this rank's shards
+            from ..parallel.tp import local_tree
+            params = local_tree(params)
         for name, t in (("img", img), ("txt", txt),
                         ("timesteps", timesteps), ("pooled", pooled)):
             check_device(t, device, name)

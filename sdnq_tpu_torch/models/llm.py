@@ -27,6 +27,7 @@ from ..layers import qembedding, qlinear
 from .common import Params, linear_init, rms_norm, split_heads
 
 __all__ = ["LLMConfig", "LLM_TINY_CONFIG", "LLAMA3_8B_CONFIG", "init_llm",
+           "stack_llm_blocks",
            "init_llm_layer", "init_cache", "llm_forward", "generate"]
 
 
@@ -248,3 +249,19 @@ def generate(params, prompt_ids, cfg: LLMConfig, *, max_new_tokens: int = 16,
         tok = torch.argmax(logits[:, -1], dim=-1)
         toks.append(tok)
     return torch.stack(toks, dim=1)
+
+
+def stack_llm_blocks(params: Params) -> Params:
+    """The JAX package's ``stack_llm_blocks``: decoder layers of one
+    structure stacked into one tree whose leaves carry a leading layer
+    axis (a copy, once; QTensors component by component under one layer's
+    meta), the layout ``parallel.pipeline`` stages over.  Layers of
+    different structures stay a list; ``llm_forward`` takes the list."""
+    from .dit import _stack, _structure
+    out = dict(params)
+    layers = params.get("layers")
+    if isinstance(layers, list) and layers:
+        defs = [_structure(b) for b in layers]
+        if all(d == defs[0] for d in defs[1:]):
+            out["layers"] = _stack(layers)
+    return out

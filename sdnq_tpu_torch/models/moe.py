@@ -24,9 +24,13 @@ QTensors): nothing is copied.  A weight-only bank is dequantized whole,
 as the JAX package does (a packed bank's codes run across its experts'
 rows).
 
-The JAX package's ``shard_moe`` (expert parallelism over a mesh axis) is
-not here: it waits for the port's tensor-parallel slice (ROADMAP queue A,
-item 3).
+``shard_moe`` is expert parallelism over a mesh axis (the JAX package's
+``shard_moe``): each rank holds E / n experts of every bank, the router is
+replicated.  ``moe_ffn`` on such a tree computes the routing, dispatch
+and capacity for all tokens, runs its own experts (B1 + B4 on their
+layer views), combines its experts' part of the output, and sums the
+parts over the axis in rank order (``AxisComm.sum``), where JAX's GSPMD
+lowers the same einsums to all-to-alls.
 """
 
 from __future__ import annotations
@@ -39,11 +43,12 @@ import torch.nn.functional as F
 from ..formats import torch_dtype
 from ..kernels.dispatch import resolve_device
 from ..kernels import scaled_mm as _sm
+from ..parallel.sharding import REPLICATED, Placement, Sharded, take
 from ..tensor import QTensor, dequantize, layer_view, quantize_tensor
 from .common import Params, linear_init
 
 __all__ = ["MoEConfig", "MOE_TINY_CONFIG", "init_moe", "moe_ffn",
-           "quantize_moe", "qlinear_batched", "top_k"]
+           "quantize_moe", "qlinear_batched", "top_k", "shard_moe"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,7 +177,10 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig,
     e, k = cfg.num_experts, cfg.top_k
     cap = max(1, int(cfg.capacity_factor * k * t / e))
 
-    logits = xf.float() @ params["router"]["weight"].float().T   # (T, E)
+    router = params["router"]["weight"]
+    if isinstance(router, Sharded):
+        router = router.local
+    logits = xf.float() @ router.float().T                      # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, k)                        # (T, k)
     gate_vals = gate_vals / torch.clamp_min(
@@ -190,22 +198,77 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig,
     pos_oh = F.one_hot(torch.where(keep, pos, cap).long(), cap + 1) \
         .to(xf.dtype)[..., :cap]                                 # (T, k, C)
     dispatch = torch.einsum("tke,tkc->tec", disp, pos_oh)        # (T, E, C)
-    expert_in = torch.einsum("tec,td->ecd", dispatch, xf)
-
-    g = qlinear_batched(expert_in, params["gate_proj"]["weight"],
-                        torch.float32)
-    u = qlinear_batched(expert_in, params["up_proj"]["weight"],
-                        torch.float32)
-    h = F.silu(g) * u
-    expert_out = qlinear_batched(h.to(x.dtype), params["down_proj"]["weight"],
-                                 torch.float32)
-
     combine = torch.einsum("tec,tke,tk->tec", dispatch,
                            onehot.to(xf.dtype), gate_vals.to(xf.dtype))
+    banks = [params[n]["weight"] for n in _BANKS]
+    comm = None
+    if isinstance(banks[0], Sharded):   # expert parallel: this rank's
+        pl = banks[0].placement          # experts and their tokens
+        first = pl.qdata if isinstance(pl, QTensor) else pl
+        if first.sharded:
+            comm = banks[0].mesh.comm(first.axis)
+            n_loc = e // comm.size
+            lo = comm.rank * n_loc
+            dispatch = dispatch[:, lo:lo + n_loc]
+            combine = combine[:, lo:lo + n_loc]
+        banks = [b.local for b in banks]
+    expert_in = torch.einsum("tec,td->ecd", dispatch, xf)
+
+    g = qlinear_batched(expert_in, banks[0], torch.float32)
+    u = qlinear_batched(expert_in, banks[1], torch.float32)
+    h = F.silu(g) * u
+    expert_out = qlinear_batched(h.to(x.dtype), banks[2], torch.float32)
+
     y = torch.einsum("tec,ecd->td", combine.float(), expert_out)
+    if comm is not None:
+        y = comm.sum(y)
 
     # load-balance aux (Switch eq. 4)
     frac = F.one_hot(gate_idx[:, 0], e).float().sum(0) / t
     me = probs.mean(0)
     aux = (frac * me).sum() * e
     return y.reshape(*lead, d).to(out_dtype), aux
+
+
+def shard_moe(params: Params, mesh, axis: str = "tensor") -> Params:
+    """Expert parallelism: every bank leaf split on its leading (expert)
+    dimension over ``axis`` where the axis divides it (else replicated);
+    the router replicated.  Returns this rank's tree of ``Sharded``
+    leaves, which ``moe_ffn`` takes."""
+    n = mesh.shape[axis]
+    rank = mesh.get_local_rank(axis)
+
+    def put0(a):
+        if isinstance(a, QTensor):
+            pls = {f: None if getattr(a, f) is None
+                   else _bank_placement(getattr(a, f), n, axis)
+                   for f in ("qdata", "scale", "zero_point", "svd_up",
+                             "svd_down")}
+            pq = QTensor(meta=a.meta, **pls)
+            local = a
+            if pq.qdata.sharded:
+                m = a.meta
+                k = pq.qdata.size
+                local = QTensor(meta=dataclasses.replace(
+                    m, original_shape=(m.original_shape[0] // k,)
+                    + tuple(m.original_shape[1:]),
+                    quantized_shape=(m.quantized_shape[0] // k,)
+                    + tuple(m.quantized_shape[1:])), **{
+                    f: None if getattr(a, f) is None
+                    else take(getattr(a, f), getattr(pq, f), rank)
+                    for f in pls})
+            return Sharded(local, pq, mesh, "experts")
+        pl = _bank_placement(a, n, axis)
+        return Sharded(take(a, pl, rank), pl, mesh, "experts")
+
+    out = {"router": {k: Sharded(v, REPLICATED, mesh)
+                      for k, v in params["router"].items()}}
+    for name in _BANKS:
+        out[name] = {k: put0(v) for k, v in params[name].items()}
+    return out
+
+
+def _bank_placement(a, n, axis):
+    if a.dim() >= 1 and a.shape[0] % n == 0:
+        return Placement(0, axis, n)
+    return REPLICATED

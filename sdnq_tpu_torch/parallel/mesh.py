@@ -18,7 +18,7 @@ import torch.distributed as dist
 
 from ..kernels.dispatch import resolve_device
 
-__all__ = ["create_mesh", "Mesh", "AXES"]
+__all__ = ["create_mesh", "Mesh", "VirtualMesh", "AXES"]
 
 AXES = ("data", "fsdp", "tensor", "sequence")
 
@@ -49,6 +49,50 @@ class Mesh:
         """This rank's index along ``axis``."""
         return (0 if self.device_mesh is None
                 else self.device_mesh.get_local_rank(axis))
+
+    def comm(self, axis: str):
+        """The collectives along ``axis`` (``_collectives.AxisComm``)."""
+        from ._collectives import DistComm, trivial_comm
+        if self.shape[axis] == 1:
+            return trivial_comm()
+        return DistComm(self, axis)
+
+
+class VirtualMesh(Mesh):
+    """One virtual rank of a mesh whose ranks are threads of one process
+    (``_collectives.run_virtual``): its coordinates on the axes and the
+    axis groups' meeting points.  It has no process group; its
+    collectives meet the other threads'."""
+
+    def __init__(self, shape: dict, device_type: str, coords: tuple,
+                 hubs: dict):
+        super().__init__(shape, device_type)
+        self.coords = dict(zip(AXES, coords))
+        self._hubs = hubs
+
+    @property
+    def index(self) -> int:
+        """This rank's place in row-major order over the axes (its
+        result's index in ``run_virtual``)."""
+        i = 0
+        for a in AXES:
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def get_group(self, axis: str):
+        return None
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def comm(self, axis: str):
+        from ._collectives import VirtualComm, trivial_comm
+        if self.shape[axis] == 1:
+            return trivial_comm()
+        i = AXES.index(axis)
+        c = tuple(self.coords[a] for a in AXES)
+        return VirtualComm(self._hubs[(axis,) + c[:i] + c[i + 1:]],
+                           self.coords[axis])
 
 
 def create_mesh(data: int = 1, fsdp: int = 1, tensor: int = 1,

@@ -12,9 +12,14 @@ slot-steps over all slot-steps.
 The latents and the conditioning live on the device of the first latent
 as slot-stacked tensors (a slot is written in place on admission); the
 per-slot step indices and the active flags reach ``step_fn`` as tensors on
-that device.  The JAX package's ``mesh`` (the slot axis sharded over a
-data axis) waits for the port's tensor-parallel slice: passing one raises
-``NotImplementedError`` (ROADMAP queue A, item 3).
+that device.
+
+With a ``mesh`` the slot axis is sharded over its ``data_axis`` (whose
+size must divide ``num_slots``, as in the JAX package): every rank runs
+the same host scheduler, holds and steps only its own slots (``step_fn``
+gets the rank's (S / n, ...) slice), and a finished slot's latent is
+broadcast from its owner, so every rank reads the same results (JAX's
+``_fetch_slot`` all-gather).
 """
 
 from __future__ import annotations
@@ -53,17 +58,23 @@ class ContinuousBatcher:
     def __init__(self, step_fn: Callable, init_latent_fn: Callable,
                  num_slots: int, num_steps_max: int, *,
                  mesh=None, data_axis: str = "data"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher(mesh=...): the slot axis sharded over a "
-                "mesh is ROADMAP queue A item 3 (A5b, tensor parallelism "
-                "and sharding); the port batches on one device")
         self.step_fn = step_fn
         self.init_latent_fn = init_latent_fn
         self.num_slots = num_slots
         self.num_steps_max = num_steps_max
-        self.mesh = None
+        self.mesh = mesh
         self.data_axis = data_axis
+        self._comm = None
+        self._lo, self._hi = 0, num_slots   # this rank's slots
+        if mesh is not None:
+            n = mesh.shape[data_axis]
+            if num_slots % n != 0:
+                raise ValueError(f"num_slots={num_slots} must divide over "
+                                 f"{data_axis}={n}")
+            self._comm = mesh.comm(data_axis)
+            per = num_slots // n
+            self._lo = mesh.get_local_rank(data_axis) * per
+            self._hi = self._lo + per
         self.queue: deque[Request] = deque()
         self.slots: list[Request | None] = [None] * num_slots
         self.latents = None
@@ -81,12 +92,15 @@ class ContinuousBatcher:
                 if self.total_slot_steps else 0.0)
 
     def _alloc(self, lat, cond):
-        z = torch.zeros((self.num_slots,) + tuple(lat.shape),
-                        dtype=lat.dtype, device=lat.device)
+        n = self._hi - self._lo
+        z = torch.zeros((n,) + tuple(lat.shape), dtype=lat.dtype,
+                        device=lat.device)
         zc = tree_map(lambda c: torch.zeros(
-            (self.num_slots,) + tuple(c.shape), dtype=c.dtype,
-            device=c.device), cond)
+            (n,) + tuple(c.shape), dtype=c.dtype, device=c.device), cond)
         return z, zc
+
+    def _owns(self, s: int) -> bool:
+        return self._lo <= s < self._hi
 
     def submit(self, req: Request):
         self.queue.append(req)
@@ -97,12 +111,15 @@ class ContinuousBatcher:
             if self.slots[s] is None and self.queue:
                 req = self.queue.popleft()
                 self.slots[s] = req
-                lat = self.init_latent_fn(req)
-                if self.latents is None:
-                    self.latents, self.cond = self._alloc(lat, req.cond)
-                self.latents[s] = lat
-                tree_map(lambda full, c: full[s].copy_(c), self.cond,
-                         req.cond)
+                if self._owns(s) or self.latents is None:
+                    lat = self.init_latent_fn(req)
+                    if self.latents is None:
+                        self.latents, self.cond = self._alloc(lat, req.cond)
+                if self._owns(s):
+                    i = s - self._lo
+                    self.latents[i] = lat
+                    tree_map(lambda full, c: full[i].copy_(c), self.cond,
+                             req.cond)
                 self.t_idx[s] = 0
                 self.steps_left[s] = req.num_steps
                 changed = True
@@ -115,8 +132,15 @@ class ContinuousBatcher:
     def _fetch_slot(self, s: int) -> np.ndarray:
         """One slot's latent read back to the host as a numpy array (a
         bf16 latent as float32, which holds it exactly: numpy has no
-        bf16)."""
-        lat = self.latents[s].detach()
+        bf16).  On a mesh the owner broadcasts it over the data axis, and
+        every rank reads it."""
+        if self._comm is None:
+            lat = self.latents[s].detach()
+        else:
+            per = self._hi - self._lo
+            buf = (self.latents[s - self._lo] if self._owns(s)
+                   else torch.empty_like(self.latents[0])).detach()
+            lat = self._comm.broadcast(buf.contiguous(), s // per)
         if lat.dtype == torch.bfloat16:
             lat = lat.float()
         return lat.to("cpu", copy=True).numpy()
@@ -131,10 +155,11 @@ class ContinuousBatcher:
             if not active.any():
                 break
             dev = self.latents.device
+            lo, hi = self._lo, self._hi
             self.latents = self.step_fn(
                 self.latents, self.cond,
-                torch.tensor(self.t_idx, device=dev),
-                torch.tensor(active, device=dev))
+                torch.tensor(self.t_idx[lo:hi], device=dev),
+                torch.tensor(active[lo:hi], device=dev))
             self.t_idx += active.astype(np.int32)
             self.steps_left -= active.astype(np.int32)
             self.total_slot_steps += self.num_slots

@@ -31,7 +31,9 @@ bytes per weight on top of that gradient.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import torch
 
@@ -46,6 +48,8 @@ from ..tensor import QTensor, dequantize, quantize_tensor
 from ..tree import tree_map
 
 __all__ = ["TrainQTensor", "make_train_params", "train_qlinear",
+           "train_forward", "train_backward", "keep_for_backward",
+           "grad_input_stats", "token_stats_reduced",
            "extract_weight_grads", "apply_weight_updates", "grad_carrier",
            "DynamicTensor", "dynamic_qlinear"]
 
@@ -172,18 +176,33 @@ def _dynamic_mm(a, b_t, mm_fmt: str = "int8", out_dtype=torch.float32):
     return _smm.bf16_scaled_mm(a, b_t, None, None, None, out_dtype=out_dtype)
 
 
-def _dynamic_mm_nn(a, b, mm_fmt: str = "int8", out_dtype=torch.float32):
+def _row_scale(stats, i, fmt):
+    """Scale ``i`` of the given statistics (None: quantize by the
+    operand's own)."""
+    if stats is None or stats[i] is None:
+        return None
+    return _smm.row_scale_from_amax(stats[i], fmt).reshape(-1)
+
+
+def _dynamic_mm_nn(a, b, mm_fmt: str = "int8", out_dtype=torch.float32,
+                   stats=None):
     """a (M, C) × b (C, N) -> (M, N) contracting b's leading axis: the
     grad-input GEMM in natural layouts.  b is quantized columnwise (per
     output column n), a per row in B1's prologue, and B1's "nn" GEMM reads
-    b as it lies."""
+    b as it lies.  ``stats`` (``grad_input_stats``: a's row and b's
+    column absolute maxima) replaces the operands' own, int8 and fp8."""
     f = get_format(mm_fmt)
     bf = b.float()
     if f.is_integer and not f.is_unsigned:
-        b_q, b_s = quantize_int_mm(bf, 0)
-        return _smm.scaled_mm_fused_act(a, b_q, b_s.reshape(-1), None,
-                                        x_fmt="int8", out_dtype=out_dtype,
-                                        b_layout="nn")
+        if stats is not None:
+            b_s = _row_scale(stats, 1, "int8").reshape(1, -1)
+            b_q = _smm.quantize_with_scale(bf, b_s, "int8")
+        else:
+            b_q, b_s = quantize_int_mm(bf, 0)
+        return _smm.scaled_mm_fused_act(
+            a, b_q, b_s.reshape(-1), None, x_fmt="int8",
+            out_dtype=out_dtype, b_layout="nn",
+            x_row_scale=_row_scale(stats, 0, "int8"))
     if f.is_integer:
         # asymmetric b (per column n): b = b_q·s + zp ⇒ out += rowsum(a) ⊗ zp
         b_q, b_s, b_zp = quantize_uint_mm(bf, 0)
@@ -194,22 +213,29 @@ def _dynamic_mm_nn(a, b, mm_fmt: str = "int8", out_dtype=torch.float32):
                                         b_layout="nn", lowrank_u=u,
                                         lowrank_v=v)
     if f.num_bits == 8:
-        b_q, b_s = quantize_fp_mm(bf, 0, fmt=f)
-        return _smm.scaled_mm_fused_act(a, b_q, b_s.reshape(-1), None,
-                                        x_fmt=f.name, out_dtype=out_dtype,
-                                        b_layout="nn")
+        if stats is not None:
+            b_s = _row_scale(stats, 1, f.name).reshape(1, -1)
+            b_q = _smm.quantize_with_scale(bf, b_s, f.name)
+        else:
+            b_q, b_s = quantize_fp_mm(bf, 0, fmt=f)
+        return _smm.scaled_mm_fused_act(
+            a, b_q, b_s.reshape(-1), None, x_fmt=f.name,
+            out_dtype=out_dtype, b_layout="nn",
+            x_row_scale=_row_scale(stats, 0, f.name))
     # 16-bit family: bf16 values, products exact in fp32, fp32 sums
     acc = a.to(torch.bfloat16).float() @ bf.to(torch.bfloat16).float()
     return acc.to(out_dtype)
 
 
-def _fwd_value(x2d, qt, bias, use_quantized_matmul, emit_quantized=False):
+def _fwd_value(x2d, qt, bias, use_quantized_matmul, emit_quantized=False,
+               out_dtype=torch.bfloat16, x_amax_reduce=None):
     if (use_quantized_matmul and qt.meta.use_quantized_matmul
             and x2d.shape[0] >= 32):
-        return _quantized_matmul_2d(x2d, qt, bias, torch.bfloat16,
-                                    emit_quantized=emit_quantized)
+        return _quantized_matmul_2d(x2d, qt, bias, out_dtype,
+                                    emit_quantized=emit_quantized,
+                                    x_amax_reduce=x_amax_reduce)
     assert not emit_quantized
-    return _weight_only_linear_2d(x2d, qt, bias, torch.bfloat16)
+    return _weight_only_linear_2d(x2d, qt, bias, out_dtype)
 
 
 def _fused_emit_eligible(qt, m_rows, use_quantized_matmul) -> bool:
@@ -244,22 +270,52 @@ def _save_columnwise(x2d, qt):
     return (xf.to(torch.bfloat16),)
 
 
-def _grad_input(g2d, qt, x_dtype):
+def _fast_grad_input(qt) -> bool:
+    """Whether the stored weight is already a rowwise int8 / uint8
+    operand of the grad-input GEMM."""
     meta = qt.meta
-    mfmt = meta.matmul_format
     q2d = qt.qdata
     if q2d.dim() > 2:
         q2d = q2d.reshape(q2d.shape[0], -1)
-    fast = (meta.use_quantized_matmul and not meta.re_quantize_for_matmul
-            and mfmt.is_integer and not meta.is_packed
+    return (meta.use_quantized_matmul and not meta.re_quantize_for_matmul
+            and meta.matmul_format.is_integer and not meta.is_packed
             and q2d.dtype in (torch.int8, torch.uint8)
             and qt.scale.numel() == q2d.shape[0])
-    if not fast:
-        w_deq = dequantize(qt, torch.float32)
-        if w_deq.dim() > 2:
-            w_deq = w_deq.reshape(w_deq.shape[0], -1)
-        return _dynamic_mm_nn(g2d, w_deq, _exec_fmt(meta.matmul_fmt),
-                              out_dtype=x_dtype)
+
+
+def _dequant_2d(qt):
+    w_deq = dequantize(qt, torch.float32)
+    if w_deq.dim() > 2:
+        w_deq = w_deq.reshape(w_deq.shape[0], -1)
+    return w_deq
+
+
+def grad_input_stats(g2d, qt):
+    """The statistics the grad-input GEMM ``g · W`` quantizes by, over
+    the contraction (W's rows): ``(row amax of g (M,), column amax of W
+    (K,) or None)``; None where its family takes none (16-bit).  A
+    column-parallel shard all-reduces them (max) over the tensor axis
+    before ``_grad_input``; the asymmetric (uint8) family's ranges are not
+    reduced, so it raises."""
+    f = get_format(_exec_fmt(qt.meta.matmul_fmt))
+    if _fast_grad_input(qt):
+        w_s = _weight_as_int8(qt)[1].reshape(1, -1).float()
+        return ((g2d.float() * w_s).abs().amax(-1), None)
+    if f.num_bits > 8:
+        return None
+    if f.is_unsigned:
+        raise ValueError("the asymmetric (uint8) grad-input quantization "
+                         "takes its ranges per shard: a column-parallel "
+                         "layer of that family is not exact")
+    return (g2d.float().abs().amax(-1), _dequant_2d(qt).abs().amax(0))
+
+
+def _grad_input(g2d, qt, x_dtype, stats=None):
+    meta = qt.meta
+    if not _fast_grad_input(qt):
+        return _dynamic_mm_nn(g2d, _dequant_2d(qt),
+                              _exec_fmt(meta.matmul_fmt), out_dtype=x_dtype,
+                              stats=stats)
     # the stored rowwise codes: g @ (W_q·s + zp·1ᵀ) = (g·sᵀ) @ W_q +
     # (g @ zp)·1ᵀ, the row scales folded into B1's prologue (x_colscale)
     # and the zero-point / SVD terms a rank-R term after the kernel
@@ -277,7 +333,8 @@ def _grad_input(g2d, qt, x_dtype):
     gx = _smm.scaled_mm_fused_act(g2d, w_q, None, None, x_fmt="int8",
                                   out_dtype=x_dtype, b_layout="nn",
                                   lowrank_u=u, lowrank_v=v,
-                                  x_colscale=w_s.reshape(-1))
+                                  x_colscale=w_s.reshape(-1),
+                                  x_row_scale=_row_scale(stats, 0, "int8"))
     if meta.use_hadamard:
         # W lives in rotated space: rotate the cotangent back (the
         # normalized Hadamard is its own inverse)
@@ -285,7 +342,7 @@ def _grad_input(g2d, qt, x_dtype):
     return gx
 
 
-def _grad_weight(g2d, saved, qt, emitted, save_q_acts):
+def _grad_weight(g2d, saved, qt, emitted, save_q_acts, token_comm=None):
     meta = qt.meta
     mm_fmt = _exec_fmt(meta.matmul_fmt)
     f = get_format(mm_fmt)
@@ -320,8 +377,87 @@ def _grad_weight(g2d, saved, qt, emitted, save_q_acts):
     elif save_q_acts:
         gw = _smm.dynamic_mm_tn(g2d, None, mm_fmt, saved_b=saved)
     else:
-        gw = _smm.dynamic_mm_tn(g2d, saved[0].float(), mm_fmt)
+        x = saved[0].float()
+        stats = None
+        if token_comm is not None and (f.is_integer or f.num_bits == 8):
+            if f.is_unsigned:
+                raise ValueError(
+                    "the asymmetric (uint8) grad-weight quantization takes "
+                    "its ranges per data shard: not exact under data "
+                    "parallelism")
+            # the tokens' statistics over every data rank's tokens
+            stats = (token_comm.amax(g2d.float().abs().amax(0)),
+                     token_comm.amax(x.abs().amax(0)))
+        gw = _smm.dynamic_mm_tn(g2d, x, mm_fmt, stats=stats)
     return gw.reshape(meta.original_shape)
+
+
+def train_forward(x2d, bias, qt, save_q_acts, use_quantized_matmul,
+                  out_dtype=torch.bfloat16, x_amax_reduce=None):
+    """The trainable linear's forward: ``(y, saved residuals, emitted)``;
+    ``x_amax_reduce`` as ``layers.qlinear``'s."""
+    emitted = save_q_acts and _fused_emit_eligible(
+        qt, x2d.shape[0], use_quantized_matmul)
+    if emitted:
+        # B1 emits its row-quantized input: no second quantize pass
+        y, *saved = _fwd_value(x2d, qt, bias, use_quantized_matmul,
+                               emit_quantized=True, out_dtype=out_dtype,
+                               x_amax_reduce=x_amax_reduce)
+    else:
+        y = _fwd_value(x2d, qt, bias, use_quantized_matmul,
+                       out_dtype=out_dtype, x_amax_reduce=x_amax_reduce)
+        saved = (_save_columnwise(x2d, qt) if save_q_acts else (x2d,))
+    return y, tuple(saved), emitted
+
+
+def train_backward(ctx, g, needs, stats=None):
+    """The trainable linear's gradients ``(gx, gw, gb)`` from the
+    cotangent ``g`` and what ``ctx`` kept (saved tensors, qt, emitted,
+    save_q_acts, x_dtype, bias_dtype); ``needs`` the three inputs' flags.
+    ``stats``: the grad-input quantization's statistics
+    (``grad_input_stats``), all-reduced over a tensor axis."""
+    saved = ctx.saved_tensors
+    # the cotangent stays in its own (bf16) type: the quantize passes read
+    # it as it is
+    g2d = g.reshape(-1, g.shape[-1])
+    gx = gw = gb = None
+    if needs[0]:
+        gx = _grad_input(g2d, ctx.qt, ctx.x_dtype, stats).to(ctx.x_dtype)
+    if needs[1]:
+        gw = _grad_weight(g2d, saved, ctx.qt, ctx.emitted, ctx.save_q_acts,
+                          getattr(ctx, "token_comm", None))
+    if ctx.bias_dtype is not None and needs[2]:
+        gb = g2d.float().sum(0).to(ctx.bias_dtype)
+    return gx, gw, gb
+
+
+_TOKENS = threading.local()
+
+
+@contextlib.contextmanager
+def token_stats_reduced(comm):
+    """Within the block (on this thread), the trainable linears' backward
+    takes the grad-weight's per-column statistics over the tokens of every
+    rank of ``comm`` (a data axis's ``AxisComm``: its all-reduce, max), so
+    that data parallelism computes the unsharded batch's gradient."""
+    prev = getattr(_TOKENS, "comm", None)
+    _TOKENS.comm = comm if comm is not None and comm.size > 1 else None
+    try:
+        yield
+    finally:
+        _TOKENS.comm = prev
+
+
+def keep_for_backward(ctx, x2d, bias, qt, saved, emitted, save_q_acts):
+    ctx.save_for_backward(*saved)
+    ctx.qt, ctx.emitted, ctx.save_q_acts = qt, emitted, save_q_acts
+    ctx.x_dtype = x2d.dtype
+    ctx.bias_dtype = None if bias is None else bias.dtype
+    ctx.token_comm = getattr(_TOKENS, "comm", None)
+    if ctx.token_comm is not None and (save_q_acts or emitted):
+        raise ValueError("saved quantized activations take their token "
+                         "statistics per data shard: not exact under data "
+                         "parallelism")
 
 
 class _TrainLinear(torch.autograd.Function):
@@ -329,49 +465,33 @@ class _TrainLinear(torch.autograd.Function):
     into ``delta`` (the JAX package's ``_train_linear`` custom_vjp)."""
 
     @staticmethod
-    def forward(ctx, x2d, delta, bias, qt, save_q_acts, use_quantized_matmul):
-        emitted = save_q_acts and _fused_emit_eligible(
-            qt, x2d.shape[0], use_quantized_matmul)
-        if emitted:
-            # B1 emits its row-quantized input: no second quantize pass
-            y, *saved = _fwd_value(x2d, qt, bias, use_quantized_matmul,
-                                   emit_quantized=True)
-        else:
-            y = _fwd_value(x2d, qt, bias, use_quantized_matmul)
-            saved = (_save_columnwise(x2d, qt) if save_q_acts
-                     else (x2d,))
-        ctx.save_for_backward(*saved)
-        ctx.qt, ctx.emitted, ctx.save_q_acts = qt, emitted, save_q_acts
-        ctx.x_dtype = x2d.dtype
-        ctx.bias_dtype = None if bias is None else bias.dtype
+    def forward(ctx, x2d, delta, bias, qt, save_q_acts, use_quantized_matmul,
+                out_dtype=torch.bfloat16, x_amax_reduce=None):
+        y, saved, emitted = train_forward(x2d, bias, qt, save_q_acts,
+                                          use_quantized_matmul, out_dtype,
+                                          x_amax_reduce)
+        keep_for_backward(ctx, x2d, bias, qt, saved, emitted, save_q_acts)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
-        # the cotangent stays in its own (bf16) type: the quantize passes
-        # read it as it is
-        g2d = g.reshape(-1, g.shape[-1])
-        gx = gw = gb = None
-        if ctx.needs_input_grad[0]:
-            gx = _grad_input(g2d, ctx.qt, ctx.x_dtype).to(ctx.x_dtype)
-        if ctx.needs_input_grad[1]:
-            gw = _grad_weight(g2d, saved, ctx.qt, ctx.emitted,
-                              ctx.save_q_acts)
-        if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
-            gb = g2d.float().sum(0).to(ctx.bias_dtype)
-        return gx, gw, gb, None, None, None
+        gx, gw, gb = train_backward(ctx, g, ctx.needs_input_grad[:3])
+        return gx, gw, gb, None, None, None, None, None
 
 
 def train_qlinear(x, w: TrainQTensor, bias=None, *,
-                  save_quantized_activations: bool = False):
-    """Trainable quantized linear: y = x @ W_qᵀ + b (bf16) with
-    straight-through gradients into ``w.delta``."""
+                  save_quantized_activations: bool = False,
+                  out_dtype=torch.bfloat16, x_amax_reduce=None):
+    """Trainable quantized linear: y = x @ W_qᵀ + b (bf16, or
+    ``out_dtype``: a row-parallel shard's fp32 partial sum) with
+    straight-through gradients into ``w.delta``; ``x_amax_reduce`` as
+    ``layers.qlinear``'s."""
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
     y = _TrainLinear.apply(x2d, w.delta, bias, w.qt,
                            save_quantized_activations,
-                           w.qt.meta.use_quantized_matmul)
+                           w.qt.meta.use_quantized_matmul, out_dtype,
+                           x_amax_reduce)
     return y.reshape(*lead, y.shape[-1])
 
 

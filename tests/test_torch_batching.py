@@ -84,9 +84,13 @@ def test_efficiency_counts_idle_slots():
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        ContinuousBatcher(lambda *a: a[0], lambda r: torch.zeros(1), 2, 4,
-                          mesh=object())
+    """The slot axis must divide over the mesh's data axis (the JAX
+    package's ValueError)."""
+    from sdnq_tpu_torch.parallel.mesh import Mesh
+    with pytest.raises(ValueError, match="must divide over data=2"):
+        ContinuousBatcher(lambda *a: a[0], lambda r: torch.zeros(1), 3, 4,
+                          mesh=Mesh({"data": 2, "fsdp": 1, "tensor": 1,
+                                     "sequence": 1}, "cpu"))
 
 
 def _flux_step(params, cfg, freqs):

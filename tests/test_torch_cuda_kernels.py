@@ -2261,3 +2261,57 @@ def test_flash_attention_block_d256(dev, qk, token):
     assert ka.flash_attention_block.mode_launches["d256"] == before + 1
     _block_check(got, ka.flash_attention_block_plain(*args, **kw),
                  token and qk == "int8")
+
+
+@pytest.mark.parametrize("m,k", [(1, 3072), (37, 200), (300, 3072),
+                                 (64, 7681)])
+@pytest.mark.parametrize("x_fmt", ["int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rows_given_scale(dev, m, k, x_fmt, dtype):
+    """B1's row quantizer with a given row scale (a row-parallel shard's,
+    from the all-reduced absolute maximum), bit-equal to the plain
+    version, through the staged kernel and both loops, with a column
+    scale and without; a shard's codes against the whole rows' scale
+    equal the whole rows' codes."""
+    g = _gen(31)
+    x = _planted_rows(m, k, x_fmt, dtype, g)
+    whole = ks.quantize_rows(x, x_fmt)
+    for cs in (None, 2.0 ** torch.randint(-2, 3, (k,), device=dev,
+                                          generator=g).float()):
+        xf = x.float() if cs is None else x.float() * cs
+        scale = ks.row_scale_from_amax(xf.abs().amax(-1), x_fmt).reshape(-1)
+        for pad in (0, 11):
+            got = ks.quantize_rows(x, x_fmt, k_pad=pad, colscale=cs,
+                                   row_scale=scale)
+            want = ks.quantize_rows_plain(x, x_fmt, k_pad=pad, colscale=cs,
+                                          row_scale=scale)
+            for a, b in zip(got, want):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    assert _equal_bytes(a, b)
+    # a second half of the columns against the whole rows' scale
+    half = k // 2
+    part = ks.quantize_rows(x[:, half:].contiguous(), x_fmt,
+                            row_scale=whole[1].reshape(-1))
+    assert _equal_bytes(part[0], whole[0][:, half:])
+    with pytest.raises(ValueError, match="uint8"):
+        ks.quantize_rows(x, "uint8", row_scale=whole[1].reshape(-1))
+
+
+@pytest.mark.parametrize("n,x", [(3072, 3072), (3072, 12288),
+                                 (3072, 21504)])
+def test_scaled_gemm_ns_shapes(dev, n, x):
+    """B4 nt at Muon's Newton-Schulz shapes of a FLUX leaf (3072 x X):
+    the Gram (N, N, K X), its square (N, N, N) and the update (N, X, N)
+    with bᵀ copied to (X, N); int8 bit-equal."""
+    g = _gen(37)
+    for m, nn, k in ((n, n, x), (n, n, n), (n, x, n)):
+        a = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (nn, k), device=dev, generator=g,
+                          dtype=torch.int8)
+        xs = torch.rand(m, 1, device=dev, generator=g) * 1e-3
+        ws = torch.rand(nn, 1, device=dev, generator=g) * 1e-3
+        got = ks.scaled_mm(a, b, xs, ws, out_dtype=torch.float32)
+        want = ks.scaled_gemm_plain(a, b, torch.float32, xs, ws)
+        assert torch.equal(got, want)

@@ -26,7 +26,11 @@ def test_fresh_import_leaves_jax_out():
             "sdnq_tpu_torch.convert, sdnq_tpu_torch.packing, "
             "sdnq_tpu_torch.quant.svd, sdnq_tpu_torch.train, "
             "sdnq_tpu_torch.optim, sdnq_tpu_torch.io, "
-            "sdnq_tpu_torch.native, sdnq_tpu_torch.utils\n"
+            "sdnq_tpu_torch.native, sdnq_tpu_torch.utils, "
+            "sdnq_tpu_torch.parallel, sdnq_tpu_torch.parallel.tp, "
+            "sdnq_tpu_torch.parallel.sharding, "
+            "sdnq_tpu_torch.parallel.dryrun, sdnq_tpu_torch.optim.muon, "
+            "sdnq_tpu_torch.models.moe\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'sdnq_tpu.', 'safetensors', "
             "'transformers', 'orbax')) "
@@ -56,7 +60,9 @@ def test_no_source_imports_jax():
             PKG / "train" / "matmul.py", PKG / "optim" / "base.py",
             PKG / "io" / "hf.py", PKG / "io" / "checkpoint.py",
             PKG / "native" / "loader.py",
-            PKG / "utils" / "transfer.py"} <= set(files)
+            PKG / "utils" / "transfer.py", PKG / "optim" / "muon.py",
+            PKG / "parallel" / "sharding.py", PKG / "parallel" / "tp.py",
+            PKG / "parallel" / "dryrun.py"} <= set(files)
     for f in files:
         for mod in _imported_roots(f):
             root = mod.split(".")[0]
@@ -144,3 +150,28 @@ def test_llm_entry_points_need_a_device(no_cuda):
             call()
     toks = generate(params, ids, cfg, max_new_tokens=2, device="cpu")
     assert toks.shape == (1, 2)
+
+
+def test_parallel_entry_points_need_a_device(no_cuda):
+    """The tensor-parallel forward over virtual ranks, the training dry
+    run and its launcher take the card unless the caller asks for the
+    CPU."""
+    from sdnq_tpu_torch.parallel import dryrun_multichip, local_tp
+    from sdnq_tpu_torch.parallel.dryrun import launch
+    cfg = FLUX_TINY_CONFIG
+    params = init_dit(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    x = torch.zeros(1, 64, cfg.in_channels)
+    txt = torch.zeros(1, 8, cfg.txt_dim)
+    t = torch.zeros(1)
+    pooled = torch.zeros(1, cfg.vec_dim)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        local_tp(params, x, txt, t, pooled, cfg, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch(1)
+    with torch.no_grad():
+        out = local_tp(params, x, txt, t, pooled, cfg, 2, device="cpu")
+    assert out.shape == x.shape and torch.isfinite(out).all()
+
