@@ -14,6 +14,9 @@
                                              # phase 3 rows
     python3 chip_smoke.py --phases-4n-4t     # only phases 4n and 4t, with
                                              # their phase 3 rows and slices
+    python3 chip_smoke.py --phases-4l-4t     # only phase 4l (int8 sums past
+                                             # 2^17) with its phase 3 rows,
+                                             # and phase 4t's training cases
 
 ``--no-faults`` starts no builds of planted faults, so that the timed
 phases have the host's cores to themselves (the default run builds them
@@ -113,7 +116,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 4p. pipeline- ``pipeline_forward`` through create_mesh(fsdp=1) over the
               stack's 37 uniform single-stream blocks, 2 microbatches of
               (1, 4608, 3072): bit-equal to the stacked model's loop.
-4w. uint4   - FLUX.1-dev cut to 5 + 10 blocks (FLUX_CUT_DEPTH), quantized
+4w. uint4   - FLUX.1-dev cut to 4 + 8 blocks (FLUX_CUT_DEPTH), quantized
               to uint4 + SVD rank 32 (the
               published 4-bit recipe) on the weight-only route: 2 requests
               x 4 steps; B5, B6 and attention must launch.
@@ -123,7 +126,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               B6 and the requantize fallback (B1 + B4, for the 96- and
               120-group layers) must launch.
 4g. dynamic - SDNQ's dynamic per-layer format selection on FLUX.1-dev at
-              full width cut to 5 + 10 blocks, each 2-D weight redrawn
+              full width cut to 4 + 8 blocks, each 2-D weight redrawn
               with a tail
               from the cycle Gaussian, Student-t 5, 3, 2 (DYN_LAWS): R1
               QuantConfig(weights_dtype="int8", use_dynamic_quantization)
@@ -141,8 +144,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               per prefill and per decode step; B1, B2, B4 and the new B3
               modes (masked, GQA, int8 P.V, causal) must launch.  Then one
               uint4 g64 layer through ``qlinear`` at 32 rows: B8 launches.
-4e. train   - FLUX.1-dev training at full width, depth cut to 5 double +
-              10 single blocks (memory and the run's time),
+4e. train   - FLUX.1-dev training at full width, depth cut to 3 double +
+              6 single blocks (memory and the run's time),
               random bf16 weights quantized to int8 (quantized matmul) under
               the Flux skip keys, ``convert_model_to_training``, AdamW with
               8-bit moments, stochastic rounding and Kahan; batch 1 at
@@ -234,9 +237,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               slots over create_mesh(data=1), bit-equal to mesh=None; the
               TP x DP training step at virtual T = 2 on the 2 + 2-block
               training slice against the unsharded step (loss, gradients,
-              updated codes); phase 3 holds B1's given-scale mode and a 1
-              + 2-block cut at T = 2; phase 5 the cut at T = 2 against its
-              plain path.
+              updated codes); after them the training cases where the
+              port raised before (TP_TRAIN_CASES: uint8 in groups of 128
+              and int8 in groups of 128 at virtual T = 2, their
+              row-parallel weights re-quantized against their whole rows
+              by B1's given scale or range, the uint8 grad-input by W's
+              all-reduced ranges; the uint4 + SVD r32 recipe at T = 2; the
+              int8 slice's linears fsdp-sharded at virtual fsdp 2), each
+              against the unsharded step (loss, gradients), and the layer
+              check (``tp_layer_phase``: FLUX.1-dev's MLP, fc1 column and
+              fc2 row parallel, uint8 and int8 in groups of 128, at
+              virtual T = 2 against the same layers unsharded: output,
+              weight and input gradients, where the whole step's codes
+              move at ties); phase 3 holds
+              B1's given-scale mode and a 1 + 2-block cut at T = 2;
+              phase 5 the cut at T = 2 against its plain path.
+4l. long    - int8 contractions of 2^17 rows and more, where an int32 sum
+              may wrap (B4 and B10 split each tile into parts summed in
+              int64): a trainable int8
+              ``qlinear`` at FLUX.1-dev's linear1 width (3072 -> 21504)
+              with the quantized matmul, forward and backward over a
+              batch-32 step's 147,456 tokens (B1, B4 nt, B1 colscale + B4
+              nn, B10 long), its output and grad-input rows and its whole
+              grad-weight bit-equal to the plain versions on the card,
+              peak GiB; one Muon step with the quantized NS on a 152,064
+              x 3584 leaf (Qwen2.5-7B's embedding widths), bit-equal to
+              the plain NS, 5 long B4 Grams.  Phase 3 holds B10 over
+              147,456 tokens, B4 nt at that Gram and just under 2^17, B4 nn at a
+              152,064-row head's grad-input, bit-equal where lines of
+              extreme codes make sums past 2^31, beside
+              ``torch._int_mm``.
 4i. files   - model files, written into a temporary directory (free disk
               checked first; removed at the end) and read on the card:
               FLUX.1-dev at full width cut to 2 + 4 blocks (seeded bf16
@@ -303,7 +333,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               B2's minifloat decode flushing subnormals, B5 ignoring the
               second field plane, B6 dropping the minifloat sign and
               reading its minifloat table one entry off, B1 ignoring
-              a given row scale, B9
+              a given row scale, B4's long contraction adding its parts
+              in int32 or dropping its last part, B10's parts added in
+              int32, B9
               writing acc normalised, m in base-2 units, B3's base-2
               exponent in B9, l not rescaled in token mode, and the GEMM
               waiting on the wrong phase of its stages' barriers, starting
@@ -329,13 +361,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               Python faults (PY_FAULTS: Muon's quantized product
               quantizing b where bᵀ belongs, the qkv layout shifted by one
               head, the tiles casting fp16 x to bf16, the softmax scale
-              taken from the padded head dim) loaded in their modules'
-              place;
+              taken from the padded head dim, a row-parallel shard's
+              input and re-quantized weight rows and a column-parallel
+              shard's uint8 grad-input quantized by the shard's own
+              statistics) loaded in their modules' place;
               for each in turn phase 3's rows of the kernels built from
               the broken source and phase 5's slice of its path rerun.
               Phase 3 must fail for the broken kernel (the sharding
-              layout's fault: phase 5's TP slice); phase 5's readings
-              are printed beside their limits.
+              layout's fault: phase 5's TP slice; the shard statistics'
+              faults: phase 4t's layer check); phase 5's readings are
+              printed beside their limits.
 ``--b1-probes`` builds B1's and B4's sources, times B1's quantizer at
 phase 3's shapes and B4's nn layout at NN_SHAPES under every plan of
 ``scaled_mm.nn_plan`` (device ms), and exits: the readings that plan is
@@ -593,7 +628,8 @@ def device_ms(torch, fn, symbol, reps: int = 5, seen=None):
 # ---------------------------------------------------------------------------
 
 def kernel_phase(torch, dev, timed: bool = True, only=None, count=None,
-                 mbo_only: bool = False, nt_only: bool = False):
+                 mbo_only: bool = False, nt_only: bool = False,
+                 long_only: bool = False):
     """Each kernel against its plain version; with ``timed`` False only the
     comparison runs (the times are None).  ``only`` (a set of csrc source
     names) keeps the rows of the kernels built from those sources (the
@@ -602,7 +638,7 @@ def kernel_phase(torch, dev, timed: bool = True, only=None, count=None,
     UNet shapes and of phases 4m-4o's modes, those of that key
     (``t.fresh``).  ``mbo_only`` keeps phases 4m-4o's rows alone
     (``--phases-4m-4b-4o``), ``nt_only`` phases 4n and 4t's
-    (``--phases-4n-4t``)."""
+    (``--phases-4n-4t``), ``long_only`` phase 4l's (``--phases-4l-4t``)."""
     import torch.nn.functional as F
     from sdnq_tpu_torch.kernels import attention as ka
     from sdnq_tpu_torch.kernels import dequant_mm as kd
@@ -699,6 +735,9 @@ def kernel_phase(torch, dev, timed: bool = True, only=None, count=None,
         return rows
     if nt_only:
         nt_rows(torch, dev, g, t, record, runs)
+        return rows
+    if long_only:
+        long_rows(torch, dev, g, t, record)
         return rows
     m = 4608
     # B1, quantize half: fp32 rows into qkv / linear1 / fc1 (K 3072) and
@@ -969,6 +1008,8 @@ def kernel_phase(torch, dev, timed: bool = True, only=None, count=None,
         unet_attention_rows(torch, dev, g, t, record)
     # B10 and B1's nn / colscale modes at the training step's shapes
     train_kernel_rows(torch, dev, g, t, record)
+    # B4 nt / nn and B10 over int8 contractions of 2^17 rows and more
+    long_rows(torch, dev, g, t, record)
     # B2's grouped and row modes and B3's additive mask at the shapes of
     # the text-to-image pipeline
     pipeline_kernel_rows(torch, dev, g, t, record)
@@ -1420,6 +1461,17 @@ def bf16_pv_beside(torch, t, fn):
         torch, fn, KERNEL_SYMBOLS["flash_attention"]))
 
 
+def yardstick_ms(t, fn, what):
+    """Time a PyTorch yardstick the port never calls; where this PyTorch
+    build refuses the call, say so and record null."""
+    try:
+        fn()
+    except (RuntimeError, ValueError) as e:
+        log(f"library yardstick for {what} not timed: {e}"[:300])
+        return None
+    return t(fn)
+
+
 def train_kernel_rows(torch, dev, g, t, record):
     """Phase 3 rows of B10 (the grad-weight GEMM) and of B1's nn and
     colscale modes (the grad-input GEMM) at the shapes of the FLUX.1-dev
@@ -1427,14 +1479,7 @@ def train_kernel_rows(torch, dev, g, t, record):
     from sdnq_tpu_torch.kernels import scaled_mm as ks
 
     def library_or_none(fn, what):
-        """Time a PyTorch yardstick the port never calls; where this
-        PyTorch build refuses the call, say so and record null."""
-        try:
-            fn()
-        except (RuntimeError, ValueError) as e:
-            log(f"library yardstick for {what} not timed: {e}"[:300])
-            return None
-        return t(fn)
+        return yardstick_ms(t, fn, what)
 
     def padded(fn, what):
         """The yardstick with the transposed copies and the scales its
@@ -1595,16 +1640,17 @@ def train_kernel_rows(torch, dev, g, t, record):
 
 
 # B4 nn at the grad-input GEMMs of the FLUX.1-dev training step (batch 1,
-# 1024 image + 512 text tokens): (M, contraction, N, what, launches a step:
-# the 5 double blocks' image and text streams, the 10 single blocks).
-NN_SHAPES = ((1536, 21504, 3072, "single linear1", 10),
-             (1536, 3072, 15360, "single linear2", 10),
-             (1024, 9216, 3072, "img qkv", 5),
-             (1024, 12288, 3072, "img fc1", 5),
-             (1024, 3072, 12288, "img fc2", 5),
-             (512, 9216, 3072, "txt qkv", 5),
-             (1, 18432, 3072, "img_mod / txt_mod", 10),
-             (1, 9216, 3072, "single modulation", 10))
+# 1024 image + 512 text tokens): (M, contraction, N, what, launches a step
+# by (double, single) block: the double blocks' image and text streams,
+# the single blocks).
+NN_SHAPES = ((1536, 21504, 3072, "single linear1", (0, 1)),
+             (1536, 3072, 15360, "single linear2", (0, 1)),
+             (1024, 9216, 3072, "img qkv", (1, 0)),
+             (1024, 12288, 3072, "img fc1", (1, 0)),
+             (1024, 3072, 12288, "img fc2", (1, 0)),
+             (512, 9216, 3072, "txt qkv", (1, 0)),
+             (1, 18432, 3072, "img_mod / txt_mod", (2, 0)),
+             (1, 9216, 3072, "single modulation", (0, 1)))
 
 
 def nn_rows(torch, dev, g, t, record, library_or_none, padded, linear1_q):
@@ -1623,7 +1669,9 @@ def nn_rows(torch, dev, g, t, record, library_or_none, padded, linear1_q):
     src, rep = ("sdnq_tpu_torch/csrc/scaled_mm.cu",
                 "sdnq_tpu/kernels/scaled_mm.py:230")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for m, o, kk, what, per_step in NN_SHAPES:
+    for m, o, kk, what, per_block in NN_SHAPES:
+        per_step = (per_block[0] * TRAIN_DEPTH[0]
+                    + per_block[1] * TRAIN_DEPTH[1])
         if what == "single linear1" and linear1_q is not None:
             xq, xs = linear1_q
         else:
@@ -3292,8 +3340,10 @@ def b8_qlinear_check(torch, dev):
 # quantized matmul) and of the dynamic recipes R1 / R2, of 19 + 38: cut so
 # that the default run, which phases 4m-4o and their faults lengthened
 # by about 170 s, stays within its time (it read 833–1156 s at 10 + 19 as
-# the host varied); their kernels and shapes are the full model's.
-FLUX_CUT_DEPTH = (5, 10)
+# the host varied), then to 4 + 8 beside phases 4l and 4t's training cases
+# (about 40 s less, their 30 s); their kernels and shapes are the full
+# model's.
+FLUX_CUT_DEPTH = (4, 8)
 
 # Depth of the training model: AdamW training holds about 9 bytes per
 # quantized weight (int8 code 1, fp32 gradient 4, two 8-bit moments with
@@ -6102,11 +6152,18 @@ def muon_slice_phase(torch, dev, sliced) -> dict:
     return readings
 
 
-def tp_train_phase(torch, dev, sliced):
-    """Phase 4t's TP x DP step at virtual T = 2 on phase 5's 2 + 2-block
-    training slice (``local_train_step``: AdamW with 8-bit state and SR,
-    each rank's generator seeded alike), against the unsharded step: the
-    loss, every weight gradient, and the updated codes."""
+def tp_train_phase(torch, dev, sliced, label="int8", shape=None,
+                   rules=None, required=("scaled_mm_tn", "scaled_gemm:nn",
+                                         "quantize_rows:colscale",
+                                         "quantize_rows:given_scale",
+                                         "scaled_gemm"),
+                   codes: bool = True):
+    """Phase 4t's TP x DP step at virtual T = 2 (or the mesh ``shape``,
+    sharded by ``rules``) on phase 5's 2 + 2-block training slice
+    (``local_train_step``: AdamW with 8-bit state and SR, each rank's
+    generator seeded alike), against the unsharded step: the loss, every
+    weight gradient, and (``codes``) the updated codes; the kernels in
+    ``required`` must have launched."""
     from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
     from sdnq_tpu_torch.optim import adamw
     from sdnq_tpu_torch.parallel import DIT_TP_RULES, shard_params
@@ -6128,8 +6185,9 @@ def tp_train_phase(torch, dev, sliced):
     ref_grads = tree_leaves(extract_weight_grads(ref))
     opt.update(None, st, ref,
                generator=torch.Generator(device=dev).manual_seed(51))
-    shape = {"tensor": 2}
-    trees = run_virtual(lambda m: shard_params(params, m, DIT_TP_RULES),
+    shape = shape or {"tensor": 2}
+    trees = run_virtual(lambda m: shard_params(params, m,
+                                               rules or DIT_TP_RULES),
                         shape, "cuda")
     states = [opt.init(params) for _ in trees]
     gens = [torch.Generator(device=dev).manual_seed(51) for _ in trees]
@@ -6154,17 +6212,17 @@ def tp_train_phase(torch, dev, sliced):
     total = sum(a.numel() for a in want_c)
     readings = {"loss": abs(tp_loss.item() - loss.item()) / abs(loss.item()),
                 "grad": g_err, "codes": diff / total}
-    log("tp step: TP x DP at virtual T = 2 on the 2 + 2-block training "
+    log(f"tp step {label}: virtual {shape} on the 2 + 2-block training "
         "slice against the unsharded step: " + json.dumps({
             **readings, "seconds": secs,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "launches": {k: v for k, v in counts.items() if v}}))
-    for key in ("loss", "grad", "codes"):
+    for key in ("loss", "grad", "codes") if codes else ("loss", "grad"):
         check(readings[key] <= NT_TOL[f"tp_step_{key}"],
-              f"tp step: {key} {readings[key]:.3e} <= "
+              f"tp step {label}: {key} {readings[key]:.3e} <= "
               f"{NT_TOL[f'tp_step_{key}']:.1e}")
-    for name in ("scaled_mm_tn", "scaled_gemm:nn", "quantize_rows:colscale",
-                 "quantize_rows:given_scale", "scaled_gemm"):
-        check(counts[name] > 0, f"tp step launched {name}")
+    for name in required:
+        check(counts[name] > 0, f"tp step {label} launched {name}")
     return readings
 
 
@@ -6203,6 +6261,419 @@ def nt_phases(torch, dev, mark):
     del qparams
     torch.cuda.empty_cache()
     mark("phase 4t (EP, batcher)")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4l: int8 contractions of 2^17 rows and more; phase 4t's training
+# cases where the port raised before
+# ---------------------------------------------------------------------------
+
+# FLUX.1-dev's linear1 (3072 -> 21504) over a training step at batch 32 and
+# 1024x1024 (32 x 4608 = 147,456 tokens): its grad-weight contracts past
+# 2^17 tokens
+LONG_TOKENS = 32 * 4608
+LONG_LINEAR = (3072, 21504)
+# a Muon leaf at Qwen2.5-7B's embedding widths (``Qwen/Qwen2.5-7B``
+# config.json: vocab_size 152064, hidden_size 3584; off the repository's
+# models), whose NS Gram contracts 152,064 rows; and a vocabulary head of
+# that size's grad-input over 4096 tokens (4096 x K 152064 -> 3584)
+LONG_LEAF = (152064, 3584)
+LONG_HEAD_TOKENS = 4096
+# the sources phases 4l and 4t's training cases run (``--phases-4l-4t``)
+LONG_SOURCES = NT_SOURCES + ("blockdiag_mm", "blockdiag_i8_mm")
+# phase 4t's training cases on the 2 + 2-block slice: (label, recipe (None:
+# phase 4e's int8 model's slice), mesh shape, rules, required launches).
+# uint8 in groups of 128 with the quantized matmul: the column-parallel
+# grad-input quantizes W's columns by their all-reduced ranges, the
+# row-parallel layers their input rows and re-quantized weight rows
+# (B1's given range); int8 in groups of 128: the row-parallel weight
+# re-quantized against its whole rows' scale (B1's given scale); the
+# uint4 + SVD r32 recipe (converted to training without its SVD, as in
+# both packages; its packed row-parallel layers are replicated, a packed
+# row spanning the whole input); the int8 model's linears fsdp-sharded.
+TP_TRAIN_CASES = (
+    ("uint8_g128", dict(weights_dtype="uint8", group_size=128,
+                        use_quantized_matmul=True), {"tensor": 2}, "tp",
+     ("scaled_mm_tn", "scaled_gemm:nn", "quantize_rows:given_scale")),
+    ("int8_g128", dict(weights_dtype="int8", group_size=128,
+                       use_quantized_matmul=True), {"tensor": 2}, "tp",
+     ("scaled_mm_tn", "scaled_gemm:nn", "quantize_rows:given_scale")),
+    ("uint4_svd_r32", dict(weights_dtype="uint4", use_svd=True, svd_rank=32,
+                           use_quantized_matmul=True), {"tensor": 2}, "tp",
+     ("scaled_mm_tn", "scaled_gemm:nn")),
+    ("fsdp", None, {"fsdp": 2}, "fsdp",
+     ("scaled_mm_tn", "scaled_gemm:nn", "quantize_rows:colscale",
+      "scaled_gemm")),
+)
+
+
+def _long_codes(torch, shape, g, dev, lines, dim):
+    """Random int8 codes with ``lines`` (index, code) of rows (dim 0) or
+    columns (dim 1) set to one extreme code, so that sums along them pass
+    2^31, which an int32 sum would wrap."""
+    x = torch.randint(-128, 128, shape, device=dev, generator=g,
+                      dtype=torch.int8)
+    for i, c in lines:
+        x.select(dim, i).fill_(c)
+    return x
+
+
+def long_rows(torch, dev, g, t, record):
+    """Phase 3's rows of phase 4l, each bit-equal to its plain version
+    (limit 0) where lines of -128 and 127 make sums past 2^31: B10 at
+    linear1's grad-weight over LONG_TOKENS in parts; B4 nt at the NS Gram of a
+    LONG_LEAF leaf, B4 nn at its vocabulary head's grad-input (off the
+    paths), and B4 nt just under 2^17, the plan unchanged (off the
+    paths); each beside ``torch._int_mm`` on operands laid out for it."""
+    from sdnq_tpu_torch.kernels import scaled_mm as ks
+    runs = t.runs
+    src, rep = ("sdnq_tpu_torch/csrc/scaled_mm.cu",
+                "sdnq_tpu/kernels/scaled_mm.py:57")
+    # in the fault phase, for the faults of the long modes' keys alone
+    if runs("scaled_mm_tn") and t.fresh("scaled_mm_tn:parts"):
+        m, (k, n) = LONG_TOKENS, LONG_LINEAR   # out (N, K) = (21504, 3072)
+        a = _long_codes(torch, (m, n), g, dev, ((0, -128), (1, 127)), 1)
+        b = _long_codes(torch, (m, k), g, dev, ((0, -128), (1, -128)), 1)
+        a_s = torch.rand(n, device=dev, generator=g) * 1e-5 + 1e-7
+        b_s = torch.rand(k, device=dev, generator=g) * 1e-3 + 1e-5
+        raw = ks.scaled_mm_tn_plain(a[:, :2], b[:, :2])
+        check(float(raw.abs().max()) > 2 ** 31, "long B10 row: sums past "
+              f"2^31 ({float(raw.abs().max()):.4g})")
+        want = ks.scaled_mm_tn_plain(a, b, a_s, b_s)
+        err = float((ks.scaled_mm_tn(a, b, a_s, b_s) - want).abs().max())
+        del want
+        at, bt = a.t().contiguous(), b.t().contiguous().t()
+
+        def library():
+            return torch._int_mm(at, bt)
+        lib_ms = yardstick_ms(t, library, "scaled_mm_tn long")
+        record("scaled_mm_tn", "cuda", "sdnq_tpu_torch/csrc/scaled_mm_tn.cu",
+               "sdnq_tpu/kernels/scaled_mm.py:534", err, 0.0,
+               lambda: ks.scaled_mm_tn(a, b, a_s, b_s),
+               t.once(lambda: ks.scaled_mm_tn_plain(a, b, a_s, b_s)),
+               bound_ms(m * n + m * k + 4 * n * k + 4 * (n + k),
+                        2 * m * n * k, "int8"),
+               lib_ms, f"M{m} N{n} K{k} int8, sums past 2^31 (linear1 "
+               f"grad-weight at batch 32, {ks.long_parts(m)} parts)",
+               path="long", count="scaled_mm_tn:parts",
+               library_fn=library if lib_ms else None)
+        del a, b, at, bt
+        torch.cuda.empty_cache()
+    if not (runs("scaled_mm") and t.fresh("scaled_gemm:long")):
+        return
+    vocab, hidden = LONG_LEAF
+    for kk, on_path in ((vocab, True), ((1 << 17) - 128, False)):
+        a = _long_codes(torch, (hidden, kk), g, dev,
+                        ((0, -128), (1, 127)), 0)
+        xs = torch.rand(hidden, 1, device=dev, generator=g) * 1e-6 + 1e-8
+        ws = torch.rand(hidden, 1, device=dev, generator=g) * 1e-6 + 1e-8
+        got = ks.scaled_mm(a, a, xs, ws, out_dtype=torch.float32)
+        want = ks.scaled_gemm_plain(a, a, torch.float32, xs, ws)
+        err = float((got - want).abs().max())
+        del got, want
+        parts = ks.long_parts(kk)
+        record("scaled_gemm", "cuda", src, rep, err, 0.0,
+               lambda a=a, xs=xs, ws=ws: ks.scaled_mm(
+                   a, a, xs, ws, out_dtype=torch.float32),
+               t.once(lambda: ks.scaled_gemm_plain(a, a, torch.float32, xs,
+                                                   ws)),
+               _ns_bound([(hidden, hidden, kk)]),
+               t(lambda a=a: torch._int_mm(a, a.t())),
+               f"M{hidden} N{hidden} K{kk} int8 fp32 out, Muon NS Gram "
+               f"({parts} part{'s' if parts > 1 else ''} a tile)",
+               on_path=on_path, path="muon_long",
+               count="scaled_gemm:long" if on_path else "scaled_gemm")
+        del a
+    m = LONG_HEAD_TOKENS
+    a = _long_codes(torch, (m, vocab), g, dev, ((0, -128), (1, 127)), 0)
+    b = _long_codes(torch, (vocab, hidden), g, dev, ((0, -128), (1, -128)),
+                    1)
+    xs = torch.rand(m, 1, device=dev, generator=g) * 1e-6 + 1e-8
+    got = ks.scaled_gemm(a, b, torch.float32, xs, b_layout="nn")
+    want = ks.scaled_gemm_plain(a, b, torch.float32, xs, b_layout="nn")
+    err = float((got - want).abs().max())
+    del got, want
+    b_cm = b.t().contiguous().t()
+
+    def library():
+        return torch._int_mm(a, b_cm)
+    lib_ms = yardstick_ms(t, library, "scaled_gemm nn long")
+    nb, whole, splits = ks.nn_plan(m, hidden, vocab, torch.int8,
+                                   ks._sm_count(a.device))
+    record("scaled_gemm", "cuda", src, rep, err, 0.0,
+           lambda: ks.scaled_gemm(a, b, torch.float32, xs, b_layout="nn"),
+           t.once(lambda: ks.scaled_gemm_plain(a, b, torch.float32, xs,
+                                               b_layout="nn")),
+           bound_ms(m * vocab + vocab * hidden + 4 * m * hidden + 4 * m,
+                    2 * m * vocab * hidden, "int8"),
+           lib_ms, f"M{m} K{vocab} N{hidden} int8 nn (a vocabulary head's "
+           "grad-input)", on_path=False, count="scaled_gemm:nn",
+           library_fn=library if lib_ms else None,
+           plan=f"128 x {128 * nb} tiles, {whole} whole, every tile split "
+           f"{splits} ways")
+    del a, b, b_cm
+    torch.cuda.empty_cache()
+
+
+def long_qlinear_path(torch, dev):
+    """Phase 4l: a trainable int8 ``qlinear`` at FLUX.1-dev's linear1
+    width with the quantized matmul (``train_qlinear``), forward and
+    backward over LONG_TOKENS tokens (B1, B4 nt, B1 colscale + B4 nn, B10
+    in parts); the output and the input gradient of the first 4608 rows (each row its own quantization) and the whole weight
+    gradient held against the plain versions on the card, bit-equal.
+    Returns the launch counts."""
+    from sdnq_tpu_torch import quantize_tensor
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.kernels import scaled_mm as ks
+    from sdnq_tpu_torch.layers import qlinear
+    from sdnq_tpu_torch.train import matmul as tm
+    g = torch.Generator(device=dev).manual_seed(60)
+    k, n = LONG_LINEAR
+    qt = quantize_tensor(torch.randn(n, k, device=dev, generator=g) * 0.02,
+                         "int8", use_quantized_matmul=True)
+    w = tm.TrainQTensor(qt=qt, delta=tm.grad_carrier((n, k), dev))
+    x = torch.randn(LONG_TOKENS, k, device=dev,
+                    generator=g).bfloat16().requires_grad_()
+    gy = torch.randn(LONG_TOKENS, n, device=dev, generator=g).bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    y = tm.train_qlinear(x, w)
+    ev[1].record()
+    y.backward(gy)
+    ev[2].record()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    rec = dict(tokens=LONG_TOKENS, width=list(LONG_LINEAR),
+               forward_ms=ev[0].elapsed_time(ev[1]),
+               backward_ms=ev[1].elapsed_time(ev[2]),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches={key: v for key, v in counts.items() if v})
+    rows = slice(0, 4608)
+    y_head = y[rows].clone()
+    del y
+    gx, gw = x.grad, w.delta.grad
+    with plain_versions():
+        ok_y = torch.equal(qlinear(x[rows].detach(), qt), y_head)
+        ok_x = torch.equal(tm._grad_input(gy[rows], qt, torch.bfloat16)
+                           .to(torch.bfloat16), gx[rows])
+        want = ks.dynamic_mm_tn(gy, x.detach(), "int8")
+        ok_w = torch.equal(want.reshape(gw.shape), gw)
+    rec.update(output_equal=ok_y, grad_input_equal=ok_x,
+               grad_weight_equal=ok_w,
+               finite=bool(torch.isfinite(gw).all() and
+                           torch.isfinite(gx).all()))
+    log("long qlinear: " + json.dumps(rec))
+    check(ok_y and ok_x and ok_w and rec["finite"],
+          "long qlinear: output, grad-input and grad-weight bit-equal to "
+          "the plain versions on the card, finite")
+    for key in ("scaled_mm_tn:parts", "scaled_gemm:nt",
+                "scaled_gemm:nn", "quantize_rows:colscale"):
+        check(counts[key] > 0, f"long qlinear launched {key}")
+    del x, gy, gx, gw, want, w, qt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def long_muon_path(torch, dev):
+    """Phase 4n at a long side: one Muon step (``use_quantized_matmul_ns``,
+    fp32 state) on a LONG_LEAF leaf, its NS worked on as 3584 x 152064, so
+    that each of its 5 steps' Gram contracts 152,064 rows on B4 in parts;
+    held bit-equal to the same step through the plain versions on the
+    card.  Returns the launch counts."""
+    import importlib
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    tm = importlib.import_module("sdnq_tpu_torch.optim.muon")
+    g = torch.Generator(device=dev).manual_seed(61)
+    w0 = torch.randn(*LONG_LEAF, device=dev, generator=g) * 0.02
+    grad = torch.randn(*LONG_LEAF, device=dev, generator=g) * 1e-3
+
+    def step():
+        p = {"embed": w0.clone().requires_grad_()}
+        p["embed"].grad = grad
+        opt = tm.muon(lr=MUON_LR, use_quantized_matmul_ns=True)
+        opt.update(None, opt.init(p), p)
+        return p["embed"].detach()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    with plain_versions():
+        want = step()
+    rec = dict(leaf=list(LONG_LEAF), seconds=secs,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               b4_launches=counts["scaled_gemm"],
+               b4_long_launches=counts["scaled_gemm:long"],
+               moved=float((got - w0).abs().max()),
+               equal=torch.equal(got, want))
+    log("long muon: " + json.dumps(rec))
+    check(rec["equal"] and rec["moved"] > 0, "long muon: the step moved "
+          "the leaf, bit-equal to the plain NS on the card")
+    check(counts["scaled_gemm:long"] == 5, "long muon: one long B4 Gram "
+          f"each NS step ({counts['scaled_gemm:long']} of 5)")
+    del w0, grad, got, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+def build_train_slice(torch, dev, qconfig: dict):
+    """The 2 + 2-block FLUX.1-dev slice at full width, bf16 weights from a
+    seeded generator quantized by ``qconfig``, converted to training, and
+    its config."""
+    from sdnq_tpu_torch import QuantConfig, quantize_model
+    from sdnq_tpu_torch.models.dit import init_dit
+    from sdnq_tpu_torch.train import convert_model_to_training
+    cfg = train_config((2, 2))
+    params = init_dit(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(62))
+    qparams, _ = quantize_model(params, QuantConfig(**qconfig),
+                                arch="FluxTransformer2DModel", device=dev)
+    del params
+    return convert_model_to_training(qparams), cfg
+
+
+def tp_train_cases(torch, dev, int8_slice):
+    """Phase 4t's training cases (TP_TRAIN_CASES), each against the
+    unsharded step at the TP x DP step's limits of loss and gradients;
+    returns their readings."""
+    from sdnq_tpu_torch.parallel import DIT_TP_RULES
+    out = {}
+    for label, qc, shape, kind, required in TP_TRAIN_CASES:
+        sliced = int8_slice if qc is None else build_train_slice(
+            torch, dev, qc)
+        rules = (DIT_TP_RULES if kind == "tp"
+                 else {key: "fsdp" for key in DIT_TP_RULES})
+        torch.cuda.reset_peak_memory_stats()
+        out[label] = tp_train_phase(torch, dev, sliced, label, shape, rules,
+                                    required, codes=False)
+        del sliced
+        torch.cuda.empty_cache()
+    return out
+
+
+# Phase 4t's layer check: FLUX.1-dev's MLP widths (fc1 3072 -> 12288
+# column parallel, fc2 12288 -> 3072 row parallel) over one 1024x1024
+# image's 4608 tokens, bf16 activations, at virtual T = 2, in each recipe
+TP_LAYER_SHAPE = (4608, 3072, 12288)
+TP_LAYER_RECIPES = {"uint8_g128": dict(fmt="uint8", group_size=128),
+                    "int8_g128": dict(fmt="int8", group_size=128)}
+# Its limits, each reading of a recipe (the output z, the weight gradients
+# gw, the input gradient gx; the largest error over the largest value, and
+# the error's norm over the norm), about twice the readings (H100, 700 W):
+# uint8 z 3.4e-3 and 1.1e-4, gw 1.5e-7, gx 6.9e-3 and 2.8e-3 (the
+# unsharded layer rounds its product to bf16 before it adds the zero
+# points' rank-1 term, the shards' fp32 sum once); int8 z 1.7e-3 and
+# 1.3e-5, gw 1.5e-7, gx 1.7e-3 and 1.2e-5 (bf16 roundings of fp32 sums in
+# another order).  A shard quantized by its own statistics reads about
+# 1e-2 in the norm.
+TP_LAYER_TOL = {
+    **{f"uint8_g128_{k}": v for k, v in (
+        ("z_max", 7e-3), ("z_rms", 2.5e-4), ("gw_max", 4e-7),
+        ("gx_max", 1.4e-2), ("gx_rms", 6e-3))},
+    **{f"int8_g128_{k}": v for k, v in (
+        ("z_max", 4e-3), ("z_rms", 3e-5), ("gw_max", 4e-7),
+        ("gx_max", 4e-3), ("gx_rms", 3e-5))}}
+
+
+def _tp_mlp(torch, p, x):
+    from sdnq_tpu_torch.models.dit import _lin
+    return _lin(p["fc2"], torch.nn.functional.gelu(_lin(p["fc1"], x),
+                                                   approximate="tanh"))
+
+
+def tp_layer_phase(torch, dev):
+    """Phase 4t's layer check: a trainable MLP (TP_LAYER_SHAPE; fc1 column
+    parallel, fc2 row parallel, the quantized matmul) forward and backward
+    at virtual T = 2 against the same layers unsharded, on the same inputs
+    and cotangent: each shard's activation rows and re-quantized weight
+    rows (fc2) and its uint8 / int8 grad-input operands (fc1) quantized by
+    the whole rows' and columns' statistics, so that the output, the
+    weight gradients and the input gradient equal the unsharded layers'
+    but for fp32 sums in another order (one bf16 rounding at most).
+    Where the whole step moves quantization codes at ties, this holds each
+    sharded statistic at one layer.  Returns the readings (TP_LAYER_TOL's
+    keys)."""
+    from sdnq_tpu_torch import quantize_tensor
+    from sdnq_tpu_torch.parallel import shard_params
+    from sdnq_tpu_torch.parallel._collectives import run_virtual
+    from sdnq_tpu_torch.parallel.dryrun import whole_grads
+    from sdnq_tpu_torch.parallel.tp import local_tree
+    from sdnq_tpu_torch.train import (
+        convert_model_to_training, extract_weight_grads,
+    )
+    from sdnq_tpu_torch.tree import tree_leaves
+    m, d, h = TP_LAYER_SHAPE
+    rules, shape = {"fc1": "col", "fc2": "row"}, {"tensor": 2}
+
+    def rd(a, b):
+        a, b = a.float(), b.float()
+        return (float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)),
+                float((a - b).norm() / b.norm().clamp_min(1e-30)))
+    out = {}
+    for name, kw in TP_LAYER_RECIPES.items():
+        kw = dict(kw)
+        fmt = kw.pop("fmt")
+        g = torch.Generator(device=dev).manual_seed(62)
+        tree = {k: {"weight": quantize_tensor(
+            torch.randn(o, i, device=dev, generator=g) * 0.02, fmt,
+            use_quantized_matmul=True, **kw),
+            "bias": torch.randn(o, device=dev, generator=g) * 0.01}
+            for k, (o, i) in (("fc1", (h, d)), ("fc2", (d, h)))}
+        x = torch.randn(m, d, device=dev, generator=g).bfloat16()
+        gz = torch.randn(m, d, device=dev, generator=g)
+        t = convert_model_to_training(tree)
+        xx = x.clone().requires_grad_()
+        z0 = _tp_mlp(torch, t, xx)
+        (z0.float() * gz).sum().backward()
+        g0 = [v for v in tree_leaves(extract_weight_grads(t))
+              if v is not None]
+        t = convert_model_to_training(tree)
+        shs = run_virtual(lambda mesh: shard_params(t, mesh, rules), shape,
+                          dev.type)
+        xs = [x.clone().requires_grad_() for _ in shs]
+        zs = run_virtual(lambda mesh: _tp_mlp(
+            torch, local_tree(shs[mesh.index]), xs[mesh.index]), shape,
+            dev.type)
+        torch.stack([(z.float() * gz).sum() for z in zs]).sum().backward()
+        with torch.no_grad():
+            g1 = [v for v in run_virtual(lambda mesh: whole_grads(
+                shs[mesh.index]), shape, dev.type)[0] if v is not None]
+        check(len(g1) == len(g0) == 4, f"tp layers {name}: 4 gradients")
+        zr, xr = rd(zs[0], z0), rd(xs[0].grad, xx.grad)
+        out.update({f"{name}_z_max": zr[0], f"{name}_z_rms": zr[1],
+                    f"{name}_gw_max": max(rd(a, b)[0]
+                                          for a, b in zip(g1, g0)),
+                    f"{name}_gx_max": xr[0], f"{name}_gx_rms": xr[1]})
+        del tree, t, shs, xs, zs, z0, xx, g0, g1
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log("tp layers: virtual T 2 against the unsharded layers: "
+        + json.dumps(out))
+    for key, lim in TP_LAYER_TOL.items():
+        check(out[key] <= lim, f"tp layers: {key} {out[key]:.3e} <= "
+              f"{lim:.1e}")
+    return out
+
+
+def long_phases(torch, dev, mark):
+    """``--phases-4l-4t``: phase 4l (the long qlinear, the long Muon step)
+    and phase 4t's training cases on an int8 2 + 2-block slice built
+    here; returns the counts by path label."""
+    counts = {"long": long_qlinear_path(torch, dev),
+              "muon_long": long_muon_path(torch, dev)}
+    mark("phase 4l")
+    int8_slice = build_train_slice(torch, dev, dict(
+        weights_dtype="int8", use_quantized_matmul=True))
+    tp_train_cases(torch, dev, int8_slice)
+    tp_layer_phase(torch, dev)
+    mark("phase 4t's training cases")
     return counts
 
 
@@ -6303,6 +6774,17 @@ FAULTS = (
        "w.kb1 = w.split == p.splits - 1 && p.splits > 1 ? w.kb0 : ((w.split + 1) * p.nk) / p.splits;")]),
     ("nn_split_keeps_its_counters", "scaled_mm", "scaled_gemm:nn", "train",
      [("        if (*last) counters[w.part] = 0;", "")]),
+    ("b4_long_sum_in_int32", "scaled_mm", "scaled_gemm:long", "muon",
+     [("hopper.cuh", "long long s0 = acc[i], s1 = acc[i + 1];",
+       "int s0 = acc[i], s1 = acc[i + 1];")]),
+    ("b4_long_drops_the_last_part", "scaled_mm", "scaled_gemm:long", "muon",
+     [("hopper.cuh",
+       "return make_int2((part * nk) / parts, ((part + 1) * nk) / parts);",
+       "return make_int2((part * nk) / parts, parts > 1 && part == parts - 1"
+       " ? (part * nk) / parts : ((part + 1) * nk) / parts);")]),
+    ("tn_long_sum_in_int32", "scaled_mm_tn", "scaled_mm_tn:parts", "train",
+     [("hopper.cuh", "long long s0 = acc[i], s1 = acc[i + 1];",
+       "int s0 = acc[i], s1 = acc[i + 1];")]),
     ("nn_drops_the_m_tail", "scaled_mm", "scaled_gemm:nn", "train",
      [("tensor_map(&ta, a, M, K, lda, BM, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 128)",
        "tensor_map(&ta, a, M > BM ? M - M % BM : M, K, lda, BM, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 128)")]),
@@ -6455,6 +6937,12 @@ PY_FAULTS = (
      ("flash_attn",), "flash_attention:padded", "llm100_int8kv",
      [("        scale = d ** -0.5",
        "        scale = kernel_head_dim(d) ** -0.5")]),
+    ("tp_row_stats_by_shard", "parallel/tp.py", (), None, "tp_layers",
+     [("c.amax if n > 1 else None", "(lambda v: v) if n > 1 else None")]),
+    ("tp_grad_input_stats_by_shard", "parallel/tp.py", (), None,
+     "tp_layers",
+     [("train_backward(k, g, needs[3 * r:3 * r + 3], stats,",
+       "train_backward(k, g, needs[3 * r:3 * r + 3], per[r],")]),
 )
 
 
@@ -6618,6 +7106,7 @@ def fault_phase(torch, dev, slices, procs):
                       "heads": NT_TOL["tp_heads"]},
                "muon": {"loss": NT_TOL["muon_slice_loss"],
                         "codes": NT_TOL["muon_slice_codes"]},
+               "tp_layers": TP_LAYER_TOL,
                "sd15_fp16": {"max": MBO_TOL["sd15_fp16"]}}
     for tag, (proc, _) in procs.items():
         if proc.wait() != 0:
@@ -6786,11 +7275,13 @@ def main() -> int:
         unet_only = "--phase-4u" in sys.argv[1:]
         mbo_only = "--phases-4m-4b-4o" in sys.argv[1:]
         nt_only = "--phases-4n-4t" in sys.argv[1:]
+        long_only = "--phases-4l-4t" in sys.argv[1:]
         secs = _build.build(("quantize_rows", "scaled_mm") if b1_only
                             else IO_SOURCES if io_only
                             else UNET_SOURCES if unet_only
                             else MBO_SOURCES if mbo_only
                             else NT_SOURCES if nt_only
+                            else LONG_SOURCES if long_only
                             else _build.SOURCES)
         log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
             + json.dumps({k: round(v, 1) for k, v in secs.items()}))
@@ -6811,10 +7302,12 @@ def main() -> int:
                 row["launches"] = (counts[row["path"]][row["count"]]
                                    if row["on_main_path"] else 0)
             return finish(torch, rows, t_start)
-        if nt_only:
-            rows = kernel_phase(torch, dev, nt_only=True)
-            mark("phase 3 (phases 4n and 4t's rows)")
-            counts = nt_phases(torch, dev, mark)
+        if nt_only or long_only:
+            rows = kernel_phase(torch, dev, nt_only=nt_only,
+                                long_only=long_only)
+            mark("phase 3 (the phases' rows)")
+            counts = (nt_phases if nt_only else long_phases)(torch, dev,
+                                                             mark)
             for row in rows:
                 row["launches"] = (counts[row["path"]][row["count"]]
                                    if row["on_main_path"] else 0)
@@ -6940,6 +7433,9 @@ def main() -> int:
         muon_slice_phase(torch, dev, train_cut)
         tp_train_phase(torch, dev, train_cut)
         mark("phase 4n, the TP x DP step")
+        counts["long"] = long_qlinear_path(torch, dev)
+        counts["muon_long"] = long_muon_path(torch, dev)
+        mark("phase 4l")
 
         mark("phase 4e")
         resident = torch.cuda.memory_allocated()
@@ -6971,6 +7467,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         tp_slice_phase(torch, dev, slices["int8"])
         mark("phase 4t's forwards")
+        tp_train_cases(torch, dev, train_cut)
+        tp_layer_phase(torch, dev)
+        mark("phase 4t's training cases")
 
         for row in rows:
             row["launches"] = (counts[row["path"]][row["count"]]
@@ -6992,6 +7491,7 @@ def main() -> int:
         checks["train"] = lambda: train_slice_phase(torch, dev, train_cut)
         checks["muon"] = lambda: muon_slice_phase(torch, dev, train_cut)
         checks["tp"] = lambda: tp_slice_phase(torch, dev, slices["int8"])
+        checks["tp_layers"] = lambda: tp_layer_phase(torch, dev)
         checks["ring"] = lambda: ring_slice_phase(torch, dev)
         checks["pipeline"] = lambda: pipeline_slice_phase(torch, dev,
                                                           pipe_cut)

@@ -565,19 +565,38 @@ __device__ __forceinline__ void wgmma_rs_s8_64(int (&d)[32], const unsigned (&a)
 // Output tiles of GEMM_BM rows; a stage row is 128 bytes of K.
 constexpr int GEMM_BM = 128;
 
+// ---- int8 contractions of 2^17 rows or more (csrc/scaled_mm.cu, scaled_mm_tn.cu) ----
+// A sum of products of 8-bit codes (|a b| <= 2^14) is exact in int32 below
+// 2^17 rows.  A longer one splits each output tile's stages into `parts`
+// runs of fewer than 2^17 rows (the wrapper's `long_parts`): unit u is part
+// u / tiles of tile u % tiles, so that every tile's part 0 comes first and
+// the blocks at work at once walk the operands as an unsplit call does.
+// Each part writes its int32 sum to its slab (`slab_store`) and counts
+// itself in at its tile's counter (`last_part`); the tile's last part adds
+// the others' slabs to its own sum in int64 and rounds the total once to
+// fp32 (`wide_total`) before the epilogue.
+constexpr int LONG_K = 1 << 17;            // contractions from here on take parts
+constexpr int LONG_PART_STAGES = 1023;     // of 128 rows: 130,944 < 2^17 rows a part
+__device__ __forceinline__ int2 part_stages(int part, int parts, int nk) {
+  return make_int2((part * nk) / parts, ((part + 1) * nk) / parts);  // stages [x, y)
+}
+
 // The producer's loop: one thread issues each stage's two TMA loads
 // (GEMM_BM rows of x and BN of w, BKE elements of K) into a ring of ST
-// stages, the tiles walked as the consumers walk them (tile b, b +
-// gridDim.x, .., the M tile fastest).  It waits for a stage's last load
-// before re-arming it, and for every load before it returns.
+// stages, the units walked as the consumers walk them (unit b, b +
+// gridDim.x, .., the M tile fastest; a unit is a tile's `part_stages`).  It
+// waits for a stage's last load before re-arming it, and for every load
+// before it returns.
 template <int ST, int STAGE_BYTES, int A_BYTES, int BKE, int BN>
 __device__ __forceinline__ void produce(const CUtensorMap* tx, const CUtensorMap* tw,
                                         uint8_t* smem, uint64_t* full, uint64_t* empty, int mt,
-                                        int tiles, int nk) {
+                                        int tiles, int nk, int parts = 1) {
   int it = 0;  // stages filled so far: stage it % ST, round it / ST
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int u = blockIdx.x; u < tiles * parts; u += gridDim.x) {
+    const int tile = u % tiles;
     const int m0 = (tile % mt) * GEMM_BM, n0 = (tile / mt) * BN;
-    for (int kb = 0; kb < nk; ++kb, ++it) {
+    const int2 kr = part_stages(u / tiles, parts, nk);
+    for (int kb = kr.x; kb < kr.y; ++kb, ++it) {
       const int s = it % ST;
       mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);  // the first round passes at once
       // and the stage's last load has landed (implied by the consumers'
@@ -598,17 +617,19 @@ __device__ __forceinline__ void produce(const CUtensorMap* tx, const CUtensorMap
 // is one TMA box of `tok` contraction rows x 128 columns of A at column n0
 // and NB such boxes of B at columns k0, k0 + 128, .. (boxes BOX bytes
 // apart, A's first), both read in their natural row-major layout; `at`
-// maps a tile to its (n0, k0).  The boxes of a ragged tail are zero-filled
-// by TMA and still count their whole size.
+// maps a tile to its (n0, k0), and units are tiles' `part_stages` as in
+// `produce`.  The boxes of a ragged tail are zero-filled by TMA and still
+// count their whole size.
 template <int ST, int STAGE_BYTES, int BOX, int NB, typename TileAt>
 __device__ __forceinline__ void produce_tn(const CUtensorMap* ta, const CUtensorMap* tb,
                                            uint8_t* smem, uint64_t* full, uint64_t* empty,
-                                           int tiles, int nk, int tok, TileAt at) {
+                                           int tiles, int nk, int tok, TileAt at, int parts = 1) {
   const unsigned tx = static_cast<unsigned>(tok) * 128u * (1 + NB);
   int it = 0;  // stages filled so far
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int2 nk0 = at(tile);
-    for (int kb = 0; kb < nk; ++kb, ++it) {
+  for (int u = blockIdx.x; u < tiles * parts; u += gridDim.x) {
+    const int2 nk0 = at(u % tiles);
+    const int2 kr = part_stages(u / tiles, parts, nk);
+    for (int kb = kr.x; kb < kr.y; ++kb, ++it) {
       const int s = it % ST;
       mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
       if (it >= ST) mbar_wait(&full[s], ((it / ST) & 1) ^ 1);
@@ -764,6 +785,83 @@ __device__ __forceinline__ void store_tile(const AccT (&acc)[NB * 64], OutT* __r
           orow[cc] = sdnq::from_f32<OutT>(v[0]);
           if (cc + 1 < ncols) orow[cc + 1] = sdnq::from_f32<OutT>(v[1]);
         }
+      }
+  }
+}
+
+// ---- a long contraction's parts (see `part_stages`) --------------------------
+// The two consumer warpgroups (256 threads) meet; the producer's warp does
+// not take part.
+__device__ __forceinline__ void gemm_consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// A split tile's slab: its 128 x 128 NB sums row by row.  A consumer
+// thread's share (wgmma's layout, as store_tile reads it): local rows rl,
+// rl + 8, columns 128 h + 8 j + cq + {0, 1}, two to a store; only the
+// tile's rows below its last (`rows`) are written and read, the columns
+// past the output as they are.
+template <int NB, typename AccT>
+__device__ __forceinline__ void slab_store(const AccT (&acc)[NB * 64], AccT* slab, int rl, int cq,
+                                           int rows) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (rl + 8 * hr >= rows) continue;
+#pragma unroll
+    for (int h = 0; h < NB; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int i = 64 * h + 4 * j + 2 * hr;
+        AccT* p = slab + (rl + 8 * hr) * (128 * NB) + 128 * h + 8 * j + cq;
+        if constexpr (std::is_same<AccT, int>::value)
+          *reinterpret_cast<int2*>(p) = make_int2(acc[i], acc[i + 1]);
+        else
+          *reinterpret_cast<float2*>(p) = make_float2(acc[i], acc[i + 1]);
+      }
+  }
+}
+
+// Whether this unit is the last of its tile's `parts` to arrive, after
+// every consumer thread has stored its slab (all 256 call it; `flag` a
+// word of shared memory).  The last sets the counter back to 0, so that the
+// next call finds the counters as it needs them.
+__device__ __forceinline__ bool last_part(int* counter, int parts, int* flag) {
+  __threadfence();
+  gemm_consumers_sync();
+  if (threadIdx.x == 0) {
+    *flag = atomicAdd(counter, 1) == parts - 1;
+    if (*flag) *counter = 0;  // every part of the tile has counted itself in
+  }
+  gemm_consumers_sync();
+  const bool last = *flag;
+  if (last) __threadfence();
+  return last;
+}
+
+// The last part's total: its own int32 sums plus the other parts' slabs
+// (`slab0` part 0's, parts `stride` ints apart; read through the L2, since
+// other SMs wrote them), added in int64, exact, and rounded once to fp32,
+// written back into acc as the float's bits (rows below `rows`).
+template <int NB>
+__device__ __forceinline__ void wide_total(int (&acc)[NB * 64], const int* slab0, size_t stride,
+                                           int parts, int part, int rl, int cq, int rows) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (rl + 8 * hr >= rows) continue;
+#pragma unroll
+    for (int h = 0; h < NB; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int i = 64 * h + 4 * j + 2 * hr;
+        const size_t off = (rl + 8 * hr) * (128 * NB) + 128 * h + 8 * j + cq;
+        long long s0 = acc[i], s1 = acc[i + 1];
+        for (int sp = 0; sp < parts; ++sp) {
+          if (sp == part) continue;
+          const int2 v = __ldcg(reinterpret_cast<const int2*>(slab0 + sp * stride + off));
+          s0 += v.x, s1 += v.y;
+        }
+        acc[i] = __float_as_int(__ll2float_rn(s0));
+        acc[i + 1] = __float_as_int(__ll2float_rn(s1));
       }
   }
 }

@@ -63,7 +63,8 @@ struct Args {
   float* zp;
   float* rs;
   const float* cs;
-  const float* gs;  // a given scale a row (M,), or null: the row's own
+  const float* gs;  // a given scale a row (M,) (uint8: a given min (M,) then max (M,)),
+                    // or null: the row's own
   int M, K, Kpad;
   int cvec;  // cs on a 16-byte boundary: 16-byte loads of it
 };
@@ -236,6 +237,14 @@ struct RowOps {
     }
   }
 
+  // the scale and zero point of a given row range (uint8), as row_scale
+  // computes them from the row's own
+  __device__ __forceinline__ void range_scale(float vmin, float vmax, float& scale,
+                                              float& zp) const {
+    scale = fmaxf(__fdiv_rn(__fsub_rn(vmax, vmin), 255.f), kScaleFloor);
+    zp = __fadd_rn(vmin, __fmul_rn(scale, 128.f));
+  }
+
   // the padding columns, the row sum and the scales
   __device__ __forceinline__ void finish(int row, float scale, float zp, uint8_t* qr, int qsum,
                                          int* iscratch) const {
@@ -291,7 +300,10 @@ __global__ void __launch_bounds__(NT_CS) quantize_rows_kernel(const Args a, int 
     const uint4* buf = reinterpret_cast<const uint4*>(rows_smem + (size_t)b * bytes);
     float scale, zp = 0.f;
     if (a.gs) {
-      scale = a.gs[row];
+      if constexpr (MODE == UINT8)
+        ops.range_scale(a.gs[row], a.gs[a.M + row], scale, zp);
+      else
+        scale = a.gs[row];
     } else {
       float amax = 0.f, vmin = kInf, vmax = -kInf;
 #pragma unroll 4
@@ -340,7 +352,10 @@ __global__ void __launch_bounds__(NT) quantize_rows_loop_kernel(const Args a) {
   };
   float scale, zp = 0.f;
   if (a.gs) {
-    scale = a.gs[row];
+    if constexpr (MODE == UINT8)
+      ops.range_scale(a.gs[row], a.gs[a.M + row], scale, zp);
+    else
+      scale = a.gs[row];
   } else {
     float amax = 0.f, vmin = kInf, vmax = -kInf;
 #pragma unroll 4
@@ -406,12 +421,13 @@ int launch(Args a, int mode, cudaStream_t s) {
 // x (M, K) contiguous, x_kind 0 f32 / 1 bf16 / 2 f16; xq (M, Kpad) int8 or
 // e4m3 bytes; xs (M,) f32; zp, rs (M,) f32 (uint8 mode only, else may be
 // null); cs (K,) f32 column scale or null; mode 0 int8 / 1 uint8 / 2 fp8
-// e4m3; gs (M,) f32 a given scale a row or null (int8 and fp8 only: the
-// codes against it, no statistics pass; xs gets gs).
+// e4m3; gs (M,) f32 a given scale a row, or (uint8) a given minimum (M,)
+// then maximum (M,) a row, or null (the codes against it, no statistics
+// pass; xs gets the scale).
 extern "C" int sdnq_quantize_rows(const void* x, void* xq, void* xs, void* zp, void* rs,
                                   const void* cs, const void* gs, int M, int K, int Kpad,
                                   int x_kind, int mode, void* stream) {
-  if (M < 1 || K < 1 || Kpad < K || (gs && mode == UINT8))
+  if (M < 1 || K < 1 || Kpad < K)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Args a{x,      static_cast<uint8_t*>(xq),     static_cast<float*>(xs),

@@ -24,7 +24,11 @@
 // hopper.cuh's `wide_tiles` says, else 128 x 128; the blocks persist, one an
 // SM, and walk the tiles with M fastest.  One wgmma group stays in flight
 // while the next stage is issued.  The int32 sum is exact for K < 2^17
-// (|a b| <= 2^14); the entry refuses a larger K.  e4m3 arrives by TMA as
+// (|a b| <= 2^14); a longer int8 contraction splits each tile into parts
+// of fewer than 2^17 rows (hopper.cuh's `part_stages`: their own units,
+// int32 sums in slabs, the tile's last part adds them in int64 and rounds
+// once to fp32), so the result stays the plain version's bit for bit at
+// any K.  e4m3 arrives by TMA as
 // e4m3 but multiplies as fp16 (m64n128k16, 128 x 128 tiles): the consumers
 // convert each stage into one of two fp16 buffers (e4m3 values and their
 // products are exact in fp16 and fp32), since the fp8 wgmma's own sum keeps
@@ -58,7 +62,9 @@
 // tile's last unit sets the tile's counter back to 0 (so that the next call
 // finds the counters as it needs them, with no fill), adds the other slabs
 // in split order and runs the epilogue.  Int32 partials add exactly in any order, so the int8 result
-// stays bit-equal to the plain version's.
+// stays bit-equal to the plain version's; at K >= 2^17 every tile is split
+// into parts of fewer than 2^17 rows and the last adds them in int64
+// (`wide_total`), as nt's parts.
 // At the training shapes it is bound by tensor-core operations; at M = 1
 // by reading the weight (2 M N K operations against K N bytes).
 #include <type_traits>
@@ -155,11 +161,7 @@ __device__ __forceinline__ void e4m3_to_f16(const uint8_t* src, uint8_t* dst, in
   }
 }
 
-// the two consumer warpgroups meet (named barrier 1; the producer's warp
-// does not take part)
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
+__device__ __forceinline__ void consumers_sync() { gemm_consumers_sync(); }
 
 // Tiles of 128 x 128 NB; a stage holds 128 rows of A and 128 NB of B, each
 // row 128 bytes of K.
@@ -171,14 +173,22 @@ struct Tile {
   static constexpr int A_BYTES = BM * 128;
   static constexpr int STAGE_BYTES = A_BYTES + BN * 128;
   static constexpr int CONV = KIND == KIND_E4M3 ? 2 * CONV_BYTES : 0;
-  static constexpr int SMEM_BYTES = ST * STAGE_BYTES + CONV + 2 * ST * 8 + 1024;  // + barriers, alignment
+  static constexpr int SMEM_BYTES = ST * STAGE_BYTES + CONV + 2 * ST * 8 + 16 + 1024;  // + barriers, flag, alignment
+};
+
+// A long int8 call's workspace (hopper.cuh's `part_stages`; nn's split
+// tiles too): an arrival counter a split tile (0 between calls), and its
+// parts' slabs of int32 (int8) or fp32 (e4m3, nn) partial sums.
+struct NnWork {
+  int* counters;
+  void* slabs;
 };
 
 template <int KIND, int NB, typename OutT>
 __global__ void __launch_bounds__(NT, 1)
     scaled_mm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                            const __grid_constant__ CUtensorMap tb, OutT* __restrict__ out, int M,
-                           int N, int K, Epilogue ep) {
+                           int N, int K, int parts, NnWork work, Epilogue ep) {
   using T = Tile<KIND, NB>;
   using AccT = typename std::conditional<KIND == KIND_S8, int, float>::type;
   constexpr int BN = T::BN, ST = T::ST, A_BYTES = T::A_BYTES, STAGE_BYTES = T::STAGE_BYTES;
@@ -190,6 +200,7 @@ __global__ void __launch_bounds__(NT, 1)
   uint8_t* conv = smem + ST * STAGE_BYTES;  // e4m3: the fp16 buffers
   uint64_t* full = reinterpret_cast<uint64_t*>(conv + T::CONV);
   uint64_t* empty = full + ST;
+  int* last = reinterpret_cast<int*>(empty + ST);  // a long call: this tile's last part
   const int mt = (M + BM - 1) / BM;
   const int tiles = mt * ((N + BN - 1) / BN);
   const int nk = (K + BKE - 1) / BKE;  // the k-stages of a tile
@@ -207,7 +218,7 @@ __global__ void __launch_bounds__(NT, 1)
   if (wg == 2) {  // the producer warpgroup: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256)
-      produce<ST, STAGE_BYTES, A_BYTES, BKE, BN>(&ta, &tb, smem, full, empty, mt, tiles, nk);
+      produce<ST, STAGE_BYTES, A_BYTES, BKE, BN>(&ta, &tb, smem, full, empty, mt, tiles, nk, parts);
     return;
   }
   // consumer warpgroups 0 and 1: rows 64 wg .. 64 wg + 63 of a tile
@@ -222,12 +233,14 @@ __global__ void __launch_bounds__(NT, 1)
   int pending = -1;  // the stage whose wgmmas may still be in flight
   int it = 0;        // stages consumed so far
 
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int u = blockIdx.x; u < tiles * parts; u += gridDim.x) {
+    const int tile = u % tiles, part = u / tiles;
     const int m0 = (tile % mt) * BM, n0 = (tile / mt) * BN;
-    const int r0 = m0 + wg * 64 + wr * 16 + (lane >> 2);  // this thread's rows r0, r0 + 8
+    const int rl = wg * 64 + wr * 16 + (lane >> 2), r0 = m0 + rl;  // this thread's rows r0, r0 + 8
+    const int2 kr = part_stages(part, parts, nk);
 #pragma unroll
     for (int i = 0; i < NB * 64; ++i) acc[i] = 0;
-    for (int kb = 0; kb < nk; ++kb, ++it) {
+    for (int kb = kr.x; kb < kr.y; ++kb, ++it) {
       const int s = it % ST;
       mbar_wait(&full[s], (it / ST) & 1);
       if constexpr (KIND == KIND_E4M3) {
@@ -270,6 +283,20 @@ __global__ void __launch_bounds__(NT, 1)
       release(pending);
       pending = -1;
     }
+    if constexpr (KIND == KIND_S8) {
+      if (parts > 1) {  // a long contraction: this part's sum, then the last adds them
+        constexpr int SLAB = 128 * BN;
+        int* slab0 = static_cast<int*>(work.slabs) + (size_t)tile * SLAB;
+        const size_t stride = (size_t)tiles * SLAB;
+        slab_store<NB>(acc, slab0 + part * stride, rl, cq, M - m0);
+        if (!last_part(work.counters + tile, parts, last)) continue;
+        wide_total<NB>(acc, slab0, stride, parts, part, rl, cq, M - m0);
+        store_tile<NB>(
+            acc, out, r0, n0, cq, M, N, [&](int row) { return row_terms(ep, row); },
+            [&](int a, const RowTerms& rt, int col) { return epilogue(ep, __int_as_float(a), rt, col); });
+        continue;
+      }
+    }
     store_tile<NB>(
         acc, out, r0, n0, cq, M, N, [&](int row) { return row_terms(ep, row); },
         [&](AccT a, const RowTerms& rt, int col) { return epilogue(ep, a, rt, col); });
@@ -278,7 +305,7 @@ __global__ void __launch_bounds__(NT, 1)
 
 template <int KIND, int NB, typename OutT>
 int launch_nt(const CUtensorMap& ta, const CUtensorMap& tb, void* out, int M, int N, int K,
-              const Epilogue& ep, int grid, cudaStream_t s) {
+              int parts, const NnWork& work, const Epilogue& ep, int grid, cudaStream_t s) {
   static bool ready = false;  // the block's shared memory is above the 48 KB default
   if (!ready) {
     const cudaError_t err =
@@ -288,28 +315,33 @@ int launch_nt(const CUtensorMap& ta, const CUtensorMap& tb, void* out, int M, in
     ready = true;
   }
   scaled_mm_wgmma_kernel<KIND, NB, OutT>
-      <<<grid, NT, Tile<KIND, NB>::SMEM_BYTES, s>>>(ta, tb, static_cast<OutT*>(out), M, N, K, ep);
+      <<<grid, NT, Tile<KIND, NB>::SMEM_BYTES, s>>>(ta, tb, static_cast<OutT*>(out), M, N, K, parts,
+                                                    work, ep);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int KIND, int NB>
 int launch_nt_out(int out_kind, const CUtensorMap& ta, const CUtensorMap& tb, void* out, int M,
-                  int N, int K, const Epilogue& ep, int grid, cudaStream_t s) {
-  if (out_kind == sdnq::F32) return launch_nt<KIND, NB, float>(ta, tb, out, M, N, K, ep, grid, s);
+                  int N, int K, int parts, const NnWork& work, const Epilogue& ep, int grid,
+                  cudaStream_t s) {
+  if (out_kind == sdnq::F32)
+    return launch_nt<KIND, NB, float>(ta, tb, out, M, N, K, parts, work, ep, grid, s);
   if (out_kind == sdnq::BF16)
-    return launch_nt<KIND, NB, __nv_bfloat16>(ta, tb, out, M, N, K, ep, grid, s);
-  if (out_kind == sdnq::F16) return launch_nt<KIND, NB, __half>(ta, tb, out, M, N, K, ep, grid, s);
+    return launch_nt<KIND, NB, __nv_bfloat16>(ta, tb, out, M, N, K, parts, work, ep, grid, s);
+  if (out_kind == sdnq::F16)
+    return launch_nt<KIND, NB, __half>(ta, tb, out, M, N, K, parts, work, ep, grid, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int KIND>
 int launch_nt_kind(int nb, int out_kind, const CUtensorMap& ta, const CUtensorMap& tb, void* out,
-                   int M, int N, int K, const Epilogue& ep, int grid, cudaStream_t s) {
+                   int M, int N, int K, int parts, const NnWork& work, const Epilogue& ep,
+                   int grid, cudaStream_t s) {
   if constexpr (KIND == KIND_E4M3)  // the fp16 buffers take the shared memory of 128 x 256
-    return launch_nt_out<KIND, 1>(out_kind, ta, tb, out, M, N, K, ep, grid, s);
+    return launch_nt_out<KIND, 1>(out_kind, ta, tb, out, M, N, K, parts, work, ep, grid, s);
   else
-    return nb == 2 ? launch_nt_out<KIND, 2>(out_kind, ta, tb, out, M, N, K, ep, grid, s)
-                   : launch_nt_out<KIND, 1>(out_kind, ta, tb, out, M, N, K, ep, grid, s);
+    return nb == 2 ? launch_nt_out<KIND, 2>(out_kind, ta, tb, out, M, N, K, parts, work, ep, grid, s)
+                   : launch_nt_out<KIND, 1>(out_kind, ta, tb, out, M, N, K, parts, work, ep, grid, s);
 }
 
 // ---- nn: TMA + wgmma, B rewritten stage by stage in shared memory -----------
@@ -383,31 +415,9 @@ __device__ __forceinline__ void produce_nn(const CUtensorMap* ta, const CUtensor
   for (int j = it > ST ? it - ST : 0; j < it; ++j) mbar_wait(&full[j % ST], (j / ST) & 1);
 }
 
-// The split tiles' workspace: an arrival counter a tail tile (0 between
-// calls), and a slab of partial sums a split and tail tile, the tile's
-// 128 x BN accumulators row by row.  A thread's share (wgmma's layout, as
-// store_tile reads it): local rows rl, rl + 8, columns 128 h + 8 j + cq +
-// {0, 1}, two to a store; only the tile's rows below M (`rows`) are
-// written and read (at M = 1, one row), columns past N as they are.
-template <int NB, typename AccT>
-__device__ __forceinline__ void slab_store(const AccT (&acc)[NB * 64], AccT* slab, int rl, int cq,
-                                           int rows) {
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    if (rl + 8 * hr >= rows) continue;
-#pragma unroll
-    for (int h = 0; h < NB; ++h)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int i = 64 * h + 4 * j + 2 * hr;
-        AccT* p = slab + (rl + 8 * hr) * (128 * NB) + 128 * h + 8 * j + cq;
-        if constexpr (std::is_same<AccT, int>::value)
-          *reinterpret_cast<int2*>(p) = make_int2(acc[i], acc[i + 1]);
-        else
-          *reinterpret_cast<float2*>(p) = make_float2(acc[i], acc[i + 1]);
-      }
-  }
-}
+// The split tiles' workspace (`NnWork`): an arrival counter a tail tile,
+// and a slab of partial sums a split and tail tile (hopper.cuh's
+// `slab_store` layout).
 // acc += the slab's share (read through the L2: other SMs wrote it)
 template <int NB, typename AccT>
 __device__ __forceinline__ void slab_add(AccT (&acc)[NB * 64], const AccT* slab, int rl, int cq,
@@ -431,11 +441,6 @@ __device__ __forceinline__ void slab_add(AccT (&acc)[NB * 64], const AccT* slab,
       }
   }
 }
-
-struct NnWork {
-  int* counters;
-  void* slabs;
-};
 
 template <int KIND, int NB, typename OutT>
 __global__ void __launch_bounds__(NT, 1)
@@ -553,6 +558,18 @@ __global__ void __launch_bounds__(NT, 1)
       consumers_sync();
       if (!*last) continue;
       __threadfence();
+      if constexpr (KIND == KIND_S8) {
+        if (K >= (1 << 17)) {  // a long contraction: the parts added in int64
+          wide_total<NB>(acc, slabs + (size_t)w.part * SLAB, (size_t)tail * SLAB, splits, w.split,
+                         rl, cq, M - w.m0);
+          store_tile<NB>(
+              acc, out, r0, w.n0, cq, M, N, [&](int row) { return row_terms(ep, row); },
+              [&](int a, const RowTerms& rt, int col) {
+                return epilogue(ep, __int_as_float(a), rt, col);
+              });
+          continue;
+        }
+      }
       for (int sp = 0; sp < splits; ++sp)
         if (sp != w.split)
           slab_add<NB>(acc, slabs + ((size_t)sp * tail + w.part) * SLAB, rl, cq, M - w.m0);
@@ -599,14 +616,19 @@ int launch_nn_out(int out_kind, const CUtensorMap& ta, const CUtensorMap& tb, vo
 // in_kind 0 int8 / 1 bf16 / 2 fp8 e4m3; out (M, N) of out_kind; epilogue
 // pointers may be null (rs needs vz0, zp needs vz1), all f32.  Rows lda and
 // ldb elements apart (multiples of 16 bytes, base addresses 16-byte
-// aligned); int8 K < 2^17.
-// nt (b_nn 0): a (M, K) and b (N, K).
+// aligned).
+// nt (b_nn 0): a (M, K) and b (N, K); `splits` 1, but for an int8 K >=
+// 2^17 each tile's parts (each at most LONG_PART_STAGES stages of 128),
+// with `counters` (a tile each, zero) and `slabs` (parts x tiles x 128 x
+// 128 nb int32, nb as `wide_tiles` says; the wrapper sizes them for nb 2).
 // nn (b_nn 1, 8-bit kinds): a (M, K) and b (K, N); the wrapper's plan
 // (scaled_mm.py `nn_plan`): tiles 128 x 128 nb (int8 nb 1 or 2, e4m3 1),
 // the first `whole` whole, the contraction of the other `tail` split
 // `splits` ways (at most its stages of 128), and where they are split
 // `counters`: tail int32 counters, zero (each call leaves them so), and
-// `slabs`: splits x tail x 128 x 128 nb partial sums of 4 bytes.
+// `slabs`: splits x tail x 128 x 128 nb partial sums of 4 bytes; an int8 K
+// >= 2^17 splits every tile (whole 0) into parts of at most
+// LONG_PART_STAGES stages.
 extern "C" int sdnq_scaled_mm(const void* a, int lda, const void* b, int ldb, void* out,
                               const void* xs, const void* ws, const void* bias, const void* rs,
                               const void* zp, const void* vz0, const void* vz1, int M, int N,
@@ -622,9 +644,16 @@ extern "C" int sdnq_scaled_mm(const void* a, int lda, const void* b, int ldb, vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (K < 1 || lda < K || ldb < (b_nn ? N : K) || (lda * esize) % 16 != 0 ||
-      (ldb * esize) % 16 != 0 || misaligned(a) || misaligned(b) ||
-      (in_kind == KIND_S8 && K >= (1 << 17)))
+      (ldb * esize) % 16 != 0 || misaligned(a) || misaligned(b) || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  // an int8 contraction of 2^17 rows or more: every tile in parts of at most
+  // LONG_PART_STAGES stages (nn: its splits), with their workspace
+  const bool long_k = in_kind == KIND_S8 && K >= LONG_K;
+  const int nk128 = (K + 127) / 128;
+  if (long_k && ((nk128 + splits - 1) / splits > LONG_PART_STAGES || (b_nn && whole != 0) ||
+                 !(counters && slabs)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!b_nn && !long_k && splits != 1) return static_cast<int>(cudaErrorInvalidValue);
   const int sms = sm_count();
   if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long mt = (M + BM - 1) / BM;
@@ -657,12 +686,16 @@ extern "C" int sdnq_scaled_mm(const void* a, int lda, const void* b, int ldb, vo
   if (M == 0 || N == 0) return 0;
   const int nbt = in_kind != KIND_E4M3 && wide_tiles(mt, N, sms) ? 2 : 1;
   const long long tiles = mt * ((N + 128 * nbt - 1) / (128 * nbt));
-  const int grid = static_cast<int>(tiles < sms ? tiles : sms);  // one block an SM
+  const long long units = tiles * splits;  // nt: `splits` parts a tile (1 below 2^17)
+  const int grid = static_cast<int>(units < sms ? units : sms);  // one block an SM
   const int box_k = 128 / esize;
   if (!tensor_map(&ta, a, M, K, lda, BM, type, esize, box_k) ||
       !tensor_map(&tb, b, N, K, ldb, 128 * nbt, type, esize, box_k))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (in_kind == KIND_S8) return launch_nt_kind<KIND_S8>(nbt, out_kind, ta, tb, out, M, N, K, ep, grid, s);
-  if (in_kind == KIND_E4M3) return launch_nt_kind<KIND_E4M3>(nbt, out_kind, ta, tb, out, M, N, K, ep, grid, s);
-  return launch_nt_kind<KIND_BF16>(nbt, out_kind, ta, tb, out, M, N, K, ep, grid, s);
+  const NnWork work{static_cast<int*>(counters), slabs};
+  if (in_kind == KIND_S8)
+    return launch_nt_kind<KIND_S8>(nbt, out_kind, ta, tb, out, M, N, K, splits, work, ep, grid, s);
+  if (in_kind == KIND_E4M3)
+    return launch_nt_kind<KIND_E4M3>(nbt, out_kind, ta, tb, out, M, N, K, 1, work, ep, grid, s);
+  return launch_nt_kind<KIND_BF16>(nbt, out_kind, ta, tb, out, M, N, K, 1, work, ep, grid, s);
 }

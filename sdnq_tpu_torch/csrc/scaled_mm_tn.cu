@@ -26,8 +26,8 @@
 //    a token-major tile is not, so each 128-token stage is transposed
 //    (hopper.cuh's `Transpose8`) into [column][token] rows in the
 //    128-byte swizzle, then s8 wgmma (m64n128k32 / m64n256k32) sums in
-//    int32, exact for
-//    M < 2^17 (|a b| <= 2^14; the entry refuses a larger M);
+//    int32, exact for M < 2^17 (|a b| <= 2^14); a longer M is summed in
+//    parts (below);
 //  - e4m3: each 64-token stage is converted to fp16 (e4m3 values and their
 //    products are exact in fp16 and fp32) without moving a column: 16-bit
 //    wgmma reads MN-major operands (trans-a, trans-b), so the fp16 tile
@@ -45,6 +45,13 @@
 // otherwise) and added last, so the uint8 family's grad-weight is one pass
 // over the output.  The tile walk takes the smaller operand's tiles fastest,
 // so that the larger one is read from device memory about once.
+//
+// int8 over 2^17 tokens or more (FLUX.1-dev's grad-weights at batch 29 and
+// up), in `parts` as the wrapper's `long_parts` says: each tile's stages
+// split into parts of fewer than 2^17 tokens, each its own unit (hopper.cuh's
+// `part_stages`, as B4's), int32 sums in slabs, the tile's last part adds
+// them in int64 (`wide_total`), so the total is exact and rounded once,
+// bit-equal to the plain version's.
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -70,7 +77,14 @@ struct TnTile {
   static constexpr int STAGE_BYTES = BOX * (1 + NB);
   static constexpr int ST = KIND == S8 && NB == 2 ? 2 : 4;  // 192 KB or less in all
   static constexpr int CONV = KIND == S8 ? 128 * 128 * (1 + NB) : 2 * BOX * (1 + NB);
-  static constexpr int SMEM_BYTES = ST * STAGE_BYTES + 2 * CONV + 2 * ST * 8 + 1024;
+  static constexpr int SMEM_BYTES = ST * STAGE_BYTES + 2 * CONV + 2 * ST * 8 + 16 + 1024;
+};
+
+// A long int8 call's workspace: a counter a tile (0 between calls) and
+// parts x tiles slabs of 128 x 128 NB int32.
+struct TnWork {
+  int* counters;
+  int* slabs;
 };
 
 struct TnEpilogue {
@@ -81,9 +95,17 @@ struct TnEpilogue {
   int R, N, K;
 };
 
-// the two consumer warpgroups meet (named barrier 1; the producer's warp
-// does not take part)
-__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+__device__ __forceinline__ void consumers_sync() { gemm_consumers_sync(); }
+
+// an accumulator as fp32: an int32 sum rounded, or (`fbits`) a long
+// contraction's total, already rounded and kept as the float's bits
+template <typename AccT>
+__device__ __forceinline__ float acc_value(AccT a, bool fbits) {
+  if constexpr (std::is_same<AccT, int>::value)
+    return fbits ? __int_as_float(a) : static_cast<float>(a);
+  else
+    return a;
+}
 
 // A tile's outputs through shared memory (`buf`, the consumers' buffers,
 // free once both warpgroups have waited for their last wgmmas): 64 columns
@@ -99,7 +121,7 @@ constexpr int TN_CW = 64, TN_LDW = TN_CW + 8;  // staged columns; padded row (fl
 template <int NB, typename AccT>
 __device__ __forceinline__ void store_tile_tn(const AccT (&acc)[NB * 64], uint8_t* buf,
                                               float* __restrict__ out, int2 nk0, int cq,
-                                              const TnEpilogue& ep) {
+                                              const TnEpilogue& ep, bool fbits = false) {
   float* sm = reinterpret_cast<float*>(buf);
   const int t = threadIdx.x, lane = t & 31;
   const int rl = (t >> 7) * 64 + ((t & 127) >> 5) * 16 + (lane >> 2);  // local rows rl, rl + 8
@@ -120,7 +142,7 @@ __device__ __forceinline__ void store_tile_tn(const AccT (&acc)[NB * 64], uint8_
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int i = 64 * h + 4 * (j0 + j) + 2 * hr;
-        float v0 = static_cast<float>(acc[i]), v1 = static_cast<float>(acc[i + 1]);
+        float v0 = acc_value(acc[i], fbits), v1 = acc_value(acc[i + 1], fbits);
         if (ep.as) v0 = __fmul_rn(v0, sa[hr]), v1 = __fmul_rn(v1, sa[hr]);
         *reinterpret_cast<float2*>(sm + (rl + 8 * hr) * TN_LDW + 8 * j + cq) = make_float2(v0, v1);
       }
@@ -158,11 +180,14 @@ __device__ __forceinline__ void store_tile_tn(const AccT (&acc)[NB * 64], uint8_
   }
 }
 
-template <int KIND, int NB>
+// LONG: an int8 sum over 2^17 tokens or more (`parts` > 1), a build of its
+// own, so that the others keep their registers
+template <int KIND, int NB, bool LONG>
 __global__ void __launch_bounds__(NT, 1)
     scaled_mm_tn_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                               const __grid_constant__ CUtensorMap tb, float* __restrict__ out,
-                              int M, int tok, int k_fast, TnEpilogue ep) {
+                              int M, int tok, int k_fast, int parts_, TnWork work,
+                              TnEpilogue ep) {
   using T = TnTile<KIND, NB>;
   using AccT = typename std::conditional<KIND == S8, int, float>::type;
   constexpr int ST = T::ST, STAGE_BYTES = T::STAGE_BYTES, BOX = T::BOX, CONV = T::CONV;
@@ -171,6 +196,8 @@ __global__ void __launch_bounds__(NT, 1)
   uint8_t* conv = smem + ST * STAGE_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(conv + 2 * CONV);
   uint64_t* empty = full + ST;
+  int* last = reinterpret_cast<int*>(empty + ST);  // parts: this tile's last part
+  const int parts = LONG ? parts_ : 1;
   const int N = ep.N, K = ep.K;
   const int nt = (N + 127) / 128, kt = (K + T::BK - 1) / T::BK;
   const int tiles = nt * kt;
@@ -193,7 +220,7 @@ __global__ void __launch_bounds__(NT, 1)
   if (wg == 2) {  // the producer warpgroup: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256)
-      produce_tn<ST, STAGE_BYTES, BOX, NB>(&ta, &tb, smem, full, empty, tiles, nk, tok, at);
+      produce_tn<ST, STAGE_BYTES, BOX, NB>(&ta, &tb, smem, full, empty, tiles, nk, tok, at, parts);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
@@ -202,11 +229,13 @@ __global__ void __launch_bounds__(NT, 1)
   AccT acc[NB * 64];
   int it = 0;  // stages consumed so far
 
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int u = blockIdx.x; u < tiles * parts; u += gridDim.x) {
+    const int tile = u % tiles, part = u / tiles;
     const int2 nk0 = at(tile);
+    const int2 kr = part_stages(part, parts, nk);
 #pragma unroll
     for (int i = 0; i < NB * 64; ++i) acc[i] = 0;
-    for (int kb = 0; kb < nk; ++kb, ++it) {
+    for (int kb = kr.x; kb < kr.y; ++kb, ++it) {
       const int s = it % ST;
       const uint8_t* st = smem + s * STAGE_BYTES;
       uint8_t* cv = conv + (it & 1) * CONV;
@@ -256,23 +285,33 @@ __global__ void __launch_bounds__(NT, 1)
     }
     wgmma_wait<0>();
     fence_regs(acc);
+    if constexpr (LONG) {  // this part's sum, then the tile's last adds them
+      const int rl = (threadIdx.x >> 7) * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+      constexpr int SLAB = 128 * T::BK;
+      int* slab0 = work.slabs + (size_t)tile * SLAB;
+      const size_t stride = (size_t)tiles * SLAB;
+      slab_store<NB>(acc, slab0 + part * stride, rl, cq, N - nk0.x);
+      if (!last_part(work.counters + tile, parts, last)) continue;
+      wide_total<NB>(acc, slab0, stride, parts, part, rl, cq, N - nk0.x);
+    }
     consumers_sync();  // the other warpgroup's last wgmmas have read `conv`
-    store_tile_tn<NB>(acc, conv, out, nk0, cq, ep);
+    store_tile_tn<NB>(acc, conv, out, nk0, cq, ep, LONG);  // LONG: the total's fp32 bits
   }
 }
 
-template <int KIND, int NB>
+template <int KIND, int NB, bool LONG = false>
 int launch(const CUtensorMap& ta, const CUtensorMap& tb, float* out, int M, int tok, int k_fast,
-           const TnEpilogue& ep, int grid, cudaStream_t s) {
+           int parts, const TnWork& work, const TnEpilogue& ep, int grid, cudaStream_t s) {
   constexpr int smem = TnTile<KIND, NB>::SMEM_BYTES;
   static bool ready = false;  // the block's shared memory is above the 48 KB default
   if (!ready) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scaled_mm_tn_wgmma_kernel<KIND, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err = cudaFuncSetAttribute(scaled_mm_tn_wgmma_kernel<KIND, NB, LONG>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready = true;
   }
-  scaled_mm_tn_wgmma_kernel<KIND, NB><<<grid, NT, smem, s>>>(ta, tb, out, M, tok, k_fast, ep);
+  scaled_mm_tn_wgmma_kernel<KIND, NB, LONG>
+      <<<grid, NT, smem, s>>>(ta, tb, out, M, tok, k_fast, parts, work, ep);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -284,23 +323,34 @@ int launch(const CUtensorMap& ta, const CUtensorMap& tb, float* out, int M, int 
 // fp32 contiguous, both or neither.  The wrapper's plan (scaled_mm.py
 // `tn_plan`): `tok` tokens a stage, a multiple of 32 up to 128 (int8) or 64
 // (e4m3), and k_fast 1 to walk the K tiles fastest; the tiles are 128 x 256
-// where `wide_tiles` says, as scaled_mm.cu's.  int8 M < 2^17.
+// where `wide_tiles` says, as scaled_mm.cu's.  An int8 M >= 2^17 takes
+// `parts` > 1 (stages of 128 tokens, each part at most LONG_PART_STAGES;
+// `counters` a tile, zero, and `slabs` parts x tiles x 128 x 256 int32);
+// else parts 1.
 extern "C" int sdnq_scaled_mm_tn(const void* a, int lda, const void* b, int ldb, void* out,
                                  const void* a_s, const void* b_s, const void* u, const void* v,
                                  int R, int M, int N, int K, int in_kind, int tok, int k_fast,
-                                 void* stream) {
+                                 int parts, void* counters, void* slabs, void* stream) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   const int tok_max = in_kind == S8 ? 128 : 64;
   if ((in_kind != S8 && in_kind != E4M3) || M < 1 || N < 1 || K < 1 || lda < N || ldb < K ||
-      lda % 16 != 0 || ldb % 16 != 0 || misaligned(a) || misaligned(b) ||
-      (in_kind == S8 && M >= (1 << 17)) || tok < 32 || tok > tok_max || tok % 32 != 0 ||
-      (!u != !v) || (u && R < 1))
+      lda % 16 != 0 || ldb % 16 != 0 || misaligned(a) || misaligned(b) || tok < 32 ||
+      tok > tok_max || tok % 32 != 0 || (!u != !v) || (u && R < 1) || parts < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (in_kind == S8 && M >= LONG_K) {  // parts, each under 2^17 tokens
+    const int nk = (M + 127) / 128;
+    if (tok != 128 || parts < 2 || (nk + parts - 1) / parts > LONG_PART_STAGES || !counters ||
+        !slabs)
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else if (parts != 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int sms = sm_count();
   if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int nb = wide_tiles((N + 127) / 128, K, sms) ? 2 : 1;
   const long long tiles = (long long)((N + 127) / 128) * ((K + 128 * nb - 1) / (128 * nb));
-  const int grid = static_cast<int>(tiles < sms ? tiles : sms);  // one block an SM
+  const long long units = tiles * parts;
+  const int grid = static_cast<int>(units < sms ? units : sms);  // one block an SM
   CUtensorMap ta, tb;
   if (!tensor_map(&ta, a, M, N, lda, tok, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 128) ||
       !tensor_map(&tb, b, M, K, ldb, tok, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 128))
@@ -309,9 +359,13 @@ extern "C" int sdnq_scaled_mm_tn(const void* a, int lda, const void* b, int ldb,
                       static_cast<const float*>(u), static_cast<const float*>(v), u ? R : 0, N, K};
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TnWork work{static_cast<int*>(counters), static_cast<int*>(slabs)};
   if (in_kind == E4M3)
-    return nb == 2 ? launch<E4M3, 2>(ta, tb, o, M, tok, k_fast, ep, grid, s)
-                   : launch<E4M3, 1>(ta, tb, o, M, tok, k_fast, ep, grid, s);
-  return nb == 2 ? launch<S8, 2>(ta, tb, o, M, tok, k_fast, ep, grid, s)
-                 : launch<S8, 1>(ta, tb, o, M, tok, k_fast, ep, grid, s);
+    return nb == 2 ? launch<E4M3, 2>(ta, tb, o, M, tok, k_fast, 1, work, ep, grid, s)
+                   : launch<E4M3, 1>(ta, tb, o, M, tok, k_fast, 1, work, ep, grid, s);
+  if (parts > 1)
+    return nb == 2 ? launch<S8, 2, true>(ta, tb, o, M, tok, k_fast, parts, work, ep, grid, s)
+                   : launch<S8, 1, true>(ta, tb, o, M, tok, k_fast, parts, work, ep, grid, s);
+  return nb == 2 ? launch<S8, 2>(ta, tb, o, M, tok, k_fast, 1, work, ep, grid, s)
+                 : launch<S8, 1>(ta, tb, o, M, tok, k_fast, 1, work, ep, grid, s);
 }

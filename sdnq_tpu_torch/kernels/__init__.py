@@ -5,7 +5,8 @@ on CPU tensors; each counts its launches in ``<wrapper>.launches``, and
 ``flash_attention``, ``flash_attention_block``, ``quantize_rows``,
 ``scaled_gemm``, ``dequant_gemv``,
 ``dequant_mm``, ``groupdot_mm``, ``blockdiag_mm``, ``groupdot_i8_mm``,
-``decode_weight`` and ``wgmma_mm`` also count their launches per mode in
+``decode_weight``, ``wgmma_mm`` and ``scaled_mm_tn`` also count their
+launches per mode in
 ``<wrapper>.mode_launches``.  ``dequant_mm`` (B2's tiles), ``groupdot_mm``
 (B5) and ``groupdot_i8_mm`` (B7) launch ``decode_weight`` and then
 ``wgmma_mm``.
@@ -45,7 +46,8 @@ KERNELS = {
 # the wrappers that also count their launches by mode
 _MODED = ("flash_attention", "flash_attention_block", "quantize_rows",
           "scaled_gemm", "dequant_gemv", "dequant_mm", "groupdot_mm",
-          "blockdiag_mm", "groupdot_i8_mm", "decode_weight", "wgmma_mm")
+          "blockdiag_mm", "groupdot_i8_mm", "decode_weight", "wgmma_mm",
+          "scaled_mm_tn")
 
 
 def reset_launch_counts() -> None:
@@ -61,8 +63,9 @@ def launch_counts() -> dict[str, int]:
     """Launches by wrapper, and ``<wrapper>:<mode>`` by mode (B3's masked,
     float_mask, causal, gqa, int8_pv (token mode), head_pv, its Q·K
     kind bf16_qk, int8_qk or e4m3_qk, padded (a head dim padded to the
-    kernel's) and d256; B9's e4m3_qk, int8_pv and d256; B1's colscale;
-    B4's nn and bf16; B2's grouped and bit-plane GEMV and its e5m2 codes
+    kernel's) and d256; B9's e4m3_qk, int8_pv and d256; B1's colscale and
+    given_scale; B4's nn, bf16 and long (an int8 contraction of 2^17 or
+    more, in parts); B10's parts and drain (its two long designs); B2's grouped and bit-plane GEMV and its e5m2 codes
     and fp16 x, and the grouped, row and bit-plane modes of its tiles and
     their fp16 x and e5m2 codes; B5's fp16 x; B5's and B6's multiplane and
     minifloat modes, B7's

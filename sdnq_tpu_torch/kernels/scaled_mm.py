@@ -30,14 +30,20 @@ Kernels, each beside its plain PyTorch version and a launch counter:
   the same GEMM reading B (K, N) as it lies, each int8 stage of B
   transposed in shared memory for the s8 ``wgmma`` (e4m3: converted to
   fp16 and read MN-major), the contraction split where ``nn_plan`` says
-  (its partial sums added in the kernel, bit-equal for int8).
+  (its partial sums added in the kernel, bit-equal for int8).  An int8
+  contraction of 2^17 rows or more, past what an int32 sum holds exactly,
+  splits every tile into parts of fewer (``long_parts``), whose int32 sums
+  the tile's last part adds in int64 before one rounding to fp32, so the
+  result stays the plain version's bit for bit at any K.
 * ``scaled_mm_tn`` — B10, ``csrc/scaled_mm_tn.cu``.  Replaces
   ``_tn_mm_kernel``: int8 (int32 accumulate) or e4m3 (fp32 accumulate), a
   persistent TMA + ``wgmma`` GEMM that reads both operands in their natural
   layout and rewrites each stage in shared memory (int8: transposed for
   the s8 ``wgmma``; e4m3: converted to fp16), the columnwise scales and
   the rank-R term in the epilogue, fp32 out (``tn_plan`` picks its tokens
-  a stage and walk order; ``_build.tma_rows`` copies what TMA cannot read).  The
+  a stage and walk order; ``_build.tma_rows`` copies what TMA cannot read;
+  past 2^17 int8 tokens each tile is summed in ``long_parts`` parts added
+  in int64, as B4's).  The
   JAX package sends the grad-weight GEMM to its kernel only under
   ``SDNQ_TPU_TN_MM_BLOCKS`` (a v5e speed choice); its XLA route computes
   the same int32 sum with the same epilogue order, so the port sends every
@@ -50,7 +56,9 @@ raise; on a CPU tensor they run the plain version.  The plain int8 GEMM
 accumulates in float64, which is exact for |acc| < 2^53 (int8 products over
 K = 15360 stay below 2^28), so it equals the kernel's int32 sum; its fp32
 products need ``torch.backends.cuda.matmul.allow_tf32 = False`` on the card
-(the default), which ``chip_smoke.py`` sets.
+(the default), which ``chip_smoke.py`` sets.  Its int8 sums are taken in
+float64 over chunks of the contraction, each exact, so that a long one
+needs no float64 copy of a whole operand.
 """
 
 from __future__ import annotations
@@ -63,14 +71,16 @@ from ._build import P, I
 from .dispatch import is_cuda
 from ..formats import get_format
 from ..quant.core import (
-    get_scale_symmetric, quantize_fp_mm, quantize_int_mm, quantize_uint_mm,
+    SCALE_EPS, _div, get_scale_symmetric, quantize_fp_mm, quantize_int_mm,
+    quantize_uint_mm,
 )
 
 __all__ = ["quantize_rows", "quantize_rows_plain", "row_scale_from_amax",
-           "quantize_with_scale", "scaled_gemm",
+           "quantize_with_scale", "uint8_scale_from_range",
+           "quantize_with_range", "scaled_gemm",
            "scaled_gemm_plain", "scaled_mm", "scaled_mm_fused_act",
            "bf16_scaled_mm", "scaled_mm_tn", "scaled_mm_tn_plain",
-           "dynamic_mm_tn", "nn_plan"]
+           "dynamic_mm_tn", "nn_plan", "long_parts"]
 
 
 # ---------------------------------------------------------------------------
@@ -83,16 +93,23 @@ _ROW_FORMATS = {"int8": (torch.int8, 0), "uint8": (torch.int8, 1),
 
 
 def quantize_rows_plain(x: torch.Tensor, x_fmt: str = "int8",
-                        k_pad: int = 0, colscale=None, row_scale=None):
+                        k_pad: int = 0, colscale=None, row_scale=None,
+                        row_range=None):
     """Plain version of ``quantize_rows``: x times ``colscale`` (K,) in
     fp32 where given, then ``quant.core.quantize_int_mm`` /
     ``quantize_uint_mm`` / ``quantize_fp_mm`` per row (against
-    ``row_scale`` where given), then ``k_pad`` zero columns."""
+    ``row_scale``, or uint8's ``row_range``, where given), then ``k_pad``
+    zero columns."""
     zp = rs = None
     if colscale is not None:
         x = x.float() * colscale.reshape(1, -1).float()
-    if row_scale is not None:
-        _given_scale_fmt(x_fmt)
+    _given_fmt(x_fmt, row_scale, row_range)
+    if row_range is not None:
+        s, zp = uint8_scale_from_range(*(v.reshape(-1, 1).float()
+                                         for v in row_range))
+        q = quantize_with_range(x, s, zp)
+        rs = q.to(torch.int32).sum(-1, keepdim=True).float() * s
+    elif row_scale is not None:
         q = quantize_with_scale(x, row_scale.reshape(-1, 1), x_fmt)
         s = row_scale.reshape(-1, 1).float()
     elif x_fmt == "uint8":
@@ -110,7 +127,34 @@ def quantize_rows_plain(x: torch.Tensor, x_fmt: str = "int8",
 def _given_scale_fmt(x_fmt):
     if x_fmt == "uint8":
         raise ValueError("a given row scale takes int8 or float8_e4m3fn "
-                         "rows (uint8 rows need their own min and max)")
+                         "rows (uint8 rows take a given row_range)")
+
+
+def _given_fmt(x_fmt, row_scale, row_range):
+    if row_scale is not None:
+        _given_scale_fmt(x_fmt)
+    if row_range is not None and (x_fmt != "uint8" or row_scale is not None):
+        raise ValueError("a given row_range takes uint8 rows alone")
+
+
+def uint8_scale_from_range(vmin, vmax):
+    """The (scale, zero point) of asymmetric uint8 values whose range is
+    [vmin, vmax] (signed codes, x = q*scale + zp), as
+    ``quant.core.get_scale_asymmetric`` and the kernel compute them:
+    ``max((vmax - vmin) / 255, 2^-126)`` (a true division) and ``vmin +
+    128 scale``."""
+    f = get_format("int8")
+    scale = torch.clamp_min(_div(vmax.float() - vmin.float(), f.max - f.min),
+                            SCALE_EPS)
+    return scale, vmin.float() - scale * f.min
+
+
+def quantize_with_range(x, scale, zp):
+    """x's signed codes against a given asymmetric (scale, zero point),
+    broadcast against x, as ``quantize_uint_mm`` rounds them."""
+    f = get_format("int8")
+    v = (x.float() - zp.float()) / scale.float()
+    return torch.clamp(torch.round(v), f.min, f.max).to(torch.int8)
 
 
 def row_scale_from_amax(amax: torch.Tensor, x_fmt: str = "int8"):
@@ -136,12 +180,13 @@ def quantize_with_scale(x: torch.Tensor, scale: torch.Tensor,
 
 
 def quantize_rows(x: torch.Tensor, x_fmt: str = "int8", k_pad: int = 0,
-                  colscale=None, row_scale=None):
+                  colscale=None, row_scale=None, row_range=None):
     """Per-row quantization of x (M, K) float, times ``colscale`` (K,) per
     column where given, to ``x_fmt`` ("int8", "uint8" or "float8_e4m3fn").
-    ``row_scale`` (M,) gives each row's scale ("int8" and "float8_e4m3fn"):
-    the kernel skips its statistics pass and quantizes against it (a
-    row-parallel layer's rows, whose absolute maximum is all-reduced over
+    ``row_scale`` (M,) gives each row's scale ("int8" and "float8_e4m3fn"),
+    ``row_range`` (the rows' minima (M,), maxima (M,)) each uint8 row's
+    range: the kernel skips its statistics pass and quantizes against them
+    (a row-parallel layer's rows, whose statistics are all-reduced over
     the tensor axis; ``row_scale_from_amax``).
 
     Returns ``(x_q (M, K + k_pad), x_scale (M, 1), x_zp, x_rowsum)``; the
@@ -151,15 +196,17 @@ def quantize_rows(x: torch.Tensor, x_fmt: str = "int8", k_pad: int = 0,
     if x_fmt not in _ROW_FORMATS:
         raise ValueError(f"no row quantize to {x_fmt!r}")
     if not is_cuda(x):
-        return quantize_rows_plain(x, x_fmt, k_pad, colscale, row_scale)
+        return quantize_rows_plain(x, x_fmt, k_pad, colscale, row_scale,
+                                   row_range)
     if x.dim() != 2:
         raise ValueError(f"quantize_rows takes (M, K), got {tuple(x.shape)}")
-    if row_scale is not None:
-        _given_scale_fmt(x_fmt)
+    _given_fmt(x_fmt, row_scale, row_range)
     x = x.contiguous()
     m, k = x.shape
     cs = _vec(colscale, k, "colscale")
     gs = _vec(row_scale, m, "row_scale")
+    if row_range is not None:   # the minima, then the maxima
+        gs = torch.cat([_vec(v, m, "row_range") for v in row_range])
     dtype, mode = _ROW_FORMATS[x_fmt]
     asym = x_fmt == "uint8"
     xq = torch.empty((m, k + k_pad), dtype=dtype, device=x.device)
@@ -205,8 +252,7 @@ def scaled_gemm_plain(a, b, out_dtype, xs=None, ws=None, bias=None, rs=None,
     operations: ((((acc*xs)*ws)+bias)+rs*vz0)+zp*vz1 in fp32."""
     nt = b_layout == "nt"
     if a.dtype == torch.int8:
-        bd = b.double()
-        acc = (a.double() @ (bd.T if nt else bd)).float()  # exact int32 sum
+        acc = _exact_int8_mm(a, b.T if nt else b).float()
     else:
         acc = a.float() @ (b.float().T if nt else b.float())
     out = acc
@@ -223,13 +269,29 @@ def scaled_gemm_plain(a, b, out_dtype, xs=None, ws=None, bias=None, rs=None,
     return out.to(out_dtype)
 
 
+# contraction rows a float64 chunk of the plain int8 products
+_PLAIN_CHUNK = 1 << 14
+
+
+def _exact_int8_mm(a, b):
+    """a (M, K) @ b (K, N) of int8 codes in float64, exact (|sum| < 2^53),
+    the contraction taken in chunks."""
+    out = None
+    for k0 in range(0, max(a.shape[1], 1), _PLAIN_CHUNK):
+        part = (a[:, k0:k0 + _PLAIN_CHUNK].double()
+                @ b[k0:k0 + _PLAIN_CHUNK].double())
+        out = part if out is None else out.add_(part)
+    return out
+
+
 def scaled_gemm(a, b, out_dtype=torch.bfloat16, xs=None, ws=None, bias=None,
                 rs=None, zp=None, vz0=None, vz1=None, b_layout="nt"):
     """``(a · bᵀ) * xs[m] * ws[n] + bias[n] + rs[m]*vz0[n] + zp[m]*vz1[n]``.
 
-    a (M, K), b (N, K): both int8 (int32 accumulate), both fp8 e4m3 or both
-    bf16 (fp32 accumulate).  ``b_layout="nn"``: b is (K, N) and the product
-    is ``a · b`` (8-bit kinds).  Every epilogue operand is optional; ``rs``
+    a (M, K), b (N, K): both int8 (int32 accumulate; int64 across the
+    parts of a contraction of 2^17 or more), both fp8 e4m3 or both bf16
+    (fp32 accumulate).  ``b_layout="nn"``: b is (K, N) and the product is
+    ``a · b`` (8-bit kinds).  Every epilogue operand is optional; ``rs``
     goes with ``vz0`` and ``zp`` with ``vz1``."""
     if b_layout not in ("nt", "nn"):
         raise ValueError(f"b_layout {b_layout!r}")
@@ -249,9 +311,8 @@ def scaled_gemm(a, b, out_dtype=torch.bfloat16, xs=None, ws=None, bias=None,
         raise ValueError("rs needs vz0 and zp needs vz1")
     m, k = a.shape
     n = b.shape[1 if nn else 0]
-    if k < 1 or (a.dtype == torch.int8 and k >= _I8_MAX_K):
-        raise ValueError(f"scaled_gemm takes 1 <= K < {_I8_MAX_K} for "
-                         f"int8 (an exact int32 sum), got K {k}")
+    if k < 1:
+        raise ValueError(f"scaled_gemm takes K >= 1, got K {k}")
     a, b = gemm_operands(a, b, nn)
     xs, rs, zp = (_vec(t, m, nm) for t, nm in ((xs, "xs"), (rs, "rs"),
                                                 (zp, "zp")))
@@ -265,6 +326,9 @@ def scaled_gemm(a, b, out_dtype=torch.bfloat16, xs=None, ws=None, bias=None,
         if nn:
             plan = nn_plan(m, n, k, a.dtype, _sm_count(a.device))
             work = _nn_work(fn, m, n, plan, a)
+        elif a.dtype == torch.int8 and k >= LONG_K:
+            plan = (1, 0, long_parts(k))
+            work = _workspace(fn, *nt_work_ints(m, n, plan[2]), a)
         _build.check(fn(_build.ptr(a), a.stride(0), _build.ptr(b),
                         b.stride(0),
                         *(_build.ptr(t) for t in (out, xs, ws, bias, rs, zp,
@@ -276,6 +340,8 @@ def scaled_gemm(a, b, out_dtype=torch.bfloat16, xs=None, ws=None, bias=None,
         scaled_gemm.launches += 1
         scaled_gemm.mode_launches["nn" if nn else "nt"] += 1
         scaled_gemm.mode_launches["bf16"] += a.dtype == torch.bfloat16
+        scaled_gemm.mode_launches["long"] += (a.dtype == torch.int8
+                                              and k >= LONG_K)
     return out
 
 
@@ -291,10 +357,14 @@ def gemm_operands(a, b, nn: bool):
 
 
 scaled_gemm.launches = 0
-scaled_gemm.mode_launches = dict(nt=0, nn=0, bf16=0)
+scaled_gemm.mode_launches = dict(nt=0, nn=0, bf16=0, long=0)
 _GEMM_KINDS = {torch.int8: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
-# The int32 sum is exact while 128 * 128 * K < 2^31.
-_I8_MAX_K = 1 << 17
+# An int8 sum is exact in int32 while 128 * 128 * K < 2^31: a contraction
+# of LONG_K rows or more is split into parts of at most LONG_PART_STAGES
+# stages of 128 rows (130,944 rows), whose int32 sums the kernel adds in
+# int64 (hopper.cuh's ``part_stages``).
+LONG_K = 1 << 17
+LONG_PART_STAGES = 1023
 # The nn kernel's stages take 128 contraction rows; a split tile's
 # contraction is split at most this many ways.
 NN_STAGE = 128
@@ -311,6 +381,15 @@ _NN_SLAB_WRITE = 8.0
 _NN_SLAB_READ = 4.0
 
 
+def long_parts(k: int) -> int:
+    """The parts of an int8 contraction of ``k`` rows: 1 below 2^17, else
+    the fewest whose stages of 128 rows each number at most
+    LONG_PART_STAGES."""
+    if k < LONG_K:
+        return 1
+    return -(-(-(-k // 128)) // LONG_PART_STAGES)
+
+
 def nn_plan(m: int, n: int, k: int, dtype, sms: int = 132):
     """B4 nn's plan for a (M, K) x (K, N) product: ``(nb, whole, splits)``:
     tiles 128 x 128 nb, the first ``whole`` computed whole and the
@@ -323,19 +402,24 @@ def nn_plan(m: int, n: int, k: int, dtype, sms: int = 132):
     sms)`` rounds of ``ceil(stages / splits)``, where a wide stage costs
     ``_NN_WIDE_STAGE``, a round ``_NN_UNIT`` more, and a split unit its
     partial sums' traffic (in proportion to its rows): written by each,
-    read by its tile's last.  e4m3 takes 128 x 128 tiles only."""
+    read by its tile's last.  e4m3 takes 128 x 128 tiles only.  An int8
+    contraction of 2^17 rows or more splits every 128 x 128 tile (``whole``
+    0), at least ``long_parts`` ways."""
     stages = -(-k // NN_STAGE)
     mt = -(-m // 128)
     rows = min(m, 128) / 128
+    least = long_parts(k) if dtype == torch.int8 else 1
     best = None
-    for nb in (1, 2) if dtype == torch.int8 else (1,):
+    for nb in (1, 2) if dtype == torch.int8 and least == 1 else (1,):
         tiles = mt * -(-n // (128 * nb))
         stage = _NN_WIDE_STAGE if nb == 2 else 1.0
-        for whole in sorted({tiles, tiles // sms * sms} if nb == 1
-                            else {tiles}, reverse=True):
+        wholes = {tiles, tiles // sms * sms} if nb == 1 else {tiles}
+        if least > 1:
+            wholes = {0}
+        for whole in sorted(wholes, reverse=True):
             tail = tiles - whole
-            for splits in range(1, min(stages, NN_MAX_SPLITS) + 1
-                                if tail else 2):
+            for splits in range(least, max(least, min(stages, NN_MAX_SPLITS))
+                                + 1 if tail else 2):
                 cost = -(-whole // sms) * (stages * stage + _NN_UNIT)
                 if tail:
                     per = -(-stages // splits) * stage + _NN_UNIT
@@ -358,26 +442,40 @@ def nn_work_ints(m: int, n: int, nb: int, whole: int, splits: int):
     return tail, splits * tail * 128 * 128 * nb
 
 
+def nt_work_ints(m: int, n: int, parts: int):
+    """B4 nt's workspace for a contraction in ``parts`` (> 1), in int32
+    entries, ``(counters, slabs)``: a counter a tile and a slab of its
+    128 x 128 nb sums a part and tile, for either tile width."""
+    mt = -(-m // 128)
+    return mt * -(-n // 128), parts * mt * -(-n // 256) * 256 * 128
+
+
 def _nn_work(fn, m, n, plan, a):
     """The workspace of a split call: ``(counters, slabs)``, or ``(None,
-    None)``.  One a build of the kernel (``fn``), device and stream, kept
-    between calls and grown as needed: its counters are zeroed when made,
-    and each call leaves them 0 (a tile's last unit resets its own), so no
-    call fills them; the slabs are written before they are read."""
-    counters, slabs = nn_work_ints(m, n, *plan)
+    None)``."""
+    return _workspace(fn, *nn_work_ints(m, n, *plan), a)
+
+
+def _workspace(fn, counters, slabs, a):
+    """``counters`` and ``slabs`` int32 entries of a split call's
+    workspace, or ``(None, None)`` for none.  The counters are one array a
+    build of the kernel (``fn``), device and stream, kept between calls and
+    grown as needed: zeroed when made, and each call leaves them 0 (a
+    tile's last unit resets its own), so no call fills them.  The slabs
+    are written before they are read, so each call takes them from the
+    caching allocator, which has them back when the call's stream is done
+    with them (B10's over 147,456 tokens at linear1's width: 528 MB)."""
     if not slabs:
         return None, None
     cache = getattr(fn, "nn_work", None)
     if cache is None:
         cache = fn.nn_work = {}
     key = (a.device.index, _build.stream(a))
-    c, s = cache.get(key, (None, None))
+    c = cache.get(key)
     if c is None or c.numel() < counters:
-        c = torch.zeros(counters, dtype=torch.int32, device=a.device)
-    if s is None or s.numel() < slabs:
-        s = torch.empty(slabs, dtype=torch.int32, device=a.device)
-    cache[key] = (c, s)
-    return c, s
+        c = cache[key] = torch.zeros(counters, dtype=torch.int32,
+                                     device=a.device)
+    return c, torch.empty(slabs, dtype=torch.int32, device=a.device)
 
 
 _SMS: dict = {}
@@ -399,9 +497,9 @@ def scaled_mm_tn_plain(a_q, b_q, a_scale=None, b_scale=None,
                        out_dtype=torch.float32, lowrank_u=None,
                        lowrank_v=None):
     """Plain version of ``scaled_mm_tn``: ((aᵀ·b) * a_s[n]) * b_s[k] in
-    fp32 (the int8 sum exact in float64), then ``+ u @ v``."""
+    fp32 (the int8 sum exact in float64, rounded once), then ``+ u @ v``."""
     if a_q.dtype == torch.int8:
-        acc = (a_q.double().T @ b_q.double()).float()  # exact int32 sum
+        acc = _exact_int8_mm(a_q.T, b_q).float()   # exact, rounded once
     else:
         acc = a_q.float().T @ b_q.float()
     out = acc
@@ -419,7 +517,8 @@ def scaled_mm_tn(a_q, b_q, a_scale=None, b_scale=None,
     (M, K), both int8 or both fp8 e4m3, any M (M = 1 included); the
     columnwise scales (N,) / (K,) are optional; the rank-R u (N, R) @ v
     (R, K) term is added in the kernel's epilogue (fp32, summed in r
-    order)."""
+    order).  An int8 sum over 2^17 tokens or more stays exact: each tile
+    in ``long_parts`` parts, added in int64."""
     if not is_cuda(a_q):
         return scaled_mm_tn_plain(a_q, b_q, a_scale, b_scale, out_dtype,
                                   lowrank_u, lowrank_v)
@@ -432,9 +531,6 @@ def scaled_mm_tn(a_q, b_q, a_scale=None, b_scale=None,
         raise ValueError("lowrank_u needs lowrank_v")
     m, n = a_q.shape
     k = b_q.shape[1]
-    if a_q.dtype == torch.int8 and m >= _I8_MAX_K:
-        raise ValueError(f"scaled_mm_tn takes M < {_I8_MAX_K} for int8 (an "
-                         f"exact int32 sum), got M {m}")
     a_s, b_s = _vec(a_scale, n, "a_scale"), _vec(b_scale, k, "b_scale")
     u, v, r = _tn_lowrank(lowrank_u, lowrank_v, n, k)
     out = torch.empty((n, k), dtype=torch.float32, device=a_q.device)
@@ -450,17 +546,22 @@ def scaled_mm_tn(a_q, b_q, a_scale=None, b_scale=None,
     a_q, b_q = _build.tma_rows(a_q), _build.tma_rows(b_q)
     tok, k_fast = tn_plan(m, n, k, a_q.dtype)
     fn = _build.function("scaled_mm_tn", "sdnq_scaled_mm_tn",
-                         [P, I, P, I] + [P] * 5 + [I] * 7 + [P])
+                         [P, I, P, I] + [P] * 5 + [I] * 8 + [P] * 3)
+    parts = long_parts(m) if a_q.dtype == torch.int8 else 1
+    counters, slabs = _workspace(fn, *tn_work_ints(n, k, parts), a_q)
     _build.check(fn(_build.ptr(a_q), a_q.stride(0), _build.ptr(b_q),
                     b_q.stride(0), *(_build.ptr(t) for t in (out, a_s, b_s,
                                                              u, v)),
                     r, m, n, k, _TN_KINDS[a_q.dtype], tok, int(k_fast),
+                    parts, _build.ptr(counters), _build.ptr(slabs),
                     _build.stream(a_q)), "scaled_mm_tn")
     scaled_mm_tn.launches += 1
+    scaled_mm_tn.mode_launches["parts"] += parts > 1
     return out.to(out_dtype)
 
 
 scaled_mm_tn.launches = 0
+scaled_mm_tn.mode_launches = dict(parts=0)
 _TN_KINDS = {torch.int8: 0, torch.float8_e4m3fn: 2}
 # The rank-R term against the plain version's torch u @ v: the kernel sums
 # it in fp32 in r order and adds it last, so each output may differ by an
@@ -481,6 +582,16 @@ def tn_plan(m: int, n: int, k: int, dtype):
     ``wide_tiles`` as for B4."""
     tok = min(128 if dtype == torch.int8 else 64, -(-m // 32) * 32)
     return tok, n >= k
+
+
+def tn_work_ints(n: int, k: int, parts: int):
+    """B10's workspace for ``parts`` in int32 entries, ``(counters,
+    slabs)``: a counter a tile and a slab of its 128 x 128 nb sums a part
+    and tile, for either tile width; none for one part."""
+    if parts == 1:
+        return 0, 0
+    nt = -(-n // 128)
+    return nt * -(-k // 128), parts * nt * 128 * -(-k // 256) * 256
 
 
 def _tn_lowrank(u, v, n, k):
@@ -519,13 +630,14 @@ def scaled_mm_fused_act(x, w_q, w_scale=None, bias=None, *,
                         lowrank_u=None, lowrank_v=None, v_zp0=None,
                         v_zp1=None, b_layout: str = "nt",
                         emit_quantized: bool = False, x_colscale=None,
-                        x_row_scale=None):
+                        x_row_scale=None, x_row_range=None):
     """``scaled_mm`` with per-row activation quantization of x (M, K) float:
     ``quantize_rows`` then ``scaled_gemm`` (two launches).
 
     x_fmt "int8" (symmetric), "uint8" (asymmetric; needs v_zp0 / v_zp1,
     the weight-side zero-point rows, which enter the epilogue as the rank-1
-    terms rowsum(x_q)*x_scale ⊗ v_zp0 + x_zp ⊗ v_zp1) or "float8_e4m3fn"
+    terms rowsum(x_q)*x_scale ⊗ v_zp0 + x_zp ⊗ v_zp1; ``x_row_range``
+    gives the rows' (minima, maxima)) or "float8_e4m3fn"
     (with e4m3 weights).  ``b_layout`` "nt": w_q (O, K), out = x @ w_qᵀ;
     "nn": w_q (K, O), out = x @ w_q, the stored (O, K) weight read as it
     lies when the cotangent plays x (the grad-input).  ``x_colscale`` (K,)
@@ -547,7 +659,8 @@ def scaled_mm_fused_act(x, w_q, w_scale=None, bias=None, *,
     # first K codes of each (the GEMM's view)
     pad = (-kdim) % 16 if is_cuda(x) else 0
     x_q, x_scale, x_zp, x_rs = quantize_rows(
-        x, x_fmt, k_pad=pad, colscale=x_colscale, row_scale=x_row_scale)
+        x, x_fmt, k_pad=pad, colscale=x_colscale, row_scale=x_row_scale,
+        row_range=x_row_range)
     if pad:
         x_q = x_q[:, :kdim]
     out = scaled_gemm(x_q, w_q, out_dtype, x_scale, w_scale, bias,
@@ -568,20 +681,29 @@ def dynamic_mm_tn(a, b, mm_fmt: str = "int8", out_dtype=torch.float32,
     with a pre-quantized (q, scale[, zp]) tuple.  The uint8 family's three
     rank-1 cross terms enter B10's epilogue as a rank-2 u @ v in fp32; the
     16-bit family is one bf16-valued product accumulated in fp32 (no
-    kernel, as in the JAX package).  ``stats`` (int8 / e4m3): the
-    columns' absolute maxima (a's (N,), b's (K,)) to quantize by, where
-    the tokens are split over data ranks."""
+    kernel, as in the JAX package).  ``stats`` ``(a's, b's)`` (8-bit
+    families): the columns' statistics to quantize by, where the tokens
+    are split over data ranks: absolute maxima (N,) / (K,), or for uint8
+    (minima, maxima); b's is None beside ``saved_b``."""
     f = get_format(mm_fmt)
     a = a.float()
     if stats is not None:
-        if saved_b is not None or not (f.num_bits == 8
-                                       and not f.is_unsigned):
-            raise ValueError("given column statistics take int8 or e4m3 "
-                             "operands quantized here")
-        a_s, b_s = (row_scale_from_amax(v, f.name).reshape(1, -1)
-                    for v in stats)
-        return scaled_mm_tn(quantize_with_scale(a, a_s, f.name),
-                            quantize_with_scale(b.float(), b_s, f.name),
+        if f.num_bits != 8 or (stats[1] is None) != (saved_b is not None):
+            raise ValueError("given column statistics take 8-bit operands, "
+                             "b's unless b is saved")
+        if f.is_unsigned:
+            a_q, b_q, a_s1, b_s1, u, v = uint8_tn_operands(a, b, saved_b,
+                                                           stats)
+            return scaled_mm_tn(a_q, b_q, a_s1, b_s1, out_dtype=out_dtype,
+                                lowrank_u=u, lowrank_v=v)
+        name = "int8" if f.is_integer else f.name
+        a_s = row_scale_from_amax(stats[0], name).reshape(1, -1)
+        if saved_b is None:
+            b_s = row_scale_from_amax(stats[1], name).reshape(1, -1)
+            b_q = quantize_with_scale(b.float(), b_s, name)
+        else:
+            b_q, b_s = saved_b
+        return scaled_mm_tn(quantize_with_scale(a, a_s, name), b_q,
                             a_s.reshape(-1), b_s.reshape(-1),
                             out_dtype=out_dtype)
     if f.is_integer and not f.is_unsigned:
@@ -605,16 +727,24 @@ def dynamic_mm_tn(a, b, mm_fmt: str = "int8", out_dtype=torch.float32,
     return acc.to(out_dtype)
 
 
-def uint8_tn_operands(a, b, saved_b=None):
+def uint8_tn_operands(a, b, saved_b=None, ranges=None):
     """The uint8 family's B10 operands for aᵀ @ b: ``(a_q, b_q, a_s, b_s,
     u, v)``, both quantized columnwise with a zero point (``saved_b`` the
-    b side's (q, scale, zp)).  aᵀb = (a_q s_a + z_a)ᵀ(b_q s_b + z_b):
-    colsum(a_q)·s_a ⊗ z_b, z_a ⊗ colsum(b_q)·s_b and M·z_a ⊗ z_b, as one
-    rank-2 term u (N, 2) @ v (2, K)."""
+    b side's (q, scale, zp); ``ranges`` the columns' given (minima, maxima)
+    of a and of b, b's None beside ``saved_b``).  aᵀb = (a_q s_a +
+    z_a)ᵀ(b_q s_b + z_b): colsum(a_q)·s_a ⊗ z_b, z_a ⊗ colsum(b_q)·s_b and
+    M·z_a ⊗ z_b, as one rank-2 term u (N, 2) @ v (2, K), each linear in
+    the tokens, so that data ranks' terms add up to the whole batch's."""
     mdim = a.shape[0]
-    a_q, a_s, a_zp = quantize_uint_mm(a.float(), 0)
-    b_q, b_s, b_zp = (quantize_uint_mm(b.float(), 0) if saved_b is None
-                      else saved_b)
+
+    def quantize(x, rng):
+        if rng is None:
+            return quantize_uint_mm(x.float(), 0)
+        s, zp = uint8_scale_from_range(*(r.reshape(1, -1) for r in rng))
+        return quantize_with_range(x, s, zp), s, zp
+    a_q, a_s, a_zp = quantize(a, None if ranges is None else ranges[0])
+    b_q, b_s, b_zp = (quantize(b, None if ranges is None else ranges[1])
+                      if saved_b is None else saved_b)
     a_s1, a_zp1 = a_s.reshape(-1), a_zp.reshape(-1)
     b_s1, b_zp1 = b_s.reshape(-1), b_zp.reshape(-1)
     csa = a_q.to(torch.int32).sum(0).float()

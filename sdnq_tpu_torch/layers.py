@@ -61,6 +61,7 @@ from .formats import torch_dtype
 from .kernels.dequant_mm import (
     PACKED_MM_MAX_ROWS, dequant_matmul, packed_int8_matmul,
 )
+from .kernels import scaled_mm as _smm
 from .kernels.scaled_mm import (
     bf16_scaled_mm, row_scale_from_amax, scaled_mm_fused_act,
 )
@@ -91,14 +92,33 @@ def _weight_as_int8(qt: QTensor):
     return q, scale, zp
 
 
-def _requantize_rowwise(qt: QTensor):
+def _requantize_rowwise(qt: QTensor, reduce=None):
     """Grouped storage -> rowwise matmul operands, dequantized without the
-    SVD correction and without undoing the Hadamard rotation."""
+    SVD correction and without undoing the Hadamard rotation.  ``reduce``
+    (a row-parallel shard's all-reduce, max, over the tensor axis): each
+    row's statistics are taken over the whole row, and B1 quantizes the
+    shard's columns against them (its given-scale and given-range modes),
+    so that the codes are the whole rows'."""
     wd = dequantize(qt, dtype=torch.float32, with_svd=False,
                     with_hadamard=False)
     if wd.dim() > 2:
         wd = wd.reshape(wd.shape[0], -1)
     mfmt = qt.meta.matmul_format
+    if reduce is not None:
+        if mfmt.is_integer and mfmt.is_unsigned:
+            w_q, s, zp, _ = _smm.quantize_rows(   # looked up at the call
+                wd, "uint8", row_range=_given_row_range(wd, reduce))
+            return w_q, s, zp
+        amax = reduce(wd.abs().amax(-1))
+        if mfmt.name in ("int8", "float8_e4m3fn"):
+            w_q, s, _, _ = _smm.quantize_rows(
+                wd, mfmt.name, row_scale=row_scale_from_amax(amax, mfmt.name))
+            return w_q, s, None
+        if mfmt.num_bits > 8:
+            s = torch.clamp_min(amax.reshape(-1, 1), 2.0 ** -126)
+            return (wd / s).to(torch.bfloat16), s, None
+        raise ValueError(f"a row-parallel shard re-quantized to "
+                         f"{mfmt.name} has no given-scale quantizer")
     if mfmt.is_integer:
         if mfmt.is_unsigned:
             return quantize_uint_mm(wd, -1)
@@ -109,6 +129,15 @@ def _requantize_rowwise(qt: QTensor):
         return w_q, s, None
     s = torch.clamp_min(wd.abs().amax(-1, keepdim=True), 2.0 ** -126)
     return (wd / s).to(torch.bfloat16), s, None
+
+
+def _given_row_range(x2d, reduce):
+    """The rows' (minima, maxima) over the whole rows where ``reduce`` (as
+    ``x_amax_reduce``) is given: one all-reduce of (-min, max), exact."""
+    if reduce is None:
+        return None
+    r = reduce(torch.stack([-x2d.amin(-1), x2d.amax(-1)]).float())
+    return -r[0], r[1]
 
 
 def _given_row_scale(x2d, x_amax_reduce, x_fmt):
@@ -127,10 +156,10 @@ def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype,
     ``(y, x_q, x_scale)``, or ``(y, x_q, x_scale, x_zp)`` for the
     asymmetric uint8 family (see ``scaled_mm_fused_act``).
     ``x_amax_reduce`` (a row-parallel shard's all-reduce, max, over the
-    tensor axis) maps the rows' absolute maxima to those the rows are
-    quantized by, so that a shard's codes are the whole rows' (int8 and
-    e4m3 rows; the asymmetric family raises, the 16-bit one quantizes
-    none)."""
+    tensor axis) maps the rows' absolute maxima (uint8: their minima and
+    maxima) to those the rows are quantized by, so that a shard's codes
+    are the whole rows' (the 16-bit family quantizes none); a weight
+    re-quantized for the matmul takes its rows' statistics so too."""
     meta = qt.meta
     mfmt = meta.matmul_format
     if meta.use_hadamard:
@@ -153,7 +182,7 @@ def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype,
                 if u is not None:
                     out = (out.float() + u @ v).to(out_dtype)
                 return out
-        w_q, w_scale, w_zp = _requantize_rowwise(qt)
+        w_q, w_scale, w_zp = _requantize_rowwise(qt, x_amax_reduce)
     elif mfmt.is_integer:
         w_q, w_scale, w_zp = _weight_as_int8(qt)
     else:
@@ -165,10 +194,6 @@ def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype,
 
     if mfmt.is_integer:
         if w_zp is not None or mfmt.is_unsigned:
-            if x_amax_reduce is not None:
-                raise ValueError("the asymmetric (uint8) rows take their "
-                                 "own minimum and maximum: a row-parallel "
-                                 "shard of that family is not exact")
             # y += [rowsum(x_q)*x_s] ⊗ w_zp
             #      + x_zp ⊗ [colsum(w_q)*w_s + K*w_zp]
             kdim = x2d.shape[-1]
@@ -180,7 +205,8 @@ def _quantized_matmul_2d(x2d, qt: QTensor, bias, out_dtype,
                 x2d, w_q, w_scale, bias, x_fmt="uint8", out_dtype=out_dtype,
                 lowrank_u=u, lowrank_v=v, v_zp0=wz,
                 v_zp1=w_colsum * w_scale.reshape(1, -1) + float(kdim) * wz,
-                emit_quantized=emit_quantized)
+                emit_quantized=emit_quantized,
+                x_row_range=_given_row_range(x2d, x_amax_reduce))
         return scaled_mm_fused_act(
             x2d, w_q, w_scale, bias, x_fmt="int8", out_dtype=out_dtype,
             lowrank_u=u, lowrank_v=v, emit_quantized=emit_quantized,

@@ -13,8 +13,9 @@ With ``use_quantized_matmul=True`` every product inside NS is a dynamic
 int8 GEMM: both operands quantized per row (``quant.core.quantize_int_mm``,
 the second one transposed to (N, K)), then B4's nt GEMM
 (``kernels.scaled_mm.scaled_mm``, looked up at each call), as the JAX
-package's ``_make_mm`` runs ``_mm_kernel``.  The int8 GEMM sums exactly in
-int32, so its contraction must stay under 2^17 (a longer side raises).
+package's ``_make_mm`` runs ``_mm_kernel``.  The int8 GEMM's sum is exact
+at any side: B4 adds the int32 sums of a contraction's parts of fewer than
+2^17 rows in int64.
 
 A stacked leaf (L, O, I) is orthogonalized as one (L, O·I) matrix, and a
 stacked (L, O) bias with L, O >= 16 counts as a matrix, as in the JAX
@@ -48,10 +49,6 @@ GRAM_NS_COEFFICIENTS = (
     (2.1910971618617303, -1.441662010214663, 0.328146487623155),
 )
 
-# B4's int8 GEMM sums in int32, exact while 128 * 128 * K < 2^31
-_I8_MAX_K = 1 << 17
-
-
 def _make_mm(use_quantized: bool, dtype):
     """``mm(a, b)`` -> a @ b in the NS working dtype.  Plain: the operands
     rounded to ``dtype``, fp32 sums.  Quantized: a per row and bᵀ per row
@@ -63,12 +60,6 @@ def _make_mm(use_quantized: bool, dtype):
         return mm
 
     def mm(a, b):
-        k = a.shape[-1]
-        if k >= _I8_MAX_K:
-            raise ValueError(
-                f"Muon's quantized Newton-Schulz multiplies over a side of "
-                f"{k} >= 2^17: B4's int8 GEMM sums exactly in int32 only "
-                f"below that (use_quantized_matmul_ns=False for this leaf)")
         a_q, a_s = quantize_int_mm(a, -1)
         b_q, b_s = quantize_int_mm(b.T.contiguous(), -1)
         return _sm.scaled_mm(a_q, b_q, a_s, b_s, None,

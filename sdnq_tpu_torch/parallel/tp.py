@@ -15,14 +15,17 @@ it over the tensor axis (``_collectives.AxisComm``):
 * row parallel (``proj``, ``fc2``, ``linear2``): the rank's input columns
   times its columns of the weight, an fp32 partial sum, summed over the
   ranks (Megatron's g), then the bias, once.  Where the quantized matmul
-  quantizes the input rows (B1), their absolute maximum is all-reduced
-  (max) first and B1 quantizes against the given scale, so the codes are
-  the unsharded layer's bit for bit;
+  quantizes the input rows (B1), their absolute maximum (uint8: their
+  minimum and maximum) is all-reduced first and B1 quantizes against the
+  given statistics, so the codes are the unsharded layer's bit for bit; a
+  weight re-quantized for the matmul takes its rows' statistics so too;
 * a row-parallel layer that the axis does not divide (its groups along the
   input would straddle a shard) is replicated: it gathers its input and
   runs whole;
-* "fsdp": the layer's codes gathered (forward only), then the whole
-  layer.
+* "fsdp": the layer's codes gathered, then the whole layer; in training
+  the gather is an autograd node whose backward keeps this rank's slice
+  of the whole gradient (every fsdp rank holds the same batch, so each
+  computes the whole gradient).
 
 ``local_tree`` turns a sharded tree into one of local leaves with a
 ``"tp"`` entry beside each sharded layer's weight, which ``models.dit``'s
@@ -42,13 +45,15 @@ import torch
 
 from ..formats import torch_dtype
 from ..layers import qlinear
-from ..tensor import QTensor
+from ..tensor import QTensor, layer_count
 from ..train.matmul import (
-    TrainQTensor, grad_input_stats, keep_for_backward, train_backward,
-    train_forward, train_qlinear,
+    TrainQTensor, grad_carrier, grad_input_stats, keep_for_backward,
+    train_backward, train_forward, train_qlinear,
 )
 from ._collectives import VirtualComm, ordered_sum
-from .sharding import DIT_TP_RULES, Sharded, gather_leaf, shard_params
+from .sharding import (
+    DIT_TP_RULES, Sharded, gather_leaf, shard_params, take,
+)
 
 __all__ = ["TPLinear", "local_tree", "local_tp", "untake"]
 
@@ -117,13 +122,6 @@ class TPLinear:
                 f"tensor axis ({tuple(y.shape)} over {n}) cannot feed its "
                 "sharded consumer")
         if self.mode == "row":
-            qt = w.qt if isinstance(w, TrainQTensor) else w
-            if (isinstance(qt, QTensor) and qt.meta.use_quantized_matmul
-                    and qt.meta.re_quantize_for_matmul):
-                raise ValueError(
-                    "a row-parallel layer re-quantized for the matmul would "
-                    "take its weight rows' scales from its shard; shard it "
-                    "by 'col' or replicate it")
             y = c.sum(_linear(x, w, None, torch.float32,
                               c.amax if n > 1 else None))
             if b is not None:
@@ -164,9 +162,10 @@ class _ColTrain(torch.autograd.Function):
         stats = grad_input_stats(g.reshape(-1, g.shape[-1]), ctx.qt)
         if stats is not None:
             stats = tuple(None if v is None else c.amax(v) for v in stats)
-        gx, gw, gb = train_backward(ctx, g, ctx.needs_input_grad[:3], stats)
+        gx, gw, gb = train_backward(ctx, g, ctx.needs_input_grad[:3], stats,
+                                    partial=True)
         if gx is not None:
-            gx = ordered_sum(c._gather_list(gx))
+            gx = ordered_sum(c._gather_list(gx)).to(ctx.x_dtype)
         return gx, gw, gb, None, None, None
 
 
@@ -200,11 +199,12 @@ class _ColTrainJoint(torch.autograd.Function):
                           for i in range(len(per[0])))
         out, gxs = [], []
         for r, (g, k) in enumerate(zip(gs, ctx.ranks)):
-            gx, gw, gb = train_backward(k, g, needs[3 * r:3 * r + 3], stats)
+            gx, gw, gb = train_backward(k, g, needs[3 * r:3 * r + 3], stats,
+                                        partial=True)
             gxs.append(gx)
             out += [gx, gw, gb]
         if gxs[0] is not None:
-            total = ordered_sum(gxs)
+            total = ordered_sum(gxs).to(ctx.ranks[0].x_dtype)
             for r in range(len(gxs)):
                 out[3 * r] = total
         return (None,) + tuple(out)
@@ -224,6 +224,45 @@ def _col_train(c, x, w: TrainQTensor, b):
         y = _ColTrain.apply(x2d, w.delta, b, c, w.qt,
                             w.qt.meta.use_quantized_matmul)
     return y.reshape(*lead, y.shape[-1])
+
+
+class _FsdpGather(torch.autograd.Function):
+    """The whole of a trainable fsdp leaf: forward, ``whole`` (gathered
+    by the caller) as a new tensor, or a TrainQTensor's gradient carrier
+    of the whole shape; backward, this rank's slice of the whole gradient
+    (``take`` along the leaf's gradient placement)."""
+
+    @staticmethod
+    def forward(ctx, local, whole, pl, rank):
+        ctx.pl, ctx.rank = pl, rank
+        return whole.view_as(whole)
+
+    @staticmethod
+    def backward(ctx, g):
+        return take(g, ctx.pl, ctx.rank), None, None, None
+
+
+def _fsdp_leaf(s: Sharded):
+    """An fsdp leaf as the layer reads it: the whole leaf, gathered; where
+    it trains, through ``_FsdpGather``, so that its local shard (a
+    tensor, or a TrainQTensor's carrier) receives its slice of the
+    gradient."""
+    from .dryrun import _grad_placement
+    whole, x = gather_leaf(s), s.local
+    if isinstance(x, TrainQTensor):
+        pl = _grad_placement(s)
+        rank = s.mesh.get_local_rank(pl.axis) if pl.axis else 0
+        delta = grad_carrier(whole.meta.original_shape if layer_count(whole)
+                             is None else (whole.qdata.shape[0],)
+                             + tuple(whole.meta.original_shape),
+                             x.delta.device).detach()
+        return TrainQTensor(qt=whole, delta=_FsdpGather.apply(
+            x.delta, delta, pl, rank))
+    if isinstance(x, torch.Tensor) and x.requires_grad:
+        pl = s.placement
+        rank = s.mesh.get_local_rank(pl.axis) if pl.axis else 0
+        return _FsdpGather.apply(x, whole, pl, rank)
+    return whole
 
 
 def _layer_tp(w: Sharded):
@@ -254,11 +293,7 @@ def local_tree(tree):
     if isinstance(tree, Sharded):
         if tree.mode != "fsdp":
             return tree.local
-        # fsdp: the whole leaf, gathered for the forward (no gradient)
-        x = tree.local
-        if isinstance(x, TrainQTensor) or getattr(x, "requires_grad", False):
-            raise ValueError("fsdp-sharded layers run forward only")
-        return gather_leaf(tree)
+        return _fsdp_leaf(tree)
     if not isinstance(tree, dict):
         return tree
     out = {k: local_tree(v) for k, v in tree.items()}

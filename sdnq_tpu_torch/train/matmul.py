@@ -49,7 +49,7 @@ from ..tree import tree_map
 
 __all__ = ["TrainQTensor", "make_train_params", "train_qlinear",
            "train_forward", "train_backward", "keep_for_backward",
-           "grad_input_stats", "token_stats_reduced",
+           "grad_input_stats", "token_stats_reduced", "token_stats",
            "extract_weight_grads", "apply_weight_updates", "grad_carrier",
            "DynamicTensor", "dynamic_qlinear"]
 
@@ -184,13 +184,27 @@ def _row_scale(stats, i, fmt):
     return _smm.row_scale_from_amax(stats[i], fmt).reshape(-1)
 
 
+def token_stats(x, unsigned: bool, comm=None):
+    """x's (M, N) per-column statistics over its rows (the tokens),
+    all-reduced over ``comm`` (a data axis's ``AxisComm``) where given:
+    the absolute maxima (N,), or for the asymmetric family (minima,
+    maxima), reduced as one maximum of (-min, max), exact."""
+    if unsigned:
+        r = torch.stack([-x.amin(0), x.amax(0)]).float()
+        r = comm.amax(r) if comm is not None else r
+        return -r[0], r[1]
+    a = x.abs().amax(0).float()
+    return comm.amax(a) if comm is not None else a
+
+
 def _dynamic_mm_nn(a, b, mm_fmt: str = "int8", out_dtype=torch.float32,
                    stats=None):
     """a (M, C) × b (C, N) -> (M, N) contracting b's leading axis: the
     grad-input GEMM in natural layouts.  b is quantized columnwise (per
     output column n), a per row in B1's prologue, and B1's "nn" GEMM reads
     b as it lies.  ``stats`` (``grad_input_stats``: a's row and b's
-    column absolute maxima) replaces the operands' own, int8 and fp8."""
+    column absolute maxima; uint8: a's row absolute maxima and b's
+    negated column minima and maxima) replaces the operands' own."""
     f = get_format(mm_fmt)
     bf = b.float()
     if f.is_integer and not f.is_unsigned:
@@ -205,13 +219,20 @@ def _dynamic_mm_nn(a, b, mm_fmt: str = "int8", out_dtype=torch.float32,
             x_row_scale=_row_scale(stats, 0, "int8"))
     if f.is_integer:
         # asymmetric b (per column n): b = b_q·s + zp ⇒ out += rowsum(a) ⊗ zp
-        b_q, b_s, b_zp = quantize_uint_mm(bf, 0)
+        if stats is not None:   # (a's row amax, -b's column min, its max)
+            b_s, b_zp = _smm.uint8_scale_from_range(
+                -stats[1].reshape(1, -1), stats[2].reshape(1, -1))
+            b_q = _smm.quantize_with_range(bf, b_s, b_zp)
+        else:
+            b_q, b_s, b_zp = quantize_uint_mm(bf, 0)
         u = a.float().sum(1, keepdim=True)
         v = b_zp.reshape(1, -1).float()
         return _smm.scaled_mm_fused_act(a, b_q, b_s.reshape(-1), None,
                                         x_fmt="int8", out_dtype=out_dtype,
                                         b_layout="nn", lowrank_u=u,
-                                        lowrank_v=v)
+                                        lowrank_v=v,
+                                        x_row_scale=_row_scale(stats, 0,
+                                                               "int8"))
     if f.num_bits == 8:
         if stats is not None:
             b_s = _row_scale(stats, 1, f.name).reshape(1, -1)
@@ -255,19 +276,29 @@ def _fused_emit_eligible(qt, m_rows, use_quantized_matmul) -> bool:
     return mfmt.num_bits == 8
 
 
-def _save_columnwise(x2d, qt):
+def _save_columnwise(x2d, qt, comm=None):
     """The ckpt residual where no kernel emits one: x quantized columnwise
     (per feature, over the tokens) in the layer's execution family, so the
-    grad-weight GEMM contracts it as it lies."""
+    grad-weight GEMM contracts it as it lies; under a data axis (``comm``)
+    against the statistics of every rank's tokens, so that the codes are
+    the unsharded batch's."""
     f = get_format(_exec_fmt(qt.meta.matmul_fmt))
     xf = x2d.float()
-    if f.is_integer and not f.is_unsigned:
-        return quantize_int_mm(xf, 0)
-    if f.is_integer:
-        return quantize_uint_mm(xf, 0)
-    if f.num_bits == 8:
+    if f.num_bits > 8:
+        return (xf.to(torch.bfloat16),)
+    if comm is None:
+        if f.is_integer and not f.is_unsigned:
+            return quantize_int_mm(xf, 0)
+        if f.is_integer:
+            return quantize_uint_mm(xf, 0)
         return quantize_fp_mm(xf, 0, fmt=f)
-    return (xf.to(torch.bfloat16),)
+    st = token_stats(xf, f.is_unsigned, comm)
+    if f.is_unsigned:
+        s, zp = _smm.uint8_scale_from_range(*(v.reshape(1, -1) for v in st))
+        return _smm.quantize_with_range(xf, s, zp), s, zp
+    name = "int8" if f.is_integer else f.name
+    s = _smm.row_scale_from_amax(st, name).reshape(1, -1)
+    return _smm.quantize_with_scale(xf, s, name), s
 
 
 def _fast_grad_input(qt) -> bool:
@@ -295,19 +326,19 @@ def grad_input_stats(g2d, qt):
     the contraction (W's rows): ``(row amax of g (M,), column amax of W
     (K,) or None)``; None where its family takes none (16-bit).  A
     column-parallel shard all-reduces them (max) over the tensor axis
-    before ``_grad_input``; the asymmetric (uint8) family's ranges are not
-    reduced, so it raises."""
+    before ``_grad_input``.  The asymmetric (uint8) family quantizes W's
+    columns by their ranges: ``(row amax of g, -column min of W, column
+    max of W)``, so that a maximum reduces each."""
     f = get_format(_exec_fmt(qt.meta.matmul_fmt))
     if _fast_grad_input(qt):
         w_s = _weight_as_int8(qt)[1].reshape(1, -1).float()
         return ((g2d.float() * w_s).abs().amax(-1), None)
     if f.num_bits > 8:
         return None
+    w = _dequant_2d(qt)
     if f.is_unsigned:
-        raise ValueError("the asymmetric (uint8) grad-input quantization "
-                         "takes its ranges per shard: a column-parallel "
-                         "layer of that family is not exact")
-    return (g2d.float().abs().amax(-1), _dequant_2d(qt).abs().amax(0))
+        return (g2d.float().abs().amax(-1), -w.amin(0), w.amax(0))
+    return (g2d.float().abs().amax(-1), w.abs().amax(0))
 
 
 def _grad_input(g2d, qt, x_dtype, stats=None):
@@ -357,7 +388,12 @@ def _grad_weight(g2d, saved, qt, emitted, save_q_acts, token_comm=None):
         else:
             xq, xs = saved
         gf = g2d.float() * xs.float()
-        if f.is_integer:
+        if token_comm is not None:   # the columns over every rank's tokens
+            name = "int8" if f.is_integer else f.name
+            gs = _smm.row_scale_from_amax(token_stats(gf, False, token_comm),
+                                          name).reshape(1, -1)
+            gq = _smm.quantize_with_scale(gf, gs, name)
+        elif f.is_integer:
             gq, gs = quantize_int_mm(gf, 0)
         else:
             gq, gs = quantize_fp_mm(gf, 0, fmt=f)
@@ -375,19 +411,19 @@ def _grad_weight(g2d, saved, qt, emitted, save_q_acts, token_comm=None):
     elif save_q_acts and not (f.is_integer or f.num_bits == 8):
         gw = _smm.dynamic_mm_tn(g2d, saved[0], mm_fmt)
     elif save_q_acts:
-        gw = _smm.dynamic_mm_tn(g2d, None, mm_fmt, saved_b=saved)
+        stats = None
+        if token_comm is not None:   # g's columns over every rank's tokens
+            stats = (token_stats(g2d.float(), f.is_unsigned, token_comm),
+                     None)
+        gw = _smm.dynamic_mm_tn(g2d, None, mm_fmt, saved_b=saved,
+                                stats=stats)
     else:
         x = saved[0].float()
         stats = None
         if token_comm is not None and (f.is_integer or f.num_bits == 8):
-            if f.is_unsigned:
-                raise ValueError(
-                    "the asymmetric (uint8) grad-weight quantization takes "
-                    "its ranges per data shard: not exact under data "
-                    "parallelism")
             # the tokens' statistics over every data rank's tokens
-            stats = (token_comm.amax(g2d.float().abs().amax(0)),
-                     token_comm.amax(x.abs().amax(0)))
+            stats = (token_stats(g2d.float(), f.is_unsigned, token_comm),
+                     token_stats(x, f.is_unsigned, token_comm))
         gw = _smm.dynamic_mm_tn(g2d, x, mm_fmt, stats=stats)
     return gw.reshape(meta.original_shape)
 
@@ -406,23 +442,27 @@ def train_forward(x2d, bias, qt, save_q_acts, use_quantized_matmul,
     else:
         y = _fwd_value(x2d, qt, bias, use_quantized_matmul,
                        out_dtype=out_dtype, x_amax_reduce=x_amax_reduce)
-        saved = (_save_columnwise(x2d, qt) if save_q_acts else (x2d,))
+        saved = (_save_columnwise(x2d, qt, getattr(_TOKENS, "comm", None))
+                 if save_q_acts else (x2d,))
     return y, tuple(saved), emitted
 
 
-def train_backward(ctx, g, needs, stats=None):
+def train_backward(ctx, g, needs, stats=None, partial=False):
     """The trainable linear's gradients ``(gx, gw, gb)`` from the
     cotangent ``g`` and what ``ctx`` kept (saved tensors, qt, emitted,
     save_q_acts, x_dtype, bias_dtype); ``needs`` the three inputs' flags.
     ``stats``: the grad-input quantization's statistics
-    (``grad_input_stats``), all-reduced over a tensor axis."""
+    (``grad_input_stats``), all-reduced over a tensor axis.  ``partial``:
+    gx is a column-parallel shard's partial sum, kept in fp32 so that the
+    ranks' sum is rounded to x's type once, as the unsharded layer's."""
     saved = ctx.saved_tensors
     # the cotangent stays in its own (bf16) type: the quantize passes read
     # it as it is
     g2d = g.reshape(-1, g.shape[-1])
     gx = gw = gb = None
     if needs[0]:
-        gx = _grad_input(g2d, ctx.qt, ctx.x_dtype, stats).to(ctx.x_dtype)
+        gx_dtype = torch.float32 if partial else ctx.x_dtype
+        gx = _grad_input(g2d, ctx.qt, gx_dtype, stats).to(gx_dtype)
     if needs[1]:
         gw = _grad_weight(g2d, saved, ctx.qt, ctx.emitted, ctx.save_q_acts,
                           getattr(ctx, "token_comm", None))
@@ -436,10 +476,11 @@ _TOKENS = threading.local()
 
 @contextlib.contextmanager
 def token_stats_reduced(comm):
-    """Within the block (on this thread), the trainable linears' backward
-    takes the grad-weight's per-column statistics over the tokens of every
-    rank of ``comm`` (a data axis's ``AxisComm``: its all-reduce, max), so
-    that data parallelism computes the unsharded batch's gradient."""
+    """Within the block (on this thread), the trainable linears take their
+    per-column statistics over the tokens (the grad-weight's operands, the
+    saved quantized activations) over every rank of ``comm`` (a data
+    axis's ``AxisComm``: its all-reduce, max), so that data parallelism
+    computes the unsharded batch's gradient."""
     prev = getattr(_TOKENS, "comm", None)
     _TOKENS.comm = comm if comm is not None and comm.size > 1 else None
     try:
@@ -454,10 +495,6 @@ def keep_for_backward(ctx, x2d, bias, qt, saved, emitted, save_q_acts):
     ctx.x_dtype = x2d.dtype
     ctx.bias_dtype = None if bias is None else bias.dtype
     ctx.token_comm = getattr(_TOKENS, "comm", None)
-    if ctx.token_comm is not None and (save_q_acts or emitted):
-        raise ValueError("saved quantized activations take their token "
-                         "statistics per data shard: not exact under data "
-                         "parallelism")
 
 
 class _TrainLinear(torch.autograd.Function):

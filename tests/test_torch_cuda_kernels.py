@@ -1631,10 +1631,13 @@ def test_scaled_gemm_nt_views(dev, kind):
 
 
 def test_scaled_gemm_refuses_inexact_int8_k(dev):
-    """The int32 sum is exact only for K < 2^17: a larger K raises."""
-    a = torch.zeros(2, 1 << 17, device=dev, dtype=torch.int8)
-    with pytest.raises(ValueError, match="exact int32"):
-        ks.scaled_gemm(a, a, torch.float32)
+    """An int32 sum is exact only for K < 2^17: at K = 2^17 the kernel
+    adds its parts' int32 sums in int64 and stays exact (the name is kept
+    from when it raised there), codes of -128 summing to 2^31 exactly."""
+    a = torch.full((2, 1 << 17), -128, device=dev, dtype=torch.int8)
+    got = ks.scaled_gemm(a, a, torch.float32)
+    assert torch.equal(got, ks.scaled_gemm_plain(a, a, torch.float32))
+    assert got[0, 0].item() == 2.0 ** 31
 
 
 # B8 on the tensor cores: every half-split width; groups of 8 and 16, of 40
@@ -2315,3 +2318,169 @@ def test_scaled_gemm_ns_shapes(dev, n, x):
         got = ks.scaled_mm(a, b, xs, ws, out_dtype=torch.float32)
         want = ks.scaled_gemm_plain(a, b, torch.float32, xs, ws)
         assert torch.equal(got, want)
+
+
+def _long_codes(shape, g, dev, lines, dim):
+    """Random int8 codes with ``lines`` (index, code) rows (dim 0) or
+    columns (dim 1) set to one extreme code, so that their sums pass
+    2^31."""
+    x = torch.randint(-128, 128, shape, device=dev, generator=g,
+                      dtype=torch.int8)
+    for i, c in lines:
+        x.select(dim, i).fill_(c)
+    return x
+
+
+@pytest.mark.parametrize("k", [(1 << 17) + 96, 1 << 18])
+@pytest.mark.parametrize("m,n", [(300, 200), (130, 520)])
+def test_scaled_gemm_long_contraction_exact(dev, k, m, n):
+    """B4 nt and nn over a contraction of 2^17 rows or more (a ragged tail,
+    and 2^18): each tile's parts summed in int64, bit-equal to the plain
+    version where rows of -128 and 127 make sums past 2^31, every epilogue
+    term, call after call on the workspace."""
+    g = _gen(41)
+    a = _long_codes((m, k), g, dev, ((0, -128), (1, 127), (m - 1, -128)), 0)
+    bt = _long_codes((n, k), g, dev, ((0, -128), (1, -128), (n - 1, 127)), 0)
+    xs = torch.rand(m, 1, device=dev, generator=g) * 1e-6
+    ws = torch.rand(n, device=dev, generator=g) * 0.02
+    bias, vz0, vz1 = (torch.randn(n, device=dev, generator=g)
+                      for _ in range(3))
+    rs, zp = (torch.randn(m, device=dev, generator=g) for _ in range(2))
+    assert ks.scaled_gemm_plain(a, bt, torch.float32).abs().max() > 2 ** 31
+    for b, layout in ((bt, "nt"), (bt.T.contiguous(), "nn")):
+        for args in ((xs, ws, bias, rs, zp, vz0, vz1), ()):
+            want = ks.scaled_gemm_plain(a, b, torch.float32, *args,
+                                        b_layout=layout)
+            for _ in range(2):
+                got = ks.scaled_gemm(a, b, torch.float32, *args,
+                                     b_layout=layout)
+                assert torch.equal(got, want), layout
+
+
+@pytest.mark.parametrize("m", [(1 << 17) + 96, 1 << 18])
+def test_scaled_mm_tn_long_contraction_exact(dev, m):
+    """B10 over 2^17 tokens or more, in parts, bit-equal to its plain
+    version where columns of -128 and 127 make sums past 2^31, with and
+    without the scales; the rank-2 term within ``TN_LOWRANK_TOL``."""
+    g = _gen(42)
+    n, k = 300, 520
+    a = _long_codes((m, n), g, dev, ((0, -128), (1, 127)), 1)
+    b = _long_codes((m, k), g, dev, ((0, -128), (1, -128), (k - 1, 127)), 1)
+    a_s = torch.rand(n, device=dev, generator=g) * 0.02
+    b_s = torch.rand(k, device=dev, generator=g) * 0.02
+    before = dict(ks.scaled_mm_tn.mode_launches)
+    for sc in ((a_s, b_s), (None, None)):
+        want = ks.scaled_mm_tn_plain(a, b, *sc)
+        assert want.abs().max() > 2 ** 31 or sc[0] is not None
+        for _ in range(2):
+            assert torch.equal(ks.scaled_mm_tn(a, b, *sc), want)
+    assert ks.scaled_mm_tn.mode_launches["parts"] == before["parts"] + 4
+    u = torch.randn(n, 2, device=dev, generator=g)
+    v = torch.randn(2, k, device=dev, generator=g)
+    got = ks.scaled_mm_tn(a, b, a_s, b_s, lowrank_u=u, lowrank_v=v)
+    want = ks.scaled_mm_tn_plain(a, b, a_s, b_s, lowrank_u=u, lowrank_v=v)
+    mag = want.abs() + u.abs() @ v.abs()
+    assert ((got - want).abs() <= ks.TN_LOWRANK_TOL * mag).all()
+
+
+@pytest.mark.parametrize("m,k", [(1, 3072), (37, 200), (300, 3072),
+                                 (64, 7681)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rows_given_range(dev, m, k, dtype):
+    """B1's uint8 rows against a given range (a row-parallel shard's,
+    the all-reduced minima and maxima), bit-equal to the plain version
+    through the staged kernel and both loops; against the rows' own range
+    they equal the rows' own codes, and a shard's columns against the
+    whole rows' range equal the whole rows' codes."""
+    g = _gen(32)
+    x = _planted_rows(m, k, "uint8", dtype, g)
+    rng = (x.float().amin(-1), x.float().amax(-1))
+    own = ks.quantize_rows(x, "uint8")
+    for pad in (0, 11):
+        got = ks.quantize_rows(x, "uint8", k_pad=pad, row_range=rng)
+        want = ks.quantize_rows_plain(x, "uint8", k_pad=pad, row_range=rng)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    got = ks.quantize_rows(x, "uint8", row_range=rng)
+    for a, b in zip(got, own):
+        assert torch.equal(a, b)
+    half = k // 2
+    part = ks.quantize_rows(x[:, half:].contiguous(), "uint8",
+                            row_range=rng)
+    assert torch.equal(part[0], own[0][:, half:])
+    assert torch.equal(part[2], own[2])
+
+
+def _dryrun_step_setup(dev, qconfig):
+    """The dry run's model quantized by ``qconfig`` on the card and a
+    batch of 4 (every quantized-matmul linear at 32 rows or more)."""
+    import sdnq_tpu_torch as T
+    from sdnq_tpu_torch.models.dit import DiTConfig, init_dit, make_rope_freqs
+    from sdnq_tpu_torch.parallel.dryrun import DRYRUN_CONFIG
+    cfg = DiTConfig(**DRYRUN_CONFIG)
+    g = _gen(33)
+    q, _ = T.quantize_model(init_dit(cfg, device=dev, generator=g),
+                            T.QuantConfig(**qconfig),
+                            arch="FluxTransformer2DModel", device=dev)
+    batch = dict(img=torch.randn(4, 16, 8, device=dev, generator=g),
+                 txt=torch.randn(4, 8, 64, device=dev, generator=g),
+                 timesteps=torch.rand(4, device=dev, generator=g),
+                 pooled=torch.randn(4, 32, device=dev, generator=g),
+                 target=torch.randn(4, 16, 8, device=dev, generator=g))
+    return cfg, q, batch, make_rope_freqs(cfg, 8, (4, 4), device=dev)
+
+
+@pytest.mark.parametrize("case,limits", [("fsdp", (1e-6, 1e-6)),
+                                         ("requant_row", (4e-4, 6.5e-2))])
+def test_virtual_rank_training_cases(dev, case, limits):
+    """On the card, over virtual ranks (``local_train_step``): the dry
+    run's int8 model with its linears fsdp-sharded (fsdp 2), and an int8
+    model in groups of 32 whose row-parallel weights are re-quantized for
+    the matmul against their whole rows (tensor 2, B1's given scale),
+    each against the unsharded step: the loss's relative difference and
+    the largest gradient error over its gradient's largest value within
+    ``limits`` (as ``tests/test_torch_tp.py``'s gloo cases: fsdp equal,
+    the re-quantized rows' codes move at ties)."""
+    from sdnq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from sdnq_tpu_torch.models.dit import dit_forward
+    from sdnq_tpu_torch.optim import adamw
+    from sdnq_tpu_torch.parallel import DIT_TP_RULES, shard_params
+    from sdnq_tpu_torch.parallel._collectives import run_virtual
+    from sdnq_tpu_torch.parallel.dryrun import local_train_step
+    from sdnq_tpu_torch.train import (
+        convert_model_to_training, extract_weight_grads,
+    )
+    from sdnq_tpu_torch.tree import tree_leaves
+    qc = dict(weights_dtype="int8", use_quantized_matmul=True,
+              dequant_dtype="float32")
+    if case == "fsdp":
+        shape, rules = {"fsdp": 2}, {k: "fsdp" for k in DIT_TP_RULES}
+    else:
+        shape, rules = {"tensor": 2}, DIT_TP_RULES
+        qc["group_size"] = 32
+    cfg, q, batch, freqs = _dryrun_step_setup(dev, qc)
+    tp = convert_model_to_training(q)
+    out = dit_forward(tp, batch["img"], batch["txt"], batch["timesteps"],
+                      batch["pooled"], cfg, freqs=freqs, device=dev)
+    loss = torch.nn.functional.mse_loss(out.float(), batch["target"])
+    loss.backward()
+    want = [g for g in tree_leaves(extract_weight_grads(tp))
+            if g is not None]
+    trees = run_virtual(lambda m: shard_params(convert_model_to_training(q),
+                                               m, rules), shape, "cuda")
+    opt = adamw(lr=1e-4)
+    states = [opt.init(convert_model_to_training(q)) for _ in trees]
+    grads = []
+    reset_launch_counts()
+    got_loss = local_train_step(trees, opt, states, batch, cfg, shape,
+                                freqs=freqs, device=dev, grads_out=grads)
+    counts = launch_counts()
+    got = [g for g in grads if g is not None]
+    assert len(got) == len(want) > 20
+    dl = abs(got_loss.item() - loss.item()) / loss.item()
+    dg = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+             for a, b in zip(got, want))
+    assert dl <= limits[0] and dg <= limits[1], (dl, dg)
+    assert counts["scaled_mm_tn"] > 0 and counts["scaled_gemm:nn"] > 0
+    if case == "requant_row":
+        assert counts["quantize_rows:given_scale"] > 0

@@ -75,7 +75,7 @@ def test_fault_tags_unique_and_counted():
     assert len(tags) >= 40
     slices = set(CS.SLICE_TOL) | set(CS.LLM_SLICE_TOL) | {
         "qlinear_b8", "train", "ring", "pipeline", "unet", "moe",
-        "sd15_fp16", "tp", "muon"}
+        "sd15_fp16", "tp", "muon", "tp_layers"}
     assert {f[3] for f in CS.FAULTS} <= slices
     assert {f[4] for f in CS.PY_FAULTS} <= slices
 

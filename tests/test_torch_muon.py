@@ -128,7 +128,12 @@ def test_quantized_newton_schulz_matches_jax(monkeypatch, shape, gram):
 
 def test_quantized_mm_counts_b4_and_raises_past_2_17(monkeypatch):
     """Each NS step is three B4 GEMMs (15 for the classic schedule), the
-    second operand transposed to (N, K); a contraction of 2^17 raises."""
+    second operand transposed to (N, K); a contraction past 2^17 (where an
+    int32 sum of int8 products may no longer be exact, so B4 adds the
+    int32 sums of its parts in int64) computes what the JAX package's
+    ``_make_mm`` computes, within one moved code's bound (the name is
+    kept from when the port raised there)."""
+    import jax.numpy as jnp
     from sdnq_tpu_torch.kernels import scaled_mm as ks
     calls = []
     real = ks.scaled_mm
@@ -142,9 +147,15 @@ def test_quantized_mm_counts_b4_and_raises_past_2_17(monkeypatch):
     assert len(calls) == 15
     assert calls[:3] == [((32, 64), (32, 64)), ((32, 32), (32, 32)),
                          ((32, 32), (64, 32))]
-    mm = tmuon._make_mm(True, torch.float32)
-    with pytest.raises(ValueError, match="2\\^17"):
-        mm(torch.zeros(1, 1 << 17), torch.zeros(1 << 17, 1))
+    k = (1 << 17) + 128
+    a, b = _g((4, k), 5), _g((k, 4), 6)
+    want = np.asarray(_jz()._make_mm(True, jnp.float32)(jnp.asarray(a),
+                                                         jnp.asarray(b)))
+    got = tmuon._make_mm(True, torch.float32)(torch.from_numpy(a),
+                                               torch.from_numpy(b)).numpy()
+    assert got.shape == want.shape == (4, 4)
+    assert np.abs(got - want).max() <= _flip_bound(
+        np.abs(a).max(), np.abs(b).sum(0).max())
 
 
 def _params(seed=0):

@@ -107,10 +107,10 @@ class _Build:
 
 
 def test_nn_workspace_kept_between_calls(monkeypatch):
-    """A split call's workspace is made once a build, device and stream,
-    its counters zeroed when made (the kernel leaves them 0, so no call
-    fills them), and reused while it is large enough; none without a
-    split."""
+    """A split call's counters are made once a build, device and stream,
+    zeroed when made (the kernel leaves them 0, so no call fills them), and
+    reused while they are large enough; its slabs, written before they are
+    read, are the call's own, of its plan's size; none without a split."""
     streams = iter([7] * 4 + [8])
     monkeypatch.setattr(tmm._build, "stream", lambda t: next(streams))
     fn, a = _Build(), torch.zeros(1, 18432, dtype=torch.int8)
@@ -119,12 +119,14 @@ def test_nn_workspace_kept_between_calls(monkeypatch):
     assert c.dtype == s.dtype == torch.int32 and not c.any()
     assert (c.numel(), s.numel()) == tmm.nn_work_ints(1, 3072, *plan)
     c2, s2 = tmm._nn_work(fn, 1, 3072, plan, a)
-    assert c2 is c and s2 is s
+    assert c2 is c and s2 is not s and s2.numel() == s.numel()
     small = tmm.nn_plan(1, 384, 18432, torch.int8, 132)   # fewer tiles
-    assert tmm._nn_work(fn, 1, 384, small, a)[1] is s
+    cs, ss = tmm._nn_work(fn, 1, 384, small, a)
+    assert cs is c and ss.numel() == tmm.nn_work_ints(1, 384, *small)[1]
     big = (1, 0, 16)   # more split tiles than the first plan's
     c3, s3 = tmm._nn_work(fn, 1, 12288, big, a)
-    assert c3 is not c and s3 is not s and not c3.any()
+    assert c3 is not c and not c3.any()
+    assert s3.numel() == tmm.nn_work_ints(1, 12288, *big)[1]
     c4, _ = tmm._nn_work(fn, 1, 3072, plan, a)   # another stream
     assert c4 is not c3 and c4 is not c
     assert tmm._nn_work(_Build(), 1, 3072, (1, 24, 1), a) == (None, None)
@@ -138,9 +140,9 @@ def test_nn_workspace_one_a_build(monkeypatch):
     a = torch.zeros(1, 9216, dtype=torch.int8)
     plan = tmm.nn_plan(1, 3072, 9216, torch.int8, 132)
     one, two = _Build(), _Build()
-    c1, s1 = tmm._nn_work(one, 1, 3072, plan, a)
-    c2, s2 = tmm._nn_work(two, 1, 3072, plan, a)
-    assert c1 is not c2 and s1 is not s2
+    c1, _ = tmm._nn_work(one, 1, 3072, plan, a)
+    c2, _ = tmm._nn_work(two, 1, 3072, plan, a)
+    assert c1 is not c2
     assert tmm._nn_work(one, 1, 3072, plan, a)[0] is c1
 
 

@@ -38,7 +38,39 @@ at its top, and run one thread each):
   parameter by about lr whatever its gradient's size, so a gradient near
   0 whose sign differs moves it by 2·lr);
 * ``dryrun_multichip(4)``'s loss equal to ``dryrun_multichip(1)``'s, and
-  ``launch(2, device="cpu")``'s (a spawn of its own).
+  ``launch(2, device="cpu")``'s (a spawn of its own);
+* the training step wherever JAX's GSPMD step computes (``TRAIN_CASES``,
+  each against the port's unsharded step on the dry run's model): the
+  asymmetric (uint8) family's grad-input under a column-parallel layer
+  (its ranges all-reduced), its input rows and re-quantized weight rows
+  under a row-parallel one, and its grad-weight under a data axis; a
+  grouped int8 weight re-quantized for the matmul under row parallelism
+  (B1's given-scale mode); the uint4 recipe (its packed row-parallel
+  layers replicated); the DiT's linears fsdp-sharded beside a data axis;
+  and the uint8 step at data 2 x tensor 2 also against JAX's GSPMD step
+  (``STEP_TOL``'s loss and gradients).  ``TRAIN_TOL`` gives each case's
+  limits.  A row-parallel layer's fp32 partial sums add in another order
+  than the unsharded sum, and an ulp there moves a dynamically quantized
+  code at a rounding tie downstream, as in ``tests/test_torch_dit.py``;
+  where no row-parallel sum is quantized after (fsdp) the step is equal;
+* a trainable linear that saves its input quantized (emitted by B1's
+  fused route, or quantized columnwise) under data 4, against the same
+  linear unsharded: its saved codes are quantized by the statistics of
+  every rank's tokens, so the loss agrees to 1e-6 and the weight
+  gradient to ``SAVED_TOL`` of its largest entry (fp32 sums in another
+  order); the input gradient, row by row, likewise;
+* one sharded statistic at a time, where the whole step's codes move at
+  ties: a trainable MLP (fc1 column parallel, fc2 row parallel, the
+  quantized matmul, bf16 activations) at tensor 2 and 4 on virtual ranks
+  and at tensor 4 on gloo, against the same layers unsharded on the same
+  input and cotangent (``LAYER_TOL``).  fc2's input rows and re-quantized
+  weight rows and fc1's grad-input operands are quantized by the whole
+  rows' and columns' statistics, so the output differs by fp32 sums in
+  another order, the weight gradients not at all, and the input
+  gradient, whose shards' fp32 partial sums are added before one
+  rounding to bf16, by fp32 sums (int8) or at most a bf16 ulp (uint8:
+  the unsharded layer rounds its product to bf16 before it adds the
+  zero points' rank-1 term).
 """
 
 import dataclasses
@@ -67,6 +99,72 @@ STEP_LR = 1e-3   # the update held against JAX's: large enough to move codes
 # about twice), the share of updated codes that differ (9.1e-3; as the
 # unsharded step's).
 STEP_TOL = {"loss": 5e-4, "grad": 6e-2, "codes": 2e-2}
+# The training cases (mesh, recipe, TP rules) against the port's unsharded
+# step on the dry run's model; the recipes' groups of 32 divide every
+# sharded input (uint8_g32 and int8_g32 are re-quantized for the matmul).
+TRAIN_RECIPES = {
+    "uint8_g32": dict(weights_dtype="uint8", group_size=32,
+                      use_quantized_matmul=True, dequant_dtype="float32"),
+    "uint8": dict(weights_dtype="uint8", use_quantized_matmul=True,
+                  dequant_dtype="float32"),
+    "int8_g32": dict(weights_dtype="int8", group_size=32,
+                     use_quantized_matmul=True, dequant_dtype="float32"),
+    "uint4_svd": dict(weights_dtype="uint4", use_svd=True, svd_rank=8,
+                      group_size=32, use_quantized_matmul=True,
+                      dequant_dtype="float32"),
+    "int8": dict(weights_dtype="int8", use_quantized_matmul=True,
+                 dequant_dtype="float32"),
+}
+# A batch of 16 gives every data rank's quantized-matmul linears at least
+# 32 rows, as the unsharded step's: the port picks the weight-only or the
+# quantized route by a rank's rows, JAX's GSPMD step by the global rows.
+TRAIN_BATCH = 16
+TRAIN_CASES = {
+    "t4_uint8_g32": (dict(tensor=4), "uint8_g32", "tp"),
+    "d4_uint8": (dict(data=4), "uint8", "tp"),
+    "d2t2_uint8_g32": (dict(data=2, tensor=2), "uint8_g32", "tp"),
+    "t4_int8_g32": (dict(tensor=4), "int8_g32", "tp"),
+    "t4_uint4_svd": (dict(tensor=4), "uint4_svd", "tp"),
+    "d2f2_int8": (dict(data=2, fsdp=2), "int8", "fsdp"),
+}
+# Each case's limits: the loss's relative difference and the largest
+# gradient error over that gradient's largest value, about twice the
+# readings on gloo (each rank on one thread, its unsharded reference
+# too): t4_uint8_g32 1.9e-4 and 4.7e-2, d4_uint8 1.2e-4 and 2.5e-2,
+# d2t2_uint8_g32 2.6e-6 and 1.6e-2, t4_int8_g32 1.8e-4 and 3.2e-2,
+# t4_uint4_svd 0 and 1.3e-3, d2f2_int8 9.7e-8 and 3.6e-7.  The codes
+# that move at ties make the gradients' readings: one code step of a
+# narrow layer's tensor is a large share of its largest entry; the
+# operands' quantization under each axis alone is exact to fp32 sums
+# (the column-parallel uint8 grad-input 1.3e-7, the data-sharded uint8
+# grad-weight 3.1e-7 of their largest entries).
+TRAIN_TOL = {
+    "t4_uint8_g32": (4e-4, 1e-1), "d4_uint8": (2.5e-4, 5e-2),
+    "d2t2_uint8_g32": (1e-5, 3.5e-2), "t4_int8_g32": (4e-4, 6.5e-2),
+    "t4_uint4_svd": (1e-6, 3e-3), "d2f2_int8": (2e-7, 1e-6),
+}
+# The trainable linear that saves its input quantized, under data 4: the
+# weight and input gradients' largest error over their largest entry
+# (fp32 sums in another order; read 2.0e-7 and 0, the loss 1.2e-7)
+SAVED_RECIPES = {
+    "int8_qmm": ("int8", True), "uint8_qmm": ("uint8", True),
+    "fp8_qmm": ("float8_e4m3fn", True), "int8_wo": ("int8", False),
+    "uint8_wo": ("uint8", False),
+}
+SAVED_TOL = 5e-7
+# The layer check's recipes (format, group size) and limits by family:
+# the output z, the input gradient gx (largest error over the largest
+# value, and the error's norm over the norm; the weight gradients are
+# equal).  About twice the readings at tensor 2 and 4, virtual and gloo:
+# uint8 z 1.1e-3 and 5.3e-5, gx 3.9e-3 and 2.8e-3; int8 z 1.7e-8 and
+# 1.0e-9, gx 2.4e-7 and 1.1e-8.  A shard quantized by its own statistics
+# reads about 1e-2 in the norm (fc2's rows: z; fc1's grad-input: gx).
+LAYER_RECIPES = {"uint8_g32": ("uint8", 32), "uint8": ("uint8", 0),
+                 "int8_g32": ("int8", 32), "int8": ("int8", 0)}
+LAYER_TOL = {
+    "uint8": dict(z_max=2.5e-3, z_rms=1.2e-4, gx_max=8e-3, gx_rms=6e-3),
+    "int8": dict(z_max=1e-7, z_rms=1e-8, gx_max=5e-7, gx_rms=5e-8),
+}
 
 
 def _inputs():
@@ -91,8 +189,8 @@ def _trees():
             for name, kw in RECIPES.items()}
 
 
-def _step_setup():
-    """The dry run's model (int8, fp32 dequant) and a batch of 4."""
+def _step_setup(b: int = 4):
+    """The dry run's model (int8, fp32 dequant) and a batch of ``b``."""
     import sdnq_tpu_torch as T
     from sdnq_tpu_torch.models.dit import DiTConfig, init_dit
     from sdnq_tpu_torch.parallel.dryrun import DRYRUN_CONFIG
@@ -101,12 +199,174 @@ def _step_setup():
         weights_dtype="int8", dequant_dtype="float32"),
         arch="FluxTransformer2DModel", device="cpu")
     g = torch.Generator().manual_seed(3)
-    batch = dict(img=torch.randn(4, 16, 8, generator=g),
-                 txt=torch.randn(4, 8, 64, generator=g),
-                 timesteps=torch.rand(4, generator=g),
-                 pooled=torch.randn(4, 32, generator=g),
-                 target=torch.randn(4, 16, 8, generator=g))
+    batch = dict(img=torch.randn(b, 16, 8, generator=g),
+                 txt=torch.randn(b, 8, 64, generator=g),
+                 timesteps=torch.rand(b, generator=g),
+                 pooled=torch.randn(b, 32, generator=g),
+                 target=torch.randn(b, 16, 8, generator=g))
     return cfg, q, batch
+
+
+def _train_trees():
+    """{recipe: the dry run's model quantized by ``TRAIN_RECIPES``}."""
+    import sdnq_tpu_torch as T
+    from sdnq_tpu_torch.models.dit import DiTConfig, init_dit
+    from sdnq_tpu_torch.parallel.dryrun import DRYRUN_CONFIG
+    p = init_dit(DiTConfig(**DRYRUN_CONFIG), device="cpu")
+    return {name: T.quantize_model(p, T.QuantConfig(**kw),
+                                   arch="FluxTransformer2DModel",
+                                   device="cpu")[0]
+            for name, kw in TRAIN_RECIPES.items()}
+
+
+def _case_rules(kind):
+    from sdnq_tpu_torch.parallel import DIT_TP_RULES
+    return (DIT_TP_RULES if kind == "tp"
+            else {k: "fsdp" for k in DIT_TP_RULES})
+
+
+def _step_grads(q, mesh=None, rules=None):
+    """One step's loss and whole gradients (``tree_leaves`` order) of
+    the dry run's model ``q`` on ``_step_setup``'s batch of TRAIN_BATCH:
+    unsharded, or sharded by ``rules`` over ``mesh`` (every rank calls
+    it)."""
+    from sdnq_tpu_torch.models.dit import dit_forward, make_rope_freqs
+    from sdnq_tpu_torch.parallel import shard_params
+    from sdnq_tpu_torch.parallel.dryrun import dit_loss, whole_grads
+    from sdnq_tpu_torch.train import (
+        convert_model_to_training, extract_weight_grads,
+    )
+    from sdnq_tpu_torch.tree import tree_leaves
+    cfg, _, batch = _step_setup(TRAIN_BATCH)
+    freqs = make_rope_freqs(cfg, 8, (4, 4), device="cpu")
+    tp = convert_model_to_training(q)
+    if mesh is None:
+        out = dit_forward(tp, batch["img"], batch["txt"], batch["timesteps"],
+                          batch["pooled"], cfg, freqs=freqs, device="cpu")
+        loss = torch.nn.functional.mse_loss(out.float(), batch["target"])
+        loss.backward()
+        grads = tree_leaves(extract_weight_grads(tp))
+    else:
+        sh = shard_params(tp, mesh, rules)
+        loss = dit_loss(sh, batch, cfg, mesh, freqs, device="cpu")
+        loss.backward()
+        grads = whole_grads(sh)
+        loss = mesh.comm("data").mean(loss.detach())
+    return dict(loss=float(loss),
+                grads=[None if g is None else g.numpy() for g in grads])
+
+
+def _layer_mlp(p, x):
+    from sdnq_tpu_torch.models.dit import _lin
+    return _lin(p["fc2"], torch.nn.functional.gelu(_lin(p["fc1"], x),
+                                                   approximate="tanh"))
+
+
+def _layer_readings(recipe, shape=None, mesh=None):
+    """The layer check (``LAYER_TOL``'s keys, and ``gw_equal``): the
+    ``LAYER_RECIPES`` MLP (128 -> 512 -> 128, 96 tokens) forward and
+    backward sharded over a tensor axis, on virtual ranks of ``shape`` or
+    on this process's rank of ``mesh``, against the same layers
+    unsharded."""
+    import sdnq_tpu_torch as T
+    from sdnq_tpu_torch.parallel import shard_params
+    from sdnq_tpu_torch.parallel._collectives import run_virtual
+    from sdnq_tpu_torch.parallel.dryrun import whole_grads
+    from sdnq_tpu_torch.parallel.tp import local_tree
+    from sdnq_tpu_torch.train import (
+        convert_model_to_training, extract_weight_grads,
+    )
+    from sdnq_tpu_torch.tree import tree_leaves
+    fmt, group = LAYER_RECIPES[recipe]
+    g = torch.Generator().manual_seed(5)
+    tree = {k: {"weight": T.quantize_tensor(
+        torch.randn(o, i, generator=g) * 0.05, fmt, group_size=group,
+        use_quantized_matmul=True, dequant_dtype="float32"),
+        "bias": torch.randn(o, generator=g) * 0.01}
+        for k, (o, i) in (("fc1", (512, 128)), ("fc2", (128, 512)))}
+    x = torch.randn(96, 128, generator=g).bfloat16()
+    gz = torch.randn(96, 128, generator=g)
+    rules = {"fc1": "col", "fc2": "row"}
+
+    def run(p, xx):
+        z = _layer_mlp(p, xx)
+        return z, (z.float() * gz).sum()
+    t = convert_model_to_training(tree)
+    x0 = x.clone().requires_grad_()
+    z0, loss = run(t, x0)
+    loss.backward()
+    g0 = tree_leaves(extract_weight_grads(t))
+    t = convert_model_to_training(tree)
+    if mesh is not None:
+        sh = shard_params(t, mesh, rules)
+        x1 = x.clone().requires_grad_()
+        z1, loss = run(local_tree(sh), x1)
+        loss.backward()
+        g1 = whole_grads(sh)
+    else:
+        shs = run_virtual(lambda m: shard_params(t, m, rules), shape, "cpu")
+        xs = [x.clone().requires_grad_() for _ in shs]
+        outs = run_virtual(lambda m: run(local_tree(shs[m.index]),
+                                         xs[m.index]), shape, "cpu")
+        torch.stack([o[1] for o in outs]).sum().backward()
+        with torch.no_grad():
+            g1 = run_virtual(lambda m: whole_grads(shs[m.index]), shape,
+                             "cpu")[0]
+        z1, x1 = outs[0][0], xs[0]
+
+    def rd(a, b):
+        a, b = a.detach().float(), b.detach().float()
+        return (float((a - b).abs().max() / b.abs().max()),
+                float((a - b).norm() / b.norm()))
+    (z_max, z_rms), (gx_max, gx_rms) = rd(z1, z0), rd(x1.grad, x0.grad)
+    pairs = [(a, b) for a, b in zip(g1, g0) if b is not None]
+    return dict(z_max=z_max, z_rms=z_rms, gx_max=gx_max, gx_rms=gx_rms,
+                gw_equal=len(pairs) == 4 and all(
+                    a is not None and torch.equal(a, b) for a, b in pairs))
+
+
+def _layers_within(r, recipe):
+    tol = LAYER_TOL[LAYER_RECIPES[recipe][0]]
+    assert r["gw_equal"], r
+    for k, lim in tol.items():
+        assert r[k] <= lim, (k, r)
+
+
+def _saved_weights():
+    """{recipe: a (64, 96) trainable linear's QTensor}, and its input
+    (192, 96) bf16 and target."""
+    import sdnq_tpu_torch as T
+    g = torch.Generator().manual_seed(11)
+    w = torch.randn(64, 96, generator=g) * 0.1
+    x = torch.randn(192, 96, generator=g).bfloat16()
+    t = torch.randn(192, 64, generator=g)
+    return {name: T.quantize_tensor(w, fmt, use_quantized_matmul=qmm)
+            for name, (fmt, qmm) in SAVED_RECIPES.items()}, x, t
+
+
+def _saved_step(qt, x, t, mesh=None):
+    """The trainable linear over ``x`` (this rank's rows under ``mesh``'s
+    data axis) saving its input quantized: loss, weight and input
+    gradients, as the unsharded step gives them."""
+    from sdnq_tpu_torch.parallel import shard_batch
+    from sdnq_tpu_torch.train.matmul import (
+        TrainQTensor, grad_carrier, token_stats_reduced, train_qlinear,
+    )
+    w = TrainQTensor(qt=qt, delta=grad_carrier(qt.meta.original_shape,
+                                               "cpu"))
+    comm = None if mesh is None else mesh.comm("data")
+    if comm is not None:
+        x, t = shard_batch(x, mesh), shard_batch(t, mesh)
+    x = x.clone().requires_grad_()
+    with token_stats_reduced(comm):
+        y = train_qlinear(x, w, save_quantized_activations=True)
+    loss = ((y.float() - t) ** 2).mean()
+    loss.backward()
+    gw, gx = w.delta.grad, x.grad.float()
+    if comm is not None:   # the data axis's mean of each rank's gradients
+        loss, gw = comm.mean(loss.detach()), comm.mean(gw)
+        gx = comm.gather(gx, 0) / comm.size
+    return dict(loss=float(loss), gw=gw.numpy(), gx=gx.numpy())
 
 
 def _batcher_run(mesh):
@@ -199,6 +459,23 @@ def _run_cases(cases):
                    grads)
     res["step_no_sr"] = unshard_params(sh)
     res["dryrun"] = dryrun_multichip(dist.get_world_size(), device="cpu")
+    # the training cases and their unsharded references, each rank on one
+    # thread as the sharded steps (BLAS's sums may differ between thread
+    # counts)
+    for name, (shape, recipe, kind) in TRAIN_CASES.items():
+        res[f"train/{name}"] = _step_grads(
+            cases["train"][recipe], create_mesh(device="cpu", **shape),
+            _case_rules(kind))
+    for recipe, q in cases["train"].items():
+        res[f"train_ref/{recipe}"] = _step_grads(q)
+    mesh = create_mesh(data=4, device="cpu")
+    qts, x, t = cases["saved"]
+    for name, qt in qts.items():
+        res[f"saved/{name}"] = _saved_step(qt, x, t, mesh)
+        res[f"saved_ref/{name}"] = _saved_step(qt, x, t)
+    mesh = create_mesh(tensor=4, device="cpu")
+    for name in LAYER_RECIPES:
+        res[f"layers/{name}"] = _layer_readings(name, mesh=mesh)
     return res
 
 
@@ -263,7 +540,8 @@ def _moe_case():
 def setup(tmp_path_factory):
     trees = _trees()
     jmoe, tmoe = _moe_case()
-    cases = {"inputs": _inputs(), "trees": trees, "moe": tmoe}
+    cases = {"inputs": _inputs(), "trees": trees, "moe": tmoe,
+             "train": _train_trees(), "saved": _saved_weights()}
     ranks = _spawn(4, cases, str(tmp_path_factory.mktemp("tp")))
     return cases, jmoe, ranks
 
@@ -322,6 +600,18 @@ def jax_step():
     port's quantized tree (the same bytes) and the same batch: the loss,
     the whole gradients (``tree_leaves`` order, a TrainQTensor's
     ``delta``), and the leaves after AdamW with SR off at STEP_LR."""
+    return _jax_step(_step_setup()[1])
+
+
+@pytest.fixture(scope="module")
+def jax_step_uint8(setup):
+    """``jax_step`` on the uint8 (groups of 32, quantized matmul) tree of
+    ``TRAIN_CASES``'s d2t2_uint8_g32 case, the same bytes."""
+    return _jax_step(setup[0]["train"]["uint8_g32"], update=False,
+                     b=TRAIN_BATCH)
+
+
+def _jax_step(q, update=True, b=4):
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -334,7 +624,7 @@ def jax_step():
         TrainQTensor, convert_model_to_training, value_and_grad,
     )
     from sdnq_tpu_torch.parallel.dryrun import DRYRUN_CONFIG
-    _, q, batch = _step_setup()
+    batch = _step_setup(b)[2]
     cfg = DiTConfig(**DRYRUN_CONFIG)
     mesh = create_mesh(data=2, tensor=2, devices=jax.devices()[:4])
     ds = NamedSharding(mesh, P("data"))
@@ -355,10 +645,15 @@ def jax_step():
 
     with jax.set_mesh(mesh):
         jt = shard_params(convert_model_to_training(_to_jax(q)), mesh, JR)
-        loss, grads, new, _ = step(jt, opt.init(jt))
+        if update:
+            loss, grads, new, _ = step(jt, opt.init(jt))
+        else:
+            loss, grads = jax.jit(value_and_grad(loss_fn))(jt)
     is_j = (lambda x: isinstance(x, (TrainQTensor, QTensor)))
     grads = [np.asarray(g.delta if isinstance(g, TrainQTensor) else g)
              for g in jax.tree_util.tree_leaves(grads, is_leaf=is_j)]
+    if not update:
+        return float(loss), grads
     new = [(np.asarray(x.qt.qdata), np.asarray(x.qt.scale))
            if isinstance(x, TrainQTensor) else np.asarray(x)
            for x in jax.tree_util.tree_leaves(new, is_leaf=is_j)]
@@ -584,3 +879,80 @@ def test_virtual_ranks_take_turns():
     for seen in out:
         assert seen == [[float(r * 100 + i) for r in range(16)]
                         for i in range(50)]
+
+
+def _within(got, want, loss_tol, grad_tol):
+    """The step's readings against the reference: (loss's relative
+    difference, the largest gradient error over that gradient's largest
+    value), each held to its limit."""
+    dl = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    gg = [g for g in got["grads"] if g is not None]
+    ww = [w for w in want["grads"] if w is not None]
+    assert len(gg) == len(ww) > 20
+    dg = 0.0
+    for g, w in zip(gg, ww):
+        assert g.shape == w.shape
+        dg = max(dg, float(np.abs(g - w).max()
+                           / max(float(np.abs(w).max()), 1e-30)))
+    assert dl <= loss_tol and dg <= grad_tol, (dl, dg)
+
+
+@pytest.mark.parametrize("case", list(TRAIN_CASES))
+def test_train_step_against_unsharded(setup, case):
+    """The TP, DP and fsdp step where the port raised before (the
+    asymmetric family's ranges, a row-parallel weight re-quantized for
+    the matmul, fsdp layers in training) against the unsharded step."""
+    _, _, ranks = setup
+    _, recipe, _ = TRAIN_CASES[case]
+    for r in ranks:
+        _within(r[f"train/{case}"], r[f"train_ref/{recipe}"],
+                *TRAIN_TOL[case])
+
+
+def test_train_step_uint8_against_jax(setup, jax_step_uint8):
+    """The uint8 family (groups of 32, quantized matmul) at data 2 x
+    tensor 2 against JAX's GSPMD step on the same bytes and batch, at
+    ``STEP_TOL``'s loss and gradient limits."""
+    _, _, ranks = setup
+    loss, grads = jax_step_uint8
+    for r in ranks:
+        _within(r["train/d2t2_uint8_g32"], dict(loss=loss, grads=grads),
+                STEP_TOL["loss"], STEP_TOL["grad"])
+
+
+@pytest.mark.parametrize("t_size", [2, 4])
+@pytest.mark.parametrize("recipe", list(LAYER_RECIPES))
+def test_sharded_layers_against_unsharded(recipe, t_size):
+    """The layer check on virtual ranks (``LAYER_TOL``): each sharded
+    statistic makes the layers' output and gradients the unsharded
+    layers' but for fp32 sums in another order."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # as the gloo ranks
+    try:
+        r = _layer_readings(recipe, {"tensor": t_size})
+    finally:
+        torch.set_num_threads(threads)
+    _layers_within(r, recipe)
+
+
+@pytest.mark.parametrize("recipe", list(LAYER_RECIPES))
+def test_sharded_layers_on_gloo(setup, recipe):
+    """The layer check on the gloo ranks at tensor 4 (``LAYER_TOL``)."""
+    _, _, ranks = setup
+    for r in ranks:
+        _layers_within(r[f"layers/{recipe}"], recipe)
+
+
+@pytest.mark.parametrize("recipe", list(SAVED_RECIPES))
+def test_saved_activations_under_data_axis(setup, recipe):
+    """A trainable linear saving its input quantized (B1's emitted codes
+    on the fused route, else columnwise) under data 4, against the same
+    linear unsharded: loss within 1e-6, the weight and input gradients
+    within ``SAVED_TOL`` of their largest entries."""
+    _, _, ranks = setup
+    for r in ranks:
+        got, want = r[f"saved/{recipe}"], r[f"saved_ref/{recipe}"]
+        assert abs(got["loss"] - want["loss"]) <= 1e-6 * want["loss"]
+        for k in ("gw", "gx"):
+            err = np.abs(got[k] - want[k]).max() / np.abs(want[k]).max()
+            assert err <= SAVED_TOL, (k, err)
